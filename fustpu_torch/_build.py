@@ -1,0 +1,88 @@
+"""Builds the CUDA sources of ``fustpu_torch/csrc`` into a shared library
+with a plain C interface, at first use, and loads it with ctypes.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o fustpu_torch/_build/libfustpu_torch_<hash>.so
+         fustpu_torch/csrc/*.cu
+
+The library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and a built one is reused.  A failed build raises.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfustpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the sources unless this exact build exists.  Returns the
+    library path and the seconds spent compiling (0 when reused)."""
+    lib = library_path()
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({out.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out.stdout}\n{out.stderr}")
+    os.replace(tmp, lib)           # atomic: concurrent builds agree
+    return lib, time.perf_counter() - t0
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the C entry
+    points' argument types (pointers and the stream as void*, sizes as
+    int, so that ctypes never truncates a pointer)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in ("fustpu_stiffness_f32", "fustpu_stiffness_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    for name in ("fustpu_stiffness_pair_f32", "fustpu_stiffness_pair_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    return lib

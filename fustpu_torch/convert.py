@@ -1,0 +1,120 @@
+"""Move operator data and solver state from the JAX package's layouts into
+the port's.
+
+The functions take numpy arrays (``np.asarray`` of the JAX package's pytree
+leaves) and never see a JAX object.
+
+- `stiffness_from_fustpu` accepts the arrays of a matmul-form operator
+  (``MMStiffness``: W, Dt, G (6, ex, ey, ez)), of the fused-kernel operator
+  (``PallasStiffness``: G (ncx, n, 6, ey, ez) and ``D_host``) or of its
+  pair form (``PallasStiffnessPair``: plus C (ncx, 2, ncy, ncz)), and
+  returns the port's (cells, 6, n^3) G, D and per-cell coefficients.
+- `model_from_fustpu` builds a port model whose buffers are a JAX model's
+  ``params`` (no host assembly) and moves an ``RKState`` across.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fustpu_torch.models.discretization import StructuredStiffness
+from fustpu_torch.models.timestepping import RKState
+from fustpu_torch.ops import cuda_stiffness as cs
+
+
+class HostStiffness(NamedTuple):
+    """Stiffness operator data in the kernel layout, float64 host."""
+
+    G: np.ndarray                    # (cells, 6, n^3)
+    D: np.ndarray                    # (n, n)
+    coeff: np.ndarray | None         # (cells,) coefficient not yet in G
+    C: np.ndarray | None             # (cells, 2) pair coefficients
+
+    def to_device(self, dtype: torch.dtype, device, nc) -> cs.CellStiffness:
+        """The operator on `device`, any single coefficient folded into G."""
+        G = self.G if self.coeff is None else self.G * self.coeff[:, None,
+                                                                 None]
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=device)
+        return cs.CellStiffness(G=t(G), D=t(self.D), nc=tuple(nc),
+                                C=None if self.C is None else t(self.C))
+
+
+def _cells_from_expanded(a: np.ndarray, n: int) -> np.ndarray:
+    """(ex, ey, ez) per-cell field repeated n-fold -> (cells,)."""
+    return np.ascontiguousarray(np.asarray(a, np.float64)[::n, ::n, ::n]
+                                ).reshape(-1)
+
+
+def stiffness_from_fustpu(G, nc, *, D=None, Dt=None, C=None, coeff_e=None,
+                          c1_e=None, c2_e=None) -> HostStiffness:
+    """G: (6, ex, ey, ez) of an MMStiffness or (ncx, n, 6, ey, ez) of a
+    PallasStiffness(Pair).  D: the (n, n) ``D_host``, or Dt: the three
+    block-diagonal derivative matrices of an MMStiffness.  C: the pair
+    operator's (ncx, 2, ncy, ncz) coefficients.  coeff_e / (c1_e, c2_e):
+    the expanded per-cell coefficient fields the matmul path applies at run
+    time (linear, or Westervelt pair)."""
+    G = np.asarray(G, np.float64)
+    ncx, ncy, ncz = nc
+    if G.ndim == 4:                                  # (6, ex, ey, ez)
+        n = G.shape[1] // ncx
+        Gc = G.reshape(6, ncx, n, ncy, n, ncz, n).transpose(1, 3, 5, 0, 2,
+                                                            4, 6)
+    elif G.ndim == 5:                                # (ncx, n, 6, ey, ez)
+        n = G.shape[1]
+        Gc = G.reshape(ncx, n, 6, ncy, n, ncz, n).transpose(0, 3, 5, 2, 1,
+                                                            4, 6)
+    else:
+        raise ValueError(f"unrecognised stiffness G of shape {G.shape}")
+    Gc = np.ascontiguousarray(Gc).reshape(ncx * ncy * ncz, 6, n ** 3)
+    if D is None:
+        if Dt is None:
+            raise ValueError("need D (D_host) or Dt")
+        D = np.asarray(Dt[0], np.float64)[:n, :n]
+    coeff = None if coeff_e is None else _cells_from_expanded(coeff_e, n)
+    if C is not None:
+        C = np.asarray(C, np.float64).transpose(0, 2, 3, 1).reshape(-1, 2)
+    elif c1_e is not None:
+        C = np.stack([_cells_from_expanded(c1_e, n),
+                      _cells_from_expanded(c2_e, n)], axis=1)
+    return HostStiffness(G=Gc, D=np.asarray(D, np.float64), coeff=coeff,
+                         C=C)
+
+
+def state_from_fustpu(state, dtype: torch.dtype, device) -> RKState:
+    """(u, v, ku, kv, t) numpy arrays -> the port's RKState (t a float)."""
+    u, v, ku, kv, t = state
+    f = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return RKState(u=f(u), v=f(v), ku=f(ku), kv=f(kv), t=float(t))
+
+
+def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
+                      source, source_facets, dtype: torch.dtype, device):
+    """A port model of class `cls` (LinearWaveModel or WesterveltModel)
+    whose buffers are the JAX model's `params`, as numpy arrays:
+    ``params["stiff"]`` is a dict of the keyword arrays of
+    `stiffness_from_fustpu`, and the expanded coefficient fields c2_e
+    (linear) or c3_e / c4_e (Westervelt) are given where the JAX model
+    holds them.  `state` (u, v, ku, kv, t) is moved across too.  Returns
+    (model, state or None)."""
+    model = cls.__new__(cls)
+    torch.nn.Module.__init__(model)
+    model._setup(mesh, material, source, source_facets, dtype, device,
+                 "auto")
+    stiff = dict(params["stiff"])
+    # only the matmul layout applies the coefficient fields at run time;
+    # the fused-kernel layouts fold them into G or carry them in C
+    if np.ndim(stiff["G"]) == 4 and "c2_e" in params:
+        stiff["coeff_e"] = params["c2_e"]
+    if np.ndim(stiff["G"]) == 4 and "c3_e" in params:
+        stiff["c1_e"], stiff["c2_e"] = params["c3_e"], params["c4_e"]
+    op = stiffness_from_fustpu(nc=mesh.nc, **stiff)
+    model.stiffness = StructuredStiffness(
+        op.to_device(dtype, model.device, mesh.nc), model.impl)
+    model._load_vectors({k: params.get(k) for k in cls.VECTORS})
+    if state is not None:
+        state = state_from_fustpu(state, dtype, model.device)
+    return model, state

@@ -1,0 +1,142 @@
+"""Flagship: H131-class focused transducer at ~100 W in water, Westervelt
+nonlinear propagation (1.1 MHz, beta = 3.5, alpha = 0.2 dB/m, source
+velocity 0.3856 m/s, every boundary facet outside the aperture absorbing).
+
+Two bowl realisations (--geometry):
+- `conformal` (default): a body-fitted spherical-cap mesh; the x- face of a
+  deformed box is morphed onto the H131 cap and the transducer is a
+  constant-velocity source on the curved patch;
+- `phased`: flat aperture with per-node focus delays.
+H131 geometry: aperture radius 16 mm, focal length 35 mm.  `--two-layer`
+adds a soft-tissue layer past x = 20 mm (heterogeneous Westervelt, the
+pair stiffness kernel).
+
+    python -m fustpu_torch.demos.nonlinear_bowl [--elements N] [--degree P]
+        [--geometry conformal|phased] [--two-layer] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from fustpu_torch.config import Material, Source
+from fustpu_torch.demos.common import (check_device, demo_argparser,
+                                       pick_dtype, run_demo)
+from fustpu_torch.mesh.box import build_box_mesh, build_mapped_mesh
+from fustpu_torch.models import sources
+from fustpu_torch.models.westervelt import WesterveltModel
+from fustpu_torch.utils import eval as fev
+
+
+def bowl_mapping(focal_length, aperture_radius, yc, zc, Lx):
+    """Morph the x- face onto the spherical cap x_s(r) = F - sqrt(F^2-r^2)
+    (apex at the origin, rim towards the focus), tapering the displacement
+    to zero by x = Lx/2 and beyond ~1.4 aperture radii."""
+
+    def mapping(p):
+        q = p.copy()
+        r = np.sqrt((p[:, 1] - yc) ** 2 + (p[:, 2] - zc) ** 2)
+        rc = np.minimum(r, aperture_radius)
+        sag = focal_length - np.sqrt(focal_length**2 - rc**2)
+        # smooth radial taper beyond the aperture
+        t = np.clip((1.4 * aperture_radius - r) / (0.4 * aperture_radius),
+                    0.0, 1.0)
+        decay = np.clip(1.0 - 2.0 * p[:, 0] / Lx, 0.0, 1.0)
+        q[:, 0] = p[:, 0] + sag * t * decay
+        return q
+
+    return mapping
+
+
+def parser():
+    p = demo_argparser(degree=6, periods=8.0)
+    p.add_argument("--geometry", choices=["conformal", "phased"],
+                   default="conformal")
+    p.add_argument("--two-layer", action="store_true",
+                   help="water -> soft-tissue layer (c=1560, rho=1045) "
+                        "past x=20 mm: heterogeneous Westervelt, the pair "
+                        "stiffness kernel")
+    return p
+
+
+def build(args):
+    """(model, dt, number of steps, focus point) for the parsed
+    arguments."""
+    mat = Material(sound_speed=1480.0, density=1000.0, nonlinearity=3.5,
+                   attenuation_dB=0.2)
+    source_velocity = 0.38557513826589934        # m/s (100 W drive)
+    amplitude = mat.density * mat.sound_speed * source_velocity
+    src = Source(frequency=1.1e6, amplitude=amplitude)
+
+    domain_length = 0.08                         # m
+    aperture_radius = 0.016                      # H131: 32 mm aperture
+    focal_length = 0.035                         # H131: 35 mm focus
+    Lt = 0.05                                    # transverse extent
+    wavelength = mat.sound_speed / src.frequency
+    nex = args.elements or int(2 * domain_length / wavelength)
+    net = max(8, int(round(nex * Lt / domain_length / 8)) * 8)
+    yc = zc = Lt / 2
+    focus = np.array([focal_length, yc, zc])
+    in_aperture = lambda c: ((c[:, 1] - yc) ** 2
+                             + (c[:, 2] - zc) ** 2) < aperture_radius**2
+    if args.geometry == "phased":
+        mesh = build_box_mesh((nex, net, net), args.degree,
+                              hi=(domain_length, Lt, Lt))
+    else:
+        mesh = build_mapped_mesh(
+            (nex, net, net), args.degree,
+            bowl_mapping(focal_length, aperture_radius, yc, zc,
+                         domain_length),
+            hi=(domain_length, Lt, Lt))
+    aperture = mesh.boundary_facets("x-", predicate=in_aperture)
+    # absorbing on every boundary facet except the source aperture
+    absorbing = np.concatenate(
+        [mesh.boundary_facets("x-", predicate=lambda c: ~in_aperture(c))]
+        + [mesh.boundary_facets(p) for p in ["x+", "y-", "y+", "z-", "z+"]])
+    print(f"degree {args.degree}, {args.geometry} bowl, "
+          f"Number of degrees-of-freedom: {mesh.ndofs}")
+    if len(aperture) == 0:
+        raise SystemExit("aperture selected no facets: increase --elements "
+                         "so facet centroids resolve the 16 mm radius")
+    print(f"aperture facets: {len(aperture)}")
+
+    delays = (None if args.geometry != "phased" else
+              (lambda pts: sources.focus_delays(pts, focus, 1480.0)))
+    if args.two_layer:
+        cent = mesh.cell_corners_flat.mean(axis=1)
+        tissue = cent[:, 0] > 0.02
+        mat = Material(
+            sound_speed=np.where(tissue, 1560.0, 1480.0).reshape(mesh.nc),
+            density=np.where(tissue, 1045.0, 1000.0).reshape(mesh.nc),
+            nonlinearity=3.5, attenuation_dB=0.2)
+        print(f"two-layer medium (interface x=20 mm, "
+              f"{int(tissue.sum())} tissue cells)")
+    model = WesterveltModel(mesh, mat, src, aperture, absorbing,
+                            dtype=pick_dtype(args.dtype), device=args.device,
+                            source_delays=delays)
+    dt, _ = model.cfl_dt(0.4)
+    tf = (domain_length / float(np.min(mat.sound_speed))
+          + args.periods / src.frequency)
+    nsteps = int(tf / dt) + 1
+    print(f"Number of steps: {nsteps}")
+    return model, dt, nsteps, focus
+
+
+def focal_pressure(model, state, focus) -> float:
+    """The pressure (u) at the focus, evaluated on the host."""
+    u = state.u.detach().cpu().double().numpy()
+    return float(fev.evaluate(model.mesh, u, focus[None, :])[0])
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    check_device(args)
+    model, dt, nsteps, focus = build(args)
+    state = run_demo(model, dt, nsteps, args, "nonlinear_bowl")
+    p = focal_pressure(model, state, focus)
+    print(f"pressure at focus: {p:.1f} Pa")
+    return model, state, p
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,173 @@
+"""Spectral-element discretization of a structured box mesh: host-side
+(float64 numpy) geometry, facet blocks and diagonal assembly, and the
+stiffness operator on the device.
+
+With GLL collocation every mass-type operator (cell or facet) is globally
+diagonal, so each fixed coefficient field yields a precomputed diagonal
+vector and an apply is one elementwise multiply (`mass_diag_host` /
+`facet_diag_host`).  The stiffness operator is `StructuredStiffness`: the
+CUDA kernels on a CUDA device, or the matmul formulation.  Counterpart of
+the structured parts of ``fustpu/models/discretization.py``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from fustpu_torch.ops import cuda_stiffness as cs
+from fustpu_torch.ops import precompute as pre
+from fustpu_torch.ops import spectral_mm as mm
+
+_LATER_SLICES = {
+    "pallas_corner": "the corner-streamed capacity mode is slice 4 of the "
+                     "port",
+    "extruded": "imported prismatic meshes are slice 2 of the port",
+    "extruded_pallas": "imported prismatic meshes are slice 2 of the port",
+    "extruded_pallas_corner": "imported prismatic meshes (capacity mode) "
+                              "are slices 2 and 4 of the port",
+    "indexed": "non-prismatic unstructured meshes are slice 3 of the port",
+    "indexed_engine": "non-prismatic unstructured meshes are slice 3 of "
+                      "the port",
+}
+
+
+class FacetBlock(NamedTuple):
+    """A set of boundary facets with geometry factors (host arrays)."""
+
+    cells: np.ndarray          # (nf,) owning cell
+    dofmap_host: np.ndarray    # (nf, n^2) flat global node indices
+    detJ_host: np.ndarray      # (nf, n^2) float64
+
+    @property
+    def num_facets(self) -> int:
+        return self.cells.shape[0]
+
+
+class Discretization:
+    """Host geometry factors and facet machinery for one box mesh."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.P = mesh.degree
+        self._detJ_host = pre.cell_detJ(mesh)              # (cells, n^3)
+        self._D_host = mesh.element.deriv_1d
+
+    @functools.cached_property
+    def _G_host(self) -> np.ndarray:
+        """(cells, n^3, 6) metric factors, float64 host, computed on first
+        use."""
+        return pre.cell_geometry_factors(self.mesh)[1]
+
+    # ---- facets -----------------------------------------------------------
+    def facet_block(self, boundary_data: np.ndarray) -> FacetBlock:
+        bd = np.asarray(boundary_data, np.int64).reshape(-1, 2)
+        return FacetBlock(cells=bd[:, 0].copy(),
+                          dofmap_host=self.mesh.facet_dofmap(bd),
+                          detJ_host=pre.facet_geometry_factors(self.mesh, bd))
+
+    def facet_points(self, block: FacetBlock) -> np.ndarray:
+        """(nf, n^2, 3) physical coordinates of facet nodes."""
+        return self.mesh.node_coords.reshape(-1, 3)[block.dofmap_host]
+
+    # ---- host-side float64 diagonal assembly ------------------------------
+    def mass_diag_host(self, cell_coeff=None) -> np.ndarray:
+        """Global diagonal of the mass operator for a per-cell coefficient
+        field, float64 on host, grid-shaped."""
+        coeff = None if cell_coeff is None else np.asarray(
+            cell_coeff).reshape(self.mesh.nc)
+        return mm.mass_diagonal(self.mesh.nc, self.P, self._detJ_host, coeff)
+
+    def facet_diag_host(self, block: FacetBlock, facet_coeff,
+                        node_weights: np.ndarray | None = None
+                        ) -> np.ndarray:
+        """Global diagonal of a facet-mass operator (float64 host).  Also
+        the precomputed source vector: the source field is g(t) times this
+        vector.  Optional per-facet-node `node_weights` (nf, n^2) support
+        apodised / phased apertures."""
+        vals = block.detJ_host * np.asarray(facet_coeff)[:, None]
+        if node_weights is not None:
+            vals = vals * node_weights
+        y = np.zeros(self.mesh.ndofs)
+        np.add.at(y, block.dofmap_host.ravel(), vals.ravel())
+        return y.reshape(self.mesh.grid_shape)
+
+    # ---- stiffness --------------------------------------------------------
+    def stiffness_op(self, dtype: torch.dtype, device, coeff=None,
+                     pair=None) -> cs.CellStiffness:
+        """The stiffness operator in the kernel layout, on `device`:
+        `coeff` (per-cell) is folded into G; `pair` = (c1, c2) per-cell
+        fields makes a unit-G pair operator."""
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        C = None
+        if pair is not None:
+            C = t(np.stack([np.broadcast_to(np.asarray(c, np.float64),
+                                            self.mesh.nc).reshape(-1)
+                            for c in pair], axis=1))
+        return cs.CellStiffness(G=t(cs.pack_G(self._G_host, coeff)),
+                                D=t(self._D_host), nc=tuple(self.mesh.nc),
+                                C=C)
+
+
+def resolve_stiffness_impl(impl: str, device) -> str:
+    """'auto' is the CUDA kernel on a CUDA device and the plain matmul
+    version elsewhere; 'mm' forces the plain version."""
+    if impl in _LATER_SLICES:
+        raise NotImplementedError(f"stiffness_impl={impl!r}: "
+                                  f"{_LATER_SLICES[impl]}")
+    if impl == "mm":
+        return "mm"
+    if impl == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "mm"
+    raise ValueError(f"stiffness_impl={impl!r}: expected 'auto' or 'mm'")
+
+
+class StructuredStiffness(nn.Module):
+    """The stiffness operator as buffers in the layout its implementation
+    reads: the kernel layout for 'cuda', the matmul layout for 'mm'.
+    ``StructuredStiffness(op.cell_op, "mm")`` is the plain version of a
+    kernel-layout operator `op`, with the same numbers.
+    `forward(x)` is the single-field apply, `pair(x1, x2)` the two-field
+    one; both take and return grid-shaped tensors."""
+
+    def __init__(self, op: cs.CellStiffness, impl: str):
+        super().__init__()
+        self.impl = impl
+        self.nc = tuple(op.nc)
+        self.is_pair = op.C is not None
+        if impl == "cuda":
+            self.register_buffer("G", op.G)
+            self.register_buffer("D", op.D)
+            self.register_buffer("C", op.C)
+        else:
+            mm_op, c1_e, c2_e = cs.to_mm(op)
+            for ax in range(3):
+                self.register_buffer(f"W{ax}", mm_op.W[ax])
+                self.register_buffer(f"Dt{ax}", mm_op.Dt[ax])
+            self.register_buffer("Gm", mm_op.G)
+            self.register_buffer("c1_e", c1_e)
+            self.register_buffer("c2_e", c2_e)
+
+    @property
+    def cell_op(self) -> cs.CellStiffness:
+        return cs.CellStiffness(G=self.G, D=self.D, nc=self.nc, C=self.C)
+
+    @property
+    def mm_op(self) -> mm.MMStiffness:
+        return mm.MMStiffness(W=(self.W0, self.W1, self.W2),
+                              Dt=(self.Dt0, self.Dt1, self.Dt2), G=self.Gm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return cs.stiffness(self.cell_op, x)
+        return mm.stiffness_apply_mm(self.mm_op, x)
+
+    def pair(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return cs.stiffness_pair(self.cell_op, x1, x2)
+        return mm.stiffness_apply_mm_pair(self.mm_op, x1, x2,
+                                          self.c1_e, self.c2_e)

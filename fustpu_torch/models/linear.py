@@ -1,0 +1,108 @@
+"""Linear second-order wave equation with windowed velocity source and
+first-order absorbing boundary.
+
+Weak form:
+
+    LHS  m  = (1/(rho c^2)) u v dx                        (diagonal)
+    RHS  b  = -(1/rho) grad(u_n).grad(v) dx
+              + (g(t)/rho) v ds(Gamma_src)
+              - (v_n/(rho c)) v ds(Gamma_abs)
+    du/dt = v ;  dv/dt = b / m
+
+Per RK stage: one stiffness apply plus elementwise updates (the mass LHS,
+the source vectors and the absorbing facet term are precomputed
+diagonals).  Counterpart of the structured branches of
+``fustpu/models/linear.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fustpu_torch.config import Material, Source
+from fustpu_torch.models import sources
+from fustpu_torch.models.base import WaveModelBase
+from fustpu_torch.models.discretization import (Discretization,
+                                                StructuredStiffness)
+from fustpu_torch.ops import vector as vec
+
+
+class LinearWaveModel(WaveModelBase):
+    DEFAULT_CFL = 0.65
+    VECTORS = ("m", "s_cos", "s_sin", "fvec")
+
+    def __init__(
+        self,
+        mesh,
+        material: Material,
+        source: Source,
+        source_facets: np.ndarray,
+        absorbing_facets: np.ndarray | None,
+        dtype: torch.dtype = torch.float32,
+        device="cpu",
+        source_delays=None,
+        source_apodization=None,
+        stiffness_impl: str = "auto",
+    ):
+        """`source_delays`: optional per-node delay profile tau(x) for a
+        phased (focused) aperture, a callable(points (N,3)) -> tau (N,) or
+        an (nf, n^2) array.  `source_apodization`: optional amplitude
+        profile, same convention.  `stiffness_impl`: 'auto' (the CUDA
+        kernel on a CUDA device, the plain version elsewhere) or 'mm'
+        (the plain version)."""
+        super().__init__()
+        self._setup(mesh, material, source, source_facets, dtype, device,
+                    stiffness_impl)
+        disc = Discretization(mesh)
+        self.disc = disc
+        c, rho, _, _ = material.cell_fields(mesh.nc)
+        # stiffness coefficient -1/rho: a scalar applied to the output for
+        # uniform media, folded into G otherwise
+        self.stiffness = StructuredStiffness(disc.stiffness_op(
+            dtype, self.device,
+            coeff=None if self.uniform else -1.0 / rho), self.impl)
+
+        host = {"m": disc.mass_diag_host(1.0 / (rho * c * c))}
+        # source boundary: the g(t) facet term reduces to precomputed
+        # diagonal vector(s): one for a plain aperture, a cos/sin pair for a
+        # phased one (see fustpu_torch.models.sources)
+        src_block = disc.facet_block(source_facets)
+        fcoeff = 1.0 / rho.reshape(-1)[src_block.cells]
+        apod, phi = sources.resolve_profiles(
+            disc, src_block, source.angular_frequency, source_delays,
+            source_apodization)
+        if phi is None:
+            host["s_cos"] = disc.facet_diag_host(src_block, fcoeff, apod)
+        else:
+            cw = np.cos(phi) if apod is None else apod * np.cos(phi)
+            sw = np.sin(phi) if apod is None else apod * np.sin(phi)
+            host["s_cos"] = disc.facet_diag_host(src_block, fcoeff, cw)
+            host["s_sin"] = disc.facet_diag_host(src_block, fcoeff, sw)
+        # absorbing boundary: -(1/(rho c)) v_n v ds, a facet diagonal
+        if absorbing_facets is not None and len(absorbing_facets) > 0:
+            blk = disc.facet_block(absorbing_facets)
+            rc = (rho * c).reshape(-1)[blk.cells]
+            host["fvec"] = disc.facet_diag_host(blk, -1.0 / rc)
+        self._load_vectors(host)
+
+    def _coefficients(self) -> None:
+        rho = self.material.cell_fields(self.mesh.nc)[1]
+        self.c2_scalar = -1.0 / float(rho.flat[0]) if self.uniform else None
+
+    # ------------------------------------------------------------------
+    def _rhs(self, t: float, u: torch.Tensor, v: torch.Tensor
+             ) -> torch.Tensor:
+        """kv = M^{-1} b(t, u, v) on flat vectors.  `b` is a fresh tensor
+        (the apply's output), so the updates below are in place."""
+        g = self.mesh.grid_shape
+        b = self.stiffness(u.reshape(g)).reshape(-1)
+        if self.uniform:
+            b.mul_(self.c2_scalar)
+        a_c, a_s = sources.linear_source_coeffs(t, self.source, self.c_src)
+        b.add_(self.s_cos, alpha=a_c)
+        if self.s_sin is not None:
+            b.add_(self.s_sin, alpha=a_s)
+        if self.fvec is not None:
+            b.addcmul_(v, self.fvec)
+        return vec.pointwise_divide(b, self.m)     # the diagonal solve

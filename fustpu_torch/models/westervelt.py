@@ -1,0 +1,140 @@
+"""Westervelt nonlinear wave equation.
+
+Coefficient recipes:
+
+    steady LHS    m0 = (1/(rho c^2)) u v dx + (delta/(rho c^3)) u v ds(abs)
+    unsteady LHS  m  = m0 - (2 beta/(rho^2 c^4)) u_n u v dx     (per stage)
+    RHS b = -(1/rho) grad(u_n).grad(v) dx
+            - (delta/(rho c^2)) grad(v_n).grad(v) dx
+            + (2 beta/(rho^2 c^4)) v_n^2 v dx
+            + (g(t)/rho) v ds(src) + (delta dg(t)/(rho c^2)) v ds(src)
+            - (v_n/(rho c)) v ds(abs)
+    dv/dt = b / m
+
+Per RK stage one stiffness apply: in uniform media the two stiffness terms
+fold into A(c3 u + c4 v) since the operator is linear and the coefficients
+are scalars; in heterogeneous media the pair kernel applies
+A_c3(u) + A_c4(v) in one pass with a unit G.  Every mass-type term is a
+precomputed diagonal.  Counterpart of the structured branches of
+``fustpu/models/westervelt.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fustpu_torch.config import Material, Source
+from fustpu_torch.models import sources
+from fustpu_torch.models.base import WaveModelBase
+from fustpu_torch.models.discretization import (Discretization,
+                                                StructuredStiffness)
+from fustpu_torch.ops import vector as vec
+
+
+class WesterveltModel(WaveModelBase):
+    DEFAULT_CFL = 0.4
+    VECTORS = ("m0", "mvec2", "s1_cos", "s2_cos", "s1_sin", "s2_sin",
+               "fvec")
+
+    def __init__(
+        self,
+        mesh,
+        material: Material,
+        source: Source,
+        source_facets: np.ndarray,
+        absorbing_facets: np.ndarray | None,
+        dtype: torch.dtype = torch.float32,
+        device="cpu",
+        source_delays=None,
+        source_apodization=None,
+        stiffness_impl: str = "auto",
+    ):
+        """`source_delays` / `source_apodization`: optional per-node
+        phased-aperture profiles (callable(points)->array or (nf, n^2)
+        arrays).  `stiffness_impl`: 'auto' (the CUDA kernels on a CUDA
+        device, the plain version elsewhere) or 'mm' (the plain
+        version)."""
+        super().__init__()
+        self._setup(mesh, material, source, source_facets, dtype, device,
+                    stiffness_impl)
+        disc = Discretization(mesh)
+        self.disc = disc
+        c, rho, beta, _ = material.cell_fields(mesh.nc)
+        delta = self._delta
+        self.stiffness = StructuredStiffness(disc.stiffness_op(
+            dtype, self.device,
+            pair=None if self.uniform else self._pair_coeffs), self.impl)
+
+        # unsteady mass diagonal: mass(u; -nl) = u * mvec2 (and the v^2 RHS
+        # term uses +nl, i.e. exactly -mvec2)
+        nl = 2.0 * beta / (rho * rho * c**4)
+        host = {"mvec2": disc.mass_diag_host(-nl)}
+        # steady LHS m0 (+ absorbing-facet delta term), f64 host
+        m0 = disc.mass_diag_host(1.0 / (rho * c * c))
+        if absorbing_facets is not None and len(absorbing_facets) > 0:
+            blk = disc.facet_block(absorbing_facets)
+            cells = blk.cells
+            m0 = m0 + disc.facet_diag_host(
+                blk, (delta / (rho * c**3)).reshape(-1)[cells])
+            host["fvec"] = disc.facet_diag_host(
+                blk, (-1.0 / (rho * c)).reshape(-1)[cells])
+        host["m0"] = m0
+
+        # source boundary: g/dg time-separable -> precomputed vectors (a
+        # cos/sin pair each for phased apertures)
+        src_block = disc.facet_block(source_facets)
+        apod, phi = sources.resolve_profiles(
+            disc, src_block, source.angular_frequency, source_delays,
+            source_apodization)
+        scells = src_block.cells
+        f1 = (1.0 / rho).reshape(-1)[scells]
+        f2 = (delta / (rho * c * c)).reshape(-1)[scells]
+        if phi is None:
+            host["s1_cos"] = disc.facet_diag_host(src_block, f1, apod)
+            host["s2_cos"] = disc.facet_diag_host(src_block, f2, apod)
+        else:
+            cw = np.cos(phi) if apod is None else apod * np.cos(phi)
+            sw = np.sin(phi) if apod is None else apod * np.sin(phi)
+            host["s1_cos"] = disc.facet_diag_host(src_block, f1, cw)
+            host["s1_sin"] = disc.facet_diag_host(src_block, f1, sw)
+            host["s2_cos"] = disc.facet_diag_host(src_block, f2, cw)
+            host["s2_sin"] = disc.facet_diag_host(src_block, f2, sw)
+        self._load_vectors(host)
+
+    def _coefficients(self) -> None:
+        c, rho, _, _ = self.material.cell_fields(self.mesh.nc)
+        self._delta = np.broadcast_to(np.asarray(
+            self.material.diffusivity_of_sound(
+                self.source.angular_frequency), np.float64), self.mesh.nc)
+        # the two stiffness coefficients -1/rho and -delta/(rho c^2)
+        self._pair_coeffs = (-1.0 / rho, -self._delta / (rho * c * c))
+        self.c3_scalar = self.c4_scalar = None
+        if self.uniform:
+            self.c3_scalar = -1.0 / float(rho.flat[0])
+            self.c4_scalar = (-float(self._delta.flat[0])
+                              / float((rho * c * c).flat[0]))
+
+    # ------------------------------------------------------------------
+    def _rhs(self, t: float, u: torch.Tensor, v: torch.Tensor
+             ) -> torch.Tensor:
+        """kv = M(u)^{-1} b(t, u, v) on flat vectors.  `b` is a fresh
+        tensor (the apply's output), so the updates below are in place."""
+        g = self.mesh.grid_shape
+        m = torch.addcmul(self.m0, u, self.mvec2)   # unsteady diagonal LHS
+        if self.uniform:
+            x = torch.add(u * self.c3_scalar, v, alpha=self.c4_scalar)
+            b = self.stiffness(x.reshape(g)).reshape(-1)
+        else:
+            b = self.stiffness.pair(u.reshape(g), v.reshape(g)).reshape(-1)
+        b.sub_(vec.square(v) * self.mvec2)          # + nl * v^2 mass term
+        (g_c, g_s), (dg_c, dg_s) = sources.westervelt_source_coeffs(
+            t, self.source, self.c_src)
+        b.add_(self.s1_cos, alpha=g_c)
+        b.add_(self.s2_cos, alpha=dg_c)
+        if self.s1_sin is not None:
+            b.add_(self.s1_sin, alpha=g_s)
+            b.add_(self.s2_sin, alpha=dg_s)
+        if self.fvec is not None:
+            b.addcmul_(v, self.fvec)
+        return vec.pointwise_divide(b, m)           # the diagonal solve

@@ -1,0 +1,198 @@
+"""Where the time of one RK4 step goes on the card, for the flagship bowl.
+
+    python -m fustpu_torch.tools.profile_step
+
+For the uniform and the two-layer conformal-bowl Westervelt runs at the
+flagship size (the `nonlinear_bowl` demo's models, --elements 64
+--degree 4, float32) it prints:
+  - ms per step without the profiler (CUDA events over STEPS steps);
+  - ms per step under torch.profiler, and the device time per step split
+    into the stiffness kernels, the other (elementwise) kernels and the
+    device copies, with launches per step;
+  - the device's busy time (the union of the kernel and copy intervals)
+    and its idle share, of the device span and of the host wall time;
+  - the stiffness kernel's bytes per apply (G, coefficients, inputs once,
+    output read and written) and the rate that gives at the measured time.
+Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
+gives the card's achievable memory rate to hold those against.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from fustpu_torch.demos import nonlinear_bowl
+
+FLAGSHIP = ["--elements", "64", "--degree", "4"]
+STEPS = 50
+COPY_GIB = 2.0
+
+
+def summarize_trace(events: list[dict]) -> dict:
+    """Device time by group from a Chrome trace's event list (torch.profiler
+    `export_chrome_trace`): 'stiffness' (the CUDA stiffness kernels),
+    'copies' (device memcpy / memset) and 'elementwise' (every other
+    kernel).  Returns {group: (microseconds, launches)} plus 'busy_us' (the
+    union of all device intervals) and 'span_us' (first start to last
+    end)."""
+    groups = {"stiffness": [0.0, 0], "elementwise": [0.0, 0],
+              "copies": [0.0, 0]}
+    intervals = []
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy",
+                                             "gpu_memset"):
+            continue
+        t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        if cat != "kernel":
+            g = "copies"
+        elif "stiffness_kernel" in e.get("name", ""):
+            g = "stiffness"
+        else:
+            g = "elementwise"
+        groups[g][0] += dur
+        groups[g][1] += 1
+        intervals.append((t0, t0 + dur))
+    intervals.sort()
+    busy, end = 0.0, float("-inf")
+    for a, b in intervals:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    out = {g: (us, n) for g, (us, n) in groups.items()}
+    out["busy_us"] = busy
+    out["span_us"] = (intervals[-1][1] - intervals[0][0]) if intervals \
+        else 0.0
+    return out
+
+
+def _ms_per_step(model, state, dt, steps) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    model.solve(state, dt, steps)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def _stiffness_bytes(stiff, ndofs: int) -> int:
+    """Bytes one apply must move at least: G and C once, the input field(s)
+    once, the output read and written once."""
+    op = stiff.cell_op
+    field = ndofs * op.G.element_size()
+    n_in = 2 if stiff.is_pair else 1
+    c = 0 if op.C is None else op.C.numel() * op.C.element_size()
+    return op.G.numel() * op.G.element_size() + c + (n_in + 2) * field
+
+
+def streaming_copy(gib: float) -> tuple[float, float]:
+    """(ms, TB/s read + write) of one float32 device-to-device copy."""
+    n = int(gib * 2**30) // 4
+    x = torch.ones(n, device="cuda")
+    y = torch.empty_like(x)
+    y.copy_(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 10
+    start.record()
+    for _ in range(reps):
+        y.copy_(x)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del x, y
+    torch.cuda.empty_cache()
+    return ms, 2 * n * 4 / (ms * 1e-3) / 1e12
+
+
+def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
+    args = nonlinear_bowl.parser().parse_args(argv)
+    model, dt, _, _ = nonlinear_bowl.build(args)
+    state = model.solve(model.init_state(), dt, 10)      # warm-up
+    torch.cuda.synchronize()
+    plain_ms = _ms_per_step(model, state, dt, steps)
+
+    name = "two_layer" if args.two_layer else "uniform"
+    trace = trace_dir / f"trace_{name}.json"
+    # one warm-up step of the profiler (two RK4 steps), then the active one
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1),
+            on_trace_ready=lambda pr: pr.export_chrome_trace(str(trace))
+            ) as prof:
+        model.solve(state, dt, 2)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        model.solve(state, dt, steps)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        prof.step()
+    events = json.loads(trace.read_text())["traceEvents"]
+    s = summarize_trace(events)
+    if s["busy_us"] == 0.0:
+        raise SystemExit("torch.profiler recorded no device activity")
+    stiff_ms_apply = s["stiffness"][0] / 1e3 / (4 * steps)
+    nbytes = _stiffness_bytes(model.stiffness, model.mesh.ndofs)
+    out = {
+        "config": "two-layer" if args.two_layer else "uniform",
+        "ms_per_step": plain_ms,
+        "profiled_ms_per_step": host_s * 1e3 / steps,
+        "busy_ms_per_step": s["busy_us"] / 1e3 / steps,
+        "span_ms_per_step": s["span_us"] / 1e3 / steps,
+        "idle_share_of_span": 1.0 - s["busy_us"] / s["span_us"],
+        "idle_share_of_host_wall": 1.0 - s["busy_us"] / (host_s * 1e6),
+        "groups": {g: {"ms_per_step": s[g][0] / 1e3 / steps,
+                       "launches_per_step": s[g][1] / steps,
+                       "us_each": s[g][0] / max(s[g][1], 1)}
+                   for g in ("stiffness", "elementwise", "copies")},
+        "stiffness_bytes_per_apply": nbytes,
+        "stiffness_ms_per_apply": stiff_ms_apply,
+        "stiffness_TBps": nbytes / (stiff_ms_apply * 1e-3) / 1e12,
+    }
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    ms, tbps = streaming_copy(COPY_GIB)
+    print(f"streaming copy of {COPY_GIB} GiB float32: {ms:.4f} ms, "
+          f"{tbps:.4f} TB/s read + write", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in ([], ["--two-layer"]):
+            r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
+            print(json.dumps(r), flush=True)
+            print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "
+                  f"unprofiled, {r['profiled_ms_per_step']:.4f} profiled; "
+                  f"device busy {r['busy_ms_per_step']:.4f} ms/step, idle "
+                  f"{r['idle_share_of_span']:.4f} of span, "
+                  f"{r['idle_share_of_host_wall']:.4f} of host wall")
+            for g, v in r["groups"].items():
+                print(f"   {g:12s} {v['ms_per_step']:.4f} ms/step "
+                      f"{v['launches_per_step']:.1f} launches/step "
+                      f"{v['us_each']:.2f} us each")
+            print(f"   stiffness: {r['stiffness_bytes_per_apply']} B per "
+                  f"apply, {r['stiffness_ms_per_apply']:.4f} ms, "
+                  f"{r['stiffness_TBps']:.4f} TB/s ({smi})", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,37 @@
+"""The step profiler's trace reduction (fustpu_torch.tools.profile_step) on
+a hand-made Chrome trace: grouping, launch counts and the busy union."""
+
+import pytest
+import torch
+
+from fustpu_torch.tools.profile_step import summarize_trace
+
+torch.set_num_threads(1)
+
+
+def _ev(cat, name, ts, dur, ph="X"):
+    return {"ph": ph, "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+
+def test_summarize_trace_groups_and_busy_union():
+    events = [
+        _ev("kernel", "void stiffness_kernel<float, 5, false>", 0.0, 10.0),
+        _ev("kernel", "void stiffness_kernel<float, 5, false>", 5.0, 10.0),
+        _ev("kernel", "vectorized_elementwise_kernel", 20.0, 4.0),
+        _ev("gpu_memcpy", "Memcpy DtoD (Device -> Device)", 30.0, 2.0),
+        _ev("cpu_op", "aten::add_", 0.0, 100.0),          # host: ignored
+        _ev("kernel", "stiffness_kernel", 50.0, 1.0, ph="i"),  # not a span
+    ]
+    s = summarize_trace(events)
+    assert s["stiffness"] == (20.0, 2)
+    assert s["elementwise"] == (4.0, 1)
+    assert s["copies"] == (2.0, 1)
+    # [0, 15) overlapped, [20, 24), [30, 32)
+    assert s["busy_us"] == pytest.approx(21.0)
+    assert s["span_us"] == pytest.approx(32.0)
+
+
+def test_summarize_trace_without_device_events():
+    s = summarize_trace([_ev("cpu_op", "aten::mul", 0.0, 3.0)])
+    assert s["busy_us"] == 0.0 and s["span_us"] == 0.0
+    assert s["stiffness"] == (0.0, 0)
