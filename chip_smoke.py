@@ -13,10 +13,22 @@ Phases (each prints its time; any failure exits non-zero):
   6. the flagship conformal-bowl Westervelt run (--elements 64 --degree 4,
      float32, 6,661,697 DOF): 10 steps kernel vs plain, then the whole
      solve on the kernel, with the focal pressure checked;
-  7. the two-layer flagship, 50 steps through the pair kernel.
-The main path (the two runs of 6 and 7) runs with the launch counters
-reset just before it; the counts are read just after.  The line before the
-last is the kernels' JSON summary; the last line is the result.
+  7. the two-layer flagship, 50 steps through the pair kernel;
+  8. the extruded kernels (imported prismatic meshes) against their plain
+     version at P = 2..10 on an imported cylinder and a shuffled box,
+     float64 and float32, with each mesh's stack colours and scatter
+     classes (run right after phase 3);
+  9. the piston demo on the imported O-grid cylinder (--refine 2, P=4,
+     float32), the full run, checked against the O'Neil solution;
+ 10. the imported H131 bowl (--geometry unstructured --elements 64
+     --degree 4, float32, 6,661,697 DOF): 10 steps kernel vs plain, then
+     the whole solve on the kernel, its focal pressure checked against
+     the band and against phase 6's conformal run;
+ 11. the two-layer imported bowl, 50 steps through the extruded pair
+     kernel.
+Each run of the main paths (6b, 7b, 9, 10b, 11b) has the launch counters
+reset just before it and read just after.  The line before the last is
+the kernels' JSON summary; the last line is the result.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,6 +55,14 @@ F32_TOL = 1e-5
 # amplification; 1e-5 leaves two orders of margin for the accumulation
 TRAJ_TOL = 1e-5
 FOCAL_BAND_PA = (-7.3e6, -6.0e6)
+# the imported bowl is the conformal bowl's discrete problem under another
+# dof numbering; float32 summation order alone separates the two runs
+FOCAL_AGREE = 1e-4
+ONEIL_GATE = 0.12               # the JAX package's own piston gate
+# the card's published peaks (NVIDIA's data sheet, H100 SXM): device memory
+# rate and float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -83,20 +104,60 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: int, flops: int) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for the bytes an apply must move
+    and the operations it does, at the card's published peaks."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def apply_cost(G: torch.Tensor, ndofs: int, fields: int,
+               extra: int = 0) -> tuple[int, int]:
+    """(minimum bytes, operations) of one stiffness apply: G, each input
+    field and the per-cell coefficients read once, y read and written
+    once, plus `extra` bytes (row ids); per node 2 x 3 derivative sums of
+    n products each way, 15 for the metric and 1 for the add (3 more to
+    combine a pair)."""
+    cells, _, nnn = G.shape
+    n = round(nnn ** (1 / 3))
+    b = G.element_size()
+    nbytes = G.numel() * b + (fields + 2) * ndofs * b + extra
+    if fields == 2:
+        nbytes += cells * 2 * b
+    flops = cells * nnn * (12 * n + 16 + (3 if fields == 2 else 0))
+    return nbytes, flops
+
+
+def scatter_summary(mesh) -> str:
+    """The extruded kernel's scatter design on `mesh`: stack colours and
+    (colour, layer parity) classes, one launch each."""
+    from fustpu_torch.ops import cuda_extruded as ce
+
+    colours = int(ce.colour_stacks(mesh.rows2d).max()) + 1
+    classes = len(ce.scatter_classes(mesh.rows2d, mesh.nz)[1]) - 1
+    return f"{colours} stack colours, {classes} scatter classes"
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an "
              "NVIDIA GPU")
-    if not (ROOT / "fustpu_torch" / "csrc" / "stiffness.cu").exists():
+    if not (ROOT / "fustpu_torch" / "csrc" / "extruded.cu").exists():
         fail("run from a checkout of the repository (fustpu_torch/ is "
              "missing next to this script)")
 
     from fustpu_torch import _build
-    from fustpu_torch.demos import linear_box, nonlinear_bowl
+    from fustpu_torch.demos import linear_box, linear_piston, nonlinear_bowl
     from fustpu_torch.demos.common import run_demo
+    from fustpu_torch.mesh import msh_io, shapes
     from fustpu_torch.mesh.box import build_box_mesh
+    from fustpu_torch.mesh.extruded import as_extruded
+    from fustpu_torch.mesh.unstructured import from_box
     from fustpu_torch.models.discretization import (Discretization,
+                                                    ExtrudedStiffness,
                                                     StructuredStiffness)
+    from fustpu_torch.ops import cuda_extruded as ce
     from fustpu_torch.ops import cuda_stiffness as cs
     from fustpu_torch.ops import precompute as pre
     from fustpu_torch.ops import spectral_mm as mm
@@ -171,6 +232,62 @@ def main() -> None:
         if cs.launches["stiffness"] == 0 or cs.launches["stiffness_pair"] == 0:
             fail("a kernel's launch counter did not move")
 
+    with phase("8 extruded kernels vs plain, P=2..10"), \
+            tempfile.TemporaryDirectory() as tmp:
+        worst = {"f64": 0.0, "f32": 0.0}
+        ce.reset_launches()
+        for P in range(2, 11):
+            v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
+                                           nr_ann=1, nz=4 if P <= 6 else 2)
+            cyl = msh_io.read_msh(msh_io.write_msh(
+                str(Path(tmp) / f"cyl{P}"), v, c, t), P)
+            box = as_extruded(from_box(build_box_mesh(
+                (5, 3, 7) if P <= 6 else (3, 3, 4), P, hi=(1.0, 0.8, 1.3)),
+                shuffle_seed=11))
+            for mname, mesh in (("cylinder", cyl), ("box", box)):
+                disc = Discretization(mesh)
+                print(f"   P={P:2d} {mname}: {mesh.num_cells} cells, "
+                      f"{scatter_summary(mesh)}", flush=True)
+                c1 = rng.uniform(0.5, 2.0, mesh.num_cells)
+                c2 = rng.uniform(-1.5, -0.5, mesh.num_cells)
+                x1 = torch.as_tensor(rng.standard_normal(mesh.ndofs),
+                                     device=dev)
+                x2 = torch.as_tensor(rng.standard_normal(mesh.ndofs),
+                                     device=dev)
+                cases = [("single", {}), ("single+coeff", {"coeff": c1})]
+                if P in PAIR_DEGREES:
+                    cases.append(("pair", {"pair": (c1, c2)}))
+                for label, kw in cases:
+                    pair = "pair" in kw
+
+                    def apply(dtype, plain):
+                        o = disc.stiffness_op(dtype, dev, **kw)
+                        a, b = x1.to(dtype), x2.to(dtype)
+                        if pair:
+                            f = ce.extruded_pair_plain if plain \
+                                else ce.extruded_pair
+                            return f(o, a, b)
+                        f = ce.extruded_plain if plain else ce.extruded
+                        return f(o, a)
+
+                    ref = apply(torch.float64, plain=True)
+                    e64 = rel_l2(apply(torch.float64, plain=False), ref)
+                    e32 = rel_l2(apply(torch.float32, plain=False), ref)
+                    torch.cuda.synchronize()
+                    print(f"   P={P:2d} {mname:8s} {label:13s} f64 "
+                          f"{e64:.3e}  f32 {e32:.3e}", flush=True)
+                    worst["f64"] = max(worst["f64"], e64)
+                    worst["f32"] = max(worst["f32"], e32)
+                    if not e64 <= F64_TOL:
+                        fail(f"f64 extruded kernel vs plain {e64:.3e}")
+                    if not e32 <= F32_TOL:
+                        fail(f"f32 extruded kernel vs plain f64 {e32:.3e}")
+        print(f"   worst rel-l2: f64 {worst['f64']:.3e} (tol {F64_TOL}), "
+              f"f32 {worst['f32']:.3e} (tol {F32_TOL}); launches "
+              f"{dict(ce.launches)}")
+        if ce.launches["extruded"] == 0 or ce.launches["extruded_pair"] == 0:
+            fail("an extruded kernel's launch counter did not move")
+
     with phase("4 operator throughput, P=4 32^3 f32"):
         mesh = build_box_mesh((32, 32, 32), 4)
         disc = Discretization(mesh)
@@ -220,7 +337,8 @@ def main() -> None:
         kernels["stiffness"] = dict(
             max_abs_err=float((yk - yp).abs().max()), rel_l2=err,
             ms=time_ms(lambda: kstiff(x), 20),
-            plain_ms=time_ms(lambda: pstiff(x), 10))
+            plain_ms=time_ms(lambda: pstiff(x), 10),
+            cost=apply_cost(kstiff.G, bowl.mesh.ndofs, 1))
         print(f"   {smi}: stiffness at {tuple(bowl.mesh.nc)} cells: "
               f"{kernels['stiffness']}")
         del yk, yp
@@ -254,7 +372,8 @@ def main() -> None:
         kernels["stiffness_pair"] = dict(
             max_abs_err=float((yk - yp).abs().max()), rel_l2=err,
             ms=time_ms(lambda: kst2.pair(x, x2), 20),
-            plain_ms=time_ms(lambda: pst2.pair(x, x2), 10))
+            plain_ms=time_ms(lambda: pst2.pair(x, x2), 10),
+            cost=apply_cost(kst2.G, bowl2.mesh.ndofs, 2))
         print(f"   {smi}: pair at {tuple(bowl2.mesh.nc)} cells: "
               f"{kernels['stiffness_pair']}")
         del yk, yp, pst2, x, x2
@@ -286,17 +405,153 @@ def main() -> None:
                 float(s2.u.abs().max()) == 0.0:
             fail("two-layer field is not finite and non-zero")
     launches = dict(cs.launches)
+    del bowl, bowl2, s2, kstiff, kst2
 
-    replaces = {"stiffness": "fustpu/ops/pallas_stiffness.py:170",
-                "stiffness_pair": "fustpu/ops/pallas_stiffness.py:726"}
-    summary = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "fustpu_torch/csrc/stiffness.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
-        for name in ("stiffness", "stiffness_pair")]}
-    print(json.dumps(summary))
+    ce.reset_launches()
+    with phase("9 piston demo on the imported cylinder (--refine 2)"):
+        piston, state, dev_oneil, psteps = linear_piston.main(
+            ["--refine", "2", "--device", "cuda"])
+        n_piston = ce.launches["extruded"]
+        print(f"   extruded launches {n_piston} for {psteps} steps; "
+              f"{piston.mesh.num_cells} cells, {piston.mesh.ndofs} DOF, "
+              f"{scatter_summary(piston.mesh)}")
+        if n_piston != 4 * psteps or ce.launches["extruded_pair"] != 0:
+            fail(f"piston launches {dict(ce.launches)} != 4 x {psteps}")
+        if not dev_oneil < ONEIL_GATE:
+            fail(f"O'Neil deviation {dev_oneil:.2%} >= {ONEIL_GATE:.0%}")
+        if not bool(torch.isfinite(state.u).all()):
+            fail("piston field is not finite")
+        del piston, state
+
+    with phase("10a imported bowl build + extruded kernel vs plain"):
+        args3 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "64", "--degree", "4",
+             "--geometry", "unstructured"])
+        t0 = time.perf_counter()
+        ibowl, dt3, nsteps3, focus3 = nonlinear_bowl.build(args3)
+        imesh = ibowl.mesh
+        print(f"   host setup (export, import, extrusion detection, "
+              f"geometry, upload) {time.perf_counter() - t0:.1f} s")
+        structure = (imesh.axis, imesh.nstacks, imesh.nz, imesh.ndofs)
+        print(f"   axis {structure[0]}, {structure[1]} stacks, "
+              f"{structure[2]} layers, {structure[3]} DOF, "
+              f"{scatter_summary(imesh)}")
+        if structure != (0, 1600, 64, 6661697):
+            fail(f"imported bowl structure {structure}")
+        kst3 = ibowl.stiffness
+        pst3 = ExtrudedStiffness(kst3.cell_op, "mm")
+        x = torch.as_tensor(rng.standard_normal(imesh.ndofs),
+                            dtype=torch.float32, device=dev)
+        yk, yp = kst3(x), pst3(x)
+        err = rel_l2(yk, yp)
+        if not err <= F32_TOL:
+            fail(f"imported bowl extruded kernel vs plain {err:.3e}")
+        kernels["extruded"] = dict(
+            max_abs_err=float((yk - yp).abs().max()), rel_l2=err,
+            ms=time_ms(lambda: kst3(x), 20),
+            plain_ms=time_ms(lambda: pst3(x), 10),
+            cost=apply_cost(kst3.G, imesh.ndofs, 1,
+                            extra=kst3.rows.numel() * 4))
+        print(f"   {smi}: extruded at {imesh.num_cells} cells: "
+              f"{kernels['extruded']}")
+        del yk, yp
+        s0 = ibowl.init_state()
+        sk = ibowl.solve(s0, dt3, 10)
+        ibowl.stiffness = pst3
+        sp = ibowl.solve(s0, dt3, 10)
+        ibowl.stiffness = kst3
+        del pst3
+        traj = rel_l2(sk.u, sp.u)
+        print(f"   10 steps kernel vs plain: rel-l2(u) {traj:.3e} "
+              f"(tol {TRAJ_TOL}), max |u| {float(sk.u.abs().max()):.4e}")
+        if not traj <= TRAJ_TOL:
+            fail(f"imported 10-step trajectory kernel vs plain {traj:.3e}")
+        del sk, sp
+
+    ce.reset_launches()
+    with phase("10b imported bowl full solve (extruded kernel)"):
+        state = run_demo(ibowl, dt3, nsteps3, args3, "nonlinear_bowl")
+        n_ext = ce.launches["extruded"]
+        p_imp = nonlinear_bowl.focal_pressure(ibowl, state, focus3)
+        agree = abs(p_imp - p_focus) / abs(p_focus)
+        print(f"pressure at focus: {p_imp:.1f} Pa")
+        print(f"   extruded launches {n_ext} for {nsteps3} steps; focal "
+              f"pressure vs conformal ({p_focus:.1f} Pa): relative "
+              f"difference {agree:.3e} (tol {FOCAL_AGREE})")
+        if n_ext != 4 * nsteps3 or ce.launches["extruded_pair"] != 0:
+            fail(f"imported bowl launches {dict(ce.launches)} != "
+                 f"4 x {nsteps3}")
+        if not bool(torch.isfinite(state.u).all()):
+            fail("imported bowl field is not finite")
+        if not FOCAL_BAND_PA[0] <= p_imp <= FOCAL_BAND_PA[1]:
+            fail(f"imported focal pressure {p_imp:.1f} Pa outside "
+                 f"{FOCAL_BAND_PA}")
+        if not agree <= FOCAL_AGREE:
+            fail(f"imported vs conformal focal pressure {agree:.3e}")
+        del state, ibowl, kst3
+
+    with phase("11a two-layer imported bowl build + pair kernel vs plain"):
+        args4 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "64", "--degree", "4",
+             "--geometry", "unstructured", "--two-layer"])
+        ibowl2, dt4, _, _ = nonlinear_bowl.build(args4)
+        kst4 = ibowl2.stiffness
+        if not kst4.is_pair:
+            fail("two-layer imported model did not build the pair operator")
+        pst4 = ExtrudedStiffness(kst4.cell_op, "mm")
+        x = torch.as_tensor(rng.standard_normal(ibowl2.mesh.ndofs),
+                            dtype=torch.float32, device=dev)
+        x2 = torch.as_tensor(rng.standard_normal(ibowl2.mesh.ndofs),
+                             dtype=torch.float32, device=dev)
+        yk, yp = kst4.pair(x, x2), pst4.pair(x, x2)
+        err = rel_l2(yk, yp)
+        if not err <= F32_TOL:
+            fail(f"extruded pair kernel vs plain {err:.3e} > {F32_TOL}")
+        kernels["extruded_pair"] = dict(
+            max_abs_err=float((yk - yp).abs().max()), rel_l2=err,
+            ms=time_ms(lambda: kst4.pair(x, x2), 20),
+            plain_ms=time_ms(lambda: pst4.pair(x, x2), 10),
+            cost=apply_cost(kst4.G, ibowl2.mesh.ndofs, 2,
+                            extra=kst4.rows.numel() * 4))
+        print(f"   {smi}: extruded pair at {ibowl2.mesh.num_cells} cells: "
+              f"{kernels['extruded_pair']}")
+        del yk, yp, pst4, x, x2
+
+    ce.reset_launches()
+    with phase("11b two-layer imported bowl, 50 steps (pair kernel)"):
+        s4 = ibowl2.solve(ibowl2.init_state(), dt4, 50)
+        torch.cuda.synchronize()
+        n_ext_pair = ce.launches["extruded_pair"]
+        print(f"   extruded pair launches {n_ext_pair}, max |u| "
+              f"{float(s4.u.abs().max()):.4e}")
+        if n_ext_pair != 4 * 50 or ce.launches["extruded"] != 0:
+            fail(f"launches {dict(ce.launches)} after the two-layer "
+                 "imported run")
+        if not bool(torch.isfinite(s4.u).all()) or \
+                float(s4.u.abs().max()) == 0.0:
+            fail("two-layer imported field is not finite and non-zero")
+    launches.update(extruded=n_piston + n_ext, extruded_pair=n_ext_pair)
+
+    meta = {
+        "stiffness": ("fustpu_torch/csrc/stiffness.cu",
+                      "fustpu/ops/pallas_stiffness.py:170"),
+        "stiffness_pair": ("fustpu_torch/csrc/stiffness.cu",
+                           "fustpu/ops/pallas_stiffness.py:726"),
+        "extruded": ("fustpu_torch/csrc/extruded.cu",
+                     "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_pair": ("fustpu_torch/csrc/extruded.cu",
+                          "fustpu/ops/pallas_extruded.py:604")}
+    rows = []
+    for name, (source, replaces) in meta.items():
+        k = kernels[name]
+        bound_ms, bound_by = bound(*k["cost"])
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,13 @@ leaves) and never see a JAX object.
   (``MMStiffness``: W, Dt, G (6, ex, ey, ez)), of the fused-kernel operator
   (``PallasStiffness``: G (ncx, n, 6, ey, ez) and ``D_host``) or of its
   pair form (``PallasStiffnessPair``: plus C (ncx, 2, ncy, ncz)), and
-  returns the port's (cells, 6, n^3) G, D and per-cell coefficients.
+  returns the port's (cells, 6, n^3) G, D and per-cell coefficients.  For
+  an imported prismatic mesh (given its row ids) it accepts the arrays of
+  the einsum-form ``operators.ExtrudedStiffness`` (G6 (6, ns, n, n, ez)
+  and D), of the fused-kernel ``PallasExtruded`` (Gt (n^2, 6, ns_pad, ez)
+  and ``statics[0]`` as D) and of ``PallasExtrudedPair`` (plus ce
+  (2, ns_pad, ez)), and returns G, coefficients and C in stack order
+  (cell s * nz + kz).
 - `model_from_fustpu` builds a port model whose buffers are a JAX model's
   ``params`` (no host assembly) and moves an ``RKState`` across.
 """
@@ -20,8 +26,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fustpu_torch.models.discretization import StructuredStiffness
+from fustpu_torch.mesh.extruded import ExtrudedHexMesh
+from fustpu_torch.models.discretization import stiffness_module
 from fustpu_torch.models.timestepping import RKState
+from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_stiffness as cs
 
 
@@ -33,10 +41,14 @@ class HostStiffness(NamedTuple):
     coeff: np.ndarray | None         # (cells,) coefficient not yet in G
     C: np.ndarray | None             # (cells, 2) pair coefficients
 
-    def to_device(self, dtype: torch.dtype, device, nc) -> cs.CellStiffness:
-        """The operator on `device`, any single coefficient folded into G."""
+    def to_device(self, dtype: torch.dtype, device, nc):
+        """The operator on `device`, any single coefficient folded into G.
+        `nc`: cells per axis of a box mesh, or the ExtrudedHexMesh of an
+        extruded operator."""
         G = self.G if self.coeff is None else self.G * self.coeff[:, None,
                                                                  None]
+        if isinstance(nc, ExtrudedHexMesh):
+            return ce.from_host(nc, G, self.D, dtype, device, self.C)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                       device=device)
         return cs.CellStiffness(G=t(G), D=t(self.D), nc=tuple(nc),
@@ -49,15 +61,55 @@ def _cells_from_expanded(a: np.ndarray, n: int) -> np.ndarray:
                                 ).reshape(-1)
 
 
+def _cells_from_x(a: np.ndarray, n: int) -> np.ndarray:
+    """(ns, 1, 1, ez) z-expanded per-cell field -> (cells,) stack order."""
+    return np.ascontiguousarray(np.asarray(a, np.float64)[:, 0, 0, ::n]
+                                ).reshape(-1)
+
+
+def _extruded_from_fustpu(G, nc, D, C, coeff_e, c1_e, c2_e
+                          ) -> HostStiffness:
+    """The extruded layouts (see stiffness_from_fustpu); nc = (ns, nz)."""
+    ns, nz = nc
+    if G.ndim == 5:                                  # G6 (6, ns, n, n, ez)
+        n = G.shape[2]
+        Gc = G.reshape(6, ns, n, n, nz, n).transpose(1, 4, 0, 2, 3, 5)
+        coeff = None if coeff_e is None else _cells_from_x(coeff_e, n)
+        if c1_e is not None:
+            C = np.stack([_cells_from_x(c1_e, n), _cells_from_x(c2_e, n)],
+                         axis=1)
+    elif G.ndim == 4:                                # Gt (n^2, 6, ns_pad, ez)
+        n = int(round(G.shape[0] ** 0.5))
+        Gc = G[:, :, :ns].reshape(n, n, 6, ns, nz, n).transpose(3, 4, 2, 0,
+                                                                1, 5)
+        coeff = None
+        if C is not None:                            # ce (2, ns_pad, ez)
+            C = np.asarray(C, np.float64)[:, :ns, ::n].reshape(2, -1).T
+    else:
+        raise ValueError(f"unrecognised extruded G of shape {G.shape}")
+    Gc = np.ascontiguousarray(Gc).reshape(ns * nz, 6, n ** 3)
+    return HostStiffness(G=Gc, D=np.asarray(D, np.float64), coeff=coeff,
+                         C=None if C is None else np.ascontiguousarray(C))
+
+
 def stiffness_from_fustpu(G, nc, *, D=None, Dt=None, C=None, coeff_e=None,
-                          c1_e=None, c2_e=None) -> HostStiffness:
+                          c1_e=None, c2_e=None, rows=None) -> HostStiffness:
     """G: (6, ex, ey, ez) of an MMStiffness or (ncx, n, 6, ey, ez) of a
     PallasStiffness(Pair).  D: the (n, n) ``D_host``, or Dt: the three
     block-diagonal derivative matrices of an MMStiffness.  C: the pair
     operator's (ncx, 2, ncy, ncz) coefficients.  coeff_e / (c1_e, c2_e):
     the expanded per-cell coefficient fields the matmul path applies at run
-    time (linear, or Westervelt pair)."""
+    time (linear, or Westervelt pair).
+
+    Given `rows` (the extruded operator's row ids), the operator is an
+    extruded one and nc = (nstacks, nz): G is the G6 (6, ns, n, n, ez) of
+    an ExtrudedStiffness or the Gt (n^2, 6, ns_pad, ez) of a
+    PallasExtruded(Pair), D its 1D derivative matrix, C the pair form's ce
+    (2, ns_pad, ez), and coeff_e / (c1_e, c2_e) the (ns, 1, 1, ez)
+    coefficient fields (c2_x, or c3_x and c4_x) of the einsum path."""
     G = np.asarray(G, np.float64)
+    if rows is not None:
+        return _extruded_from_fustpu(G, nc, D, C, coeff_e, c1_e, c2_e)
     ncx, ncy, ncz = nc
     if G.ndim == 4:                                  # (6, ex, ey, ez)
         n = G.shape[1] // ncx
@@ -96,24 +148,32 @@ def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
     """A port model of class `cls` (LinearWaveModel or WesterveltModel)
     whose buffers are the JAX model's `params`, as numpy arrays:
     ``params["stiff"]`` is a dict of the keyword arrays of
-    `stiffness_from_fustpu`, and the expanded coefficient fields c2_e
-    (linear) or c3_e / c4_e (Westervelt) are given where the JAX model
-    holds them.  `state` (u, v, ku, kv, t) is moved across too.  Returns
-    (model, state or None)."""
+    `stiffness_from_fustpu` (with `rows` on an ExtrudedHexMesh), and the
+    run-time coefficient fields c2_e (linear) or c3_e / c4_e (Westervelt)
+    of the matmul path, or c2_x / c3_x / c4_x of the extruded einsum
+    path, are given where the JAX model holds them.  `state`
+    (u, v, ku, kv, t) is moved across too.  Returns (model, state or
+    None)."""
     model = cls.__new__(cls)
     torch.nn.Module.__init__(model)
     model._setup(mesh, material, source, source_facets, dtype, device,
                  "auto")
     stiff = dict(params["stiff"])
-    # only the matmul layout applies the coefficient fields at run time;
+    extruded = isinstance(mesh, ExtrudedHexMesh)
+    # only the einsum layouts apply the coefficient fields at run time;
     # the fused-kernel layouts fold them into G or carry them in C
-    if np.ndim(stiff["G"]) == 4 and "c2_e" in params:
-        stiff["coeff_e"] = params["c2_e"]
-    if np.ndim(stiff["G"]) == 4 and "c3_e" in params:
-        stiff["c1_e"], stiff["c2_e"] = params["c3_e"], params["c4_e"]
-    op = stiffness_from_fustpu(nc=mesh.nc, **stiff)
-    model.stiffness = StructuredStiffness(
-        op.to_device(dtype, model.device, mesh.nc), model.impl)
+    plain = np.ndim(stiff["G"]) == (5 if extruded else 4)
+    tag = "x" if extruded else "e"
+    if plain and f"c2_{tag}" in params:
+        stiff["coeff_e"] = params[f"c2_{tag}"]
+    if plain and f"c3_{tag}" in params:
+        stiff["c1_e"], stiff["c2_e"] = params[f"c3_{tag}"], params[
+            f"c4_{tag}"]
+    where = mesh if extruded else mesh.nc
+    op = stiffness_from_fustpu(
+        nc=(mesh.nstacks, mesh.nz) if extruded else mesh.nc, **stiff)
+    model.stiffness = stiffness_module(
+        op.to_device(dtype, model.device, where), model.impl)
     model._load_vectors({k: params.get(k) for k in cls.VECTORS})
     if state is not None:
         state = state_from_fustpu(state, dtype, model.device)

@@ -20,7 +20,8 @@
 //   - every byte of G is read exactly once per apply, as 6 contiguous runs
 //     per cell (G layout (cells, 6, N^3)); the x line and the partial sums
 //     live in registers and the two cross-line operands in shared memory,
-//     so nothing but x, G and y touches device memory;
+//     so nothing but x, G and y touches device memory (the per-cell body,
+//     shared with the extruded kernel, is in sum_factor.cuh);
 //   - a block holds N^2 threads per cell, each owning one line in i of the
 //     cell's N^3 nodes (N^3 = 1331 > 1024 threads at P = 10), and packs
 //     several cells per block (up to ~256 threads) so small degrees still
@@ -38,23 +39,23 @@
 
 #include <cuda_runtime.h>
 
+#include "sum_factor.cuh"
+
 namespace {
 
-template <typename T, int N>
-struct Shape {
-  static constexpr int NN = N * N;
-  static constexpr int NNN = N * N * N;
-  static constexpr int BY_THREADS = 256 / NN > 0 ? 256 / NN : 1;
-  static constexpr int BY_SMEM =
-      (48 * 1024 - NN * (int)sizeof(T)) / (3 * NNN * (int)sizeof(T));
-  static constexpr int CPB = BY_THREADS < BY_SMEM ? BY_THREADS : BY_SMEM;
-  static_assert(CPB >= 1, "one cell must fit the static shared memory");
-};
+using fustpu::Shape;
 
 // Cells of one parity class (px, py, pz): (a, b, c) = 2 (qa, qb, qc) + p.
 inline __host__ __device__ int half_count(int n, int p) {
   return (n - p + 1) / 2;
 }
+
+// Global index of node (i, j, k) of a grid cell: the thread's (j, k) line
+// starts at `base` and steps by the grid stride in i.
+struct GridLine {
+  long long base, sx;
+  __device__ long long operator()(int i) const { return base + i * sx; }
+};
 
 template <typename T, int N, bool PAIR>
 __global__ void __launch_bounds__(Shape<T, N>::NN * Shape<T, N>::CPB)
@@ -90,63 +91,14 @@ stiffness_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   const long long base = (long long)a * P * sx + ((long long)b * P + j) * gz +
                          ((long long)c * P + k);
   const long long cell = ((long long)a * ncy + b) * ncz + c;
-  T* u = us[lc];
-  T* f1 = f1s[lc];
-  T* f2 = f2s[lc];
-
-  T ul[N];                         // u along this thread's line
-  if (active) {
-    T c1 = T(1), c2 = T(0);
-    if (PAIR) {
-      c1 = C[2 * cell];
-      c2 = C[2 * cell + 1];
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      T v = x1[base + i * sx];
-      if (PAIR) v = c1 * v + c2 * x2[base + i * sx];
-      ul[i] = v;
-      u[i * NN + t] = v;
-    }
+  T c1 = T(1), c2 = T(0);
+  if (active && PAIR) {
+    c1 = C[2 * cell];
+    c2 = C[2 * cell + 1];
   }
-  __syncthreads();
-
-  T f0[N];                         // metric-transformed x-gradient, own line
-  if (active) {
-    const T* Gc = G + cell * 6 * NNN;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      T wx = T(0), wy = T(0), wz = T(0);
-#pragma unroll
-      for (int r = 0; r < N; ++r) {
-        wx += Ds[i * N + r] * ul[r];
-        wy += Ds[j * N + r] * u[i * NN + r * N + k];
-        wz += Ds[k * N + r] * u[i * NN + j * N + r];
-      }
-      const int n = i * NN + t;
-      const T g0 = Gc[n], g1 = Gc[NNN + n], g2 = Gc[2 * NNN + n];
-      const T g3 = Gc[3 * NNN + n], g4 = Gc[4 * NNN + n];
-      const T g5 = Gc[5 * NNN + n];
-      f0[i] = g0 * wx + g1 * wy + g2 * wz;
-      f1[n] = g1 * wx + g3 * wy + g4 * wz;
-      f2[n] = g2 * wx + g4 * wy + g5 * wz;
-    }
-  }
-  __syncthreads();
-
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int r = 0; r < N; ++r) {
-        acc += Ds[r * N + i] * f0[r];
-        acc += Ds[r * N + j] * f1[i * NN + r * N + k];
-        acc += Ds[r * N + k] * f2[i * NN + j * N + r];
-      }
-      y[base + i * sx] += acc;
-    }
-  }
+  fustpu::cell_apply<T, N, PAIR>(x1, x2, c1, c2, G + cell * 6 * NNN, Ds,
+                                 us[lc], f1s[lc], f2s[lc], y, active,
+                                 GridLine{base, sx});
 }
 
 template <typename T, bool PAIR, int N>

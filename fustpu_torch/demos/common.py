@@ -64,19 +64,25 @@ class _Timer:
             self.seconds = time.perf_counter() - self.t0
 
 
-def run_demo(model, dt: float, num_steps: int, args, name: str):
+def run_demo(model, dt: float, num_steps: int, args, name: str,
+             probe=None):
     """Chunked solve, `args.progress_every` steps per chunk, progress
     printed in between.  The last step is clamped onto tf = num_steps*dt.
-    Returns the final state."""
+    Returns the final state, or (state, ys) with the per-step probe
+    values ys (num_steps, npts) when a `probe` is given."""
     state = model.init_state()
     chunk = max(args.progress_every, 1)
     tf = float(num_steps) * dt
     done = 0
-    walls = []
+    walls, ys = [], []
     while done < num_steps:
         k = min(chunk, num_steps - done)
         with _Timer(model.device) as tm:
-            state = model.solve(state, dt, k, tf=tf)
+            if probe is None:
+                state = model.solve(state, dt, k, tf=tf)
+            else:
+                state, y = model.solve(state, dt, k, tf=tf, probe=probe)
+                ys.append(y)
         walls.append((tm.seconds, k))
         done += k
         print(f"t: {state.t:.5e}, steps: {done}/{num_steps}, "
@@ -88,4 +94,4 @@ def run_demo(model, dt: float, num_steps: int, args, name: str):
         sw = sum(w for w, _ in walls[1:])
         sk = sum(k for _, k in walls[1:])
         print(f"Solve time per step (steady): {sw / sk:.6f}")
-    return state
+    return state if probe is None else (state, torch.cat(ys))

@@ -2,27 +2,39 @@
 nonlinear propagation (1.1 MHz, beta = 3.5, alpha = 0.2 dB/m, source
 velocity 0.3856 m/s, every boundary facet outside the aperture absorbing).
 
-Two bowl realisations (--geometry):
+Bowl realisations (--geometry):
 - `conformal` (default): a body-fitted spherical-cap mesh; the x- face of a
   deformed box is morphed onto the H131 cap and the transducer is a
   constant-velocity source on the curved patch;
-- `phased`: flat aperture with per-node focus delays.
+- `phased`: flat aperture with per-node focus delays;
+- `unstructured`: the conformal mesh exported as a tagged Gmsh .msh file
+  (tag 1 = bowl cap, tag 2 = absorbing) and imported again, the workflow
+  of a Gmsh-built transducer mesh; the import detects as prismatic
+  (extruded along x) and runs the extruded stiffness kernels.  `--mesh`
+  imports a given tagged .msh instead.
 H131 geometry: aperture radius 16 mm, focal length 35 mm.  `--two-layer`
 adds a soft-tissue layer past x = 20 mm (heterogeneous Westervelt, the
 pair stiffness kernel).
 
     python -m fustpu_torch.demos.nonlinear_bowl [--elements N] [--degree P]
-        [--geometry conformal|phased] [--two-layer] [--device cuda|cpu]
+        [--geometry conformal|phased|unstructured] [--mesh file.msh]
+        [--two-layer] [--device cuda|cpu]
 """
 
 from __future__ import annotations
+
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 
 from fustpu_torch.config import Material, Source
 from fustpu_torch.demos.common import (check_device, demo_argparser,
                                        pick_dtype, run_demo)
+from fustpu_torch.mesh import msh_io
 from fustpu_torch.mesh.box import build_box_mesh, build_mapped_mesh
+from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.models import sources
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.utils import eval as fev
@@ -50,8 +62,14 @@ def bowl_mapping(focal_length, aperture_radius, yc, zc, Lx):
 
 def parser():
     p = demo_argparser(degree=6, periods=8.0)
-    p.add_argument("--geometry", choices=["conformal", "phased"],
-                   default="conformal")
+    p.add_argument("--geometry",
+                   choices=["conformal", "phased", "unstructured"],
+                   default="conformal",
+                   help="unstructured = export the conformal bowl mesh to "
+                        "a tagged Gmsh .msh file and import it again")
+    p.add_argument("--mesh", default="",
+                   help="pre-built tagged .msh (tag 1 = bowl cap, tag 2 = "
+                        "absorbing); implies unstructured")
     p.add_argument("--two-layer", action="store_true",
                    help="water -> soft-tissue layer (c=1560, rho=1045) "
                         "past x=20 mm: heterogeneous Westervelt, the pair "
@@ -79,20 +97,30 @@ def build(args):
     focus = np.array([focal_length, yc, zc])
     in_aperture = lambda c: ((c[:, 1] - yc) ** 2
                              + (c[:, 2] - zc) ** 2) < aperture_radius**2
+    if args.mesh:
+        args.geometry = "unstructured"
+    mesh = None                  # a supplied .msh needs no generated mesh
     if args.geometry == "phased":
         mesh = build_box_mesh((nex, net, net), args.degree,
                               hi=(domain_length, Lt, Lt))
-    else:
+    elif not args.mesh:
         mesh = build_mapped_mesh(
             (nex, net, net), args.degree,
             bowl_mapping(focal_length, aperture_radius, yc, zc,
                          domain_length),
             hi=(domain_length, Lt, Lt))
-    aperture = mesh.boundary_facets("x-", predicate=in_aperture)
-    # absorbing on every boundary facet except the source aperture
-    absorbing = np.concatenate(
-        [mesh.boundary_facets("x-", predicate=lambda c: ~in_aperture(c))]
-        + [mesh.boundary_facets(p) for p in ["x+", "y-", "y+", "z-", "z+"]])
+    if args.geometry == "unstructured":
+        mesh = import_bowl(args, mesh, in_aperture)
+        aperture = mesh.boundary_facets(1)
+        absorbing = mesh.boundary_facets(2)
+    else:
+        aperture = mesh.boundary_facets("x-", predicate=in_aperture)
+        # absorbing on every boundary facet except the source aperture
+        absorbing = np.concatenate(
+            [mesh.boundary_facets("x-",
+                                  predicate=lambda c: ~in_aperture(c))]
+            + [mesh.boundary_facets(p) for p in
+               ["x+", "y-", "y+", "z-", "z+"]])
     print(f"degree {args.degree}, {args.geometry} bowl, "
           f"Number of degrees-of-freedom: {mesh.ndofs}")
     if len(aperture) == 0:
@@ -105,9 +133,10 @@ def build(args):
     if args.two_layer:
         cent = mesh.cell_corners_flat.mean(axis=1)
         tissue = cent[:, 0] > 0.02
+        shape = mesh.nc if hasattr(mesh, "nc") else (mesh.num_cells,)
         mat = Material(
-            sound_speed=np.where(tissue, 1560.0, 1480.0).reshape(mesh.nc),
-            density=np.where(tissue, 1045.0, 1000.0).reshape(mesh.nc),
+            sound_speed=np.where(tissue, 1560.0, 1480.0).reshape(shape),
+            density=np.where(tissue, 1045.0, 1000.0).reshape(shape),
             nonlinearity=3.5, attenuation_dB=0.2)
         print(f"two-layer medium (interface x=20 mm, "
               f"{int(tissue.sum())} tissue cells)")
@@ -122,10 +151,43 @@ def build(args):
     return model, dt, nsteps, focus
 
 
+def import_bowl(args, box_mesh, in_aperture):
+    """Export `box_mesh` (the conformal bowl) as a tagged .msh file and
+    import it again, or import `args.mesh` when given.  The import must
+    detect as prismatic: non-prismatic meshes are slice 3 of the port."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        if args.mesh:
+            mesh_file = args.mesh
+        else:
+            cap = box_mesh.boundary_facets("x-", predicate=in_aperture)
+            other = np.concatenate(
+                [box_mesh.boundary_facets(
+                    "x-", predicate=lambda c: ~in_aperture(c))]
+                + [box_mesh.boundary_facets(p) for p in
+                   ["x+", "y-", "y+", "z-", "z+"]])
+            mesh_file = msh_io.export_box_msh(
+                box_mesh, {1: cap, 2: other}, str(Path(workdir) / "bowl"))
+        t1 = time.perf_counter()
+        mesh = msh_io.read_msh(mesh_file, degree=args.degree)
+    print(f"host: .msh export {t1 - t0:.1f} s, import and extrusion "
+          f"detection {time.perf_counter() - t1:.1f} s")
+    kind = ("extruded" if isinstance(mesh, ExtrudedHexMesh)
+            else "general (non-prismatic)")
+    print(f"mesh: {Path(mesh_file).name} ({mesh.num_cells} hex cells, "
+          f"imported, {kind})")
+    if isinstance(mesh, ExtrudedHexMesh):
+        print(f"extrusion: axis {mesh.axis}, {mesh.nstacks} stacks, "
+              f"{mesh.nz} layers, {mesh.n2d} rows")
+    return mesh
+
+
 def focal_pressure(model, state, focus) -> float:
     """The pressure (u) at the focus, evaluated on the host."""
     u = state.u.detach().cpu().double().numpy()
-    return float(fev.evaluate(model.mesh, u, focus[None, :])[0])
+    if hasattr(model.mesh, "nc"):
+        return float(fev.evaluate(model.mesh, u, focus[None, :])[0])
+    return float(model.mesh.evaluate(u, focus[None, :])[0])
 
 
 def main(argv=None):

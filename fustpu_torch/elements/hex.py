@@ -4,8 +4,8 @@ Local dof (i, j, k) -> i*n^2 + j*n + k with i <-> xi_0, j <-> xi_1,
 k <-> xi_2 on the unit reference cell [0,1]^3.  Quadrature is the collocated
 GLL rule: quadrature point q = (i,j,k) coincides with dof (i,j,k), so the
 mass matrix is diagonal and detJ is indexed by local dof.  Vendored from
-``fustpu/elements/hex.py`` (the trilinear geometry basis only: the port's
-meshes are box meshes).
+``fustpu/elements/hex.py``: the trilinear (hex8) geometry basis, and the
+triquadratic (hex27) one of curved imported cells.
 """
 
 from __future__ import annotations
@@ -122,3 +122,48 @@ def hex8_tabulate(pts: np.ndarray):
                 grads[:, v, 1] = l(x, a) * dl(b) * l(z, c)
                 grads[:, v, 2] = l(x, a) * l(y, b) * dl(c)
     return vals, grads
+
+
+# ---------------------------------------------------------------------------
+# Triquadratic (hex27) geometry basis: isoparametric degree-2 coordinate maps
+# (curved cells).  Internal node ordering is tensor-product lexicographic:
+# node (i, j, k) with i, j, k in {0, 1, 2} at reference position
+# (i/2, j/2, k/2), index 9i + 3j + k.
+# ---------------------------------------------------------------------------
+
+_Q3_NODES = np.array([0.0, 0.5, 1.0])
+
+
+def hex27_tabulate(pts: np.ndarray):
+    """Values (npts, 27) and gradients (npts, 27, 3) of the triquadratic
+    Lagrange geometry basis, internal TP ordering 9i + 3j + k."""
+    pts = np.asarray(pts, np.float64)
+    vx, dx = gll.lagrange_tabulate(_Q3_NODES, pts[:, 0])
+    vy, dy = gll.lagrange_tabulate(_Q3_NODES, pts[:, 1])
+    vz, dz = gll.lagrange_tabulate(_Q3_NODES, pts[:, 2])
+    vals = np.einsum("pi,pj,pk->pijk", vx, vy, vz).reshape(-1, 27)
+    g0 = np.einsum("pi,pj,pk->pijk", dx, vy, vz).reshape(-1, 27)
+    g1 = np.einsum("pi,pj,pk->pijk", vx, dy, vz).reshape(-1, 27)
+    g2 = np.einsum("pi,pj,pk->pijk", vx, vy, dz).reshape(-1, 27)
+    return vals, np.stack([g0, g1, g2], axis=-1)
+
+
+# Gmsh 27-node hexahedron node order -> reference (u, v, w), from the Gmsh
+# documentation's node numbering (corners, 12 edges, 6 faces, volume
+# centre).  Used to permute imported hex27 connectivity into the internal
+# TP ordering.
+GMSH_HEX27_UVW = np.array([
+    (0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+    (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1),
+    (.5, 0, 0), (0, .5, 0), (0, 0, .5), (1, .5, 0),
+    (1, 0, .5), (.5, 1, 0), (1, 1, .5), (0, 1, .5),
+    (.5, 0, 1), (0, .5, 1), (1, .5, 1), (.5, 1, 1),
+    (.5, .5, 0), (.5, 0, .5), (0, .5, .5), (1, .5, .5),
+    (.5, 1, .5), (.5, .5, 1), (.5, .5, .5),
+], np.float64)
+
+# internal_index = 9*(2u) + 3*(2v) + (2w); GMSH_HEX27_TO_TP[g] gives the
+# internal slot of Gmsh node g
+GMSH_HEX27_TO_TP = (9 * np.round(2 * GMSH_HEX27_UVW[:, 0])
+                    + 3 * np.round(2 * GMSH_HEX27_UVW[:, 1])
+                    + np.round(2 * GMSH_HEX27_UVW[:, 2])).astype(np.int64)

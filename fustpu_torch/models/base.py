@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.models import timestepping
 from fustpu_torch.models.discretization import resolve_stiffness_impl
 
@@ -29,18 +30,27 @@ class WaveModelBase(nn.Module):
                dtype: torch.dtype, device, stiffness_impl: str) -> None:
         """Configuration shared by every way of building a model: no host
         assembly happens here."""
-        if not hasattr(mesh, "nc"):
+        if not (hasattr(mesh, "nc") or isinstance(mesh, ExtrudedHexMesh)):
             raise NotImplementedError(
-                "unstructured meshes: imported prismatic meshes are slice 2 "
-                "and non-prismatic meshes slice 3 of the port")
+                "non-prismatic unstructured meshes are slice 3 of the port "
+                "(imported meshes run here when as_extruded detects a "
+                "prismatic topology)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={device!r}: no CUDA device is available (the "
+                "models run on the card by default; pass device='cpu' for "
+                "the plain torch path)")
         self.mesh = mesh
         self.material = material
         self.source = source
         self.dtype = dtype
-        self.device = torch.device(device)
         self.impl = resolve_stiffness_impl(stiffness_impl, self.device)
         self.uniform = material.is_uniform
-        c = material.cell_fields(mesh.nc)[0].reshape(-1)
+        # shape of per-cell fields: the cell grid, or the cell list
+        self.cell_shape = (mesh.nc if hasattr(mesh, "nc")
+                           else (mesh.num_cells,))
+        c = material.cell_fields(self.cell_shape)[0].reshape(-1)
         cells = np.asarray(source_facets).reshape(-1, 2)[:, 0]
         # scalar sound speed at the source (enters the source amplitude)
         self.c_src = float(np.mean(c[cells])) if cells.size \
@@ -88,14 +98,21 @@ class WaveModelBase(nn.Module):
 
     @torch.no_grad()
     def solve(self, state, dt: float, num_steps: int,
-              tf: float | None = None):
+              tf: float | None = None, probe=None):
         """`num_steps` RK4 steps; the last is clamped onto `tf` if given.
-        State fields are (gx, gy, gz) at the API; the loop runs on flat
-        views."""
+        State fields are grid-shaped at the API; the loop runs on flat
+        views.  With a `probe` (grid-shaped state -> (npts,) tensor),
+        returns (state, ys) with ys (num_steps, npts) on the model's
+        device, the probe read after every step."""
+        wrapped = (None if probe is None
+                   else (lambda s: probe(self._grid_state(s))))
         out = timestepping.solve(self._rhs, self._flat_state(state),
                                  float(dt), num_steps,
-                                 None if tf is None else float(tf))
-        return self._grid_state(out)
+                                 None if tf is None else float(tf),
+                                 probe=wrapped)
+        if probe is None:
+            return self._grid_state(out)
+        return self._grid_state(out[0]), out[1]
 
     def cfl_dt(self, cfl: float | None = None) -> tuple[float, int]:
         """dt = CFL h / (c P^2), snapped to an integer number of steps per

@@ -1,13 +1,14 @@
-"""Spectral-element discretization of a structured box mesh: host-side
-(float64 numpy) geometry, facet blocks and diagonal assembly, and the
-stiffness operator on the device.
+"""Spectral-element discretization of a structured box mesh or an
+imported prismatic mesh: host-side (float64 numpy) geometry, facet blocks
+and diagonal assembly, and the stiffness operator on the device.
 
 With GLL collocation every mass-type operator (cell or facet) is globally
 diagonal, so each fixed coefficient field yields a precomputed diagonal
 vector and an apply is one elementwise multiply (`mass_diag_host` /
-`facet_diag_host`).  The stiffness operator is `StructuredStiffness`: the
-CUDA kernels on a CUDA device, or the matmul formulation.  Counterpart of
-the structured parts of ``fustpu/models/discretization.py``.
+`facet_diag_host`).  The stiffness operator is `StructuredStiffness` on a
+box mesh and `ExtrudedStiffness` on an `ExtrudedHexMesh`: the CUDA kernels
+on a CUDA device, or their plain torch versions.  Counterpart of the
+structured and extruded parts of ``fustpu/models/discretization.py``.
 """
 
 from __future__ import annotations
@@ -19,17 +20,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_stiffness as cs
+from fustpu_torch.ops import extruded as ext
 from fustpu_torch.ops import precompute as pre
 from fustpu_torch.ops import spectral_mm as mm
 
 _LATER_SLICES = {
     "pallas_corner": "the corner-streamed capacity mode is slice 4 of the "
                      "port",
-    "extruded": "imported prismatic meshes are slice 2 of the port",
-    "extruded_pallas": "imported prismatic meshes are slice 2 of the port",
-    "extruded_pallas_corner": "imported prismatic meshes (capacity mode) "
-                              "are slices 2 and 4 of the port",
+    "extruded_pallas_corner": "the corner-streamed capacity mode of "
+                              "imported prismatic meshes is slice 4 of the "
+                              "port",
     "indexed": "non-prismatic unstructured meshes are slice 3 of the port",
     "indexed_engine": "non-prismatic unstructured meshes are slice 3 of "
                       "the port",
@@ -49,11 +51,13 @@ class FacetBlock(NamedTuple):
 
 
 class Discretization:
-    """Host geometry factors and facet machinery for one box mesh."""
+    """Host geometry factors and facet machinery for one box mesh or
+    imported (unstructured) mesh."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.P = mesh.degree
+        self.structured = hasattr(mesh, "nc")
         self._detJ_host = pre.cell_detJ(mesh)              # (cells, n^3)
         self._D_host = mesh.element.deriv_1d
 
@@ -77,7 +81,17 @@ class Discretization:
     # ---- host-side float64 diagonal assembly ------------------------------
     def mass_diag_host(self, cell_coeff=None) -> np.ndarray:
         """Global diagonal of the mass operator for a per-cell coefficient
-        field, float64 on host, grid-shaped."""
+        field, float64 on host, grid-shaped (flat (ndofs,) on an
+        unstructured mesh)."""
+        if not self.structured:
+            vals = self._detJ_host
+            if cell_coeff is not None:
+                vals = vals * np.asarray(
+                    cell_coeff, np.float64).reshape(-1)[:, None]
+            # the sum through the dofmap (the JAX package's np.add.at,
+            # as one bincount)
+            return np.bincount(self.mesh.dofmap.ravel(), vals.ravel(),
+                               minlength=self.mesh.ndofs)
         coeff = None if cell_coeff is None else np.asarray(
             cell_coeff).reshape(self.mesh.nc)
         return mm.mass_diagonal(self.mesh.nc, self.P, self._detJ_host, coeff)
@@ -98,10 +112,14 @@ class Discretization:
 
     # ---- stiffness --------------------------------------------------------
     def stiffness_op(self, dtype: torch.dtype, device, coeff=None,
-                     pair=None) -> cs.CellStiffness:
-        """The stiffness operator in the kernel layout, on `device`:
-        `coeff` (per-cell) is folded into G; `pair` = (c1, c2) per-cell
-        fields makes a unit-G pair operator."""
+                     pair=None):
+        """The stiffness operator in the kernel layout, on `device`
+        (`cs.CellStiffness` on a box mesh, `ce.ExtrudedCellStiffness` on
+        an extruded one): `coeff` (per-cell) is folded into G; `pair` =
+        (c1, c2) per-cell fields makes a unit-G pair operator."""
+        if not self.structured:
+            return ce.build(self.mesh, self._G_host, self._D_host, dtype,
+                            device, coeff=coeff, pair=pair)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         C = None
         if pair is not None:
@@ -114,8 +132,9 @@ class Discretization:
 
 
 def resolve_stiffness_impl(impl: str, device) -> str:
-    """'auto' is the CUDA kernel on a CUDA device and the plain matmul
-    version elsewhere; 'mm' forces the plain version."""
+    """'auto' is the CUDA kernel on a CUDA device and the plain torch
+    version elsewhere; 'mm' forces the plain version (on any mesh
+    kind)."""
     if impl in _LATER_SLICES:
         raise NotImplementedError(f"stiffness_impl={impl!r}: "
                                   f"{_LATER_SLICES[impl]}")
@@ -171,3 +190,58 @@ class StructuredStiffness(nn.Module):
             return cs.stiffness_pair(self.cell_op, x1, x2)
         return mm.stiffness_apply_mm_pair(self.mm_op, x1, x2,
                                           self.c1_e, self.c2_e)
+
+
+class ExtrudedStiffness(nn.Module):
+    """The extruded stiffness operator as buffers in the layout its
+    implementation reads: the kernel layout for 'cuda', the einsum layout
+    for 'mm'.  ``ExtrudedStiffness(op.cell_op, "mm")`` is the plain version
+    of a kernel-layout operator `op`, with the same numbers.  `forward(x)`
+    is the single-field apply, `pair(x1, x2)` the two-field one; both take
+    and return flat tensors."""
+
+    def __init__(self, op: ce.ExtrudedCellStiffness, impl: str):
+        super().__init__()
+        self.impl = impl
+        self.nz, self.n2d, self.bounds = op.nz, op.n2d, op.bounds
+        self.ndofs = op.ndofs
+        self.is_pair = op.C is not None
+        if impl == "cuda":
+            for name in ("G", "D", "rows", "cells", "C"):
+                self.register_buffer(name, getattr(op, name))
+        else:
+            plain, c1_x, c2_x = ce.to_plain(op)
+            for name in ext.PlainExtruded._fields:
+                self.register_buffer(name, getattr(plain, name))
+            self.register_buffer("c1_x", c1_x)
+            self.register_buffer("c2_x", c2_x)
+
+    @property
+    def cell_op(self) -> ce.ExtrudedCellStiffness:
+        return ce.ExtrudedCellStiffness(
+            G=self.G, D=self.D, rows=self.rows, nz=self.nz, n2d=self.n2d,
+            cells=self.cells, bounds=self.bounds, C=self.C)
+
+    @property
+    def plain_op(self) -> ext.PlainExtruded:
+        return ext.PlainExtruded(rows=self.rows, G6=self.G6, Wz=self.Wz,
+                                 Dz=self.Dz, D=self.D)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return ce.extruded(self.cell_op, x)
+        return ext.stiffness_apply_extruded(x, self.plain_op, self.ndofs)
+
+    def pair(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return ce.extruded_pair(self.cell_op, x1, x2)
+        return ext.stiffness_apply_extruded_pair(
+            x1, x2, self.plain_op, self.ndofs, self.c1_x, self.c2_x)
+
+
+def stiffness_module(op, impl: str) -> nn.Module:
+    """The stiffness module for a kernel-layout operator of either mesh
+    kind."""
+    if isinstance(op, ce.ExtrudedCellStiffness):
+        return ExtrudedStiffness(op, impl)
+    return StructuredStiffness(op, impl)

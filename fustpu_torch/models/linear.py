@@ -11,8 +11,9 @@ Weak form:
 
 Per RK stage: one stiffness apply plus elementwise updates (the mass LHS,
 the source vectors and the absorbing facet term are precomputed
-diagonals).  Counterpart of the structured branches of
-``fustpu/models/linear.py``.
+diagonals).  Counterpart of the structured and extruded branches of
+``fustpu/models/linear.py``: on an imported prismatic mesh the stiffness
+is the extruded operator, the rest is the same.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from fustpu_torch.config import Material, Source
 from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
 from fustpu_torch.models.discretization import (Discretization,
-                                                StructuredStiffness)
+                                                stiffness_module)
 from fustpu_torch.ops import vector as vec
 
 
@@ -40,7 +41,7 @@ class LinearWaveModel(WaveModelBase):
         source_facets: np.ndarray,
         absorbing_facets: np.ndarray | None,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
         source_delays=None,
         source_apodization=None,
         stiffness_impl: str = "auto",
@@ -48,18 +49,19 @@ class LinearWaveModel(WaveModelBase):
         """`source_delays`: optional per-node delay profile tau(x) for a
         phased (focused) aperture, a callable(points (N,3)) -> tau (N,) or
         an (nf, n^2) array.  `source_apodization`: optional amplitude
-        profile, same convention.  `stiffness_impl`: 'auto' (the CUDA
-        kernel on a CUDA device, the plain version elsewhere) or 'mm'
-        (the plain version)."""
+        profile, same convention.  `device`: the card ('cuda', the
+        default) or 'cpu'.  `stiffness_impl`: 'auto' (the CUDA kernel on
+        a CUDA device, the plain version elsewhere) or 'mm' (the plain
+        version)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
         disc = Discretization(mesh)
         self.disc = disc
-        c, rho, _, _ = material.cell_fields(mesh.nc)
+        c, rho, _, _ = material.cell_fields(self.cell_shape)
         # stiffness coefficient -1/rho: a scalar applied to the output for
         # uniform media, folded into G otherwise
-        self.stiffness = StructuredStiffness(disc.stiffness_op(
+        self.stiffness = stiffness_module(disc.stiffness_op(
             dtype, self.device,
             coeff=None if self.uniform else -1.0 / rho), self.impl)
 
@@ -87,7 +89,7 @@ class LinearWaveModel(WaveModelBase):
         self._load_vectors(host)
 
     def _coefficients(self) -> None:
-        rho = self.material.cell_fields(self.mesh.nc)[1]
+        rho = self.material.cell_fields(self.cell_shape)[1]
         self.c2_scalar = -1.0 / float(rho.flat[0]) if self.uniform else None
 
     # ------------------------------------------------------------------

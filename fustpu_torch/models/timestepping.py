@@ -59,17 +59,22 @@ def rk4_step(rhs: Callable, state: RKState, dt: float,
 
 
 def solve(rhs: Callable, state: RKState, dt: float, num_steps: int,
-          tf: float | None = None) -> RKState:
-    """Run `num_steps` RK4 steps.
+          tf: float | None = None, probe: Callable | None = None):
+    """Run `num_steps` RK4 steps.  Returns the final state, or, with a
+    `probe` (state -> (npts,) tensor), (state, ys) with ys
+    (num_steps, npts) holding the probe after every step.
 
     The step time is recomputed as t = t0 + k*dt from the integer step
     index instead of being accumulated as t += dt, so rounding does not
     grow with the step count (in float32 the accumulated form drifts the
     source phase)."""
     t0 = state.t
+    ys = []
     for k in range(num_steps):
         t = t0 + k * dt
         if tf is not None:
             t = min(t, tf)               # no-op steps past tf stay at tf
         state = rk4_step(rhs, state._replace(t=t), dt, tf)
-    return state
+        if probe is not None:
+            ys.append(probe(state))
+    return state if probe is None else (state, torch.stack(ys))

@@ -15,8 +15,9 @@ Per RK stage one stiffness apply: in uniform media the two stiffness terms
 fold into A(c3 u + c4 v) since the operator is linear and the coefficients
 are scalars; in heterogeneous media the pair kernel applies
 A_c3(u) + A_c4(v) in one pass with a unit G.  Every mass-type term is a
-precomputed diagonal.  Counterpart of the structured branches of
-``fustpu/models/westervelt.py``.
+precomputed diagonal.  Counterpart of the structured and extruded
+branches of ``fustpu/models/westervelt.py``: on an imported prismatic mesh
+the stiffness is the extruded operator, the rest is the same.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from fustpu_torch.config import Material, Source
 from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
 from fustpu_torch.models.discretization import (Discretization,
-                                                StructuredStiffness)
+                                                stiffness_module)
 from fustpu_torch.ops import vector as vec
 
 
@@ -45,24 +46,24 @@ class WesterveltModel(WaveModelBase):
         source_facets: np.ndarray,
         absorbing_facets: np.ndarray | None,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
         source_delays=None,
         source_apodization=None,
         stiffness_impl: str = "auto",
     ):
         """`source_delays` / `source_apodization`: optional per-node
         phased-aperture profiles (callable(points)->array or (nf, n^2)
-        arrays).  `stiffness_impl`: 'auto' (the CUDA kernels on a CUDA
-        device, the plain version elsewhere) or 'mm' (the plain
-        version)."""
+        arrays).  `device`: the card ('cuda', the default) or 'cpu'.
+        `stiffness_impl`: 'auto' (the CUDA kernels on a CUDA device, the
+        plain version elsewhere) or 'mm' (the plain version)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
         disc = Discretization(mesh)
         self.disc = disc
-        c, rho, beta, _ = material.cell_fields(mesh.nc)
+        c, rho, beta, _ = material.cell_fields(self.cell_shape)
         delta = self._delta
-        self.stiffness = StructuredStiffness(disc.stiffness_op(
+        self.stiffness = stiffness_module(disc.stiffness_op(
             dtype, self.device,
             pair=None if self.uniform else self._pair_coeffs), self.impl)
 
@@ -103,10 +104,10 @@ class WesterveltModel(WaveModelBase):
         self._load_vectors(host)
 
     def _coefficients(self) -> None:
-        c, rho, _, _ = self.material.cell_fields(self.mesh.nc)
+        c, rho, _, _ = self.material.cell_fields(self.cell_shape)
         self._delta = np.broadcast_to(np.asarray(
             self.material.diffusivity_of_sound(
-                self.source.angular_frequency), np.float64), self.mesh.nc)
+                self.source.angular_frequency), np.float64), self.cell_shape)
         # the two stiffness coefficients -1/rho and -delta/(rho c^2)
         self._pair_coeffs = (-1.0 / rho, -self._delta / (rho * c * c))
         self.c3_scalar = self.c4_scalar = None

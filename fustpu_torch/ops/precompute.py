@@ -6,16 +6,28 @@ detJ_f[f,q] = w_q * |t_s x t_t|   on boundary facets
 
 Quadrature points are the collocated GLL lattice, so q is also the local dof
 index.  Vendored from ``fustpu/ops/precompute.py``: the numpy path for
-trilinear cells only (no native library, no isoparametric hex27 maps).
+trilinear cells and for isoparametric hex27 maps (curved imported cells;
+the mesh then carries ``geom_nodes``).  No native library.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from fustpu_torch.elements.hex import FACETS, hex8_tabulate
+from fustpu_torch.elements.hex import FACETS, hex8_tabulate, hex27_tabulate
 
 _CHUNK = 16384  # cells per chunk to bound peak memory of (c, q, 3, 3) temps
+
+
+def _geom_dofs_grads(mesh, pts: np.ndarray):
+    """(geometry dofs (cells, ng, 3), reference gradients (nq, ng, 3)) for
+    the mesh's coordinate map: trilinear hex8 by default, the
+    isoparametric triquadratic hex27 map when the mesh carries
+    geom_nodes."""
+    gn = getattr(mesh, "geom_nodes", None)
+    if gn is not None:
+        return gn, hex27_tabulate(pts)[1]
+    return mesh.cell_corners_flat, hex8_tabulate(pts)[1]
 
 
 def _jacobians(corners: np.ndarray, grads: np.ndarray) -> np.ndarray:
@@ -77,6 +89,8 @@ def cell_geometry_factors(mesh, dedup: bool = True):
     congruent cells (translation copies) are computed once and
     broadcast."""
     elem = mesh.element
+    if getattr(mesh, "geom_nodes", None) is not None:
+        return _cell_geometry_curved(mesh)
     corners = mesh.cell_corners_flat                 # (cells, 8, 3)
     if dedup and corners.shape[0] > 4096:
         grp = congruence_groups(corners)
@@ -124,6 +138,8 @@ def cell_detJ(mesh, dedup: bool = True) -> np.ndarray:
     """detJ only (cells, nq), for mass-type setup where the 6-component
     metric G (6x the memory, plus a batched inverse) is not needed."""
     elem = mesh.element
+    if getattr(mesh, "geom_nodes", None) is not None:
+        return _cell_geometry_curved(mesh)[0]
     _, grads = hex8_tabulate(elem.quad_points)
     wts = elem.quad_weights
     corners = mesh.cell_corners_flat
@@ -142,12 +158,33 @@ def cell_detJ(mesh, dedup: bool = True) -> np.ndarray:
     return detJ
 
 
+def _cell_geometry_curved(mesh):
+    """(detJ, G) for isoparametric (hex27) cells: chunked batched numpy,
+    the trilinear path's math with the quadratic map's Jacobians."""
+    elem = mesh.element
+    gdofs, grads = _geom_dofs_grads(mesh, elem.quad_points)
+    wts = elem.quad_weights
+    nc, nq = gdofs.shape[0], wts.size
+    detJ = np.empty((nc, nq))
+    G = np.empty((nc, nq, 6))
+    for s in range(0, nc, _CHUNK):
+        e = min(s + _CHUNK, nc)
+        J = np.einsum("cvp,qvr->cqpr", gdofs[s:e], grads, optimize=True)
+        detJ[s:e] = np.abs(_det3(J)) * wts
+        Jinv = np.linalg.inv(J)
+        K = np.einsum("cqrp,cqsp->cqrs", Jinv, Jinv, optimize=True)
+        for m, (r_, s_) in enumerate(
+                [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]):
+            G[s:e, :, m] = K[..., r_, s_] * detJ[s:e]
+        del J, Jinv, K
+    return detJ, G
+
+
 def facet_geometry_factors(mesh, boundary_data: np.ndarray) -> np.ndarray:
     """detJ_f (nf, n^2): surface measure * weights at facet GLL points for
     (cell, local_facet) pairs."""
     elem = mesh.element
     wts_f = elem.facet_quad_weights                  # (n^2,)
-    corners = mesh.cell_corners_flat
     nf = boundary_data.shape[0]
     detJ_f = np.empty((nf, wts_f.size))
     # tabulate the geometry gradients at the facet quadrature points of each
@@ -156,10 +193,10 @@ def facet_geometry_factors(mesh, boundary_data: np.ndarray) -> np.ndarray:
         sel = np.nonzero(boundary_data[:, 1] == lf)[0]
         if sel.size == 0:
             continue
-        _, grads = hex8_tabulate(elem.facet_quad_points(lf))  # (n^2, 8, 3)
+        gdofs, grads = _geom_dofs_grads(mesh, elem.facet_quad_points(lf))
         axis, _ = FACETS[lf]
         free = [ax for ax in range(3) if ax != axis]
-        J = _jacobians(corners[boundary_data[sel, 0]], grads)
+        J = _jacobians(gdofs[boundary_data[sel, 0]], grads)
         t1 = J[..., free[0]]                         # (f, q, 3)
         t2 = J[..., free[1]]
         nrm = np.linalg.norm(np.cross(t1, t2), axis=-1)

@@ -2,9 +2,10 @@
 
     python -m fustpu_torch.tools.profile_step
 
-For the uniform and the two-layer conformal-bowl Westervelt runs at the
-flagship size (the `nonlinear_bowl` demo's models, --elements 64
---degree 4, float32) it prints:
+For the uniform and the two-layer Westervelt bowl runs at the flagship
+size (the `nonlinear_bowl` demo's models, --elements 64 --degree 4,
+float32), on the conformal mesh and on its .msh round trip (--geometry
+unstructured, the extruded kernels), it prints:
   - ms per step without the profiler (CUDA events over STEPS steps);
   - ms per step under torch.profiler, and the device time per step split
     into the stiffness kernels, the other (elementwise) kernels and the
@@ -38,7 +39,7 @@ def summarize_trace(events: list[dict]) -> dict:
     """Device time by group from a Chrome trace's event list (torch.profiler
     `export_chrome_trace`): 'stiffness' (the CUDA stiffness kernels),
     'copies' (device memcpy / memset) and 'elementwise' (every other
-    kernel).  Returns {group: (microseconds, launches)} plus 'busy_us' (the
+    kernel); 'stiffness' holds the structured and the extruded kernels.  Returns {group: (microseconds, launches)} plus 'busy_us' (the
     union of all device intervals) and 'span_us' (first start to last
     end)."""
     groups = {"stiffness": [0.0, 0], "elementwise": [0.0, 0],
@@ -52,7 +53,8 @@ def summarize_trace(events: list[dict]) -> dict:
         t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
         if cat != "kernel":
             g = "copies"
-        elif "stiffness_kernel" in e.get("name", ""):
+        elif any(k in e.get("name", "") for k in ("stiffness_kernel",
+                                                  "extruded_kernel")):
             g = "stiffness"
         else:
             g = "elementwise"
@@ -84,13 +86,15 @@ def _ms_per_step(model, state, dt, steps) -> float:
 
 
 def _stiffness_bytes(stiff, ndofs: int) -> int:
-    """Bytes one apply must move at least: G and C once, the input field(s)
-    once, the output read and written once."""
+    """Bytes one apply must move at least: G, C and the extruded row ids
+    once, the input field(s) once, the output read and written once."""
     op = stiff.cell_op
     field = ndofs * op.G.element_size()
     n_in = 2 if stiff.is_pair else 1
     c = 0 if op.C is None else op.C.numel() * op.C.element_size()
-    return op.G.numel() * op.G.element_size() + c + (n_in + 2) * field
+    rows = getattr(op, "rows", None)
+    r = 0 if rows is None else rows.numel() * rows.element_size()
+    return op.G.numel() * op.G.element_size() + c + r + (n_in + 2) * field
 
 
 def streaming_copy(gib: float) -> tuple[float, float]:
@@ -121,8 +125,9 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
     torch.cuda.synchronize()
     plain_ms = _ms_per_step(model, state, dt, steps)
 
-    name = "two_layer" if args.two_layer else "uniform"
-    trace = trace_dir / f"trace_{name}.json"
+    config = (f"{args.geometry} "
+              f"{'two-layer' if args.two_layer else 'uniform'}")
+    trace = trace_dir / f"trace_{config.replace(' ', '_')}.json"
     # one warm-up step of the profiler (two RK4 steps), then the active one
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
@@ -146,7 +151,7 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
     stiff_ms_apply = s["stiffness"][0] / 1e3 / (4 * steps)
     nbytes = _stiffness_bytes(model.stiffness, model.mesh.ndofs)
     out = {
-        "config": "two-layer" if args.two_layer else "uniform",
+        "config": config,
         "ms_per_step": plain_ms,
         "profiled_ms_per_step": host_s * 1e3 / steps,
         "busy_ms_per_step": s["busy_us"] / 1e3 / steps,
@@ -177,7 +182,9 @@ def main() -> None:
     print(f"streaming copy of {COPY_GIB} GiB float32: {ms:.4f} ms, "
           f"{tbps:.4f} TB/s read + write", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        for extra in ([], ["--two-layer"]):
+        for extra in ([], ["--two-layer"],
+                      ["--geometry", "unstructured"],
+                      ["--geometry", "unstructured", "--two-layer"]):
             r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
             print(json.dumps(r), flush=True)
             print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "

@@ -234,7 +234,7 @@ def test_bowl_demo_cli():
 
 @pytest.mark.parametrize("impl,err", [("pallas_corner", NotImplementedError),
                                       ("indexed", NotImplementedError),
-                                      ("extruded", NotImplementedError),
+                                      ("extruded", ValueError),
                                       ("cuda_please", ValueError)])
 def test_stiffness_impl_outside_the_slice_raises(impl, err):
     cls, _, kw, mesh = _config("westervelt_uniform")

@@ -100,7 +100,11 @@ def test_point_evaluation_matches():
 
 def test_import_loads_neither_jax_nor_fustpu():
     code = ("import sys, fustpu_torch, fustpu_torch.convert, "
-            "fustpu_torch.demos.nonlinear_bowl; "
+            "fustpu_torch.demos.nonlinear_bowl, "
+            "fustpu_torch.demos.linear_piston, "
+            "fustpu_torch.mesh.unstructured, fustpu_torch.mesh.extruded, "
+            "fustpu_torch.mesh.msh_io, fustpu_torch.mesh.shapes, "
+            "fustpu_torch.ops.extruded, fustpu_torch.ops.cuda_extruded; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fustpu' "
             "or m.startswith('fustpu.')]; print(bad); sys.exit(bool(bad))")

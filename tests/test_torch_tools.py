@@ -35,3 +35,15 @@ def test_summarize_trace_without_device_events():
     s = summarize_trace([_ev("cpu_op", "aten::mul", 0.0, 3.0)])
     assert s["busy_us"] == 0.0 and s["span_us"] == 0.0
     assert s["stiffness"] == (0.0, 0)
+
+
+def test_summarize_trace_counts_the_extruded_kernel():
+    events = [
+        _ev("kernel", "void extruded_kernel<float, 5, true>", 0.0, 8.0),
+        _ev("kernel", "void extruded_kernel<float, 5, true>", 8.0, 8.0),
+        _ev("kernel", "vectorized_elementwise_kernel", 16.0, 2.0),
+    ]
+    s = summarize_trace(events)
+    assert s["stiffness"] == (16.0, 2)
+    assert s["elementwise"] == (2.0, 1)
+    assert s["busy_us"] == pytest.approx(18.0)
