@@ -1,10 +1,11 @@
 """fustpu_torch: the PyTorch / CUDA port of fustpu for one NVIDIA H100.
 
 Matrix-free GLL spectral-element solver for the linear and Westervelt
-(nonlinear) acoustic wave equations on structured or mapped box meshes:
-float64 numpy host setup, hand-written CUDA kernels for the structured
-stiffness apply (``fustpu_torch/csrc/stiffness.cu``, built with nvcc at
-first use), and an RK4 loop of eager torch ops.  The JAX package ``fustpu``
+(nonlinear) acoustic wave equations on structured or mapped box meshes
+and imported Gmsh hex meshes (prismatic or general): float64 numpy host
+setup, hand-written CUDA kernels for the stiffness apply on each mesh kind
+(``fustpu_torch/csrc/*.cu``, built with nvcc at first use), and an RK4
+loop of eager torch ops.  The JAX package ``fustpu``
 is the reference this package is tested against; this package imports
 neither JAX nor ``fustpu``.
 """

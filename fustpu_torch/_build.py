@@ -116,4 +116,12 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, p, i, p, i, i, i, p]
         fn.restype = i
+    for name in ("fustpu_indexed_f32", "fustpu_indexed_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, i, p, i, p]
+        fn.restype = i
+    for name in ("fustpu_indexed_pair_f32", "fustpu_indexed_pair_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, p, i, p]
+        fn.restype = i
     return lib

@@ -14,7 +14,11 @@ leaves) and never see a JAX object.
   and D), of the fused-kernel ``PallasExtruded`` (Gt (n^2, 6, ns_pad, ez)
   and ``statics[0]`` as D) and of ``PallasExtrudedPair`` (plus ce
   (2, ns_pad, ez)), and returns G, coefficients and C in stack order
-  (cell s * nz + kz).
+  (cell s * nz + kz).  For a non-prismatic imported mesh (given its
+  dofmap) it accepts the arrays of ``Discretization.indexed_op`` (G
+  (6, cells, n^3), D) and of the fused engine's ``FusedEngine`` (G6p
+  (6, cellsp, 128) and D3p (3, 128, 128)), and returns G, coefficients and
+  C in mesh cell order.
 - `model_from_fustpu` builds a port model whose buffers are a JAX model's
   ``params`` (no host assembly) and moves an ``RKState`` across.
 """
@@ -27,9 +31,11 @@ import numpy as np
 import torch
 
 from fustpu_torch.mesh.extruded import ExtrudedHexMesh
+from fustpu_torch.mesh.unstructured import UnstructuredHexMesh
 from fustpu_torch.models.discretization import stiffness_module
 from fustpu_torch.models.timestepping import RKState
 from fustpu_torch.ops import cuda_extruded as ce
+from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
 
 
@@ -40,15 +46,19 @@ class HostStiffness(NamedTuple):
     D: np.ndarray                    # (n, n)
     coeff: np.ndarray | None         # (cells,) coefficient not yet in G
     C: np.ndarray | None             # (cells, 2) pair coefficients
+    dofmap: np.ndarray | None = None  # (cells, n^3) of an indexed operator
 
     def to_device(self, dtype: torch.dtype, device, nc):
         """The operator on `device`, any single coefficient folded into G.
-        `nc`: cells per axis of a box mesh, or the ExtrudedHexMesh of an
-        extruded operator."""
+        `nc`: cells per axis of a box mesh, or the imported mesh of an
+        extruded or indexed operator."""
         G = self.G if self.coeff is None else self.G * self.coeff[:, None,
                                                                  None]
         if isinstance(nc, ExtrudedHexMesh):
             return ce.from_host(nc, G, self.D, dtype, device, self.C)
+        if self.dofmap is not None:
+            return ci.from_host(self.dofmap, nc.ndofs, G, self.D, dtype,
+                                device, self.C)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                       device=device)
         return cs.CellStiffness(G=t(G), D=t(self.D), nc=tuple(nc),
@@ -92,8 +102,29 @@ def _extruded_from_fustpu(G, nc, D, C, coeff_e, c1_e, c2_e
                          C=None if C is None else np.ascontiguousarray(C))
 
 
-def stiffness_from_fustpu(G, nc, *, D=None, Dt=None, C=None, coeff_e=None,
-                          c1_e=None, c2_e=None, rows=None) -> HostStiffness:
+def _indexed_from_fustpu(G, dofmap, D, D3p, coeff, c1, c2) -> HostStiffness:
+    """The indexed layouts (see stiffness_from_fustpu)."""
+    dofmap = np.asarray(dofmap)
+    cells, n3 = dofmap.shape
+    if G.ndim != 3:
+        raise ValueError(f"unrecognised indexed G of shape {G.shape}")
+    # G6p pads cells and lanes with zeros; indexed_op's G has no padding
+    Gc = np.ascontiguousarray(G[:, :cells, :n3].transpose(1, 0, 2))
+    if D is None:
+        if D3p is None:
+            raise ValueError("need D or D3p")
+        # D3p[2] = I (x) I (x) D: its top-left n x n block is D
+        n = round(n3 ** (1 / 3))
+        D = np.asarray(D3p, np.float64)[2, :n, :n]
+    cell = lambda a: None if a is None else np.asarray(a, np.float64)
+    C = None if c1 is None else np.stack([cell(c1), cell(c2)], axis=1)
+    return HostStiffness(G=Gc, D=np.asarray(D, np.float64),
+                         coeff=cell(coeff), C=C, dofmap=dofmap)
+
+
+def stiffness_from_fustpu(G, nc, *, D=None, Dt=None, D3p=None, C=None,
+                          coeff_e=None, c1_e=None, c2_e=None, rows=None,
+                          dofmap=None) -> HostStiffness:
     """G: (6, ex, ey, ez) of an MMStiffness or (ncx, n, 6, ey, ez) of a
     PallasStiffness(Pair).  D: the (n, n) ``D_host``, or Dt: the three
     block-diagonal derivative matrices of an MMStiffness.  C: the pair
@@ -106,8 +137,17 @@ def stiffness_from_fustpu(G, nc, *, D=None, Dt=None, C=None, coeff_e=None,
     an ExtrudedStiffness or the Gt (n^2, 6, ns_pad, ez) of a
     PallasExtruded(Pair), D its 1D derivative matrix, C the pair form's ce
     (2, ns_pad, ez), and coeff_e / (c1_e, c2_e) the (ns, 1, 1, ez)
-    coefficient fields (c2_x, or c3_x and c4_x) of the einsum path."""
+    coefficient fields (c2_x, or c3_x and c4_x) of the einsum path.
+
+    Given `dofmap` (the mesh's (cells, n^3) dofmap), the operator is an
+    indexed one and nc is unused: G is the (6, cells, n^3) of
+    ``indexed_op`` with its D, or the (6, cellsp, 128) G6p of a
+    ``FusedEngine`` with its D3p, and coeff_e / (c1_e, c2_e) the (cells,)
+    coefficients (c2_c, or c3_c and c4_c) that path applies at run
+    time."""
     G = np.asarray(G, np.float64)
+    if dofmap is not None:
+        return _indexed_from_fustpu(G, dofmap, D, D3p, coeff_e, c1_e, c2_e)
     if rows is not None:
         return _extruded_from_fustpu(G, nc, D, C, coeff_e, c1_e, c2_e)
     ncx, ncy, ncz = nc
@@ -148,30 +188,43 @@ def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
     """A port model of class `cls` (LinearWaveModel or WesterveltModel)
     whose buffers are the JAX model's `params`, as numpy arrays:
     ``params["stiff"]`` is a dict of the keyword arrays of
-    `stiffness_from_fustpu` (with `rows` on an ExtrudedHexMesh), and the
+    `stiffness_from_fustpu` (with `rows` on an ExtrudedHexMesh; on any
+    other UnstructuredHexMesh the dofmap defaults to the mesh's, and a
+    fused-engine model gives ``params["fused"]`` instead), and the
     run-time coefficient fields c2_e (linear) or c3_e / c4_e (Westervelt)
-    of the matmul path, or c2_x / c3_x / c4_x of the extruded einsum
-    path, are given where the JAX model holds them.  `state`
-    (u, v, ku, kv, t) is moved across too.  Returns (model, state or
-    None)."""
+    of the matmul path, c2_x / c3_x / c4_x of the extruded einsum path,
+    or the per-cell c2_c / c3_c / c4_c of the indexed path, are given
+    where the JAX model holds them.  `state` (u, v, ku, kv, t) is moved
+    across too.  Returns (model, state or None)."""
     model = cls.__new__(cls)
     torch.nn.Module.__init__(model)
     model._setup(mesh, material, source, source_facets, dtype, device,
                  "auto")
-    stiff = dict(params["stiff"])
     extruded = isinstance(mesh, ExtrudedHexMesh)
-    # only the einsum layouts apply the coefficient fields at run time;
-    # the fused-kernel layouts fold them into G or carry them in C
-    plain = np.ndim(stiff["G"]) == (5 if extruded else 4)
-    tag = "x" if extruded else "e"
-    if plain and f"c2_{tag}" in params:
+    indexed = isinstance(mesh, UnstructuredHexMesh) and not extruded
+    stiff = dict(params["fused"] if params.get("stiff") is None
+                 else params["stiff"])
+    if indexed:
+        stiff.setdefault("dofmap", mesh.dofmap)
+        # the indexed path holds per-cell coefficients even in uniform
+        # media, where the port applies them as scalars instead
+        runtime, tag = not model.uniform, "c"
+    else:
+        # only the einsum layouts apply the coefficient fields at run
+        # time; the fused-kernel layouts fold them into G or carry them
+        # in C
+        runtime = np.ndim(stiff["G"]) == (5 if extruded else 4)
+        tag = "x" if extruded else "e"
+    if runtime and f"c2_{tag}" in params:
         stiff["coeff_e"] = params[f"c2_{tag}"]
-    if plain and f"c3_{tag}" in params:
+    if runtime and f"c3_{tag}" in params:
         stiff["c1_e"], stiff["c2_e"] = params[f"c3_{tag}"], params[
             f"c4_{tag}"]
-    where = mesh if extruded else mesh.nc
+    where = mesh if extruded or indexed else mesh.nc
     op = stiffness_from_fustpu(
-        nc=(mesh.nstacks, mesh.nz) if extruded else mesh.nc, **stiff)
+        nc=(mesh.nstacks, mesh.nz) if extruded else getattr(mesh, "nc",
+                                                            None),
+        **stiff)
     model.stiffness = stiffness_module(
         op.to_device(dtype, model.device, where), model.impl)
     model._load_vectors({k: params.get(k) for k in cls.VECTORS})

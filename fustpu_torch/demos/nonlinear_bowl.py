@@ -11,13 +11,19 @@ Bowl realisations (--geometry):
   (tag 1 = bowl cap, tag 2 = absorbing) and imported again, the workflow
   of a Gmsh-built transducer mesh; the import detects as prismatic
   (extruded along x) and runs the extruded stiffness kernels.  `--mesh`
-  imports a given tagged .msh instead.
+  imports a given tagged .msh instead;
+- `bodyfit`: the same round trip of a genuinely non-prismatic mesh (the
+  conformal bowl with its interior nodes clustered toward the focal axis,
+  so no lattice axis is an extrusion), the workflow of an arbitrary
+  Gmsh body-fitted mesh: the import keeps the general mesh, ordered by
+  `locality_order`, and runs the indexed stiffness kernels.
 H131 geometry: aperture radius 16 mm, focal length 35 mm.  `--two-layer`
 adds a soft-tissue layer past x = 20 mm (heterogeneous Westervelt, the
 pair stiffness kernel).
 
     python -m fustpu_torch.demos.nonlinear_bowl [--elements N] [--degree P]
-        [--geometry conformal|phased|unstructured] [--mesh file.msh]
+        [--geometry conformal|phased|unstructured|bodyfit]
+        [--mesh file.msh]
         [--two-layer] [--device cuda|cpu]
 """
 
@@ -36,6 +42,7 @@ from fustpu_torch.mesh import msh_io
 from fustpu_torch.mesh.box import build_box_mesh, build_mapped_mesh
 from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.models import sources
+from fustpu_torch.models.discretization import IndexedStiffness
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.utils import eval as fev
 
@@ -60,13 +67,37 @@ def bowl_mapping(focal_length, aperture_radius, yc, zc, Lx):
     return mapping
 
 
+def bodyfit_mapping(focal_length, aperture_radius, yc, zc, Lx, Lt):
+    """A non-prismatic body-fitted bowl: the cap sag of `bowl_mapping`
+    composed with a transverse clustering of nodes toward the focal axis
+    whose strength varies along x (peaked mid-domain, zero at the cap plane
+    and the domain end).  The domain, its boundary faces and the cap are
+    those of the conformal mesh; only interior nodes move, and no lattice
+    axis is an extrusion any more."""
+
+    def mapping(p):
+        # cluster first (vanishes on every boundary face), then sag
+        q = p.copy()
+        cx = np.sin(np.pi * np.clip(p[:, 0] / Lx, 0.0, 1.0)) ** 2
+        for ax, c in ((1, yc), (2, zc)):
+            s = np.sin(np.pi * np.clip(p[:, ax] / Lt, 0.0, 1.0)) ** 2
+            q[:, ax] = p[:, ax] - 0.12 * (p[:, ax] - c) * s * cx
+        return bowl_mapping(focal_length, aperture_radius, yc, zc,
+                            Lx)(q)
+
+    return mapping
+
+
 def parser():
     p = demo_argparser(degree=6, periods=8.0)
     p.add_argument("--geometry",
-                   choices=["conformal", "phased", "unstructured"],
+                   choices=["conformal", "phased", "unstructured",
+                            "bodyfit"],
                    default="conformal",
                    help="unstructured = export the conformal bowl mesh to "
-                        "a tagged Gmsh .msh file and import it again")
+                        "a tagged Gmsh .msh file and import it again; "
+                        "bodyfit = the same round trip of a non-prismatic "
+                        "body-fitted bowl (the indexed kernels)")
     p.add_argument("--mesh", default="",
                    help="pre-built tagged .msh (tag 1 = bowl cap, tag 2 = "
                         "absorbing); implies unstructured")
@@ -104,12 +135,16 @@ def build(args):
         mesh = build_box_mesh((nex, net, net), args.degree,
                               hi=(domain_length, Lt, Lt))
     elif not args.mesh:
-        mesh = build_mapped_mesh(
-            (nex, net, net), args.degree,
-            bowl_mapping(focal_length, aperture_radius, yc, zc,
-                         domain_length),
-            hi=(domain_length, Lt, Lt))
-    if args.geometry == "unstructured":
+        t0 = time.perf_counter()
+        mapping = (bodyfit_mapping(focal_length, aperture_radius, yc, zc,
+                                   domain_length, Lt)
+                   if args.geometry == "bodyfit" else
+                   bowl_mapping(focal_length, aperture_radius, yc, zc,
+                                domain_length))
+        mesh = build_mapped_mesh((nex, net, net), args.degree, mapping,
+                                 hi=(domain_length, Lt, Lt))
+        print(f"host: mapped mesh {time.perf_counter() - t0:.1f} s")
+    if args.geometry in ("unstructured", "bodyfit"):
         mesh = import_bowl(args, mesh, in_aperture)
         aperture = mesh.boundary_facets(1)
         absorbing = mesh.boundary_facets(2)
@@ -140,9 +175,17 @@ def build(args):
             nonlinearity=3.5, attenuation_dB=0.2)
         print(f"two-layer medium (interface x=20 mm, "
               f"{int(tissue.sum())} tissue cells)")
+    t0 = time.perf_counter()
     model = WesterveltModel(mesh, mat, src, aperture, absorbing,
                             dtype=pick_dtype(args.dtype), device=args.device,
                             source_delays=delays)
+    steps = ", ".join(f"{k} {v:.1f} s"
+                      for k, v in model.disc.host_seconds.items())
+    print(f"host: model set-up {time.perf_counter() - t0:.1f} s "
+          f"({steps or 'no geometry pass'})")
+    if isinstance(model.stiffness, IndexedStiffness):
+        print(f"indexed scatter: {len(model.stiffness.bounds) - 1} colour "
+              f"classes over {mesh.num_cells} cells")
     dt, _ = model.cfl_dt(0.4)
     tf = (domain_length / float(np.min(mat.sound_speed))
           + args.periods / src.frequency)
@@ -152,9 +195,11 @@ def build(args):
 
 
 def import_bowl(args, box_mesh, in_aperture):
-    """Export `box_mesh` (the conformal bowl) as a tagged .msh file and
-    import it again, or import `args.mesh` when given.  The import must
-    detect as prismatic: non-prismatic meshes are slice 3 of the port."""
+    """Export `box_mesh` (the conformal or bodyfit bowl) as a tagged .msh
+    file and import it again, or import `args.mesh` when given.  The
+    import detects a prismatic mesh as an ExtrudedHexMesh and keeps any
+    other as a general mesh in `locality_order`; the bodyfit bowl must not
+    detect as an extrusion."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         if args.mesh:
@@ -170,8 +215,11 @@ def import_bowl(args, box_mesh, in_aperture):
                 box_mesh, {1: cap, 2: other}, str(Path(workdir) / "bowl"))
         t1 = time.perf_counter()
         mesh = msh_io.read_msh(mesh_file, degree=args.degree)
-    print(f"host: .msh export {t1 - t0:.1f} s, import and extrusion "
-          f"detection {time.perf_counter() - t1:.1f} s")
+    print(f"host: .msh export {t1 - t0:.1f} s, import (extrusion "
+          f"detection, locality_order) {time.perf_counter() - t1:.1f} s")
+    if args.geometry == "bodyfit" and isinstance(mesh, ExtrudedHexMesh):
+        raise SystemExit("bodyfit mesh unexpectedly detected as an "
+                         "extrusion")
     kind = ("extruded" if isinstance(mesh, ExtrudedHexMesh)
             else "general (non-prismatic)")
     print(f"mesh: {Path(mesh_file).name} ({mesh.num_cells} hex cells, "

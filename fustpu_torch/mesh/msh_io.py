@@ -217,10 +217,11 @@ def _assemble_mesh(path, node_ids, coords, hexes, quads, degree: int,
         ex = as_extruded(mesh)
         if ex is not None:
             return ex
-    # a non-prismatic import keeps the file's cell order: the cell
-    # reordering for window locality (locality_order) comes with the
-    # gather/scatter engine it serves, in slice 3 of the port
-    return mesh
+    # non-prismatic import: the JAX package's cell order (and so its dof
+    # numbering), which keeps consecutive cells' dofs close together
+    from fustpu_torch.mesh.unstructured import locality_order
+
+    return locality_order(mesh)
 
 
 def _find_section(data: bytes, name: str, path: str):

@@ -11,11 +11,14 @@ many orders more than the tolerance and never do.  The numbering is
 orientation-free: cells may list their corners in any right-handed hex
 order.
 
+Cell order: `locality_order` picks the cell order of an imported
+non-prismatic mesh (and with it the first-touch dof numbering) by the
+window cost of ``fustpu_torch.mesh._window_cost``, as the JAX package
+does, so that both packages number such a mesh identically.
+
 Vendored from ``fustpu/mesh/unstructured.py`` (the port never imports the
-JAX package).  Left out: `locality_order`, `_rcm_order` and `reorder_cells`,
-which order cells for the non-prismatic gather/scatter engine that the
-port brings in its slice 3.  `UPointSampler.torch_probe` is the
-counterpart of ``jax_probe``.
+JAX package).  `UPointSampler.torch_probe` is the counterpart of
+``jax_probe``.
 """
 
 from __future__ import annotations
@@ -270,6 +273,87 @@ def _first_touch(inverse: np.ndarray, ndofs: int) -> np.ndarray:
     rank = np.empty(ndofs, np.int64)
     rank[uniq[np.argsort(firstpos)]] = np.arange(ndofs)
     return rank[inverse]
+
+
+def reorder_cells(mesh: UnstructuredHexMesh,
+                  perm: np.ndarray) -> UnstructuredHexMesh:
+    """The same mesh with cells listed in `perm` order; facet tags and the
+    quadratic coordinate map follow, and the first-touch dof numbering
+    re-derives in the new order (a pure relabelling)."""
+    perm = np.asarray(perm, np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    tags = {}
+    for t, bd in mesh.facet_tag_map.items():
+        bd = np.asarray(bd)
+        tags[t] = np.column_stack(
+            [inv[bd[:, 0]], bd[:, 1]]).astype(np.int32)
+    out = dataclasses.replace(
+        mesh, cells=mesh.cells[perm], facet_tag_map=tags,
+        geom_nodes=(None if mesh.geom_nodes is None
+                    else mesh.geom_nodes[perm]))
+    if "_cluster" in mesh.__dict__:
+        # the clustering is cell-order-equivariant: reuse it permuted
+        inverse, ndofs = mesh._cluster
+        out.__dict__["_cluster"] = (
+            inverse.reshape(mesh.num_cells, -1)[perm].reshape(-1), ndofs)
+    return out
+
+
+def _rcm_order(mesh: UnstructuredHexMesh) -> np.ndarray | None:
+    """Reverse Cuthill-McKee over the cell face-adjacency graph (one more
+    `locality_order` candidate, for curved domains that no axis sweep
+    bounds); None without scipy or without shared faces."""
+    try:
+        from scipy import sparse
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+    except ImportError:  # pragma: no cover - scipy is installed
+        return None
+
+    nc = mesh.num_cells
+    fk = face_keys(mesh.cells).reshape(nc * 6, 4)
+    order = np.lexsort(fk.T[::-1])
+    sk = fk[order]
+    same = np.all(sk[1:] == sk[:-1], axis=1)
+    i = order[:-1][same] // 6
+    j = order[1:][same] // 6
+    if i.size == 0:
+        return None
+    A = sparse.coo_matrix(
+        (np.ones(i.size * 2),
+         (np.concatenate([i, j]), np.concatenate([j, i]))),
+        shape=(nc, nc)).tocsr()
+    return np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True),
+                      np.int64)
+
+
+def locality_order(mesh: UnstructuredHexMesh) -> UnstructuredHexMesh:
+    """Reorder cells along the candidate order (the file order, a sweep
+    along each axis, reverse Cuthill-McKee) of least window cost
+    (``_window_cost.window_cost`` of the first-touch dofmap: window rows
+    times windows, then spills); the file order is kept unless a candidate
+    strictly improves on it."""
+    from fustpu_torch.mesh._window_cost import window_cost
+
+    inverse, ndofs = mesh._cluster
+    inv2 = inverse.reshape(mesh.num_cells, -1)
+    cent = mesh.vertices[mesh.cells].mean(axis=1)
+    cands = [None]
+    for ax in range(3):
+        keys = tuple(cent[:, a] for a in range(3) if a != ax) \
+            + (cent[:, ax],)
+        cands.append(np.lexsort(keys))
+    rcm = _rcm_order(mesh)
+    if rcm is not None:
+        cands.append(rcm)
+    best, best_cost = None, None
+    for perm in cands:
+        flat = (inv2 if perm is None else inv2[perm]).reshape(-1)
+        wr, nwin, spills = window_cost(_first_touch(flat, ndofs), ndofs)
+        cost = (wr * nwin, spills)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = perm, cost
+    return mesh if best is None else reorder_cells(mesh, best)
 
 
 class UPointSampler:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fustpu_torch.mesh.extruded import ExtrudedHexMesh
+from fustpu_torch.mesh.unstructured import UnstructuredHexMesh
 from fustpu_torch.models import timestepping
 from fustpu_torch.models.discretization import resolve_stiffness_impl
 
@@ -29,12 +29,13 @@ class WaveModelBase(nn.Module):
     def _setup(self, mesh, material, source, source_facets,
                dtype: torch.dtype, device, stiffness_impl: str) -> None:
         """Configuration shared by every way of building a model: no host
-        assembly happens here."""
-        if not (hasattr(mesh, "nc") or isinstance(mesh, ExtrudedHexMesh)):
-            raise NotImplementedError(
-                "non-prismatic unstructured meshes are slice 3 of the port "
-                "(imported meshes run here when as_extruded detects a "
-                "prismatic topology)")
+        assembly happens here.  `mesh`: a BoxMesh (structured kernels), an
+        ExtrudedHexMesh (extruded kernels) or any other
+        UnstructuredHexMesh (the indexed kernels)."""
+        if not (hasattr(mesh, "nc") or isinstance(mesh, UnstructuredHexMesh)):
+            raise TypeError(
+                f"mesh of type {type(mesh).__name__}: expected a BoxMesh or "
+                "an UnstructuredHexMesh (an imported .msh mesh)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,28 +1,34 @@
 """Spectral-element discretization of a structured box mesh or an
-imported prismatic mesh: host-side (float64 numpy) geometry, facet blocks
-and diagonal assembly, and the stiffness operator on the device.
+imported (prismatic or general) hex mesh: host-side (float64 numpy)
+geometry, facet blocks and diagonal assembly, and the stiffness operator
+on the device.
 
 With GLL collocation every mass-type operator (cell or facet) is globally
 diagonal, so each fixed coefficient field yields a precomputed diagonal
 vector and an apply is one elementwise multiply (`mass_diag_host` /
 `facet_diag_host`).  The stiffness operator is `StructuredStiffness` on a
-box mesh and `ExtrudedStiffness` on an `ExtrudedHexMesh`: the CUDA kernels
-on a CUDA device, or their plain torch versions.  Counterpart of the
-structured and extruded parts of ``fustpu/models/discretization.py``.
+box mesh, `ExtrudedStiffness` on an `ExtrudedHexMesh` and
+`IndexedStiffness` on any other `UnstructuredHexMesh`: the CUDA kernels on
+a CUDA device, or their plain torch versions.  Counterpart of
+``fustpu/models/discretization.py`` without its TPU-only parts.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.ops import cuda_extruded as ce
+from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.ops import extruded as ext
+from fustpu_torch.ops import indexed as idx
 from fustpu_torch.ops import precompute as pre
 from fustpu_torch.ops import spectral_mm as mm
 
@@ -32,9 +38,6 @@ _LATER_SLICES = {
     "extruded_pallas_corner": "the corner-streamed capacity mode of "
                               "imported prismatic meshes is slice 4 of the "
                               "port",
-    "indexed": "non-prismatic unstructured meshes are slice 3 of the port",
-    "indexed_engine": "non-prismatic unstructured meshes are slice 3 of "
-                      "the port",
 }
 
 
@@ -58,6 +61,8 @@ class Discretization:
         self.mesh = mesh
         self.P = mesh.degree
         self.structured = hasattr(mesh, "nc")
+        # seconds of the host set-up steps, by name, as they run
+        self.host_seconds = {}
         self._detJ_host = pre.cell_detJ(mesh)              # (cells, n^3)
         self._D_host = mesh.element.deriv_1d
 
@@ -65,7 +70,19 @@ class Discretization:
     def _G_host(self) -> np.ndarray:
         """(cells, n^3, 6) metric factors, float64 host, computed on first
         use."""
-        return pre.cell_geometry_factors(self.mesh)[1]
+        t0 = time.perf_counter()
+        G = pre.cell_geometry_factors(self.mesh)[1]
+        self.host_seconds["geometry"] = time.perf_counter() - t0
+        return G
+
+    @functools.cached_property
+    def scatter_classes(self) -> tuple[np.ndarray, tuple]:
+        """The indexed kernel's colour classes of the cells (computed on
+        first use, shared by every indexed operator of this mesh)."""
+        t0 = time.perf_counter()
+        out = ci.scatter_classes(self.mesh.dofmap, self.mesh.ndofs)
+        self.host_seconds["colouring"] = time.perf_counter() - t0
+        return out
 
     # ---- facets -----------------------------------------------------------
     def facet_block(self, boundary_data: np.ndarray) -> FacetBlock:
@@ -115,11 +132,16 @@ class Discretization:
                      pair=None):
         """The stiffness operator in the kernel layout, on `device`
         (`cs.CellStiffness` on a box mesh, `ce.ExtrudedCellStiffness` on
-        an extruded one): `coeff` (per-cell) is folded into G; `pair` =
-        (c1, c2) per-cell fields makes a unit-G pair operator."""
-        if not self.structured:
+        an extruded one, `ci.IndexedCellStiffness` on any other imported
+        mesh): `coeff` (per-cell) is folded into G; `pair` = (c1, c2)
+        per-cell fields makes a unit-G pair operator."""
+        if isinstance(self.mesh, ExtrudedHexMesh):
             return ce.build(self.mesh, self._G_host, self._D_host, dtype,
                             device, coeff=coeff, pair=pair)
+        if not self.structured:
+            return ci.build(self.mesh, self._G_host, self._D_host, dtype,
+                            device, coeff=coeff, pair=pair,
+                            classes=self.scatter_classes)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         C = None
         if pair is not None:
@@ -239,9 +261,59 @@ class ExtrudedStiffness(nn.Module):
             x1, x2, self.plain_op, self.ndofs, self.c1_x, self.c2_x)
 
 
+class IndexedStiffness(nn.Module):
+    """The indexed stiffness operator as buffers in the layout its
+    implementation reads: the kernel layout for 'cuda', the plain layout
+    of ``fustpu_torch.ops.indexed`` for 'mm'.
+    ``IndexedStiffness(op.cell_op, "mm")`` is the plain version of a
+    kernel-layout operator `op`, with the same numbers.  `forward(x)` is
+    the single-field apply, `pair(x1, x2)` the two-field one; both take
+    and return flat tensors."""
+
+    def __init__(self, op: ci.IndexedCellStiffness, impl: str):
+        super().__init__()
+        self.impl = impl
+        self.ndofs, self.bounds = op.ndofs, op.bounds
+        self.is_pair = op.C is not None
+        if impl == "cuda":
+            for name in ("G", "D", "dofmap", "cells", "C"):
+                self.register_buffer(name, getattr(op, name))
+        else:
+            plain = ci.to_plain(op)
+            for name in ci.PlainIndexed._fields:
+                self.register_buffer(f"plain_{name}", getattr(plain, name))
+
+    @property
+    def cell_op(self) -> ci.IndexedCellStiffness:
+        return ci.IndexedCellStiffness(
+            G=self.G, D=self.D, dofmap=self.dofmap, ndofs=self.ndofs,
+            cells=self.cells, bounds=self.bounds, C=self.C)
+
+    @property
+    def plain_op(self) -> ci.PlainIndexed:
+        return ci.PlainIndexed(*(getattr(self, f"plain_{name}")
+                                 for name in ci.PlainIndexed._fields))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return ci.indexed(self.cell_op, x)
+        p = self.plain_op
+        return idx.stiffness_apply_indexed(x, p.G, None, p.dofmap, p.D,
+                                           self.ndofs)
+
+    def pair(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return ci.indexed_pair(self.cell_op, x1, x2)
+        p = self.plain_op
+        return idx.stiffness_apply_indexed_pair(x1, p.c1, x2, p.c2, p.G,
+                                                p.dofmap, p.D, self.ndofs)
+
+
 def stiffness_module(op, impl: str) -> nn.Module:
-    """The stiffness module for a kernel-layout operator of either mesh
+    """The stiffness module for a kernel-layout operator of any mesh
     kind."""
     if isinstance(op, ce.ExtrudedCellStiffness):
         return ExtrudedStiffness(op, impl)
+    if isinstance(op, ci.IndexedCellStiffness):
+        return IndexedStiffness(op, impl)
     return StructuredStiffness(op, impl)

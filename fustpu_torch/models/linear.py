@@ -11,9 +11,12 @@ Weak form:
 
 Per RK stage: one stiffness apply plus elementwise updates (the mass LHS,
 the source vectors and the absorbing facet term are precomputed
-diagonals).  Counterpart of the structured and extruded branches of
-``fustpu/models/linear.py``: on an imported prismatic mesh the stiffness
-is the extruded operator, the rest is the same.
+diagonals).  Counterpart of the structured, extruded and indexed
+branches of ``fustpu/models/linear.py``: on an imported mesh the stiffness
+is the extruded operator (prismatic) or the indexed one (any other), the
+rest is the same.  The per-cell -1/rho of a heterogeneous medium is folded
+into G at build time on every mesh kind (the JAX package's indexed path
+multiplies it in its kernel instead).
 """
 
 from __future__ import annotations

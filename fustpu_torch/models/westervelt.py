@@ -15,9 +15,10 @@ Per RK stage one stiffness apply: in uniform media the two stiffness terms
 fold into A(c3 u + c4 v) since the operator is linear and the coefficients
 are scalars; in heterogeneous media the pair kernel applies
 A_c3(u) + A_c4(v) in one pass with a unit G.  Every mass-type term is a
-precomputed diagonal.  Counterpart of the structured and extruded
-branches of ``fustpu/models/westervelt.py``: on an imported prismatic mesh
-the stiffness is the extruded operator, the rest is the same.
+precomputed diagonal.  Counterpart of the structured, extruded and
+indexed branches of ``fustpu/models/westervelt.py``: on an imported mesh
+the stiffness is the extruded operator (prismatic) or the indexed one (any
+other), the rest is the same.
 """
 
 from __future__ import annotations

@@ -4,16 +4,18 @@
 
 For the uniform and the two-layer Westervelt bowl runs at the flagship
 size (the `nonlinear_bowl` demo's models, --elements 64 --degree 4,
-float32), on the conformal mesh and on its .msh round trip (--geometry
-unstructured, the extruded kernels), it prints:
+float32), on the conformal mesh, on its .msh round trip (--geometry
+unstructured, the extruded kernels) and on the non-prismatic bodyfit
+bowl's round trip (--geometry bodyfit, the indexed kernels), it prints:
   - ms per step without the profiler (CUDA events over STEPS steps);
   - ms per step under torch.profiler, and the device time per step split
     into the stiffness kernels, the other (elementwise) kernels and the
     device copies, with launches per step;
   - the device's busy time (the union of the kernel and copy intervals)
     and its idle share, of the device span and of the host wall time;
-  - the stiffness kernel's bytes per apply (G, coefficients, inputs once,
-    output read and written) and the rate that gives at the measured time.
+  - the stiffness kernel's bytes per apply (G, coefficients, index arrays
+    and inputs once, output read and written) and the rate that gives at
+    the measured time.
 Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
 gives the card's achievable memory rate to hold those against.
 """
@@ -39,8 +41,9 @@ def summarize_trace(events: list[dict]) -> dict:
     """Device time by group from a Chrome trace's event list (torch.profiler
     `export_chrome_trace`): 'stiffness' (the CUDA stiffness kernels),
     'copies' (device memcpy / memset) and 'elementwise' (every other
-    kernel); 'stiffness' holds the structured and the extruded kernels.  Returns {group: (microseconds, launches)} plus 'busy_us' (the
-    union of all device intervals) and 'span_us' (first start to last
+    kernel); 'stiffness' holds the structured, extruded and indexed
+    kernels.  Returns {group: (microseconds, launches)} plus 'busy_us'
+    (the union of all device intervals) and 'span_us' (first start to last
     end)."""
     groups = {"stiffness": [0.0, 0], "elementwise": [0.0, 0],
               "copies": [0.0, 0]}
@@ -54,7 +57,8 @@ def summarize_trace(events: list[dict]) -> dict:
         if cat != "kernel":
             g = "copies"
         elif any(k in e.get("name", "") for k in ("stiffness_kernel",
-                                                  "extruded_kernel")):
+                                                  "extruded_kernel",
+                                                  "indexed_kernel")):
             g = "stiffness"
         else:
             g = "elementwise"
@@ -86,15 +90,15 @@ def _ms_per_step(model, state, dt, steps) -> float:
 
 
 def _stiffness_bytes(stiff, ndofs: int) -> int:
-    """Bytes one apply must move at least: G, C and the extruded row ids
-    once, the input field(s) once, the output read and written once."""
+    """Bytes one apply must move at least: G, C and the index arrays (the
+    extruded row ids, or the dofmap) once, the input field(s) once, the
+    output read and written once."""
     op = stiff.cell_op
     field = ndofs * op.G.element_size()
     n_in = 2 if stiff.is_pair else 1
-    c = 0 if op.C is None else op.C.numel() * op.C.element_size()
-    rows = getattr(op, "rows", None)
-    r = 0 if rows is None else rows.numel() * rows.element_size()
-    return op.G.numel() * op.G.element_size() + c + r + (n_in + 2) * field
+    nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
+    index = getattr(op, "rows", getattr(op, "dofmap", None))
+    return nbytes(op.G) + nbytes(op.C) + nbytes(index) + (n_in + 2) * field
 
 
 def streaming_copy(gib: float) -> tuple[float, float]:
@@ -184,7 +188,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for extra in ([], ["--two-layer"],
                       ["--geometry", "unstructured"],
-                      ["--geometry", "unstructured", "--two-layer"]):
+                      ["--geometry", "unstructured", "--two-layer"],
+                      ["--geometry", "bodyfit"],
+                      ["--geometry", "bodyfit", "--two-layer"]):
             r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
             print(json.dumps(r), flush=True)
             print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "

@@ -233,7 +233,7 @@ def test_bowl_demo_cli():
 
 
 @pytest.mark.parametrize("impl,err", [("pallas_corner", NotImplementedError),
-                                      ("indexed", NotImplementedError),
+                                      ("indexed", ValueError),
                                       ("extruded", ValueError),
                                       ("cuda_please", ValueError)])
 def test_stiffness_impl_outside_the_slice_raises(impl, err):

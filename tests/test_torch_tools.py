@@ -47,3 +47,15 @@ def test_summarize_trace_counts_the_extruded_kernel():
     assert s["stiffness"] == (16.0, 2)
     assert s["elementwise"] == (2.0, 1)
     assert s["busy_us"] == pytest.approx(18.0)
+
+
+def test_summarize_trace_counts_the_indexed_kernel():
+    events = [
+        _ev("kernel", "void indexed_kernel<float, 5, false>", 0.0, 6.0),
+        _ev("kernel", "void indexed_kernel<float, 5, true>", 10.0, 6.0),
+        _ev("gpu_memset", "Memset (Device)", 16.0, 1.0),
+    ]
+    s = summarize_trace(events)
+    assert s["stiffness"] == (12.0, 2)
+    assert s["copies"] == (1.0, 1)
+    assert s["busy_us"] == pytest.approx(13.0)
