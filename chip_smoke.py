@@ -39,11 +39,36 @@ Phases (each prints its time; any failure exits non-zero):
  15. the bodyfit bowl at P=6 (--elements 48 --degree 6, 10,764,961 DOF):
      kernel vs plain, 10 steps kernel vs plain, 50 steps on the kernel
      (ms/step), then the whole solve, its focal pressure checked against
-     the conformal bowl's at the same degree and size.
-Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c) has
-the launch counters reset just before it and read just after.  The line
-before the last is the kernels' JSON summary; the last line is the
-result.
+     the conformal bowl's at the same degree and size;
+ 16. the corner kernels of the capacity mode against their plain version
+     at P = 2..10 on a perturbed odd box (structured), the imported
+     cylinder and the shuffled box (extruded, hex8) and a curved hex27
+     prism, float64 and float32, each also against the G-stream kernel on
+     the same mesh (run right after phase 12);
+ 17. the flagship conformal bowl in corner mode (--stiffness-impl
+     pallas_corner): no host metric built, kernel vs plain and vs phase
+     6a's G-stream kernel, 10 steps vs the G-stream model, device memory of
+     both (17a); the whole solve, its focal pressure against phase 6b's
+     (17b); the two-layer flagship, 50 steps through the corner pair
+     kernel (17c);
+ 18. the imported bowl in extruded corner mode: kernel vs plain and vs
+     phase 10a's G-stream kernel, 10 steps (18a); the whole solve against
+     phase 10b's focal pressure (18b); the two-layer imported bowl, 50
+     steps through the extruded corner pair kernel (18c); the imported bowl
+     with its geometry carried as hex27 (the trilinear map on the 27-node
+     lattice: the same geometry through the 163-channel kernel), kernel vs
+     plain and vs the hex8 corner kernel, then the whole solve against
+     phase 10b (18d); the two-layer hex27 bowl, its pair kernel vs plain
+     and vs the hex8 corner pair kernel, then 50 steps (18e);
+ 19. the capacity demos: `fustpu_torch.demos.capacity` at its default size
+     (664 x 56 x 56 cells, P = 4, 134,510,625 DOF) (19a) and
+     `capacity_imported` at a quarter of its default depth (--nz 30)
+     (19b): 10 warm-up and 10 timed steps, ms/step, peak device memory,
+     then the model's kernel against its plain version at that size.
+Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
+17c, 18b, 18c, 18d, 18e, 19a, 19b) has the launch counters reset just
+before it and read just after.  The line before the last is the kernels' JSON
+summary; the last line is the result.
 """
 
 from __future__ import annotations
@@ -54,6 +79,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -157,6 +183,45 @@ def apply_cost(G: torch.Tensor, ndofs: int, fields: int,
     return nbytes, flops
 
 
+def corner_cost(op, ndofs: int, fields: int,
+                extra: int = 0) -> tuple[int, int]:
+    """(minimum bytes, operations) of one corner-streamed apply: the
+    channels T instead of G, the fields and pair coefficients as in
+    `apply_cost`; per node the sum factorisation of `apply_cost` without
+    its 15-operation metric, plus the metric rebuilt in registers (J by
+    Horner in x, the adjugate, det, |det| and the scale, t = a^T w and
+    f = scale a t: 80 operations for hex8, 98 for hex27, an FMA counted
+    as 2); per line of a cell, the fold of every Jacobian channel with its
+    y^my z^mz (3 operations each) and the scaled weight (2)."""
+    cells, nch1 = op.T.shape
+    n = op.D.shape[0]
+    b = op.T.element_size()
+    nbytes = op.T.numel() * b + (fields + 2) * ndofs * b + extra
+    if fields == 2:
+        nbytes += cells * 2 * b
+    metric = 98 if op.geom_deg == 2 else 80
+    per_node = 12 * n + 1 + metric + (3 if fields == 2 else 0)
+    per_line = 3 * (nch1 - 1) + 2
+    flops = cells * (n ** 3 * per_node + n ** 2 * per_line)
+    return nbytes, flops
+
+
+def held_bytes(model) -> int:
+    """Device bytes of a model's buffers (operator data and diagonals)."""
+    return sum(b.numel() * b.element_size() for b in model.buffers())
+
+
+def solve_peak(model, dt: float, steps: int) -> int:
+    """Peak device bytes that a solve of `steps` steps adds to what is
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.solve(model.init_state(), dt, steps)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def scatter_summary(mesh) -> str:
     """The extruded kernel's scatter design on `mesh`: stack colours and
     (colour, layer parity) classes, one launch each."""
@@ -182,16 +247,20 @@ def main() -> None:
              "missing next to this script)")
 
     from fustpu_torch import _build
-    from fustpu_torch.demos import linear_box, linear_piston, nonlinear_bowl
+    from fustpu_torch.demos import (capacity, capacity_imported, linear_box,
+                                    linear_piston, nonlinear_bowl)
     from fustpu_torch.demos.common import run_demo
     from fustpu_torch.mesh import msh_io, shapes
     from fustpu_torch.mesh.box import build_box_mesh
     from fustpu_torch.mesh.extruded import ExtrudedHexMesh, as_extruded
     from fustpu_torch.mesh.unstructured import from_box
-    from fustpu_torch.models.discretization import (Discretization,
+    from fustpu_torch.models.discretization import (CornerStiffness,
+                                                    Discretization,
                                                     ExtrudedStiffness,
                                                     IndexedStiffness,
-                                                    StructuredStiffness)
+                                                    StructuredStiffness,
+                                                    stiffness_module)
+    from fustpu_torch.ops import cuda_corner as cc
     from fustpu_torch.ops import cuda_extruded as ce
     from fustpu_torch.ops import cuda_indexed as ci
     from fustpu_torch.ops import cuda_stiffness as cs
@@ -382,6 +451,76 @@ def main() -> None:
         if ci.launches["indexed"] == 0 or ci.launches["indexed_pair"] == 0:
             fail("an indexed kernel's launch counter did not move")
 
+    with phase("16 corner kernels vs plain, P=2..10"), \
+            tempfile.TemporaryDirectory() as tmp:
+        worst = {"f64": 0.0, "f32": 0.0, "g64": 0.0}
+        cc.reset_launches()
+        for P in range(2, 11):
+            small = P > 6
+            v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
+                                           nr_ann=1, nz=2 if small else 4)
+            meshes = (
+                ("box", build_box_mesh(
+                    (3, 3, 5) if small else (5, 3, 7), P,
+                    hi=(1.0, 0.8, 1.3), perturb=0.15, seed=P)),
+                ("cylinder", msh_io.read_msh(msh_io.write_msh(
+                    str(Path(tmp) / f"ccyl{P}"), v, c, t), P)),
+                ("shuffled", as_extruded(from_box(build_box_mesh(
+                    (3, 3, 4) if small else (5, 3, 7), P,
+                    hi=(1.0, 0.8, 1.3)), shuffle_seed=11))),
+                ("hex27", as_extruded(shapes.hex27_lattice(from_box(
+                    build_box_mesh((2, 2, 3) if small else (3, 2, 4), P),
+                    shuffle_seed=11), shapes.curved_prism_map))))
+            for mname, mesh in meshes:
+                disc = Discretization(mesh)
+                shape = mesh.nc if mname == "box" else (mesh.num_cells,)
+                c1 = rng.uniform(0.5, 2.0, shape)
+                c2 = rng.uniform(-1.5, -0.5, shape)
+                x1 = torch.as_tensor(rng.standard_normal(mesh.grid_shape),
+                                     device=dev)
+                x2 = torch.as_tensor(rng.standard_normal(mesh.grid_shape),
+                                     device=dev)
+                cases = [("single", {}), ("single+coeff", {"coeff": c1})]
+                if P in PAIR_DEGREES:
+                    cases.append(("pair", {"pair": (c1, c2)}))
+                for label, kw in cases:
+                    pair = "pair" in kw
+
+                    def run(module, dtype):
+                        a, b = x1.to(dtype), x2.to(dtype)
+                        return module.pair(a, b) if pair else module(a)
+
+                    op64 = disc.stiffness_op(torch.float64, dev,
+                                             corner=True, **kw)
+                    ref = run(CornerStiffness(op64, "mm"), torch.float64)
+                    y64 = run(CornerStiffness(op64, "cuda"), torch.float64)
+                    e64 = rel_l2(y64, ref)
+                    e32 = rel_l2(run(CornerStiffness(disc.stiffness_op(
+                        torch.float32, dev, corner=True, **kw), "cuda"),
+                        torch.float32), ref)
+                    g64 = rel_l2(y64, run(stiffness_module(
+                        disc.stiffness_op(torch.float64, dev, **kw),
+                        "cuda"), torch.float64))
+                    torch.cuda.synchronize()
+                    print(f"   P={P:2d} {mname:8s} {label:13s} f64 "
+                          f"{e64:.3e}  f32 {e32:.3e}  vs G stream "
+                          f"{g64:.3e}", flush=True)
+                    for key, e in (("f64", e64), ("f32", e32),
+                                   ("g64", g64)):
+                        worst[key] = max(worst[key], e)
+                    if not e64 <= F64_TOL:
+                        fail(f"f64 corner kernel vs plain {e64:.3e}")
+                    if not e32 <= F32_TOL:
+                        fail(f"f32 corner kernel vs plain f64 {e32:.3e}")
+                    if not g64 <= F64_TOL:
+                        fail(f"f64 corner kernel vs G-stream kernel "
+                             f"{g64:.3e}")
+        print(f"   worst rel-l2: f64 {worst['f64']:.3e}, f32 "
+              f"{worst['f32']:.3e}, vs the G stream {worst['g64']:.3e}; "
+              f"launches {dict(cc.launches)}")
+        if not all(cc.launches.values()):
+            fail("a corner kernel's launch counter did not move")
+
     with phase("4 operator throughput, P=4 32^3 f32"):
         mesh = build_box_mesh((32, 32, 32), 4)
         disc = Discretization(mesh)
@@ -416,7 +555,8 @@ def main() -> None:
         args = nonlinear_bowl.parser().parse_args(
             ["--elements", "64", "--degree", "4"])
         t0 = time.perf_counter()
-        bowl, dt, nsteps, focus = nonlinear_bowl.build(args)
+        pb6 = nonlinear_bowl.problem(args)
+        bowl, dt, nsteps, focus = nonlinear_bowl.build(args, pb6)
         print(f"   host setup + upload {time.perf_counter() - t0:.1f} s")
         # the plain version: the same operator data in the matmul layout, as
         # a model built with stiffness_impl="mm" holds it
@@ -499,7 +639,119 @@ def main() -> None:
                 float(s2.u.abs().max()) == 0.0:
             fail("two-layer field is not finite and non-zero")
     launches = dict(cs.launches)
-    del bowl, bowl2, s2, kstiff, kst2
+    del bowl2, s2, kst2
+
+    def corner_check(model, label, kernel, g_module=None):
+        """A corner-mode model: the corner operator on its kernel, no host
+        metric; the kernel against its plain version (and against the
+        G-stream module `g_module` of the same mesh) on unit-normal
+        input(s).  Returns (plain module, kernel entry for the JSON
+        line)."""
+        kst = model.stiffness
+        if not isinstance(kst, CornerStiffness) or \
+                model.stiffness_kernel != kernel:
+            fail(f"{label}: stiffness {type(kst).__name__} on "
+                 f"{model.stiffness_kernel}, expected {kernel}")
+        if "_G_host" in model.disc.__dict__:
+            fail(f"{label}: the corner model built the host metric")
+        pst = CornerStiffness(kst.cell_op, "mm")
+        xs = [torch.as_tensor(rng.standard_normal(model.mesh.grid_shape),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2 if kst.is_pair else 1)]
+        run = (lambda m: m.pair(*xs)) if kst.is_pair else (lambda m: m(xs[0]))
+        yk, yp = run(kst), run(pst)
+        err = rel_l2(yk, yp)
+        if not err <= F32_TOL:
+            fail(f"{label}: corner kernel vs plain {err:.3e} > {F32_TOL}")
+        msg = ""
+        if g_module is not None:
+            errg = rel_l2(yk, run(g_module))
+            msg = f", vs the G-stream kernel {errg:.3e}"
+            if not errg <= F32_TOL:
+                fail(f"{label}: corner vs G-stream kernel {errg:.3e}")
+        index = kst.rows.numel() * 4 if kst.rows is not None else 0
+        entry = dict(max_abs_err=float((yk - yp).abs().max()), rel_l2=err,
+                     ms=time_ms(lambda: run(kst), 20),
+                     plain_ms=time_ms(lambda: run(pst), 10),
+                     cost=corner_cost(kst.cell_op, model.mesh.ndofs, len(xs),
+                                      extra=index))
+        print(f"   {smi}: {label} at {model.mesh.num_cells} cells: {entry}"
+              f"{msg}", flush=True)
+        return pst, entry
+
+    with phase("17a flagship in corner mode: build, kernel vs plain and "
+               "G stream, 10 steps"):
+        args9 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "64", "--degree", "4", "--stiffness-impl",
+             "pallas_corner"])
+        t0 = time.perf_counter()
+        cbowl, dt9, nsteps9, focus9 = nonlinear_bowl.build(args9, pb6)
+        print(f"   host set-up on phase 6a's mesh (channels, diagonals, "
+              f"upload) {time.perf_counter() - t0:.1f} s", flush=True)
+        if (dt9, nsteps9) != (dt, nsteps):
+            fail(f"corner flagship steps {dt9}, {nsteps9} != {dt}, {nsteps}")
+        pst9, kernels["corner"] = corner_check(cbowl, "flagship corner",
+                                               "corner", g_module=kstiff)
+        print(f"   per apply: corner kernel {kernels['corner']['ms']:.4f} "
+              f"ms, G-stream kernel {kernels['stiffness']['ms']:.4f} ms "
+              f"({smi})")
+        sc = cbowl.solve(cbowl.init_state(), dt, 10)
+        sg = bowl.solve(bowl.init_state(), dt, 10)
+        traj = rel_l2(sc.u, sg.u)
+        print(f"   10 steps corner vs G-stream model: rel-l2(u) {traj:.3e} "
+              f"(tol {TRAJ_TOL})")
+        if not traj <= TRAJ_TOL:
+            fail(f"flagship 10 steps corner vs G stream {traj:.3e}")
+        del sc, sg, pst9
+        mem = {name: (held_bytes(m), solve_peak(m, dt, 10))
+               for name, m in (("corner", cbowl), ("G stream", bowl))}
+        for name, (held, peak) in mem.items():
+            print(f"   {name} model: buffers {held / 1e9:.4f} GB, a "
+                  f"10-step solve adds at most {peak / 1e9:.4f} GB ({smi})")
+    del bowl, kstiff
+    cc.reset_launches()
+    with phase("17b flagship in corner mode, full solve (corner kernel)"):
+        state = run_demo(cbowl, dt9, nsteps9, args9, "nonlinear_bowl")
+        n_corner = cc.launches["corner"]
+        p_corner = nonlinear_bowl.focal_pressure(cbowl, state, focus9)
+        agree = abs(p_corner - p_focus) / abs(p_focus)
+        print(f"pressure at focus: {p_corner:.1f} Pa")
+        print(f"   corner launches {n_corner} for {nsteps9} steps; focal "
+              f"pressure vs the G stream ({p_focus:.1f} Pa): relative "
+              f"difference {agree:.3e} (tol {FOCAL_AGREE})")
+        if n_corner != 4 * nsteps9 or sum(cc.launches.values()) != n_corner:
+            fail(f"corner flagship launches {dict(cc.launches)} != "
+                 f"4 x {nsteps9}")
+        if not bool(torch.isfinite(state.u).all()):
+            fail("corner flagship field is not finite")
+        if not agree <= FOCAL_AGREE:
+            fail(f"corner vs G-stream focal pressure {agree:.3e}")
+        del state, cbowl
+    with phase("17c two-layer flagship in corner mode: build + pair kernel "
+               "vs plain"):
+        args10 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "64", "--degree", "4", "--two-layer",
+             "--stiffness-impl", "pallas_corner"])
+        cbowl2, dt10, _, _ = nonlinear_bowl.build(args10, pb6)
+        _, kernels["corner_pair"] = corner_check(
+            cbowl2, "two-layer flagship corner pair", "corner_pair")
+    cc.reset_launches()
+    with phase("17c two-layer flagship in corner mode, 50 steps (corner pair "
+               "kernel)"):
+        s10 = cbowl2.solve(cbowl2.init_state(), dt10, 50)
+        torch.cuda.synchronize()
+        n_corner_pair = cc.launches["corner_pair"]
+        print(f"   corner pair launches {n_corner_pair}, max |u| "
+              f"{float(s10.u.abs().max()):.4e}")
+        if n_corner_pair != 4 * 50 or \
+                sum(cc.launches.values()) != n_corner_pair:
+            fail(f"launches {dict(cc.launches)} after the two-layer corner "
+                 "run")
+        if not bool(torch.isfinite(s10.u).all()) or \
+                float(s10.u.abs().max()) == 0.0:
+            fail("two-layer corner field is not finite and non-zero")
+    corner_launches = dict(corner=n_corner, corner_pair=n_corner_pair)
+    del cbowl2, s10, pb6
 
     ce.reset_launches()
     with phase("9 piston demo on the imported cylinder (--refine 2)"):
@@ -522,7 +774,8 @@ def main() -> None:
             ["--elements", "64", "--degree", "4",
              "--geometry", "unstructured"])
         t0 = time.perf_counter()
-        ibowl, dt3, nsteps3, focus3 = nonlinear_bowl.build(args3)
+        pb10 = nonlinear_bowl.problem(args3)
+        ibowl, dt3, nsteps3, focus3 = nonlinear_bowl.build(args3, pb10)
         imesh = ibowl.mesh
         print(f"   host setup (export, import, extrusion detection, "
               f"geometry, upload) {time.perf_counter() - t0:.1f} s")
@@ -582,7 +835,142 @@ def main() -> None:
                  f"{FOCAL_BAND_PA}")
         if not agree <= FOCAL_AGREE:
             fail(f"imported vs conformal focal pressure {agree:.3e}")
-        del state, ibowl, kst3
+        del state
+
+    def imported_corner(argv, label, kernel, pb, g_module=None):
+        """Build an imported-bowl corner model on the problem `pb` and
+        check it (corner_check).  Returns (model, dt, steps, focus, plain
+        module, kernel entry)."""
+        a = nonlinear_bowl.parser().parse_args(argv)
+        t0 = time.perf_counter()
+        model, dt_, nsteps_, focus_ = nonlinear_bowl.build(a, pb)
+        print(f"   host set-up on phase 10a's import (channels, "
+              f"diagonals, upload) {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        pst, entry = corner_check(model, label, kernel, g_module)
+        return model, dt_, nsteps_, focus_, a, pst, entry
+
+    IMPORTED = ["--elements", "64", "--degree", "4", "--geometry",
+                "unstructured", "--stiffness-impl", "pallas_corner"]
+    with phase("18a imported bowl in corner mode: build, kernel vs plain "
+               "and G stream, 10 steps"):
+        cibowl, dt11, nsteps11, focus11, args11, pst11, \
+            kernels["extruded_corner"] = imported_corner(
+                IMPORTED, "imported bowl corner", "extruded_corner", pb10,
+                g_module=kst3)
+        if (dt11, nsteps11) != (dt3, nsteps3):
+            fail(f"imported corner steps {dt11}, {nsteps11}")
+        sc = cibowl.solve(cibowl.init_state(), dt3, 10)
+        sg = ibowl.solve(ibowl.init_state(), dt3, 10)
+        traj = rel_l2(sc.u, sg.u)
+        print(f"   10 steps corner vs G-stream model: rel-l2(u) {traj:.3e} "
+              f"(tol {TRAJ_TOL})")
+        if not traj <= TRAJ_TOL:
+            fail(f"imported 10 steps corner vs G stream {traj:.3e}")
+        del sc, sg, pst11, ibowl, kst3
+    cc.reset_launches()
+    with phase("18b imported bowl in corner mode, full solve (extruded "
+               "corner kernel)"):
+        state = run_demo(cibowl, dt11, nsteps11, args11, "nonlinear_bowl")
+        n_ext_corner = cc.launches["extruded_corner"]
+        p_ic = nonlinear_bowl.focal_pressure(cibowl, state, focus11)
+        agree = abs(p_ic - p_imp) / abs(p_imp)
+        print(f"pressure at focus: {p_ic:.1f} Pa")
+        print(f"   extruded corner launches {n_ext_corner} for {nsteps11} "
+              f"steps; focal pressure vs the G stream ({p_imp:.1f} Pa): "
+              f"relative difference {agree:.3e} (tol {FOCAL_AGREE})")
+        if n_ext_corner != 4 * nsteps11 or \
+                sum(cc.launches.values()) != n_ext_corner:
+            fail(f"imported corner launches {dict(cc.launches)} != "
+                 f"4 x {nsteps11}")
+        if not bool(torch.isfinite(state.u).all()):
+            fail("imported corner field is not finite")
+        if not agree <= FOCAL_AGREE:
+            fail(f"imported corner vs G-stream focal pressure {agree:.3e}")
+        del state
+    with phase("18c two-layer imported bowl in corner mode: build + pair "
+               "kernel vs plain"):
+        cibowl2, dt12, _, _, _, _, kernels["extruded_corner_pair"] = \
+            imported_corner(IMPORTED + ["--two-layer"],
+                            "two-layer imported corner pair",
+                            "extruded_corner_pair", pb10)
+    cc.reset_launches()
+    with phase("18c two-layer imported bowl in corner mode, 50 steps "
+               "(extruded corner pair kernel)"):
+        s12 = cibowl2.solve(cibowl2.init_state(), dt12, 50)
+        torch.cuda.synchronize()
+        n_ext_corner_pair = cc.launches["extruded_corner_pair"]
+        print(f"   extruded corner pair launches {n_ext_corner_pair}, max "
+              f"|u| {float(s12.u.abs().max()):.4e}")
+        if n_ext_corner_pair != 4 * 50 or \
+                sum(cc.launches.values()) != n_ext_corner_pair:
+            fail(f"launches {dict(cc.launches)} after the two-layer "
+                 "imported corner run")
+        if not bool(torch.isfinite(s12.u).all()) or \
+                float(s12.u.abs().max()) == 0.0:
+            fail("two-layer imported corner field is not finite and "
+                 "non-zero")
+        del s12
+    with phase("18d imported bowl as hex27: build, 163-channel kernel vs "
+               "plain and vs the hex8 corner kernel"):
+        t0 = time.perf_counter()
+        pb27 = SimpleNamespace(**vars(pb10))
+        pb27.mesh = shapes.hex27_lattice(pb10.mesh)
+        print(f"   hex27 lattice {time.perf_counter() - t0:.1f} s")
+        hbowl, dt13, nsteps13, focus13, args13, _, \
+            kernels["extruded_corner_hex27"] = imported_corner(
+                IMPORTED, "imported bowl hex27 corner",
+                "extruded_corner_hex27", pb27,
+                g_module=cibowl.stiffness)
+        if hbowl.stiffness.T.shape[1] != 163:
+            fail(f"hex27 channels {hbowl.stiffness.T.shape}")
+        del cibowl
+    cc.reset_launches()
+    with phase("18d imported bowl as hex27, full solve (hex27 corner "
+               "kernel)"):
+        state = run_demo(hbowl, dt13, nsteps13, args13, "nonlinear_bowl")
+        n_hex27 = cc.launches["extruded_corner_hex27"]
+        p_h27 = nonlinear_bowl.focal_pressure(hbowl, state, focus13)
+        agree = abs(p_h27 - p_imp) / abs(p_imp)
+        print(f"pressure at focus: {p_h27:.1f} Pa")
+        print(f"   hex27 corner launches {n_hex27} for {nsteps13} steps; "
+              f"focal pressure vs the hex8 G stream ({p_imp:.1f} Pa): "
+              f"relative difference {agree:.3e} (tol {FOCAL_AGREE})")
+        if n_hex27 != 4 * nsteps13 or sum(cc.launches.values()) != n_hex27:
+            fail(f"hex27 launches {dict(cc.launches)} != 4 x {nsteps13}")
+        if not bool(torch.isfinite(state.u).all()):
+            fail("hex27 field is not finite")
+        if not agree <= FOCAL_AGREE:
+            fail(f"hex27 vs hex8 focal pressure {agree:.3e}")
+        del state, hbowl
+    with phase("18e two-layer imported bowl as hex27: build + hex27 pair "
+               "kernel vs plain and vs the hex8 corner pair kernel"):
+        hbowl2, dt14, _, _, _, _, kernels["extruded_corner_hex27_pair"] = \
+            imported_corner(IMPORTED + ["--two-layer"],
+                            "two-layer imported hex27 corner pair",
+                            "extruded_corner_hex27_pair", pb27,
+                            g_module=cibowl2.stiffness)
+        del cibowl2, pb27, pb10
+    cc.reset_launches()
+    with phase("18e two-layer imported bowl as hex27, 50 steps (hex27 "
+               "corner pair kernel)"):
+        s14 = hbowl2.solve(hbowl2.init_state(), dt14, 50)
+        torch.cuda.synchronize()
+        n_hex27_pair = cc.launches["extruded_corner_hex27_pair"]
+        print(f"   hex27 corner pair launches {n_hex27_pair}, max |u| "
+              f"{float(s14.u.abs().max()):.4e}")
+        if n_hex27_pair != 4 * 50 or \
+                sum(cc.launches.values()) != n_hex27_pair:
+            fail(f"launches {dict(cc.launches)} after the two-layer hex27 "
+                 "run")
+        if not bool(torch.isfinite(s14.u).all()) or \
+                float(s14.u.abs().max()) == 0.0:
+            fail("two-layer hex27 field is not finite and non-zero")
+        del s14, hbowl2
+    corner_launches.update(extruded_corner=n_ext_corner,
+                           extruded_corner_pair=n_ext_corner_pair,
+                           extruded_corner_hex27=n_hex27,
+                           extruded_corner_hex27_pair=n_hex27_pair)
 
     with phase("11a two-layer imported bowl build + pair kernel vs plain"):
         args4 = nonlinear_bowl.parser().parse_args(
@@ -802,6 +1190,63 @@ def main() -> None:
     launches.update(indexed=n_idx + n_idx7 + n_idx7c,
                     indexed_pair=n_idx_pair)
 
+    def capacity_run(demo, argv, label, kernel):
+        """Run a capacity demo through its `main` on the card (counters
+        reset just before, read just after); check its launches and its
+        field, then hold the model's kernel at this size against its plain
+        version on one seeded unit-normal field.  Returns the launches of
+        the demo's run."""
+        torch.cuda.empty_cache()
+        cc.reset_launches()
+        model, state, ms, peak, timed, t_setup = demo.main(argv)
+        total = cc.launches[kernel]
+        others = sum(cc.launches.values()) - total
+        umax = float(state.u.abs().max())
+        # the float32 G stream that the same mesh would hold
+        g_bytes = model.mesh.num_cells * 6 * (model.mesh.degree + 1) ** 3 * 4
+        print(f"   {smi}: {label}: {model.mesh.ndofs} DOF, "
+              f"{model.mesh.num_cells} cells; host set-up {t_setup:.1f} s; "
+              f"{ms:.4f} ms/step; peak device memory {peak / 1e9:.4f} GB; "
+              f"channels {model.stiffness.T.numel() * 4 / 1e9:.4f} GB, the "
+              f"G stream would add {g_bytes / 1e9:.4f} GB (computed, not "
+              f"allocated); {kernel} launches {timed} in the timed solve, "
+              f"{total} in all; max |u| {umax:.4e}", flush=True)
+        if timed != 4 * 10 or total != 4 * 20 or others != 0:
+            fail(f"{label}: launches {dict(cc.launches)}, {timed} in the "
+                 "timed solve")
+        if not bool(torch.isfinite(state.u).all()) or umax == 0.0:
+            fail(f"{label}: field is not finite and non-zero")
+        del state
+        kst = model.stiffness
+        pst = CornerStiffness(kst.cell_op, "mm")
+        x = torch.randn(model.mesh.grid_shape, dtype=torch.float32,
+                        device=dev, generator=torch.Generator(
+                            device=dev).manual_seed(19))
+        yk = kst(x)
+        yp = pst(x)
+        err = rel_l2(yk, yp)
+        print(f"   {label}: {kernel} kernel vs plain at this size: rel-l2 "
+              f"{err:.3e} (tol {F32_TOL}), max abs "
+              f"{float((yk - yp).abs().max()):.3e}", flush=True)
+        if not err <= F32_TOL:
+            fail(f"{label}: corner kernel vs plain {err:.3e} > {F32_TOL}")
+        del model, kst, pst, x, yk, yp
+        torch.cuda.empty_cache()
+        return total
+
+    with phase("19a capacity demo at its default size (664 x 56 x 56 cells, "
+               "P=4)"):
+        corner_launches["corner"] += capacity_run(
+            capacity, ["--steps", "10"], "capacity box", "corner")
+    with phase("19b capacity_imported at --nz 30 (a quarter of the default "
+               "depth)"):
+        print("   reduced: --nz 30 of the default 120 layers, at the "
+              "default footprint (--m 48 --mr 24 --nr-ann 24)")
+        corner_launches["extruded_corner"] += capacity_run(
+            capacity_imported, ["--nz", "30", "--steps", "10"],
+            "capacity cylinder (nz 30)", "extruded_corner")
+    launches.update(corner_launches)
+
     meta = {
         "stiffness": ("fustpu_torch/csrc/stiffness.cu",
                       "fustpu/ops/pallas_stiffness.py:170"),
@@ -814,7 +1259,20 @@ def main() -> None:
         "indexed": ("fustpu_torch/csrc/indexed.cu",
                     "fustpu/ops/pallas_gather.py:1417"),
         "indexed_pair": ("fustpu_torch/csrc/indexed.cu",
-                         "fustpu/ops/pallas_gather.py:1417")}
+                         "fustpu/ops/pallas_gather.py:1417"),
+        "corner": ("fustpu_torch/csrc/corner.cu",
+                   "fustpu/ops/pallas_stiffness.py:963"),
+        "corner_pair": ("fustpu_torch/csrc/corner.cu",
+                        "fustpu/ops/pallas_stiffness.py:963"),
+        "extruded_corner": ("fustpu_torch/csrc/extruded_corner.cu",
+                            "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_pair": ("fustpu_torch/csrc/extruded_corner.cu",
+                                 "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_hex27": ("fustpu_torch/csrc/extruded_corner27.cu",
+                                  "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_hex27_pair": (
+            "fustpu_torch/csrc/extruded_corner27.cu",
+            "fustpu/ops/pallas_extruded.py:604")}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name]

@@ -124,4 +124,20 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, p, i, p, i, p]
         fn.restype = i
+    for name in ("fustpu_corner_f32", "fustpu_corner_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    for name in ("fustpu_corner_pair_f32", "fustpu_corner_pair_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    for kind in ("extruded_corner", "extruded_corner_hex27"):
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"fustpu_{kind}_{suffix}")
+            fn.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, p]
+            fn.restype = i
+            fn = getattr(lib, f"fustpu_{kind}_pair_{suffix}")
+            fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, p]
+            fn.restype = i
     return lib

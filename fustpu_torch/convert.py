@@ -19,6 +19,12 @@ leaves) and never see a JAX object.
   (6, cells, n^3), D) and of the fused engine's ``FusedEngine`` (G6p
   (6, cellsp, 128) and D3p (3, 128, 128)), and returns G, coefficients and
   C in mesh cell order.
+- `corner_from_fustpu` accepts the arrays of the corner-streamed
+  operators of the capacity mode (``PallasStiffnessCorner``: JC
+  (ncx, 37, ncy, ncz), or the heterogeneous Westervelt model's pair of
+  them; ``PallasExtrudedCorner``: the identity-padded T
+  (nch+1, ns_pad, nz) and ce (2, ns_pad, ez)), and returns the port's
+  (cells, nch+1) channels and pair coefficients.
 - `model_from_fustpu` builds a port model whose buffers are a JAX model's
   ``params`` (no host assembly) and moves an ``RKState`` across.
 """
@@ -34,6 +40,7 @@ from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.mesh.unstructured import UnstructuredHexMesh
 from fustpu_torch.models.discretization import stiffness_module
 from fustpu_torch.models.timestepping import RKState
+from fustpu_torch.ops import cuda_corner as cc
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
@@ -63,6 +70,54 @@ class HostStiffness(NamedTuple):
                                       device=device)
         return cs.CellStiffness(G=t(G), D=t(self.D), nc=tuple(nc),
                                 C=None if self.C is None else t(self.C))
+
+
+class HostCorner(NamedTuple):
+    """Corner-streamed operator data in the kernel layout, float64 host."""
+
+    T: np.ndarray                    # (cells, nch + 1) channels
+    D: np.ndarray                    # (n, n)
+    C: np.ndarray | None             # (cells, 2) pair coefficients
+
+    def to_device(self, dtype: torch.dtype, device, nc):
+        """The operator on `device`.  `nc`: cells per axis of a box mesh,
+        or the extruded mesh."""
+        build = (cc.from_host_extruded if isinstance(nc, ExtrudedHexMesh)
+                 else cc.from_host_box)
+        return build(nc, self.T, self.D, dtype, device, self.C)
+
+
+def corner_from_fustpu(JC=None, *, D, T=None, C=None, ns=None
+                       ) -> HostCorner:
+    """JC: the (ncx, 37, ncy, ncz) channels of a PallasStiffnessCorner, or
+    a pair of them (the heterogeneous Westervelt model's two folded
+    operators, whose geometry channels agree: their coefficient channels
+    become the pair coefficients).  T: the (nch+1, ns_pad, nz) channels of
+    a PallasExtrudedCorner, with `ns` the mesh's stacks (the rest is
+    identity padding) and C its ce (2, ns_pad, ez).  D: the 1D derivative
+    matrix (``statics[0]``)."""
+    D = np.asarray(D, np.float64)
+    if T is not None:
+        T = np.asarray(T, np.float64)[:, :ns]
+        nz = T.shape[2]
+        Tc = T.transpose(1, 2, 0).reshape(ns * nz, -1)
+        if C is not None:
+            C = np.asarray(C, np.float64)
+            n = C.shape[2] // nz
+            C = C[:, :ns, ::n].reshape(2, -1).T
+        return HostCorner(T=np.ascontiguousarray(Tc), D=D,
+                          C=None if C is None else np.ascontiguousarray(C))
+    cells = lambda a: np.asarray(a, np.float64).transpose(0, 2, 3, 1
+                                                          ).reshape(-1, 37)
+    if isinstance(JC, (tuple, list)):
+        T3, T4 = (cells(a) for a in JC)
+        if not np.array_equal(T3[:, :36], T4[:, :36]):
+            raise ValueError("the two corner operators' geometry differs")
+        Tc = T3.copy()
+        Tc[:, 36] = 1.0
+        return HostCorner(T=Tc, D=D, C=np.stack([T3[:, 36], T4[:, 36]],
+                                                axis=1))
+    return HostCorner(T=np.ascontiguousarray(cells(JC)), D=D, C=None)
 
 
 def _cells_from_expanded(a: np.ndarray, n: int) -> np.ndarray:
@@ -190,7 +245,8 @@ def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
     ``params["stiff"]`` is a dict of the keyword arrays of
     `stiffness_from_fustpu` (with `rows` on an ExtrudedHexMesh; on any
     other UnstructuredHexMesh the dofmap defaults to the mesh's, and a
-    fused-engine model gives ``params["fused"]`` instead), and the
+    fused-engine model gives ``params["fused"]`` instead) or, for a
+    corner-mode model, of `corner_from_fustpu` (JC or T), and the
     run-time coefficient fields c2_e (linear) or c3_e / c4_e (Westervelt)
     of the matmul path, c2_x / c3_x / c4_x of the extruded einsum path,
     or the per-cell c2_c / c3_c / c4_c of the indexed path, are given
@@ -204,6 +260,12 @@ def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
     indexed = isinstance(mesh, UnstructuredHexMesh) and not extruded
     stiff = dict(params["fused"] if params.get("stiff") is None
                  else params["stiff"])
+    where = mesh if extruded or indexed else mesh.nc
+    if "JC" in stiff or "T" in stiff:
+        # the corner layouts carry every coefficient in their channels or C
+        host = corner_from_fustpu(**stiff, ns=getattr(mesh, "nstacks", None))
+        op = host.to_device(dtype, model.device, where)
+        return _finish(model, cls, params, op, state, dtype)
     if indexed:
         stiff.setdefault("dofmap", mesh.dofmap)
         # the indexed path holds per-cell coefficients even in uniform
@@ -220,13 +282,17 @@ def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
     if runtime and f"c3_{tag}" in params:
         stiff["c1_e"], stiff["c2_e"] = params[f"c3_{tag}"], params[
             f"c4_{tag}"]
-    where = mesh if extruded or indexed else mesh.nc
     op = stiffness_from_fustpu(
         nc=(mesh.nstacks, mesh.nz) if extruded else getattr(mesh, "nc",
                                                             None),
         **stiff)
-    model.stiffness = stiffness_module(
-        op.to_device(dtype, model.device, where), model.impl)
+    return _finish(model, cls, params, op.to_device(dtype, model.device,
+                                                    where), state, dtype)
+
+
+def _finish(model, cls, params: dict, op, state, dtype: torch.dtype):
+    """Install the operator and the diagonal vectors; move the state."""
+    model.stiffness = stiffness_module(op, model.impl)
     model._load_vectors({k: params.get(k) for k in cls.VECTORS})
     if state is not None:
         state = state_from_fustpu(state, dtype, model.device)

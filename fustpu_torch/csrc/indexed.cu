@@ -104,8 +104,8 @@ indexed_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     c2 = C[2 * cell + 1];
   }
   fustpu::cell_apply<T, N, PAIR>(
-      x1, x2, c1, c2, G + cell * 6 * NNN, Ds, us[lc], f1s[lc], f2s[lc], y,
-      active, IdLine<N>{ids[lc], t});
+      x1, x2, c1, c2, fustpu::GStream<T, N>{G + cell * 6 * NNN}, Ds, us[lc],
+      f1s[lc], f2s[lc], y, active, IdLine<N>{ids[lc], t});
 }
 
 template <typename T, bool PAIR, int N>

@@ -10,6 +10,16 @@ import time
 import torch
 
 
+def add_device_args(p: argparse.ArgumentParser,
+                    dtype: str = "f32") -> argparse.ArgumentParser:
+    """--dtype and --device, shared by every demo."""
+    p.add_argument("--dtype", choices=["f32", "f64"], default=dtype)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda = the H100 path (CUDA kernels); cpu = the "
+                        "plain torch path (small verification runs)")
+    return p
+
+
 def demo_argparser(**defaults) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--elements", type=int,
@@ -17,16 +27,11 @@ def demo_argparser(**defaults) -> argparse.ArgumentParser:
                    help="elements per axis (0 = reference default: "
                         "2 per wavelength)")
     p.add_argument("--degree", type=int, default=defaults.get("degree", 4))
-    p.add_argument("--dtype", choices=["f32", "f64"],
-                   default=defaults.get("dtype", "f32"))
     p.add_argument("--periods", type=float,
                    default=defaults.get("periods", 2.0),
                    help="extra periods after first transit")
     p.add_argument("--progress-every", type=int, default=100)
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda = the H100 path (CUDA kernels); cpu = the "
-                        "plain torch path (small verification runs)")
-    return p
+    return add_device_args(p, defaults.get("dtype", "f32"))
 
 
 def pick_dtype(name: str) -> torch.dtype:
@@ -39,7 +44,7 @@ def check_device(args) -> None:
                          "(use --device cpu for the plain torch path)")
 
 
-class _Timer:
+class Timer:
     """Elapsed seconds of a chunk: CUDA events on the card, the host clock
     otherwise."""
 
@@ -77,7 +82,7 @@ def run_demo(model, dt: float, num_steps: int, args, name: str,
     walls, ys = [], []
     while done < num_steps:
         k = min(chunk, num_steps - done)
-        with _Timer(model.device) as tm:
+        with Timer(model.device) as tm:
             if probe is None:
                 state = model.solve(state, dt, k, tf=tf)
             else:

@@ -19,11 +19,14 @@ Bowl realisations (--geometry):
   `locality_order`, and runs the indexed stiffness kernels.
 H131 geometry: aperture radius 16 mm, focal length 35 mm.  `--two-layer`
 adds a soft-tissue layer past x = 20 mm (heterogeneous Westervelt, the
-pair stiffness kernel).
+pair stiffness kernel).  `--stiffness-impl pallas_corner` runs the
+corner-streamed capacity mode (the corner kernels on the conformal, phased
+and unstructured bowls; the bodyfit bowl has no corner form and keeps the
+indexed kernels).
 
     python -m fustpu_torch.demos.nonlinear_bowl [--elements N] [--degree P]
         [--geometry conformal|phased|unstructured|bodyfit]
-        [--mesh file.msh]
+        [--mesh file.msh] [--stiffness-impl auto|pallas_corner]
         [--two-layer] [--device cuda|cpu]
 """
 
@@ -32,6 +35,7 @@ from __future__ import annotations
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -105,12 +109,19 @@ def parser():
                    help="water -> soft-tissue layer (c=1560, rho=1045) "
                         "past x=20 mm: heterogeneous Westervelt, the pair "
                         "stiffness kernel")
+    p.add_argument("--stiffness-impl", default="auto",
+                   choices=["auto", "pallas_corner"],
+                   help="auto = the G-stream kernels; pallas_corner = the "
+                        "corner-streamed capacity mode (either runs its "
+                        "plain version on the CPU)")
     return p
 
 
-def build(args):
-    """(model, dt, number of steps, focus point) for the parsed
-    arguments."""
+def problem(args) -> SimpleNamespace:
+    """The bowl problem of the parsed arguments, before any model: mesh,
+    material, source, aperture and absorbing facets, delay profile, focus
+    point and domain length.  A caller may replace the mesh (e.g. by the
+    same geometry carried as hex27) before `build`."""
     mat = Material(sound_speed=1480.0, density=1000.0, nonlinearity=3.5,
                    attenuation_dB=0.2)
     source_velocity = 0.38557513826589934        # m/s (100 W drive)
@@ -156,15 +167,25 @@ def build(args):
                                   predicate=lambda c: ~in_aperture(c))]
             + [mesh.boundary_facets(p) for p in
                ["x+", "y-", "y+", "z-", "z+"]])
+    delays = (None if args.geometry != "phased" else
+              (lambda pts: sources.focus_delays(pts, focus, 1480.0)))
+    return SimpleNamespace(mesh=mesh, material=mat, source=src,
+                           aperture=aperture, absorbing=absorbing,
+                           delays=delays, focus=focus,
+                           domain_length=domain_length)
+
+
+def build(args, pb: SimpleNamespace | None = None):
+    """(model, dt, number of steps, focus point) for the parsed arguments,
+    on the problem `pb` (`problem(args)` when not given)."""
+    pb = problem(args) if pb is None else pb
+    mesh, mat, src, aperture = pb.mesh, pb.material, pb.source, pb.aperture
     print(f"degree {args.degree}, {args.geometry} bowl, "
           f"Number of degrees-of-freedom: {mesh.ndofs}")
     if len(aperture) == 0:
         raise SystemExit("aperture selected no facets: increase --elements "
                          "so facet centroids resolve the 16 mm radius")
     print(f"aperture facets: {len(aperture)}")
-
-    delays = (None if args.geometry != "phased" else
-              (lambda pts: sources.focus_delays(pts, focus, 1480.0)))
     if args.two_layer:
         cent = mesh.cell_corners_flat.mean(axis=1)
         tissue = cent[:, 0] > 0.02
@@ -176,22 +197,25 @@ def build(args):
         print(f"two-layer medium (interface x=20 mm, "
               f"{int(tissue.sum())} tissue cells)")
     t0 = time.perf_counter()
-    model = WesterveltModel(mesh, mat, src, aperture, absorbing,
+    model = WesterveltModel(mesh, mat, src, aperture, pb.absorbing,
                             dtype=pick_dtype(args.dtype), device=args.device,
-                            source_delays=delays)
+                            source_delays=pb.delays,
+                            stiffness_impl=args.stiffness_impl)
     steps = ", ".join(f"{k} {v:.1f} s"
                       for k, v in model.disc.host_seconds.items())
     print(f"host: model set-up {time.perf_counter() - t0:.1f} s "
           f"({steps or 'no geometry pass'})")
+    print(f"stiffness: {type(model.stiffness).__name__}, kernel "
+          f"{model.stiffness_kernel}")
     if isinstance(model.stiffness, IndexedStiffness):
         print(f"indexed scatter: {len(model.stiffness.bounds) - 1} colour "
               f"classes over {mesh.num_cells} cells")
     dt, _ = model.cfl_dt(0.4)
-    tf = (domain_length / float(np.min(mat.sound_speed))
+    tf = (pb.domain_length / float(np.min(mat.sound_speed))
           + args.periods / src.frequency)
     nsteps = int(tf / dt) + 1
     print(f"Number of steps: {nsteps}")
-    return model, dt, nsteps, focus
+    return model, dt, nsteps, pb.focus
 
 
 def import_bowl(args, box_mesh, in_aperture):

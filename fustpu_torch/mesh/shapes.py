@@ -9,11 +9,19 @@ disk (tag 1) in the z=0 wall of a cylindrical water column, absorbing
 wall and far cap (tag 2), rigid (natural) baffle on the remaining z=0
 annulus.  Written through fustpu_torch.mesh.msh_io these meshes exercise
 the full import pipeline.  Vendored from ``fustpu/mesh/shapes.py``.
+
+`hex27_lattice` carries a mesh's geometry as hex27 (curved cells), here
+with `curved_prism_map`, a prismatic curvature that keeps the vertex
+columns of an extrusion: the curved test prism of the corner kernels.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+from fustpu_torch.elements.hex import hex8_tabulate
 
 
 def _butterfly_2d(a: float, m: int, mr: int):
@@ -163,6 +171,33 @@ def cylinder_mesh(radius: float, length: float, piston_radius: float,
             # outer edge of the annulus quad is (p1, p2) (di=1 corners)
             tagged.append((2, (lo + p1, lo + p2, hi + p2, hi + p1)))
     return verts, cells, tagged
+
+
+def hex27_lattice(mesh, phi=None):
+    """`mesh` (an unstructured mesh dataclass) with its geometry carried as
+    hex27: the 27-node lattice of each cell's trilinear map, moved with the
+    vertices by `phi` when given (phi must keep the vertex columns of an
+    extrusion for the result to stay prismatic)."""
+    lat3 = np.array([[i / 2, j / 2, k / 2] for i in range(3)
+                     for j in range(3) for k in range(3)])
+    vals, _ = hex8_tabulate(lat3)                  # (27, 8)
+    gl = np.einsum("qv,cvd->cqd", vals, mesh.vertices[mesh.cells])
+    if phi is None:
+        return dataclasses.replace(mesh, geom_nodes=gl)
+    return dataclasses.replace(mesh, vertices=phi(mesh.vertices),
+                               geom_nodes=phi(gl))
+
+
+def curved_prism_map(x):
+    """A prismatic curvature: the transverse shift depends on (x, y) only
+    (vertex columns survive); layers curved and graded in z."""
+    x = np.asarray(x, np.float64)
+    out = x.copy()
+    out[..., 0] = x[..., 0] + 0.04 * np.sin(1.3 * x[..., 1])
+    out[..., 1] = x[..., 1] + 0.05 * np.sin(1.1 * x[..., 0] + 0.4)
+    out[..., 2] = x[..., 2] * (1.0 + 0.1 * x[..., 2]) \
+        + 0.06 * np.sin(1.7 * x[..., 0] + 0.5 * x[..., 1])
+    return out
 
 
 def oneil_on_axis(z, piston_radius: float, frequency: float,

@@ -61,6 +61,13 @@ class WaveModelBase(nn.Module):
     def _coefficients(self) -> None:
         raise NotImplementedError
 
+    @property
+    def stiffness_kernel(self) -> str | None:
+        """The launch counter of the CUDA kernel that the model's stiffness
+        applies run (e.g. 'corner_pair' or 'extruded'), None for the plain
+        version."""
+        return self.stiffness.kernel
+
     def _load_vectors(self, host: dict) -> None:
         """Register every name of VECTORS as a flat buffer in the model
         dtype (None where the model has no such term)."""

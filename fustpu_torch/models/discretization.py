@@ -9,7 +9,10 @@ vector and an apply is one elementwise multiply (`mass_diag_host` /
 `facet_diag_host`).  The stiffness operator is `StructuredStiffness` on a
 box mesh, `ExtrudedStiffness` on an `ExtrudedHexMesh` and
 `IndexedStiffness` on any other `UnstructuredHexMesh`: the CUDA kernels on
-a CUDA device, or their plain torch versions.  Counterpart of
+a CUDA device, or their plain torch versions.  In the corner-streamed
+capacity mode (``stiffness_impl="pallas_corner"``) a box or an extruded mesh
+takes `CornerStiffness` instead, built from the cell corners (or the hex27
+lattice) without the host metric.  Counterpart of
 ``fustpu/models/discretization.py`` without its TPU-only parts.
 """
 
@@ -24,6 +27,7 @@ import torch
 from torch import nn
 
 from fustpu_torch.mesh.extruded import ExtrudedHexMesh
+from fustpu_torch.ops import cuda_corner as cc
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
@@ -32,13 +36,8 @@ from fustpu_torch.ops import indexed as idx
 from fustpu_torch.ops import precompute as pre
 from fustpu_torch.ops import spectral_mm as mm
 
-_LATER_SLICES = {
-    "pallas_corner": "the corner-streamed capacity mode is slice 4 of the "
-                     "port",
-    "extruded_pallas_corner": "the corner-streamed capacity mode of "
-                              "imported prismatic meshes is slice 4 of the "
-                              "port",
-}
+# The names of the corner-streamed capacity mode (the JAX package's).
+CORNER_IMPLS = ("pallas_corner", "extruded_pallas_corner")
 
 
 class FacetBlock(NamedTuple):
@@ -69,7 +68,8 @@ class Discretization:
     @functools.cached_property
     def _G_host(self) -> np.ndarray:
         """(cells, n^3, 6) metric factors, float64 host, computed on first
-        use."""
+        use (never in the corner mode: 48 B per node, the largest host
+        array of the set-up)."""
         t0 = time.perf_counter()
         G = pre.cell_geometry_factors(self.mesh)[1]
         self.host_seconds["geometry"] = time.perf_counter() - t0
@@ -129,13 +129,24 @@ class Discretization:
 
     # ---- stiffness --------------------------------------------------------
     def stiffness_op(self, dtype: torch.dtype, device, coeff=None,
-                     pair=None):
+                     pair=None, corner: bool = False):
         """The stiffness operator in the kernel layout, on `device`
         (`cs.CellStiffness` on a box mesh, `ce.ExtrudedCellStiffness` on
         an extruded one, `ci.IndexedCellStiffness` on any other imported
         mesh): `coeff` (per-cell) is folded into G; `pair` = (c1, c2)
-        per-cell fields makes a unit-G pair operator."""
-        if isinstance(self.mesh, ExtrudedHexMesh):
+        per-cell fields makes a unit-G pair operator.  `corner`: the
+        corner-streamed `cc.CornerCellStiffness` on a box or extruded mesh,
+        built without the host metric; a general mesh has no corner form
+        and takes the indexed operator, as the JAX package routes it."""
+        extruded = isinstance(self.mesh, ExtrudedHexMesh)
+        if corner and (self.structured or extruded):
+            t0 = time.perf_counter()
+            build = cc.build_extruded if extruded else cc.build_box
+            op = build(self.mesh, self._D_host, dtype, device, coeff=coeff,
+                       pair=pair)
+            self.host_seconds["channels"] = time.perf_counter() - t0
+            return op
+        if extruded:
             return ce.build(self.mesh, self._G_host, self._D_host, dtype,
                             device, coeff=coeff, pair=pair)
         if not self.structured:
@@ -155,16 +166,16 @@ class Discretization:
 
 def resolve_stiffness_impl(impl: str, device) -> str:
     """'auto' is the CUDA kernel on a CUDA device and the plain torch
-    version elsewhere; 'mm' forces the plain version (on any mesh
-    kind)."""
-    if impl in _LATER_SLICES:
-        raise NotImplementedError(f"stiffness_impl={impl!r}: "
-                                  f"{_LATER_SLICES[impl]}")
+    version elsewhere; 'mm' forces the plain version (on any mesh kind).
+    The corner-mode names (CORNER_IMPLS) resolve as 'auto' does: they
+    choose the operator (`Discretization.stiffness_op(corner=True)`), the
+    device chooses kernel or plain version."""
     if impl == "mm":
         return "mm"
-    if impl == "auto":
+    if impl == "auto" or impl in CORNER_IMPLS:
         return "cuda" if torch.device(device).type == "cuda" else "mm"
-    raise ValueError(f"stiffness_impl={impl!r}: expected 'auto' or 'mm'")
+    raise ValueError(f"stiffness_impl={impl!r}: expected 'auto', 'mm' or "
+                     f"one of {CORNER_IMPLS}")
 
 
 class StructuredStiffness(nn.Module):
@@ -192,6 +203,13 @@ class StructuredStiffness(nn.Module):
             self.register_buffer("Gm", mm_op.G)
             self.register_buffer("c1_e", c1_e)
             self.register_buffer("c2_e", c2_e)
+
+    @property
+    def kernel(self) -> str | None:
+        """The launch counter that an apply moves (None for 'mm')."""
+        if self.impl != "cuda":
+            return None
+        return "stiffness_pair" if self.is_pair else "stiffness"
 
     @property
     def cell_op(self) -> cs.CellStiffness:
@@ -239,6 +257,13 @@ class ExtrudedStiffness(nn.Module):
             self.register_buffer("c2_x", c2_x)
 
     @property
+    def kernel(self) -> str | None:
+        """The launch counter that an apply moves (None for 'mm')."""
+        if self.impl != "cuda":
+            return None
+        return "extruded_pair" if self.is_pair else "extruded"
+
+    @property
     def cell_op(self) -> ce.ExtrudedCellStiffness:
         return ce.ExtrudedCellStiffness(
             G=self.G, D=self.D, rows=self.rows, nz=self.nz, n2d=self.n2d,
@@ -284,6 +309,13 @@ class IndexedStiffness(nn.Module):
                 self.register_buffer(f"plain_{name}", getattr(plain, name))
 
     @property
+    def kernel(self) -> str | None:
+        """The launch counter that an apply moves (None for 'mm')."""
+        if self.impl != "cuda":
+            return None
+        return "indexed_pair" if self.is_pair else "indexed"
+
+    @property
     def cell_op(self) -> ci.IndexedCellStiffness:
         return ci.IndexedCellStiffness(
             G=self.G, D=self.D, dofmap=self.dofmap, ndofs=self.ndofs,
@@ -309,9 +341,65 @@ class IndexedStiffness(nn.Module):
                                                 p.dofmap, p.D, self.ndofs)
 
 
+class CornerStiffness(nn.Module):
+    """The corner-streamed operator (the capacity mode) of a box or an
+    extruded mesh as buffers: the per-cell channels and what the kernel
+    reads beside them, never a metric.  'cuda' runs the corner kernels
+    (`cc.corner` on a box, `cc.extruded_corner` otherwise); 'mm' runs their
+    plain version, which expands the channels into the metric at each
+    apply: ``CornerStiffness(op.cell_op, "mm")`` is the plain version of a
+    kernel-layout operator `op`, with the same numbers.  `forward(x)` is the
+    single-field apply, `pair(x1, x2)` the two-field one; both take and
+    return grid-shaped tensors on a box and flat ones otherwise."""
+
+    def __init__(self, op: cc.CornerCellStiffness, impl: str):
+        super().__init__()
+        self.impl = impl
+        self.is_pair = op.C is not None
+        self.geom_deg, self.nc = op.geom_deg, op.nc
+        self.nz, self.n2d, self.bounds = op.nz, op.n2d, op.bounds
+        for name in ("T", "D", "Q", "rows", "cells", "C"):
+            self.register_buffer(name, getattr(op, name))
+
+    @property
+    def cell_op(self) -> cc.CornerCellStiffness:
+        return cc.CornerCellStiffness(
+            T=self.T, D=self.D, Q=self.Q, geom_deg=self.geom_deg, nc=self.nc,
+            rows=self.rows, nz=self.nz, n2d=self.n2d, cells=self.cells,
+            bounds=self.bounds, C=self.C)
+
+    @property
+    def kernel(self) -> str | None:
+        """The launch counter that an apply moves (None for 'mm')."""
+        if self.impl != "cuda":
+            return None
+        return self.cell_op.kernel + ("_pair" if self.is_pair else "")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        op = self.cell_op
+        if self.impl != "cuda":
+            return cc.corner_plain(op, x)
+        return cc.corner(op, x) if op.box else cc.extruded_corner(op, x)
+
+    def pair(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        op = self.cell_op
+        if self.impl != "cuda":
+            return cc.corner_pair_plain(op, x1, x2)
+        if op.box:
+            return cc.corner_pair(op, x1, x2)
+        return cc.extruded_corner_pair(op, x1, x2)
+
+
+def launch_counts() -> dict:
+    """Every stiffness kernel's launch counter, by name (a copy)."""
+    return {**cs.launches, **ce.launches, **ci.launches, **cc.launches}
+
+
 def stiffness_module(op, impl: str) -> nn.Module:
     """The stiffness module for a kernel-layout operator of any mesh
     kind."""
+    if isinstance(op, cc.CornerCellStiffness):
+        return CornerStiffness(op, impl)
     if isinstance(op, ce.ExtrudedCellStiffness):
         return ExtrudedStiffness(op, impl)
     if isinstance(op, ci.IndexedCellStiffness):

@@ -27,7 +27,8 @@ import torch
 from fustpu_torch.config import Material, Source
 from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
-from fustpu_torch.models.discretization import (Discretization,
+from fustpu_torch.models.discretization import (CORNER_IMPLS,
+                                                Discretization,
                                                 stiffness_module)
 from fustpu_torch.ops import vector as vec
 
@@ -54,8 +55,11 @@ class LinearWaveModel(WaveModelBase):
         an (nf, n^2) array.  `source_apodization`: optional amplitude
         profile, same convention.  `device`: the card ('cuda', the
         default) or 'cpu'.  `stiffness_impl`: 'auto' (the CUDA kernel on
-        a CUDA device, the plain version elsewhere) or 'mm' (the plain
-        version)."""
+        a CUDA device, the plain version elsewhere), 'mm' (the plain
+        version) or 'pallas_corner' / 'extruded_pallas_corner' (the
+        corner-streamed capacity mode on a box or an extruded mesh, kernel
+        or plain version by device as for 'auto'; a general mesh takes
+        the indexed operator)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
@@ -63,10 +67,11 @@ class LinearWaveModel(WaveModelBase):
         self.disc = disc
         c, rho, _, _ = material.cell_fields(self.cell_shape)
         # stiffness coefficient -1/rho: a scalar applied to the output for
-        # uniform media, folded into G otherwise
+        # uniform media, folded into G (or the coefficient channel)
+        # otherwise
         self.stiffness = stiffness_module(disc.stiffness_op(
-            dtype, self.device,
-            coeff=None if self.uniform else -1.0 / rho), self.impl)
+            dtype, self.device, coeff=None if self.uniform else -1.0 / rho,
+            corner=stiffness_impl in CORNER_IMPLS), self.impl)
 
         host = {"m": disc.mass_diag_host(1.0 / (rho * c * c))}
         # source boundary: the g(t) facet term reduces to precomputed

@@ -14,8 +14,10 @@ Coefficient recipes:
 Per RK stage one stiffness apply: in uniform media the two stiffness terms
 fold into A(c3 u + c4 v) since the operator is linear and the coefficients
 are scalars; in heterogeneous media the pair kernel applies
-A_c3(u) + A_c4(v) in one pass with a unit G.  Every mass-type term is a
-precomputed diagonal.  Counterpart of the structured, extruded and
+A_c3(u) + A_c4(v) in one pass with a unit G (in the corner-streamed
+capacity mode, ``stiffness_impl="pallas_corner"``, with the coefficient
+channel 1: the JAX package's two folded corner operators as one pair
+apply).  Every mass-type term is a precomputed diagonal.  Counterpart of the structured, extruded and
 indexed branches of ``fustpu/models/westervelt.py``: on an imported mesh
 the stiffness is the extruded operator (prismatic) or the indexed one (any
 other), the rest is the same.
@@ -29,7 +31,8 @@ import torch
 from fustpu_torch.config import Material, Source
 from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
-from fustpu_torch.models.discretization import (Discretization,
+from fustpu_torch.models.discretization import (CORNER_IMPLS,
+                                                Discretization,
                                                 stiffness_module)
 from fustpu_torch.ops import vector as vec
 
@@ -56,7 +59,11 @@ class WesterveltModel(WaveModelBase):
         phased-aperture profiles (callable(points)->array or (nf, n^2)
         arrays).  `device`: the card ('cuda', the default) or 'cpu'.
         `stiffness_impl`: 'auto' (the CUDA kernels on a CUDA device, the
-        plain version elsewhere) or 'mm' (the plain version)."""
+        plain version elsewhere), 'mm' (the plain version) or
+        'pallas_corner' / 'extruded_pallas_corner' (the corner-streamed
+        capacity mode on a box or an extruded mesh, kernel or plain
+        version by device as for 'auto'; a general mesh takes the indexed
+        operator)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
@@ -66,7 +73,8 @@ class WesterveltModel(WaveModelBase):
         delta = self._delta
         self.stiffness = stiffness_module(disc.stiffness_op(
             dtype, self.device,
-            pair=None if self.uniform else self._pair_coeffs), self.impl)
+            pair=None if self.uniform else self._pair_coeffs,
+            corner=stiffness_impl in CORNER_IMPLS), self.impl)
 
         # unsteady mass diagonal: mass(u; -nl) = u * mvec2 (and the v^2 RHS
         # term uses +nl, i.e. exactly -mvec2)

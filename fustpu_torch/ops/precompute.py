@@ -31,9 +31,10 @@ def _geom_dofs_grads(mesh, pts: np.ndarray):
 
 
 def _jacobians(corners: np.ndarray, grads: np.ndarray) -> np.ndarray:
-    """J[c, q, phys, ref] for trilinear cells.
+    """J[c, q, phys, ref] of a cell map.
 
-    corners: (cells, 8, 3); grads: (nq, 8, 3) reference gradients.
+    corners: (cells, ng, 3) geometry dofs (8 trilinear, 27 hex27);
+    grads: (nq, ng, 3) reference gradients.
     """
     return np.einsum("cvp,qvr->cqpr", corners, grads, optimize=True)
 
@@ -136,24 +137,23 @@ def _det3(J: np.ndarray) -> np.ndarray:
 
 def cell_detJ(mesh, dedup: bool = True) -> np.ndarray:
     """detJ only (cells, nq), for mass-type setup where the 6-component
-    metric G (6x the memory, plus a batched inverse) is not needed."""
+    metric G (6x the memory, plus a batched inverse) is not needed: the
+    trilinear map, or the hex27 map when the mesh carries geom_nodes."""
     elem = mesh.element
-    if getattr(mesh, "geom_nodes", None) is not None:
-        return _cell_geometry_curved(mesh)[0]
-    _, grads = hex8_tabulate(elem.quad_points)
+    gdofs, grads = _geom_dofs_grads(mesh, elem.quad_points)
     wts = elem.quad_weights
-    corners = mesh.cell_corners_flat
-    nc = corners.shape[0]
-    if dedup and nc > 4096:
-        grp = congruence_groups(corners)
+    nc = gdofs.shape[0]
+    curved = getattr(mesh, "geom_nodes", None) is not None
+    if dedup and not curved and nc > 4096:
+        grp = congruence_groups(gdofs)
         if grp is not None:
             inv, rep = grp
-            return cell_detJ(_CornerSubset(corners[rep], elem),
+            return cell_detJ(_CornerSubset(gdofs[rep], elem),
                              dedup=False)[inv]
     detJ = np.empty((nc, wts.size))
     for s in range(0, nc, _CHUNK):
         e = min(s + _CHUNK, nc)
-        J = _jacobians(corners[s:e], grads)
+        J = _jacobians(gdofs[s:e], grads)
         detJ[s:e] = np.abs(_det3(J)) * wts
     return detJ
 

@@ -6,16 +6,18 @@ For the uniform and the two-layer Westervelt bowl runs at the flagship
 size (the `nonlinear_bowl` demo's models, --elements 64 --degree 4,
 float32), on the conformal mesh, on its .msh round trip (--geometry
 unstructured, the extruded kernels) and on the non-prismatic bodyfit
-bowl's round trip (--geometry bodyfit, the indexed kernels), it prints:
+bowl's round trip (--geometry bodyfit, the indexed kernels), and for the
+conformal and imported bowls again in the corner-streamed capacity mode
+(--stiffness-impl pallas_corner, the corner kernels), it prints:
   - ms per step without the profiler (CUDA events over STEPS steps);
   - ms per step under torch.profiler, and the device time per step split
     into the stiffness kernels, the other (elementwise) kernels and the
     device copies, with launches per step;
   - the device's busy time (the union of the kernel and copy intervals)
     and its idle share, of the device span and of the host wall time;
-  - the stiffness kernel's bytes per apply (G, coefficients, index arrays
-    and inputs once, output read and written) and the rate that gives at
-    the measured time.
+  - the stiffness kernel's bytes per apply (G or the corner channels,
+    coefficients, index arrays and inputs once, output read and written)
+    and the rate that gives at the measured time.
 Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
 gives the card's achievable memory rate to hold those against.
 """
@@ -33,6 +35,7 @@ import torch
 from fustpu_torch.demos import nonlinear_bowl
 
 FLAGSHIP = ["--elements", "64", "--degree", "4"]
+CORNER = ["--stiffness-impl", "pallas_corner"]
 STEPS = 50
 COPY_GIB = 2.0
 
@@ -90,15 +93,18 @@ def _ms_per_step(model, state, dt, steps) -> float:
 
 
 def _stiffness_bytes(stiff, ndofs: int) -> int:
-    """Bytes one apply must move at least: G, C and the index arrays (the
-    extruded row ids, or the dofmap) once, the input field(s) once, the
-    output read and written once."""
+    """Bytes one apply must move at least: the geometry (G, or the corner
+    channels T), C and the index arrays (the extruded row ids, or the
+    dofmap) once, the input field(s) once, the output read and written
+    once."""
     op = stiff.cell_op
-    field = ndofs * op.G.element_size()
+    geo = getattr(op, "G", None)
+    geo = op.T if geo is None else geo
+    field = ndofs * geo.element_size()
     n_in = 2 if stiff.is_pair else 1
     nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
     index = getattr(op, "rows", getattr(op, "dofmap", None))
-    return nbytes(op.G) + nbytes(op.C) + nbytes(index) + (n_in + 2) * field
+    return nbytes(geo) + nbytes(op.C) + nbytes(index) + (n_in + 2) * field
 
 
 def streaming_copy(gib: float) -> tuple[float, float]:
@@ -130,7 +136,8 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
     plain_ms = _ms_per_step(model, state, dt, steps)
 
     config = (f"{args.geometry} "
-              f"{'two-layer' if args.two_layer else 'uniform'}")
+              f"{'two-layer' if args.two_layer else 'uniform'}"
+              f"{' corner' if args.stiffness_impl == 'pallas_corner' else ''}")
     trace = trace_dir / f"trace_{config.replace(' ', '_')}.json"
     # one warm-up step of the profiler (two RK4 steps), then the active one
     with torch.profiler.profile(
@@ -190,7 +197,11 @@ def main() -> None:
                       ["--geometry", "unstructured"],
                       ["--geometry", "unstructured", "--two-layer"],
                       ["--geometry", "bodyfit"],
-                      ["--geometry", "bodyfit", "--two-layer"]):
+                      ["--geometry", "bodyfit", "--two-layer"],
+                      CORNER, CORNER + ["--two-layer"],
+                      CORNER + ["--geometry", "unstructured"],
+                      CORNER + ["--geometry", "unstructured",
+                                "--two-layer"]):
             r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
             print(json.dumps(r), flush=True)
             print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "

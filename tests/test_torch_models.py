@@ -232,8 +232,7 @@ def test_bowl_demo_cli():
     assert m and np.isfinite(float(m.group(1))) and float(m.group(1)) != 0.0
 
 
-@pytest.mark.parametrize("impl,err", [("pallas_corner", NotImplementedError),
-                                      ("indexed", ValueError),
+@pytest.mark.parametrize("impl,err", [("indexed", ValueError),
                                       ("extruded", ValueError),
                                       ("cuda_please", ValueError)])
 def test_stiffness_impl_outside_the_slice_raises(impl, err):
@@ -246,9 +245,12 @@ def test_stiffness_impl_outside_the_slice_raises(impl, err):
 @pytest.mark.parametrize("impl,device,resolved", [("auto", "cuda", "cuda"),
                                                   ("auto", "cpu", "mm"),
                                                   ("mm", "cuda", "mm"),
-                                                  ("mm", "cpu", "mm")])
+                                                  ("mm", "cpu", "mm"),
+                                                  ("pallas_corner", "cpu",
+                                                   "mm")])
 def test_stiffness_impl_resolves_by_device(impl, device, resolved):
     """'auto' takes the kernel exactly when the tensors live on a CUDA
-    device; 'mm' forces the plain version on either."""
+    device; 'mm' forces the plain version on either; the corner-mode name
+    resolves as 'auto' does (it chooses the operator, not the device)."""
     from fustpu_torch.models.discretization import resolve_stiffness_impl
     assert resolve_stiffness_impl(impl, device) == resolved

@@ -106,7 +106,10 @@ def test_import_loads_neither_jax_nor_fustpu():
             "fustpu_torch.mesh.msh_io, fustpu_torch.mesh.shapes, "
             "fustpu_torch.ops.extruded, fustpu_torch.ops.cuda_extruded, "
             "fustpu_torch.mesh._window_cost, fustpu_torch.ops.gather_scatter, "
-            "fustpu_torch.ops.indexed, fustpu_torch.ops.cuda_indexed; "
+            "fustpu_torch.ops.indexed, fustpu_torch.ops.cuda_indexed, "
+            "fustpu_torch.ops.corner, fustpu_torch.ops.cuda_corner, "
+            "fustpu_torch.demos.capacity, "
+            "fustpu_torch.demos.capacity_imported; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fustpu' "
             "or m.startswith('fustpu.')]; print(bad); sys.exit(bool(bad))")

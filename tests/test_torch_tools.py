@@ -59,3 +59,21 @@ def test_summarize_trace_counts_the_indexed_kernel():
     assert s["stiffness"] == (12.0, 2)
     assert s["copies"] == (1.0, 1)
     assert s["busy_us"] == pytest.approx(13.0)
+
+
+def test_stiffness_bytes_counts_the_corner_channels():
+    """In the capacity mode the geometry an apply must read is the corner
+    channels (37 per cell), not a metric stream."""
+    from fustpu_torch.config import Material, Source
+    from fustpu_torch.mesh.box import build_box_mesh
+    from fustpu_torch.models.linear import LinearWaveModel
+    from fustpu_torch.tools.profile_step import _stiffness_bytes
+
+    mesh = build_box_mesh((3, 2, 2), 2)
+    model = LinearWaveModel(mesh, Material(), Source(),
+                            mesh.boundary_facets("x-"), None,
+                            dtype=torch.float32, device="cpu",
+                            stiffness_impl="pallas_corner")
+    field = mesh.ndofs * 4
+    assert _stiffness_bytes(model.stiffness, mesh.ndofs) == \
+        mesh.num_cells * 37 * 4 + 3 * field
