@@ -64,11 +64,34 @@ Phases (each prints its time; any failure exits non-zero):
      (664 x 56 x 56 cells, P = 4, 134,510,625 DOF) (19a) and
      `capacity_imported` at a quarter of its default depth (--nz 30)
      (19b): 10 warm-up and 10 timed steps, ms/step, peak device memory,
-     then the model's kernel against its plain version at that size.
+     then the model's kernel against its plain version at that size;
+ 20. the four kernels of the staged gather / contract / scatter engine
+     against their plain version at P = 2..10 on phase 12's meshes, float64
+     and float32: each kernel alone (the gathers bitwise), the composed
+     apply and pair, and the composed apply against the indexed kernel on
+     the same buffers (run right after phase 16);
+ 21. the bodyfit bowl on the engine (--stiffness-impl indexed_engine, on
+     phase 13a's import): each kernel against its plain version and timed,
+     the composed apply against the indexed kernel in the same run, 10
+     steps against the indexed model (21a); the whole solve, its focal
+     pressure against phase 13b's, 12 engine kernel launches a step (21b);
+     the two-layer bowl, 50 steps through gather2 (21c); the P=6 bowl, 50
+     steps against phase 15b's indexed run (21d);
+ 22. ranks on the one card (parallel.multihost.spawn, gloo on cuda:0, 4
+     ranks, after 21b): in one process group, the flagship on a (2, 2, 1)
+     grid for 50 steps, the two-layer flagship and the flagship in corner
+     mode for 20 (22a-c), the imported bowl and the bodyfit bowl (indexed
+     and indexed_engine) for 20 (22d-e); then the flagship on nccl at world
+     size 1 (22f); each against the one-rank model over the same steps (u
+     and the probe traces), with ms/step, the exchange's ms per stage and
+     every rank's launches of each of its kernels.  Each model is saved for
+     the ranks, and run alone for the reference, where the script builds
+     it.
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
-17c, 18b, 18c, 18d, 18e, 19a, 19b) has the launch counters reset just
-before it and read just after.  The line before the last is the kernels' JSON
-summary; the last line is the result.
+17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, and in every rank of 22
+its solve) has the launch counters reset just before it and read just
+after.  The line before the last is the kernels' JSON summary; the last
+line is the result.
 """
 
 from __future__ import annotations
@@ -254,21 +277,110 @@ def main() -> None:
     from fustpu_torch.mesh.box import build_box_mesh
     from fustpu_torch.mesh.extruded import ExtrudedHexMesh, as_extruded
     from fustpu_torch.mesh.unstructured import from_box
+    from fustpu_torch.mesh.unstructured import UPointSampler
     from fustpu_torch.models.discretization import (CornerStiffness,
                                                     Discretization,
+                                                    EngineStiffness,
                                                     ExtrudedStiffness,
                                                     IndexedStiffness,
                                                     StructuredStiffness,
                                                     stiffness_module)
     from fustpu_torch.ops import cuda_corner as cc
+    from fustpu_torch.ops import cuda_engine as cen
     from fustpu_torch.ops import cuda_extruded as ce
     from fustpu_torch.ops import cuda_indexed as ci
     from fustpu_torch.ops import cuda_stiffness as cs
+    from fustpu_torch.ops import engine as eng
     from fustpu_torch.ops import precompute as pre
     from fustpu_torch.ops import spectral_mm as mm
+    from fustpu_torch.parallel import multihost
+    from fustpu_torch.utils.eval import PointSampler
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    # the staged engine's kernels: one launch of each per apply
+    STAGED = ("engine_gather", "engine_contract", "engine_scatter")
+    # phase 22: each model is saved for the ranks, and run alone for the
+    # reference, where it is built; the ranks run in groups (ranks_group)
+    ranks_dir = tempfile.TemporaryDirectory()
+    ranks_cases = {}
+
+    def device_probe(model, points):
+        """A per-step probe of u at `points`, on the model's device."""
+        if hasattr(model.mesh, "nc"):
+            smp = PointSampler(model.mesh, points)
+            I, J, K = (torch.as_tensor(a, device=dev)
+                       for a in (smp._I, smp._J, smp._K))
+            w = torch.as_tensor(smp._w, device=dev)
+            return lambda s: torch.einsum(
+                "pijk,pijk->p", s.u[I[:, :, None, None], J[:, None, :, None],
+                                    K[:, None, None, :]], w.to(s.u.dtype))
+        f = UPointSampler(model.mesh, points).torch_probe(dev)
+        return lambda s: f(s.u)
+
+    def keep_for_ranks(name, model, dt_, steps, points, grid=None,
+                       impl=None, like=None):
+        """Phase 22's case `name`: `model` saved for the ranks (or the file
+        of case `like`) and its one-rank run of `steps` steps from rest,
+        with the probe trace at `points`."""
+        path = (ranks_cases[like]["model"] if like else
+                str(Path(ranks_dir.name) / f"{name}.pt"))
+        if like is None:
+            torch.save(model, path)
+        st, ys = model.solve(model.init_state(), dt_, steps,
+                             probe=device_probe(model, points))
+        ranks_cases[name] = dict(
+            model=path, steps=steps, dt=dt_, grid=grid, impl=impl,
+            probe=points, exchange_reps=20,
+            ref_u=st.u.reshape(-1).cpu().numpy(), ref_ys=ys.cpu().numpy())
+
+    def ranks_group(names, nprocs, backend):
+        """Phase 22: the saved models of `names` over `nprocs` spawned ranks
+        on the card, each against its one-rank run: rel-l2(u) and the probe
+        traces within TRAJ_TOL, u, v and kv bitwise consistent across
+        owners, every kernel of each rank's stiffness (the staged engine's
+        three) launched 4 x steps times.  Deletes the saved files."""
+        cases = [{k: v for k, v in ranks_cases[n].items()
+                  if not k.startswith("ref")} for n in names]
+        with phase(f"22 {nprocs} rank(s) ({backend} on one card): "
+                   + "; ".join(names)):
+            res = multihost.spawn(multihost.solve_cases, nprocs, backend,
+                                  "cuda", timeout=600, args=(cases,))
+            for i, name in enumerate(names):
+                c, r0 = ranks_cases[name], res[0][i]
+                u = r0["u"].reshape(-1)
+                err = rel_l2(torch.as_tensor(u), torch.as_tensor(c["ref_u"]))
+                npts = c["ref_ys"].shape[1]
+                dy = np.abs(r0["ys"][:, :npts] - c["ref_ys"]).max()
+                perr = float(dy / max(np.abs(c["ref_ys"]).max(), 1e-30))
+                same = np.array_equal(u, c["ref_u"])
+                ok = r0["u_consistent"] and r0["v_consistent"] and \
+                    r0["kv_consistent"]
+                launches = [r[i]["launches"] for r in res]
+                kernel = STAGED if r0["kernel"] == "engine" else \
+                    (r0["kernel"],)
+                print(f"   {name}: {nprocs} rank(s) sharing one H100 "
+                      f"({backend}; not a multi-GPU speed) {smi}: "
+                      f"{r0['ms_per_step']:.4f} ms/step over {c['steps']} "
+                      f"steps, exchange {r0['exchange_ms']:.4f} ms per "
+                      f"stage; vs one rank rel-l2(u) {err:.3e}, probes "
+                      f"(max relative) {perr:.3e} (tol {TRAJ_TOL}), "
+                      f"{'bitwise equal' if same else 'not bitwise equal'};"
+                      f" shared entries consistent {ok}; stiffness "
+                      f"{r0['stiffness']}; launches per rank {launches}",
+                      flush=True)
+                if not (err <= TRAJ_TOL and perr <= TRAJ_TOL and ok):
+                    fail(f"{name}: sharded vs one rank {err:.3e}, probes "
+                         f"{perr:.3e}, consistent {ok}")
+                if any(la.get(k, 0) != 4 * c["steps"]
+                       for la in launches for k in kernel):
+                    fail(f"{name}: launches {launches} != 4 x {c['steps']} "
+                         f"of each of {kernel}")
+            for name in names:
+                path = ranks_cases.pop(name)["model"]
+                if all(c["model"] != path for c in ranks_cases.values()):
+                    Path(path).unlink()
+            return res
 
     with phase("1 device"):
         smi = subprocess.run(
@@ -521,6 +633,95 @@ def main() -> None:
         if not all(cc.launches.values()):
             fail("a corner kernel's launch counter did not move")
 
+    with phase("20 engine kernels vs plain, P=2..10"), \
+            tempfile.TemporaryDirectory() as tmp:
+        worst = {"f64": 0.0, "f32": 0.0, "indexed": 0.0}
+        cen.reset_launches()
+        for P in range(2, 11):
+            v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
+                                           nr_ann=1, nz=4 if P <= 6 else 2)
+            cyl = msh_io.read_msh(msh_io.write_msh(
+                str(Path(tmp) / f"ecyl{P}"), v, c, t), P,
+                detect_extrusion=False)
+            box = from_box(build_box_mesh(
+                (5, 3, 7) if P <= 6 else (3, 3, 4), P, hi=(1.0, 0.8, 1.3),
+                perturb=0.15, seed=P), shuffle_seed=11)
+            for mname, mesh in (("cylinder", cyl), ("box", box)):
+                disc = Discretization(mesh)
+                c1 = rng.uniform(0.5, 2.0, mesh.num_cells)
+                c2 = rng.uniform(-1.5, -0.5, mesh.num_cells)
+                x1 = torch.as_tensor(rng.standard_normal(mesh.ndofs),
+                                     device=dev)
+                x2 = torch.as_tensor(rng.standard_normal(mesh.ndofs),
+                                     device=dev)
+                for label, kw in (("single", {}), ("single+coeff",
+                                                   {"coeff": c1}),
+                                  ("pair", {"pair": (c1, c2)})):
+                    pair = "pair" in kw
+                    o64 = disc.stiffness_op(torch.float64, dev, engine=True,
+                                            **kw)
+                    p64 = cen.to_plain(o64)
+                    ref = (cen.engine_pair_plain(o64, x1, x2) if pair
+                           else cen.engine_plain(o64, x1))
+                    errs = {}
+                    for dtype, key in ((torch.float64, "f64"),
+                                       (torch.float32, "f32")):
+                        op = disc.stiffness_op(dtype, dev, engine=True, **kw)
+                        a, b = x1.to(dtype), x2.to(dtype)
+                        g = op.dofmap.reshape(-1).long()
+                        # each kernel alone against its plain version
+                        if pair:
+                            u1, u2 = cen.gather2(op, a, b)
+                            ok = (torch.equal(u1.reshape(-1), eng.gather(a, g))
+                                  and torch.equal(u2.reshape(-1),
+                                                  eng.gather(b, g)))
+                            uc = (p64.c1[:, None] * u1.double()
+                                  + p64.c2[:, None] * u2.double())
+                            yk = cen.contract(op, u1, u2)
+                        else:
+                            u1 = cen.gather(op, a)
+                            ok = torch.equal(u1.reshape(-1), eng.gather(a, g))
+                            uc = u1.double()
+                            yk = cen.contract(op, u1)
+                        if not ok:
+                            fail(f"P={P} {mname} {label} {key}: gather not "
+                                 "bitwise equal to plain")
+                        ec = rel_l2(yk, eng.dense_contract(uc, p64.G6, p64.D,
+                                                           p64.coeff))
+                        es = rel_l2(cen.scatter(op, yk), eng.scatter_add(
+                            yk.double(), g, mesh.ndofs))
+                        y = (cen.engine_pair(op, a, b) if pair
+                             else cen.engine(op, a))
+                        e = max(rel_l2(y, ref), ec, es)
+                        errs[key] = e
+                        tol = F64_TOL if key == "f64" else F32_TOL
+                        if not e <= tol:
+                            fail(f"P={P} {mname} {label} {key}: engine vs "
+                                 f"plain {e:.3e} (contract {ec:.3e}, "
+                                 f"scatter {es:.3e})")
+                        worst[key] = max(worst[key], e)
+                        if "coeff" not in kw:
+                            iop = cen.to_indexed(op, disc.scatter_classes)
+                            yi = (ci.indexed_pair(iop, a, b) if pair
+                                  else ci.indexed(iop, a))
+                            ei = rel_l2(y, yi)
+                            errs[f"indexed {key}"] = ei
+                            if not ei <= tol:
+                                fail(f"P={P} {mname} {label} {key}: engine "
+                                     f"vs indexed kernel {ei:.3e}")
+                            worst["indexed"] = max(worst["indexed"],
+                                                   ei if key == "f64" else 0)
+                    torch.cuda.synchronize()
+                    print(f"   P={P:2d} {mname:8s} {label:13s} "
+                          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+                          flush=True)
+        print(f"   worst rel-l2 against plain (each kernel and composed): "
+              f"f64 {worst['f64']:.3e} (tol {F64_TOL}), f32 "
+              f"{worst['f32']:.3e} (tol {F32_TOL}); f64 against the indexed "
+              f"kernel {worst['indexed']:.3e}; launches {dict(cen.launches)}")
+        if not all(cen.launches.values()):
+            fail("an engine kernel's launch counter did not move")
+
     with phase("4 operator throughput, P=4 32^3 f32"):
         mesh = build_box_mesh((32, 32, 32), 4)
         disc = Discretization(mesh)
@@ -588,11 +789,20 @@ def main() -> None:
               f"(tol {TRAJ_TOL}), max |u| {float(sk.u.abs().max()):.4e}")
         if not traj <= TRAJ_TOL:
             fail(f"10-step trajectory kernel vs plain {traj:.3e}")
+        del sk, sp
+        # the focus, and a point on the axis 0.8 mm in front of the cap's
+        # apex, which the wave reaches within the ranks' 20 steps
+        BOWL_POINTS = np.array([focus, [0.0008, focus[1], focus[2]]])
+        keep_for_ranks("22a flagship, grid (2, 2, 1)", bowl, dt, 50,
+                       BOWL_POINTS, grid=(2, 2, 1))
+        keep_for_ranks("22f flagship on nccl, world size 1", bowl, dt, 20,
+                       BOWL_POINTS, grid=(1, 1, 1),
+                       like="22a flagship, grid (2, 2, 1)")
 
     with phase("7a two-layer build + pair kernel vs plain"):
         args2 = nonlinear_bowl.parser().parse_args(
             ["--elements", "64", "--degree", "4", "--two-layer"])
-        bowl2, dt2, _, _ = nonlinear_bowl.build(args2)
+        bowl2, dt2, _, _ = nonlinear_bowl.build(args2, pb6)
         if not bowl2.stiffness.is_pair:
             fail("two-layer model did not build the pair operator")
         kst2 = bowl2.stiffness
@@ -611,6 +821,8 @@ def main() -> None:
         print(f"   {smi}: pair at {tuple(bowl2.mesh.nc)} cells: "
               f"{kernels['stiffness_pair']}")
         del yk, yp, pst2, x, x2
+        keep_for_ranks("22b two-layer flagship, grid (2, 2, 1)", bowl2, dt2,
+                       20, BOWL_POINTS, grid=(2, 2, 1))
 
     # ---- the main path: counters reset just before, read just after ----
     cs.reset_launches()
@@ -708,6 +920,8 @@ def main() -> None:
         for name, (held, peak) in mem.items():
             print(f"   {name} model: buffers {held / 1e9:.4f} GB, a "
                   f"10-step solve adds at most {peak / 1e9:.4f} GB ({smi})")
+        keep_for_ranks("22c flagship in corner mode, grid (2, 2, 1)", cbowl,
+                       dt9, 20, BOWL_POINTS, grid=(2, 2, 1))
     del bowl, kstiff
     cc.reset_launches()
     with phase("17b flagship in corner mode, full solve (corner kernel)"):
@@ -814,6 +1028,8 @@ def main() -> None:
         if not traj <= TRAJ_TOL:
             fail(f"imported 10-step trajectory kernel vs plain {traj:.3e}")
         del sk, sp
+        keep_for_ranks("22d imported bowl, 4 ranks", ibowl, dt3, 20,
+                       BOWL_POINTS)
 
     ce.reset_launches()
     with phase("10b imported bowl full solve (extruded kernel)"):
@@ -950,7 +1166,7 @@ def main() -> None:
                             "two-layer imported hex27 corner pair",
                             "extruded_corner_hex27_pair", pb27,
                             g_module=cibowl2.stiffness)
-        del cibowl2, pb27, pb10
+        del cibowl2, pb27
     cc.reset_launches()
     with phase("18e two-layer imported bowl as hex27, 50 steps (hex27 "
                "corner pair kernel)"):
@@ -976,7 +1192,8 @@ def main() -> None:
         args4 = nonlinear_bowl.parser().parse_args(
             ["--elements", "64", "--degree", "4",
              "--geometry", "unstructured", "--two-layer"])
-        ibowl2, dt4, _, _ = nonlinear_bowl.build(args4)
+        ibowl2, dt4, _, _ = nonlinear_bowl.build(args4, pb10)
+        del pb10
         kst4 = ibowl2.stiffness
         if not kst4.is_pair:
             fail("two-layer imported model did not build the pair operator")
@@ -1015,15 +1232,102 @@ def main() -> None:
     launches.update(extruded=n_piston + n_ext, extruded_pair=n_ext_pair)
     del ibowl2, kst4, s4
 
-    def bodyfit_build(argv, label):
-        """Build a bodyfit bowl through the demo, check that it imported
-        as a general mesh on the indexed kernel, and hold the kernel
-        against its plain version on one unit-normal input (two for a
-        pair model).  Returns (model, dt, steps, focus, plain module,
-        kernel entry for the JSON line)."""
+    def engine_kernels(model, ist, label):
+        """The engine model's kernels at this size, float32: each against
+        its plain version on the same inputs (the gathers bitwise) and
+        timed, with its minimum bytes (and operations); the composed apply
+        against its plain version and against the indexed kernel `ist` (the
+        IndexedStiffness of the same mesh and coefficients), timed in the
+        same run.  Returns the kernels' entries for the JSON line."""
+        est = model.stiffness
+        op, ndofs = est.cell_op, model.mesh.ndofs
+        p = cen.to_plain(op)
+        n, cells, N = op.P + 1, op.dofmap.shape[0], op.dofmap.numel()
+        b = op.G.element_size()
+        flops = cells * n ** 3 * (12 * n + 16)
+        xs = [torch.as_tensor(rng.standard_normal(ndofs), dtype=torch.float32,
+                              device=dev) for _ in range(2 if est.is_pair
+                                                         else 1)]
+        out = {}
+
+        def entry(yk, yp, run, run_plain, cost, library=None):
+            err = rel_l2(yk, yp)
+            return dict(max_abs_err=float((yk - yp).abs().max()), rel_l2=err,
+                        ms=time_ms(run, 20), plain_ms=time_ms(run_plain, 10),
+                        cost=cost, library_ms=None if library is None
+                        else time_ms(library, 20))
+
+        if est.is_pair:
+            u1, u2 = cen.gather2(op, *xs)
+            r1, r2 = eng.gather2(*xs, p.g)
+            out["engine_gather2"] = entry(
+                torch.cat([u1.reshape(-1), u2.reshape(-1)]),
+                torch.cat([r1, r2]), lambda: cen.gather2(op, *xs),
+                lambda: eng.gather2(*xs, p.g),
+                (N * 4 + 2 * ndofs * b + 2 * N * b, 0))
+            uc = p.c1[:, None] * u1 + p.c2[:, None] * u2
+            yk = cen.contract(op, u1, u2)
+            out["engine_contract"] = entry(
+                yk, eng.dense_contract(uc, p.G6, p.D),
+                lambda: cen.contract(op, u1, u2),
+                lambda: eng.dense_contract(p.c1[:, None] * u1
+                                           + p.c2[:, None] * u2, p.G6, p.D),
+                ((2 + 6 + 1) * N * b + 2 * cells * b, flops + cells * n ** 3
+                 * 3))
+        else:
+            u1 = cen.gather(op, xs[0])
+            out["engine_gather"] = entry(
+                u1.reshape(-1), eng.gather(xs[0], p.g),
+                lambda: cen.gather(op, xs[0]), lambda: eng.gather(xs[0], p.g),
+                (N * 4 + ndofs * b + N * b, 0),
+                library=lambda: xs[0].index_select(0, p.g))
+            yk = cen.contract(op, u1)
+            out["engine_contract"] = entry(
+                yk, eng.dense_contract(u1, p.G6, p.D, p.coeff),
+                lambda: cen.contract(op, u1),
+                lambda: eng.dense_contract(u1, p.G6, p.D, p.coeff),
+                ((1 + 6 + 1) * N * b + (0 if p.coeff is None else cells * b),
+                 flops))
+        out["engine_scatter"] = entry(
+            cen.scatter(op, yk), eng.scatter_add(yk, p.g, ndofs),
+            lambda: cen.scatter(op, yk),
+            lambda: eng.scatter_add(yk, p.g, ndofs),
+            (N * b + N * 4 + (ndofs + 1) * 4 + ndofs * b, 0),
+            library=lambda: torch.zeros(ndofs, dtype=yk.dtype,
+                                        device=dev).index_add_(
+                0, p.g, yk.reshape(-1)))
+        run = (lambda m: m.pair(*xs)) if est.is_pair else (lambda m: m(xs[0]))
+        pst = EngineStiffness(op, "mm")
+        y = run(est)
+        out["engine"] = entry(y, run(pst), lambda: run(est), lambda: run(pst),
+                              apply_cost(op.G, ndofs, len(xs), extra=N * 4))
+        ms_idx = time_ms(lambda: run(ist), 20)
+        e_idx = rel_l2(y, run(ist))
+        for name, k in out.items():
+            print(f"   {smi}: {label} {name}: {k}", flush=True)
+            tol = 0.0 if "gather" in name else F32_TOL
+            if not k["rel_l2"] <= tol:
+                fail(f"{label}: {name} vs plain {k['rel_l2']:.3e}")
+        print(f"   {smi}: {label} at {cells} cells: composed engine "
+              f"{out['engine']['ms']:.4f} ms per apply vs the indexed kernel "
+              f"{ms_idx:.4f} ms (same run), relative difference "
+              f"{e_idx:.3e}", flush=True)
+        if not e_idx <= F32_TOL:
+            fail(f"{label}: engine vs indexed kernel {e_idx:.3e}")
+        out["engine"]["indexed_ms"] = ms_idx
+        return out
+
+    def bodyfit_build(argv, label, pb=None):
+        """Build a bodyfit bowl through the demo (on the problem `pb`, or
+        a new import), check that it imported as a general mesh on the
+        indexed kernel, and hold the kernel against its plain version on
+        one unit-normal input (two for a pair model).  Returns (model, dt,
+        steps, focus, plain module, kernel entry for the JSON line,
+        problem)."""
         args = nonlinear_bowl.parser().parse_args(argv)
         t0 = time.perf_counter()
-        model, dt, nsteps, focus = nonlinear_bowl.build(args)
+        pb = nonlinear_bowl.problem(args) if pb is None else pb
+        model, dt, nsteps, focus = nonlinear_bowl.build(args, pb)
         mesh, kst = model.mesh, model.stiffness
         print(f"   host set-up (mapping, export, import with "
               f"locality_order, geometry, colouring, upload) "
@@ -1051,7 +1355,7 @@ def main() -> None:
                                      extra=kst.dofmap.numel() * 4))
         print(f"   {smi}: {label} at {mesh.num_cells} cells: {entry}",
               flush=True)
-        return model, dt, nsteps, focus, pst, entry
+        return model, dt, nsteps, focus, pst, entry, pb
 
     def ten_steps(model, pst, dt, label):
         """10 RK4 steps from one state on the kernel, then on the plain
@@ -1069,18 +1373,23 @@ def main() -> None:
             fail(f"{label}: 10-step trajectory kernel vs plain {traj:.3e}")
 
     with phase("13a bodyfit bowl build + indexed kernel vs plain"):
-        args5 = ["--elements", "64", "--degree", "4", "--geometry",
-                 "bodyfit"]
-        bbowl, dt5, nsteps5, focus5, pst5, kernels["indexed"] = \
-            bodyfit_build(args5, "bodyfit bowl")
+        args5_argv = ["--elements", "64", "--degree", "4", "--geometry",
+                      "bodyfit"]
+        bbowl, dt5, nsteps5, focus5, pst5, kernels["indexed"], pb13 = \
+            bodyfit_build(args5_argv, "bodyfit bowl")
         if (bbowl.mesh.num_cells, bbowl.mesh.ndofs) != (102400, 6661697):
             fail(f"bodyfit bowl structure {bbowl.mesh.num_cells} cells, "
                  f"{bbowl.mesh.ndofs} DOF")
         ten_steps(bbowl, pst5, dt5, "bodyfit bowl")
+        keep_for_ranks("22e bodyfit bowl, 4 ranks, indexed", bbowl, dt5, 20,
+                       BOWL_POINTS, impl="indexed")
+        keep_for_ranks("22e bodyfit bowl, 4 ranks, indexed_engine", bbowl,
+                       dt5, 20, BOWL_POINTS, impl="indexed_engine",
+                       like="22e bodyfit bowl, 4 ranks, indexed")
 
     ci.reset_launches()
     with phase("13b bodyfit bowl full solve (indexed kernel)"):
-        args5 = nonlinear_bowl.parser().parse_args(args5)
+        args5 = nonlinear_bowl.parser().parse_args(args5_argv)
         state = run_demo(bbowl, dt5, nsteps5, args5, "nonlinear_bowl")
         n_idx = ci.launches["indexed"]
         p_body = nonlinear_bowl.focal_pressure(bbowl, state, focus5)
@@ -1098,6 +1407,7 @@ def main() -> None:
                  f"{BODYFIT_RATIO}")
         del state
     with phase("13c bodyfit bowl full solve (plain version)"):
+        kst5 = bbowl.stiffness
         bbowl.stiffness = pst5
         state = run_demo(bbowl, dt5, nsteps5, args5, "nonlinear_bowl")
         p_plain = nonlinear_bowl.focal_pressure(bbowl, state, focus5)
@@ -1106,12 +1416,62 @@ def main() -> None:
               f"difference {agree:.3e} (tol {FOCAL_AGREE})")
         if not agree <= FOCAL_AGREE:
             fail(f"bodyfit focal pressure kernel vs plain {agree:.3e}")
-        del state, bbowl, pst5
+        bbowl.stiffness = kst5
+        del state, pst5
+
+    ENGINE = ["--stiffness-impl", "indexed_engine"]
+    with phase("21a bodyfit bowl on the engine: build, each kernel vs plain "
+               "and timed, the composed apply vs the indexed kernel, 10 "
+               "steps vs the indexed model"):
+        t0 = time.perf_counter()
+        ebowl, dt15, nsteps15, _ = nonlinear_bowl.build(
+            nonlinear_bowl.parser().parse_args(args5_argv + ENGINE), pb13)
+        print(f"   host set-up on phase 13a's import (geometry, inverse "
+              f"map, upload) {time.perf_counter() - t0:.1f} s", flush=True)
+        if not isinstance(ebowl.stiffness, EngineStiffness) or \
+                ebowl.stiffness.impl != "cuda" or (dt15, nsteps15) != \
+                (dt5, nsteps5):
+            fail("bodyfit engine model: not the engine kernels on the card")
+        kernels.update(engine_kernels(ebowl, kst5, "bodyfit bowl"))
+        s0 = bbowl.init_state()
+        traj = rel_l2(ebowl.solve(s0, dt5, 10).u, bbowl.solve(s0, dt5, 10).u)
+        print(f"   10 steps engine vs indexed model: rel-l2(u) {traj:.3e} "
+              f"(tol {TRAJ_TOL})")
+        if not traj <= TRAJ_TOL:
+            fail(f"bodyfit 10 steps engine vs indexed {traj:.3e}")
+        del bbowl, kst5
+    cen.reset_launches()
+    with phase("21b bodyfit bowl on the engine, full solve"):
+        state = run_demo(ebowl, dt5, nsteps5, args5, "nonlinear_bowl")
+        n_eng = dict(cen.launches)
+        p_eng = nonlinear_bowl.focal_pressure(ebowl, state, focus5)
+        agree = abs(p_eng - p_body) / abs(p_body)
+        staged = sum(n_eng[k] for k in STAGED)
+        print(f"pressure at focus: {p_eng:.1f} Pa")
+        print(f"   engine launches {n_eng} for {nsteps5} steps ({staged} "
+              f"kernel launches); focal pressure vs the indexed kernel "
+              f"({p_body:.1f} Pa): relative difference {agree:.3e} (tol "
+              f"{FOCAL_AGREE})")
+        if any(n_eng[k] != 4 * nsteps5 for k in STAGED) or \
+                n_eng["engine_gather2"] != 0:
+            fail(f"bodyfit engine launches {n_eng} != 12 x {nsteps5}")
+        if not bool(torch.isfinite(state.u).all()):
+            fail("bodyfit engine field is not finite")
+        if not agree <= FOCAL_AGREE:
+            fail(f"bodyfit engine vs indexed focal pressure {agree:.3e}")
+        del state, ebowl
+    # every 4-rank case in one process group: rank start-up paid once
+    ranks_group(["22a flagship, grid (2, 2, 1)",
+                 "22b two-layer flagship, grid (2, 2, 1)",
+                 "22c flagship in corner mode, grid (2, 2, 1)",
+                 "22d imported bowl, 4 ranks",
+                 "22e bodyfit bowl, 4 ranks, indexed",
+                 "22e bodyfit bowl, 4 ranks, indexed_engine"], 4, "gloo")
+    ranks_group(["22f flagship on nccl, world size 1"], 1, "nccl")
 
     with phase("14a two-layer bodyfit bowl build + pair kernel vs plain"):
-        bbowl2, dt6, _, _, pst6, kernels["indexed_pair"] = bodyfit_build(
-            ["--elements", "64", "--degree", "4", "--geometry", "bodyfit",
-             "--two-layer"], "two-layer bodyfit bowl")
+        bbowl2, dt6, _, _, pst6, kernels["indexed_pair"], _ = bodyfit_build(
+            args5_argv + ["--two-layer"], "two-layer bodyfit bowl", pb13)
         if not bbowl2.stiffness.is_pair:
             fail("two-layer bodyfit model did not build the pair operator")
         del pst6
@@ -1128,12 +1488,40 @@ def main() -> None:
         if not bool(torch.isfinite(s6.u).all()) or \
                 float(s6.u.abs().max()) == 0.0:
             fail("two-layer bodyfit field is not finite and non-zero")
-        del s6, bbowl2
+
+    with phase("21c two-layer bodyfit bowl on the engine: build, kernels vs "
+               "plain and vs the indexed pair kernel"):
+        ebowl2, dt16, _, _ = nonlinear_bowl.build(
+            nonlinear_bowl.parser().parse_args(
+                args5_argv + ["--two-layer"] + ENGINE), pb13)
+        if not ebowl2.stiffness.is_pair or dt16 != dt6:
+            fail("two-layer bodyfit engine model did not build the pair "
+                 "operator")
+        kernels["engine_gather2"] = engine_kernels(
+            ebowl2, bbowl2.stiffness, "two-layer bodyfit bowl")[
+            "engine_gather2"]
+        del bbowl2
+    cen.reset_launches()
+    with phase("21c two-layer bodyfit bowl on the engine, 50 steps "
+               "(gather2)"):
+        s16 = ebowl2.solve(ebowl2.init_state(), dt16, 50)
+        torch.cuda.synchronize()
+        n_eng2 = dict(cen.launches)
+        traj = rel_l2(s16.u, s6.u)
+        print(f"   engine launches {n_eng2}; vs the indexed pair kernel's "
+              f"50 steps rel-l2(u) {traj:.3e} (tol {TRAJ_TOL})")
+        if any(n_eng2[k] != 4 * 50
+               for k in ("engine_gather2",) + STAGED[1:]) or \
+                n_eng2["engine_gather"] != 0:
+            fail(f"launches {n_eng2} after the two-layer engine run")
+        if not traj <= TRAJ_TOL:
+            fail(f"two-layer engine vs indexed 50 steps {traj:.3e}")
+        del s6, s16, ebowl2, pb13
 
     with phase("15a bodyfit bowl at P=6 build + kernel vs plain"):
-        bbowl7, dt7, nsteps7, focus7, pst7, k7 = bodyfit_build(
-            ["--elements", "48", "--degree", "6", "--geometry", "bodyfit"],
-            "P=6 bodyfit bowl")
+        P6 = ["--elements", "48", "--degree", "6", "--geometry", "bodyfit"]
+        bbowl7, dt7, nsteps7, focus7, pst7, k7, pb15 = bodyfit_build(
+            P6, "P=6 bodyfit bowl")
         if (bbowl7.mesh.num_cells, bbowl7.mesh.ndofs) != (49152, 10764961):
             fail(f"P=6 bodyfit structure {bbowl7.mesh.num_cells} cells, "
                  f"{bbowl7.mesh.ndofs} DOF")
@@ -1159,7 +1547,40 @@ def main() -> None:
         if not bool(torch.isfinite(s7.u).all()) or \
                 float(s7.u.abs().max()) == 0.0:
             fail("P=6 bodyfit field is not finite and non-zero")
-        del s7
+
+    with phase("21d P=6 bodyfit bowl on the engine: build, kernels vs plain "
+               "and vs the indexed kernel"):
+        ebowl7, dt17, _, _ = nonlinear_bowl.build(
+            nonlinear_bowl.parser().parse_args(P6 + ENGINE), pb15)
+        k17 = engine_kernels(ebowl7, bbowl7.stiffness, "P=6 bodyfit bowl")
+        del pb15
+    cen.reset_launches()
+    with phase("21d P=6 bodyfit bowl on the engine, 50 steps"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        s17 = ebowl7.solve(ebowl7.init_state(), dt7, 50)
+        end.record()
+        end.synchronize()
+        n_eng7 = dict(cen.launches)
+        traj = rel_l2(s17.u, s7.u)
+        print(f"   {smi}: P=6 bodyfit bowl on the engine: "
+              f"{start.elapsed_time(end) / 50:.4f} ms/step over 50 steps; "
+              f"composed engine {k17['engine']['ms']:.4f} ms vs indexed "
+              f"{k17['engine']['indexed_ms']:.4f} ms per apply; launches "
+              f"{n_eng7}; vs the indexed kernel's 50 steps rel-l2(u) "
+              f"{traj:.3e} (tol {TRAJ_TOL})")
+        if any(n_eng7[k] != 4 * 50 for k in STAGED):
+            fail(f"launches {n_eng7} after the P=6 engine run")
+        if not traj <= TRAJ_TOL:
+            fail(f"P=6 engine vs indexed 50 steps {traj:.3e}")
+        del s7, s17, ebowl7, k17
+    for k in STAGED:
+        launches[k] = n_eng[k] + n_eng2[k] + n_eng7[k]
+    launches["engine_gather2"] = n_eng2["engine_gather2"]
+    # the composed apply: the launches of its kernels
+    launches["engine"] = sum(launches[k] for k in
+                             STAGED + ("engine_gather2",))
     ci.reset_launches()
     with phase("15c bodyfit bowl at P=6, full solve (indexed kernel)"):
         args7 = nonlinear_bowl.parser().parse_args(
@@ -1272,7 +1693,17 @@ def main() -> None:
                                   "fustpu/ops/pallas_extruded.py:604"),
         "extruded_corner_hex27_pair": (
             "fustpu_torch/csrc/extruded_corner27.cu",
-            "fustpu/ops/pallas_extruded.py:604")}
+            "fustpu/ops/pallas_extruded.py:604"),
+        "engine_gather": ("fustpu_torch/csrc/engine.cu",
+                          "fustpu/ops/pallas_gather.py:534"),
+        "engine_gather2": ("fustpu_torch/csrc/engine.cu",
+                           "fustpu/ops/pallas_gather.py:566"),
+        "engine_contract": ("fustpu_torch/csrc/engine.cu",
+                            "fustpu/ops/pallas_gather.py:1078"),
+        "engine_scatter": ("fustpu_torch/csrc/engine.cu",
+                           "fustpu/ops/pallas_gather.py:610"),
+        "engine": ("fustpu_torch/csrc/engine.cu",
+                   "fustpu/ops/operators.py:290")}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name]
@@ -1282,7 +1713,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "library_ms": k.get("library_ms")})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

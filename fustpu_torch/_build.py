@@ -132,6 +132,20 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
+    ll = ctypes.c_longlong
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"fustpu_engine_gather_{suffix}")
+        fn.argtypes = [p, p, p, ll, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_engine_gather2_{suffix}")
+        fn.argtypes = [p, p, p, p, p, ll, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_engine_contract_{suffix}")
+        fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_engine_scatter_{suffix}")
+        fn.argtypes = [p, p, p, p, ll, p]
+        fn.restype = i
     for kind in ("extruded_corner", "extruded_corner_hex27"):
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"fustpu_{kind}_{suffix}")

@@ -26,7 +26,12 @@ leaves) and never see a JAX object.
   (nch+1, ns_pad, nz) and ce (2, ns_pad, ez)), and returns the port's
   (cells, nch+1) channels and pair coefficients.
 - `model_from_fustpu` builds a port model whose buffers are a JAX model's
-  ``params`` (no host assembly) and moves an ``RKState`` across.
+  ``params`` (no host assembly) and moves an ``RKState`` across; an indexed
+  model's params can build the port's staged engine
+  (``stiffness_impl="indexed_engine"``) as well as its indexed kernel.
+- `sharded_state_from_fustpu` collects a JAX sharded model's distributed
+  state into global host arrays, or into a port sharded model's per-rank
+  state.
 """
 
 from __future__ import annotations
@@ -38,9 +43,10 @@ import torch
 
 from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.mesh.unstructured import UnstructuredHexMesh
-from fustpu_torch.models.discretization import stiffness_module
+from fustpu_torch.models.discretization import ENGINE_IMPL, stiffness_module
 from fustpu_torch.models.timestepping import RKState
 from fustpu_torch.ops import cuda_corner as cc
+from fustpu_torch.ops import cuda_engine as cen
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
@@ -55,10 +61,18 @@ class HostStiffness(NamedTuple):
     C: np.ndarray | None             # (cells, 2) pair coefficients
     dofmap: np.ndarray | None = None  # (cells, n^3) of an indexed operator
 
-    def to_device(self, dtype: torch.dtype, device, nc):
+    def to_device(self, dtype: torch.dtype, device, nc,
+                  engine: bool = False):
         """The operator on `device`, any single coefficient folded into G.
         `nc`: cells per axis of a box mesh, or the imported mesh of an
-        extruded or indexed operator."""
+        extruded or indexed operator.  `engine`: the staged engine's
+        operator of an indexed one, its coefficient kept per cell."""
+        if engine:
+            if self.dofmap is None:
+                raise ValueError("the staged engine needs an indexed "
+                                 "operator (a dofmap)")
+            return cen.from_host(self.dofmap, nc.ndofs, self.G, self.D,
+                                 dtype, device, coeff=self.coeff, C=self.C)
         G = self.G if self.coeff is None else self.G * self.coeff[:, None,
                                                                  None]
         if isinstance(nc, ExtrudedHexMesh):
@@ -239,7 +253,8 @@ def state_from_fustpu(state, dtype: torch.dtype, device) -> RKState:
 
 
 def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
-                      source, source_facets, dtype: torch.dtype, device):
+                      source, source_facets, dtype: torch.dtype, device,
+                      stiffness_impl: str = "auto"):
     """A port model of class `cls` (LinearWaveModel or WesterveltModel)
     whose buffers are the JAX model's `params`, as numpy arrays:
     ``params["stiff"]`` is a dict of the keyword arrays of
@@ -251,11 +266,13 @@ def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
     of the matmul path, c2_x / c3_x / c4_x of the extruded einsum path,
     or the per-cell c2_c / c3_c / c4_c of the indexed path, are given
     where the JAX model holds them.  `state` (u, v, ku, kv, t) is moved
-    across too.  Returns (model, state or None)."""
+    across too.  `stiffness_impl`: 'auto', or 'indexed_engine' for the
+    staged engine on an indexed model's params.  Returns (model, state or
+    None)."""
     model = cls.__new__(cls)
     torch.nn.Module.__init__(model)
     model._setup(mesh, material, source, source_facets, dtype, device,
-                 "auto")
+                 stiffness_impl)
     extruded = isinstance(mesh, ExtrudedHexMesh)
     indexed = isinstance(mesh, UnstructuredHexMesh) and not extruded
     stiff = dict(params["fused"] if params.get("stiff") is None
@@ -286,8 +303,20 @@ def model_from_fustpu(cls, params: dict, state=None, *, mesh, material,
         nc=(mesh.nstacks, mesh.nz) if extruded else getattr(mesh, "nc",
                                                             None),
         **stiff)
-    return _finish(model, cls, params, op.to_device(dtype, model.device,
-                                                    where), state, dtype)
+    return _finish(model, cls, params, op.to_device(
+        dtype, model.device, where, engine=stiffness_impl == ENGINE_IMPL),
+        state, dtype)
+
+
+def sharded_state_from_fustpu(fsharded, state, sharded=None):
+    """A JAX sharded model's distributed `state` (u, v, ku, kv, t) through
+    its `collect` (which returns numpy arrays): the global host state
+    (u, v, ku, kv, t), or, given the port's sharded model `sharded`, that
+    rank's RKState of it."""
+    f = lambda a: np.asarray(fsharded.collect(a))
+    host = (f(state[0]), f(state[1]), f(state[2]), f(state[3]),
+            float(np.asarray(state[4])))
+    return host if sharded is None else sharded.split_state(host)
 
 
 def _finish(model, cls, params: dict, op, state, dtype: torch.dtype):

@@ -1,0 +1,294 @@
+// The staged gather / contract / scatter engine for GLL spectral hexahedra
+// of degree P = 2..10 (N = P + 1) on any conforming hex mesh, as three
+// separate passes over the (cells, N^3) element stream:
+//
+//   u2[p] = x[g[p]]                       engine_gather<T, NF> (NF fields)
+//   y2[c] = D^T (c G) D u2[c]             engine_contract<T, N, MODE>
+//   y[d]  = sum over g[p] == d of y2[p]   engine_scatter<T>
+//
+// with g = dofmap.ravel() (position p = c N^3 + i N^2 + j N + k).
+//
+// Replaces the Pallas TPU kernels of fustpu/ops/pallas_gather.py:
+//   - gather (:961) -> _mk_gather_kernel (:534), _packed (:736),
+//     _packed_staged (:766): engine_gather<T, 1>;
+//   - gather2 (:1014) -> :566 / :787 / :818: engine_gather<T, 2>;
+//   - dense_contract (:1117) -> _mk_contract_kernel (:1078):
+//     engine_contract<T, N, PLAIN | COEFF>, and the pair form whose fold
+//     c1 u1 + c2 u2 fustpu computes between its kernels
+//     (fustpu/ops/operators.py:379-382): engine_contract<T, N, PAIR>;
+//   - scatter_add (:1160) -> _mk_scatter_kernel (:610), _packed (:871),
+//     _packed_staged (:928): engine_scatter<T>.
+// The TPU forms are shaped by their machine: one-hot windowed matmuls on
+// the MXU for the gather and the scatter (no fast gather, no atomics),
+// bf16x3 splits, 128-lane padding, VMEM-staged residency and spill lists,
+// and dense (N^3 x N^3) derivative operators in the contraction.  None of
+// that carries over: each kernel here computes the same function in full
+// float32 or float64.
+//
+// What bounds them on an H100: memory traffic.  At the bodyfit H131 bowl
+// (102,400 cells, N^3 = 125, 12,800,000 positions, 6,661,697 dofs, float32)
+// an apply must move at least: gather g 51.2 MB + x 26.6 MB + u2 51.2 MB;
+// contract u2 51.2 MB + G 307.2 MB + y2 51.2 MB; scatter y2 51.2 MB + the
+// inverse map 51.2 + 26.6 MB + y 26.6 MB: ~694 MB, against 438 MB for the
+// fused indexed kernel (indexed.cu), which keeps u2 and y2 on chip.
+//
+// What the design does about it:
+//   - the gather is one thread per position: the index read and the output
+//     write are coalesced, the field read is indirect (the locality order
+//     of the mesh keeps a cell's dofs near each other); the pair form reads
+//     each index once for both fields;
+//   - the contraction is the per-cell sum-factorised body of the other
+//     stiffness kernels (sum_factor.cuh, GStream metric) with an identity
+//     index map: a cell reads its contiguous N^3 row of u2 and its 6 N^3
+//     run of G, and writes its row of y2; G is the indexed kernel's
+//     (cells, 6, N^3) layout, so one operator drives both kernels;
+//   - the scatter is deterministic and needs no float atomics: an inverse
+//     map built once on the host lists, for each dof, its positions in
+//     ascending order (CSR: ptr[d] .. ptr[d + 1] into pos), and one thread
+//     per dof sums them in that fixed order, so an apply is bitwise
+//     reproducible;
+//   - every position, cell and dof index is 64-bit where it is multiplied
+//     (N^3 x cells x 8 bytes passes 2^31 at the P = 6 bowl in float64).
+
+#include <cuda_runtime.h>
+
+#include "sum_factor.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+enum Mode { PLAIN = 0, COEFF = 1, PAIR = 2 };
+
+template <typename T, int NF>
+__global__ void __launch_bounds__(kThreads)
+engine_gather(const T* __restrict__ x1, const T* __restrict__ x2,
+              const int* __restrict__ g, T* __restrict__ o1,
+              T* __restrict__ o2, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       p < n; p += stride) {
+    const long long d = g[p];
+    o1[p] = x1[d];
+    if (NF == 2) o2[p] = x2[d];
+  }
+}
+
+// Node (i, j, k) of cell c sits at position c N^3 + i N^2 + t, t = j N + k.
+template <int N>
+struct RowLine {
+  long long base;
+  int t;
+  __device__ long long operator()(int i) const { return base + i * N * N + t; }
+};
+
+// The G stream scaled by the cell's coefficient: c (G w), as the plain
+// contraction orders it.
+template <typename T, int N>
+struct ScaledGStream {
+  fustpu::GStream<T, N> g;
+  T c;
+  __device__ __forceinline__ void operator()(int i, int n, T wx, T wy, T wz,
+                                             T& f0, T& f1, T& f2) const {
+    g(i, n, wx, wy, wz, f0, f1, f2);
+    f0 *= c;
+    f1 *= c;
+    f2 *= c;
+  }
+};
+
+template <typename T, int N, int MODE>
+__global__ void __launch_bounds__(fustpu::Shape<T, N>::NN *
+                                  fustpu::Shape<T, N>::CPB)
+engine_contract(const T* __restrict__ u1, const T* __restrict__ u2,
+                const T* __restrict__ C, const T* __restrict__ coeff,
+                const T* __restrict__ G, const T* __restrict__ D,
+                T* __restrict__ y, long long cells) {
+  using S = fustpu::Shape<T, N>;
+  constexpr int NN = S::NN, NNN = S::NNN, CPB = S::CPB;
+  __shared__ T Ds[NN];             // D[q * N + i] = l_i'(x_q)
+  __shared__ T us[CPB][NNN];       // the cell's field u
+  __shared__ T f1s[CPB][NNN];      // metric-transformed gradients
+  __shared__ T f2s[CPB][NNN];
+
+  const int t = threadIdx.x;       // this thread owns nodes (., j, k)
+  const int lc = threadIdx.y;      // cell within the block
+  for (int s = lc * NN + t; s < NN; s += NN * CPB) Ds[s] = D[s];
+
+  const long long cell = (long long)blockIdx.x * CPB + lc;
+  const bool active = cell < cells;
+  const long long c0 = active ? cell : 0;
+  T c1 = T(1), c2 = T(0);
+  if (active && MODE == PAIR) {
+    c1 = C[2 * cell];
+    c2 = C[2 * cell + 1];
+  }
+  const fustpu::GStream<T, N> gs{G + c0 * 6 * NNN};
+  const RowLine<N> line{c0 * NNN, t};
+  if constexpr (MODE == COEFF) {
+    const ScaledGStream<T, N> metric{gs, active ? coeff[cell] : T(1)};
+    fustpu::cell_apply<T, N, false>(u1, u2, c1, c2, metric, Ds, us[lc],
+                                    f1s[lc], f2s[lc], y, active, line);
+  } else {
+    fustpu::cell_apply<T, N, MODE == PAIR>(u1, u2, c1, c2, gs, Ds, us[lc],
+                                           f1s[lc], f2s[lc], y, active,
+                                           line);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+engine_scatter(const T* __restrict__ v, const int* __restrict__ pos,
+               const int* __restrict__ ptr, T* __restrict__ y,
+               long long ndofs) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       d < ndofs; d += stride) {
+    T acc = T(0);
+    const int end = ptr[d + 1];
+    for (int k = ptr[d]; k < end; ++k) acc += v[pos[k]];
+    y[d] = acc;
+  }
+}
+
+unsigned blocks_for(long long n) {
+  const long long b = (n + kThreads - 1) / kThreads;
+  return (unsigned)(b < 1 ? 1 : (b > (1LL << 30) ? (1LL << 30) : b));
+}
+
+template <typename T, int NF>
+int gather(const void* x1, const void* x2, const void* g, void* o1, void* o2,
+           long long n, void* stream) {
+  if (n <= 0) return 0;
+  engine_gather<T, NF><<<blocks_for(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x1), static_cast<const T*>(x2),
+      static_cast<const int*>(g), static_cast<T*>(o1), static_cast<T*>(o2),
+      n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE, int N>
+int contract_n(const void* u1, const void* u2, const void* C,
+               const void* coeff, const void* G, const void* D, void* y,
+               long long cells, cudaStream_t stream) {
+  using S = fustpu::Shape<T, N>;
+  if (cells <= 0) return 0;
+  const dim3 block(S::NN, S::CPB);
+  const unsigned blocks = (unsigned)((cells + S::CPB - 1) / S::CPB);
+  engine_contract<T, N, MODE><<<blocks, block, 0, stream>>>(
+      static_cast<const T*>(u1), static_cast<const T*>(u2),
+      static_cast<const T*>(C), static_cast<const T*>(coeff),
+      static_cast<const T*>(G), static_cast<const T*>(D),
+      static_cast<T*>(y), cells);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE>
+int contract_mode(int P, const void* u1, const void* u2, const void* C,
+                  const void* coeff, const void* G, const void* D, void* y,
+                  long long cells, cudaStream_t s) {
+#define FUSTPU_CASE(P_)                                                   \
+  case P_:                                                                \
+    return contract_n<T, MODE, P_ + 1>(u1, u2, C, coeff, G, D, y, cells, s);
+  switch (P) {
+    FUSTPU_CASE(2)
+    FUSTPU_CASE(3)
+    FUSTPU_CASE(4)
+    FUSTPU_CASE(5)
+    FUSTPU_CASE(6)
+    FUSTPU_CASE(7)
+    FUSTPU_CASE(8)
+    FUSTPU_CASE(9)
+    FUSTPU_CASE(10)
+    default:
+      return -1;
+  }
+#undef FUSTPU_CASE
+}
+
+template <typename T>
+int contract(int mode, int P, const void* u1, const void* u2, const void* C,
+             const void* coeff, const void* G, const void* D, void* y,
+             long long cells, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case PLAIN:
+      return contract_mode<T, PLAIN>(P, u1, u2, C, coeff, G, D, y, cells, s);
+    case COEFF:
+      return contract_mode<T, COEFF>(P, u1, u2, C, coeff, G, D, y, cells, s);
+    case PAIR:
+      return contract_mode<T, PAIR>(P, u1, u2, C, coeff, G, D, y, cells, s);
+    default:
+      return -2;
+  }
+}
+
+template <typename T>
+int scatter(const void* v, const void* pos, const void* ptr, void* y,
+            long long ndofs, void* stream) {
+  if (ndofs <= 0) return 0;
+  engine_scatter<T><<<blocks_for(ndofs), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(v), static_cast<const int*>(pos),
+      static_cast<const int*>(ptr), static_cast<T*>(y), ndofs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points.  Each returns 0, -1 for an unsupported degree, -2 for an
+// unknown contraction mode, or the cudaError_t of the launch.
+// g, pos: int32 positions and dofs; ptr: (ndofs + 1) int32 offsets into pos.
+// The contraction accumulates into y2, which the caller zeroes; mode 0 is
+// unit coefficients, 1 the per-cell coeff (cells,), 2 the pair fold with
+// C (cells, 2) and the second field u2.
+extern "C" {
+
+int fustpu_engine_gather_f32(const void* x, const void* g, void* out,
+                             long long n, void* stream) {
+  return gather<float, 1>(x, nullptr, g, out, nullptr, n, stream);
+}
+
+int fustpu_engine_gather_f64(const void* x, const void* g, void* out,
+                             long long n, void* stream) {
+  return gather<double, 1>(x, nullptr, g, out, nullptr, n, stream);
+}
+
+int fustpu_engine_gather2_f32(const void* x1, const void* x2, const void* g,
+                              void* o1, void* o2, long long n,
+                              void* stream) {
+  return gather<float, 2>(x1, x2, g, o1, o2, n, stream);
+}
+
+int fustpu_engine_gather2_f64(const void* x1, const void* x2, const void* g,
+                              void* o1, void* o2, long long n,
+                              void* stream) {
+  return gather<double, 2>(x1, x2, g, o1, o2, n, stream);
+}
+
+int fustpu_engine_contract_f32(const void* u1, const void* u2, const void* C,
+                               const void* coeff, const void* G,
+                               const void* D, void* y, long long cells,
+                               int P, int mode, void* stream) {
+  return contract<float>(mode, P, u1, u2, C, coeff, G, D, y, cells, stream);
+}
+
+int fustpu_engine_contract_f64(const void* u1, const void* u2, const void* C,
+                               const void* coeff, const void* G,
+                               const void* D, void* y, long long cells,
+                               int P, int mode, void* stream) {
+  return contract<double>(mode, P, u1, u2, C, coeff, G, D, y, cells, stream);
+}
+
+int fustpu_engine_scatter_f32(const void* v, const void* pos, const void* ptr,
+                              void* y, long long ndofs, void* stream) {
+  return scatter<float>(v, pos, ptr, y, ndofs, stream);
+}
+
+int fustpu_engine_scatter_f64(const void* v, const void* pos, const void* ptr,
+                              void* y, long long ndofs, void* stream) {
+  return scatter<double>(v, pos, ptr, y, ndofs, stream);
+}
+
+}  // extern "C"

@@ -1,12 +1,18 @@
 """Shared demo runner: argument parser and a chunked solve with progress
 prints and per-step timing (CUDA events on the card, the host clock on the
-CPU).  Counterpart of ``demos/common.py`` for single-device models."""
+CPU), on one rank or on several (`add_rank_args`, `run_ranks`: the host
+model is built once, saved, and every spawned rank builds its part of it
+and runs the same chunked solve through ``parallel.multihost.solve_cases``).
+Counterpart of ``demos/common.py``."""
 
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -17,6 +23,17 @@ def add_device_args(p: argparse.ArgumentParser,
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda = the H100 path (CUDA kernels); cpu = the "
                         "plain torch path (small verification runs)")
+    return p
+
+
+def add_rank_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """--ranks and --backend: the sharded run over spawned ranks."""
+    p.add_argument("--ranks", type=int, default=1,
+                   help="> 1: domain decomposition over this many spawned "
+                        "ranks of torch.distributed")
+    p.add_argument("--backend", choices=["gloo", "nccl"], default="gloo",
+                   help="gloo: CPU ranks, or ranks that share a card; "
+                        "nccl: one card per rank")
     return p
 
 
@@ -70,14 +87,15 @@ class Timer:
 
 
 def run_demo(model, dt: float, num_steps: int, args, name: str,
-             probe=None):
-    """Chunked solve, `args.progress_every` steps per chunk, progress
-    printed in between.  The last step is clamped onto tf = num_steps*dt.
-    Returns the final state, or (state, ys) with the per-step probe
-    values ys (num_steps, npts) when a `probe` is given."""
-    state = model.init_state()
+             probe=None, state=None):
+    """Chunked solve from `state` (rest when None), `args.progress_every`
+    steps per chunk, progress printed in between.  The last step is
+    clamped onto tf = t0 + num_steps*dt.  Returns the final state, or
+    (state, ys) with the per-step probe values ys (num_steps, npts) when a
+    `probe` is given."""
+    state = model.init_state() if state is None else state
     chunk = max(args.progress_every, 1)
-    tf = float(num_steps) * dt
+    tf = state.t + float(num_steps) * dt
     done = 0
     walls, ys = [], []
     while done < num_steps:
@@ -100,3 +118,38 @@ def run_demo(model, dt: float, num_steps: int, args, name: str,
         sk = sum(k for _, k in walls[1:])
         print(f"Solve time per step (steady): {sw / sk:.6f}")
     return state if probe is None else (state, torch.cat(ys))
+
+
+def run_ranks(model, args, dt: float, num_steps: int, grid=None,
+              points=None, timeout: float = 3600.0) -> list[dict]:
+    """A demo over `args.ranks` spawned ranks (`args.backend`, ranks on
+    `args.device`): the one-rank host `model` is saved once to a temporary
+    file that every rank loads and shards as the model runs (its stiffness
+    mode), `grid` is the box's rank grid (None for (ranks, 1, 1), or an
+    imported mesh).  Every rank runs the chunked solve of `run_demo` (rank
+    0 prints the progress).  Returns every rank's result of
+    ``parallel.multihost.solve_cases`` (rank 0's holds the collected u and
+    the probe trace `ys`)."""
+    from fustpu_torch.parallel import multihost
+
+    case = dict(steps=num_steps, dt=dt, grid=grid,
+                progress_every=args.progress_every)
+    if points is not None:
+        case["probe"] = np.asarray(points)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "model.pt"
+        torch.save(model, path)
+        res = multihost.spawn(
+            multihost.solve_cases, args.ranks, args.backend, args.device,
+            timeout, args=([dict(case, model=str(path))],))
+    return [r[0] for r in res]
+
+
+def box_rank_grid(ranks: int) -> tuple[int, int, int]:
+    """The JAX package's rank grid for a box over `ranks` ranks: (k, 1, 1)
+    halved along x into y while it stays even (4 -> (2, 2, 1))."""
+    S = [ranks, 1, 1]
+    for f in (2, 2):
+        if S[0] % f == 0 and S[0] > f:
+            S = [S[0] // f, S[1] * f, S[2]]
+    return tuple(S)

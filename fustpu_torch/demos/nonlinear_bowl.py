@@ -22,12 +22,18 @@ adds a soft-tissue layer past x = 20 mm (heterogeneous Westervelt, the
 pair stiffness kernel).  `--stiffness-impl pallas_corner` runs the
 corner-streamed capacity mode (the corner kernels on the conformal, phased
 and unstructured bowls; the bodyfit bowl has no corner form and keeps the
-indexed kernels).
+indexed kernels); `--stiffness-impl indexed_engine` runs the staged
+gather / contract / scatter engine on an imported bowl.  `--ranks k`
+shards the bowl over k spawned ranks of torch.distributed: the conformal
+and phased bowls over the JAX package's box rank grid (4 ranks: (2, 2, 1)),
+the imported ones by recursive coordinate bisection; the host model is
+built once and handed to the ranks.
 
     python -m fustpu_torch.demos.nonlinear_bowl [--elements N] [--degree P]
         [--geometry conformal|phased|unstructured|bodyfit]
-        [--mesh file.msh] [--stiffness-impl auto|pallas_corner]
-        [--two-layer] [--device cuda|cpu]
+        [--mesh file.msh]
+        [--stiffness-impl auto|pallas_corner|indexed_engine]
+        [--two-layer] [--device cuda|cpu] [--ranks k] [--backend gloo|nccl]
 """
 
 from __future__ import annotations
@@ -38,10 +44,12 @@ from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
+import torch
 
 from fustpu_torch.config import Material, Source
-from fustpu_torch.demos.common import (check_device, demo_argparser,
-                                       pick_dtype, run_demo)
+from fustpu_torch.demos.common import (add_rank_args, box_rank_grid,
+                                       check_device, demo_argparser,
+                                       pick_dtype, run_demo, run_ranks)
 from fustpu_torch.mesh import msh_io
 from fustpu_torch.mesh.box import build_box_mesh, build_mapped_mesh
 from fustpu_torch.mesh.extruded import ExtrudedHexMesh
@@ -93,7 +101,7 @@ def bodyfit_mapping(focal_length, aperture_radius, yc, zc, Lx, Lt):
 
 
 def parser():
-    p = demo_argparser(degree=6, periods=8.0)
+    p = add_rank_args(demo_argparser(degree=6, periods=8.0))
     p.add_argument("--geometry",
                    choices=["conformal", "phased", "unstructured",
                             "bodyfit"],
@@ -110,10 +118,12 @@ def parser():
                         "past x=20 mm: heterogeneous Westervelt, the pair "
                         "stiffness kernel")
     p.add_argument("--stiffness-impl", default="auto",
-                   choices=["auto", "pallas_corner"],
+                   choices=["auto", "pallas_corner", "indexed_engine"],
                    help="auto = the G-stream kernels; pallas_corner = the "
-                        "corner-streamed capacity mode (either runs its "
-                        "plain version on the CPU)")
+                        "corner-streamed capacity mode; indexed_engine = "
+                        "the staged gather / contract / scatter engine "
+                        "(imported bowls; each runs its plain version on "
+                        "the CPU)")
     return p
 
 
@@ -262,9 +272,29 @@ def focal_pressure(model, state, focus) -> float:
     return float(model.mesh.evaluate(u, focus[None, :])[0])
 
 
+def main_ranks(args):
+    """The bowl over `args.ranks` spawned ranks: the host model built once
+    on the CPU, each rank's part on its device.  Returns (host model, rank
+    results, focal pressure)."""
+    host = SimpleNamespace(**{**vars(args), "device": "cpu"})
+    model, dt, nsteps, focus = build(host)
+    grid = box_rank_grid(args.ranks) if hasattr(model.mesh, "nc") else None
+    print(f"sharded over {args.ranks} ranks ({args.backend} on "
+          f"{args.device}), " + (f"rank grid {grid}" if grid else
+                                 "recursive coordinate bisection"))
+    res = run_ranks(model, args, dt, nsteps, grid=grid)
+    u = torch.as_tensor(res[0]["u"])
+    p = focal_pressure(model, SimpleNamespace(u=u), focus)
+    print(f"launches per rank: {[r['launches'] for r in res]}")
+    print(f"pressure at focus: {p:.1f} Pa")
+    return model, res, p
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     check_device(args)
+    if args.ranks > 1:
+        return main_ranks(args)
     model, dt, nsteps, focus = build(args)
     state = run_demo(model, dt, nsteps, args, "nonlinear_bowl")
     p = focal_pressure(model, state, focus)

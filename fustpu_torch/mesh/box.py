@@ -16,6 +16,7 @@ import functools
 import numpy as np
 
 from fustpu_torch.elements.hex import FACETS, HexElement
+from fustpu_torch.ops import precompute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +73,13 @@ class BoxMesh:
     def cell_corners_flat(self) -> np.ndarray:
         """(num_cells, 8, 3), cell index cx*ncy*ncz + cy*ncz + cz."""
         return self.cell_corners.reshape(self.num_cells, 8, 3)
+
+    @functools.cached_property
+    def cell_metric(self) -> np.ndarray:
+        """(num_cells, n^3, 6) float64 metric factors
+        (``ops.precompute.cell_geometry_factors``), computed on first use
+        and shared by every model built on this mesh."""
+        return precompute.cell_geometry_factors(self)[1]
 
     def h_cfl(self) -> float:
         """CFL length scale: sqrt(3) x the smallest corner-pair distance

@@ -31,6 +31,7 @@ import torch
 
 from fustpu_torch.elements import gll
 from fustpu_torch.elements.hex import FACETS, HexElement, hex8_tabulate
+from fustpu_torch.ops import precompute
 
 # reference facet -> the 4 corner ids (our 4a+2b+c convention) of that face
 _FACET_CORNERS = []
@@ -118,6 +119,13 @@ class UnstructuredHexMesh:
     @property
     def geom_degree(self) -> int:
         return 1 if self.geom_nodes is None else 2
+
+    @functools.cached_property
+    def cell_metric(self) -> np.ndarray:
+        """(num_cells, n^3, 6) float64 metric factors
+        (``ops.precompute.cell_geometry_factors``), computed on first use
+        and shared by every model built on this mesh."""
+        return precompute.cell_geometry_factors(self)[1]
 
     @functools.cached_property
     def _cell_nodes_phys(self) -> np.ndarray:

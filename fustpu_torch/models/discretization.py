@@ -12,7 +12,9 @@ box mesh, `ExtrudedStiffness` on an `ExtrudedHexMesh` and
 a CUDA device, or their plain torch versions.  In the corner-streamed
 capacity mode (``stiffness_impl="pallas_corner"``) a box or an extruded mesh
 takes `CornerStiffness` instead, built from the cell corners (or the hex27
-lattice) without the host metric.  Counterpart of
+lattice) without the host metric.  ``stiffness_impl="indexed_engine"`` gives
+any imported mesh, extruded or not, `EngineStiffness`: the staged gather /
+contract / scatter engine.  Counterpart of
 ``fustpu/models/discretization.py`` without its TPU-only parts.
 """
 
@@ -28,9 +30,11 @@ from torch import nn
 
 from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.ops import cuda_corner as cc
+from fustpu_torch.ops import cuda_engine as cen
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
+from fustpu_torch.ops import engine as eng
 from fustpu_torch.ops import extruded as ext
 from fustpu_torch.ops import indexed as idx
 from fustpu_torch.ops import precompute as pre
@@ -38,6 +42,8 @@ from fustpu_torch.ops import spectral_mm as mm
 
 # The names of the corner-streamed capacity mode (the JAX package's).
 CORNER_IMPLS = ("pallas_corner", "extruded_pallas_corner")
+# The staged engine's name (the JAX package's), for imported meshes.
+ENGINE_IMPL = "indexed_engine"
 
 
 class FacetBlock(NamedTuple):
@@ -67,11 +73,12 @@ class Discretization:
 
     @functools.cached_property
     def _G_host(self) -> np.ndarray:
-        """(cells, n^3, 6) metric factors, float64 host, computed on first
-        use (never in the corner mode: 48 B per node, the largest host
-        array of the set-up)."""
+        """(cells, n^3, 6) metric factors, float64 host, on first use
+        (never in the corner mode: 48 B per node, the largest host array of
+        the set-up): the mesh's `cell_metric`, computed once per mesh, so a
+        second model of the same mesh reuses it."""
         t0 = time.perf_counter()
-        G = pre.cell_geometry_factors(self.mesh)[1]
+        G = self.mesh.cell_metric
         self.host_seconds["geometry"] = time.perf_counter() - t0
         return G
 
@@ -129,7 +136,7 @@ class Discretization:
 
     # ---- stiffness --------------------------------------------------------
     def stiffness_op(self, dtype: torch.dtype, device, coeff=None,
-                     pair=None, corner: bool = False):
+                     pair=None, corner: bool = False, engine: bool = False):
         """The stiffness operator in the kernel layout, on `device`
         (`cs.CellStiffness` on a box mesh, `ce.ExtrudedCellStiffness` on
         an extruded one, `ci.IndexedCellStiffness` on any other imported
@@ -137,8 +144,17 @@ class Discretization:
         per-cell fields makes a unit-G pair operator.  `corner`: the
         corner-streamed `cc.CornerCellStiffness` on a box or extruded mesh,
         built without the host metric; a general mesh has no corner form
-        and takes the indexed operator, as the JAX package routes it."""
+        and takes the indexed operator, as the JAX package routes it.
+        `engine`: the staged engine's `cen.EngineCellStiffness` on any
+        imported mesh (its `coeff` stays a per-cell coefficient)."""
         extruded = isinstance(self.mesh, ExtrudedHexMesh)
+        if engine:
+            if self.structured:
+                raise ValueError(f"stiffness_impl={ENGINE_IMPL!r} needs an "
+                                 "imported mesh (a box mesh runs the "
+                                 "structured kernels)")
+            return cen.build(self.mesh, self._G_host, self._D_host, dtype,
+                             device, coeff=coeff, pair=pair)
         if corner and (self.structured or extruded):
             t0 = time.perf_counter()
             build = cc.build_extruded if extruded else cc.build_box
@@ -167,15 +183,15 @@ class Discretization:
 def resolve_stiffness_impl(impl: str, device) -> str:
     """'auto' is the CUDA kernel on a CUDA device and the plain torch
     version elsewhere; 'mm' forces the plain version (on any mesh kind).
-    The corner-mode names (CORNER_IMPLS) resolve as 'auto' does: they
-    choose the operator (`Discretization.stiffness_op(corner=True)`), the
-    device chooses kernel or plain version."""
+    The corner-mode names (CORNER_IMPLS) and ENGINE_IMPL resolve as 'auto'
+    does: they choose the operator (`Discretization.stiffness_op(corner=True)`
+    or `(engine=True)`), the device chooses kernel or plain version."""
     if impl == "mm":
         return "mm"
-    if impl == "auto" or impl in CORNER_IMPLS:
+    if impl in ("auto", ENGINE_IMPL) or impl in CORNER_IMPLS:
         return "cuda" if torch.device(device).type == "cuda" else "mm"
-    raise ValueError(f"stiffness_impl={impl!r}: expected 'auto', 'mm' or "
-                     f"one of {CORNER_IMPLS}")
+    raise ValueError(f"stiffness_impl={impl!r}: expected 'auto', 'mm', "
+                     f"{ENGINE_IMPL!r} or one of {CORNER_IMPLS}")
 
 
 class StructuredStiffness(nn.Module):
@@ -390,9 +406,66 @@ class CornerStiffness(nn.Module):
         return cc.extruded_corner_pair(op, x1, x2)
 
 
+class EngineStiffness(nn.Module):
+    """The staged engine as buffers in the layout its implementation
+    reads: the kernel layout for 'cuda' (three launches per apply:
+    `cen.engine`, `cen.engine_pair`), the plain layout of
+    ``fustpu_torch.ops.engine`` for 'mm'.  ``EngineStiffness(op.cell_op,
+    "mm")`` is the plain version of a kernel-layout operator `op`, with the
+    same numbers.  `forward(x)` is the single-field apply (with the
+    operator's per-cell coefficient, if any), `pair(x1, x2)` the two-field
+    one; both take and return flat tensors."""
+
+    def __init__(self, op: cen.EngineCellStiffness, impl: str):
+        super().__init__()
+        self.impl = impl
+        self.ndofs = op.ndofs
+        self.is_pair = op.C is not None
+        if impl == "cuda":
+            for name in cen.EngineCellStiffness._fields:
+                if name != "ndofs":
+                    self.register_buffer(name, getattr(op, name))
+        else:
+            plain = cen.to_plain(op)
+            for name in cen.PlainEngine._fields:
+                self.register_buffer(f"plain_{name}", getattr(plain, name))
+
+    @property
+    def kernel(self) -> str | None:
+        """The launch counter that an apply moves (None for 'mm'): one per
+        composed apply; its three kernels count their own launches."""
+        return "engine" if self.impl == "cuda" else None
+
+    @property
+    def cell_op(self) -> cen.EngineCellStiffness:
+        return cen.EngineCellStiffness(
+            G=self.G, D=self.D, dofmap=self.dofmap, ndofs=self.ndofs,
+            pos=self.pos, ptr=self.ptr, coeff=self.coeff, C=self.C)
+
+    @property
+    def plain_op(self) -> cen.PlainEngine:
+        return cen.PlainEngine(*(getattr(self, f"plain_{name}")
+                                 for name in cen.PlainEngine._fields))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return cen.engine(self.cell_op, x)
+        p = self.plain_op
+        return eng.stiffness_apply_engine(x, p.G6, p.coeff, p.g, p.D,
+                                          self.ndofs)
+
+    def pair(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if self.impl == "cuda":
+            return cen.engine_pair(self.cell_op, x1, x2)
+        p = self.plain_op
+        return eng.stiffness_apply_engine_pair(x1, p.c1, x2, p.c2, p.G6,
+                                               p.g, p.D, self.ndofs)
+
+
 def launch_counts() -> dict:
     """Every stiffness kernel's launch counter, by name (a copy)."""
-    return {**cs.launches, **ce.launches, **ci.launches, **cc.launches}
+    return {**cs.launches, **ce.launches, **ci.launches, **cc.launches,
+            **cen.launches}
 
 
 def stiffness_module(op, impl: str) -> nn.Module:
@@ -400,6 +473,8 @@ def stiffness_module(op, impl: str) -> nn.Module:
     kind."""
     if isinstance(op, cc.CornerCellStiffness):
         return CornerStiffness(op, impl)
+    if isinstance(op, cen.EngineCellStiffness):
+        return EngineStiffness(op, impl)
     if isinstance(op, ce.ExtrudedCellStiffness):
         return ExtrudedStiffness(op, impl)
     if isinstance(op, ci.IndexedCellStiffness):

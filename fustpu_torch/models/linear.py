@@ -16,7 +16,9 @@ branches of ``fustpu/models/linear.py``: on an imported mesh the stiffness
 is the extruded operator (prismatic) or the indexed one (any other), the
 rest is the same.  The per-cell -1/rho of a heterogeneous medium is folded
 into G at build time on every mesh kind (the JAX package's indexed path
-multiplies it in its kernel instead).
+multiplies it in its kernel instead), except on the staged engine
+(``stiffness_impl="indexed_engine"``), whose contraction applies it as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from fustpu_torch.config import Material, Source
 from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
 from fustpu_torch.models.discretization import (CORNER_IMPLS,
+                                                ENGINE_IMPL,
                                                 Discretization,
                                                 stiffness_module)
 from fustpu_torch.ops import vector as vec
@@ -59,7 +62,9 @@ class LinearWaveModel(WaveModelBase):
         version) or 'pallas_corner' / 'extruded_pallas_corner' (the
         corner-streamed capacity mode on a box or an extruded mesh, kernel
         or plain version by device as for 'auto'; a general mesh takes
-        the indexed operator)."""
+        the indexed operator) or 'indexed_engine' (the staged gather /
+        contract / scatter engine on an imported mesh, the per-cell -1/rho
+        applied in its contraction)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
@@ -71,7 +76,8 @@ class LinearWaveModel(WaveModelBase):
         # otherwise
         self.stiffness = stiffness_module(disc.stiffness_op(
             dtype, self.device, coeff=None if self.uniform else -1.0 / rho,
-            corner=stiffness_impl in CORNER_IMPLS), self.impl)
+            corner=stiffness_impl in CORNER_IMPLS,
+            engine=stiffness_impl == ENGINE_IMPL), self.impl)
 
         host = {"m": disc.mass_diag_host(1.0 / (rho * c * c))}
         # source boundary: the g(t) facet term reduces to precomputed

@@ -32,6 +32,7 @@ from fustpu_torch.config import Material, Source
 from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
 from fustpu_torch.models.discretization import (CORNER_IMPLS,
+                                                ENGINE_IMPL,
                                                 Discretization,
                                                 stiffness_module)
 from fustpu_torch.ops import vector as vec
@@ -63,7 +64,9 @@ class WesterveltModel(WaveModelBase):
         'pallas_corner' / 'extruded_pallas_corner' (the corner-streamed
         capacity mode on a box or an extruded mesh, kernel or plain
         version by device as for 'auto'; a general mesh takes the indexed
-        operator)."""
+        operator) or 'indexed_engine' (the staged gather / contract /
+        scatter engine on an imported mesh; the pair form gathers both
+        fields in one pass)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
@@ -74,7 +77,8 @@ class WesterveltModel(WaveModelBase):
         self.stiffness = stiffness_module(disc.stiffness_op(
             dtype, self.device,
             pair=None if self.uniform else self._pair_coeffs,
-            corner=stiffness_impl in CORNER_IMPLS), self.impl)
+            corner=stiffness_impl in CORNER_IMPLS,
+            engine=stiffness_impl == ENGINE_IMPL), self.impl)
 
         # unsteady mass diagonal: mass(u; -nl) = u * mvec2 (and the v^2 RHS
         # term uses +nl, i.e. exactly -mvec2)

@@ -1,0 +1,310 @@
+"""The staged gather / contract / scatter engine on the card: the four
+hand-written CUDA kernels of ``fustpu_torch/csrc/engine.cu``, their
+wrappers, their launch counters and the host build of the operator.
+
+Counterpart of the 3-kernel engine of ``fustpu/ops/pallas_gather.py``
+(`gather`, `gather2`, `dense_contract`, `scatter_add`) as
+``fustpu/ops/operators.py`` composes it (`stiffness_apply_indexed` and
+`_pair` with ``engine=``):
+
+- `gather` / `gather2`: one or two fields to the (cells, n^3) element
+  stream;
+- `contract`: the per-cell stiffness contraction, with unit coefficients,
+  a per-cell coefficient (the linear model) or the pair fold
+  c1 u1 + c2 u2 of two gathered fields (heterogeneous Westervelt);
+- `scatter`: the deterministic scatter-add through the inverse map;
+- `engine` / `engine_pair`: the three composed, one apply (three
+  launches).
+
+`EngineCellStiffness` keeps G in the indexed kernel's (cells, 6, n^3)
+layout, so `to_indexed` drives ``fustpu_torch.ops.cuda_indexed`` on the
+same buffers.  A wrapper given CPU tensors runs the plain version
+(``fustpu_torch.ops.engine`` on the same data).  Given CUDA tensors it
+launches the kernel or raises: there is no fallback.  Each kernel wrapper
+counts its launches in `launches`, where it launches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fustpu_torch.ops import cuda_indexed as ci
+from fustpu_torch.ops import engine as eng
+
+# Launches of each kernel, not counting the plain version.
+launches = {"engine_gather": 0, "engine_gather2": 0, "engine_contract": 0,
+            "engine_scatter": 0}
+
+_MODES = {"plain": 0, "coeff": 1, "pair": 2}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+class EngineCellStiffness(NamedTuple):
+    """The engine operator in the kernel layout, on one device."""
+
+    G: torch.Tensor                  # (cells, 6, n^3), unit coefficients
+    D: torch.Tensor                  # (n, n) D[q, i] = l_i'(x_q)
+    dofmap: torch.Tensor             # (cells, n^3) int32: g = dofmap.ravel()
+    ndofs: int
+    pos: torch.Tensor                # (cells n^3,) int32 positions by dof
+    ptr: torch.Tensor                # (ndofs + 1,) int32 offsets into pos
+    coeff: torch.Tensor | None = None  # (cells,) per-cell coefficient
+    C: torch.Tensor | None = None    # (cells, 2) pair coefficients
+
+    @property
+    def P(self) -> int:
+        return self.D.shape[0] - 1
+
+    @property
+    def mode(self) -> str:
+        if self.C is not None:
+            return "pair"
+        return "plain" if self.coeff is None else "coeff"
+
+
+def inverse_map(dofmap: np.ndarray, ndofs: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """(pos, ptr): for each dof d, the positions p with g[p] == d in
+    ascending order, pos[ptr[d]:ptr[d + 1]] (int32 CSR), g =
+    dofmap.ravel()."""
+    g = np.asarray(dofmap).reshape(-1)
+    if g.size >= 2 ** 31:
+        raise ValueError(f"{g.size} positions: the engine's int32 inverse "
+                         "map holds fewer than 2^31")
+    pos = np.argsort(g, kind="stable").astype(np.int32)
+    ptr = np.zeros(ndofs + 1, np.int64)
+    np.cumsum(np.bincount(g, minlength=ndofs), out=ptr[1:])
+    return pos, ptr.astype(np.int32)
+
+
+def build(mesh, G_cells: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype,
+          device, coeff=None, pair=None) -> EngineCellStiffness:
+    """The operator on `device` from host float64 data: G_cells
+    (cells, n^3, 6) in mesh cell order; `coeff` (per-cell) stays a
+    separate per-cell coefficient; `pair` = (c1, c2) per-cell fields makes
+    a pair operator."""
+    cell_field = lambda c: np.broadcast_to(np.asarray(c, np.float64),
+                                           (mesh.num_cells,))
+    C = None
+    if pair is not None:
+        C = np.stack([cell_field(c) for c in pair], axis=1)
+    return from_host(mesh.dofmap, mesh.ndofs,
+                     np.ascontiguousarray(np.moveaxis(G_cells, 2, 1)), D_1d,
+                     dtype, device,
+                     coeff=None if coeff is None else cell_field(coeff), C=C)
+
+
+def from_host(dofmap: np.ndarray, ndofs: int, G: np.ndarray,
+              D_1d: np.ndarray, dtype: torch.dtype, device, coeff=None,
+              C=None) -> EngineCellStiffness:
+    """Upload kernel-layout host arrays (G (cells, 6, n^3), coeff (cells,),
+    C (cells, 2), in dofmap cell order) with the dofmap and its inverse
+    map."""
+    t = lambda a: None if a is None else torch.tensor(
+        np.asarray(a), dtype=dtype, device=device)
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                 device=device)
+    pos, ptr = inverse_map(dofmap, ndofs)
+    return EngineCellStiffness(G=t(G), D=t(D_1d), dofmap=i32(dofmap),
+                               ndofs=int(ndofs), pos=i32(pos), ptr=i32(ptr),
+                               coeff=t(coeff), C=t(C))
+
+
+def to_indexed(op: EngineCellStiffness, classes: tuple
+               ) -> ci.IndexedCellStiffness:
+    """The indexed kernel's operator on the same G, D, dofmap and C
+    buffers (unit coefficients or the pair form), with the dofmap's
+    scatter `classes` (``cuda_indexed.scatter_classes``)."""
+    if op.coeff is not None:
+        raise ValueError("the indexed kernel folds a coefficient into G")
+    cells, bounds = classes
+    return ci.IndexedCellStiffness(
+        G=op.G, D=op.D, dofmap=op.dofmap, ndofs=op.ndofs,
+        cells=torch.as_tensor(cells, device=op.G.device), bounds=bounds,
+        C=op.C)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: ``fustpu_torch.ops.engine`` on the same operator data
+# ---------------------------------------------------------------------------
+
+class PlainEngine(NamedTuple):
+    """The engine operator in the layout of ``fustpu_torch.ops.engine``."""
+
+    G6: torch.Tensor                 # (6, cells, n^3)
+    g: torch.Tensor                  # (cells n^3,) int64
+    D: torch.Tensor
+    coeff: torch.Tensor | None
+    c1: torch.Tensor | None
+    c2: torch.Tensor | None
+
+
+def to_plain(op: EngineCellStiffness) -> PlainEngine:
+    """The same numbers as `op` in the plain layout, on op's device."""
+    c1 = c2 = None
+    if op.C is not None:
+        c1, c2 = op.C[:, 0].contiguous(), op.C[:, 1].contiguous()
+    return PlainEngine(G6=op.G.permute(1, 0, 2).contiguous(),
+                       g=op.dofmap.reshape(-1).long(), D=op.D,
+                       coeff=op.coeff, c1=c1, c2=c2)
+
+
+def engine_plain(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of `engine`."""
+    p = to_plain(op)
+    return eng.stiffness_apply_engine(x, p.G6, p.coeff, p.g, p.D, op.ndofs)
+
+
+def engine_pair_plain(op: EngineCellStiffness, x1: torch.Tensor,
+                      x2: torch.Tensor) -> torch.Tensor:
+    """Plain version of `engine_pair`."""
+    p = to_plain(op)
+    return eng.stiffness_apply_engine_pair(x1, p.c1, x2, p.c2, p.G6, p.g,
+                                           p.D, op.ndofs)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
+           shape: tuple) -> None:
+    """Device, dtype, shape and contiguity of the inputs `xs` (each of
+    `shape`) and of the operator tensors the kernel `name` reads."""
+    x = xs[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} kernel: tensor on {x.device}, expected a "
+                         "CUDA device")
+    if x.dtype not in _SUFFIX:
+        raise ValueError(f"{name} kernel: dtype {x.dtype} unsupported "
+                         "(float32 or float64)")
+    if not 2 <= op.P <= 10:
+        raise ValueError(f"{name} kernel: degree {op.P} outside 2..10")
+    cells, nnn = op.dofmap.shape
+    need = [(t, shape, x.dtype, "input") for t in xs]
+    if name == "engine_contract":
+        need += [(op.G, (cells, 6, nnn), x.dtype, "G"),
+                 (op.D, (op.P + 1, op.P + 1), x.dtype, "D")]
+        if op.coeff is not None:
+            need.append((op.coeff, (cells,), x.dtype, "coeff"))
+        if op.C is not None:
+            need.append((op.C, (cells, 2), x.dtype, "C"))
+    elif name == "engine_scatter":
+        need += [(op.pos, (cells * nnn,), torch.int32, "pos"),
+                 (op.ptr, (op.ndofs + 1,), torch.int32, "ptr")]
+    else:
+        need.append((op.dofmap, (cells, nnn), torch.int32, "dofmap"))
+    for t, shp, dtype, what in need:
+        if t.device != x.device or t.dtype != dtype:
+            raise ValueError(f"{name} kernel: {what} is {t.dtype} on "
+                             f"{t.device}, expected {dtype} on {x.device}")
+        if tuple(t.shape) != tuple(shp):
+            raise ValueError(f"{name} kernel: {what} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shp)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {what} is not contiguous")
+
+
+def _launch(name: str, dtype: torch.dtype, device, *args) -> None:
+    from fustpu_torch import _build
+
+    fn = getattr(_build.load(), f"fustpu_{name}_{_SUFFIX[dtype]}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: error {err}")
+    launches[name] += 1
+
+
+def _positions(op: EngineCellStiffness) -> int:
+    return op.dofmap.numel()
+
+
+def gather(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
+    """u2 = x[g] as (cells, n^3) rows through `engine_gather` (the plain
+    version for a CPU tensor)."""
+    cells = op.dofmap.shape[0]
+    if x.device.type == "cpu":
+        return eng.gather(x, op.dofmap.reshape(-1).long()).reshape(cells, -1)
+    _check(op, "engine_gather", x, shape=(op.ndofs,))
+    out = torch.empty(op.dofmap.shape, dtype=x.dtype, device=x.device)
+    _launch("engine_gather", x.dtype, x.device, x.data_ptr(),
+            op.dofmap.data_ptr(), out.data_ptr(), _positions(op))
+    return out
+
+
+def gather2(op: EngineCellStiffness, x1: torch.Tensor, x2: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x1[g], x2[g]) in one pass through `engine_gather2`."""
+    cells = op.dofmap.shape[0]
+    if x1.device.type == "cpu":
+        u1, u2 = eng.gather2(x1, x2, op.dofmap.reshape(-1).long())
+        return u1.reshape(cells, -1), u2.reshape(cells, -1)
+    _check(op, "engine_gather2", x1, x2, shape=(op.ndofs,))
+    o1 = torch.empty(op.dofmap.shape, dtype=x1.dtype, device=x1.device)
+    o2 = torch.empty_like(o1)
+    _launch("engine_gather2", x1.dtype, x1.device, x1.data_ptr(),
+            x2.data_ptr(), op.dofmap.data_ptr(), o1.data_ptr(),
+            o2.data_ptr(), _positions(op))
+    return o1, o2
+
+
+def contract(op: EngineCellStiffness, u1: torch.Tensor,
+             u2: torch.Tensor | None = None) -> torch.Tensor:
+    """y2 = D3^T (c G . D3 u) on (cells, n^3) rows through
+    `engine_contract`: u = u1 with unit coefficients or op.coeff, or
+    u = c1 u1 + c2 u2 with op.C (the pair form)."""
+    mode = op.mode
+    if (u2 is not None) != (mode == "pair"):
+        raise ValueError(f"contract of a {mode} operator takes "
+                         f"{'two fields' if mode == 'pair' else 'one field'}")
+    if u1.device.type == "cpu":
+        p = to_plain(op)
+        if mode == "pair":
+            u1 = p.c1[:, None] * u1 + p.c2[:, None] * u2
+        return eng.dense_contract(u1, p.G6, p.D, p.coeff)
+    xs = (u1,) if u2 is None else (u1, u2)
+    _check(op, "engine_contract", *xs, shape=tuple(op.dofmap.shape))
+    y = torch.zeros(op.dofmap.shape, dtype=u1.dtype, device=u1.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    _launch("engine_contract", u1.dtype, u1.device, u1.data_ptr(), ptr(u2),
+            ptr(op.C), ptr(op.coeff), op.G.data_ptr(), op.D.data_ptr(),
+            y.data_ptr(), op.dofmap.shape[0], op.P, _MODES[mode])
+    return y
+
+
+def scatter(op: EngineCellStiffness, v: torch.Tensor) -> torch.Tensor:
+    """y[g[p]] += v[p] over zeros(ndofs) through `engine_scatter`: each
+    dof sums its positions in ascending order (the plain version for a CPU
+    tensor)."""
+    if v.device.type == "cpu":
+        return eng.scatter_add(v, op.dofmap.reshape(-1).long(), op.ndofs)
+    _check(op, "engine_scatter", v, shape=tuple(op.dofmap.shape))
+    y = torch.empty(op.ndofs, dtype=v.dtype, device=v.device)
+    _launch("engine_scatter", v.dtype, v.device, v.data_ptr(),
+            op.pos.data_ptr(), op.ptr.data_ptr(), y.data_ptr(), op.ndofs)
+    return y
+
+
+def engine(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
+    """y = A(x) on flat fields: gather, contract, scatter (three launches
+    on a CUDA tensor, the plain version on a CPU one)."""
+    return scatter(op, contract(op, gather(op, x)))
+
+
+def engine_pair(op: EngineCellStiffness, x1: torch.Tensor,
+                x2: torch.Tensor) -> torch.Tensor:
+    """y = A_c1(x1) + A_c2(x2) on flat fields: the two-field gather, the
+    pair contraction, the scatter."""
+    return scatter(op, contract(op, *gather2(op, x1, x2)))

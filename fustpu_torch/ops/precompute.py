@@ -5,9 +5,11 @@ G[c, q, :]  = w_q * |det J| * upper-tri( J^{-T} J^{-1} )   (xx,xy,xz,yy,yz,zz)
 detJ_f[f,q] = w_q * |t_s x t_t|   on boundary facets
 
 Quadrature points are the collocated GLL lattice, so q is also the local dof
-index.  Vendored from ``fustpu/ops/precompute.py``: the numpy path for
-trilinear cells and for isoparametric hex27 maps (curved imported cells;
-the mesh then carries ``geom_nodes``).  No native library.
+index.  Vendored from ``fustpu/ops/precompute.py``: trilinear cells and
+isoparametric hex27 maps (curved imported cells; the mesh then carries
+``geom_nodes``), in vectorised numpy with the arithmetic of the JAX
+package's native geometry (``native/fustpu_native.cpp``: cofactor
+determinant and inverse).  No native library.
 """
 
 from __future__ import annotations
@@ -86,42 +88,56 @@ class _CornerSubset:
 
 
 def cell_geometry_factors(mesh, dedup: bool = True):
-    """Returns (detJ, G) with detJ (cells, nq) and G (cells, nq, 6);
-    congruent cells (translation copies) are computed once and
+    """Returns (detJ, G) with detJ (cells, nq) and G (cells, nq, 6), for
+    the trilinear map or the hex27 map when the mesh carries geom_nodes;
+    congruent trilinear cells (translation copies) are computed once and
     broadcast."""
     elem = mesh.element
-    if getattr(mesh, "geom_nodes", None) is not None:
-        return _cell_geometry_curved(mesh)
-    corners = mesh.cell_corners_flat                 # (cells, 8, 3)
-    if dedup and corners.shape[0] > 4096:
-        grp = congruence_groups(corners)
+    gdofs, grads = _geom_dofs_grads(mesh, elem.quad_points)
+    curved = getattr(mesh, "geom_nodes", None) is not None
+    if dedup and not curved and gdofs.shape[0] > 4096:
+        grp = congruence_groups(gdofs)
         if grp is not None:
             inv, rep = grp
             dJ_u, G_u = cell_geometry_factors(
-                _CornerSubset(corners[rep], elem), dedup=False)
+                _CornerSubset(gdofs[rep], elem), dedup=False)
             return dJ_u[inv], G_u[inv]
-    _, grads = hex8_tabulate(elem.quad_points)       # (nq, 8, 3)
     wts = elem.quad_weights                          # (nq,)
-    nc, nq = corners.shape[0], wts.size
+    nc, nq = gdofs.shape[0], wts.size
     detJ = np.empty((nc, nq))
     G = np.empty((nc, nq, 6))
     for s in range(0, nc, _CHUNK):
         e = min(s + _CHUNK, nc)
-        J = _jacobians(corners[s:e], grads)          # (c, q, 3, 3)
-        det = np.linalg.det(J)
-        detJ[s:e] = np.abs(det) * wts
-        Jinv = np.linalg.inv(J)                      # J^{-1}[c,q,ref,phys]
-        # K[r, s] = sum_p (dxi_r/dx_p)(dxi_s/dx_p): the metric that maps
-        # reference gradients so that grad_x u . grad_x v = grad_xi u K grad_xi v.
-        K = np.einsum("cqrp,cqsp->cqrs", Jinv, Jinv, optimize=True)
-        G[s:e, :, 0] = K[..., 0, 0] * detJ[s:e]
-        G[s:e, :, 1] = K[..., 0, 1] * detJ[s:e]
-        G[s:e, :, 2] = K[..., 0, 2] * detJ[s:e]
-        G[s:e, :, 3] = K[..., 1, 1] * detJ[s:e]
-        G[s:e, :, 4] = K[..., 1, 2] * detJ[s:e]
-        G[s:e, :, 5] = K[..., 2, 2] * detJ[s:e]
-        del J, det, Jinv, K
+        detJ[s:e], G[s:e] = _metric(_jacobians(gdofs[s:e], grads), wts)
     return detJ, G
+
+
+def _metric(J: np.ndarray, wts: np.ndarray):
+    """(detJ, G) from the Jacobians J[c, q, phys, ref], elementwise, in the
+    JAX package's native geometry's arithmetic: det by cofactors,
+    J^{-1} = adj(J) / det, K = J^{-1} J^{-T} (K[r, s] = sum_p
+    (dxi_r/dx_p)(dxi_s/dx_p), the metric that maps reference gradients so
+    that grad_x u . grad_x v = grad_xi u K grad_xi v), G = w |det| K.
+    A batched LAPACK inverse of the same Jacobians takes ~5x longer."""
+    a = lambda p, r: J[..., p, r]
+    det = _det3(J)
+    sd = np.abs(det) * wts
+    idet = 1.0 / det
+    Ji = [[(a(1, 1) * a(2, 2) - a(1, 2) * a(2, 1)) * idet,
+           (a(0, 2) * a(2, 1) - a(0, 1) * a(2, 2)) * idet,
+           (a(0, 1) * a(1, 2) - a(0, 2) * a(1, 1)) * idet],
+          [(a(1, 2) * a(2, 0) - a(1, 0) * a(2, 2)) * idet,
+           (a(0, 0) * a(2, 2) - a(0, 2) * a(2, 0)) * idet,
+           (a(0, 2) * a(1, 0) - a(0, 0) * a(1, 2)) * idet],
+          [(a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0)) * idet,
+           (a(0, 1) * a(2, 0) - a(0, 0) * a(2, 1)) * idet,
+           (a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0)) * idet]]
+    G = np.empty(J.shape[:2] + (6,))
+    for m, (r, t) in enumerate([(0, 0), (0, 1), (0, 2), (1, 1), (1, 2),
+                                (2, 2)]):
+        G[..., m] = (Ji[r][0] * Ji[t][0] + Ji[r][1] * Ji[t][1]
+                     + Ji[r][2] * Ji[t][2]) * sd
+    return sd, G
 
 
 def _det3(J: np.ndarray) -> np.ndarray:
@@ -156,28 +172,6 @@ def cell_detJ(mesh, dedup: bool = True) -> np.ndarray:
         J = _jacobians(gdofs[s:e], grads)
         detJ[s:e] = np.abs(_det3(J)) * wts
     return detJ
-
-
-def _cell_geometry_curved(mesh):
-    """(detJ, G) for isoparametric (hex27) cells: chunked batched numpy,
-    the trilinear path's math with the quadratic map's Jacobians."""
-    elem = mesh.element
-    gdofs, grads = _geom_dofs_grads(mesh, elem.quad_points)
-    wts = elem.quad_weights
-    nc, nq = gdofs.shape[0], wts.size
-    detJ = np.empty((nc, nq))
-    G = np.empty((nc, nq, 6))
-    for s in range(0, nc, _CHUNK):
-        e = min(s + _CHUNK, nc)
-        J = np.einsum("cvp,qvr->cqpr", gdofs[s:e], grads, optimize=True)
-        detJ[s:e] = np.abs(_det3(J)) * wts
-        Jinv = np.linalg.inv(J)
-        K = np.einsum("cqrp,cqsp->cqrs", Jinv, Jinv, optimize=True)
-        for m, (r_, s_) in enumerate(
-                [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]):
-            G[s:e, :, m] = K[..., r_, s_] * detJ[s:e]
-        del J, Jinv, K
-    return detJ, G
 
 
 def facet_geometry_factors(mesh, boundary_data: np.ndarray) -> np.ndarray:

@@ -6,9 +6,11 @@ For the uniform and the two-layer Westervelt bowl runs at the flagship
 size (the `nonlinear_bowl` demo's models, --elements 64 --degree 4,
 float32), on the conformal mesh, on its .msh round trip (--geometry
 unstructured, the extruded kernels) and on the non-prismatic bodyfit
-bowl's round trip (--geometry bodyfit, the indexed kernels), and for the
+bowl's round trip (--geometry bodyfit, the indexed kernels), for the
 conformal and imported bowls again in the corner-streamed capacity mode
-(--stiffness-impl pallas_corner, the corner kernels), it prints:
+(--stiffness-impl pallas_corner, the corner kernels), and for the bodyfit
+bowls on the staged engine (--stiffness-impl indexed_engine, three kernels
+an apply), it prints:
   - ms per step without the profiler (CUDA events over STEPS steps);
   - ms per step under torch.profiler, and the device time per step split
     into the stiffness kernels, the other (elementwise) kernels and the
@@ -36,6 +38,7 @@ from fustpu_torch.demos import nonlinear_bowl
 
 FLAGSHIP = ["--elements", "64", "--degree", "4"]
 CORNER = ["--stiffness-impl", "pallas_corner"]
+ENGINE = ["--geometry", "bodyfit", "--stiffness-impl", "indexed_engine"]
 STEPS = 50
 COPY_GIB = 2.0
 
@@ -45,9 +48,9 @@ def summarize_trace(events: list[dict]) -> dict:
     `export_chrome_trace`): 'stiffness' (the CUDA stiffness kernels),
     'copies' (device memcpy / memset) and 'elementwise' (every other
     kernel); 'stiffness' holds the structured, extruded and indexed
-    kernels.  Returns {group: (microseconds, launches)} plus 'busy_us'
-    (the union of all device intervals) and 'span_us' (first start to last
-    end)."""
+    kernels and the staged engine's three.  Returns {group: (microseconds,
+    launches)} plus 'busy_us' (the union of all device intervals) and
+    'span_us' (first start to last end)."""
     groups = {"stiffness": [0.0, 0], "elementwise": [0.0, 0],
               "copies": [0.0, 0]}
     intervals = []
@@ -61,7 +64,10 @@ def summarize_trace(events: list[dict]) -> dict:
             g = "copies"
         elif any(k in e.get("name", "") for k in ("stiffness_kernel",
                                                   "extruded_kernel",
-                                                  "indexed_kernel")):
+                                                  "indexed_kernel",
+                                                  "engine_gather",
+                                                  "engine_contract",
+                                                  "engine_scatter")):
             g = "stiffness"
         else:
             g = "elementwise"
@@ -135,9 +141,10 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
     torch.cuda.synchronize()
     plain_ms = _ms_per_step(model, state, dt, steps)
 
+    mode = {"pallas_corner": " corner", "indexed_engine": " engine"}
     config = (f"{args.geometry} "
               f"{'two-layer' if args.two_layer else 'uniform'}"
-              f"{' corner' if args.stiffness_impl == 'pallas_corner' else ''}")
+              f"{mode.get(args.stiffness_impl, '')}")
     trace = trace_dir / f"trace_{config.replace(' ', '_')}.json"
     # one warm-up step of the profiler (two RK4 steps), then the active one
     with torch.profiler.profile(
@@ -201,7 +208,8 @@ def main() -> None:
                       CORNER, CORNER + ["--two-layer"],
                       CORNER + ["--geometry", "unstructured"],
                       CORNER + ["--geometry", "unstructured",
-                                "--two-layer"]):
+                                "--two-layer"],
+                      ENGINE, ENGINE + ["--two-layer"]):
             r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
             print(json.dumps(r), flush=True)
             print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "

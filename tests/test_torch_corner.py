@@ -492,13 +492,14 @@ def test_hex27_model_matches_g_stream():
 @pytest.mark.parametrize("kind", ["box", "curved"])
 def test_corner_model_never_builds_the_metric(monkeypatch, kind, two_layer):
     """A corner-mode Westervelt model on the box (trilinear) and on the
-    curved hex27 prism builds and steps without calling either host metric
-    builder (the mass diagonals take detJ alone)."""
+    curved hex27 prism builds and steps without calling the host metric
+    builder or its metric step, which both maps share (the mass diagonals
+    take detJ alone)."""
     def refuse(*args, **kwargs):
         raise AssertionError("the corner mode built the host metric")
 
     monkeypatch.setattr(pre, "cell_geometry_factors", refuse)
-    monkeypatch.setattr(pre, "_cell_geometry_curved", refuse)
+    monkeypatch.setattr(pre, "_metric", refuse)
     mesh = _port_mesh(None, kind, 3)
     zc = mesh.cell_corners_flat.mean(axis=1)[:, 2]
     second = zc > np.median(zc)

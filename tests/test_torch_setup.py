@@ -29,6 +29,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-14
+# the native library's formulas, its sums in another order
+NATIVE_TOL = 1e-15
 
 
 def rel(a, b):
@@ -57,6 +59,29 @@ def test_gll_rules_match(n):
     fx, fw = f_gll.gll_points_weights_unit(n)
     assert rel(x, fx) <= TOL and rel(w, fw) <= TOL
     assert rel(gll.derivative_matrix(n), f_gll.derivative_matrix(n)) <= TOL
+
+
+@pytest.mark.parametrize("kind", ["perturbed", "bowl"])
+def test_host_metric_is_the_native_geometry(kind):
+    """The port's metric takes the JAX package's native geometry's
+    arithmetic (cofactor determinant and inverse) and equals that path
+    within a few roundings; a mesh computes it once for every model built
+    on it."""
+    from fustpu import native_bindings
+
+    from fustpu_torch.models.discretization import Discretization
+
+    if not native_bindings.available():
+        pytest.skip("the JAX package's native library is not built")
+    mesh = _meshes()[kind]
+    elem = mesh.element
+    ndJ, nG = native_bindings.cell_geometry(
+        mesh.cell_corners_flat, elem.quad_points, elem.quad_weights)
+    dJ, G = pre.cell_geometry_factors(mesh, dedup=False)
+    assert rel(dJ, ndJ) <= NATIVE_TOL and rel(G, nG) <= NATIVE_TOL
+    a, b = Discretization(mesh), Discretization(mesh)
+    assert a._G_host is b._G_host is mesh.cell_metric
+    assert np.array_equal(mesh.cell_metric, G)
 
 
 @pytest.mark.parametrize("kind", ["perturbed", "bowl"])
@@ -109,7 +134,11 @@ def test_import_loads_neither_jax_nor_fustpu():
             "fustpu_torch.ops.indexed, fustpu_torch.ops.cuda_indexed, "
             "fustpu_torch.ops.corner, fustpu_torch.ops.cuda_corner, "
             "fustpu_torch.demos.capacity, "
-            "fustpu_torch.demos.capacity_imported; "
+            "fustpu_torch.demos.capacity_imported, "
+            "fustpu_torch.parallel.sharding, fustpu_torch.parallel.multihost, "
+            "fustpu_torch.parallel.models, fustpu_torch.parallel.extruded, "
+            "fustpu_torch.ops.engine, fustpu_torch.ops.cuda_engine, "
+            "fustpu_torch.demos.sharded_box; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fustpu' "
             "or m.startswith('fustpu.')]; print(bad); sys.exit(bool(bad))")

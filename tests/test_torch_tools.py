@@ -77,3 +77,30 @@ def test_stiffness_bytes_counts_the_corner_channels():
     field = mesh.ndofs * 4
     assert _stiffness_bytes(model.stiffness, mesh.ndofs) == \
         mesh.num_cells * 37 * 4 + 3 * field
+
+
+def test_summarize_trace_counts_the_engine_kernels():
+    """The staged engine's three kernels count as the stiffness group, and
+    an apply's minimum bytes are the indexed kernel's (G, dofmap, fields):
+    the engine's stream and inverse map are its own traffic, not the
+    function's."""
+    from fustpu_torch.mesh.box import build_box_mesh
+    from fustpu_torch.mesh.unstructured import from_box
+    from fustpu_torch.models.discretization import (Discretization,
+                                                    EngineStiffness)
+    from fustpu_torch.tools.profile_step import _stiffness_bytes
+
+    events = [
+        _ev("kernel", "void engine_gather<float, 1>", 0.0, 2.0),
+        _ev("kernel", "void engine_contract<float, 5, 0>", 2.0, 6.0),
+        _ev("kernel", "void engine_scatter<float>", 8.0, 2.0),
+        _ev("kernel", "vectorized_elementwise_kernel", 10.0, 1.0),
+    ]
+    s = summarize_trace(events)
+    assert s["stiffness"] == (10.0, 3)
+    assert s["elementwise"] == (1.0, 1)
+    mesh = from_box(build_box_mesh((3, 2, 2), 2), shuffle_seed=1)
+    op = Discretization(mesh).stiffness_op(torch.float32, "cpu", engine=True)
+    nnn = 27
+    assert _stiffness_bytes(EngineStiffness(op, "cuda"), mesh.ndofs) == \
+        mesh.num_cells * (6 * nnn * 4 + nnn * 4) + 3 * mesh.ndofs * 4
