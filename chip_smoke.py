@@ -86,12 +86,27 @@ Phases (each prints its time; any failure exits non-zero):
      and the probe traces), with ms/step, the exchange's ms per stage and
      every rank's launches of each of its kernels.  Each model is saved for
      the ranks, and run alone for the reference, where the script builds
-     it.
+     it;
+ 23. the two-slab kernels (slab2: adjacent slab pairs, slab2w: far pairs)
+     against their plain versions at P = 2..10 on the boxes (4, 3, 2),
+     (5, 2, 3) (odd ncx) and (2, 3, 3) (one pair), each with and without a
+     coefficient, float64 and float32, and against the single-slab kernel
+     on the same buffers (run right after phase 20);
+ 24. the exp_slab2w demo at P = 4, 32^3, float32: the production kernel,
+     slab2 and slab2w per apply, each against its plain version;
+ 25. the exp_kernel_anatomy demo at P = 4, 32^3, float32: the production
+     kernel and its gstream, contract and ywin variants, each against its
+     plain version, ywin against the production kernel;
+ 26. the exp_g_layout demo (the (32, 5, 6, 160, 160) float32 G summed in
+     the per-cell and the component-major layout) and the
+     exp_mosaic_relayout demo (128 tiles of (8192, 1) float32, four
+     permutations, bitwise), each kernel against its plain version, with
+     one PyTorch call's time beside it (einsum; clone, transpose).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
-17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, and in every rank of 22
-its solve) has the launch counters reset just before it and read just
-after.  The line before the last is the kernels' JSON summary; the last
-line is the result.
+17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, in every rank of 22 its
+solve, and the demos of 24, 25 and 26) has the launch counters reset just
+before it and read just after.  The line before the last is the kernels'
+JSON summary; the last line is the result.
 """
 
 from __future__ import annotations
@@ -111,8 +126,9 @@ ROOT = Path(__file__).resolve().parent
 PAIR_DEGREES = (2, 4, 6)
 F64_TOL = 1e-12
 # float32 kernel vs the float64 plain version: one apply rounds each of its
-# ~3N products per node once, relative error ~1e-7 (measured) well inside
-F32_TOL = 1e-5
+# ~3N products per node once, relative error ~1e-7 (measured, at worst
+# 1.9e-7), inside the JAX package's own float32 operator gate of 1e-6
+F32_TOL = 1e-6
 # 10 RK4 steps (40 applies plus the float32 RK updates) of the kernel vs the
 # plain float32 version: the two differ only in float32 summation order,
 # ~1e-7 per apply, which the explicit, stable steps carry forward without
@@ -167,18 +183,12 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of one call, CUDA events over `reps` calls after a
-    warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean device time of one call in ms, CUDA events over `reps` calls
+    after a warm-up (`benchmarks.time_apply`, one run)."""
+    from fustpu_torch.utils.benchmarks import time_apply
+
+    return time_apply(lambda _, __: fn(), None, None, chain=reps,
+                      reps=1)[0] * 1e3
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
@@ -272,6 +282,8 @@ def main() -> None:
     from fustpu_torch import _build
     from fustpu_torch.demos import (capacity, capacity_imported, linear_box,
                                     linear_piston, nonlinear_bowl)
+    from fustpu_torch.demos import (exp_g_layout, exp_kernel_anatomy,
+                                    exp_mosaic_relayout, exp_slab2w)
     from fustpu_torch.demos.common import run_demo
     from fustpu_torch.mesh import msh_io, shapes
     from fustpu_torch.mesh.box import build_box_mesh
@@ -289,9 +301,13 @@ def main() -> None:
     from fustpu_torch.ops import cuda_engine as cen
     from fustpu_torch.ops import cuda_extruded as ce
     from fustpu_torch.ops import cuda_indexed as ci
+    from fustpu_torch.ops import anatomy
+    from fustpu_torch.ops import cuda_slab2
     from fustpu_torch.ops import cuda_stiffness as cs
     from fustpu_torch.ops import engine as eng
     from fustpu_torch.ops import precompute as pre
+    from fustpu_torch.ops import probes
+    from fustpu_torch.ops import slab2
     from fustpu_torch.ops import spectral_mm as mm
     from fustpu_torch.parallel import multihost
     from fustpu_torch.utils.eval import PointSampler
@@ -722,6 +738,56 @@ def main() -> None:
         if not all(cen.launches.values()):
             fail("an engine kernel's launch counter did not move")
 
+    with phase("23 slab2 and slab2w kernels vs plain, P=2..10"):
+        worst = {"f64": 0.0, "f32": 0.0, "single": 0.0}
+        cuda_slab2.reset_launches()
+        for P in range(2, 11):
+            for nc in ((4, 3, 2), (5, 2, 3), (2, 3, 3)):
+                mesh = build_box_mesh(nc, P, perturb=0.12, seed=5)
+                _, Gh = pre.cell_geometry_factors(mesh)
+                D = mesh.element.deriv_1d
+                x = torch.as_tensor(rng.standard_normal(mesh.grid_shape),
+                                    device=dev)
+                errs = {}
+                for coeff in (None, rng.uniform(0.5, 2.0, nc)):
+                    for far in (False, True):
+                        build, plain, kernel = (
+                            (slab2.build_slab2w, slab2.slab2w_plain,
+                             cuda_slab2.slab2w) if far else
+                            (slab2.build_slab2, slab2.slab2_plain,
+                             cuda_slab2.slab2))
+                        o64 = build(nc, P, D, Gh, torch.float64, coeff=coeff,
+                                    device=dev)
+                        o32 = build(nc, P, D, Gh, torch.float32, coeff=coeff,
+                                    device=dev)
+                        ref = plain(o64, x)
+                        y = kernel(o64, x)
+                        e = {"f64": rel_l2(y, ref),
+                             "f32": rel_l2(kernel(o32, x.float()), ref),
+                             # the single-slab kernel on the same buffers
+                             "single": rel_l2(y, cs.stiffness(o64.cell_op,
+                                                              x))}
+                        label = (f"{'slab2w' if far else 'slab2'}"
+                                 f"{'+coeff' if coeff is not None else ''}")
+                        errs[label] = e
+                        for key, v in e.items():
+                            worst[key] = max(worst[key], v)
+                            tol = F32_TOL if key == "f32" else F64_TOL
+                            if not v <= tol:
+                                fail(f"P={P} {nc} {label}: {key} {v:.3e} > "
+                                     f"{tol}")
+                torch.cuda.synchronize()
+                print(f"   P={P:2d} {nc} classes "
+                      f"{len(o64.bounds) - 1}: " + "; ".join(
+                          f"{k} " + " ".join(f"{v:.2e}" for v in e.values())
+                          for k, e in errs.items()), flush=True)
+        print(f"   worst rel-l2: f64 {worst['f64']:.3e} (tol {F64_TOL}), f32 "
+              f"{worst['f32']:.3e} (tol {F32_TOL}), against the single-slab "
+              f"kernel {worst['single']:.3e}; launches "
+              f"{dict(cuda_slab2.launches)}")
+        if not all(cuda_slab2.launches.values()):
+            fail("a slab2 kernel's launch counter did not move")
+
     with phase("4 operator throughput, P=4 32^3 f32"):
         mesh = build_box_mesh((32, 32, 32), 4)
         disc = Discretization(mesh)
@@ -742,6 +808,116 @@ def main() -> None:
         if not err <= F32_TOL:
             fail(f"32^3 kernel vs plain {err:.3e} > {F32_TOL}")
         del op, plain_op, diag, x, disc
+
+    # ---- the experiment demos, the path of kernels #4, #5 and #12-#14:
+    # ---- counters reset just before each, read just after ----
+    demo_kernels, demo_launches = {}, {}
+
+    def demo_entry(name, yk, yp, ms, plain, cost, library=None):
+        """A kernel row from a demo run: its output against its plain
+        version's, its time there, the plain version's and the library
+        call's timed here."""
+        err = rel_l2(yk, yp)
+        if not err <= F32_TOL:
+            fail(f"{name}: kernel vs plain {err:.3e} > {F32_TOL}")
+        demo_kernels[name] = dict(
+            max_abs_err=float((yk.double() - yp.double()).abs().max()),
+            rel_l2=err, ms=ms, plain_ms=time_ms(plain, 3), cost=cost,
+            library_ms=None if library is None else time_ms(library, 20))
+        print(f"   {smi}: {name}: {demo_kernels[name]}", flush=True)
+
+    with phase("24 exp_slab2w at P=4, 32^3, f32: #1, slab2 and slab2w"):
+        cuda_slab2.reset_launches()
+        out = exp_slab2w.main(["f32", "4", "32"])
+        torch.cuda.synchronize()
+        demo_launches.update(cuda_slab2.launches)
+        print(f"   launches in the demo: {dict(cuda_slab2.launches)}")
+        if not all(cuda_slab2.launches.values()):
+            fail("a slab2 kernel was not launched by the demo")
+        x = out["x"]
+        for name, plain in (("slab2", slab2.slab2_plain),
+                            ("slab2w", slab2.slab2w_plain)):
+            op = out["ops"][name]
+            if not out["rel"][name] <= F32_TOL:
+                fail(f"{name} vs the production kernel {out['rel'][name]:.3e}")
+            demo_entry(name, out["ys"][name], plain(op, x),
+                       out["times"][name][0] * 1e3,
+                       lambda: plain(op, x),
+                       apply_cost(op.G, out["mesh"].ndofs, 1))
+        del out, x, op
+
+    with phase("25 exp_kernel_anatomy at P=4, 32^3, f32"):
+        anatomy.reset_launches()
+        cs.reset_launches()
+        out = exp_kernel_anatomy.main([])
+        torch.cuda.synchronize()
+        demo_launches.update(anatomy.launches)
+        print(f"   launches in the demo: {dict(anatomy.launches)}, "
+              f"stiffness (full) {cs.launches['stiffness']}")
+        if not all(anatomy.launches.values()) or not cs.launches["stiffness"]:
+            fail("an anatomy kernel was not launched by the demo")
+        op, x, outs = out["op"], out["x"], out["outs"]
+        err = rel_l2(outs["ywin"], outs["full"])
+        print(f"   ywin vs the production kernel: rel-l2 {err:.3e}")
+        if not err <= F32_TOL:
+            fail(f"ywin vs the production kernel {err:.3e}")
+        cells, _, nnn = op.G.shape
+        n, ndofs, b = op.P + 1, out["mesh"].ndofs, op.G.element_size()
+        costs = {
+            # G, x and y once; per node the metric (15), the sum (2), the add
+            "gstream": (apply_cost(op.G, ndofs, 1)[0], cells * nnn * 18),
+            # x and y only; per node 2 of the 3 derivative pairs and the add
+            "contract": (3 * ndofs * b, cells * nnn * (8 * n + 1)),
+            "ywin": apply_cost(op.G, ndofs, 1)}
+        for name in ("full", "gstream", "contract", "ywin"):
+            e = rel_l2(outs[name], out["plains"][name])
+            print(f"   {name} vs its plain version: rel-l2 {e:.3e}")
+            if name == "full":
+                if not e <= F32_TOL:
+                    fail(f"anatomy full vs plain {e:.3e}")
+                continue
+            demo_entry(f"anatomy_{name}", outs[name], out["plains"][name],
+                       out["times"][name][0] * 1e3,
+                       lambda name=name: anatomy.variant_plain(op, x, name),
+                       costs[name])
+        del out, op, x, outs
+
+    with phase("26 exp_g_layout and exp_mosaic_relayout (f32)"):
+        probes.reset_launches()
+        g = exp_g_layout.main([])
+        r = exp_mosaic_relayout.main([])
+        torch.cuda.synchronize()
+        demo_launches.update(probes.launches)
+        print(f"   launches in the demos: {dict(probes.launches)}")
+        if not all(probes.launches.values()):
+            fail("a probe kernel was not launched by its demo")
+        w = torch.arange(1, 7, dtype=torch.float32, device=dev)
+        for layout in probes.LAYOUTS:
+            Ga, c = g["G"][layout], g["c"]
+            view = probes.cells_view(Ga, g["nc"], layout)
+            demo_entry(
+                f"g_layout_{layout}", g["outs"][layout], g["plains"][layout],
+                g["times"][layout][0] * 1e3,
+                lambda Ga=Ga, layout=layout: probes.g_weighted_sum_plain(
+                    Ga, c, g["nc"], layout),
+                (Ga.numel() * 4 + 2 * c.numel() * 4, 2 * Ga.numel()),
+                library=lambda view=view: torch.einsum("abcmijk,m->bjck",
+                                                       view, w))
+        x = r["x"]
+        for kind in probes.KINDS:
+            if not torch.equal(r["outs"][kind], r["plains"][kind]):
+                fail(f"relayout {kind}: not bitwise the plain version's")
+        for kind, library in (
+                ("copy", lambda: x.clone()),
+                ("transpose", lambda: x.reshape(-1, 64, 128).transpose(
+                    1, 2).contiguous())):
+            demo_entry(f"relayout_{kind}", r["outs"][kind],
+                       r["plains"][kind], r["times"][kind][0] * 1e3,
+                       lambda kind=kind: probes.relayout_plain(x, kind),
+                       (2 * x.numel() * 4, 0), library=library)
+        print(f"   device bytes of (2^20, 1) f32 {r['bytes']['column']:,}, "
+              f"of (2^13, 128) f32 {r['bytes']['packed']:,}")
+        del g, r, x
 
     with phase("5 linear box demo (default size)"):
         model, state = linear_box.main(["--device", "cuda"])
@@ -779,9 +955,9 @@ def main() -> None:
         del yk, yp
         # 10 RK4 steps from the same state: kernel, then plain
         s0 = bowl.init_state()
-        sk = bowl.solve(s0, dt, 10)
+        sk, _ = bowl.solve(s0, dt, 10)
         bowl.stiffness = pstiff
-        sp = bowl.solve(s0, dt, 10)
+        sp, _ = bowl.solve(s0, dt, 10)
         bowl.stiffness = kstiff
         del pstiff
         traj = rel_l2(sk.u, sp.u)
@@ -840,7 +1016,7 @@ def main() -> None:
             fail(f"focal pressure {p_focus:.1f} Pa outside {FOCAL_BAND_PA}")
         del state
     with phase("7b two-layer flagship, 50 steps (pair kernel)"):
-        s2 = bowl2.solve(bowl2.init_state(), dt2, 50)
+        s2, _ = bowl2.solve(bowl2.init_state(), dt2, 50)
         torch.cuda.synchronize()
         n_pair = cs.launches["stiffness_pair"]
         print(f"   pair launches {n_pair}, max |u| "
@@ -907,8 +1083,8 @@ def main() -> None:
         print(f"   per apply: corner kernel {kernels['corner']['ms']:.4f} "
               f"ms, G-stream kernel {kernels['stiffness']['ms']:.4f} ms "
               f"({smi})")
-        sc = cbowl.solve(cbowl.init_state(), dt, 10)
-        sg = bowl.solve(bowl.init_state(), dt, 10)
+        sc, _ = cbowl.solve(cbowl.init_state(), dt, 10)
+        sg, _ = bowl.solve(bowl.init_state(), dt, 10)
         traj = rel_l2(sc.u, sg.u)
         print(f"   10 steps corner vs G-stream model: rel-l2(u) {traj:.3e} "
               f"(tol {TRAJ_TOL})")
@@ -952,7 +1128,7 @@ def main() -> None:
     cc.reset_launches()
     with phase("17c two-layer flagship in corner mode, 50 steps (corner pair "
                "kernel)"):
-        s10 = cbowl2.solve(cbowl2.init_state(), dt10, 50)
+        s10, _ = cbowl2.solve(cbowl2.init_state(), dt10, 50)
         torch.cuda.synchronize()
         n_corner_pair = cc.launches["corner_pair"]
         print(f"   corner pair launches {n_corner_pair}, max |u| "
@@ -1017,9 +1193,9 @@ def main() -> None:
               f"{kernels['extruded']}")
         del yk, yp
         s0 = ibowl.init_state()
-        sk = ibowl.solve(s0, dt3, 10)
+        sk, _ = ibowl.solve(s0, dt3, 10)
         ibowl.stiffness = pst3
-        sp = ibowl.solve(s0, dt3, 10)
+        sp, _ = ibowl.solve(s0, dt3, 10)
         ibowl.stiffness = kst3
         del pst3
         traj = rel_l2(sk.u, sp.u)
@@ -1076,8 +1252,8 @@ def main() -> None:
                 g_module=kst3)
         if (dt11, nsteps11) != (dt3, nsteps3):
             fail(f"imported corner steps {dt11}, {nsteps11}")
-        sc = cibowl.solve(cibowl.init_state(), dt3, 10)
-        sg = ibowl.solve(ibowl.init_state(), dt3, 10)
+        sc, _ = cibowl.solve(cibowl.init_state(), dt3, 10)
+        sg, _ = ibowl.solve(ibowl.init_state(), dt3, 10)
         traj = rel_l2(sc.u, sg.u)
         print(f"   10 steps corner vs G-stream model: rel-l2(u) {traj:.3e} "
               f"(tol {TRAJ_TOL})")
@@ -1113,7 +1289,7 @@ def main() -> None:
     cc.reset_launches()
     with phase("18c two-layer imported bowl in corner mode, 50 steps "
                "(extruded corner pair kernel)"):
-        s12 = cibowl2.solve(cibowl2.init_state(), dt12, 50)
+        s12, _ = cibowl2.solve(cibowl2.init_state(), dt12, 50)
         torch.cuda.synchronize()
         n_ext_corner_pair = cc.launches["extruded_corner_pair"]
         print(f"   extruded corner pair launches {n_ext_corner_pair}, max "
@@ -1170,7 +1346,7 @@ def main() -> None:
     cc.reset_launches()
     with phase("18e two-layer imported bowl as hex27, 50 steps (hex27 "
                "corner pair kernel)"):
-        s14 = hbowl2.solve(hbowl2.init_state(), dt14, 50)
+        s14, _ = hbowl2.solve(hbowl2.init_state(), dt14, 50)
         torch.cuda.synchronize()
         n_hex27_pair = cc.launches["extruded_corner_hex27_pair"]
         print(f"   hex27 corner pair launches {n_hex27_pair}, max |u| "
@@ -1218,7 +1394,7 @@ def main() -> None:
 
     ce.reset_launches()
     with phase("11b two-layer imported bowl, 50 steps (pair kernel)"):
-        s4 = ibowl2.solve(ibowl2.init_state(), dt4, 50)
+        s4, _ = ibowl2.solve(ibowl2.init_state(), dt4, 50)
         torch.cuda.synchronize()
         n_ext_pair = ce.launches["extruded_pair"]
         print(f"   extruded pair launches {n_ext_pair}, max |u| "
@@ -1362,9 +1538,9 @@ def main() -> None:
         version."""
         kst = model.stiffness
         s0 = model.init_state()
-        sk = model.solve(s0, dt, 10)
+        sk, _ = model.solve(s0, dt, 10)
         model.stiffness = pst
-        sp = model.solve(s0, dt, 10)
+        sp, _ = model.solve(s0, dt, 10)
         model.stiffness = kst
         traj = rel_l2(sk.u, sp.u)
         print(f"   10 steps kernel vs plain: rel-l2(u) {traj:.3e} "
@@ -1434,7 +1610,8 @@ def main() -> None:
             fail("bodyfit engine model: not the engine kernels on the card")
         kernels.update(engine_kernels(ebowl, kst5, "bodyfit bowl"))
         s0 = bbowl.init_state()
-        traj = rel_l2(ebowl.solve(s0, dt5, 10).u, bbowl.solve(s0, dt5, 10).u)
+        traj = rel_l2(ebowl.solve(s0, dt5, 10)[0].u,
+                      bbowl.solve(s0, dt5, 10)[0].u)
         print(f"   10 steps engine vs indexed model: rel-l2(u) {traj:.3e} "
               f"(tol {TRAJ_TOL})")
         if not traj <= TRAJ_TOL:
@@ -1477,7 +1654,7 @@ def main() -> None:
         del pst6
     ci.reset_launches()
     with phase("14b two-layer bodyfit bowl, 50 steps (indexed pair kernel)"):
-        s6 = bbowl2.solve(bbowl2.init_state(), dt6, 50)
+        s6, _ = bbowl2.solve(bbowl2.init_state(), dt6, 50)
         torch.cuda.synchronize()
         n_idx_pair = ci.launches["indexed_pair"]
         print(f"   indexed pair launches {n_idx_pair}, max |u| "
@@ -1504,7 +1681,7 @@ def main() -> None:
     cen.reset_launches()
     with phase("21c two-layer bodyfit bowl on the engine, 50 steps "
                "(gather2)"):
-        s16 = ebowl2.solve(ebowl2.init_state(), dt16, 50)
+        s16, _ = ebowl2.solve(ebowl2.init_state(), dt16, 50)
         torch.cuda.synchronize()
         n_eng2 = dict(cen.launches)
         traj = rel_l2(s16.u, s6.u)
@@ -1532,7 +1709,7 @@ def main() -> None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        s7 = bbowl7.solve(bbowl7.init_state(), dt7, 50)
+        s7, _ = bbowl7.solve(bbowl7.init_state(), dt7, 50)
         end.record()
         end.synchronize()
         n_idx7 = ci.launches["indexed"]
@@ -1559,7 +1736,7 @@ def main() -> None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        s17 = ebowl7.solve(ebowl7.init_state(), dt7, 50)
+        s17, _ = ebowl7.solve(ebowl7.init_state(), dt7, 50)
         end.record()
         end.synchronize()
         n_eng7 = dict(cen.launches)
@@ -1667,6 +1844,8 @@ def main() -> None:
             capacity_imported, ["--nz", "30", "--steps", "10"],
             "capacity cylinder (nz 30)", "extruded_corner")
     launches.update(corner_launches)
+    launches.update(demo_launches)
+    kernels.update(demo_kernels)
 
     meta = {
         "stiffness": ("fustpu_torch/csrc/stiffness.cu",
@@ -1703,7 +1882,20 @@ def main() -> None:
         "engine_scatter": ("fustpu_torch/csrc/engine.cu",
                            "fustpu/ops/pallas_gather.py:610"),
         "engine": ("fustpu_torch/csrc/engine.cu",
-                   "fustpu/ops/operators.py:290")}
+                   "fustpu/ops/operators.py:290"),
+        "slab2": ("fustpu_torch/csrc/slab2.cu",
+                  "fustpu/ops/pallas_stiffness.py:314"),
+        "slab2w": ("fustpu_torch/csrc/slab2.cu",
+                   "fustpu/ops/pallas_stiffness.py:528"),
+        **{f"anatomy_{v}": ("fustpu_torch/csrc/anatomy.cu",
+                            "demos/exp_kernel_anatomy.py:34")
+           for v in ("gstream", "contract", "ywin")},
+        **{f"g_layout_{v}": ("fustpu_torch/csrc/probes.cu",
+                             "demos/exp_g_layout.py:24")
+           for v in probes.LAYOUTS},
+        **{f"relayout_{v}": ("fustpu_torch/csrc/probes.cu",
+                             "demos/exp_mosaic_relayout.py:38")
+           for v in ("copy", "transpose")}}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name]

@@ -146,6 +146,20 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fustpu_engine_scatter_{suffix}")
         fn.argtypes = [p, p, p, p, ll, p]
         fn.restype = i
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"fustpu_slab2_{suffix}")
+        fn.argtypes = [p, p, p, p, p, i, p, i, i, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_anatomy_{suffix}")
+        fn.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_g_layout_{suffix}")
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
+    lib.fustpu_relayout_copy.argtypes = [p, p, ll, p]
+    lib.fustpu_relayout_copy.restype = i
+    lib.fustpu_relayout_transpose.argtypes = [p, p, i, i, i, i, p]
+    lib.fustpu_relayout_transpose.restype = i
     for kind in ("extruded_corner", "extruded_corner_hex27"):
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"fustpu_{kind}_{suffix}")

@@ -25,6 +25,12 @@ leaves) and never see a JAX object.
   them; ``PallasExtrudedCorner``: the identity-padded T
   (nch+1, ns_pad, nz) and ce (2, ns_pad, ez)), and returns the port's
   (cells, nch+1) channels and pair coefficients.
+- `slab2_from_fustpu` / `slab2w_from_fustpu` accept the arrays of the
+  experimental two-slab operators (``PallasStiffness2``: G2
+  (ncx2, n, 6, ey, 2, ezp), lane-padded halves; ``PallasStiffness2W``: G2
+  (ncx2, n, 6, ey, 2 ez), slab i beside slab ncx2 + i; both with
+  ``statics`` (D, ncx, ez) and a zero-G ghost slab for odd ncx) and return
+  the port's ``ops.slab2.Slab2Stiffness``.
 - `model_from_fustpu` builds a port model whose buffers are a JAX model's
   ``params`` (no host assembly) and moves an ``RKState`` across; an indexed
   model's params can build the port's staged engine
@@ -50,6 +56,7 @@ from fustpu_torch.ops import cuda_engine as cen
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
+from fustpu_torch.ops import slab2 as s2
 
 
 class HostStiffness(NamedTuple):
@@ -243,6 +250,40 @@ def stiffness_from_fustpu(G, nc, *, D=None, Dt=None, D3p=None, C=None,
                       _cells_from_expanded(c2_e, n)], axis=1)
     return HostStiffness(G=Gc, D=np.asarray(D, np.float64), coeff=coeff,
                          C=C)
+
+
+def _slab2_from_slabs(Gs: np.ndarray, statics, dtype, device,
+                      far: bool) -> s2.Slab2Stiffness:
+    """Gs: (slabs, n, 6, ey, ez or more) per-slab G, the ghost slab and lane
+    padding included."""
+    D, ncx, ez = statics
+    n = Gs.shape[1]
+    ncy, ncz = Gs.shape[3] // n, ez // n
+    D = np.asarray(D, np.float64)
+    G = stiffness_from_fustpu(Gs[:ncx, ..., :ez], (ncx, ncy, ncz), D=D).G
+    return s2.from_host((ncx, ncy, ncz), G, D, dtype, device, far)
+
+
+def slab2_from_fustpu(G2, statics, dtype: torch.dtype = torch.float64,
+                      device="cuda") -> s2.Slab2Stiffness:
+    """The port's adjacent-paired operator from a PallasStiffness2's G2
+    (ncx2, n, 6, ey, 2, ezp) and statics (D, ncx, ez): the two lane halves
+    are slabs 2q and 2q + 1."""
+    G2 = np.asarray(G2, np.float64)
+    ncx2, n, _, ey, _, ezp = G2.shape
+    Gs = G2.transpose(0, 4, 1, 2, 3, 5).reshape(2 * ncx2, n, 6, ey, ezp)
+    return _slab2_from_slabs(Gs, statics, dtype, device, far=False)
+
+
+def slab2w_from_fustpu(G2, statics, dtype: torch.dtype = torch.float64,
+                       device="cuda") -> s2.Slab2Stiffness:
+    """The port's far-paired operator from a PallasStiffness2W's G2
+    (ncx2, n, 6, ey, 2 ez) and statics (D, ncx, ez): lanes [0, ez) hold
+    slab i, lanes [ez, 2 ez) slab ncx2 + i."""
+    G2 = np.asarray(G2, np.float64)
+    ez = statics[2]
+    Gs = np.concatenate([G2[..., :ez], G2[..., ez:]], axis=0)
+    return _slab2_from_slabs(Gs, statics, dtype, device, far=True)
 
 
 def state_from_fustpu(state, dtype: torch.dtype, device) -> RKState:

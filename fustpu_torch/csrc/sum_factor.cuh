@@ -55,15 +55,31 @@ struct GStream {
   }
 };
 
-// Must be reached by every thread of the block (it synchronises twice);
-// threads of an inactive cell slot (`active` false) touch no memory.
-// Ds: D[q * N + i] = l_i'(x_q) in shared memory; metric: the cell's c G
-// (GStream or Corner); u, f1, f2: the cell's N^3 shared scratch arrays.
-template <typename T, int N, bool PAIR, typename Metric, typename Line>
+// What cell_apply computes (a template flag; the production kernels take
+// FULL, the variants of anatomy.cu the others):
+//   FULL       the operator above;
+//   STAGED     the same, with u already holding the cell's x (the caller
+//              copied it into shared memory; PAIR false);
+//   POINTWISE  the x load, the metric and the scatter only: the 1-D
+//              contractions become the identity, w = (u, u, u), and the
+//              metric's three outputs are summed into the node.
+enum Body { FULL = 0, STAGED = 1, POINTWISE = 2 };
+
+// Must be reached by every thread of the block (it synchronises twice, or
+// not at all for POINTWISE); threads of an inactive cell slot (`active`
+// false) touch no memory.  Ds: D[q * N + i] = l_i'(x_q) in shared memory;
+// metric: the cell's c G (GStream or Corner); u, f1, f2: the cell's N^3
+// shared scratch arrays.  turn >= 0: the block's cells share nodes, so
+// their adds into y run in `turns` turns, with a barrier between turns;
+// this thread's cell adds in turn `turn` (the two cells of a slab pair,
+// slab2.cu).  turn < 0: each thread adds as soon as its sum is ready.
+template <typename T, int N, bool PAIR, int BODY = FULL, typename Metric,
+          typename Line>
 __device__ __forceinline__ void cell_apply(
     const T* __restrict__ x1, const T* __restrict__ x2, T c1, T c2,
     const Metric& metric, const T* Ds, T* u, T* f1, T* f2,
-    T* __restrict__ y, bool active, const Line& line) {
+    T* __restrict__ y, bool active, const Line& line, int turn = -1,
+    int turns = 1) {
   constexpr int NN = N * N;
   const int t = threadIdx.x;
   const int j = t / N, k = t % N;
@@ -72,11 +88,26 @@ __device__ __forceinline__ void cell_apply(
   if (active) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      T v = x1[line(i)];
-      if (PAIR) v = c1 * v + c2 * x2[line(i)];
-      ul[i] = v;
-      u[i * NN + t] = v;
+      if constexpr (BODY == STAGED) {
+        ul[i] = u[i * NN + t];
+      } else {
+        T v = x1[line(i)];
+        if (PAIR) v = c1 * v + c2 * x2[line(i)];
+        ul[i] = v;
+        if constexpr (BODY == FULL) u[i * NN + t] = v;
+      }
     }
+  }
+  if constexpr (BODY == POINTWISE) {
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        T a, b, c;
+        metric(i, i * NN + t, ul[i], ul[i], ul[i], a, b, c);
+        y[line(i)] += a + b + c;
+      }
+    }
+    return;
   }
   __syncthreads();
 
@@ -101,17 +132,30 @@ __device__ __forceinline__ void cell_apply(
   }
   __syncthreads();
 
+  T acc[N];                        // this line's sums, when added in turns
   if (active) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      T acc = T(0);
+      T s = T(0);
 #pragma unroll
       for (int r = 0; r < N; ++r) {
-        acc += Ds[r * N + i] * f0[r];
-        acc += Ds[r * N + j] * f1[i * NN + r * N + k];
-        acc += Ds[r * N + k] * f2[i * NN + j * N + r];
+        s += Ds[r * N + i] * f0[r];
+        s += Ds[r * N + j] * f1[i * NN + r * N + k];
+        s += Ds[r * N + k] * f2[i * NN + j * N + r];
       }
-      y[line(i)] += acc;
+      if (turn < 0)
+        y[line(i)] += s;
+      else
+        acc[i] = s;
+    }
+  }
+  if (turn >= 0) {
+    for (int s = 0; s < turns; ++s) {
+      if (s > 0) __syncthreads();  // the earlier turn's adds are visible
+      if (active && s == turn) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) y[line(i)] += acc[i];
+      }
     }
   }
 }

@@ -69,11 +69,11 @@ def timed_run(model, dt: float, steps: int):
     bytes or None on the CPU, stiffness kernel launches in the timed
     solve)."""
     cuda = model.device.type == "cuda"
-    state = model.solve(model.init_state(), dt, steps)
+    state, _ = model.solve(model.init_state(), dt, steps)
     kernel = model.stiffness_kernel
     before = launch_counts().get(kernel, 0)
     with Timer(model.device) as tm:
-        state = model.solve(state, dt, steps)
+        state, _ = model.solve(state, dt, steps)
     ms = tm.seconds / steps * 1e3
     launches = launch_counts().get(kernel, 0) - before
     peak = torch.cuda.max_memory_allocated(model.device) if cuda else None

@@ -61,6 +61,22 @@ def check_device(args) -> None:
                          "(use --device cpu for the plain torch path)")
 
 
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative l2 distance of a from b, in float64."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def clock(device) -> str:
+    """What times a run on `device`: CUDA events on the named card, the
+    host clock on the CPU (a CPU number, never a device one)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return f"CUDA events on {torch.cuda.get_device_name(device)}"
+    return "host clock on the CPU"
+
+
 class Timer:
     """Elapsed seconds of a chunk: CUDA events on the card, the host clock
     otherwise."""
@@ -101,10 +117,8 @@ def run_demo(model, dt: float, num_steps: int, args, name: str,
     while done < num_steps:
         k = min(chunk, num_steps - done)
         with Timer(model.device) as tm:
-            if probe is None:
-                state = model.solve(state, dt, k, tf=tf)
-            else:
-                state, y = model.solve(state, dt, k, tf=tf, probe=probe)
+            state, y = model.solve(state, dt, k, tf=tf, probe=probe)
+            if probe is not None:
                 ys.append(y)
         walls.append((tm.seconds, k))
         done += k

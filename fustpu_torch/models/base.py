@@ -105,13 +105,23 @@ class WaveModelBase(nn.Module):
         return kv.reshape(self.mesh.grid_shape)
 
     @torch.no_grad()
+    def step(self, state, dt: float, tf: float | None = None):
+        """One RK4 step; it is clamped onto `tf` if given (a step past `tf`
+        does nothing)."""
+        out = timestepping.rk4_step(self._rhs, self._flat_state(state),
+                                    float(dt),
+                                    None if tf is None else float(tf))
+        return self._grid_state(out)
+
+    @torch.no_grad()
     def solve(self, state, dt: float, num_steps: int,
               tf: float | None = None, probe=None):
         """`num_steps` RK4 steps; the last is clamped onto `tf` if given.
         State fields are grid-shaped at the API; the loop runs on flat
-        views.  With a `probe` (grid-shaped state -> (npts,) tensor),
-        returns (state, ys) with ys (num_steps, npts) on the model's
-        device, the probe read after every step."""
+        views.  Returns (state, ys), as the JAX package does: ys is None
+        without a `probe` (grid-shaped state -> (npts,) tensor), else
+        (num_steps, npts) on the model's device, the probe read after
+        every step."""
         wrapped = (None if probe is None
                    else (lambda s: probe(self._grid_state(s))))
         out = timestepping.solve(self._rhs, self._flat_state(state),
@@ -119,7 +129,7 @@ class WaveModelBase(nn.Module):
                                  None if tf is None else float(tf),
                                  probe=wrapped)
         if probe is None:
-            return self._grid_state(out)
+            return self._grid_state(out), None
         return self._grid_state(out[0]), out[1]
 
     def cfl_dt(self, cfl: float | None = None) -> tuple[float, int]:

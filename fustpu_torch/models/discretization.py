@@ -14,7 +14,9 @@ capacity mode (``stiffness_impl="pallas_corner"``) a box or an extruded mesh
 takes `CornerStiffness` instead, built from the cell corners (or the hex27
 lattice) without the host metric.  ``stiffness_impl="indexed_engine"`` gives
 any imported mesh, extruded or not, `EngineStiffness`: the staged gather /
-contract / scatter engine.  Counterpart of
+contract / scatter engine, and ``stiffness_impl="indexed"`` gives any mesh, a
+box too, `IndexedStiffness`, as the JAX package routes that name.
+Counterpart of
 ``fustpu/models/discretization.py`` without its TPU-only parts.
 """
 
@@ -44,6 +46,8 @@ from fustpu_torch.ops import spectral_mm as mm
 CORNER_IMPLS = ("pallas_corner", "extruded_pallas_corner")
 # The staged engine's name (the JAX package's), for imported meshes.
 ENGINE_IMPL = "indexed_engine"
+# The indexed kernel's name (the JAX package's): it takes any mesh.
+INDEXED_IMPL = "indexed"
 
 
 class FacetBlock(NamedTuple):
@@ -136,7 +140,8 @@ class Discretization:
 
     # ---- stiffness --------------------------------------------------------
     def stiffness_op(self, dtype: torch.dtype, device, coeff=None,
-                     pair=None, corner: bool = False, engine: bool = False):
+                     pair=None, corner: bool = False, engine: bool = False,
+                     indexed: bool = False):
         """The stiffness operator in the kernel layout, on `device`
         (`cs.CellStiffness` on a box mesh, `ce.ExtrudedCellStiffness` on
         an extruded one, `ci.IndexedCellStiffness` on any other imported
@@ -146,7 +151,9 @@ class Discretization:
         built without the host metric; a general mesh has no corner form
         and takes the indexed operator, as the JAX package routes it.
         `engine`: the staged engine's `cen.EngineCellStiffness` on any
-        imported mesh (its `coeff` stays a per-cell coefficient)."""
+        imported mesh (its `coeff` stays a per-cell coefficient).
+        `indexed`: `ci.IndexedCellStiffness` on any mesh, a box or an
+        extruded one too (the JAX package's ``stiffness_impl="indexed"``)."""
         extruded = isinstance(self.mesh, ExtrudedHexMesh)
         if engine:
             if self.structured:
@@ -162,13 +169,13 @@ class Discretization:
                        pair=pair)
             self.host_seconds["channels"] = time.perf_counter() - t0
             return op
-        if extruded:
-            return ce.build(self.mesh, self._G_host, self._D_host, dtype,
-                            device, coeff=coeff, pair=pair)
-        if not self.structured:
+        if indexed or not (self.structured or extruded):
             return ci.build(self.mesh, self._G_host, self._D_host, dtype,
                             device, coeff=coeff, pair=pair,
                             classes=self.scatter_classes)
+        if extruded:
+            return ce.build(self.mesh, self._G_host, self._D_host, dtype,
+                            device, coeff=coeff, pair=pair)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         C = None
         if pair is not None:
@@ -183,15 +190,17 @@ class Discretization:
 def resolve_stiffness_impl(impl: str, device) -> str:
     """'auto' is the CUDA kernel on a CUDA device and the plain torch
     version elsewhere; 'mm' forces the plain version (on any mesh kind).
-    The corner-mode names (CORNER_IMPLS) and ENGINE_IMPL resolve as 'auto'
-    does: they choose the operator (`Discretization.stiffness_op(corner=True)`
-    or `(engine=True)`), the device chooses kernel or plain version."""
+    The corner-mode names (CORNER_IMPLS), ENGINE_IMPL and INDEXED_IMPL
+    resolve as 'auto' does: they choose the operator
+    (`Discretization.stiffness_op(corner=True)`, `(engine=True)` or
+    `(indexed=True)`), the device chooses kernel or plain version."""
     if impl == "mm":
         return "mm"
-    if impl in ("auto", ENGINE_IMPL) or impl in CORNER_IMPLS:
+    if impl in ("auto", ENGINE_IMPL, INDEXED_IMPL) or impl in CORNER_IMPLS:
         return "cuda" if torch.device(device).type == "cuda" else "mm"
     raise ValueError(f"stiffness_impl={impl!r}: expected 'auto', 'mm', "
-                     f"{ENGINE_IMPL!r} or one of {CORNER_IMPLS}")
+                     f"{ENGINE_IMPL!r}, {INDEXED_IMPL!r} or one of "
+                     f"{CORNER_IMPLS}")
 
 
 class StructuredStiffness(nn.Module):
@@ -309,7 +318,8 @@ class IndexedStiffness(nn.Module):
     ``IndexedStiffness(op.cell_op, "mm")`` is the plain version of a
     kernel-layout operator `op`, with the same numbers.  `forward(x)` is
     the single-field apply, `pair(x1, x2)` the two-field one; both take
-    and return flat tensors."""
+    and return flat tensors (or grid-shaped ones on a box mesh, which the
+    JAX package's ``stiffness_impl="indexed"`` also runs)."""
 
     def __init__(self, op: ci.IndexedCellStiffness, impl: str):
         super().__init__()
@@ -343,18 +353,21 @@ class IndexedStiffness(nn.Module):
                                  for name in ci.PlainIndexed._fields))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape, x = x.shape, x.reshape(-1)
         if self.impl == "cuda":
-            return ci.indexed(self.cell_op, x)
+            return ci.indexed(self.cell_op, x).reshape(shape)
         p = self.plain_op
         return idx.stiffness_apply_indexed(x, p.G, None, p.dofmap, p.D,
-                                           self.ndofs)
+                                           self.ndofs).reshape(shape)
 
     def pair(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        shape, x1, x2 = x1.shape, x1.reshape(-1), x2.reshape(-1)
         if self.impl == "cuda":
-            return ci.indexed_pair(self.cell_op, x1, x2)
+            return ci.indexed_pair(self.cell_op, x1, x2).reshape(shape)
         p = self.plain_op
-        return idx.stiffness_apply_indexed_pair(x1, p.c1, x2, p.c2, p.G,
-                                                p.dofmap, p.D, self.ndofs)
+        return idx.stiffness_apply_indexed_pair(
+            x1, p.c1, x2, p.c2, p.G, p.dofmap, p.D, self.ndofs
+        ).reshape(shape)
 
 
 class CornerStiffness(nn.Module):

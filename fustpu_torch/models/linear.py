@@ -31,6 +31,7 @@ from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
 from fustpu_torch.models.discretization import (CORNER_IMPLS,
                                                 ENGINE_IMPL,
+                                                INDEXED_IMPL,
                                                 Discretization,
                                                 stiffness_module)
 from fustpu_torch.ops import vector as vec
@@ -64,7 +65,8 @@ class LinearWaveModel(WaveModelBase):
         or plain version by device as for 'auto'; a general mesh takes
         the indexed operator) or 'indexed_engine' (the staged gather /
         contract / scatter engine on an imported mesh, the per-cell -1/rho
-        applied in its contraction)."""
+        applied in its contraction) or 'indexed' (the fused indexed kernel
+        on any mesh, a box or a prismatic import too)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
@@ -77,7 +79,8 @@ class LinearWaveModel(WaveModelBase):
         self.stiffness = stiffness_module(disc.stiffness_op(
             dtype, self.device, coeff=None if self.uniform else -1.0 / rho,
             corner=stiffness_impl in CORNER_IMPLS,
-            engine=stiffness_impl == ENGINE_IMPL), self.impl)
+            engine=stiffness_impl == ENGINE_IMPL,
+            indexed=stiffness_impl == INDEXED_IMPL), self.impl)
 
         host = {"m": disc.mass_diag_host(1.0 / (rho * c * c))}
         # source boundary: the g(t) facet term reduces to precomputed

@@ -33,6 +33,7 @@ from fustpu_torch.models import sources
 from fustpu_torch.models.base import WaveModelBase
 from fustpu_torch.models.discretization import (CORNER_IMPLS,
                                                 ENGINE_IMPL,
+                                                INDEXED_IMPL,
                                                 Discretization,
                                                 stiffness_module)
 from fustpu_torch.ops import vector as vec
@@ -66,7 +67,8 @@ class WesterveltModel(WaveModelBase):
         version by device as for 'auto'; a general mesh takes the indexed
         operator) or 'indexed_engine' (the staged gather / contract /
         scatter engine on an imported mesh; the pair form gathers both
-        fields in one pass)."""
+        fields in one pass) or 'indexed' (the fused indexed kernel on any
+        mesh, a box or a prismatic import too)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)
@@ -78,7 +80,8 @@ class WesterveltModel(WaveModelBase):
             dtype, self.device,
             pair=None if self.uniform else self._pair_coeffs,
             corner=stiffness_impl in CORNER_IMPLS,
-            engine=stiffness_impl == ENGINE_IMPL), self.impl)
+            engine=stiffness_impl == ENGINE_IMPL,
+            indexed=stiffness_impl == INDEXED_IMPL), self.impl)
 
         # unsteady mass diagonal: mass(u; -nl) = u * mvec2 (and the v^2 RHS
         # term uses +nl, i.e. exactly -mvec2)

@@ -100,8 +100,8 @@ def build(mesh, G_cells: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype,
     data: G_cells (cells, n^3, 6) in mesh cell order; `coeff` (per-cell)
     is folded into G; `pair` = (c1, c2) per-cell fields makes a unit-G
     pair operator; `classes`: the mesh's `scatter_classes`, if known."""
-    cell_field = lambda c: np.broadcast_to(np.asarray(c, np.float64),
-                                           (mesh.num_cells,))
+    cell_field = lambda c: np.broadcast_to(
+        np.asarray(c, np.float64).reshape(-1), (mesh.num_cells,))
     G = np.moveaxis(np.asarray(G_cells), 2, 1)
     if coeff is not None:
         G = G * cell_field(coeff)[:, None, None]

@@ -170,7 +170,7 @@ class RankPart:
         return self.local.solve(state, dt, num_steps, tf=tf, probe=probe)
 
     def step(self, state, dt: float, tf=None) -> timestepping.RKState:
-        return self.solve(state, dt, 1, tf=tf)
+        return self.local.step(state, dt, tf=tf)
 
     def cfl_dt(self, cfl: float | None = None) -> tuple[float, int]:
         return self.model.cfl_dt(cfl)

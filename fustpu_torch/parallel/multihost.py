@@ -241,13 +241,13 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
         dist.barrier()
         t0 = time.perf_counter()
         if case.get("progress_every"):
-            res = _progress_solve(ctx, sm, state, case, probe)
+            final, ys = _progress_solve(ctx, sm, state, case, probe)
         else:
-            res = sm.solve(state, case["dt"], case["steps"], probe=probe)
+            final, ys = sm.solve(state, case["dt"], case["steps"],
+                                 probe=probe)
         sync()
         ms = (time.perf_counter() - t0) * 1e3 / max(case["steps"], 1)
         launches = {k: v for k, v in launch_counts().items() if v}
-        final, ys = res if probe is not None else (res, None)
         r = {"launches": launches, "ms_per_step": ms,
              "stiffness": type(sm.local.stiffness.inner).__name__,
              "kernel": sm.local.stiffness.kernel,
@@ -280,7 +280,8 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
 
 def _progress_solve(ctx, sm, state, case, probe):
     """The demos' chunked solve (``demos.common.run_demo``) of a case on
-    this rank; rank 0 prints, the other ranks run the same loop quietly."""
+    this rank, (state, ys) as `solve` returns them; rank 0 prints, the
+    other ranks run the same loop quietly."""
     from fustpu_torch.demos.common import run_demo
 
     quiet = contextlib.redirect_stdout(io.StringIO())
@@ -288,9 +289,10 @@ def _progress_solve(ctx, sm, state, case, probe):
         print(f"rank 0 of {ctx.size} on {ctx.device} ({ctx.backend}): "
               f"stiffness {type(sm.local.stiffness.inner).__name__}, "
               f"kernel {sm.local.stiffness.kernel}", flush=True)
-        return run_demo(sm, case["dt"], case["steps"],
-                        SimpleNamespace(progress_every=case["progress_every"]),
-                        "ranks", probe=probe, state=state)
+        res = run_demo(sm, case["dt"], case["steps"],
+                       SimpleNamespace(progress_every=case["progress_every"]),
+                       "ranks", probe=probe, state=state)
+    return res if probe is not None else (res, None)
 
 
 def imported_modules(ctx) -> list[str]:
@@ -328,7 +330,7 @@ def run_multiprocess_check(nprocs: int = 2, grid_shape=(2, 1, 1),
     MPI.  Returns the relative error."""
     model = _check_model(device)
     dt, _ = model.cfl_dt(0.4)
-    ref = model.solve(model.init_state(), dt, steps).u.cpu().numpy()
+    ref = model.solve(model.init_state(), dt, steps)[0].u.cpu().numpy()
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "model.pt")       # the ranks load host data
         torch.save(model, path)

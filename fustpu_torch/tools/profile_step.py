@@ -137,7 +137,7 @@ def streaming_copy(gib: float) -> tuple[float, float]:
 def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
     args = nonlinear_bowl.parser().parse_args(argv)
     model, dt, _, _ = nonlinear_bowl.build(args)
-    state = model.solve(model.init_state(), dt, 10)      # warm-up
+    state, _ = model.solve(model.init_state(), dt, 10)   # warm-up
     torch.cuda.synchronize()
     plain_ms = _ms_per_step(model, state, dt, steps)
 

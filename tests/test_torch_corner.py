@@ -414,7 +414,7 @@ def test_model_matches_fustpu(ref, msh_dir, mesh_kind, name):
                                              CornerStiffness)
     assert model.stiffness.is_pair == (name == "westervelt_two_layer")
     assert model.cfl_dt() == r.fmodel.cfl_dt()
-    out = model.solve(model.init_state(0.0, u0=r.u0, v0=r.v0), r.dt, STEPS)
+    out, _ = model.solve(model.init_state(0.0, u0=r.u0, v0=r.v0), r.dt, STEPS)
     assert out.t == pytest.approx(float(r.out.t), rel=1e-15)
     assert rel(out.u, r.out.u) <= MODEL_TOL
     assert rel(out.v, r.out.v) <= MODEL_TOL
@@ -456,7 +456,7 @@ def test_model_from_fustpu_trajectory_matches(ref, msh_dir, mesh_kind,
         device="cpu")
     assert isinstance(model.stiffness, CornerStiffness)
     assert model.stiffness.is_pair == (name == "westervelt_two_layer")
-    out = model.solve(st, r.dt, STEPS)
+    out, _ = model.solve(st, r.dt, STEPS)
     assert rel(out.u, r.out.u) <= MODEL_TOL
     assert rel(out.v, r.out.v) <= MODEL_TOL
 
@@ -482,8 +482,8 @@ def test_hex27_model_matches_g_stream():
     dt, _ = a.cfl_dt()
     rng = np.random.default_rng(3)
     u0, v0 = rng.standard_normal(mesh.ndofs), rng.standard_normal(mesh.ndofs)
-    sa = a.solve(a.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
-    sb = b.solve(b.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    sa, _ = a.solve(a.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    sb, _ = b.solve(b.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
     assert rel(sb.u, sa.u) <= MODEL_TOL and rel(sb.v, sa.v) <= MODEL_TOL
     assert "_G_host" not in b.disc.__dict__
 
@@ -522,7 +522,7 @@ def test_corner_model_never_builds_the_metric(monkeypatch, kind, two_layer):
     dt, _ = model.cfl_dt()
     rng = np.random.default_rng(6)
     u0 = rng.standard_normal(mesh.grid_shape)
-    out = model.solve(model.init_state(0.0, u0=u0), dt, 2)
+    out, _ = model.solve(model.init_state(0.0, u0=u0), dt, 2)
     assert bool(torch.isfinite(out.u).all())
     assert "_G_host" not in model.disc.__dict__
 

@@ -281,7 +281,7 @@ def test_engine_model_matches_fustpu(ref, name):
         want = r.fmodel.rhs(jnp.asarray(t), jnp.asarray(u), jnp.asarray(v))
         got = model.rhs(t, torch.as_tensor(u), torch.as_tensor(v))
         assert rel(got, want) <= MODEL_TOL
-    out = model.solve(model.init_state(0.0, u0=r.u0, v0=r.v0), r.dt, STEPS)
+    out, _ = model.solve(model.init_state(0.0, u0=r.u0, v0=r.v0), r.dt, STEPS)
     assert rel(out.u, r.out.u) <= MODEL_TOL
     assert rel(out.v, r.out.v) <= MODEL_TOL
 
@@ -302,7 +302,7 @@ def test_engine_model_from_fustpu_trajectory_matches(ref, name):
         source=r.src, source_facets=_facets(r.mesh)[0], dtype=F64,
         device="cpu", stiffness_impl="indexed_engine")
     assert isinstance(model.stiffness, EngineStiffness)
-    out = model.solve(st, r.dt, STEPS)
+    out, _ = model.solve(st, r.dt, STEPS)
     assert rel(out.u, r.out.u) <= MODEL_TOL
     assert rel(out.v, r.out.v) <= MODEL_TOL
 

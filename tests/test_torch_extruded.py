@@ -430,7 +430,7 @@ def test_model_from_fustpu_trajectory_matches(ref, msh_dir, name, impl):
         material=r.mat, source=r.src,
         source_facets=r.mesh.boundary_facets(1), dtype=F64, device="cpu")
     assert isinstance(model.stiffness, ExtrudedStiffness)
-    out = model.solve(st, r.dt, STEPS)
+    out, _ = model.solve(st, r.dt, STEPS)
     assert rel(out.u, r.out.u) <= MODEL_TOL
     assert rel(out.v, r.out.v) <= MODEL_TOL
 
@@ -444,7 +444,7 @@ def test_imported_bowl_matches_conformal():
             ["--device", "cpu", "--dtype", "f64", "--elements", "16",
              "--degree", "2", "--geometry", geometry])
         model, dt, _, focus = nonlinear_bowl.build(args)
-        state = model.solve(model.init_state(), dt, 100)
+        state, _ = model.solve(model.init_state(), dt, 100)
         runs[geometry] = nonlinear_bowl.focal_pressure(model, state, focus)
     mesh = model.mesh
     assert isinstance(mesh, ExtrudedHexMesh) and mesh.axis == 0
@@ -485,7 +485,7 @@ def test_non_prismatic_mesh_raises():
                             None, dtype=F64, device="cpu")
     assert isinstance(model.stiffness, IndexedStiffness)
     dt, _ = model.cfl_dt()
-    u = model.solve(model.init_state(), dt, 5).u
+    u = model.solve(model.init_state(), dt, 5)[0].u
     assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0.0
 
 

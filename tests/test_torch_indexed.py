@@ -438,7 +438,7 @@ def test_model_matches_fustpu(ref, msh_dir, kind, name, impl):
         want = r.fmodel.rhs(jnp.asarray(t), jnp.asarray(u), jnp.asarray(v))
         got = model.rhs(t, torch.as_tensor(u), torch.as_tensor(v))
         assert rel(got, want) <= MODEL_TOL
-    out = model.solve(model.init_state(0.0, u0=r.u0, v0=r.v0), r.dt, STEPS)
+    out, _ = model.solve(model.init_state(0.0, u0=r.u0, v0=r.v0), r.dt, STEPS)
     assert out.t == pytest.approx(float(r.out.t), rel=1e-15)
     assert rel(out.u, r.out.u) <= MODEL_TOL
     assert rel(out.v, r.out.v) <= MODEL_TOL
@@ -471,7 +471,7 @@ def test_model_from_fustpu_trajectory_matches(ref, msh_dir, kind, name,
         material=r.mat, source=r.src,
         source_facets=r.mesh.boundary_facets(1), dtype=F64, device="cpu")
     assert isinstance(model.stiffness, IndexedStiffness)
-    out = model.solve(st, r.dt, STEPS)
+    out, _ = model.solve(st, r.dt, STEPS)
     assert rel(out.u, r.out.u) <= MODEL_TOL
     assert rel(out.v, r.out.v) <= MODEL_TOL
 
@@ -514,7 +514,7 @@ def test_bodyfit_bowl_matches_fustpu(ref, msh_dir):
     steps = 40
     fout, _ = fmodel.solve(fmodel.init_state(), dt, steps)
     want = float(fmesh.evaluate(np.asarray(fout.u), focus[None, :])[0])
-    state = model.solve(model.init_state(), dt, steps)
+    state, _ = model.solve(model.init_state(), dt, steps)
     got = nonlinear_bowl.focal_pressure(model, state, focus)
     assert want != 0.0
     assert abs(got - want) <= 1e-11 * abs(want)

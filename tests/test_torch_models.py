@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from fustpu import config as f_config  # noqa: E402
+from fustpu.mesh import msh_io as f_msh  # noqa: E402
 from fustpu.mesh.box import BoxMesh as FBoxMesh  # noqa: E402
 from fustpu.models import sources as f_sources  # noqa: E402
 from fustpu.models import timestepping as f_ts  # noqa: E402
@@ -30,7 +31,10 @@ from fustpu.ops import spectral_mm as f_mm  # noqa: E402
 from fustpu_torch import convert  # noqa: E402
 from fustpu_torch.config import Material, Source  # noqa: E402
 from fustpu_torch.demos.nonlinear_bowl import bowl_mapping  # noqa: E402
+from fustpu_torch.mesh import msh_io, shapes  # noqa: E402
 from fustpu_torch.mesh.box import build_box_mesh, build_mapped_mesh  # noqa: E402
+from fustpu_torch.mesh.extruded import ExtrudedHexMesh  # noqa: E402
+from fustpu_torch.models.discretization import IndexedStiffness  # noqa: E402
 from fustpu_torch.models import sources, timestepping  # noqa: E402
 from fustpu_torch.models.linear import LinearWaveModel  # noqa: E402
 from fustpu_torch.models.westervelt import WesterveltModel  # noqa: E402
@@ -156,7 +160,7 @@ def test_rhs_and_trajectory_match(name):
         got = model.rhs(t, torch.as_tensor(u0), torch.as_tensor(v0))
         assert rel(got, ref) <= TOL
     u0, v0 = _initial(mesh)
-    out = model.solve(model.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    out, _ = model.solve(model.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
     assert out.t == pytest.approx(float(fout.t), rel=1e-15)
     assert rel(out.u, fout.u) <= TOL and rel(out.v, fout.v) <= TOL
 
@@ -177,7 +181,97 @@ def test_model_from_fustpu_trajectory_matches(name, layout):
         cls, params, state, mesh=mesh, material=kw["material"],
         source=kw["source"], source_facets=kw["source_facets"],
         dtype=torch.float64, device="cpu")
-    out = model.solve(st, dt, STEPS)
+    out, _ = model.solve(st, dt, STEPS)
+    assert rel(out.u, fout.u) <= TOL and rel(out.v, fout.v) <= TOL
+
+
+@pytest.mark.parametrize("name", ["linear_uniform", "westervelt_two_layer"])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_step_matches_fustpu(name, clamp):
+    """`model.step(state, dt, tf)`, the JAX package's signature: two steps
+    from a seeded state, the second clamped onto `tf` when `clamp` (a
+    third step past `tf` then does nothing)."""
+    cls, _, kw, mesh = _config(name)
+    fmodel, dt, s0, _ = _reference(name)
+    model = cls(mesh, dtype=torch.float64, device="cpu", **kw)
+    u0, v0 = _initial(mesh)
+    s = model.init_state(0.0, u0=u0, v0=v0)
+    fs = s0
+    tf = 1.4 * dt if clamp else None
+    for _ in range(3 if clamp else 2):
+        s = model.step(s, dt, tf)
+        fs = fmodel.step(fs, dt, tf)
+    assert s.t == pytest.approx(float(fs.t), rel=1e-15)
+    if clamp:
+        assert s.t == pytest.approx(tf, rel=1e-15)
+    for a, b in zip(s[:4], fs[:4]):
+        assert rel(a, b) <= TOL
+
+
+def test_solve_returns_state_and_ys_without_a_probe():
+    """A script written for the JAX package runs unchanged: `solve`
+    returns (state, ys) with ys None when no probe is given, and the
+    state is the one `step` reaches."""
+    cls, _, kw, mesh = _config("linear_two_layer")
+    model = cls(mesh, dtype=torch.float64, device="cpu", **kw)
+    dt, _ = model.cfl_dt()
+    s = model.init_state(0.0, *_initial(mesh))
+    state, ys = model.solve(s, dt, 3)
+    assert ys is None
+    for _ in range(3):
+        s = model.step(s, dt)
+    assert state.t == pytest.approx(s.t, rel=1e-15)
+    assert rel(state.u, s.u) <= 1e-15 and rel(state.v, s.v) <= 1e-15
+
+
+def test_indexed_impl_on_a_prismatic_import_matches_fustpu(tmp_path):
+    """stiffness_impl="indexed" on an imported prismatic mesh takes the
+    indexed operator (not the extruded one), as the JAX package's does:
+    10 steps of a two-layer Westervelt model against the JAX package's
+    "indexed" model."""
+    v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1, nr_ann=1,
+                                   nz=4)
+    path = msh_io.write_msh(str(tmp_path / "cyl"), v, c, t)
+    mesh, fmesh = msh_io.read_msh(path, 3), f_msh.read_msh(path, 3)
+    assert isinstance(mesh, ExtrudedHexMesh)
+    zc = mesh.cell_corners_flat.mean(axis=1)[:, 2]
+    props = dict(sound_speed=np.where(zc < 0.01, 1500.0, 1650.0),
+                 density=np.where(zc < 0.01, 1000.0, 1050.0),
+                 nonlinearity=100.0, attenuation_dB=50.0)
+    args = (mesh.boundary_facets(1), mesh.boundary_facets(2))
+    fmodel = FWest(fmesh, f_config.Material(**props),
+                   f_config.Source(frequency=0.5e6, amplitude=1e5), *args,
+                   dtype=jnp.float64, stiffness_impl="indexed")
+    assert fmodel.impl == "indexed"
+    model = WesterveltModel(mesh, Material(**props),
+                            Source(frequency=0.5e6, amplitude=1e5), *args,
+                            dtype=torch.float64, device="cpu",
+                            stiffness_impl="indexed")
+    assert model.impl == "mm" and isinstance(model.stiffness,
+                                             IndexedStiffness)
+    assert model.stiffness.is_pair
+    dt, _ = fmodel.cfl_dt()
+    rng = np.random.default_rng(0)
+    u0, v0 = rng.standard_normal(mesh.ndofs), rng.standard_normal(mesh.ndofs)
+    fout, _ = fmodel.solve(fmodel.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    out, _ = model.solve(model.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    assert rel(out.u, fout.u) <= TOL and rel(out.v, fout.v) <= TOL
+
+
+def test_indexed_impl_on_a_box_matches_fustpu():
+    """On a box mesh, stiffness_impl="indexed" runs the indexed operator
+    through the box's dofmap, as the JAX package's does."""
+    cls, fcls, kw, mesh = _config("linear_two_layer")
+    fmodel = fcls(_fmesh(mesh), dtype=jnp.float64, stiffness_impl="indexed",
+                  **kw)
+    assert fmodel.impl == "indexed"
+    model = cls(mesh, dtype=torch.float64, device="cpu",
+                stiffness_impl="indexed", **kw)
+    assert isinstance(model.stiffness, IndexedStiffness)
+    dt, _ = fmodel.cfl_dt()
+    u0, v0 = _initial(mesh)
+    fout, _ = fmodel.solve(fmodel.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    out, _ = model.solve(model.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
     assert rel(out.u, fout.u) <= TOL and rel(out.v, fout.v) <= TOL
 
 
@@ -232,8 +326,7 @@ def test_bowl_demo_cli():
     assert m and np.isfinite(float(m.group(1))) and float(m.group(1)) != 0.0
 
 
-@pytest.mark.parametrize("impl,err", [("indexed", ValueError),
-                                      ("extruded", ValueError),
+@pytest.mark.parametrize("impl,err", [("extruded", ValueError),
                                       ("cuda_please", ValueError)])
 def test_stiffness_impl_outside_the_slice_raises(impl, err):
     cls, _, kw, mesh = _config("westervelt_uniform")
@@ -247,7 +340,9 @@ def test_stiffness_impl_outside_the_slice_raises(impl, err):
                                                   ("mm", "cuda", "mm"),
                                                   ("mm", "cpu", "mm"),
                                                   ("pallas_corner", "cpu",
-                                                   "mm")])
+                                                   "mm"),
+                                                  ("indexed", "cuda",
+                                                   "cuda")])
 def test_stiffness_impl_resolves_by_device(impl, device, resolved):
     """'auto' takes the kernel exactly when the tensors live on a CUDA
     device; 'mm' forces the plain version on either; the corner-mode name

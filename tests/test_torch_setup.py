@@ -138,7 +138,13 @@ def test_import_loads_neither_jax_nor_fustpu():
             "fustpu_torch.parallel.sharding, fustpu_torch.parallel.multihost, "
             "fustpu_torch.parallel.models, fustpu_torch.parallel.extruded, "
             "fustpu_torch.ops.engine, fustpu_torch.ops.cuda_engine, "
-            "fustpu_torch.demos.sharded_box; "
+            "fustpu_torch.demos.sharded_box, fustpu_torch.ops.slab2, "
+            "fustpu_torch.ops.cuda_slab2, fustpu_torch.ops.anatomy, "
+            "fustpu_torch.ops.probes, fustpu_torch.utils.benchmarks, "
+            "fustpu_torch.demos.exp_slab2w, "
+            "fustpu_torch.demos.exp_kernel_anatomy, "
+            "fustpu_torch.demos.exp_g_layout, "
+            "fustpu_torch.demos.exp_mosaic_relayout; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fustpu' "
             "or m.startswith('fustpu.')]; print(bad); sys.exit(bool(bad))")
