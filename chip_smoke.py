@@ -5,15 +5,18 @@
 Phases (each prints its time; any failure exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels of fustpu_torch/csrc, from source;
-  3. kernel vs plain: both stiffness kernels against the plain torch
-     version at P = 2..10 on small odd meshes, float64 and float32;
+  3. kernel vs plain: both structured stiffness kernels (the z-pencil
+     kernel) against the plain torch version at P = 2..10 on small odd
+     meshes, float64 and float32, two applies bitwise equal, and against
+     the parity-class design of the same kernels in float64;
   4. operator throughput at P = 4, 32^3 cells, float32 (kernel, plain and
      mass-multiply times, GDOF/s);
   5. the linear box demo at its default size, the full run;
   6. the flagship conformal-bowl Westervelt run (--elements 64 --degree 4,
      float32, 6,661,697 DOF): 10 steps kernel vs plain, then the whole
      solve on the kernel, with the focal pressure checked;
-  7. the two-layer flagship, 50 steps through the pair kernel;
+  7. the two-layer flagship: 10 steps pair kernel vs plain, then 50 steps
+     through the pair kernel;
   8. the extruded kernels (imported prismatic meshes) against their plain
      version at P = 2..10 on an imported cylinder and a shuffled box,
      float64 and float32, with each mesh's stack colours and scatter
@@ -94,19 +97,25 @@ Phases (each prints its time; any failure exits non-zero):
      on the same buffers (run right after phase 20);
  24. the exp_slab2w demo at P = 4, 32^3, float32: the production kernel,
      slab2 and slab2w per apply, each against its plain version;
- 25. the exp_kernel_anatomy demo at P = 4, 32^3, float32: the production
-     kernel and its gstream, contract and ywin variants, each against its
-     plain version, ywin against the production kernel;
+ 25. the exp_kernel_anatomy demo at P = 4, 32^3, float32: the
+     parity-class kernel #1 (full) and its gstream, contract and ywin
+     variants, each against its plain version, ywin against full;
  26. the exp_g_layout demo (the (32, 5, 6, 160, 160) float32 G summed in
      the per-cell and the component-major layout) and the
      exp_mosaic_relayout demo (128 tiles of (8192, 1) float32, four
      permutations, bitwise), each kernel against its plain version, with
-     one PyTorch call's time beside it (einsum; clone, transpose).
+     one PyTorch call's time beside it (einsum; clone, transpose);
+ 27. the parity-class design of #1 and #2 (anatomy's full and
+     full_pair) against the z-pencil kernels that replaced them: the
+     exp_pencil demo at the flagship's 64 x 40 x 40 cells and at 32^3
+     (P = 4, float32), in turns (old, new, new, old), single and pair, ms,
+     TB/s and share of the bound (27a); the flagship's whole solve on the
+     parity-class kernel, its focal pressure against phase 6b's (27b).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
-17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, in every rank of 22 its
-solve, and the demos of 24, 25 and 26) has the launch counters reset just
-before it and read just after.  The line before the last is the kernels'
-JSON summary; the last line is the result.
+17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, in every rank of 22
+its solve, and the demos of 24, 25, 26 and 27a) has the launch counters
+reset just before it and read just after. The line before the last is the
+kernels' JSON summary; the last line is the result.
 """
 
 from __future__ import annotations
@@ -138,6 +147,9 @@ FOCAL_BAND_PA = (-7.3e6, -6.0e6)
 # the imported bowl is the conformal bowl's discrete problem under another
 # dof numbering; float32 summation order alone separates the two runs
 FOCAL_AGREE = 1e-4
+# the pencil kernel against the parity-class kernel in float64: the two
+# differ only in the order of their sums (relative ~1e-16)
+PARITY_TOL = 1e-14
 ONEIL_GATE = 0.12               # the JAX package's own piston gate
 # The bodyfit bowl is another discretisation of the conformal bowl's
 # domain, cap and source, with its nodes clustered toward the focal axis.
@@ -283,7 +295,8 @@ def main() -> None:
     from fustpu_torch.demos import (capacity, capacity_imported, linear_box,
                                     linear_piston, nonlinear_bowl)
     from fustpu_torch.demos import (exp_g_layout, exp_kernel_anatomy,
-                                    exp_mosaic_relayout, exp_slab2w)
+                                    exp_mosaic_relayout, exp_pencil,
+                                    exp_slab2w)
     from fustpu_torch.demos.common import run_demo
     from fustpu_torch.mesh import msh_io, shapes
     from fustpu_torch.mesh.box import build_box_mesh
@@ -415,7 +428,7 @@ def main() -> None:
               f"(0 = reused)")
 
     with phase("3 kernel vs plain, P=2..10"):
-        worst = {"f64": 0.0, "f32": 0.0}
+        worst = {"f64": 0.0, "f32": 0.0, "parity": 0.0}
         cs.reset_launches()
         for P in range(2, 11):
             nc = (5, 3, 7) if P <= 6 else (3, 3, 5)
@@ -447,12 +460,31 @@ def main() -> None:
                         else cs.stiffness_pair
                     return f(o, t(x1), t(x2))
 
+                def parity(o):
+                    t = lambda a: torch.as_tensor(a, dtype=o.G.dtype,
+                                                  device=dev)
+                    if Cp is None:
+                        return anatomy.variant(o, t(x1), "full")
+                    return anatomy.full_pair(o, t(x1), t(x2))
+
                 ref = apply(op(torch.float64), plain=True)
-                e64 = rel_l2(apply(op(torch.float64), plain=False), ref)
-                e32 = rel_l2(apply(op(torch.float32), plain=False), ref)
+                y64 = apply(op(torch.float64), plain=False)
+                y32 = apply(op(torch.float32), plain=False)
+                e64, e32 = rel_l2(y64, ref), rel_l2(y32, ref)
+                e_par = rel_l2(y64, parity(op(torch.float64)))
+                same = all(torch.equal(y, apply(op(y.dtype), plain=False))
+                           for y in (y64, y32))
                 torch.cuda.synchronize()
                 print(f"   P={P:2d} {label:13s} f64 {e64:.3e}  "
-                      f"f32 {e32:.3e}", flush=True)
+                      f"f32 {e32:.3e}  vs the parity-class kernel f64 "
+                      f"{e_par:.3e}, "
+                      f"two applies bitwise {same}", flush=True)
+                worst["parity"] = max(worst["parity"], e_par)
+                if not same:
+                    fail(f"P={P} {label}: two applies differ")
+                if not e_par <= PARITY_TOL:
+                    fail(f"f64 kernel vs the parity-class kernel "
+                         f"{e_par:.3e} > {PARITY_TOL}")
                 worst["f64"] = max(worst["f64"], e64)
                 worst["f32"] = max(worst["f32"], e32)
                 if not e64 <= F64_TOL:
@@ -460,7 +492,9 @@ def main() -> None:
                 if not e32 <= F32_TOL:
                     fail(f"f32 kernel vs plain f64 {e32:.3e} > {F32_TOL}")
         print(f"   worst rel-l2: f64 {worst['f64']:.3e} (tol {F64_TOL}), "
-              f"f32 {worst['f32']:.3e} (tol {F32_TOL}); launches "
+              f"f32 {worst['f32']:.3e} (tol {F32_TOL}), vs the parity-class "
+              f"kernel "
+              f"{worst['parity']:.3e} (tol {PARITY_TOL}); launches "
               f"{dict(cs.launches)}")
         if cs.launches["stiffness"] == 0 or cs.launches["stiffness_pair"] == 0:
             fail("a kernel's launch counter did not move")
@@ -848,19 +882,18 @@ def main() -> None:
 
     with phase("25 exp_kernel_anatomy at P=4, 32^3, f32"):
         anatomy.reset_launches()
-        cs.reset_launches()
         out = exp_kernel_anatomy.main([])
         torch.cuda.synchronize()
         demo_launches.update(anatomy.launches)
-        print(f"   launches in the demo: {dict(anatomy.launches)}, "
-              f"stiffness (full) {cs.launches['stiffness']}")
-        if not all(anatomy.launches.values()) or not cs.launches["stiffness"]:
+        print(f"   launches in the demo: {dict(anatomy.launches)}")
+        if not all(anatomy.launches[f"anatomy_{v}"] for v in anatomy.VARIANTS):
             fail("an anatomy kernel was not launched by the demo")
         op, x, outs = out["op"], out["x"], out["outs"]
         err = rel_l2(outs["ywin"], outs["full"])
-        print(f"   ywin vs the production kernel: rel-l2 {err:.3e}")
+        print(f"   ywin vs full (the parity-class kernel #1): rel-l2 "
+              f"{err:.3e}")
         if not err <= F32_TOL:
-            fail(f"ywin vs the production kernel {err:.3e}")
+            fail(f"ywin vs full {err:.3e}")
         cells, _, nnn = op.G.shape
         n, ndofs, b = op.P + 1, out["mesh"].ndofs, op.G.element_size()
         costs = {
@@ -996,7 +1029,19 @@ def main() -> None:
             cost=apply_cost(kst2.G, bowl2.mesh.ndofs, 2))
         print(f"   {smi}: pair at {tuple(bowl2.mesh.nc)} cells: "
               f"{kernels['stiffness_pair']}")
-        del yk, yp, pst2, x, x2
+        del yk, yp
+        # 10 RK4 steps from the same state: kernel, then plain
+        s0 = bowl2.init_state()
+        sk, _ = bowl2.solve(s0, dt2, 10)
+        bowl2.stiffness = pst2
+        sp, _ = bowl2.solve(s0, dt2, 10)
+        bowl2.stiffness = kst2
+        traj = rel_l2(sk.u, sp.u)
+        print(f"   10 steps pair kernel vs plain: rel-l2(u) {traj:.3e} "
+              f"(tol {TRAJ_TOL}), max |u| {float(sk.u.abs().max()):.4e}")
+        if not traj <= TRAJ_TOL:
+            fail(f"10-step two-layer trajectory kernel vs plain {traj:.3e}")
+        del sk, sp, pst2, x, x2
         keep_for_ranks("22b two-layer flagship, grid (2, 2, 1)", bowl2, dt2,
                        20, BOWL_POINTS, grid=(2, 2, 1))
 
@@ -1028,6 +1073,100 @@ def main() -> None:
             fail("two-layer field is not finite and non-zero")
     launches = dict(cs.launches)
     del bowl2, s2, kst2
+
+    # ---- the parity-class design of #1 / #2 against the pencil kernels:
+    # ---- the demo's run, counters reset just before, read just after ----
+    with phase("27a exp_pencil: the parity-class and the pencil kernels "
+               "in turns, P=4 f32, the flagship's 64x40x40 cells and "
+               "32^3"):
+        anatomy.reset_launches()
+        cs.reset_launches()
+        cmp = {nc: exp_pencil.main(["--nc", *map(str, nc)])
+               for nc in ((64, 40, 40), (32, 32, 32))}
+        torch.cuda.synchronize()
+        print(f"   launches in the demo: {dict(anatomy.launches)}, "
+              f"{dict(cs.launches)}")
+        for name in ("anatomy_full", "anatomy_full_pair"):
+            demo_launches[name] = anatomy.launches[name]
+            if not anatomy.launches[name]:
+                fail(f"{name} was not launched by the demo")
+        for nc, out in cmp.items():
+            for form, fields in (("single", 1), ("pair", 2)):
+                f = out[form]
+                for name in ("parity", "pencil"):
+                    e = rel_l2(f["ys"][name], f["plain"])
+                    if not e <= F32_TOL:
+                        fail(f"{nc} {form} {name} vs plain {e:.3e}")
+                ms = {name: [tt[0] * 1e3 for tt in f["times"][name]]
+                      for name in ("parity", "pencil")}
+                b_ms = bound(*apply_cost(f["op"].G, out["mesh"].ndofs,
+                                         fields))[0]
+                best = {name: min(v) for name, v in ms.items()}
+                print(f"   {smi}: {nc} {form}: the parity-class kernel "
+                      f"{ms['parity'][0]:.4f} / {ms['parity'][1]:.4f} ms, "
+                      f"pencil "
+                      f"{ms['pencil'][0]:.4f} / {ms['pencil'][1]:.4f} ms "
+                      f"(old, new, new, old): "
+                      f"{best['parity'] / best['pencil']:.4f}"
+                      f"x; {f['nbytes'] / best['pencil'] / 1e9:.4f} TB/s, "
+                      f"{b_ms / best['pencil']:.1%} of the bound {b_ms:.4f} "
+                      f"ms (parity-class {b_ms / best['parity']:.1%})",
+                      flush=True)
+        flag = cmp[(64, 40, 40)]
+        for name, form in (("anatomy_full", "single"),
+                           ("anatomy_full_pair", "pair")):
+            f = flag[form]
+            pst = StructuredStiffness(f["op"], "mm")
+            xs = f["xs"]
+            plain = (lambda pst=pst, xs=xs: pst(xs[0])) if form == "single" \
+                else (lambda pst=pst, xs=xs: pst.pair(*xs))
+            yk, yp = f["ys"]["parity"], f["plain"]
+            kernels[name] = dict(
+                max_abs_err=float((yk - yp).abs().max()),
+                rel_l2=rel_l2(yk, yp),
+                ms=min(tt[0] for tt in f["times"]["parity"]) * 1e3,
+                plain_ms=time_ms(plain, 3),
+                cost=apply_cost(f["op"].G, flag["mesh"].ndofs, len(xs)))
+            print(f"   {smi}: {name}: {kernels[name]}", flush=True)
+        del cmp, flag, f, pst, xs, yk, yp
+
+    class ParityClassStiffness(torch.nn.Module):
+        """The parity-class kernels #1 / #2 on a structured operator:
+        anatomy's full and full_pair."""
+
+        def __init__(self, op):
+            super().__init__()
+            self.op = op
+
+        def forward(self, x):
+            return anatomy.variant(self.op, x, "full")
+
+        def pair(self, x1, x2):
+            return anatomy.full_pair(self.op, x1, x2)
+
+    with phase("27b flagship full solve on the parity-class kernel"):
+        anatomy.reset_launches()
+        bowl.stiffness = ParityClassStiffness(kstiff.cell_op)
+        state = run_demo(bowl, dt, nsteps, args, "nonlinear_bowl")
+        bowl.stiffness = kstiff
+        p_par = nonlinear_bowl.focal_pressure(bowl, state, focus)
+        agree = abs(p_focus - p_par) / abs(p_par)
+        n_par = anatomy.launches["anatomy_full"]
+        print(f"   the parity-class kernel: pressure at focus {p_par:.1f} "
+              f"Pa, the "
+              f"pencil kernel's (6b) {p_focus:.1f} Pa: relative difference "
+              f"{agree:.3e} (tol {FOCAL_AGREE}); {n_par} launches for "
+              f"{nsteps} steps")
+        if n_par != 4 * nsteps:
+            fail(f"the parity-class kernel: launches {n_par} != 4 x "
+                 f"{nsteps} steps")
+        if not agree <= FOCAL_AGREE:
+            fail(f"focal pressure vs the parity-class kernel {agree:.3e}")
+        if not FOCAL_BAND_PA[0] <= p_par <= FOCAL_BAND_PA[1]:
+            fail(f"the parity-class kernel's focal pressure {p_par:.1f} Pa "
+                 f"outside "
+                 f"{FOCAL_BAND_PA}")
+        del state
 
     def corner_check(model, label, kernel, g_module=None):
         """A corner-mode model: the corner operator on its kernel, no host
@@ -1848,10 +1987,14 @@ def main() -> None:
     kernels.update(demo_kernels)
 
     meta = {
-        "stiffness": ("fustpu_torch/csrc/stiffness.cu",
+        "stiffness": ("fustpu_torch/csrc/stiffness_pencil.cuh",
                       "fustpu/ops/pallas_stiffness.py:170"),
-        "stiffness_pair": ("fustpu_torch/csrc/stiffness.cu",
+        "stiffness_pair": ("fustpu_torch/csrc/stiffness_pencil.cuh",
                            "fustpu/ops/pallas_stiffness.py:726"),
+        "anatomy_full": ("fustpu_torch/csrc/stiffness.cuh",
+                         "fustpu/ops/pallas_stiffness.py:170"),
+        "anatomy_full_pair": ("fustpu_torch/csrc/stiffness.cuh",
+                              "fustpu/ops/pallas_stiffness.py:726"),
         "extruded": ("fustpu_torch/csrc/extruded.cu",
                      "fustpu/ops/pallas_extruded.py:604"),
         "extruded_pair": ("fustpu_torch/csrc/extruded.cu",

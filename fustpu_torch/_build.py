@@ -100,14 +100,20 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
+    # the pencil kernel: its schedule after P (chunk table, classes, their
+    # count, blocks, cells a chunk, stages, stage bytes, shared bytes), then
+    # ncy, ncz and the stream
+    sched = [p, p, i, i, i, i, i, i, i, i, p]
     for name in ("fustpu_stiffness_f32", "fustpu_stiffness_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, *sched]
         fn.restype = i
     for name in ("fustpu_stiffness_pair_f32", "fustpu_stiffness_pair_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, *sched]
         fn.restype = i
+    lib.fustpu_stiffness_occupancy.argtypes = [i, i, i, i, i]
+    lib.fustpu_stiffness_occupancy.restype = i
     for name in ("fustpu_extruded_f32", "fustpu_extruded_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
@@ -152,6 +158,9 @@ def load() -> ctypes.CDLL:
         fn.restype = i
         fn = getattr(lib, f"fustpu_anatomy_{suffix}")
         fn.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_anatomy_pair_{suffix}")
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
         fn = getattr(lib, f"fustpu_g_layout_{suffix}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]

@@ -1,13 +1,16 @@
-// Anatomy of the structured stiffness kernel: three variants of
-// stiffness.cuh's stiffness_kernel (template flags on the same kernel and
-// the same per-cell body, sum_factor.cuh), each keeping one part of the
-// production kernel's work, to be timed against it on the same grid.
+// Anatomy of the parity-class structured stiffness kernel: stiffness.cuh's
+// stiffness_kernel itself (PROD, the design that the main path ran until
+// the z-pencil kernel of stiffness_pencil.cuh replaced it) and three
+// variants of it (template flags on the same kernel and the same per-cell
+// body, sum_factor.cuh), each keeping one part of its work, to be timed
+// against it on the same grid.
 //
 // Replaces the Pallas TPU kernel of demos/exp_kernel_anatomy.py
 // (make_variant, :34, pallas_call :165), whose variants keep one TPU
 // unit's work: `vpu` (no matmuls), `mxu` (matmuls only) and `ywin` (the
 // y windows as reshapes).  Here:
-//   - full:     the production kernel #1 itself (stiffness.cu, PROD);
+//   - full:     the parity-class kernel #1 (PROD), single field; its pair
+//     form (PROD, PAIR) is fustpu_anatomy_pair_*, its kernel #2;
 //   - CONTRACT: the `mxu` counterpart: the sum factorisation with the
 //     constant metric (0, 0, 0, 1, 0, 1) and no G read, exactly what
 //     `mxu` computes;
@@ -22,17 +25,16 @@
 //     windows are index arithmetic, so the variant changes how x arrives.
 //
 // What bounds each on an H100 (P = 4, 32^3 cells, float32): GSTREAM moves
-// the production kernel's bytes (G, x, y) with a few operations a node,
-// so it is the G stream's time alone; CONTRACT moves x and y only (no G)
-// with the production kernel's sum-factor operations, so it is the
-// contractions' time; YWIN is bound as the production kernel.  full -
-// gstream - contract shows how far the two overlap.
+// full's bytes (G, x, y) with a few operations a node, so it is the G
+// stream's time alone; CONTRACT moves x and y only (no G) with full's
+// sum-factor operations, so it is the contractions' time; YWIN is bound as
+// full.  full - gstream - contract shows how far the two overlap.
 //
 // Design: no copy of the body.  The variants are the Metric functor
 // (UnitYZ for CONTRACT), cell_apply's Body flag (POINTWISE, STAGED) and,
 // for YWIN, the block -> cells map (one z-row of a parity class per block)
 // and the staging copy; the parity classes, launches and deterministic
-// scatter are the production kernel's.
+// scatter are full's.
 
 #include "stiffness.cuh"
 
@@ -43,6 +45,9 @@ int launch_variant(int variant, int P, const void* x, const void* G,
                    const void* D, void* y, int ncx, int ncy, int ncz,
                    void* stream) {
   switch (variant) {
+    case PROD:
+      return launch<T, false, false, PROD>(P, x, nullptr, nullptr, G, D,
+                                           nullptr, y, ncx, ncy, ncz, stream);
     case CONTRACT:
       return launch<T, false, false, CONTRACT>(P, x, nullptr, nullptr, G, D,
                                                nullptr, y, ncx, ncy, ncz,
@@ -62,8 +67,8 @@ int launch_variant(int variant, int P, const void* x, const void* G,
 
 }  // namespace
 
-// C entry points.  variant: 1 CONTRACT, 2 GSTREAM, 3 YWIN (0, the
-// production kernel, is fustpu_stiffness_*).  Each returns 0, -1 for an
+// C entry points.  variant: 0 PROD (full), 1 CONTRACT, 2 GSTREAM, 3 YWIN;
+// the pair entry is PROD's pair form.  Each returns 0, -1 for an
 // unsupported degree, -2 for an unknown variant, or the cudaError_t of the
 // first failed launch.  y must be zeroed by the caller; CONTRACT reads no
 // G.
@@ -80,6 +85,20 @@ int fustpu_anatomy_f64(int variant, const void* x, const void* G,
                        int ncz, void* stream) {
   return launch_variant<double>(variant, P, x, G, D, y, ncx, ncy, ncz,
                                 stream);
+}
+
+int fustpu_anatomy_pair_f32(const void* x1, const void* x2, const void* C,
+                            const void* G, const void* D, void* y, int P,
+                            int ncx, int ncy, int ncz, void* stream) {
+  return launch<float, true, false>(P, x1, x2, C, G, D, nullptr, y, ncx, ncy,
+                                    ncz, stream);
+}
+
+int fustpu_anatomy_pair_f64(const void* x1, const void* x2, const void* C,
+                            const void* G, const void* D, void* y, int P,
+                            int ncx, int ncy, int ncz, void* stream) {
+  return launch<double, true, false>(P, x1, x2, C, G, D, nullptr, y, ncx,
+                                     ncy, ncz, stream);
 }
 
 }  // extern "C"

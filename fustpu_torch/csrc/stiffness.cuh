@@ -1,9 +1,14 @@
 // Structured-box stiffness apply, y = sum_cells P^T D^T (c G) D P x, for
 // GLL spectral hexahedra of degree P = 2..10 (N = P + 1 nodes per axis):
-// the kernel template, for the G stream (entry points in stiffness.cu) and
-// the corner stream (CORNER, entry points in corner.cu).
+// the parity-class kernel template (eight parity classes of cells), for
+// the G stream (kernels #1 and #2 as first ported, reached now through
+// anatomy.cu: `full` and its pair form) and the corner stream (CORNER,
+// entry points in corner.cu); slab2.cu uses its helpers.
+// The main path's structured apply is the z-pencil kernel of
+// stiffness_pencil.cuh (entry points in stiffness.cu).
 //
-// Replaces the two Pallas TPU kernels of fustpu/ops/pallas_stiffness.py:
+// It was written for the two Pallas TPU kernels of
+// fustpu/ops/pallas_stiffness.py:
 //   - _mk_kernel (via _apply_single / stiffness_apply_pallas): one field,
 //     any per-cell coefficient folded into G      -> stiffness_kernel, PAIR false
 //   - _mk_kernel_pair (via stiffness_apply_pallas_pair): y = A_c1(x1) + A_c2(x2)
@@ -50,7 +55,7 @@
 namespace {
 
 // Variants of the G-stream kernel (anatomy.cu times them against the
-// production kernel, PROD): CONTRACT keeps the sum factorisation and drops
+// kernel itself, PROD): CONTRACT keeps the sum factorisation and drops
 // every G load (the constant metric UnitYZ); GSTREAM keeps the x and G
 // loads, the metric and the scatter, and drops the contractions; YWIN
 // computes the operator with x staged into shared memory by one

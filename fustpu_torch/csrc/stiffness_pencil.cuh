@@ -1,0 +1,377 @@
+// Structured-box stiffness apply on the main path, y = sum_cells P^T D^T
+// (c G) D P x, for GLL spectral hexahedra of degree P = 2..10 (N = P + 1
+// nodes per axis): the z-pencil kernel (entry points in stiffness.cu).
+//
+// Replaces the two Pallas TPU kernels of fustpu/ops/pallas_stiffness.py:
+//   - _mk_kernel (:170, via _apply_single / stiffness_apply_pallas): one
+//     field, any per-cell coefficient folded into G -> pencil_kernel, PAIR
+//     false;
+//   - _mk_kernel_pair (:726, via stiffness_apply_pallas_pair): y = A_c1(x1)
+//     + A_c2(x2) with a unit G and per-cell (c1, c2)  -> PAIR true.
+// The parity-class design of the same two kernels (eight parity classes of
+// scattered cells, G read by the threads themselves) stays in
+// stiffness.cuh for the corner kernel, the two-slab kernel and the anatomy
+// variants.
+//
+// What bounds it on an H100: the bytes.  G holds 6 values per node, so at
+// P = 4 in float32 a cell reads 3000 B of G against ~500 B of x and ~1000
+// B of y (read and written), for ~1e4 flops: ~2 flop/B, a tenth of the
+// card's float32 ridge.  At the flagship (64 x 40 x 40 cells) the least
+// bytes are 387,140,364, 0.1156 ms at 3.35 TB/s.
+//
+// What the design does, against the four things that held the
+// parity-class kernel at a third of that bound:
+//   1. Eight serial parity-class launches of scattered cells -> a block
+//      owns a z-pencil (a, b): the ncz cells along z, one contiguous run of
+//      G (cell = (a ncy + b) ncz + c, G (cells, 6, N^3)).  It walks the
+//      pencil in chunks of CPB consecutive cells (N^2 threads a cell, each
+//      owning an i-line, as in sum_factor.cuh).  The cells of a chunk share
+//      z-faces, so they add in two turns, even cells then odd, with a
+//      barrier between (cell_apply's `turn`); chunks of a pencil run in
+//      order in one block, and the face between two chunks stays in shared
+//      memory from one to the next.  This is the TPU kernel's overlap
+//      carried along its streamed axis.
+//   2. G loaded by the threads that need it, 4 B at a time, between the
+//      two barriers of the body -> one thread issues a 1-D bulk copy (TMA,
+//      cp.async.bulk) of each chunk's G run into a ring of STAGES shared
+//      stages, completing on an mbarrier; the metric (GShared) reads the
+//      stage, and the body's f1, f2 of a node then overwrite its G
+//      components 0 and 1 there (the node's owner thread has read all six),
+//      which saves 2 N^3 values a cell.  The next chunk, the next pencil's
+//      first included, is in flight while a chunk contracts.  A stage is
+//      refilled at the next chunk's first barrier, every thread having
+//      fenced its writes there (fence.proxy.async), and each stage's
+//      mbarrier phase flips once a round.  The copy needs 16 B-aligned
+//      spans: the host's chunk table holds, for each chunk, the aligned
+//      superset of its run (in float32 with N^3 odd a cell is 8 mod 16 B),
+//      cut back at G's end, where the kernel reads the last bytes itself.
+//   3. A half-empty second wave per class -> four colour classes of
+//      pencils, (a % 2, b % 2): two pencils share nodes only if a and b
+//      each differ by at most one.  The grid is persistent (resident blocks
+//      per SM x SMs, from the occupancy query) and each block walks the
+//      pencils of the class.  (Pencils split into z-halves, 8 classes,
+//      for classes of fewer pencils than blocks, measured slower on every
+//      shape tried, and the host does not split.)
+//   4. x read and y read-modify-written in 20 B pieces per (j, k) line,
+//      the loads waited on where they are used -> each thread loads its
+//      share of the next chunk's x (N^2 rows of CPB P + 1 values along z,
+//      consecutive threads on consecutive z; for the pair x2 and the cells'
+//      (c1, c2)), the y that earlier classes left on its nodes, and the
+//      table row of the chunk after it into registers before the body, and
+//      writes them into shared buffers after it, so that their latency
+//      hides behind the body: x into the cells' u (a z-face value into both
+//      cells that share it; for the pair each thread then forms u = c1 x1 +
+//      c2 x2 on its own line), y into the chunk's y buffer, where the cells
+//      add, and one coalesced pass writes it out.  y stays += on a zeroed
+//      output (each node: what earlier classes left, then this chunk's
+//      adds in turn order): a pencil's side faces are shared with up to
+//      three others.  (4-B cp.async copies in place of the registers
+//      measured slower for the pair.)
+// The scatter stays deterministic without atomics: the class order, the
+// pencils of a class (disjoint in their nodes), the chunk order and the
+// turn order fix every node's order of adds whichever block runs a
+// pencil, so two applies are bitwise equal.  The sum order is not the
+// parity-class kernel's: the two differ in the last bits.
+//
+// No tensor cores: the contractions at N = 5 are 5 x 5 products, the kernel
+// is bound by its bytes at ~2 flop/B, and TF32 keeps ~3 digits, which
+// would break the float32 gate of 1e-6.  The card computes in native
+// float32 / float64, accumulators in the template type.
+//
+// Shared memory per block (the host computes the same, cuda_stiffness.py
+// `pencil_smem`): D (N^2 values, static), and dynamic: STAGES mbarriers and
+// a ring of RING chunk-table rows (each padded to 16 B), STAGES stages of
+// stage_bytes (CPB cells of G plus 16 B for the aligned span), two buffers
+// of every cell's u (N^3 values) and of the chunk's y (N^2 (CPB P + 1)
+// values), and for the pair two of x2 and of the cells' (c1, c2).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "sum_factor.cuh"
+
+namespace fustpu {
+namespace pencil {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of transactions.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Bulk copy of `bytes` (a multiple of 16, both addresses 16 B-aligned) from
+// global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy accesses to shared memory before later
+// bulk copies into it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Index of node (i, j, k) of a cell: the thread's (j, k) line starts at
+// `base` and steps by `sx` in i (a chunk buffer's row stride here).
+struct ZLine {
+  int base, sx;
+  __device__ int operator()(int i) const { return base + i * sx; }
+};
+
+// The chunk table (cuda_stiffness.py `pencil_schedule`), one row of ROW
+// int64 a chunk: first cell, cells, byte offset of the aligned span in G,
+// span bytes, and the grid index of the chunk's node (0, 0, 0).  A class's
+// pencils are `per_pencil` consecutive rows each, its first row at
+// `first`.
+constexpr int ROW = 5;
+
+// The block's copy of the table rows of chunks q - 1, q and q + 1 while it
+// works on chunk q: a ring of RING rows.
+constexpr int RING = 3;
+
+// Bytes before the stages: the STAGES mbarriers, then the row ring, each
+// padded to 16.
+__host__ __device__ constexpr int bars_bytes(int stages) {
+  return (8 * stages + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int head_bytes(int stages) {
+  return bars_bytes(stages) + (8 * RING * ROW + 15) / 16 * 16;
+}
+
+// One class: block b walks pencils b, b + gridDim.x, ... of the class, and
+// each pencil's chunks in order (the host launches at most `pencils`
+// blocks).  stage_bytes: one stage of the G ring.  Grid indices are 32-bit
+// (the wrapper refuses grids of 2^31 nodes or more).
+template <typename T, int N, bool PAIR>
+__global__ void __launch_bounds__(256)
+pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
+              const T* __restrict__ C, const T* __restrict__ G,
+              const T* __restrict__ D, T* __restrict__ y,
+              const long long* __restrict__ chunks, long long first,
+              int pencils, int per_pencil, int stages, int stage_bytes,
+              int ncy, int ncz) {
+  constexpr int P = N - 1, NN = N * N, NNN = N * N * N;
+  constexpr long long CB = 6LL * NNN * (long long)sizeof(T);  // G per cell
+  // D in an array of its own, so that the compiler may keep it in
+  // registers across the body's stores into the dynamic block
+  __shared__ T Ds[NN];                           // D[q * N + i] = l_i'(x_q)
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cpb = blockDim.y, lmax = cpb * P + 1;  // a row of a chunk's z
+  const int rows = NN * lmax;                    // a chunk buffer's values
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
+  long long* rs = reinterpret_cast<long long*>(smem + bars_bytes(stages));
+  unsigned char* ring = smem + head_bytes(stages);
+  // two buffers each: u of every cell, the chunk's y, and for the pair x2
+  // and the cells' (c1, c2).  The body's f1, f2 of a cell go into
+  // components 0 and 1 of its G in the stage.
+  T* ub = reinterpret_cast<T*>(ring + (long long)stages * stage_bytes);
+  T* yb = ub + 2 * cpb * NNN;
+  T* x2b = yb + 2 * rows;
+  T* cb = x2b + 2 * rows;
+  const int t = threadIdx.x, lc = threadIdx.y;   // node line (j, k), cell
+  const int tid = lc * NN + t, nthreads = NN * cpb;
+  const int j = t / N, k = t % N;
+  const int gz = ncz * P + 1, sx = (ncy * P + 1) * gz;  // grid strides
+  // this thread's share of a chunk buffer: positions e = rr lmax + z for
+  // e = tid, tid + nthreads, ..., at most N of them (NN lmax <= N
+  // nthreads), the same for every chunk; f(slot, rr, z) for z < len
+  const int rr0 = tid / lmax, z00 = tid - rr0 * lmax;
+  const int drr = nthreads / lmax, dz = nthreads - drr * lmax;
+  auto each = [&](int len, auto f) {
+    int rr = rr0, z = z00;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if (rr < NN && z < len) f(e, rr, z);
+      rr += drr;
+      z += dz;
+      if (z >= lmax) {
+        z -= lmax;
+        ++rr;
+      }
+    }
+  };
+
+  // chunks this block walks, in order: the q-th
+  const int mine = (pencils - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int total = mine * per_pencil;
+  auto table = [&](int q) {                      // chunk q's table row
+    const long long pencil =
+        blockIdx.x + (long long)(q / per_pencil) * gridDim.x;
+    return chunks + ROW * (first + pencil * per_pencil + q % per_pencil);
+  };
+  auto row = [&](int q) { return rs + (q % RING) * ROW; };  // its copy
+  auto issue = [&](int q) {                      // thread 0: G of chunk q
+    const long long* r = row(q);
+    const int s = q % stages;
+    mbar_expect_tx(&bars[s], (unsigned)r[3]);
+    bulk_load(ring + (long long)s * stage_bytes,
+              reinterpret_cast<const unsigned char*>(G) + r[2],
+              (unsigned)r[3], &bars[s]);
+  };
+
+  // The next chunk's inputs, loaded into registers before the body and
+  // written to its buffers after it, so that their latency hides behind
+  // the body: its x (into its cells' u, a z-face value into both cells
+  // that share it), for the pair x2 and (c1, c2), the y that earlier
+  // classes left on its nodes, and the table row of the chunk after it.
+  // Consecutive threads on consecutive z.  The first face of a chunk that
+  // continues a pencil is the last one's, carried in shared memory.
+  T xr[N], x2r[N], yr[N], cr = T(0);
+  long long rowr = 0;
+  auto fetch = [&](int q) {
+    const long long* r = row(q);
+    const int n = (int)r[1], o = (int)r[4], zy = q % per_pencil ? 1 : 0;
+    each(n * P + 1, [&](int e, int rr, int z) {
+      const int g = o + (rr / N) * sx + (rr % N) * gz + z;
+      xr[e] = x1[g];
+      if (PAIR) x2r[e] = x2[g];
+      if (z >= zy) yr[e] = y[g];
+    });
+    if (PAIR && tid < 2 * n) cr = C[2 * r[0] + tid];
+    if (q + 1 < total && tid < ROW) rowr = table(q + 1)[tid];
+  };
+  auto put = [&](int q) {
+    const long long* r = row(q);
+    const int b = q & 1, n = (int)r[1], zy = q % per_pencil ? 1 : 0;
+    T* u = ub + b * cpb * NNN;
+    each(n * P + 1, [&](int e, int rr, int z) {
+      const int cl = z / P, kk = z - cl * P;
+      if (cl < n) u[cl * NNN + rr * N + kk] = xr[e];
+      if (kk == 0 && cl > 0) u[(cl - 1) * NNN + rr * N + P] = xr[e];
+      if (PAIR) x2b[b * rows + rr * lmax + z] = x2r[e];
+      if (z >= zy) yb[b * rows + rr * lmax + z] = yr[e];
+    });
+    if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = cr;
+    if (q + 1 < total && tid < ROW) row(q + 1)[tid] = rowr;
+  };
+  // chunk q's y out, one coalesced pass; a pencil that goes on keeps its
+  // last face for the next chunk's first cell
+  auto store = [&](int q) {
+    const long long* r = row(q);
+    const int b = q & 1, len = (int)r[1] * P + 1, o = (int)r[4];
+    const bool more = (q + 1) % per_pencil != 0;
+    each(len, [&](int, int rr, int z) {
+      const T v = yb[b * rows + rr * lmax + z];
+      if (more && z == len - 1)
+        yb[(b ^ 1) * rows + rr * lmax] = v;
+      else
+        y[o + (rr / N) * sx + (rr % N) * gz + z] = v;
+    });
+  };
+
+  for (int s = tid; s < NN; s += nthreads) Ds[s] = D[s];
+  if (tid < ROW) row(0)[tid] = table(0)[tid];
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();                   // D, the first row, the mbarriers
+  fetch(0);
+  put(0);
+  __syncthreads();                   // the first chunk's inputs, row 1
+  if (tid == 0)
+    for (int q = 0; q < min(stages, total); ++q) issue(q);
+
+  for (int q = 0; q < total; ++q) {
+    const long long* r = row(q);
+    const long long cell0 = r[0], off = r[2];
+    const int n = (int)r[1], b = q & 1;
+    T* u = ub + (b * cpb + lc) * NNN;
+
+    // G of the chunk: the copy's span, and past it (only at G's end) the
+    // bytes that the aligned span stopped short of, read here
+    const int s = q % stages;
+    unsigned char* stage = ring + (long long)s * stage_bytes;
+    const long long short_by = (cell0 + n) * CB - (off + r[3]);
+    if (short_by > 0) {
+      for (int e = tid; e < (int)(short_by / sizeof(T)); e += nthreads) {
+        const long long at = r[3] + e * (long long)sizeof(T);
+        *reinterpret_cast<T*>(stage + at) = *reinterpret_cast<const T*>(
+            reinterpret_cast<const unsigned char*>(G) + off + at);
+      }
+      fence_proxy_async();
+    }
+    mbar_wait(&bars[s], (unsigned)((q / stages) & 1));
+    __syncthreads();                 // the chunk's G arrived, its inputs
+                                     // are in place, the last one's adds
+                                     // are done
+    // no one reads or writes the last chunk's stage again (every thread
+    // fenced its f1, f2 writes there): refill it, `stages` chunks ahead
+    if (tid == 0 && q > 0 && q - 1 + stages < total) issue(q - 1 + stages);
+
+    // the last chunk's y out (its face carried into this one's buffer);
+    // for the pair, u = c1 x1 + c2 x2 on this thread's own line
+    const bool active = lc < n;
+    if (q > 0) store(q - 1);
+    if (PAIR && active) {
+      const T c1 = cb[b * 2 * cpb + 2 * lc], c2 = cb[b * 2 * cpb + 2 * lc + 1];
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        u[i * NN + t] =
+            c1 * u[i * NN + t] + c2 * x2b[b * rows + (i * N + j) * lmax +
+                                           lc * P + k];
+    }
+    __syncthreads();                 // the carried face in place; the last
+                                     // chunk's buffers are free
+    if (q + 1 < total) fetch(q + 1);
+
+    // the body, adding into the chunk's y buffer: even cells, then odd
+    T* Gc = reinterpret_cast<T*>(stage + (cell0 * CB - off)) + lc * 6 * NNN;
+    cell_apply<T, N, false, STAGED>(
+        x1, x2, T(1), T(0), GShared<T, N>{Gc}, Ds, u, Gc, Gc + NNN,
+        yb + b * rows, active, ZLine{j * lmax + lc * P + k, N * lmax},
+        n > 1 ? (lc & 1) : 0, n > 1 ? 2 : 1);
+    if (q + 1 < total) put(q + 1);
+    fence_proxy_async();             // f1, f2 before the stage's refill
+  }
+  __syncthreads();                   // the last chunk's adds are done
+  store(total - 1);
+}
+
+}  // namespace pencil
+}  // namespace fustpu

@@ -1,6 +1,6 @@
-// The per-cell body shared by the structured (stiffness.cuh), extruded
-// (extruded.cuh) and indexed (indexed.cu) stiffness kernels: for one GLL
-// hexahedron of degree P = N - 1,
+// The per-cell body shared by the structured (stiffness_pencil.cuh, and PR
+// 1's stiffness.cuh), extruded (extruded.cuh) and indexed (indexed.cu)
+// stiffness kernels: for one GLL hexahedron of degree P = N - 1,
 //
 //   y_cell += D^T (c G) D u_cell,   u_cell = c1 x1_cell (+ c2 x2_cell),
 //
@@ -8,8 +8,8 @@
 // dofs, the `Line` functor (line(i) is the global index of node (i, j, k)
 // for the calling thread's (j, k)), and in where the metric c G comes from,
 // the `Metric` functor: read from a precomputed (cells, 6, N^3) stream
-// (`GStream`) or evaluated in registers from the cell's Jacobian monomials
-// (`Corner`, corner.cuh).
+// (`GStream`, or `GShared` from a copy in shared memory) or evaluated in
+// registers from the cell's Jacobian monomials (`Corner`, corner.cuh).
 //
 // Work split: N^2 threads per cell (threadIdx.x = j * N + k), each owning
 // the line of N nodes along i.  The own line of u and the x-gradient stay
@@ -55,11 +55,33 @@ struct GStream {
   }
 };
 
-// What cell_apply computes (a template flag; the production kernels take
-// FULL, the variants of anatomy.cu the others):
+// The same metric read from the cell's 6 x N^3 block of G as the pencil
+// kernel's bulk copy left it in shared memory (stiffness_pencil.cuh): the
+// numbers and the arithmetic of GStream.  Not restrict: the pencil kernel
+// lets the body's f1, f2 overwrite components 0 and 1 of a node once the
+// node's six are read (by the one thread that reads them).
+template <typename T, int N>
+struct GShared {
+  const T* Gc;
+  __device__ __forceinline__ void operator()(int, int n, T wx, T wy, T wz,
+                                             T& f0, T& f1, T& f2) const {
+    constexpr int NNN = N * N * N;
+    const T g0 = Gc[n], g1 = Gc[NNN + n], g2 = Gc[2 * NNN + n];
+    const T g3 = Gc[3 * NNN + n], g4 = Gc[4 * NNN + n];
+    const T g5 = Gc[5 * NNN + n];
+    f0 = g0 * wx + g1 * wy + g2 * wz;
+    f1 = g1 * wx + g3 * wy + g4 * wz;
+    f2 = g2 * wx + g4 * wy + g5 * wz;
+  }
+};
+
+// What cell_apply computes (a template flag; the pencil kernel takes
+// STAGED, the other production kernels FULL, the variants of anatomy.cu
+// the others):
 //   FULL       the operator above;
-//   STAGED     the same, with u already holding the cell's x (the caller
-//              copied it into shared memory; PAIR false);
+//   STAGED     the same, with u already holding the cell's x, or for a
+//              pair c1 x1 + c2 x2 (the caller copied it into shared
+//              memory; PAIR false);
 //   POINTWISE  the x load, the metric and the scatter only: the 1-D
 //              contractions become the identity, w = (u, u, u), and the
 //              metric's three outputs are summed into the node.
@@ -68,11 +90,13 @@ enum Body { FULL = 0, STAGED = 1, POINTWISE = 2 };
 // Must be reached by every thread of the block (it synchronises twice, or
 // not at all for POINTWISE); threads of an inactive cell slot (`active`
 // false) touch no memory.  Ds: D[q * N + i] = l_i'(x_q) in shared memory;
-// metric: the cell's c G (GStream or Corner); u, f1, f2: the cell's N^3
-// shared scratch arrays.  turn >= 0: the block's cells share nodes, so
-// their adds into y run in `turns` turns, with a barrier between turns;
-// this thread's cell adds in turn `turn` (the two cells of a slab pair,
-// slab2.cu).  turn < 0: each thread adds as soon as its sum is ready.
+// metric: the cell's c G (GStream, GShared or Corner); u, f1, f2: the
+// cell's N^3 shared scratch arrays.  turn >= 0: the block's cells share
+// nodes, so their adds into y run in `turns` turns, with a barrier between
+// turns; this thread's cell adds in turn `turn` (the two cells of a slab
+// pair, slab2.cu; a pencil chunk's even and odd cells,
+// stiffness_pencil.cuh).  turn < 0: each thread adds as soon as its sum is
+// ready.
 template <typename T, int N, bool PAIR, int BODY = FULL, typename Metric,
           typename Line>
 __device__ __forceinline__ void cell_apply(

@@ -1,11 +1,12 @@
-"""Anatomy of the structured stiffness kernel: time variants of it that
-keep one part of its work, on the same grid, to see where its time goes.
+"""Anatomy of the parity-class structured stiffness kernel (#1, which the
+main path ran before the z-pencil kernel): time variants of it that keep
+one part of its work, on the same grid, to see where its time goes.
 Counterpart of ``demos/exp_kernel_anatomy.py`` (whose vpu / mxu variants
 are gstream / contract here); runs on the card unless --device cpu is
 given (the plain versions, a correctness run only).
 
 Variants (``fustpu_torch.ops.anatomy``):
-  full      the production kernel
+  full      the parity-class kernel #1 itself
   gstream   the x and G loads, the pointwise metric and the scatter; the
             1-D contractions replaced by the identity
   contract  the sum factorisation with a constant metric, no G read

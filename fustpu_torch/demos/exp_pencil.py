@@ -1,0 +1,124 @@
+"""The parity-class structured stiffness kernels (#1 single, #2 pair: eight
+parity classes of scattered cells) against the z-pencil kernels that
+replaced them on the main path, timed in turns on the same operator and
+fields: parity-class, pencil, pencil, parity-class.  Runs on the card
+unless --device cpu is given (the plain versions, a correctness run only).
+
+    python -m fustpu_torch.demos.exp_pencil [--nc 64 40 40] [--degree 4]
+
+For the single-field and the pair form it prints each kernel's ms per
+apply in its two turns, the rate over the apply's least bytes (G, each
+input field and the pair coefficients read once, y read and written once)
+and the share of the bound (those bytes at the H100's published 3.35
+TB/s), the two kernels against each other and against the plain version
+(rel-l2), and the pencil kernel's schedule (cells a chunk, stages, blocks
+per SM, classes).  The box is generated (`build_box_mesh`), float32; the
+flagship bowl has the same cells and bytes.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from fustpu_torch.demos.common import check_device, clock, rel_l2
+from fustpu_torch.mesh.box import build_box_mesh
+from fustpu_torch.ops import anatomy
+from fustpu_torch.ops import cuda_stiffness as cs
+from fustpu_torch.ops import precompute as pre
+from fustpu_torch.utils.benchmarks import time_apply
+
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--nc", type=int, nargs=3, default=[64, 40, 40])
+    p.add_argument("--degree", type=int, default=4)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--chain", type=int, default=20)
+    p.add_argument("--reps", type=int, default=5)
+    return p
+
+
+def least_bytes(op: cs.CellStiffness, ndofs: int, fields: int) -> int:
+    """G, each input field and the pair coefficients read once, y read and
+    written once."""
+    b = op.G.element_size()
+    pair = op.C.numel() * b if fields == 2 else 0
+    return op.G.numel() * b + (fields + 2) * ndofs * b + pair
+
+
+def main(argv=None) -> dict:
+    """Returns by form ("single", "pair") the operator, the fields, each
+    kernel's output ("parity", "pencil"), the plain version's, the two turns'
+    (median, std) seconds per apply of each kernel and the least bytes."""
+    args = parser().parse_args(argv)
+    check_device(args)
+    dev = torch.device(args.device)
+    mesh = build_box_mesh(tuple(args.nc), args.degree)
+    _, G = pre.cell_geometry_factors(mesh)
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    C = np.stack([rng.uniform(0.5, 2.0, mesh.num_cells),
+                  rng.uniform(-2.0, 2.0, mesh.num_cells)], axis=1)
+    x1 = t(rng.standard_normal(mesh.grid_shape))
+    x2 = t(rng.standard_normal(mesh.grid_shape))
+    base = cs.CellStiffness(G=t(cs.pack_G(G)), D=t(mesh.element.deriv_1d),
+                            nc=mesh.nc)
+    forms = {
+        "single": dict(op=base, xs=(x1,), kernels={
+            "parity": lambda o, xs: anatomy.variant(o, xs[0], "full"),
+            "pencil": lambda o, xs: cs.stiffness(o, xs[0])},
+            plain=lambda o, xs: cs.stiffness_plain(o, xs[0])),
+        "pair": dict(op=base._replace(C=t(C)), xs=(x1, x2), kernels={
+            "parity": lambda o, xs: anatomy.full_pair(o, *xs),
+            "pencil": lambda o, xs: cs.stiffness_pair(o, *xs)},
+            plain=lambda o, xs: cs.stiffness_pair_plain(o, *xs))}
+    print(f"mesh {tuple(mesh.nc)} cells, P={args.degree}, {mesh.ndofs} DOF, "
+          f"f32, {args.device}")
+    out = {"mesh": mesh}
+    for form, f in forms.items():
+        op, xs, kern = f["op"], f["xs"], f["kernels"]
+        nbytes = least_bytes(op, mesh.ndofs, len(xs))
+        ys = {name: k(op, xs) for name, k in kern.items()}
+        plain = f["plain"](op, xs)
+        times = {name: [] for name in kern}
+        for name in ("parity", "pencil", "pencil", "parity"):
+            times[name].append(time_apply(
+                lambda o, _, k=kern[name]: k(o, xs), op, xs[0],
+                chain=args.chain, reps=args.reps))
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        for name in kern:
+            ms = [tt[0] * 1e3 for tt in times[name]]
+            rate = (f", {nbytes / min(ms) / 1e9:.4f} TB/s over {nbytes:,} B"
+                    f", {bound / min(ms):.1%} of the bound {bound:.4f} ms"
+                    if dev.type == "cuda" else "")
+            print(f"{form:6s} {name:6s}: {ms[0]:.4f} / {ms[1]:.4f} ms per "
+                  f"apply{rate}; vs plain rel-l2 "
+                  f"{rel_l2(ys[name], plain):.3e}", flush=True)
+        speed = min(tt[0] for tt in times["parity"]) / \
+            min(tt[0] for tt in times["pencil"])
+        print(f"{form:6s} pencil vs parity-class: rel-l2 "
+              f"{rel_l2(ys['pencil'], ys['parity']):.3e}"
+              + (f", {speed:.4f}x faster" if dev.type == "cuda" else ""),
+              flush=True)
+        out[form] = dict(op=op, xs=xs, ys=ys, plain=plain, times=times,
+                         nbytes=nbytes)
+    if dev.type == "cuda":
+        for form, f in forms.items():
+            s = cs.card_schedule(f["op"], x1, form == "pair")
+            print(f"schedule ({form}): {s.cpb} cells a chunk "
+                  f"({(args.degree + 1) ** 2 * s.cpb} threads), {s.stages} "
+                  f"stages of {s.stage_bytes:,} B, {s.smem:,} B shared a "
+                  f"block, {s.blocks_per_sm} blocks an SM, {s.blocks} "
+                  f"blocks, {len(s.classes)} classes, {len(s.chunks)} "
+                  "chunks")
+    print(f"   timed by {clock(dev)}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,17 @@
-"""Anatomy of the structured stiffness kernel: variants of kernel #1 that
-keep one part of its work, the hand-written CUDA kernels of
-``fustpu_torch/csrc/anatomy.cu`` (template flags of ``stiffness.cuh``),
-their wrappers and their plain versions.
+"""Anatomy of the parity-class structured stiffness kernel: that kernel (#1,
+and its pair form #2) and variants of it that keep one part of its work,
+the hand-written CUDA kernels of ``fustpu_torch/csrc/anatomy.cu``
+(template flags of ``stiffness.cuh``), their wrappers and their plain
+versions.
 
 Counterpart of ``make_variant`` in ``demos/exp_kernel_anatomy.py`` (whose
 `vpu`, `mxu` and `ywin` variants keep one TPU unit's work).  `variant(op,
 x, name)` for the names of `VARIANTS`:
 
-- ``full``: the production kernel (``cuda_stiffness.stiffness``);
+- ``full``: the parity-class kernel #1 itself, the design that the main
+  path ran before the z-pencil kernel (``cuda_stiffness.stiffness``)
+  replaced it;
+  `full_pair` is its pair form, #2;
 - ``contract`` (`mxu`): the sum factorisation with the constant metric
   (0, 0, 0, 1, 0, 1) and no G read;
 - ``gstream`` (`vpu`): the x and G loads, the pointwise metric and the
@@ -18,8 +22,9 @@ x, name)` for the names of `VARIANTS`:
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each variant counts its applies in
-`launches` (``full`` counts in ``cuda_stiffness.launches``).  Only the
-experiment demo ``fustpu_torch.demos.exp_kernel_anatomy`` runs them.
+`launches`.  Only the experiment demos
+``fustpu_torch.demos.exp_kernel_anatomy`` and ``exp_pencil`` (the parity-class
+design against the pencil kernel) run them.
 """
 
 from __future__ import annotations
@@ -30,11 +35,12 @@ from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.ops import spectral_mm as mm
 
 VARIANTS = ("full", "gstream", "contract", "ywin")
-# the kernel's variant flag (anatomy.cu); full is the production kernel
-_FLAG = {"contract": 1, "gstream": 2, "ywin": 3}
+# the kernel's variant flag (anatomy.cu)
+_FLAG = {"full": 0, "contract": 1, "gstream": 2, "ywin": 3}
 
 # Applies that went through each variant's kernel.
-launches = {f"anatomy_{name}": 0 for name in _FLAG}
+launches = {**{f"anatomy_{name}": 0 for name in _FLAG},
+            "anatomy_full_pair": 0}
 
 
 def reset_launches() -> None:
@@ -81,8 +87,6 @@ def variant(op: cs.CellStiffness, x: torch.Tensor, name: str
         raise ValueError(f"variant {name!r}: expected one of {VARIANTS}")
     if x.device.type == "cpu":
         return variant_plain(op, x, name)
-    if name == "full":
-        return cs.stiffness(op, x)
     from fustpu_torch import _build
 
     cs._check(op, x, pair=False)
@@ -96,4 +100,27 @@ def variant(op: cs.CellStiffness, x: torch.Tensor, name: str
         raise RuntimeError(f"anatomy {name} kernel launch failed: error "
                            f"{err}")
     launches[f"anatomy_{name}"] += 1
+    return y
+
+
+def full_pair(op: cs.CellStiffness, x1: torch.Tensor, x2: torch.Tensor
+              ) -> torch.Tensor:
+    """The parity-class pair kernel #2 on `op` (the plain version for CPU
+    tensors)."""
+    if x1.device.type == "cpu":
+        return cs.stiffness_pair_plain(op, x1, x2)
+    from fustpu_torch import _build
+
+    cs._check(op, x1, x2, pair=True)
+    y = torch.zeros(x1.shape, dtype=x1.dtype, device=x1.device)
+    fn = getattr(_build.load(), f"fustpu_anatomy_pair_{cs._SUFFIX[x1.dtype]}")
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = fn(x1.data_ptr(), x2.data_ptr(), op.C.data_ptr(),
+                 op.G.data_ptr(), op.D.data_ptr(), y.data_ptr(), op.P,
+                 *op.nc, stream)
+    if err != 0:
+        raise RuntimeError(f"anatomy full_pair kernel launch failed: error "
+                           f"{err}")
+    launches["anatomy_full_pair"] += 1
     return y

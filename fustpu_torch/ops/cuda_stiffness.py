@@ -1,5 +1,6 @@
-"""Structured stiffness apply on the card: the two hand-written CUDA kernels
-of ``fustpu_torch/csrc/stiffness.cu`` and their wrappers.
+"""Structured stiffness apply on the card: the hand-written CUDA z-pencil
+kernel of ``fustpu_torch/csrc/stiffness.cu`` (``stiffness_pencil.cuh``),
+its launch schedule and its wrappers.
 
 Counterpart of ``fustpu/ops/pallas_stiffness.py``:
 
@@ -13,6 +14,24 @@ The operator data is kept in the kernel layout (`CellStiffness`): G as
 (cells, 6, n^3), so that a cell reads 6 contiguous runs, cells ordered
 cx*ncy*ncz + cy*ncz + cz and nodes i*n^2 + j*n + k.
 
+The kernel is bound by its bytes (G is ~80% of them).  A block owns a
+z-pencil (the ncz cells at one (cx, cy), one contiguous run of G) and walks
+it in chunks of consecutive cells: one bulk copy (TMA) per chunk brings its
+G into a ring of shared stages while an earlier chunk contracts, each
+thread loads its share of the next chunk's x and of the y that earlier
+classes left into registers before the body and writes them to shared
+memory after it, the cells of a chunk add into its y there in two turns
+(even, odd), and one coalesced pass writes it out.  Pencils of one colour
+class, (cx % 2, cy % 2), share no node, so four launches of a persistent
+grid make one apply, deterministic without atomics.  `pencil_schedule`
+decides it on the host: the classes, their pencils, the cells a chunk, the
+stages, the shared bytes and each chunk's 16 B-aligned bulk-copy span; the
+kernel takes it as arguments.  No tensor cores: the 5 x 5 contractions are
+bound by bytes, and TF32 would break the float32 gate of 1e-6.  The
+parity-class design of the same kernels (eight parity classes of scattered
+cells, which the pencil kernel replaced) is
+``fustpu_torch.ops.anatomy``'s ``full`` and `anatomy.full_pair`.
+
 A wrapper given CPU tensors runs the kernel's plain version
 (`stiffness_plain` / `stiffness_pair_plain`, the matmul formulation of
 ``fustpu_torch.ops.spectral_mm`` on the same data).  Given CUDA tensors it
@@ -22,6 +41,8 @@ its launches in `launches` (one per apply).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -59,6 +80,177 @@ def pack_G(G_cells: np.ndarray, coeff: np.ndarray | None = None
     if coeff is not None:
         G = G * np.asarray(coeff, np.float64).reshape(-1)[:, None, None]
     return np.ascontiguousarray(G)
+
+
+# ---------------------------------------------------------------------------
+# The pencil kernel's launch schedule
+# ---------------------------------------------------------------------------
+
+SMEM_BLOCK = 232_448     # shared bytes one block may use (H100)
+SMEM_SM = 233_472        # shared bytes an SM holds
+SMEM_RESERVED = 1_024    # of those, what each resident block reserves
+MAX_THREADS = 256        # threads a block: n^2 a cell
+STAGES = 2               # stages of the G ring
+TABLE_ROW = 5            # int64 a chunk-table row
+ROW_RING = 3             # chunk-table rows a block keeps in shared memory
+
+
+class PencilSchedule(NamedTuple):
+    """How the pencil kernel runs one apply of an operator shape."""
+
+    cpb: int                 # cells a chunk (a block has n^2 cpb threads)
+    stages: int              # stages of the G ring
+    stage_bytes: int         # bytes a stage: cpb cells of G and 16
+    smem: int                # dynamic shared bytes a block
+    blocks_per_sm: int       # resident blocks of that shape on an SM
+    blocks: int              # persistent grid: blocks_per_sm x SMs
+    classes: np.ndarray      # (nclass, 3) int64: first row, pencils, rows a
+                             # pencil
+    chunks: np.ndarray       # (rows, 5) int64: first cell, cells, span
+                             # offset in G (bytes), span bytes, grid index
+                             # of the chunk's node (0, 0, 0)
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def pencil_smem(P: int, itemsize: int, cpb: int, pair: bool = False,
+                stages: int = STAGES) -> tuple[int, int]:
+    """(bytes a stage, dynamic shared bytes a block) of the pencil kernel:
+    the stages' mbarriers and a ring of ROW_RING chunk-table rows (each
+    padded to 16 B), the stages (cpb cells of G and 16 B of slack for the
+    aligned span; the body's f1, f2 go into G's components 0 and 1
+    there), two buffers of every cell's u (n^3 values), two of the chunk's
+    y (n^2 (cpb P + 1) values), and for the pair two of x2 and of the
+    cells' (c1, c2): the layout of ``stiffness_pencil.cuh``, whose D (n^2
+    values) is static shared memory besides."""
+    n = P + 1
+    stage = _round16(cpb * 6 * n ** 3 * itemsize + 16)
+    rows = n * n * (cpb * P + 1)
+    values = 2 * n ** 3 * cpb + 2 * rows + (2 * rows + 4 * cpb if pair else 0)
+    head = _round16(8 * stages) + _round16(8 * ROW_RING * TABLE_ROW)
+    return stage, head + stages * stage + values * itemsize
+
+
+def _static_smem(P: int, itemsize: int) -> int:
+    """The kernel's static shared memory: D, n^2 values, which the compiler
+    rounds up to 128 B."""
+    return -(-(P + 1) ** 2 * itemsize // 128) * 128
+
+
+def model_occupancy(P: int, itemsize: int, pair: bool, cpb: int,
+                    smem: int) -> int:
+    """Blocks an SM holds by its threads and shared memory alone (the card's
+    occupancy query also counts registers): what the CPU tests use."""
+    threads = (P + 1) ** 2 * cpb
+    return min(2048 // threads, 32,
+               SMEM_SM // (smem + _static_smem(P, itemsize) + SMEM_RESERVED))
+
+
+def _steps(nc, cpb: int, blocks: int) -> int:
+    """Chunks that the busiest block of each class walks, summed over the
+    classes: the apply's serial length."""
+    ncx, ncy, ncz = nc
+    pencils = [((ncx - pa + 1) // 2) * ((ncy - pb + 1) // 2)
+               for pa in (0, 1) for pb in (0, 1)]
+    return sum(-(-m // blocks) * -(-ncz // cpb) for m in pencils if m)
+
+
+def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
+                    occupancy=model_occupancy) -> PencilSchedule:
+    """The launch of one apply on a card of `sms` SMs, for nc cells of
+    degree P in a dtype of `itemsize` bytes; `occupancy(P, itemsize, pair,
+    cpb, smem)` gives the blocks an SM holds.
+
+    - cells a chunk: the cpb that makes the apply shortest, its length taken
+      as the chunks that the busiest block of each class walks (`_steps`)
+      times the cells that share its SM (blocks x cpb); on a tie the larger
+      cpb.  A chunk holds at most ncz cells and a block 256 threads;
+    - classes (cx % 2, cy % 2) in that order; a class's pencils in (cx, cy)
+      order, each pencil's chunks along z;
+    - each chunk's bulk-copy span: its run of G widened to 16 B on both
+      sides, and cut back to a 16 B boundary where that would pass G's end
+      (the kernel reads the bytes past the span itself)."""
+    n = P + 1
+    ncx, ncy, ncz = (int(c) for c in nc)
+    best = None
+    for cpb in range(1, max(1, MAX_THREADS // (n * n)) + 1):
+        if cpb > ncz:
+            break
+        stage, smem = pencil_smem(P, itemsize, cpb, pair)
+        if smem + _static_smem(P, itemsize) > SMEM_BLOCK:
+            break
+        bps = int(occupancy(P, itemsize, pair, cpb, smem))
+        if bps < 1:
+            continue
+        key = (_steps((ncx, ncy, ncz), cpb, bps * sms) * cpb * bps, -cpb)
+        if best is None or key < best[0]:
+            best = (key, cpb, stage, smem, bps)
+    if best is None:
+        raise ValueError(f"pencil kernel: no block of degree {P} fits an SM")
+    _, cpb, stage, smem, bps = best
+    c0 = np.arange(0, ncz, cpb)
+    cn = np.minimum(cpb, ncz - c0)
+    firsts, classes, rows = [], [], 0
+    for pa in (0, 1):
+        for pb in (0, 1):
+            ab = (np.arange(pa, ncx, 2)[:, None] * ncy
+                  + np.arange(pb, ncy, 2)[None, :]).reshape(-1)
+            if ab.size == 0:
+                continue
+            classes.append((rows, ab.size, c0.size))
+            firsts.append((ab[:, None] * ncz + c0[None, :]).reshape(-1))
+            rows += ab.size * c0.size
+    cell0 = np.concatenate(firsts).astype(np.int64)
+    ncell = np.tile(cn, rows // c0.size).astype(np.int64)
+    cb = 6 * n ** 3 * itemsize
+    start, end = cell0 * cb, (cell0 + ncell) * cb
+    total = ncx * ncy * ncz * cb
+    off = start // 16 * 16
+    stop = -(-end // 16) * 16
+    stop = np.where(stop > total, end // 16 * 16, stop)
+    gz = ncz * P + 1
+    sx = (ncy * P + 1) * gz
+    a, b, c = cell0 // (ncy * ncz), (cell0 // ncz) % ncy, cell0 % ncz
+    return PencilSchedule(
+        cpb=cpb, stages=STAGES, stage_bytes=stage, smem=smem,
+        blocks_per_sm=bps, blocks=bps * sms,
+        classes=np.asarray(classes, np.int64).reshape(-1, 3),
+        chunks=np.stack([cell0, ncell, off, stop - off,
+                         a * P * sx + b * P * gz + c * P], axis=1))
+
+
+@functools.cache
+def _card_schedule(nc: tuple, P: int, dtype: torch.dtype, pair: bool,
+                   device: torch.device) -> tuple:
+    """The schedule on `device` (its SMs, its occupancy answers), its chunk
+    table there and its classes as a C array, built once per shape."""
+    from fustpu_torch import _build
+
+    lib = _build.load()
+
+    def occupancy(P, itemsize, pair, cpb, smem):
+        got = lib.fustpu_stiffness_occupancy(P, int(itemsize == 8),
+                                             int(pair), cpb, smem)
+        if got < 0:
+            raise RuntimeError(f"stiffness occupancy query failed: error "
+                               f"{-got}")
+        return got
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    with torch.cuda.device(device):
+        sched = pencil_schedule(nc, P, itemsize, sms, pair, occupancy)
+    classes = sched.classes.reshape(-1)
+    return (sched, torch.as_tensor(sched.chunks, device=device),
+            (ctypes.c_longlong * classes.size)(*classes.tolist()))
+
+
+def card_schedule(op: CellStiffness, x: torch.Tensor,
+                  pair: bool) -> PencilSchedule:
+    """The schedule that an apply of `op` on x's card runs."""
+    return _card_schedule(tuple(op.nc), op.P, x.dtype, pair, x.device)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -144,12 +336,23 @@ def _launch(name: str, op: CellStiffness, xs, extra) -> torch.Tensor:
     from fustpu_torch import _build
 
     x = xs[0]
+    if op.G.data_ptr() % 16:
+        raise ValueError("stiffness kernel: G's data is not 16 B-aligned "
+                         "(the bulk copies need it)")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"stiffness kernel: {x.numel()} grid nodes, the "
+                         "kernel indexes fewer than 2^31")
+    sched, chunks, classes = _card_schedule(tuple(op.nc), op.P, x.dtype,
+                                            len(xs) == 2, x.device)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     fn = getattr(_build.load(), f"fustpu_{name}_{_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(),
-                 op.D.data_ptr(), y.data_ptr(), op.P, *op.nc, stream)
+                 op.D.data_ptr(), y.data_ptr(), op.P, chunks.data_ptr(),
+                 classes, len(sched.classes), sched.blocks, sched.cpb,
+                 sched.stages, sched.stage_bytes, sched.smem, op.nc[1],
+                 op.nc[2], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
     launches[name] += 1

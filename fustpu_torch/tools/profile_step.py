@@ -47,7 +47,8 @@ def summarize_trace(events: list[dict]) -> dict:
     """Device time by group from a Chrome trace's event list (torch.profiler
     `export_chrome_trace`): 'stiffness' (the CUDA stiffness kernels),
     'copies' (device memcpy / memset) and 'elementwise' (every other
-    kernel); 'stiffness' holds the structured, extruded and indexed
+    kernel); 'stiffness' holds the structured (the z-pencil kernel, and
+    the parity-class and the corner stiffness_kernel), extruded and indexed
     kernels and the staged engine's three.  Returns {group: (microseconds,
     launches)} plus 'busy_us' (the union of all device intervals) and
     'span_us' (first start to last end)."""
@@ -63,6 +64,7 @@ def summarize_trace(events: list[dict]) -> dict:
         if cat != "kernel":
             g = "copies"
         elif any(k in e.get("name", "") for k in ("stiffness_kernel",
+                                                  "pencil_kernel",
                                                   "extruded_kernel",
                                                   "indexed_kernel",
                                                   "engine_gather",

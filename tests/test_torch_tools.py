@@ -61,6 +61,17 @@ def test_summarize_trace_counts_the_indexed_kernel():
     assert s["busy_us"] == pytest.approx(13.0)
 
 
+def test_summarize_trace_counts_the_pencil_kernel():
+    """The main path's structured kernel (four class launches an apply)."""
+    name = "void fustpu::pencil::pencil_kernel<float, 5, false>(...)"
+    events = [_ev("kernel", name, 10.0 * c, 9.0) for c in range(4)]
+    events.append(_ev("kernel", "vectorized_elementwise_kernel", 40.0, 3.0))
+    s = summarize_trace(events)
+    assert s["stiffness"] == (36.0, 4)
+    assert s["elementwise"] == (3.0, 1)
+    assert s["busy_us"] == pytest.approx(39.0)
+
+
 def test_stiffness_bytes_counts_the_corner_channels():
     """In the capacity mode the geometry an apply must read is the corner
     channels (37 per cell), not a metric stream."""
