@@ -17,22 +17,25 @@ Phases (each prints its time; any failure exits non-zero):
      solve on the kernel, with the focal pressure checked;
   7. the two-layer flagship: 10 steps pair kernel vs plain, then 50 steps
      through the pair kernel;
-  8. the extruded kernels (imported prismatic meshes) against their plain
-     version at P = 2..10 on an imported cylinder and a shuffled box,
-     float64 and float32, with each mesh's stack colours and scatter
-     classes (run right after phase 3);
+  8. the extruded kernels (imported prismatic meshes; the stack kernel)
+     against their plain version at P = 2..10 on an imported cylinder and
+     a shuffled box, float64 and float32, two applies bitwise equal, and
+     against the class-launch design of the same kernels in float64, with
+     each mesh's stack colours (run right after phase 3);
   9. the piston demo on the imported O-grid cylinder (--refine 2, P=4,
      float32), the full run, checked against the O'Neil solution;
  10. the imported H131 bowl (--geometry unstructured --elements 64
-     --degree 4, float32, 6,661,697 DOF): 10 steps kernel vs plain, then
-     the whole solve on the kernel, its focal pressure checked against
-     the band and against phase 6's conformal run;
+     --degree 4, float32, 6,661,697 DOF): kernel vs plain with the stack
+     kernel's schedule, 10 steps kernel vs plain, then the whole solve on
+     the kernel, its focal pressure checked against the band and against
+     phase 6's conformal run;
  11. the two-layer imported bowl, 50 steps through the extruded pair
      kernel;
- 12. the indexed kernels (non-prismatic meshes) against their plain
-     version at P = 2..10 on the imported cylinder read as a general mesh
-     and a perturbed shuffled box, float64 and float32, with each mesh's
-     colour classes (run right after phase 8);
+ 12. the indexed kernels (non-prismatic meshes; the chunk kernel) against
+     their plain version at P = 2..10 on the imported cylinder read as a
+     general mesh and a perturbed shuffled box, float64 and float32, two
+     applies bitwise equal, and against the class-launch design in
+     float64, with each mesh's chunk schedule (run right after phase 8);
  13. the bodyfit H131 bowl (--geometry bodyfit --elements 64 --degree 4,
      float32, 6,661,697 DOF on a mesh that no axis extrudes): kernel vs
      plain and 10 steps kernel vs plain, then the whole solve on the
@@ -110,10 +113,18 @@ Phases (each prints its time; any failure exits non-zero):
      exp_pencil demo at the flagship's 64 x 40 x 40 cells and at 32^3
      (P = 4, float32), in turns (old, new, new, old), single and pair, ms,
      TB/s and share of the bound (27a); the flagship's whole solve on the
-     parity-class kernel, its focal pressure against phase 6b's (27b).
+     parity-class kernel, its focal pressure against phase 6b's (27b);
+ 28. the class-launch designs of #6 and #11 (`extruded_classes`,
+     `indexed_classes` and their pair forms) against the stack and chunk
+     kernels that replaced them, and #11 against the composed engine: the
+     exp_imported demo on phase 10a's imported bowl, phase 13a's bodyfit
+     bowl and phase 15a's P=6 bodyfit bowl (P = 4 and 6, float32), in
+     turns (old, new, new, old), single and pair, ms, TB/s and share of
+     the bound, each new kernel's schedule and a few other schedules'
+     times (run after phase 15).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, in every rank of 22
-its solve, and the demos of 24, 25, 26 and 27a) has the launch counters
+its solve, and the demos of 24, 25, 26, 27a and 28) has the launch counters
 reset just before it and read just after. The line before the last is the
 kernels' JSON summary; the last line is the result.
 """
@@ -268,19 +279,23 @@ def solve_peak(model, dt: float, steps: int) -> int:
 
 
 def scatter_summary(mesh) -> str:
-    """The extruded kernel's scatter design on `mesh`: stack colours and
-    (colour, layer parity) classes, one launch each."""
+    """The extruded kernels' scatter design on `mesh`: stack colours, and
+    the class-launch kernel's (colour, layer parity) classes."""
     from fustpu_torch.ops import cuda_extruded as ce
 
     colours = int(ce.colour_stacks(mesh.rows2d).max()) + 1
     classes = len(ce.scatter_classes(mesh.rows2d, mesh.nz)[1]) - 1
-    return f"{colours} stack colours, {classes} scatter classes"
+    return (f"{colours} stack colours ({classes} classes of the "
+            "class-launch kernel)")
 
 
-def colour_summary(bounds: tuple) -> str:
-    """The indexed kernel's scatter design, from its class bounds: one
-    launch per colour class."""
-    return f"{len(bounds) - 1} colour classes"
+def stack_summary(s) -> str:
+    """The stack kernel's schedule `s` (`cuda_extruded.StackSchedule`)."""
+    return (f"stack kernel: {s.cpb} cells a chunk, {s.segments} segment(s) "
+            f"a stack, {len(s.classes)} classes of "
+            f"{s.classes[:, 1].tolist()} segments, {len(s.chunks)} chunks, "
+            f"{s.blocks_per_sm} blocks an SM, {s.blocks} blocks, "
+            f"{s.smem:,} B shared a block")
 
 
 def main() -> None:
@@ -294,9 +309,9 @@ def main() -> None:
     from fustpu_torch import _build
     from fustpu_torch.demos import (capacity, capacity_imported, linear_box,
                                     linear_piston, nonlinear_bowl)
-    from fustpu_torch.demos import (exp_g_layout, exp_kernel_anatomy,
-                                    exp_mosaic_relayout, exp_pencil,
-                                    exp_slab2w)
+    from fustpu_torch.demos import (exp_g_layout, exp_imported,
+                                    exp_kernel_anatomy, exp_mosaic_relayout,
+                                    exp_pencil, exp_slab2w)
     from fustpu_torch.demos.common import run_demo
     from fustpu_torch.mesh import msh_io, shapes
     from fustpu_torch.mesh.box import build_box_mesh
@@ -501,7 +516,7 @@ def main() -> None:
 
     with phase("8 extruded kernels vs plain, P=2..10"), \
             tempfile.TemporaryDirectory() as tmp:
-        worst = {"f64": 0.0, "f32": 0.0}
+        worst = {"f64": 0.0, "f32": 0.0, "old": 0.0}
         ce.reset_launches()
         for P in range(2, 11):
             v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
@@ -526,38 +541,52 @@ def main() -> None:
                     cases.append(("pair", {"pair": (c1, c2)}))
                 for label, kw in cases:
                     pair = "pair" in kw
+                    fns = {"plain": (ce.extruded_plain,
+                                     ce.extruded_pair_plain),
+                           "kernel": (ce.extruded, ce.extruded_pair),
+                           "classes": (ce.extruded_classes,
+                                       ce.extruded_classes_pair)}
 
-                    def apply(dtype, plain):
+                    def apply(dtype, kind):
                         o = disc.stiffness_op(dtype, dev, **kw)
                         a, b = x1.to(dtype), x2.to(dtype)
-                        if pair:
-                            f = ce.extruded_pair_plain if plain \
-                                else ce.extruded_pair
-                            return f(o, a, b)
-                        f = ce.extruded_plain if plain else ce.extruded
-                        return f(o, a)
+                        f = fns[kind][pair]
+                        return f(o, a, b) if pair else f(o, a)
 
-                    ref = apply(torch.float64, plain=True)
-                    e64 = rel_l2(apply(torch.float64, plain=False), ref)
-                    e32 = rel_l2(apply(torch.float32, plain=False), ref)
+                    ref = apply(torch.float64, "plain")
+                    y64 = apply(torch.float64, "kernel")
+                    y32 = apply(torch.float32, "kernel")
+                    e64, e32 = rel_l2(y64, ref), rel_l2(y32, ref)
+                    e_old = rel_l2(y64, apply(torch.float64, "classes"))
+                    same = all(torch.equal(y, apply(y.dtype, "kernel"))
+                               for y in (y64, y32))
                     torch.cuda.synchronize()
                     print(f"   P={P:2d} {mname:8s} {label:13s} f64 "
-                          f"{e64:.3e}  f32 {e32:.3e}", flush=True)
+                          f"{e64:.3e}  f32 {e32:.3e}  vs the class-launch "
+                          f"kernel f64 {e_old:.3e}, two applies bitwise "
+                          f"{same}", flush=True)
                     worst["f64"] = max(worst["f64"], e64)
                     worst["f32"] = max(worst["f32"], e32)
+                    worst["old"] = max(worst["old"], e_old)
+                    if not same:
+                        fail(f"P={P} {mname} {label}: two applies differ")
                     if not e64 <= F64_TOL:
                         fail(f"f64 extruded kernel vs plain {e64:.3e}")
                     if not e32 <= F32_TOL:
                         fail(f"f32 extruded kernel vs plain f64 {e32:.3e}")
+                    if not e_old <= PARITY_TOL:
+                        fail(f"f64 stack kernel vs the class-launch kernel "
+                             f"{e_old:.3e} > {PARITY_TOL}")
         print(f"   worst rel-l2: f64 {worst['f64']:.3e} (tol {F64_TOL}), "
-              f"f32 {worst['f32']:.3e} (tol {F32_TOL}); launches "
-              f"{dict(ce.launches)}")
+              f"f32 {worst['f32']:.3e} (tol {F32_TOL}), vs the class-launch "
+              f"kernel {worst['old']:.3e} (tol {PARITY_TOL}); launches "
+              f"{dict(ce.launches)}, {dict(ce.class_launches)}")
         if ce.launches["extruded"] == 0 or ce.launches["extruded_pair"] == 0:
             fail("an extruded kernel's launch counter did not move")
 
     with phase("12 indexed kernels vs plain, P=2..10"), \
             tempfile.TemporaryDirectory() as tmp:
-        worst = {"f64": 0.0, "f32": 0.0}
+        worst = {"f64": 0.0, "f32": 0.0, "old": 0.0}
         ci.reset_launches()
         for P in range(2, 11):
             v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
@@ -581,35 +610,49 @@ def main() -> None:
                     cases.append(("pair", {"pair": (c1, c2)}))
                 for label, kw in cases:
                     pair = "pair" in kw
+                    fns = {"plain": (ci.indexed_plain, ci.indexed_pair_plain),
+                           "kernel": (ci.indexed, ci.indexed_pair),
+                           "classes": (ci.indexed_classes,
+                                       ci.indexed_classes_pair)}
 
-                    def apply(dtype, plain):
+                    def apply(dtype, kind):
                         o = disc.stiffness_op(dtype, dev, **kw)
                         a, b = x1.to(dtype), x2.to(dtype)
-                        if pair:
-                            f = ci.indexed_pair_plain if plain \
-                                else ci.indexed_pair
-                            return f(o, a, b)
-                        f = ci.indexed_plain if plain else ci.indexed
-                        return f(o, a)
+                        f = fns[kind][pair]
+                        return f(o, a, b) if pair else f(o, a)
 
-                    ref = apply(torch.float64, plain=True)
-                    e64 = rel_l2(apply(torch.float64, plain=False), ref)
-                    e32 = rel_l2(apply(torch.float32, plain=False), ref)
+                    ref = apply(torch.float64, "plain")
+                    y64 = apply(torch.float64, "kernel")
+                    y32 = apply(torch.float32, "kernel")
+                    e64, e32 = rel_l2(y64, ref), rel_l2(y32, ref)
+                    e_old = rel_l2(y64, apply(torch.float64, "classes"))
+                    same = all(torch.equal(y, apply(y.dtype, "kernel"))
+                               for y in (y64, y32))
                     torch.cuda.synchronize()
                     print(f"   P={P:2d} {mname:8s} {label:13s} f64 "
-                          f"{e64:.3e}  f32 {e32:.3e}", flush=True)
+                          f"{e64:.3e}  f32 {e32:.3e}  vs the class-launch "
+                          f"kernel f64 {e_old:.3e}, two applies bitwise "
+                          f"{same}", flush=True)
                     worst["f64"] = max(worst["f64"], e64)
                     worst["f32"] = max(worst["f32"], e32)
+                    worst["old"] = max(worst["old"], e_old)
+                    if not same:
+                        fail(f"P={P} {mname} {label}: two applies differ")
                     if not e64 <= F64_TOL:
                         fail(f"f64 indexed kernel vs plain {e64:.3e}")
                     if not e32 <= F32_TOL:
                         fail(f"f32 indexed kernel vs plain f64 {e32:.3e}")
+                    if not e_old <= PARITY_TOL:
+                        fail(f"f64 chunk kernel vs the class-launch kernel "
+                             f"{e_old:.3e} > {PARITY_TOL}")
+                ist = IndexedStiffness(disc.stiffness_op(torch.float32, dev),
+                                       "cuda")
                 print(f"   P={P:2d} {mname}: {mesh.num_cells} cells, "
-                      f"{colour_summary(disc.scatter_classes[1])}",
-                      flush=True)
+                      f"{ist.scatter_summary()}", flush=True)
         print(f"   worst rel-l2: f64 {worst['f64']:.3e} (tol {F64_TOL}), "
-              f"f32 {worst['f32']:.3e} (tol {F32_TOL}); launches "
-              f"{dict(ci.launches)}")
+              f"f32 {worst['f32']:.3e} (tol {F32_TOL}), vs the class-launch "
+              f"kernel {worst['old']:.3e} (tol {PARITY_TOL}); launches "
+              f"{dict(ci.launches)}, {dict(ci.class_launches)}")
         if ci.launches["indexed"] == 0 or ci.launches["indexed_pair"] == 0:
             fail("an indexed kernel's launch counter did not move")
 
@@ -751,7 +794,7 @@ def main() -> None:
                                  f"scatter {es:.3e})")
                         worst[key] = max(worst[key], e)
                         if "coeff" not in kw:
-                            iop = cen.to_indexed(op, disc.scatter_classes)
+                            iop = cen.to_indexed(op, disc.chunk_plan)
                             yi = (ci.indexed_pair(iop, a, b) if pair
                                   else ci.indexed(iop, a))
                             ei = rel_l2(y, yi)
@@ -1308,6 +1351,7 @@ def main() -> None:
         imesh = ibowl.mesh
         print(f"   host setup (export, import, extrusion detection, "
               f"geometry, upload) {time.perf_counter() - t0:.1f} s")
+        idisc3 = ibowl.disc             # for phase 28
         structure = (imesh.axis, imesh.nstacks, imesh.nz, imesh.ndofs)
         print(f"   axis {structure[0]}, {structure[1]} stacks, "
               f"{structure[2]} layers, {structure[3]} DOF, "
@@ -1330,6 +1374,7 @@ def main() -> None:
                             extra=kst3.rows.numel() * 4))
         print(f"   {smi}: extruded at {imesh.num_cells} cells: "
               f"{kernels['extruded']}")
+        print(f"   {stack_summary(ce.card_schedule(kst3.cell_op, x, False))}")
         del yk, yp
         s0 = ibowl.init_state()
         sk, _ = ibowl.solve(s0, dt3, 10)
@@ -1529,6 +1574,7 @@ def main() -> None:
                             extra=kst4.rows.numel() * 4))
         print(f"   {smi}: extruded pair at {ibowl2.mesh.num_cells} cells: "
               f"{kernels['extruded_pair']}")
+        print(f"   {stack_summary(ce.card_schedule(kst4.cell_op, x, True))}")
         del yk, yp, pst4, x, x2
 
     ce.reset_launches()
@@ -1648,7 +1694,7 @@ def main() -> None:
               f"locality_order, geometry, colouring, upload) "
               f"{time.perf_counter() - t0:.1f} s; {mesh.num_cells} cells, "
               f"{mesh.ndofs} DOF, {type(mesh).__name__}, "
-              f"{colour_summary(kst.bounds)}, dt {dt:.6e} s, "
+              f"{kst.scatter_summary()}, dt {dt:.6e} s, "
               f"{nsteps} steps", flush=True)
         if isinstance(mesh, ExtrudedHexMesh) or not isinstance(
                 kst, IndexedStiffness) or kst.impl != "cuda":
@@ -1692,6 +1738,7 @@ def main() -> None:
                       "bodyfit"]
         bbowl, dt5, nsteps5, focus5, pst5, kernels["indexed"], pb13 = \
             bodyfit_build(args5_argv, "bodyfit bowl")
+        bdisc5 = bbowl.disc             # for phase 28
         if (bbowl.mesh.num_cells, bbowl.mesh.ndofs) != (102400, 6661697):
             fail(f"bodyfit bowl structure {bbowl.mesh.num_cells} cells, "
                  f"{bbowl.mesh.ndofs} DOF")
@@ -1838,6 +1885,7 @@ def main() -> None:
         P6 = ["--elements", "48", "--degree", "6", "--geometry", "bodyfit"]
         bbowl7, dt7, nsteps7, focus7, pst7, k7, pb15 = bodyfit_build(
             P6, "P=6 bodyfit bowl")
+        bdisc7 = bbowl7.disc            # for phase 28
         if (bbowl7.mesh.num_cells, bbowl7.mesh.ndofs) != (49152, 10764961):
             fail(f"P=6 bodyfit structure {bbowl7.mesh.num_cells} cells, "
                  f"{bbowl7.mesh.ndofs} DOF")
@@ -1927,6 +1975,66 @@ def main() -> None:
     launches.update(indexed=n_idx + n_idx7 + n_idx7c,
                     indexed_pair=n_idx_pair)
 
+    with phase("28 exp_imported: the class-launch kernels against the "
+               "stack and chunk kernels (and the engine) in turns, P=4 f32 "
+               "at the imported and bodyfit bowls, P=6 bodyfit"):
+        ce.reset_launches()
+        ci.reset_launches()
+        cmp = {"#6": exp_imported.compare_extruded(idisc3, dev),
+               "#11": exp_imported.compare_indexed(bdisc5, dev),
+               "#11 P=6": exp_imported.compare_indexed(
+                   bdisc7, dev, label="#11 P=6", pair=False, others=())}
+        torch.cuda.synchronize()
+        print(f"   launches in the demo: {dict(ce.class_launches)}, "
+              f"{dict(ci.class_launches)}")
+        for counts in (ce.class_launches, ci.class_launches):
+            for name, n in counts.items():
+                demo_launches[name] = n
+                if not n:
+                    fail(f"{name} was not launched by the demo")
+        for label, out in cmp.items():
+            old, new = ("classes", "stack") if label == "#6" else \
+                ("classes", "chunks")
+            for form, f in out.items():
+                for name, y in f["ys"].items():
+                    e = rel_l2(y, f["plain"])
+                    if not e <= F32_TOL:
+                        fail(f"{label} {form} {name} vs plain {e:.3e}")
+                ms = {name: min(t[0] for t in tt) * 1e3
+                      for name, tt in f["times"].items()}
+                b_ms = f["nbytes"] / PEAK_BYTES_PER_S * 1e3
+                vs = "".join(f", {name} {m:.4f} ms ({b_ms / m:.1%})"
+                             for name, m in ms.items()
+                             if name not in (old, new))
+                print(f"   {smi}: {label} {form}: the class-launch kernel "
+                      f"{ms[old]:.4f} ms ({b_ms / ms[old]:.1%} of the bound "
+                      f"{b_ms:.4f} ms), the new kernel {ms[new]:.4f} ms "
+                      f"({b_ms / ms[new]:.1%}, "
+                      f"{f['nbytes'] / ms[new] / 1e9:.4f} TB/s){vs}: "
+                      f"{ms[old] / ms[new]:.4f}x", flush=True)
+        for name, label, form in (
+                ("extruded_classes", "#6", "single"),
+                ("extruded_classes_pair", "#6", "pair"),
+                ("indexed_classes", "#11", "single"),
+                ("indexed_classes_pair", "#11", "pair")):
+            f = cmp[label][form]
+            module = (ExtrudedStiffness if label == "#6"
+                      else IndexedStiffness)(f["op"], "mm")
+            xs = f["xs"]
+            plain = (lambda m=module, xs=xs: m(xs[0])) if form == "single" \
+                else (lambda m=module, xs=xs: m.pair(*xs))
+            yk, yp = f["ys"]["classes"], f["plain"]
+            index = (f["op"].rows if label == "#6" else f["op"].dofmap)
+            kernels[name] = dict(
+                max_abs_err=float((yk - yp).abs().max()),
+                rel_l2=rel_l2(yk, yp),
+                ms=min(t[0] for t in f["times"]["classes"]) * 1e3,
+                plain_ms=time_ms(plain, 3),
+                cost=apply_cost(f["op"].G, f["op"].ndofs, len(xs),
+                                extra=index.numel() * 4))
+            print(f"   {smi}: {name}: {kernels[name]}", flush=True)
+        del cmp, f, module, xs, yk, yp, idisc3, bdisc5, bdisc7
+
     def capacity_run(demo, argv, label, kernel):
         """Run a capacity demo through its `main` on the card (counters
         reset just before, read just after); check its launches and its
@@ -1995,14 +2103,22 @@ def main() -> None:
                          "fustpu/ops/pallas_stiffness.py:170"),
         "anatomy_full_pair": ("fustpu_torch/csrc/stiffness.cuh",
                               "fustpu/ops/pallas_stiffness.py:726"),
-        "extruded": ("fustpu_torch/csrc/extruded.cu",
+        "extruded": ("fustpu_torch/csrc/extruded_stack.cu",
                      "fustpu/ops/pallas_extruded.py:604"),
-        "extruded_pair": ("fustpu_torch/csrc/extruded.cu",
+        "extruded_pair": ("fustpu_torch/csrc/extruded_stack.cu",
                           "fustpu/ops/pallas_extruded.py:604"),
-        "indexed": ("fustpu_torch/csrc/indexed.cu",
+        "extruded_classes": ("fustpu_torch/csrc/extruded.cu",
+                             "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_classes_pair": ("fustpu_torch/csrc/extruded.cu",
+                                  "fustpu/ops/pallas_extruded.py:604"),
+        "indexed": ("fustpu_torch/csrc/indexed_chunk.cu",
                     "fustpu/ops/pallas_gather.py:1417"),
-        "indexed_pair": ("fustpu_torch/csrc/indexed.cu",
+        "indexed_pair": ("fustpu_torch/csrc/indexed_chunk.cu",
                          "fustpu/ops/pallas_gather.py:1417"),
+        "indexed_classes": ("fustpu_torch/csrc/indexed.cu",
+                            "fustpu/ops/pallas_gather.py:1417"),
+        "indexed_classes_pair": ("fustpu_torch/csrc/indexed.cu",
+                                 "fustpu/ops/pallas_gather.py:1417"),
         "corner": ("fustpu_torch/csrc/corner.cu",
                    "fustpu/ops/pallas_stiffness.py:963"),
         "corner_pair": ("fustpu_torch/csrc/corner.cu",

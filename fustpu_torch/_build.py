@@ -114,6 +114,31 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     lib.fustpu_stiffness_occupancy.argtypes = [i, i, i, i, i]
     lib.fustpu_stiffness_occupancy.restype = i
+    # the stack kernel: the pencil kernel's schedule with the segments' row
+    # ids after the chunk table, nz in place of ncy, ncz
+    stack = [p, p, p, i, i, i, i, i, i, i, p]
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"fustpu_extruded_stack_{suffix}")
+        fn.argtypes = [p, p, p, p, i, *stack]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_extruded_stack_pair_{suffix}")
+        fn.argtypes = [p, p, p, p, p, p, i, *stack]
+        fn.restype = i
+    lib.fustpu_extruded_stack_occupancy.argtypes = [i, i, i, i, i]
+    lib.fustpu_extruded_stack_occupancy.restype = i
+    # the chunked indexed kernel: its chunk table, unique ids, ends and
+    # positions, classes, their count, blocks, cells a chunk, stage bytes,
+    # shared bytes, the most unique dofs of a chunk, the stream
+    chunk = [p, p, p, p, p, i, i, i, i, i, i, p]
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"fustpu_indexed_chunk_{suffix}")
+        fn.argtypes = [p, p, p, p, i, *chunk]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_indexed_chunk_pair_{suffix}")
+        fn.argtypes = [p, p, p, p, p, p, i, *chunk]
+        fn.restype = i
+    lib.fustpu_indexed_chunk_occupancy.argtypes = [i, i, i, i, i]
+    lib.fustpu_indexed_chunk_occupancy.restype = i
     for name in ("fustpu_extruded_f32", "fustpu_extruded_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]

@@ -21,63 +21,7 @@
 
 namespace {
 
-constexpr int MAX_SMEM = 232448;   // one block's shared memory on Hopper
-
-// Lets the kernel take all the dynamic shared memory that its static D
-// leaves of a block's.
-template <typename T, int N, bool PAIR>
-cudaError_t allow_smem() {
-  static bool done = false;
-  if (done) return cudaSuccess;
-  cudaFuncAttributes attr;
-  cudaError_t err =
-      cudaFuncGetAttributes(&attr, fustpu::pencil::pencil_kernel<T, N, PAIR>);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fustpu::pencil::pencil_kernel<T, N, PAIR>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             MAX_SMEM - (int)attr.sharedSizeBytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
-template <typename T, bool PAIR, int N>
-int pencil_launch_n(const void* x1, const void* x2, const void* C,
-                    const void* G, const void* D, void* y,
-                    const void* chunks, const long long* classes, int nclass,
-                    int blocks, int cpb, int stages, int stage_bytes,
-                    int smem, int ncy, int ncz, cudaStream_t stream) {
-  cudaError_t err = allow_smem<T, N, PAIR>();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(N * N, cpb);
-  for (int c = 0; c < nclass; ++c) {
-    const long long first = classes[3 * c], pencils = classes[3 * c + 1];
-    const int per_pencil = (int)classes[3 * c + 2];
-    if (pencils <= 0) continue;
-    const unsigned grid = (unsigned)(pencils < blocks ? pencils : blocks);
-    fustpu::pencil::pencil_kernel<T, N, PAIR><<<grid, block, smem, stream>>>(
-        static_cast<const T*>(x1), static_cast<const T*>(x2),
-        static_cast<const T*>(C), static_cast<const T*>(G),
-        static_cast<const T*>(D), static_cast<T*>(y),
-        static_cast<const long long*>(chunks), first, (int)pencils, per_pencil,
-        stages, stage_bytes, ncy, ncz);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-template <typename T, bool PAIR, int N>
-int occupancy_n(int cpb, int smem) {
-  cudaError_t err = allow_smem<T, N, PAIR>();
-  if (err != cudaSuccess) return -(int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fustpu::pencil::pencil_kernel<T, N, PAIR>, N * N * cpb, smem);
-  return err == cudaSuccess ? blocks : -(int)err;
-}
-
-#define FUSTPU_DEGREES(M) \
-  M(2) M(3) M(4) M(5) M(6) M(7) M(8) M(9) M(10)
+using fustpu::pencil::BoxRows;
 
 template <typename T, bool PAIR>
 int launch(int P, const void* x1, const void* x2, const void* C,
@@ -86,11 +30,13 @@ int launch(int P, const void* x1, const void* x2, const void* C,
            int stages, int stage_bytes, int smem, int ncy, int ncz,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int gz = ncz * P + 1;
+  const BoxRows lines{gz, (ncy * P + 1) * gz, nullptr};
 #define FUSTPU_CASE(P_)                                                    \
   case P_:                                                                 \
-    return pencil_launch_n<T, PAIR, P_ + 1>(                               \
+    return fustpu::pencil::launch_classes<T, P_ + 1, PAIR>(                \
         x1, x2, C, G, D, y, chunks, classes, nclass, blocks, cpb, stages,  \
-        stage_bytes, smem, ncy, ncz, s);
+        stage_bytes, smem, lines, s);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:
@@ -103,7 +49,7 @@ template <typename T, bool PAIR>
 int occupancy(int P, int cpb, int smem) {
 #define FUSTPU_CASE(P_) \
   case P_:              \
-    return occupancy_n<T, PAIR, P_ + 1>(cpb, smem);
+    return fustpu::pencil::occupancy<T, P_ + 1, PAIR, BoxRows>(cpb, smem);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:

@@ -1,6 +1,10 @@
 // Structured-box stiffness apply on the main path, y = sum_cells P^T D^T
 // (c G) D P x, for GLL spectral hexahedra of degree P = 2..10 (N = P + 1
 // nodes per axis): the z-pencil kernel (entry points in stiffness.cu).
+// The same kernel walks the stacks of an extruded mesh, whose z-lines are
+// not on a grid (entry points in extruded_stack.cu): a template functor
+// (BoxRows, StackRows) gives each of a chunk's N^2 z-lines its first
+// node, and nothing else differs.
 //
 // Replaces the two Pallas TPU kernels of fustpu/ops/pallas_stiffness.py:
 //   - _mk_kernel (:170, via _apply_single / stiffness_apply_pallas): one
@@ -89,72 +93,11 @@
 
 #include <cuda_runtime.h>
 
+#include "bulk_copy.cuh"
 #include "sum_factor.cuh"
 
 namespace fustpu {
 namespace pencil {
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// One arrival that also expects `bytes` of transactions.
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  const unsigned addr = smem_u32(bar);
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Bulk copy of `bytes` (a multiple of 16, both addresses 16 B-aligned) from
-// global to shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Orders this thread's generic-proxy accesses to shared memory before later
-// bulk copies into it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // Index of node (i, j, k) of a cell: the thread's (j, k) line starts at
 // `base` and steps by `sx` in i (a chunk buffer's row stride here).
@@ -163,38 +106,78 @@ struct ZLine {
   __device__ int operator()(int i) const { return base + i * sx; }
 };
 
-// The chunk table (cuda_stiffness.py `pencil_schedule`), one row of ROW
-// int64 a chunk: first cell, cells, byte offset of the aligned span in G,
-// span bytes, and the grid index of the chunk's node (0, 0, 0).  A class's
-// pencils are `per_pencil` consecutive rows each, its first row at
-// `first`.
+// The chunk table (cuda_stiffness.py `pencil_schedule`,
+// cuda_extruded.py `stack_schedule`), one row of ROW int64 a chunk: first
+// cell, cells, byte offset of the aligned span in G, span bytes, and the
+// chunk's offset in the field (Rows below).  A class's pencils are
+// `per_pencil` consecutive rows each, its first row at `first`.
 constexpr int ROW = 5;
 
 // The block's copy of the table rows of chunks q - 1, q and q + 1 while it
-// works on chunk q: a ring of RING rows.
+// works on chunk q: a ring of RING rows (and, for stacks, of the chunks'
+// N^2 row ids).
 constexpr int RING = 3;
 
-// Bytes before the stages: the STAGES mbarriers, then the row ring, each
-// padded to 16.
+// Where the N^2 z-lines of a chunk lie in the field: the grid index of
+// line rr = i N + j's first node, from the chunk's table row r and (for
+// stacks) its row ids rid.
+//
+// A box pencil: r[4] is the grid index of the chunk's node (0, 0, 0), and
+// the lines step by sx in i and gz in j.
+struct BoxRows {
+  static constexpr bool IDS = false;
+  int gz, sx;
+  const int* ids;                      // unused
+  template <int N>
+  __device__ int base(const long long* r, const int*, int rr) const {
+    return (int)r[4] + (rr / N) * sx + (rr % N) * gz;
+  }
+};
+// An extruded stack (extruded.cuh): node (i, j, k) of layer kz holds dof
+// rows2d[s, i N + j] gz + kz P + k, so line rr starts at rid[rr] gz + r[4],
+// r[4] = kz0 P for the chunk's first layer kz0.  ids: (segments, N^2)
+// int32, the row ids of each pencil (stack segment), class by class in
+// table order; a block copies the chunk's into the row ring with its
+// table row.
+struct StackRows {
+  static constexpr bool IDS = true;
+  int gz, sx;                          // sx unused
+  const int* ids;
+  template <int N>
+  __device__ int base(const long long* r, const int* rid, int rr) const {
+    return rid[rr] * gz + (int)r[4];
+  }
+};
+
+// Bytes before the stages: the STAGES mbarriers, then the row ring and,
+// for stacks, the ring of row ids, each padded to 16.
 __host__ __device__ constexpr int bars_bytes(int stages) {
   return (8 * stages + 15) / 16 * 16;
 }
-__host__ __device__ constexpr int head_bytes(int stages) {
-  return bars_bytes(stages) + (8 * RING * ROW + 15) / 16 * 16;
+__host__ __device__ constexpr int ring_bytes() {
+  return (8 * RING * ROW + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int ids_bytes(bool ids, int nn) {
+  return ids ? (4 * RING * nn + 15) / 16 * 16 : 0;
+}
+__host__ __device__ constexpr int head_bytes(int stages, bool ids, int nn) {
+  return bars_bytes(stages) + ring_bytes() + ids_bytes(ids, nn);
 }
 
 // One class: block b walks pencils b, b + gridDim.x, ... of the class, and
 // each pencil's chunks in order (the host launches at most `pencils`
-// blocks).  stage_bytes: one stage of the G ring.  Grid indices are 32-bit
-// (the wrapper refuses grids of 2^31 nodes or more).
-template <typename T, int N, bool PAIR>
+// blocks).  stage_bytes: one stage of the G ring.  seg0: the class's first
+// pencil's row of the row ids (the pencils of the classes before it).
+// Grid indices are 32-bit (the wrapper refuses grids of 2^31 nodes or
+// more).
+template <typename T, int N, bool PAIR, typename Rows>
 __global__ void __launch_bounds__(256)
 pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
               const T* __restrict__ C, const T* __restrict__ G,
               const T* __restrict__ D, T* __restrict__ y,
               const long long* __restrict__ chunks, long long first,
               int pencils, int per_pencil, int stages, int stage_bytes,
-              int ncy, int ncz) {
+              long long seg0, Rows lines) {
   constexpr int P = N - 1, NN = N * N, NNN = N * N * N;
   constexpr long long CB = 6LL * NNN * (long long)sizeof(T);  // G per cell
   // D in an array of its own, so that the compiler may keep it in
@@ -205,7 +188,9 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   const int rows = NN * lmax;                    // a chunk buffer's values
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
   long long* rs = reinterpret_cast<long long*>(smem + bars_bytes(stages));
-  unsigned char* ring = smem + head_bytes(stages);
+  int* ids = reinterpret_cast<int*>(smem + bars_bytes(stages) +
+                                    ring_bytes());
+  unsigned char* ring = smem + head_bytes(stages, Rows::IDS, NN);
   // two buffers each: u of every cell, the chunk's y, and for the pair x2
   // and the cells' (c1, c2).  The body's f1, f2 of a cell go into
   // components 0 and 1 of its G in the stage.
@@ -216,7 +201,6 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   const int t = threadIdx.x, lc = threadIdx.y;   // node line (j, k), cell
   const int tid = lc * NN + t, nthreads = NN * cpb;
   const int j = t / N, k = t % N;
-  const int gz = ncz * P + 1, sx = (ncy * P + 1) * gz;  // grid strides
   // this thread's share of a chunk buffer: positions e = rr lmax + z for
   // e = tid, tid + nthreads, ..., at most N of them (NN lmax <= N
   // nthreads), the same for every chunk; f(slot, rr, z) for z < len
@@ -239,12 +223,17 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   // chunks this block walks, in order: the q-th
   const int mine = (pencils - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   const int total = mine * per_pencil;
+  auto pencil = [&](int q) {                     // chunk q's pencil
+    return blockIdx.x + (long long)(q / per_pencil) * gridDim.x;
+  };
   auto table = [&](int q) {                      // chunk q's table row
-    const long long pencil =
-        blockIdx.x + (long long)(q / per_pencil) * gridDim.x;
-    return chunks + ROW * (first + pencil * per_pencil + q % per_pencil);
+    return chunks + ROW * (first + pencil(q) * per_pencil + q % per_pencil);
   };
   auto row = [&](int q) { return rs + (q % RING) * ROW; };  // its copy
+  auto rid = [&](int q) { return ids + (q % RING) * NN; };  // its row ids
+  auto table_ids = [&](int q) {                  // chunk q's row ids
+    return lines.ids + (seg0 + pencil(q)) * NN;
+  };
   auto issue = [&](int q) {                      // thread 0: G of chunk q
     const long long* r = row(q);
     const int s = q % stages;
@@ -263,17 +252,20 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   // continues a pencil is the last one's, carried in shared memory.
   T xr[N], x2r[N], yr[N], cr = T(0);
   long long rowr = 0;
+  int idr = 0;
   auto fetch = [&](int q) {
     const long long* r = row(q);
-    const int n = (int)r[1], o = (int)r[4], zy = q % per_pencil ? 1 : 0;
+    const int* rq = rid(q);
+    const int n = (int)r[1], zy = q % per_pencil ? 1 : 0;
     each(n * P + 1, [&](int e, int rr, int z) {
-      const int g = o + (rr / N) * sx + (rr % N) * gz + z;
+      const int g = lines.template base<N>(r, rq, rr) + z;
       xr[e] = x1[g];
       if (PAIR) x2r[e] = x2[g];
       if (z >= zy) yr[e] = y[g];
     });
     if (PAIR && tid < 2 * n) cr = C[2 * r[0] + tid];
     if (q + 1 < total && tid < ROW) rowr = table(q + 1)[tid];
+    if (Rows::IDS && q + 1 < total && tid < NN) idr = table_ids(q + 1)[tid];
   };
   auto put = [&](int q) {
     const long long* r = row(q);
@@ -288,24 +280,27 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     });
     if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = cr;
     if (q + 1 < total && tid < ROW) row(q + 1)[tid] = rowr;
+    if (Rows::IDS && q + 1 < total && tid < NN) rid(q + 1)[tid] = idr;
   };
   // chunk q's y out, one coalesced pass; a pencil that goes on keeps its
   // last face for the next chunk's first cell
   auto store = [&](int q) {
     const long long* r = row(q);
-    const int b = q & 1, len = (int)r[1] * P + 1, o = (int)r[4];
+    const int* rq = rid(q);
+    const int b = q & 1, len = (int)r[1] * P + 1;
     const bool more = (q + 1) % per_pencil != 0;
     each(len, [&](int, int rr, int z) {
       const T v = yb[b * rows + rr * lmax + z];
       if (more && z == len - 1)
         yb[(b ^ 1) * rows + rr * lmax] = v;
       else
-        y[o + (rr / N) * sx + (rr % N) * gz + z] = v;
+        y[lines.template base<N>(r, rq, rr) + z] = v;
     });
   };
 
   for (int s = tid; s < NN; s += nthreads) Ds[s] = D[s];
   if (tid < ROW) row(0)[tid] = table(0)[tid];
+  if (Rows::IDS && tid < NN) rid(0)[tid] = table_ids(0)[tid];
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
     mbar_init_fence();
@@ -327,15 +322,7 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     // bytes that the aligned span stopped short of, read here
     const int s = q % stages;
     unsigned char* stage = ring + (long long)s * stage_bytes;
-    const long long short_by = (cell0 + n) * CB - (off + r[3]);
-    if (short_by > 0) {
-      for (int e = tid; e < (int)(short_by / sizeof(T)); e += nthreads) {
-        const long long at = r[3] + e * (long long)sizeof(T);
-        *reinterpret_cast<T*>(stage + at) = *reinterpret_cast<const T*>(
-            reinterpret_cast<const unsigned char*>(G) + off + at);
-      }
-      fence_proxy_async();
-    }
+    read_span_tail(stage, G, (cell0 + n) * CB, off, r[3], tid, nthreads);
     mbar_wait(&bars[s], (unsigned)((q / stages) & 1));
     __syncthreads();                 // the chunk's G arrived, its inputs
                                      // are in place, the last one's adds
@@ -373,5 +360,72 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   store(total - 1);
 }
 
+// ---- host side: the launches of one apply, for both kinds of Rows ----
+
+constexpr int MAX_SMEM = 232448;   // one block's shared memory on Hopper
+
+// Lets the kernel take all the dynamic shared memory that its static D
+// leaves of a block's.
+template <typename T, int N, bool PAIR, typename Rows>
+cudaError_t allow_smem() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, pencil_kernel<T, N, PAIR, Rows>);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(pencil_kernel<T, N, PAIR, Rows>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_SMEM - (int)attr.sharedSizeBytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// One launch per class (classes: nclass x 3 host int64, first row,
+// pencils, chunks a pencil) of a persistent grid of at most `blocks`
+// blocks of N^2 x cpb threads.  Returns 0 or the first cudaError_t.
+template <typename T, int N, bool PAIR, typename Rows>
+int launch_classes(const void* x1, const void* x2, const void* C,
+                   const void* G, const void* D, void* y, const void* chunks,
+                   const long long* classes, int nclass, int blocks, int cpb,
+                   int stages, int stage_bytes, int smem, Rows lines,
+                   cudaStream_t stream) {
+  cudaError_t err = allow_smem<T, N, PAIR, Rows>();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(N * N, cpb);
+  long long seg0 = 0;
+  for (int c = 0; c < nclass; ++c) {
+    const long long first = classes[3 * c], pencils = classes[3 * c + 1];
+    const int per_pencil = (int)classes[3 * c + 2];
+    if (pencils <= 0) continue;
+    const unsigned grid = (unsigned)(pencils < blocks ? pencils : blocks);
+    pencil_kernel<T, N, PAIR, Rows><<<grid, block, smem, stream>>>(
+        static_cast<const T*>(x1), static_cast<const T*>(x2),
+        static_cast<const T*>(C), static_cast<const T*>(G),
+        static_cast<const T*>(D), static_cast<T*>(y),
+        static_cast<const long long*>(chunks), first, (int)pencils, per_pencil,
+        stages, stage_bytes, seg0, lines);
+    seg0 += pencils;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// Blocks of N^2 x cpb threads with smem dynamic shared bytes that one SM
+// holds at once, or minus the cudaError_t of a failed query.
+template <typename T, int N, bool PAIR, typename Rows>
+int occupancy(int cpb, int smem) {
+  cudaError_t err = allow_smem<T, N, PAIR, Rows>();
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, pencil_kernel<T, N, PAIR, Rows>, N * N * cpb, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 }  // namespace pencil
 }  // namespace fustpu
+
+// The degrees every kernel is instantiated for.
+#define FUSTPU_DEGREES(M) \
+  M(2) M(3) M(4) M(5) M(6) M(7) M(8) M(9) M(10)

@@ -55,14 +55,18 @@ struct GStream {
   }
 };
 
-// The same metric read from the cell's 6 x N^3 block of G as the pencil
-// kernel's bulk copy left it in shared memory (stiffness_pencil.cuh): the
-// numbers and the arithmetic of GStream.  Not restrict: the pencil kernel
-// lets the body's f1, f2 overwrite components 0 and 1 of a node once the
-// node's six are read (by the one thread that reads them).
+// The same metric read from the cell's 6 x N^3 block of G as a bulk copy
+// left it in shared memory (stiffness_pencil.cuh, indexed_chunk.cu): the
+// numbers and the arithmetic of GStream.  Not restrict: the kernels let the
+// body's f1, f2 overwrite components 0 and 1 of a node once the node's six
+// are read (by the one thread that reads them), and STAGED_STORE its sum
+// component 2 (`put`).
 template <typename T, int N>
 struct GShared {
-  const T* Gc;
+  T* Gc;
+  __device__ __forceinline__ void put(int n, T v) const {
+    Gc[2 * N * N * N + n] = v;
+  }
   __device__ __forceinline__ void operator()(int, int n, T wx, T wy, T wz,
                                              T& f0, T& f1, T& f2) const {
     constexpr int NNN = N * N * N;
@@ -76,16 +80,20 @@ struct GShared {
 };
 
 // What cell_apply computes (a template flag; the pencil kernel takes
-// STAGED, the other production kernels FULL, the variants of anatomy.cu
-// the others):
+// STAGED, the chunked indexed kernel STAGED_STORE, the other production
+// kernels FULL, the variants of anatomy.cu the others):
 //   FULL       the operator above;
 //   STAGED     the same, with u already holding the cell's x, or for a
 //              pair c1 x1 + c2 x2 (the caller copied it into shared
 //              memory; PAIR false);
+//   STAGED_STORE  STAGED, with each node's sum stored into component 2
+//              of its metric (`GShared::put`: the stage holding the
+//              cell's G, whose component 2 of the node its owner has
+//              read) instead of added into y; y and line unused;
 //   POINTWISE  the x load, the metric and the scatter only: the 1-D
 //              contractions become the identity, w = (u, u, u), and the
 //              metric's three outputs are summed into the node.
-enum Body { FULL = 0, STAGED = 1, POINTWISE = 2 };
+enum Body { FULL = 0, STAGED = 1, POINTWISE = 2, STAGED_STORE = 3 };
 
 // Must be reached by every thread of the block (it synchronises twice, or
 // not at all for POINTWISE); threads of an inactive cell slot (`active`
@@ -112,7 +120,7 @@ __device__ __forceinline__ void cell_apply(
   if (active) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      if constexpr (BODY == STAGED) {
+      if constexpr (BODY == STAGED || BODY == STAGED_STORE) {
         ul[i] = u[i * NN + t];
       } else {
         T v = x1[line(i)];
@@ -167,7 +175,9 @@ __device__ __forceinline__ void cell_apply(
         s += Ds[r * N + j] * f1[i * NN + r * N + k];
         s += Ds[r * N + k] * f2[i * NN + j * N + r];
       }
-      if (turn < 0)
+      if constexpr (BODY == STAGED_STORE)
+        metric.put(i * NN + t, s);
+      else if (turn < 0)
         y[line(i)] += s;
       else
         acc[i] = s;

@@ -1,0 +1,320 @@
+"""The class-launch imported-mesh stiffness kernels against the kernels that
+replaced them on the main path, timed in turns on the same operators and
+fields (old, new, new, old):
+
+- #6, extruded meshes: one launch per (stack colour, layer parity) class
+  of scattered cells (`extruded_classes`) against the stack walk of the
+  z-pencil kernel (`extruded`), at the imported bowl's stacks;
+- #11, general meshes: one launch per colour class of scattered cells
+  (`indexed_classes`) against locality-ordered cell chunks with a
+  bulk-copied G ring (`indexed`), and both against the composed staged
+  engine (#7-#10, `engine`), at the bodyfit bowl, and at P = 6.
+
+Runs on the card unless --device cpu is given (the plain versions, a
+correctness run only).
+
+    python -m fustpu_torch.demos.exp_imported [--elements 64] [--degree 4]
+        [--p6-elements 48] [--sweep]
+
+For the single-field and the pair form it prints each kernel's ms per
+apply in its turns, the rate over the apply's least bytes (G, each input
+field and the pair coefficients read once, y read and written once, and
+the row ids or the dofmap once) and the share of the bound (those bytes
+at the H100's published 3.35 TB/s), the kernels against each other and
+against the plain version (rel-l2), each new kernel's schedule, the bytes
+of the chunk kernel's own layout, and the new kernel's time under a few
+other schedules (cells a chunk, z-segments a stack) than its model's.
+`--sweep` then times the single-field new kernels over every schedule:
+the stack kernel at each (cells a chunk, segments) pair of a grid, with
+the cost model's value (``cuda_stiffness.class_cost``) beside it, the
+chunk kernel at each cells a chunk, with its classes.  Float32; the
+meshes are the bowl demo's (`nonlinear_bowl`).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from fustpu_torch.demos import nonlinear_bowl
+from fustpu_torch.demos.common import check_device, clock, rel_l2
+from fustpu_torch.models.discretization import Discretization
+from fustpu_torch.ops import cuda_engine as cen
+from fustpu_torch.ops import cuda_extruded as ce
+from fustpu_torch.ops import cuda_indexed as ci
+from fustpu_torch.utils.benchmarks import time_apply
+
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+F32 = torch.float32
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--elements", type=int, default=64)
+    p.add_argument("--degree", type=int, default=4)
+    p.add_argument("--p6-elements", type=int, default=48,
+                   help="elements of the P = 6 bodyfit bowl (0: none)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--chain", type=int, default=20)
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--sweep", action="store_true",
+                   help="time the new kernels over every schedule")
+    return p
+
+
+def least_bytes(G: torch.Tensor, ndofs: int, fields: int,
+                index_bytes: int) -> int:
+    """G, each input field and the pair coefficients read once, y read and
+    written once, and the index data (row ids or dofmap) once."""
+    b = G.element_size()
+    pair = G.shape[0] * 2 * b if fields == 2 else 0
+    return G.numel() * b + (fields + 2) * ndofs * b + pair + index_bytes
+
+
+def chunk_bytes(op: ci.IndexedCellStiffness, sched: ci.ChunkSchedule,
+                fields: int) -> int:
+    """What the chunk kernel's layout reads and writes once an apply: G,
+    each chunk's unique dofs' x (x2), earlier y and y, their ids and
+    ends, the positions, the table rows and the pair coefficients."""
+    b = op.G.element_size()
+    tab = op.plan.tables(sched.cpb)
+    u = int(tab.nu.sum())
+    pair = op.G.shape[0] * 2 * b if fields == 2 else 0
+    return (op.G.numel() * b + u * ((fields + 2) * b + 4 + 2)
+            + tab.pos.size * 2 + sched.chunks.size * 8 + pair)
+
+
+def _turns(kernels: dict, order: tuple, x, chain: int, reps: int) -> dict:
+    """Each kernel's (median, std) seconds per apply in each of its turns,
+    the kernels run in `order`."""
+    times = {name: [] for name in kernels}
+    for name in order:
+        times[name].append(time_apply(lambda _, __, k=kernels[name]: k(),
+                                      None, x, chain=chain, reps=reps))
+    return times
+
+
+def _report(label: str, form: str, ys: dict, plain, times: dict,
+            nbytes: int, cuda: bool) -> None:
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    for name in ys:
+        ms = [t[0] * 1e3 for t in times[name]]
+        rate = (f", {nbytes / min(ms) / 1e9:.4f} TB/s over {nbytes:,} B, "
+                f"{bound / min(ms):.1%} of the bound {bound:.4f} ms"
+                if cuda else "")
+        print(f"{label} {form:6s} {name:8s}: "
+              + " / ".join(f"{m:.4f}" for m in ms)
+              + f" ms per apply{rate}; vs plain rel-l2 "
+              f"{rel_l2(ys[name], plain):.3e}", flush=True)
+
+
+def compare_extruded(disc: Discretization, dev, chain: int = 20,
+                     reps: int = 5, label: str = "#6") -> dict:
+    """#6 on the extruded mesh of `disc`: the class-launch kernel against
+    the stack kernel, single and pair, in turns; then the stack kernel
+    under other schedules than its model's.  Returns by form the operator,
+    fields, outputs, plain output, turns and least bytes."""
+    mesh = disc.mesh
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, dtype=F32, device=dev)
+    c1 = rng.uniform(0.5, 2.0, mesh.num_cells)
+    c2 = rng.uniform(-2.0, 2.0, mesh.num_cells)
+    x1 = t(rng.standard_normal(mesh.ndofs))
+    x2 = t(rng.standard_normal(mesh.ndofs))
+    cuda = dev.type == "cuda"
+    out = {}
+    for form, kw, xs in (("single", {}, (x1,)),
+                         ("pair", {"pair": (c1, c2)}, (x1, x2))):
+        op = disc.stiffness_op(F32, dev, **kw)
+        if form == "single":
+            kern = {"classes": lambda: ce.extruded_classes(op, x1),
+                    "stack": lambda: ce.extruded(op, x1)}
+            plain = ce.extruded_plain(op, x1)
+        else:
+            kern = {"classes": lambda: ce.extruded_classes_pair(op, x1, x2),
+                    "stack": lambda: ce.extruded_pair(op, x1, x2)}
+            plain = ce.extruded_pair_plain(op, x1, x2)
+        ys = {name: k() for name, k in kern.items()}
+        times = _turns(kern, ("classes", "stack", "stack", "classes"), x1,
+                       chain, reps)
+        nbytes = least_bytes(op.G, mesh.ndofs, len(xs), op.rows.numel() * 4)
+        _report(label, form, ys, plain, times, nbytes, cuda)
+        print(f"{label} {form:6s} stack vs classes rel-l2 "
+              f"{rel_l2(ys['stack'], ys['classes']):.3e}", flush=True)
+        out[form] = dict(op=op, xs=xs, ys=ys, plain=plain, times=times,
+                         nbytes=nbytes)
+        if not cuda:
+            continue
+        s = ce.card_schedule(op, x1, form == "pair")
+        print(f"{label} {form:6s} schedule: {s.cpb} cells a chunk "
+              f"({(op.P + 1) ** 2 * s.cpb} threads), {s.segments} "
+              f"segment(s) a stack, {s.stages} stages of "
+              f"{s.stage_bytes:,} B, {s.smem:,} B shared a block, "
+              f"{s.blocks_per_sm} blocks an SM, {s.blocks} blocks, "
+              f"{len(s.classes)} classes of {s.classes[:, 1].tolist()} "
+              f"segments, {len(s.chunks)} chunks", flush=True)
+        if form == "single":
+            others = [dict(segments=g) for g in (2, 4, 8)
+                      if g != s.segments] + \
+                [dict(cpb=c, segments=1) for c in (3, 5) if c != s.cpb]
+            for o in others:
+                ms = time_apply(lambda _, __, o=o: ce.extruded(op, x1, **o),
+                                None, x1, chain=chain, reps=reps)[0] * 1e3
+                so = op.plan.card(op.P, F32, False, dev, o.get("segments"),
+                                  o.get("cpb"))[0]
+                print(f"{label} single other schedule {o}: {ms:.4f} ms "
+                      f"({so.cpb} cells a chunk, {so.segments} segments, "
+                      f"{so.blocks_per_sm} blocks an SM, "
+                      f"{len(so.classes)} classes)", flush=True)
+    return out
+
+
+def compare_indexed(disc: Discretization, dev, chain: int = 20,
+                    reps: int = 5, label: str = "#11", pair: bool = True,
+                    others: tuple = (5, 8)) -> dict:
+    """#11 on the general mesh of `disc`: the class-launch kernel against
+    the chunk kernel and the composed engine, single (and pair), in turns
+    (classes, chunks, engine, engine, chunks, classes); then the chunk
+    kernel with other cells a chunk (`others`) than its model's."""
+    mesh = disc.mesh
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, dtype=F32, device=dev)
+    c1 = rng.uniform(0.5, 2.0, mesh.num_cells)
+    c2 = rng.uniform(-2.0, 2.0, mesh.num_cells)
+    x1 = t(rng.standard_normal(mesh.ndofs))
+    x2 = t(rng.standard_normal(mesh.ndofs))
+    cuda = dev.type == "cuda"
+    out = {}
+    forms = [("single", {}, (x1,))]
+    if pair:
+        forms.append(("pair", {"pair": (c1, c2)}, (x1, x2)))
+    for form, kw, xs in forms:
+        op = disc.stiffness_op(F32, dev, **kw)
+        eop = cen.build(mesh, disc._G_host, disc._D_host, F32, dev, **kw)
+        if form == "single":
+            kern = {"classes": lambda: ci.indexed_classes(op, x1),
+                    "chunks": lambda: ci.indexed(op, x1),
+                    "engine": lambda: cen.engine(eop, x1)}
+            plain = ci.indexed_plain(op, x1)
+        else:
+            kern = {"classes": lambda: ci.indexed_classes_pair(op, x1, x2),
+                    "chunks": lambda: ci.indexed_pair(op, x1, x2),
+                    "engine": lambda: cen.engine_pair(eop, x1, x2)}
+            plain = ci.indexed_pair_plain(op, x1, x2)
+        ys = {name: k() for name, k in kern.items()}
+        times = _turns(kern, ("classes", "chunks", "engine", "engine",
+                              "chunks", "classes"), x1, chain, reps)
+        nbytes = least_bytes(op.G, mesh.ndofs, len(xs),
+                             op.dofmap.numel() * 4)
+        _report(label, form, ys, plain, times, nbytes, cuda)
+        print(f"{label} {form:6s} chunks vs classes rel-l2 "
+              f"{rel_l2(ys['chunks'], ys['classes']):.3e}, vs engine "
+              f"{rel_l2(ys['chunks'], ys['engine']):.3e}", flush=True)
+        out[form] = dict(op=op, eop=eop, xs=xs, ys=ys, plain=plain,
+                         times=times, nbytes=nbytes)
+        del eop
+        if not cuda:
+            continue
+        s = ci.card_schedule(op, x1, form == "pair")
+        own = chunk_bytes(op, s, len(xs))
+        print(f"{label} {form:6s} schedule: {s.cpb} cells a chunk "
+              f"({(op.P + 1) ** 2 * s.cpb} threads), {s.stages} stages of "
+              f"{s.stage_bytes:,} B, {s.smem:,} B shared a block (at most "
+              f"{s.maxu} unique dofs a chunk), {s.blocks_per_sm} blocks an "
+              f"SM, {s.blocks} blocks, {len(s.classes)} classes of "
+              f"{int(s.classes[:, 1].min())}-{int(s.classes[:, 1].max())} "
+              f"chunks ({len(s.chunks)} in all); the layout's own bytes "
+              f"{own:,} (the minimum {nbytes:,})", flush=True)
+        out[form]["layout_bytes"] = own
+        if form == "single":
+            for c in others:
+                if c == s.cpb:
+                    continue
+                ms = time_apply(lambda _, __, c=c: ci.indexed(op, x1, c),
+                                None, x1, chain=chain, reps=reps)[0] * 1e3
+                so = op.plan.card(op.P, F32, False, dev, c)[0]
+                print(f"{label} single with {c} cells a chunk: {ms:.4f} ms "
+                      f"({so.blocks_per_sm} blocks an SM, "
+                      f"{len(so.classes)} classes)", flush=True)
+    return out
+
+
+SWEEP_CPB = (1, 2, 3, 4, 5, 6, 7, 8, 10)
+SWEEP_SEGMENTS = (1, 2, 3, 4, 6, 8, 16, 43)
+
+
+def sweep(disc: Discretization, dev, chain: int = 20, reps: int = 3
+          ) -> list:
+    """The single-field new kernel of `disc`'s mesh (the stack kernel on an
+    extruded mesh, the chunk kernel on any other) timed under every
+    schedule of the sweep's grid that fits; prints and returns (cells a
+    chunk, segments or None, blocks an SM, classes, model cost or None,
+    ms) for each."""
+    mesh, out = disc.mesh, []
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        mesh.ndofs), dtype=F32, device=dev)
+    op = disc.stiffness_op(F32, dev)
+    stacks = isinstance(op, ce.ExtrudedCellStiffness)
+    cell_bytes = 6 * (op.P + 1) ** 3 * 4
+    for cpb in SWEEP_CPB:
+        for seg in SWEEP_SEGMENTS if stacks else (None,):
+            try:
+                if stacks:
+                    s = op.plan.card(op.P, F32, False, dev, seg, cpb)[0]
+                    run = lambda: ce.extruded(op, x, segments=seg, cpb=cpb)
+                    cost = ce._stack_cost(
+                        np.bincount(op.plan.colour),
+                        ce.segment_lengths(op.nz, seg), cpb,
+                        s.blocks_per_sm, s.blocks // s.blocks_per_sm,
+                        cell_bytes)
+                else:
+                    s = op.plan.card(op.P, F32, False, dev, cpb)[0]
+                    run = lambda: ci.indexed(op, x, cpb)
+                    cost = None
+            except ValueError:       # no such schedule at this shape
+                continue
+            ms = time_apply(lambda _, __: run(), None, x, chain=chain,
+                            reps=reps)[0] * 1e3
+            row = (cpb, seg, s.blocks_per_sm, len(s.classes), cost, ms)
+            print(f"sweep {'stack' if stacks else 'chunk'}: {cpb} cells a "
+                  f"chunk, {seg} segments, {s.blocks_per_sm} blocks an SM, "
+                  f"{len(s.classes)} classes, model cost {cost}: "
+                  f"{ms:.4f} ms", flush=True)
+            out.append(row)
+    return out
+
+
+def main(argv=None) -> dict:
+    """Builds the imported and bodyfit bowls (and the P = 6 bodyfit bowl)
+    through the bowl demo and runs `compare_extruded` and
+    `compare_indexed` on them; returns their results by label."""
+    args = parser().parse_args(argv)
+    check_device(args)
+    dev = torch.device(args.device)
+
+    def disc(geometry, elements, degree):
+        a = nonlinear_bowl.parser().parse_args(
+            ["--elements", str(elements), "--degree", str(degree),
+             "--geometry", geometry, "--device", args.device])
+        return Discretization(nonlinear_bowl.problem(a).mesh)
+
+    imported = disc("unstructured", args.elements, args.degree)
+    bodyfit = disc("bodyfit", args.elements, args.degree)
+    out = {"#6": compare_extruded(imported, dev, args.chain, args.reps),
+           "#11": compare_indexed(bodyfit, dev, args.chain, args.reps)}
+    if args.p6_elements:
+        p6 = disc("bodyfit", args.p6_elements, 6)
+        out["#11 P=6"] = compare_indexed(p6, dev, args.chain, args.reps,
+                                         "#11 P=6", pair=False, others=())
+    if args.sweep and dev.type == "cuda":
+        out["sweep"] = {"#6": sweep(imported, dev), "#11": sweep(bodyfit, dev)}
+        if args.p6_elements:
+            out["sweep"]["#11 P=6"] = sweep(p6, dev)
+    print(f"   timed by {clock(dev)}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -218,8 +218,7 @@ def build(args, pb: SimpleNamespace | None = None):
     print(f"stiffness: {type(model.stiffness).__name__}, kernel "
           f"{model.stiffness_kernel}")
     if isinstance(model.stiffness, IndexedStiffness):
-        print(f"indexed scatter: {len(model.stiffness.bounds) - 1} colour "
-              f"classes over {mesh.num_cells} cells")
+        print(f"indexed scatter: {model.stiffness.scatter_summary()}")
     dt, _ = model.cfl_dt(0.4)
     tf = (pb.domain_length / float(np.min(mat.sound_speed))
           + args.periods / src.frequency)

@@ -128,6 +128,16 @@ class UnstructuredHexMesh:
         return precompute.cell_geometry_factors(self)[1]
 
     @functools.cached_property
+    def chunk_plan(self):
+        """The indexed kernels' schedules' host part on this dofmap
+        (``ops.cuda_indexed.ChunkPlan``: chunk tables and colourings,
+        built on first use) and shared by every model built on this
+        mesh."""
+        from fustpu_torch.ops import cuda_indexed
+
+        return cuda_indexed.ChunkPlan(self.dofmap, self.ndofs)
+
+    @functools.cached_property
     def _cell_nodes_phys(self) -> np.ndarray:
         """(ncells, n^3, 3) physical coordinates of every cell's GLL nodes
         (trilinear or triquadratic map of the reference lattice)."""

@@ -87,13 +87,20 @@ class Discretization:
         return G
 
     @functools.cached_property
-    def scatter_classes(self) -> tuple[np.ndarray, tuple]:
-        """The indexed kernel's colour classes of the cells (computed on
-        first use, shared by every indexed operator of this mesh)."""
-        t0 = time.perf_counter()
-        out = ci.scatter_classes(self.mesh.dofmap, self.mesh.ndofs)
-        self.host_seconds["colouring"] = time.perf_counter() - t0
-        return out
+    def chunk_plan(self) -> ci.ChunkPlan:
+        """The indexed kernels' schedules' host part on this mesh (its
+        chunk tables and colourings, built on first use): the imported
+        mesh's own, shared by every model built on it, or on a box mesh
+        this discretisation's."""
+        plan = getattr(self.mesh, "chunk_plan", None)
+        return plan or ci.ChunkPlan(self.mesh.dofmap, self.mesh.ndofs)
+
+    @functools.cached_property
+    def stack_plan(self) -> ce.StackPlan:
+        """The extruded kernels' schedules' host part on this extruded
+        mesh (its stack colouring), shared by every extruded operator of
+        this mesh."""
+        return ce.StackPlan(self.mesh.rows2d, self.mesh.nz)
 
     # ---- facets -----------------------------------------------------------
     def facet_block(self, boundary_data: np.ndarray) -> FacetBlock:
@@ -172,10 +179,11 @@ class Discretization:
         if indexed or not (self.structured or extruded):
             return ci.build(self.mesh, self._G_host, self._D_host, dtype,
                             device, coeff=coeff, pair=pair,
-                            classes=self.scatter_classes)
+                            plan=self.chunk_plan)
         if extruded:
             return ce.build(self.mesh, self._G_host, self._D_host, dtype,
-                            device, coeff=coeff, pair=pair)
+                            device, coeff=coeff, pair=pair,
+                            plan=self.stack_plan)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         C = None
         if pair is not None:
@@ -268,12 +276,14 @@ class ExtrudedStiffness(nn.Module):
     def __init__(self, op: ce.ExtrudedCellStiffness, impl: str):
         super().__init__()
         self.impl = impl
-        self.nz, self.n2d, self.bounds = op.nz, op.n2d, op.bounds
+        self.nz, self.n2d, self.plan = op.nz, op.n2d, op.plan
         self.ndofs = op.ndofs
         self.is_pair = op.C is not None
         if impl == "cuda":
-            for name in ("G", "D", "rows", "cells", "C"):
+            for name in ("G", "D", "rows", "C"):
                 self.register_buffer(name, getattr(op, name))
+            if op.G.is_cuda:         # the schedule, at set-up
+                op.plan.card(op.P, op.G.dtype, self.is_pair, op.G.device)
         else:
             plain, c1_x, c2_x = ce.to_plain(op)
             for name in ext.PlainExtruded._fields:
@@ -292,7 +302,7 @@ class ExtrudedStiffness(nn.Module):
     def cell_op(self) -> ce.ExtrudedCellStiffness:
         return ce.ExtrudedCellStiffness(
             G=self.G, D=self.D, rows=self.rows, nz=self.nz, n2d=self.n2d,
-            cells=self.cells, bounds=self.bounds, C=self.C)
+            plan=self.plan, C=self.C)
 
     @property
     def plain_op(self) -> ext.PlainExtruded:
@@ -324,11 +334,13 @@ class IndexedStiffness(nn.Module):
     def __init__(self, op: ci.IndexedCellStiffness, impl: str):
         super().__init__()
         self.impl = impl
-        self.ndofs, self.bounds = op.ndofs, op.bounds
+        self.ndofs, self.plan = op.ndofs, op.plan
         self.is_pair = op.C is not None
         if impl == "cuda":
-            for name in ("G", "D", "dofmap", "cells", "C"):
+            for name in ("G", "D", "dofmap", "C"):
                 self.register_buffer(name, getattr(op, name))
+            if op.G.is_cuda:         # the chunk tables, at set-up
+                op.plan.card(op.P, op.G.dtype, self.is_pair, op.G.device)
         else:
             plain = ci.to_plain(op)
             for name in ci.PlainIndexed._fields:
@@ -345,7 +357,25 @@ class IndexedStiffness(nn.Module):
     def cell_op(self) -> ci.IndexedCellStiffness:
         return ci.IndexedCellStiffness(
             G=self.G, D=self.D, dofmap=self.dofmap, ndofs=self.ndofs,
-            cells=self.cells, bounds=self.bounds, C=self.C)
+            plan=self.plan, C=self.C)
+
+    def scatter_summary(self) -> str:
+        """The scatter design: on the card the chunk kernel's classes,
+        chunks and grid; in the plain version (no kernel, no classes) the
+        cells' colour classes of the class-launch design."""
+        if self.impl == "cuda" and self.G.is_cuda:
+            s = self.plan.card(self.P, self.G.dtype, self.is_pair,
+                               self.G.device)[0]
+            return (f"{len(s.classes)} colour classes of "
+                    f"{len(s.chunks)} chunks of {s.cpb} cells (at most "
+                    f"{int(s.classes[:, 1].max())} a class), {s.blocks} "
+                    f"blocks ({s.blocks_per_sm} an SM)")
+        return (f"{len(self.plan.classes[1]) - 1} colour classes over "
+                f"{self.plan.cells} cells (the class-launch colouring)")
+
+    @property
+    def P(self) -> int:
+        return (self.D if self.impl == "cuda" else self.plain_D).shape[0] - 1
 
     @property
     def plain_op(self) -> ci.PlainIndexed:
@@ -477,7 +507,8 @@ class EngineStiffness(nn.Module):
 
 def launch_counts() -> dict:
     """Every stiffness kernel's launch counter, by name (a copy)."""
-    return {**cs.launches, **ce.launches, **ci.launches, **cc.launches,
+    return {**cs.launches, **ce.launches, **ce.class_launches,
+            **ci.launches, **ci.class_launches, **cc.launches,
             **cen.launches}
 
 

@@ -177,8 +177,7 @@ def to_g_stream(op: CornerCellStiffness):
     if op.box:
         return cs.CellStiffness(G=G, D=op.D, nc=op.nc, C=op.C)
     return ce.ExtrudedCellStiffness(G=G, D=op.D, rows=op.rows, nz=op.nz,
-                                    n2d=op.n2d, cells=op.cells,
-                                    bounds=op.bounds, C=op.C)
+                                    n2d=op.n2d, plan=None, C=op.C)
 
 
 def corner_plain(op: CornerCellStiffness, x: torch.Tensor) -> torch.Tensor:

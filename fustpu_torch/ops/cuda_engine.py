@@ -117,18 +117,15 @@ def from_host(dofmap: np.ndarray, ndofs: int, G: np.ndarray,
                                coeff=t(coeff), C=t(C))
 
 
-def to_indexed(op: EngineCellStiffness, classes: tuple
+def to_indexed(op: EngineCellStiffness, plan: ci.ChunkPlan
                ) -> ci.IndexedCellStiffness:
-    """The indexed kernel's operator on the same G, D, dofmap and C
+    """The indexed kernels' operator on the same G, D, dofmap and C
     buffers (unit coefficients or the pair form), with the dofmap's
-    scatter `classes` (``cuda_indexed.scatter_classes``)."""
+    schedules' host part `plan` (``cuda_indexed.ChunkPlan``)."""
     if op.coeff is not None:
         raise ValueError("the indexed kernel folds a coefficient into G")
-    cells, bounds = classes
-    return ci.IndexedCellStiffness(
-        G=op.G, D=op.D, dofmap=op.dofmap, ndofs=op.ndofs,
-        cells=torch.as_tensor(cells, device=op.G.device), bounds=bounds,
-        C=op.C)
+    return ci.IndexedCellStiffness(G=op.G, D=op.D, dofmap=op.dofmap,
+                                   ndofs=op.ndofs, plan=plan, C=op.C)
 
 
 # ---------------------------------------------------------------------------

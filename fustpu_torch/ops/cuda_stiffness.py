@@ -116,21 +116,39 @@ def _round16(b: int) -> int:
 
 
 def pencil_smem(P: int, itemsize: int, cpb: int, pair: bool = False,
-                stages: int = STAGES) -> tuple[int, int]:
+                stages: int = STAGES, ids: bool = False) -> tuple[int, int]:
     """(bytes a stage, dynamic shared bytes a block) of the pencil kernel:
     the stages' mbarriers and a ring of ROW_RING chunk-table rows (each
-    padded to 16 B), the stages (cpb cells of G and 16 B of slack for the
-    aligned span; the body's f1, f2 go into G's components 0 and 1
-    there), two buffers of every cell's u (n^3 values), two of the chunk's
-    y (n^2 (cpb P + 1) values), and for the pair two of x2 and of the
-    cells' (c1, c2): the layout of ``stiffness_pencil.cuh``, whose D (n^2
-    values) is static shared memory besides."""
+    padded to 16 B; with `ids`, the extruded stacks' form, a ring of as
+    many chunks' n^2 int32 row ids after it), the stages (cpb cells of G
+    and 16 B of slack for the aligned span; the body's f1, f2 go into G's
+    components 0 and 1 there), two buffers of every cell's u (n^3 values),
+    two of the chunk's y (n^2 (cpb P + 1) values), and for the pair two
+    of x2 and of the cells' (c1, c2): the layout of
+    ``stiffness_pencil.cuh``, whose D (n^2 values) is static shared memory
+    besides."""
     n = P + 1
     stage = _round16(cpb * 6 * n ** 3 * itemsize + 16)
     rows = n * n * (cpb * P + 1)
     values = 2 * n ** 3 * cpb + 2 * rows + (2 * rows + 4 * cpb if pair else 0)
     head = _round16(8 * stages) + _round16(8 * ROW_RING * TABLE_ROW)
+    if ids:
+        head += _round16(4 * ROW_RING * n * n)
     return stage, head + stages * stage + values * itemsize
+
+
+def bulk_spans(cell0: np.ndarray, ncell: np.ndarray, cell_bytes: int,
+               total: int) -> tuple[np.ndarray, np.ndarray]:
+    """(offset, bytes) of each chunk's bulk-copy span in G: its run of
+    cells [cell0, cell0 + ncell), `cell_bytes` each, widened to 16 B on
+    both sides and cut back to a 16 B boundary where that would pass G's
+    end (`total` bytes; the kernel reads the bytes past the span itself,
+    ``bulk_copy.cuh`` `read_span_tail`)."""
+    start, end = cell0 * cell_bytes, (cell0 + ncell) * cell_bytes
+    off = start // 16 * 16
+    stop = -(-end // 16) * 16
+    stop = np.where(stop > total, end // 16 * 16, stop)
+    return off, stop - off
 
 
 def _static_smem(P: int, itemsize: int) -> int:
@@ -146,6 +164,34 @@ def model_occupancy(P: int, itemsize: int, pair: bool, cpb: int,
     threads = (P + 1) ** 2 * cpb
     return min(2048 // threads, 32,
                SMEM_SM // (smem + _static_smem(P, itemsize) + SMEM_RESERVED))
+
+
+# The cost model of the stack and chunk kernels' schedules, in bytes of G
+# streamed by the busiest SM.  A chunk step costs what the SM's resident
+# blocks stream in it, but no less than STEP_FLOOR_BYTES (a block's
+# per-chunk chain of waits, copies and barriers does not shrink with fewer
+# blocks on the SM), and each class launch CLASS_BYTES more (its launch and
+# the drain of its last round).  Both fitted to the stack kernel's times
+# over 57 (cells a chunk, segments) schedules at the imported bowl (P = 4,
+# float32, H100; rank correlation 0.95 with the measured times).
+STEP_FLOOR_BYTES = 96_000
+CLASS_BYTES = 300_000
+
+
+def class_cost(units: int, per: int, cpb: int, bps: int, sms: int,
+               cell_bytes: int) -> int:
+    """Cost of one class launch of `units` pencils (segments, chunks) of
+    `per` chunk steps each, cpb cells of `cell_bytes` of G a chunk, on a
+    persistent grid of bps blocks an SM on `sms` SMs: each round of the
+    grid's blocks takes `per` steps, each step the G of the busiest SM's
+    blocks of that round or STEP_FLOOR_BYTES, whichever is more; plus
+    CLASS_BYTES."""
+    blocks, cost = bps * sms, CLASS_BYTES
+    while units > 0:
+        now = min(units, blocks)
+        units -= now
+        cost += per * max(-(-now // sms) * cpb * cell_bytes, STEP_FLOOR_BYTES)
+    return cost
 
 
 def _steps(nc, cpb: int, blocks: int) -> int:
@@ -205,11 +251,7 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
     cell0 = np.concatenate(firsts).astype(np.int64)
     ncell = np.tile(cn, rows // c0.size).astype(np.int64)
     cb = 6 * n ** 3 * itemsize
-    start, end = cell0 * cb, (cell0 + ncell) * cb
-    total = ncx * ncy * ncz * cb
-    off = start // 16 * 16
-    stop = -(-end // 16) * 16
-    stop = np.where(stop > total, end // 16 * 16, stop)
+    off, nbytes = bulk_spans(cell0, ncell, cb, ncx * ncy * ncz * cb)
     gz = ncz * P + 1
     sx = (ncy * P + 1) * gz
     a, b, c = cell0 // (ncy * ncz), (cell0 // ncz) % ncy, cell0 % ncz
@@ -217,7 +259,7 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
         cpb=cpb, stages=STAGES, stage_bytes=stage, smem=smem,
         blocks_per_sm=bps, blocks=bps * sms,
         classes=np.asarray(classes, np.int64).reshape(-1, 3),
-        chunks=np.stack([cell0, ncell, off, stop - off,
+        chunks=np.stack([cell0, ncell, off, nbytes,
                          a * P * sx + b * P * gz + c * P], axis=1))
 
 

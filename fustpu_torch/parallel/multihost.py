@@ -119,13 +119,15 @@ def _worker(rank, nprocs, backend, device, init_method, timeout, fn, args,
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn(fn, nprocs: int, backend: str = "gloo", device: str = "cpu",
+def spawn(fn, nprocs: int, backend: str = "gloo", device: str = "cuda",
           timeout: float = 600.0, args: tuple = ()) -> list:
     """Run `fn(ctx, *args)` on `nprocs` spawned ranks of one process group
     and return each rank's result, in rank order.  `fn` must be importable
     from this package (a child imports only torch and fustpu_torch); `ctx`
-    has `rank`, `size`, `device` and `backend`.  Raises if a rank fails,
-    if the backend cannot serve the device, or after `timeout` seconds."""
+    has `rank`, `size`, `device` and `backend`.  The ranks run on the card
+    unless `device` is "cpu".  Raises if a rank fails, if the backend
+    cannot serve the device (no card, before any rank starts), or after
+    `timeout` seconds."""
     for r in range(nprocs):
         rank_device(backend, device, r, nprocs)     # refuse before starting
     if device == "cuda":

@@ -47,9 +47,11 @@ def summarize_trace(events: list[dict]) -> dict:
     """Device time by group from a Chrome trace's event list (torch.profiler
     `export_chrome_trace`): 'stiffness' (the CUDA stiffness kernels),
     'copies' (device memcpy / memset) and 'elementwise' (every other
-    kernel); 'stiffness' holds the structured (the z-pencil kernel, and
-    the parity-class and the corner stiffness_kernel), extruded and indexed
-    kernels and the staged engine's three.  Returns {group: (microseconds,
+    kernel); 'stiffness' holds the structured and extruded (the z-pencil
+    kernel on box pencils and on stacks, and the parity-class and the
+    corner stiffness_kernel, the class-launch extruded_kernel), indexed
+    (the chunk kernel, the class-launch indexed_kernel) kernels and the
+    staged engine's three.  Returns {group: (microseconds,
     launches)} plus 'busy_us' (the union of all device intervals) and
     'span_us' (first start to last end)."""
     groups = {"stiffness": [0.0, 0], "elementwise": [0.0, 0],
@@ -67,6 +69,7 @@ def summarize_trace(events: list[dict]) -> dict:
                                                   "pencil_kernel",
                                                   "extruded_kernel",
                                                   "indexed_kernel",
+                                                  "chunk_kernel",
                                                   "engine_gather",
                                                   "engine_contract",
                                                   "engine_scatter")):

@@ -346,7 +346,7 @@ def test_kernels_match_plain_on_card(tmp_path, P):
         c2 = rng.uniform(-1.5, -0.5, mesh.num_cells)
         x1 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
         x2 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
-        classes = ci.scatter_classes(mesh.dofmap, mesh.ndofs)
+        plan = ci.ChunkPlan(mesh.dofmap, mesh.ndofs)
         for kw in (dict(), dict(coeff=c1), dict(pair=(c1, c2))):
             pair = "pair" in kw
             ref64 = cen.build(mesh, G, D, F64, "cuda", **kw)
@@ -382,9 +382,9 @@ def test_kernels_match_plain_on_card(tmp_path, P):
                 assert rel(ys.cpu(), eng.scatter_add(
                     yk.double(), g, mesh.ndofs).cpu()) <= tol
                 if "coeff" not in kw:
-                    yi = (ci.indexed_pair(cen.to_indexed(op, classes), a, b)
+                    yi = (ci.indexed_pair(cen.to_indexed(op, plan), a, b)
                           if pair else ci.indexed(
-                              cen.to_indexed(op, classes), a))
+                              cen.to_indexed(op, plan), a))
                     assert rel(y.cpu(), yi.cpu()) <= tol
     # each case: two composed applies (three launches each) and one direct
     # call of every kernel

@@ -42,6 +42,8 @@ from fustpu_torch.models.discretization import (Discretization,
 from fustpu_torch.models.linear import LinearWaveModel
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.ops import cuda_extruded as ce
+from fustpu_torch.ops import cuda_stiffness as cs
+from fustpu_torch.ops import indexed as idx_ops
 from fustpu_torch.ops import precompute as pre
 
 torch.set_num_threads(1)
@@ -270,7 +272,8 @@ def test_plain_apply_matches_oracle(ref, msh_dir, kind):
 
 def test_convert_matches_own_build(ref, msh_dir):
     """stiffness_from_fustpu of the three JAX extruded layouts gives the
-    port's own operator data and apply; no launch on CPU tensors."""
+    port's own operator data, stack schedule and apply; no launch on CPU
+    tensors."""
     jnp, ops, pex = ref.jnp, ref.ops, ref.pex
     k = _apply_case(ref, msh_dir, "cylinder", 3, seed=3)
     mesh, fmesh, fd = k.mesh, k.fmesh, k.fdisc
@@ -298,6 +301,16 @@ def test_convert_matches_own_build(ref, msh_dir):
                                       rows=a(ppair.rows), C=a(ppair.ce))]
     ce.reset_launches()
     x1, x2 = torch.as_tensor(k.x1), torch.as_tensor(k.x2)
+
+    def schedule(plan):
+        return ce.stack_schedule(plan.colour, plan.rows2d, plan.nz, 3, 8,
+                                 sms=132)
+
+    mine = schedule(own.plan)
+    for host in single + pairs:
+        theirs = schedule(host.to_device(F64, "cpu", mesh).plan)
+        for name in ("classes", "chunks", "ids"):
+            assert np.array_equal(getattr(theirs, name), getattr(mine, name))
     for host in single:
         op = host.to_device(F64, "cpu", mesh)
         assert rel(op.G, own.G) <= TOL and rel(op.D, own.D) == 0.0
@@ -308,6 +321,226 @@ def test_convert_matches_own_build(ref, msh_dir):
         assert rel(ce.extruded_pair(op, x1, x2),
                    ce.extruded_pair(own_pair, x1, x2)) <= TOL
     assert ce.launches == {"extruded": 0, "extruded_pair": 0}
+
+
+# ---------------------------------------------------------------------------
+# The stack kernel's schedule (ops/cuda_extruded.py `stack_schedule`)
+# ---------------------------------------------------------------------------
+
+def _footprint(kind, P, directory=None):
+    """An extruded mesh of the port alone: a structured footprint (a box,
+    3 x 2 stacks of 7 layers) or an unstructured one (the imported
+    cylinder, 4 layers)."""
+    if kind == "structured":
+        return as_extruded(from_box(build_box_mesh((3, 2, 7), P)))
+    v, c, t = shapes.cylinder_mesh(nz=4, **CYL)
+    return msh_io.read_msh(msh_io.write_msh(str(Path(directory) / "f"), v, c,
+                                            t), P)
+
+
+def _segments(sched, nz):
+    """The schedule's segments by class: (segment index in table order,
+    stack, first layer, end layer, table rows)."""
+    seg = 0
+    for first, count, per in sched.classes:
+        out = []
+        for u in range(count):
+            rows = sched.chunks[first + u * per:first + (u + 1) * per]
+            out.append((seg, rows[0, 0] // nz, rows[0, 0] % nz,
+                        (rows[-1, 0] + rows[-1, 1] - 1) % nz + 1, rows))
+            seg += 1
+        yield out
+
+
+def _check_stack_schedule(mesh, P, itemsize, pair, segments=None):
+    n, nz = P + 1, mesh.nz
+    ns = mesh.rows2d.shape[0]
+    colour = ce.colour_stacks(mesh.rows2d)
+    sched = ce.stack_schedule(colour, mesh.rows2d, nz, P, itemsize, sms=132,
+                              pair=pair, segments=segments)
+    stage, smem = cs.pencil_smem(P, itemsize, sched.cpb, pair, ids=True)
+    assert (sched.stage_bytes, sched.smem) == (stage, smem)
+    static = -(-n * n * itemsize // 128) * 128       # D, as ptxas rounds it
+    assert sched.smem + static <= 232_448 and sched.stages >= 2
+    assert 1 <= sched.cpb and n * n * sched.cpb <= 256
+    ch = sched.chunks
+    assert ch.dtype == np.int64 and ch.shape[1] == 5
+    # every cell once; one chunk count a segment; classes start on a
+    # segment; column 4 is the chunk's first layer times P
+    covered = np.zeros(ns * nz, np.int64)
+    for c0, m, *_ in ch:
+        assert 1 <= m <= sched.cpb
+        covered[c0:c0 + m] += 1
+    assert (covered == 1).all()
+    assert (ch[:, 4] == (ch[:, 0] % nz) * P).all()
+    assert sum(int(u * r) for _, u, r in sched.classes) == len(ch)
+    assert (sched.classes[1:, 0] == np.cumsum(
+        sched.classes[:, 1] * sched.classes[:, 2])[:-1]).all()
+    assert len(sched.ids) == sched.classes[:, 1].sum()
+    # segments: consecutive layers of one stack, their row ids the stack's;
+    # no two segments of a class share a dof
+    gz = nz * P + 1
+    for segs in _segments(sched, nz):
+        seen = np.zeros(mesh.n2d * gz, np.int64)
+        for seg, s, z0, z1, rows in segs:
+            assert ((rows[:, 0] // nz) == s).all()
+            assert (rows[1:, 0] == rows[:-1, 0] + rows[:-1, 1]).all()
+            assert np.array_equal(sched.ids[seg], mesh.rows2d[s])
+            dofs = (mesh.rows2d[s][:, None] * gz
+                    + np.arange(z0 * P, z1 * P + 1)[None, :]).reshape(-1)
+            seen[dofs] += 1
+        assert seen.max() <= 1
+    # bulk-copy spans, as the pencil kernel's
+    cb = 6 * n ** 3 * itemsize
+    total = ns * nz * cb
+    start, end = ch[:, 0] * cb, (ch[:, 0] + ch[:, 1]) * cb
+    off, nbytes = ch[:, 2], ch[:, 3]
+    assert (off % 16 == 0).all() and (nbytes % 16 == 0).all()
+    assert (off >= 0).all() and (off + nbytes <= total).all()
+    assert (off <= start).all() and (start - off < 16).all()
+    short = end - (off + nbytes)
+    assert ((short <= 0) | ((end == total) & (short < 16))).all()
+    assert (start - off + ch[:, 1] * cb <= sched.stage_bytes).all()
+    return sched
+
+
+@pytest.mark.parametrize("kind", ["structured", "unstructured"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("P", range(2, 11))
+def test_stack_schedule(tmp_path, P, itemsize, kind):
+    """For the single and the pair kernel, with the model's segments and
+    with stacks cut into 3: every cell once; no two segments of a class
+    share a dof; each segment's row ids its stack's; a block's shared
+    bytes within the card's 232,448; every bulk-copy span 16 B-aligned,
+    inside G, and covering its chunk's run of G (short of it only at G's
+    end, by less than 16 B)."""
+    mesh = _footprint(kind, P, tmp_path)
+    for pair in (False, True):
+        _check_stack_schedule(mesh, P, itemsize, pair)
+        s3 = _check_stack_schedule(mesh, P, itemsize, pair, segments=3)
+        assert s3.segments == 3
+        assert len(s3.classes) == 2 * (int(ce.colour_stacks(
+            mesh.rows2d).max()) + 1)
+
+
+# the H100's occupancy answers for the stack kernel at P = 4, float32
+# (blocks an SM by cells a chunk, `fustpu_extruded_stack_occupancy`)
+H100_STACK_BLOCKS = {1: 16, 2: 8, 3: 5, 4: 4, 5: 4, 6: 3, 7: 2, 8: 2, 9: 2,
+                     10: 2}
+
+
+def test_stack_schedule_follows_the_occupancy():
+    """The cells a chunk and the segments follow the occupancy and the
+    cost model: on the imported bowl's 1,600 stacks of 64 layers in 4
+    colours (400 stacks a class) with the card's answers, 5 cells a chunk
+    and whole stacks (the fastest of the schedules timed there), single
+    and pair; a mesh of few stacks of many layers is cut into segments, so
+    that its classes fill more of the card; the occupancy is asked once
+    per cells a chunk, with the shared bytes of that shape."""
+    card = lambda P, itemsize, pair, cpb, smem: H100_STACK_BLOCKS[cpb]
+    colour = np.repeat(np.arange(4), 400)
+    rows2d = np.zeros((1600, 25), np.int32)
+    for pair in (False, True):
+        bowl = ce.stack_schedule(colour, rows2d, 64, 4, 4, sms=132,
+                                 pair=pair, occupancy=card)
+        assert (bowl.cpb, bowl.segments, bowl.blocks_per_sm) == (5, 1, 4)
+        assert bowl.classes[:, 1].tolist() == [400] * 4
+        assert bowl.classes[:, 2].tolist() == [13] * 4
+    few = ce.stack_schedule(np.zeros(8, np.int64),
+                            np.zeros((8, 25), np.int32), 96, 4, 4, sms=132,
+                            occupancy=card)
+    assert few.segments > 2 and len(few.classes) == 2
+    calls = []
+
+    def occupancy(P, itemsize, pair, cpb, smem):
+        calls.append((cpb, smem))
+        return 2 if cpb == 3 else 0
+
+    s = ce.stack_schedule(colour[:8], rows2d[:8], 7, 4, 8, sms=1, pair=True,
+                          occupancy=occupancy)
+    assert (s.cpb, s.blocks_per_sm, s.blocks) == (3, 2, 2)
+    assert [int(r[1]) for r in s.chunks[:3]] == [3, 2, 2]
+    assert calls == [(c, cs.pencil_smem(4, 8, c, True, ids=True)[1])
+                     for c in range(1, 8)]
+
+
+def _stack_emulate(op, sched, x1, x2=None):
+    """Float64 torch emulation of the stack kernel on `op` under `sched`:
+    each cell's contribution added into y class by class, chunk by chunk
+    of each segment, even cells of a chunk, then odd, the nodes found
+    through the schedule's row ids and layer column (a batch of one class,
+    chunk and turn shares no dof, so its adds are exact)."""
+    P, n, nz = op.P, op.P + 1, op.nz
+    gz = nz * P + 1
+    ids = torch.as_tensor(sched.ids, dtype=torch.long).reshape(-1, n, n)
+    r = torch.arange(n)
+    y = torch.zeros_like(x1)
+    seg0 = 0
+    for first, pencils, per in sched.classes:
+        for q in range(per):
+            rows = first + np.arange(pencils) * per + q
+            for turn in (0, 1):
+                picked = [(c, m) for m in rows
+                          for c in range(int(sched.chunks[m, 0]) + turn,
+                                         int(sched.chunks[m, 0]
+                                             + sched.chunks[m, 1]), 2)]
+                if not picked:
+                    continue
+                cells = torch.as_tensor([c for c, _ in picked])
+                seg = torch.as_tensor([seg0 + (m - first) // per
+                                       for _, m in picked])
+                z = torch.as_tensor([int(sched.chunks[m, 4])
+                                     + (c - int(sched.chunks[m, 0])) * P
+                                     for c, m in picked])
+                idx = (ids[seg][:, :, :, None] * gz
+                       + (z[:, None, None, None] + r))  # (b, i, j, k)
+                u = x1[idx]
+                if x2 is not None:
+                    cc = op.C[cells][:, :, None, None, None]
+                    u = cc[:, 0] * u + cc[:, 1] * x2[idx]
+                y.index_put_((idx,), idx_ops._indexed_contract(
+                    u, op.G[cells].transpose(0, 1), None, op.D),
+                    accumulate=True)
+        seg0 += pencils
+    return y
+
+
+@pytest.mark.parametrize("segments", [None, 3])
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_stack_order_matches_pallas_interpret(ref, msh_dir, P, segments):
+    """The stack kernel's schedule, emulated in float64 (its classes,
+    segments, chunks and turns, its row ids), against the JAX package's
+    Pallas kernel in interpret mode, single (with a coefficient) and pair,
+    on the imported cylinder: with the model's schedule on a card of 132
+    SMs, and with stacks cut into 3 segments on a card that holds one
+    block of 2 cells (several chunks a segment)."""
+    jnp, pex = ref.jnp, ref.pex
+    k = _apply_case(ref, msh_dir, "cylinder", P, seed=P)
+    fd, mesh = k.fdisc, k.mesh
+    colour = ce.colour_stacks(mesh.rows2d)
+    if segments:
+        sched = ce.stack_schedule(colour, mesh.rows2d, mesh.nz, P, 8, sms=1,
+                                  segments=segments,
+                                  occupancy=lambda *a: int(a[3] == 2))
+        assert sched.segments == 3 and sched.cpb == 2
+    else:
+        sched = ce.stack_schedule(colour, mesh.rows2d, mesh.nz, P, 8,
+                                  sms=132)
+    fop = pex.build_extruded(k.fmesh, fd._G_host, fd._D_host, jnp.float64,
+                             coeff=k.c1)
+    y_ref = pex.stiffness_apply_extruded_pallas(
+        jnp.asarray(k.x1), fop, mesh.ndofs, interpret=True,
+        precision=pex._HI)
+    op = k.disc.stiffness_op(F64, "cpu", coeff=k.c1)
+    assert rel(_stack_emulate(op, sched, torch.as_tensor(k.x1)), y_ref) <= TOL
+    fpair = pex.build_extruded_pair(k.fmesh, fd._G_host, fd._D_host,
+                                    jnp.float64, k.c1, k.c2)
+    ref2 = pex.stiffness_apply_extruded_pallas_pair(
+        jnp.asarray(k.x1), jnp.asarray(k.x2), fpair, mesh.ndofs,
+        interpret=True, precision=pex._HI)
+    pop = k.disc.stiffness_op(F64, "cpu", pair=(k.c1, k.c2))
+    assert rel(_stack_emulate(pop, sched, torch.as_tensor(k.x1),
+                              torch.as_tensor(k.x2)), ref2) <= TOL
 
 
 # ---------------------------------------------------------------------------
@@ -557,3 +790,57 @@ def test_kernels_match_plain_on_card(tmp_path, P):
             assert torch.equal(run(op, x1.to(dtype), x2.to(dtype)), y)
     assert ce.launches["extruded"] == before["extruded"] + 8
     assert ce.launches["extruded_pair"] == before["extruded_pair"] + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", range(2, 11))
+def test_stack_kernel_matches_plain_on_card(tmp_path, P):
+    """The stack kernels (`extruded`, `extruded_pair`) vs the plain version
+    on the card, float64 to 1e-12 and float32 to 1e-6 against the float64
+    plain version, two applies bitwise equal, and against the class-launch
+    kernels to 1e-14 in float64; single with and without a coefficient and
+    pair, on the imported cylinder, on one cell (the bulk copy's span cut
+    back at G's end) and on long odd stacks (several chunks a stack),
+    there also with the stacks cut into 3 z-segments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    v, c, t = shapes.cylinder_mesh(nz=4 if P <= 6 else 2, **CYL)
+    cyl = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "c"), v, c, t), P)
+    meshes = [(cyl, {}), (as_extruded(from_box(build_box_mesh((1, 1, 1), P))),
+                          {}),
+              (as_extruded(from_box(build_box_mesh((2, 1, 29), P))), {}),
+              (as_extruded(from_box(build_box_mesh((2, 1, 29), P))),
+               {"segments": 3})]
+    rng = np.random.default_rng(P)
+    before = dict(ce.launches)
+    for mesh, schedule in meshes:
+        disc = Discretization(mesh)
+        c1 = rng.uniform(0.5, 2.0, mesh.num_cells)
+        c2 = rng.uniform(-1.5, -0.5, mesh.num_cells)
+        x1 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
+        x2 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
+        for kw in (dict(), dict(coeff=c1), dict(pair=(c1, c2))):
+            pair = "pair" in kw
+            if pair:
+                run = lambda op, a, b: ce.extruded_pair(op, a, b, **schedule)
+                old = ce.extruded_classes_pair
+                plain = ce.extruded_pair_plain
+            else:
+                run = lambda op, a, b: ce.extruded(op, a, **schedule)
+                old = lambda op, a, b: ce.extruded_classes(op, a)
+                plain = lambda op, a, b: ce.extruded_plain(op, a)
+            y_ref = plain(disc.stiffness_op(F64, "cuda", **kw), x1, x2).cpu()
+            for dtype, tol in ((F64, TOL), (torch.float32, 1e-6)):
+                op = disc.stiffness_op(dtype, "cuda", **kw)
+                a, b = x1.to(dtype), x2.to(dtype)
+                y = run(op, a, b)
+                torch.cuda.synchronize()
+                assert rel(y.cpu(), y_ref) <= tol, (mesh.num_cells, kw.keys())
+                assert torch.equal(run(op, a, b), y)
+                if dtype == F64:
+                    assert rel(y.cpu(), old(op, a, b).cpu()) <= 1e-14
+            if schedule:
+                assert op.plan.card(op.P, torch.float32, pair, "cuda",
+                                    **schedule)[0].segments == 3
+    assert ce.launches["extruded"] == before["extruded"] + 4 * 2 * 2 * 2
+    assert ce.launches["extruded_pair"] == before["extruded_pair"] + 4 * 2 * 2

@@ -38,6 +38,7 @@ from fustpu_torch.models.discretization import (Discretization,
 from fustpu_torch.models.linear import LinearWaveModel
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.ops import cuda_indexed as ci
+from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.ops import indexed as idx
 from fustpu_torch.ops import precompute as pre
 
@@ -307,9 +308,10 @@ def test_scatter_classes_cover_and_separate(ref, msh_dir, kind):
         disc = Discretization(mesh)
         op1, op2 = (disc.stiffness_op(F64, "cpu"),
                     Discretization(mesh).stiffness_op(F64, "cpu"))
-        for name in ("G", "D", "dofmap", "cells"):
+        for name in ("G", "D", "dofmap"):
             assert torch.equal(getattr(op1, name), getattr(op2, name))
-        assert op1.bounds == op2.bounds
+        assert np.array_equal(op1.plan.classes[0], op2.plan.classes[0])
+        assert op1.plan.classes[1] == op2.plan.classes[1]
 
 
 def test_scatter_classes_refuse_shared_dofs(monkeypatch):
@@ -323,10 +325,198 @@ def test_scatter_classes_refuse_shared_dofs(monkeypatch):
         ci.scatter_classes(dm, 8)
 
 
+# ---------------------------------------------------------------------------
+# The chunk kernel's tables and schedule (ops/cuda_indexed.py)
+# ---------------------------------------------------------------------------
+
+def _check_chunk_schedule(plan, P, itemsize, pair, cpb=None, sms=132,
+                          occupancy=cs.model_occupancy):
+    dm, nnn = plan.dofmap, (P + 1) ** 3
+    cells = dm.shape[0]
+    sched = ci.chunk_schedule(plan, P, itemsize, sms, pair, occupancy, cpb)
+    tab = plan.tables(sched.cpb)
+    # shared memory: the kernel's layout at the fullest chunk, within one
+    # block's limit
+    stage, smem = ci.chunk_smem(P, itemsize, sched.cpb, sched.maxu, pair)
+    assert (sched.stage_bytes, sched.smem) == (stage, smem)
+    static = -(-(P + 1) ** 2 * itemsize // 128) * 128
+    assert sched.smem + static <= 232_448 and sched.stages >= 2
+    assert 1 <= sched.cpb and (P + 1) ** 2 * sched.cpb <= 256
+    assert sched.maxu == tab.nu.max() <= sched.cpb * nnn
+    ch = sched.chunks
+    assert ch.dtype == np.int64 and ch.shape[1] == 6
+    assert sched.classes[:, 1].sum() == len(ch) == tab.cell0.size
+    assert (sched.classes[1:, 0] == np.cumsum(sched.classes[:, 1])[:-1]).all()
+    # every cell once
+    covered = np.zeros(cells, np.int64)
+    for c0, m, *_ in ch:
+        assert 1 <= m <= sched.cpb
+        covered[c0:c0 + m] += 1
+    assert (covered == 1).all()
+    # the tables: each chunk's unique dofs ascending and its own, its
+    # inverse map a permutation of its (cell, node) entries grouped by
+    # unique dof, ascending within each
+    for c0, m, _, _, u0, nu in ch:
+        uq = tab.uniq[u0:u0 + nu]
+        assert (np.diff(uq) > 0).all()
+        assert np.array_equal(uq, np.unique(dm[c0:c0 + m]))
+        ends = tab.ends[u0:u0 + nu].astype(np.int64)
+        assert ends[-1] == m * nnn and (np.diff(ends) > 0).all()
+        pos = tab.pos[c0 * nnn:(c0 + m) * nnn].astype(np.int64)
+        assert np.array_equal(np.sort(pos), np.arange(m * nnn))
+        start = np.concatenate([[0], ends[:-1]])
+        for s in range(nu):
+            run = pos[start[s]:ends[s]]
+            assert (np.diff(run) > 0).all()
+            assert (dm[c0:c0 + m].reshape(-1)[run] == uq[s]).all()
+    # no two chunks of a class share a dof
+    for first, count in sched.classes:
+        seen = np.zeros(plan.ndofs, np.int64)
+        for c0, m, *_ in ch[first:first + count]:
+            seen[np.unique(dm[c0:c0 + m])] += 1
+        assert seen.max() <= 1
+    # bulk-copy spans, as the pencil kernel's
+    cb = 6 * nnn * itemsize
+    total = cells * cb
+    start, end = ch[:, 0] * cb, (ch[:, 0] + ch[:, 1]) * cb
+    off, nbytes = ch[:, 2], ch[:, 3]
+    assert (off % 16 == 0).all() and (nbytes % 16 == 0).all()
+    assert (off >= 0).all() and (off + nbytes <= total).all()
+    assert (off <= start).all() and (start - off < 16).all()
+    short = end - (off + nbytes)
+    assert ((short <= 0) | ((end == total) & (short < 16))).all()
+    assert (start - off + ch[:, 1] * cb <= sched.stage_bytes).all()
+    return sched
+
+
+@pytest.mark.parametrize("kind", ["structured", "cylinder", "perturbed"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("P", range(2, 11))
+def test_chunk_schedule(tmp_path, P, itemsize, kind):
+    """For the single and the pair kernel, with the model's cells a chunk
+    and with one cell a chunk: every cell once; the chunk tables
+    consistent (each chunk's unique dofs its own, positions in range, the
+    inverse map a permutation of the chunk's (cell, node) entries); no two
+    chunks of a class share a dof; a block's shared bytes within the
+    card's 232,448; every bulk-copy span 16 B-aligned, inside G, and
+    covering its chunk's run of G.  On a structured footprint (a box in
+    `locality_order`), the imported non-prismatic cylinder and a perturbed
+    box through a .msh file."""
+    if kind == "structured":
+        mesh = un.locality_order(un.from_box(build_box_mesh((3, 3, 4), P)))
+    elif kind == "cylinder":
+        v, c, t = shapes.cylinder_mesh(nz=3 if P <= 6 else 2, **CYL)
+        mesh = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "c"), v, c,
+                                                t), P, detect_extrusion=False)
+    else:
+        um = un.from_box(build_box_mesh((3, 2, 4) if P <= 4 else (2, 2, 2),
+                                        P, perturb=0.2, seed=3),
+                         shuffle_seed=11)
+        mesh = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "p"),
+                                                um.vertices, um.cells), P)
+    plan = ci.ChunkPlan(mesh.dofmap, mesh.ndofs)
+    for pair in (False, True):
+        _check_chunk_schedule(plan, P, itemsize, pair)
+        assert _check_chunk_schedule(plan, P, itemsize, pair, cpb=1).cpb == 1
+
+
+def test_chunk_schedule_on_the_bodyfit_bowl(ref, msh_dir):
+    """The small bodyfit bowl (P = 2): the schedule's invariants, its
+    classes hold several chunks a block on a small card, and a rebuilt
+    plan gives the same tables."""
+    mesh = _meshes(ref, msh_dir, "bodyfit", 2)[0]
+    plan = ci.ChunkPlan(mesh.dofmap, mesh.ndofs)
+    sched = _check_chunk_schedule(plan, 2, 4, False, sms=1)
+    assert sched.classes[:, 1].max() > sched.blocks
+    again = ci.ChunkPlan(mesh.dofmap, mesh.ndofs).tables(sched.cpb)
+    for name in ci.ChunkTables._fields:
+        assert np.array_equal(getattr(again, name),
+                              getattr(plan.tables(sched.cpb), name))
+
+
+def _chunk_emulate(op, sched, x1, x2=None):
+    """Float64 torch emulation of the chunk kernel on `op` under `sched`,
+    through its tables: class by class, each chunk's u from its unique
+    dofs' x through the inverse map (for the pair c1 x1 + c2 x2 with each
+    position's cell's c), each cell's node sums, then each unique dof's
+    positions summed in the inverse map's order and added to y once."""
+    P, n = op.P, op.P + 1
+    nnn = n ** 3
+    tab = op.plan.tables(sched.cpb)
+    y = torch.zeros_like(x1)
+    for first, count in sched.classes:
+        for c0, m, _, _, u0, nu in sched.chunks[first:first + count]:
+            ends = tab.ends[u0:u0 + nu].astype(np.int64)
+            pos = torch.as_tensor(tab.pos[c0 * nnn:(c0 + m) * nnn]
+                                  .astype(np.int64))
+            ids = torch.as_tensor(tab.uniq[u0:u0 + nu].astype(np.int64))
+            slot = torch.as_tensor(np.repeat(np.arange(nu), np.diff(
+                np.concatenate([[0], ends]))))
+            cell = pos // nnn + c0
+            u = torch.empty(m * nnn, dtype=x1.dtype)
+            if x2 is None:
+                u[pos] = x1[ids[slot]]
+            else:
+                u[pos] = (op.C[cell, 0] * x1[ids[slot]]
+                          + op.C[cell, 1] * x2[ids[slot]])
+            out = idx._indexed_contract(
+                u.reshape(m, n, n, n), op.G[c0:c0 + m].transpose(0, 1), None,
+                op.D).reshape(-1)
+            acc = torch.zeros(nu, dtype=x1.dtype)
+            start = np.concatenate([[0], ends[:-1]])
+            for r in range(int((ends - start).max())):
+                has = torch.as_tensor(start + r < ends)
+                at = torch.as_tensor(np.minimum(start + r, ends - 1))
+                acc += torch.where(has, out[pos[at]], 0.0)
+            y[ids] += acc
+    return y
+
+
+@pytest.mark.parametrize("small_card", [False, True])
+@pytest.mark.parametrize("kind", ["random", "cylinder"])
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_chunk_order_matches_fused_interpret(ref, msh_dir, kind, P,
+                                             small_card):
+    """The chunk kernel's schedule, emulated in float64 through its tables
+    (classes, chunks, unique dofs, inverse map and its order of adds),
+    against the JAX package's fused Pallas engine in interpret mode
+    (`fused_apply` with a coefficient, `fused_apply_pair`), rel-max <=
+    1e-12: with the model's schedule on a card of 132 SMs, and on a card
+    that holds one block of 2 cells (several chunks a block)."""
+    jnp, pg = ref.jnp, ref.pg
+    if kind == "random":
+        dm, ndofs, G, D, rng = _random_dofmap(P + 1, seed=P)
+    else:
+        mesh, _ = _meshes(ref, msh_dir, "cylinder", P)
+        dm, ndofs = mesh.dofmap.astype(np.int64), mesh.ndofs
+        disc = Discretization(mesh)
+        G, D, rng = disc._G_host, disc._D_host, np.random.default_rng(P)
+    cells = dm.shape[0]
+    x1, x2 = rng.standard_normal(ndofs), rng.standard_normal(ndofs)
+    c1, c2 = rng.standard_normal(cells), rng.standard_normal(cells)
+    fe = pg.build_fused_engine(dm, ndofs, G, D, jnp.float64)
+    j, t = jnp.asarray, torch.as_tensor
+    mesh = SimpleNamespace(dofmap=dm, ndofs=ndofs, num_cells=cells)
+    op = ci.build(mesh, G, D, F64, "cpu", coeff=c1)
+    if small_card:
+        sched = ci.chunk_schedule(op.plan, P, 8, sms=1,
+                                  occupancy=lambda *a: int(a[3] == 2))
+        assert sched.cpb == 2 and sched.blocks == 1
+    else:
+        sched = ci.chunk_schedule(op.plan, P, 8, sms=132)
+    assert rel_max(_chunk_emulate(op, sched, t(x1)),
+                   pg.fused_apply(j(x1), j(c1), fe, ndofs,
+                                  interpret=True)) <= TOL
+    pop = ci.build(mesh, G, D, F64, "cpu", pair=(c1, c2), plan=op.plan)
+    assert rel_max(_chunk_emulate(pop, sched, t(x1), t(x2)),
+                   pg.fused_apply_pair(j(x1), j(c1), j(x2), j(c2), fe,
+                                       ndofs, interpret=True)) <= TOL
+
+
 def test_convert_matches_own_build(ref, msh_dir):
     """stiffness_from_fustpu of the `indexed_op` arrays and of a
-    FusedEngine gives the port's own operator data and apply; no launch on
-    CPU tensors."""
+    FusedEngine gives the port's own operator data, chunk tables and
+    apply; no launch on CPU tensors."""
     jnp, pg = ref.jnp, ref.pg
     k = _apply_case(ref, msh_dir, "cylinder", 3, seed=3)
     mesh, fd = k.mesh, k.fdisc
@@ -344,7 +534,12 @@ def test_convert_matches_own_build(ref, msh_dir):
         op = convert.stiffness_from_fustpu(nc=None, coeff_e=k.c1,
                                            **kw).to_device(F64, "cpu", mesh)
         assert rel(op.G, own.G) <= TOL and rel(op.D, own.D) <= TOL
-        assert torch.equal(op.dofmap, own.dofmap) and op.bounds == own.bounds
+        assert torch.equal(op.dofmap, own.dofmap)
+        for cpb in (1, 3):
+            mine, theirs = op.plan.tables(cpb), own.plan.tables(cpb)
+            for name in ci.ChunkTables._fields:
+                assert np.array_equal(getattr(mine, name),
+                                      getattr(theirs, name)), name
         assert rel(ci.indexed(op, x1), ci.indexed(own, x1)) <= TOL
         op = convert.stiffness_from_fustpu(
             nc=None, c1_e=k.c1, c2_e=k.c2, **kw).to_device(F64, "cpu", mesh)
@@ -532,6 +727,27 @@ def test_bodyfit_demo_cli():
     assert m and np.isfinite(float(m.group(1))) and float(m.group(1)) != 0.0
 
 
+def test_exp_imported_demo_on_cpu(capsys):
+    """The exp_imported demo at a small size on the CPU (16 elements,
+    P = 2, no P = 6 bowl): the imported and bodyfit bowls, every form's
+    results equal to the plain version (on the CPU each wrapper runs it),
+    and the CPU named as the clock."""
+    from fustpu_torch.demos import exp_imported
+
+    out = exp_imported.main(["--device", "cpu", "--elements", "16",
+                             "--degree", "2", "--p6-elements", "0",
+                             "--chain", "1", "--reps", "1"])
+    assert set(out) == {"#6", "#11"}
+    assert set(out["#6"]) == set(out["#11"]) == {"single", "pair"}
+    for label, forms in out.items():
+        for f in forms.values():
+            assert all(rel(y, f["plain"]) <= TOL for y in f["ys"].values())
+            assert f["nbytes"] > f["op"].G.numel() * 4
+    assert set(out["#11"]["single"]["ys"]) == {"classes", "chunks",
+                                                "engine"}
+    assert capsys.readouterr().out.count("host clock on the CPU") == 1
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -577,3 +793,63 @@ def test_kernels_match_plain_on_card(tmp_path, P):
                 assert torch.equal(run(op, x1.to(dtype), x2.to(dtype)), y)
     assert ci.launches["indexed"] == before["indexed"] + 16
     assert ci.launches["indexed_pair"] == before["indexed_pair"] + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", range(2, 11))
+def test_chunk_kernel_matches_plain_on_card(tmp_path, P):
+    """The chunk kernels (`indexed`, `indexed_pair`) vs the plain version
+    on the card, float64 to 1e-12 and float32 to 1e-6 against the float64
+    plain version, two applies bitwise equal, and against the class-launch
+    kernels to 1e-14 in float64; single with and without a coefficient and
+    pair, on the imported non-prismatic cylinder, on overlapping random
+    cells, on one cell (the bulk copy's span cut back at G's end) and on a
+    long perturbed column (several chunks a class), there also with one
+    cell a chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    v, c, t = shapes.cylinder_mesh(nz=3 if P <= 6 else 2, **CYL)
+    cyl = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "c"), v, c, t), P,
+                          detect_extrusion=False)
+    dm, ndofs, G_rand, D_rand, rng = _random_dofmap(P + 1, cells=120,
+                                                    seed=P)
+    column = un.from_box(build_box_mesh((1, 2, 29), P, perturb=0.2, seed=P))
+    meshes = [(cyl, None), (SimpleNamespace(dofmap=dm, ndofs=ndofs,
+                                            num_cells=120), (G_rand, D_rand)),
+              (un.from_box(build_box_mesh((1, 1, 1), P)), None),
+              (column, None), (column, "one cell a chunk")]
+    before = dict(ci.launches)
+    for mesh, extra in meshes:
+        if isinstance(extra, tuple):
+            G, D = extra
+        else:
+            disc = Discretization(mesh)
+            G, D = disc._G_host, disc._D_host
+        cpb = 1 if extra == "one cell a chunk" else None
+        c1 = rng.uniform(0.5, 2.0, mesh.num_cells)
+        c2 = rng.uniform(-1.5, -0.5, mesh.num_cells)
+        x1 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
+        x2 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
+        for kw in (dict(), dict(coeff=c1), dict(pair=(c1, c2))):
+            pair = "pair" in kw
+            if pair:
+                run = lambda op, a, b: ci.indexed_pair(op, a, b, cpb)
+                old = ci.indexed_classes_pair
+                plain = ci.indexed_pair_plain
+            else:
+                run = lambda op, a, b: ci.indexed(op, a, cpb)
+                old = lambda op, a, b: ci.indexed_classes(op, a)
+                plain = lambda op, a, b: ci.indexed_plain(op, a)
+            y_ref = plain(ci.build(mesh, G, D, F64, "cuda", **kw),
+                          x1, x2).cpu()
+            for dtype, tol in ((F64, TOL), (torch.float32, 1e-6)):
+                op = ci.build(mesh, G, D, dtype, "cuda", **kw)
+                a, b = x1.to(dtype), x2.to(dtype)
+                y = run(op, a, b)
+                torch.cuda.synchronize()
+                assert rel(y.cpu(), y_ref) <= tol, (mesh.num_cells, kw.keys())
+                assert torch.equal(run(op, a, b), y)
+                if dtype == F64:
+                    assert rel(y.cpu(), old(op, a, b).cpu()) <= 1e-14
+    assert ci.launches["indexed"] == before["indexed"] + 5 * 2 * 2 * 2
+    assert ci.launches["indexed_pair"] == before["indexed_pair"] + 5 * 2 * 2

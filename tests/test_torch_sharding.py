@@ -273,13 +273,23 @@ def test_two_process_check_and_a_failing_rank():
     reference) passes, spawned ranks load neither JAX nor the JAX package,
     and a rank that raises fails the run with its traceback."""
     assert multihost.run_multiprocess_check(2, device="cpu") <= TOL
-    for mods in multihost.spawn(multihost.imported_modules, 2):
+    for mods in multihost.spawn(multihost.imported_modules, 2,
+                                device="cpu"):
         bad = [m for m in mods if m.split(".")[0] in ("jax", "fustpu")]
         assert not bad, bad
     with pytest.raises(RuntimeError, match=r"rank \d of 2 failed"):
-        multihost.spawn(multihost.solve_cases, 2, args=(
+        multihost.spawn(multihost.solve_cases, 2, device="cpu", args=(
             [dict(model=_models("linear_2x1x1")[0], grid=(1, 1, 1),
                   steps=1, dt=1e-9)],))
+
+
+def test_spawn_defaults_to_the_card():
+    """`spawn` with no device runs its ranks on the card: on a host
+    without one it refuses before starting any rank."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.spawn(multihost.imported_modules, 2)
 
 
 def test_sharded_box_demo_cli():

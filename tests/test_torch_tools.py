@@ -72,6 +72,20 @@ def test_summarize_trace_counts_the_pencil_kernel():
     assert s["busy_us"] == pytest.approx(39.0)
 
 
+def test_summarize_trace_counts_the_stack_and_chunk_kernels():
+    """The main path's imported-mesh kernels: the pencil kernel on stacks
+    and the chunk kernel (one launch a class each)."""
+    stack = "void fustpu::pencil::pencil_kernel<float, 5, false, " \
+        "fustpu::pencil::StackRows>(...)"
+    chunk = "void (anonymous namespace)::chunk_kernel<float, 5, true>(...)"
+    events = [_ev("kernel", stack, 0.0, 5.0), _ev("kernel", chunk, 5.0, 7.0),
+              _ev("kernel", "vectorized_elementwise_kernel", 12.0, 1.0)]
+    s = summarize_trace(events)
+    assert s["stiffness"] == (12.0, 2)
+    assert s["elementwise"] == (1.0, 1)
+    assert s["busy_us"] == pytest.approx(13.0)
+
+
 def test_stiffness_bytes_counts_the_corner_channels():
     """In the capacity mode the geometry an apply must read is the corner
     channels (37 per cell), not a metric stream."""
