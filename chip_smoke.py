@@ -73,13 +73,17 @@ Phases (each prints its time; any failure exits non-zero):
      then the model's kernel against its plain version at that size;
  20. the four kernels of the staged gather / contract / scatter engine
      against their plain version at P = 2..10 on phase 12's meshes, float64
-     and float32: each kernel alone (the gathers bitwise), the composed
-     apply and pair, and the composed apply against the indexed kernel on
-     the same buffers (run right after phase 16);
+     and float32: each kernel alone (the gathers bitwise, the single-field
+     gather also against its first design), the composed apply and pair,
+     and the composed apply against the indexed kernel on the same buffers
+     (run right after phase 16);
  21. the bodyfit bowl on the engine (--stiffness-impl indexed_engine, on
      phase 13a's import): each kernel against its plain version and timed,
      the composed apply against the indexed kernel in the same run, 10
-     steps against the indexed model (21a); the whole solve, its focal
+     steps against the indexed model; the single-field gather against its
+     first design and `index_select` in turns, warm and cold, and the
+     composed apply and 50 steps with either gather in turns, the steps
+     bitwise equal (21a); the whole solve, its focal
      pressure against phase 13b's, 12 engine kernel launches a step (21b);
      the two-layer bowl, 50 steps through gather2 (21c); the P=6 bowl, 50
      steps against phase 15b's indexed run (21d);
@@ -105,9 +109,12 @@ Phases (each prints its time; any failure exits non-zero):
      variants, each against its plain version, ywin against full;
  26. the exp_g_layout demo (the (32, 5, 6, 160, 160) float32 G summed in
      the per-cell and the component-major layout) and the
-     exp_mosaic_relayout demo (128 tiles of (8192, 1) float32, four
-     permutations, bitwise), each kernel against its plain version, with
-     one PyTorch call's time beside it (einsum; clone, transpose);
+     exp_mosaic_relayout demo (128 and 16384 tiles of (8192, 1) float32,
+     four permutations, bitwise), each kernel against its plain version,
+     with one PyTorch call's time beside it (einsum; clone, transpose);
+     the relayout kernels against their first designs and the PyTorch
+     calls in turns (--turns: CUDA events at both sizes; at 128 tiles also
+     the host clock per call and the profiler's device time);
  27. the parity-class design of #1 and #2 (anatomy's full and
      full_pair) against the z-pencil kernels that replaced them: the
      exp_pencil demo at the flagship's 64 x 40 x 40 cells and at 32^3
@@ -774,11 +781,15 @@ def main() -> None:
                         else:
                             u1 = cen.gather(op, a)
                             ok = torch.equal(u1.reshape(-1), eng.gather(a, g))
+                            # the first design, kept as the comparison
+                            ok = ok and torch.equal(cen.gather_flat(op, a),
+                                                    u1)
                             uc = u1.double()
                             yk = cen.contract(op, u1)
                         if not ok:
                             fail(f"P={P} {mname} {label} {key}: gather not "
-                                 "bitwise equal to plain")
+                                 "bitwise equal to plain and to the "
+                                 "one-thread-a-position gather")
                         ec = rel_l2(yk, eng.dense_contract(uc, p64.G6, p64.D,
                                                            p64.coeff))
                         es = rel_l2(cen.scatter(op, yk), eng.scatter_add(
@@ -811,8 +822,12 @@ def main() -> None:
         print(f"   worst rel-l2 against plain (each kernel and composed): "
               f"f64 {worst['f64']:.3e} (tol {F64_TOL}), f32 "
               f"{worst['f32']:.3e} (tol {F32_TOL}); f64 against the indexed "
-              f"kernel {worst['indexed']:.3e}; launches {dict(cen.launches)}")
-        if not all(cen.launches.values()):
+              f"kernel {worst['indexed']:.3e}; the gathers bitwise equal to "
+              f"plain, the single-field gather also to its first design; "
+              f"launches {dict(cen.launches)}, "
+              f"{dict(cen.comparison_launches)}")
+        if not all(cen.launches.values()) or \
+                not all(cen.comparison_launches.values()):
             fail("an engine kernel's launch counter did not move")
 
     with phase("23 slab2 and slab2w kernels vs plain, P=2..10"):
@@ -958,14 +973,20 @@ def main() -> None:
                        costs[name])
         del out, op, x, outs
 
-    with phase("26 exp_g_layout and exp_mosaic_relayout (f32)"):
+    with phase("26 exp_g_layout and exp_mosaic_relayout (f32), the "
+               "relayouts in turns at 128 and 16384 tiles"):
         probes.reset_launches()
         g = exp_g_layout.main([])
-        r = exp_mosaic_relayout.main([])
+        r = exp_mosaic_relayout.main(["--turns"])
+        big = exp_mosaic_relayout.main(["--tiles", "16384", "--turns",
+                                        "--enqueues", "0"])
         torch.cuda.synchronize()
         demo_launches.update(probes.launches)
-        print(f"   launches in the demos: {dict(probes.launches)}")
-        if not all(probes.launches.values()):
+        demo_launches.update(probes.comparison_launches)
+        print(f"   launches in the demos: {dict(probes.launches)}, "
+              f"{dict(probes.comparison_launches)}")
+        if not all(probes.launches.values()) or \
+                not all(probes.comparison_launches.values()):
             fail("a probe kernel was not launched by its demo")
         w = torch.arange(1, 7, dtype=torch.float32, device=dev)
         for layout in probes.LAYOUTS:
@@ -979,21 +1000,43 @@ def main() -> None:
                 (Ga.numel() * 4 + 2 * c.numel() * 4, 2 * Ga.numel()),
                 library=lambda view=view: torch.einsum("abcmijk,m->bjck",
                                                        view, w))
+        for out in (r, big):
+            for kind in probes.KINDS:
+                if not torch.equal(out["outs"][kind], out["plains"][kind]):
+                    fail(f"relayout {kind} at {out['x'].shape[0]} values: "
+                         "not bitwise the plain version's")
+        # the rows: the new kernels and the first designs at 128 tiles,
+        # each with its reading in turns and the PyTorch call's
         x = r["x"]
-        for kind in probes.KINDS:
-            if not torch.equal(r["outs"][kind], r["plains"][kind]):
-                fail(f"relayout {kind}: not bitwise the plain version's")
-        for kind, library in (
-                ("copy", lambda: x.clone()),
-                ("transpose", lambda: x.reshape(-1, 64, 128).transpose(
-                    1, 2).contiguous())):
-            demo_entry(f"relayout_{kind}", r["outs"][kind],
-                       r["plains"][kind], r["times"][kind][0] * 1e3,
-                       lambda kind=kind: probes.relayout_plain(x, kind),
-                       (2 * x.numel() * 4, 0), library=library)
+        for kind, old in (("copy", "relayout_copy_flat"),
+                          ("transpose", "relayout_transpose_padded")):
+            ms = r["turns"][kind]["ms"]
+            for name, variant in ((f"relayout_{kind}", "new"),
+                                  (old, "old")):
+                y = exp_mosaic_relayout.VARIANTS[variant](kind, x)
+                demo_entry(name, y, r["plains"][kind], min(ms[variant]),
+                           lambda kind=kind: probes.relayout_plain(x, kind),
+                           (2 * x.numel() * 4, 0))
+                demo_kernels[name]["library_ms"] = min(ms["library"])
+        for out in (r, big):
+            nbytes = 2 * out["x"].numel() * 4
+            b_ms = bound(nbytes, 0)[0]
+            for kind, t in out["turns"].items():
+                best = {k: min(v) for k, v in t["ms"].items()}
+                print(f"   {smi}: relayout {kind} at "
+                      f"{out['x'].shape[0] // probes.TM} tiles "
+                      f"({nbytes:,} B), best of the rounds in turns: old "
+                      f"{best['old']:.4f}, new {best['new']:.4f}, library "
+                      f"{best['library']:.4f} ms; new / library "
+                      f"{best['new'] / best['library']:.4f}, old / new "
+                      f"{best['old'] / best['new']:.4f}; of the bound "
+                      f"{b_ms:.4f} ms: new {b_ms / best['new']:.1%}, old "
+                      f"{b_ms / best['old']:.1%}, library "
+                      f"{b_ms / best['library']:.1%}", flush=True)
         print(f"   device bytes of (2^20, 1) f32 {r['bytes']['column']:,}, "
               f"of (2^13, 128) f32 {r['bytes']['packed']:,}")
-        del g, r, x
+        del g, r, big, x, y
+        torch.cuda.empty_cache()
 
     with phase("5 linear box demo (default size)"):
         model, state = linear_box.main(["--device", "cuda"])
@@ -1678,6 +1721,113 @@ def main() -> None:
         out["engine"]["indexed_ms"] = ms_idx
         return out
 
+    class FlatGatherEngine(torch.nn.Module):
+        """The staged engine with the single-field gather's first design
+        (`cen.gather_flat`, one thread a position) in place of the
+        kernel's."""
+
+        def __init__(self, op):
+            super().__init__()
+            self.op = op
+
+        def forward(self, x):
+            return cen.scatter(self.op, cen.contract(
+                self.op, cen.gather_flat(self.op, x)))
+
+    def cold_ms(fn, reps: int = 20) -> float:
+        """Mean device ms of one call of `fn` after a 256 MB write that
+        leaves none of its inputs in the 50 MB L2 (CUDA events around each
+        call)."""
+        flush = torch.empty(2 ** 26, dtype=torch.float32, device=dev)
+        fn()
+        pairs = []
+        for _ in range(reps):
+            flush.fill_(1.0)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            pairs.append(ev)
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    def gather_turns(model, state, dt_, label):
+        """The single-field gather's kernel (new) against its first design
+        (old, `cen.gather_flat`) and `index_select` (library) on one f32
+        field of `model`'s engine, each bitwise the others': ms per call
+        in turns (old, new, new, old, library) with a warm L2 (a chain on
+        the same x) and a cold one; the composed apply and `model`'s
+        steady ms/step over 50 steps from `state`, old gather against new,
+        in turns (old, new, new, old), the steps bitwise equal.  Returns
+        ({variant: [warm ms]}, the first design's launches in the run)."""
+        est = model.stiffness
+        op = est.cell_op
+        g = op.dofmap.reshape(-1).long()
+        x = torch.as_tensor(rng.standard_normal(op.ndofs),
+                            dtype=torch.float32, device=dev)
+        run = {"old": lambda: cen.gather_flat(op, x),
+               "new": lambda: cen.gather(op, x),
+               "library": lambda: x.index_select(0, g)}
+        y = run["new"]().reshape(-1)
+        if not (torch.equal(run["old"]().reshape(-1), y)
+                and torch.equal(run["library"](), y)):
+            fail(f"{label}: the gathers are not bitwise equal")
+        cen.reset_launches()
+        warm = {k: [] for k in run}
+        cold = {k: [] for k in run}
+        for name in ("old", "new", "new", "old", "library"):
+            warm[name].append(time_ms(run[name], 20))
+            cold[name].append(cold_ms(run[name]))
+        n_flat = cen.comparison_launches["engine_gather_flat"]
+        N = op.dofmap.numel()
+        b_ms = bound(N * 4 + op.ndofs * 4 + N * 4, 0)[0]
+        for what, t in (("warm", warm), ("cold", cold)):
+            best = {k: min(v) for k, v in t.items()}
+            print(f"   {smi}: {label} gather ({N:,} positions), {what} L2, "
+                  f"in turns (old, new, new, old, library): "
+                  + ", ".join(f"{v:.4f}" for v in (
+                      t["old"][0], t["new"][0], t["new"][1], t["old"][1],
+                      t["library"][0]))
+                  + f" ms; new / index_select "
+                  f"{best['new'] / best['library']:.4f}, old / new "
+                  f"{best['old'] / best['new']:.4f}; of the bound "
+                  f"{b_ms:.4f} ms: new {b_ms / best['new']:.1%}, old "
+                  f"{b_ms / best['old']:.1%}, index_select "
+                  f"{b_ms / best['library']:.1%}", flush=True)
+        flat = FlatGatherEngine(op)
+        if not torch.equal(flat(x), est(x)):
+            fail(f"{label}: the composed apply with the first gather is not "
+                 "bitwise the kernel's")
+        apply_ms = {"old": [], "new": []}
+        for name, m in (("old", flat), ("new", est), ("new", est),
+                        ("old", flat)):
+            apply_ms[name].append(time_ms(lambda m=m: m(x), 20))
+        step_ms, finals = {"old": [], "new": []}, {}
+        for name, m in (("old", flat), ("new", est), ("new", est),
+                        ("old", flat)):
+            model.stiffness = m
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            finals[name] = model.solve(state, dt_, 50)[0].u
+            end.record()
+            end.synchronize()
+            step_ms[name].append(start.elapsed_time(end) / 50)
+        model.stiffness = est
+        same = torch.equal(finals["old"], finals["new"])
+        print(f"   {smi}: {label} composed apply, old gather / new, in turns:"
+              f" {apply_ms['old'][0]:.4f} / {apply_ms['new'][0]:.4f} / "
+              f"{apply_ms['new'][1]:.4f} / {apply_ms['old'][1]:.4f} ms; "
+              f"steady ms/step over 50 steps {step_ms['old'][0]:.4f} / "
+              f"{step_ms['new'][0]:.4f} / {step_ms['new'][1]:.4f} / "
+              f"{step_ms['old'][1]:.4f}; the 50 steps "
+              f"{'bitwise equal' if same else 'NOT bitwise equal'}",
+              flush=True)
+        if not same:
+            fail(f"{label}: 50 steps with the first gather differ from the "
+                 "kernel's")
+        return warm, n_flat
+
     def bodyfit_build(argv, label, pb=None):
         """Build a bodyfit bowl through the demo (on the problem `pb`, or
         a new import), check that it imported as a general mesh on the
@@ -1796,13 +1946,21 @@ def main() -> None:
             fail("bodyfit engine model: not the engine kernels on the card")
         kernels.update(engine_kernels(ebowl, kst5, "bodyfit bowl"))
         s0 = bbowl.init_state()
-        traj = rel_l2(ebowl.solve(s0, dt5, 10)[0].u,
-                      bbowl.solve(s0, dt5, 10)[0].u)
+        s10 = ebowl.solve(s0, dt5, 10)[0]
+        traj = rel_l2(s10.u, bbowl.solve(s0, dt5, 10)[0].u)
         print(f"   10 steps engine vs indexed model: rel-l2(u) {traj:.3e} "
               f"(tol {TRAJ_TOL})")
         if not traj <= TRAJ_TOL:
             fail(f"bodyfit 10 steps engine vs indexed {traj:.3e}")
         del bbowl, kst5
+        # the gather's kernel against its first design and index_select
+        warm, n_flat = gather_turns(ebowl, s10, dt5, "bodyfit bowl")
+        kernels["engine_gather_flat"] = dict(
+            kernels["engine_gather"], ms=min(warm["old"]),
+            library_ms=warm["library"][0])
+        kernels["engine_gather"].update(ms=min(warm["new"]),
+                                        library_ms=warm["library"][0])
+        del s10
     cen.reset_launches()
     with phase("21b bodyfit bowl on the engine, full solve"):
         state = run_demo(ebowl, dt5, nsteps5, args5, "nonlinear_bowl")
@@ -1942,6 +2100,8 @@ def main() -> None:
     for k in STAGED:
         launches[k] = n_eng[k] + n_eng2[k] + n_eng7[k]
     launches["engine_gather2"] = n_eng2["engine_gather2"]
+    # the first design of the gather: its launches in 21a's run in turns
+    launches["engine_gather_flat"] = n_flat
     # the composed apply: the launches of its kernels
     launches["engine"] = sum(launches[k] for k in
                              STAGED + ("engine_gather2",))
@@ -2134,6 +2294,8 @@ def main() -> None:
             "fustpu/ops/pallas_extruded.py:604"),
         "engine_gather": ("fustpu_torch/csrc/engine.cu",
                           "fustpu/ops/pallas_gather.py:534"),
+        "engine_gather_flat": ("fustpu_torch/csrc/engine.cu",
+                               "fustpu/ops/pallas_gather.py:534"),
         "engine_gather2": ("fustpu_torch/csrc/engine.cu",
                            "fustpu/ops/pallas_gather.py:566"),
         "engine_contract": ("fustpu_torch/csrc/engine.cu",
@@ -2154,7 +2316,7 @@ def main() -> None:
            for v in probes.LAYOUTS},
         **{f"relayout_{v}": ("fustpu_torch/csrc/probes.cu",
                              "demos/exp_mosaic_relayout.py:38")
-           for v in ("copy", "transpose")}}
+           for v in ("copy", "transpose", "copy_flat", "transpose_padded")}}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name]

@@ -166,6 +166,9 @@ def load() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"fustpu_engine_gather_{suffix}")
+        fn.argtypes = [p, p, p, ll, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_engine_gather_flat_{suffix}")
         fn.argtypes = [p, p, p, ll, p]
         fn.restype = i
         fn = getattr(lib, f"fustpu_engine_gather2_{suffix}")
@@ -190,10 +193,14 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fustpu_g_layout_{suffix}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.fustpu_relayout_copy.argtypes = [p, p, ll, p]
+    lib.fustpu_relayout_copy.argtypes = [p, p, ll, i, p]
     lib.fustpu_relayout_copy.restype = i
-    lib.fustpu_relayout_transpose.argtypes = [p, p, i, i, i, i, p]
+    lib.fustpu_relayout_transpose.argtypes = [p, p, i, i, p]
     lib.fustpu_relayout_transpose.restype = i
+    lib.fustpu_relayout_copy_flat.argtypes = [p, p, ll, p]
+    lib.fustpu_relayout_copy_flat.restype = i
+    lib.fustpu_relayout_transpose_padded.argtypes = [p, p, i, i, i, i, p]
+    lib.fustpu_relayout_transpose_padded.restype = i
     for kind in ("extruded_corner", "extruded_corner_hex27"):
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"fustpu_{kind}_{suffix}")

@@ -2,7 +2,8 @@
 // of degree P = 2..10 (N = P + 1) on any conforming hex mesh, as three
 // separate passes over the (cells, N^3) element stream:
 //
-//   u2[p] = x[g[p]]                       engine_gather<T, NF> (NF fields)
+//   u2[p] = x[g[p]]                       engine_gather_quads<T> (one
+//                                         field), engine_gather<T, 2> (two)
 //   y2[c] = D^T (c G) D u2[c]             engine_contract<T, N, MODE>
 //   y[d]  = sum over g[p] == d of y2[p]   engine_scatter<T>
 //
@@ -10,7 +11,8 @@
 //
 // Replaces the Pallas TPU kernels of fustpu/ops/pallas_gather.py:
 //   - gather (:961) -> _mk_gather_kernel (:534), _packed (:736),
-//     _packed_staged (:766): engine_gather<T, 1>;
+//     _packed_staged (:766): engine_gather_quads<T> (the first design,
+//     engine_gather<T, 1>, stays as the comparison: `gather_flat`);
 //   - gather2 (:1014) -> :566 / :787 / :818: engine_gather<T, 2>;
 //   - dense_contract (:1117) -> _mk_contract_kernel (:1078):
 //     engine_contract<T, N, PLAIN | COEFF>, and the pair form whose fold
@@ -33,10 +35,20 @@
 // fused indexed kernel (indexed.cu), which keeps u2 and y2 on chip.
 //
 // What the design does about it:
-//   - the gather is one thread per position: the index read and the output
-//     write are coalesced, the field read is indirect (the locality order
-//     of the mesh keeps a cell's dofs near each other); the pair form reads
-//     each index once for both fields;
+//   - the single-field gather gives each thread four consecutive positions
+//     on a one-wave grid that strides over the array (the host sizes it from
+//     the SM count, ops/launch.py `gather_blocks`): one 16 B load of the
+//     indices, four independent field loads, one 16 B store (two in
+//     float64), and a scalar tail for the last n % 4 positions.  The index
+//     and output streams (51.2 MB each at the bowl) are read or written once
+//     and carry an L2 evict-first policy, so that they do not push out the
+//     field (26.6 MB), whose lines the neighbouring cells read again (the
+//     locality order of the mesh keeps a cell's dofs near each other); the
+//     field's own loads keep the normal policy (with an evict-last hint on
+//     them the kernel ran slower at the bowl).  The first design, one
+//     thread a position on a grid that covers them all, stays as
+//     engine_gather<T, 1>; the pair form (engine_gather<T, 2>) reads each
+//     index once for both fields;
 //   - the contraction is the per-cell sum-factorised body of the other
 //     stiffness kernels (sum_factor.cuh, GStream metric) with an identity
 //     index map: a cell reads its contiguous N^3 row of u2 and its 6 N^3
@@ -52,11 +64,13 @@
 
 #include <cuda_runtime.h>
 
+#include "cache_hints.cuh"
 #include "sum_factor.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGatherThreads = 256;   // ops/launch.py GATHER_THREADS
 
 enum Mode { PLAIN = 0, COEFF = 1, PAIR = 2 };
 
@@ -72,6 +86,28 @@ engine_gather(const T* __restrict__ x1, const T* __restrict__ x2,
     o1[p] = x1[d];
     if (NF == 2) o2[p] = x2[d];
   }
+}
+
+// out[p] = x[g[p]]: thread t of T takes positions 4q .. 4q + 3 for quads
+// q = t + k T below n / 4, then position 4 (n / 4) + t if that is below n.
+// g and out 16 B-aligned.
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads)
+engine_gather_quads(const T* __restrict__ x, const int* __restrict__ g,
+                    T* __restrict__ out, long long n) {
+  const unsigned long long first = fustpu::l2_evict_first();
+  const long long nq = n / 4;
+  const long long stride = (long long)gridDim.x * kGatherThreads;
+  const long long t = (long long)blockIdx.x * kGatherThreads + threadIdx.x;
+  const int4* g4 = reinterpret_cast<const int4*>(g);
+  for (long long q = t; q < nq; q += stride) {
+    const int4 d = fustpu::ld_stream(g4 + q, first);
+    const T a = __ldg(x + d.x), b = __ldg(x + d.y);
+    const T c = __ldg(x + d.z), e = __ldg(x + d.w);
+    fustpu::st_hint4(out + 4 * q, a, b, c, e, first);
+  }
+  const long long p = 4 * nq + t;
+  if (p < n) out[p] = __ldg(x + g[p]);
 }
 
 // Node (i, j, k) of cell c sits at position c N^3 + i N^2 + t, t = j N + k.
@@ -168,6 +204,18 @@ int gather(const void* x1, const void* x2, const void* g, void* o1, void* o2,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int gather_quads(const void* x, const void* g, void* out, long long n,
+                 int blocks, void* stream) {
+  if (blocks < 1) return -1;
+  if (n <= 0) return 0;
+  engine_gather_quads<T><<<blocks, kGatherThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const int*>(g),
+      static_cast<T*>(out), n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int MODE, int N>
 int contract_n(const void* u1, const void* u2, const void* C,
                const void* coeff, const void* G, const void* D, void* y,
@@ -237,21 +285,32 @@ int scatter(const void* v, const void* pos, const void* ptr, void* y,
 
 }  // namespace
 
-// C entry points.  Each returns 0, -1 for an unsupported degree, -2 for an
-// unknown contraction mode, or the cudaError_t of the launch.
-// g, pos: int32 positions and dofs; ptr: (ndofs + 1) int32 offsets into pos.
+// C entry points.  Each returns 0, -1 for an unsupported degree or grid,
+// -2 for an unknown contraction mode, or the cudaError_t of the launch.
+// g, pos: int32 positions and dofs; ptr: (ndofs + 1) int32 offsets into pos;
+// the single-field gather's g and out 16 B-aligned, on `blocks` blocks.
 // The contraction accumulates into y2, which the caller zeroes; mode 0 is
 // unit coefficients, 1 the per-cell coeff (cells,), 2 the pair fold with
 // C (cells, 2) and the second field u2.
 extern "C" {
 
 int fustpu_engine_gather_f32(const void* x, const void* g, void* out,
-                             long long n, void* stream) {
-  return gather<float, 1>(x, nullptr, g, out, nullptr, n, stream);
+                             long long n, int blocks, void* stream) {
+  return gather_quads<float>(x, g, out, n, blocks, stream);
 }
 
 int fustpu_engine_gather_f64(const void* x, const void* g, void* out,
-                             long long n, void* stream) {
+                             long long n, int blocks, void* stream) {
+  return gather_quads<double>(x, g, out, n, blocks, stream);
+}
+
+int fustpu_engine_gather_flat_f32(const void* x, const void* g, void* out,
+                                  long long n, void* stream) {
+  return gather<float, 1>(x, nullptr, g, out, nullptr, n, stream);
+}
+
+int fustpu_engine_gather_flat_f64(const void* x, const void* g, void* out,
+                                  long long n, void* stream) {
   return gather<double, 1>(x, nullptr, g, out, nullptr, n, stream);
 }
 

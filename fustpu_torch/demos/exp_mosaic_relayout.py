@@ -6,16 +6,29 @@ Counterpart of ``demos/exp_mosaic_relayout.py`` (a TPU sublane -> lane
 relayout probe); runs on the card unless --device cpu is given (the plain
 versions, a correctness run only).
 
-    python -m fustpu_torch.demos.exp_mosaic_relayout
+    python -m fustpu_torch.demos.exp_mosaic_relayout [--turns]
+    python -m fustpu_torch.demos.exp_mosaic_relayout --tiles 16384 \
+        --turns --enqueues 0
 
 Prints, for each permutation, the ms per call, the rate, whether it is
 bitwise the plain version's result and whether it is a permutation
-(sorted-ok), then the device bytes of the two shapes.
+(sorted-ok), then the device bytes of the two shapes.  With --turns, on
+the card: for the copy and the transpose, the first design's kernel
+(old), the kernel (new) and the PyTorch call that computes the same
+permutation (library: `clone`, `.transpose().contiguous()`) timed by CUDA
+events in three rounds of turns (old, new, new, old, library), each
+against the others bitwise; then, unless --enqueues is 0, the host clock per call over
+--enqueues calls without a synchronise, and the device time per call from
+torch.profiler's trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import tempfile
+import time
+from pathlib import Path
 
 import torch
 
@@ -35,7 +48,102 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--chain", type=int, default=20)
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--turns", action="store_true",
+                   help="time old, new and the PyTorch call in turns")
+    p.add_argument("--enqueues", type=int, default=10000,
+                   help="calls of each variant on the host clock in the "
+                        "--turns run (0: no host-clock or profiler run)")
     return p
+
+
+# The variants of the --turns run: f(kind, x).
+VARIANTS = {
+    "old": lambda k, x: probes.relayout_flat(x, k),
+    "new": lambda k, x: probes.relayout(x, k),
+    "library": lambda k, x: x.clone() if k == "copy" else x.reshape(
+        -1, probes.TM // probes.LANES, probes.LANES).transpose(1, 2)
+    .contiguous(),
+}
+TURNS = ("old", "new", "new", "old", "library")
+ROUNDS = 3                    # of TURNS, for the CUDA events' readings
+
+
+def host_us(fn, calls: int) -> float:
+    """Host clock per call over `calls` calls without a synchronise (after
+    one call and a synchronise), in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def device_us(fn, calls: int) -> dict:
+    """Device time per call from torch.profiler's trace over `calls`
+    calls: the kernels', copies' and memsets' durations summed, in
+    microseconds, and the names of the device events."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    return {"us": sum(float(e.get("dur", 0.0)) for e in dev) / calls
+            if dev else None,
+            "events": len(dev) / calls,
+            "names": sorted({e.get("name", "")[:60] for e in dev})}
+
+
+def in_turns(x: torch.Tensor, chain: int, reps: int, enqueues: int
+             ) -> dict:
+    """For the copy and the transpose of x: each variant's ms per call by
+    CUDA events in ROUNDS rounds of turns (lists in TURNS order), checked
+    bitwise against the new kernel's output; with `enqueues`, the
+    host-clock microseconds per call in turns and the profiler's device
+    microseconds per call."""
+    out = {}
+    for kind in ("copy", "transpose"):
+        y = probes.relayout(x, kind)
+        for name in ("old", "library"):
+            if not torch.equal(VARIANTS[name](kind, x).reshape(y.shape), y):
+                raise SystemExit(f"relayout {kind}: {name} not bitwise the "
+                                 "kernel's")
+        ms = {name: [] for name in VARIANTS}
+        for name in TURNS * ROUNDS:
+            ms[name].append(time_apply(VARIANTS[name], kind, x, chain=chain,
+                                       reps=reps)[0] * 1e3)
+        host = {name: [] for name in VARIANTS} if enqueues else {}
+        device = {}
+        if enqueues:
+            for name in TURNS:
+                host[name].append(host_us(
+                    lambda f=VARIANTS[name]: f(kind, x), enqueues))
+            for name, f in VARIANTS.items():
+                device[name] = device_us(lambda: f(kind, x), 50)
+        out[kind] = dict(ms=ms, host_us=host, device=device)
+        print(f"{kind}, {ROUNDS} rounds in turns (old, new, new, old, "
+              f"library), ms per call: "
+              + "; ".join(f"{name} " + " ".join(f"{m:.4f}" for m in v)
+                          for name, v in ms.items()), flush=True)
+        for name in VARIANTS if enqueues else ():
+            print(f"   {name}: host "
+                  + " / ".join(f"{h:.3f}" for h in host[name])
+                  + f" us per call over {enqueues} calls (in turns); device "
+                  f"{device[name]['us']} us per call in "
+                  f"{device[name]['events']:g} event(s) "
+                  f"{device[name]['names']}", flush=True)
+    return out
 
 
 def device_bytes(shape, device) -> int | None:
@@ -54,8 +162,8 @@ def device_bytes(shape, device) -> int | None:
 
 def main(argv=None) -> dict:
     """Returns the input, and by kind the output, the plain version's, and
-    the (median, std) seconds per call; and the device bytes of the two
-    shapes of check 5."""
+    the (median, std) seconds per call; the device bytes of the two
+    shapes of check 5; and with --turns the `in_turns` readings."""
     args = parser().parse_args(argv)
     check_device(args)
     dev = torch.device(args.device)
@@ -82,8 +190,13 @@ def main(argv=None) -> dict:
         print(f"device bytes for (2^20, 1) f32: {col:,} (logical "
               f"{4 << 20:,}); for (2^13, 128): {packed:,}")
     print(f"   timed by {clock(dev)}")
+    turns = None
+    if args.turns:
+        if dev.type != "cuda":
+            raise SystemExit("--turns times the kernels: it needs the card")
+        turns = in_turns(x, args.chain, args.reps, args.enqueues)
     return dict(x=x, outs=outs, plains=plains, times=times,
-                bytes={"column": col, "packed": packed})
+                bytes={"column": col, "packed": packed}, turns=turns)
 
 
 if __name__ == "__main__":

@@ -509,7 +509,7 @@ def launch_counts() -> dict:
     """Every stiffness kernel's launch counter, by name (a copy)."""
     return {**cs.launches, **ce.launches, **ce.class_launches,
             **ci.launches, **ci.class_launches, **cc.launches,
-            **cen.launches}
+            **cen.launches, **cen.comparison_launches}
 
 
 def stiffness_module(op, impl: str) -> nn.Module:

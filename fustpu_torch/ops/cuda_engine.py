@@ -21,7 +21,10 @@ layout, so `to_indexed` drives ``fustpu_torch.ops.cuda_indexed`` on the
 same buffers.  A wrapper given CPU tensors runs the plain version
 (``fustpu_torch.ops.engine`` on the same data).  Given CUDA tensors it
 launches the kernel or raises: there is no fallback.  Each kernel wrapper
-counts its launches in `launches`, where it launches.
+counts its launches in `launches`, where it launches; the kernels launch
+through the lean path of ``fustpu_torch.ops.launch``.  `gather_flat` runs
+the single-field gather's first design (one thread a position), kept as
+the comparison and counted apart in `comparison_launches`.
 """
 
 from __future__ import annotations
@@ -33,17 +36,20 @@ import torch
 
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import engine as eng
+from fustpu_torch.ops import launch
 
 # Launches of each kernel, not counting the plain version.
 launches = {"engine_gather": 0, "engine_gather2": 0, "engine_contract": 0,
             "engine_scatter": 0}
+comparison_launches = {"engine_gather_flat": 0}
 
 _MODES = {"plain": 0, "coeff": 1, "pair": 2}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, comparison_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 class EngineCellStiffness(NamedTuple):
@@ -212,16 +218,12 @@ def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
             raise ValueError(f"{name} kernel: {what} is not contiguous")
 
 
-def _launch(name: str, dtype: torch.dtype, device, *args) -> None:
-    from fustpu_torch import _build
-
-    fn = getattr(_build.load(), f"fustpu_{name}_{_SUFFIX[dtype]}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    launches[name] += 1
+def _launch(name: str, x: torch.Tensor, *args,
+            counts: dict = launches) -> None:
+    """Launch kernel `name` for x's dtype on x's card, counted in
+    `counts`."""
+    launch.launch(f"fustpu_{name}_{_SUFFIX[x.dtype]}", x.get_device(), *args)
+    counts[name] += 1
 
 
 def _positions(op: EngineCellStiffness) -> int:
@@ -230,14 +232,32 @@ def _positions(op: EngineCellStiffness) -> int:
 
 def gather(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
     """u2 = x[g] as (cells, n^3) rows through `engine_gather` (the plain
-    version for a CPU tensor)."""
+    version for a CPU tensor): four positions a thread, on a one-wave
+    grid."""
     cells = op.dofmap.shape[0]
     if x.device.type == "cpu":
         return eng.gather(x, op.dofmap.reshape(-1).long()).reshape(cells, -1)
     _check(op, "engine_gather", x, shape=(op.ndofs,))
-    out = torch.empty(op.dofmap.shape, dtype=x.dtype, device=x.device)
-    _launch("engine_gather", x.dtype, x.device, x.data_ptr(),
-            op.dofmap.data_ptr(), out.data_ptr(), _positions(op))
+    out = x.new_empty(op.dofmap.shape)
+    pg, po = op.dofmap.data_ptr(), out.data_ptr()
+    if pg % 16 or po % 16:
+        raise ValueError("engine_gather kernel: the dofmap and the output "
+                         "16-byte aligned")
+    n = _positions(op)
+    _launch("engine_gather", x, x.data_ptr(), pg, po, n,
+            launch.gather_blocks(n, launch.sm_count(x.get_device())))
+    return out
+
+
+def gather_flat(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
+    """`gather` through the first design's kernel, the comparison: one
+    thread a position (`engine_gather_flat`)."""
+    if x.device.type == "cpu":
+        return gather(op, x)
+    _check(op, "engine_gather_flat", x, shape=(op.ndofs,))
+    out = x.new_empty(op.dofmap.shape)
+    _launch("engine_gather_flat", x, x.data_ptr(), op.dofmap.data_ptr(),
+            out.data_ptr(), _positions(op), counts=comparison_launches)
     return out
 
 
@@ -251,7 +271,7 @@ def gather2(op: EngineCellStiffness, x1: torch.Tensor, x2: torch.Tensor
     _check(op, "engine_gather2", x1, x2, shape=(op.ndofs,))
     o1 = torch.empty(op.dofmap.shape, dtype=x1.dtype, device=x1.device)
     o2 = torch.empty_like(o1)
-    _launch("engine_gather2", x1.dtype, x1.device, x1.data_ptr(),
+    _launch("engine_gather2", x1, x1.data_ptr(),
             x2.data_ptr(), op.dofmap.data_ptr(), o1.data_ptr(),
             o2.data_ptr(), _positions(op))
     return o1, o2
@@ -275,7 +295,7 @@ def contract(op: EngineCellStiffness, u1: torch.Tensor,
     _check(op, "engine_contract", *xs, shape=tuple(op.dofmap.shape))
     y = torch.zeros(op.dofmap.shape, dtype=u1.dtype, device=u1.device)
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    _launch("engine_contract", u1.dtype, u1.device, u1.data_ptr(), ptr(u2),
+    _launch("engine_contract", u1, u1.data_ptr(), ptr(u2),
             ptr(op.C), ptr(op.coeff), op.G.data_ptr(), op.D.data_ptr(),
             y.data_ptr(), op.dofmap.shape[0], op.P, _MODES[mode])
     return y
@@ -289,7 +309,7 @@ def scatter(op: EngineCellStiffness, v: torch.Tensor) -> torch.Tensor:
         return eng.scatter_add(v, op.dofmap.reshape(-1).long(), op.ndofs)
     _check(op, "engine_scatter", v, shape=tuple(op.dofmap.shape))
     y = torch.empty(op.ndofs, dtype=v.dtype, device=v.device)
-    _launch("engine_scatter", v.dtype, v.device, v.data_ptr(),
+    _launch("engine_scatter", v, v.data_ptr(),
             op.pos.data_ptr(), op.ptr.data_ptr(), y.data_ptr(), op.ndofs)
     return y
 

@@ -15,12 +15,18 @@
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each kernel counts its calls in
-`launches`.  Only the experiment demos run them.
+`launches`.  `relayout_flat` runs the relayout's first design (a flat
+one-vector-a-thread copy, a transpose through padded 32 x 32 tiles), kept
+as the comparison and counted apart in `comparison_launches`.  Only the
+experiment demos run them.  The relayouts launch through the lean path of
+``fustpu_torch.ops.launch``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from fustpu_torch.ops import launch
 
 LAYOUTS = ("cells", "components")
 KINDS = ("reshape", "reverse", "transpose", "copy")
@@ -29,13 +35,16 @@ LANES = 128
 
 launches = {"g_layout_cells": 0, "g_layout_components": 0,
             "relayout_copy": 0, "relayout_transpose": 0}
+comparison_launches = {"relayout_copy_flat": 0,
+                       "relayout_transpose_padded": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, comparison_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -154,33 +163,48 @@ def relayout_plain(x: torch.Tensor, kind: str) -> torch.Tensor:
 def relayout(x: torch.Tensor, kind: str) -> torch.Tensor:
     """The permutation `kind` of x, (k TM, 1) (the plain version for a CPU
     tensor)."""
+    return _relayout(x, kind, flat=False)
+
+
+def relayout_flat(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """`relayout` through the first design's kernels, the comparison
+    (``relayout_copy_flat``, ``relayout_transpose_padded``)."""
+    return _relayout(x, kind, flat=True)
+
+
+def _relayout(x: torch.Tensor, kind: str, flat: bool) -> torch.Tensor:
     n = x.numel()
-    if x.dim() != 2 or x.shape[1] != 1 or n % TM:
+    if x.dim() != 2 or x.size(1) != 1 or n % TM:
         raise ValueError(f"relayout: x of shape {tuple(x.shape)}, expected "
                          f"(k {TM}, 1)")
-    shape = relayout_shape(n, kind)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return relayout_plain(x, kind)
-    from fustpu_torch import _build
-
-    if not x.is_contiguous() or x.element_size() not in (4, 8):
-        raise ValueError("relayout kernel: contiguous 4- or 8-byte values")
-    y = torch.empty(shape, dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if kind == "transpose":
-            err = lib.fustpu_relayout_transpose(
-                x.data_ptr(), y.data_ptr(), x.element_size(), n // TM,
-                TM // LANES, LANES, stream)
-            name = "relayout_transpose"
+    esize = x.element_size()
+    if not (x.is_cuda and x.is_contiguous()) or esize not in (4, 8):
+        raise ValueError("relayout kernel: contiguous 4- or 8-byte values "
+                         "on a card")
+    # the copy's output is shaped like x; the others' shape checks `kind`
+    y = torch.empty_like(x) if kind in ("copy", "reverse") else \
+        x.new_empty(relayout_shape(n, kind))
+    px, py = x.data_ptr(), y.data_ptr()
+    if px % 16 or py % 16:
+        raise ValueError("relayout kernel: 16-byte aligned data")
+    dev = x.get_device()
+    if kind == "transpose":
+        if flat:
+            launch.launch("fustpu_relayout_transpose_padded", dev, px, py,
+                          esize, n // TM, TM // LANES, LANES)
+            comparison_launches["relayout_transpose_padded"] += 1
         else:
-            if x.data_ptr() % 16 or y.data_ptr() % 16:
-                raise ValueError("relayout kernel: 16-byte aligned data")
-            err = lib.fustpu_relayout_copy(x.data_ptr(), y.data_ptr(),
-                                           n * x.element_size(), stream)
-            name = "relayout_copy"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    launches[name] += 1
+            launch.launch("fustpu_relayout_transpose", dev, px, py, esize,
+                          n // TM)
+            launches["relayout_transpose"] += 1
+    elif flat:
+        launch.launch("fustpu_relayout_copy_flat", dev, px, py, n * esize)
+        comparison_launches["relayout_copy_flat"] += 1
+    else:
+        nbytes = n * esize
+        launch.launch("fustpu_relayout_copy", dev, px, py, nbytes,
+                      launch.copy_blocks(nbytes // 16))
+        launches["relayout_copy"] += 1
     return y

@@ -393,3 +393,152 @@ def test_kernels_match_plain_on_card(tmp_path, P):
     assert (cen.launches["engine_gather"]
             + cen.launches["engine_gather2"]) == 2 * 3 * 2 * 4
     assert cen.launches["engine_gather2"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The single-field gather's host side: its grid and the wrapper's checks
+# (no card needed)
+# ---------------------------------------------------------------------------
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that the wrappers take for one on card 0, so that
+    their checks and launch arguments run here; `launch.launch` is
+    replaced in each test that uses it, so nothing launches."""
+
+    is_cpu = False
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def get_device(self):
+        return 0
+
+
+def _on_card(op):
+    return op._replace(**{k: v.as_subclass(_OnCard)
+                          for k, v in op._asdict().items()
+                          if isinstance(v, torch.Tensor)})
+
+
+@pytest.fixture
+def no_card_launch(monkeypatch):
+    """`launch.launch` recording its calls, and 132 SMs."""
+    from fustpu_torch.ops import launch
+
+    calls = []
+    monkeypatch.setattr(launch, "launch",
+                        lambda name, dev, *args: calls.append(
+                            (name, dev, args)))
+    monkeypatch.setattr(launch, "sm_count", lambda dev: 132)
+    return calls
+
+
+def _gather_walk(n, blocks):
+    """How often `engine_gather_quads` (csrc/engine.cu) writes each
+    position: thread t of T takes quads q = t + k T below n // 4
+    (positions 4q .. 4q + 3), then position 4 (n // 4) + t below n."""
+    from fustpu_torch.ops import launch
+
+    T = blocks * launch.GATHER_THREADS
+    nq = n // launch.GATHER_QUAD
+    touched = []
+    q = np.arange(T)
+    while (live := q < nq).any():
+        touched += [launch.GATHER_QUAD * q[live] + i
+                    for i in range(launch.GATHER_QUAD)]
+        q[live] += T
+    tail = launch.GATHER_QUAD * nq + np.arange(T)
+    touched.append(tail[tail < n])
+    return np.bincount(np.concatenate(touched), minlength=n)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n", [1, 3, 27, 125, 12_800_000])
+def test_gather_grid_covers_every_position_once(n, sms):
+    from fustpu_torch.ops import launch
+
+    blocks = launch.gather_blocks(n, sms)
+    assert 1 <= blocks <= sms * launch.BLOCKS_PER_SM
+    assert np.array_equal(_gather_walk(n, blocks), np.ones(n, np.int64))
+
+
+def _small_op(cells=5, n=3, dtype=F64):
+    dm, ndofs, G, D, rng = _random_dofmap(n, cells=cells, ndofs=400)
+    mesh = SimpleNamespace(dofmap=dm, ndofs=ndofs, num_cells=cells)
+    return cen.build(mesh, G, D, dtype, "cpu"), rng
+
+
+def test_gather_launch_arguments(no_card_launch):
+    """On a card `gather` launches the new kernel with its pointers, the
+    position count and the one-wave grid, `gather_flat` the first design;
+    each counted in its own table."""
+    cen.reset_launches()
+    op, rng = _small_op()
+    op = _on_card(op)
+    x = torch.as_tensor(rng.standard_normal(op.ndofs)).as_subclass(_OnCard)
+    out = cen.gather(op, x)
+    cen.gather_flat(op, x)
+    assert tuple(out.shape) == tuple(op.dofmap.shape)
+    (name, dev, args), (fname, _, fargs) = no_card_launch
+    assert name == "fustpu_engine_gather_f64" and dev == 0
+    assert args == (x.data_ptr(), op.dofmap.data_ptr(), out.data_ptr(), 135,
+                    1)
+    assert fname == "fustpu_engine_gather_flat_f64" and fargs[3] == 135
+    assert cen.launches["engine_gather"] == 1
+    assert cen.comparison_launches["engine_gather_flat"] == 1
+
+
+def test_gather_refuses_before_any_launch(no_card_launch):
+    """A misaligned or non-contiguous dofmap, or a field of the wrong
+    size, raises before the wrapper launches anything."""
+    op, rng = _small_op()
+    x = torch.as_tensor(rng.standard_normal(op.ndofs)).as_subclass(_OnCard)
+    base = torch.zeros(op.dofmap.numel() + 1, dtype=torch.int32)
+    shifted = base[1:].view(op.dofmap.shape)
+    shifted.copy_(op.dofmap)
+    wide = torch.zeros(op.dofmap.shape[0], 2 * op.dofmap.shape[1],
+                       dtype=torch.int32)
+    for dofmap, match, fns in (
+            (shifted, "16-byte aligned", (cen.gather,)),
+            (wide[:, ::2], "not contiguous", (cen.gather, cen.gather_flat))):
+        bad = _on_card(op._replace(dofmap=dofmap))
+        for fn in fns:
+            with pytest.raises(ValueError, match=match):
+                fn(bad, x)
+    for fn in (cen.gather, cen.gather_flat):
+        with pytest.raises(ValueError, match="shape"):
+            fn(_on_card(op), x[1:])
+    assert no_card_launch == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", range(2, 11))
+def test_gather_matches_index_select_and_first_design_on_card(tmp_path, P):
+    """The single-field gather bitwise equal to `x.index_select(0, g)` and
+    to the first design's kernel, float32 and float64, on the meshes of
+    `test_kernels_match_plain_on_card` and on 121 random cells (at even P
+    an odd number of positions: the scalar tail runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    v, c, t = shapes.cylinder_mesh(nz=3 if P <= 6 else 2, **CYL)
+    cyl = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "c"), v, c, t), P,
+                          detect_extrusion=False)
+    disc = Discretization(cyl)
+    meshes = [(cyl, disc._G_host, disc._D_host)]
+    for cells in (120, 121):
+        dm, ndofs, G, D, rng = _random_dofmap(P + 1, cells=cells, seed=P)
+        meshes.append((SimpleNamespace(dofmap=dm, ndofs=ndofs,
+                                       num_cells=cells), G, D))
+    assert ((121 * (P + 1) ** 3) % 4 != 0) == (P % 2 == 0)
+    cen.reset_launches()
+    for mesh, G, D in meshes:
+        x = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
+        for dtype in (F64, torch.float32):
+            op = cen.build(mesh, G, D, dtype, "cuda")
+            a = x.to(dtype)
+            got = cen.gather(op, a)
+            torch.cuda.synchronize()
+            assert torch.equal(got.reshape(-1),
+                               a.index_select(0, op.dofmap.reshape(-1).long()))
+            assert torch.equal(got, cen.gather_flat(op, a))
+    assert cen.launches["engine_gather"] == 6
+    assert cen.comparison_launches["engine_gather_flat"] == 6

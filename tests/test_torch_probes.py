@@ -236,3 +236,144 @@ def test_relayout_kernels_bitwise_on_card(kind):
         got = probes.relayout(x, kind)
         torch.cuda.synchronize()
         assert torch.equal(got, probes.relayout_plain(x, kind))
+
+
+# ---------------------------------------------------------------------------
+# The relayouts' host side: the lean launch path, the copy's grid and the
+# wrappers' checks (no card needed)
+# ---------------------------------------------------------------------------
+
+COUNTS = [1, 3, 27, 125, 12_800_000]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that the wrappers take for one on card 0, so that
+    their checks and launch arguments run here; `launch.launch` is
+    replaced in each test that uses it, so nothing launches."""
+
+    is_cpu = False
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def get_device(self):
+        return 0
+
+
+@pytest.fixture
+def no_card_launch(monkeypatch):
+    """`launch.launch` recording its calls."""
+    from fustpu_torch.ops import launch
+
+    calls = []
+    monkeypatch.setattr(launch, "launch",
+                        lambda name, dev, *args: calls.append(
+                            (name, dev, args)))
+    return calls
+
+
+def _copy_walk(nvec, blocks):
+    """How often `relayout_copy` (csrc/probes.cu) touches each vector:
+    block b takes the span [b U T, (b + 1) U T) of U = COPY_UNROLL rounds
+    of T = COPY_THREADS vectors, thread t the vectors b U T + u T + t that
+    lie below nvec."""
+    from fustpu_torch.ops import launch
+
+    T, U = launch.COPY_THREADS, launch.COPY_UNROLL
+    v = (np.arange(blocks)[:, None, None] * U * T
+         + np.arange(U)[None, :, None] * T + np.arange(T)[None, None, :])
+    return np.bincount(v[v < nvec], minlength=nvec)
+
+
+@pytest.mark.parametrize("nvec", COUNTS)
+def test_copy_grid_covers_every_vector_once(nvec):
+    from fustpu_torch.ops import launch
+
+    blocks = launch.copy_blocks(nvec)
+    assert blocks >= 1
+    assert np.array_equal(_copy_walk(nvec, blocks), np.ones(nvec, np.int64))
+
+
+def test_launch_resolves_each_entry_point_once(monkeypatch):
+    """Two launches of one entry point resolve it once, pass the stream of
+    the current card last, and raise on a non-zero return."""
+    from fustpu_torch import _build
+    from fustpu_torch.ops import launch
+
+    resolved, calls = [], []
+
+    class Lib:
+        def __getattr__(self, name):
+            resolved.append(name)
+            return lambda *a: calls.append(a) or (7 if a[0] == "bad" else 0)
+
+    monkeypatch.setattr(launch, "_entries", {})
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(launch, "_api", (lambda: 0, lambda dev: 1234))
+    launch.launch("fustpu_x", 0, 1, 2)
+    launch.launch("fustpu_x", 0, 3, 4)
+    assert resolved == ["fustpu_x"]
+    assert calls == [(1, 2, 1234), (3, 4, 1234)]
+    with pytest.raises(RuntimeError, match="fustpu_x kernel launch failed: "
+                                           "error 7"):
+        launch.launch("fustpu_x", 0, "bad")
+    assert resolved == ["fustpu_x"]
+
+
+@pytest.mark.parametrize("kind", probes.KINDS)
+def test_relayout_launch_arguments(no_card_launch, kind):
+    """On a card the wrapper launches the new kernel (the first design
+    for `relayout_flat`) with its pointers, sizes and grid, and counts it
+    apart from the first design."""
+    probes.reset_launches()
+    x = torch.zeros(3 * probes.TM, 1).as_subclass(_OnCard)
+    y = probes.relayout(x, kind)
+    probes.relayout_flat(x, kind)
+    assert tuple(y.shape) == probes.relayout_shape(x.numel(), kind)
+    (name, dev, args), (fname, _, fargs) = no_card_launch
+    nbytes = x.numel() * 4
+    if kind == "transpose":
+        assert name == "fustpu_relayout_transpose" and args[2:] == (4, 3)
+        assert fname == "fustpu_relayout_transpose_padded"
+        assert fargs[2:] == (4, 3, 64, 128)
+    else:
+        assert name == "fustpu_relayout_copy"
+        assert args[2:] == (nbytes, 12)          # 6,144 vectors, 512 a block
+        assert fname == "fustpu_relayout_copy_flat" and fargs[2:] == (nbytes,)
+    assert dev == 0 and args[0] == x.data_ptr()
+    new = "relayout_transpose" if kind == "transpose" else "relayout_copy"
+    assert probes.launches[new] == 1 and sum(probes.launches.values()) == 1
+    assert sum(probes.comparison_launches.values()) == 1
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_relayout_refuses_before_any_launch(no_card_launch, flat):
+    """Misaligned, non-contiguous or 2-byte values on a card raise before
+    the wrapper launches anything."""
+    run = probes.relayout_flat if flat else probes.relayout
+    n = 2 * probes.TM
+    misaligned = torch.zeros(n + 1)[1:].reshape(n, 1)
+    strided = torch.zeros(n, 2)[:, :1]
+    assert misaligned.data_ptr() % 16 and not strided.is_contiguous()
+    for bad, match in ((misaligned, "16-byte aligned"),
+                       (strided, "contiguous"),
+                       (torch.zeros(n, 1, dtype=torch.float16), "4- or 8")):
+        for kind in probes.KINDS:
+            with pytest.raises(ValueError, match=match):
+                run(bad.as_subclass(_OnCard), kind)
+    assert no_card_launch == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 3, 5, 128, 1000])
+@pytest.mark.parametrize("kind", probes.KINDS)
+def test_relayout_kernels_match_first_design_on_card(kind, tiles):
+    """The relayout kernels bitwise equal to their plain versions and to
+    the first design's kernels, float32 and float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn((tiles * probes.TM, 1), dtype=dtype, device="cuda")
+        got = probes.relayout(x, kind)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probes.relayout_plain(x, kind))
+        assert torch.equal(got, probes.relayout_flat(x, kind))
