@@ -46,11 +46,13 @@ Phases (each prints its time; any failure exits non-zero):
      kernel vs plain, 10 steps kernel vs plain, 50 steps on the kernel
      (ms/step), then the whole solve, its focal pressure checked against
      the conformal bowl's at the same degree and size;
- 16. the corner kernels of the capacity mode against their plain version
-     at P = 2..10 on a perturbed odd box (structured), the imported
-     cylinder and the shuffled box (extruded, hex8) and a curved hex27
-     prism, float64 and float32, each also against the G-stream kernel on
-     the same mesh (run right after phase 12);
+ 16. the corner kernels of the capacity mode (the walk of box pencils and
+     of stacks) against their plain version at P = 2..10 on a perturbed
+     odd box (structured), the imported cylinder and the shuffled box
+     (extruded, hex8) and a curved hex27 prism, float64 and float32, each
+     also against the G-stream kernel on the same mesh and against the
+     class-launch design it replaced (float64), two applies bitwise equal
+     (run right after phase 12);
  17. the flagship conformal bowl in corner mode (--stiffness-impl
      pallas_corner): no host metric built, kernel vs plain and vs phase
      6a's G-stream kernel, 10 steps vs the G-stream model, device memory of
@@ -69,8 +71,10 @@ Phases (each prints its time; any failure exits non-zero):
  19. the capacity demos: `fustpu_torch.demos.capacity` at its default size
      (664 x 56 x 56 cells, P = 4, 134,510,625 DOF) (19a) and
      `capacity_imported` at a quarter of its default depth (--nz 30)
-     (19b): 10 warm-up and 10 timed steps, ms/step, peak device memory,
-     then the model's kernel against its plain version at that size;
+     (19b): 10 warm-up and 10 timed steps, ms/step, peak device memory;
+     what the model holds and what a 10-step solve adds on the walk and
+     on the class-launch design; then the model's kernel against its
+     plain version at that size;
  20. the four kernels of the staged gather / contract / scatter engine
      against their plain version at P = 2..10 on phase 12's meshes, float64
      and float32: each kernel alone (the gathers bitwise, the single-field
@@ -128,12 +132,21 @@ Phases (each prints its time; any failure exits non-zero):
      bowl and phase 15a's P=6 bodyfit bowl (P = 4 and 6, float32), in
      turns (old, new, new, old), single and pair, ms, TB/s and share of
      the bound, each new kernel's schedule and a few other schedules'
-     times (run after phase 15).
+     times (run after phase 15);
+ 29. the class-launch corner designs (`corner_classes`,
+     `extruded_corner_classes` and their pair forms, hex8 and hex27)
+     against the walk that replaced them, on phase 17's and 18's models
+     right after each is built: in turns (old, new, new, old, twice), ms,
+     share of the bound and launches an apply for each, the walk's
+     schedule, and 10 steps of the model on each design (29a-f); the
+     kernels line takes both designs' ms from their best turn.
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, in every rank of 22
-its solve, and the demos of 24, 25, 26, 27a and 28) has the launch counters
-reset just before it and read just after. The line before the last is the
-kernels' JSON summary; the last line is the result.
+its solve, and the demos of 24, 25, 26, 27a and 28 and the turns of 29) has
+the launch counters reset just before it and read just after. The script's
+total time is printed after the last phase; then the kernels' JSON
+summary, the card's name and power limit, and as the last line the
+result.
 """
 
 from __future__ import annotations
@@ -246,27 +259,27 @@ def apply_cost(G: torch.Tensor, ndofs: int, fields: int,
     return nbytes, flops
 
 
-def corner_cost(op, ndofs: int, fields: int,
-                extra: int = 0) -> tuple[int, int]:
-    """(minimum bytes, operations) of one corner-streamed apply: the
-    channels T instead of G, the fields and pair coefficients as in
-    `apply_cost`; per node the sum factorisation of `apply_cost` without
-    its 15-operation metric, plus the metric rebuilt in registers (J by
-    Horner in x, the adjugate, det, |det| and the scale, t = a^T w and
-    f = scale a t: 80 operations for hex8, 98 for hex27, an FMA counted
-    as 2); per line of a cell, the fold of every Jacobian channel with its
-    y^my z^mz (3 operations each) and the scaled weight (2)."""
-    cells, nch1 = op.T.shape
-    n = op.D.shape[0]
-    b = op.T.element_size()
-    nbytes = op.T.numel() * b + (fields + 2) * ndofs * b + extra
-    if fields == 2:
-        nbytes += cells * 2 * b
-    metric = 98 if op.geom_deg == 2 else 80
-    per_node = 12 * n + 1 + metric + (3 if fields == 2 else 0)
-    per_line = 3 * (nch1 - 1) + 2
-    flops = cells * (n ** 3 * per_node + n ** 2 * per_line)
-    return nbytes, flops
+class ClassLaunchCorner(torch.nn.Module):
+    """The class-launch corner designs on a corner operator (kept as the
+    comparison of the walk): `corner_classes` on a box, `extruded_corner_
+    classes` otherwise, and their pair forms."""
+
+    def __init__(self, op):
+        super().__init__()
+        self.op = op
+
+    def forward(self, x):
+        from fustpu_torch.ops import cuda_corner as cc
+
+        f = cc.corner_classes if self.op.box else cc.extruded_corner_classes
+        return f(self.op, x)
+
+    def pair(self, x1, x2):
+        from fustpu_torch.ops import cuda_corner as cc
+
+        f = (cc.corner_classes_pair if self.op.box
+             else cc.extruded_corner_classes_pair)
+        return f(self.op, x1, x2)
 
 
 def held_bytes(model) -> int:
@@ -306,6 +319,7 @@ def stack_summary(s) -> str:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an "
              "NVIDIA GPU")
@@ -665,7 +679,7 @@ def main() -> None:
 
     with phase("16 corner kernels vs plain, P=2..10"), \
             tempfile.TemporaryDirectory() as tmp:
-        worst = {"f64": 0.0, "f32": 0.0, "g64": 0.0}
+        worst = {"f64": 0.0, "f32": 0.0, "g64": 0.0, "old": 0.0}
         cc.reset_launches()
         for P in range(2, 11):
             small = P > 6
@@ -704,21 +718,29 @@ def main() -> None:
 
                     op64 = disc.stiffness_op(torch.float64, dev,
                                              corner=True, **kw)
+                    op32 = disc.stiffness_op(torch.float32, dev,
+                                             corner=True, **kw)
                     ref = run(CornerStiffness(op64, "mm"), torch.float64)
-                    y64 = run(CornerStiffness(op64, "cuda"), torch.float64)
+                    k64 = CornerStiffness(op64, "cuda")
+                    k32 = CornerStiffness(op32, "cuda")
+                    y64 = run(k64, torch.float64)
+                    y32 = run(k32, torch.float32)
                     e64 = rel_l2(y64, ref)
-                    e32 = rel_l2(run(CornerStiffness(disc.stiffness_op(
-                        torch.float32, dev, corner=True, **kw), "cuda"),
-                        torch.float32), ref)
+                    e32 = rel_l2(y32, ref)
                     g64 = rel_l2(y64, run(stiffness_module(
                         disc.stiffness_op(torch.float64, dev, **kw),
                         "cuda"), torch.float64))
+                    o64 = rel_l2(y64, run(ClassLaunchCorner(op64),
+                                          torch.float64))
+                    same = torch.equal(run(k64, torch.float64), y64) and \
+                        torch.equal(run(k32, torch.float32), y32)
                     torch.cuda.synchronize()
                     print(f"   P={P:2d} {mname:8s} {label:13s} f64 "
                           f"{e64:.3e}  f32 {e32:.3e}  vs G stream "
-                          f"{g64:.3e}", flush=True)
+                          f"{g64:.3e}  vs class-launch {o64:.3e}  repeat "
+                          f"{'bitwise' if same else 'DIFFERS'}", flush=True)
                     for key, e in (("f64", e64), ("f32", e32),
-                                   ("g64", g64)):
+                                   ("g64", g64), ("old", o64)):
                         worst[key] = max(worst[key], e)
                     if not e64 <= F64_TOL:
                         fail(f"f64 corner kernel vs plain {e64:.3e}")
@@ -727,10 +749,18 @@ def main() -> None:
                     if not g64 <= F64_TOL:
                         fail(f"f64 corner kernel vs G-stream kernel "
                              f"{g64:.3e}")
+                    if not o64 <= PARITY_TOL:
+                        fail(f"f64 corner walk vs the class-launch design "
+                             f"{o64:.3e} > {PARITY_TOL}")
+                    if not same:
+                        fail("a repeated corner apply is not bitwise equal")
         print(f"   worst rel-l2: f64 {worst['f64']:.3e}, f32 "
-              f"{worst['f32']:.3e}, vs the G stream {worst['g64']:.3e}; "
-              f"launches {dict(cc.launches)}")
-        if not all(cc.launches.values()):
+              f"{worst['f32']:.3e}, vs the G stream {worst['g64']:.3e}, "
+              f"vs the class-launch design {worst['old']:.3e} (tol "
+              f"{PARITY_TOL}); launches {dict(cc.launches)}, "
+              f"{dict(cc.class_launches)}")
+        if not all(cc.launches.values()) or \
+                not all(cc.class_launches.values()):
             fail("a corner kernel's launch counter did not move")
 
     with phase("20 engine kernels vs plain, P=2..10"), \
@@ -1286,11 +1316,91 @@ def main() -> None:
         entry = dict(max_abs_err=float((yk - yp).abs().max()), rel_l2=err,
                      ms=time_ms(lambda: run(kst), 20),
                      plain_ms=time_ms(lambda: run(pst), 10),
-                     cost=corner_cost(kst.cell_op, model.mesh.ndofs, len(xs),
-                                      extra=index))
+                     cost=cc.apply_cost(kst.cell_op, model.mesh.ndofs,
+                                        len(xs), extra=index))
         print(f"   {smi}: {label} at {model.mesh.num_cells} cells: {entry}"
               f"{msg}", flush=True)
         return pst, entry
+
+    def corner_turns(tag, model, dt_, label, entry):
+        """Phase 29 on a corner-mode model just built: the class-launch
+        design against the walk in turns (old, new, new, old, twice) on
+        seeded unit-normal input(s), ms, share of the bound and launches an
+        apply of each; the walk's schedule; 10 steps on each design within
+        TRAJ_TOL.  `entry`: the walk's kernel entry (corner_check's), whose
+        plain time and cost the class-launch design shares.  Records the
+        class-launch design's kernel entry and its launches here, and sets
+        both entries' `ms` to their best turn (corner_check's single
+        reading of the walk is printed beside it)."""
+        kst = model.stiffness
+        op = kst.cell_op
+        old = ClassLaunchCorner(op)
+        name = f"{op.kernel}_classes" + ("_pair" if kst.is_pair else "")
+        with phase(f"29{tag} {label}: the class-launch design against the "
+                   "walk in turns, 10 steps on each"):
+            cc.reset_launches()
+            # a generator of its own: the later phases' inputs stay as
+            # they were without phase 29
+            own = np.random.default_rng(29)
+            xs = [torch.as_tensor(own.standard_normal(
+                model.mesh.grid_shape), dtype=torch.float32, device=dev)
+                for _ in range(2 if kst.is_pair else 1)]
+            run = (lambda m: m.pair(*xs)) if kst.is_pair else \
+                (lambda m: m(xs[0]))
+            yp = run(CornerStiffness(op, "mm"))
+            yo, yn = run(old), run(kst)
+            eo, en = rel_l2(yo, yp), rel_l2(yn, yp)
+            if not (eo <= F32_TOL and en <= F32_TOL):
+                fail(f"{label}: vs plain, class-launch {eo:.3e}, walk "
+                     f"{en:.3e} (tol {F32_TOL})")
+            ms = {"old": [], "new": []}
+            for who in ("old", "new", "new", "old") * 2:
+                ms[who].append(time_ms(
+                    lambda m=old if who == "old" else kst: run(m), 20))
+            best = {k: min(v) for k, v in ms.items()}
+            print(f"   the walk: corner_check's reading {entry['ms']:.4f} "
+                  f"ms, its best turn here {best['new']:.4f} ms (the "
+                  "kernels line's)")
+            entry["ms"] = best["new"]
+            b_ms = bound(*entry["cost"])[0]
+            sched = cc.card_schedule(op, xs[0], kst.is_pair)
+            per_old = 8 if op.box else sum(
+                1 for a, b in zip(op.bounds, op.bounds[1:]) if b > a)
+            segs = (f", {sched.segments} segment(s) a stack"
+                    if hasattr(sched, "segments") else "")
+            print(f"   {smi}: {label}: the class-launch design "
+                  + " / ".join(f"{t:.4f}" for t in ms["old"])
+                  + f" ms ({b_ms / best['old']:.1%} of the bound "
+                  f"{b_ms:.4f} ms, {per_old} launches an apply), the walk "
+                  + " / ".join(f"{t:.4f}" for t in ms["new"])
+                  + f" ms ({b_ms / best['new']:.1%}, {len(sched.classes)} "
+                  f"launches an apply): the walk "
+                  f"{'faster' if best['new'] < best['old'] else 'SLOWER'}, "
+                  f"{best['old'] / best['new']:.4f}x; vs plain {eo:.3e} / "
+                  f"{en:.3e}; walk schedule {sched.cpb} cells a "
+                  f"chunk{segs}, {sched.blocks_per_sm} blocks an SM, "
+                  f"{sched.blocks} blocks", flush=True)
+            sn, _ = model.solve(model.init_state(), dt_, 10)
+            model.stiffness = old
+            try:
+                so, _ = model.solve(model.init_state(), dt_, 10)
+            finally:
+                model.stiffness = kst
+            traj = rel_l2(so.u, sn.u)
+            torch.cuda.synchronize()
+            print(f"   10 steps on the class-launch design vs the walk: "
+                  f"rel-l2(u) {traj:.3e} (tol {TRAJ_TOL}); launches "
+                  f"{dict(cc.launches)}, {dict(cc.class_launches)}")
+            if not traj <= TRAJ_TOL:
+                fail(f"{label}: 10 steps class-launch vs walk {traj:.3e}")
+            demo_launches[name] = cc.class_launches[name]
+            if not demo_launches[name]:
+                fail(f"{name} was not launched")
+            kernels[name] = dict(
+                max_abs_err=float((yo - yp).abs().max()), rel_l2=eo,
+                ms=best["old"], plain_ms=entry["plain_ms"],
+                cost=entry["cost"])
+            del xs, yp, yo, yn, sn, so
 
     with phase("17a flagship in corner mode: build, kernel vs plain and "
                "G stream, 10 steps"):
@@ -1324,6 +1434,7 @@ def main() -> None:
         keep_for_ranks("22c flagship in corner mode, grid (2, 2, 1)", cbowl,
                        dt9, 20, BOWL_POINTS, grid=(2, 2, 1))
     del bowl, kstiff
+    corner_turns("a", cbowl, dt9, "flagship corner (#3)", kernels["corner"])
     cc.reset_launches()
     with phase("17b flagship in corner mode, full solve (corner kernel)"):
         state = run_demo(cbowl, dt9, nsteps9, args9, "nonlinear_bowl")
@@ -1350,6 +1461,8 @@ def main() -> None:
         cbowl2, dt10, _, _ = nonlinear_bowl.build(args10, pb6)
         _, kernels["corner_pair"] = corner_check(
             cbowl2, "two-layer flagship corner pair", "corner_pair")
+    corner_turns("b", cbowl2, dt10, "two-layer flagship corner pair (#3 "
+                 "pair)", kernels["corner_pair"])
     cc.reset_launches()
     with phase("17c two-layer flagship in corner mode, 50 steps (corner pair "
                "kernel)"):
@@ -1487,6 +1600,8 @@ def main() -> None:
         if not traj <= TRAJ_TOL:
             fail(f"imported 10 steps corner vs G stream {traj:.3e}")
         del sc, sg, pst11, ibowl, kst3
+    corner_turns("c", cibowl, dt11, "imported bowl corner (#6c hex8)",
+                 kernels["extruded_corner"])
     cc.reset_launches()
     with phase("18b imported bowl in corner mode, full solve (extruded "
                "corner kernel)"):
@@ -1513,6 +1628,8 @@ def main() -> None:
             imported_corner(IMPORTED + ["--two-layer"],
                             "two-layer imported corner pair",
                             "extruded_corner_pair", pb10)
+    corner_turns("d", cibowl2, dt12, "two-layer imported corner pair (#6c "
+                 "hex8 pair)", kernels["extruded_corner_pair"])
     cc.reset_launches()
     with phase("18c two-layer imported bowl in corner mode, 50 steps "
                "(extruded corner pair kernel)"):
@@ -1544,6 +1661,8 @@ def main() -> None:
         if hbowl.stiffness.T.shape[1] != 163:
             fail(f"hex27 channels {hbowl.stiffness.T.shape}")
         del cibowl
+    corner_turns("e", hbowl, dt13, "imported bowl hex27 corner (#6c hex27)",
+                 kernels["extruded_corner_hex27"])
     cc.reset_launches()
     with phase("18d imported bowl as hex27, full solve (hex27 corner "
                "kernel)"):
@@ -1570,6 +1689,8 @@ def main() -> None:
                             "extruded_corner_hex27_pair", pb27,
                             g_module=cibowl2.stiffness)
         del cibowl2, pb27
+    corner_turns("f", hbowl2, dt14, "two-layer imported hex27 corner pair "
+                 "(#6c hex27 pair)", kernels["extruded_corner_hex27_pair"])
     cc.reset_launches()
     with phase("18e two-layer imported bowl as hex27, 50 steps (hex27 "
                "corner pair kernel)"):
@@ -2223,6 +2344,32 @@ def main() -> None:
             fail(f"{label}: field is not finite and non-zero")
         del state
         kst = model.stiffness
+        # what the model holds and what a solve adds on each design, in
+        # one process, apart from what earlier phases still hold: the
+        # buffers (channels, diagonals) serve both designs, the walk adds
+        # its schedule's tables
+        op_ = kst.cell_op
+        _, chunks_, ids_, _ = cc._card(op_, op_.T.dtype, kst.is_pair,
+                                       op_.T.device)
+        tables = sum(t.numel() * t.element_size()
+                     for t in (chunks_, ids_) if t is not None)
+        held = held_bytes(model)
+        dt_ = model.cfl_dt(0.4)[0]
+        adds = {"walk": solve_peak(model, dt_, 10)}
+        model.stiffness = ClassLaunchCorner(op_)
+        try:
+            adds["class-launch"] = solve_peak(model, dt_, 10)
+        finally:
+            model.stiffness = kst
+        for name, add in adds.items():
+            own = held + add + (tables if name == "walk" else 0)
+            print(f"   {label} on the {name} design: buffers "
+                  f"{held / 1e9:.4f} GB"
+                  + (f" and schedule tables {tables / 1e9:.4f} GB"
+                     if name == "walk" else "")
+                  + f", a 10-step solve adds at most {add / 1e9:.4f} GB: "
+                  f"{own / 1e9:.4f} GB, {own / model.mesh.ndofs:.2f} B a DOF"
+                  f" ({smi})", flush=True)
         pst = CornerStiffness(kst.cell_op, "mm")
         x = torch.randn(model.mesh.grid_shape, dtype=torch.float32,
                         device=dev, generator=torch.Generator(
@@ -2279,17 +2426,32 @@ def main() -> None:
                             "fustpu/ops/pallas_gather.py:1417"),
         "indexed_classes_pair": ("fustpu_torch/csrc/indexed.cu",
                                  "fustpu/ops/pallas_gather.py:1417"),
-        "corner": ("fustpu_torch/csrc/corner.cu",
+        "corner": ("fustpu_torch/csrc/corner_pencil.cu",
                    "fustpu/ops/pallas_stiffness.py:963"),
-        "corner_pair": ("fustpu_torch/csrc/corner.cu",
+        "corner_pair": ("fustpu_torch/csrc/corner_pencil.cu",
                         "fustpu/ops/pallas_stiffness.py:963"),
-        "extruded_corner": ("fustpu_torch/csrc/extruded_corner.cu",
+        "extruded_corner": ("fustpu_torch/csrc/corner_stack.cu",
                             "fustpu/ops/pallas_extruded.py:604"),
-        "extruded_corner_pair": ("fustpu_torch/csrc/extruded_corner.cu",
+        "extruded_corner_pair": ("fustpu_torch/csrc/corner_stack.cu",
                                  "fustpu/ops/pallas_extruded.py:604"),
-        "extruded_corner_hex27": ("fustpu_torch/csrc/extruded_corner27.cu",
+        "extruded_corner_hex27": ("fustpu_torch/csrc/corner_stack27.cu",
                                   "fustpu/ops/pallas_extruded.py:604"),
         "extruded_corner_hex27_pair": (
+            "fustpu_torch/csrc/corner_stack27.cu",
+            "fustpu/ops/pallas_extruded.py:604"),
+        "corner_classes": ("fustpu_torch/csrc/corner.cu",
+                           "fustpu/ops/pallas_stiffness.py:963"),
+        "corner_classes_pair": ("fustpu_torch/csrc/corner.cu",
+                                "fustpu/ops/pallas_stiffness.py:963"),
+        "extruded_corner_classes": ("fustpu_torch/csrc/extruded_corner.cu",
+                                    "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_classes_pair": (
+            "fustpu_torch/csrc/extruded_corner.cu",
+            "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_hex27_classes": (
+            "fustpu_torch/csrc/extruded_corner27.cu",
+            "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_hex27_classes_pair": (
             "fustpu_torch/csrc/extruded_corner27.cu",
             "fustpu/ops/pallas_extruded.py:604"),
         "engine_gather": ("fustpu_torch/csrc/engine.cu",
@@ -2317,6 +2479,8 @@ def main() -> None:
         **{f"relayout_{v}": ("fustpu_torch/csrc/probes.cu",
                              "demos/exp_mosaic_relayout.py:38")
            for v in ("copy", "transpose", "copy_flat", "transpose_padded")}}
+    print(f"   total {time.perf_counter() - t_start:.1f} s ({smi})",
+          flush=True)
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name]

@@ -201,6 +201,27 @@ def load() -> ctypes.CDLL:
     lib.fustpu_relayout_copy_flat.restype = i
     lib.fustpu_relayout_transpose_padded.argtypes = [p, p, i, i, i, i, p]
     lib.fustpu_relayout_transpose_padded.restype = i
+    # the corner walk: the pencil kernel's schedule with the GLL nodes and
+    # weights after D, box pencils (ncy, ncz) or stacks (row ids, nz)
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"fustpu_corner_pencil_{suffix}")
+        fn.argtypes = [p, p, p, p, p, i, *sched]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_corner_pencil_pair_{suffix}")
+        fn.argtypes = [p, p, p, p, p, p, p, i, *sched]
+        fn.restype = i
+        for kind in ("extruded_corner", "extruded_corner_hex27"):
+            fn = getattr(lib, f"fustpu_{kind}_stack_{suffix}")
+            fn.argtypes = [p, p, p, p, p, i, *stack]
+            fn.restype = i
+            fn = getattr(lib, f"fustpu_{kind}_stack_pair_{suffix}")
+            fn.argtypes = [p, p, p, p, p, p, p, i, *stack]
+            fn.restype = i
+    for name in ("fustpu_corner_pencil_occupancy",
+                 "fustpu_extruded_corner_stack_occupancy",
+                 "fustpu_extruded_corner_hex27_stack_occupancy"):
+        getattr(lib, name).argtypes = [i, i, i, i, i]
+        getattr(lib, name).restype = i
     for kind in ("extruded_corner", "extruded_corner_hex27"):
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"fustpu_{kind}_{suffix}")

@@ -17,9 +17,15 @@
 // polynomial in x alone (3 + 6 + 6 = 15 coefficients per line at GD = 1,
 // 24 at GD = 2); a node then costs the Horner steps in x (6 FMAs at
 // GD = 1), the adjugate, the determinant, one division and the factored
-// transform.
+// transform.  The powers y^my z^mz of the fold depend on the line alone
+// (`LinePowers`): a kernel whose thread keeps its line from one cell to
+// the next (the pencil walk, stiffness_pencil.cuh) computes them once.
+// RCP (float only) takes the division as one approximate reciprocal
+// (__fdividef, 2 ulp) in place of IEEE div.rn.
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 namespace fustpu {
 
@@ -55,10 +61,40 @@ __host__ __device__ constexpr int corner_channel(int q, int p, int mx,
          (mx * (dy + 1) + my) * (dz + 1) + mz;
 }
 
+// y^my z^mz at line (j, k): xq, the N unit GLL nodes.
+template <typename T, int GD>
+struct LinePowers {
+  T yz[GD + 1][GD + 1];
+
+  __device__ __forceinline__ LinePowers(const T* xq, int j, int k) {
+    const T y = xq[j], z = xq[k];
+    T yp[GD + 1], zp[GD + 1];
+    yp[0] = zp[0] = T(1);
+#pragma unroll
+    for (int m = 1; m <= GD; ++m) {
+      yp[m] = yp[m - 1] * y;
+      zp[m] = zp[m - 1] * z;
+    }
+#pragma unroll
+    for (int my = 0; my <= GD; ++my)
+#pragma unroll
+      for (int mz = 0; mz <= GD; ++mz) yz[my][mz] = yp[my] * zp[mz];
+  }
+};
+
+// a / b: IEEE, or for float with `fast` one approximate reciprocal
+__device__ __forceinline__ double corner_div(double a, double b, bool) {
+  return a / b;
+}
+__device__ __forceinline__ float corner_div(float a, float b, bool fast) {
+  return fast ? __fdividef(a, b) : a / b;
+}
+
 // The Metric functor of cell_apply for one cell's line (j, k).  ch: the
 // cell's channels in shared memory; xq, wq: the N unit GLL nodes and
-// weights in shared memory.
-template <typename T, int N, int GD, bool BOX>
+// weights in shared memory; pw: the line's powers, when the caller keeps
+// them (the fold's products are the same either way).
+template <typename T, int N, int GD, bool BOX, bool RCP = false>
 struct Corner {
   static_assert(GD == 1 || GD == 2, "geometry degree 1 or 2");
   static_assert(!BOX || GD == 1, "the structured layout is trilinear");
@@ -70,15 +106,12 @@ struct Corner {
 
   __device__ __forceinline__ Corner(const T* ch, const T* xq_, const T* wq_,
                                     int j, int k)
+      : Corner(ch, xq_, wq_, j, k, LinePowers<T, GD>(xq_, j, k)) {}
+
+  __device__ __forceinline__ Corner(const T* ch, const T* xq_, const T* wq_,
+                                    int j, int k,
+                                    const LinePowers<T, GD>& pw)
       : xq(xq_), wq(wq_) {
-    const T y = xq[j], z = xq[k];
-    T yp[GD + 1], zp[GD + 1];
-    yp[0] = zp[0] = T(1);
-#pragma unroll
-    for (int m = 1; m <= GD; ++m) {
-      yp[m] = yp[m - 1] * y;
-      zp[m] = zp[m - 1] * z;
-    }
     // fixed trip counts (GD + 1), so that every loop unrolls and c stays in
     // registers; the degree tests fold at compile time
 #pragma unroll
@@ -96,7 +129,7 @@ struct Corner {
                   my <= corner_degree<GD>(q, 1) &&
                   mz <= corner_degree<GD>(q, 2))
                 acc += ch[corner_channel<GD, BOX>(q, p, mx, my, mz)] *
-                       (yp[my] * zp[mz]);
+                       pw.yz[my][mz];
             }
           }
           c[q][p][mx] = acc;
@@ -135,7 +168,7 @@ struct Corner {
     const T a22 = J[0][0] * J[1][1] - J[0][1] * J[1][0];
     const T det = J[0][0] * a00 + J[0][1] * a10 + J[0][2] * a20;
     // |det|: imported cells may be left-handed
-    const T scale = wq[i] * s / (det < T(0) ? -det : det);
+    const T scale = corner_div(wq[i] * s, det < T(0) ? -det : det, RCP);
     const T t0 = a00 * wx + a10 * wy + a20 * wz;
     const T t1 = a01 * wx + a11 * wy + a21 * wz;
     const T t2 = a02 * wx + a12 * wy + a22 * wz;

@@ -40,6 +40,7 @@
 namespace {
 
 using fustpu::pencil::StackRows;
+using fustpu::pencil::GRing;
 
 template <typename T, bool PAIR>
 int launch(int P, const void* x1, const void* x2, const void* C,
@@ -51,9 +52,10 @@ int launch(int P, const void* x1, const void* x2, const void* C,
   const StackRows lines{nz * P + 1, 0, static_cast<const int*>(ids)};
 #define FUSTPU_CASE(P_)                                                    \
   case P_:                                                                 \
-    return fustpu::pencil::launch_classes<T, P_ + 1, PAIR>(                \
-        x1, x2, C, G, D, y, chunks, classes, nclass, blocks, cpb, stages,  \
-        stage_bytes, smem, lines, s);
+    return fustpu::pencil::launch_classes<T, P_ + 1, PAIR,               \
+                                          GRing<T, P_ + 1>>(               \
+        x1, x2, C, G, D, nullptr, y, chunks, classes, nclass, blocks, cpb, \
+        stages, stage_bytes, smem, lines, s);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:
@@ -66,7 +68,8 @@ template <typename T, bool PAIR>
 int occupancy(int P, int cpb, int smem) {
 #define FUSTPU_CASE(P_) \
   case P_:              \
-    return fustpu::pencil::occupancy<T, P_ + 1, PAIR, StackRows>(cpb, smem);
+    return fustpu::pencil::occupancy<T, P_ + 1, PAIR, GRing<T, P_ + 1>, \
+                                     StackRows>(cpb, smem);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:

@@ -4,7 +4,12 @@
 // The same kernel walks the stacks of an extruded mesh, whose z-lines are
 // not on a grid (entry points in extruded_stack.cu): a template functor
 // (BoxRows, StackRows) gives each of a chunk's N^2 z-lines its first
-// node, and nothing else differs.
+// node, and nothing else differs.  A second one, the geometry policy
+// (GRing, CornerGeo), says where a chunk's metric comes from: the G
+// stream described here, or the corner stream of the capacity mode, each
+// cell's metric rebuilt from its Jacobian channels (#3 and #6c; entry
+// points in corner_pencil.cu, corner_stack.cu, corner_stack27.cu, through
+// corner_walk.cuh).
 //
 // Replaces the two Pallas TPU kernels of fustpu/ops/pallas_stiffness.py:
 //   - _mk_kernel (:170, via _apply_single / stiffness_apply_pallas): one
@@ -94,6 +99,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk_copy.cuh"
+#include "corner.cuh"
 #include "sum_factor.cuh"
 
 namespace fustpu {
@@ -149,6 +155,92 @@ struct StackRows {
   }
 };
 
+// Where a chunk's metric comes from: the geometry policy.  Each chunk's
+// run of the stream (CELL values a cell, in the walk's cell order) arrives
+// in a stage of the ring by one bulk copy; `load` fills what the policy
+// keeps in the block after the chunk buffers (`after` values for cpb cells
+// a chunk) before the first barrier, the constructor takes the thread's
+// line (j, k) after it, and `cell` gives the body its metric and its f1,
+// f2 scratch for cell slot lc, whose run starts at Gc in the stage.
+// BARRIERS: whether a chunk takes the barrier between the last chunk's
+// y out and this one's body (the G stream's walk keeps it; without it
+// the body's first barrier orders the carried face before its adds, and
+// the next chunk's buffers are written only after the body).
+// MAX_THREADS, MIN_BLOCKS: the launch bounds of corner_kernel, which runs
+// the walk for a policy with MIN_BLOCKS > 0 (a register cap of 65,536 /
+// (MAX_THREADS MIN_BLOCKS) a thread; `occupancy` answers 0 for a larger
+// block, so the schedule keeps within MAX_THREADS); pencil_kernel, with
+// the G stream's own bounds, otherwise.
+//
+// GRing: the G stream (#1, #2, #6), c G itself, 6 N^3 values a cell read
+// by GShared; the body's f1, f2 of a node go over its components 0 and 1
+// there (the node's owner thread has read all six), which saves 2 N^3
+// values a cell.
+template <typename T, int N>
+struct GRing {
+  static constexpr int CELL = 6 * N * N * N;
+  static constexpr bool BARRIERS = true;
+  static constexpr int MAX_THREADS = 256, MIN_BLOCKS = 0;
+  __host__ __device__ static constexpr int after(int) { return 0; }
+  __device__ static void load(T*, const T*, int, int, int) {}
+  __device__ GRing(T*, int, int, int) {}
+
+  struct Cell {
+    GShared<T, N> metric;
+    T* f1;
+    T* f2;
+  };
+  __device__ __forceinline__ Cell cell(T* Gc, int) const {
+    return {GShared<T, N>{Gc}, Gc, Gc + N * N * N};
+  }
+};
+
+// CornerGeo: the corner stream (#3 on box pencils with BOX, #6c on stacks),
+// a cell's Jacobian channels (37, or 163 for hex27, corner.cuh) from which
+// the Corner metric rebuilds c G in registers at each node.  The block
+// keeps the cells' f1, f2 (2 N^3 values a cell slot) and the N GLL nodes
+// and weights after the chunk buffers; a thread keeps its line's powers
+// y^my z^mz for the whole walk, since its (j, k) never changes.  RCP:
+// float's division by one approximate reciprocal (corner.cuh).  CAP > 0:
+// corner_kernel's blocks of at most 128 threads, CAP of them an SM; 0:
+// pencil_kernel's bounds.
+template <typename T, int N, int GD, bool BOX, bool RCP, int CAP>
+struct CornerGeo {
+  static constexpr int CELL = CornerChannels<GD>::COUNT;
+  static constexpr bool BARRIERS = false;
+  static constexpr int MAX_THREADS = CAP ? 128 : 256;
+  static constexpr int MIN_BLOCKS = CAP;
+  static constexpr int NNN = N * N * N;
+  __host__ __device__ static constexpr int after(int cpb) {
+    return 2 * NNN * cpb + 2 * N;
+  }
+  __device__ static void load(T* after_, const T* Q, int cpb, int tid,
+                              int nthreads) {
+    for (int s = tid; s < 2 * N; s += nthreads)
+      after_[2 * NNN * cpb + s] = Q[s];
+  }
+
+  T* f;                       // the cell slots' f1, f2
+  const T* q;                 // nodes, then weights
+  int j, k;
+  LinePowers<T, GD> pw;
+
+  __device__ CornerGeo(T* after_, int cpb, int j_, int k_)
+      : f(after_), q(after_ + 2 * NNN * cpb), j(j_), k(k_),
+        pw(after_ + 2 * NNN * cpb, j_, k_) {}
+
+  struct Cell {
+    Corner<T, N, GD, BOX, RCP> metric;
+    T* f1;
+    T* f2;
+  };
+  __device__ __forceinline__ Cell cell(const T* ch, int lc) const {
+    T* f1 = f + 2 * NNN * lc;
+    return {Corner<T, N, GD, BOX, RCP>(ch, q, q + N, j, k, pw), f1,
+            f1 + NNN};
+  }
+};
+
 // Bytes before the stages: the STAGES mbarriers, then the row ring and,
 // for stacks, the ring of row ids, each padded to 16.
 __host__ __device__ constexpr int bars_bytes(int stages) {
@@ -166,20 +258,21 @@ __host__ __device__ constexpr int head_bytes(int stages, bool ids, int nn) {
 
 // One class: block b walks pencils b, b + gridDim.x, ... of the class, and
 // each pencil's chunks in order (the host launches at most `pencils`
-// blocks).  stage_bytes: one stage of the G ring.  seg0: the class's first
-// pencil's row of the row ids (the pencils of the classes before it).
-// Grid indices are 32-bit (the wrapper refuses grids of 2^31 nodes or
-// more).
-template <typename T, int N, bool PAIR, typename Rows>
-__global__ void __launch_bounds__(256)
-pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-              const T* __restrict__ C, const T* __restrict__ G,
-              const T* __restrict__ D, T* __restrict__ y,
-              const long long* __restrict__ chunks, long long first,
-              int pencils, int per_pencil, int stages, int stage_bytes,
-              long long seg0, Rows lines) {
+// blocks).  G: the geometry stream (Geo); Q: the GLL nodes and weights
+// (CornerGeo).  stage_bytes: one stage of the ring.  seg0: the class's
+// first pencil's row of the row ids (the pencils of the classes before
+// it).  Grid indices are 32-bit (the wrapper refuses grids of 2^31 nodes
+// or more).
+template <typename T, int N, bool PAIR, typename Rows, typename Geo>
+__device__ __forceinline__ void pencil_walk(
+    const T* __restrict__ x1, const T* __restrict__ x2,
+    const T* __restrict__ C, const T* __restrict__ G,
+    const T* __restrict__ D, const T* __restrict__ Q, T* __restrict__ y,
+    const long long* __restrict__ chunks, long long first, int pencils,
+    int per_pencil, int stages, int stage_bytes, long long seg0,
+    Rows lines) {
   constexpr int P = N - 1, NN = N * N, NNN = N * N * N;
-  constexpr long long CB = 6LL * NNN * (long long)sizeof(T);  // G per cell
+  constexpr long long CB = (long long)Geo::CELL * (long long)sizeof(T);
   // D in an array of its own, so that the compiler may keep it in
   // registers across the body's stores into the dynamic block
   __shared__ T Ds[NN];                           // D[q * N + i] = l_i'(x_q)
@@ -192,12 +285,12 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
                                     ring_bytes());
   unsigned char* ring = smem + head_bytes(stages, Rows::IDS, NN);
   // two buffers each: u of every cell, the chunk's y, and for the pair x2
-  // and the cells' (c1, c2).  The body's f1, f2 of a cell go into
-  // components 0 and 1 of its G in the stage.
+  // and the cells' (c1, c2); then what the geometry keeps (Geo::after)
   T* ub = reinterpret_cast<T*>(ring + (long long)stages * stage_bytes);
   T* yb = ub + 2 * cpb * NNN;
   T* x2b = yb + 2 * rows;
   T* cb = x2b + 2 * rows;
+  T* gb = PAIR ? cb + 4 * cpb : x2b;
   const int t = threadIdx.x, lc = threadIdx.y;   // node line (j, k), cell
   const int tid = lc * NN + t, nthreads = NN * cpb;
   const int j = t / N, k = t % N;
@@ -299,6 +392,7 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   };
 
   for (int s = tid; s < NN; s += nthreads) Ds[s] = D[s];
+  Geo::load(gb, Q, cpb, tid, nthreads);
   if (tid < ROW) row(0)[tid] = table(0)[tid];
   if (Rows::IDS && tid < NN) rid(0)[tid] = table_ids(0)[tid];
   if (tid == 0) {
@@ -306,6 +400,7 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     mbar_init_fence();
   }
   __syncthreads();                   // D, the first row, the mbarriers
+  const Geo geo(gb, cpb, j, k);
   fetch(0);
   put(0);
   __syncthreads();                   // the first chunk's inputs, row 1
@@ -343,14 +438,16 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
             c1 * u[i * NN + t] + c2 * x2b[b * rows + (i * N + j) * lmax +
                                            lc * P + k];
     }
-    __syncthreads();                 // the carried face in place; the last
+    if (Geo::BARRIERS)
+      __syncthreads();               // the carried face in place; the last
                                      // chunk's buffers are free
     if (q + 1 < total) fetch(q + 1);
 
     // the body, adding into the chunk's y buffer: even cells, then odd
-    T* Gc = reinterpret_cast<T*>(stage + (cell0 * CB - off)) + lc * 6 * NNN;
+    T* Gc = reinterpret_cast<T*>(stage + (cell0 * CB - off)) + lc * Geo::CELL;
+    const auto cell = geo.cell(Gc, lc);
     cell_apply<T, N, false, STAGED>(
-        x1, x2, T(1), T(0), GShared<T, N>{Gc}, Ds, u, Gc, Gc + NNN,
+        x1, x2, T(1), T(0), cell.metric, Ds, u, cell.f1, cell.f2,
         yb + b * rows, active, ZLine{j * lmax + lc * P + k, N * lmax},
         n > 1 ? (lc & 1) : 0, n > 1 ? 2 : 1);
     if (q + 1 < total) put(q + 1);
@@ -360,20 +457,56 @@ pencil_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   store(total - 1);
 }
 
+#define FUSTPU_PENCIL_PARAMS                                                 \
+  const T *__restrict__ x1, const T *__restrict__ x2,                       \
+      const T *__restrict__ C, const T *__restrict__ G,                     \
+      const T *__restrict__ D, const T *__restrict__ Q, T *__restrict__ y,  \
+      const long long *__restrict__ chunks, long long first, int pencils,   \
+      int per_pencil, int stages, int stage_bytes, long long seg0,          \
+      Rows lines
+
+template <typename T, int N, bool PAIR, typename Rows, typename Geo>
+__global__ void __launch_bounds__(256)
+pencil_kernel(FUSTPU_PENCIL_PARAMS) {
+  pencil_walk<T, N, PAIR, Rows, Geo>(x1, x2, C, G, D, Q, y, chunks, first,
+                                     pencils, per_pencil, stages,
+                                     stage_bytes, seg0, lines);
+}
+
+template <typename T, int N, bool PAIR, typename Rows, typename Geo>
+__global__ void __launch_bounds__(Geo::MAX_THREADS, Geo::MIN_BLOCKS)
+corner_kernel(FUSTPU_PENCIL_PARAMS) {
+  pencil_walk<T, N, PAIR, Rows, Geo>(x1, x2, C, G, D, Q, y, chunks, first,
+                                     pencils, per_pencil, stages,
+                                     stage_bytes, seg0, lines);
+}
+
+#undef FUSTPU_PENCIL_PARAMS
+
+// The kernel that walks for a geometry policy.
+template <typename T, int N, bool PAIR, typename Rows, typename Geo>
+constexpr auto kernel_of() {
+  if constexpr (Geo::MIN_BLOCKS > 0)
+    return corner_kernel<T, N, PAIR, Rows, Geo>;
+  else
+    return pencil_kernel<T, N, PAIR, Rows, Geo>;
+}
+
 // ---- host side: the launches of one apply, for both kinds of Rows ----
 
 constexpr int MAX_SMEM = 232448;   // one block's shared memory on Hopper
 
 // Lets the kernel take all the dynamic shared memory that its static D
 // leaves of a block's.
-template <typename T, int N, bool PAIR, typename Rows>
+template <typename T, int N, bool PAIR, typename Rows, typename Geo>
 cudaError_t allow_smem() {
   static bool done = false;
   if (done) return cudaSuccess;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, pencil_kernel<T, N, PAIR, Rows>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, kernel_of<T, N, PAIR, Rows, Geo>());
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(pencil_kernel<T, N, PAIR, Rows>,
+  err = cudaFuncSetAttribute(kernel_of<T, N, PAIR, Rows, Geo>(),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MAX_SMEM - (int)attr.sharedSizeBytes);
   done = err == cudaSuccess;
@@ -383,13 +516,13 @@ cudaError_t allow_smem() {
 // One launch per class (classes: nclass x 3 host int64, first row,
 // pencils, chunks a pencil) of a persistent grid of at most `blocks`
 // blocks of N^2 x cpb threads.  Returns 0 or the first cudaError_t.
-template <typename T, int N, bool PAIR, typename Rows>
+template <typename T, int N, bool PAIR, typename Geo, typename Rows>
 int launch_classes(const void* x1, const void* x2, const void* C,
-                   const void* G, const void* D, void* y, const void* chunks,
-                   const long long* classes, int nclass, int blocks, int cpb,
-                   int stages, int stage_bytes, int smem, Rows lines,
-                   cudaStream_t stream) {
-  cudaError_t err = allow_smem<T, N, PAIR, Rows>();
+                   const void* G, const void* D, const void* Q, void* y,
+                   const void* chunks, const long long* classes, int nclass,
+                   int blocks, int cpb, int stages, int stage_bytes, int smem,
+                   Rows lines, cudaStream_t stream) {
+  cudaError_t err = allow_smem<T, N, PAIR, Rows, Geo>();
   if (err != cudaSuccess) return (int)err;
   const dim3 block(N * N, cpb);
   long long seg0 = 0;
@@ -398,10 +531,12 @@ int launch_classes(const void* x1, const void* x2, const void* C,
     const int per_pencil = (int)classes[3 * c + 2];
     if (pencils <= 0) continue;
     const unsigned grid = (unsigned)(pencils < blocks ? pencils : blocks);
-    pencil_kernel<T, N, PAIR, Rows><<<grid, block, smem, stream>>>(
+    const auto kernel = kernel_of<T, N, PAIR, Rows, Geo>();
+    kernel<<<grid, block, smem, stream>>>(
         static_cast<const T*>(x1), static_cast<const T*>(x2),
         static_cast<const T*>(C), static_cast<const T*>(G),
-        static_cast<const T*>(D), static_cast<T*>(y),
+        static_cast<const T*>(D), static_cast<const T*>(Q),
+        static_cast<T*>(y),
         static_cast<const long long*>(chunks), first, (int)pencils, per_pencil,
         stages, stage_bytes, seg0, lines);
     seg0 += pencils;
@@ -412,14 +547,21 @@ int launch_classes(const void* x1, const void* x2, const void* C,
 }
 
 // Blocks of N^2 x cpb threads with smem dynamic shared bytes that one SM
-// holds at once, or minus the cudaError_t of a failed query.
-template <typename T, int N, bool PAIR, typename Rows>
+// holds at once, or minus the cudaError_t of a failed query; 0 for a
+// block larger than the kernel's launch bounds allow (its
+// maxThreadsPerBlock), so that the host's schedules take that limit from
+// the kernel itself.
+template <typename T, int N, bool PAIR, typename Geo, typename Rows>
 int occupancy(int cpb, int smem) {
-  cudaError_t err = allow_smem<T, N, PAIR, Rows>();
+  cudaError_t err = allow_smem<T, N, PAIR, Rows, Geo>();
   if (err != cudaSuccess) return -(int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel_of<T, N, PAIR, Rows, Geo>());
+  if (err != cudaSuccess) return -(int)err;
+  if (N * N * cpb > attr.maxThreadsPerBlock) return 0;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, pencil_kernel<T, N, PAIR, Rows>, N * N * cpb, smem);
+      &blocks, kernel_of<T, N, PAIR, Rows, Geo>(), N * N * cpb, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 

@@ -8,13 +8,20 @@ fields (old, new, new, old):
 - #11, general meshes: one launch per colour class of scattered cells
   (`indexed_classes`) against locality-ordered cell chunks with a
   bulk-copied G ring (`indexed`), and both against the composed staged
-  engine (#7-#10, `engine`), at the bodyfit bowl, and at P = 6.
+  engine (#7-#10, `engine`), at the bodyfit bowl, and at P = 6;
+- with --corner in their place, #6c, the corner-streamed capacity mode:
+  one launch per (stack colour, layer parity) class of scattered cells,
+  each rebuilding its metric from its channels
+  (`cuda_corner.extruded_corner_classes`), against the stack walk of the
+  z-pencil kernel with the corner metric (`extruded_corner`), at the
+  imported bowl as hex8 and, with --hex27, as hex27 (the same geometry on
+  the 27-node lattice, 163 channels a cell).
 
 Runs on the card unless --device cpu is given (the plain versions, a
 correctness run only).
 
     python -m fustpu_torch.demos.exp_imported [--elements 64] [--degree 4]
-        [--p6-elements 48] [--sweep]
+        [--p6-elements 48] [--sweep] [--corner [--hex27]]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its turns, the rate over the apply's least bytes (G, each input
@@ -27,8 +34,11 @@ other schedules (cells a chunk, z-segments a stack) than its model's.
 `--sweep` then times the single-field new kernels over every schedule:
 the stack kernel at each (cells a chunk, segments) pair of a grid, with
 the cost model's value (``cuda_stiffness.class_cost``) beside it, the
-chunk kernel at each cells a chunk, with its classes.  Float32; the
-meshes are the bowl demo's (`nonlinear_bowl`).
+chunk kernel at each cells a chunk, with its classes; with --corner the
+corner stack walk over the same grid.  For the corner forms the bound is
+the larger of the least bytes at 3.35 TB/s and the operations at the
+H100's published 67 TFLOP/s float32 (``cuda_corner.apply_cost``).
+Float32; the meshes are the bowl demo's (`nonlinear_bowl`).
 """
 
 from __future__ import annotations
@@ -40,13 +50,17 @@ import torch
 
 from fustpu_torch.demos import nonlinear_bowl
 from fustpu_torch.demos.common import check_device, clock, rel_l2
+from fustpu_torch.mesh import shapes
 from fustpu_torch.models.discretization import Discretization
+from fustpu_torch.ops import cuda_corner as cc
 from fustpu_torch.ops import cuda_engine as cen
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_indexed as ci
+from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.utils.benchmarks import time_apply
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+PEAK_F32_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 F32 = torch.float32
 
 
@@ -61,6 +75,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--sweep", action="store_true",
                    help="time the new kernels over every schedule")
+    p.add_argument("--corner", action="store_true",
+                   help="the corner forms (#6c) in place of #6 and #11")
+    p.add_argument("--hex27", action="store_true",
+                   help="with --corner, also the bowl as hex27")
     return p
 
 
@@ -241,29 +259,113 @@ def compare_indexed(disc: Discretization, dev, chain: int = 20,
     return out
 
 
+def compare_corner(op: cc.CornerCellStiffness, xs: tuple, ndofs: int,
+                   label: str, chain: int = 20, reps: int = 5) -> dict:
+    """The class-launch corner design against the walk on `op` (a box or
+    extruded corner operator) and the field(s) `xs`, in turns (classes,
+    walk, walk, classes); prints each one's ms per apply, its share of the
+    bound and its launches an apply, the two against each other and the
+    plain version, and the walk's schedule.  Returns the fields, outputs,
+    plain output, turns, least bytes and operations."""
+    pair, x = len(xs) == 2, xs[0]
+    if op.box:
+        kern = {"classes": cc.corner_classes_pair if pair
+                else cc.corner_classes,
+                "walk": cc.corner_pair if pair else cc.corner}
+    else:
+        kern = {"classes": cc.extruded_corner_classes_pair if pair
+                else cc.extruded_corner_classes,
+                "walk": cc.extruded_corner_pair if pair
+                else cc.extruded_corner}
+    plain = (cc.corner_pair_plain if pair else cc.corner_plain)(op, *xs)
+    ys = {name: k(op, *xs) for name, k in kern.items()}
+    times = _turns({name: lambda k=k: k(op, *xs)
+                    for name, k in kern.items()},
+                   ("classes", "walk", "walk", "classes"), x, chain, reps)
+    index = op.rows.numel() * 4 if op.rows is not None else 0
+    nbytes, flops = cc.apply_cost(op, ndofs, len(xs), index)
+    bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S) * 1e3
+    cuda = x.device.type == "cuda"
+    form = "pair" if pair else "single"
+    per = {"classes": 8 if op.box else sum(
+        1 for a, b in zip(op.bounds, op.bounds[1:]) if b > a)}
+    if cuda:
+        s = cc.card_schedule(op, x, pair)
+        per["walk"] = len(s.classes)
+    for name in kern:
+        ms = [t[0] * 1e3 for t in times[name]]
+        rate = (f", {bound / min(ms):.1%} of the bound {bound:.4f} ms, "
+                f"{per[name]} launches an apply" if cuda else "")
+        print(f"{label} {form:6s} {name:8s}: "
+              + " / ".join(f"{m:.4f}" for m in ms)
+              + f" ms per apply{rate}; vs plain rel-l2 "
+              f"{rel_l2(ys[name], plain):.3e}", flush=True)
+    speed = min(t[0] for t in times["classes"]) / \
+        min(t[0] for t in times["walk"])
+    print(f"{label} {form:6s} walk vs classes rel-l2 "
+          f"{rel_l2(ys['walk'], ys['classes']):.3e}"
+          + (f", {speed:.4f}x faster" if cuda else ""), flush=True)
+    if cuda:
+        segs = (f", {s.segments} segment(s) a stack"
+                if hasattr(s, "segments") else "")
+        print(f"{label} {form:6s} walk schedule: {s.cpb} cells a chunk "
+              f"({(op.P + 1) ** 2 * s.cpb} threads){segs}, {s.stages} "
+              f"stages of {s.stage_bytes:,} B, {s.smem:,} B shared a "
+              f"block, {s.blocks_per_sm} blocks an SM, {s.blocks} blocks, "
+              f"{len(s.classes)} classes, {len(s.chunks)} chunks",
+              flush=True)
+    return dict(op=op, xs=xs, ys=ys, plain=plain, times=times,
+                nbytes=nbytes, flops=flops)
+
+
+def corner_forms(disc: Discretization, dev, label: str, chain: int = 20,
+                 reps: int = 5) -> dict:
+    """`compare_corner` on the corner operator of `disc`'s mesh, single
+    (a per-cell coefficient) and pair, with seeded fields."""
+    mesh = disc.mesh
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, dtype=F32, device=dev)
+    shape = mesh.nc if hasattr(mesh, "nc") else (mesh.num_cells,)
+    c1 = rng.uniform(0.5, 2.0, shape)
+    c2 = rng.uniform(-2.0, 2.0, shape)
+    x1 = t(rng.standard_normal(mesh.grid_shape))
+    x2 = t(rng.standard_normal(mesh.grid_shape))
+    return {form: compare_corner(disc.stiffness_op(F32, dev, corner=True,
+                                                   **kw), xs, mesh.ndofs,
+                                 label, chain, reps)
+            for form, kw, xs in (("single", {"coeff": c1}, (x1,)),
+                                 ("pair", {"pair": (c1, c2)}, (x1, x2)))}
+
+
 SWEEP_CPB = (1, 2, 3, 4, 5, 6, 7, 8, 10)
 SWEEP_SEGMENTS = (1, 2, 3, 4, 6, 8, 16, 43)
 
 
-def sweep(disc: Discretization, dev, chain: int = 20, reps: int = 3
-          ) -> list:
+def sweep(disc: Discretization, dev, chain: int = 20, reps: int = 3,
+          corner: bool = False) -> list:
     """The single-field new kernel of `disc`'s mesh (the stack kernel on an
-    extruded mesh, the chunk kernel on any other) timed under every
-    schedule of the sweep's grid that fits; prints and returns (cells a
-    chunk, segments or None, blocks an SM, classes, model cost or None,
-    ms) for each."""
+    extruded mesh, the chunk kernel on any other; with `corner` the corner
+    stack walk) timed under every schedule of the sweep's grid that fits;
+    prints and returns (cells a chunk, segments or None, blocks an SM,
+    classes, model cost or None, ms) for each."""
     mesh, out = disc.mesh, []
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         mesh.ndofs), dtype=F32, device=dev)
-    op = disc.stiffness_op(F32, dev)
-    stacks = isinstance(op, ce.ExtrudedCellStiffness)
-    cell_bytes = 6 * (op.P + 1) ** 3 * 4
+    op = disc.stiffness_op(F32, dev, corner=corner)
+    stacks = isinstance(op, (ce.ExtrudedCellStiffness,
+                             cc.CornerCellStiffness))
+    geo = op.geom_deg if corner else 0
+    cell_bytes = cs.cell_values(op.P, cs.corner_channels(geo) if geo
+                                else 0) * 4
     for cpb in SWEEP_CPB:
         for seg in SWEEP_SEGMENTS if stacks else (None,):
             try:
                 if stacks:
-                    s = op.plan.card(op.P, F32, False, dev, seg, cpb)[0]
-                    run = lambda: ce.extruded(op, x, segments=seg, cpb=cpb)
+                    s = op.plan.card(op.P, F32, False, dev, seg, cpb,
+                                     geo)[0]
+                    run = (lambda: cc.extruded_corner(
+                        op, x, segments=seg, cpb=cpb)) if corner else \
+                        (lambda: ce.extruded(op, x, segments=seg, cpb=cpb))
                     cost = ce._stack_cost(
                         np.bincount(op.plan.colour),
                         ce.segment_lengths(op.nz, seg), cpb,
@@ -278,7 +380,9 @@ def sweep(disc: Discretization, dev, chain: int = 20, reps: int = 3
             ms = time_apply(lambda _, __: run(), None, x, chain=chain,
                             reps=reps)[0] * 1e3
             row = (cpb, seg, s.blocks_per_sm, len(s.classes), cost, ms)
-            print(f"sweep {'stack' if stacks else 'chunk'}: {cpb} cells a "
+            kind = ("corner stack" if corner else
+                    "stack" if stacks else "chunk")
+            print(f"sweep {kind}: {cpb} cells a "
                   f"chunk, {seg} segments, {s.blocks_per_sm} blocks an SM, "
                   f"{len(s.classes)} classes, model cost {cost}: "
                   f"{ms:.4f} ms", flush=True)
@@ -289,7 +393,9 @@ def sweep(disc: Discretization, dev, chain: int = 20, reps: int = 3
 def main(argv=None) -> dict:
     """Builds the imported and bodyfit bowls (and the P = 6 bodyfit bowl)
     through the bowl demo and runs `compare_extruded` and
-    `compare_indexed` on them; returns their results by label."""
+    `compare_indexed` on them; with --corner, `corner_forms` on the
+    imported bowl (and its hex27 form) instead.  Returns their results by
+    label."""
     args = parser().parse_args(argv)
     check_device(args)
     dev = torch.device(args.device)
@@ -301,6 +407,18 @@ def main(argv=None) -> dict:
         return Discretization(nonlinear_bowl.problem(a).mesh)
 
     imported = disc("unstructured", args.elements, args.degree)
+    if args.corner:
+        discs = {"#6c hex8": imported}
+        if args.hex27:
+            discs["#6c hex27"] = Discretization(
+                shapes.hex27_lattice(imported.mesh))
+        out = {label: corner_forms(d, dev, label, args.chain, args.reps)
+               for label, d in discs.items()}
+        if args.sweep and dev.type == "cuda":
+            out["sweep"] = {label: sweep(d, dev, corner=True)
+                            for label, d in discs.items()}
+        print(f"   timed by {clock(dev)}")
+        return out
     bodyfit = disc("bodyfit", args.elements, args.degree)
     out = {"#6": compare_extruded(imported, dev, args.chain, args.reps),
            "#11": compare_indexed(bodyfit, dev, args.chain, args.reps)}

@@ -5,6 +5,7 @@ fields: parity-class, pencil, pencil, parity-class.  Runs on the card
 unless --device cpu is given (the plain versions, a correctness run only).
 
     python -m fustpu_torch.demos.exp_pencil [--nc 64 40 40] [--degree 4]
+        [--corner [--sweep]]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its two turns, the rate over the apply's least bytes (G, each
@@ -13,7 +14,16 @@ and the share of the bound (those bytes at the H100's published 3.35
 TB/s), the two kernels against each other and against the plain version
 (rel-l2), and the pencil kernel's schedule (cells a chunk, stages, blocks
 per SM, classes).  The box is generated (`build_box_mesh`), float32; the
-flagship bowl has the same cells and bytes.
+flagship bowl has the same cells and bytes.  With --corner it times #3,
+the corner-streamed capacity mode, instead: the class-launch design (8
+parity classes of scattered cells, `cuda_corner.corner_classes`) against
+the walk of box pencils with the corner metric (`cuda_corner.corner`),
+single (a per-cell coefficient) and pair, each one's share of the larger
+of its byte and operation bounds (``exp_imported.compare_corner``).
+`--corner --sweep` then times the walk on the card under every cells a
+chunk that its kernel takes, single and pair, float32 and float64, and
+prints the schedule's choice (``cuda_stiffness.pencil_schedule``) beside
+the fastest.
 """
 
 from __future__ import annotations
@@ -40,7 +50,55 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--chain", type=int, default=20)
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--corner", action="store_true",
+                   help="#3, the corner forms, in place of #1 and #2")
+    p.add_argument("--sweep", action="store_true",
+                   help="with --corner: the walk under every cells a chunk")
     return p
+
+
+def sweep_corner(disc, dev, chain: int = 20, reps: int = 3) -> dict:
+    """The box walk of `disc`'s corner operator timed under every cells a
+    chunk (`cpb`) that its kernel takes, single (a per-cell coefficient)
+    and pair, float32 and float64; prints each time and the schedule's
+    choice beside the fastest.  Returns by (form, dtype) the chosen cpb
+    and the (cpb, blocks an SM, ms) rows."""
+    from fustpu_torch.ops import cuda_corner as cc
+
+    mesh = disc.mesh
+    rng = np.random.default_rng(0)
+    c1 = rng.uniform(0.5, 2.0, mesh.nc)
+    c2 = rng.uniform(-2.0, 2.0, mesh.nc)
+    x64 = [rng.standard_normal(mesh.grid_shape) for _ in range(2)]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        xs = [torch.as_tensor(x, dtype=dtype, device=dev) for x in x64]
+        for form, kw, fn in (("single", {"coeff": c1}, cc.corner),
+                             ("pair", {"pair": (c1, c2)}, cc.corner_pair)):
+            pair = form == "pair"
+            op = disc.stiffness_op(dtype, dev, corner=True, **kw)
+            a = xs if pair else xs[:1]
+            chosen = cc.card_schedule(op, a[0], pair).cpb
+            rows = []
+            for cpb in range(1, cs.MAX_THREADS // (op.P + 1) ** 2 + 1):
+                try:
+                    s = cc.card_schedule(op, a[0], pair, cpb=cpb)
+                except ValueError:       # beyond the kernel's bounds
+                    continue
+                ms = time_apply(lambda _, __, c=cpb: fn(op, *a, cpb=c),
+                                None, a[0], chain=chain, reps=reps)[0] * 1e3
+                rows.append((cpb, s.blocks_per_sm, ms))
+                print(f"sweep #3 {form} {str(dtype)[6:]}: {cpb} cells a "
+                      f"chunk, {s.blocks_per_sm} blocks an SM: {ms:.4f} ms",
+                      flush=True)
+            best = min(rows, key=lambda r: r[2])
+            mine = next(r for r in rows if r[0] == chosen)
+            print(f"sweep #3 {form} {str(dtype)[6:]} P={op.P}: the "
+                  f"schedule's {chosen} cells {mine[2]:.4f} ms, the fastest "
+                  f"{best[0]} cells {best[2]:.4f} ms ({mine[2] / best[2]:.4f}"
+                  "x)", flush=True)
+            out[form, dtype] = dict(chosen=chosen, rows=rows)
+    return out
 
 
 def least_bytes(op: cs.CellStiffness, ndofs: int, fields: int) -> int:
@@ -53,12 +111,26 @@ def least_bytes(op: cs.CellStiffness, ndofs: int, fields: int) -> int:
 
 def main(argv=None) -> dict:
     """Returns by form ("single", "pair") the operator, the fields, each
-    kernel's output ("parity", "pencil"), the plain version's, the two turns'
-    (median, std) seconds per apply of each kernel and the least bytes."""
+    kernel's output ("parity", "pencil"; with --corner "classes", "walk"),
+    the plain version's, the two turns' (median, std) seconds per apply of
+    each kernel and the least bytes."""
     args = parser().parse_args(argv)
     check_device(args)
     dev = torch.device(args.device)
     mesh = build_box_mesh(tuple(args.nc), args.degree)
+    if args.corner:
+        from fustpu_torch.demos import exp_imported
+        from fustpu_torch.models.discretization import Discretization
+
+        print(f"mesh {tuple(mesh.nc)} cells, P={args.degree}, {mesh.ndofs} "
+              f"DOF, f32, {args.device}, corner mode")
+        disc = Discretization(mesh)
+        out = exp_imported.corner_forms(disc, dev, "#3", args.chain,
+                                        args.reps)
+        if args.sweep and dev.type == "cuda":
+            out["sweep"] = sweep_corner(disc, dev)
+        print(f"   timed by {clock(dev)}")
+        return {"mesh": mesh, **out}
     _, G = pre.cell_geometry_factors(mesh)
     rng = np.random.default_rng(0)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)

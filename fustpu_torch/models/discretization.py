@@ -404,7 +404,8 @@ class CornerStiffness(nn.Module):
     """The corner-streamed operator (the capacity mode) of a box or an
     extruded mesh as buffers: the per-cell channels and what the kernel
     reads beside them, never a metric.  'cuda' runs the corner kernels
-    (`cc.corner` on a box, `cc.extruded_corner` otherwise); 'mm' runs their
+    (`cc.corner` on a box, `cc.extruded_corner` otherwise: the walk of box
+    pencils or of stacks, its schedule built at set-up); 'mm' runs their
     plain version, which expands the channels into the metric at each
     apply: ``CornerStiffness(op.cell_op, "mm")`` is the plain version of a
     kernel-layout operator `op`, with the same numbers.  `forward(x)` is the
@@ -417,15 +418,18 @@ class CornerStiffness(nn.Module):
         self.is_pair = op.C is not None
         self.geom_deg, self.nc = op.geom_deg, op.nc
         self.nz, self.n2d, self.bounds = op.nz, op.n2d, op.bounds
+        self.plan = op.plan
         for name in ("T", "D", "Q", "rows", "cells", "C"):
             self.register_buffer(name, getattr(op, name))
+        if impl == "cuda" and op.T.is_cuda:      # the schedule, at set-up
+            cc.card_schedule(op, op.T, self.is_pair)
 
     @property
     def cell_op(self) -> cc.CornerCellStiffness:
         return cc.CornerCellStiffness(
             T=self.T, D=self.D, Q=self.Q, geom_deg=self.geom_deg, nc=self.nc,
             rows=self.rows, nz=self.nz, n2d=self.n2d, cells=self.cells,
-            bounds=self.bounds, C=self.C)
+            bounds=self.bounds, C=self.C, plan=self.plan)
 
     @property
     def kernel(self) -> str | None:
@@ -509,6 +513,7 @@ def launch_counts() -> dict:
     """Every stiffness kernel's launch counter, by name (a copy)."""
     return {**cs.launches, **ce.launches, **ce.class_launches,
             **ci.launches, **ci.class_launches, **cc.launches,
+            **cc.class_launches,
             **cen.launches, **cen.comparison_launches}
 
 

@@ -1,6 +1,9 @@
 """Corner-streamed stiffness apply on the card (the capacity mode): the
-hand-written CUDA kernels of ``fustpu_torch/csrc/corner.cu``,
-``extruded_corner.cu`` and ``extruded_corner27.cu``, their wrappers, their
+hand-written CUDA kernels of ``fustpu_torch/csrc/corner_pencil.cu``,
+``corner_stack.cu`` and ``corner_stack27.cu`` (the z-pencil kernel of
+``stiffness_pencil.cuh`` with the corner geometry, ``corner_walk.cuh``),
+the class-launch designs they replaced (``corner.cu``,
+``extruded_corner.cu``, ``extruded_corner27.cu``), their wrappers, their
 launch counters and the host build of the operator in the kernel layout.
 
 Counterpart of the corner forms of the JAX package's fused kernels:
@@ -20,12 +23,25 @@ for hex27: ``fustpu_torch.ops.corner``) instead of the (cells, 6, n^3)
 metric, ~20x less geometry at P = 4 trilinear, and is built from the cell
 corners or the hex27 lattice alone: nothing here computes the host metric.
 
+The four wrappers above run the walk: the structured G-stream kernel's
+walk of box pencils (``cuda_stiffness.pencil_schedule``) or of extruded
+stacks (``cuda_extruded.stack_schedule``, the operator's `plan`), each
+chunk's run of channels bulk-copied into a ring of shared stages, the
+metric rebuilt from them at every node.  Each schedule is built once per
+shape and card, from its SM count and the occupancy query.
+`corner_classes` / `corner_classes_pair` and `extruded_corner_classes` /
+`extruded_corner_classes_pair` (hex8 or hex27 by `geom_deg`) run the
+class-launch design that the walk replaced, kept as the comparison: one
+launch per parity or (stack colour, layer parity) class of scattered
+cells, each cell's threads reading its channels themselves.
+
 A wrapper given CPU tensors runs the plain version (`corner_plain` /
 `corner_pair_plain`: the channels expanded into the metric by
 `corner.expand_G`, then the plain G-stream apply of
 ``fustpu_torch.ops.cuda_stiffness`` or ``cuda_extruded``).  Given CUDA
 tensors it launches the kernel or raises: there is no fallback.  Each
-wrapper counts its applies in `launches` (one per apply).
+wrapper counts its applies in `launches`, the class-launch designs' in
+`class_launches` (one per apply).
 """
 
 from __future__ import annotations
@@ -40,15 +56,21 @@ from fustpu_torch.ops import corner as cn
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_stiffness as cs
 
-# Applies that went through each kernel (not counting the plain version).
+# Applies that went through each kernel (not counting the plain version):
+# the walk's, and the class-launch design's.
 launches = {"corner": 0, "corner_pair": 0, "extruded_corner": 0,
             "extruded_corner_pair": 0, "extruded_corner_hex27": 0,
             "extruded_corner_hex27_pair": 0}
+class_launches = {name: 0 for name in (
+    "corner_classes", "corner_classes_pair", "extruded_corner_classes",
+    "extruded_corner_classes_pair", "extruded_corner_hex27_classes",
+    "extruded_corner_hex27_classes_pair")}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, class_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 class CornerCellStiffness(NamedTuple):
@@ -66,8 +88,11 @@ class CornerCellStiffness(NamedTuple):
     nz: int = 0                      # extruded: layers
     n2d: int = 0                     # extruded: 2D rows
     cells: torch.Tensor | None = None  # extruded: (cells,) int32 by class
-    bounds: tuple = ()               # extruded: class boundaries
+    bounds: tuple = ()               # extruded: class boundaries (the
+                                     # class-launch design's)
     C: torch.Tensor | None = None    # (cells, 2) pair coefficients
+    plan: "ce.StackPlan | None" = None  # extruded: the stack walk's host
+                                     # part (its schedules per card)
 
     @property
     def P(self) -> int:
@@ -80,10 +105,14 @@ class CornerCellStiffness(NamedTuple):
     @property
     def kernel(self) -> str:
         """The launch counter of the single-field kernel of this
-        operator."""
+        operator (the class-launch design's: this and `_classes`)."""
         if self.box:
             return "corner"
         return "extruded_corner" + ("_hex27" if self.geom_deg == 2 else "")
+
+    @property
+    def channels(self) -> int:
+        return cs.corner_channels(self.geom_deg)
 
     @property
     def gz(self) -> int:
@@ -152,15 +181,19 @@ def from_host_extruded(mesh, T: np.ndarray, D_1d: np.ndarray,
                        dtype: torch.dtype, device,
                        C: np.ndarray | None = None) -> CornerCellStiffness:
     """Upload stack-order host channels T (cells, nch + 1) and C
-    (cells, 2) with the mesh's rows and scatter classes."""
-    cells, bounds = ce.scatter_classes(mesh.rows2d, mesh.nz)
+    (cells, 2) with the mesh's rows, the stack walk's plan and the
+    class-launch design's scatter classes (both from one colouring of the
+    stacks)."""
+    plan = ce.StackPlan(mesh.rows2d, mesh.nz)
+    cells, bounds = plan.classes
     return CornerCellStiffness(
         **_tensors(T, D_1d, dtype, device, C),
         geom_deg=cn.geom_degree(mesh),
         rows=torch.as_tensor(np.ascontiguousarray(mesh.rows2d, np.int32),
                              device=device),
         nz=mesh.nz, n2d=mesh.n2d,
-        cells=torch.as_tensor(cells, device=device), bounds=bounds)
+        cells=torch.as_tensor(cells, device=device), bounds=bounds,
+        plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +228,59 @@ def corner_pair_plain(op: CornerCellStiffness, x1: torch.Tensor,
     return ce.extruded_pair_plain(g, x1, x2)
 
 
+def apply_cost(op: CornerCellStiffness, ndofs: int, fields: int,
+               extra: int = 0) -> tuple[int, int]:
+    """(least bytes, operations) of one apply of `op`: the channels, each
+    input field and the pair coefficients read once, y read and written
+    once, plus `extra` bytes (row ids); per node the sum factorisation
+    (2 x 3 derivative sums of n products each way and the add, 3 more to
+    combine a pair) and the metric rebuilt in registers (J by Horner in x,
+    the adjugate, det, |det| and the scale, t = a^T w and f = scale a t:
+    80 operations for hex8, 98 for hex27, an FMA counted as 2); per line
+    of a cell, the fold of every Jacobian channel with its line's power
+    y^my z^mz (one FMA, the powers kept for the line as the walk keeps
+    them; the class-launch design rebuilds them, 3 operations a channel,
+    which this least count leaves out) and the scaled weight (2)."""
+    cells, nch1 = op.T.shape
+    n = op.D.shape[0]
+    b = op.T.element_size()
+    nbytes = op.T.numel() * b + (fields + 2) * ndofs * b + extra
+    if fields == 2:
+        nbytes += cells * 2 * b
+    metric = 98 if op.geom_deg == 2 else 80
+    per_node = 12 * n + 1 + metric + (3 if fields == 2 else 0)
+    per_line = 2 * (nch1 - 1) + 2
+    return nbytes, cells * (n ** 3 * per_node + n ** 2 * per_line)
+
+
+# ---------------------------------------------------------------------------
+# The walk's schedules
+# ---------------------------------------------------------------------------
+
+def _card(op: CornerCellStiffness, dtype: torch.dtype, pair: bool, device,
+          segments: int | None = None, cpb: int | None = None) -> tuple:
+    """(schedule, chunk table, row ids or None, classes as a C array) of
+    the walk of `op` on `device` (`cpb`, and on stacks `segments`: another
+    schedule than the model's)."""
+    if op.box:
+        if segments is not None:
+            raise ValueError("corner kernel: a box pencil has no segments")
+        sched, chunks, classes = cs._card_schedule(
+            tuple(op.nc), op.P, dtype, pair, torch.device(device), geo=1,
+            cpb=cpb)
+        return sched, chunks, None, classes
+    return op.plan.card(op.P, dtype, pair, device, segments, cpb,
+                        geo=op.geom_deg)
+
+
+def card_schedule(op: CornerCellStiffness, x: torch.Tensor, pair: bool,
+                  **schedule):
+    """The schedule (`cs.PencilSchedule` on a box, `ce.StackSchedule` on
+    stacks) that an apply of `op` on x's card runs (`schedule`: `cpb`, and
+    on stacks `segments`, in place of the model's choice)."""
+    return _card(op, x.dtype, pair, x.device, **schedule)[0]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -215,7 +301,7 @@ def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
     if op.geom_deg not in ((1,) if op.box else (1, 2)):
         raise ValueError(f"corner kernel: geometry degree {op.geom_deg}")
     n = op.P + 1
-    nch = cn.channel_table(op.geom_deg, op.box)[0] + 1
+    nch = op.channels
     if op.box:
         ncells = op.nc[0] * op.nc[1] * op.nc[2]
     else:
@@ -229,6 +315,10 @@ def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
         if op.bounds[-1] != ncells:
             raise ValueError(f"corner kernel: the scatter classes cover "
                              f"{op.bounds[-1]} of {ncells} cells")
+        if op.plan is None or op.plan.colour.size != op.rows.shape[0] or \
+                op.plan.nz != op.nz:
+            raise ValueError("corner kernel: the operator's StackPlan does "
+                             "not cover its stacks")
     if pair:
         if op.C is None:
             raise ValueError("the corner pair kernel needs pair "
@@ -245,12 +335,56 @@ def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
             raise ValueError(f"corner kernel: {name} is not contiguous")
 
 
-def _launch(name: str, op: CornerCellStiffness, xs, extra) -> torch.Tensor:
+def _walk_entry(op: CornerCellStiffness, pair: bool, dtype) -> str:
+    kind = "corner_pencil" if op.box else f"{op.kernel}_stack"
+    return f"fustpu_{kind}{'_pair' if pair else ''}_{_SUFFIX[dtype]}"
+
+
+def _launch(name: str, op: CornerCellStiffness, xs, extra,
+            segments: int | None = None,
+            cpb: int | None = None) -> torch.Tensor:
+    """One apply through the walk (`cpb`, and on stacks `segments`: another
+    schedule than the model's)."""
+    from fustpu_torch import _build
+
+    x = xs[0]
+    if op.T.data_ptr() % 16:
+        raise ValueError("corner kernel: T's data is not 16 B-aligned (the "
+                         "bulk copies need it)")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"corner kernel: {x.numel()} grid nodes, the walk "
+                         "indexes fewer than 2^31")
+    pair = len(xs) == 2
+    sched, chunks, ids, classes = _card(op, x.dtype, pair, x.device,
+                                        segments, cpb)
+    y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    fn = getattr(_build.load(), _walk_entry(op, pair, x.dtype))
+    args = (*(t.data_ptr() for t in xs), *extra, op.T.data_ptr(),
+            op.D.data_ptr(), op.Q.data_ptr(), y.data_ptr(), op.P,
+            chunks.data_ptr())
+    sched_args = (classes, len(sched.classes), sched.blocks, sched.cpb,
+                  sched.stages, sched.stage_bytes, sched.smem)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if op.box:
+            err = fn(*args, *sched_args, op.nc[1], op.nc[2], stream)
+        else:
+            err = fn(*args, ids.data_ptr(), *sched_args, op.nz, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: error {err}")
+    launches[name] += 1
+    return y
+
+
+def _launch_classes(name: str, op: CornerCellStiffness, xs,
+                    extra) -> torch.Tensor:
+    """One apply through the class-launch design."""
     from fustpu_torch import _build
 
     x = xs[0]
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load(), f"fustpu_{name}_{_SUFFIX[x.dtype]}")
+    kernel = op.kernel + ("_pair" if len(xs) == 2 else "")
+    fn = getattr(_build.load(), f"fustpu_{kernel}_{_SUFFIX[x.dtype]}")
     ptrs = (*(t.data_ptr() for t in xs), *extra, op.T.data_ptr(),
             op.D.data_ptr(), op.Q.data_ptr())
     with torch.cuda.device(x.device):
@@ -264,57 +398,106 @@ def _launch(name: str, op: CornerCellStiffness, xs, extra) -> torch.Tensor:
                      y.data_ptr(), op.P, op.nz, op.gz, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    launches[name] += 1
+    class_launches[name] += 1
     return y
 
 
-def _apply(op: CornerCellStiffness, x: torch.Tensor) -> torch.Tensor:
+def _apply(op: CornerCellStiffness, x: torch.Tensor, classes: bool = False,
+           **schedule) -> torch.Tensor:
     if x.device.type == "cpu":
         return corner_plain(op, x)
     _check(op, x, pair=False)
-    return _launch(op.kernel, op, (x,), ())
+    if classes:
+        return _launch_classes(op.kernel + "_classes", op, (x,), ())
+    return _launch(op.kernel, op, (x,), (), **schedule)
 
 
 def _apply_pair(op: CornerCellStiffness, x1: torch.Tensor,
-                x2: torch.Tensor) -> torch.Tensor:
+                x2: torch.Tensor, classes: bool = False,
+                **schedule) -> torch.Tensor:
     if x1.device.type == "cpu":
         return corner_pair_plain(op, x1, x2)
     _check(op, x1, x2, pair=True)
-    return _launch(op.kernel + "_pair", op, (x1, x2), (op.C.data_ptr(),))
+    if classes:
+        return _launch_classes(op.kernel + "_classes_pair", op, (x1, x2),
+                               (op.C.data_ptr(),))
+    return _launch(op.kernel + "_pair", op, (x1, x2), (op.C.data_ptr(),),
+                   **schedule)
 
 
-def corner(op: CornerCellStiffness, x: torch.Tensor) -> torch.Tensor:
-    """y_grid = A_stiff(x_grid) on a box through the structured corner
-    kernel (the plain version for a CPU tensor)."""
+def _box(op: CornerCellStiffness, name: str) -> None:
     if not op.box:
-        raise ValueError("corner: an extruded operator (use extruded_corner)")
-    return _apply(op, x)
+        raise ValueError(f"{name}: an extruded operator (use extruded_"
+                         f"{name})")
+
+
+def _stacks(op: CornerCellStiffness, name: str) -> None:
+    if op.box:
+        raise ValueError(f"{name}: a box operator (use "
+                         f"{name.removeprefix('extruded_')})")
+
+
+def corner(op: CornerCellStiffness, x: torch.Tensor,
+           cpb: int | None = None) -> torch.Tensor:
+    """y_grid = A_stiff(x_grid) on a box through the walk of box pencils
+    (the plain version for a CPU tensor); `cpb`: cells a chunk in place of
+    the schedule's choice."""
+    _box(op, "corner")
+    return _apply(op, x, cpb=cpb)
 
 
 def corner_pair(op: CornerCellStiffness, x1: torch.Tensor,
-                x2: torch.Tensor) -> torch.Tensor:
-    """y_grid = A_c1(x1) + A_c2(x2) on a box through the structured corner
-    pair kernel (the plain version for CPU tensors)."""
-    if not op.box:
-        raise ValueError("corner_pair: an extruded operator (use "
-                         "extruded_corner_pair)")
-    return _apply_pair(op, x1, x2)
+                x2: torch.Tensor, cpb: int | None = None) -> torch.Tensor:
+    """y_grid = A_c1(x1) + A_c2(x2) on a box through the pair walk of box
+    pencils (the plain version for CPU tensors); `cpb` as for `corner`."""
+    _box(op, "corner_pair")
+    return _apply_pair(op, x1, x2, cpb=cpb)
 
 
-def extruded_corner(op: CornerCellStiffness,
-                    x: torch.Tensor) -> torch.Tensor:
-    """y = A_stiff(x) on flat fields through the extruded corner kernel of
-    the operator's geometry degree (the plain version for a CPU tensor)."""
-    if op.box:
-        raise ValueError("extruded_corner: a box operator (use corner)")
-    return _apply(op, x)
+def extruded_corner(op: CornerCellStiffness, x: torch.Tensor,
+                    **schedule) -> torch.Tensor:
+    """y = A_stiff(x) on flat fields through the stack walk of the
+    operator's geometry degree (the plain version for a CPU tensor);
+    `schedule`: `segments` and / or `cpb` in place of the model's
+    choice."""
+    _stacks(op, "extruded_corner")
+    return _apply(op, x, **schedule)
 
 
 def extruded_corner_pair(op: CornerCellStiffness, x1: torch.Tensor,
-                         x2: torch.Tensor) -> torch.Tensor:
-    """y = A_c1(x1) + A_c2(x2) on flat fields through the extruded corner
-    pair kernel (the plain version for CPU tensors)."""
-    if op.box:
-        raise ValueError("extruded_corner_pair: a box operator (use "
-                         "corner_pair)")
-    return _apply_pair(op, x1, x2)
+                         x2: torch.Tensor, **schedule) -> torch.Tensor:
+    """y = A_c1(x1) + A_c2(x2) on flat fields through the pair stack walk
+    (the plain version for CPU tensors)."""
+    _stacks(op, "extruded_corner_pair")
+    return _apply_pair(op, x1, x2, **schedule)
+
+
+def corner_classes(op: CornerCellStiffness, x: torch.Tensor) -> torch.Tensor:
+    """`corner` through the class-launch design (the plain version for a
+    CPU tensor)."""
+    _box(op, "corner_classes")
+    return _apply(op, x, classes=True)
+
+
+def corner_classes_pair(op: CornerCellStiffness, x1: torch.Tensor,
+                        x2: torch.Tensor) -> torch.Tensor:
+    """`corner_pair` through the class-launch design (the plain version for
+    CPU tensors)."""
+    _box(op, "corner_classes_pair")
+    return _apply_pair(op, x1, x2, classes=True)
+
+
+def extruded_corner_classes(op: CornerCellStiffness,
+                            x: torch.Tensor) -> torch.Tensor:
+    """`extruded_corner` through the class-launch design of the operator's
+    geometry degree (the plain version for a CPU tensor)."""
+    _stacks(op, "extruded_corner_classes")
+    return _apply(op, x, classes=True)
+
+
+def extruded_corner_classes_pair(op: CornerCellStiffness, x1: torch.Tensor,
+                                 x2: torch.Tensor) -> torch.Tensor:
+    """`extruded_corner_pair` through the class-launch design (the plain
+    version for CPU tensors)."""
+    _stacks(op, "extruded_corner_classes_pair")
+    return _apply_pair(op, x1, x2, classes=True)

@@ -141,16 +141,17 @@ class StackSchedule(NamedTuple):
 
     cpb: int                 # cells a chunk (a block has n^2 cpb threads)
     segments: int            # z-segments a stack
-    stages: int              # stages of the G ring
-    stage_bytes: int         # bytes a stage: cpb cells of G and 16
+    stages: int              # stages of the ring
+    stage_bytes: int         # bytes a stage: cpb cells of the geometry
+                             # stream (G or the corner's channels) and 16
     smem: int                # dynamic shared bytes a block
     blocks_per_sm: int       # resident blocks of that shape on an SM
     blocks: int              # persistent grid: blocks_per_sm x SMs
     classes: np.ndarray      # (nclass, 3) int64: first row, segments, rows
                              # a segment
     chunks: np.ndarray       # (rows, 5) int64: first cell s nz + kz0,
-                             # cells, span offset in G (bytes), span bytes,
-                             # kz0 P
+                             # cells, span offset in the stream (bytes),
+                             # span bytes, kz0 P
     ids: np.ndarray          # (segments in table order, n^2) int32: each
                              # segment's stack's row ids
 
@@ -213,26 +214,31 @@ def _stack_cost(per_colour: np.ndarray, lens: np.ndarray, cpb: int,
 def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
                    itemsize: int, sms: int, pair: bool = False,
                    occupancy=cs.model_occupancy, segments: int | None = None,
-                   cpb: int | None = None) -> StackSchedule:
+                   cpb: int | None = None,
+                   channels: int = 0) -> StackSchedule:
     """The stack kernel's launch of one apply on a card of `sms` SMs, for
     stacks of `nz` layers coloured `colour` (`colour_stacks`) with row ids
     `rows2d`, degree P, a dtype of `itemsize` bytes; `occupancy(P,
-    itemsize, pair, cpb, smem)` gives the blocks an SM holds.
+    itemsize, pair, cpb, smem)` gives the blocks an SM holds (the card's
+    answer is 0 for a block beyond the kernel's launch bounds);
+    `channels`: the corner stream's channels a cell (its shared-memory
+    layout, ``cuda_stiffness.pencil_smem``), G's stream when 0.
 
     - cells a chunk and z-segments a stack: the pair whose classes cost
       least (`_stack_cost`, ``cuda_stiffness.class_cost``: each round of
-      a class's segments walks their chunks, a chunk step costing the G
-      that the busiest SM streams in it or a floor, and each class a
-      launch); on a tie the larger cpb, then fewer segments.  `segments`
-      or `cpb` fix one.  The segments' layers are `segment_lengths`, and every segment
-      of a class takes the same number of chunks (its layers split evenly
-      among them);
+      a class's segments walks their chunks, a chunk step costing the
+      stream bytes that the busiest SM takes in it or a floor, and each
+      class a launch); on a tie the larger cpb, then fewer segments.
+      `segments` or `cpb` fix one.  The segments' layers are
+      `segment_lengths`, and every segment of a class takes the same
+      number of chunks (its layers split evenly among them);
     - classes (colour, segment parity) in that order, parity 1 only with
       more than one segment; a class's segments in (stack, segment) order,
       each segment's chunks along z; the row ids, one row a segment, in
       the same order;
     - each chunk's bulk-copy span as the pencil kernel's
       (``cuda_stiffness.bulk_spans``)."""
+    cell_bytes = cs.cell_values(P, channels) * itemsize
     n = P + 1
     if cpb and n * n * cpb > cs.MAX_THREADS:
         raise ValueError(f"stack kernel: {cpb} cells of degree {P} need "
@@ -245,7 +251,8 @@ def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
     for c in cpbs:
         if c > nz:
             break
-        stage, smem = cs.pencil_smem(P, itemsize, c, pair, ids=True)
+        stage, smem = cs.pencil_smem(P, itemsize, c, pair, ids=True,
+                                     channels=channels)
         if smem + cs._static_smem(P, itemsize) > cs.SMEM_BLOCK:
             break
         bps = int(occupancy(P, itemsize, pair, c, smem))
@@ -253,7 +260,7 @@ def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
             continue
         for nseg in segs:
             cost = _stack_cost(per_colour, segment_lengths(nz, nseg), c,
-                               bps, sms, 6 * n ** 3 * itemsize)
+                               bps, sms, cell_bytes)
             if cost is None:
                 continue
             key = (cost, -c, nseg)
@@ -287,8 +294,8 @@ def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
                     seg_stack.append(s)
     cell0 = np.concatenate(cell0).astype(np.int64)
     ncell = np.concatenate(ncell).astype(np.int64)
-    cb = 6 * n ** 3 * itemsize
-    off, nbytes = cs.bulk_spans(cell0, ncell, cb, colour.size * nz * cb)
+    off, nbytes = cs.bulk_spans(cell0, ncell, cell_bytes,
+                                colour.size * nz * cell_bytes)
     return StackSchedule(
         cpb=cpb, segments=nseg, stages=cs.STAGES, stage_bytes=stage,
         smem=smem, blocks_per_sm=bps, blocks=bps * sms,
@@ -298,11 +305,18 @@ def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
         ids=np.ascontiguousarray(np.asarray(rows2d, np.int32)[seg_stack]))
 
 
+# The stack kernel's occupancy query by geometry: the G stream (0) and the
+# corner stream of geometry degree 1 (hex8) or 2 (hex27)
+OCCUPANCY = ("fustpu_extruded_stack_occupancy",
+             "fustpu_extruded_corner_stack_occupancy",
+             "fustpu_extruded_corner_hex27_stack_occupancy")
+
+
 class StackPlan:
     """The host part of the extruded kernels' schedules on one mesh's
     stacks: their colouring (`colour_stacks`), from which the class-launch
-    design's classes and, per card, dtype and form, the stack kernel's
-    schedule follow (each built on first use and kept)."""
+    designs' classes and, per card, dtype, form and geometry stream, the
+    stack kernel's schedule follow (each built on first use and kept)."""
 
     def __init__(self, rows2d: np.ndarray, nz: int):
         self.rows2d = np.ascontiguousarray(rows2d, np.int32)
@@ -329,20 +343,21 @@ class StackPlan:
         return self._card[key]
 
     def card(self, P: int, dtype: torch.dtype, pair: bool, device,
-             segments: int | None = None, cpb: int | None = None) -> tuple:
+             segments: int | None = None, cpb: int | None = None,
+             geo: int = 0) -> tuple:
         """(schedule, chunk table, row ids, classes as a C array) of the
         stack kernel on `device` (its SMs, its occupancy answers); `segments`
-        and `cpb` as `stack_schedule` takes them."""
+        and `cpb` as `stack_schedule` takes them; `geo`: the geometry
+        stream, G (0) or the corner channels of geometry degree 1 or 2."""
         device = torch.device(device)
-        key = (P, dtype, pair, device, segments, cpb)
+        key = (P, dtype, pair, device, segments, cpb, geo)
         if key not in self._card:
             from fustpu_torch import _build
 
-            lib = _build.load()
+            query = getattr(_build.load(), OCCUPANCY[geo])
 
             def occupancy(P, itemsize, pair, cpb, smem):
-                got = lib.fustpu_extruded_stack_occupancy(
-                    P, int(itemsize == 8), int(pair), cpb, smem)
+                got = query(P, int(itemsize == 8), int(pair), cpb, smem)
                 if got < 0:
                     raise RuntimeError(f"stack kernel occupancy query "
                                        f"failed: error {-got}")
@@ -352,9 +367,10 @@ class StackPlan:
                 device).multi_processor_count
             itemsize = torch.empty((), dtype=dtype).element_size()
             with torch.cuda.device(device):
-                sched = stack_schedule(self.colour, self.rows2d, self.nz, P,
-                                       itemsize, sms, pair, occupancy,
-                                       segments, cpb)
+                sched = stack_schedule(
+                    self.colour, self.rows2d, self.nz, P, itemsize, sms,
+                    pair, occupancy, segments, cpb,
+                    cs.corner_channels(geo) if geo else 0)
             classes = sched.classes.reshape(-1)
             self._card[key] = (
                 sched, torch.as_tensor(sched.chunks, device=device),

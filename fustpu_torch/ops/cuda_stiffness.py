@@ -99,38 +99,58 @@ class PencilSchedule(NamedTuple):
     """How the pencil kernel runs one apply of an operator shape."""
 
     cpb: int                 # cells a chunk (a block has n^2 cpb threads)
-    stages: int              # stages of the G ring
-    stage_bytes: int         # bytes a stage: cpb cells of G and 16
+    stages: int              # stages of the ring
+    stage_bytes: int         # bytes a stage: cpb cells of the geometry
+                             # stream (G or the corner's channels) and 16
     smem: int                # dynamic shared bytes a block
     blocks_per_sm: int       # resident blocks of that shape on an SM
     blocks: int              # persistent grid: blocks_per_sm x SMs
     classes: np.ndarray      # (nclass, 3) int64: first row, pencils, rows a
                              # pencil
     chunks: np.ndarray       # (rows, 5) int64: first cell, cells, span
-                             # offset in G (bytes), span bytes, grid index
-                             # of the chunk's node (0, 0, 0)
+                             # offset in the stream (bytes), span bytes,
+                             # grid index of the chunk's node (0, 0, 0)
 
 
 def _round16(b: int) -> int:
     return -(-b // 16) * 16
 
 
+def corner_channels(geom_deg: int) -> int:
+    """Channels a cell of the corner stream: the Jacobian's monomials (36
+    trilinear, 162 triquadratic) and the coefficient (``corner.cuh``
+    CornerChannels)."""
+    return 9 * geom_deg * (geom_deg + 1) ** 2 + 1
+
+
+def cell_values(P: int, channels: int = 0) -> int:
+    """Values a cell of the pencil kernel's geometry stream: the corner's
+    `channels`, or G's 6 n^3 (channels 0)."""
+    return channels or 6 * (P + 1) ** 3
+
+
 def pencil_smem(P: int, itemsize: int, cpb: int, pair: bool = False,
-                stages: int = STAGES, ids: bool = False) -> tuple[int, int]:
+                stages: int = STAGES, ids: bool = False,
+                channels: int = 0) -> tuple[int, int]:
     """(bytes a stage, dynamic shared bytes a block) of the pencil kernel:
     the stages' mbarriers and a ring of ROW_RING chunk-table rows (each
     padded to 16 B; with `ids`, the extruded stacks' form, a ring of as
-    many chunks' n^2 int32 row ids after it), the stages (cpb cells of G
-    and 16 B of slack for the aligned span; the body's f1, f2 go into G's
-    components 0 and 1 there), two buffers of every cell's u (n^3 values),
-    two of the chunk's y (n^2 (cpb P + 1) values), and for the pair two
-    of x2 and of the cells' (c1, c2): the layout of
+    many chunks' n^2 int32 row ids after it), the stages (cpb cells of the
+    geometry stream and 16 B of slack for the aligned span), two buffers
+    of every cell's u (n^3 values), two of the chunk's y (n^2 (cpb P + 1)
+    values), for the pair two of x2 and of the cells' (c1, c2), and what
+    the geometry keeps after them: the G stream (channels 0) nothing, its
+    body's f1, f2 going into G's components 0 and 1 in the stage; the
+    corner stream (`channels` a cell) every cell's f1, f2 (2 n^3 values)
+    and the n GLL nodes and weights.  The layout of
     ``stiffness_pencil.cuh``, whose D (n^2 values) is static shared memory
     besides."""
     n = P + 1
-    stage = _round16(cpb * 6 * n ** 3 * itemsize + 16)
+    stage = _round16(cpb * cell_values(P, channels) * itemsize + 16)
     rows = n * n * (cpb * P + 1)
     values = 2 * n ** 3 * cpb + 2 * rows + (2 * rows + 4 * cpb if pair else 0)
+    if channels:
+        values += 2 * n ** 3 * cpb + 2 * n
     head = _round16(8 * stages) + _round16(8 * ROW_RING * TABLE_ROW)
     if ids:
         head += _round16(4 * ROW_RING * n * n)
@@ -204,37 +224,52 @@ def _steps(nc, cpb: int, blocks: int) -> int:
 
 
 def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
-                    occupancy=model_occupancy) -> PencilSchedule:
+                    occupancy=model_occupancy, channels: int = 0,
+                    cpb: int | None = None) -> PencilSchedule:
     """The launch of one apply on a card of `sms` SMs, for nc cells of
     degree P in a dtype of `itemsize` bytes; `occupancy(P, itemsize, pair,
-    cpb, smem)` gives the blocks an SM holds.
+    cpb, smem)` gives the blocks an SM holds (the card's answer is 0 for a
+    block beyond the kernel's launch bounds); `channels`: the corner
+    stream's channels a cell (its layout, ``pencil_smem``), G's stream
+    when 0; `cpb` fixes the cells a chunk.
 
     - cells a chunk: the cpb that makes the apply shortest, its length taken
       as the chunks that the busiest block of each class walks (`_steps`)
-      times the cells that share its SM (blocks x cpb); on a tie the larger
-      cpb.  A chunk holds at most ncz cells and a block 256 threads;
+      times the cells that share its SM (blocks x cpb): a step of the G
+      stream costs the G its SM's cells take.  A step of the corner stream
+      costs the same whatever its cells (its channels are far below the
+      stack model's STEP_FLOOR_BYTES; measured at P = 2, 4 and 6 by
+      ``demos/exp_pencil --corner --sweep``), so there the length is the
+      steps alone.  On a tie the larger cpb.  A chunk holds at most ncz
+      cells and a block MAX_THREADS;
     - classes (cx % 2, cy % 2) in that order; a class's pencils in (cx, cy)
       order, each pencil's chunks along z;
-    - each chunk's bulk-copy span: its run of G widened to 16 B on both
-      sides, and cut back to a 16 B boundary where that would pass G's end
-      (the kernel reads the bytes past the span itself)."""
+    - each chunk's bulk-copy span: its run of the stream widened to 16 B
+      on both sides, and cut back to a 16 B boundary where that would pass
+      the stream's end (the kernel reads the bytes past the span itself)."""
     n = P + 1
     ncx, ncy, ncz = (int(c) for c in nc)
+    if cpb and n * n * cpb > MAX_THREADS:
+        raise ValueError(f"pencil kernel: {cpb} cells of degree {P} need "
+                         f"more than {MAX_THREADS} threads")
     best = None
-    for cpb in range(1, max(1, MAX_THREADS // (n * n)) + 1):
-        if cpb > ncz:
+    for c in [cpb] if cpb else range(1, max(1, MAX_THREADS // (n * n)) + 1):
+        if c > ncz:
             break
-        stage, smem = pencil_smem(P, itemsize, cpb, pair)
+        stage, smem = pencil_smem(P, itemsize, c, pair, channels=channels)
         if smem + _static_smem(P, itemsize) > SMEM_BLOCK:
             break
-        bps = int(occupancy(P, itemsize, pair, cpb, smem))
+        bps = int(occupancy(P, itemsize, pair, c, smem))
         if bps < 1:
             continue
-        key = (_steps((ncx, ncy, ncz), cpb, bps * sms) * cpb * bps, -cpb)
+        steps = _steps((ncx, ncy, ncz), c, bps * sms)
+        key = (steps * (1 if channels else c * bps), -c)
         if best is None or key < best[0]:
-            best = (key, cpb, stage, smem, bps)
+            best = (key, c, stage, smem, bps)
     if best is None:
-        raise ValueError(f"pencil kernel: no block of degree {P} fits an SM")
+        raise ValueError(f"pencil kernel: no block of degree {P}"
+                         + (f" and {cpb} cells" if cpb else "")
+                         + " fits an SM")
     _, cpb, stage, smem, bps = best
     c0 = np.arange(0, ncz, cpb)
     cn = np.minimum(cpb, ncz - c0)
@@ -250,7 +285,7 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
             rows += ab.size * c0.size
     cell0 = np.concatenate(firsts).astype(np.int64)
     ncell = np.tile(cn, rows // c0.size).astype(np.int64)
-    cb = 6 * n ** 3 * itemsize
+    cb = cell_values(P, channels) * itemsize
     off, nbytes = bulk_spans(cell0, ncell, cb, ncx * ncy * ncz * cb)
     gz = ncz * P + 1
     sx = (ncy * P + 1) * gz
@@ -263,27 +298,35 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
                          a * P * sx + b * P * gz + c * P], axis=1))
 
 
+# The occupancy query of the box pencils' kernel by geometry stream: G (0)
+# or the corner channels of geometry degree 1.
+OCCUPANCY = ("fustpu_stiffness_occupancy", "fustpu_corner_pencil_occupancy")
+
+
 @functools.cache
 def _card_schedule(nc: tuple, P: int, dtype: torch.dtype, pair: bool,
-                   device: torch.device) -> tuple:
-    """The schedule on `device` (its SMs, its occupancy answers), its chunk
-    table there and its classes as a C array, built once per shape."""
+                   device: torch.device, geo: int = 0,
+                   cpb: int | None = None) -> tuple:
+    """The schedule on `device` (its SMs, its kernel's occupancy answers)
+    of the geometry stream `geo`, its chunk table there and its classes as
+    a C array, built once per shape (`cpb`: another cells a chunk than the
+    schedule's choice)."""
     from fustpu_torch import _build
 
-    lib = _build.load()
+    query = getattr(_build.load(), OCCUPANCY[geo])
 
     def occupancy(P, itemsize, pair, cpb, smem):
-        got = lib.fustpu_stiffness_occupancy(P, int(itemsize == 8),
-                                             int(pair), cpb, smem)
+        got = query(P, int(itemsize == 8), int(pair), cpb, smem)
         if got < 0:
-            raise RuntimeError(f"stiffness occupancy query failed: error "
-                               f"{-got}")
+            raise RuntimeError(f"pencil kernel occupancy query failed: "
+                               f"error {-got}")
         return got
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     itemsize = torch.empty((), dtype=dtype).element_size()
     with torch.cuda.device(device):
-        sched = pencil_schedule(nc, P, itemsize, sms, pair, occupancy)
+        sched = pencil_schedule(nc, P, itemsize, sms, pair, occupancy,
+                                corner_channels(geo) if geo else 0, cpb)
     classes = sched.classes.reshape(-1)
     return (sched, torch.as_tensor(sched.chunks, device=device),
             (ctypes.c_longlong * classes.size)(*classes.tolist()))

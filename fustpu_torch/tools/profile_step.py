@@ -48,8 +48,9 @@ def summarize_trace(events: list[dict]) -> dict:
     `export_chrome_trace`): 'stiffness' (the CUDA stiffness kernels),
     'copies' (device memcpy / memset) and 'elementwise' (every other
     kernel); 'stiffness' holds the structured and extruded (the z-pencil
-    kernel on box pencils and on stacks, and the parity-class and the
-    corner stiffness_kernel, the class-launch extruded_kernel), indexed
+    kernel on box pencils and on stacks, its corner_kernel form of the
+    corner walk, and the parity-class and the corner stiffness_kernel, the
+    class-launch extruded_kernel), indexed
     (the chunk kernel, the class-launch indexed_kernel) kernels and the
     staged engine's three.  Returns {group: (microseconds,
     launches)} plus 'busy_us' (the union of all device intervals) and
@@ -67,6 +68,7 @@ def summarize_trace(events: list[dict]) -> dict:
             g = "copies"
         elif any(k in e.get("name", "") for k in ("stiffness_kernel",
                                                   "pencil_kernel",
+                                                  "corner_kernel",
                                                   "extruded_kernel",
                                                   "indexed_kernel",
                                                   "chunk_kernel",

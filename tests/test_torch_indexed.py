@@ -731,7 +731,9 @@ def test_exp_imported_demo_on_cpu(capsys):
     """The exp_imported demo at a small size on the CPU (16 elements,
     P = 2, no P = 6 bowl): the imported and bodyfit bowls, every form's
     results equal to the plain version (on the CPU each wrapper runs it),
-    and the CPU named as the clock."""
+    and the CPU named as the clock; then with --corner --hex27 the corner
+    forms of the imported bowl as hex8 and as hex27, the class-launch
+    design and the walk each equal to the plain version."""
     from fustpu_torch.demos import exp_imported
 
     out = exp_imported.main(["--device", "cpu", "--elements", "16",
@@ -745,6 +747,18 @@ def test_exp_imported_demo_on_cpu(capsys):
             assert f["nbytes"] > f["op"].G.numel() * 4
     assert set(out["#11"]["single"]["ys"]) == {"classes", "chunks",
                                                 "engine"}
+    assert capsys.readouterr().out.count("host clock on the CPU") == 1
+    out = exp_imported.main(["--device", "cpu", "--elements", "16",
+                             "--degree", "2", "--chain", "1", "--reps", "1",
+                             "--corner", "--hex27"])
+    assert set(out) == {"#6c hex8", "#6c hex27"}
+    for label, forms in out.items():
+        assert set(forms) == {"single", "pair"}
+        for f in forms.values():
+            assert set(f["ys"]) == {"classes", "walk"}
+            assert all(rel(y, f["plain"]) <= TOL for y in f["ys"].values())
+            assert f["op"].T.shape[1] == (163 if "27" in label else 37)
+            assert f["nbytes"] > f["op"].T.numel() * 4 and f["flops"] > 0
     assert capsys.readouterr().out.count("host clock on the CPU") == 1
 
 

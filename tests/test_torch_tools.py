@@ -86,6 +86,20 @@ def test_summarize_trace_counts_the_stack_and_chunk_kernels():
     assert s["busy_us"] == pytest.approx(13.0)
 
 
+def test_summarize_trace_counts_the_corner_walk():
+    """The capacity mode's walk: the pencil kernel, and its corner_kernel
+    form with its own launch bounds, count as the stiffness group."""
+    walk = "void fustpu::pencil::corner_kernel<float, 5, false, " \
+        "fustpu::pencil::BoxRows, ...>(...)"
+    pair = "void fustpu::pencil::pencil_kernel<float, 5, true, " \
+        "fustpu::pencil::StackRows, ...>(...)"
+    events = [_ev("kernel", walk, 0.0, 4.0), _ev("kernel", pair, 4.0, 5.0),
+              _ev("kernel", "vectorized_elementwise_kernel", 9.0, 1.0)]
+    s = summarize_trace(events)
+    assert s["stiffness"] == (9.0, 2)
+    assert s["elementwise"] == (1.0, 1)
+
+
 def test_stiffness_bytes_counts_the_corner_channels():
     """In the capacity mode the geometry an apply must read is the corner
     channels (37 per cell), not a metric stream."""
