@@ -139,19 +139,38 @@ Phases (each prints its time; any failure exits non-zero):
      right after each is built: in turns (old, new, new, old, twice), ms,
      share of the bound and launches an apply for each, the walk's
      schedule, and 10 steps of the model on each design (29a-f); the
-     kernels line takes both designs' ms from their best turn.
+     kernels line takes both designs' ms from their best turn;
+ 30. file I/O and tools, each check a hard failure: the flagship on #1
+     (run right after phase 27b) restarts exactly, 100 + 100 steps
+     against 100 steps, an npz checkpoint, its load and 100 more, and
+     through the asynchronous Checkpointer, whose save overlaps the next
+     100 steps (30a: bitwise, MB and write seconds); its structured VTK
+     (binary) read back exactly, a 179 x 179 plane point cloud and a
+     probe trace (30b); its state at step 100 moved from P=4 to P=6 on the
+     card against the float64 host transfer (float64 1e-12, float32 1e-6)
+     and 10 steps of the P=6 bowl from it (30d); the nonlinear_bowl demo
+     at the flagship's size with --output, --checkpoint-every 1000,
+     --snapshot-every 1000 and --probe at the focus, in a subprocess: its
+     files, focal pressure in the band and launches 4 x steps (30e);
+     phase 10a's imported bowl written as inline XDMF and read back: mesh
+     arrays bitwise the .msh import's, 10 steps on #6 bitwise phase 10a's
+     model's, the full-GLL unstructured VTK (30c, right after 10b); the
+     flagship's per-rank snapshots of 22a's four ranks reassembled
+     bitwise as collect() gives them (30f); the bodyfit bowl on #11
+     restarts exactly and writes its full-GLL VTK (30g, right after 13c).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
-17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, in every rank of 22
-its solve, and the demos of 24, 25, 26, 27a and 28 and the turns of 29) has
-the launch counters reset just before it and read just after. The script's
-total time is printed after the last phase; then the kernels' JSON
-summary, the card's name and power limit, and as the last line the
-result.
+17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, in every
+rank of 22 its solve, and the demos of 24, 25, 26, 27a and 28 and the turns
+of 29) has the launch counters reset just before it and read just after.
+The script's total time is printed after the last phase; then the
+kernels' JSON summary, the card's name and power limit, and as the last
+line the result.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -360,6 +379,13 @@ def main() -> None:
     from fustpu_torch.ops import spectral_mm as mm
     from fustpu_torch.parallel import multihost
     from fustpu_torch.utils.eval import PointSampler
+    # phase 30: the file I/O and tools
+    import dataclasses
+    from fustpu_torch.mesh import xdmf_io
+    from fustpu_torch.ops import kronecker as kr
+    from fustpu_torch.utils import dist_io
+    from fustpu_torch.utils import io as fio
+    from fustpu_torch.utils.eval import eval_plane, locate
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -369,25 +395,76 @@ def main() -> None:
     # reference, where it is built; the ranks run in groups (ranks_group)
     ranks_dir = tempfile.TemporaryDirectory()
     ranks_cases = {}
+    # phase 30's files (a few GB at most; removed at exit)
+    io_dir = tempfile.TemporaryDirectory()
+    IO = Path(io_dir.name)
+
+    def megabytes(path) -> float:
+        return Path(path).stat().st_size / 1e6
+
+    def same_state(a, b) -> bool:
+        """u, v, ku, kv bitwise equal and the same time."""
+        return a.t == b.t and all(torch.equal(x, y)
+                                  for x, y in zip(a[:4], b[:4]))
+
+    def read_vtk(path, npts, names):
+        """(points, {name: values}) of a binary legacy VTK file, as the
+        big-endian float32 it holds."""
+        data = Path(path).read_bytes()
+        key = f"POINTS {npts} float\n".encode()
+        off = data.index(key) + len(key)
+        pts = np.frombuffer(data, ">f4", npts * 3, off).reshape(-1, 3)
+        out = {}
+        for name in names:
+            key = (f"SCALARS {name} float 1\nLOOKUP_TABLE default\n"
+                   .encode())
+            off = data.index(key) + len(key)
+            out[name] = np.frombuffer(data, ">f4", npts, off)
+        return pts, out
+
+    def restart_check(model, dt_, steps, label):
+        """Phase 30's exact restart: `steps` steps, an npz checkpoint, and
+        `steps` more from the file, against the same two solves with the
+        state kept on the card (bitwise).  Returns (state at `steps`, the
+        final state)."""
+        first, _ = model.solve(model.init_state(), dt_, steps)
+        straight, _ = model.solve(first, dt_, steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = fio.save_checkpoint(str(IO / label), first, steps,
+                                   {"case": label})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arrays, step, meta = fio.load_checkpoint(path)
+        resumed, _ = model.solve(fio.state_from_checkpoint(model, arrays),
+                                 dt_, steps)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        mb = megabytes(path)
+        same = same_state(resumed, straight)
+        print(f"   {label}: {steps} + {steps} steps vs {steps}, npz "
+              f"checkpoint, load, {steps}: "
+              f"{'bitwise equal' if same else 'NOT bitwise equal'}; "
+              f"checkpoint {mb:.1f} MB written in {t_save:.3f} s "
+              f"({mb / t_save:.1f} MB/s, host clock), load + "
+              f"{steps} steps {t_load:.3f} s ({smi})", flush=True)
+        if not same or step != steps or meta != {"case": label}:
+            fail(f"{label}: the restart from the checkpoint is not exact "
+                 f"(step {step}, meta {meta})")
+        return first, straight
 
     def device_probe(model, points):
         """A per-step probe of u at `points`, on the model's device."""
-        if hasattr(model.mesh, "nc"):
-            smp = PointSampler(model.mesh, points)
-            I, J, K = (torch.as_tensor(a, device=dev)
-                       for a in (smp._I, smp._J, smp._K))
-            w = torch.as_tensor(smp._w, device=dev)
-            return lambda s: torch.einsum(
-                "pijk,pijk->p", s.u[I[:, :, None, None], J[:, None, :, None],
-                                    K[:, None, None, :]], w.to(s.u.dtype))
-        f = UPointSampler(model.mesh, points).torch_probe(dev)
+        smp = (PointSampler if hasattr(model.mesh, "nc") else UPointSampler)
+        f = smp(model.mesh, points).torch_probe(dev)
         return lambda s: f(s.u)
 
     def keep_for_ranks(name, model, dt_, steps, points, grid=None,
-                       impl=None, like=None):
+                       impl=None, like=None, **keys):
         """Phase 22's case `name`: `model` saved for the ranks (or the file
         of case `like`) and its one-rank run of `steps` steps from rest,
-        with the probe trace at `points`."""
+        with the probe trace at `points`; `keys` are more case keys of
+        `solve_cases` (phase 30f's `dist_output`)."""
         path = (ranks_cases[like]["model"] if like else
                 str(Path(ranks_dir.name) / f"{name}.pt"))
         if like is None:
@@ -397,7 +474,8 @@ def main() -> None:
         ranks_cases[name] = dict(
             model=path, steps=steps, dt=dt_, grid=grid, impl=impl,
             probe=points, exchange_reps=20,
-            ref_u=st.u.reshape(-1).cpu().numpy(), ref_ys=ys.cpu().numpy())
+            ref_u=st.u.reshape(-1).cpu().numpy(), ref_ys=ys.cpu().numpy(),
+            **keys)
 
     def ranks_group(names, nprocs, backend):
         """Phase 22: the saved models of `names` over `nprocs` spawned ranks
@@ -1119,7 +1197,8 @@ def main() -> None:
         # apex, which the wave reaches within the ranks' 20 steps
         BOWL_POINTS = np.array([focus, [0.0008, focus[1], focus[2]]])
         keep_for_ranks("22a flagship, grid (2, 2, 1)", bowl, dt, 50,
-                       BOWL_POINTS, grid=(2, 2, 1))
+                       BOWL_POINTS, grid=(2, 2, 1),
+                       dist_output=str(IO / "ranks"))
         keep_for_ranks("22f flagship on nccl, world size 1", bowl, dt, 20,
                        BOWL_POINTS, grid=(1, 1, 1),
                        like="22a flagship, grid (2, 2, 1)")
@@ -1283,6 +1362,172 @@ def main() -> None:
                  f"outside "
                  f"{FOCAL_BAND_PA}")
         del state
+
+    # ---- phase 30 on the flagship (#1): counters reset just before, read
+    # ---- just after ----
+    cs.reset_launches()
+    with phase("30a flagship exact restart on #1: npz checkpoint and the "
+               "async Checkpointer"):
+        fprobe = device_probe(bowl, focus[None, :])
+        s100, s200 = restart_check(bowl, dt, 100, "flagship")
+        # the asynchronous saver: the copy and the write overlap the next
+        # 100 steps, which must come out as without it
+        ck = fio.Checkpointer(str(IO / "ck"), async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bowl.solve(s100, dt, 100, probe=fprobe)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.save(s100, 100)
+        t_enq = time.perf_counter() - t0
+        cont, ys30 = bowl.solve(s100, dt, 100, probe=fprobe)
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        ck.wait()
+        t_ck = time.perf_counter() - t0
+        st, step = ck.restore(100, like=s100)
+        resumed, _ = bowl.solve(st, dt, 100)
+        mb = megabytes(IO / "ck" / "step_0000000100.pt")
+        ok = same_state(cont, s200) and same_state(resumed, s200)
+        n30 = cs.launches["stiffness"]
+        print(f"   Checkpointer: save() returned in {t_enq * 1e3:.2f} ms, "
+              f"the 100 steps it overlaps done at {t_solve:.3f} s (the "
+              f"same 100 steps without a save {t_plain:.3f} s), the "
+              f"{mb:.1f} MB save on disk at {t_ck:.3f} s (host clock); "
+              f"steps() {ck.steps()}; the overlapped run and the restored "
+              f"run {'bitwise equal' if ok else 'NOT equal'} to the "
+              f"uninterrupted one; stiffness launches {n30} for 600 steps "
+              f"({smi})")
+        if not ok or ck.steps() != [100] or step != 100:
+            fail("phase 30a: the Checkpointer round trip is not exact")
+        if n30 != 4 * 600:
+            fail(f"phase 30a: stiffness launches {n30} != 4 x 600")
+        del cont, resumed, st
+    with phase("30b flagship field output: structured VTK (binary), a "
+               "179 x 179 plane point cloud, a probe trace"):
+        npts = bowl.mesh.ndofs
+        t0 = time.perf_counter()
+        path = fio.write_vtk_structured(str(IO / "flagship"), bowl.mesh,
+                                        {"u": s200.u, "v": s200.v})
+        t_vtk = time.perf_counter() - t0
+        pts, got = read_vtk(path, npts, ("u", "v"))
+        ok = (np.array_equal(pts, bowl.mesh.node_coords.reshape(-1, 3)
+                             .astype(">f4"))
+              and all(np.array_equal(got[k], getattr(s200, k).cpu().numpy()
+                                     .reshape(-1).astype(">f4"))
+                      for k in ("u", "v")))
+        mb = megabytes(path)
+        print(f"   VTK {npts} points: {mb:.1f} MB in {t_vtk:.3f} s "
+              f"({mb / t_vtk:.1f} MB/s, host clock); payload read back "
+              f"{'exactly' if ok else 'NOT exactly'}")
+        if not ok:
+            fail("phase 30b: the VTK payload does not read back exactly")
+        t0 = time.perf_counter()
+        ppts, vals = eval_plane(bowl.mesh, s200.u.cpu().numpy(), axis=2,
+                                coord=focus[2], n0=179, n1=179)
+        ppath = fio.save_point_cloud(str(IO / "plane.txt"), ppts, vals,
+                                     cols=(0, 1))
+        t_plane = time.perf_counter() - t0
+        rows = np.loadtxt(ppath, delimiter=",")
+        # NaN exactly at the points outside the bowl's curved domain
+        inside = locate(bowl.mesh, ppts)[2]
+        tpath = IO / "probe.txt"
+        ts = s100.t + np.arange(1, 101) * dt
+        np.savetxt(tpath, np.hstack([ts[:, None],
+                                     ys30.double().cpu().numpy()]),
+                   delimiter=",", header="t, p(focus)")
+        trace = np.loadtxt(tpath, delimiter=",")
+        print(f"   plane: {rows.shape[0]} points ({int(inside.sum())} in the "
+              f"domain), {megabytes(ppath):.2f} MB in {t_plane:.3f} s; "
+              f"probe trace {trace.shape[0]} steps, last p(focus) "
+              f"{trace[-1, 1]:.1f} Pa")
+        if rows.shape != (179 * 179, 3) or not inside.any() \
+                or not np.array_equal(np.isfinite(rows[:, 2]), inside) \
+                or trace.shape != (100, 2) or not np.isfinite(trace).all():
+            fail("phase 30b: the plane or the probe trace is malformed")
+        del got, pts, rows
+    with phase("30d degree transfer of the flagship at step 100, P=4 -> "
+               "P=6 on the card, then 10 steps at P=6 (#1)"):
+        args6 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "64", "--degree", "6"])
+        t0 = time.perf_counter()
+        bowl6, dt6, _, _ = nonlinear_bowl.build(
+            args6, nonlinear_bowl.problem(args6))
+        print(f"   host set-up of the P=6 bowl {time.perf_counter() - t0:.1f}"
+              f" s")
+        host = {k: kr.interpolate_box_field(
+            getattr(s100, k).double().cpu().numpy(), bowl.mesh, bowl6.mesh)
+            for k in ("u", "v")}
+        errs, card = {}, {}
+        for dt_ in (torch.float64, torch.float32):
+            for k in ("u", "v"):
+                x = getattr(s100, k).to(dt_)
+                tm = time_ms(lambda: kr.interpolate_box_field(
+                    x, bowl.mesh, bowl6.mesh), 3)
+                y = kr.interpolate_box_field(x, bowl.mesh, bowl6.mesh)
+                errs[(dt_, k)] = rel_l2(y.cpu(), torch.as_tensor(host[k]))
+                card[(dt_, k)] = (y, tm)
+        for (dt_, k), e in errs.items():
+            tol = 1e-12 if dt_ == torch.float64 else 1e-6
+            print(f"   {k} {str(dt_)[6:]} on the card {card[(dt_, k)][1]:.3f}"
+                  f" ms ({smi}) vs the float64 host transfer: rel-l2 "
+                  f"{e:.3e} (tol {tol})")
+            if not e <= tol:
+                fail(f"phase 30d: {k} {dt_} transfer {e:.3e} > {tol}")
+        cs.reset_launches()
+        s6 = bowl6.init_state(t0=s100.t, u0=card[(torch.float32, "u")][0],
+                              v0=card[(torch.float32, "v")][0])
+        s6, _ = bowl6.solve(s6, dt6, 10)
+        torch.cuda.synchronize()
+        umax = float(s6.u.abs().max())
+        print(f"   P=6 ({bowl6.mesh.ndofs} DOF, dt {dt6:.4e} s): 10 steps "
+              f"from the transferred state, max |u| {umax:.4e}, stiffness "
+              f"launches {cs.launches['stiffness']}")
+        if not bool(torch.isfinite(s6.u).all()) or umax == 0.0:
+            fail("phase 30d: the P=6 restart is not finite and non-zero")
+        if cs.launches["stiffness"] != 40:
+            fail(f"phase 30d: launches {cs.launches['stiffness']} != 40")
+        del bowl6, s6, card, host, s100, s200
+    with phase("30e nonlinear_bowl demo with --output, --checkpoint-every, "
+               "--snapshot-every and --probe (a subprocess)"):
+        pre, ckp = IO / "demo", IO / "demo_ck"
+        cmd = [sys.executable, "-m", "fustpu_torch.demos.nonlinear_bowl",
+               "--elements", "64", "--degree", "4", "--output", str(pre),
+               "--checkpoint", str(ckp), "--checkpoint-every", "1000",
+               "--snapshot-every", "1000", "--probe",
+               *(str(x) for x in focus)]
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        text = out.stdout
+        keep = [ln for ln in text.splitlines()
+                if not ln.startswith("t: ")][-14:]
+        print("\n".join(f"   | {ln}" for ln in keep))
+        if out.returncode != 0:
+            fail(f"phase 30e: the demo exited {out.returncode}: "
+                 f"{out.stderr[-2000:]}")
+        m = re.search(r"pressure at focus: (\S+) Pa", text)
+        n = re.search(r"Number of steps: (\d+)", text)
+        la = re.search(r"stiffness launches: stiffness (\d+)", text)
+        p_demo = float(m.group(1)) if m else float("nan")
+        files = [Path(f"{pre}_nonlinear_bowl.vtk"),
+                 Path(f"{pre}_pressure_plane.txt"),
+                 Path(f"{pre}_nonlinear_bowl_probe.txt"),
+                 Path(f"{pre}_nonlinear_bowl_snap_1000.txt"),
+                 Path(f"{ckp}_1000.npz")]
+        print(f"   files: " + ", ".join(
+            f"{f.name} {megabytes(f):.1f} MB" if f.exists()
+            else f"{f.name} MISSING" for f in files))
+        if not all(f.exists() for f in files):
+            fail("phase 30e: a file of the demo is missing")
+        if not FOCAL_BAND_PA[0] <= p_demo <= FOCAL_BAND_PA[1]:
+            fail(f"phase 30e: focal pressure {p_demo} outside "
+                 f"{FOCAL_BAND_PA}")
+        if not (n and la and int(la.group(1)) == 4 * int(n.group(1))):
+            fail("phase 30e: the demo's stiffness launches are not 4 x its "
+                 "steps")
+        for f in files:
+            f.unlink()
 
     def corner_check(model, label, kernel, g_module=None):
         """A corner-mode model: the corner operator on its kernel, no host
@@ -1568,6 +1813,67 @@ def main() -> None:
         if not agree <= FOCAL_AGREE:
             fail(f"imported vs conformal focal pressure {agree:.3e}")
         del state
+
+    ce.reset_launches()
+    with phase("30c imported bowl through inline XDMF on #6: read_xdmf vs "
+               "the .msh import, 10 steps, full-GLL unstructured VTK"):
+        _, xcells, xquads = msh_io.box_msh_arrays(
+            pb10.box, nonlinear_bowl.bowl_tags(pb10.box, pb10.in_aperture))
+        t0 = time.perf_counter()
+        xpath = xdmf_io.write_xdmf(str(IO / "bowl.xdmf"), imesh.vertices,
+                                   xcells, xquads)
+        t_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xmesh = xdmf_io.read_xdmf(xpath, 4)
+        t_r = time.perf_counter() - t0
+        same = isinstance(xmesh, ExtrudedHexMesh) and all(
+            (getattr(xmesh, f.name).keys() == getattr(imesh, f.name).keys()
+             and all(np.array_equal(getattr(xmesh, f.name)[k],
+                                    getattr(imesh, f.name)[k])
+                     for k in getattr(imesh, f.name)))
+            if isinstance(getattr(imesh, f.name), dict) else
+            np.array_equal(getattr(xmesh, f.name), getattr(imesh, f.name))
+            for f in dataclasses.fields(imesh))
+        print(f"   XDMF {megabytes(xpath):.1f} MB written in {t_w:.2f} s, "
+              f"read (extrusion detection) in {t_r:.2f} s (host clock): "
+              f"{type(xmesh).__name__}, mesh arrays "
+              f"{'bitwise equal' if same else 'NOT equal'} to phase 10a's "
+              f".msh import")
+        if not same:
+            fail("phase 30c: the XDMF import differs from the .msh import")
+        pbx = SimpleNamespace(**vars(pb10))
+        pbx.mesh, pbx.aperture, pbx.absorbing = (
+            xmesh, xmesh.boundary_facets(1), xmesh.boundary_facets(2))
+        xbowl, dtx, _, _ = nonlinear_bowl.build(args3, pbx)
+        sa, _ = ibowl.solve(ibowl.init_state(), dt3, 10)
+        sb, _ = xbowl.solve(xbowl.init_state(), dtx, 10)
+        torch.cuda.synchronize()
+        ok = dtx == dt3 and same_state(sa, sb)
+        n_x = ce.launches["extruded"]
+        print(f"   10 steps on the XDMF model vs phase 10a's: "
+              f"{'bitwise equal' if ok else 'NOT equal'}; extruded "
+              f"launches {n_x}")
+        if not ok or n_x != 4 * 20:
+            fail(f"phase 30c: 10 steps not bitwise equal ({ok}) or "
+                 f"launches {n_x} != 80")
+        t0 = time.perf_counter()
+        cells_rows = fio.vtk_cells(xmesh)
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vpath = fio.write_vtk_unstructured(str(IO / "imported"), xmesh,
+                                           {"u": sb.u, "v": sb.v})
+        t_v = time.perf_counter() - t0
+        pts, got = read_vtk(vpath, xmesh.ndofs, ("u",))
+        okv = np.array_equal(got["u"], sb.u.cpu().numpy().astype(">f4"))
+        mb = megabytes(vpath)
+        print(f"   full-GLL VTK: {cells_rows.shape[0]} sub-hexes (cells "
+              f"built in {t_c:.2f} s), {mb:.1f} MB in {t_v:.2f} s "
+              f"({mb / t_v:.1f} MB/s, host clock); u read back "
+              f"{'exactly' if okv else 'NOT exactly'} ({smi})")
+        if cells_rows.shape[0] != xmesh.num_cells * 64 or not okv:
+            fail("phase 30c: the unstructured VTK is malformed")
+        Path(vpath).unlink()
+        del xbowl, xmesh, sa, sb, cells_rows, pts, got
 
     def imported_corner(argv, label, kernel, pb, g_module=None):
         """Build an imported-bowl corner model on the problem `pb` and
@@ -2052,6 +2358,26 @@ def main() -> None:
         bbowl.stiffness = kst5
         del state, pst5
 
+    ci.reset_launches()
+    with phase("30g bodyfit bowl on #11: exact restart, full-GLL "
+               "unstructured VTK"):
+        _, s20 = restart_check(bbowl, dt5, 10, "bodyfit")
+        n_g = ci.launches["indexed"]
+        t0 = time.perf_counter()
+        vpath = fio.write_vtk_unstructured(str(IO / "bodyfit"), bbowl.mesh,
+                                           {"u": s20.u, "v": s20.v})
+        t_v = time.perf_counter() - t0
+        nsub = fio.vtk_cells(bbowl.mesh).shape[0]
+        mb = megabytes(vpath)
+        print(f"   indexed launches {n_g} for 30 steps; full-GLL VTK "
+              f"{nsub} sub-hexes, {mb:.1f} MB in {t_v:.2f} s, cells "
+              f"included ({mb / t_v:.1f} MB/s, host clock; {smi})")
+        if n_g != 4 * 30 or nsub != bbowl.mesh.num_cells * 64:
+            fail(f"phase 30g: launches {n_g} != 120 or {nsub} sub-hexes")
+        Path(vpath).unlink()
+        bbowl.mesh.__dict__.pop("_vtk_cells")
+        del s20
+
     ENGINE = ["--stiffness-impl", "indexed_engine"]
     with phase("21a bodyfit bowl on the engine: build, each kernel vs plain "
                "and timed, the composed apply vs the indexed kernel, 10 "
@@ -2103,12 +2429,26 @@ def main() -> None:
             fail(f"bodyfit engine vs indexed focal pressure {agree:.3e}")
         del state, ebowl
     # every 4-rank case in one process group: rank start-up paid once
-    ranks_group(["22a flagship, grid (2, 2, 1)",
+    res22 = ranks_group(["22a flagship, grid (2, 2, 1)",
                  "22b two-layer flagship, grid (2, 2, 1)",
                  "22c flagship in corner mode, grid (2, 2, 1)",
                  "22d imported bowl, 4 ranks",
                  "22e bodyfit bowl, 4 ranks, indexed",
                  "22e bodyfit bowl, 4 ranks, indexed_engine"], 4, "gloo")
+    with phase("30f the flagship's per-rank snapshots (22a, 4 gloo ranks) "
+               "reassembled"):
+        t0 = time.perf_counter()
+        full = dist_io.assemble_snapshot(str(IO / "ranks"), "u_000050")
+        t_asm = time.perf_counter() - t0
+        files = sorted((IO / "ranks").glob("u_000050.d*.npy"))
+        same = np.array_equal(full, res22[0][0]["u"])
+        print(f"   {len(files)} rank files, {sum(map(megabytes, files)):.1f} "
+              f"MB, reassembled {full.shape} in {t_asm:.3f} s (host "
+              f"clock): {'bitwise equal' if same else 'NOT equal'} to "
+              f"collect()")
+        if len(files) != 4 or not same:
+            fail("phase 30f: the reassembled per-rank snapshot is not "
+                 "collect()'s field")
     ranks_group(["22f flagship on nccl, world size 1"], 1, "nccl")
 
     with phase("14a two-layer bodyfit bowl build + pair kernel vs plain"):

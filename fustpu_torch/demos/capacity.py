@@ -27,12 +27,13 @@ import time
 import torch
 
 from fustpu_torch.config import Material, Source
-from fustpu_torch.demos.common import (Timer, add_device_args, check_device,
+from fustpu_torch.demos.common import (add_device_args, check_device,
                                        pick_dtype)
 from fustpu_torch.mesh.box import build_box_mesh
 from fustpu_torch.models.discretization import (CornerStiffness,
                                                 launch_counts)
 from fustpu_torch.models.westervelt import WesterveltModel
+from fustpu_torch.utils import timing
 
 MATERIAL = dict(sound_speed=1480.0, density=1000.0, nonlinearity=3.5,
                 attenuation_dB=0.2)
@@ -72,7 +73,7 @@ def timed_run(model, dt: float, steps: int):
     state, _ = model.solve(model.init_state(), dt, steps)
     kernel = model.stiffness_kernel
     before = launch_counts().get(kernel, 0)
-    with Timer(model.device) as tm:
+    with timing.timer("~ capacity solve", model.device) as tm:
         state, _ = model.solve(state, dt, steps)
     ms = tm.seconds / steps * 1e3
     launches = launch_counts().get(kernel, 0) - before

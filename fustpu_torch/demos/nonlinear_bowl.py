@@ -34,6 +34,12 @@ built once and handed to the ranks.
         [--mesh file.msh]
         [--stiffness-impl auto|pallas_corner|indexed_engine]
         [--two-layer] [--device cuda|cpu] [--ranks k] [--backend gloo|nccl]
+        [--output PREFIX] [--probe X Y Z] [--checkpoint PREFIX
+        --checkpoint-every N] [--snapshot-every N] [--dist-output DIR]
+
+With `--output` the run also writes the axial pressure plane through the
+focus (357 x 179 points) besides the final VTK file, and prints the focal
+pressure after it.
 """
 
 from __future__ import annotations
@@ -54,9 +60,11 @@ from fustpu_torch.mesh import msh_io
 from fustpu_torch.mesh.box import build_box_mesh, build_mapped_mesh
 from fustpu_torch.mesh.extruded import ExtrudedHexMesh
 from fustpu_torch.models import sources
-from fustpu_torch.models.discretization import IndexedStiffness
+from fustpu_torch.models.discretization import (IndexedStiffness,
+                                                launch_counts)
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.utils import eval as fev
+from fustpu_torch.utils import io as fio
 
 
 def bowl_mapping(focal_length, aperture_radius, yc, zc, Lx):
@@ -128,10 +136,12 @@ def parser():
 
 
 def problem(args) -> SimpleNamespace:
-    """The bowl problem of the parsed arguments, before any model: mesh,
-    material, source, aperture and absorbing facets, delay profile, focus
-    point and domain length.  A caller may replace the mesh (e.g. by the
-    same geometry carried as hex27) before `build`."""
+    """The bowl problem of the parsed arguments, before any model: mesh
+    (and the box mesh an imported one was exported from, None for a
+    supplied .msh), material, source, aperture and absorbing facets,
+    delay profile, focus point and domain length.  A caller may replace
+    the mesh (e.g. by the same geometry carried as hex27) before
+    `build`."""
     mat = Material(sound_speed=1480.0, density=1000.0, nonlinearity=3.5,
                    attenuation_dB=0.2)
     source_velocity = 0.38557513826589934        # m/s (100 W drive)
@@ -165,6 +175,7 @@ def problem(args) -> SimpleNamespace:
         mesh = build_mapped_mesh((nex, net, net), args.degree, mapping,
                                  hi=(domain_length, Lt, Lt))
         print(f"host: mapped mesh {time.perf_counter() - t0:.1f} s")
+    box = mesh
     if args.geometry in ("unstructured", "bodyfit"):
         mesh = import_bowl(args, mesh, in_aperture)
         aperture = mesh.boundary_facets(1)
@@ -179,9 +190,9 @@ def problem(args) -> SimpleNamespace:
                ["x+", "y-", "y+", "z-", "z+"]])
     delays = (None if args.geometry != "phased" else
               (lambda pts: sources.focus_delays(pts, focus, 1480.0)))
-    return SimpleNamespace(mesh=mesh, material=mat, source=src,
-                           aperture=aperture, absorbing=absorbing,
-                           delays=delays, focus=focus,
+    return SimpleNamespace(mesh=mesh, box=box, in_aperture=in_aperture,
+                           material=mat, source=src, aperture=aperture,
+                           absorbing=absorbing, delays=delays, focus=focus,
                            domain_length=domain_length)
 
 
@@ -227,6 +238,17 @@ def build(args, pb: SimpleNamespace | None = None):
     return model, dt, nsteps, pb.focus
 
 
+def bowl_tags(box_mesh, in_aperture) -> dict:
+    """The exported bowl's facet tags: 1 = the cap (the aperture), 2 =
+    every other boundary facet (absorbing)."""
+    cap = box_mesh.boundary_facets("x-", predicate=in_aperture)
+    other = np.concatenate(
+        [box_mesh.boundary_facets("x-", predicate=lambda c: ~in_aperture(c))]
+        + [box_mesh.boundary_facets(p) for p in
+           ["x+", "y-", "y+", "z-", "z+"]])
+    return {1: cap, 2: other}
+
+
 def import_bowl(args, box_mesh, in_aperture):
     """Export `box_mesh` (the conformal or bodyfit bowl) as a tagged .msh
     file and import it again, or import `args.mesh` when given.  The
@@ -238,14 +260,9 @@ def import_bowl(args, box_mesh, in_aperture):
         if args.mesh:
             mesh_file = args.mesh
         else:
-            cap = box_mesh.boundary_facets("x-", predicate=in_aperture)
-            other = np.concatenate(
-                [box_mesh.boundary_facets(
-                    "x-", predicate=lambda c: ~in_aperture(c))]
-                + [box_mesh.boundary_facets(p) for p in
-                   ["x+", "y-", "y+", "z-", "z+"]])
             mesh_file = msh_io.export_box_msh(
-                box_mesh, {1: cap, 2: other}, str(Path(workdir) / "bowl"))
+                box_mesh, bowl_tags(box_mesh, in_aperture),
+                str(Path(workdir) / "bowl"))
         t1 = time.perf_counter()
         mesh = msh_io.read_msh(mesh_file, degree=args.degree)
     print(f"host: .msh export {t1 - t0:.1f} s, import (extrusion "
@@ -261,6 +278,20 @@ def import_bowl(args, box_mesh, in_aperture):
         print(f"extrusion: axis {mesh.axis}, {mesh.nstacks} stacks, "
               f"{mesh.nz} layers, {mesh.n2d} rows")
     return mesh
+
+
+def write_plane(model, u, focus, prefix: str) -> str:
+    """The axial pressure plane through the focus (z = focus z, the
+    reference's 357 x 179 grid) as a point cloud `<prefix>_pressure_
+    plane.txt`."""
+    u = u.detach().cpu().double().numpy() if isinstance(
+        u, torch.Tensor) else np.asarray(u, np.float64)
+    pts, vals = fev.eval_plane(model.mesh, u, axis=2, coord=focus[2],
+                               n0=357, n1=179)
+    path = fio.save_point_cloud(f"{prefix}_pressure_plane.txt", pts, vals,
+                                cols=(0, 1))
+    print(f"wrote {path}")
+    return path
 
 
 def focal_pressure(model, state, focus) -> float:
@@ -283,6 +314,8 @@ def main_ranks(args):
                                  "recursive coordinate bisection"))
     res = run_ranks(model, args, dt, nsteps, grid=grid)
     u = torch.as_tensor(res[0]["u"])
+    if args.output:
+        write_plane(model, u, focus, args.output)
     p = focal_pressure(model, SimpleNamespace(u=u), focus)
     print(f"launches per rank: {[r['launches'] for r in res]}")
     print(f"pressure at focus: {p:.1f} Pa")
@@ -295,7 +328,14 @@ def main(argv=None):
     if args.ranks > 1:
         return main_ranks(args)
     model, dt, nsteps, focus = build(args)
+    kernel = model.stiffness_kernel
+    before = launch_counts().get(kernel, 0)
     state = run_demo(model, dt, nsteps, args, "nonlinear_bowl")
+    if kernel is not None:
+        print(f"stiffness launches: {kernel} "
+              f"{launch_counts()[kernel] - before}")
+    if args.output:
+        write_plane(model, state.u, focus, args.output)
     p = focal_pressure(model, state, focus)
     print(f"pressure at focus: {p:.1f} Pa")
     return model, state, p

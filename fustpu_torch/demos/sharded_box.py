@@ -7,6 +7,8 @@ once and every rank builds its block of it; rank 0 prints the progress.
     python -m fustpu_torch.demos.sharded_box [--ranks 4] [--grid 2 2 1]
         [--backend gloo|nccl] [--device cuda|cpu] [--elements 16]
         [--degree 4] [--steps 50] [--dtype f32|f64] [--probe X Y Z]
+        [--dist-output DIR --snapshot-every N] [--checkpoint PREFIX
+        --checkpoint-every N] [--output PREFIX]
 
 `--backend gloo --device cuda` runs ranks that share one card; `nccl`
 needs one card per rank.  Counterpart of ``demos/demo_sharded_box.py``.
@@ -30,9 +32,6 @@ def parser():
     p.add_argument("--grid", type=int, nargs=3, default=None,
                    help="rank grid (Sx Sy Sz); default (ranks, 1, 1)")
     p.add_argument("--steps", type=int, default=50)
-    p.add_argument("--probe", type=float, nargs=3, default=None,
-                   metavar=("X", "Y", "Z"),
-                   help="record u at this point every step")
     return p
 
 
@@ -55,14 +54,14 @@ def main(argv=None):
     dt, _ = model.cfl_dt(0.4)
     print(f"rank grid {grid}, {args.ranks} ranks ({args.backend} on "
           f"{args.device}), dofs {mesh.ndofs}")
-    points = None if args.probe is None else np.array([args.probe])
+    points = None if not args.probe else np.array(args.probe)
     res = run_ranks(model, args, dt, args.steps, grid=grid, points=points)
     r0 = res[0]
     print(f"ms/step {r0['ms_per_step']:.4f}; max |u| "
           f"{float(np.abs(r0['u']).max()):.6e}; launches per rank "
           f"{[r['launches'] for r in res]}")
-    if points is not None:
-        print(f"probe u at {args.probe}: {float(r0['ys'][-1, 0]):.6e}")
+    for i, pt in enumerate(args.probe or ()):
+        print(f"probe u at {pt}: {float(r0['ys'][-1, i]):.6e}")
     return model, res
 
 

@@ -378,12 +378,10 @@ def _parse_binary41(data: bytes, path: str):
     return path, node_ids, coords, hexes, quads
 
 
-def export_box_msh(box_mesh, tag_map: dict, path: str) -> str:
-    """Export a (possibly mapped/perturbed) BoxMesh as a tagged .msh file:
-    `tag_map` maps tag -> (nf, 2) (cell, local_facet) arrays in the box
-    mesh's own conventions.  Round-tripping a body-fitted mapped box
-    through this writer and read_msh is the workflow of importing a
-    Gmsh-built transducer mesh."""
+def box_msh_arrays(box_mesh, tag_map: dict):
+    """(vertices, cells, tagged quads) of a (possibly mapped/perturbed)
+    BoxMesh in the form `write_msh` takes: `tag_map` maps tag -> (nf, 2)
+    (cell, local_facet) arrays in the box mesh's own conventions."""
     from fustpu_torch.mesh.unstructured import from_box
 
     umesh = from_box(box_mesh)          # unshuffled: same cell ordering
@@ -392,7 +390,15 @@ def export_box_msh(box_mesh, tag_map: dict, path: str) -> str:
         for cell, lf in np.asarray(pairs):
             verts = [int(umesh.cells[cell][c]) for c in _FACET_CORNERS[lf]]
             quads.append((int(tag), verts))
-    return write_msh(path, umesh.vertices, umesh.cells, quads)
+    return umesh.vertices, umesh.cells, quads
+
+
+def export_box_msh(box_mesh, tag_map: dict, path: str) -> str:
+    """Export a (possibly mapped/perturbed) BoxMesh as a tagged .msh file
+    (`box_msh_arrays`).  Round-tripping a body-fitted mapped box through
+    this writer and read_msh is the workflow of importing a Gmsh-built
+    transducer mesh."""
+    return write_msh(path, *box_msh_arrays(box_mesh, tag_map))
 
 
 def write_msh(path: str, vertices: np.ndarray, cells: np.ndarray,

@@ -48,6 +48,11 @@ CORNER_IMPLS = ("pallas_corner", "extruded_pallas_corner")
 ENGINE_IMPL = "indexed_engine"
 # The indexed kernel's name (the JAX package's): it takes any mesh.
 INDEXED_IMPL = "indexed"
+# The JAX package's names of its TPU kernels ('pallas' on a box,
+# 'extruded_pallas' on a prismatic import) and of its plain extruded
+# einsums ('extruded'), resolved as that package resolves them.
+KERNEL_IMPLS = ("pallas", "extruded_pallas")
+EXTRUDED_PLAIN_IMPL = "extruded"
 
 
 class FacetBlock(NamedTuple):
@@ -195,20 +200,35 @@ class Discretization:
                                 C=C)
 
 
-def resolve_stiffness_impl(impl: str, device) -> str:
+def resolve_stiffness_impl(impl: str, device, mesh=None) -> str:
     """'auto' is the CUDA kernel on a CUDA device and the plain torch
     version elsewhere; 'mm' forces the plain version (on any mesh kind).
     The corner-mode names (CORNER_IMPLS), ENGINE_IMPL and INDEXED_IMPL
     resolve as 'auto' does: they choose the operator
     (`Discretization.stiffness_op(corner=True)`, `(engine=True)` or
-    `(indexed=True)`), the device chooses kernel or plain version."""
+    `(indexed=True)`), the device chooses kernel or plain version.
+
+    The JAX package's kernel names (KERNEL_IMPLS) resolve as 'auto' too,
+    and 'extruded' as 'mm' on a prismatic import; on a general import
+    that package runs its indexed operator for either, which 'auto' is
+    here.  It fails for 'extruded' and 'extruded_pallas' on a box mesh,
+    and so do these: they need the `mesh` to resolve."""
     if impl == "mm":
         return "mm"
-    if impl in ("auto", ENGINE_IMPL, INDEXED_IMPL) or impl in CORNER_IMPLS:
-        return "cuda" if torch.device(device).type == "cuda" else "mm"
-    raise ValueError(f"stiffness_impl={impl!r}: expected 'auto', 'mm', "
-                     f"{ENGINE_IMPL!r}, {INDEXED_IMPL!r} or one of "
-                     f"{CORNER_IMPLS}")
+    if impl in (EXTRUDED_PLAIN_IMPL, "extruded_pallas"):
+        if mesh is None or hasattr(mesh, "nc"):
+            raise ValueError(f"stiffness_impl={impl!r} needs an imported "
+                             "mesh: expected 'auto', 'pallas' or 'mm' on a "
+                             "box mesh")
+        if impl == EXTRUDED_PLAIN_IMPL and isinstance(mesh, ExtrudedHexMesh):
+            return "mm"
+    elif not (impl in ("auto", ENGINE_IMPL, INDEXED_IMPL, "pallas")
+              or impl in CORNER_IMPLS):
+        raise ValueError(f"stiffness_impl={impl!r}: expected 'auto', 'mm', "
+                         f"{ENGINE_IMPL!r}, {INDEXED_IMPL!r}, one of "
+                         f"{CORNER_IMPLS} or of the JAX package's "
+                         f"{KERNEL_IMPLS + (EXTRUDED_PLAIN_IMPL,)}")
+    return "cuda" if torch.device(device).type == "cuda" else "mm"
 
 
 class StructuredStiffness(nn.Module):

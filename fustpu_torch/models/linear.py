@@ -66,7 +66,10 @@ class LinearWaveModel(WaveModelBase):
         the indexed operator) or 'indexed_engine' (the staged gather /
         contract / scatter engine on an imported mesh, the per-cell -1/rho
         applied in its contraction) or 'indexed' (the fused indexed kernel
-        on any mesh, a box or a prismatic import too)."""
+        on any mesh, a box or a prismatic import too), or the JAX
+        package's names 'pallas' and 'extruded_pallas' (as 'auto') and
+        'extruded' (the plain version on a prismatic import;
+        `resolve_stiffness_impl`)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)

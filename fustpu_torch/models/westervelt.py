@@ -68,7 +68,9 @@ class WesterveltModel(WaveModelBase):
         operator) or 'indexed_engine' (the staged gather / contract /
         scatter engine on an imported mesh; the pair form gathers both
         fields in one pass) or 'indexed' (the fused indexed kernel on any
-        mesh, a box or a prismatic import too)."""
+        mesh, a box or a prismatic import too), or the JAX package's names
+        'pallas' and 'extruded_pallas' (as 'auto') and 'extruded' (the
+        plain version on a prismatic import; `resolve_stiffness_impl`)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
                     stiffness_impl)

@@ -41,6 +41,7 @@ from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.parallel import sharding as sh
 from fustpu_torch.parallel.models import (Exchanged, RankPart,
                                           host_vectors, local_model,
+                                          sharded_impl,
                                           stiffness_coefficients,
                                           wants_corner)
 
@@ -227,6 +228,7 @@ class IndexedShardedModel(_ShardedUnstructured):
         if not isinstance(mesh, UnstructuredHexMesh):
             raise TypeError("IndexedShardedModel needs an imported mesh (use "
                             "ShardedModel for box meshes)")
+        stiffness_impl = sharded_impl(stiffness_impl)
         if stiffness_impl not in ("auto", "indexed", ENGINE_IMPL):
             raise ValueError(f"stiffness_impl={stiffness_impl!r}: expected "
                              f"'auto', 'indexed' or {ENGINE_IMPL!r}")
@@ -271,7 +273,9 @@ def shard_unstructured(model, grid: sh.RankGrid,
     """One rank's part of a model on any imported mesh: the extruded
     sharding for a prismatic mesh on its extruded (or corner) kernels, the
     indexed sharding otherwise, or when the staged engine or the indexed
-    kernel is asked for or the model runs the engine."""
+    kernel is asked for or the model runs the engine.  The JAX package's
+    kernel names ('pallas', 'extruded_pallas') are 'auto'."""
+    stiffness_impl = sharded_impl(stiffness_impl)
     if (isinstance(model.mesh, ExtrudedHexMesh) and stiffness_impl == "auto"
             and not isinstance(model.stiffness, EngineStiffness)):
         return ExtrudedShardedModel(model, grid)

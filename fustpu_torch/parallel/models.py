@@ -30,7 +30,8 @@ from torch import nn
 
 from fustpu_torch.mesh.box import BoxMesh
 from fustpu_torch.models import timestepping
-from fustpu_torch.models.discretization import (CornerStiffness,
+from fustpu_torch.models.discretization import (KERNEL_IMPLS,
+                                                CornerStiffness,
                                                 stiffness_module)
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.ops import cuda_corner as cc
@@ -106,13 +107,22 @@ def stiffness_coefficients(model):
     return -1.0 / model.material.cell_fields(model.cell_shape)[1], None
 
 
+def sharded_impl(stiffness_impl):
+    """The sharded models' stiffness_impl: the JAX package's kernel names
+    ('pallas', 'extruded_pallas') are its 'auto' (the kernels on the card,
+    the plain versions on the CPU)."""
+    return "auto" if stiffness_impl in KERNEL_IMPLS else stiffness_impl
+
+
 def wants_corner(model, stiffness_impl) -> bool:
     """The corner-streamed mode: asked for, or the model's own choice."""
     if stiffness_impl is None:
         return isinstance(model.stiffness, CornerStiffness)
+    stiffness_impl = sharded_impl(stiffness_impl)
     if stiffness_impl not in ("auto", "pallas_corner"):
         raise ValueError(f"stiffness_impl={stiffness_impl!r}: expected "
-                         "None, 'auto' or 'pallas_corner'")
+                         "None, 'auto', 'pallas_corner' or one of "
+                         f"{KERNEL_IMPLS}")
     return stiffness_impl == "pallas_corner"
 
 
@@ -202,11 +212,12 @@ class ShardedModel(RankPart):
     """One rank's part of a model on a box mesh, distributed over `grid`.
     `model`: the full model, on any device (its host metric and diagonal
     vectors are read).  `stiffness_impl`: None (the model's choice), 'auto'
-    (the G stream) or 'pallas_corner' (the corner-streamed kernels).  The
-    rank's tensors live on ``grid.device``: the CUDA kernels there, their
-    plain versions on the CPU.  Same `init_state` / `solve` / `step` API as
-    the one-rank models, on the rank's block (`RankPart`); `collect`
-    gathers a field into the global (gx, gy, gz) grid."""
+    (the G stream; the JAX package's 'pallas' too) or 'pallas_corner'
+    (the corner-streamed kernels).  The rank's tensors live on
+    ``grid.device``: the CUDA kernels there, their plain versions on the
+    CPU.  Same `init_state` / `solve` / `step` API as the one-rank models,
+    on the rank's block (`RankPart`); `collect` gathers a field into the
+    global (gx, gy, gz) grid."""
 
     def __init__(self, model, grid: sh.RankGrid, stiffness_impl=None):
         mesh = model.mesh

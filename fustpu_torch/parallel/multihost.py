@@ -208,12 +208,16 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
     (points), `norms` (record the global norm of u each step),
     `exchange_reps` (time that many exchanges) and `progress_every` (solve
     in chunks of that many steps, the last one clamped onto t0 + steps *
-    dt, as the demos do, with rank 0 printing the progress).  One untimed step
-    runs first.  Each result: the launch counts of the timed solve on this
-    rank, ms per step (host clock around the solve), the stiffness module
-    and kernel and, on rank 0, the collected final u, v, kv, whether each
-    is consistent across owners, the probe and norm traces, the weighted
-    global norm of u and ms per exchange."""
+    dt, as the demos do, with rank 0 printing the progress), and the output
+    keys of ``demos.common.add_output_args`` (`OUTPUT_KEYS`: each rank
+    writes its own per-rank snapshots of u, rank 0 the checkpoints and
+    output files of the collected fields; with `progress_every` at their
+    cadences, else once, after the timed solve, at its last step).  One
+    untimed step runs first.  Each result: the launch counts of the timed
+    solve on this rank, ms per step (host clock around the solve), the
+    stiffness module and kernel and, on rank 0, the collected final u, v,
+    kv, whether each is consistent across owners, the probe and norm
+    traces, the weighted global norm of u and ms per exchange."""
     from fustpu_torch.models.discretization import launch_counts
     from fustpu_torch.ops import (cuda_corner, cuda_engine, cuda_extruded,
                                   cuda_indexed, cuda_stiffness)
@@ -249,6 +253,8 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
                                  probe=probe)
         sync()
         ms = (time.perf_counter() - t0) * 1e3 / max(case["steps"], 1)
+        if not case.get("progress_every"):
+            _final_writes(sm, final, case)
         launches = {k: v for k, v in launch_counts().items() if v}
         r = {"launches": launches, "ms_per_step": ms,
              "stiffness": type(sm.local.stiffness.inner).__name__,
@@ -280,11 +286,28 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
     return out
 
 
+def _final_writes(sm, final, case) -> None:
+    """A case's per-rank snapshot (`dist_output`) and rank-0 checkpoint
+    (`checkpoint`) of its final state, at its last step."""
+    from fustpu_torch.utils import io as fio
+    from fustpu_torch.utils.dist_io import ShardSnapshotWriter
+
+    step = case["steps"]
+    if case.get("dist_output"):
+        ShardSnapshotWriter(case["dist_output"], sm).write(
+            f"u_{step:06d}", final.u)
+    if case.get("checkpoint"):
+        fields = [sm.collect(f) for f in final[:4]]
+        if sm.grid.rank == 0:
+            fio.save_checkpoint(f"{case['checkpoint']}_{step}",
+                                (*fields, final.t), step)
+
+
 def _progress_solve(ctx, sm, state, case, probe):
     """The demos' chunked solve (``demos.common.run_demo``) of a case on
     this rank, (state, ys) as `solve` returns them; rank 0 prints, the
     other ranks run the same loop quietly."""
-    from fustpu_torch.demos.common import run_demo
+    from fustpu_torch.demos.common import OUTPUT_KEYS, run_demo
 
     quiet = contextlib.redirect_stdout(io.StringIO())
     with quiet if ctx.rank else contextlib.nullcontext():
@@ -292,7 +315,9 @@ def _progress_solve(ctx, sm, state, case, probe):
               f"stiffness {type(sm.local.stiffness.inner).__name__}, "
               f"kernel {sm.local.stiffness.kernel}", flush=True)
         res = run_demo(sm, case["dt"], case["steps"],
-                       SimpleNamespace(progress_every=case["progress_every"]),
+                       SimpleNamespace(**{k: case[k] for k in OUTPUT_KEYS
+                                          if k in case},
+                                       progress_every=case["progress_every"]),
                        "ranks", probe=probe, state=state)
     return res if probe is not None else (res, None)
 

@@ -5,12 +5,14 @@ On a structured box the owning cell is a floor-divide; on perturbed or
 mapped (trilinear) geometry the reference coordinates are recovered with a
 few Newton iterations of the trilinear map plus a cell walk; evaluation is
 tensor-product Lagrange interpolation.  Vendored from
-``fustpu/utils/eval.py`` (without the JAX probe).
+``fustpu/utils/eval.py``; its JAX probe is `PointSampler.torch_probe`
+here.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from fustpu_torch.elements import gll
 from fustpu_torch.elements.hex import hex8_tabulate
@@ -137,6 +139,23 @@ class PointSampler:
                      self._K[:, None, None, :]]
         return np.einsum("pijk,pijk->p", vals, self._w, optimize=True)
 
+    def torch_probe(self, device):
+        """f(u) -> (npts,) values at the points, for grid fields on
+        `device` (the weights take the field's dtype): per-step
+        hydrophone traces through `model.solve(probe=...)`."""
+        I, J, K = (torch.as_tensor(a, device=device)
+                   for a in (self._I, self._J, self._K))
+        w = torch.as_tensor(self._w, device=device)
+        g = self.mesh.grid_shape
+
+        def probe(field: torch.Tensor) -> torch.Tensor:
+            f = field.reshape(g)
+            vals = f[I[:, :, None, None], J[:, None, :, None],
+                     K[:, None, None, :]]
+            return torch.einsum("pijk,pijk->p", vals, w.to(f.dtype))
+
+        return probe
+
 
 def plane_points(mesh, axis: int, coord: float, n0: int, n1: int
                  ) -> np.ndarray:
@@ -150,3 +169,14 @@ def plane_points(mesh, axis: int, coord: float, n0: int, n1: int
     pts[:, free[0]] = A.ravel()
     pts[:, free[1]] = B.ravel()
     return pts
+
+
+def eval_plane(mesh, field: np.ndarray, axis: int, coord: float, n0: int,
+               n1: int):
+    """(points (n0 n1, 3), values) of a node field on an axis-normal plane
+    through the mesh's bounding box (the reference's pressure-plane
+    snapshots), on a box or an imported mesh."""
+    pts = plane_points(mesh, axis, coord, n0, n1)
+    if hasattr(mesh, "nc"):
+        return pts, evaluate(mesh, field, pts)
+    return pts, mesh.evaluate(np.asarray(field).reshape(-1), pts)

@@ -326,6 +326,114 @@ def test_bowl_demo_cli():
     assert m and np.isfinite(float(m.group(1))) and float(m.group(1)) != 0.0
 
 
+def _cylinder_case(tmp_path, detect_extrusion=True):
+    """(port mesh, JAX mesh, two-layer Westervelt properties, facets) of an
+    imported cylinder."""
+    v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1, nr_ann=1,
+                                   nz=4)
+    path = msh_io.write_msh(str(tmp_path / "cyl"), v, c, t)
+    mesh = msh_io.read_msh(path, 3, detect_extrusion=detect_extrusion)
+    fmesh = f_msh.read_msh(path, 3, detect_extrusion=detect_extrusion)
+    zc = mesh.cell_corners_flat.mean(axis=1)[:, 2]
+    props = dict(sound_speed=np.where(zc < 0.01, 1500.0, 1650.0),
+                 density=np.where(zc < 0.01, 1000.0, 1050.0),
+                 nonlinearity=100.0, attenuation_dB=50.0)
+    return mesh, fmesh, props, (mesh.boundary_facets(1),
+                                mesh.boundary_facets(2))
+
+
+@pytest.mark.parametrize("impl,where,fimpl", [
+    ("pallas", "box", "pallas"),
+    ("extruded", "prismatic", "extruded"),
+    ("extruded_pallas", "prismatic", "extruded_pallas"),
+    ("pallas", "prismatic", "extruded"),
+    ("extruded", "general", "indexed")])
+def test_jax_kernel_names_match_fustpu(tmp_path, monkeypatch, impl, where,
+                                       fimpl):
+    """The JAX package's stiffness_impl names where it accepts them: the
+    port's model (the plain version on the CPU) against the operator the
+    JAX package builds for the name, its TPU kernels in interpret mode:
+    10 steps in float64 within 1e-11."""
+    if where == "box":
+        # the JAX model's structured Pallas kernel, in interpret mode
+        orig = ps.stiffness_apply_pallas
+        monkeypatch.setattr(ps, "stiffness_apply_pallas",
+                            lambda op, x, **kw: orig(op, x, **dict(
+                                kw, interpret=True)))
+        cls, fcls, kw, mesh = _config("linear_two_layer")
+        fmodel = fcls(_fmesh(mesh), dtype=jnp.float64, stiffness_impl=impl,
+                      **kw)
+        model = cls(mesh, dtype=torch.float64, device="cpu",
+                    stiffness_impl=impl, **kw)
+        u0, v0 = _initial(mesh)
+    else:
+        mesh, fmesh, props, args = _cylinder_case(tmp_path,
+                                                  where == "prismatic")
+        fmodel = FWest(fmesh, f_config.Material(**props),
+                       f_config.Source(frequency=0.5e6, amplitude=1e5),
+                       *args, dtype=jnp.float64, stiffness_impl=impl)
+        model = WesterveltModel(mesh, Material(**props),
+                                Source(frequency=0.5e6, amplitude=1e5),
+                                *args, dtype=torch.float64, device="cpu",
+                                stiffness_impl=impl)
+        rng = np.random.default_rng(0)
+        u0, v0 = (rng.standard_normal(mesh.ndofs) for _ in range(2))
+    assert fmodel.impl == fimpl and model.impl == "mm"
+    dt, _ = fmodel.cfl_dt()
+    fout, _ = fmodel.solve(fmodel.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    out, _ = model.solve(model.init_state(0.0, u0=u0, v0=v0), dt, STEPS)
+    assert rel(out.u, fout.u) <= TOL and rel(out.v, fout.v) <= TOL
+
+
+def test_jax_kernel_names_resolve_by_mesh_and_device(tmp_path):
+    """'pallas' and 'extruded_pallas' resolve as 'auto' does, 'extruded'
+    as the plain version on a prismatic import; the extruded names need
+    an imported mesh, as the JAX package's do."""
+    from fustpu_torch.models.discretization import resolve_stiffness_impl
+
+    ext = _cylinder_case(tmp_path)[0]
+    box = _config("linear_uniform")[3]
+    assert isinstance(ext, ExtrudedHexMesh)
+    for impl, mesh, want in (("pallas", box, "cuda"), ("pallas", ext, "cuda"),
+                             ("extruded_pallas", ext, "cuda"),
+                             ("extruded", ext, "mm")):
+        assert resolve_stiffness_impl(impl, "cuda", mesh) == want
+        assert resolve_stiffness_impl(impl, "cpu", mesh) == "mm"
+    for impl in ("extruded", "extruded_pallas"):
+        for mesh in (box, None):
+            with pytest.raises(ValueError, match="imported mesh"):
+                resolve_stiffness_impl(impl, "cuda", mesh)
+
+
+def test_sharded_models_take_jax_kernel_names(tmp_path):
+    """The sharded models take 'pallas' and 'extruded_pallas' as 'auto':
+    a rank's part (built in this process) runs the G-stream operator."""
+    from fustpu_torch.models.discretization import ExtrudedStiffness
+    from fustpu_torch.parallel import sharding as sh
+    from fustpu_torch.parallel.extruded import (ExtrudedShardedModel,
+                                                IndexedShardedModel,
+                                                shard_unstructured)
+    from fustpu_torch.parallel.models import ShardedModel, wants_corner
+
+    cls, _, kw, mesh = _config("westervelt_uniform")
+    model = cls(mesh, dtype=torch.float64, device="cpu", **kw)
+    grid = sh.RankGrid((2, 1, 1), 0, "cpu")
+    for impl in ("pallas", "extruded_pallas"):
+        assert not wants_corner(model, impl)
+        part = ShardedModel(model, grid, stiffness_impl=impl)
+        assert not part.corner and part.local.stiffness.kernel is None
+    mesh, _, props, args = _cylinder_case(tmp_path)
+    model = WesterveltModel(mesh, Material(**props),
+                            Source(frequency=0.5e6, amplitude=1e5), *args,
+                            dtype=torch.float64, device="cpu")
+    for impl in ("pallas", "extruded_pallas"):
+        part = shard_unstructured(model, grid, stiffness_impl=impl)
+        assert isinstance(part, ExtrudedShardedModel)
+        assert isinstance(part.local.stiffness.inner, ExtrudedStiffness)
+        assert IndexedShardedModel(model, grid, stiffness_impl=impl).engine \
+            is False
+
+
 @pytest.mark.parametrize("impl,err", [("extruded", ValueError),
                                       ("cuda_please", ValueError)])
 def test_stiffness_impl_outside_the_slice_raises(impl, err):

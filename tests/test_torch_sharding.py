@@ -120,16 +120,21 @@ def ref():
 
 
 @pytest.fixture(scope="module")
-def runs(ref):
+def runs(ref, tmp_path_factory):
     """Every case: the port's sharded run on its ranks (one spawn per rank
-    count), the port's one-rank run and the JAX package's sharded run."""
+    count; each rank also writes its snapshot of the final u, rank 0 the
+    collected checkpoint), the port's one-rank run and the JAX package's
+    sharded run."""
+    files = tmp_path_factory.mktemp("out")
     out, groups = {}, {}
     for name, (ranks, *_, grid, _c) in CASES.items():
         model, fmodel = _models(name, ref)
         dt, _ = model.cfl_dt(0.4)
         fsm = ref.FSharded(fmodel, ref.sh.DeviceGrid.create(grid))
         case = dict(model=model, grid=grid, steps=STEPS, dt=dt,
-                    probe=POINTS, exchange_reps=2)
+                    probe=POINTS, exchange_reps=2,
+                    dist_output=str(files / name),
+                    checkpoint=str(files / name / "ck"))
         s0 = model.init_state()
         fs0 = fsm.init_state()
         if name.startswith("midrun"):
@@ -140,7 +145,8 @@ def runs(ref):
         one, ys = model.solve(s0, dt, STEPS, probe=_one_rank_probe(model))
         fout, fys = fsm.solve(fs0, dt, STEPS, probe=fsm.probe_fn(POINTS))
         out[name] = SimpleNamespace(model=model, one=one, ys=ys.numpy(),
-                                    fsm=fsm, fout=fout, fys=np.asarray(fys))
+                                    fsm=fsm, fout=fout, fys=np.asarray(fys),
+                                    files=files / name)
         groups.setdefault(ranks, []).append((name, case))
     for ranks, cases in groups.items():
         res = multihost.spawn(multihost.solve_cases, ranks, "gloo", "cpu",
@@ -206,6 +212,25 @@ def test_global_norm_matches_collected(runs, name):
     want = float(np.linalg.norm(s["u"]))
     assert abs(s["norm"] - want) <= TOL * want
     assert s["exchange_ms"] > 0.0
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_files_match_collect(runs, name):
+    """The ranks' per-rank snapshots of the final u reassemble bitwise
+    into the field `collect()` gathers, and rank 0's checkpoint holds the
+    collected state."""
+    from fustpu_torch.utils import dist_io
+    from fustpu_torch.utils import io as fio
+
+    r = runs[name]
+    s = r.sharded
+    got = dist_io.assemble_snapshot(str(r.files), f"u_{STEPS:06d}")
+    assert got.shape == s["u"].shape and np.array_equal(got, s["u"])
+    arrays, step, _ = fio.load_checkpoint(str(r.files / f"ck_{STEPS}.npz"))
+    assert step == STEPS and float(arrays["t"]) == s["t"]
+    assert np.array_equal(arrays["u"], s["u"])
+    assert np.array_equal(arrays["v"], s["v"])
+    assert np.array_equal(arrays["kv"], s["kv"])
 
 
 def test_split_merge_roundtrip(ref):
@@ -292,9 +317,10 @@ def test_spawn_defaults_to_the_card():
         multihost.spawn(multihost.imported_modules, 2)
 
 
-def test_sharded_box_demo_cli():
+def test_sharded_box_demo_cli(tmp_path):
     """The sharded box demo on 2 gloo CPU ranks: progress from rank 0, a
-    finite field and the probe."""
+    finite field and the probe; per-rank snapshots every 3 steps and rank
+    0's checkpoint at the end."""
     import re
     import subprocess
     import sys
@@ -303,7 +329,9 @@ def test_sharded_box_demo_cli():
     cmd = [sys.executable, "-m", "fustpu_torch.demos.sharded_box",
            "--ranks", "2", "--device", "cpu", "--dtype", "f64",
            "--elements", "4", "--degree", "2", "--steps", "6",
-           "--progress-every", "3", "--probe", "0.004", "0.005", "0.005"]
+           "--progress-every", "3", "--probe", "0.004", "0.005", "0.005",
+           "--dist-output", str(tmp_path / "snaps"), "--snapshot-every", "3",
+           "--checkpoint", str(tmp_path / "ck"), "--checkpoint-every", "6"]
     out = subprocess.run(cmd, cwd=Path(__file__).resolve().parent.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -312,3 +340,11 @@ def test_sharded_box_demo_cli():
     m = re.search(r"max \|u\| (\S+);", out.stdout)
     assert m and np.isfinite(float(m.group(1))) and float(m.group(1)) > 0
     assert "probe u at" in out.stdout
+    from fustpu_torch.utils import dist_io
+    from fustpu_torch.utils import io as fio
+
+    u = fio.load_checkpoint(str(tmp_path / "ck_6.npz"))[0]["u"]
+    assert np.array_equal(
+        dist_io.assemble_snapshot(str(tmp_path / "snaps"), "u_000006"), u)
+    assert sorted(p.name for p in (tmp_path / "snaps").glob("u_*")) == [
+        f"u_00000{k}.d0000{r}.npy" for k in (3, 6) for r in (0, 1)]

@@ -182,9 +182,11 @@ def runs(ref, tmp_path_factory):
         out[name] = SimpleNamespace(model=model, fsm=fsm, one=one,
                                     ys=ys.numpy(), fout=fout,
                                     fys=np.asarray(fys))
+        out[name].files = directory / name
         groups.setdefault(ranks, []).append((name, dict(
             model=model, steps=STEPS, dt=dt, impl=simpl, probe=pts,
-            norms=True)))
+            norms=True, dist_output=str(directory / name),
+            checkpoint=str(directory / name / "ck"))))
     for ranks, cases in groups.items():
         res = multihost.spawn(multihost.solve_cases, ranks, "gloo", "cpu",
                               timeout=300, args=([c for _, c in cases],))
@@ -250,6 +252,23 @@ def test_partition_matches_fustpu(runs, name):
 
     for k in (2, 3, 5, 8):
         assert np.array_equal(rcb_partition(pts, k), f_rcb(pts, k))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_files_match_collect(runs, name):
+    """The ranks' per-rank snapshots (rows or dofs layouts) reassemble
+    bitwise into the field `collect()` gathers; rank 0's checkpoint holds
+    the collected state."""
+    from fustpu_torch.utils import dist_io
+    from fustpu_torch.utils import io as fio
+
+    r = runs[name]
+    s = r.sharded
+    got = dist_io.assemble_snapshot(str(r.files), f"u_{STEPS:06d}")
+    assert np.array_equal(got, s["u"].reshape(-1))
+    arrays, step, _ = fio.load_checkpoint(str(r.files / f"ck_{STEPS}.npz"))
+    assert step == STEPS and np.array_equal(arrays["u"], s["u"])
+    assert np.array_equal(arrays["kv"], s["kv"])
 
 
 def test_routing_of_imported_meshes(runs):
