@@ -102,15 +102,21 @@ Phases (each prints its time; any failure exits non-zero):
      the ranks, and run alone for the reference, where the script builds
      it;
  23. the two-slab kernels (slab2: adjacent slab pairs, slab2w: far pairs)
-     against their plain versions at P = 2..10 on the boxes (4, 3, 2),
-     (5, 2, 3) (odd ncx) and (2, 3, 3) (one pair), each with and without a
-     coefficient, float64 and float32, and against the single-slab kernel
-     on the same buffers (run right after phase 20);
- 24. the exp_slab2w demo at P = 4, 32^3, float32: the production kernel,
-     slab2 and slab2w per apply, each against its plain version;
- 25. the exp_kernel_anatomy demo at P = 4, 32^3, float32: the
-     parity-class kernel #1 (full) and its gstream, contract and ywin
-     variants, each against its plain version, ywin against full;
+     on the z-pencil walk (a slab pair's two pencils in turn) and on the
+     class-launch design, against their
+     plain versions at P = 2..10 on the boxes (4, 3, 2), (5, 2, 3) (odd
+     ncx) and (2, 3, 3) (one pair), each with and without a coefficient,
+     float64 and float32; the walk against the class-launch design (1e-14)
+     and against #1 on the same buffers, two applies bitwise (run right
+     after phase 20);
+ 24. the exp_slab2w demo at P = 4, 32^3, float32, both designs in turns:
+     #1, slab2 and slab2w on the walk and on the class-launch design, each
+     against its plain version;
+ 25. the exp_kernel_anatomy demo at P = 4, 32^3, float32, both designs in
+     turns: #1 (full), its gstream, contract and ywin variants and #2
+     (full_pair), as policies of the z-pencil walk and on the
+     parity-class kernel, each against its plain version; the walk's full
+     and ywin bitwise #1;
  26. the exp_g_layout demo (the (32, 5, 6, 160, 160) float32 G summed in
      the per-cell and the component-major layout) and the
      exp_mosaic_relayout demo (128 and 16384 tiles of (8192, 1) float32,
@@ -157,11 +163,17 @@ Phases (each prints its time; any failure exits non-zero):
      model's, the full-GLL unstructured VTK (30c, right after 10b); the
      flagship's per-rank snapshots of 22a's four ranks reassembled
      bitwise as collect() gives them (30f); the bodyfit bowl on #11
-     restarts exactly and writes its full-GLL VTK (30g, right after 13c).
+     restarts exactly and writes its full-GLL VTK (30g, right after 13c);
+ 31. #4 / #5 and #13 on the walk against the first designs in turns (old, new,
+     new, old) at P = 4, float32, on 32^3 (phases 24 and 25's turns) and
+     64 x 40 x 40 cells: slab2 and slab2w beside #1 on the same buffers,
+     the anatomy's four variants and full_pair in both designs, each with
+     ms and its share of the bound, full - gstream - contract for each
+     design; every gate a hard failure (run right after phase 26).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, in every
-rank of 22 its solve, and the demos of 24, 25, 26, 27a and 28 and the turns
-of 29) has the launch counters reset just before it and read just after.
+rank of 22 its solve, and the demos of 24, 25, 26, 27a, 28 and 31 and the
+turns of 29) has the launch counters reset just before it and read just after.
 The script's total time is printed after the last phase; then the
 kernels' JSON summary, the card's name and power limit, and as the last
 line the result.
@@ -578,8 +590,8 @@ def main() -> None:
                     t = lambda a: torch.as_tensor(a, dtype=o.G.dtype,
                                                   device=dev)
                     if Cp is None:
-                        return anatomy.variant(o, t(x1), "full")
-                    return anatomy.full_pair(o, t(x1), t(x2))
+                        return anatomy.variant_classes(o, t(x1), "full")
+                    return anatomy.full_pair_classes(o, t(x1), t(x2))
 
                 ref = apply(op(torch.float64), plain=True)
                 y64 = apply(op(torch.float64), plain=False)
@@ -938,8 +950,9 @@ def main() -> None:
                 not all(cen.comparison_launches.values()):
             fail("an engine kernel's launch counter did not move")
 
-    with phase("23 slab2 and slab2w kernels vs plain, P=2..10"):
-        worst = {"f64": 0.0, "f32": 0.0, "single": 0.0}
+    with phase("23 slab2 and slab2w kernels vs plain, P=2..10: the walk "
+               "and the class-launch design"):
+        worst = {"f64": 0.0, "f32": 0.0, "classes": 0.0, "single": 0.0}
         cuda_slab2.reset_launches()
         for P in range(2, 11):
             for nc in ((4, 3, 2), (5, 2, 3), (2, 3, 3)):
@@ -951,39 +964,51 @@ def main() -> None:
                 errs = {}
                 for coeff in (None, rng.uniform(0.5, 2.0, nc)):
                     for far in (False, True):
-                        build, plain, kernel = (
+                        build, plain, old = (
                             (slab2.build_slab2w, slab2.slab2w_plain,
-                             cuda_slab2.slab2w) if far else
+                             cuda_slab2.slab2w_classes) if far else
                             (slab2.build_slab2, slab2.slab2_plain,
-                             cuda_slab2.slab2))
+                             cuda_slab2.slab2_classes))
+                        name, kernel = (("slab2w", cuda_slab2.slab2w) if far
+                                        else ("slab2", cuda_slab2.slab2))
                         o64 = build(nc, P, D, Gh, torch.float64, coeff=coeff,
                                     device=dev)
                         o32 = build(nc, P, D, Gh, torch.float32, coeff=coeff,
                                     device=dev)
                         ref = plain(o64, x)
+                        y_old = old(o64, x)
+                        tag = "+coeff" if coeff is not None else ""
+                        errs[f"{'slab2w' if far else 'slab2'}_classes{tag}"] \
+                            = {"f64": rel_l2(y_old, ref),
+                               "f32": rel_l2(old(o32, x.float()), ref)}
                         y = kernel(o64, x)
-                        e = {"f64": rel_l2(y, ref),
-                             "f32": rel_l2(kernel(o32, x.float()), ref),
-                             # the single-slab kernel on the same buffers
-                             "single": rel_l2(y, cs.stiffness(o64.cell_op,
-                                                              x))}
-                        label = (f"{'slab2w' if far else 'slab2'}"
-                                 f"{'+coeff' if coeff is not None else ''}")
-                        errs[label] = e
-                        for key, v in e.items():
-                            worst[key] = max(worst[key], v)
-                            tol = F32_TOL if key == "f32" else F64_TOL
-                            if not v <= tol:
-                                fail(f"P={P} {nc} {label}: {key} {v:.3e} > "
-                                     f"{tol}")
+                        errs[name + tag] = {
+                            "f32": rel_l2(kernel(o32, x.float()), ref),
+                            "f64": rel_l2(y, ref),
+                            # the class-launch design on the same buffers
+                            "classes": rel_l2(y, y_old),
+                            # #1 on the same buffers
+                            "single": rel_l2(y, cs.stiffness(o64.cell_op,
+                                                             x))}
+                        if not torch.equal(kernel(o64, x), y):
+                            fail(f"P={P} {nc} {name}{tag}: two applies "
+                                 "not bitwise equal")
+                for label, e in errs.items():
+                    for key, v in e.items():
+                        worst[key] = max(worst[key], v)
+                        tol = {"f32": F32_TOL, "classes": PARITY_TOL}.get(
+                            key, F64_TOL)
+                        if not v <= tol:
+                            fail(f"P={P} {nc} {label}: {key} {v:.3e} > {tol}")
                 torch.cuda.synchronize()
-                print(f"   P={P:2d} {nc} classes "
-                      f"{len(o64.bounds) - 1}: " + "; ".join(
-                          f"{k} " + " ".join(f"{v:.2e}" for v in e.values())
-                          for k, e in errs.items()), flush=True)
+                print(f"   P={P:2d} {nc}: " + "; ".join(
+                    f"{k} " + " ".join(f"{v:.2e}" for v in e.values())
+                    for k, e in errs.items()), flush=True)
         print(f"   worst rel-l2: f64 {worst['f64']:.3e} (tol {F64_TOL}), f32 "
-              f"{worst['f32']:.3e} (tol {F32_TOL}), against the single-slab "
-              f"kernel {worst['single']:.3e}; launches "
+              f"{worst['f32']:.3e} (tol {F32_TOL}); the walk against the "
+              f"first design {worst['classes']:.3e} (tol {PARITY_TOL}), "
+              f"against "
+              f"#1 {worst['single']:.3e}; repeats bitwise; launches "
               f"{dict(cuda_slab2.launches)}")
         if not all(cuda_slab2.launches.values()):
             fail("a slab2 kernel's launch counter did not move")
@@ -1026,60 +1051,69 @@ def main() -> None:
             library_ms=None if library is None else time_ms(library, 20))
         print(f"   {smi}: {name}: {demo_kernels[name]}", flush=True)
 
-    with phase("24 exp_slab2w at P=4, 32^3, f32: #1, slab2 and slab2w"):
+    with phase("24 exp_slab2w at P=4, 32^3, f32: #1, slab2 and slab2w "
+               "on the walk and on the class-launch design, in turns"):
         cuda_slab2.reset_launches()
-        out = exp_slab2w.main(["f32", "4", "32"])
+        out = exp_slab2w.main(["f32", "4", "--nc", "32", "--design", "both"])
         torch.cuda.synchronize()
         demo_launches.update(cuda_slab2.launches)
         print(f"   launches in the demo: {dict(cuda_slab2.launches)}")
         if not all(cuda_slab2.launches.values()):
             fail("a slab2 kernel was not launched by the demo")
         x = out["x"]
-        for name, plain in (("slab2", slab2.slab2_plain),
-                            ("slab2w", slab2.slab2w_plain)):
-            op = out["ops"][name]
+        for name in cuda_slab2.launches:
+            far = name.startswith("slab2w")
+            op = out["ops"]["far" if far else "adjacent"]
+            plain = slab2.slab2w_plain if far else slab2.slab2_plain
             if not out["rel"][name] <= F32_TOL:
                 fail(f"{name} vs the production kernel {out['rel'][name]:.3e}")
             demo_entry(name, out["ys"][name], plain(op, x),
-                       out["times"][name][0] * 1e3,
-                       lambda: plain(op, x),
+                       min(t[0] for t in out["times"][name]) * 1e3,
+                       lambda op=op, plain=plain: plain(op, x),
                        apply_cost(op.G, out["mesh"].ndofs, 1))
+        # its turns at 32^3 are phase 31's
+        turns = {(32, 32, 32): {"slab2": {k: out[k] for k in (
+            "times", "rel", "nbytes")}}}
         del out, x, op
 
-    with phase("25 exp_kernel_anatomy at P=4, 32^3, f32"):
+    with phase("25 exp_kernel_anatomy at P=4, 32^3, f32: the walk's "
+               "variants and the parity-class ones, in turns"):
         anatomy.reset_launches()
-        out = exp_kernel_anatomy.main([])
+        out = exp_kernel_anatomy.main(["--design", "both"])
         torch.cuda.synchronize()
         demo_launches.update(anatomy.launches)
         print(f"   launches in the demo: {dict(anatomy.launches)}")
-        if not all(anatomy.launches[f"anatomy_{v}"] for v in anatomy.VARIANTS):
+        if not all(anatomy.launches.values()):
             fail("an anatomy kernel was not launched by the demo")
         op, x, outs = out["op"], out["x"], out["outs"]
-        err = rel_l2(outs["ywin"], outs["full"])
-        print(f"   ywin vs full (the parity-class kernel #1): rel-l2 "
-              f"{err:.3e}")
+        walk = outs["pencil"]
+        y1 = cs.stiffness(op, x)
+        for name in ("full", "ywin"):
+            if not torch.equal(walk[name], y1):
+                fail(f"the walk's {name} is not bitwise #1")
+        err = rel_l2(outs["classes"]["ywin"], outs["classes"]["full"])
+        print(f"   the walk's full and ywin bitwise #1; the parity-class "
+              f"ywin vs full: rel-l2 {err:.3e}")
         if not err <= F32_TOL:
-            fail(f"ywin vs full {err:.3e}")
-        cells, _, nnn = op.G.shape
-        n, ndofs, b = op.P + 1, out["mesh"].ndofs, op.G.element_size()
-        costs = {
-            # G, x and y once; per node the metric (15), the sum (2), the add
-            "gstream": (apply_cost(op.G, ndofs, 1)[0], cells * nnn * 18),
-            # x and y only; per node 2 of the 3 derivative pairs and the add
-            "contract": (3 * ndofs * b, cells * nnn * (8 * n + 1)),
-            "ywin": apply_cost(op.G, ndofs, 1)}
-        for name in ("full", "gstream", "contract", "ywin"):
-            e = rel_l2(outs[name], out["plains"][name])
-            print(f"   {name} vs its plain version: rel-l2 {e:.3e}")
-            if name == "full":
+            fail(f"the parity-class ywin vs full {err:.3e}")
+        for design in anatomy.DESIGNS:
+            for name in exp_kernel_anatomy.NAMES:
+                e = rel_l2(outs[design][name], out["plains"][name])
+                print(f"   {design} {name} vs its plain version: rel-l2 "
+                      f"{e:.3e}")
                 if not e <= F32_TOL:
-                    fail(f"anatomy full vs plain {e:.3e}")
-                continue
-            demo_entry(f"anatomy_{name}", outs[name], out["plains"][name],
-                       out["times"][name][0] * 1e3,
-                       lambda name=name: anatomy.variant_plain(op, x, name),
-                       costs[name])
-        del out, op, x, outs
+                    fail(f"anatomy {design} {name} vs plain {e:.3e}")
+                if name in ("full", "full_pair"):
+                    continue
+                demo_entry(anatomy.counter(name, design), outs[design][name],
+                           out["plains"][name],
+                           min(t[0] for t in out["times"][design][name]) * 1e3,
+                           lambda name=name: anatomy.variant_plain(op, x,
+                                                                   name),
+                           out["costs"][name])
+        turns[(32, 32, 32)]["anatomy"] = {k: out[k] for k in (
+            "times", "costs")}
+        del out, op, x, outs, walk, y1
 
     with phase("26 exp_g_layout and exp_mosaic_relayout (f32), the "
                "relayouts in turns at 128 and 16384 tiles"):
@@ -1144,6 +1178,81 @@ def main() -> None:
         print(f"   device bytes of (2^20, 1) f32 {r['bytes']['column']:,}, "
               f"of (2^13, 128) f32 {r['bytes']['packed']:,}")
         del g, r, big, x, y
+        torch.cuda.empty_cache()
+
+    # ---- phase 31: #4 / #5 and #13, the walk against the first designs in
+    # ---- turns, at 32^3 phases 24 and 25's turns, at 64 x 40 x 40 its own
+    # ---- (counters reset just before, read just after) ----
+    with phase("31 the two-slab and anatomy kernels on the walk against "
+               "the first designs in turns, P=4 f32, 32^3 (phases 24 and "
+               "25) and 64x40x40"):
+        cuda_slab2.reset_launches()
+        anatomy.reset_launches()
+        for nc in ((32, 32, 32), (64, 40, 40)):
+            cells = [str(c) for c in nc]
+            if nc in turns:
+                s, a = turns[nc]["slab2"], turns[nc]["anatomy"]
+            else:
+                s = exp_slab2w.main(["f32", "4", "--nc", *cells, "--design",
+                                     "both"])
+                a = exp_kernel_anatomy.main(["--nc", *cells, "--design",
+                                             "both"])
+                for name in exp_kernel_anatomy.NAMES:
+                    for design in anatomy.DESIGNS:
+                        e = rel_l2(a["outs"][design][name],
+                                   a["plains"][name])
+                        if not e <= F32_TOL:
+                            fail(f"{nc} anatomy {design} {name} vs plain "
+                                 f"{e:.3e}")
+                if not torch.equal(a["outs"]["pencil"]["ywin"],
+                                   a["outs"]["pencil"]["full"]):
+                    fail(f"{nc} the walk's ywin is not bitwise its full")
+            b_ms = bound(s["nbytes"], 0)[0]
+            ms = {k: [t[0] * 1e3 for t in v] for k, v in s["times"].items()}
+            for name, r in s["rel"].items():
+                if not r <= F32_TOL:
+                    fail(f"{nc} {name} vs #1 {r:.3e}")
+            p1 = min(ms["production"])
+            for new, old in (("slab2", "slab2_classes"),
+                             ("slab2w", "slab2w_classes")):
+                print(f"   {smi}: {nc} {new}: the class-launch design "
+                      f"{ms[old][0]:.4f} / {ms[old][1]:.4f} ms, the walk "
+                      f"{ms[new][0]:.4f} / {ms[new][1]:.4f} (old, new, new, "
+                      f"old): {min(ms[old]) / min(ms[new]):.4f}x; "
+                      f"{b_ms / min(ms[new]):.1%} of the bound {b_ms:.4f} ms "
+                      f"(the first design's {b_ms / min(ms[old]):.1%}); #1 "
+                      f"in the same turns {ms['production'][0]:.4f} / "
+                      f"{ms['production'][1]:.4f}, the walk / #1 "
+                      f"{min(ms[new]) / p1:.4f}", flush=True)
+            for name in exp_kernel_anatomy.NAMES:
+                b_v = bound(*a["costs"][name])[0]
+                t = {d: [v[0] * 1e3 for v in a["times"][d][name]]
+                     for d in anatomy.DESIGNS}
+                print(f"   {smi}: {nc} anatomy {name}: the parity-class "
+                      f"design {t['classes'][0]:.4f} / {t['classes'][1]:.4f} "
+                      f"ms, the "
+                      f"walk {t['pencil'][0]:.4f} / {t['pencil'][1]:.4f} "
+                      f"(old, new, new, old): "
+                      f"{min(t['classes']) / min(t['pencil']):.4f}x; "
+                      f"{b_v / min(t['pencil']):.1%} of its bound {b_v:.4f} "
+                      f"ms (the parity-class design's "
+                      f"{b_v / min(t['classes']):.1%})",
+                      flush=True)
+            for design in anatomy.DESIGNS:
+                best = {k: min(v[0] for v in a["times"][design][k]) * 1e3
+                        for k in ("full", "gstream", "contract")}
+                rest = best["full"] - best["gstream"] - best["contract"]
+                print(f"   {smi}: {nc} {design}: full {best['full']:.4f} - "
+                      f"gstream {best['gstream']:.4f} - contract "
+                      f"{best['contract']:.4f} = {rest:+.4f} ms", flush=True)
+            del s, a
+        del turns
+        torch.cuda.synchronize()
+        print(f"   launches: {dict(cuda_slab2.launches)}, "
+              f"{dict(anatomy.launches)}")
+        if not all(cuda_slab2.launches.values()) or \
+                not all(anatomy.launches.values()):
+            fail("a kernel of phase 31 was not launched")
         torch.cuda.empty_cache()
 
     with phase("5 linear box demo (default size)"):
@@ -1334,10 +1443,10 @@ def main() -> None:
             self.op = op
 
         def forward(self, x):
-            return anatomy.variant(self.op, x, "full")
+            return anatomy.variant_classes(self.op, x, "full")
 
         def pair(self, x1, x2):
-            return anatomy.full_pair(self.op, x1, x2)
+            return anatomy.full_pair_classes(self.op, x1, x2)
 
     with phase("27b flagship full solve on the parity-class kernel"):
         anatomy.reset_launches()
@@ -2806,12 +2915,17 @@ def main() -> None:
                            "fustpu/ops/pallas_gather.py:610"),
         "engine": ("fustpu_torch/csrc/engine.cu",
                    "fustpu/ops/operators.py:290"),
-        "slab2": ("fustpu_torch/csrc/slab2.cu",
-                  "fustpu/ops/pallas_stiffness.py:314"),
-        "slab2w": ("fustpu_torch/csrc/slab2.cu",
-                   "fustpu/ops/pallas_stiffness.py:528"),
-        **{f"anatomy_{v}": ("fustpu_torch/csrc/anatomy.cu",
+        **{name: ("fustpu_torch/csrc/slab2.cu",
+                  "fustpu/ops/pallas_stiffness.py:314")
+           for name in ("slab2", "slab2_classes")},
+        **{name: ("fustpu_torch/csrc/slab2.cu",
+                  "fustpu/ops/pallas_stiffness.py:528")
+           for name in ("slab2w", "slab2w_classes")},
+        **{f"anatomy_{v}": ("fustpu_torch/csrc/anatomy_walk.cuh",
                             "demos/exp_kernel_anatomy.py:34")
+           for v in ("gstream", "contract", "ywin")},
+        **{f"anatomy_classes_{v}": ("fustpu_torch/csrc/anatomy_classes.cu",
+                                    "demos/exp_kernel_anatomy.py:34")
            for v in ("gstream", "contract", "ywin")},
         **{f"g_layout_{v}": ("fustpu_torch/csrc/probes.cu",
                              "demos/exp_g_layout.py:24")

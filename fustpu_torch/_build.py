@@ -180,19 +180,38 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fustpu_engine_scatter_{suffix}")
         fn.argtypes = [p, p, p, p, ll, p]
         fn.restype = i
+    # the walk's schedule: chunks, classes, nclass, blocks, cpb, stages,
+    # stage_bytes, smem (the two-slab walk and the anatomy's pencil
+    # variants)
+    walk = [p, p, i, i, i, i, i, i]
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"fustpu_slab2_{suffix}")
+        fn = getattr(lib, f"fustpu_slab2_classes_{suffix}")
         fn.argtypes = [p, p, p, p, p, i, p, i, i, i, p]
         fn.restype = i
-        fn = getattr(lib, f"fustpu_anatomy_{suffix}")
+        # then ncy, ncz, drain and the chunks of one pencil
+        fn = getattr(lib, f"fustpu_slab2_pencil_{suffix}")
+        fn.argtypes = [p, p, p, p, i, *walk, i, i, i, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_anatomy_classes_{suffix}")
         fn.argtypes = [i, p, p, p, p, i, i, i, i, p]
         fn.restype = i
-        fn = getattr(lib, f"fustpu_anatomy_pair_{suffix}")
+        fn = getattr(lib, f"fustpu_anatomy_classes_pair_{suffix}")
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+        # then ncx, ncy, ncz
+        fn = getattr(lib, f"fustpu_anatomy_pencil_{suffix}")
+        fn.argtypes = [i, p, p, p, p, i, *walk, i, i, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_anatomy_pencil_pair_{suffix}")
+        fn.argtypes = [p, p, p, p, p, p, i, *walk, i, i, i, p]
         fn.restype = i
         fn = getattr(lib, f"fustpu_g_layout_{suffix}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
+    lib.fustpu_slab2_pencil_occupancy.argtypes = [i, i, i, i]
+    lib.fustpu_slab2_pencil_occupancy.restype = i
+    lib.fustpu_anatomy_pencil_occupancy.argtypes = [i, i, i, i, i]
+    lib.fustpu_anatomy_pencil_occupancy.restype = i
     lib.fustpu_relayout_copy.argtypes = [p, p, ll, i, p]
     lib.fustpu_relayout_copy.restype = i
     lib.fustpu_relayout_transpose.argtypes = [p, p, i, i, p]

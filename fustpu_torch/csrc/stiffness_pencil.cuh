@@ -9,7 +9,11 @@
 // stream described here, or the corner stream of the capacity mode, each
 // cell's metric rebuilt from its Jacobian channels (#3 and #6c; entry
 // points in corner_pencil.cu, corner_stack.cu, corner_stack27.cu, through
-// corner_walk.cuh).
+// corner_walk.cuh).  Two more kernels walk it: the two-slab kernels #4 /
+// #5, whose work item is a slab pair (slab2.cu: SlabRows), and the
+// anatomy of #1, #13, whose variants are policies of this walk
+// (anatomy_walk.cuh: a body, a geometry without a ring, x by bulk
+// copies).
 //
 // Replaces the two Pallas TPU kernels of fustpu/ops/pallas_stiffness.py:
 //   - _mk_kernel (:170, via _apply_single / stiffness_apply_pallas): one
@@ -19,8 +23,9 @@
 //     + A_c2(x2) with a unit G and per-cell (c1, c2)  -> PAIR true.
 // The parity-class design of the same two kernels (eight parity classes of
 // scattered cells, G read by the threads themselves) stays in
-// stiffness.cuh for the corner kernel, the two-slab kernel and the anatomy
-// variants.
+// stiffness.cuh for the class-launch corner kernel (corner.cu), the
+// class-launch two-slab kernel and the parity-class anatomy variants
+// (slab2.cu, anatomy_classes.cu).
 //
 // What bounds it on an H100: the bytes.  G holds 6 values per node, so at
 // P = 4 in float32 a cell reads 3000 B of G against ~500 B of x and ~1000
@@ -131,13 +136,15 @@ constexpr int RING = 3;
 // A box pencil: r[4] is the grid index of the chunk's node (0, 0, 0), and
 // the lines step by sx in i and gz in j.
 struct BoxRows {
-  static constexpr bool IDS = false;
+  static constexpr bool IDS = false, XBULK = false;
   int gz, sx;
   const int* ids;                      // unused
   template <int N>
   __device__ int base(const long long* r, const int*, int rr) const {
     return (int)r[4] + (rr / N) * sx + (rr % N) * gz;
   }
+  __device__ bool starts(int qi) const { return qi == 0; }
+  __device__ bool drains(int) const { return false; }
 };
 // An extruded stack (extruded.cuh): node (i, j, k) of layer kz holds dof
 // rows2d[s, i N + j] gz + kz P + k, so line rr starts at rid[rr] gz + r[4],
@@ -146,14 +153,27 @@ struct BoxRows {
 // table order; a block copies the chunk's into the row ring with its
 // table row.
 struct StackRows {
-  static constexpr bool IDS = true;
+  static constexpr bool IDS = true, XBULK = false;
   int gz, sx;                          // sx unused
   const int* ids;
   template <int N>
   __device__ int base(const long long* r, const int* rid, int rr) const {
     return rid[rr] * gz + (int)r[4];
   }
+  __device__ bool starts(int qi) const { return qi == 0; }
+  __device__ bool drains(int) const { return false; }
 };
+// What else a Rows policy says (the two-slab walk of slab2.cu and the
+// anatomy's ywin, anatomy_walk.cuh, use it; both kinds above take the
+// plain walk):
+//   starts(qi)  whether chunk qi of a work item starts a pencil (its first
+//            z-face is read from y, not carried from the chunk before);
+//   drains(qi)  whether that chunk shares nodes with the work item's
+//            chunk before it beyond the carried face, so that the earlier
+//            chunk's y must be out before this one's is fetched;
+//   XBULK    whether x arrives by bulk copies (one a z-line run, into an
+//            x area after the stages with an mbarrier of its own) in place
+//            of the threads' loads.
 
 // Where a chunk's metric comes from: the geometry policy.  Each chunk's
 // run of the stream (CELL values a cell, in the walk's cell order) arrives
@@ -166,6 +186,9 @@ struct StackRows {
 // y out and this one's body (the G stream's walk keeps it; without it
 // the body's first barrier orders the carried face before its adds, and
 // the next chunk's buffers are written only after the body).
+// RING: whether the stream arrives in the ring at all (the anatomy's
+// `contract` reads none: no stages, no copies, no waits).  BODY: what
+// cell_apply computes (STAGED; the anatomy's `gstream` STAGED_POINTWISE).
 // MAX_THREADS, MIN_BLOCKS: the launch bounds of corner_kernel, which runs
 // the walk for a policy with MIN_BLOCKS > 0 (a register cap of 65,536 /
 // (MAX_THREADS MIN_BLOCKS) a thread; `occupancy` answers 0 for a larger
@@ -179,8 +202,8 @@ struct StackRows {
 template <typename T, int N>
 struct GRing {
   static constexpr int CELL = 6 * N * N * N;
-  static constexpr bool BARRIERS = true;
-  static constexpr int MAX_THREADS = 256, MIN_BLOCKS = 0;
+  static constexpr bool BARRIERS = true, RING = true;
+  static constexpr int MAX_THREADS = 256, MIN_BLOCKS = 0, BODY = STAGED;
   __host__ __device__ static constexpr int after(int) { return 0; }
   __device__ static void load(T*, const T*, int, int, int) {}
   __device__ GRing(T*, int, int, int) {}
@@ -207,7 +230,8 @@ struct GRing {
 template <typename T, int N, int GD, bool BOX, bool RCP, int CAP>
 struct CornerGeo {
   static constexpr int CELL = CornerChannels<GD>::COUNT;
-  static constexpr bool BARRIERS = false;
+  static constexpr bool BARRIERS = false, RING = true;
+  static constexpr int BODY = STAGED;
   static constexpr int MAX_THREADS = CAP ? 128 : 256;
   static constexpr int MIN_BLOCKS = CAP;
   static constexpr int NNN = N * N * N;
@@ -258,11 +282,13 @@ __host__ __device__ constexpr int head_bytes(int stages, bool ids, int nn) {
 
 // One class: block b walks pencils b, b + gridDim.x, ... of the class, and
 // each pencil's chunks in order (the host launches at most `pencils`
-// blocks).  G: the geometry stream (Geo); Q: the GLL nodes and weights
-// (CornerGeo).  stage_bytes: one stage of the ring.  seg0: the class's
-// first pencil's row of the row ids (the pencils of the classes before
-// it).  Grid indices are 32-bit (the wrapper refuses grids of 2^31 nodes
-// or more).
+// blocks).  A work item ("pencil" below and in the host's tables) is one
+// pencil for #1, #2, #3 and #6; for the two-slab walk (slab2.cu) the two
+// pencils of a slab pair one after the other (SlabRows).  G: the geometry
+// stream (Geo); Q: the GLL nodes and weights (CornerGeo).  stage_bytes: one
+// stage of the ring.  seg0: the class's first pencil's row of the row ids
+// (the pencils of the classes before it).  Grid indices are 32-bit (the
+// wrapper refuses grids of 2^31 nodes or more).
 template <typename T, int N, bool PAIR, typename Rows, typename Geo>
 __device__ __forceinline__ void pencil_walk(
     const T* __restrict__ x1, const T* __restrict__ x2,
@@ -272,21 +298,30 @@ __device__ __forceinline__ void pencil_walk(
     int per_pencil, int stages, int stage_bytes, long long seg0,
     Rows lines) {
   constexpr int P = N - 1, NN = N * N, NNN = N * N * N;
+  static_assert(Geo::RING || !Rows::XBULK, "x's copies ride in the ring");
   constexpr long long CB = (long long)Geo::CELL * (long long)sizeof(T);
+  // the threads that issue x's z-line runs (XBULK): the first warp
+  constexpr int XLANES = 32;
   // D in an array of its own, so that the compiler may keep it in
   // registers across the body's stores into the dynamic block
   __shared__ T Ds[NN];                           // D[q * N + i] = l_i'(x_q)
   extern __shared__ __align__(128) unsigned char smem[];
   const int cpb = blockDim.y, lmax = cpb * P + 1;  // a row of a chunk's z
   const int rows = NN * lmax;                    // a chunk buffer's values
+  // the stages' mbarriers, and for XBULK one more, x's
+  const int nbars = stages + (Rows::XBULK ? 1 : 0);
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
-  long long* rs = reinterpret_cast<long long*>(smem + bars_bytes(stages));
-  int* ids = reinterpret_cast<int*>(smem + bars_bytes(stages) +
+  long long* rs = reinterpret_cast<long long*>(smem + bars_bytes(nbars));
+  int* ids = reinterpret_cast<int*>(smem + bars_bytes(nbars) +
                                     ring_bytes());
-  unsigned char* ring = smem + head_bytes(stages, Rows::IDS, NN);
+  unsigned char* ring = smem + head_bytes(nbars, Rows::IDS, NN);
+  // XBULK: the chunk's N^2 z-line runs of x after the stages, each in a
+  // slot of xslot bytes (the run's aligned span)
+  const int xslot = (lmax * (int)sizeof(T) + 16 + 15) / 16 * 16;
+  unsigned char* xa = ring + (long long)stages * stage_bytes;
   // two buffers each: u of every cell, the chunk's y, and for the pair x2
   // and the cells' (c1, c2); then what the geometry keeps (Geo::after)
-  T* ub = reinterpret_cast<T*>(ring + (long long)stages * stage_bytes);
+  T* ub = reinterpret_cast<T*>(xa + (Rows::XBULK ? NN * xslot : 0));
   T* yb = ub + 2 * cpb * NNN;
   T* x2b = yb + 2 * rows;
   T* cb = x2b + 2 * rows;
@@ -327,6 +362,19 @@ __device__ __forceinline__ void pencil_walk(
   auto table_ids = [&](int q) {                  // chunk q's row ids
     return lines.ids + (seg0 + pencil(q)) * NN;
   };
+  // the aligned span of x's z-line run rr of chunk row r (XBULK), cut back
+  // at x's end, whose last bytes the threads then read themselves
+  auto xspan = [&](const long long* r, int rr, long long& off,
+                   long long& stop) {
+    if constexpr (Rows::XBULK) {
+      const long long s0 =
+          (long long)lines.template base<N>(r, nullptr, rr) * sizeof(T);
+      const long long e0 = s0 + (r[1] * P + 1) * (long long)sizeof(T);
+      off = s0 & ~15LL;
+      stop = (e0 + 15) & ~15LL;
+      if (stop > lines.xbytes) stop = e0 & ~15LL;
+    }
+  };
   auto issue = [&](int q) {                      // thread 0: G of chunk q
     const long long* r = row(q);
     const int s = q % stages;
@@ -334,6 +382,30 @@ __device__ __forceinline__ void pencil_walk(
     bulk_load(ring + (long long)s * stage_bytes,
               reinterpret_cast<const unsigned char*>(G) + r[2],
               (unsigned)r[3], &bars[s]);
+  };
+  // XBULK, the first warp: x of chunk q into the x area, completing on
+  // x's mbarrier (one phase a chunk), once no thread reads the last
+  // chunk's there
+  auto issue_x = [&](int q) {
+    const long long* r = row(q);
+    unsigned long long* bar = &bars[stages];
+    const unsigned char* xg = reinterpret_cast<const unsigned char*>(x1);
+    const int lanes = nthreads < XLANES ? nthreads : XLANES;
+    const unsigned mask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
+    if (tid == 0) {
+      long long bytes = 0, o, e;
+      for (int rr = 0; rr < NN; ++rr) {
+        xspan(r, rr, o, e);
+        bytes += e - o;
+      }
+      mbar_expect_tx(bar, (unsigned)bytes);
+    }
+    __syncwarp(mask);
+    for (int rr = tid; rr < NN; rr += lanes) {
+      long long o, e;
+      xspan(r, rr, o, e);
+      if (e > o) bulk_load(xa + rr * xslot, xg + o, (unsigned)(e - o), bar);
+    }
   };
 
   // The next chunk's inputs, loaded into registers before the body and
@@ -343,16 +415,17 @@ __device__ __forceinline__ void pencil_walk(
   // classes left on its nodes, and the table row of the chunk after it.
   // Consecutive threads on consecutive z.  The first face of a chunk that
   // continues a pencil is the last one's, carried in shared memory.
+  // XBULK: x comes from the x area instead, after its copies arrived.
   T xr[N], x2r[N], yr[N], cr = T(0);
   long long rowr = 0;
   int idr = 0;
   auto fetch = [&](int q) {
     const long long* r = row(q);
     const int* rq = rid(q);
-    const int n = (int)r[1], zy = q % per_pencil ? 1 : 0;
+    const int n = (int)r[1], zy = lines.starts(q % per_pencil) ? 0 : 1;
     each(n * P + 1, [&](int e, int rr, int z) {
       const int g = lines.template base<N>(r, rq, rr) + z;
-      xr[e] = x1[g];
+      if (!Rows::XBULK) xr[e] = x1[g];
       if (PAIR) x2r[e] = x2[g];
       if (z >= zy) yr[e] = y[g];
     });
@@ -360,17 +433,35 @@ __device__ __forceinline__ void pencil_walk(
     if (q + 1 < total && tid < ROW) rowr = table(q + 1)[tid];
     if (Rows::IDS && q + 1 < total && tid < NN) idr = table_ids(q + 1)[tid];
   };
-  auto put = [&](int q) {
+  // parts of put: x into the cells' u, and the rest (XBULK puts x once
+  // the chunk's copies have arrived, the rest with the others)
+  constexpr int PUT_X = 1, PUT_REST = 2, PUT_ALL = 3;
+  auto put = [&](int q, int part) {
     const long long* r = row(q);
-    const int b = q & 1, n = (int)r[1], zy = q % per_pencil ? 1 : 0;
+    const int b = q & 1, n = (int)r[1], len = n * P + 1;
+    const int zy = lines.starts(q % per_pencil) ? 0 : 1;
     T* u = ub + b * cpb * NNN;
-    each(n * P + 1, [&](int e, int rr, int z) {
+    each(len, [&](int e, int rr, int z) {
+      if (part & PUT_REST) {
+        if (PAIR) x2b[b * rows + rr * lmax + z] = x2r[e];
+        if (z >= zy) yb[b * rows + rr * lmax + z] = yr[e];
+      }
+      if (!(part & PUT_X)) return;
+      T v = xr[e];
+      if constexpr (Rows::XBULK) {
+        long long o, stop;
+        xspan(r, rr, o, stop);
+        const long long g = lines.template base<N>(r, nullptr, rr) + z;
+        const long long at = g * (long long)sizeof(T);
+        v = at + (long long)sizeof(T) > stop
+                ? x1[g]
+                : *reinterpret_cast<const T*>(xa + rr * xslot + (at - o));
+      }
       const int cl = z / P, kk = z - cl * P;
-      if (cl < n) u[cl * NNN + rr * N + kk] = xr[e];
-      if (kk == 0 && cl > 0) u[(cl - 1) * NNN + rr * N + P] = xr[e];
-      if (PAIR) x2b[b * rows + rr * lmax + z] = x2r[e];
-      if (z >= zy) yb[b * rows + rr * lmax + z] = yr[e];
+      if (cl < n) u[cl * NNN + rr * N + kk] = v;
+      if (kk == 0 && cl > 0) u[(cl - 1) * NNN + rr * N + P] = v;
     });
+    if (!(part & PUT_REST)) return;
     if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = cr;
     if (q + 1 < total && tid < ROW) row(q + 1)[tid] = rowr;
     if (Rows::IDS && q + 1 < total && tid < NN) rid(q + 1)[tid] = idr;
@@ -381,7 +472,8 @@ __device__ __forceinline__ void pencil_walk(
     const long long* r = row(q);
     const int* rq = rid(q);
     const int b = q & 1, len = (int)r[1] * P + 1;
-    const bool more = (q + 1) % per_pencil != 0;
+    const bool more = (q + 1) % per_pencil != 0 &&
+                      !lines.starts((q + 1) % per_pencil);
     each(len, [&](int, int rr, int z) {
       const T v = yb[b * rows + rr * lmax + z];
       if (more && z == len - 1)
@@ -396,17 +488,24 @@ __device__ __forceinline__ void pencil_walk(
   if (tid < ROW) row(0)[tid] = table(0)[tid];
   if (Rows::IDS && tid < NN) rid(0)[tid] = table_ids(0)[tid];
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+    for (int s = 0; s < nbars; ++s) mbar_init(&bars[s], 1);
     mbar_init_fence();
   }
   __syncthreads();                   // D, the first row, the mbarriers
   const Geo geo(gb, cpb, j, k);
   fetch(0);
-  put(0);
+  put(0, Rows::XBULK ? PUT_REST : PUT_ALL);
   __syncthreads();                   // the first chunk's inputs, row 1
-  if (tid == 0)
+  if (Geo::RING && tid == 0)
     for (int q = 0; q < min(stages, total); ++q) issue(q);
+  if (Rows::XBULK) {                 // its x, once its copies arrived
+    if (tid < XLANES) issue_x(0);
+    mbar_wait(&bars[stages], 0u);
+    put(0, PUT_X);
+    fence_proxy_async();             // read before the next copy lands
+  }
 
+  bool stored = false;               // chunk q - 1's y already went out
   for (int q = 0; q < total; ++q) {
     const long long* r = row(q);
     const long long cell0 = r[0], off = r[2];
@@ -415,21 +514,28 @@ __device__ __forceinline__ void pencil_walk(
 
     // G of the chunk: the copy's span, and past it (only at G's end) the
     // bytes that the aligned span stopped short of, read here
-    const int s = q % stages;
+    const int s = Geo::RING ? q % stages : 0;
     unsigned char* stage = ring + (long long)s * stage_bytes;
-    read_span_tail(stage, G, (cell0 + n) * CB, off, r[3], tid, nthreads);
-    mbar_wait(&bars[s], (unsigned)((q / stages) & 1));
+    if (Geo::RING) {
+      read_span_tail(stage, G, (cell0 + n) * CB, off, r[3], tid, nthreads);
+      mbar_wait(&bars[s], (unsigned)((q / stages) & 1));
+    }
     __syncthreads();                 // the chunk's G arrived, its inputs
                                      // are in place, the last one's adds
                                      // are done
     // no one reads or writes the last chunk's stage again (every thread
     // fenced its f1, f2 writes there): refill it, `stages` chunks ahead
-    if (tid == 0 && q > 0 && q - 1 + stages < total) issue(q - 1 + stages);
+    if (Geo::RING && tid == 0 && q > 0 && q - 1 + stages < total)
+      issue(q - 1 + stages);
+    // no one reads this chunk's x in the x area again: the next one's
+    if (Rows::XBULK && tid < XLANES && q + 1 < total) issue_x(q + 1);
 
-    // the last chunk's y out (its face carried into this one's buffer);
-    // for the pair, u = c1 x1 + c2 x2 on this thread's own line
+    // the last chunk's y out (its face carried into this one's buffer),
+    // unless it went out before this chunk's inputs were fetched; for the
+    // pair, u = c1 x1 + c2 x2 on this thread's own line
     const bool active = lc < n;
-    if (q > 0) store(q - 1);
+    if (q > 0 && !stored) store(q - 1);
+    stored = false;
     if (PAIR && active) {
       const T c1 = cb[b * 2 * cpb + 2 * lc], c2 = cb[b * 2 * cpb + 2 * lc + 1];
 #pragma unroll
@@ -441,17 +547,33 @@ __device__ __forceinline__ void pencil_walk(
     if (Geo::BARRIERS)
       __syncthreads();               // the carried face in place; the last
                                      // chunk's buffers are free
-    if (q + 1 < total) fetch(q + 1);
+    // the next chunk's inputs now, or, where it shares nodes with this one
+    // beyond the carried face, after this chunk's y is out
+    const bool drain = q + 1 < total && (q + 1) % per_pencil != 0 &&
+                       lines.drains((q + 1) % per_pencil);
+    if (q + 1 < total && !drain) fetch(q + 1);
 
     // the body, adding into the chunk's y buffer: even cells, then odd
     T* Gc = reinterpret_cast<T*>(stage + (cell0 * CB - off)) + lc * Geo::CELL;
     const auto cell = geo.cell(Gc, lc);
-    cell_apply<T, N, false, STAGED>(
+    cell_apply<T, N, false, Geo::BODY>(
         x1, x2, T(1), T(0), cell.metric, Ds, u, cell.f1, cell.f2,
         yb + b * rows, active, ZLine{j * lmax + lc * P + k, N * lmax},
         n > 1 ? (lc & 1) : 0, n > 1 ? 2 : 1);
-    if (q + 1 < total) put(q + 1);
-    fence_proxy_async();             // f1, f2 before the stage's refill
+    if (drain) {
+      __syncthreads();               // this chunk's adds are done
+      store(q);
+      stored = true;
+      __syncthreads();               // and out, before the next one reads y
+      fetch(q + 1);
+    }
+    if (q + 1 < total) {
+      if (Rows::XBULK)               // the next chunk's x arrived
+        mbar_wait(&bars[stages], (unsigned)((q + 1) & 1));
+      put(q + 1, PUT_ALL);
+    }
+    fence_proxy_async();             // f1, f2 (and x's reads) before the
+                                     // refills
   }
   __syncthreads();                   // the last chunk's adds are done
   store(total - 1);

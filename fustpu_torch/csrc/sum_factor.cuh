@@ -92,8 +92,17 @@ struct GShared {
 //              read) instead of added into y; y and line unused;
 //   POINTWISE  the x load, the metric and the scatter only: the 1-D
 //              contractions become the identity, w = (u, u, u), and the
-//              metric's three outputs are summed into the node.
-enum Body { FULL = 0, STAGED = 1, POINTWISE = 2, STAGED_STORE = 3 };
+//              metric's three outputs are summed into the node;
+//   STAGED_POINTWISE  POINTWISE on a staged u, its sums added in turns
+//              (the anatomy's `gstream` on the z-pencil walk,
+//              anatomy_walk.cuh); no barrier but the turns'.
+enum Body {
+  FULL = 0,
+  STAGED = 1,
+  POINTWISE = 2,
+  STAGED_STORE = 3,
+  STAGED_POINTWISE = 4
+};
 
 // Must be reached by every thread of the block (it synchronises twice, or
 // not at all for POINTWISE); threads of an inactive cell slot (`active`
@@ -120,7 +129,8 @@ __device__ __forceinline__ void cell_apply(
   if (active) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      if constexpr (BODY == STAGED || BODY == STAGED_STORE) {
+      if constexpr (BODY == STAGED || BODY == STAGED_STORE ||
+                    BODY == STAGED_POINTWISE) {
         ul[i] = u[i * NN + t];
       } else {
         T v = x1[line(i)];
@@ -129,6 +139,25 @@ __device__ __forceinline__ void cell_apply(
         if constexpr (BODY == FULL) u[i * NN + t] = v;
       }
     }
+  }
+  if constexpr (BODY == STAGED_POINTWISE) {
+    T acc[N];
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        T a, b, c;
+        metric(i, i * NN + t, ul[i], ul[i], ul[i], a, b, c);
+        acc[i] = a + b + c;
+      }
+    }
+    for (int s = 0; s < turns; ++s) {
+      if (s > 0) __syncthreads();  // the earlier turn's adds are visible
+      if (active && s == turn) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) y[line(i)] += acc[i];
+      }
+    }
+    return;
   }
   if constexpr (BODY == POINTWISE) {
     if (active) {

@@ -142,11 +142,12 @@ def main(argv=None) -> dict:
                             nc=mesh.nc)
     forms = {
         "single": dict(op=base, xs=(x1,), kernels={
-            "parity": lambda o, xs: anatomy.variant(o, xs[0], "full"),
+            "parity": lambda o, xs: anatomy.variant_classes(o, xs[0],
+                                                            "full"),
             "pencil": lambda o, xs: cs.stiffness(o, xs[0])},
             plain=lambda o, xs: cs.stiffness_plain(o, xs[0])),
         "pair": dict(op=base._replace(C=t(C)), xs=(x1, x2), kernels={
-            "parity": lambda o, xs: anatomy.full_pair(o, *xs),
+            "parity": lambda o, xs: anatomy.full_pair_classes(o, *xs),
             "pencil": lambda o, xs: cs.stiffness_pair(o, *xs)},
             plain=lambda o, xs: cs.stiffness_pair_plain(o, *xs))}
     print(f"mesh {tuple(mesh.nc)} cells, P={args.degree}, {mesh.ndofs} DOF, "

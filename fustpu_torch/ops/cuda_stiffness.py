@@ -30,7 +30,8 @@ kernel takes it as arguments.  No tensor cores: the 5 x 5 contractions are
 bound by bytes, and TF32 would break the float32 gate of 1e-6.  The
 parity-class design of the same kernels (eight parity classes of scattered
 cells, which the pencil kernel replaced) is
-``fustpu_torch.ops.anatomy``'s ``full`` and `anatomy.full_pair`.
+``fustpu_torch.ops.anatomy``'s ``full`` and `full_pair` of its
+``classes`` design.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (`stiffness_plain` / `stiffness_pair_plain`, the matmul formulation of
@@ -225,13 +226,16 @@ def _steps(nc, cpb: int, blocks: int) -> int:
 
 def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
                     occupancy=model_occupancy, channels: int = 0,
-                    cpb: int | None = None) -> PencilSchedule:
+                    cpb: int | None = None, layout=None,
+                    stages: int = STAGES) -> PencilSchedule:
     """The launch of one apply on a card of `sms` SMs, for nc cells of
     degree P in a dtype of `itemsize` bytes; `occupancy(P, itemsize, pair,
     cpb, smem)` gives the blocks an SM holds (the card's answer is 0 for a
     block beyond the kernel's launch bounds); `channels`: the corner
     stream's channels a cell (its layout, ``pencil_smem``), G's stream
-    when 0; `cpb` fixes the cells a chunk.
+    when 0; `cpb` fixes the cells a chunk; `layout(cpb)` -> (bytes a
+    stage, shared bytes) replaces ``pencil_smem``'s for another policy of
+    the walk (``ops/anatomy.py``), with `stages` stages of the ring.
 
     - cells a chunk: the cpb that makes the apply shortest, its length taken
       as the chunks that the busiest block of each class walks (`_steps`)
@@ -256,7 +260,8 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
     for c in [cpb] if cpb else range(1, max(1, MAX_THREADS // (n * n)) + 1):
         if c > ncz:
             break
-        stage, smem = pencil_smem(P, itemsize, c, pair, channels=channels)
+        stage, smem = (layout(c) if layout else
+                       pencil_smem(P, itemsize, c, pair, channels=channels))
         if smem + _static_smem(P, itemsize) > SMEM_BLOCK:
             break
         bps = int(occupancy(P, itemsize, pair, c, smem))
@@ -291,7 +296,7 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
     sx = (ncy * P + 1) * gz
     a, b, c = cell0 // (ncy * ncz), (cell0 // ncz) % ncy, cell0 % ncz
     return PencilSchedule(
-        cpb=cpb, stages=STAGES, stage_bytes=stage, smem=smem,
+        cpb=cpb, stages=stages, stage_bytes=stage, smem=smem,
         blocks_per_sm=bps, blocks=bps * sms,
         classes=np.asarray(classes, np.int64).reshape(-1, 3),
         chunks=np.stack([cell0, ncell, off, nbytes,

@@ -1,0 +1,126 @@
+"""Registers and spills of the kernels in CUDA sources, as ptxas reports
+them, for one degree.
+
+    python -m fustpu_torch.tools.kernel_resources [--csrc DIR]
+        [--degree 4] [--match pencil_kernel,corner_kernel] [source.cu ...]
+
+Compiles each source (default: every ``*.cu`` of --csrc, this package's
+``csrc`` unless given) with the build's own flags plus ``-Xptxas -v``,
+one nvcc a source, all started together, and prints for every kernel
+instantiated at N = degree + 1 whose name holds one of the --match words:
+its source, its demangled name, registers a thread, spill stores and
+loads, and stack frame bytes; then one JSON object of the same rows.
+--csrc may name the sources of another checkout (for instance the parent
+commit unpacked with ``git archive``), so that two trees are compared
+under one toolkit.  Needs nvcc; the objects go to a temporary directory
+and are removed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+from fustpu_torch import _build
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)' for")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+
+
+def parse(text: str) -> list[dict]:
+    """The ptxas -v report of one compilation: one row per entry
+    function, its mangled name, registers, spills and stack frame."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = dict(mangled=m.group(1), registers=None, stack=None,
+                       spill_stores=None, spill_loads=None)
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def demangle(names: list[str], nvcc: str) -> list[str]:
+    """cu++filt (beside nvcc) on the names, or the names unchanged."""
+    tool = Path(nvcc).with_name("cu++filt")
+    if not tool.exists():
+        found = shutil.which("cu++filt")
+        if not found:
+            return names
+        tool = Path(found)
+    out = subprocess.run([str(tool)], input="\n".join(names),
+                         capture_output=True, text=True)
+    got = out.stdout.splitlines()
+    return got if out.returncode == 0 and len(got) == len(names) else names
+
+
+def report(sources: list[Path]) -> list[dict]:
+    """Every kernel of the sources with its resources, by source."""
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = [[nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 str(Path(tmp) / f"{src.stem}.o"), str(src)]
+                for src in sources]
+        jobs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for cmd in cmds]
+        rows = []
+        for src, job in zip(sources, jobs):
+            text, _ = job.communicate()
+            if job.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{text}")
+            for row in parse(text):
+                rows.append(dict(source=src.name, **row))
+    names = demangle([r["mangled"] for r in rows], nvcc)
+    for row, name in zip(rows, names):
+        row["name"] = name
+    return rows
+
+
+def main(argv=None) -> list[dict]:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("sources", nargs="*",
+                   help="source file names in --csrc (default: all)")
+    p.add_argument("--csrc", type=Path, default=_build.CSRC)
+    p.add_argument("--degree", type=int, default=4)
+    p.add_argument("--match", default="pencil_kernel,corner_kernel",
+                   help="comma list of words, one of which a kernel's "
+                        "name must hold")
+    args = p.parse_args(argv)
+    sources = ([args.csrc / s for s in args.sources] if args.sources
+               else sorted(args.csrc.glob("*.cu")))
+    words = [w for w in args.match.split(",") if w]
+    n = args.degree + 1
+    rows = [r for r in report(sources)
+            if f"Li{n}E" in r["mangled"]
+            and any(w in r["name"] for w in words)]
+    for r in rows:
+        print(f"{r['source']:22s} {r['registers']:4d} registers, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+              f"spill loads, {r['stack']} B stack: {r['name']}", flush=True)
+    print(json.dumps({"csrc": str(args.csrc), "degree": args.degree,
+                      "kernels": [{k: r[k] for k in (
+                          "source", "name", "registers", "spill_stores",
+                          "spill_loads", "stack")} for r in rows]}))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

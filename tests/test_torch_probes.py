@@ -1,10 +1,12 @@
 """The port's measurement kernels against the JAX package: the kernel
-anatomy variants (``ops/anatomy``, kernel #13), the G layout sum and the
-relayout permutations (``ops/probes``, kernels #12 and #14).  Their plain
-versions against the JAX package's matmul operator, the JAX demos' own
-kernels in interpret mode and numpy, on the CPU; the three experiment
-demos on the CPU; and, on a card, the CUDA kernels against the plain
-versions.
+anatomy variants (``ops/anatomy``, kernel #13, on the z-pencil walk and
+on the parity-class design), the G layout sum and the relayout
+permutations (``ops/probes``, kernels #12 and #14).  Their plain versions
+against the JAX package's matmul operator, the JAX demos' own kernels in
+interpret mode and numpy, on the CPU; the anatomy's dispatch by design,
+its pencil schedule against #1's, and an f64 emulation of `gstream` in
+the walk's order; the three experiment demos on the CPU; and, on a card,
+the CUDA kernels against the plain versions.
 
 ``demos/exp_kernel_anatomy.make_variant`` cannot run as committed (it
 unpacks 11 refs where ``_split_mats`` gives 4 matrices), so the anatomy
@@ -94,6 +96,155 @@ def test_anatomy_rejects_an_unknown_variant():
         anatomy.variant(_op(mesh, G), torch.as_tensor(x), "vpu")
 
 
+@pytest.mark.parametrize("design", anatomy.DESIGNS)
+@pytest.mark.parametrize("name", anatomy.VARIANTS)
+def test_anatomy_dispatch_on_cpu(name, design):
+    """Either design's wrapper takes the plain version for a CPU tensor;
+    `variant_classes` / `full_pair_classes` are the classes design."""
+    mesh, G, x = _case(2)
+    op, xt = _op(mesh, G), torch.as_tensor(x)
+    y = anatomy.variant(op, xt, name, design)
+    assert torch.equal(y, anatomy.variant_plain(op, xt, name))
+    assert torch.equal(anatomy.variant_classes(op, xt, name), y)
+    C = torch.as_tensor(np.random.default_rng(1).uniform(
+        0.5, 2.0, (mesh.num_cells, 2)))
+    pop = op._replace(C=C)
+    want = cs.stiffness_pair_plain(pop, xt, 2 * xt)
+    assert torch.equal(anatomy.full_pair(pop, xt, 2 * xt, design), want)
+    assert torch.equal(anatomy.full_pair_classes(pop, xt, 2 * xt), want)
+    assert anatomy.counter(name, design) in anatomy.launches
+
+
+def test_anatomy_rejects_an_unknown_design():
+    mesh, G, x = _case(2)
+    op, xt = _op(mesh, G), torch.as_tensor(x)
+    with pytest.raises(ValueError, match="design 'lanes'"):
+        anatomy.variant(op, xt, "full", "lanes")
+    with pytest.raises(ValueError, match="design 'lanes'"):
+        anatomy.full_pair(op, xt, xt, "lanes")
+    with pytest.raises(ValueError, match="expected one of"):
+        anatomy.variant_schedule((2, 2, 2), 2, 8, 132, "vpu")
+
+
+def test_pencil_variants_refuse_before_any_launch(monkeypatch):
+    """On card tensors the walk's variants launch or raise: misaligned G
+    or x, a field of the wrong dtype or shape raise before the kernel
+    library is loaded or a schedule built."""
+    from fustpu_torch import _build
+
+    class OnCard(torch.Tensor):
+        is_cpu = False
+        is_cuda = True
+        device = torch.device("cuda", 0)
+
+        def get_device(self):
+            return 0
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the variant reached the kernel library")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(anatomy, "_card_schedule", refuse)
+    mesh, G, x = _case(2)
+    op = _op(mesh, G)
+    card = op._replace(G=op.G.as_subclass(OnCard), D=op.D.as_subclass(OnCard))
+    xc = torch.as_tensor(x).as_subclass(OnCard)
+    base = torch.zeros(op.G.numel() + 1, dtype=F64)
+    base[1:].copy_(op.G.reshape(-1))
+    shifted = card._replace(G=base[1:].view(op.G.shape).as_subclass(OnCard))
+    xbase = torch.zeros(xc.numel() + 1, dtype=F64)
+    xbase[1:].copy_(torch.as_tensor(x).reshape(-1))
+    xshift = xbase[1:].view(xc.shape).as_subclass(OnCard)
+    for name in anatomy.VARIANTS:
+        for o, xx, match in (
+                (card, xc.to(torch.float32).as_subclass(OnCard), "G is"),
+                (card, xc.reshape(-1)[1:].as_subclass(OnCard), "shape"),
+                (shifted, xc, "16 B"), (card, xshift, "16 B")):
+            with pytest.raises(ValueError, match=match):
+                anatomy.variant(o, xx, name)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("P", range(2, 11))
+def test_variant_schedules_follow_the_pencil_schedule(P, itemsize):
+    """full, gstream and ywin run #1's chunk table and classes
+    (`pencil_schedule` of the box); gstream in #1's shared bytes, ywin in
+    more (an area of x's z-line runs); contract reserves no ring (no
+    stage, fewer shared bytes than #1's block of the same cells) and takes
+    its own cells a chunk, the fewest chunk steps and on a tie the smaller
+    chunk: its table is #1's at that cpb.  Stated: at the flagship's 64 x
+    40 x 40 cells, P = 4, float32, under the model occupancy, contract
+    takes 10 cells a chunk, #1 5 (on the card the occupancy answer, which
+    counts registers, decides)."""
+    for nc in ((3, 2, 4), (1, 1, 1), (2, 3, 29), (32, 32, 32), (64, 40, 40)):
+        base = cs.pencil_schedule(nc, P, itemsize, 132)
+        for name in anatomy.VARIANTS:
+            s = anatomy.variant_schedule(nc, P, itemsize, 132, name)
+            assert s.smem + cs._static_smem(P, itemsize) <= 232_448
+            if name == "contract":
+                assert s.stages == 0 and s.stage_bytes == 0
+                assert s.smem < cs.pencil_smem(P, itemsize, s.cpb)[1]
+                ref = cs.pencil_schedule(
+                    nc, P, itemsize, 132, cpb=s.cpb, stages=0,
+                    layout=lambda c: anatomy.variant_smem(
+                        P, itemsize, c, "contract")[1:])
+                steps = {c: cs._steps(nc, c, anatomy.variant_schedule(
+                    nc, P, itemsize, 132, name, cpb=c).blocks)
+                    for c in range(1, min(nc[2], 256 // (P + 1) ** 2) + 1)}
+                assert (steps[s.cpb], s.cpb) == min(
+                    (v, c) for c, v in steps.items())
+                assert np.array_equal(s.classes, ref.classes)
+                assert np.array_equal(s.chunks[:, [0, 1, 4]],
+                                      ref.chunks[:, [0, 1, 4]])
+                continue
+            assert s.cpb == base.cpb and s.stages == base.stages
+            assert np.array_equal(s.classes, base.classes)
+            assert np.array_equal(s.chunks, base.chunks)
+            assert s.stage_bytes == base.stage_bytes
+            assert (s.smem > base.smem) == (name == "ywin")
+    if P == 4 and itemsize == 4:
+        assert anatomy.variant_schedule((64, 40, 40), 4, 4, 132,
+                                        "contract").cpb == 10
+        assert cs.pencil_schedule((64, 40, 40), 4, 4, 132).cpb == 5
+
+
+@pytest.mark.parametrize("small_card", [False, True],
+                         ids=["132-sms", "two-cell-chunks"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_gstream_walk_order_matches_plain(P, small_card):
+    """gstream's adds in the walk's order (its schedule's classes, chunks
+    and turns: even cells of a chunk, then odd), emulated in float64,
+    against `gstream_plain`: on a card of 132 SMs (one chunk a pencil) and
+    on one that holds a block of 2 cells (chunks of 2, 2 and 1)."""
+    mesh, G, x = _case(P, (3, 2, 5))
+    op, xt = _op(mesh, G), torch.as_tensor(x)
+    occ = (lambda *a: int(a[3] == 2)) if small_card else cs.model_occupancy
+    sched = anatomy.variant_schedule(mesh.nc, P, 8, 1 if small_card else 132,
+                                     "gstream", occ, occ)
+    assert sched.classes[0, 2] == (3 if small_card else 1)
+    n = P + 1
+    _, ncy, ncz = mesh.nc
+    g = op.G.reshape(-1, 6, n, n, n)
+    w = g[:, 0] + 2 * g[:, 1] + 2 * g[:, 2] + g[:, 3] + 2 * g[:, 4] + g[:, 5]
+    r = torch.arange(n)
+    y = torch.zeros_like(xt)
+    for first, pencils, per in sched.classes:
+        for q in range(per):
+            rows = sched.chunks[first + np.arange(pencils) * per + q]
+            for turn in (0, 1):
+                cells = torch.as_tensor([c0 + i for c0, m, *_ in rows
+                                         for i in range(turn, m, 2)])
+                if cells.numel() == 0:
+                    continue
+                a, b, c = cells // (ncy * ncz), (cells // ncz) % ncy, \
+                    cells % ncz
+                idx = ((a * P)[:, None, None, None] + r[:, None, None],
+                       (b * P)[:, None, None, None] + r[:, None],
+                       (c * P)[:, None, None, None] + r)
+                y.index_put_(idx, w[cells] * xt[idx], accumulate=True)
+    assert rel(y, anatomy.gstream_plain(op, xt)) <= TOL
+
+
 @pytest.fixture
 def g_layout_demo(monkeypatch):
     """The JAX demo's module at a small G (3 x-cells, n = 3, a 6 x 12
@@ -166,7 +317,7 @@ def test_demos_on_cpu(capsys):
     against its plain version, and the CPU named as the clock."""
     a = exp_kernel_anatomy.main(["--nc", "2", "--degree", "2", "--device",
                                  "cpu", "--chain", "1", "--reps", "1"])
-    assert set(a["outs"]) == set(anatomy.VARIANTS)
+    assert set(a["outs"]["pencil"]) == set(exp_kernel_anatomy.NAMES)
     g = exp_g_layout.main(["--nc", "2", "--degree", "2", "--device", "cpu",
                            "--chain", "1", "--reps", "1"])
     assert rel(g["outs"]["cells"], g["outs"]["components"]) <= F32_TOL
@@ -180,12 +331,36 @@ def test_demos_on_cpu(capsys):
     assert text.count("host clock on the CPU") == 3
 
 
+def test_exp_kernel_anatomy_designs_on_cpu(capsys):
+    """The anatomy demo on three cell counts with both designs in turns
+    (classes, pencil, pencil, classes) on the CPU: every variant and
+    full_pair its plain version's output, two turns a design."""
+    out = exp_kernel_anatomy.main(["--device", "cpu", "--nc", "4", "3", "2",
+                                   "--design", "both", "--chain", "1",
+                                   "--reps", "1"])
+    assert out["mesh"].nc == (4, 3, 2)
+    for design in anatomy.DESIGNS:
+        assert set(out["outs"][design]) == set(exp_kernel_anatomy.NAMES)
+        for name in exp_kernel_anatomy.NAMES:
+            assert torch.equal(out["outs"][design][name],
+                               out["plains"][name])
+            assert len(out["times"][design][name]) == 2
+    text = capsys.readouterr().out
+    assert "pencil: full - gstream - contract" in text
+    assert "classes: full - gstream - contract" in text
+    with pytest.raises(SystemExit):
+        exp_kernel_anatomy.main(["--device", "cpu", "--design", "lanes"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", range(2, 11))
 def test_anatomy_kernels_match_plain_on_card(P):
-    """Each anatomy variant's kernel against its plain version (float64 to
-    1e-12, float32 to 1e-6 against the float64 plain version); ywin against
-    the production kernel on the same buffers."""
+    """Each anatomy variant's kernel, in both designs, against its plain
+    version (float64 to 1e-12, float32 to 1e-6 against the float64 plain
+    version), two applies bitwise; on the walk full and ywin bitwise the
+    production kernel (`cuda_stiffness.stiffness`) and full_pair bitwise
+    `stiffness_pair` on the same buffers; ywin of the classes design
+    against the production kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
     mesh, G, x = _case(P, (3, 4, 5) if P <= 6 else (2, 3, 3))
@@ -197,14 +372,31 @@ def test_anatomy_kernels_match_plain_on_card(P):
         for dtype, tol in ((F64, TOL), (torch.float32, F32_TOL)):
             op = _op(mesh, G, dtype, "cuda")
             xd = torch.as_tensor(x, dtype=dtype, device="cuda")
-            y = anatomy.variant(op, xd, name)
-            torch.cuda.synchronize()
-            assert rel(y.cpu(), want) <= tol, (name, dtype)
-            if name == "ywin":
-                assert rel(y.cpu(), cs.stiffness(op, xd).cpu()) <= tol
-    for name in ("gstream", "contract", "ywin"):
-        assert anatomy.launches[f"anatomy_{name}"] == \
-            before[f"anatomy_{name}"] + 2
+            prod = cs.stiffness(op, xd)
+            for design in anatomy.DESIGNS:
+                y = anatomy.variant(op, xd, name, design)
+                torch.cuda.synchronize()
+                assert rel(y.cpu(), want) <= tol, (name, design, dtype)
+                assert torch.equal(anatomy.variant(op, xd, name, design), y)
+                if design == "pencil" and name in ("full", "ywin"):
+                    assert torch.equal(y, prod), (name, dtype)
+                elif name == "ywin":
+                    assert rel(y.cpu(), prod.cpu()) <= tol
+    for dtype in (F64, torch.float32):
+        C = np.random.default_rng(P).uniform(0.5, 2.0, (mesh.num_cells, 2))
+        op = _op(mesh, G, dtype, "cuda")._replace(
+            C=torch.as_tensor(C, dtype=dtype, device="cuda"))
+        xd = torch.as_tensor(x, dtype=dtype, device="cuda")
+        y2 = anatomy.full_pair(op, xd, 2 * xd)
+        assert torch.equal(y2, cs.stiffness_pair(op, xd, 2 * xd))
+        want = cs.stiffness_pair_plain(op, xd, 2 * xd)
+        assert rel(anatomy.full_pair_classes(op, xd, 2 * xd).cpu(),
+                   want.cpu()) <= (TOL if dtype == F64 else F32_TOL)
+    for name in (*anatomy.VARIANTS, "full_pair"):
+        for design in anatomy.DESIGNS:
+            k = anatomy.counter(name, design)
+            assert anatomy.launches[k] == before[k] + (
+                2 if name == "full_pair" else 4), k
 
 
 @pytest.mark.cuda

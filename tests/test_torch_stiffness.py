@@ -376,9 +376,9 @@ def test_kernels_match_plain_on_card(P):
     """The pencil kernels vs the plain version on the card (float64 to 1e-12,
     float32 to 1e-6 against the float64 plain version), two applies bitwise
     equal, and against the parity-class kernel (anatomy's full and
-    full_pair) to 1e-14 in float64; on an odd box, one cell (the bulk
-    copy's span cut back at G's end) and a long odd pencil (several chunks
-    a pencil)."""
+    full_pair of its classes design) to 1e-14 in float64; on an odd box,
+    one cell (the bulk copy's span cut back at G's end) and a long odd
+    pencil (several chunks a pencil)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
     from fustpu_torch.ops import anatomy
@@ -413,8 +413,8 @@ def test_kernels_match_plain_on_card(P):
             assert torch.equal(cs.stiffness(o1, a), y)
             assert torch.equal(cs.stiffness_pair(o2, a, b), y2)
             if dtype == F64:
-                old = anatomy.variant(o1, a, "full")
-                old2 = anatomy.full_pair(o2, a, b)
+                old = anatomy.variant_classes(o1, a, "full")
+                old2 = anatomy.full_pair_classes(o2, a, b)
                 assert rel(y.cpu(), old.cpu()) <= 1e-14
                 assert rel(y2.cpu(), old2.cpu()) <= 1e-14
     assert cs.launches["stiffness"] == before["stiffness"] + 4 * len(shapes)

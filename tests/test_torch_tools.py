@@ -1,9 +1,15 @@
 """The step profiler's trace reduction (fustpu_torch.tools.profile_step) on
-a hand-made Chrome trace: grouping, launch counts and the busy union."""
+a hand-made Chrome trace: grouping, launch counts and the busy union; the
+ptxas report's parser (fustpu_torch.tools.kernel_resources) on a
+hand-made report; and the two-checkout turns (fustpu_torch.tools.turns)
+on a command that prints its checkout."""
+
+import sys
 
 import pytest
 import torch
 
+from fustpu_torch.tools import kernel_resources, turns
 from fustpu_torch.tools.profile_step import summarize_trace
 
 torch.set_num_threads(1)
@@ -143,3 +149,47 @@ def test_summarize_trace_counts_the_engine_kernels():
     nnn = 27
     assert _stiffness_bytes(EngineStiffness(op, "cuda"), mesh.ndofs) == \
         mesh.num_cells * (6 * nnn * 4 + nnn * 4) + 3 * mesh.ndofs * 4
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN6fustpu6pencil13pencil_kernelIfLi5ELb0EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN6fustpu6pencil13pencil_kernelIfLi5ELb0EEEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 128 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN6fustpu6pencil13corner_kernelIdLi5ELb1EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN6fustpu6pencil13corner_kernelIdLi5ELb1EEEvv
+    24 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_kernel_resources_parses_ptxas_report():
+    rows = kernel_resources.parse(PTXAS)
+    assert [r["mangled"][-20:] for r in rows] == [
+        "kernelIfLi5ELb0EEEvv", "kernelIdLi5ELb1EEEvv"]
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"],
+             r["stack"]) for r in rows] == [(128, 0, 0, 0), (96, 16, 8, 24)]
+    assert kernel_resources.parse("nothing compiled") == []
+
+
+def test_turns_runs_each_checkout_in_turns(tmp_path, capsys):
+    a, b = tmp_path / "parent", tmp_path / "change"
+    for d in (a, b):
+        d.mkdir()
+        (d / "which.txt").write_text(d.name)
+    logs = turns.main(["--a", str(a), "--b", str(b), "--labels",
+                       "parent,change", "--out", str(tmp_path / "out"),
+                       "--grep", "tree", "--", sys.executable, "-c",
+                       "print('tree', open('which.txt').read())"])
+    assert [k for k in logs] == [("parent", 0), ("change", 1),
+                                 ("change", 2), ("parent", 3)]
+    assert all(out.split() == ["tree", label]
+               for (label, _), out in logs.items())
+    text = capsys.readouterr().out
+    assert "[parent 3] tree parent" in text and "[change 1] rc 0" in text
+    assert len(list((tmp_path / "out").glob("*.log"))) == 4
+    with pytest.raises(SystemExit, match="failed"):
+        turns.main(["--a", str(a), "--b", str(b), "--out",
+                    str(tmp_path / "out"), "--", sys.executable, "-c",
+                    "raise SystemExit(3)"])
