@@ -9,8 +9,9 @@ Phases (each prints its time; any failure exits non-zero):
      kernel) against the plain torch version at P = 2..10 on small odd
      meshes, float64 and float32, two applies bitwise equal, and against
      the parity-class design of the same kernels in float64;
-  4. operator throughput at P = 4, 32^3 cells, float32 (kernel, plain and
-     mass-multiply times, GDOF/s);
+  4. operator throughput at P = 4, 32^3 cells, float32, through
+     `utils.benchmarks.bench_operators`' parts (kernel, plain and
+     mass-multiply times, GDOF/s, each apply's least bytes);
   5. the linear box demo at its default size, the full run;
   6. the flagship conformal-bowl Westervelt run (--elements 64 --degree 4,
      float32, 6,661,697 DOF): 10 steps kernel vs plain, then the whole
@@ -95,7 +96,11 @@ Phases (each prints its time; any failure exits non-zero):
      ranks, after 21b): in one process group, the flagship on a (2, 2, 1)
      grid for 50 steps, the two-layer flagship and the flagship in corner
      mode for 20 (22a-c), the imported bowl and the bodyfit bowl (indexed
-     and indexed_engine) for 20 (22d-e); then the flagship on nccl at world
+     and indexed_engine) for 20 (22d-e), time_halo's 16^3 P=4 Westervelt
+     box on a (4, 1, 1) grid for 20 with and without the exchange (22g:
+     without it the owners of the shared entries must disagree and u
+     differ from the one-rank run and from the exchanged one; ms/step of
+     both and the exchange's share); then the flagship on nccl at world
      size 1 (22f); each against the one-rank model over the same steps (u
      and the probe traces), with ms/step, the exchange's ms per stage and
      every rank's launches of each of its kernels.  Each model is saved for
@@ -170,10 +175,30 @@ Phases (each prints its time; any failure exits non-zero):
      the anatomy's four variants and full_pair in both designs, each with
      ms and its share of the bound, full - gstream - contract for each
      design; every gate a hard failure (run right after phase 26).
+ 32. the measurement modules and their demos, float32 unless stated,
+     every gate a hard failure (run after phase 31; f-h right after 21b):
+     the triad c = c*d + e over 256 MiB arrays, a 2 GiB copy and the
+     4096^3 matmul in bf16 and in f32 with TF32 off, each at most 105% of
+     the published peak (32a); time_operators at P = 2..6 on 32^3, #1
+     against its plain version (32b); exp_degree_sweep at P = 2..10, each
+     against its plain version, and, after phase 19, #1 in float64 on a
+     2^3 box against the dense oracle (``fustpu_torch.oracle``, 1e-12),
+     which a process of its own computes from phase 5 on (32c);
+     bench_rk4_step on the 32^3 Westervelt and linear boxes, #1 launched
+     4 x steps, the state finite (32d); exp_kernel_speed f32 4 2, its four
+     formulations pairwise (32e); on phase 13a's bodyfit bowl,
+     exp_engine_mesh (the engine apply against #11), exp_indexed_pair
+     (the pair against two singles on each route) and exp_sharded_engine
+     at k = 2 and 4 (the parts' scattered sum against the one-device
+     pair) (32f-h);
+     exp_isoparametric_bowl at --elements 24 --periods 3: #6 launched 4 x
+     steps in each run, the fields finite, both focal |p| within 2% of
+     the JAX package's recorded values and the hex27 one the larger (32i).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, in every
-rank of 22 its solve, and the demos of 24, 25, 26, 27a, 28 and 31 and the
-turns of 29) has the launch counters reset just before it and read just after.
+rank of 22 its solve, and the demos of 24, 25, 26, 27a, 28, 31 and 32b-i and
+the turns of 29) has the launch counters reset just before it and read just
+after.
 The script's total time is printed after the last phase; then the
 kernels' JSON summary, the card's name and power limit, and as the last
 line the result.
@@ -182,6 +207,7 @@ line the result.
 from __future__ import annotations
 
 import json
+import multiprocessing as mp
 import re
 import subprocess
 import sys
@@ -230,6 +256,17 @@ BODYFIT_P6_AGREE = 0.05
 # rate and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12        # dense, in the tensor cores
+# phase 32i: the focal |p| of the JAX package's recorded isoparametric bowl
+# run (BENCH_NOTES.md:607-622: (24, 15, 15) cells, P=4, 0.3 MHz, 3 periods
+# past transit, delta +0.72%), which the port must meet within ISO_BAND;
+# the port's own float64 run of the same on the CPU read 5.4995 and 5.5584
+# MPa (-0.19%, +0.15%; delta +1.06%), so 2% leaves room for float32 and
+# the card's summation order, and a wrong geometry or source falls outside
+ISO_PEAK_PA = {"trilinear": 5.510e6, "hex27": 5.550e6}
+ISO_BAND = 0.02
+# phase 22's halo box (time_halo): one probe point inside the 1 cm box
+HALO_POINTS = np.array([[0.0052, 0.0047, 0.0051]])
 
 
 def fail(msg: str) -> None:
@@ -364,6 +401,13 @@ def main() -> None:
     from fustpu_torch.demos import (exp_g_layout, exp_imported,
                                     exp_kernel_anatomy, exp_mosaic_relayout,
                                     exp_pencil, exp_slab2w)
+    # phase 32: the measurement modules and their demos
+    from fustpu_torch.demos import (exp_degree_sweep, exp_engine_mesh,
+                                    exp_indexed_pair, exp_isoparametric_bowl,
+                                    exp_kernel_speed, exp_sharded_engine,
+                                    time_halo, time_operators)
+    from fustpu_torch.tools import profile_step
+    from fustpu_torch.utils import benchmarks as B
     from fustpu_torch.demos.common import run_demo
     from fustpu_torch.mesh import msh_io, shapes
     from fustpu_torch.mesh.box import build_box_mesh
@@ -524,7 +568,16 @@ def main() -> None:
                       f" shared entries consistent {ok}; stiffness "
                       f"{r0['stiffness']}; launches per rank {launches}",
                       flush=True)
-                if not (err <= TRAJ_TOL and perr <= TRAJ_TOL and ok):
+                if not c.get("exchange", True):
+                    # the exchange makes every owner of a shared entry hold
+                    # the same sum: without it the owners disagree, and u
+                    # leaves the one-rank run (by little while the wave has
+                    # not reached the cuts)
+                    if ok or not err > 0.0:
+                        fail(f"{name}: without the exchange the shared "
+                             f"entries are consistent ({ok}) or u equals the "
+                             f"one-rank run ({err:.3e})")
+                elif not (err <= TRAJ_TOL and perr <= TRAJ_TOL and ok):
                     fail(f"{name}: sharded vs one rank {err:.3e}, probes "
                          f"{perr:.3e}, consistent {ok}")
                 if any(la.get(k, 0) != 4 * c["steps"]
@@ -1013,26 +1066,28 @@ def main() -> None:
         if not all(cuda_slab2.launches.values()):
             fail("a slab2 kernel's launch counter did not move")
 
-    with phase("4 operator throughput, P=4 32^3 f32"):
+    with phase("4 operator throughput, P=4 32^3 f32 (bench_operators)"):
         mesh = build_box_mesh((32, 32, 32), 4)
-        disc = Discretization(mesh)
-        op = disc.stiffness_op(torch.float32, dev)
-        plain_op = cs.to_mm(op)[0]
-        diag = torch.as_tensor(disc.mass_diag_host(), dtype=torch.float32,
-                               device=dev)
-        x = torch.as_tensor(rng.standard_normal(mesh.grid_shape),
-                            dtype=torch.float32, device=dev)
-        t_k = time_ms(lambda: cs.stiffness(op, x), 50)
+        x, benches = B.operator_benches(mesh, torch.float32, dev)
+        res = {r.name: r for r in B.time_benches(mesh, x, benches,
+                                                 torch.float32)}
+        op = benches[1][2]
+        plain_op = cs.to_mm(op.cell_op)[0]
+        t_k = res["stiffness"].mean_s * 1e3
+        t_m = res["mass"].mean_s * 1e3
         t_p = time_ms(lambda: mm.stiffness_apply_mm(plain_op, x), 20)
-        t_m = time_ms(lambda: x * diag, 200)
-        err = rel_l2(cs.stiffness(op, x), mm.stiffness_apply_mm(plain_op, x))
+        err = rel_l2(op(x), mm.stiffness_apply_mm(plain_op, x))
+        for r in res.values():
+            mb = B.min_bytes(r.name, mesh, torch.float32)
+            print(f"   {r.row()}  min {mb / 1e6:.1f} MB "
+                  f"({B.warmth(mb, dev)})")
         print(f"   {smi}: {mesh.ndofs} DOF: stiffness kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms, mass multiply {t_m:.4f} ms; "
               f"mass+stiffness {mesh.ndofs / ((t_k + t_m) * 1e-3) / 1e9:.4f}"
               f" GDOF/s (kernel vs plain rel-l2 {err:.2e})")
         if not err <= F32_TOL:
             fail(f"32^3 kernel vs plain {err:.3e} > {F32_TOL}")
-        del op, plain_op, diag, x, disc
+        del op, plain_op, x, benches, res
 
     # ---- the experiment demos, the path of kernels #4, #5 and #12-#14:
     # ---- counters reset just before each, read just after ----
@@ -1254,6 +1309,140 @@ def main() -> None:
                 not all(anatomy.launches.values()):
             fail("a kernel of phase 31 was not launched")
         torch.cuda.empty_cache()
+
+    # ---- phase 32 (a-e, i): the measurement modules and experiment demos
+    # ---- on the card; counters reset just before each run, read just
+    # ---- after ----
+    with phase("32a the card's rates: the triad, a 2 GiB copy, the matmul "
+               "in bf16 and in f32 (TF32 off)"):
+        triad = B.measure_streaming_roofline() / 1e3
+        copy_ms, copy_tbs = profile_step.streaming_copy(profile_step.COPY_GIB)
+        bf16 = B.measure_matmul_roofline(dtype=torch.bfloat16)
+        f32 = B.measure_matmul_roofline(dtype=torch.float32, iters=100)
+        print(f"   {smi}: triad c = c*d + e over 256 MiB arrays "
+              f"{triad:.4f} TB/s; copy of {profile_step.COPY_GIB} GiB "
+              f"{copy_ms:.4f} ms, "
+              f"{copy_tbs:.4f} TB/s read and written (published "
+              f"{PEAK_BYTES_PER_S / 1e12} TB/s); matmul 4096^3 bf16 "
+              f"{bf16:.1f} TFLOP/s (published {PEAK_BF16_PER_S / 1e12:.0f}),"
+              f" f32 TF32 off {f32:.2f} TFLOP/s (published "
+              f"{PEAK_F32_PER_S / 1e12:.0f})", flush=True)
+        for name, got, peak in (("triad", triad * 1e12, PEAK_BYTES_PER_S),
+                                ("copy", copy_tbs * 1e12, PEAK_BYTES_PER_S),
+                                ("bf16", bf16 * 1e12, PEAK_BF16_PER_S),
+                                ("f32", f32 * 1e12, PEAK_F32_PER_S)):
+            if not 0.0 < got <= 1.05 * peak:
+                fail(f"32a: the {name} rate {got:.4e} is outside (0, 105% of "
+                     f"the published {peak:.4e}]")
+    cs.reset_launches()
+    with phase("32b time_operators --degrees 2 3 4 5 6 at 32^3, f32"):
+        ops32 = time_operators.main(["--nc", "32", "--degrees", "2", "3",
+                                     "4", "5", "6"])
+        torch.cuda.synchronize()
+        n32 = cs.launches["stiffness"]
+        print(f"   {smi}: #1 launches {n32}")
+        for P, (_, rel, _) in ops32.items():
+            if not rel <= F32_TOL:
+                fail(f"32b: P={P} #1 vs plain {rel:.3e} > {F32_TOL}")
+        if n32 == 0:
+            fail("32b: #1 was not launched")
+        del ops32
+    cs.reset_launches()
+    with phase("32c exp_degree_sweep at P=2..10 (f32)"):
+        sweep = exp_degree_sweep.main(["2", "10"])
+        torch.cuda.synchronize()
+        n32 = cs.launches["stiffness"]
+        print(f"   {smi}: #1 launches {n32}")
+        for row in sweep:
+            if not row["rel"] <= F32_TOL:
+                fail(f"32c: P={row['P']} #1 vs plain {row['rel']:.3e}")
+        if n32 == 0:
+            fail("32c: #1 was not launched")
+        del sweep
+    with phase("32d bench_rk4_step: the 32^3 Westervelt and linear boxes, "
+               "f32"):
+        for label, nonlinear in (("Westervelt", True), ("linear", False)):
+            cs.reset_launches()
+            sb = B.bench_rk4_step(nonlinear=nonlinear)
+            torch.cuda.synchronize()
+            n32 = cs.launches["stiffness"]
+            umax = float(sb.state.u.abs().max())
+            print(f"   {smi}: {label} box {sb.ndofs} DOF: "
+                  f"{sb.mean_s * 1e3:.4f} ms/step (+-{sb.std_s * 1e3:.4f}), "
+                  f"20 steps between CUDA events; #1 launches {n32} for "
+                  f"{sb.steps} steps; max |u| {umax:.4e}", flush=True)
+            if n32 != 4 * sb.steps:
+                fail(f"32d {label}: #1 launches {n32} != 4 x {sb.steps}")
+            if not bool(torch.isfinite(sb.state.u).all()) or umax == 0.0:
+                fail(f"32d {label}: the state is not finite and non-zero")
+            del sb
+        halo, halo_dt = time_halo.build(16, 4, torch.float32, dev)
+        for case in time_halo.cases(halo, halo_dt, 20, 4):
+            keep_for_ranks("22g halo box, grid (4, 1, 1), exchange "
+                           + ("on" if case.get("exchange", True) else "off"),
+                           halo, halo_dt, 20, HALO_POINTS, grid=case["grid"],
+                           like=None if case.get("exchange", True) else
+                           "22g halo box, grid (4, 1, 1), exchange on",
+                           **{k: v for k, v in case.items()
+                              if k == "exchange"})
+        del halo
+    cs.reset_launches()
+    with phase("32e exp_kernel_speed f32 4 2: auto (#1), mm, windows, "
+               "indexed"):
+        speed = exp_kernel_speed.main(["f32", "4", "2"])
+        torch.cuda.synchronize()
+        n32 = cs.launches["stiffness"]
+        print(f"   {smi}: #1 launches {n32}")
+        for pair, rel in speed["rel"].items():
+            if not rel <= F32_TOL:
+                fail(f"32e: {pair} rel-l2 {rel:.3e} > {F32_TOL}")
+        if n32 == 0:
+            fail("32e: #1 was not launched")
+        del speed
+    with phase("32i exp_isoparametric_bowl --elements 24 --periods 3: "
+               "trilinear and hex27 on #6"):
+        iso_args = exp_isoparametric_bowl.parser().parse_args(
+            ["--elements", "24", "--periods", "3"])
+        iso = exp_isoparametric_bowl.build(iso_args)
+        peaks = {}
+        for name, case in iso.items():
+            ce.reset_launches()
+            state, ys = exp_isoparametric_bowl.run(case)
+            torch.cuda.synchronize()
+            n6 = ce.launches["extruded"]
+            peaks[name] = float(np.abs(ys).max())
+            print(f"   {smi}: {name}: {case.model.mesh.ndofs} DOF, "
+                  f"{case.steps} steps, #6 launches {n6}; focal min p "
+                  f"{ys.min() / 1e6:.4f} MPa, max |p| "
+                  f"{peaks[name] / 1e6:.4f} MPa (recorded "
+                  f"{ISO_PEAK_PA[name] / 1e6} MPa)", flush=True)
+            if n6 != 4 * case.steps or ce.launches["extruded_pair"]:
+                fail(f"32i {name}: #6 launches {dict(ce.launches)} != 4 x "
+                     f"{case.steps}")
+            if not np.isfinite(ys).all() or not bool(
+                    torch.isfinite(state.u).all()):
+                fail(f"32i {name}: the field or the probe trace is not "
+                     "finite")
+            if not abs(peaks[name] / ISO_PEAK_PA[name] - 1) <= ISO_BAND:
+                fail(f"32i {name}: focal |p| {peaks[name]:.1f} Pa more than "
+                     f"{ISO_BAND:.0%} from {ISO_PEAK_PA[name]:.1f}")
+        delta = (peaks["hex27"] - peaks["trilinear"]) / peaks["hex27"]
+        print(f"   focal |p| delta (hex27 vs trilinear): {delta:+.3%} of the "
+              f"quadratic value (recorded +0.72%)")
+        if not delta > 0:
+            fail(f"32i: the hex27 focal |p| is not above the trilinear "
+                 f"({delta:+.3%})")
+        del iso, case, state
+        torch.cuda.empty_cache()
+
+    # phase 32c's dense oracle at P = 2..10 (~5 minutes of one core's numpy,
+    # most at P = 9 and 10): one spawned process computes it from here on,
+    # after phase 32's timed runs, and the check comes last (a daemon
+    # worker, ended at exit if the script fails first)
+    oracle_pool = mp.get_context("spawn").Pool(1)
+    oracle_jobs = {P: oracle_pool.apply_async(
+        exp_degree_sweep.oracle_reference, (P,)) for P in range(2, 11)}
+    oracle_pool.close()
 
     with phase("5 linear box demo (default size)"):
         model, state = linear_box.main(["--device", "cuda"])
@@ -2509,6 +2698,7 @@ def main() -> None:
         if not traj <= TRAJ_TOL:
             fail(f"bodyfit 10 steps engine vs indexed {traj:.3e}")
         del bbowl, kst5
+        bmesh = ebowl.mesh              # for phase 32f-h
         # the gather's kernel against its first design and index_select
         warm, n_flat = gather_turns(ebowl, s10, dt5, "bodyfit bowl")
         kernels["engine_gather_flat"] = dict(
@@ -2537,13 +2727,75 @@ def main() -> None:
         if not agree <= FOCAL_AGREE:
             fail(f"bodyfit engine vs indexed focal pressure {agree:.3e}")
         del state, ebowl
+    # ---- phase 32f-h: the three engine demos on phase 13a's bodyfit bowl
+    # ---- (no new import); counters reset just before, read just after ----
+    cen.reset_launches()
+    ci.reset_launches()
+    with phase("32f exp_engine_mesh on the bodyfit bowl (P=4, f32): the "
+               "engine's gather, scatter and apply, #11, index_select and "
+               "index_add_"):
+        em = exp_engine_mesh.run(bmesh, torch.float32, dev)
+        torch.cuda.synchronize()
+        got = {**cen.launches, **ci.launches}
+        print(f"   {smi}: launches {got}")
+        if not em["rel"] <= F32_TOL:
+            fail(f"32f: the engine apply vs #11 {em['rel']:.3e}")
+        if not all(got[k] for k in STAGED + ("indexed",)):
+            fail(f"32f: a kernel was not launched: {got}")
+        del em
+    cen.reset_launches()
+    ci.reset_launches()
+    with phase("32g exp_indexed_pair on the bodyfit bowl: the pair against "
+               "two singles on the engine and on #11"):
+        ip = exp_indexed_pair.run(bmesh, torch.float32, dev)
+        torch.cuda.synchronize()
+        got = {**cen.launches, **ci.launches}
+        print(f"   {smi}: launches {got}")
+        for route, r in ip.items():
+            if not r["rel"] <= F32_TOL:
+                fail(f"32g: {route} pair vs two singles {r['rel']:.3e}")
+        if not all(got.values()):
+            fail(f"32g: a kernel was not launched: {got}")
+        del ip
+    cen.reset_launches()
+    ci.reset_launches()
+    with phase("32h exp_sharded_engine on the bodyfit bowl, k = 2 and 4: "
+               "each part's pair alone against the one-device pair"):
+        sh_ = exp_sharded_engine.run(bmesh, [2, 4], torch.float32, dev)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in {**cen.launches, **ci.launches}.items() if v}
+        print(f"   {smi}: launches {got}")
+        for k in (2, 4):
+            for route, r in sh_[k].items():
+                if not r["rel"] <= F32_TOL:
+                    fail(f"32h: k={k} {route} parts vs one device "
+                         f"{r['rel']:.3e}")
+        if not all(got.get(k) for k in ("engine_gather2", "engine_contract",
+                                         "engine_scatter", "indexed_pair")):
+            fail(f"32h: a kernel was not launched: {got}")
+        del sh_, bmesh
+        torch.cuda.empty_cache()
     # every 4-rank case in one process group: rank start-up paid once
+    halo_names = ["22g halo box, grid (4, 1, 1), exchange on",
+                  "22g halo box, grid (4, 1, 1), exchange off"]
     res22 = ranks_group(["22a flagship, grid (2, 2, 1)",
                  "22b two-layer flagship, grid (2, 2, 1)",
                  "22c flagship in corner mode, grid (2, 2, 1)",
                  "22d imported bowl, 4 ranks",
                  "22e bodyfit bowl, 4 ranks, indexed",
-                 "22e bodyfit bowl, 4 ranks, indexed_engine"], 4, "gloo")
+                 "22e bodyfit bowl, 4 ranks, indexed_engine"] + halo_names,
+                        4, "gloo")
+    with phase("22g time_halo: the 16^3 P=4 box on 4 gloo ranks sharing the "
+               "card, with and without the exchange"):
+        on, off = res22[0][-2], res22[0][-1]
+        print(f"   {smi} (4 ranks sharing one card over gloo; not a "
+              f"multi-card speed):")
+        time_halo.report(on["ms_per_step"], off["ms_per_step"])
+        differ = rel_l2(torch.as_tensor(off["u"]), torch.as_tensor(on["u"]))
+        print(f"   u without the exchange vs with it: rel-l2 {differ:.3e} "
+              f"(20 steps from rest: the wave has not reached the cuts)")
+        if not differ > 0.0:
+            fail("22g: u without the exchange equals u with it")
     with phase("30f the flagship's per-rank snapshots (22a, 4 gloo ranks) "
                "reassembled"):
         t0 = time.perf_counter()
@@ -2846,6 +3098,26 @@ def main() -> None:
         corner_launches["extruded_corner"] += capacity_run(
             capacity_imported, ["--nz", "30", "--steps", "10"],
             "capacity cylinder (nz 30)", "extruded_corner")
+    cs.reset_launches()
+    with phase("32c #1 against the dense oracle at P=2..10 (f64, 2^3; the "
+               "oracle computed in a process of its own since phase 32i)"):
+        t0 = time.perf_counter()
+        refs = {P: job.get(timeout=900) for P, job in oracle_jobs.items()}
+        oracle_pool.join()
+        print(f"   the oracle's processes: waited "
+              f"{time.perf_counter() - t0:.1f} s")
+        for P in sorted(refs):
+            e = exp_degree_sweep.oracle_check(P, dev, refs[P])
+            print(f"   {smi}: P={P} 2^3 float64: #1 vs the dense oracle "
+                  f"rel-l2 {e:.3e} (tol {F64_TOL})", flush=True)
+            if not e <= F64_TOL:
+                fail(f"32c: P={P} f64 #1 vs the dense oracle {e:.3e} > "
+                     f"{F64_TOL}")
+        torch.cuda.synchronize()
+        if len(refs) != 9 or cs.launches["stiffness"] != 9:
+            fail(f"32c: {len(refs)} oracle degrees, "
+                 f"{cs.launches['stiffness']} #1 launches")
+        del refs, oracle_jobs
     launches.update(corner_launches)
     launches.update(demo_launches)
     kernels.update(demo_kernels)

@@ -31,6 +31,9 @@ leaves) and never see a JAX object.
   (ncx2, n, 6, ey, 2 ez), slab i beside slab ncx2 + i; both with
   ``statics`` (D, ncx, ez) and a zero-G ghost slab for odd ncx) and return
   the port's ``ops.slab2.Slab2Stiffness``.
+- `windows_from_fustpu` accepts the windowed layout of
+  ``Discretization.G_s`` / ``detJ_s`` ((ncx, n, ncy, n, ncz, n[, 6])) and
+  returns it as a tensor of the port's ``ops.operators``.
 - `model_from_fustpu` builds a port model whose buffers are a JAX model's
   ``params`` (no host assembly) and moves an ``RKState`` across; an indexed
   model's params can build the port's staged engine
@@ -145,6 +148,19 @@ def _cells_from_expanded(a: np.ndarray, n: int) -> np.ndarray:
     """(ex, ey, ez) per-cell field repeated n-fold -> (cells,)."""
     return np.ascontiguousarray(np.asarray(a, np.float64)[::n, ::n, ::n]
                                 ).reshape(-1)
+
+
+def windows_from_fustpu(a, dtype: torch.dtype = torch.float64,
+                        device="cpu") -> torch.Tensor:
+    """The JAX package's windowed layout (`Discretization.G_s` (ncx, n,
+    ncy, n, ncz, n, 6), `detJ_s` without the 6) as a tensor of the port's
+    windowed operators (``ops.operators``), which take the same layout."""
+    a = np.asarray(a, np.float64)
+    if a.ndim not in (6, 7) or a.shape[1] != a.shape[3] or \
+            a.shape[1] != a.shape[5] or a.shape[6:] not in ((), (6,)):
+        raise ValueError(f"shape {a.shape}: expected the windowed layout "
+                         "(ncx, n, ncy, n, ncz, n[, 6])")
+    return torch.tensor(a, dtype=dtype, device=device)
 
 
 def _cells_from_x(a: np.ndarray, n: int) -> np.ndarray:

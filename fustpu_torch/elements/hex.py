@@ -4,8 +4,9 @@ Local dof (i, j, k) -> i*n^2 + j*n + k with i <-> xi_0, j <-> xi_1,
 k <-> xi_2 on the unit reference cell [0,1]^3.  Quadrature is the collocated
 GLL rule: quadrature point q = (i,j,k) coincides with dof (i,j,k), so the
 mass matrix is diagonal and detJ is indexed by local dof.  Vendored from
-``fustpu/elements/hex.py``: the trilinear (hex8) geometry basis, and the
-triquadratic (hex27) one of curved imported cells.
+``fustpu/elements/hex.py``: the trilinear (hex8) geometry basis, the
+triquadratic (hex27) one of curved imported cells, and the full 3D basis
+tabulation of the dense oracle (``fustpu_torch.oracle``).
 """
 
 from __future__ import annotations
@@ -122,6 +123,22 @@ def hex8_tabulate(pts: np.ndarray):
                 grads[:, v, 1] = l(x, a) * dl(b) * l(z, c)
                 grads[:, v, 2] = l(x, a) * l(y, b) * dl(c)
     return vals, grads
+
+
+def tabulate_3d_basis(element: HexElement, pts: np.ndarray):
+    """Values (npts, n^3) and gradients (npts, n^3, 3) of the full
+    tensor-product spectral basis at arbitrary reference points (the test
+    oracle's; the hot path never tabulates 3D bases)."""
+    n = element.n
+    nodes = element.nodes_1d
+    vx, dx = gll.lagrange_tabulate(nodes, pts[:, 0])
+    vy, dy = gll.lagrange_tabulate(nodes, pts[:, 1])
+    vz, dz = gll.lagrange_tabulate(nodes, pts[:, 2])
+    vals = np.einsum("pi,pj,pk->pijk", vx, vy, vz).reshape(-1, n**3)
+    g0 = np.einsum("pi,pj,pk->pijk", dx, vy, vz).reshape(-1, n**3)
+    g1 = np.einsum("pi,pj,pk->pijk", vx, dy, vz).reshape(-1, n**3)
+    g2 = np.einsum("pi,pj,pk->pijk", vx, vy, dz).reshape(-1, n**3)
+    return vals, np.stack([g0, g1, g2], axis=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -196,3 +196,15 @@ def facet_geometry_factors(mesh, boundary_data: np.ndarray) -> np.ndarray:
         nrm = np.linalg.norm(np.cross(t1, t2), axis=-1)
         detJ_f[sel] = nrm * wts_f
     return detJ_f
+
+
+def to_structured_layout(arr_cells: np.ndarray, mesh) -> np.ndarray:
+    """(cells, n^3, ...) -> the expanded (ncx, n, ncy, n, ncz, n, ...)
+    layout of the windowed structured operators
+    (``fustpu_torch.ops.operators``) on a box mesh."""
+    n = mesh.element.n
+    ncx, ncy, ncz = mesh.nc
+    trailing = arr_cells.shape[2:]
+    a = arr_cells.reshape(ncx, ncy, ncz, n, n, n, *trailing)
+    return np.ascontiguousarray(a.transpose(0, 3, 1, 4, 2, 5,
+                                            *range(6, 6 + len(trailing))))

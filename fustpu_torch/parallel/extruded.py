@@ -235,37 +235,54 @@ class IndexedShardedModel(_ShardedUnstructured):
         self.model, self.grid, self.mesh = model, grid, mesh
         self.width, self.nglobal = 1, mesh.ndofs
         self.engine = stiffness_impl == ENGINE_IMPL
-        part = rcb_partition(mesh.cell_corners_flat.mean(axis=1), grid.size)
-        cells_of = [np.flatnonzero(part == r) for r in range(grid.size)]
-        if min(c.size for c in cells_of) == 0:
-            raise ValueError(f"empty partition with {grid.size} ranks")
-        dofmap = mesh.dofmap
-        self._setup_exchange([np.unique(dofmap[c]) for c in cells_of],
-                             mesh.ndofs)
+        cells_of, ids = indexed_parts(mesh, grid.size)
+        self._setup_exchange(ids, mesh.ndofs)
         cells = cells_of[grid.rank]
-        ldm = np.searchsorted(self.ids[grid.rank], dofmap[cells])
         coeff, pair = stiffness_coefficients(model)
         cell = lambda c: np.broadcast_to(np.asarray(c, np.float64).reshape(
             -1), (mesh.num_cells,))[cells]
         coeff = None if coeff is None else cell(coeff)
         C = None if pair is None else np.stack([cell(c) for c in pair], 1)
-        G = np.moveaxis(model.disc._G_host[cells], 2, 1)
-        dtype, dev = model.dtype, grid.device
-        D = model.disc._D_host
-        if self.engine:
-            op = cen.from_host(ldm, self.nloc, np.ascontiguousarray(G), D,
-                               dtype, dev, coeff=coeff, C=C)
-        else:
-            if coeff is not None:
-                G = G * coeff[:, None, None]
-            op = ci.from_host(ldm, self.nloc, np.ascontiguousarray(G), D,
-                              dtype, dev, C)
+        dev = grid.device
+        op = part_operator(mesh, model.disc._G_host, model.disc._D_host,
+                           cells, ids[grid.rank], model.dtype, dev,
+                           self.engine, coeff, C)
         inner = stiffness_module(op, "cuda" if dev.type == "cuda" else "mm")
         vectors = {k: None if v is None else self.block(v)
                    for k, v in host_vectors(model).items()}
         self.local = local_model(model, LocalRows(ndofs=self.nloc),
                                  Exchanged(inner, self.exchange), vectors,
                                  dev)
+
+
+def indexed_parts(mesh, k: int) -> tuple[list, list]:
+    """(cells, DOFs) of each of the k parts of a general mesh: an RCB
+    partition of the cell centroids, and each part's global DOFs in
+    ascending order (its local numbering)."""
+    part = rcb_partition(mesh.cell_corners_flat.mean(axis=1), k)
+    cells_of = [np.flatnonzero(part == r) for r in range(k)]
+    if min(c.size for c in cells_of) == 0:
+        raise ValueError(f"empty partition with {k} ranks")
+    return cells_of, [np.unique(mesh.dofmap[c]) for c in cells_of]
+
+
+def part_operator(mesh, G_host: np.ndarray, D: np.ndarray,
+                  cells: np.ndarray, ids: np.ndarray, dtype: torch.dtype,
+                  device, engine: bool = False, coeff=None, C=None):
+    """The stiffness operator of one part (`cells`, its DOFs `ids`) on its
+    own local dofmap, with the part's own chunk plan or inverse map: the
+    staged engine's (`engine`; `coeff` stays a per-cell coefficient) or
+    the indexed kernel's (`coeff` folded into G); `C` (cells, 2) the pair
+    coefficients."""
+    ldm = np.searchsorted(ids, mesh.dofmap[cells])
+    G = np.moveaxis(G_host[cells], 2, 1)
+    if engine:
+        return cen.from_host(ldm, ids.size, np.ascontiguousarray(G), D,
+                             dtype, device, coeff=coeff, C=C)
+    if coeff is not None:
+        G = G * coeff[:, None, None]
+    return ci.from_host(ldm, ids.size, np.ascontiguousarray(G), D, dtype,
+                        device, C)
 
 
 def shard_unstructured(model, grid: sh.RankGrid,

@@ -206,7 +206,11 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
     `impl` (the sharded model's stiffness_impl), `state` (a global host
     state (u, v, ku, kv, t) to start from; zero fields otherwise), `probe`
     (points), `norms` (record the global norm of u each step),
-    `exchange_reps` (time that many exchanges) and `progress_every` (solve
+    `exchange_reps` (time that many exchanges), `exchange` (False: the
+    rank's stiffness module skips the sum of shared entries for this case,
+    `Exchanged.exchange` swapped for the identity; the field then differs
+    from the one-rank run, and the time is the step's without its
+    communication) and `progress_every` (solve
     in chunks of that many steps, the last one clamped onto t0 + steps *
     dt, as the demos do, with rank 0 printing the progress), and the output
     keys of ``demos.common.add_output_args`` (`OUTPUT_KEYS`: each rank
@@ -227,6 +231,8 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
         model = _load(case["model"])
         sm = sharded_model(model, ctx, case.get("grid"), case.get("impl"))
         del model
+        if not case.get("exchange", True):
+            sm.local.stiffness.exchange = _no_exchange
         state = (sm.split_state(case["state"]) if "state" in case
                  else sm.init_state())
         probes = []
@@ -284,6 +290,12 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
                 r["ys"] = ys.detach().cpu().numpy()
         out.append(r)
     return out
+
+
+def _no_exchange(y: torch.Tensor) -> torch.Tensor:
+    """The exchange of a case run without one: the local operator's
+    output as it is."""
+    return y
 
 
 def _final_writes(sm, final, case) -> None:

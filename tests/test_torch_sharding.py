@@ -5,7 +5,8 @@ package's ShardedModel on the same grid of its virtual CPU devices
 uniform, heterogeneous (the folded coefficient and the pair kernel), a
 cell count that no grid divides, the corner-streamed mode, probes,
 distributed norms, a start from the JAX package's mid-run state, and the
-shared planes bitwise consistent across ranks.  The ranks of one rank
+shared planes bitwise consistent across ranks; and one case without the
+exchange (`exchange=False`), which must differ.  The ranks of one rank
 count run all their cases in one process group (one spawn per count).
 """
 
@@ -30,6 +31,7 @@ TOL = 1e-12           # the JAX package's own sharded-vs-single gate
 JAX_TOL = 1e-11       # against the JAX package's sharded model
 L = 0.006
 STEPS = 6
+NO_EXCHANGE = "westervelt_2x1x1 without the exchange"
 POINTS = np.array([[0.31 * L, 0.52 * L, 0.5 * L],
                    [0.87 * L, 0.13 * L, 0.77 * L]])
 
@@ -148,6 +150,14 @@ def runs(ref, tmp_path_factory):
                                     fsm=fsm, fout=fout, fys=np.asarray(fys),
                                     files=files / name)
         groups.setdefault(ranks, []).append((name, case))
+    # the exchange switched off (`solve_cases`' exchange=False, the
+    # time_halo demo's second case) rides in the 2-rank group
+    model, _ = _models("westervelt_2x1x1")
+    dt, _ = model.cfl_dt(0.4)
+    out[NO_EXCHANGE] = SimpleNamespace(
+        one=model.solve(model.init_state(), dt, STEPS)[0])
+    groups[2].append((NO_EXCHANGE, dict(model=model, grid=(2, 1, 1),
+                                        steps=STEPS, dt=dt, exchange=False)))
     for ranks, cases in groups.items():
         res = multihost.spawn(multihost.solve_cases, ranks, "gloo", "cpu",
                               timeout=300, args=([c for _, c in cases],))
@@ -155,6 +165,21 @@ def runs(ref, tmp_path_factory):
             out[name].sharded = res[0][i]
             out[name].launches = [r[i]["launches"] for r in res]
     return out
+
+
+@pytest.mark.parametrize("name", ["westervelt_2x1x1"])
+def test_without_the_exchange_the_blocks_drift_apart(runs, name):
+    """The case run with exchange=False in the same group: the same blocks
+    and steps as `name`, whose exchanged run equals one rank, but without
+    the sum of the shared planes u differs from the one-rank run and its
+    owners disagree on the shared plane."""
+    r, s = runs[NO_EXCHANGE], runs[NO_EXCHANGE].sharded
+    assert rel(runs[name].sharded["u"], r.one.u) <= TOL
+    assert s["u"].shape == r.one.u.shape
+    assert np.isfinite(s["u"]).all()
+    assert rel(s["u"], r.one.u) > 1e-6
+    assert not s["v_consistent"]
+    assert all(not la for la in r.launches)
 
 
 def _one_rank_probe(model):
