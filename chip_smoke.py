@@ -193,7 +193,23 @@ Phases (each prints its time; any failure exits non-zero):
      pair) (32f-h);
      exp_isoparametric_bowl at --elements 24 --periods 3: #6 launched 4 x
      steps in each run, the fields finite, both focal |p| within 2% of
-     the JAX package's recorded values and the hex27 one the larger (32i).
+     the JAX package's recorded values and the hex27 one the larger (32i);
+ 33. the set-up kernels (csrc/setup.cu): each model of the set-up table
+     (the flagship, the imported bowl as hex8 and hex27, the bodyfit bowl,
+     the P=6 bodyfit and conformal bowls, the flagship's mesh at P=6) set
+     up on the host (the numpy plain versions) and then on the card, the
+     seconds of each split into geometry, mass diagonals, facets and the
+     rest, 10
+     float32 steps of the two against each other; each set-up kernel
+     against its plain version, float64 <= 1e-14 (the dofmap and the
+     diagonals bitwise), launched twice bitwise equal; timed at the
+     flagship and the bodyfit bowl (33a-g); the capacity demo in its own
+     process with the set-up on the host and on the card: its set-up
+     seconds, peak device memory and host peak resident (33h); the
+     Fubini and transmission anchors in float32 (33i); the piston on 2
+     gloo ranks sharing the card against phase 9's table (33j); 2
+     separately launched gloo ranks joined over tcp:// against one rank
+     (33k); the set-up table.
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, in every
 rank of 22 its solve, and the demos of 24, 25, 26, 27a, 28, 31 and 32b-i and
@@ -239,6 +255,10 @@ FOCAL_AGREE = 1e-4
 # differ only in the order of their sums (relative ~1e-16)
 PARITY_TOL = 1e-14
 ONEIL_GATE = 0.12               # the JAX package's own piston gate
+# phase 33: a set-up kernel against its plain version in float64: the same
+# formulas, the sums over the geometry dofs in another order (the native
+# runtime's own agreement with numpy is ~1e-16)
+SETUP_TOL = 1e-14
 # The bodyfit bowl is another discretisation of the conformal bowl's
 # domain, cap and source, with its nodes clustered toward the focal axis.
 # At P=4 and 2 elements per wavelength neither resolves the focal peak:
@@ -256,6 +276,8 @@ BODYFIT_P6_AGREE = 0.05
 # rate and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# float64 outside the tensor cores (the set-up kernels' type)
+PEAK_F64_PER_S = 34e12
 PEAK_BF16_PER_S = 989e12        # dense, in the tensor cores
 # phase 32i: the focal |p| of the JAX package's recorded isoparametric bowl
 # run (BENCH_NOTES.md:607-622: (24, 15, 15) cells, P=4, 0.3 MHz, 3 periods
@@ -302,11 +324,13 @@ def time_ms(fn, reps: int) -> float:
                       reps=1)[0] * 1e3
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def bound(nbytes: int, flops: int,
+          peak_flops: float = PEAK_F32_PER_S) -> tuple[float, str]:
     """(least time in ms, what bounds it) for the bytes an apply must move
-    and the operations it does, at the card's published peaks."""
+    and the operations it does, at the card's published peaks (float32,
+    or `peak_flops` for another type)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -442,6 +466,12 @@ def main() -> None:
     from fustpu_torch.utils import dist_io
     from fustpu_torch.utils import io as fio
     from fustpu_torch.utils.eval import eval_plane, locate
+    # phase 33: the set-up kernels, the anchors, the piston and the check
+    # over ranks
+    from fustpu_torch.demos import anchors
+    from fustpu_torch.mesh.box import dofmap_rows
+    from fustpu_torch.models.westervelt import WesterveltModel
+    from fustpu_torch.ops import cuda_setup as setup
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -589,6 +619,226 @@ def main() -> None:
                 if all(c["model"] != path for c in ranks_cases.values()):
                     Path(path).unlink()
             return res
+
+    # ---- phase 33: each model's set-up before (host) and after (card) ----
+    setup_table = []          # (label, before, after): (seconds, split)
+    setup_launches = {}       # each set-up kernel's launches in its build
+
+    def bowl_model(pb, args_, setup_device):
+        """`nonlinear_bowl.build(args_, pb)`'s uniform model with its
+        set-up on `setup_device` ('cpu': the host's numpy; None: the
+        card's kernels)."""
+        return WesterveltModel(
+            pb.mesh, pb.material, pb.source, pb.aperture, pb.absorbing,
+            dtype=torch.float32, device=dev, source_delays=pb.delays,
+            stiffness_impl=args_.stiffness_impl, setup_device=setup_device)
+
+    def setup_turn(label, build):
+        """Phase 33: the model `build(setup_device)` set up on the host
+        (before: 'cpu', the float64 numpy plain versions) and then on the card
+        (after: the set-up kernels); each's seconds (host clock, the card's
+        queue drained) split into the geometry, the mass diagonals, the
+        facets (their geometry, dofs and diagonals) and the rest; 10
+        float32 steps of each from rest against each other (TRAJ_TOL).
+        Returns (after model, before model, the after build's set-up
+        kernel launches)."""
+        res = {}
+        for when, sd in (("before", "cpu"), ("after", None)):
+            torch.cuda.synchronize()
+            setup.reset_launches()
+            t0 = time.perf_counter()
+            m = build(sd)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            split = {k: m.disc.host_seconds.get(k, 0.0)
+                     for k in ("geometry", "mass", "facets")}
+            split["rest"] = total - sum(split.values())
+            res[when] = (m, total, split, dict(setup.launches))
+            print(f"   {label}: set-up {when} ("
+                  f"{'host numpy' if sd else 'set-up kernels'}) "
+                  f"{total:.3f} s: "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+                  + f"; set-up kernel launches "
+                  f"{ {k: v for k, v in setup.launches.items() if v} }",
+                  flush=True)
+        after, before = res["after"][0], res["before"][0]
+        if any(res["before"][3].values()) or not res["after"][3][
+                "setup_cell_detJ"]:
+            fail(f"{label}: set-up kernel launches {res['before'][3]} "
+                 f"(host set-up), {res['after'][3]} (card set-up)")
+        dt_ = after.cfl_dt(0.4)[0]
+        ua = after.solve(after.init_state(), dt_, 10)[0].u
+        ub = before.solve(before.init_state(), dt_, 10)[0].u
+        traj = rel_l2(ua, ub)
+        print(f"   {label}: 10 steps, the card's set-up vs the host's: "
+              f"rel-l2(u) {traj:.3e} (tol {TRAJ_TOL}), max |u| "
+              f"{float(ua.abs().max()):.4e} ({smi})", flush=True)
+        if not traj <= TRAJ_TOL:
+            fail(f"{label}: card set-up vs host set-up {traj:.3e}")
+        setup_table.append((label, res["before"][1:3], res["after"][1:3]))
+        return after, before, res["after"][3]
+
+    def setup_rel(a, b) -> tuple[float, float]:
+        """(rel-l2, max abs) of `a` against `b`, float64 on the host."""
+        a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a,
+                       np.float64)
+        b = np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b,
+                       np.float64)
+        return (float(np.linalg.norm(a - b) / max(np.linalg.norm(b),
+                                                   1e-300)),
+                float(np.abs(a - b).max()) if a.size else 0.0)
+
+    def setup_check(label, after, before, bd, launches_=None):
+        """Phase 33: the set-up kernels of `after`'s card set-up against
+        their plain versions on the same inputs, the host set-up of the
+        G-stream model `before` (geometry <= SETUP_TOL relative, the
+        dofmap bitwise), the diagonals also against the plain version on
+        the card's detJ (bitwise), each launched twice (bitwise equal);
+        with `launches_` (the build's set-up kernel launches) each kernel's
+        row for the JSON line at this size: ms (CUDA events), the plain
+        version's ms (host clock, one call), the least bytes and float64
+        operations."""
+        da, db, mesh = after.disc, before.disc, after.mesh
+        card, P = da._card, mesh.degree
+        host = lambda t: t.cpu().numpy()
+        errs, rows = {}, {}
+
+        def gate(name, a, b, exact=False):
+            e, m = setup_rel(a, b)
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not (e == 0.0 if exact else e <= SETUP_TOL):
+                fail(f"{label}: {name} {e:.3e} "
+                     f"({'bitwise' if exact else SETUP_TOL})")
+            return m
+
+        def timed_plain(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        gd, gr, w = card.gdofs, card.grads, card.wts
+        cells, ng, nq = gd.shape[0], gd.shape[1], w.shape[0]
+        dJ, G = setup.cell_geometry(gd, gr, w)
+        dJ2, G2 = setup.cell_geometry(gd, gr, w)
+        d1, _ = setup.cell_geometry(gd, gr, w, with_G=False)
+        d2, _ = setup.cell_geometry(gd, gr, w, with_G=False)
+        if not (torch.equal(dJ, dJ2) and torch.equal(G, G2)
+                and torch.equal(d1, d2)):
+            fail(f"{label}: cell_geometry's launches differ")
+        # the host set-up's arrays are the plain versions on the same
+        # geometry dofs (the same congruence representatives)
+        mg = gate("cell_geometry", card._cells(G), db._G_host)
+        md = gate("cell_detJ", card._cells(d1), db._detJ_host)
+        gate("cell_detJ", card._cells(dJ), db._detJ_host)
+        fa, fa2 = da.facet_block(bd), da.facet_block(bd)
+        fb = db.facet_block(bd)
+        if not (torch.equal(fa.detJ, fa2.detJ)
+                and torch.equal(fa.dofmap, fa2.dofmap)):
+            fail(f"{label}: facet set-up launches differ")
+        mf = gate("facet_geometry", fa.detJ, fb.detJ)
+        gate("facet dofmap", fa.dofmap, fb.dofmap, exact=True)
+        coeff = rng.uniform(0.5, 2.0, mesh.num_cells)
+        m1, m2 = da.mass_diag(coeff), da.mass_diag(coeff)
+        if not torch.equal(m1, m2):
+            fail(f"{label}: mass_diagonal's launches differ")
+        gate("mass diagonal vs the host set-up", m1,
+             db.mass_diag_host(coeff))
+        detJ = card.detJ()
+        ct = torch.as_tensor(coeff, device=dev)
+        if hasattr(mesh, "nc"):
+            pm, m_ms = timed_plain(lambda: mm.mass_diagonal(
+                mesh.nc, P, host(detJ), coeff.reshape(mesh.nc)))
+            mb = gate("mass_diagonal_box", m1, pm, exact=True)
+            cells_f = torch.as_tensor(np.asarray(bd)[:, 0].astype(np.int64),
+                                      device=dev)
+            r1 = setup.box_dofmap(cells_f, mesh.nc, P)
+            if not torch.equal(r1, setup.box_dofmap(cells_f, mesh.nc, P)):
+                fail(f"{label}: box_dofmap's launches differ")
+            pr, r_ms = timed_plain(lambda: dofmap_rows(mesh.nc, P,
+                                                       host(cells_f)))
+            gate("box_dofmap", r1, pr, exact=True)
+        else:
+            dm = torch.as_tensor(mesh.dofmap, device=dev)
+            pos, ptr = setup.inverse_map(dm, mesh.ndofs)
+            y = setup.mass_diagonal_map(detJ.reshape(-1), ct, nq, pos, ptr)
+            pm, m_ms = timed_plain(lambda: setup.mass_diagonal_map(
+                detJ.reshape(-1).cpu(), ct.cpu(), nq, pos.cpu(), ptr.cpu()))
+            mb = gate("mass_diagonal_map", y, pm, exact=True)
+        print(f"   {label}: set-up kernels vs plain (float64, tol "
+              f"{SETUP_TOL}; the dofmap and the diagonals bitwise), each "
+              f"launched twice bitwise equal: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
+        if launches_ is None:
+            return rows
+        nf, nqf = fa.detJ.shape
+        f64 = 8
+        if hasattr(mesh, "nc"):
+            _, g_ms = timed_plain(lambda: pre.geometry_of(
+                host(gd), host(gr), host(w)))
+            _, d_ms = timed_plain(lambda: pre.detJ_of(host(gd), host(gr),
+                                                      host(w)))
+            gb = gd.numel() * f64 + gr.numel() * f64 + nq * f64
+            rows["setup_cell_geometry"] = dict(
+                max_abs_err=mg, plain_ms=g_ms,
+                ms=time_ms(lambda: setup.cell_geometry(gd, gr, w), 5),
+                cost=(gb + cells * nq * 7 * f64, cells * nq * (18 * ng + 91),
+                      PEAK_F64_PER_S))
+            rows["setup_cell_detJ"] = dict(
+                max_abs_err=md, plain_ms=d_ms,
+                ms=time_ms(lambda: setup.cell_geometry(gd, gr, w, False), 5),
+                cost=(gb + cells * nq * f64, cells * nq * (18 * ng + 18),
+                      PEAK_F64_PER_S))
+            sub = torch.as_tensor(np.ascontiguousarray(pre.facet_grads(
+                mesh)[0][np.asarray(bd)[:, 0]]), device=dev)
+            fg = torch.as_tensor(pre.facet_grads(mesh)[1], device=dev)
+            fw = torch.as_tensor(mesh.element.facet_quad_weights,
+                                 device=dev)
+            loc = torch.as_tensor(np.stack([np.arange(nf), np.asarray(
+                bd)[:, 1]], axis=1).astype(np.int64), device=dev)
+            _, f_ms = timed_plain(lambda: pre.facet_geometry_of(
+                host(sub), host(fg), host(fw), host(loc)))
+            rows["setup_facet_geometry"] = dict(
+                max_abs_err=mf, plain_ms=f_ms,
+                ms=time_ms(lambda: setup.facet_geometry(sub, fg, fw, loc), 5),
+                cost=(sub.numel() * f64 + fg.numel() * f64 + nf * 16
+                      + nf * nqf * f64, nf * nqf * (12 * ng + 16),
+                      PEAK_F64_PER_S))
+            rows["setup_box_dofmap"] = dict(
+                max_abs_err=0.0, plain_ms=r_ms,
+                ms=time_ms(lambda: setup.box_dofmap(cells_f, mesh.nc, P), 5),
+                cost=(nf * 8 + nf * (P + 1) ** 3 * 4, 0, PEAK_F64_PER_S))
+            rows["setup_mass_diagonal_box"] = dict(
+                max_abs_err=mb, plain_ms=m_ms,
+                ms=time_ms(lambda: setup.mass_diagonal_box(
+                    detJ, ct, mesh.nc, P), 5),
+                cost=(detJ.numel() * f64 + cells * f64 + mesh.ndofs * f64,
+                      2 * detJ.numel(), PEAK_F64_PER_S))
+        else:
+            g = dm.reshape(-1).long()
+            v = (detJ * ct[:, None]).reshape(-1)
+            rows["setup_mass_diagonal_map"] = dict(
+                max_abs_err=mb, plain_ms=m_ms,
+                ms=time_ms(lambda: setup.mass_diagonal_map(
+                    detJ.reshape(-1), ct, nq, pos, ptr), 5),
+                library_ms=time_ms(lambda: torch.zeros(
+                    mesh.ndofs, dtype=torch.float64, device=dev).index_add_(
+                        0, g, v), 5),
+                cost=(detJ.numel() * (f64 + 4) + (mesh.ndofs + 1) * 4
+                      + mesh.num_cells * f64 + mesh.ndofs * f64,
+                      2 * detJ.numel(), PEAK_F64_PER_S))
+        for name, row in rows.items():
+            if not launches_[name]:
+                fail(f"{label}: {name} was not launched in the model's "
+                     "build")
+            setup_launches[name] = launches_[name]
+            print(f"   {smi}: {name} at {label}: {row['ms']:.4f} ms "
+                  f"(bound {bound(*row['cost'])[0]:.4f} ms, "
+                  f"{bound(*row['cost'])[1]}), plain {row['plain_ms']:.1f} "
+                  f"ms (host), launches in the build {launches_[name]}"
+                  + (f", index_add_ {row['library_ms']:.4f} ms"
+                     if row.get("library_ms") else ""), flush=True)
+        return rows
 
     with phase("1 device"):
         smi = subprocess.run(
@@ -1501,6 +1751,13 @@ def main() -> None:
                        BOWL_POINTS, grid=(1, 1, 1),
                        like="22a flagship, grid (2, 2, 1)")
 
+    with phase("33a flagship set-up before (host numpy) and after (the "
+               "set-up kernels); each set-up kernel vs plain"):
+        a33, b33, l33 = setup_turn("flagship",
+                                   lambda sd: bowl_model(pb6, args, sd))
+        kernels.update(setup_check("flagship", a33, b33, pb6.absorbing, l33))
+        del a33, b33
+
     with phase("7a two-layer build + pair kernel vs plain"):
         args2 = nonlinear_bowl.parser().parse_args(
             ["--elements", "64", "--degree", "4", "--two-layer"])
@@ -1545,6 +1802,9 @@ def main() -> None:
         n_single = cs.launches["stiffness"]
         p_focus = nonlinear_bowl.focal_pressure(bowl, state, focus)
         print(f"pressure at focus: {p_focus:.1f} Pa")
+        print(f"   the set-up on the card: focal {p_focus:.1f} Pa against "
+              f"-6874748.0 Pa with the host set-up's G (band "
+              f"{FOCAL_BAND_PA})")
         print(f"   stiffness launches {n_single} for {nsteps} steps")
         if n_single != 4 * nsteps:
             fail(f"stiffness launches {n_single} != 4 x {nsteps} steps")
@@ -1787,6 +2047,13 @@ def main() -> None:
         if cs.launches["stiffness"] != 40:
             fail(f"phase 30d: launches {cs.launches['stiffness']} != 40")
         del bowl6, s6, card, host, s100, s200
+    with phase("33g the flagship's mesh at P=6 (22,361,185 DOF): set-up "
+               "before and after; the set-up kernels vs plain"):
+        pb33 = nonlinear_bowl.problem(args6)
+        a33, b33, _ = setup_turn("flagship at P=6",
+                                 lambda sd: bowl_model(pb33, args6, sd))
+        setup_check("flagship at P=6", a33, b33, pb33.absorbing)
+        del a33, b33, pb33
     with phase("30e nonlinear_bowl demo with --output, --checkpoint-every, "
                "--snapshot-every and --probe (a subprocess)"):
         pre, ckp = IO / "demo", IO / "demo_ck"
@@ -2026,7 +2293,7 @@ def main() -> None:
 
     ce.reset_launches()
     with phase("9 piston demo on the imported cylinder (--refine 2)"):
-        piston, state, dev_oneil, psteps = linear_piston.main(
+        piston, state, dev_oneil, psteps, ptraces = linear_piston.main(
             ["--refine", "2", "--device", "cuda"])
         n_piston = ce.launches["extruded"]
         print(f"   extruded launches {n_piston} for {psteps} steps; "
@@ -2038,7 +2305,27 @@ def main() -> None:
             fail(f"O'Neil deviation {dev_oneil:.2%} >= {ONEIL_GATE:.0%}")
         if not bool(torch.isfinite(state.u).all()):
             fail("piston field is not finite")
+        pspp = piston.cfl_dt()[1]
+        amp9 = linear_piston.on_axis_amplitude(ptraces, pspp)
         del piston, state
+
+    with phase("33j piston demo on 2 gloo ranks sharing the card "
+               "(--refine 2 --ranks 2): the O'Neil table against phase 9's"):
+        _, res33, dev33, n33, traces33 = linear_piston.main(
+            ["--refine", "2", "--device", "cuda", "--ranks", "2",
+             "--backend", "gloo"])
+        amp33 = linear_piston.on_axis_amplitude(traces33, pspp)
+        e33 = float(np.abs(amp33 - amp9).max() / np.abs(amp9).max())
+        la33 = [r["launches"].get("extruded", 0) for r in res33]
+        print(f"   2 ranks: {n33} steps, O'Neil deviation {dev33:.4%} (one "
+              f"rank {dev_oneil:.4%}); on-axis amplitudes vs one rank: max "
+              f"relative {e33:.3e} (tol {TRAJ_TOL}); extruded launches per "
+              f"rank {la33} ({smi})", flush=True)
+        if not (e33 <= TRAJ_TOL and n33 == psteps
+                and all(n == 4 * n33 for n in la33)):
+            fail(f"33j: piston on 2 ranks {e33:.3e}, {n33} steps, "
+                 f"launches {la33}")
+        del res33, traces33
 
     with phase("10a imported bowl build + extruded kernel vs plain"):
         args3 = nonlinear_bowl.parser().parse_args(
@@ -2090,6 +2377,22 @@ def main() -> None:
         keep_for_ranks("22d imported bowl, 4 ranks", ibowl, dt3, 20,
                        BOWL_POINTS)
 
+    with phase("33b imported bowl set-up before and after; the set-up "
+               "kernels vs plain"):
+        a33, b33, _ = setup_turn("imported bowl",
+                                 lambda sd: bowl_model(pb10, args3, sd))
+        setup_check("imported bowl", a33, b33, pb10.absorbing)
+        del a33, b33
+    with phase("33c imported bowl as hex27 on the G stream: set-up before "
+               "and after; the set-up kernels (27 geometry dofs) vs plain"):
+        pb33 = SimpleNamespace(**vars(pb10))
+        pb33.mesh = shapes.hex27_lattice(pb10.mesh)
+        a33, b33, _ = setup_turn("imported bowl hex27",
+                                 lambda sd: bowl_model(pb33, args3, sd))
+        if a33.disc._card.gdofs.shape[1] != 27:
+            fail("33c: the hex27 bowl's geometry is not hex27")
+        setup_check("imported bowl hex27", a33, b33, pb33.absorbing)
+        del a33, b33, pb33
     ce.reset_launches()
     with phase("10b imported bowl full solve (extruded kernel)"):
         state = run_demo(ibowl, dt3, nsteps3, args3, "nonlinear_bowl")
@@ -2624,6 +2927,17 @@ def main() -> None:
                        dt5, 20, BOWL_POINTS, impl="indexed_engine",
                        like="22e bodyfit bowl, 4 ranks, indexed")
 
+    with phase("33d bodyfit bowl set-up before and after; the set-up "
+               "kernels vs plain (the mass diagonal through the inverse "
+               "map)"):
+        args33 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "64", "--degree", "4", "--geometry", "bodyfit"])
+        a33, b33, l33 = setup_turn("bodyfit bowl",
+                                   lambda sd: bowl_model(pb13, args33, sd))
+        kernels.update(setup_check("bodyfit bowl", a33, b33, pb13.absorbing,
+                                   l33))
+        del a33, b33
+
     ci.reset_launches()
     with phase("13b bodyfit bowl full solve (indexed kernel)"):
         args5 = nonlinear_bowl.parser().parse_args(args5_argv)
@@ -2871,6 +3185,12 @@ def main() -> None:
                  f"{bbowl7.mesh.ndofs} DOF")
         ten_steps(bbowl7, pst7, dt7, "P=6 bodyfit bowl")
         del pst7
+    with phase("33e P=6 bodyfit bowl set-up before and after; the set-up "
+               "kernels vs plain"):
+        a33, b33, _ = setup_turn("P=6 bodyfit bowl", lambda sd: bowl_model(
+            pb15, nonlinear_bowl.parser().parse_args(P6), sd))
+        setup_check("P=6 bodyfit bowl", a33, b33, pb15.absorbing)
+        del a33, b33
     ci.reset_launches()
     with phase("15b bodyfit bowl at P=6, 50 steps (indexed kernel)"):
         start = torch.cuda.Event(enable_timing=True)
@@ -2954,6 +3274,15 @@ def main() -> None:
         if not agree6 <= BODYFIT_P6_AGREE:
             fail(f"P=6 bodyfit vs conformal focal pressure {agree6:.3e}")
         del state, cbowl
+    with phase("33f conformal P=6 bowl set-up before and after; the set-up "
+               "kernels vs plain"):
+        args33 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "48", "--degree", "6"])
+        pb33 = nonlinear_bowl.problem(args33)
+        a33, b33, _ = setup_turn("conformal P=6 bowl",
+                                 lambda sd: bowl_model(pb33, args33, sd))
+        setup_check("conformal P=6 bowl", a33, b33, pb33.absorbing)
+        del a33, b33, pb33
     launches.update(indexed=n_idx + n_idx7 + n_idx7c,
                     indexed_pair=n_idx_pair)
 
@@ -3098,6 +3427,64 @@ def main() -> None:
         corner_launches["extruded_corner"] += capacity_run(
             capacity_imported, ["--nz", "30", "--steps", "10"],
             "capacity cylinder (nz 30)", "extruded_corner")
+    with phase("33h capacity demo in its own process (664 x 56 x 56 cells, "
+               "P=4, --steps 10), set-up on the host (before) and on the "
+               "card (after): set-up seconds, peak device memory, host "
+               "peak resident"):
+        for when, extra in (("before", ["--setup-device", "cpu"]),
+                            ("after", [])):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "fustpu_torch.demos.capacity",
+                 "--steps", "10", *extra], cwd=ROOT, capture_output=True,
+                text=True, timeout=600)
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith(("set-up", "10 steps", "|u| max"))]
+            for ln in lines:
+                print(f"   capacity box, set-up {when}: {ln}")
+            print(f"   capacity box, set-up {when}: the process took "
+                  f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+            m = re.search(r"^set-up ([0-9.]+) s \((.*?)\);", out.stdout,
+                          re.M)
+            if out.returncode != 0 or m is None or len(lines) != 3:
+                fail(f"33h: the capacity demo ({when}) exited "
+                     f"{out.returncode}: {out.stderr[-2000:]}")
+            setup_table.append((f"capacity box ({when}, its own process)",
+                                float(m.group(1)), m.group(2)))
+    with phase("33i the physics anchors in float32 on the card: Fubini's "
+               "second harmonic (2%) and two-layer transmission (3%)"):
+        cs.reset_launches()
+        an = anchors.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        fb, tr = an["fubini"], an["transmission"]
+        n_an = cs.launches["stiffness"] + cs.launches["stiffness_pair"]
+        print(f"   {smi}: Fubini {fb['rel']:.4%} (sigma {fb['sigma']:.4f}),"
+              f" transmission {tr['dev']:.4%}; #1 / #2 launches {n_an} for "
+              f"{fb['steps'] + tr['steps']} steps", flush=True)
+        if not (fb["rel"] < anchors.FUBINI_TOL and 0.15 < fb["sigma"] < 0.9
+                and fb["B2"] / fb["B1"] > 0.05
+                and tr["dev"] < anchors.TRANSMISSION_TOL):
+            fail(f"33i: the anchors missed: {an}")
+        if n_an != 4 * (fb["steps"] + tr["steps"]):
+            fail(f"33i: launches {n_an}")
+    with phase("33k the multi-node check: 2 separately launched gloo ranks "
+               "sharing the card, joined over tcp://127.0.0.1"):
+        e33 = multihost.run_separate_check(2, (2, 1, 1), device="cuda",
+                                           init="tcp", timeout=600.0)
+        print(f"   2 separately launched ranks on the card: sharded vs "
+              f"one rank rel-l2 {e33:.3e} (tol {multihost.CHECK_TOL}), "
+              f"shared entries consistent ({smi})", flush=True)
+    with phase("33 the set-up seconds, before (host numpy) and after "
+               "(the set-up kernels), in this call"):
+        for row in setup_table:
+            if len(row) == 3 and isinstance(row[1], tuple):
+                label, (tb, sb), (ta, sa) = row
+                fmt = lambda sp: ", ".join(f"{k} {v:.3f}"
+                                           for k, v in sp.items())
+                print(f"   {label}: {tb:.3f} s ({fmt(sb)}) -> {ta:.3f} s "
+                      f"({fmt(sa)}) ({smi})")
+            else:
+                print(f"   {row[0]}: {row[1]:.3f} s ({row[2]}) ({smi})")
     cs.reset_launches()
     with phase("32c #1 against the dense oracle at P=2..10 (f64, 2^3; the "
                "oracle computed in a process of its own since phase 32i)"):
@@ -3120,6 +3507,7 @@ def main() -> None:
         del refs, oracle_jobs
     launches.update(corner_launches)
     launches.update(demo_launches)
+    launches.update(setup_launches)
     kernels.update(demo_kernels)
 
     meta = {
@@ -3204,7 +3592,16 @@ def main() -> None:
            for v in probes.LAYOUTS},
         **{f"relayout_{v}": ("fustpu_torch/csrc/probes.cu",
                              "demos/exp_mosaic_relayout.py:38")
-           for v in ("copy", "transpose", "copy_flat", "transpose_padded")}}
+           for v in ("copy", "transpose", "copy_flat", "transpose_padded")},
+        # the set-up kernels: no TPU kernel, the native C++ set-up runtime
+        **{name: ("fustpu_torch/csrc/setup.cu",
+                  f"native/fustpu_native.cpp:{ln}")
+           for name, ln in (("setup_cell_geometry", 76),
+                            ("setup_cell_detJ", 76),
+                            ("setup_facet_geometry", 111),
+                            ("setup_box_dofmap", 140),
+                            ("setup_mass_diagonal_box", 163),
+                            ("setup_mass_diagonal_map", 163))}}
     print(f"   total {time.perf_counter() - t_start:.1f} s ({smi})",
           flush=True)
     rows = []

@@ -29,6 +29,18 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 
+# The set-up kernels' entry points (csrc/setup.cu, float64) and their
+# arguments before the stream: pointers, 64-bit sizes and ints.
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+SETUP_ENTRIES = {
+    "fustpu_setup_cell_geometry": [_P, _P, _P, _LL, _I, _I, _I, _P, _P],
+    "fustpu_setup_facet_geometry": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "fustpu_setup_box_dofmap": [_P, _LL, _I, _I, _I, _P],
+    "fustpu_setup_mass_diagonal_box": [_P, _P, _I, _I, _I, _I, _P],
+    "fustpu_setup_mass_diagonal_map": [_P, _P, _I, _P, _P, _LL, _P],
+}
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
@@ -249,4 +261,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"fustpu_{kind}_pair_{suffix}")
             fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, p]
             fn.restype = i
+    for name, args in SETUP_ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [*args, p]
+        fn.restype = i
     return lib

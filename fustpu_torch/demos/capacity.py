@@ -10,12 +10,14 @@ cells, P = 4, 1.1 MHz in water.
 
     python -m fustpu_torch.demos.capacity [--cells 664 56 56] [--degree 4]
         [--steps 10] [--impl pallas_corner|auto|mm] [--device cuda|cpu]
-        [--dtype f32|f64]
+        [--dtype f32|f64] [--setup-device cpu]
 
-Prints the stiffness operator and its kernel, the host set-up seconds, the
-ms/step of a timed solve of --steps steps that follows a warm-up solve of
-the same length (CUDA events on the card), the peak device memory and
-max |u|.
+Prints the stiffness operator and its kernel, the set-up seconds (host
+clock; geometry, mass and facet diagonals on the card's set-up kernels,
+or with `--setup-device cpu` in the host's numpy), the ms/step of a timed
+solve of --steps steps that follows a warm-up solve of the same length
+(CUDA events on the card), the peak device memory, this process's peak
+resident host memory and max |u|.
 """
 
 from __future__ import annotations
@@ -48,20 +50,25 @@ def parser() -> argparse.ArgumentParser:
                    choices=["pallas_corner", "auto", "mm"],
                    help="pallas_corner = the corner-streamed kernels; auto "
                         "= the G-stream kernels; mm = the plain version")
+    p.add_argument("--setup-device", choices=["cpu"], default=None,
+                   help="cpu = the set-up (geometry, diagonals) in the "
+                        "host's numpy; default: on --device")
     return add_device_args(p)
 
 
 def describe(model, t_setup: float) -> None:
-    """Print the operator, its kernel and the host set-up seconds."""
+    """Print the operator, its kernel and the set-up seconds."""
     steps = ", ".join(f"{k} {v:.1f} s"
                       for k, v in model.disc.host_seconds.items())
     st = model.stiffness
     geo = st.T if isinstance(st, CornerStiffness) else st.G
-    print(f"host set-up {t_setup:.1f} s ({steps or 'no geometry pass'}); "
+    host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    print(f"set-up {t_setup:.1f} s ({steps or 'no geometry pass'}); "
           f"impl {model.impl}, {type(st).__name__}, kernel "
           f"{model.stiffness_kernel}, corner mode "
           f"{isinstance(st, CornerStiffness)}; geometry on the device "
-          f"{geo.numel() * geo.element_size() / 1e9:.3f} GB", flush=True)
+          f"{geo.numel() * geo.element_size() / 1e9:.3f} GB; host peak "
+          f"resident so far {host / 1e9:.3f} GB", flush=True)
 
 
 def timed_run(model, dt: float, steps: int):
@@ -104,7 +111,8 @@ def build(args):
                             mesh.boundary_facets("x-"),
                             mesh.all_boundary_facets(),
                             dtype=pick_dtype(args.dtype), device=args.device,
-                            stiffness_impl=args.impl)
+                            stiffness_impl=args.impl,
+                            setup_device=args.setup_device)
     t_setup = time.perf_counter() - t0
     describe(model, t_setup)
     dt, _ = model.cfl_dt(0.4)

@@ -7,22 +7,30 @@ tagged 2.  Pass --mesh to use your own Gmsh .msh file; otherwise a
 conforming all-hex O-grid cylinder is generated, written to .msh and read
 back through the same importer.  The mesh is prismatic, so the stiffness
 runs on the extruded kernel.  The on-axis steady-state pressure amplitude
-is compared against the O'Neil closed-form solution.
+is compared against the O'Neil closed-form solution.  `--ranks k` shards
+the imported piston over k spawned ranks of torch.distributed
+(`ExtrudedShardedModel`, stacks split by recursive coordinate bisection;
+the host model is built once on the CPU and each rank's part goes on its
+device), and the sharded on-axis probe's trace, which rank 0 returns, gives
+the same table.
 
     python -m fustpu_torch.demos.linear_piston [--mesh file.msh]
         [--refine R] [--degree P] [--periods N] [--device cuda|cpu]
+        [--ranks k] [--backend gloo|nccl]
 """
 
 from __future__ import annotations
 
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
 from fustpu_torch.config import Material, Source
-from fustpu_torch.demos.common import (check_device, demo_argparser,
-                                       pick_dtype, run_demo)
+from fustpu_torch.demos.common import (add_rank_args, check_device,
+                                       demo_argparser, pick_dtype, run_demo,
+                                       run_ranks)
 from fustpu_torch.mesh import msh_io, shapes
 from fustpu_torch.mesh.unstructured import UPointSampler
 from fustpu_torch.models.linear import LinearWaveModel
@@ -39,7 +47,7 @@ def default_mesh_file(path: str, refine: int) -> str:
 
 
 def parser():
-    p = demo_argparser(degree=4, periods=3.0)
+    p = add_rank_args(demo_argparser(degree=4, periods=3.0))
     p.add_argument("--mesh", default="", help=".msh file (generated if '')")
     p.add_argument("--refine", type=int, default=1,
                    help="refinement factor for the generated mesh")
@@ -72,12 +80,18 @@ def build(args, workdir: str):
     return model, dt, nsteps, spp, pts
 
 
+def on_axis_amplitude(traces: np.ndarray, spp: int) -> np.ndarray:
+    """The steady-state amplitude at each probe point: the largest |p| of
+    the last source period of the per-step traces (steps, points)."""
+    return np.abs(traces[-spp:]).max(axis=0)
+
+
 def oneil_table(model, traces: np.ndarray, spp: int, pts: np.ndarray
                 ) -> float:
-    """Print the on-axis steady-state amplitude (the last source period of
-    the per-step traces) against O'Neil; returns the largest deviation as
-    a fraction of the peak analytic amplitude."""
-    amp = np.abs(traces[-spp:]).max(axis=0)
+    """Print the on-axis steady-state amplitude (`on_axis_amplitude`)
+    against O'Neil; returns the largest deviation as a fraction of the
+    peak analytic amplitude."""
+    amp = on_axis_amplitude(traces, spp)
     src, c = model.source, float(np.max(model.material.sound_speed))
     zs = pts[:, 2]
     ref = shapes.oneil_on_axis(zs, PISTON_A, src.frequency, c,
@@ -93,9 +107,29 @@ def oneil_table(model, traces: np.ndarray, spp: int, pts: np.ndarray
     return dev
 
 
+def main_ranks(args):
+    """The piston over `args.ranks` spawned ranks: the host model built
+    once on the CPU, each rank's part (its stacks) on its device, the
+    sharded on-axis probe read every step.  Returns (host model, rank
+    results, deviation vs O'Neil, number of steps, rank 0's probe trace
+    (steps, points))."""
+    host = SimpleNamespace(**{**vars(args), "device": "cpu"})
+    with tempfile.TemporaryDirectory() as workdir:
+        model, dt, nsteps, spp, pts = build(host, workdir)
+    print(f"sharded over {args.ranks} ranks ({args.backend} on "
+          f"{args.device}), recursive coordinate bisection of the stacks")
+    res = run_ranks(model, args, dt, nsteps, points=pts)
+    traces = np.asarray(res[0]["ys"], np.float64)
+    dev = oneil_table(model, traces, spp, pts)
+    print(f"launches per rank: {[r['launches'] for r in res]}")
+    return model, res, dev, nsteps, traces
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     check_device(args)
+    if args.ranks > 1:
+        return main_ranks(args)
     with tempfile.TemporaryDirectory() as workdir:
         model, dt, nsteps, spp, pts = build(args, workdir)
     pfn = UPointSampler(model.mesh, pts).torch_probe(model.device)
@@ -104,7 +138,7 @@ def main(argv=None):
                          probe=probe)
     traces = ys.double().cpu().numpy()
     dev = oneil_table(model, traces, spp, pts)
-    return model, state, dev, nsteps
+    return model, state, dev, nsteps, traces
 
 
 if __name__ == "__main__":

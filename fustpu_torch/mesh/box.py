@@ -86,16 +86,13 @@ class BoxMesh:
         over all cells.  On a cube this is the diameter, but on anisotropic
         cells it binds on the thin direction, where the diameter would
         overestimate the stable dt by the aspect ratio."""
-        c = self.cell_corners_flat
-        d = np.linalg.norm(c[:, :, None, :] - c[:, None, :, :], axis=-1)
-        d[:, np.arange(8), np.arange(8)] = np.inf
-        return float(np.sqrt(3.0) * d.min())
+        return precompute.h_cfl(self.cell_corners_flat)
 
     # ----- DOF indexing -------------------------------------------------
     @functools.cached_property
     def dofmap(self) -> np.ndarray:
-        """(num_cells, n^3) int32 global dof indices (used for facet
-        dofmaps and host assembly; the stiffness path never needs it)."""
+        """(num_cells, n^3) int32 global dof indices (used for host
+        assembly; the stiffness path never needs it)."""
         P = self.degree
         n = P + 1
         ncx, ncy, ncz = self.nc
@@ -169,13 +166,37 @@ class BoxMesh:
             [self.boundary_facets(p) for p in
              ["x-", "x+", "y-", "y+", "z-", "z+"]], axis=0)
 
+    def dofmap_rows(self, cells: np.ndarray) -> np.ndarray:
+        """(len(cells), n^3) int32: the rows of `dofmap` of the given cells
+        (`dofmap_rows`), without the whole dofmap."""
+        return dofmap_rows(self.nc, self.degree, cells)
+
     def facet_dofmap(self, boundary_data: np.ndarray) -> np.ndarray:
-        """(nf, n^2) int32 global dofs of each (cell, local_facet) pair."""
+        """(nf, n^2) int32 global dofs of each (cell, local_facet) pair:
+        the facet cells' dofmap rows only (`dofmap_rows`)."""
         elem = self.element
         bd = np.asarray(boundary_data).reshape(-1, 2)
-        return self.dofmap[bd[:, 0]][
+        return self.dofmap_rows(bd[:, 0])[
             np.arange(bd.shape[0])[:, None],
             elem.all_facet_dofs[bd[:, 1]]].astype(np.int32)
+
+
+def dofmap_rows(nc, P: int, cells) -> np.ndarray:
+    """(len(cells), n^3) int32 dofmap rows of the given cells of a box of
+    `nc` cells at degree P, by the box dofmap formula (cx P + i) gy gz +
+    (cy P + j) gz + (cz P + k): the plain version of the set-up kernel
+    ``ops.cuda_setup.box_dofmap``."""
+    n = P + 1
+    _, ncy, ncz = nc
+    gy, gz = ncy * P + 1, ncz * P + 1
+    c = np.asarray(cells, np.int64).reshape(-1)
+    loc = np.arange(n)
+    cx = (c // (ncy * ncz))[:, None] * P + loc
+    cy = ((c // ncz) % ncy)[:, None] * P + loc
+    cz = (c % ncz)[:, None] * P + loc
+    rows = (cx[:, :, None, None] * (gy * gz)
+            + cy[:, None, :, None] * gz + cz[:, None, None, :])
+    return rows.reshape(c.size, n ** 3).astype(np.int32)
 
 
 def build_box_mesh(

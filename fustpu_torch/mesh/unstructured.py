@@ -111,10 +111,7 @@ class UnstructuredHexMesh:
         """sqrt(3) x smallest corner-pair distance (== diameter on a cube;
         binds on the thin direction of anisotropic cells, see
         BoxMesh.h_cfl)."""
-        c = self.cell_corners_flat
-        d = np.linalg.norm(c[:, :, None, :] - c[:, None, :, :], axis=-1)
-        d[:, np.arange(8), np.arange(8)] = np.inf
-        return float(np.sqrt(3.0) * d.min())
+        return precompute.h_cfl(self.cell_corners_flat)
 
     @property
     def geom_degree(self) -> int:

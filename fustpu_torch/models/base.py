@@ -27,11 +27,15 @@ class WaveModelBase(nn.Module):
     VECTORS: tuple = ()        # names of the flat diagonal-vector buffers
 
     def _setup(self, mesh, material, source, source_facets,
-               dtype: torch.dtype, device, stiffness_impl: str) -> None:
-        """Configuration shared by every way of building a model: no host
+               dtype: torch.dtype, device, stiffness_impl: str,
+               setup_device=None) -> None:
+        """Configuration shared by every way of building a model: no
         assembly happens here.  `mesh`: a BoxMesh (structured kernels), an
         ExtrudedHexMesh (extruded kernels) or any other
-        UnstructuredHexMesh (the indexed kernels)."""
+        UnstructuredHexMesh (the indexed kernels).  `setup_device`: where
+        the geometry, facet and diagonal set-up runs (`Discretization`):
+        the model's device when None, or 'cpu' for the host's float64
+        numpy (the set-up kernels' plain versions), uploaded."""
         if not (hasattr(mesh, "nc") or isinstance(mesh, UnstructuredHexMesh)):
             raise TypeError(
                 f"mesh of type {type(mesh).__name__}: expected a BoxMesh or "
@@ -42,6 +46,11 @@ class WaveModelBase(nn.Module):
                 f"device={device!r}: no CUDA device is available (the "
                 "models run on the card by default; pass device='cpu' for "
                 "the plain torch path)")
+        self.setup_device = torch.device(
+            self.device if setup_device is None else setup_device)
+        if self.setup_device.type not in ("cpu", self.device.type):
+            raise ValueError(f"setup_device={setup_device!r}: expected None "
+                             f"or 'cpu' for a model on {self.device}")
         self.mesh = mesh
         self.material = material
         self.source = source
@@ -69,14 +78,18 @@ class WaveModelBase(nn.Module):
         version."""
         return self.stiffness.kernel
 
-    def _load_vectors(self, host: dict) -> None:
+    def _load_vectors(self, vectors: dict) -> None:
         """Register every name of VECTORS as a flat buffer in the model
-        dtype (None where the model has no such term)."""
+        dtype (None where the model has no such term), from float64 host
+        arrays or tensors (the set-up on the card)."""
         for name in self.VECTORS:
-            a = host.get(name)
-            self.register_buffer(name, None if a is None else torch.tensor(
-                np.asarray(a).reshape(-1), dtype=self.dtype,
-                device=self.device))
+            a = vectors.get(name)
+            if isinstance(a, torch.Tensor):
+                a = a.reshape(-1).to(dtype=self.dtype, device=self.device)
+            elif a is not None:
+                a = torch.tensor(np.asarray(a).reshape(-1), dtype=self.dtype,
+                                 device=self.device)
+            self.register_buffer(name, a)
 
     # ------------------------------------------------------------------
     def init_state(self, t0: float = 0.0, u0=None, v0=None

@@ -1,12 +1,13 @@
 """Spectral-element discretization of a structured box mesh or an
-imported (prismatic or general) hex mesh: host-side (float64 numpy)
-geometry, facet blocks and diagonal assembly, and the stiffness operator
-on the device.
+imported (prismatic or general) hex mesh: the float64 set-up (geometry,
+facet blocks and diagonal assembly), on the card with the set-up kernels
+(``ops/cuda_setup``) for a discretisation there, on the host in numpy (the
+plain versions) otherwise, and the stiffness operator on the device.
 
 With GLL collocation every mass-type operator (cell or facet) is globally
 diagonal, so each fixed coefficient field yields a precomputed diagonal
-vector and an apply is one elementwise multiply (`mass_diag_host` /
-`facet_diag_host`).  The stiffness operator is `StructuredStiffness` on a
+vector and an apply is one elementwise multiply (`mass_diag` /
+`facet_diag`).  The stiffness operator is `StructuredStiffness` on a
 box mesh, `ExtrudedStiffness` on an `ExtrudedHexMesh` and
 `IndexedStiffness` on any other `UnstructuredHexMesh`: the CUDA kernels on
 a CUDA device, or their plain torch versions.  In the corner-streamed
@@ -22,6 +23,7 @@ Counterpart of
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import NamedTuple
@@ -35,6 +37,7 @@ from fustpu_torch.ops import cuda_corner as cc
 from fustpu_torch.ops import cuda_engine as cen
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_indexed as ci
+from fustpu_torch.ops import cuda_setup as setup
 from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.ops import engine as eng
 from fustpu_torch.ops import extruded as ext
@@ -56,11 +59,12 @@ EXTRUDED_PLAIN_IMPL = "extruded"
 
 
 class FacetBlock(NamedTuple):
-    """A set of boundary facets with geometry factors (host arrays)."""
+    """A set of boundary facets with geometry factors: host arrays, or
+    tensors on the card for a discretisation there."""
 
-    cells: np.ndarray          # (nf,) owning cell
-    dofmap_host: np.ndarray    # (nf, n^2) flat global node indices
-    detJ_host: np.ndarray      # (nf, n^2) float64
+    cells: np.ndarray                  # (nf,) owning cell (host)
+    dofmap: np.ndarray | torch.Tensor  # (nf, n^2) flat global node indices
+    detJ: np.ndarray | torch.Tensor    # (nf, n^2) float64
 
     @property
     def num_facets(self) -> int:
@@ -68,28 +72,59 @@ class FacetBlock(NamedTuple):
 
 
 class Discretization:
-    """Host geometry factors and facet machinery for one box mesh or
-    imported (unstructured) mesh."""
+    """Geometry factors and facet machinery for one box mesh or imported
+    (unstructured) mesh, set up on `device`: with the set-up kernels on a
+    CUDA device (tensors there, never a host pass over the cells), in
+    float64 numpy on the CPU (host arrays)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, device="cpu"):
         self.mesh = mesh
         self.P = mesh.degree
         self.structured = hasattr(mesh, "nc")
-        # seconds of the host set-up steps, by name, as they run
+        self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"
+        # seconds of the set-up steps on the host clock, by name
+        # (geometry, mass, facets), as they run (the card's work included)
         self.host_seconds = {}
-        self._detJ_host = pre.cell_detJ(mesh)              # (cells, n^3)
         self._D_host = mesh.element.deriv_1d
+        with self._timed("geometry"):
+            if self.on_card:
+                self._card = setup.CardGeometry(mesh, self.device)
+            else:
+                self._detJ_host = pre.cell_detJ(mesh)      # (cells, n^3)
+
+    @contextlib.contextmanager
+    def _timed(self, step: str):
+        """Add the seconds of the block to `host_seconds[step]` (after the
+        card's queue drains, on the card)."""
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.host_seconds[step] = (self.host_seconds.get(step, 0.0)
+                                   + time.perf_counter() - t0)
 
     @functools.cached_property
     def _G_host(self) -> np.ndarray:
         """(cells, n^3, 6) metric factors, float64 host, on first use
         (never in the corner mode: 48 B per node, the largest host array of
         the set-up): the mesh's `cell_metric`, computed once per mesh, so a
-        second model of the same mesh reuses it."""
-        t0 = time.perf_counter()
-        G = self.mesh.cell_metric
-        self.host_seconds["geometry"] = time.perf_counter() - t0
-        return G
+        second model of the same mesh reuses it; on the card, the card's
+        metric brought to the host (what the sharded models cut into
+        parts, also in a rank that loaded the model onto the CPU)."""
+        with self._timed("geometry"):
+            if self.on_card:
+                return self._card.to(self.device).metric().cpu().numpy()
+            return self.mesh.cell_metric
+
+    def _metric(self):
+        """G (cells, n^3, 6) float64: computed on the card there (not kept:
+        the stiffness operator holds its own copy), the host array
+        otherwise."""
+        if not self.on_card:
+            return self._G_host
+        with self._timed("geometry"):
+            return self._card.metric()
 
     @functools.cached_property
     def chunk_plan(self) -> ci.ChunkPlan:
@@ -109,16 +144,74 @@ class Discretization:
 
     # ---- facets -----------------------------------------------------------
     def facet_block(self, boundary_data: np.ndarray) -> FacetBlock:
+        """The (cell, local facet) pairs' dofs and geometry factors; on the
+        card the facet cells' dofmap rows (`cuda_setup.box_dofmap` on a
+        box) and `cuda_setup.facet_geometry`."""
         bd = np.asarray(boundary_data, np.int64).reshape(-1, 2)
-        return FacetBlock(cells=bd[:, 0].copy(),
-                          dofmap_host=self.mesh.facet_dofmap(bd),
-                          detJ_host=pre.facet_geometry_factors(self.mesh, bd))
+        with self._timed("facets"):
+            if not self.on_card:
+                return FacetBlock(
+                    cells=bd[:, 0].copy(), dofmap=self.mesh.facet_dofmap(bd),
+                    detJ=pre.facet_geometry_factors(self.mesh, bd))
+            dofmap = (setup.box_facet_dofmap(self.mesh, bd, self.device)
+                      if self.structured else torch.as_tensor(
+                          self.mesh.facet_dofmap(bd).astype(np.int64),
+                          device=self.device))
+            return FacetBlock(
+                cells=bd[:, 0].copy(), dofmap=dofmap,
+                detJ=setup.mesh_facet_geometry(self.mesh, bd, self.device))
 
     def facet_points(self, block: FacetBlock) -> np.ndarray:
         """(nf, n^2, 3) physical coordinates of facet nodes."""
-        return self.mesh.node_coords.reshape(-1, 3)[block.dofmap_host]
+        dofmap = block.dofmap
+        if isinstance(dofmap, torch.Tensor):
+            dofmap = dofmap.cpu().numpy()
+        return self.mesh.node_coords.reshape(-1, 3)[dofmap]
 
-    # ---- host-side float64 diagonal assembly ------------------------------
+    # ---- float64 diagonal assembly ----------------------------------------
+    def _card_f64(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a, np.float64),
+                               device=self.device)
+
+    def mass_diag(self, cell_coeff=None):
+        """Global diagonal of the mass operator for a per-cell coefficient
+        field, float64, grid-shaped (flat (ndofs,) on an unstructured
+        mesh): a tensor on the card from the set-up kernels (detJ, then
+        `mass_diagonal_box` on a box, `mass_diagonal_map` through the
+        dofmap's inverse map otherwise), `mass_diag_host` on the CPU."""
+        with self._timed("mass"):
+            if not self.on_card:
+                return self.mass_diag_host(cell_coeff)
+            coeff = (None if cell_coeff is None else
+                     self._card_f64(np.asarray(cell_coeff).reshape(-1)))
+            detJ = self._card.detJ()
+            if self.structured:
+                return setup.mass_diagonal_box(detJ, coeff, self.mesh.nc,
+                                               self.P)
+            pos, ptr = setup.inverse_map(
+                torch.as_tensor(self.mesh.dofmap, device=self.device),
+                self.mesh.ndofs)
+            return setup.mass_diagonal_map(detJ.reshape(-1), coeff,
+                                           detJ.shape[1], pos, ptr)
+
+    def facet_diag(self, block: FacetBlock, facet_coeff,
+                   node_weights: np.ndarray | None = None):
+        """`facet_diag_host` of the block, as a float64 tensor on the card
+        (the values' sum through the facet dofmap's inverse map,
+        `mass_diagonal_map`, in the host version's order) or a host array
+        on the CPU."""
+        with self._timed("facets"):
+            if not self.on_card:
+                return self.facet_diag_host(block, facet_coeff, node_weights)
+            vals = block.detJ * self._card_f64(facet_coeff)[:, None]
+            if node_weights is not None:
+                vals = vals * self._card_f64(node_weights)
+            pos, ptr = setup.inverse_map(block.dofmap, self.mesh.ndofs)
+            y = setup.mass_diagonal_map(vals.reshape(-1), None,
+                                        vals.shape[1], pos, ptr)
+            return y.reshape(self.mesh.grid_shape)
+
+    # ---- host-side float64 diagonal assembly (the plain versions) --------
     def mass_diag_host(self, cell_coeff=None) -> np.ndarray:
         """Global diagonal of the mass operator for a per-cell coefficient
         field, float64 on host, grid-shaped (flat (ndofs,) on an
@@ -143,11 +236,11 @@ class Discretization:
         the precomputed source vector: the source field is g(t) times this
         vector.  Optional per-facet-node `node_weights` (nf, n^2) support
         apodised / phased apertures."""
-        vals = block.detJ_host * np.asarray(facet_coeff)[:, None]
+        vals = block.detJ * np.asarray(facet_coeff)[:, None]
         if node_weights is not None:
             vals = vals * node_weights
         y = np.zeros(self.mesh.ndofs)
-        np.add.at(y, block.dofmap_host.ravel(), vals.ravel())
+        np.add.at(y, block.dofmap.ravel(), vals.ravel())
         return y.reshape(self.mesh.grid_shape)
 
     # ---- stiffness --------------------------------------------------------
@@ -167,35 +260,34 @@ class Discretization:
         `indexed`: `ci.IndexedCellStiffness` on any mesh, a box or an
         extruded one too (the JAX package's ``stiffness_impl="indexed"``)."""
         extruded = isinstance(self.mesh, ExtrudedHexMesh)
-        if engine:
-            if self.structured:
-                raise ValueError(f"stiffness_impl={ENGINE_IMPL!r} needs an "
-                                 "imported mesh (a box mesh runs the "
-                                 "structured kernels)")
-            return cen.build(self.mesh, self._G_host, self._D_host, dtype,
-                             device, coeff=coeff, pair=pair)
-        if corner and (self.structured or extruded):
+        if engine and self.structured:
+            raise ValueError(f"stiffness_impl={ENGINE_IMPL!r} needs an "
+                             "imported mesh (a box mesh runs the "
+                             "structured kernels)")
+        if corner and (self.structured or extruded) and not engine:
             t0 = time.perf_counter()
             build = cc.build_extruded if extruded else cc.build_box
             op = build(self.mesh, self._D_host, dtype, device, coeff=coeff,
                        pair=pair)
             self.host_seconds["channels"] = time.perf_counter() - t0
             return op
+        G = self._metric()
+        if engine:
+            return cen.build(self.mesh, G, self._D_host, dtype, device,
+                             coeff=coeff, pair=pair)
         if indexed or not (self.structured or extruded):
-            return ci.build(self.mesh, self._G_host, self._D_host, dtype,
-                            device, coeff=coeff, pair=pair,
-                            plan=self.chunk_plan)
+            return ci.build(self.mesh, G, self._D_host, dtype, device,
+                            coeff=coeff, pair=pair, plan=self.chunk_plan)
         if extruded:
-            return ce.build(self.mesh, self._G_host, self._D_host, dtype,
-                            device, coeff=coeff, pair=pair,
-                            plan=self.stack_plan)
+            return ce.build(self.mesh, G, self._D_host, dtype, device,
+                            coeff=coeff, pair=pair, plan=self.stack_plan)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         C = None
         if pair is not None:
             C = t(np.stack([np.broadcast_to(np.asarray(c, np.float64),
                                             self.mesh.nc).reshape(-1)
                             for c in pair], axis=1))
-        return cs.CellStiffness(G=t(cs.pack_G(self._G_host, coeff)),
+        return cs.CellStiffness(G=t(cs.pack_G(G, coeff)),
                                 D=t(self._D_host), nc=tuple(self.mesh.nc),
                                 C=C)
 

@@ -53,6 +53,7 @@ class LinearWaveModel(WaveModelBase):
         source_delays=None,
         source_apodization=None,
         stiffness_impl: str = "auto",
+        setup_device=None,
     ):
         """`source_delays`: optional per-node delay profile tau(x) for a
         phased (focused) aperture, a callable(points (N,3)) -> tau (N,) or
@@ -69,11 +70,14 @@ class LinearWaveModel(WaveModelBase):
         on any mesh, a box or a prismatic import too), or the JAX
         package's names 'pallas' and 'extruded_pallas' (as 'auto') and
         'extruded' (the plain version on a prismatic import;
-        `resolve_stiffness_impl`)."""
+        `resolve_stiffness_impl`).  `setup_device`: where the geometry,
+        facet and diagonal set-up runs: the model's device (None: the
+        set-up kernels on the card) or 'cpu' (the host's float64 numpy,
+        uploaded)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
-                    stiffness_impl)
-        disc = Discretization(mesh)
+                    stiffness_impl, setup_device)
+        disc = Discretization(mesh, self.setup_device)
         self.disc = disc
         c, rho, _, _ = material.cell_fields(self.cell_shape)
         # stiffness coefficient -1/rho: a scalar applied to the output for
@@ -85,7 +89,7 @@ class LinearWaveModel(WaveModelBase):
             engine=stiffness_impl == ENGINE_IMPL,
             indexed=stiffness_impl == INDEXED_IMPL), self.impl)
 
-        host = {"m": disc.mass_diag_host(1.0 / (rho * c * c))}
+        vecs = {"m": disc.mass_diag(1.0 / (rho * c * c))}
         # source boundary: the g(t) facet term reduces to precomputed
         # diagonal vector(s): one for a plain aperture, a cos/sin pair for a
         # phased one (see fustpu_torch.models.sources)
@@ -95,18 +99,18 @@ class LinearWaveModel(WaveModelBase):
             disc, src_block, source.angular_frequency, source_delays,
             source_apodization)
         if phi is None:
-            host["s_cos"] = disc.facet_diag_host(src_block, fcoeff, apod)
+            vecs["s_cos"] = disc.facet_diag(src_block, fcoeff, apod)
         else:
             cw = np.cos(phi) if apod is None else apod * np.cos(phi)
             sw = np.sin(phi) if apod is None else apod * np.sin(phi)
-            host["s_cos"] = disc.facet_diag_host(src_block, fcoeff, cw)
-            host["s_sin"] = disc.facet_diag_host(src_block, fcoeff, sw)
+            vecs["s_cos"] = disc.facet_diag(src_block, fcoeff, cw)
+            vecs["s_sin"] = disc.facet_diag(src_block, fcoeff, sw)
         # absorbing boundary: -(1/(rho c)) v_n v ds, a facet diagonal
         if absorbing_facets is not None and len(absorbing_facets) > 0:
             blk = disc.facet_block(absorbing_facets)
             rc = (rho * c).reshape(-1)[blk.cells]
-            host["fvec"] = disc.facet_diag_host(blk, -1.0 / rc)
-        self._load_vectors(host)
+            vecs["fvec"] = disc.facet_diag(blk, -1.0 / rc)
+        self._load_vectors(vecs)
 
     def _coefficients(self) -> None:
         rho = self.material.cell_fields(self.cell_shape)[1]

@@ -65,7 +65,7 @@ def resolve_profiles(disc, block, omega: float, delays, apod):
     pts = None
     if callable(delays) or callable(apod):
         pts = disc.facet_points(block).reshape(-1, 3)
-    shape = block.dofmap_host.shape
+    shape = tuple(block.dofmap.shape)
 
     def norm(p):
         if p is None:

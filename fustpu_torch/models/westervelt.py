@@ -56,6 +56,7 @@ class WesterveltModel(WaveModelBase):
         source_delays=None,
         source_apodization=None,
         stiffness_impl: str = "auto",
+        setup_device=None,
     ):
         """`source_delays` / `source_apodization`: optional per-node
         phased-aperture profiles (callable(points)->array or (nf, n^2)
@@ -70,11 +71,14 @@ class WesterveltModel(WaveModelBase):
         fields in one pass) or 'indexed' (the fused indexed kernel on any
         mesh, a box or a prismatic import too), or the JAX package's names
         'pallas' and 'extruded_pallas' (as 'auto') and 'extruded' (the
-        plain version on a prismatic import; `resolve_stiffness_impl`)."""
+        plain version on a prismatic import; `resolve_stiffness_impl`).
+        `setup_device`: where the geometry, facet and diagonal set-up
+        runs: the model's device (None: the set-up kernels on the card)
+        or 'cpu' (the host's float64 numpy, uploaded)."""
         super().__init__()
         self._setup(mesh, material, source, source_facets, dtype, device,
-                    stiffness_impl)
-        disc = Discretization(mesh)
+                    stiffness_impl, setup_device)
+        disc = Discretization(mesh, self.setup_device)
         self.disc = disc
         c, rho, beta, _ = material.cell_fields(self.cell_shape)
         delta = self._delta
@@ -88,17 +92,17 @@ class WesterveltModel(WaveModelBase):
         # unsteady mass diagonal: mass(u; -nl) = u * mvec2 (and the v^2 RHS
         # term uses +nl, i.e. exactly -mvec2)
         nl = 2.0 * beta / (rho * rho * c**4)
-        host = {"mvec2": disc.mass_diag_host(-nl)}
-        # steady LHS m0 (+ absorbing-facet delta term), f64 host
-        m0 = disc.mass_diag_host(1.0 / (rho * c * c))
+        vecs = {"mvec2": disc.mass_diag(-nl)}
+        # steady LHS m0 (+ absorbing-facet delta term), float64
+        m0 = disc.mass_diag(1.0 / (rho * c * c))
         if absorbing_facets is not None and len(absorbing_facets) > 0:
             blk = disc.facet_block(absorbing_facets)
             cells = blk.cells
-            m0 = m0 + disc.facet_diag_host(
+            m0 = m0 + disc.facet_diag(
                 blk, (delta / (rho * c**3)).reshape(-1)[cells])
-            host["fvec"] = disc.facet_diag_host(
+            vecs["fvec"] = disc.facet_diag(
                 blk, (-1.0 / (rho * c)).reshape(-1)[cells])
-        host["m0"] = m0
+        vecs["m0"] = m0
 
         # source boundary: g/dg time-separable -> precomputed vectors (a
         # cos/sin pair each for phased apertures)
@@ -110,16 +114,16 @@ class WesterveltModel(WaveModelBase):
         f1 = (1.0 / rho).reshape(-1)[scells]
         f2 = (delta / (rho * c * c)).reshape(-1)[scells]
         if phi is None:
-            host["s1_cos"] = disc.facet_diag_host(src_block, f1, apod)
-            host["s2_cos"] = disc.facet_diag_host(src_block, f2, apod)
+            vecs["s1_cos"] = disc.facet_diag(src_block, f1, apod)
+            vecs["s2_cos"] = disc.facet_diag(src_block, f2, apod)
         else:
             cw = np.cos(phi) if apod is None else apod * np.cos(phi)
             sw = np.sin(phi) if apod is None else apod * np.sin(phi)
-            host["s1_cos"] = disc.facet_diag_host(src_block, f1, cw)
-            host["s1_sin"] = disc.facet_diag_host(src_block, f1, sw)
-            host["s2_cos"] = disc.facet_diag_host(src_block, f2, cw)
-            host["s2_sin"] = disc.facet_diag_host(src_block, f2, sw)
-        self._load_vectors(host)
+            vecs["s1_cos"] = disc.facet_diag(src_block, f1, cw)
+            vecs["s1_sin"] = disc.facet_diag(src_block, f1, sw)
+            vecs["s2_cos"] = disc.facet_diag(src_block, f2, cw)
+            vecs["s2_sin"] = disc.facet_diag(src_block, f2, sw)
+        self._load_vectors(vecs)
 
     def _coefficients(self) -> None:
         c, rho, _, _ = self.material.cell_fields(self.cell_shape)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from fustpu_torch.ops import cuda_indexed as ci
+from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.ops import engine as eng
 from fustpu_torch.ops import launch
 
@@ -90,19 +91,18 @@ def inverse_map(dofmap: np.ndarray, ndofs: int
     return pos, ptr.astype(np.int32)
 
 
-def build(mesh, G_cells: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype,
+def build(mesh, G_cells, D_1d: np.ndarray, dtype: torch.dtype,
           device, coeff=None, pair=None) -> EngineCellStiffness:
-    """The operator on `device` from host float64 data: G_cells
-    (cells, n^3, 6) in mesh cell order; `coeff` (per-cell) stays a
-    separate per-cell coefficient; `pair` = (c1, c2) per-cell fields makes
-    a pair operator."""
+    """The operator on `device` from float64 data: G_cells (cells, n^3, 6)
+    in mesh cell order (a host array, or a tensor of the set-up on the
+    card); `coeff` (per-cell) stays a separate per-cell coefficient;
+    `pair` = (c1, c2) per-cell fields makes a pair operator."""
     cell_field = lambda c: np.broadcast_to(np.asarray(c, np.float64),
                                            (mesh.num_cells,))
     C = None
     if pair is not None:
         C = np.stack([cell_field(c) for c in pair], axis=1)
-    return from_host(mesh.dofmap, mesh.ndofs,
-                     np.ascontiguousarray(np.moveaxis(G_cells, 2, 1)), D_1d,
+    return from_host(mesh.dofmap, mesh.ndofs, cs.pack_G(G_cells), D_1d,
                      dtype, device,
                      coeff=None if coeff is None else cell_field(coeff), C=C)
 
@@ -110,17 +110,18 @@ def build(mesh, G_cells: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype,
 def from_host(dofmap: np.ndarray, ndofs: int, G: np.ndarray,
               D_1d: np.ndarray, dtype: torch.dtype, device, coeff=None,
               C=None) -> EngineCellStiffness:
-    """Upload kernel-layout host arrays (G (cells, 6, n^3), coeff (cells,),
-    C (cells, 2), in dofmap cell order) with the dofmap and its inverse
-    map."""
+    """Upload kernel-layout host arrays (G (cells, 6, n^3), a host array or
+    a tensor, coeff (cells,), C (cells, 2), in dofmap cell order) with the
+    dofmap and its inverse map."""
     t = lambda a: None if a is None else torch.tensor(
         np.asarray(a), dtype=dtype, device=device)
     i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
                                  device=device)
     pos, ptr = inverse_map(dofmap, ndofs)
-    return EngineCellStiffness(G=t(G), D=t(D_1d), dofmap=i32(dofmap),
-                               ndofs=int(ndofs), pos=i32(pos), ptr=i32(ptr),
-                               coeff=t(coeff), C=t(C))
+    return EngineCellStiffness(G=cs.upload(G, dtype, device), D=t(D_1d),
+                               dofmap=i32(dofmap), ndofs=int(ndofs),
+                               pos=i32(pos), ptr=i32(ptr), coeff=t(coeff),
+                               C=t(C))
 
 
 def to_indexed(op: EngineCellStiffness, plan: ci.ChunkPlan

@@ -385,41 +385,43 @@ def card_schedule(op: "ExtrudedCellStiffness", x: torch.Tensor,
     return op.plan.card(op.P, x.dtype, pair, x.device)[0]
 
 
-def stack_order(mesh, a: np.ndarray) -> np.ndarray:
-    """Per-cell rows of `a` (mesh cell order) in stack order s*nz + kz."""
+def stack_order(mesh, a):
+    """Per-cell rows of `a` (mesh cell order; a host array, or a tensor on
+    its device) in stack order s*nz + kz."""
+    if isinstance(a, torch.Tensor):
+        return a[torch.as_tensor(mesh.stack_cells.reshape(-1),
+                                 device=a.device)]
     return np.asarray(a)[mesh.stack_cells.reshape(-1)]
 
 
-def build(mesh, G_cells: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype,
+def build(mesh, G_cells, D_1d: np.ndarray, dtype: torch.dtype,
           device, coeff=None, pair=None,
           plan: StackPlan | None = None) -> ExtrudedCellStiffness:
-    """The operator in the kernel layout on `device`, from host float64
-    data: G_cells (cells, n^3, 6) in mesh cell order; `coeff` (per-cell)
-    is folded into G; `pair` = (c1, c2) per-cell fields makes a unit-G
-    pair operator; `plan`: the mesh's `StackPlan`, if known."""
-    G = np.moveaxis(stack_order(mesh, G_cells), 2, 1)
-    if coeff is not None:
-        c = stack_order(mesh, np.broadcast_to(np.asarray(coeff, np.float64),
-                                              (mesh.num_cells,)))
-        G = G * c[:, None, None]
+    """The operator in the kernel layout on `device`, from float64 data:
+    G_cells (cells, n^3, 6) in mesh cell order (a host array, or a tensor
+    of the set-up on the card); `coeff` (per-cell) is folded into G; `pair`
+    = (c1, c2) per-cell fields makes a unit-G pair operator; `plan`: the
+    mesh's `StackPlan`, if known."""
+    c = None if coeff is None else stack_order(mesh, np.broadcast_to(
+        np.asarray(coeff, np.float64), (mesh.num_cells,)))
+    G = cs.pack_G(stack_order(mesh, G_cells), c)
     C = None
     if pair is not None:
         C = np.stack([stack_order(mesh, np.broadcast_to(
             np.asarray(c, np.float64), (mesh.num_cells,))) for c in pair],
             axis=1)
-    return from_host(mesh, np.ascontiguousarray(G), D_1d, dtype, device, C,
-                     plan)
+    return from_host(mesh, G, D_1d, dtype, device, C, plan)
 
 
 def from_host(mesh, G: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype,
               device, C: np.ndarray | None = None,
               plan: StackPlan | None = None) -> ExtrudedCellStiffness:
-    """Upload kernel-layout host arrays (G (cells, 6, n^3) and C
-    (cells, 2) in stack order) and the mesh's rows, with the schedules'
-    host part `plan` (made here unless given)."""
+    """Upload kernel-layout host arrays (G (cells, 6, n^3), a host array or
+    a tensor, and C (cells, 2) in stack order) and the mesh's rows, with
+    the schedules' host part `plan` (made here unless given)."""
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     return ExtrudedCellStiffness(
-        G=t(G), D=t(D_1d),
+        G=cs.upload(G, dtype, device), D=t(D_1d),
         rows=torch.as_tensor(np.ascontiguousarray(mesh.rows2d, np.int32),
                              device=device),
         nz=mesh.nz, n2d=mesh.n2d,

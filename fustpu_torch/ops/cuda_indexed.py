@@ -357,35 +357,34 @@ def card_schedule(op: "IndexedCellStiffness", x: torch.Tensor,
     return op.plan.card(op.P, x.dtype, pair, x.device)[0]
 
 
-def build(mesh, G_cells: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype,
+def build(mesh, G_cells, D_1d: np.ndarray, dtype: torch.dtype,
           device, coeff=None, pair=None,
           plan: ChunkPlan | None = None) -> IndexedCellStiffness:
-    """The operator in the kernel layout on `device`, from host float64
-    data: G_cells (cells, n^3, 6) in mesh cell order; `coeff` (per-cell)
-    is folded into G; `pair` = (c1, c2) per-cell fields makes a unit-G
-    pair operator; `plan`: the mesh's `ChunkPlan`, if known."""
+    """The operator in the kernel layout on `device`, from float64 data:
+    G_cells (cells, n^3, 6) in mesh cell order (a host array, or a tensor
+    of the set-up on the card); `coeff` (per-cell) is folded into G; `pair`
+    = (c1, c2) per-cell fields makes a unit-G pair operator; `plan`: the
+    mesh's `ChunkPlan`, if known."""
     cell_field = lambda c: np.broadcast_to(
         np.asarray(c, np.float64).reshape(-1), (mesh.num_cells,))
-    G = np.moveaxis(np.asarray(G_cells), 2, 1)
-    if coeff is not None:
-        G = G * cell_field(coeff)[:, None, None]
+    G = cs.pack_G(G_cells, None if coeff is None else cell_field(coeff))
     C = None
     if pair is not None:
         C = np.stack([cell_field(c) for c in pair], axis=1)
-    return from_host(mesh.dofmap, mesh.ndofs, np.ascontiguousarray(G),
-                     D_1d, dtype, device, C, plan)
+    return from_host(mesh.dofmap, mesh.ndofs, G, D_1d, dtype, device, C,
+                     plan)
 
 
 def from_host(dofmap: np.ndarray, ndofs: int, G: np.ndarray,
               D_1d: np.ndarray, dtype: torch.dtype, device,
               C: np.ndarray | None = None,
               plan: ChunkPlan | None = None) -> IndexedCellStiffness:
-    """Upload kernel-layout host arrays (G (cells, 6, n^3) and C
-    (cells, 2) in mesh cell order) and the dofmap, with the schedules'
-    host part `plan` (made here unless given)."""
+    """Upload kernel-layout host arrays (G (cells, 6, n^3), a host array or
+    a tensor, and C (cells, 2) in mesh cell order) and the dofmap, with
+    the schedules' host part `plan` (made here unless given)."""
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     return IndexedCellStiffness(
-        G=t(G), D=t(D_1d),
+        G=cs.upload(G, dtype, device), D=t(D_1d),
         dofmap=torch.tensor(np.asarray(dofmap), dtype=torch.int32,
                             device=device),
         ndofs=int(ndofs), plan=plan or ChunkPlan(dofmap, ndofs),

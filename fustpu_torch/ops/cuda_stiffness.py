@@ -73,14 +73,28 @@ class CellStiffness(NamedTuple):
         return self.D.shape[0] - 1
 
 
-def pack_G(G_cells: np.ndarray, coeff: np.ndarray | None = None
-           ) -> np.ndarray:
-    """(cells, n^3, 6) host geometry factors -> (cells, 6, n^3) kernel
-    layout, with an optional per-cell coefficient folded in."""
+def pack_G(G_cells, coeff: np.ndarray | None = None):
+    """(cells, n^3, 6) geometry factors -> (cells, 6, n^3) kernel layout,
+    with an optional per-cell coefficient folded in: a host array, or a
+    tensor on the device of a tensor `G_cells` (the set-up on the card)."""
+    if isinstance(G_cells, torch.Tensor):
+        G = G_cells.movedim(2, 1)
+        if coeff is not None:
+            G = G * torch.tensor(np.asarray(coeff, np.float64).reshape(-1),
+                                 device=G.device)[:, None, None]
+        return G.contiguous()
     G = np.moveaxis(np.asarray(G_cells), 2, 1)
     if coeff is not None:
         G = G * np.asarray(coeff, np.float64).reshape(-1)[:, None, None]
     return np.ascontiguousarray(G)
+
+
+def upload(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host array, or a tensor (the set-up on the card), as a tensor of
+    `dtype` on `device` (a copy of a host array)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=dtype, device=device)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------

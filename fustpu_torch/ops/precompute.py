@@ -9,7 +9,9 @@ index.  Vendored from ``fustpu/ops/precompute.py``: trilinear cells and
 isoparametric hex27 maps (curved imported cells; the mesh then carries
 ``geom_nodes``), in vectorised numpy with the arithmetic of the JAX
 package's native geometry (``native/fustpu_native.cpp``: cofactor
-determinant and inverse).  No native library.
+determinant and inverse).  These are the plain versions of the set-up
+kernels (``ops/cuda_setup.py``), which a model built on the card runs
+instead.
 """
 
 from __future__ import annotations
@@ -102,7 +104,14 @@ def cell_geometry_factors(mesh, dedup: bool = True):
             dJ_u, G_u = cell_geometry_factors(
                 _CornerSubset(gdofs[rep], elem), dedup=False)
             return dJ_u[inv], G_u[inv]
-    wts = elem.quad_weights                          # (nq,)
+    return geometry_of(gdofs, grads, elem.quad_weights)
+
+
+def geometry_of(gdofs: np.ndarray, grads: np.ndarray, wts: np.ndarray):
+    """(detJ (cells, nq), G (cells, nq, 6)) of cells with geometry dofs
+    `gdofs` (cells, ng, 3), the reference gradients `grads` (nq, ng, 3)
+    and the weights `wts` (nq,): the plain version of the set-up kernel
+    ``cuda_setup.cell_geometry``."""
     nc, nq = gdofs.shape[0], wts.size
     detJ = np.empty((nc, nq))
     G = np.empty((nc, nq, 6))
@@ -157,7 +166,6 @@ def cell_detJ(mesh, dedup: bool = True) -> np.ndarray:
     trilinear map, or the hex27 map when the mesh carries geom_nodes."""
     elem = mesh.element
     gdofs, grads = _geom_dofs_grads(mesh, elem.quad_points)
-    wts = elem.quad_weights
     nc = gdofs.shape[0]
     curved = getattr(mesh, "geom_nodes", None) is not None
     if dedup and not curved and nc > 4096:
@@ -166,9 +174,16 @@ def cell_detJ(mesh, dedup: bool = True) -> np.ndarray:
             inv, rep = grp
             return cell_detJ(_CornerSubset(gdofs[rep], elem),
                              dedup=False)[inv]
-    detJ = np.empty((nc, wts.size))
-    for s in range(0, nc, _CHUNK):
-        e = min(s + _CHUNK, nc)
+    return detJ_of(gdofs, grads, elem.quad_weights)
+
+
+def detJ_of(gdofs: np.ndarray, grads: np.ndarray,
+            wts: np.ndarray) -> np.ndarray:
+    """detJ (cells, nq) alone, as `geometry_of` takes its arguments: the
+    plain version of ``cuda_setup.cell_geometry(..., with_G=False)``."""
+    detJ = np.empty((gdofs.shape[0], wts.size))
+    for s in range(0, gdofs.shape[0], _CHUNK):
+        e = min(s + _CHUNK, gdofs.shape[0])
         J = _jacobians(gdofs[s:e], grads)
         detJ[s:e] = np.abs(_det3(J)) * wts
     return detJ
@@ -177,25 +192,57 @@ def cell_detJ(mesh, dedup: bool = True) -> np.ndarray:
 def facet_geometry_factors(mesh, boundary_data: np.ndarray) -> np.ndarray:
     """detJ_f (nf, n^2): surface measure * weights at facet GLL points for
     (cell, local_facet) pairs."""
+    gdofs, fgrads = facet_grads(mesh)
+    return facet_geometry_of(gdofs, fgrads, mesh.element.facet_quad_weights,
+                             boundary_data)
+
+
+def facet_grads(mesh):
+    """(geometry dofs (cells, ng, 3), reference gradients (6, n^2, ng, 3)
+    at the quadrature points of each local facet)."""
     elem = mesh.element
-    wts_f = elem.facet_quad_weights                  # (n^2,)
+    grads = [_geom_dofs_grads(mesh, elem.facet_quad_points(lf))
+             for lf in range(6)]
+    return grads[0][0], np.stack([g for _, g in grads])
+
+
+def facet_geometry_of(gdofs: np.ndarray, fgrads: np.ndarray,
+                      wts_f: np.ndarray,
+                      boundary_data: np.ndarray) -> np.ndarray:
+    """detJ_f (nf, n^2) of the (cell, local facet) pairs `boundary_data`
+    from `facet_grads`' arrays: the plain version of the set-up kernel
+    ``cuda_setup.facet_geometry``."""
+    boundary_data = np.asarray(boundary_data).reshape(-1, 2)
     nf = boundary_data.shape[0]
     detJ_f = np.empty((nf, wts_f.size))
-    # tabulate the geometry gradients at the facet quadrature points of each
-    # reference facet once, then process facets grouped by local facet id
+    # the facets grouped by local facet id, each group with the gradients
+    # at its reference facet's points
     for lf in range(6):
         sel = np.nonzero(boundary_data[:, 1] == lf)[0]
         if sel.size == 0:
             continue
-        gdofs, grads = _geom_dofs_grads(mesh, elem.facet_quad_points(lf))
         axis, _ = FACETS[lf]
         free = [ax for ax in range(3) if ax != axis]
-        J = _jacobians(gdofs[boundary_data[sel, 0]], grads)
+        J = _jacobians(gdofs[boundary_data[sel, 0]], fgrads[lf])
         t1 = J[..., free[0]]                         # (f, q, 3)
         t2 = J[..., free[1]]
         nrm = np.linalg.norm(np.cross(t1, t2), axis=-1)
         detJ_f[sel] = nrm * wts_f
     return detJ_f
+
+
+def h_cfl(corners: np.ndarray) -> float:
+    """sqrt(3) x the smallest corner-pair distance over the cells `corners`
+    (cells, 8, 3), in chunks of _CHUNK cells: the all-pairs differences of
+    every cell at once held ~3.8 KB a cell of host memory (~8 GB at the
+    2,082,304-cell capacity box)."""
+    off = ~np.eye(8, dtype=bool)
+    best = np.inf
+    for s in range(0, corners.shape[0], _CHUNK):
+        c = corners[s:s + _CHUNK]
+        d = np.linalg.norm(c[:, :, None, :] - c[:, None, :, :], axis=-1)
+        best = min(best, float(d[:, off].min()))
+    return float(np.sqrt(3.0) * best)
 
 
 def to_structured_layout(arr_cells: np.ndarray, mesh) -> np.ndarray:

@@ -15,13 +15,29 @@ tensors for ranks that share a card.
 
 Counterpart of ``fustpu/parallel/multihost.py``: `initialize`,
 `rank_table` / `rank_grid` (the rank order of `dcn_device_grid`: the ranks
-of one host innermost) and the self-spawned `run_multiprocess_check`:
+of one host innermost), the self-spawned `run_multiprocess_check` and the
+separately launched ranks of `run_separate_check`:
 
     python -m fustpu_torch.parallel.multihost [--nprocs 2] [--grid 2,1,1]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--separate tcp|env]
 
 checks that a sharded Westervelt solve on k gloo ranks (sharing the card,
-or on the CPU) matches the one-rank solve on the same device.
+or on the CPU) matches the one-rank solve on the same device: spawned
+ranks, or with `--separate` k processes launched on their own that join
+over ``tcp://127.0.0.1:<free port>`` or ``env://``.  One such rank, on this
+host or another (multi-node):
+
+    python -m fustpu_torch.parallel.multihost --init-method tcp://HOST:PORT
+        --world-size k --rank r [--device cuda|cpu] [--backend gloo|nccl]
+        [--grid 2,1,1]
+    torchrun --nnodes N --node-rank R --nproc-per-node m --master-addr HOST
+        --master-port PORT -m fustpu_torch.parallel.multihost
+        --init-method env:// --backend nccl --grid k,1,1
+
+(``env://`` reads MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE as
+torchrun sets them; with nccl a rank takes the card LOCAL_RANK.)  Each rank
+builds the check's model and runs its share of the sharded solve; rank 0
+holds the collected field against its own one-rank solve.
 """
 
 from __future__ import annotations
@@ -29,7 +45,10 @@ from __future__ import annotations
 import contextlib
 import datetime
 import io
+import os
 import queue
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -384,6 +403,136 @@ def run_multiprocess_check(nprocs: int = 2, grid_shape=(2, 1, 1),
     return err
 
 
+# ---------------------------------------------------------------------------
+# Separately launched ranks (multi-node)
+# ---------------------------------------------------------------------------
+
+CHECK_TOL = 1e-12
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def run_worker(init_method: str, world_size: int | None = None,
+               rank: int | None = None, device: str = "cuda",
+               backend: str = "gloo", grid_shape=None, steps: int = 4,
+               timeout: float = 300.0) -> float | None:
+    """One separately launched rank of the check: joins the process group
+    at `init_method` (``tcp://HOST:PORT`` with `world_size` and `rank`, or
+    ``env://`` with RANK and WORLD_SIZE from the environment), builds the
+    check's model, runs its share of the sharded solve, and on rank 0
+    holds the collected field against its own one-rank solve (rel-l2 <=
+    CHECK_TOL, shared entries bitwise consistent).  Returns rank 0's
+    relative error (None on the other ranks); raises if the check
+    fails."""
+    if init_method.startswith("env://"):
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
+                      else world_size)
+    if rank is None or world_size is None:
+        raise ValueError(f"{init_method}: give the world size and the rank")
+    # this host's ranks share its cards as spawned ranks do (nccl: the card
+    # LOCAL_RANK, refused past the host's cards)
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    dev = rank_device(backend, device, local, local + 1)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(1)
+    model = _check_model(str(dev))
+    dt, _ = model.cfl_dt(0.4)
+    ref = model.solve(model.init_state(), dt, steps)[0].u.cpu().numpy()
+    initialize(init_method, world_size, rank, backend, timeout)
+    try:
+        ctx = SimpleNamespace(rank=rank, size=world_size, device=dev,
+                              backend=backend)
+        r = solve_cases(ctx, [dict(model=model, grid=grid_shape or (
+            world_size, 1, 1), steps=steps, dt=dt)])[0]
+    finally:
+        dist.destroy_process_group()
+    if rank != 0:
+        return None
+    err = float(np.linalg.norm(r["u"] - ref) / np.linalg.norm(ref))
+    if not (err <= CHECK_TOL and r["u_consistent"] and r["kv_consistent"]):
+        raise RuntimeError(f"sharded vs one-rank rel-l2 {err:.3e}, "
+                           f"consistent {r['u_consistent']}")
+    return err
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that is free now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_separate_check(nprocs: int = 2, grid_shape=(2, 1, 1),
+                       device: str = "cuda", init: str = "tcp",
+                       timeout: float = 300.0) -> float:
+    """Launch `nprocs` gloo ranks as separate processes on 127.0.0.1 (the
+    JAX package's separately launched form of the check, here
+    ``python -m fustpu_torch.parallel.multihost --init-method ...``), over
+    ``tcp://127.0.0.1:<free port>`` (`init` "tcp") or ``env://`` with the
+    variables torchrun sets (`init` "env"), and return rank 0's relative
+    error against the one-rank solve.  A rank that fails, or that has not
+    finished after `timeout` seconds, fails the call with every rank's
+    output; the others are killed."""
+    if init not in ("tcp", "env"):
+        raise ValueError(f"init {init!r}: expected 'tcp' or 'env'")
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    base = [sys.executable, "-m", "fustpu_torch.parallel.multihost",
+            "--device", device, "--backend", "gloo",
+            "--grid", ",".join(map(str, grid_shape)),
+            "--timeout", str(timeout)]
+    procs, logs, failed = [], [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for r in range(nprocs):
+                if init == "tcp":
+                    cmd = base + ["--init-method",
+                                  f"tcp://127.0.0.1:{port}",
+                                  "--world-size", str(nprocs),
+                                  "--rank", str(r)]
+                    renv = env
+                else:
+                    cmd = base + ["--init-method", "env://"]
+                    renv = dict(env, MASTER_ADDR="127.0.0.1",
+                                MASTER_PORT=str(port), RANK=str(r),
+                                WORLD_SIZE=str(nprocs), LOCAL_RANK=str(r))
+                logs.append(open(Path(tmp) / f"rank{r}.log", "w+"))
+                procs.append(subprocess.Popen(
+                    cmd, cwd=ROOT, env=renv, stdout=logs[-1],
+                    stderr=subprocess.STDOUT, text=True))
+            deadline = time.monotonic() + timeout
+            while failed is None:
+                bad = [r for r, p in enumerate(procs)
+                       if p.poll() not in (None, 0)]
+                if bad:
+                    failed = f"rank(s) {bad} failed"
+                elif all(p.returncode == 0 for p in procs):
+                    break
+                elif time.monotonic() > deadline:
+                    failed = f"ranks not finished within {timeout} s"
+                else:
+                    time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            outs = []
+            for f in logs:
+                f.seek(0)
+                outs.append(f.read())
+                f.close()
+    if failed:
+        raise RuntimeError(f"{failed}:\n" + "\n".join(
+            f"--- rank {r}:\n{o[-3000:]}" for r, o in enumerate(outs)))
+    for r, out in enumerate(outs):
+        if f"multihost rank {r}/{nprocs} OK" not in out:
+            raise RuntimeError(f"rank {r} printed no result:\n{out[-3000:]}")
+    return float(outs[0].split("rel-l2 ")[1].split()[0].rstrip(","))
+
+
 def _main(argv=None) -> None:
     import argparse
 
@@ -391,13 +540,42 @@ def _main(argv=None) -> None:
     ap.add_argument("--nprocs", type=int, default=2)
     ap.add_argument("--grid", default="2,1,1")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="cuda: gloo ranks sharing the card; cpu: gloo ranks "
-                         "on the CPU")
+                    help="cuda: gloo ranks sharing the card (nccl: a card "
+                         "each); cpu: gloo ranks on the CPU")
+    ap.add_argument("--separate", choices=["tcp", "env"], default=None,
+                    help="launch the --nprocs ranks as separate processes "
+                         "joining over tcp:// or env:// (not spawned)")
+    ap.add_argument("--init-method", default=None,
+                    help="run as one separately launched rank: "
+                         "tcp://HOST:PORT (with --world-size, --rank) or "
+                         "env:// (torchrun's variables)")
+    ap.add_argument("--world-size", type=int, default=None)
+    ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("--backend", choices=list(BACKENDS), default="gloo")
+    ap.add_argument("--timeout", type=float, default=300.0)
     a = ap.parse_args(argv)
-    err = run_multiprocess_check(
-        a.nprocs, tuple(int(x) for x in a.grid.split(",")), device=a.device)
-    print(f"{a.nprocs} ranks on {a.device}: sharded == one-rank, rel-l2 "
-          f"{err:.3e}")
+    grid = tuple(int(x) for x in a.grid.split(","))
+    if a.init_method:
+        err = run_worker(a.init_method, a.world_size, a.rank, a.device,
+                         a.backend, grid, timeout=a.timeout)
+        rank = int(os.environ.get("RANK", 0)) if a.rank is None else a.rank
+        world = (int(os.environ.get("WORLD_SIZE", 0)) if a.world_size is None
+                 else a.world_size)
+        tail = ("" if err is None else
+                f": sharded == one-rank, rel-l2 {err:.3e}, shared entries "
+                "consistent")
+        print(f"multihost rank {rank}/{world} OK ({a.backend} on "
+              f"{a.device}){tail}", flush=True)
+        return
+    if a.separate:
+        err = run_separate_check(a.nprocs, grid, a.device, a.separate,
+                                 a.timeout)
+        how = f"separately launched over {a.separate}://"
+    else:
+        err = run_multiprocess_check(a.nprocs, grid, device=a.device)
+        how = "spawned"
+    print(f"{a.nprocs} ranks on {a.device} ({how}): sharded == one-rank, "
+          f"rel-l2 {err:.3e}")
 
 
 if __name__ == "__main__":
