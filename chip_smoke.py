@@ -210,11 +210,27 @@ Phases (each prints its time; any failure exits non-zero):
      gloo ranks sharing the card against phase 9's table (33j); 2
      separately launched gloo ranks joined over tcp:// against one rank
      (33k); the set-up table.
+ 34. bfloat16 state (the JAX package's --dtype bf16): the bf16 forms of
+     #1 / #2, #6 and #11, single and pair, against their plain version
+     (bf16 in, float32 arithmetic, y rounded once) at P = 2..10 on phases
+     3, 8 and 12's meshes, <= 2^-7, two applies bitwise equal, every bf16
+     counter moved (run right after phase 12; 34a); the flagship in bf16
+     (after phase 7): #1 vs plain, 10 steps kernel vs plain <= 2e-2, the
+     whole solve on #1 with its focal pressure beside 6b's (no band: bf16
+     drifts from float32), the same whole solve on the plain version (its
+     focal pressure, its field against #1's and float32's), ms a step in
+     turns with the float32 flagship,
+     and a corner-mode bf16 model refused (34b); the two-layer flagship
+     in bf16, #2 vs plain and 50 steps (34c); the imported bowl (after
+     10b) and the bodyfit bowl (after 13c) in bf16, single and two-layer:
+     #6 / #11 and their pair forms vs plain, 50 steps each, ms a step in
+     turns with the float32 model, and the corner and engine routes
+     refused (34d, 34e).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
-17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, in every
-rank of 22 its solve, and the demos of 24, 25, 26, 27a, 28, 31 and 32b-i and
-the turns of 29) has the launch counters reset just before it and read just
-after.
+17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, 34b-e,
+in every rank of 22 its solve, and the demos of 24, 25, 26, 27a, 28, 31
+and 32b-i and the turns of 29) has the launch counters reset just before
+it and read just after.
 The script's total time is printed after the last phase; then the
 kernels' JSON summary, the card's name and power limit, and as the last
 line the result.
@@ -287,6 +303,26 @@ PEAK_BF16_PER_S = 989e12        # dense, in the tensor cores
 # the card's summation order, and a wrong geometry or source falls outside
 ISO_PEAK_PA = {"trilinear": 5.510e6, "hex27": 5.550e6}
 ISO_BAND = 0.02
+# phase 34 (bfloat16 state): a bf16 kernel against its plain version on the
+# same bf16 inputs.  The plain version widens them to float32, contracts
+# and rounds y once; the kernel computes in float32 in another order and
+# rounds y each time it stores it, once per colour class that adds to the
+# node: for #1 / #2 and #6 up to four (a node on a pencil's or a stack's
+# side edge), for #11 up to its class count (8 on the P = 4 bowls, 9-12 on
+# phase 12's small meshes), since each class reads back the bfloat16 y that
+# the earlier ones left.  A rounding is at most 2^-8 of the partial sum it
+# rounds (bfloat16 keeps 8 significant bits), so no node-wise bound of
+# 2^-7 holds beyond two roundings: the gate is on the rel-l2 over the
+# field, where the nodes inside a pencil, a stack or a chunk round once
+# and the shared nodes' roundings are unbiased.  Measured on an H100: at
+# most 1.65e-3 over P = 2..10, 9.4e-4 / 9.8e-4 on the flagship and the
+# bodyfit bowl.
+BF16_TOL = 2.0 ** -7
+# 10 bf16 RK4 steps of the flagship, kernel vs plain: each of the 40
+# applies differs by the roundings above, and the bf16 state rounds every
+# RK update (the JAX package's bf16 drifts ~20% from its float32 in 60
+# steps), so the two trajectories part by ~1e-3 a step at most
+BF16_TRAJ_TOL = 2e-2
 # phase 22's halo box (time_halo): one probe point inside the 1 cm box
 HALO_POINTS = np.array([[0.0052, 0.0047, 0.0051]])
 
@@ -337,14 +373,14 @@ def bound(nbytes: int, flops: int,
 def apply_cost(G: torch.Tensor, ndofs: int, fields: int,
                extra: int = 0) -> tuple[int, int]:
     """(minimum bytes, operations) of one stiffness apply: G, each input
-    field and the per-cell coefficients read once, y read and written
-    once, plus `extra` bytes (row ids); per node 2 x 3 derivative sums of
+    field and the per-cell coefficients read once, y written once, plus
+    `extra` bytes (row ids); per node 2 x 3 derivative sums of
     n products each way, 15 for the metric and 1 for the add (3 more to
     combine a pair)."""
     cells, _, nnn = G.shape
     n = round(nnn ** (1 / 3))
     b = G.element_size()
-    nbytes = G.numel() * b + (fields + 2) * ndofs * b + extra
+    nbytes = G.numel() * b + (fields + 1) * ndofs * b + extra
     if fields == 2:
         nbytes += cells * 2 * b
     flops = cells * nnn * (12 * n + 16 + (3 if fields == 2 else 0))
@@ -1069,6 +1105,188 @@ def main() -> None:
               f"{dict(ci.launches)}, {dict(ci.class_launches)}")
         if ci.launches["indexed"] == 0 or ci.launches["indexed_pair"] == 0:
             fail("an indexed kernel's launch counter did not move")
+
+    # ---- phase 34: bfloat16 state, the bf16 forms of #1 / #2, #6 and #11
+    # ---- (a generator of its own, so that the other phases' inputs stay
+    # ---- as they were) ----
+    BF16 = torch.bfloat16
+    rng16 = np.random.default_rng(34)
+    bf16_counts = {}                    # the main path's bf16 launches
+    forms16 = {                         # (plain, kernel) by route and form
+        "#1 / #2": ((cs.stiffness_plain, cs.stiffness_pair_plain),
+                    (cs.stiffness, cs.stiffness_pair)),
+        "#6": ((ce.extruded_plain, ce.extruded_pair_plain),
+               (ce.extruded, ce.extruded_pair)),
+        "#11": ((ci.indexed_plain, ci.indexed_pair_plain),
+                (ci.indexed, ci.indexed_pair))}
+
+    def bf16_counters() -> dict:
+        return {**cs.bf16_launches, **ce.bf16_launches, **ci.bf16_launches}
+
+    def bf16_reset() -> None:
+        for mod in (cs, ce, ci):
+            mod.reset_launches()
+
+    with phase("34a bf16 kernels vs plain, P=2..10: #1 / #2, #6 and #11, "
+               "single and pair, on phases 3, 8 and 12's meshes"), \
+            tempfile.TemporaryDirectory() as tmp:
+        worst16 = {"plain": 0.0, "f64": 0.0}
+        bf16_reset()
+        for P in range(2, 11):
+            v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
+                                           nr_ann=1, nz=4 if P <= 6 else 2)
+            path = msh_io.write_msh(str(Path(tmp) / f"cyl{P}"), v, c, t)
+            small = (5, 3, 7) if P <= 6 else (3, 3, 4)
+            meshes = [
+                ("#1 / #2", "box", build_box_mesh(
+                    (5, 3, 7) if P <= 6 else (3, 3, 5), P,
+                    hi=(1.0, 0.8, 1.3), perturb=0.15, seed=P)),
+                ("#6", "cylinder", msh_io.read_msh(path, P)),
+                ("#6", "box", as_extruded(from_box(build_box_mesh(
+                    small, P, hi=(1.0, 0.8, 1.3)), shuffle_seed=11))),
+                ("#11", "cylinder", msh_io.read_msh(
+                    path, P, detect_extrusion=False)),
+                ("#11", "box", from_box(build_box_mesh(
+                    small, P, hi=(1.0, 0.8, 1.3), perturb=0.15, seed=P),
+                    shuffle_seed=11))]
+            for route, mname, mesh in meshes:
+                disc = Discretization(mesh)
+                n = mesh.num_cells
+                c1 = rng16.uniform(0.5, 2.0, n)
+                c2 = rng16.uniform(-1.5, -0.5, n)
+                if hasattr(mesh, "nc"):
+                    c1, c2 = c1.reshape(mesh.nc), c2.reshape(mesh.nc)
+                xs = [torch.as_tensor(rng16.standard_normal(mesh.grid_shape),
+                                      device=dev) for _ in range(2)]
+                for label, kw in (("single", {}),
+                                  ("single+coeff", {"coeff": c1}),
+                                  ("pair", {"pair": (c1, c2)})):
+                    pair = "pair" in kw
+                    plain, kernel = (f[pair] for f in forms16[route])
+
+                    def apply(dtype, f):
+                        o = disc.stiffness_op(dtype, dev, **kw)
+                        a = [x.to(dtype) for x in xs[:1 + pair]]
+                        return f(o, *a)
+
+                    y = apply(BF16, kernel)
+                    e = rel_l2(y, apply(BF16, plain))
+                    e64 = rel_l2(y, apply(torch.float64, plain))
+                    same = torch.equal(y, apply(BF16, kernel))
+                    torch.cuda.synchronize()
+                    print(f"   P={P:2d} {route:7s} {mname:8s} {label:13s} "
+                          f"bf16 vs plain bf16 {e:.3e}, vs plain f64 "
+                          f"{e64:.3e}, two applies bitwise {same}",
+                          flush=True)
+                    worst16["plain"] = max(worst16["plain"], e)
+                    worst16["f64"] = max(worst16["f64"], e64)
+                    if not same:
+                        fail(f"34a: P={P} {route} {mname} {label}: two "
+                             "bf16 applies differ")
+                    if not e <= BF16_TOL:
+                        fail(f"34a: P={P} {route} {mname} {label}: bf16 "
+                             f"kernel vs plain {e:.3e} > {BF16_TOL}")
+        counts = bf16_counters()
+        print(f"   worst rel-l2: bf16 kernel vs plain bf16 "
+              f"{worst16['plain']:.3e} (tol {BF16_TOL}), vs plain f64 "
+              f"{worst16['f64']:.3e}; bf16 launches {counts}")
+        if not all(counts.values()):
+            fail(f"34a: a bf16 kernel's launch counter did not move: "
+                 f"{counts}")
+
+    def bf16_model(label, argv, pb):
+        """The bowl of `argv` in bf16 on the problem `pb`: a model on the
+        bf16 form of its G-stream kernel, which is held against its plain
+        version (bf16 in, float32 arithmetic, y rounded once) on unit
+        normal inputs, repeated bitwise and timed.  Returns (model, dt,
+        steps, focus, plain module, kernel entry for the JSON line)."""
+        args_ = nonlinear_bowl.parser().parse_args(argv + ["--dtype",
+                                                           "bf16"])
+        model, dt_, nsteps_, focus_ = nonlinear_bowl.build(args_, pb)
+        kst, mesh = model.stiffness, model.mesh
+        if kst.impl != "cuda" or kst.G.dtype != BF16 or \
+                not kst.kernel.endswith("_bf16"):
+            fail(f"34: {label}: not on a bf16 kernel ({kst.kernel})")
+        pst = type(kst)(kst.cell_op, "mm")
+        xs = [torch.as_tensor(rng16.standard_normal(mesh.grid_shape),
+                              dtype=BF16, device=dev)
+              for _ in range(2 if kst.is_pair else 1)]
+        run = (lambda m: m.pair(*xs)) if kst.is_pair else \
+            (lambda m: m(xs[0]))
+        yk, yp = run(kst), run(pst)
+        err, same = rel_l2(yk, yp), torch.equal(yk, run(kst))
+        if not (err <= BF16_TOL and same):
+            fail(f"34: {label}: bf16 kernel vs plain {err:.3e} (tol "
+                 f"{BF16_TOL}), repeat bitwise {same}")
+        extra = (kst.rows.numel() * 4 if hasattr(kst, "rows") else
+                 kst.dofmap.numel() * 4 if hasattr(kst, "dofmap") else 0)
+        entry = dict(max_abs_err=float((yk.float() - yp.float()).abs().max()),
+                     rel_l2=err, ms=time_ms(lambda: run(kst), 20),
+                     plain_ms=time_ms(lambda: run(pst), 10),
+                     cost=apply_cost(kst.G, mesh.ndofs, len(xs),
+                                     extra=extra))
+        print(f"   {smi}: {label} in bf16 ({kst.kernel}): {entry}; two "
+              f"applies bitwise", flush=True)
+        if isinstance(kst, IndexedStiffness):
+            print(f"   {kst.scatter_summary()}")
+        elif isinstance(kst, ExtrudedStiffness):
+            sch = ce.card_schedule(kst.cell_op, xs[0], kst.is_pair)
+            print(f"   {stack_summary(sch)}")
+        else:
+            sch = cs.card_schedule(kst.cell_op, xs[0], kst.is_pair)
+            print(f"   pencil kernel: {sch.cpb} cells a chunk, "
+                  f"{sch.stage_bytes:,} B a stage, {sch.smem:,} B shared a "
+                  f"block, {sch.blocks_per_sm} blocks an SM, {sch.blocks} "
+                  "blocks")
+        return model, dt_, nsteps_, focus_, pst, entry
+
+    def bf16_steps(model, dt_, steps, label) -> tuple:
+        """`steps` RK4 steps of a bf16 model from rest, the bf16 counters
+        reset just before and read just after: each its kernel's 4 a step,
+        the state finite and non-zero.  Returns (state, the kernel's
+        launches)."""
+        kernel = model.stiffness.kernel
+        bf16_reset()
+        s, _ = model.solve(model.init_state(), dt_, steps)
+        torch.cuda.synchronize()
+        counts = bf16_counters()
+        print(f"   {label}: {steps} bf16 steps, launches "
+              f"{ {k: v for k, v in counts.items() if v} }, max |u| "
+              f"{float(s.u.abs().max()):.4e}", flush=True)
+        if counts[kernel] != 4 * steps or sum(counts.values()) != 4 * steps:
+            fail(f"34: {label}: launches {counts} != 4 x {steps} of "
+                 f"{kernel}")
+        if not bool(torch.isfinite(s.u).all()) or \
+                float(s.u.abs().max()) == 0.0:
+            fail(f"34: {label}: the bf16 field is not finite and non-zero")
+        return s, counts[kernel]
+
+    def ms_turns(models, steps: int = 50) -> dict:
+        """ms a step of each (name, model, dt) from rest, in turns: each
+        model, then each again in reverse order; the smaller of its two."""
+        out = {}
+        for name, model, dt_ in (*models, *reversed(models)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.solve(model.init_state(), dt_, steps)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            out[name] = min(out.get(name, ms), ms)
+        return out
+
+    def bf16_refusal(impl, pb) -> None:
+        """A bf16 model of `impl` (the corner mode or the engine) on the
+        problem `pb` raises before anything is built on the card."""
+        try:
+            WesterveltModel(pb.mesh, pb.material, pb.source, pb.aperture,
+                            pb.absorbing, dtype=BF16, device=dev,
+                            source_delays=pb.delays, stiffness_impl=impl)
+        except ValueError as e:
+            print(f"   bf16 with stiffness_impl={impl!r} raises: {e}")
+            if "ROADMAP" not in str(e):
+                fail(f"34: the bf16 refusal of {impl} names no ROADMAP")
+            return
+        fail(f"34: a bf16 model with stiffness_impl={impl!r} was built")
 
     with phase("16 corner kernels vs plain, P=2..10"), \
             tempfile.TemporaryDirectory() as tmp:
@@ -1812,6 +2030,7 @@ def main() -> None:
             fail("flagship field is not finite")
         if not FOCAL_BAND_PA[0] <= p_focus <= FOCAL_BAND_PA[1]:
             fail(f"focal pressure {p_focus:.1f} Pa outside {FOCAL_BAND_PA}")
+        u6b = state.u                   # the bf16 run's comparison (34b)
         del state
     with phase("7b two-layer flagship, 50 steps (pair kernel)"):
         s2, _ = bowl2.solve(bowl2.init_state(), dt2, 50)
@@ -1826,6 +2045,84 @@ def main() -> None:
             fail("two-layer field is not finite and non-zero")
     launches = dict(cs.launches)
     del bowl2, s2, kst2
+
+    with phase("34b flagship in bf16: build, #1 vs plain, 10 steps kernel "
+               "vs plain, the whole solve, ms a step beside float32's"):
+        argv34 = ["--elements", "64", "--degree", "4"]
+        hbowl, dt34, nsteps34, _, pst34, kernels["stiffness_bf16"] = \
+            bf16_model("flagship", argv34, pb6)
+        kst34 = hbowl.stiffness
+        s0 = hbowl.init_state()
+        sk, _ = hbowl.solve(s0, dt34, 10)
+        hbowl.stiffness = pst34
+        sp, _ = hbowl.solve(s0, dt34, 10)
+        hbowl.stiffness = kst34
+        traj = rel_l2(sk.u, sp.u)
+        print(f"   10 bf16 steps kernel vs plain: rel-l2(u) {traj:.3e} "
+              f"(tol {BF16_TRAJ_TOL}), max |u| {float(sk.u.abs().max()):.4e}")
+        if not traj <= BF16_TRAJ_TOL:
+            fail(f"34b: 10 bf16 steps kernel vs plain {traj:.3e}")
+        del sk, sp, pst34
+        bf16_reset()
+        state = run_demo(hbowl, dt34, nsteps34, nonlinear_bowl.parser(
+            ).parse_args(argv34 + ["--dtype", "bf16"]), "nonlinear_bowl")
+        counts = bf16_counters()
+        bf16_counts["stiffness_bf16"] = counts["stiffness_bf16"]
+        p16 = nonlinear_bowl.focal_pressure(hbowl, state, focus)
+        print(f"   bf16 pressure at focus: {p16:.1f} Pa, float32 (6b) "
+              f"{p_focus:.1f} Pa: bf16 / float32 {p16 / p_focus:.4f} (no "
+              f"gate: bf16 drifts from float32); launches {counts} for "
+              f"{nsteps34} steps")
+        if counts["stiffness_bf16"] != 4 * nsteps34 or \
+                sum(counts.values()) != 4 * nsteps34:
+            fail(f"34b: bf16 launches {counts} != 4 x {nsteps34}")
+        if not (bool(torch.isfinite(state.u).all()) and np.isfinite(p16)):
+            fail("34b: the bf16 flagship field is not finite")
+        print(f"   the bf16 field at t_final against 6b's float32 field: "
+              f"rel-l2(u) {rel_l2(state.u, u6b):.3e}, max |u| "
+              f"{float(state.u.abs().max()):.4e} (float32 "
+              f"{float(u6b.abs().max()):.4e})")
+        # the same whole solve on the plain version (bf16 in, float32
+        # arithmetic, y rounded once an apply): whether the kernel's
+        # roundings or the bf16 state part the field from float32's
+        hbowl.stiffness = StructuredStiffness(kst34.cell_op, "mm")
+        bf16_reset()
+        t0 = time.perf_counter()
+        sp, _ = hbowl.solve(hbowl.init_state(), dt34, nsteps34)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        hbowl.stiffness = kst34
+        p16p = nonlinear_bowl.focal_pressure(hbowl, sp, focus)
+        print(f"   the whole bf16 solve on the plain version ({t_plain:.1f} "
+              f"s, bf16 launches {sum(bf16_counters().values())}): "
+              f"pressure at focus {p16p:.1f} Pa (kernel {p16:.1f}, float32 "
+              f"{p_focus:.1f}); rel-l2(u) plain vs kernel "
+              f"{rel_l2(sp.u, state.u):.3e}, plain vs float32 "
+              f"{rel_l2(sp.u, u6b):.3e}, max |u| "
+              f"{float(sp.u.abs().max()):.4e}", flush=True)
+        if not (bool(torch.isfinite(sp.u).all()) and np.isfinite(p16p)):
+            fail("34b: the plain bf16 flagship field is not finite")
+        if any(bf16_counters().values()):
+            fail(f"34b: the plain solve launched a kernel: "
+                 f"{bf16_counters()}")
+        del state, u6b, sp
+        turns = ms_turns([("f32", bowl, dt), ("bf16", hbowl, dt34)])
+        print(f"   {smi}: ms a step (50 steps from rest, in turns f32, "
+              f"bf16, bf16, f32): float32 {turns['f32']:.4f}, bf16 "
+              f"{turns['bf16']:.4f}; stiffness ms an apply: float32 (6a) "
+              f"{kernels['stiffness']['ms']:.4f}, bf16 "
+              f"{kernels['stiffness_bf16']['ms']:.4f}", flush=True)
+        bf16_refusal("pallas_corner", pb6)
+        del hbowl, kst34
+
+    with phase("34c two-layer flagship in bf16: #2 vs plain, 50 steps"):
+        bbowl16, dt34c, _, _, _, kernels["stiffness_pair_bf16"] = \
+            bf16_model("two-layer flagship",
+                       ["--elements", "64", "--degree", "4", "--two-layer"],
+                       pb6)
+        _, bf16_counts["stiffness_pair_bf16"] = bf16_steps(
+            bbowl16, dt34c, 50, "two-layer flagship")
+        del bbowl16
 
     # ---- the parity-class design of #1 / #2 against the pencil kernels:
     # ---- the demo's run, counters reset just before, read just after ----
@@ -2415,6 +2712,29 @@ def main() -> None:
             fail(f"imported vs conformal focal pressure {agree:.3e}")
         del state
 
+    with phase("34d imported bowl in bf16: #6 and its pair form vs plain, "
+               "50 steps each, ms a step beside float32's"):
+        argv34 = ["--elements", "64", "--degree", "4", "--geometry",
+                  "unstructured"]
+        ibowl16, dt34d, _, _, _, kernels["extruded_bf16"] = bf16_model(
+            "imported bowl", argv34, pb10)
+        _, bf16_counts["extruded_bf16"] = bf16_steps(ibowl16, dt34d, 50,
+                                                     "imported bowl")
+        ibowl16b, dt34e, _, _, _, kernels["extruded_pair_bf16"] = \
+            bf16_model("two-layer imported bowl", argv34 + ["--two-layer"],
+                       pb10)
+        _, bf16_counts["extruded_pair_bf16"] = bf16_steps(
+            ibowl16b, dt34e, 50, "two-layer imported bowl")
+        turns = ms_turns([("f32", ibowl, dt3), ("bf16", ibowl16, dt34d),
+                          ("bf16 pair", ibowl16b, dt34e)])
+        print(f"   {smi}: ms a step (50 steps from rest, in turns): "
+              f"float32 {turns['f32']:.4f}, bf16 {turns['bf16']:.4f}, bf16 "
+              f"two-layer {turns['bf16 pair']:.4f}; #6 ms an apply: float32 "
+              f"(10a) {kernels['extruded']['ms']:.4f}, bf16 "
+              f"{kernels['extruded_bf16']['ms']:.4f}", flush=True)
+        bf16_refusal("extruded_pallas_corner", pb10)
+        del ibowl16, ibowl16b
+
     ce.reset_launches()
     with phase("30c imported bowl through inline XDMF on #6: read_xdmf vs "
                "the .msh import, 10 steps, full-GLL unstructured VTK"):
@@ -2970,6 +3290,26 @@ def main() -> None:
         bbowl.stiffness = kst5
         del state, pst5
 
+    with phase("34e bodyfit bowl in bf16: #11 and its pair form vs plain, "
+               "50 steps each, ms a step beside float32's"):
+        bfit16, dt34f, _, _, _, kernels["indexed_bf16"] = bf16_model(
+            "bodyfit bowl", args5_argv, pb13)
+        _, bf16_counts["indexed_bf16"] = bf16_steps(bfit16, dt34f, 50,
+                                                    "bodyfit bowl")
+        bfit16b, dt34g, _, _, _, kernels["indexed_pair_bf16"] = bf16_model(
+            "two-layer bodyfit bowl", args5_argv + ["--two-layer"], pb13)
+        _, bf16_counts["indexed_pair_bf16"] = bf16_steps(
+            bfit16b, dt34g, 50, "two-layer bodyfit bowl")
+        turns = ms_turns([("f32", bbowl, dt5), ("bf16", bfit16, dt34f),
+                          ("bf16 pair", bfit16b, dt34g)])
+        print(f"   {smi}: ms a step (50 steps from rest, in turns): "
+              f"float32 {turns['f32']:.4f}, bf16 {turns['bf16']:.4f}, bf16 "
+              f"two-layer {turns['bf16 pair']:.4f}; #11 ms an apply: "
+              f"float32 (13a) {kernels['indexed']['ms']:.4f}, bf16 "
+              f"{kernels['indexed_bf16']['ms']:.4f}", flush=True)
+        bf16_refusal("indexed_engine", pb13)
+        del bfit16, bfit16b
+
     ci.reset_launches()
     with phase("30g bodyfit bowl on #11: exact restart, full-GLL "
                "unstructured VTK"):
@@ -3508,6 +3848,7 @@ def main() -> None:
     launches.update(corner_launches)
     launches.update(demo_launches)
     launches.update(setup_launches)
+    launches.update(bf16_counts)
     kernels.update(demo_kernels)
 
     meta = {
@@ -3531,6 +3872,19 @@ def main() -> None:
                     "fustpu/ops/pallas_gather.py:1417"),
         "indexed_pair": ("fustpu_torch/csrc/indexed_chunk.cu",
                          "fustpu/ops/pallas_gather.py:1417"),
+        # the bf16 forms of the G-stream kernels (phase 34)
+        "stiffness_bf16": ("fustpu_torch/csrc/stiffness_pencil.cuh",
+                           "fustpu/ops/pallas_stiffness.py:170"),
+        "stiffness_pair_bf16": ("fustpu_torch/csrc/stiffness_pencil.cuh",
+                                "fustpu/ops/pallas_stiffness.py:726"),
+        "extruded_bf16": ("fustpu_torch/csrc/extruded_stack.cu",
+                          "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_pair_bf16": ("fustpu_torch/csrc/extruded_stack.cu",
+                               "fustpu/ops/pallas_extruded.py:604"),
+        "indexed_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
+                         "fustpu/ops/pallas_gather.py:1417"),
+        "indexed_pair_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
+                              "fustpu/ops/pallas_gather.py:1417"),
         "indexed_classes": ("fustpu_torch/csrc/indexed.cu",
                             "fustpu/ops/pallas_gather.py:1417"),
         "indexed_classes_pair": ("fustpu_torch/csrc/indexed.cu",

@@ -114,14 +114,15 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     # the pencil kernel: its schedule after P (chunk table, classes, their
     # count, blocks, cells a chunk, stages, stage bytes, shared bytes), then
-    # ncy, ncz and the stream
+    # ncy, ncz and the stream; float32, float64 and bfloat16 (the G-stream
+    # kernels #1 / #2, #6 and #11 only)
     sched = [p, p, i, i, i, i, i, i, i, i, p]
-    for name in ("fustpu_stiffness_f32", "fustpu_stiffness_f64"):
-        fn = getattr(lib, name)
+    gstream = ("f32", "f64", "bf16")
+    for suffix in gstream:
+        fn = getattr(lib, f"fustpu_stiffness_{suffix}")
         fn.argtypes = [p, p, p, p, i, *sched]
         fn.restype = i
-    for name in ("fustpu_stiffness_pair_f32", "fustpu_stiffness_pair_f64"):
-        fn = getattr(lib, name)
+        fn = getattr(lib, f"fustpu_stiffness_pair_{suffix}")
         fn.argtypes = [p, p, p, p, p, p, i, *sched]
         fn.restype = i
     lib.fustpu_stiffness_occupancy.argtypes = [i, i, i, i, i]
@@ -129,7 +130,7 @@ def load() -> ctypes.CDLL:
     # the stack kernel: the pencil kernel's schedule with the segments' row
     # ids after the chunk table, nz in place of ncy, ncz
     stack = [p, p, p, i, i, i, i, i, i, i, p]
-    for suffix in ("f32", "f64"):
+    for suffix in gstream:
         fn = getattr(lib, f"fustpu_extruded_stack_{suffix}")
         fn.argtypes = [p, p, p, p, i, *stack]
         fn.restype = i
@@ -142,7 +143,7 @@ def load() -> ctypes.CDLL:
     # positions, classes, their count, blocks, cells a chunk, stage bytes,
     # shared bytes, the most unique dofs of a chunk, the stream
     chunk = [p, p, p, p, p, i, i, i, i, i, i, p]
-    for suffix in ("f32", "f64"):
+    for suffix in gstream:
         fn = getattr(lib, f"fustpu_indexed_chunk_{suffix}")
         fn.argtypes = [p, p, p, p, i, *chunk]
         fn.restype = i

@@ -2,7 +2,11 @@
 the port's.
 
 The functions take numpy arrays (``np.asarray`` of the JAX package's pytree
-leaves) and never see a JAX object.
+leaves) and never see a JAX object.  A bfloat16 model's arrays are
+``ml_dtypes`` arrays there; every array goes through float64 (the cast
+the array's own dtype provides, exact for bfloat16 values) before it
+becomes a tensor, so the port's bfloat16 tensors equal the JAX package's
+bit for bit without this package importing ``ml_dtypes``.
 
 - `stiffness_from_fustpu` accepts the arrays of a matmul-form operator
   (``MMStiffness``: W, Dt, G (6, ex, ey, ez)), of the fused-kernel operator
@@ -305,7 +309,8 @@ def slab2w_from_fustpu(G2, statics, dtype: torch.dtype = torch.float64,
 def state_from_fustpu(state, dtype: torch.dtype, device) -> RKState:
     """(u, v, ku, kv, t) numpy arrays -> the port's RKState (t a float)."""
     u, v, ku, kv, t = state
-    f = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    f = lambda a: torch.as_tensor(np.array(a, np.float64), dtype=dtype,
+                                  device=device)
     return RKState(u=f(u), v=f(v), ku=f(ku), kv=f(kv), t=float(t))
 
 
@@ -379,7 +384,9 @@ def sharded_state_from_fustpu(fsharded, state, sharded=None):
 def _finish(model, cls, params: dict, op, state, dtype: torch.dtype):
     """Install the operator and the diagonal vectors; move the state."""
     model.stiffness = stiffness_module(op, model.impl)
-    model._load_vectors({k: params.get(k) for k in cls.VECTORS})
+    model._load_vectors({k: None if params.get(k) is None
+                         else np.asarray(params[k], np.float64)
+                         for k in cls.VECTORS})
     if state is not None:
         state = state_from_fustpu(state, dtype, model.device)
     return model, state

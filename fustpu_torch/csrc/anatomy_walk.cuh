@@ -26,8 +26,8 @@
 //     arithmetic and its order are full's, so ywin is bitwise full.
 //
 // What bounds each on an H100 (P = 4, float32): gstream and ywin move
-// full's bytes (G, x, y once each: 387,140,364 B at 64 x 40 x 40, 0.1156
-// ms at 3.35 TB/s); contract moves x and y only (3 values a node) with
+// full's bytes (G, x, y once each: 360,493,576 B at 64 x 40 x 40, 0.1076
+// ms at 3.35 TB/s); contract moves x and y only (2 values a node) with
 // full's sum-factor operations.  full - gstream - contract says whether
 // the G stream and the contractions overlap.
 //
@@ -64,6 +64,7 @@ struct UnitMetric {
 // the chunk buffers.
 template <typename T, int N>
 struct UnitGeo {
+  using Store = T;
   static constexpr int CELL = 0;
   static constexpr bool BARRIERS = true, RING = false;
   static constexpr int MAX_THREADS = 256, MIN_BLOCKS = 0, BODY = STAGED;

@@ -16,8 +16,8 @@
 //
 // What bounds it on an H100: arithmetic, not bytes.  At the flagship
 // (102,400 cells, 6,661,697 dofs, P = 4, float32) an apply must move x
-// 26.6 MB, y read and written 53.3 MB and the channels 15.2 MB, ~95 MB
-// against the G stream's 387 MB, but per node it rebuilds J, adj(J), det
+// 26.6 MB, y written 26.6 MB and the channels 15.2 MB, ~68 MB against
+// the G stream's 360 MB, but per node it rebuilds J, adj(J), det
 // and the factored metric (~60 flops and one division on top of the
 // ~12 N + 16 of the sum factorisation).
 //

@@ -24,8 +24,8 @@
 // What bounds it on an H100: memory traffic, as for the structured kernel.
 // At P = 4 in float32 a cell reads 3000 B of G for ~1e4 flops; at the
 // imported H131 bowl (102,400 cells, 6,661,697 dofs) an apply must move at
-// least G 307,200,000 B + x 26,646,788 B + y read and written 53,293,576 B
-// + rows2d 160,000 B = ~387.3 MB, the structured flagship's traffic plus
+// least G 307,200,000 B + x 26,646,788 B + y written 26,646,788 B +
+// rows2d 160,000 B = ~360.7 MB, the structured flagship's traffic plus
 // the row ids.
 //
 // What the design does about it:

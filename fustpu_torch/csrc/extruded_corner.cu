@@ -18,7 +18,7 @@
 // reads 37 channels (148 B in float32, against 3000 B of G at P = 4)
 // but rebuilds J, adj(J), det and the factored metric at every node.  At
 // the imported H131 bowl (102,400 cells, 6,661,697 dofs, P = 4) an apply
-// must move x 26.6 MB, y read and written 53.3 MB, the channels 15.2 MB
+// must move x 26.6 MB, y written 26.6 MB, the channels 15.2 MB
 // and the row ids 0.16 MB.
 //
 // What the design does about it: a cell's channels are read once into

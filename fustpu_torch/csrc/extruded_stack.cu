@@ -8,7 +8,10 @@
 // (:860, y = A_c1(x1) + A_c2(x2) with a unit G and per-cell (c1, c2)).
 // The class-launch design of the same kernels (extruded.cuh: scattered
 // cells in one launch per (stack colour, layer parity), G read by the
-// threads themselves) keeps its entry points in extruded.cu.
+// threads themselves) keeps its entry points in extruded.cu.  The stack
+// kernel comes in float32, float64 and bfloat16 (stored in bfloat16,
+// computed in float: stiffness_pencil.cuh); the class-launch design in
+// float32 and float64.
 //
 // An extruded cell s * nz + kz is a z-pencil cell whose N^2 z-lines are not
 // on a grid: node (i, j, k) holds dof rows2d[s, i N + j] gz + kz P + k, so
@@ -42,7 +45,7 @@ namespace {
 using fustpu::pencil::StackRows;
 using fustpu::pencil::GRing;
 
-template <typename T, bool PAIR>
+template <typename T, typename S, bool PAIR>
 int launch(int P, const void* x1, const void* x2, const void* C,
            const void* G, const void* D, void* y, const void* chunks,
            const void* ids, const long long* classes, int nclass, int blocks,
@@ -53,7 +56,7 @@ int launch(int P, const void* x1, const void* x2, const void* C,
 #define FUSTPU_CASE(P_)                                                    \
   case P_:                                                                 \
     return fustpu::pencil::launch_classes<T, P_ + 1, PAIR,               \
-                                          GRing<T, P_ + 1>>(               \
+                                          GRing<T, P_ + 1, S>>(            \
         x1, x2, C, G, D, nullptr, y, chunks, classes, nclass, blocks, cpb, \
         stages, stage_bytes, smem, lines, s);
   switch (P) {
@@ -64,12 +67,13 @@ int launch(int P, const void* x1, const void* x2, const void* C,
 #undef FUSTPU_CASE
 }
 
-template <typename T, bool PAIR>
+template <typename T, typename S, bool PAIR>
 int occupancy(int P, int cpb, int smem) {
 #define FUSTPU_CASE(P_) \
   case P_:              \
-    return fustpu::pencil::occupancy<T, P_ + 1, PAIR, GRing<T, P_ + 1>, \
-                                     StackRows>(cpb, smem);
+    return fustpu::pencil::occupancy<T, P_ + 1, PAIR,                   \
+                                     GRing<T, P_ + 1, S>, StackRows>(   \
+        cpb, smem);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:
@@ -86,40 +90,45 @@ int occupancy(int P, int cpb, int smem) {
 // device; classes: nclass x 3 int64 on the host.
 extern "C" {
 
-#define FUSTPU_STACK(SUF, T)                                                 \
+#define FUSTPU_STACK(SUF, T, S)                                              \
   int fustpu_extruded_stack_##SUF(                                           \
       const void* x, const void* G, const void* D, void* y, int P,           \
       const void* chunks, const void* ids, const long long* classes,         \
       int nclass, int blocks, int cpb, int stages, int stage_bytes,          \
       int smem, int nz, void* stream) {                                      \
-    return launch<T, false>(P, x, nullptr, nullptr, G, D, y, chunks, ids,    \
-                            classes, nclass, blocks, cpb, stages,            \
-                            stage_bytes, smem, nz, stream);                  \
+    return launch<T, S, false>(P, x, nullptr, nullptr, G, D, y, chunks, ids, \
+                               classes, nclass, blocks, cpb, stages,         \
+                               stage_bytes, smem, nz, stream);               \
   }                                                                          \
   int fustpu_extruded_stack_pair_##SUF(                                      \
       const void* x1, const void* x2, const void* C, const void* G,          \
       const void* D, void* y, int P, const void* chunks, const void* ids,    \
       const long long* classes, int nclass, int blocks, int cpb, int stages, \
       int stage_bytes, int smem, int nz, void* stream) {                     \
-    return launch<T, true>(P, x1, x2, C, G, D, y, chunks, ids, classes,      \
-                           nclass, blocks, cpb, stages, stage_bytes, smem,   \
-                           nz, stream);                                      \
+    return launch<T, S, true>(P, x1, x2, C, G, D, y, chunks, ids, classes,   \
+                              nclass, blocks, cpb, stages, stage_bytes,      \
+                              smem, nz, stream);                             \
   }
 
-FUSTPU_STACK(f32, float)
-FUSTPU_STACK(f64, double)
+FUSTPU_STACK(f32, float, float)
+FUSTPU_STACK(f64, double, double)
+FUSTPU_STACK(bf16, float, __nv_bfloat16)
 #undef FUSTPU_STACK
 
-// Blocks of the kernel for (P, float64?, pair?) with cpb cells and smem
-// dynamic shared bytes that one SM holds at once; -1 for an unsupported
-// degree, minus the cudaError_t of a failed query.
-int fustpu_extruded_stack_occupancy(int P, int f64, int pair, int cpb,
+// Blocks of the kernel for (P, type, pair?) with cpb cells and smem dynamic
+// shared bytes that one SM holds at once; type 0 float32, 1 float64, 2
+// bfloat16; -1 for an unsupported degree, minus the cudaError_t of a
+// failed query.
+int fustpu_extruded_stack_occupancy(int P, int type, int pair, int cpb,
                                     int smem) {
-  if (f64)
-    return pair ? occupancy<double, true>(P, cpb, smem)
-                : occupancy<double, false>(P, cpb, smem);
-  return pair ? occupancy<float, true>(P, cpb, smem)
-              : occupancy<float, false>(P, cpb, smem);
+  if (type == 1)
+    return pair ? occupancy<double, double, true>(P, cpb, smem)
+                : occupancy<double, double, false>(P, cpb, smem);
+  if (type == 2)
+    return pair ? occupancy<float, __nv_bfloat16, true>(P, cpb, smem)
+                : occupancy<float, __nv_bfloat16, false>(P, cpb, smem);
+  return pair ? occupancy<float, float, true>(P, cpb, smem)
+              : occupancy<float, float, false>(P, cpb, smem);
 }
 
 }  // extern "C"

@@ -23,9 +23,9 @@
 //
 // What bounds it on an H100: memory traffic.  At the bodyfit H131 bowl
 // (102,400 cells, 6,661,697 dofs, P = 4, float32) an apply must move at
-// least G 307,200,000 B + x 26,646,788 B + y read and written 53,293,576 B
-// + dofmap 51,200,000 B = 438,340,364 B (the pair form adds x2 and C:
-// 465,806,352 B), for ~1e4 flops per cell.  Unlike the structured and
+// least G 307,200,000 B + x 26,646,788 B + y written 26,646,788 B +
+// dofmap 51,200,000 B = 411,693,576 B (the pair form adds x2 and C:
+// 439,159,564 B), for ~1e4 flops per cell.  Unlike the structured and
 // extruded kernels, every node's address is an indirect load, and the
 // cells of one scatter class are spread through the mesh.
 //

@@ -13,8 +13,8 @@
 //
 // What bounds it on an H100: its bytes.  At the bodyfit H131 bowl
 // (102,400 cells, 6,661,697 dofs, P = 4, float32) an apply must move at
-// least G 307,200,000 B, x 26,646,788 B, y read and written 53,293,576 B
-// and the dofmap 51,200,000 B: 438,340,364 B (pair 465,806,352 B).
+// least G 307,200,000 B, x 26,646,788 B, y written 26,646,788 B and the
+// dofmap 51,200,000 B: 411,693,576 B (pair 439,159,564 B).
 //
 // What the design does.  A general mesh has no pencils, but its cells are
 // in `locality_order`, so CPB consecutive cells are a compact blob whose G
@@ -52,14 +52,30 @@
 // No tensor cores, accumulators in the template type (as in the pencil
 // kernel: bound by bytes, and TF32 would break the float32 gate of 1e-6).
 //
+// bfloat16 (the JAX package's --dtype bf16): x, x2, y, G, D and C stored
+// in bfloat16 (S), everything else float (T), as in the pencil kernel.  A
+// float f1, f2 or node sum does not fit a bfloat16 node's slot of the
+// stage, so the cells' f1, f2 take 2 N^3 floats a cell slot of their own
+// after the (c1, c2) buffers, and each node's sum goes, as a float, over
+// the cell's G components 0 and 1 in the stage (`GShared::put`: free once
+// the body's barrier after its metric reads has passed), so that a unique
+// dof's positions within a chunk are summed in float and rounded once,
+// when y is stored.  Each later class that adds to the dof reads that y
+// back as bfloat16 and rounds again: a dof shared by chunks of k classes
+// carries k roundings (k up to the class count: 8 on the P = 4 bowls, 9-12
+// on small general meshes), a dof inside one chunk one.  The f1, f2 slots cost 8 N^3 B a cell (1,000 B at P = 4) and the
+// stage halves (a cell 12 N^3 B in place of 24 N^3), so a chunk's shared
+// bytes shrink: the cells a chunk stay bounded by the threads (256 / N^2).
+//
 // Shared memory per block (the host computes the same, cuda_indexed.py
 // `chunk_smem`): D (N^2 values, static), and dynamic: STAGES mbarriers, a
 // ring of RING table rows, STAGES stages of stage_bytes (CPB cells of G
 // plus 16 B), the cells' u (N^3 values a cell), two buffers of the
 // chunk's earlier y (maxu values, maxu the most unique dofs of a chunk),
-// for the pair two of the cells' (c1, c2), a ring of three chunks' unique
-// ids (maxu int32), and two buffers each of the inverse map's ends (maxu
-// int16) and positions (CPB N^3 int16).
+// for the pair two of the cells' (c1, c2), in bfloat16 the cells' f1, f2
+// (2 N^3 values a cell), a ring of three chunks' unique ids (maxu int32),
+// and two buffers each of the inverse map's ends (maxu int16) and
+// positions (CPB N^3 int16).  Values in the arithmetic type.
 
 #include <cuda_runtime.h>
 
@@ -93,17 +109,18 @@ struct NoLine {
   __device__ int operator()(int) const { return 0; }
 };
 
-template <typename T, int N, bool PAIR>
+template <typename T, int N, bool PAIR, typename S>
 __global__ void __launch_bounds__(256)
-chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-             const T* __restrict__ C, const T* __restrict__ G,
-             const T* __restrict__ D, T* __restrict__ y,
+chunk_kernel(const S* __restrict__ x1, const S* __restrict__ x2,
+             const S* __restrict__ C, const S* __restrict__ G,
+             const S* __restrict__ D, S* __restrict__ y,
              const long long* __restrict__ chunks,
              const int* __restrict__ uniq, const short* __restrict__ ends,
              const short* __restrict__ pos, long long first, int count,
              int stage_bytes, int maxu) {
   constexpr int NN = N * N, NNN = N * N * N;
-  constexpr long long CB = 6LL * NNN * (long long)sizeof(T);  // G per cell
+  constexpr long long CB = 6LL * NNN * (long long)sizeof(S);  // G per cell
+  using Metric = GShared<T, N, S>;
   __shared__ T Ds[NN];                           // D[q * N + i] = l_i'(x_q)
   extern __shared__ __align__(128) unsigned char smem[];
   const int cpb = blockDim.y;
@@ -113,7 +130,8 @@ chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   T* ub = reinterpret_cast<T*>(ring + (long long)STAGES * stage_bytes);
   T* ysb = ub + cpb * NNN;                       // 2 x maxu: earlier y
   T* cb = ysb + 2 * maxu;                        // 2 x 2 cpb: (c1, c2)
-  int* uidb = reinterpret_cast<int*>(cb + (PAIR ? 4 * cpb : 0));
+  T* fb = cb + (PAIR ? 4 * cpb : 0);             // WIDE: cpb x 2 N^3 f1, f2
+  int* uidb = reinterpret_cast<int*>(fb + (Metric::WIDE ? 2 * cpb * NNN : 0));
   short* endb = reinterpret_cast<short*>(uidb + ID_RING * maxu);
   short* posb = endb + 2 * maxu;                 // 2 x cpb N^3
   const int t = threadIdx.x, lc = threadIdx.y;   // node line (j, k), cell
@@ -138,9 +156,9 @@ chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   // A thread's share of a chunk: unique slots and positions tid + e
   // nthreads, e < N (a chunk has at most CPB N^3 of each).  The next
   // chunk's inputs go through these registers: fetched before the body,
-  // written to shared memory after it; x (and x2) stay here until the
-  // chunk's u is built from them.
-  T xr[N], x2r[N], yr[N], cr = T(0);
+  // written to shared memory after it; x (and x2) stay here, as stored,
+  // until the chunk's u is built from them.
+  S xr[N], x2r[N], yr[N], cr{};
   int idr[N];
   short er[N], pr[N];
   long long rowr = 0;
@@ -179,12 +197,12 @@ chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     for (int e = 0; e < N; ++e) {
       const int s = tid + e * nthreads;
       if (s < nu) {
-        ysb[b * maxu + s] = yr[e];
+        ysb[b * maxu + s] = widen<T>(yr[e]);
         endb[b * maxu + s] = er[e];
       }
       if (s < n * NNN) posb[b * cpb * NNN + s] = pr[e];
     }
-    if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = cr;
+    if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = widen<T>(cr);
     if (q + 1 < mine) {
       const int nu1 = (int)row(q + 1)[5];
       int* uq = uid(q + 1);
@@ -209,18 +227,19 @@ chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
           const int at = ps[p];
           if (PAIR) {
             const int c = at / NNN;
-            ub[at] = cb[b * 2 * cpb + 2 * c] * xr[e] +
-                     cb[b * 2 * cpb + 2 * c + 1] * x2r[e];
+            ub[at] = cb[b * 2 * cpb + 2 * c] * widen<T>(xr[e]) +
+                     cb[b * 2 * cpb + 2 * c + 1] * widen<T>(x2r[e]);
           } else {
-            ub[at] = xr[e];
+            ub[at] = widen<T>(xr[e]);
           }
         }
       }
     }
   };
   // chunk q's y out: each unique dof's positions summed in the inverse
-  // map's order (the node sums in component 2 of the cells' G in the
-  // chunk's stage), added once to what earlier classes left
+  // map's order (the node sums the body put over the cells' G in the
+  // chunk's stage, Metric::SUM_AT on in each cell's CELL_T values), added
+  // once to what earlier classes left
   auto sum = [&](int q) {
     const long long* r = row(q);
     const int nu = (int)r[5], b = q & 1;
@@ -229,18 +248,18 @@ chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     const int* uq = uid(q);
     const T* y2 = reinterpret_cast<const T*>(
         ring + (long long)(q % STAGES) * stage_bytes + (r[0] * CB - r[2])) +
-        2 * NNN;
+        Metric::SUM_AT;
     for (int s = tid; s < nu; s += nthreads) {
       T acc = T(0);
       for (int p = s ? en[s - 1] : 0; p < en[s]; ++p) {
         const int at = ps[p];
-        acc += y2[(at / NNN) * 6 * NNN + at % NNN];
+        acc += y2[(at / NNN) * Metric::CELL_T + at % NNN];
       }
-      y[uq[s]] = ysb[b * maxu + s] + acc;
+      y[uq[s]] = narrow<S>(ysb[b * maxu + s] + acc);
     }
   };
 
-  for (int s = tid; s < NN; s += nthreads) Ds[s] = D[s];
+  for (int s = tid; s < NN; s += nthreads) Ds[s] = widen<T>(D[s]);
   if (tid < ROW) row(0)[tid] = table(0)[tid];
   if (mine > 1 && tid >= ROW && tid < 2 * ROW)
     row(1)[tid - ROW] = table(1)[tid - ROW];
@@ -277,10 +296,12 @@ chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     if (q + 1 < mine) fetch(q + 1);
     __syncthreads();                 // u in place
 
-    T* Gc = reinterpret_cast<T*>(stage + (cell0 * CB - off)) + lc * 6 * NNN;
+    S* Gc = reinterpret_cast<S*>(stage + (cell0 * CB - off)) + lc * 6 * NNN;
+    T* f1 = Metric::WIDE ? fb + 2 * NNN * lc : reinterpret_cast<T*>(Gc);
     cell_apply<T, N, false, STAGED_STORE>(
-        x1, x2, T(1), T(0), GShared<T, N>{Gc}, Ds, ub + lc * NNN, Gc,
-        Gc + NNN, static_cast<T*>(nullptr), lc < n, NoLine{});
+        static_cast<const T*>(nullptr), static_cast<const T*>(nullptr), T(1),
+        T(0), Metric{Gc}, Ds, ub + lc * NNN, f1, f1 + NNN,
+        static_cast<T*>(nullptr), lc < n, NoLine{});
     if (q + 1 < mine) put(q + 1);
     fence_proxy_async();             // f1, f2, the sums before the refill
     __syncthreads();                 // the chunk's sums are complete
@@ -288,37 +309,38 @@ chunk_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   }
 }
 
-template <typename T, int N, bool PAIR>
+template <typename T, int N, bool PAIR, typename S>
 cudaError_t allow_smem() {
   static bool done = false;
   if (done) return cudaSuccess;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, chunk_kernel<T, N, PAIR>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, chunk_kernel<T, N, PAIR, S>);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(chunk_kernel<T, N, PAIR>,
+  err = cudaFuncSetAttribute(chunk_kernel<T, N, PAIR, S>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MAX_SMEM - (int)attr.sharedSizeBytes);
   done = err == cudaSuccess;
   return err;
 }
 
-template <typename T, bool PAIR, int N>
+template <typename T, typename S, bool PAIR, int N>
 int launch_n(const void* x1, const void* x2, const void* C, const void* G,
              const void* D, void* y, const void* chunks, const void* uniq,
              const void* ends, const void* pos, const long long* classes,
              int nclass, int blocks, int cpb, int stage_bytes, int smem,
              int maxu, cudaStream_t stream) {
-  cudaError_t err = allow_smem<T, N, PAIR>();
+  cudaError_t err = allow_smem<T, N, PAIR, S>();
   if (err != cudaSuccess) return (int)err;
   const dim3 block(N * N, cpb);
   for (int c = 0; c < nclass; ++c) {
     const long long first = classes[2 * c], count = classes[2 * c + 1];
     if (count <= 0) continue;
     const unsigned grid = (unsigned)(count < blocks ? count : blocks);
-    chunk_kernel<T, N, PAIR><<<grid, block, smem, stream>>>(
-        static_cast<const T*>(x1), static_cast<const T*>(x2),
-        static_cast<const T*>(C), static_cast<const T*>(G),
-        static_cast<const T*>(D), static_cast<T*>(y),
+    chunk_kernel<T, N, PAIR, S><<<grid, block, smem, stream>>>(
+        static_cast<const S*>(x1), static_cast<const S*>(x2),
+        static_cast<const S*>(C), static_cast<const S*>(G),
+        static_cast<const S*>(D), static_cast<S*>(y),
         static_cast<const long long*>(chunks), static_cast<const int*>(uniq),
         static_cast<const short*>(ends), static_cast<const short*>(pos),
         first, (int)count, stage_bytes, maxu);
@@ -328,20 +350,20 @@ int launch_n(const void* x1, const void* x2, const void* C, const void* G,
   return 0;
 }
 
-template <typename T, bool PAIR, int N>
+template <typename T, typename S, bool PAIR, int N>
 int occupancy_n(int cpb, int smem) {
-  cudaError_t err = allow_smem<T, N, PAIR>();
+  cudaError_t err = allow_smem<T, N, PAIR, S>();
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, chunk_kernel<T, N, PAIR>, N * N * cpb, smem);
+      &blocks, chunk_kernel<T, N, PAIR, S>, N * N * cpb, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
 #define FUSTPU_DEGREES(M) \
   M(2) M(3) M(4) M(5) M(6) M(7) M(8) M(9) M(10)
 
-template <typename T, bool PAIR>
+template <typename T, typename S, bool PAIR>
 int launch(int P, const void* x1, const void* x2, const void* C,
            const void* G, const void* D, void* y, const void* chunks,
            const void* uniq, const void* ends, const void* pos,
@@ -350,9 +372,9 @@ int launch(int P, const void* x1, const void* x2, const void* C,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FUSTPU_CASE(P_)                                                     \
   case P_:                                                                  \
-    return launch_n<T, PAIR, P_ + 1>(x1, x2, C, G, D, y, chunks, uniq,      \
-                                     ends, pos, classes, nclass, blocks,    \
-                                     cpb, stage_bytes, smem, maxu, s);
+    return launch_n<T, S, PAIR, P_ + 1>(x1, x2, C, G, D, y, chunks, uniq,   \
+                                        ends, pos, classes, nclass, blocks, \
+                                        cpb, stage_bytes, smem, maxu, s);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:
@@ -361,11 +383,11 @@ int launch(int P, const void* x1, const void* x2, const void* C,
 #undef FUSTPU_CASE
 }
 
-template <typename T, bool PAIR>
+template <typename T, typename S, bool PAIR>
 int occupancy(int P, int cpb, int smem) {
 #define FUSTPU_CASE(P_) \
   case P_:              \
-    return occupancy_n<T, PAIR, P_ + 1>(cpb, smem);
+    return occupancy_n<T, S, PAIR, P_ + 1>(cpb, smem);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:
@@ -383,15 +405,15 @@ int occupancy(int P, int cpb, int smem) {
 // classes: nclass x 2 int64 (first row, chunks) on the host.
 extern "C" {
 
-#define FUSTPU_CHUNK(SUF, T)                                                  \
+#define FUSTPU_CHUNK(SUF, T, S)                                               \
   int fustpu_indexed_chunk_##SUF(                                             \
       const void* x, const void* G, const void* D, void* y, int P,            \
       const void* chunks, const void* uniq, const void* ends,                 \
       const void* pos, const long long* classes, int nclass, int blocks,      \
       int cpb, int stage_bytes, int smem, int maxu, void* stream) {           \
-    return launch<T, false>(P, x, nullptr, nullptr, G, D, y, chunks, uniq,    \
-                            ends, pos, classes, nclass, blocks, cpb,          \
-                            stage_bytes, smem, maxu, stream);                 \
+    return launch<T, S, false>(P, x, nullptr, nullptr, G, D, y, chunks, uniq, \
+                               ends, pos, classes, nclass, blocks, cpb,       \
+                               stage_bytes, smem, maxu, stream);              \
   }                                                                           \
   int fustpu_indexed_chunk_pair_##SUF(                                        \
       const void* x1, const void* x2, const void* C, const void* G,           \
@@ -399,25 +421,30 @@ extern "C" {
       const void* ends, const void* pos, const long long* classes,            \
       int nclass, int blocks, int cpb, int stage_bytes, int smem, int maxu,   \
       void* stream) {                                                         \
-    return launch<T, true>(P, x1, x2, C, G, D, y, chunks, uniq, ends, pos,    \
-                           classes, nclass, blocks, cpb, stage_bytes, smem,   \
-                           maxu, stream);                                     \
+    return launch<T, S, true>(P, x1, x2, C, G, D, y, chunks, uniq, ends, pos, \
+                              classes, nclass, blocks, cpb, stage_bytes,      \
+                              smem, maxu, stream);                            \
   }
 
-FUSTPU_CHUNK(f32, float)
-FUSTPU_CHUNK(f64, double)
+FUSTPU_CHUNK(f32, float, float)
+FUSTPU_CHUNK(f64, double, double)
+FUSTPU_CHUNK(bf16, float, __nv_bfloat16)
 #undef FUSTPU_CHUNK
 
-// Blocks of the kernel for (P, float64?, pair?) with cpb cells and smem
-// dynamic shared bytes that one SM holds at once; -1 for an unsupported
-// degree, minus the cudaError_t of a failed query.
-int fustpu_indexed_chunk_occupancy(int P, int f64, int pair, int cpb,
+// Blocks of the kernel for (P, type, pair?) with cpb cells and smem dynamic
+// shared bytes that one SM holds at once; type 0 float32, 1 float64, 2
+// bfloat16; -1 for an unsupported degree, minus the cudaError_t of a
+// failed query.
+int fustpu_indexed_chunk_occupancy(int P, int type, int pair, int cpb,
                                    int smem) {
-  if (f64)
-    return pair ? occupancy<double, true>(P, cpb, smem)
-                : occupancy<double, false>(P, cpb, smem);
-  return pair ? occupancy<float, true>(P, cpb, smem)
-              : occupancy<float, false>(P, cpb, smem);
+  if (type == 1)
+    return pair ? occupancy<double, double, true>(P, cpb, smem)
+                : occupancy<double, double, false>(P, cpb, smem);
+  if (type == 2)
+    return pair ? occupancy<float, __nv_bfloat16, true>(P, cpb, smem)
+                : occupancy<float, __nv_bfloat16, false>(P, cpb, smem);
+  return pair ? occupancy<float, float, true>(P, cpb, smem)
+              : occupancy<float, float, false>(P, cpb, smem);
 }
 
 }  // extern "C"

@@ -28,10 +28,10 @@
 // (slab2.cu, anatomy_classes.cu).
 //
 // What bounds it on an H100: the bytes.  G holds 6 values per node, so at
-// P = 4 in float32 a cell reads 3000 B of G against ~500 B of x and ~1000
-// B of y (read and written), for ~1e4 flops: ~2 flop/B, a tenth of the
-// card's float32 ridge.  At the flagship (64 x 40 x 40 cells) the least
-// bytes are 387,140,364, 0.1156 ms at 3.35 TB/s.
+// P = 4 in float32 a cell reads 3000 B of G against ~500 B of x and
+// writes ~500 B of y, for ~1e4 flops: ~2 flop/B, a tenth of the card's
+// float32 ridge.  At the flagship (64 x 40 x 40 cells) the least bytes
+// are 360,493,576, 0.1076 ms at 3.35 TB/s.
 //
 // What the design does, against the four things that held the
 // parity-class kernel at a third of that bound:
@@ -91,6 +91,21 @@
 // is bound by its bytes at ~2 flop/B, and TF32 keeps ~3 digits, which
 // would break the float32 gate of 1e-6.  The card computes in native
 // float32 / float64, accumulators in the template type.
+//
+// bfloat16 (the JAX package's --dtype bf16; #1 / #2 and #6 in bf16): x,
+// x2, y, G, D and C are stored in bfloat16 (the geometry policy's Store,
+// GRing<float, N, __nv_bfloat16>) and everything else is float: the walk
+// widens what it loads, and the chunk buffers, the body and its sums are
+// float.  G's stage holds bfloat16, where a float f1, f2 does not fit a
+// node's slot, so the cells' f1, f2 take 2 N^3 floats a cell slot after the
+// chunk buffers (Geo::after).  y rounds to bfloat16 once a chunk, where the
+// coalesced pass writes it out: a node on a pencil's side face, shared by
+// up to four pencils of the four colour classes, is read back and rounded
+// again by each later class that adds to it, so it carries at most four
+// roundings (each at most 2^-8 of the partial sum it rounds: bfloat16
+// keeps 8 significant bits), an interior node one.  In a quarter of
+// the bytes the apply moves in float32 G is half (its stream), and so are
+// x and y.
 //
 // Shared memory per block (the host computes the same, cuda_stiffness.py
 // `pencil_smem`): D (N^2 values, static), and dynamic: STAGES mbarriers and
@@ -195,26 +210,40 @@ struct StackRows {
 // block, so the schedule keeps within MAX_THREADS); pencil_kernel, with
 // the G stream's own bounds, otherwise.
 //
+// Store: the type the fields, the stream, D and C are stored in (T but for
+// the G stream in bfloat16).
+//
 // GRing: the G stream (#1, #2, #6), c G itself, 6 N^3 values a cell read
-// by GShared; the body's f1, f2 of a node go over its components 0 and 1
-// there (the node's owner thread has read all six), which saves 2 N^3
-// values a cell.
-template <typename T, int N>
+// by GShared; with S == T the body's f1, f2 of a node go over its
+// components 0 and 1 there (the node's owner thread has read all six),
+// which saves 2 N^3 values a cell.  With a narrower S (bfloat16 G, float
+// arithmetic) they take 2 N^3 values of T a cell slot after the chunk
+// buffers.
+template <typename T, int N, typename S = T>
 struct GRing {
-  static constexpr int CELL = 6 * N * N * N;
+  using Store = S;
+  static constexpr int NNN = N * N * N;
+  static constexpr bool WIDE = sizeof(S) < sizeof(T);
+  static constexpr int CELL = 6 * NNN;
   static constexpr bool BARRIERS = true, RING = true;
   static constexpr int MAX_THREADS = 256, MIN_BLOCKS = 0, BODY = STAGED;
-  __host__ __device__ static constexpr int after(int) { return 0; }
+  __host__ __device__ static constexpr int after(int cpb) {
+    return WIDE ? 2 * NNN * cpb : 0;
+  }
   __device__ static void load(T*, const T*, int, int, int) {}
-  __device__ GRing(T*, int, int, int) {}
+  T* f;                       // WIDE: the cell slots' f1, f2
+  __device__ GRing(T* after_, int, int, int) : f(after_) {}
 
   struct Cell {
-    GShared<T, N> metric;
+    GShared<T, N, S> metric;
     T* f1;
     T* f2;
   };
-  __device__ __forceinline__ Cell cell(T* Gc, int) const {
-    return {GShared<T, N>{Gc}, Gc, Gc + N * N * N};
+  __device__ __forceinline__ Cell cell(S* Gc, int lc) const {
+    if constexpr (WIDE)
+      return {GShared<T, N, S>{Gc}, f + 2 * NNN * lc, f + 2 * NNN * lc + NNN};
+    else
+      return {GShared<T, N, S>{Gc}, Gc, Gc + NNN};
   }
 };
 
@@ -229,6 +258,7 @@ struct GRing {
 // pencil_kernel's bounds.
 template <typename T, int N, int GD, bool BOX, bool RCP, int CAP>
 struct CornerGeo {
+  using Store = T;
   static constexpr int CELL = CornerChannels<GD>::COUNT;
   static constexpr bool BARRIERS = false, RING = true;
   static constexpr int BODY = STAGED;
@@ -289,17 +319,18 @@ __host__ __device__ constexpr int head_bytes(int stages, bool ids, int nn) {
 // stage of the ring.  seg0: the class's first pencil's row of the row ids
 // (the pencils of the classes before it).  Grid indices are 32-bit (the
 // wrapper refuses grids of 2^31 nodes or more).
-template <typename T, int N, bool PAIR, typename Rows, typename Geo>
+template <typename T, int N, bool PAIR, typename Rows, typename Geo,
+          typename S = typename Geo::Store>
 __device__ __forceinline__ void pencil_walk(
-    const T* __restrict__ x1, const T* __restrict__ x2,
-    const T* __restrict__ C, const T* __restrict__ G,
-    const T* __restrict__ D, const T* __restrict__ Q, T* __restrict__ y,
+    const S* __restrict__ x1, const S* __restrict__ x2,
+    const S* __restrict__ C, const S* __restrict__ G,
+    const S* __restrict__ D, const T* __restrict__ Q, S* __restrict__ y,
     const long long* __restrict__ chunks, long long first, int pencils,
     int per_pencil, int stages, int stage_bytes, long long seg0,
     Rows lines) {
   constexpr int P = N - 1, NN = N * N, NNN = N * N * N;
   static_assert(Geo::RING || !Rows::XBULK, "x's copies ride in the ring");
-  constexpr long long CB = (long long)Geo::CELL * (long long)sizeof(T);
+  constexpr long long CB = (long long)Geo::CELL * (long long)sizeof(S);
   // the threads that issue x's z-line runs (XBULK): the first warp
   constexpr int XLANES = 32;
   // D in an array of its own, so that the compiler may keep it in
@@ -317,7 +348,7 @@ __device__ __forceinline__ void pencil_walk(
   unsigned char* ring = smem + head_bytes(nbars, Rows::IDS, NN);
   // XBULK: the chunk's N^2 z-line runs of x after the stages, each in a
   // slot of xslot bytes (the run's aligned span)
-  const int xslot = (lmax * (int)sizeof(T) + 16 + 15) / 16 * 16;
+  const int xslot = (lmax * (int)sizeof(S) + 16 + 15) / 16 * 16;
   unsigned char* xa = ring + (long long)stages * stage_bytes;
   // two buffers each: u of every cell, the chunk's y, and for the pair x2
   // and the cells' (c1, c2); then what the geometry keeps (Geo::after)
@@ -368,8 +399,8 @@ __device__ __forceinline__ void pencil_walk(
                    long long& stop) {
     if constexpr (Rows::XBULK) {
       const long long s0 =
-          (long long)lines.template base<N>(r, nullptr, rr) * sizeof(T);
-      const long long e0 = s0 + (r[1] * P + 1) * (long long)sizeof(T);
+          (long long)lines.template base<N>(r, nullptr, rr) * sizeof(S);
+      const long long e0 = s0 + (r[1] * P + 1) * (long long)sizeof(S);
       off = s0 & ~15LL;
       stop = (e0 + 15) & ~15LL;
       if (stop > lines.xbytes) stop = e0 & ~15LL;
@@ -416,7 +447,8 @@ __device__ __forceinline__ void pencil_walk(
   // Consecutive threads on consecutive z.  The first face of a chunk that
   // continues a pencil is the last one's, carried in shared memory.
   // XBULK: x comes from the x area instead, after its copies arrived.
-  T xr[N], x2r[N], yr[N], cr = T(0);
+  // Held as stored, widened where they are put.
+  S xr[N], x2r[N], yr[N], cr{};
   long long rowr = 0;
   int idr = 0;
   auto fetch = [&](int q) {
@@ -443,26 +475,26 @@ __device__ __forceinline__ void pencil_walk(
     T* u = ub + b * cpb * NNN;
     each(len, [&](int e, int rr, int z) {
       if (part & PUT_REST) {
-        if (PAIR) x2b[b * rows + rr * lmax + z] = x2r[e];
-        if (z >= zy) yb[b * rows + rr * lmax + z] = yr[e];
+        if (PAIR) x2b[b * rows + rr * lmax + z] = widen<T>(x2r[e]);
+        if (z >= zy) yb[b * rows + rr * lmax + z] = widen<T>(yr[e]);
       }
       if (!(part & PUT_X)) return;
-      T v = xr[e];
+      T v = widen<T>(xr[e]);
       if constexpr (Rows::XBULK) {
         long long o, stop;
         xspan(r, rr, o, stop);
         const long long g = lines.template base<N>(r, nullptr, rr) + z;
-        const long long at = g * (long long)sizeof(T);
-        v = at + (long long)sizeof(T) > stop
+        const long long at = g * (long long)sizeof(S);
+        v = widen<T>(at + (long long)sizeof(S) > stop
                 ? x1[g]
-                : *reinterpret_cast<const T*>(xa + rr * xslot + (at - o));
+                : *reinterpret_cast<const S*>(xa + rr * xslot + (at - o)));
       }
       const int cl = z / P, kk = z - cl * P;
       if (cl < n) u[cl * NNN + rr * N + kk] = v;
       if (kk == 0 && cl > 0) u[(cl - 1) * NNN + rr * N + P] = v;
     });
     if (!(part & PUT_REST)) return;
-    if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = cr;
+    if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = widen<T>(cr);
     if (q + 1 < total && tid < ROW) row(q + 1)[tid] = rowr;
     if (Rows::IDS && q + 1 < total && tid < NN) rid(q + 1)[tid] = idr;
   };
@@ -479,11 +511,11 @@ __device__ __forceinline__ void pencil_walk(
       if (more && z == len - 1)
         yb[(b ^ 1) * rows + rr * lmax] = v;
       else
-        y[lines.template base<N>(r, rq, rr) + z] = v;
+        y[lines.template base<N>(r, rq, rr) + z] = narrow<S>(v);
     });
   };
 
-  for (int s = tid; s < NN; s += nthreads) Ds[s] = D[s];
+  for (int s = tid; s < NN; s += nthreads) Ds[s] = widen<T>(D[s]);
   Geo::load(gb, Q, cpb, tid, nthreads);
   if (tid < ROW) row(0)[tid] = table(0)[tid];
   if (Rows::IDS && tid < NN) rid(0)[tid] = table_ids(0)[tid];
@@ -554,10 +586,11 @@ __device__ __forceinline__ void pencil_walk(
     if (q + 1 < total && !drain) fetch(q + 1);
 
     // the body, adding into the chunk's y buffer: even cells, then odd
-    T* Gc = reinterpret_cast<T*>(stage + (cell0 * CB - off)) + lc * Geo::CELL;
+    S* Gc = reinterpret_cast<S*>(stage + (cell0 * CB - off)) + lc * Geo::CELL;
     const auto cell = geo.cell(Gc, lc);
     cell_apply<T, N, false, Geo::BODY>(
-        x1, x2, T(1), T(0), cell.metric, Ds, u, cell.f1, cell.f2,
+        static_cast<const T*>(nullptr), static_cast<const T*>(nullptr), T(1),
+        T(0), cell.metric, Ds, u, cell.f1, cell.f2,
         yb + b * rows, active, ZLine{j * lmax + lc * P + k, N * lmax},
         n > 1 ? (lc & 1) : 0, n > 1 ? 2 : 1);
     if (drain) {
@@ -580,9 +613,12 @@ __device__ __forceinline__ void pencil_walk(
 }
 
 #define FUSTPU_PENCIL_PARAMS                                                 \
-  const T *__restrict__ x1, const T *__restrict__ x2,                       \
-      const T *__restrict__ C, const T *__restrict__ G,                     \
-      const T *__restrict__ D, const T *__restrict__ Q, T *__restrict__ y,  \
+  const typename Geo::Store *__restrict__ x1,                               \
+      const typename Geo::Store *__restrict__ x2,                           \
+      const typename Geo::Store *__restrict__ C,                            \
+      const typename Geo::Store *__restrict__ G,                            \
+      const typename Geo::Store *__restrict__ D, const T *__restrict__ Q,   \
+      typename Geo::Store *__restrict__ y,                                  \
       const long long *__restrict__ chunks, long long first, int pencils,   \
       int per_pencil, int stages, int stage_bytes, long long seg0,          \
       Rows lines
@@ -644,6 +680,7 @@ int launch_classes(const void* x1, const void* x2, const void* C,
                    const void* chunks, const long long* classes, int nclass,
                    int blocks, int cpb, int stages, int stage_bytes, int smem,
                    Rows lines, cudaStream_t stream) {
+  using S = typename Geo::Store;
   cudaError_t err = allow_smem<T, N, PAIR, Rows, Geo>();
   if (err != cudaSuccess) return (int)err;
   const dim3 block(N * N, cpb);
@@ -655,10 +692,10 @@ int launch_classes(const void* x1, const void* x2, const void* C,
     const unsigned grid = (unsigned)(pencils < blocks ? pencils : blocks);
     const auto kernel = kernel_of<T, N, PAIR, Rows, Geo>();
     kernel<<<grid, block, smem, stream>>>(
-        static_cast<const T*>(x1), static_cast<const T*>(x2),
-        static_cast<const T*>(C), static_cast<const T*>(G),
-        static_cast<const T*>(D), static_cast<const T*>(Q),
-        static_cast<T*>(y),
+        static_cast<const S*>(x1), static_cast<const S*>(x2),
+        static_cast<const S*>(C), static_cast<const S*>(G),
+        static_cast<const S*>(D), static_cast<const T*>(Q),
+        static_cast<S*>(y),
         static_cast<const long long*>(chunks), first, (int)pencils, per_pencil,
         stages, stage_bytes, seg0, lines);
     seg0 += pencils;

@@ -15,12 +15,39 @@
 // the line of N nodes along i.  The own line of u and the x-gradient stay
 // in registers; u and the two cross-line metric-transformed gradients are
 // shared (3 N^3 values per cell).  Accumulators take the template type.
+//
+// Storage and arithmetic: the G-stream kernels (stiffness_pencil.cuh,
+// indexed_chunk.cu) may keep their fields, G, D and C in a narrower
+// storage type S than the type T they compute in (bfloat16 storage, float
+// arithmetic and accumulators): `widen` reads a stored value into T,
+// `narrow` rounds a result to S (round to nearest even).  With S == T
+// both are the identity, and float32 and float64 keep S == T.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fustpu {
+
+template <typename T, typename S>
+__device__ __forceinline__ T widen(S v) {
+  return static_cast<T>(v);
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename S, typename T>
+__device__ __forceinline__ S narrow(T v) {
+  return static_cast<S>(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // Cells per block: enough to fill ~256 threads at small N, bounded by the
 // 48 KB static shared memory (Ds and FIXED bytes per block, plus 3 N^3
@@ -56,23 +83,32 @@ struct GStream {
 };
 
 // The same metric read from the cell's 6 x N^3 block of G as a bulk copy
-// left it in shared memory (stiffness_pencil.cuh, indexed_chunk.cu): the
-// numbers and the arithmetic of GStream.  Not restrict: the kernels let the
-// body's f1, f2 overwrite components 0 and 1 of a node once the node's six
-// are read (by the one thread that reads them), and STAGED_STORE its sum
-// component 2 (`put`).
-template <typename T, int N>
+// left it in shared memory (stiffness_pencil.cuh, indexed_chunk.cu), stored
+// in S and widened to T: the numbers and the arithmetic of GStream.  Not
+// restrict: with S == T the kernels let the body's f1, f2 overwrite
+// components 0 and 1 of a node once the node's six are read (by the one
+// thread that reads them), and STAGED_STORE its sum component 2 (`put`).
+// In a narrower S a T value does not fit a node's slot, so f1, f2 live
+// apart and the sums go, as T, over the cell's first components (T slot n
+// spans sizeof(T) / sizeof(S) values of S), once the body's barrier after
+// its metric reads has passed: SUM_AT is where the sums start in the
+// cell's block and CELL_T the block's length, both in T.
+template <typename T, int N, typename S = T>
 struct GShared {
-  T* Gc;
+  static constexpr int NNN = N * N * N;
+  static constexpr bool WIDE = sizeof(S) < sizeof(T);
+  static constexpr int SUM_AT = WIDE ? 0 : 2 * NNN;
+  static constexpr int CELL_T = 6 * NNN * (int)sizeof(S) / (int)sizeof(T);
+  S* Gc;
   __device__ __forceinline__ void put(int n, T v) const {
-    Gc[2 * N * N * N + n] = v;
+    reinterpret_cast<T*>(Gc)[SUM_AT + n] = v;
   }
   __device__ __forceinline__ void operator()(int, int n, T wx, T wy, T wz,
                                              T& f0, T& f1, T& f2) const {
-    constexpr int NNN = N * N * N;
-    const T g0 = Gc[n], g1 = Gc[NNN + n], g2 = Gc[2 * NNN + n];
-    const T g3 = Gc[3 * NNN + n], g4 = Gc[4 * NNN + n];
-    const T g5 = Gc[5 * NNN + n];
+    const T g0 = widen<T>(Gc[n]), g1 = widen<T>(Gc[NNN + n]);
+    const T g2 = widen<T>(Gc[2 * NNN + n]), g3 = widen<T>(Gc[3 * NNN + n]);
+    const T g4 = widen<T>(Gc[4 * NNN + n]);
+    const T g5 = widen<T>(Gc[5 * NNN + n]);
     f0 = g0 * wx + g1 * wy + g2 * wz;
     f1 = g1 * wx + g3 * wy + g4 * wz;
     f2 = g2 * wx + g4 * wy + g5 * wz;

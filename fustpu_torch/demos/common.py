@@ -21,10 +21,17 @@ from fustpu_torch.utils import io as fio
 from fustpu_torch.utils import timing
 
 
+# the JAX package's --dtype names
+DTYPES = ["f32", "f64", "bf16"]
+
+
 def add_device_args(p: argparse.ArgumentParser,
                     dtype: str = "f32") -> argparse.ArgumentParser:
-    """--dtype and --device, shared by every demo."""
-    p.add_argument("--dtype", choices=["f32", "f64"], default=dtype)
+    """--dtype and --device, shared by every demo.  bf16 stores the state,
+    G and the diagonals in bfloat16 and runs the bfloat16 forms of the
+    G-stream kernels (#1 / #2, #6, #11; the corner and engine routes
+    refuse it)."""
+    p.add_argument("--dtype", choices=DTYPES, default=dtype)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda = the H100 path (CUDA kernels); cpu = the "
                         "plain torch path (small verification runs)")
@@ -91,7 +98,8 @@ def demo_argparser(**defaults) -> argparse.ArgumentParser:
 
 
 def pick_dtype(name: str) -> torch.dtype:
-    return {"f32": torch.float32, "f64": torch.float64}[name]
+    return {"f32": torch.float32, "f64": torch.float64,
+            "bf16": torch.bfloat16}[name]
 
 
 def check_device(args) -> None:

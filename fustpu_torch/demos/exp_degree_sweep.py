@@ -46,11 +46,11 @@ def parser() -> argparse.ArgumentParser:
 
 
 def bound_ms(mesh, itemsize: int) -> float:
-    """The least time of one apply at the published peaks: G and x read, y
-    read and written once (bytes), or 2 x 3 derivative sums of n products
+    """The least time of one apply at the published peaks: G and x read
+    once, y written once (bytes), or 2 x 3 derivative sums of n products
     each way, 15 for the metric and 1 for the add a node (operations)."""
     n = mesh.degree + 1
-    nbytes = (mesh.num_cells * n**3 * 6 + 3 * mesh.ndofs) * itemsize
+    nbytes = (mesh.num_cells * n**3 * 6 + 2 * mesh.ndofs) * itemsize
     flops = mesh.num_cells * n**3 * (12 * n + 16)
     return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S) * 1e3
 

@@ -25,7 +25,7 @@ correctness run only).
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its turns, the rate over the apply's least bytes (G, each input
-field and the pair coefficients read once, y read and written once, and
+field and the pair coefficients read once, y written once, and
 the row ids or the dofmap once) and the share of the bound (those bytes
 at the H100's published 3.35 TB/s), the kernels against each other and
 against the plain version (rel-l2), each new kernel's schedule, the bytes
@@ -84,11 +84,11 @@ def parser() -> argparse.ArgumentParser:
 
 def least_bytes(G: torch.Tensor, ndofs: int, fields: int,
                 index_bytes: int) -> int:
-    """G, each input field and the pair coefficients read once, y read and
-    written once, and the index data (row ids or dofmap) once."""
+    """G, each input field and the pair coefficients read once, y written
+    once, and the index data (row ids or dofmap) once."""
     b = G.element_size()
     pair = G.shape[0] * 2 * b if fields == 2 else 0
-    return G.numel() * b + (fields + 2) * ndofs * b + pair + index_bytes
+    return G.numel() * b + (fields + 1) * ndofs * b + pair + index_bytes
 
 
 def chunk_bytes(op: ci.IndexedCellStiffness, sched: ci.ChunkSchedule,

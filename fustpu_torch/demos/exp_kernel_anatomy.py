@@ -102,10 +102,10 @@ def sweep(op, x, names, costs, chain: int, reps: int) -> dict:
 
 def pair_cost(op: cs.CellStiffness, ndofs: int) -> tuple[int, int]:
     """(least bytes, operations) of #2: G, both fields and (c1, c2) read
-    once, y read and written once; 3 more operations a node to combine."""
+    once, y written once; 3 more operations a node to combine."""
     cells, _, nnn = op.G.shape
     b = op.G.element_size()
-    nbytes = op.G.numel() * b + 4 * ndofs * b + op.C.numel() * b
+    nbytes = op.G.numel() * b + 3 * ndofs * b + op.C.numel() * b
     return nbytes, cells * nnn * (12 * (op.P + 1) + 19)
 
 

@@ -14,9 +14,10 @@ memory layout as a first-order performance knob):
     python -m fustpu_torch.demos.exp_kernel_speed f32 4 2
         [dtype] [degree] [elements/wavelength] [--device cpu]
 
-Counterpart of ``demos/exp_kernel_speed.py`` (its bf16 waits for the
-port's bf16 state, ROADMAP Queue 1 #10); the box is 10 wavelengths a side,
-max(10 x epw, 4) cells.  Prints ms and GDOF/s of each and the rel-l2 of
+Counterpart of ``demos/exp_kernel_speed.py`` (bf16: `auto` is #1's
+bfloat16 form, `mm` and `indexed` compute in float32 and round once, and
+`windows` runs its einsums on bfloat16 tensors); the box is 10 wavelengths
+a side, max(10 x epw, 4) cells.  Prints ms and GDOF/s of each and the rel-l2 of
 each pair of formulations.
 """
 
@@ -28,7 +29,8 @@ import itertools
 import numpy as np
 import torch
 
-from fustpu_torch.demos.common import check_device, clock, pick_dtype, rel_l2
+from fustpu_torch.demos.common import (DTYPES, check_device, clock,
+                                       pick_dtype, rel_l2)
 from fustpu_torch.mesh.box import build_box_mesh
 from fustpu_torch.models.discretization import (Discretization,
                                                 StructuredStiffness,
@@ -43,7 +45,7 @@ from fustpu_torch.utils.benchmarks import time_apply
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("dtype", nargs="?", default="f32", choices=["f32", "f64"])
+    p.add_argument("dtype", nargs="?", default="f32", choices=DTYPES)
     p.add_argument("degree", nargs="?", type=int, default=4)
     p.add_argument("epw", nargs="?", type=float, default=2.0,
                    help="elements per wavelength")
@@ -52,7 +54,8 @@ def parser() -> argparse.ArgumentParser:
 
 
 def formulations(mesh, dtype: torch.dtype, device) -> tuple:
-    """(x, {name: apply()}) of the four formulations on `mesh`."""
+    """(x, {name: apply()}) of the four formulations on `mesh`, and the
+    launch counter `auto` moves (None for the plain version)."""
     disc = Discretization(mesh)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     op = disc.stiffness_op(dtype, device)
@@ -65,7 +68,7 @@ def formulations(mesh, dtype: torch.dtype, device) -> tuple:
     ones = torch.ones(mesh.nc, dtype=dtype, device=device)
     dofmap = torch.as_tensor(mesh.dofmap, device=device)
     x = t(np.random.default_rng(0).standard_normal(mesh.grid_shape))
-    return x, {
+    return x, auto.kernel, {
         "auto": lambda: auto(x),
         "mm": lambda: mm.stiffness_apply_mm(mm_op, x),
         "windows": lambda: ops.stiffness_apply(x, G_s, ones, D, mesh.degree),
@@ -83,9 +86,8 @@ def main(argv=None) -> dict:
     nc = max(int(10 * args.epw), 4)
     mesh = build_box_mesh((nc,) * 3, args.degree)
     print(f"mesh {nc}^3, degree {args.degree}, dofs {mesh.ndofs}")
-    x, forms = formulations(mesh, dtype, dev)
-    out = {"ms": {}, "rel": {},
-           "kernel": "stiffness" if dev.type == "cuda" else None}
+    x, kernel, forms = formulations(mesh, dtype, dev)
+    out = {"ms": {}, "rel": {}, "kernel": kernel}
     for name, f in forms.items():
         mean, std = time_apply(lambda _, __, f=f: f(), None, x, chain=20,
                                reps=5)

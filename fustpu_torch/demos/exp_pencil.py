@@ -5,11 +5,11 @@ fields: parity-class, pencil, pencil, parity-class.  Runs on the card
 unless --device cpu is given (the plain versions, a correctness run only).
 
     python -m fustpu_torch.demos.exp_pencil [--nc 64 40 40] [--degree 4]
-        [--corner [--sweep]]
+        [--corner] [--sweep]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its two turns, the rate over the apply's least bytes (G, each
-input field and the pair coefficients read once, y read and written once)
+input field and the pair coefficients read once, y written once)
 and the share of the bound (those bytes at the H100's published 3.35
 TB/s), the two kernels against each other and against the plain version
 (rel-l2), and the pencil kernel's schedule (cells a chunk, stages, blocks
@@ -23,7 +23,10 @@ of its byte and operation bounds (``exp_imported.compare_corner``).
 `--corner --sweep` then times the walk on the card under every cells a
 chunk that its kernel takes, single and pair, float32 and float64, and
 prints the schedule's choice (``cuda_stiffness.pencil_schedule``) beside
-the fastest.
+the fastest; `--sweep` without --corner does the same for the G stream's
+#1 and #2 in float32 and bfloat16 (whose stages hold half the bytes a
+cell, so that its cost model, fitted on float32 times, may choose
+otherwise than the times).
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--corner", action="store_true",
                    help="#3, the corner forms, in place of #1 and #2")
     p.add_argument("--sweep", action="store_true",
-                   help="with --corner: the walk under every cells a chunk")
+                   help="the walk under every cells a chunk (#3 with "
+                        "--corner; #1 / #2 in float32 and bfloat16 else)")
     return p
 
 
@@ -101,12 +105,54 @@ def sweep_corner(disc, dev, chain: int = 20, reps: int = 3) -> dict:
     return out
 
 
+def sweep_gstream(op: cs.CellStiffness, xs, dev, chain: int = 20,
+                  reps: int = 3) -> dict:
+    """#1 (single) and #2 (pair: `op` with C) of the float32 operator `op`
+    and of its bfloat16 cast timed under every cells a chunk that the
+    kernel takes, on the fields `xs`; prints each time and the schedule's
+    choice beside the fastest.  Returns by (form, dtype) the chosen cpb and
+    the (cpb, blocks an SM, ms) rows."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        o = op._replace(**{k: v.to(dtype) for k, v in op._asdict().items()
+                           if isinstance(v, torch.Tensor)})
+        a = [x.to(dtype) for x in xs]
+        for form, fn in (("single", cs.stiffness),
+                         ("pair", cs.stiffness_pair)):
+            pair = form == "pair"
+            oo = o if pair else o._replace(C=None)
+            args = a if pair else a[:1]
+            chosen = cs.card_schedule(oo, args[0], pair).cpb
+            rows = []
+            for cpb in range(1, cs.MAX_THREADS // (op.P + 1) ** 2 + 1):
+                try:
+                    s = cs._card_schedule(tuple(op.nc), op.P, dtype, pair,
+                                          args[0].device, cpb=cpb)[0]
+                except ValueError:       # beyond the kernel's bounds
+                    continue
+                ms = time_apply(lambda _, __, c=cpb: fn(oo, *args, cpb=c),
+                                None, args[0], chain=chain,
+                                reps=reps)[0] * 1e3
+                rows.append((cpb, s.blocks_per_sm, ms))
+                print(f"sweep #{2 if pair else 1} {form} {str(dtype)[6:]}: "
+                      f"{cpb} cells a chunk, {s.blocks_per_sm} blocks an SM:"
+                      f" {ms:.4f} ms", flush=True)
+            best = min(rows, key=lambda r: r[2])
+            mine = next(r for r in rows if r[0] == chosen)
+            print(f"sweep #{2 if pair else 1} {form} {str(dtype)[6:]} "
+                  f"P={op.P}: the schedule's {chosen} cells {mine[2]:.4f} "
+                  f"ms, the fastest {best[0]} cells {best[2]:.4f} ms "
+                  f"({mine[2] / best[2]:.4f}x)", flush=True)
+            out[form, dtype] = dict(chosen=chosen, rows=rows)
+    return out
+
+
 def least_bytes(op: cs.CellStiffness, ndofs: int, fields: int) -> int:
-    """G, each input field and the pair coefficients read once, y read and
-    written once."""
+    """G, each input field and the pair coefficients read once, y written
+    once."""
     b = op.G.element_size()
     pair = op.C.numel() * b if fields == 2 else 0
-    return op.G.numel() * b + (fields + 2) * ndofs * b + pair
+    return op.G.numel() * b + (fields + 1) * ndofs * b + pair
 
 
 def main(argv=None) -> dict:
@@ -180,6 +226,8 @@ def main(argv=None) -> dict:
               flush=True)
         out[form] = dict(op=op, xs=xs, ys=ys, plain=plain, times=times,
                          nbytes=nbytes)
+    if args.sweep and dev.type == "cuda":
+        out["sweep"] = sweep_gstream(forms["pair"]["op"], (x1, x2), dev)
     if dev.type == "cuda":
         for form, f in forms.items():
             s = cs.card_schedule(f["op"], x1, form == "pair")

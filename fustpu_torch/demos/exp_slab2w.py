@@ -15,8 +15,9 @@ class-launch one (one pair of cells a block); ``both`` times them in turns
 
 Prints each kernel's cross-check against #1 (rel-l2), its ms per apply
 in each turn (median of --reps runs of --chain applies), GDOF/s and, on
-the card, its share of the bound (the least bytes at 3.35 TB/s), and each
-design's schedule and class counts.
+the card, its share of the bound (the least bytes, G and x read once and
+y written once, at 3.35 TB/s), and each design's schedule and class
+counts.
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def main(argv=None) -> dict:
            "far": s2.with_pairing(op, far=True)}
     x = t(np.random.default_rng(0).standard_normal(mesh.grid_shape))
     b = op.G.element_size()
-    nbytes = op.G.numel() * b + 3 * mesh.ndofs * b
+    nbytes = op.G.numel() * b + 2 * mesh.ndofs * b
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
     print(f"mesh {nc} cells, P={P}, dofs {mesh.ndofs}, {args.dtype}, "
           f"{args.device}, design {args.design}")

@@ -6,10 +6,11 @@ apply's least bytes and whether they fit in the card's L2 (then the rate
 is a warm one), and #1 against its plain version (``ops.spectral_mm``).
 
     python -m fustpu_torch.demos.time_operators [--nc 32]
-        [--degrees 2 3 4 5 6] [--dtype f32|f64] [--reps 5] [--device cpu]
+        [--degrees 2 3 4 5 6] [--dtype f32|f64|bf16] [--reps 5]
+        [--device cpu]
 
-Counterpart of ``demos/time_operators.py``; its bf16 waits for the port's
-bf16 state (ROADMAP Queue 1 #10).  The mass apply is one
+Counterpart of ``demos/time_operators.py`` (bf16: #1's bfloat16 form,
+its least bytes at 2 bytes a value).  The mass apply is one
 multiply by the assembled diagonal: ~2.1M values at 32^3, P=4, which the
 card streams in microseconds, so its time is bounded by the enqueue.
 """
@@ -28,10 +29,7 @@ from fustpu_torch.utils import benchmarks as B
 
 
 def parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="--dtype takes f32 or f64: the JAX demo's bf16 waits for the "
-               "port's bf16 state (ROADMAP Queue 1 #10).")
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nc", type=int, default=32)
     p.add_argument("--degrees", type=int, nargs="+", default=[4])
     p.add_argument("--reps", type=int, default=5)

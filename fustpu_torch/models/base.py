@@ -56,7 +56,7 @@ class WaveModelBase(nn.Module):
         self.source = source
         self.dtype = dtype
         self.impl = resolve_stiffness_impl(stiffness_impl, self.device,
-                                           mesh)
+                                           mesh, dtype)
         self.uniform = material.is_uniform
         # shape of per-cell fields: the cell grid, or the cell list
         self.cell_shape = (mesh.nc if hasattr(mesh, "nc")

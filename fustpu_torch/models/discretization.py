@@ -292,7 +292,8 @@ class Discretization:
                                 C=C)
 
 
-def resolve_stiffness_impl(impl: str, device, mesh=None) -> str:
+def resolve_stiffness_impl(impl: str, device, mesh=None,
+                           dtype: torch.dtype | None = None) -> str:
     """'auto' is the CUDA kernel on a CUDA device and the plain torch
     version elsewhere; 'mm' forces the plain version (on any mesh kind).
     The corner-mode names (CORNER_IMPLS), ENGINE_IMPL and INDEXED_IMPL
@@ -304,7 +305,20 @@ def resolve_stiffness_impl(impl: str, device, mesh=None) -> str:
     and 'extruded' as 'mm' on a prismatic import; on a general import
     that package runs its indexed operator for either, which 'auto' is
     here.  It fails for 'extruded' and 'extruded_pallas' on a box mesh,
-    and so do these: they need the `mesh` to resolve."""
+    and so do these: they need the `mesh` to resolve.
+
+    bfloat16 (`dtype`) runs on the G-stream operators only (#1 / #2, #6,
+    #11 and their plain versions): the corner mode on a box or a prismatic
+    import and the staged engine have no bfloat16 form yet, and their
+    names fail for it, on either device."""
+    if dtype == torch.bfloat16 and (
+            impl == ENGINE_IMPL or impl in CORNER_IMPLS and (
+                mesh is None or hasattr(mesh, "nc")
+                or isinstance(mesh, ExtrudedHexMesh))):
+        raise ValueError(
+            f"stiffness_impl={impl!r} has no bfloat16 form yet (ROADMAP.md, "
+            "Queue 1 #10: the corner and engine routes' bf16); bfloat16 "
+            "runs on 'auto', 'indexed' and 'mm'")
     if impl == "mm":
         return "mm"
     if impl in (EXTRUDED_PLAIN_IMPL, "extruded_pallas"):
@@ -321,6 +335,12 @@ def resolve_stiffness_impl(impl: str, device, mesh=None) -> str:
                          f"{CORNER_IMPLS} or of the JAX package's "
                          f"{KERNEL_IMPLS + (EXTRUDED_PLAIN_IMPL,)}")
     return "cuda" if torch.device(device).type == "cuda" else "mm"
+
+
+def bf16_name(kernel: str, G: torch.Tensor) -> str:
+    """The launch counter of a G-stream kernel for operator data G: its
+    bfloat16 form's (`kernel`_bf16) on bfloat16 data."""
+    return kernel + ("_bf16" if G.dtype == torch.bfloat16 else "")
 
 
 class StructuredStiffness(nn.Module):
@@ -354,7 +374,8 @@ class StructuredStiffness(nn.Module):
         """The launch counter that an apply moves (None for 'mm')."""
         if self.impl != "cuda":
             return None
-        return "stiffness_pair" if self.is_pair else "stiffness"
+        return bf16_name("stiffness_pair" if self.is_pair else "stiffness",
+                         self.G)
 
     @property
     def cell_op(self) -> cs.CellStiffness:
@@ -408,7 +429,8 @@ class ExtrudedStiffness(nn.Module):
         """The launch counter that an apply moves (None for 'mm')."""
         if self.impl != "cuda":
             return None
-        return "extruded_pair" if self.is_pair else "extruded"
+        return bf16_name("extruded_pair" if self.is_pair else "extruded",
+                         self.G)
 
     @property
     def cell_op(self) -> ce.ExtrudedCellStiffness:
@@ -463,7 +485,8 @@ class IndexedStiffness(nn.Module):
         """The launch counter that an apply moves (None for 'mm')."""
         if self.impl != "cuda":
             return None
-        return "indexed_pair" if self.is_pair else "indexed"
+        return bf16_name("indexed_pair" if self.is_pair else "indexed",
+                         self.G)
 
     @property
     def cell_op(self) -> ci.IndexedCellStiffness:
@@ -623,8 +646,9 @@ class EngineStiffness(nn.Module):
 
 def launch_counts() -> dict:
     """Every stiffness kernel's launch counter, by name (a copy)."""
-    return {**cs.launches, **ce.launches, **ce.class_launches,
-            **ci.launches, **ci.class_launches, **cc.launches,
+    return {**cs.launches, **cs.bf16_launches, **ce.launches,
+            **ce.class_launches, **ce.bf16_launches, **ci.launches,
+            **ci.class_launches, **ci.bf16_launches, **cc.launches,
             **cc.class_launches,
             **cen.launches, **cen.comparison_launches}
 

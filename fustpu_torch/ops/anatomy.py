@@ -232,17 +232,17 @@ def variant_plain(op: cs.CellStiffness, x: torch.Tensor,
 def variant_cost(op: cs.CellStiffness, ndofs: int,
                  name: str) -> tuple[int, int]:
     """(least bytes, operations) of one apply of variant `name`: full and
-    ywin G, x and y once (y read and written), per node 2 x 3 derivative
+    ywin G and x read once and y written once, per node 2 x 3 derivative
     sums of n products, 15 for the metric and 1 for the add; gstream the
     same bytes, per node the metric and its sum (17) and the add; contract
     x and y only, per node 2 of the 3 derivative pairs and the add."""
     cells, _, nnn = op.G.shape
     n, b = op.P + 1, op.G.element_size()
-    nbytes = op.G.numel() * b + 3 * ndofs * b
+    nbytes = op.G.numel() * b + 2 * ndofs * b
     if name == "gstream":
         return nbytes, cells * nnn * 18
     if name == "contract":
-        return 3 * ndofs * b, cells * nnn * (8 * n + 1)
+        return 2 * ndofs * b, cells * nnn * (8 * n + 1)
     return nbytes, cells * nnn * (12 * n + 16)
 
 

@@ -231,8 +231,8 @@ def corner_pair_plain(op: CornerCellStiffness, x1: torch.Tensor,
 def apply_cost(op: CornerCellStiffness, ndofs: int, fields: int,
                extra: int = 0) -> tuple[int, int]:
     """(least bytes, operations) of one apply of `op`: the channels, each
-    input field and the pair coefficients read once, y read and written
-    once, plus `extra` bytes (row ids); per node the sum factorisation
+    input field and the pair coefficients read once, y written once,
+    plus `extra` bytes (row ids); per node the sum factorisation
     (2 x 3 derivative sums of n products each way and the add, 3 more to
     combine a pair) and the metric rebuilt in registers (J by Horner in x,
     the adjugate, det, |det| and the scale, t = a^T w and f = scale a t:
@@ -244,7 +244,7 @@ def apply_cost(op: CornerCellStiffness, ndofs: int, fields: int,
     cells, nch1 = op.T.shape
     n = op.D.shape[0]
     b = op.T.element_size()
-    nbytes = op.T.numel() * b + (fields + 2) * ndofs * b + extra
+    nbytes = op.T.numel() * b + (fields + 1) * ndofs * b + extra
     if fields == 2:
         nbytes += cells * 2 * b
     metric = 98 if op.geom_deg == 2 else 80

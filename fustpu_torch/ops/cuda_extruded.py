@@ -37,6 +37,12 @@ the einsum formulation of ``fustpu_torch.ops.extruded`` on the same data).
 Given CUDA tensors it launches the kernel or raises: there is no fallback.
 Each wrapper counts its applies in `launches` (one per apply, whatever the
 class count).
+
+The stack kernel also comes in bfloat16 (the JAX package's ``--dtype
+bf16``: fields, G, D and C stored in bfloat16, computed in float32, y
+rounded where it is stored; ``stiffness_pencil.cuh``), counted in
+`bf16_launches`; its plain version computes in float32 and rounds once.
+The class-launch design has float32 and float64 only.
 """
 
 from __future__ import annotations
@@ -56,10 +62,12 @@ from fustpu_torch.ops import spectral_mm as mm
 # the main path's, and the class-launch design's.
 launches = {"extruded": 0, "extruded_pair": 0}
 class_launches = {"extruded_classes": 0, "extruded_classes_pair": 0}
+# the stack kernel's bfloat16 form (``cuda_stiffness.count``)
+bf16_launches = {"extruded_bf16": 0, "extruded_pair_bf16": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, class_launches):
+    for counts in (launches, class_launches, bf16_launches):
         for k in counts:
             counts[k] = 0
 
@@ -357,7 +365,8 @@ class StackPlan:
             query = getattr(_build.load(), OCCUPANCY[geo])
 
             def occupancy(P, itemsize, pair, cpb, smem):
-                got = query(P, int(itemsize == 8), int(pair), cpb, smem)
+                got = query(P, cs.TYPE_CODE[itemsize], int(pair), cpb,
+                            smem)
                 if got < 0:
                     raise RuntimeError(f"stack kernel occupancy query "
                                        f"failed: error {-got}")
@@ -471,17 +480,19 @@ def extruded_pair_plain(op: ExtrudedCellStiffness, x1: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the class-launch design's types (the main path's: cs.SUFFIX)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check(op: ExtrudedCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
+def _check(op: ExtrudedCellStiffness, *xs: torch.Tensor, pair: bool,
+           types: dict = cs.SUFFIX) -> None:
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"extruded kernel: tensor on {x.device}, "
                          "expected a CUDA device")
-    if x.dtype not in _SUFFIX:
+    if x.dtype not in types:
         raise ValueError(f"extruded kernel: dtype {x.dtype} unsupported "
-                         "(float32 or float64)")
+                         f"({', '.join(map(str, types))})")
     if not 2 <= op.P <= 10:
         raise ValueError(f"extruded kernel: degree {op.P} outside 2..10")
     if op.plan is None:
@@ -531,7 +542,7 @@ def _launch_stack(name: str, op: ExtrudedCellStiffness, xs, extra,
                                                x.device, segments, cpb)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     fn = getattr(_build.load(), f"fustpu_extruded_stack"
-                 f"{'_pair' if len(xs) == 2 else ''}_{_SUFFIX[x.dtype]}")
+                 f"{'_pair' if len(xs) == 2 else ''}_{cs.SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(),
@@ -541,7 +552,7 @@ def _launch_stack(name: str, op: ExtrudedCellStiffness, xs, extra,
                  op.nz, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    launches[name] += 1
+    cs.count(launches, bf16_launches, name, x.dtype)
     return y
 
 
@@ -596,7 +607,7 @@ def extruded_classes(op: ExtrudedCellStiffness,
     CPU tensor)."""
     if x.device.type == "cpu":
         return extruded_plain(op, x)
-    _check(op, x, pair=False)
+    _check(op, x, pair=False, types=_SUFFIX)
     return _launch_classes("extruded_classes", op, (x,), ())
 
 
@@ -606,6 +617,6 @@ def extruded_classes_pair(op: ExtrudedCellStiffness, x1: torch.Tensor,
     for CPU tensors)."""
     if x1.device.type == "cpu":
         return extruded_pair_plain(op, x1, x2)
-    _check(op, x1, x2, pair=True)
+    _check(op, x1, x2, pair=True, types=_SUFFIX)
     return _launch_classes("extruded_classes_pair", op, (x1, x2),
                            (op.C.data_ptr(),))

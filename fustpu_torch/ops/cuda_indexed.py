@@ -36,6 +36,14 @@ version (`indexed_plain` / `indexed_pair_plain`,
 ``fustpu_torch.ops.indexed`` on the same data).  Given CUDA tensors it
 launches the kernel or raises: there is no fallback.  Each wrapper counts
 its applies in `launches` (one per apply, whatever the class count).
+
+The chunk kernel also comes in bfloat16 (the JAX package's ``--dtype
+bf16``: fields, G, D and C stored in bfloat16, computed in float32, each
+unique dof's sum over a chunk in float32, rounded where y is stored, and
+again by each later colour class that adds to the dof, once per class
+that touches it; ``indexed_chunk.cu``), counted in `bf16_launches`; its plain version
+computes in float32 and rounds once.  The class-launch design has float32
+and float64 only.
 """
 
 from __future__ import annotations
@@ -54,10 +62,12 @@ from fustpu_torch.ops import indexed as idx
 # the main path's, and the class-launch design's.
 launches = {"indexed": 0, "indexed_pair": 0}
 class_launches = {"indexed_classes": 0, "indexed_classes_pair": 0}
+# the chunk kernel's bfloat16 form (``cuda_stiffness.count``)
+bf16_launches = {"indexed_bf16": 0, "indexed_pair_bf16": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, class_launches):
+    for counts in (launches, class_launches, bf16_launches):
         for k in counts:
             counts[k] = 0
 
@@ -201,19 +211,23 @@ def chunk_smem(P: int, itemsize: int, cpb: int, maxu: int,
                pair: bool = False) -> tuple[int, int]:
     """(bytes a stage, dynamic shared bytes a block) of the chunk kernel:
     the stages' mbarriers and a ring of CHUNK_RING table rows (each padded
-    to 16 B), the stages (cpb cells of G and 16 B of slack; the cells'
-    node sums go into G's component 2 there), the cells' u (n^3 values a
-    cell), two buffers of the earlier y (maxu
-    values), for the pair two of the cells' (c1, c2), a ring of ID_RING
-    chunks' unique ids (maxu int32), two buffers of the inverse map's ends
-    (maxu int16) and two of its positions (cpb n^3 int16): the layout of
-    ``indexed_chunk.cu``, whose D (n^2 values) is static shared memory
-    besides."""
+    to 16 B), the stages (cpb cells of G, stored in `itemsize` bytes a
+    value, and 16 B of slack; the cells' node sums go over G there), the
+    cells' u (n^3 values a cell), two buffers of the earlier y (maxu
+    values), for the pair two of the cells' (c1, c2), in bfloat16
+    (`itemsize` 2) the cells' f1, f2 (2 n^3 values a cell), a ring of
+    ID_RING chunks' unique ids (maxu int32), two buffers of the inverse
+    map's ends (maxu int16) and two of its positions (cpb n^3 int16): the
+    layout of ``indexed_chunk.cu``, values in the arithmetic type
+    (``cuda_stiffness.arith_size``), whose D (n^2 values) is static shared
+    memory besides."""
     nnn = (P + 1) ** 3
     stage = cs._round16(cpb * 6 * nnn * itemsize + 16)
     head = cs._round16(8 * cs.STAGES) + cs._round16(8 * CHUNK_RING * CHUNK_ROW)
     values = cpb * nnn + 2 * maxu + (4 * cpb if pair else 0)
-    return stage, (head + cs.STAGES * stage + values * itemsize
+    if cs.arith_size(itemsize) != itemsize:
+        values += 2 * cpb * nnn
+    return stage, (head + cs.STAGES * stage + values * cs.arith_size(itemsize)
                    + 4 * ID_RING * maxu + 2 * 2 * maxu + 2 * 2 * cpb * nnn)
 
 
@@ -330,7 +344,7 @@ class ChunkPlan:
 
             def occupancy(P, itemsize, pair, cpb, smem):
                 got = lib.fustpu_indexed_chunk_occupancy(
-                    P, int(itemsize == 8), int(pair), cpb, smem)
+                    P, cs.TYPE_CODE[itemsize], int(pair), cpb, smem)
                 if got < 0:
                     raise RuntimeError(f"chunk kernel occupancy query "
                                        f"failed: error {-got}")
@@ -433,17 +447,19 @@ def indexed_pair_plain(op: IndexedCellStiffness, x1: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the class-launch design's types (the main path's: cs.SUFFIX)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check(op: IndexedCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
+def _check(op: IndexedCellStiffness, *xs: torch.Tensor, pair: bool,
+           types: dict = cs.SUFFIX) -> None:
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"indexed kernel: tensor on {x.device}, "
                          "expected a CUDA device")
-    if x.dtype not in _SUFFIX:
+    if x.dtype not in types:
         raise ValueError(f"indexed kernel: dtype {x.dtype} unsupported "
-                         "(float32 or float64)")
+                         f"({', '.join(map(str, types))})")
     if not 2 <= op.P <= 10:
         raise ValueError(f"indexed kernel: degree {op.P} outside 2..10")
     if op.plan is None:
@@ -488,7 +504,7 @@ def _launch_chunks(name: str, op: IndexedCellStiffness, xs, extra,
         op.P, x.dtype, len(xs) == 2, x.device, cpb)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     fn = getattr(_build.load(), f"fustpu_indexed_chunk"
-                 f"{'_pair' if len(xs) == 2 else ''}_{_SUFFIX[x.dtype]}")
+                 f"{'_pair' if len(xs) == 2 else ''}_{cs.SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(),
@@ -498,7 +514,7 @@ def _launch_chunks(name: str, op: IndexedCellStiffness, xs, extra,
                  sched.stage_bytes, sched.smem, sched.maxu, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    launches[name] += 1
+    cs.count(launches, bf16_launches, name, x.dtype)
     return y
 
 
@@ -553,7 +569,7 @@ def indexed_classes(op: IndexedCellStiffness,
     CPU tensor)."""
     if x.device.type == "cpu":
         return indexed_plain(op, x)
-    _check(op, x, pair=False)
+    _check(op, x, pair=False, types=_SUFFIX)
     return _launch_classes("indexed_classes", op, (x,), ())
 
 
@@ -563,6 +579,6 @@ def indexed_classes_pair(op: IndexedCellStiffness, x1: torch.Tensor,
     for CPU tensors)."""
     if x1.device.type == "cpu":
         return indexed_pair_plain(op, x1, x2)
-    _check(op, x1, x2, pair=True)
+    _check(op, x1, x2, pair=True, types=_SUFFIX)
     return _launch_classes("indexed_classes_pair", op, (x1, x2),
                            (op.C.data_ptr(),))

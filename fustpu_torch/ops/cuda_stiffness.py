@@ -33,11 +33,18 @@ cells, which the pencil kernel replaced) is
 ``fustpu_torch.ops.anatomy``'s ``full`` and `full_pair` of its
 ``classes`` design.
 
+Each kernel comes in float32, float64 and bfloat16.  In bfloat16 (the JAX
+package's ``--dtype bf16``) x, y, G, D and C are stored in bfloat16 and
+the kernel computes in float32, rounding y to bfloat16 where it stores it
+(``stiffness_pencil.cuh``); the plain version computes the same in float32
+and rounds once (``fustpu_torch.ops.spectral_mm``).
+
 A wrapper given CPU tensors runs the kernel's plain version
 (`stiffness_plain` / `stiffness_pair_plain`, the matmul formulation of
 ``fustpu_torch.ops.spectral_mm`` on the same data).  Given CUDA tensors it
 launches the kernel or raises: there is no fallback.  Each wrapper counts
-its launches in `launches` (one per apply).
+its launches in `launches` (one per apply), the bfloat16 forms' in
+`bf16_launches`.
 """
 
 from __future__ import annotations
@@ -51,13 +58,26 @@ import torch
 
 from fustpu_torch.ops import spectral_mm as mm
 
-# Applies that went through each kernel (not counting the plain version).
+# Applies that went through each kernel (not counting the plain version),
+# and through its bfloat16 form.
 launches = {"stiffness": 0, "stiffness_pair": 0}
+bf16_launches = {"stiffness_bf16": 0, "stiffness_pair_bf16": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, bf16_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def count(launches: dict, bf16_launches: dict, name: str,
+          dtype: torch.dtype) -> None:
+    """One launch of kernel `name` in `dtype`: its bfloat16 form counts
+    as `name`_bf16 in `bf16_launches`."""
+    if dtype == torch.bfloat16:
+        bf16_launches[f"{name}_bf16"] += 1
+    else:
+        launches[name] += 1
 
 
 class CellStiffness(NamedTuple):
@@ -100,6 +120,19 @@ def upload(a, dtype: torch.dtype, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # The pencil kernel's launch schedule
 # ---------------------------------------------------------------------------
+
+# The G-stream kernels' storage types: their entry points' suffix, and the
+# occupancy queries' type code by bytes a value.  bfloat16 is stored in
+# 2 bytes and computed in float32 (`arith_size`).
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+TYPE_CODE = {4: 0, 8: 1, 2: 2}
+
+
+def arith_size(itemsize: int) -> int:
+    """Bytes of the type a kernel computes in for a storage type of
+    `itemsize` bytes: float32 for bfloat16, the storage type otherwise."""
+    return 4 if itemsize == 2 else itemsize
+
 
 SMEM_BLOCK = 232_448     # shared bytes one block may use (H100)
 SMEM_SM = 233_472        # shared bytes an SM holds
@@ -155,9 +188,11 @@ def pencil_smem(P: int, itemsize: int, cpb: int, pair: bool = False,
     of every cell's u (n^3 values), two of the chunk's y (n^2 (cpb P + 1)
     values), for the pair two of x2 and of the cells' (c1, c2), and what
     the geometry keeps after them: the G stream (channels 0) nothing, its
-    body's f1, f2 going into G's components 0 and 1 in the stage; the
-    corner stream (`channels` a cell) every cell's f1, f2 (2 n^3 values)
-    and the n GLL nodes and weights.  The layout of
+    body's f1, f2 going into G's components 0 and 1 in the stage, but in
+    bfloat16 (`itemsize` 2) every cell's f1, f2 (2 n^3 values); the
+    corner stream (`channels` a cell) every cell's f1, f2 and the n GLL
+    nodes and weights.  The stream is stored in `itemsize` bytes a value,
+    the rest in the arithmetic type (`arith_size`).  The layout of
     ``stiffness_pencil.cuh``, whose D (n^2 values) is static shared memory
     besides."""
     n = P + 1
@@ -166,10 +201,12 @@ def pencil_smem(P: int, itemsize: int, cpb: int, pair: bool = False,
     values = 2 * n ** 3 * cpb + 2 * rows + (2 * rows + 4 * cpb if pair else 0)
     if channels:
         values += 2 * n ** 3 * cpb + 2 * n
+    elif arith_size(itemsize) != itemsize:
+        values += 2 * n ** 3 * cpb
     head = _round16(8 * stages) + _round16(8 * ROW_RING * TABLE_ROW)
     if ids:
         head += _round16(4 * ROW_RING * n * n)
-    return stage, head + stages * stage + values * itemsize
+    return stage, head + stages * stage + values * arith_size(itemsize)
 
 
 def bulk_spans(cell0: np.ndarray, ncell: np.ndarray, cell_bytes: int,
@@ -187,9 +224,9 @@ def bulk_spans(cell0: np.ndarray, ncell: np.ndarray, cell_bytes: int,
 
 
 def _static_smem(P: int, itemsize: int) -> int:
-    """The kernel's static shared memory: D, n^2 values, which the compiler
-    rounds up to 128 B."""
-    return -(-(P + 1) ** 2 * itemsize // 128) * 128
+    """The kernel's static shared memory: D, n^2 values of the arithmetic
+    type (`arith_size`), which the compiler rounds up to 128 B."""
+    return -(-(P + 1) ** 2 * arith_size(itemsize) // 128) * 128
 
 
 def model_occupancy(P: int, itemsize: int, pair: bool, cpb: int,
@@ -335,7 +372,7 @@ def _card_schedule(nc: tuple, P: int, dtype: torch.dtype, pair: bool,
     query = getattr(_build.load(), OCCUPANCY[geo])
 
     def occupancy(P, itemsize, pair, cpb, smem):
-        got = query(P, int(itemsize == 8), int(pair), cpb, smem)
+        got = query(P, TYPE_CODE[itemsize], int(pair), cpb, smem)
         if got < 0:
             raise RuntimeError(f"pencil kernel occupancy query failed: "
                                f"error {-got}")
@@ -403,6 +440,8 @@ def stiffness_pair_plain(op: CellStiffness, x1: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the entry points' suffix of the kernels with no bfloat16 form (the
+# anatomy's designs, ``ops/anatomy.py``)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -411,9 +450,9 @@ def _check(op: CellStiffness, *xs: torch.Tensor, pair: bool) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"stiffness kernel: tensor on {x.device}, "
                          "expected a CUDA device")
-    if x.dtype not in _SUFFIX:
+    if x.dtype not in SUFFIX:
         raise ValueError(f"stiffness kernel: dtype {x.dtype} unsupported "
-                         "(float32 or float64)")
+                         "(float32, float64 or bfloat16)")
     if not 2 <= op.P <= 10:
         raise ValueError(f"stiffness kernel: degree {op.P} outside 2..10")
     n = op.P + 1
@@ -436,7 +475,8 @@ def _check(op: CellStiffness, *xs: torch.Tensor, pair: bool) -> None:
             raise ValueError(f"stiffness kernel: {name} is not contiguous")
 
 
-def _launch(name: str, op: CellStiffness, xs, extra) -> torch.Tensor:
+def _launch(name: str, op: CellStiffness, xs, extra,
+            cpb: int | None = None) -> torch.Tensor:
     from fustpu_torch import _build
 
     x = xs[0]
@@ -447,9 +487,9 @@ def _launch(name: str, op: CellStiffness, xs, extra) -> torch.Tensor:
         raise ValueError(f"stiffness kernel: {x.numel()} grid nodes, the "
                          "kernel indexes fewer than 2^31")
     sched, chunks, classes = _card_schedule(tuple(op.nc), op.P, x.dtype,
-                                            len(xs) == 2, x.device)
+                                            len(xs) == 2, x.device, cpb=cpb)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load(), f"fustpu_{name}_{_SUFFIX[x.dtype]}")
+    fn = getattr(_build.load(), f"fustpu_{name}_{SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(),
@@ -459,24 +499,26 @@ def _launch(name: str, op: CellStiffness, xs, extra) -> torch.Tensor:
                  op.nc[2], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    launches[name] += 1
+    count(launches, bf16_launches, name, x.dtype)
     return y
 
 
-def stiffness(op: CellStiffness, x: torch.Tensor) -> torch.Tensor:
+def stiffness(op: CellStiffness, x: torch.Tensor,
+              cpb: int | None = None) -> torch.Tensor:
     """y_grid = A_stiff(x_grid) through the single-field kernel (the plain
-    version for a CPU tensor)."""
+    version for a CPU tensor); `cpb`: cells a chunk in place of the
+    schedule's choice (`pencil_schedule`)."""
     if x.device.type == "cpu":
         return stiffness_plain(op, x)
     _check(op, x, pair=False)
-    return _launch("stiffness", op, (x,), ())
+    return _launch("stiffness", op, (x,), (), cpb)
 
 
-def stiffness_pair(op: CellStiffness, x1: torch.Tensor,
-                   x2: torch.Tensor) -> torch.Tensor:
+def stiffness_pair(op: CellStiffness, x1: torch.Tensor, x2: torch.Tensor,
+                   cpb: int | None = None) -> torch.Tensor:
     """y_grid = A_c1(x1) + A_c2(x2) through the pair kernel (the plain
-    version for CPU tensors)."""
+    version for CPU tensors); `cpb` as for `stiffness`."""
     if x1.device.type == "cpu":
         return stiffness_pair_plain(op, x1, x2)
     _check(op, x1, x2, pair=True)
-    return _launch("stiffness_pair", op, (x1, x2), (op.C.data_ptr(),))
+    return _launch("stiffness_pair", op, (x1, x2), (op.C.data_ptr(),), cpb)

@@ -17,7 +17,8 @@ are row operations on the (n2d, gz) view of the field (`index_select` /
 Counterpart of the extruded section of ``fustpu/ops/operators.py``, in
 full precision only (the JAX package's bf16x3 and mixed modes work around
 the TPU's matrix unit).  On the card the einsums go to cuBLAS with TF32
-off, as in ``fustpu_torch.ops.spectral_mm``.
+off, as in ``fustpu_torch.ops.spectral_mm``.  On bfloat16 data an apply
+computes in float32 and rounds once (``spectral_mm.rounds_once``).
 """
 
 from __future__ import annotations
@@ -99,6 +100,7 @@ def _contract(op: PlainExtruded, u: torch.Tensor, ndofs: int,
     return y2.reshape(-1)
 
 
+@mm.rounds_once
 def stiffness_apply_extruded(x_flat: torch.Tensor, op: PlainExtruded,
                              ndofs: int,
                              coeff_e: torch.Tensor | None = None
@@ -109,6 +111,7 @@ def stiffness_apply_extruded(x_flat: torch.Tensor, op: PlainExtruded,
     return _contract(op, _gather(op, x_flat), ndofs, coeff_e)
 
 
+@mm.rounds_once
 def stiffness_apply_extruded_pair(x1: torch.Tensor, x2: torch.Tensor,
                                   op: PlainExtruded, ndofs: int,
                                   c1_e: torch.Tensor, c2_e: torch.Tensor

@@ -18,7 +18,8 @@ Counterpart of the indexed section of ``fustpu/ops/operators.py``
 per-cell contractions as factorised einsums instead of its dense
 (n^3, n^3) operators (the same operator), in full precision only, and
 without the TPU's gather/scatter engine and pull-scatter options.  On the
-card the einsums go to cuBLAS with TF32 off.
+card the einsums go to cuBLAS with TF32 off.  On bfloat16 data a stiffness
+apply computes in float32 and rounds once (``spectral_mm.rounds_once``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ def _indexed_contract(u: torch.Tensor, G: torch.Tensor,
     return y + torch.einsum("ck,xijc->xijk", D, f2)
 
 
+@mm.rounds_once
 def stiffness_apply_indexed(x_flat: torch.Tensor, G: torch.Tensor,
                             coeff: torch.Tensor | None,
                             dofmap: torch.Tensor, D: torch.Tensor,
@@ -75,6 +77,7 @@ def stiffness_apply_indexed(x_flat: torch.Tensor, G: torch.Tensor,
     return scatter_add_dofs(y.reshape(cells, -1), dofmap, ndofs)
 
 
+@mm.rounds_once
 def stiffness_apply_indexed_pair(x1: torch.Tensor, c1: torch.Tensor,
                                  x2: torch.Tensor, c2: torch.Tensor,
                                  G: torch.Tensor, dofmap: torch.Tensor,

@@ -27,10 +27,21 @@ is a full-float32 reference (TF32 keeps only about three digits).
 The mass operator needs none of this: with GLL collocation the assembled
 mass operator is globally diagonal, so `mass_diagonal` precomputes the
 vector once per coefficient field and an apply is one elementwise multiply.
+
+bfloat16 (the JAX package's ``--dtype bf16``, `rounds_once`): given
+bfloat16 fields and operator data, a plain apply widens them to float32
+(exactly), contracts in float32 with TF32 off and rounds the result to
+bfloat16 once.  That is what the kernels' bfloat16 forms are held to:
+they store in bfloat16 and compute in float32 too, in another order of
+sums, and round y where they store it.  It is not the JAX package's own
+order of roundings: its TPU kernel keeps bfloat16 accumulators, and its
+XLA path rounds at each op.  ``fustpu_torch.ops.extruded`` and
+``fustpu_torch.ops.indexed`` take the same form.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -142,6 +153,36 @@ _SUBS = (("ay,yjk->ajk", "ya,yjk->ajk"),
 _G_IDX = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
 
 
+def _widened(a):
+    """A bfloat16 tensor as float32 (exact), recursively through tuples
+    and NamedTuples of operator data; anything else as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.float() if a.dtype == torch.bfloat16 else a
+    if isinstance(a, tuple):
+        parts = [_widened(b) for b in a]
+        return type(a)(*parts) if hasattr(a, "_fields") else tuple(parts)
+    return a
+
+
+def _has_bf16(a) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == torch.bfloat16
+    return isinstance(a, tuple) and any(_has_bf16(b) for b in a)
+
+
+def rounds_once(apply):
+    """A plain apply's bfloat16 form: on bfloat16 arguments it runs
+    `apply` on their float32 widening and rounds the result to bfloat16
+    once; any other arguments go to `apply` as they are."""
+    @functools.wraps(apply)
+    def wrapped(*args, **kwargs):
+        if not _has_bf16((*args, *kwargs.values())):
+            return apply(*args, **kwargs)
+        return apply(*_widened(args), **{
+            k: _widened(v) for k, v in kwargs.items()}).to(torch.bfloat16)
+    return wrapped
+
+
 def _full_precision(x: torch.Tensor) -> None:
     """Keep cuBLAS/cuDNN out of TF32 for the plain path on the card."""
     if x.is_cuda:
@@ -186,6 +227,7 @@ def _contract(op: MMStiffness, u: torch.Tensor,
     return fold(op, r)
 
 
+@rounds_once
 def stiffness_apply_mm(op: MMStiffness, x: torch.Tensor,
                        coeff_e: torch.Tensor | None = None) -> torch.Tensor:
     """y_grid = A_stiff(x_grid).  `coeff_e`: optional (ex, ey, ez) expanded
@@ -193,6 +235,7 @@ def stiffness_apply_mm(op: MMStiffness, x: torch.Tensor,
     return _contract(op, expand(op, x), coeff_e)
 
 
+@rounds_once
 def stiffness_apply_mm_pair(op: MMStiffness, x1: torch.Tensor,
                             x2: torch.Tensor, c1_e: torch.Tensor,
                             c2_e: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ an apply), it prints:
   - the device's busy time (the union of the kernel and copy intervals)
     and its idle share, of the device span and of the host wall time;
   - the stiffness kernel's bytes per apply (G or the corner channels,
-    coefficients, index arrays and inputs once, output read and written)
+    coefficients, index arrays and inputs read once, output written once)
     and the rate that gives at the measured time.
 Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
 gives the card's achievable memory rate to hold those against.
@@ -108,8 +108,7 @@ def _ms_per_step(model, state, dt, steps) -> float:
 def _stiffness_bytes(stiff, ndofs: int) -> int:
     """Bytes one apply must move at least: the geometry (G, or the corner
     channels T), C and the index arrays (the extruded row ids, or the
-    dofmap) once, the input field(s) once, the output read and written
-    once."""
+    dofmap) once, the input field(s) once, the output written once."""
     op = stiff.cell_op
     geo = getattr(op, "G", None)
     geo = op.T if geo is None else geo
@@ -117,7 +116,7 @@ def _stiffness_bytes(stiff, ndofs: int) -> int:
     n_in = 2 if stiff.is_pair else 1
     nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
     index = getattr(op, "rows", getattr(op, "dofmap", None))
-    return nbytes(geo) + nbytes(op.C) + nbytes(index) + (n_in + 2) * field
+    return nbytes(geo) + nbytes(op.C) + nbytes(index) + (n_in + 1) * field
 
 
 def streaming_copy(gib: float) -> tuple[float, float]:

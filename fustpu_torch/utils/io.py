@@ -12,7 +12,11 @@
   (keys u, v, ku, kv, t, step, meta; written to a temporary file and
   renamed), so a checkpoint of either package resumes in the other;
   `state_from_checkpoint` puts the arrays into a model's layout, dtype
-  and device.
+  and device.  A bfloat16 state is written as float32 (exact), so that
+  the file reads back with numpy alone and a restart is bitwise; the JAX
+  package writes a bfloat16 state as raw 2-byte records (numpy's ``|V2``,
+  which reads back as bytes), and `load_checkpoint` reads those as the
+  bfloat16 bits they are.
 - `Checkpointer`: asynchronous saves of a state (`torch.save`, one file
   a step) that do not hold the solve: a copy on the device, then a writer
   thread that copies it into pinned memory on a side stream and saves;
@@ -35,10 +39,24 @@ _HEX_CORNERS = ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
 
 
 def to_host(a) -> np.ndarray:
-    """A tensor (any device) or array-like as a numpy array."""
+    """A tensor (any device) or array-like as a numpy array; a bfloat16
+    tensor as float32 (exact: numpy has no bfloat16)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        a = a.detach()
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+        return a.cpu().numpy()
     return np.asarray(a)
+
+
+def _from_raw_bf16(a: np.ndarray) -> np.ndarray:
+    """A field the JAX package saved from bfloat16 (2-byte void records,
+    numpy's ``|V2``: the values' bits) as float32, exactly; any other
+    array as it is."""
+    if a.dtype.kind != "V" or a.dtype.itemsize != 2:
+        return a
+    bits = np.frombuffer(a.tobytes(), "<u2").astype(np.uint32) << 16
+    return bits.view(np.float32).reshape(a.shape)
 
 
 def _write_point_data(f, w, fields: dict, npts: int, binary: bool) -> None:
@@ -174,7 +192,8 @@ def load_checkpoint(path: str):
     """(arrays {u, v, ku, kv, t}, step, meta) of an npz checkpoint of
     either package; `state_from_checkpoint` makes a model's state of it."""
     with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k] for k in ("u", "v", "ku", "kv", "t")}
+        arrays = {k: _from_raw_bf16(z[k])
+                  for k in ("u", "v", "ku", "kv", "t")}
         step = int(z["step"])
         meta = json.loads(str(z["meta"]))
     return arrays, step, meta

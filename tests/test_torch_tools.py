@@ -1,11 +1,13 @@
 """The step profiler's trace reduction (fustpu_torch.tools.profile_step) on
 a hand-made Chrome trace: grouping, launch counts and the busy union; the
 ptxas report's parser (fustpu_torch.tools.kernel_resources) on a
-hand-made report; and the two-checkout turns (fustpu_torch.tools.turns)
-on a command that prints its checkout."""
+hand-made report; the two-checkout turns (fustpu_torch.tools.turns) on a
+command that prints its checkout; and the least bytes that the bounds of
+the stiffness applies count."""
 
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,7 +123,7 @@ def test_stiffness_bytes_counts_the_corner_channels():
                             stiffness_impl="pallas_corner")
     field = mesh.ndofs * 4
     assert _stiffness_bytes(model.stiffness, mesh.ndofs) == \
-        mesh.num_cells * 37 * 4 + 3 * field
+        mesh.num_cells * 37 * 4 + 2 * field
 
 
 def test_summarize_trace_counts_the_engine_kernels():
@@ -148,8 +150,49 @@ def test_summarize_trace_counts_the_engine_kernels():
     op = Discretization(mesh).stiffness_op(torch.float32, "cpu", engine=True)
     nnn = 27
     assert _stiffness_bytes(EngineStiffness(op, "cuda"), mesh.ndofs) == \
-        mesh.num_cells * (6 * nnn * 4 + nnn * 4) + 3 * mesh.ndofs * 4
+        mesh.num_cells * (6 * nnn * 4 + nnn * 4) + 2 * mesh.ndofs * 4
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_least_bytes_read_each_input_once_and_write_y_once(dtype):
+    """The bounds' least bytes of a stiffness apply: the geometry, each
+    input field and the pair coefficients read once and y written once.
+    A kernel that reads y back (a colour class adding to what earlier
+    classes left) moves more, which its share of the bound shows; the
+    function itself needs no read of y."""
+    from fustpu_torch.demos import exp_imported, exp_kernel_anatomy, exp_pencil
+    from fustpu_torch.mesh.box import build_box_mesh
+    from fustpu_torch.models.discretization import Discretization
+    from fustpu_torch.ops import anatomy
+    from fustpu_torch.ops import cuda_corner as cc
+
+    mesh = build_box_mesh((3, 2, 2), 2)
+    disc = Discretization(mesh)
+    b = torch.empty((), dtype=dtype).element_size()
+    c1, c2 = np.full(mesh.nc, 1.5), np.full(mesh.nc, -0.5)
+    op = disc.stiffness_op(dtype, "cpu")
+    pop = disc.stiffness_op(dtype, "cpu", pair=(c1, c2))
+    g, vec = op.G.numel() * b, mesh.ndofs * b
+    coeffs = mesh.num_cells * 2 * b
+    assert exp_pencil.least_bytes(op, mesh.ndofs, 1) == g + 2 * vec
+    assert exp_pencil.least_bytes(pop, mesh.ndofs, 2) == \
+        g + 3 * vec + coeffs
+    assert exp_imported.least_bytes(op.G, mesh.ndofs, 1, 100) == \
+        g + 2 * vec + 100
+    assert exp_imported.least_bytes(op.G, mesh.ndofs, 2, 0) == \
+        g + 3 * vec + coeffs
+    for name in ("full", "gstream", "ywin"):
+        assert anatomy.variant_cost(op, mesh.ndofs, name)[0] == g + 2 * vec
+    assert anatomy.variant_cost(op, mesh.ndofs, "contract")[0] == 2 * vec
+    assert exp_kernel_anatomy.pair_cost(pop, mesh.ndofs)[0] == \
+        g + 3 * vec + coeffs
+    if dtype == torch.float32:          # the corner mode has no bf16 form
+        cop = disc.stiffness_op(dtype, "cpu", corner=True)
+        t = cop.T.numel() * b
+        assert cc.apply_cost(cop, mesh.ndofs, 1, 100)[0] == \
+            t + 2 * vec + 100
+        assert cc.apply_cost(cop, mesh.ndofs, 2)[0] == t + 3 * vec + coeffs
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
