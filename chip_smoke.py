@@ -40,8 +40,9 @@ Phases (each prints its time; any failure exits non-zero):
  13. the bodyfit H131 bowl (--geometry bodyfit --elements 64 --degree 4,
      float32, 6,661,697 DOF on a mesh that no axis extrudes): kernel vs
      plain and 10 steps kernel vs plain, then the whole solve on the
-     kernel and on the plain version, the focal pressure checked against
-     each other and against phase 6's conformal run;
+     kernel, the focal pressure checked against phase 6's conformal run,
+     and the first PLAIN_DEPTH steps on the plain version against the
+     kernel's (13c);
  14. the two-layer bodyfit bowl, 50 steps through the indexed pair kernel;
  15. the bodyfit bowl at P=6 (--elements 48 --degree 6, 10,764,961 DOF):
      kernel vs plain, 10 steps kernel vs plain, 50 steps on the kernel
@@ -70,12 +71,12 @@ Phases (each prints its time; any failure exits non-zero):
      phase 10b (18d); the two-layer hex27 bowl, its pair kernel vs plain
      and vs the hex8 corner pair kernel, then 50 steps (18e);
  19. the capacity demos: `fustpu_torch.demos.capacity` at its default size
-     (664 x 56 x 56 cells, P = 4, 134,510,625 DOF) (19a) and
-     `capacity_imported` at a quarter of its default depth (--nz 30)
-     (19b): 10 warm-up and 10 timed steps, ms/step, peak device memory;
-     what the model holds and what a 10-step solve adds on the walk and
-     on the class-launch design; then the model's kernel against its
-     plain version at that size;
+     (664 x 56 x 56 cells, P = 4, 134,510,625 DOF) (19a, also phase 33h's
+     set-up on the card) and `capacity_imported` at a quarter of its
+     default depth (--nz 30) (19b): 10 warm-up and 10 timed steps,
+     ms/step, peak device memory; what the model holds and what a 10-step
+     solve adds on the walk and on the class-launch design; then the
+     model's kernel against its plain version at that size;
  20. the four kernels of the staged gather / contract / scatter engine
      against their plain version at P = 2..10 on phase 12's meshes, float64
      and float32: each kernel alone (the gathers bitwise, the single-field
@@ -204,8 +205,9 @@ Phases (each prints its time; any failure exits non-zero):
      against its plain version, float64 <= 1e-14 (the dofmap and the
      diagonals bitwise), launched twice bitwise equal; timed at the
      flagship and the bodyfit bowl (33a-g); the capacity demo in its own
-     process with the set-up on the host and on the card: its set-up
-     seconds, peak device memory and host peak resident (33h); the
+     process with the set-up on the host, its set-up seconds, peak device
+     memory and host peak resident, beside 19a's set-up on the card
+     (33h); the
      Fubini and transmission anchors in float32 (33i); the piston on 2
      gloo ranks sharing the card against phase 9's table (33j); 2
      separately launched gloo ranks joined over tcp:// against one rank
@@ -217,20 +219,33 @@ Phases (each prints its time; any failure exits non-zero):
      counter moved (run right after phase 12; 34a); the flagship in bf16
      (after phase 7): #1 vs plain, 10 steps kernel vs plain <= 2e-2, the
      whole solve on #1 with its focal pressure beside 6b's (no band: bf16
-     drifts from float32), the same whole solve on the plain version (its
-     focal pressure, its field against #1's and float32's), ms a step in
-     turns with the float32 flagship,
-     and a corner-mode bf16 model refused (34b); the two-layer flagship
-     in bf16, #2 vs plain and 50 steps (34c); the imported bowl (after
-     10b) and the bodyfit bowl (after 13c) in bf16, single and two-layer:
-     #6 / #11 and their pair forms vs plain, 50 steps each, ms a step in
-     turns with the float32 model, and the corner and engine routes
-     refused (34d, 34e).
+     drifts from float32), the first PLAIN_DEPTH steps on the plain
+     version (its field against #1's and float32's over the same steps),
+     ms a step in turns with the float32 flagship (34b); the two-layer
+     flagship in bf16, #2 vs plain and 50 steps (34c); the imported bowl
+     (after 10b) and the bodyfit bowl (after 13c) in bf16, single and
+     two-layer: #6 / #11 and their pair forms vs plain, 50 steps each, ms
+     a step in turns with the float32 model, and the engine route refused
+     (34d, 34e); bf16 in the corner (capacity) mode, the bf16 forms of #3
+     and #6c (hex8, hex27): each against its plain version (bf16 in, the
+     metric and the apply in float32, y rounded once) <= 2^-7 and against
+     the bf16 G-stream kernel <= 1e-2 at P = 2..10, single and pair, on
+     phase 16's meshes, two applies bitwise equal (inside phase 16; 34f);
+     the flagship in corner mode in bf16 (after 29a): built without the
+     host metric, #3 vs plain, 10 steps kernel vs plain <= 2e-2, 50 steps
+     in turns with 17a's float32 corner model (ms a step), the device
+     bytes each holds and a solve adds; its two-layer form, #3 pair vs
+     plain and 50 steps (after 17c) (34g); the imported bowl in corner
+     mode in bf16, hex8 (after 18c) and hex27 (after 18d), single and
+     two-layer, each vs plain and 50 steps, ms a step in turns (34h); the
+     capacity demo in bf16 at its default size, its peak device memory
+     and what its model holds beside 19a's float32, #3 bf16 vs plain at
+     that size (after 19b; 34i).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, 34b-e,
-in every rank of 22 its solve, and the demos of 24, 25, 26, 27a, 28, 31
-and 32b-i and the turns of 29) has the launch counters reset just before
-it and read just after.
+34g-i, in every rank of 22 its solve, and the demos of 24, 25, 26, 27a,
+28, 31 and 32b-i and the turns of 29) has the launch counters reset just
+before it and read just after.
 The script's total time is printed after the last phase; then the
 kernels' JSON summary, the card's name and power limit, and as the last
 line the result.
@@ -318,6 +333,15 @@ ISO_BAND = 0.02
 # most 1.65e-3 over P = 2..10, 9.4e-4 / 9.8e-4 on the flagship and the
 # bodyfit bowl.
 BF16_TOL = 2.0 ** -7
+# a bf16 corner kernel against the bf16 G-stream kernel on the same mesh
+# and inputs: two bf16 operators (the metric rebuilt in float32 from bf16
+# channels, or G rounded to bf16), each within ~5e-3 of float64
+BF16_G_TOL = 1e-2
+# the depth of the plain versions' runs of the bowls beside their kernels'
+# whole solves (13c, 34b): the first PLAIN_DEPTH steps, about a sixth of
+# the 1,889-1,957 (a whole solve on the plain version was among the run's
+# slowest phases; 10 steps of each are also held in 13a and 34b)
+PLAIN_DEPTH = 300
 # 10 bf16 RK4 steps of the flagship, kernel vs plain: each of the 40
 # applies differs by the roundings above, and the bf16 state rounds every
 # RK update (the JAX package's bf16 drifts ~20% from its float32 in 60
@@ -1121,10 +1145,11 @@ def main() -> None:
                 (ci.indexed, ci.indexed_pair))}
 
     def bf16_counters() -> dict:
-        return {**cs.bf16_launches, **ce.bf16_launches, **ci.bf16_launches}
+        return {**cs.bf16_launches, **ce.bf16_launches, **ci.bf16_launches,
+                **cc.bf16_launches}
 
     def bf16_reset() -> None:
-        for mod in (cs, ce, ci):
+        for mod in (cs, ce, ci, cc):
             mod.reset_launches()
 
     with phase("34a bf16 kernels vs plain, P=2..10: #1 / #2, #6 and #11, "
@@ -1186,7 +1211,8 @@ def main() -> None:
                     if not e <= BF16_TOL:
                         fail(f"34a: P={P} {route} {mname} {label}: bf16 "
                              f"kernel vs plain {e:.3e} > {BF16_TOL}")
-        counts = bf16_counters()
+        counts = {**cs.bf16_launches, **ce.bf16_launches,
+                  **ci.bf16_launches}
         print(f"   worst rel-l2: bf16 kernel vs plain bf16 "
               f"{worst16['plain']:.3e} (tol {BF16_TOL}), vs plain f64 "
               f"{worst16['f64']:.3e}; bf16 launches {counts}")
@@ -1274,9 +1300,57 @@ def main() -> None:
             out[name] = min(out.get(name, ms), ms)
         return out
 
+    def bf16_corner(label, argv, pb, kernel):
+        """The bowl of `argv` in corner mode in bf16 on the problem `pb`: a
+        model on the bf16 form of its corner kernel (`kernel`_bf16), built
+        without the host metric, held against its plain version (bf16 in,
+        the metric and the apply in float32, y rounded once) on unit
+        normal inputs, repeated bitwise and timed.  Returns (model, dt,
+        steps, focus, plain module, kernel entry for the JSON line)."""
+        args_ = nonlinear_bowl.parser().parse_args(argv + ["--dtype",
+                                                           "bf16"])
+        t0 = time.perf_counter()
+        model, dt_, nsteps_, focus_ = nonlinear_bowl.build(args_, pb)
+        t_build = time.perf_counter() - t0
+        kst, mesh = model.stiffness, model.mesh
+        if not isinstance(kst, CornerStiffness) or kst.T.dtype != BF16 or \
+                model.stiffness_kernel != f"{kernel}_bf16":
+            fail(f"34: {label}: {type(kst).__name__} on "
+                 f"{model.stiffness_kernel}, expected {kernel}_bf16")
+        if "_G_host" in model.disc.__dict__:
+            fail(f"34: {label}: the bf16 corner model built the host metric")
+        pst = CornerStiffness(kst.cell_op, "mm")
+        xs = [torch.as_tensor(rng16.standard_normal(mesh.grid_shape),
+                              dtype=BF16, device=dev)
+              for _ in range(2 if kst.is_pair else 1)]
+        run = (lambda m: m.pair(*xs)) if kst.is_pair else \
+            (lambda m: m(xs[0]))
+        yk, yp = run(kst), run(pst)
+        err, same = rel_l2(yk, yp), torch.equal(yk, run(kst))
+        if not (err <= BF16_TOL and same):
+            fail(f"34: {label}: bf16 corner kernel vs plain {err:.3e} (tol "
+                 f"{BF16_TOL}), repeat bitwise {same}")
+        index = kst.rows.numel() * 4 if kst.rows is not None else 0
+        entry = dict(max_abs_err=float((yk.float() - yp.float()).abs().max()),
+                     rel_l2=err, ms=time_ms(lambda: run(kst), 20),
+                     plain_ms=time_ms(lambda: run(pst), 10),
+                     cost=cc.apply_cost(kst.cell_op, mesh.ndofs, len(xs),
+                                        extra=index))
+        sch = cc.card_schedule(kst.cell_op, xs[0], kst.is_pair)
+        segs = (f", {sch.segments} segment(s) a stack"
+                if hasattr(sch, "segments") else "")
+        print(f"   {smi}: {label} in bf16 corner mode ({kst.kernel}; built "
+              f"in {t_build:.1f} s, no host metric): {entry}; two applies "
+              f"bitwise; walk schedule {sch.cpb} cells a chunk{segs}, "
+              f"{sch.stage_bytes:,} B a stage, {sch.smem:,} B shared a "
+              f"block, {sch.blocks_per_sm} blocks an SM, {sch.blocks} "
+              "blocks", flush=True)
+        return model, dt_, nsteps_, focus_, pst, entry
+
     def bf16_refusal(impl, pb) -> None:
-        """A bf16 model of `impl` (the corner mode or the engine) on the
-        problem `pb` raises before anything is built on the card."""
+        """A bf16 model of `impl` (the engine, which has no bf16 form yet)
+        on the problem `pb` raises before anything is built on the
+        card."""
         try:
             WesterveltModel(pb.mesh, pb.material, pb.source, pb.aperture,
                             pb.absorbing, dtype=BF16, device=dev,
@@ -1288,9 +1362,10 @@ def main() -> None:
             return
         fail(f"34: a bf16 model with stiffness_impl={impl!r} was built")
 
-    with phase("16 corner kernels vs plain, P=2..10"), \
-            tempfile.TemporaryDirectory() as tmp:
-        worst = {"f64": 0.0, "f32": 0.0, "g64": 0.0, "old": 0.0}
+    with phase("16 corner kernels vs plain, P=2..10, float64, float32 and "
+               "bf16 (34f)"), tempfile.TemporaryDirectory() as tmp:
+        worst = {"f64": 0.0, "f32": 0.0, "g64": 0.0, "old": 0.0,
+                 "bf16": 0.0, "g16": 0.0}
         cc.reset_launches()
         for P in range(2, 11):
             small = P > 6
@@ -1365,13 +1440,52 @@ def main() -> None:
                              f"{o64:.3e} > {PARITY_TOL}")
                     if not same:
                         fail("a repeated corner apply is not bitwise equal")
+                # 34f: the bf16 forms, single and pair at every degree,
+                # on the same inputs in bf16
+                for label, kw in (("single", {}),
+                                  ("single+coeff", {"coeff": c1}),
+                                  ("pair", {"pair": (c1, c2)})):
+                    a16 = [x1.to(BF16), x2.to(BF16)] if "pair" in kw \
+                        else [x1.to(BF16)]
+
+                    def run16(module):
+                        return module.pair(*a16) if len(a16) == 2 \
+                            else module(a16[0])
+
+                    op16 = disc.stiffness_op(BF16, dev, corner=True, **kw)
+                    k16 = CornerStiffness(op16, "cuda")
+                    y16 = run16(k16)
+                    e16 = rel_l2(y16, run16(CornerStiffness(op16, "mm")))
+                    g16 = rel_l2(y16, run16(stiffness_module(
+                        disc.stiffness_op(BF16, dev, **kw), "cuda")))
+                    same = torch.equal(run16(k16), y16)
+                    torch.cuda.synchronize()
+                    print(f"   P={P:2d} {mname:8s} {label:13s} bf16 vs plain "
+                          f"bf16 {e16:.3e}  vs the bf16 G stream {g16:.3e}  "
+                          f"repeat {'bitwise' if same else 'DIFFERS'}",
+                          flush=True)
+                    worst["bf16"] = max(worst["bf16"], e16)
+                    worst["g16"] = max(worst["g16"], g16)
+                    if not e16 <= BF16_TOL:
+                        fail(f"34f: P={P} {mname} {label}: bf16 corner "
+                             f"kernel vs plain {e16:.3e} > {BF16_TOL}")
+                    if not g16 <= BF16_G_TOL:
+                        fail(f"34f: P={P} {mname} {label}: bf16 corner vs "
+                             f"bf16 G-stream kernel {g16:.3e} > "
+                             f"{BF16_G_TOL}")
+                    if not same:
+                        fail(f"34f: P={P} {mname} {label}: two bf16 corner "
+                             "applies differ")
         print(f"   worst rel-l2: f64 {worst['f64']:.3e}, f32 "
               f"{worst['f32']:.3e}, vs the G stream {worst['g64']:.3e}, "
               f"vs the class-launch design {worst['old']:.3e} (tol "
-              f"{PARITY_TOL}); launches {dict(cc.launches)}, "
-              f"{dict(cc.class_launches)}")
+              f"{PARITY_TOL}); bf16 vs plain {worst['bf16']:.3e} (tol "
+              f"{BF16_TOL}), vs the bf16 G stream {worst['g16']:.3e} (tol "
+              f"{BF16_G_TOL}); launches {dict(cc.launches)}, "
+              f"{dict(cc.class_launches)}, {dict(cc.bf16_launches)}")
         if not all(cc.launches.values()) or \
-                not all(cc.class_launches.values()):
+                not all(cc.class_launches.values()) or \
+                not all(cc.bf16_launches.values()):
             fail("a corner kernel's launch counter did not move")
 
     with phase("20 engine kernels vs plain, P=2..10"), \
@@ -2082,37 +2196,40 @@ def main() -> None:
               f"rel-l2(u) {rel_l2(state.u, u6b):.3e}, max |u| "
               f"{float(state.u.abs().max()):.4e} (float32 "
               f"{float(u6b.abs().max()):.4e})")
-        # the same whole solve on the plain version (bf16 in, float32
-        # arithmetic, y rounded once an apply): whether the kernel's
-        # roundings or the bf16 state part the field from float32's
+        # the first PLAIN_DEPTH steps of the same solve on the plain version
+        # (bf16 in, float32 arithmetic, y rounded once an apply), beside
+        # the kernel's and float32's: whether the kernel's roundings or the
+        # bf16 state part the field from float32's
+        sk, _ = hbowl.solve(hbowl.init_state(), dt34, PLAIN_DEPTH)
+        s32, _ = bowl.solve(bowl.init_state(), dt, PLAIN_DEPTH)
         hbowl.stiffness = StructuredStiffness(kst34.cell_op, "mm")
         bf16_reset()
         t0 = time.perf_counter()
-        sp, _ = hbowl.solve(hbowl.init_state(), dt34, nsteps34)
+        sp, _ = hbowl.solve(hbowl.init_state(), dt34, PLAIN_DEPTH)
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
         hbowl.stiffness = kst34
-        p16p = nonlinear_bowl.focal_pressure(hbowl, sp, focus)
-        print(f"   the whole bf16 solve on the plain version ({t_plain:.1f} "
-              f"s, bf16 launches {sum(bf16_counters().values())}): "
-              f"pressure at focus {p16p:.1f} Pa (kernel {p16:.1f}, float32 "
-              f"{p_focus:.1f}); rel-l2(u) plain vs kernel "
-              f"{rel_l2(sp.u, state.u):.3e}, plain vs float32 "
-              f"{rel_l2(sp.u, u6b):.3e}, max |u| "
-              f"{float(sp.u.abs().max()):.4e}", flush=True)
-        if not (bool(torch.isfinite(sp.u).all()) and np.isfinite(p16p)):
+        print(f"   the first {PLAIN_DEPTH} of {nsteps34} bf16 steps on the "
+              f"plain version ({t_plain:.1f} s, bf16 launches "
+              f"{sum(bf16_counters().values())}): rel-l2(u) plain vs "
+              f"kernel {rel_l2(sp.u, sk.u):.3e}, plain vs float32 "
+              f"{rel_l2(sp.u, s32.u):.3e}, kernel vs float32 "
+              f"{rel_l2(sk.u, s32.u):.3e}, max |u| "
+              f"{float(sp.u.abs().max()):.4e} (kernel "
+              f"{float(sk.u.abs().max()):.4e}, float32 "
+              f"{float(s32.u.abs().max()):.4e})", flush=True)
+        if not bool(torch.isfinite(sp.u).all()):
             fail("34b: the plain bf16 flagship field is not finite")
         if any(bf16_counters().values()):
             fail(f"34b: the plain solve launched a kernel: "
                  f"{bf16_counters()}")
-        del state, u6b, sp
+        del state, u6b, sp, sk, s32
         turns = ms_turns([("f32", bowl, dt), ("bf16", hbowl, dt34)])
         print(f"   {smi}: ms a step (50 steps from rest, in turns f32, "
               f"bf16, bf16, f32): float32 {turns['f32']:.4f}, bf16 "
               f"{turns['bf16']:.4f}; stiffness ms an apply: float32 (6a) "
               f"{kernels['stiffness']['ms']:.4f}, bf16 "
               f"{kernels['stiffness_bf16']['ms']:.4f}", flush=True)
-        bf16_refusal("pallas_corner", pb6)
         del hbowl, kst34
 
     with phase("34c two-layer flagship in bf16: #2 vs plain, 50 steps"):
@@ -2542,6 +2659,49 @@ def main() -> None:
                        dt9, 20, BOWL_POINTS, grid=(2, 2, 1))
     del bowl, kstiff
     corner_turns("a", cbowl, dt9, "flagship corner (#3)", kernels["corner"])
+    with phase("34g flagship in corner mode, bf16: build without the host "
+               "metric, #3 vs plain, 10 steps kernel vs plain, 50 steps in "
+               "turns with 17a's float32 corner model, device memory"):
+        argv34g = ["--elements", "64", "--degree", "4", "--stiffness-impl",
+                   "pallas_corner"]
+        cbowl16, dt34g, _, _, pst34g, kernels["corner_bf16"] = bf16_corner(
+            "flagship", argv34g, pb6, "corner")
+        k34g = cbowl16.stiffness
+        bf16_reset()
+        sk, _ = cbowl16.solve(cbowl16.init_state(), dt34g, 10)
+        torch.cuda.synchronize()
+        counts = bf16_counters()
+        bf16_counts["corner_bf16"] = counts["corner_bf16"]
+        if counts["corner_bf16"] != 4 * 10 or sum(counts.values()) != 40:
+            fail(f"34g: bf16 launches {counts} != 4 x 10 of corner_bf16")
+        cbowl16.stiffness = pst34g
+        sp, _ = cbowl16.solve(cbowl16.init_state(), dt34g, 10)
+        cbowl16.stiffness = k34g
+        traj = rel_l2(sk.u, sp.u)
+        print(f"   10 bf16 corner steps kernel vs plain: rel-l2(u) "
+              f"{traj:.3e} (tol {BF16_TRAJ_TOL}), max |u| "
+              f"{float(sk.u.abs().max()):.4e}; launches {counts}")
+        if not traj <= BF16_TRAJ_TOL:
+            fail(f"34g: 10 bf16 corner steps kernel vs plain {traj:.3e}")
+        if not bool(torch.isfinite(sk.u).all()) or \
+                float(sk.u.abs().max()) == 0.0:
+            fail("34g: the bf16 corner field is not finite and non-zero")
+        del sk, sp, pst34g
+        pair34 = (("f32 corner", cbowl, dt9), ("bf16 corner", cbowl16, dt34g))
+        turns = ms_turns(list(pair34))
+        print(f"   {smi}: ms a step (50 steps from rest, in turns f32, bf16, "
+              f"bf16, f32): float32 corner {turns['f32 corner']:.4f}, bf16 "
+              f"corner {turns['bf16 corner']:.4f}; #3 ms an apply: float32 "
+              f"(17a) {kernels['corner']['ms']:.4f}, bf16 "
+              f"{kernels['corner_bf16']['ms']:.4f}", flush=True)
+        for name, m, d in pair34:
+            held, add = held_bytes(m), solve_peak(m, d, 10)
+            print(f"   {smi}: {name} flagship: buffers {held / 1e9:.4f} GB "
+                  f"(held_bytes), a 10-step solve adds at most "
+                  f"{add / 1e9:.4f} GB (peak device memory over what is "
+                  f"allocated before it): {(held + add) / 1e9:.4f} GB",
+                  flush=True)
+        del cbowl16, k34g, pair34
     cc.reset_launches()
     with phase("17b flagship in corner mode, full solve (corner kernel)"):
         state = run_demo(cbowl, dt9, nsteps9, args9, "nonlinear_bowl")
@@ -2586,6 +2746,14 @@ def main() -> None:
                 float(s10.u.abs().max()) == 0.0:
             fail("two-layer corner field is not finite and non-zero")
     corner_launches = dict(corner=n_corner, corner_pair=n_corner_pair)
+    with phase("34g two-layer flagship in corner mode, bf16: #3 pair vs "
+               "plain, 50 steps"):
+        cbowl16b, dt34gb, _, _, _, kernels["corner_pair_bf16"] = bf16_corner(
+            "two-layer flagship", argv34g + ["--two-layer"], pb6,
+            "corner_pair")
+        _, bf16_counts["corner_pair_bf16"] = bf16_steps(
+            cbowl16b, dt34gb, 50, "two-layer flagship corner")
+        del cbowl16b
     del cbowl2, s10, pb6
 
     ce.reset_launches()
@@ -2732,7 +2900,6 @@ def main() -> None:
               f"two-layer {turns['bf16 pair']:.4f}; #6 ms an apply: float32 "
               f"(10a) {kernels['extruded']['ms']:.4f}, bf16 "
               f"{kernels['extruded_bf16']['ms']:.4f}", flush=True)
-        bf16_refusal("extruded_pallas_corner", pb10)
         del ibowl16, ibowl16b
 
     ce.reset_launches()
@@ -2874,6 +3041,28 @@ def main() -> None:
             fail("two-layer imported corner field is not finite and "
                  "non-zero")
         del s12
+    with phase("34h imported bowl in corner mode, bf16, hex8: #6c and its "
+               "pair form vs plain, 50 steps each, ms a step in turns with "
+               "18's float32 corner models"):
+        ic16, dt34h, _, _, _, kernels["extruded_corner_bf16"] = bf16_corner(
+            "imported bowl", IMPORTED, pb10, "extruded_corner")
+        _, bf16_counts["extruded_corner_bf16"] = bf16_steps(
+            ic16, dt34h, 50, "imported bowl corner")
+        ic16b, dt34hb, _, _, _, kernels["extruded_corner_pair_bf16"] = \
+            bf16_corner("two-layer imported bowl", IMPORTED + ["--two-layer"],
+                        pb10, "extruded_corner_pair")
+        _, bf16_counts["extruded_corner_pair_bf16"] = bf16_steps(
+            ic16b, dt34hb, 50, "two-layer imported bowl corner")
+        turns = ms_turns([("f32", cibowl, dt11), ("bf16", ic16, dt34h),
+                          ("f32 pair", cibowl2, dt12),
+                          ("bf16 pair", ic16b, dt34hb)])
+        print(f"   {smi}: ms a step (50 steps from rest, in turns): float32 "
+              f"corner {turns['f32']:.4f}, bf16 corner {turns['bf16']:.4f}, "
+              f"two-layer float32 {turns['f32 pair']:.4f}, bf16 "
+              f"{turns['bf16 pair']:.4f}; #6c ms an apply: float32 (18a) "
+              f"{kernels['extruded_corner']['ms']:.4f}, bf16 "
+              f"{kernels['extruded_corner_bf16']['ms']:.4f}", flush=True)
+        del ic16, ic16b
     with phase("18d imported bowl as hex27: build, 163-channel kernel vs "
                "plain and vs the hex8 corner kernel"):
         t0 = time.perf_counter()
@@ -2908,6 +3097,27 @@ def main() -> None:
         if not agree <= FOCAL_AGREE:
             fail(f"hex27 vs hex8 focal pressure {agree:.3e}")
         del state, hbowl
+    with phase("34h imported bowl as hex27 in corner mode, bf16: the hex27 "
+               "kernel and its pair form vs plain, 50 steps each"):
+        h16, dt34j, _, _, _, kernels["extruded_corner_hex27_bf16"] = \
+            bf16_corner("imported bowl hex27", IMPORTED, pb27,
+                        "extruded_corner_hex27")
+        _, bf16_counts["extruded_corner_hex27_bf16"] = bf16_steps(
+            h16, dt34j, 50, "imported bowl hex27 corner")
+        h16b, dt34jb, _, _, _, kernels["extruded_corner_hex27_pair_bf16"] = \
+            bf16_corner("two-layer imported bowl hex27",
+                        IMPORTED + ["--two-layer"], pb27,
+                        "extruded_corner_hex27_pair")
+        _, bf16_counts["extruded_corner_hex27_pair_bf16"] = bf16_steps(
+            h16b, dt34jb, 50, "two-layer imported bowl hex27 corner")
+        turns = ms_turns([("bf16", h16, dt34j), ("bf16 pair", h16b, dt34jb)])
+        print(f"   {smi}: ms a step (50 steps from rest, in turns): bf16 "
+              f"hex27 corner {turns['bf16']:.4f}, two-layer "
+              f"{turns['bf16 pair']:.4f}; hex27 ms an apply: float32 (18d) "
+              f"{kernels['extruded_corner_hex27']['ms']:.4f}, bf16 "
+              f"{kernels['extruded_corner_hex27_bf16']['ms']:.4f}",
+              flush=True)
+        del h16, h16b
     with phase("18e two-layer imported bowl as hex27: build + hex27 pair "
                "kernel vs plain and vs the hex8 corner pair kernel"):
         hbowl2, dt14, _, _, _, _, kernels["extruded_corner_hex27_pair"] = \
@@ -3277,18 +3487,20 @@ def main() -> None:
             fail(f"bodyfit / conformal focal pressure {ratio:.4f} outside "
                  f"{BODYFIT_RATIO}")
         del state
-    with phase("13c bodyfit bowl full solve (plain version)"):
+    with phase(f"13c bodyfit bowl, the first {PLAIN_DEPTH} steps on the plain "
+               "version against the kernel"):
         kst5 = bbowl.stiffness
+        sk, _ = bbowl.solve(bbowl.init_state(), dt5, PLAIN_DEPTH)
         bbowl.stiffness = pst5
-        state = run_demo(bbowl, dt5, nsteps5, args5, "nonlinear_bowl")
-        p_plain = nonlinear_bowl.focal_pressure(bbowl, state, focus5)
-        agree = abs(p_body - p_plain) / abs(p_plain)
-        print(f"   plain focal {p_plain:.1f} Pa; kernel vs plain relative "
-              f"difference {agree:.3e} (tol {FOCAL_AGREE})")
-        if not agree <= FOCAL_AGREE:
-            fail(f"bodyfit focal pressure kernel vs plain {agree:.3e}")
+        sp, _ = bbowl.solve(bbowl.init_state(), dt5, PLAIN_DEPTH)
         bbowl.stiffness = kst5
-        del state, pst5
+        agree = rel_l2(sk.u, sp.u)
+        print(f"   {PLAIN_DEPTH} of {nsteps5} steps, kernel vs plain: rel-l2(u) "
+              f"{agree:.3e} (tol {FOCAL_AGREE}), max |u| "
+              f"{float(sp.u.abs().max()):.4e}")
+        if not agree <= FOCAL_AGREE:
+            fail(f"bodyfit {PLAIN_DEPTH} steps kernel vs plain {agree:.3e}")
+        del sk, sp, pst5
 
     with phase("34e bodyfit bowl in bf16: #11 and its pair form vs plain, "
                "50 steps each, ms a step beside float32's"):
@@ -3689,35 +3901,42 @@ def main() -> None:
     def capacity_run(demo, argv, label, kernel):
         """Run a capacity demo through its `main` on the card (counters
         reset just before, read just after); check its launches and its
-        field, then hold the model's kernel at this size against its plain
-        version on one seeded unit-normal field.  Returns the launches of
-        the demo's run."""
+        field; what the model holds and what a 10-step solve adds, on the
+        walk and (float32) on the class-launch design; then the model's
+        kernel at this size against its plain version on one seeded
+        unit-normal field in the model's dtype (F32_TOL, bf16 BF16_TOL).  Returns (the launches of the demo's
+        run, its host set-up seconds and their split)."""
         torch.cuda.empty_cache()
         cc.reset_launches()
         model, state, ms, peak, timed, t_setup = demo.main(argv)
-        total = cc.launches[kernel]
-        others = sum(cc.launches.values()) - total
+        counts = {**cc.launches, **cc.bf16_launches}
+        total = counts[kernel]
+        others = sum(counts.values()) - total
         umax = float(state.u.abs().max())
-        # the float32 G stream that the same mesh would hold
-        g_bytes = model.mesh.num_cells * 6 * (model.mesh.degree + 1) ** 3 * 4
+        b = model.stiffness.T.element_size()
+        # the G stream that the same mesh would hold in the model's dtype
+        g_bytes = model.mesh.num_cells * 6 * (model.mesh.degree + 1) ** 3 * b
+        split = ", ".join(f"{k} {v:.1f} s"
+                          for k, v in model.disc.host_seconds.items())
         print(f"   {smi}: {label}: {model.mesh.ndofs} DOF, "
-              f"{model.mesh.num_cells} cells; host set-up {t_setup:.1f} s; "
-              f"{ms:.4f} ms/step; peak device memory {peak / 1e9:.4f} GB; "
-              f"channels {model.stiffness.T.numel() * 4 / 1e9:.4f} GB, the "
-              f"G stream would add {g_bytes / 1e9:.4f} GB (computed, not "
+              f"{model.mesh.num_cells} cells, {model.dtype}; host set-up "
+              f"{t_setup:.1f} s ({split}); {ms:.4f} ms/step; peak device "
+              f"memory {peak / 1e9:.4f} GB; channels "
+              f"{model.stiffness.T.numel() * b / 1e9:.4f} GB, the G stream "
+              f"would add {g_bytes / 1e9:.4f} GB (computed, not "
               f"allocated); {kernel} launches {timed} in the timed solve, "
               f"{total} in all; max |u| {umax:.4e}", flush=True)
         if timed != 4 * 10 or total != 4 * 20 or others != 0:
-            fail(f"{label}: launches {dict(cc.launches)}, {timed} in the "
-                 "timed solve")
+            fail(f"{label}: launches {counts}, {timed} in the timed solve")
         if not bool(torch.isfinite(state.u).all()) or umax == 0.0:
             fail(f"{label}: field is not finite and non-zero")
         del state
         kst = model.stiffness
+        f32 = kst.T.dtype == torch.float32
         # what the model holds and what a solve adds on each design, in
         # one process, apart from what earlier phases still hold: the
         # buffers (channels, diagonals) serve both designs, the walk adds
-        # its schedule's tables
+        # its schedule's tables (the class-launch design has no bf16 form)
         op_ = kst.cell_op
         _, chunks_, ids_, _ = cc._card(op_, op_.T.dtype, kst.is_pair,
                                        op_.T.device)
@@ -3726,11 +3945,12 @@ def main() -> None:
         held = held_bytes(model)
         dt_ = model.cfl_dt(0.4)[0]
         adds = {"walk": solve_peak(model, dt_, 10)}
-        model.stiffness = ClassLaunchCorner(op_)
-        try:
-            adds["class-launch"] = solve_peak(model, dt_, 10)
-        finally:
-            model.stiffness = kst
+        if f32:
+            model.stiffness = ClassLaunchCorner(op_)
+            try:
+                adds["class-launch"] = solve_peak(model, dt_, 10)
+            finally:
+                model.stiffness = kst
         for name, add in adds.items():
             own = held + add + (tables if name == "walk" else 0)
             print(f"   {label} on the {name} design: buffers "
@@ -3740,57 +3960,69 @@ def main() -> None:
                   + f", a 10-step solve adds at most {add / 1e9:.4f} GB: "
                   f"{own / 1e9:.4f} GB, {own / model.mesh.ndofs:.2f} B a DOF"
                   f" ({smi})", flush=True)
+        tol = F32_TOL if f32 else BF16_TOL
         pst = CornerStiffness(kst.cell_op, "mm")
         x = torch.randn(model.mesh.grid_shape, dtype=torch.float32,
                         device=dev, generator=torch.Generator(
-                            device=dev).manual_seed(19))
+                            device=dev).manual_seed(19)).to(kst.T.dtype)
         yk = kst(x)
         yp = pst(x)
         err = rel_l2(yk, yp)
-        print(f"   {label}: {kernel} kernel vs plain at this size: rel-l2 "
-              f"{err:.3e} (tol {F32_TOL}), max abs "
-              f"{float((yk - yp).abs().max()):.3e}", flush=True)
-        if not err <= F32_TOL:
-            fail(f"{label}: corner kernel vs plain {err:.3e} > {F32_TOL}")
-        del model, kst, pst, x, yk, yp
+        print(f"   {label}: {kernel} kernel vs plain at this size: "
+              f"rel-l2 {err:.3e} (tol {tol}), max abs "
+              f"{float((yk.float() - yp.float()).abs().max()):.3e}",
+              flush=True)
+        if not err <= tol:
+            fail(f"{label}: corner kernel vs plain {err:.3e} > {tol}")
+        del pst, x, yk, yp
+        del model, kst
         torch.cuda.empty_cache()
-        return total
+        return total, t_setup, split
 
     with phase("19a capacity demo at its default size (664 x 56 x 56 cells, "
-               "P=4)"):
-        corner_launches["corner"] += capacity_run(
+               "P=4), set-up on the card (33h's after)"):
+        n19a, t19a, split19a = capacity_run(
             capacity, ["--steps", "10"], "capacity box", "corner")
+        corner_launches["corner"] += n19a
     with phase("19b capacity_imported at --nz 30 (a quarter of the default "
                "depth)"):
         print("   reduced: --nz 30 of the default 120 layers, at the "
               "default footprint (--m 48 --mr 24 --nr-ann 24)")
         corner_launches["extruded_corner"] += capacity_run(
             capacity_imported, ["--nz", "30", "--steps", "10"],
-            "capacity cylinder (nz 30)", "extruded_corner")
+            "capacity cylinder (nz 30)", "extruded_corner")[0]
+    with phase("34i capacity demo in bf16 at its default size (664 x 56 x "
+               "56 cells, P=4): the bf16 corner walk, peak device memory "
+               "beside 19a's float32, #3 bf16 vs plain at this size"):
+        bf16_counts["corner_bf16"] += capacity_run(
+            capacity, ["--steps", "10", "--dtype", "bf16"],
+            "capacity box in bf16", "corner_bf16")[0]
     with phase("33h capacity demo in its own process (664 x 56 x 56 cells, "
-               "P=4, --steps 10), set-up on the host (before) and on the "
-               "card (after): set-up seconds, peak device memory, host "
+               "P=4, --steps 10), set-up on the host (before; after: 19a's "
+               "run on the card): set-up seconds, peak device memory, host "
                "peak resident"):
-        for when, extra in (("before", ["--setup-device", "cpu"]),
-                            ("after", [])):
-            t0 = time.perf_counter()
-            out = subprocess.run(
-                [sys.executable, "-m", "fustpu_torch.demos.capacity",
-                 "--steps", "10", *extra], cwd=ROOT, capture_output=True,
-                text=True, timeout=600)
-            lines = [ln for ln in out.stdout.splitlines()
-                     if ln.startswith(("set-up", "10 steps", "|u| max"))]
-            for ln in lines:
-                print(f"   capacity box, set-up {when}: {ln}")
-            print(f"   capacity box, set-up {when}: the process took "
-                  f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
-            m = re.search(r"^set-up ([0-9.]+) s \((.*?)\);", out.stdout,
-                          re.M)
-            if out.returncode != 0 or m is None or len(lines) != 3:
-                fail(f"33h: the capacity demo ({when}) exited "
-                     f"{out.returncode}: {out.stderr[-2000:]}")
-            setup_table.append((f"capacity box ({when}, its own process)",
-                                float(m.group(1)), m.group(2)))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "fustpu_torch.demos.capacity",
+             "--steps", "10", "--setup-device", "cpu"], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("set-up", "10 steps", "|u| max",
+                                   "launches"))]
+        for ln in lines:
+            print(f"   capacity box, set-up before: {ln}")
+        print(f"   capacity box, set-up before: the process took "
+              f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+        m = re.search(r"^set-up ([0-9.]+) s \((.*?)\);", out.stdout, re.M)
+        if out.returncode != 0 or m is None or len(lines) != 4 or \
+                "launches in the timed solve: corner 40" not in out.stdout:
+            fail(f"33h: the capacity demo (before) exited {out.returncode} "
+                 f"or did not launch corner 4 x 10 times in its timed "
+                 f"solve: {out.stderr[-2000:]}")
+        setup_table.append(("capacity box (before, its own process)",
+                            float(m.group(1)), m.group(2)))
+        setup_table.append(("capacity box (after, 19a in this process)",
+                            t19a, split19a))
     with phase("33i the physics anchors in float32 on the card: Fubini's "
                "second harmonic (2%) and two-layer transmission (3%)"):
         cs.reset_launches()
@@ -3885,6 +4117,21 @@ def main() -> None:
                          "fustpu/ops/pallas_gather.py:1417"),
         "indexed_pair_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
                               "fustpu/ops/pallas_gather.py:1417"),
+        # the bf16 forms of the corner walk (phase 34f-h)
+        "corner_bf16": ("fustpu_torch/csrc/corner_pencil.cu",
+                        "fustpu/ops/pallas_stiffness.py:963"),
+        "corner_pair_bf16": ("fustpu_torch/csrc/corner_pencil.cu",
+                             "fustpu/ops/pallas_stiffness.py:963"),
+        "extruded_corner_bf16": ("fustpu_torch/csrc/corner_stack.cu",
+                                 "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_pair_bf16": ("fustpu_torch/csrc/corner_stack.cu",
+                                      "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_hex27_bf16": (
+            "fustpu_torch/csrc/corner_stack27.cu",
+            "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_corner_hex27_pair_bf16": (
+            "fustpu_torch/csrc/corner_stack27.cu",
+            "fustpu/ops/pallas_extruded.py:604"),
         "indexed_classes": ("fustpu_torch/csrc/indexed.cu",
                             "fustpu/ops/pallas_gather.py:1417"),
         "indexed_classes_pair": ("fustpu_torch/csrc/indexed.cu",

@@ -115,7 +115,7 @@ def load() -> ctypes.CDLL:
     # the pencil kernel: its schedule after P (chunk table, classes, their
     # count, blocks, cells a chunk, stages, stage bytes, shared bytes), then
     # ncy, ncz and the stream; float32, float64 and bfloat16 (the G-stream
-    # kernels #1 / #2, #6 and #11 only)
+    # kernels #1 / #2, #6 and #11, and the corner walk below)
     sched = [p, p, i, i, i, i, i, i, i, i, p]
     gstream = ("f32", "f64", "bf16")
     for suffix in gstream:
@@ -234,8 +234,9 @@ def load() -> ctypes.CDLL:
     lib.fustpu_relayout_transpose_padded.argtypes = [p, p, i, i, i, i, p]
     lib.fustpu_relayout_transpose_padded.restype = i
     # the corner walk: the pencil kernel's schedule with the GLL nodes and
-    # weights after D, box pencils (ncy, ncz) or stacks (row ids, nz)
-    for suffix in ("f32", "f64"):
+    # weights after D, box pencils (ncy, ncz) or stacks (row ids, nz);
+    # float32, float64 and bfloat16 (#3 and #6c, hex8 and hex27)
+    for suffix in gstream:
         fn = getattr(lib, f"fustpu_corner_pencil_{suffix}")
         fn.argtypes = [p, p, p, p, p, i, *sched]
         fn.restype = i

@@ -123,7 +123,9 @@ def corner_from_fustpu(JC=None, *, D, T=None, C=None, ns=None
     become the pair coefficients).  T: the (nch+1, ns_pad, nz) channels of
     a PallasExtrudedCorner, with `ns` the mesh's stacks (the rest is
     identity padding) and C its ce (2, ns_pad, ez).  D: the 1D derivative
-    matrix (``statics[0]``)."""
+    matrix (``statics[0]``).  A bfloat16 corner model's arrays go through
+    float64 like every other (exact), so that `HostCorner.to_device` in
+    bfloat16 gives its channels and pair coefficients bit for bit."""
     D = np.asarray(D, np.float64)
     if T is not None:
         T = np.asarray(T, np.float64)[:, :ns]

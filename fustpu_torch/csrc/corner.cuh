@@ -21,11 +21,16 @@
 // (`LinePowers`): a kernel whose thread keeps its line from one cell to
 // the next (the pencil walk, stiffness_pencil.cuh) computes them once.
 // RCP (float only) takes the division as one approximate reciprocal
-// (__fdividef, 2 ulp) in place of IEEE div.rn.
+// (__fdividef, 2 ulp) in place of IEEE div.rn.  S: the type the channels
+// are stored in (bfloat16 for the walk's bf16 forms, storage.cuh); each
+// is widened to T where it is read, so that everything after the load is
+// T's arithmetic.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "storage.cuh"
 
 namespace fustpu {
 
@@ -94,7 +99,8 @@ __device__ __forceinline__ float corner_div(float a, float b, bool fast) {
 // cell's channels in shared memory; xq, wq: the N unit GLL nodes and
 // weights in shared memory; pw: the line's powers, when the caller keeps
 // them (the fold's products are the same either way).
-template <typename T, int N, int GD, bool BOX, bool RCP = false>
+template <typename T, int N, int GD, bool BOX, bool RCP = false,
+          typename S = T>
 struct Corner {
   static_assert(GD == 1 || GD == 2, "geometry degree 1 or 2");
   static_assert(!BOX || GD == 1, "the structured layout is trilinear");
@@ -104,11 +110,11 @@ struct Corner {
   const T* xq;
   const T* wq;
 
-  __device__ __forceinline__ Corner(const T* ch, const T* xq_, const T* wq_,
+  __device__ __forceinline__ Corner(const S* ch, const T* xq_, const T* wq_,
                                     int j, int k)
       : Corner(ch, xq_, wq_, j, k, LinePowers<T, GD>(xq_, j, k)) {}
 
-  __device__ __forceinline__ Corner(const T* ch, const T* xq_, const T* wq_,
+  __device__ __forceinline__ Corner(const S* ch, const T* xq_, const T* wq_,
                                     int j, int k,
                                     const LinePowers<T, GD>& pw)
       : xq(xq_), wq(wq_) {
@@ -128,7 +134,8 @@ struct Corner {
               if (mx <= corner_degree<GD>(q, 0) &&
                   my <= corner_degree<GD>(q, 1) &&
                   mz <= corner_degree<GD>(q, 2))
-                acc += ch[corner_channel<GD, BOX>(q, p, mx, my, mz)] *
+                acc += widen<T>(ch[corner_channel<GD, BOX>(q, p, mx, my,
+                                                            mz)]) *
                        pw.yz[my][mz];
             }
           }
@@ -136,7 +143,7 @@ struct Corner {
         }
       }
     }
-    s = ch[CornerChannels<GD>::NCH] * wq[j] * wq[k];
+    s = widen<T>(ch[CornerChannels<GD>::NCH]) * wq[j] * wq[k];
   }
 
   __device__ __forceinline__ void operator()(int i, int, T wx, T wy, T wz,

@@ -1,8 +1,9 @@
 // Entry points of the structured corner apply (#3, the capacity mode) on
 // the walk of the z-pencil kernel: box pencils of cells whose metric is
 // rebuilt from 37 channels a cell (jacobian_coefficients' layout, box
-// order cx*ncy*ncz + cy*ncz + cz), single field and pair.  The design and
-// what bounds it: corner_walk.cuh.  The class-launch design it replaced
+// order cx*ncy*ncz + cy*ncz + cz), single field and pair, in float32,
+// float64 and bfloat16 (stored in bfloat16, computed in float).  The
+// design and what bounds it: corner_walk.cuh.  The class-launch design it replaced
 // keeps its entry points in corner.cu.
 //
 // The host (ops/cuda_corner.py, through cuda_stiffness.py
@@ -30,13 +31,13 @@ fustpu::pencil::BoxRows box_rows(int P, int ncy, int ncz) {
 // int64 on the host.
 extern "C" {
 
-#define FUSTPU_CORNER_PENCIL(SUF, T)                                          \
+#define FUSTPU_CORNER_PENCIL(SUF, T, S)                                       \
   int fustpu_corner_pencil_##SUF(                                             \
       const void* x, const void* Tch, const void* D, const void* Q, void* y,  \
       int P, const void* chunks, const long long* classes, int nclass,        \
       int blocks, int cpb, int stages, int stage_bytes, int smem, int ncy,    \
       int ncz, void* stream) {                                                \
-    return fustpu::corner_walk::launch<T, false, 1, true>(                    \
+    return fustpu::corner_walk::launch<T, S, false, 1, true>(                 \
         P, x, nullptr, nullptr, Tch, D, Q, y, chunks, classes, nclass,        \
         blocks, cpb, stages, stage_bytes, smem, box_rows(P, ncy, ncz),        \
         stream);                                                              \
@@ -46,19 +47,21 @@ extern "C" {
       const void* D, const void* Q, void* y, int P, const void* chunks,       \
       const long long* classes, int nclass, int blocks, int cpb, int stages,  \
       int stage_bytes, int smem, int ncy, int ncz, void* stream) {            \
-    return fustpu::corner_walk::launch<T, true, 1, true>(                     \
+    return fustpu::corner_walk::launch<T, S, true, 1, true>(                  \
         P, x1, x2, C, Tch, D, Q, y, chunks, classes, nclass, blocks, cpb,     \
         stages, stage_bytes, smem, box_rows(P, ncy, ncz), stream);            \
   }
 
-FUSTPU_CORNER_PENCIL(f32, float)
-FUSTPU_CORNER_PENCIL(f64, double)
+FUSTPU_CORNER_PENCIL(f32, float, float)
+FUSTPU_CORNER_PENCIL(f64, double, double)
+FUSTPU_CORNER_PENCIL(bf16, float, __nv_bfloat16)
 #undef FUSTPU_CORNER_PENCIL
 
-int fustpu_corner_pencil_occupancy(int P, int f64, int pair, int cpb,
+// type 0 float32, 1 float64, 2 bfloat16
+int fustpu_corner_pencil_occupancy(int P, int type, int pair, int cpb,
                                    int smem) {
   return fustpu::corner_walk::occupancy<1, true, fustpu::pencil::BoxRows>(
-      P, f64, pair, cpb, smem);
+      P, type, pair, cpb, smem);
 }
 
 }  // extern "C"

@@ -46,6 +46,16 @@
 // adds, so two applies are bitwise equal.  No tensor cores (5 x 5
 // contractions; TF32 would break the float32 gate of 1e-6); accumulators
 // in the template type.
+//
+// bfloat16 (the JAX package's --dtype bf16, the capacity mode at half the
+// bytes): the bf16 entry points store x, x2, y, the channels, D and C in
+// bfloat16 and compute in float (CornerGeo's storage type S, the walk's
+// Store; stiffness_pencil.cuh): the stage holds the chunk's channels in
+// bfloat16 (74 B a cell, 326 B for hex27), Corner widens each where it
+// folds it, the GLL nodes and weights Q, the chunk buffers, f1, f2 and
+// every sum stay float, and y rounds to bfloat16 where it is stored.  The
+// register budget and the division are float's (CAP and RCP are keyed on
+// the arithmetic type).
 
 #pragma once
 
@@ -76,15 +86,15 @@ constexpr int CAP = sizeof(T) == 4 && GD == 1 && !PAIR && N <= 5 ? 5 : 0;
 template <typename T, int N, int GD, bool BOX, bool PAIR>
 constexpr bool RCP = sizeof(T) == 4 && (BOX || CAP<T, N, GD, PAIR> > 0);
 
-template <typename T, int N, int GD, bool BOX, bool PAIR>
+template <typename T, int N, int GD, bool BOX, bool PAIR, typename S = T>
 using Geo = pencil::CornerGeo<T, N, GD, BOX, RCP<T, N, GD, BOX, PAIR>,
-                              CAP<T, N, GD, PAIR>>;
+                              CAP<T, N, GD, PAIR>, S>;
 
 // One apply: the classes of the schedule (ops/cuda_stiffness.py
 // `pencil_schedule`, ops/cuda_extruded.py `stack_schedule`), each one
 // launch.  Tch: (cells, 37 or 163) channels in the walk's cell order; Q:
-// (2, N) GLL nodes, then weights.
-template <typename T, bool PAIR, int GD, bool BOX, typename Rows>
+// (2, N) GLL nodes, then weights, in T; the rest in S.
+template <typename T, typename S, bool PAIR, int GD, bool BOX, typename Rows>
 int launch(int P, const void* x1, const void* x2, const void* C,
            const void* Tch, const void* D, const void* Q, void* y,
            const void* chunks, const long long* classes, int nclass,
@@ -94,7 +104,7 @@ int launch(int P, const void* x1, const void* x2, const void* C,
 #define FUSTPU_CASE(P_)                                                     \
   case P_:                                                                  \
     return pencil::launch_classes<T, P_ + 1, PAIR,                          \
-                                  Geo<T, P_ + 1, GD, BOX, PAIR>>(           \
+                                  Geo<T, P_ + 1, GD, BOX, PAIR, S>>(        \
         x1, x2, C, Tch, D, Q, y, chunks, classes, nclass, blocks, cpb,      \
         stages, stage_bytes, smem, lines, s);
   switch (P) {
@@ -105,12 +115,13 @@ int launch(int P, const void* x1, const void* x2, const void* C,
 #undef FUSTPU_CASE
 }
 
-template <typename T, bool PAIR, int GD, bool BOX, typename Rows>
+template <typename T, typename S, bool PAIR, int GD, bool BOX, typename Rows>
 int occupancy_of(int P, int cpb, int smem) {
 #define FUSTPU_CASE(P_)                                                      \
   case P_:                                                                   \
     return pencil::occupancy<T, P_ + 1, PAIR,                                \
-                             Geo<T, P_ + 1, GD, BOX, PAIR>, Rows>(cpb, smem);
+                             Geo<T, P_ + 1, GD, BOX, PAIR, S>, Rows>(cpb,    \
+                                                                    smem);
   switch (P) {
     FUSTPU_DEGREES(FUSTPU_CASE)
     default:
@@ -119,34 +130,44 @@ int occupancy_of(int P, int cpb, int smem) {
 #undef FUSTPU_CASE
 }
 
-// Blocks of the kernel for (P, float64?, pair?) with cpb cells and smem
-// dynamic shared bytes that one SM holds at once; -1 for an unsupported
-// degree, minus the cudaError_t of a failed query.
+// Blocks of the kernel for (P, type, pair?) with cpb cells and smem
+// dynamic shared bytes that one SM holds at once; type 0 float32, 1
+// float64, 2 bfloat16 (ops/cuda_stiffness.py TYPE_CODE); -1 for an
+// unsupported degree, minus the cudaError_t of a failed query.
+template <typename T, typename S, int GD, bool BOX, typename Rows>
+int occupancy_typed(int P, int pair, int cpb, int smem) {
+  return pair ? occupancy_of<T, S, true, GD, BOX, Rows>(P, cpb, smem)
+              : occupancy_of<T, S, false, GD, BOX, Rows>(P, cpb, smem);
+}
+
 template <int GD, bool BOX, typename Rows>
-int occupancy(int P, int f64, int pair, int cpb, int smem) {
-  if (f64)
-    return pair ? occupancy_of<double, true, GD, BOX, Rows>(P, cpb, smem)
-                : occupancy_of<double, false, GD, BOX, Rows>(P, cpb, smem);
-  return pair ? occupancy_of<float, true, GD, BOX, Rows>(P, cpb, smem)
-              : occupancy_of<float, false, GD, BOX, Rows>(P, cpb, smem);
+int occupancy(int P, int type, int pair, int cpb, int smem) {
+  if (type == 1)
+    return occupancy_typed<double, double, GD, BOX, Rows>(P, pair, cpb,
+                                                          smem);
+  if (type == 2)
+    return occupancy_typed<float, __nv_bfloat16, GD, BOX, Rows>(P, pair,
+                                                                cpb, smem);
+  return occupancy_typed<float, float, GD, BOX, Rows>(P, pair, cpb, smem);
 }
 
 }  // namespace corner_walk
 }  // namespace fustpu
 
 // The C entry points of the stack walk of geometry degree GD:
-// fustpu_<NAME>_{f32,f64}, fustpu_<NAME>_pair_{f32,f64} and
-// fustpu_<NAME>_occupancy.  Each launcher returns 0, -1 for an unsupported
-// degree, or the cudaError_t of the first failed call; y must be zeroed by
-// the caller.  chunks: (rows, 5) int64 and ids: (segments, N^2) int32 on
-// the device; classes: nclass x 3 int64 on the host.
-#define FUSTPU_CORNER_STACK_ONE(NAME, SUF, T, GD)                             \
+// fustpu_<NAME>_{f32,f64,bf16}, fustpu_<NAME>_pair_{f32,f64,bf16} and
+// fustpu_<NAME>_occupancy (bf16: stored in bfloat16, computed in float).
+// Each launcher returns 0, -1 for an unsupported degree, or the
+// cudaError_t of the first failed call; y must be zeroed by the caller.
+// chunks: (rows, 5) int64 and ids: (segments, N^2) int32 on the device;
+// classes: nclass x 3 int64 on the host.
+#define FUSTPU_CORNER_STACK_ONE(NAME, SUF, T, S, GD)                          \
   int fustpu_##NAME##_##SUF(                                                  \
       const void* x, const void* Tch, const void* D, const void* Q, void* y,  \
       int P, const void* chunks, const void* ids, const long long* classes,   \
       int nclass, int blocks, int cpb, int stages, int stage_bytes,           \
       int smem, int nz, void* stream) {                                       \
-    return fustpu::corner_walk::launch<T, false, GD, false>(                  \
+    return fustpu::corner_walk::launch<T, S, false, GD, false>(               \
         P, x, nullptr, nullptr, Tch, D, Q, y, chunks, classes, nclass,        \
         blocks, cpb, stages, stage_bytes, smem,                               \
         fustpu::pencil::StackRows{nz * P + 1, 0,                              \
@@ -159,7 +180,7 @@ int occupancy(int P, int f64, int pair, int cpb, int smem) {
       const void* ids, const long long* classes, int nclass, int blocks,      \
       int cpb, int stages, int stage_bytes, int smem, int nz,                 \
       void* stream) {                                                         \
-    return fustpu::corner_walk::launch<T, true, GD, false>(                   \
+    return fustpu::corner_walk::launch<T, S, true, GD, false>(                \
         P, x1, x2, C, Tch, D, Q, y, chunks, classes, nclass, blocks, cpb,     \
         stages, stage_bytes, smem,                                            \
         fustpu::pencil::StackRows{nz * P + 1, 0,                              \
@@ -169,12 +190,13 @@ int occupancy(int P, int f64, int pair, int cpb, int smem) {
 
 #define FUSTPU_CORNER_STACK(NAME, GD)                                        \
   extern "C" {                                                               \
-  FUSTPU_CORNER_STACK_ONE(NAME, f32, float, GD)                              \
-  FUSTPU_CORNER_STACK_ONE(NAME, f64, double, GD)                             \
-  int fustpu_##NAME##_occupancy(int P, int f64, int pair, int cpb,           \
+  FUSTPU_CORNER_STACK_ONE(NAME, f32, float, float, GD)                       \
+  FUSTPU_CORNER_STACK_ONE(NAME, f64, double, double, GD)                     \
+  FUSTPU_CORNER_STACK_ONE(NAME, bf16, float, __nv_bfloat16, GD)              \
+  int fustpu_##NAME##_occupancy(int P, int type, int pair, int cpb,          \
                                 int smem) {                                  \
     return fustpu::corner_walk::occupancy<GD, false,                         \
                                           fustpu::pencil::StackRows>(        \
-        P, f64, pair, cpb, smem);                                            \
+        P, type, pair, cpb, smem);                                           \
   }                                                                          \
   }

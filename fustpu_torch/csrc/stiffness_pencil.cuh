@@ -92,9 +92,11 @@
 // would break the float32 gate of 1e-6.  The card computes in native
 // float32 / float64, accumulators in the template type.
 //
-// bfloat16 (the JAX package's --dtype bf16; #1 / #2 and #6 in bf16): x,
-// x2, y, G, D and C are stored in bfloat16 (the geometry policy's Store,
-// GRing<float, N, __nv_bfloat16>) and everything else is float: the walk
+// bfloat16 (the JAX package's --dtype bf16; #1 / #2, #6, and the corner
+// forms #3 and #6c): x, x2, y, G or the corner channels, D and C are
+// stored in bfloat16 (the geometry policy's Store: GRing<float, N,
+// __nv_bfloat16>, CornerGeo<float, ..., __nv_bfloat16>; the GLL nodes and
+// weights Q stay float) and everything else is float: the walk
 // widens what it loads, and the chunk buffers, the body and its sums are
 // float.  G's stage holds bfloat16, where a float f1, f2 does not fit a
 // node's slot, so the cells' f1, f2 take 2 N^3 floats a cell slot after the
@@ -210,8 +212,8 @@ struct StackRows {
 // block, so the schedule keeps within MAX_THREADS); pencil_kernel, with
 // the G stream's own bounds, otherwise.
 //
-// Store: the type the fields, the stream, D and C are stored in (T but for
-// the G stream in bfloat16).
+// Store: the type the fields, the stream, D and C are stored in (T, or
+// bfloat16 for a bf16 form).
 //
 // GRing: the G stream (#1, #2, #6), c G itself, 6 N^3 values a cell read
 // by GShared; with S == T the body's f1, f2 of a node go over its
@@ -255,10 +257,15 @@ struct GRing {
 // y^my z^mz for the whole walk, since its (j, k) never changes.  RCP:
 // float's division by one approximate reciprocal (corner.cuh).  CAP > 0:
 // corner_kernel's blocks of at most 128 threads, CAP of them an SM; 0:
-// pencil_kernel's bounds.
-template <typename T, int N, int GD, bool BOX, bool RCP, int CAP>
+// pencil_kernel's bounds.  S: the channels' storage type (bfloat16, the
+// walk's bf16 forms, with float arithmetic): the stage holds them in S
+// and Corner widens each where it reads it; f1, f2 and the nodes and
+// weights stay in T after the chunk buffers, so the layout beside the
+// stages is T's whatever S.
+template <typename T, int N, int GD, bool BOX, bool RCP, int CAP,
+          typename S = T>
 struct CornerGeo {
-  using Store = T;
+  using Store = S;
   static constexpr int CELL = CornerChannels<GD>::COUNT;
   static constexpr bool BARRIERS = false, RING = true;
   static constexpr int BODY = STAGED;
@@ -284,13 +291,13 @@ struct CornerGeo {
         pw(after_ + 2 * NNN * cpb, j_, k_) {}
 
   struct Cell {
-    Corner<T, N, GD, BOX, RCP> metric;
+    Corner<T, N, GD, BOX, RCP, S> metric;
     T* f1;
     T* f2;
   };
-  __device__ __forceinline__ Cell cell(const T* ch, int lc) const {
+  __device__ __forceinline__ Cell cell(const S* ch, int lc) const {
     T* f1 = f + 2 * NNN * lc;
-    return {Corner<T, N, GD, BOX, RCP>(ch, q, q + N, j, k, pw), f1,
+    return {Corner<T, N, GD, BOX, RCP, S>(ch, q, q + N, j, k, pw), f1,
             f1 + NNN};
   }
 };

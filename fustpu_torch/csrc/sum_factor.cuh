@@ -16,38 +16,17 @@
 // in registers; u and the two cross-line metric-transformed gradients are
 // shared (3 N^3 values per cell).  Accumulators take the template type.
 //
-// Storage and arithmetic: the G-stream kernels (stiffness_pencil.cuh,
-// indexed_chunk.cu) may keep their fields, G, D and C in a narrower
-// storage type S than the type T they compute in (bfloat16 storage, float
-// arithmetic and accumulators): `widen` reads a stored value into T,
-// `narrow` rounds a result to S (round to nearest even).  With S == T
-// both are the identity, and float32 and float64 keep S == T.
+// Storage and arithmetic (storage.cuh): the walks (stiffness_pencil.cuh,
+// indexed_chunk.cu) may keep their fields, their geometry stream, D and C
+// in bfloat16 and compute in float.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace fustpu {
+#include "storage.cuh"
 
-template <typename T, typename S>
-__device__ __forceinline__ T widen(S v) {
-  return static_cast<T>(v);
-}
-template <>
-__device__ __forceinline__ float widen<float, __nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename S, typename T>
-__device__ __forceinline__ S narrow(T v) {
-  return static_cast<S>(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
+namespace fustpu {
 
 // Cells per block: enough to fill ~256 threads at small N, bounded by the
 // 48 KB static shared memory (Ds and FIXED bytes per block, plus 3 N^3

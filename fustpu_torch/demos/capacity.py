@@ -10,7 +10,7 @@ cells, P = 4, 1.1 MHz in water.
 
     python -m fustpu_torch.demos.capacity [--cells 664 56 56] [--degree 4]
         [--steps 10] [--impl pallas_corner|auto|mm] [--device cuda|cpu]
-        [--dtype f32|f64] [--setup-device cpu]
+        [--dtype f32|f64|bf16] [--setup-device cpu]
 
 Prints the stiffness operator and its kernel, the set-up seconds (host
 clock; geometry, mass and facet diagonals on the card's set-up kernels,

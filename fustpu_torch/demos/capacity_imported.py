@@ -13,7 +13,8 @@ detected as on import.
 
     python -m fustpu_torch.demos.capacity_imported [--m 48] [--mr 24]
         [--nr-ann 24] [--nz 120] [--degree 4] [--steps 10]
-        [--impl pallas_corner|auto|mm] [--device cuda|cpu] [--dtype f32|f64]
+        [--impl pallas_corner|auto|mm] [--device cuda|cpu]
+        [--dtype f32|f64|bf16]
 
 Prints what `fustpu_torch.demos.capacity` prints, after the mesh.
 """

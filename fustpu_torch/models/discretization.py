@@ -307,18 +307,17 @@ def resolve_stiffness_impl(impl: str, device, mesh=None,
     here.  It fails for 'extruded' and 'extruded_pallas' on a box mesh,
     and so do these: they need the `mesh` to resolve.
 
-    bfloat16 (`dtype`) runs on the G-stream operators only (#1 / #2, #6,
-    #11 and their plain versions): the corner mode on a box or a prismatic
-    import and the staged engine have no bfloat16 form yet, and their
-    names fail for it, on either device."""
-    if dtype == torch.bfloat16 and (
-            impl == ENGINE_IMPL or impl in CORNER_IMPLS and (
-                mesh is None or hasattr(mesh, "nc")
-                or isinstance(mesh, ExtrudedHexMesh))):
+    bfloat16 (`dtype`) runs on the G-stream operators (#1 / #2, #6, #11)
+    and in the corner mode on a box, a mapped box or a prismatic import,
+    hex8 and hex27 (#3 and #6c), and on their plain versions: the staged
+    engine has no bfloat16 form yet, and its name fails for it, on either
+    device."""
+    if dtype == torch.bfloat16 and impl == ENGINE_IMPL:
         raise ValueError(
             f"stiffness_impl={impl!r} has no bfloat16 form yet (ROADMAP.md, "
-            "Queue 1 #10: the corner and engine routes' bf16); bfloat16 "
-            "runs on 'auto', 'indexed' and 'mm'")
+            "Queue 2: the staged engine's bf16, #7-#10, is the next "
+            "slice); bfloat16 runs on 'auto', 'indexed', the corner mode "
+            "and 'mm'")
     if impl == "mm":
         return "mm"
     if impl in (EXTRUDED_PLAIN_IMPL, "extruded_pallas"):
@@ -338,8 +337,9 @@ def resolve_stiffness_impl(impl: str, device, mesh=None,
 
 
 def bf16_name(kernel: str, G: torch.Tensor) -> str:
-    """The launch counter of a G-stream kernel for operator data G: its
-    bfloat16 form's (`kernel`_bf16) on bfloat16 data."""
+    """The launch counter of a kernel for operator data G (the G stream,
+    or the corner channels): its bfloat16 form's (`kernel`_bf16) on
+    bfloat16 data."""
     return kernel + ("_bf16" if G.dtype == torch.bfloat16 else "")
 
 
@@ -571,7 +571,8 @@ class CornerStiffness(nn.Module):
         """The launch counter that an apply moves (None for 'mm')."""
         if self.impl != "cuda":
             return None
-        return self.cell_op.kernel + ("_pair" if self.is_pair else "")
+        return bf16_name(self.cell_op.kernel
+                         + ("_pair" if self.is_pair else ""), self.T)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         op = self.cell_op
@@ -649,7 +650,7 @@ def launch_counts() -> dict:
     return {**cs.launches, **cs.bf16_launches, **ce.launches,
             **ce.class_launches, **ce.bf16_launches, **ci.launches,
             **ci.class_launches, **ci.bf16_launches, **cc.launches,
-            **cc.class_launches,
+            **cc.class_launches, **cc.bf16_launches,
             **cen.launches, **cen.comparison_launches}
 
 

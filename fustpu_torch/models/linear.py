@@ -126,9 +126,9 @@ class LinearWaveModel(WaveModelBase):
         if self.uniform:
             b.mul_(self.c2_scalar)
         a_c, a_s = sources.linear_source_coeffs(t, self.source, self.c_src)
-        b.add_(self.s_cos, alpha=a_c)
+        vec.axpy_(a_c, self.s_cos, b)
         if self.s_sin is not None:
-            b.add_(self.s_sin, alpha=a_s)
+            vec.axpy_(a_s, self.s_sin, b)
         if self.fvec is not None:
             b.addcmul_(v, self.fvec)
         return vec.pointwise_divide(b, self.m)     # the diagonal solve

@@ -53,8 +53,8 @@ def rk4_step(rhs: Callable, state: RKState, dt: float,
         vn = v0 if a == 0.0 else vec.axpy(a * dt, kv, v0)
         ku = vn                          # f0: ku = v (vn is never written)
         kv = rhs(t + c * dt, un, vn)
-        u.add_(ku, alpha=b * dt)
-        v.add_(kv, alpha=b * dt)
+        vec.axpy_(b * dt, ku, u)
+        vec.axpy_(b * dt, kv, v)
     return RKState(u=u, v=v, ku=ku, kv=kv, t=t + dt)
 
 

@@ -153,11 +153,11 @@ class WesterveltModel(WaveModelBase):
         b.sub_(vec.square(v) * self.mvec2)          # + nl * v^2 mass term
         (g_c, g_s), (dg_c, dg_s) = sources.westervelt_source_coeffs(
             t, self.source, self.c_src)
-        b.add_(self.s1_cos, alpha=g_c)
-        b.add_(self.s2_cos, alpha=dg_c)
+        vec.axpy_(g_c, self.s1_cos, b)
+        vec.axpy_(dg_c, self.s2_cos, b)
         if self.s1_sin is not None:
-            b.add_(self.s1_sin, alpha=g_s)
-            b.add_(self.s2_sin, alpha=dg_s)
+            vec.axpy_(g_s, self.s1_sin, b)
+            vec.axpy_(dg_s, self.s2_sin, b)
         if self.fvec is not None:
             b.addcmul_(v, self.fvec)
         return vec.pointwise_divide(b, m)           # the diagonal solve

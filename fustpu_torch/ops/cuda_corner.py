@@ -35,12 +35,22 @@ class-launch design that the walk replaced, kept as the comparison: one
 launch per parity or (stack colour, layer parity) class of scattered
 cells, each cell's threads reading its channels themselves.
 
+The walk also comes in bfloat16 (the JAX package's ``--dtype bf16``: the
+capacity mode at half the bytes).  Its bf16 forms store x, x2, y, the
+channels T, D and C in bfloat16 and compute in float32 (the GLL nodes and
+weights Q are float32 tensors), rounding y where they store it
+(``corner_walk.cuh``); they count in `bf16_launches`
+(``cuda_stiffness.count``).  The class-launch designs have float32 and
+float64 only.
+
 A wrapper given CPU tensors runs the plain version (`corner_plain` /
 `corner_pair_plain`: the channels expanded into the metric by
 `corner.expand_G`, then the plain G-stream apply of
-``fustpu_torch.ops.cuda_stiffness`` or ``cuda_extruded``).  Given CUDA
-tensors it launches the kernel or raises: there is no fallback.  Each
-wrapper counts its applies in `launches`, the class-launch designs' in
+``fustpu_torch.ops.cuda_stiffness`` or ``cuda_extruded``; in bfloat16 the
+channels widened to float32 and the metric expanded and kept in float32,
+the apply in float32 and y rounded once).  Given CUDA tensors it launches
+the kernel or raises: there is no fallback.  Each wrapper counts its
+applies in `launches` (or `bf16_launches`), the class-launch designs' in
 `class_launches` (one per apply).
 """
 
@@ -65,10 +75,12 @@ class_launches = {name: 0 for name in (
     "corner_classes", "corner_classes_pair", "extruded_corner_classes",
     "extruded_corner_classes_pair", "extruded_corner_hex27_classes",
     "extruded_corner_hex27_classes_pair")}
+# the walk's bfloat16 forms (``cuda_stiffness.count``)
+bf16_launches = {f"{name}_bf16": 0 for name in launches}
 
 
 def reset_launches() -> None:
-    for counts in (launches, class_launches):
+    for counts in (launches, class_launches, bf16_launches):
         for k in counts:
             counts[k] = 0
 
@@ -81,7 +93,9 @@ class CornerCellStiffness(NamedTuple):
                                      # last; box order cx*ncy*ncz + cy*ncz
                                      # + cz or stack order s*nz + kz
     D: torch.Tensor                  # (n, n) D[q, i] = l_i'(x_q)
-    Q: torch.Tensor                  # (2, n) unit GLL nodes, then weights
+    Q: torch.Tensor                  # (2, n) unit GLL nodes, then weights,
+                                     # in the arithmetic type (float32 for
+                                     # bfloat16 channels)
     geom_deg: int                    # 1 (hex8) or 2 (hex27, extruded only)
     nc: tuple | None = None          # box: cells per axis
     rows: torch.Tensor | None = None  # extruded: (ns, n^2) int32 row ids
@@ -105,7 +119,8 @@ class CornerCellStiffness(NamedTuple):
     @property
     def kernel(self) -> str:
         """The launch counter of the single-field kernel of this
-        operator (the class-launch design's: this and `_classes`)."""
+        operator's float32 / float64 form (the class-launch design's: this
+        and `_classes`; the bfloat16 form's: this and `_bf16`)."""
         if self.box:
             return "corner"
         return "extruded_corner" + ("_hex27" if self.geom_deg == 2 else "")
@@ -128,10 +143,11 @@ class CornerCellStiffness(NamedTuple):
 
 def _tensors(T: np.ndarray, D_1d: np.ndarray, dtype: torch.dtype, device,
              C: np.ndarray | None):
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                  device=device)
+    t = lambda a, dt=dtype: torch.as_tensor(np.ascontiguousarray(a),
+                                            dtype=dt, device=device)
     n = D_1d.shape[0]
-    return dict(T=t(T), D=t(D_1d), Q=t(cn.quadrature(n)),
+    return dict(T=t(T), D=t(D_1d),
+                Q=t(cn.quadrature(n), cs.arith_dtype(dtype)),
                 C=None if C is None else t(C))
 
 
@@ -204,9 +220,14 @@ def from_host_extruded(mesh, T: np.ndarray, D_1d: np.ndarray,
 def to_g_stream(op: CornerCellStiffness):
     """The G-stream operator (`cs.CellStiffness` or
     `ce.ExtrudedCellStiffness`) holding the metric that `op`'s channels
-    give, on op's device: the plain version's operator data."""
+    give, on op's device: the plain version's operator data.  The metric
+    is expanded in the walk's arithmetic type (`cs.arith_dtype`): bfloat16
+    channels are widened to float32 (exactly) and G stays float32, as the
+    kernel's metric never rounds to bfloat16; D and C stay as they are
+    (the plain apply widens them, ``spectral_mm.rounds_once``)."""
     n = op.P + 1
-    G = cn.expand_G(op.T, n, op.geom_deg, op.box)
+    G = cn.expand_G(op.T.to(cs.arith_dtype(op.T.dtype)), n, op.geom_deg,
+                    op.box)
     if op.box:
         return cs.CellStiffness(G=G, D=op.D, nc=op.nc, C=op.C)
     return ce.ExtrudedCellStiffness(G=G, D=op.D, rows=op.rows, nz=op.nz,
@@ -285,17 +306,18 @@ def card_schedule(op: CornerCellStiffness, x: torch.Tensor, pair: bool,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
+def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool,
+           classes: bool = False) -> None:
+    """Checks an apply's tensors: float32, float64 or (the walk only, not
+    the class-launch design) bfloat16."""
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"corner kernel: tensor on {x.device}, expected a "
                          "CUDA device")
-    if x.dtype not in _SUFFIX:
+    types = (torch.float32, torch.float64) if classes else tuple(cs.SUFFIX)
+    if x.dtype not in types:
         raise ValueError(f"corner kernel: dtype {x.dtype} unsupported "
-                         "(float32 or float64)")
+                         f"({', '.join(map(str, types))})")
     if not 2 <= op.P <= 10:
         raise ValueError(f"corner kernel: degree {op.P} outside 2..10")
     if op.geom_deg not in ((1,) if op.box else (1, 2)):
@@ -308,7 +330,7 @@ def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
         ncells = op.rows.shape[0] * op.nz
     shapes = [(t, op.grid_shape, x.dtype, "x") for t in xs] + [
         (op.T, (ncells, nch), x.dtype, "T"), (op.D, (n, n), x.dtype, "D"),
-        (op.Q, (2, n), x.dtype, "Q")]
+        (op.Q, (2, n), cs.arith_dtype(x.dtype), "Q")]
     if not op.box:
         shapes += [(op.rows, (op.rows.shape[0], n * n), torch.int32, "rows"),
                    (op.cells, (ncells,), torch.int32, "cells")]
@@ -337,7 +359,7 @@ def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool) -> None:
 
 def _walk_entry(op: CornerCellStiffness, pair: bool, dtype) -> str:
     kind = "corner_pencil" if op.box else f"{op.kernel}_stack"
-    return f"fustpu_{kind}{'_pair' if pair else ''}_{_SUFFIX[dtype]}"
+    return f"fustpu_{kind}{'_pair' if pair else ''}_{cs.SUFFIX[dtype]}"
 
 
 def _launch(name: str, op: CornerCellStiffness, xs, extra,
@@ -372,7 +394,7 @@ def _launch(name: str, op: CornerCellStiffness, xs, extra,
             err = fn(*args, ids.data_ptr(), *sched_args, op.nz, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    launches[name] += 1
+    cs.count(launches, bf16_launches, name, x.dtype)
     return y
 
 
@@ -384,7 +406,7 @@ def _launch_classes(name: str, op: CornerCellStiffness, xs,
     x = xs[0]
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     kernel = op.kernel + ("_pair" if len(xs) == 2 else "")
-    fn = getattr(_build.load(), f"fustpu_{kernel}_{_SUFFIX[x.dtype]}")
+    fn = getattr(_build.load(), f"fustpu_{kernel}_{cs.SUFFIX[x.dtype]}")
     ptrs = (*(t.data_ptr() for t in xs), *extra, op.T.data_ptr(),
             op.D.data_ptr(), op.Q.data_ptr())
     with torch.cuda.device(x.device):
@@ -406,7 +428,7 @@ def _apply(op: CornerCellStiffness, x: torch.Tensor, classes: bool = False,
            **schedule) -> torch.Tensor:
     if x.device.type == "cpu":
         return corner_plain(op, x)
-    _check(op, x, pair=False)
+    _check(op, x, pair=False, classes=classes)
     if classes:
         return _launch_classes(op.kernel + "_classes", op, (x,), ())
     return _launch(op.kernel, op, (x,), (), **schedule)
@@ -417,7 +439,7 @@ def _apply_pair(op: CornerCellStiffness, x1: torch.Tensor,
                 **schedule) -> torch.Tensor:
     if x1.device.type == "cpu":
         return corner_pair_plain(op, x1, x2)
-    _check(op, x1, x2, pair=True)
+    _check(op, x1, x2, pair=True, classes=classes)
     if classes:
         return _launch_classes(op.kernel + "_classes_pair", op, (x1, x2),
                                (op.C.data_ptr(),))

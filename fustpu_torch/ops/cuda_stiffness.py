@@ -134,6 +134,12 @@ def arith_size(itemsize: int) -> int:
     return 4 if itemsize == 2 else itemsize
 
 
+def arith_dtype(dtype: torch.dtype) -> torch.dtype:
+    """`arith_size` as a dtype: the type a kernel computes in, and holds
+    its GLL nodes and weights in, for fields of `dtype`."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 SMEM_BLOCK = 232_448     # shared bytes one block may use (H100)
 SMEM_SM = 233_472        # shared bytes an SM holds
 SMEM_RESERVED = 1_024    # of those, what each resident block reserves

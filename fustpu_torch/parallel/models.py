@@ -38,6 +38,7 @@ from fustpu_torch.ops import cuda_corner as cc
 from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.parallel import sharding as sh
 from fustpu_torch.utils.eval import PointSampler
+from fustpu_torch.utils.io import to_host
 
 # The attributes of a one-rank model that its coefficients and RHS read.
 _SCALARS = ("material", "source", "dtype", "uniform", "c_src", "c2_scalar",
@@ -89,10 +90,12 @@ def local_model(model, mesh, stiffness: nn.Module, vectors: dict, device):
 
 
 def host_vectors(model) -> dict:
-    """The one-rank model's diagonal vectors as flat host arrays in its
-    dtype (None where it has no such term)."""
+    """The one-rank model's diagonal vectors as flat host arrays (None
+    where it has no such term): in its dtype, a bfloat16 model's as
+    float32 (exact: numpy has no bfloat16), which `_load_vectors` casts
+    back at upload."""
     return {name: (None if getattr(model, name) is None else
-                   getattr(model, name).detach().cpu().numpy().reshape(-1))
+                   to_host(getattr(model, name)).reshape(-1))
             for name in model.VECTORS}
 
 
@@ -143,8 +146,8 @@ class RankPart:
 
     def blocks(self, field: torch.Tensor) -> list[np.ndarray]:
         """Every rank's part of a distributed field, in rank order (on
-        every rank)."""
-        return self.grid.all_gather(field.detach().cpu().numpy())
+        every rank; a bfloat16 field's as float32, exactly)."""
+        return self.grid.all_gather(to_host(field))
 
     def collect(self, field: torch.Tensor) -> np.ndarray:
         """A distributed field -> the global numpy array, on every rank."""
@@ -168,8 +171,9 @@ class RankPart:
 
     def split_state(self, host) -> timestepping.RKState:
         """The rank's state from a global host state (u, v, ku, kv, t)."""
-        t = lambda f: torch.as_tensor(self.block(f), dtype=self.model.dtype,
-                                      device=self.grid.device)
+        t = lambda f: torch.as_tensor(
+            self.block(np.asarray(f, np.float64)), dtype=self.model.dtype,
+            device=self.grid.device)
         u, v, ku, kv, t0 = host
         return timestepping.RKState(t(u), t(v), t(ku), t(kv), float(t0))
 

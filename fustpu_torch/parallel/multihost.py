@@ -244,6 +244,7 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
     from fustpu_torch.models.discretization import launch_counts
     from fustpu_torch.ops import (cuda_corner, cuda_engine, cuda_extruded,
                                   cuda_indexed, cuda_stiffness)
+    from fustpu_torch.utils.io import to_host
 
     out = []
     for case in cases:
@@ -306,7 +307,7 @@ def solve_cases(ctx, cases: list[dict]) -> list[dict]:
             r["t"] = final.t
             r["norm"] = norm
             if ys is not None:
-                r["ys"] = ys.detach().cpu().numpy()
+                r["ys"] = to_host(ys)
         out.append(r)
     return out
 

@@ -8,9 +8,10 @@ float32), on the conformal mesh, on its .msh round trip (--geometry
 unstructured, the extruded kernels) and on the non-prismatic bodyfit
 bowl's round trip (--geometry bodyfit, the indexed kernels), for the
 conformal and imported bowls again in the corner-streamed capacity mode
-(--stiffness-impl pallas_corner, the corner kernels), and for the bodyfit
-bowls on the staged engine (--stiffness-impl indexed_engine, three kernels
-an apply), it prints:
+(--stiffness-impl pallas_corner, the corner kernels) and once more in
+bfloat16 (--dtype bf16, the corner kernels' bf16 forms), and for the
+bodyfit bowls on the staged engine (--stiffness-impl indexed_engine, three
+kernels an apply), it prints:
   - ms per step without the profiler (CUDA events over STEPS steps);
   - ms per step under torch.profiler, and the device time per step split
     into the stiffness kernels, the other (elementwise) kernels and the
@@ -18,8 +19,9 @@ an apply), it prints:
   - the device's busy time (the union of the kernel and copy intervals)
     and its idle share, of the device span and of the host wall time;
   - the stiffness kernel's bytes per apply (G or the corner channels,
-    coefficients, index arrays and inputs read once, output written once)
-    and the rate that gives at the measured time.
+    coefficients, index arrays and inputs read once, output written once,
+    each in its stored type: 2 bytes a value in bfloat16) and the rate
+    that gives at the measured time.
 Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
 gives the card's achievable memory rate to hold those against.
 """
@@ -38,6 +40,7 @@ from fustpu_torch.demos import nonlinear_bowl
 
 FLAGSHIP = ["--elements", "64", "--degree", "4"]
 CORNER = ["--stiffness-impl", "pallas_corner"]
+BF16 = ["--dtype", "bf16"]
 ENGINE = ["--geometry", "bodyfit", "--stiffness-impl", "indexed_engine"]
 STEPS = 50
 COPY_GIB = 2.0
@@ -150,7 +153,8 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
     mode = {"pallas_corner": " corner", "indexed_engine": " engine"}
     config = (f"{args.geometry} "
               f"{'two-layer' if args.two_layer else 'uniform'}"
-              f"{mode.get(args.stiffness_impl, '')}")
+              f"{mode.get(args.stiffness_impl, '')}"
+              f"{' bf16' if args.dtype == 'bf16' else ''}")
     trace = trace_dir / f"trace_{config.replace(' ', '_')}.json"
     # one warm-up step of the profiler (two RK4 steps), then the active one
     with torch.profiler.profile(
@@ -215,6 +219,8 @@ def main() -> None:
                       CORNER + ["--geometry", "unstructured"],
                       CORNER + ["--geometry", "unstructured",
                                 "--two-layer"],
+                      CORNER + BF16, CORNER + BF16 + ["--two-layer"],
+                      CORNER + BF16 + ["--geometry", "unstructured"],
                       ENGINE, ENGINE + ["--two-layer"]):
             r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
             print(json.dumps(r), flush=True)

@@ -1,7 +1,8 @@
 """bfloat16 state in the port (the JAX package's ``--dtype bf16``): the
 port's bf16 models and plain applies against the JAX package's bf16
 models, on the CPU, and, on a card, the bf16 forms of the G-stream
-kernels (#1 / #2, #6, #11) against their plain versions.
+kernels (#1 / #2, #6, #11) against their plain versions (the corner
+walk's bf16 forms: ``tests/test_torch_bf16_corner.py``).
 
 The JAX package is imported inside the `ref` fixture (the tests that use
 it skip where JAX is missing), so that the card tests also run on a
@@ -409,6 +410,28 @@ def test_plain_bf16_is_float32_rounded_once(tmp_path, where):
                               xs[1].float()).to(BF16))
 
 
+def test_cpu_bf16_axpy_is_float32_rounded_once():
+    """`vector.axpy` / `axpy_` on bf16 CPU tensors: y + alpha x formed in
+    float32 and rounded once, so an element's result does not depend on
+    where it lies in the tensor (PyTorch's own CPU bf16 add rounds alpha
+    in its vector body and not in its scalar tail: a node two ranks share
+    would part across them)."""
+    from fustpu_torch.ops import vector as vec
+
+    rng = np.random.default_rng(5)
+    x, y = (torch.as_tensor(rng.standard_normal(1003)).to(BF16)
+            for _ in range(2))
+    alpha = 1.234e-3
+    want = torch.add(y.float(), x.float(), alpha=alpha).to(BF16)
+    got = vec.axpy(alpha, x, y)
+    assert got.dtype == BF16 and torch.equal(got, want)
+    tail = torch.stack([vec.axpy(alpha, x[k:k + 1], y[k:k + 1])[0]
+                        for k in range(x.numel())])
+    assert torch.equal(tail, want)
+    z = y.clone()
+    assert vec.axpy_(alpha, x, z) is z and torch.equal(z, want)
+
+
 def test_plain_apply_functions_round_once():
     """`rounds_once` on the three plain modules' entry points: float32 in,
     float32 out unchanged; bf16 in, the float32 result rounded once."""
@@ -538,9 +561,12 @@ def test_fustpu_bf16_checkpoint_reads_back(ref, tmp_path):
     ("pallas_corner", "prismatic"), ("indexed_engine", "prismatic"),
     ("indexed_engine", "general")])
 def test_corner_and_engine_refuse_bf16(tmp_path, impl, where):
-    """The routes with no bf16 form yet (the corner mode on a box or a
-    prismatic import, the staged engine) refuse a bf16 model, naming
-    ROADMAP, on the CPU and on the card; in float32 they resolve."""
+    """The staged engine, which has no bf16 form yet, refuses a bf16 model,
+    naming ROADMAP and the next slice, on the CPU and on the card; in
+    float32 it resolves.  The corner mode on a box or a prismatic import,
+    which refused bf16 until its walk had bf16 forms, resolves bf16 as it
+    resolves float32, and a bf16 model there builds its corner operator
+    with bf16 channels and float32 GLL nodes and weights."""
     if where == "box":
         mesh = build_box_mesh((3, 3, 3), 2)
         sf, af = mesh.boundary_facets("x-"), mesh.boundary_facets("x+")
@@ -549,15 +575,27 @@ def test_corner_and_engine_refuse_bf16(tmp_path, impl, where):
         mesh = msh_io.read_msh(path, 2,
                                detect_extrusion=where == "prismatic")
         sf, af = mesh.boundary_facets(1), mesh.boundary_facets(2)
+    build = functools.partial(
+        WesterveltModel, mesh, Material(sound_speed=1500.0, density=1000.0),
+        Source(frequency=0.5e6, amplitude=1e5), sf, af, dtype=BF16,
+        device="cpu", stiffness_impl=impl)
     for device in ("cpu", "cuda"):
+        f32 = dz.resolve_stiffness_impl(impl, device, mesh, torch.float32)
+        assert f32 in ("cuda", "mm")
+        if impl == "indexed_engine":
+            with pytest.raises(ValueError, match="ROADMAP.*next slice"):
+                dz.resolve_stiffness_impl(impl, device, mesh, BF16)
+        else:
+            assert dz.resolve_stiffness_impl(impl, device, mesh, BF16) == f32
+    if impl == "indexed_engine":
         with pytest.raises(ValueError, match="ROADMAP"):
-            dz.resolve_stiffness_impl(impl, device, mesh, BF16)
-        assert dz.resolve_stiffness_impl(impl, device, mesh,
-                                         torch.float32) in ("cuda", "mm")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        WesterveltModel(mesh, Material(sound_speed=1500.0, density=1000.0),
-                        Source(frequency=0.5e6, amplitude=1e5), sf, af,
-                        dtype=BF16, device="cpu", stiffness_impl=impl)
+            build()
+        return
+    model = build()
+    assert isinstance(model.stiffness, dz.CornerStiffness)
+    assert model.stiffness.T.dtype == BF16 == model.stiffness.D.dtype
+    assert model.stiffness.Q.dtype == torch.float32
+    assert "_G_host" not in model.disc.__dict__
 
 
 def test_corner_name_on_a_general_mesh_takes_bf16(tmp_path):

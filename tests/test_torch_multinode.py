@@ -2,7 +2,7 @@
 `python -m fustpu_torch.parallel.multihost` as one rank of a process group
 joined over ``tcp://`` or ``env://`` (the JAX package's separately
 launched `run_multiprocess_check`), and `linear_piston --ranks 2` against
-the one-rank run."""
+the one-rank run, in float64 and in bfloat16."""
 
 import numpy as np
 import pytest
@@ -53,3 +53,20 @@ def test_piston_over_ranks_matches_one_rank():
     assert np.abs(t2 - t1).max() <= TOL * np.abs(t1).max()
     assert abs(dev2 - dev1) <= TOL
     assert res[0]["stiffness"] == "ExtrudedStiffness"
+
+
+def test_piston_over_ranks_bf16_matches_one_rank():
+    """`linear_piston --ranks 2 --dtype bf16`: the bf16 sharded piston's
+    vectors and rank 0's probe trace (read through `to_host`) give the
+    one-rank bf16 run's trace and O'Neil figure bitwise, as the JAX
+    package's bf16 sharded run gives its single-device one."""
+    argv = ["--device", "cpu", "--dtype", "bf16", "--degree", "2",
+            "--periods", "0.2", "--progress-every", "1000"]
+    model, state, dev1, n1, t1 = linear_piston.main(argv)
+    _, res, dev2, n2, t2 = linear_piston.main(argv + ["--ranks", "2"])
+    assert model.dtype == state.u.dtype == torch.bfloat16
+    assert n1 == n2 and t1.shape == t2.shape == (n1, 13)
+    assert np.isfinite(t2).all() and np.abs(t2).max() > 0.0
+    assert np.array_equal(t2, t1) and dev2 == dev1
+    assert res[0]["stiffness"] == "ExtrudedStiffness"
+    assert all(not r["launches"] for r in res)

@@ -6,8 +6,12 @@ uniform, heterogeneous (the folded coefficient and the pair kernel), a
 cell count that no grid divides, the corner-streamed mode, probes,
 distributed norms, a start from the JAX package's mid-run state, and the
 shared planes bitwise consistent across ranks; and one case without the
-exchange (`exchange=False`), which must differ.  The ranks of one rank
-count run all their cases in one process group (one spawn per count).
+exchange (`exchange=False`), which must differ.  Two bfloat16 cases (the
+JAX package's ``--dtype bf16``; G stream and corner mode) ride in the
+2-rank group, held to the port's one-rank bf16 solve and to the JAX
+package's bf16 ShardedModel.
+The ranks of one rank count run all their cases in one process group
+(one spawn per count).
 """
 
 from types import SimpleNamespace
@@ -23,6 +27,7 @@ from fustpu_torch.models.linear import LinearWaveModel
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.parallel import multihost
 from fustpu_torch.parallel import sharding as sh
+from fustpu_torch.utils.io import to_host
 
 torch.set_num_threads(1)
 
@@ -62,6 +67,26 @@ CASES = {
 }
 
 
+# bfloat16 cases, 10 steps each: name -> (CASES' tuple, its JAX twin's
+# name).  Each rank rounds its part of a stiffness apply to bf16 before
+# the exchange sums the shared planes, where the one-rank apply rounds the
+# whole sum once: the shared planes may differ in the last bit, so the
+# sharded solve is held to the one-rank bf16 solve at BF16_TOL (the bf16
+# 10-step gate), not bitwise.  Against the JAX package's bf16 sharded
+# model: TRAJ_TOL of tests/test_torch_bf16.py, at which that file holds
+# the one-rank bf16 model to the JAX package's (its bf16 time quantises
+# the source at each stage).
+BF16_CASES = {
+    "bf16_westervelt_2x1x1": (2, "westervelt", (4, 2, 2), 3, "two_layer",
+                              (2, 1, 1), False),
+    "bf16_corner_2x1x1": (2, "westervelt", (4, 4, 4), 2, "two_layer",
+                          (2, 1, 1), True),
+}
+BF16_STEPS = 10
+BF16_TOL = 2e-2
+TRAJ_TOL = 0.2
+
+
 def rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300)
@@ -84,14 +109,17 @@ def _material(kind, nc, cls):
 
 
 def _models(name, ref=None):
-    """(port one-rank float64 CPU model, JAX model or None) of a case."""
-    _, kind, nc, degree, mat, _, corner = CASES[name]
+    """(port one-rank CPU model, JAX model or None) of a case: float64, or
+    bfloat16 for BF16_CASES."""
+    bf16 = name in BF16_CASES
+    _, kind, nc, degree, mat, _, corner = (BF16_CASES if bf16 else
+                                           CASES)[name]
     mesh = build_box_mesh(nc, degree, hi=(L, L, L))
     kw = _material(mat, nc, kind)
     cls = WesterveltModel if kind == "westervelt" else LinearWaveModel
     model = cls(mesh, Material(**kw), Source(frequency=1.1e6, amplitude=1e5),
                 mesh.boundary_facets("x-"), mesh.all_boundary_facets(),
-                dtype=F64, device="cpu",
+                dtype=torch.bfloat16 if bf16 else F64, device="cpu",
                 stiffness_impl="pallas_corner" if corner else "auto")
     if ref is None:
         return model, None
@@ -100,7 +128,7 @@ def _models(name, ref=None):
     fmodel = fcls(fmesh, ref.config.Material(**kw),
                   ref.config.Source(frequency=1.1e6, amplitude=1e5),
                   fmesh.boundary_facets("x-"), fmesh.all_boundary_facets(),
-                  dtype=ref.jnp.float64)
+                  dtype=ref.jnp.bfloat16 if bf16 else ref.jnp.float64)
     return model, fmodel
 
 
@@ -129,11 +157,12 @@ def runs(ref, tmp_path_factory):
     sharded run."""
     files = tmp_path_factory.mktemp("out")
     out, groups = {}, {}
-    for name, (ranks, *_, grid, _c) in CASES.items():
+    for name, (ranks, *_, grid, _c) in {**CASES, **BF16_CASES}.items():
         model, fmodel = _models(name, ref)
         dt, _ = model.cfl_dt(0.4)
+        steps = BF16_STEPS if name in BF16_CASES else STEPS
         fsm = ref.FSharded(fmodel, ref.sh.DeviceGrid.create(grid))
-        case = dict(model=model, grid=grid, steps=STEPS, dt=dt,
+        case = dict(model=model, grid=grid, steps=steps, dt=dt,
                     probe=POINTS, exchange_reps=2,
                     dist_output=str(files / name),
                     checkpoint=str(files / name / "ck"))
@@ -144,9 +173,9 @@ def runs(ref, tmp_path_factory):
             host = convert.sharded_state_from_fustpu(fsm, fs0)
             case["state"] = host
             s0 = convert.state_from_fustpu(host, F64, "cpu")
-        one, ys = model.solve(s0, dt, STEPS, probe=_one_rank_probe(model))
-        fout, fys = fsm.solve(fs0, dt, STEPS, probe=fsm.probe_fn(POINTS))
-        out[name] = SimpleNamespace(model=model, one=one, ys=ys.numpy(),
+        one, ys = model.solve(s0, dt, steps, probe=_one_rank_probe(model))
+        fout, fys = fsm.solve(fs0, dt, steps, probe=fsm.probe_fn(POINTS))
+        out[name] = SimpleNamespace(model=model, one=one, ys=to_host(ys),
                                     fsm=fsm, fout=fout, fys=np.asarray(fys),
                                     files=files / name)
         groups.setdefault(ranks, []).append((name, case))
@@ -186,7 +215,7 @@ def _one_rank_probe(model):
     from fustpu_torch.utils.eval import PointSampler
 
     smp = PointSampler(model.mesh, POINTS)
-    return lambda s: torch.as_tensor(smp.sample(s.u.numpy()))
+    return lambda s: torch.as_tensor(smp.sample(to_host(s.u)))
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -200,6 +229,50 @@ def test_sharded_matches_one_rank(runs, name):
     assert rel(s["ys"], r.ys) <= TOL
     # no kernel launches on CPU ranks: the plain versions run there
     assert all(not la for la in r.launches)
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_bf16_sharded_matches_one_rank(runs, name):
+    """A bf16 model on 2 ranks (`host_vectors`, `collect` and
+    `split_state` carry bf16 through float32) against the port's one-rank
+    bf16 solve: the same stiffness module (the corner-streamed one for
+    the corner case), finite, within BF16_TOL (see BF16_CASES), the
+    shared planes consistent, the probe trace within BF16_TOL."""
+    r = runs[name]
+    s = r.sharded
+    assert r.one.u.dtype == torch.bfloat16
+    assert s["stiffness"] == type(r.model.stiffness).__name__
+    assert (s["stiffness"] == "CornerStiffness") == BF16_CASES[name][-1]
+    assert s["u"].shape == r.one.u.shape and np.isfinite(s["u"]).all()
+    assert rel(s["u"], to_host(r.one.u)) <= BF16_TOL
+    assert rel(s["v"], to_host(r.one.v)) <= BF16_TOL
+    assert rel(s["ys"], r.ys) <= BF16_TOL
+    assert s["u_consistent"] and s["v_consistent"] and s["kv_consistent"]
+    assert all(not la for la in r.launches)
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_bf16_sharded_matches_fustpu_sharded(runs, name):
+    """The same run against the JAX package's bf16 ShardedModel on as
+    many virtual devices, at TRAJ_TOL (see BF16_CASES); the port's
+    sharded state resumes from that model's collected mid-run state
+    (`split_state` of ml_dtypes bfloat16 arrays) bitwise."""
+    r = runs[name]
+    s = r.sharded
+    fu = r.fsm.collect(r.fout.u)
+    assert str(np.asarray(fu).dtype) == "bfloat16"
+    assert rel(s["u"], np.asarray(fu, np.float64)) <= TRAJ_TOL
+    from fustpu_torch.parallel.models import ShardedModel
+
+    host = convert.sharded_state_from_fustpu(r.fsm, r.fout)
+    ranks, *_, grid, _c = BF16_CASES[name]
+    for rank in range(ranks):
+        sm = ShardedModel(r.model, sh.RankGrid(shape=grid, rank=rank,
+                                               device="cpu"))
+        st = sm.split_state(host)
+        assert st.u.dtype == torch.bfloat16
+        assert np.array_equal(to_host(st.u),
+                              sm.block(np.asarray(host[0], np.float64)))
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -373,3 +446,26 @@ def test_sharded_box_demo_cli(tmp_path):
         dist_io.assemble_snapshot(str(tmp_path / "snaps"), "u_000006"), u)
     assert sorted(p.name for p in (tmp_path / "snaps").glob("u_*")) == [
         f"u_00000{k}.d0000{r}.npy" for k in (3, 6) for r in (0, 1)]
+
+
+def test_sharded_box_demo_cli_bf16():
+    """The sharded box demo in bf16 on 2 gloo CPU ranks (the bf16 sharded
+    model's vectors, exchange and collected fields): a finite, non-zero
+    field and no kernel launch."""
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    cmd = [sys.executable, "-m", "fustpu_torch.demos.sharded_box",
+           "--ranks", "2", "--device", "cpu", "--dtype", "bf16",
+           "--elements", "4", "--degree", "2", "--steps", "6",
+           "--progress-every", "3"]
+    out = subprocess.run(cmd, cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "rank grid (2, 1, 1), 2 ranks (gloo on cpu)" in out.stdout
+    assert "steps: 6/6" in out.stdout
+    m = re.search(r"max \|u\| (\S+);", out.stdout)
+    assert m and np.isfinite(float(m.group(1))) and float(m.group(1)) > 0
+    assert "launches per rank [{}, {}]" in out.stdout

@@ -7,7 +7,11 @@ hex27 prism, linear and Westervelt, uniform and two-layer (the pair form),
 probes and the norm probe; a general (non-prismatic) mesh over 2 ranks and
 a ragged 5, on the indexed kernel and on the staged engine; the RCB
 partition equal to the JAX package's, and shared rows and DOFs bitwise
-consistent across ranks.  One spawn per rank count.
+consistent across ranks.  Two bfloat16 cases (the JAX package's
+``--dtype bf16``: the cylinder on the extruded kernels, the general mesh
+on the indexed kernel) ride in the 2-rank group, held to the port's
+one-rank bf16 solve and to the JAX package's bf16 sharded models.  One
+spawn per rank count.
 """
 
 from pathlib import Path
@@ -30,6 +34,7 @@ from fustpu_torch.parallel.extruded import (ExtrudedShardedModel,
                                             rcb_partition,
                                             shard_unstructured)
 from fustpu_torch.parallel.sharding import RankGrid
+from fustpu_torch.utils.io import to_host
 
 torch.set_num_threads(1)
 
@@ -74,6 +79,28 @@ CASES = {
     "ragged_linear_engine": (5, "general", "linear", "random", "auto",
                              "indexed_engine"),
 }
+
+
+# bfloat16 cases, 10 steps each, in CASES' form.  The ranks round their
+# parts of a stiffness apply to bf16 before the exchange sums the shared
+# entries, the one-rank apply rounds the whole sum once, so the sharded
+# solve is held to the one-rank bf16 solve at BF16_TOL (the bf16 10-step
+# gate), and to the JAX package's bf16 sharded model at TRAJ_TOL, at which
+# tests/test_torch_bf16.py holds the one-rank bf16 model to the JAX
+# package's (its bf16 time quantises the source at each stage).
+BF16_CASES = {
+    "bf16_cylinder_pair": (2, "cylinder", "westervelt", "two_layer", "auto",
+                           "auto"),
+    "bf16_general_indexed": (2, "general", "linear", "random", "auto",
+                             "indexed"),
+}
+BF16_STEPS = 10
+BF16_TOL = 2e-2
+TRAJ_TOL = 0.2
+# The JAX package's IndexedShardedModel does not run bf16 (its scan's
+# carry comes out float64, as on the CPU here); that case is held to the
+# JAX package's one-rank bf16 model instead.
+JAX_ONE_RANK = {"bf16_general_indexed"}
 
 
 def rel(a, b):
@@ -147,19 +174,25 @@ def _material(kind, mesh, west):
 
 
 def _build(ref, directory, name):
-    ranks, kind, model_kind, mat, impl, simpl = CASES[name]
+    bf16 = name in BF16_CASES
+    ranks, kind, model_kind, mat, impl, simpl = (BF16_CASES if bf16 else
+                                                 CASES)[name]
     mesh, fmesh, sf, af, pts = _meshes(ref, directory, kind)
     west = model_kind == "westervelt"
     kw = _material(mat, mesh, west)
     src = dict(frequency=0.5e6, amplitude=1.0e5)
     cls = WesterveltModel if west else LinearWaveModel
-    model = cls(mesh, Material(**kw), Source(**src), sf, af, dtype=F64,
-                device="cpu", stiffness_impl=impl)
+    model = cls(mesh, Material(**kw), Source(**src), sf, af,
+                dtype=torch.bfloat16 if bf16 else F64, device="cpu",
+                stiffness_impl=impl)
     fcls = ref.FWest if west else ref.FLinear
+    fdtype = ref.jnp.bfloat16 if bf16 else ref.jnp.float64
     fmodel = fcls(fmesh, ref.config.Material(**kw), ref.config.Source(**src),
-                  sf, af, dtype=ref.jnp.float64,
+                  sf, af, dtype=fdtype,
                   stiffness_impl="extruded" if kind == "hex27" else "auto")
-    if isinstance(fmesh, ref.ext.ExtrudedHexMesh):
+    if name in JAX_ONE_RANK:
+        fsm = fmodel
+    elif isinstance(fmesh, ref.ext.ExtrudedHexMesh):
         fsm = ref.pext.ExtrudedShardedModel(fmodel, num_devices=ranks)
     else:
         fsm = ref.pext.IndexedShardedModel(fmodel, num_devices=ranks,
@@ -171,20 +204,23 @@ def _build(ref, directory, name):
 def runs(ref, tmp_path_factory):
     directory = tmp_path_factory.mktemp("msh")
     out, groups = {}, {}
-    for name, (ranks, *_rest) in CASES.items():
+    for name, (ranks, *_rest) in {**CASES, **BF16_CASES}.items():
         model, fsm, pts, simpl = _build(ref, directory, name)
         dt, _ = model.cfl_dt(0.4)
+        steps = BF16_STEPS if name in BF16_CASES else STEPS
         smp = UPointSampler(model.mesh, pts)
-        one, ys = model.solve(model.init_state(), dt, STEPS, probe=lambda s:
-                              torch.as_tensor(smp.sample(s.u.numpy())))
-        fout, fys = fsm.solve(fsm.init_state(), dt, STEPS,
-                              probe=fsm.probe_fn(pts))
+        one, ys = model.solve(model.init_state(), dt, steps, probe=lambda s:
+                              torch.as_tensor(smp.sample(to_host(s.u))))
+        fout, fys = fsm.solve(fsm.init_state(), float(dt), steps,
+                              probe=None if name in BF16_CASES
+                              else fsm.probe_fn(pts))
         out[name] = SimpleNamespace(model=model, fsm=fsm, one=one,
-                                    ys=ys.numpy(), fout=fout,
-                                    fys=np.asarray(fys))
+                                    ys=to_host(ys), fout=fout,
+                                    fys=None if fys is None
+                                    else np.asarray(fys, np.float64))
         out[name].files = directory / name
         groups.setdefault(ranks, []).append((name, dict(
-            model=model, steps=STEPS, dt=dt, impl=simpl, probe=pts,
+            model=model, steps=steps, dt=dt, impl=simpl, probe=pts,
             norms=True, dist_output=str(directory / name),
             checkpoint=str(directory / name / "ck"))))
     for ranks, cases in groups.items():
@@ -208,6 +244,40 @@ def test_sharded_matches_one_rank(runs, name):
     norm = float(np.linalg.norm(r.one.u))
     assert abs(s["ys"][-1, npts] - norm) <= JAX_TOL * norm
     assert abs(s["norm"] - norm) <= TOL * norm
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_bf16_sharded_matches_one_rank(runs, name):
+    """A bf16 model on 2 ranks of an imported mesh (the extruded and the
+    indexed sharding, both through `host_vectors` and `collect`) against
+    the port's one-rank bf16 solve: finite, within BF16_TOL (see
+    BF16_CASES), the shared entries consistent, the probe traces within
+    BF16_TOL, the stiffness module the float64 cases' on that mesh."""
+    r = runs[name]
+    s = r.sharded
+    assert r.one.u.dtype == torch.bfloat16 and np.isfinite(s["u"]).all()
+    assert rel(s["u"], to_host(r.one.u).reshape(-1)) <= BF16_TOL
+    assert rel(s["v"], to_host(r.one.v).reshape(-1)) <= BF16_TOL
+    npts = r.ys.shape[1]
+    assert rel(s["ys"][:, :npts], r.ys) <= BF16_TOL
+    assert s["u_consistent"] and s["v_consistent"] and s["kv_consistent"]
+    want = ("ExtrudedStiffness" if BF16_CASES[name][1] == "cylinder"
+            else "IndexedStiffness")
+    assert all(rk["stiffness"] == want for rk in r.ranks)
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_bf16_sharded_matches_fustpu_sharded(runs, name):
+    """The same runs' u against the JAX package's bf16
+    ExtrudedShardedModel on 2 virtual devices, or its one-rank bf16 model
+    (JAX_ONE_RANK), at TRAJ_TOL (see BF16_CASES).  (The probe traces are
+    not compared: from rest the field is the source's alone, which the JAX
+    package's bf16 time quantises.)"""
+    r = runs[name]
+    s = r.sharded
+    fu = (r.fout.u if name in JAX_ONE_RANK else r.fsm.collect(r.fout.u))
+    assert str(np.asarray(fu).dtype) == "bfloat16"
+    assert rel(s["u"], np.asarray(fu, np.float64).reshape(-1)) <= TRAJ_TOL
 
 
 @pytest.mark.parametrize("name", list(CASES))

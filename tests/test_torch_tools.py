@@ -126,6 +126,25 @@ def test_stiffness_bytes_counts_the_corner_channels():
         mesh.num_cells * 37 * 4 + 2 * field
 
 
+def test_stiffness_bytes_counts_bf16_corner_channels():
+    """The bf16 capacity mode's bytes: the corner channels and the fields
+    at 2 bytes a value (the GLL nodes and weights, float32, are the
+    kernel's constants, not the function's inputs)."""
+    from fustpu_torch.config import Material, Source
+    from fustpu_torch.mesh.box import build_box_mesh
+    from fustpu_torch.models.linear import LinearWaveModel
+    from fustpu_torch.tools.profile_step import _stiffness_bytes
+
+    mesh = build_box_mesh((3, 2, 2), 2)
+    model = LinearWaveModel(mesh, Material(), Source(),
+                            mesh.boundary_facets("x-"), None,
+                            dtype=torch.bfloat16, device="cpu",
+                            stiffness_impl="pallas_corner")
+    assert model.stiffness.T.dtype == torch.bfloat16
+    assert _stiffness_bytes(model.stiffness, mesh.ndofs) == \
+        mesh.num_cells * 37 * 2 + 2 * mesh.ndofs * 2
+
+
 def test_summarize_trace_counts_the_engine_kernels():
     """The staged engine's three kernels count as the stiffness group, and
     an apply's minimum bytes are the indexed kernel's (G, dofmap, fields):
