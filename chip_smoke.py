@@ -240,12 +240,27 @@ Phases (each prints its time; any failure exits non-zero):
      two-layer, each vs plain and 50 steps, ms a step in turns (34h); the
      capacity demo in bf16 at its default size, its peak device memory
      and what its model holds beside 19a's float32, #3 bf16 vs plain at
-     that size (after 19b; 34i).
+     that size (after 19b; 34i); bf16 on the staged engine, the bf16 forms
+     of #7-#10: each kernel against its plain version (bf16 in, float32
+     arithmetic, y2 and y rounded where they are stored) <= 2^-7 at P =
+     2..10 on phase 20's meshes, the gathers bitwise `index_select`, the
+     composed apply and pair <= 2^-7 and within 1e-2 of bf16 #11 on the
+     same buffers, two applies bitwise, every bf16 engine counter moved
+     (after phase 20; 34j); the bodyfit bowl on the engine in bf16 on
+     phase 13a's import (after 21b): each kernel against its plain version
+     at that size and timed, 10 steps kernel vs plain and vs the bf16 #11
+     model <= 2e-2, 50 steps counted, ms a step in turns with the float32
+     engine and bf16 #11, the device bytes of the model and of a solve
+     beside the float32 engine's, and its two-layer form (pair, after 21c)
+     in the same way (34k); the P=6 bodyfit bowl on the engine in bf16
+     (after 21d): kernels vs plain, 50 steps, ms a step in turns with 21d's
+     float32 engine (34l); the bf16 engine bodyfit bowl on phase 22's 4
+     gloo ranks against its one-rank run <= 2e-2 (22e).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, 34b-e,
-34g-i, in every rank of 22 its solve, and the demos of 24, 25, 26, 27a,
-28, 31 and 32b-i and the turns of 29) has the launch counters reset just
-before it and read just after.
+34g-i, 34k-l, in every rank of 22 its solve, and the demos of 24, 25, 26,
+27a, 28, 31 and 32b-i and the turns of 29) has the launch counters reset
+just before it and read just after.
 The script's total time is printed after the last phase; then the
 kernels' JSON summary, the card's name and power limit, and as the last
 line the result.
@@ -334,8 +349,10 @@ ISO_BAND = 0.02
 # bodyfit bowl.
 BF16_TOL = 2.0 ** -7
 # a bf16 corner kernel against the bf16 G-stream kernel on the same mesh
-# and inputs: two bf16 operators (the metric rebuilt in float32 from bf16
-# channels, or G rounded to bf16), each within ~5e-3 of float64
+# and inputs, or the bf16 engine against bf16 #11 on the same buffers: two
+# bf16 operators (the metric rebuilt in float32 from bf16 channels, or G
+# rounded to bf16; y2 and y rounded, or y alone), each within ~5e-3 of
+# float64
 BF16_G_TOL = 1e-2
 # the depth of the plain versions' runs of the bowls beside their kernels'
 # whole solves (13c, 34b): the first PLAIN_DEPTH steps, about a sixth of
@@ -537,6 +554,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
     # the staged engine's kernels: one launch of each per apply
     STAGED = ("engine_gather", "engine_contract", "engine_scatter")
+    STAGED16 = tuple(f"{k}_bf16" for k in STAGED)
     # phase 22: each model is saved for the ranks, and run alone for the
     # reference, where it is built; the ranks run in groups (ranks_group)
     ranks_dir = tempfile.TemporaryDirectory()
@@ -646,14 +664,15 @@ def main() -> None:
                 ok = r0["u_consistent"] and r0["v_consistent"] and \
                     r0["kv_consistent"]
                 launches = [r[i]["launches"] for r in res]
-                kernel = STAGED if r0["kernel"] == "engine" else \
-                    (r0["kernel"],)
+                kernel = {"engine": STAGED, "engine_bf16": STAGED16}.get(
+                    r0["kernel"], (r0["kernel"],))
+                tol = c.get("ref_tol", TRAJ_TOL)
                 print(f"   {name}: {nprocs} rank(s) sharing one H100 "
                       f"({backend}; not a multi-GPU speed) {smi}: "
                       f"{r0['ms_per_step']:.4f} ms/step over {c['steps']} "
                       f"steps, exchange {r0['exchange_ms']:.4f} ms per "
                       f"stage; vs one rank rel-l2(u) {err:.3e}, probes "
-                      f"(max relative) {perr:.3e} (tol {TRAJ_TOL}), "
+                      f"(max relative) {perr:.3e} (tol {tol}), "
                       f"{'bitwise equal' if same else 'not bitwise equal'};"
                       f" shared entries consistent {ok}; stiffness "
                       f"{r0['stiffness']}; launches per rank {launches}",
@@ -667,7 +686,7 @@ def main() -> None:
                         fail(f"{name}: without the exchange the shared "
                              f"entries are consistent ({ok}) or u equals the "
                              f"one-rank run ({err:.3e})")
-                elif not (err <= TRAJ_TOL and perr <= TRAJ_TOL and ok):
+                elif not (err <= tol and perr <= tol and ok):
                     fail(f"{name}: sharded vs one rank {err:.3e}, probes "
                          f"{perr:.3e}, consistent {ok}")
                 if any(la.get(k, 0) != 4 * c["steps"]
@@ -1584,6 +1603,113 @@ def main() -> None:
         if not all(cen.launches.values()) or \
                 not all(cen.comparison_launches.values()):
             fail("an engine kernel's launch counter did not move")
+
+    # ---- the y2 storage of the bf16 engine: both forms are checked and
+    # ---- timed in turns while both exist (34j, 34k)
+    Y2_FORMS = {"y2 bf16": BF16, "y2 f32": torch.float32}
+
+    def engine16_forms(kind, fn):
+        """`fn(form)` under each y2 storage of the bf16 engine, then the
+        module's own again; {form: result}."""
+        own, out = eng.Y2_BF16, {}
+        try:
+            for form in (kind,) if kind else Y2_FORMS:
+                eng.Y2_BF16 = Y2_FORMS[form]
+                out[form] = fn(form)
+        finally:
+            eng.Y2_BF16 = own
+        return out
+
+    with phase("34j bf16 engine kernels vs plain, P=2..10: #7-#10 alone, "
+               "the composed apply and pair, against bf16 #11 on the same "
+               "buffers, on phase 20's meshes"), \
+            tempfile.TemporaryDirectory() as tmp:
+        worst16 = {}
+        cen.reset_launches()
+        for P in range(2, 11):
+            v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
+                                           nr_ann=1, nz=4 if P <= 6 else 2)
+            cyl = msh_io.read_msh(msh_io.write_msh(
+                str(Path(tmp) / f"ecyl{P}"), v, c, t), P,
+                detect_extrusion=False)
+            box = from_box(build_box_mesh(
+                (5, 3, 7) if P <= 6 else (3, 3, 4), P, hi=(1.0, 0.8, 1.3),
+                perturb=0.15, seed=P), shuffle_seed=11)
+            for mname, mesh in (("cylinder", cyl), ("box", box)):
+                disc = Discretization(mesh)
+                c1 = rng16.uniform(0.5, 2.0, mesh.num_cells)
+                c2 = rng16.uniform(-1.5, -0.5, mesh.num_cells)
+                x1, x2 = (torch.as_tensor(rng16.standard_normal(mesh.ndofs),
+                                          device=dev).to(BF16)
+                          for _ in range(2))
+                for label, kw in (("single", {}), ("single+coeff",
+                                                   {"coeff": c1}),
+                                  ("pair", {"pair": (c1, c2)})):
+                    pair = "pair" in kw
+                    op = disc.stiffness_op(BF16, dev, engine=True, **kw)
+                    p16 = cen.to_plain(op)
+                    iop = (None if "coeff" in kw
+                           else cen.to_indexed(op, disc.chunk_plan))
+
+                    def check(form):
+                        if pair:
+                            u1, u2 = cen.gather2(op, x1, x2)
+                            ok = (torch.equal(u1.reshape(-1),
+                                              x1.index_select(0, p16.g))
+                                  and torch.equal(u2.reshape(-1),
+                                                  x2.index_select(0, p16.g)))
+                            yk = cen.contract(op, u1, u2)
+                            yp = eng.dense_contract(
+                                eng.fold(u1, p16.c1, u2, p16.c2), p16.G6,
+                                p16.D)
+                        else:
+                            u1 = cen.gather(op, x1)
+                            ok = torch.equal(u1.reshape(-1),
+                                             x1.index_select(0, p16.g))
+                            yk = cen.contract(op, u1)
+                            yp = eng.dense_contract(u1, p16.G6, p16.D,
+                                                    p16.coeff)
+                        ys = cen.scatter(op, yk)
+                        errs = {
+                            "contract": rel_l2(yk, yp),
+                            "scatter": rel_l2(ys, eng.scatter_add(
+                                yk, p16.g, mesh.ndofs, BF16))}
+                        run = (lambda: cen.engine_pair(op, x1, x2)) if pair \
+                            else (lambda: cen.engine(op, x1))
+                        y = run()
+                        errs["apply"] = rel_l2(y, cen.engine_pair_plain(
+                            op, x1, x2) if pair else cen.engine_plain(op, x1))
+                        same = torch.equal(run(), y)
+                        if iop is not None:
+                            errs["vs #11"] = rel_l2(y, ci.indexed_pair(
+                                iop, x1, x2) if pair else ci.indexed(iop, x1))
+                        torch.cuda.synchronize()
+                        if not (ok and same):
+                            fail(f"34j: P={P} {mname} {label} {form}: gather "
+                                 f"bitwise index_select {ok}, two applies "
+                                 f"bitwise {same}")
+                        for k, e in errs.items():
+                            tol = BF16_G_TOL if k == "vs #11" else BF16_TOL
+                            if not e <= tol:
+                                fail(f"34j: P={P} {mname} {label} {form}: "
+                                     f"{k} {e:.3e} > {tol}")
+                            key = f"{form} {k}"
+                            worst16[key] = max(worst16.get(key, 0.0), e)
+                        return errs
+
+                    res = engine16_forms(None, check)
+                    print(f"   P={P:2d} {mname:8s} {label:13s} " + "; ".join(
+                        f"{form}: " + ", ".join(f"{k} {e:.3e}"
+                                                for k, e in errs.items())
+                        for form, errs in res.items()), flush=True)
+        print(f"   worst rel-l2 (tol {BF16_TOL}, against bf16 #11 "
+              f"{BF16_G_TOL}): " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in worst16.items())
+              + f"; the gathers bitwise index_select, two applies bitwise; "
+              f"launches {dict(cen.launches)}, {dict(cen.bf16_launches)}")
+        if not all(cen.bf16_launches.values()) or any(cen.launches.values()):
+            fail(f"34j: the bf16 engine counters {dict(cen.bf16_launches)}, "
+                 f"the float32 ones {dict(cen.launches)}")
 
     with phase("23 slab2 and slab2w kernels vs plain, P=2..10: the walk "
                "and the class-launch design"):
@@ -3542,6 +3668,191 @@ def main() -> None:
         bbowl.mesh.__dict__.pop("_vtk_cells")
         del s20
 
+    def engine16_kernels(model, label, form):
+        """The bf16 engine model's kernels at this size, y2 stored as in
+        `form`: each against its plain version on the same bf16 inputs (the
+        gathers bitwise, the rest <= BF16_TOL) and timed, with its least
+        bytes in stored types (``profile_step.engine_bytes``) and float32
+        operations; the composed apply against its plain version, repeated
+        bitwise, and against bf16 #11 on the same buffers (<= BF16_G_TOL),
+        timed in the same run.  Returns the entries for the JSON line."""
+        est = model.stiffness
+        op, ndofs = est.cell_op, model.mesh.ndofs
+        if not isinstance(est, EngineStiffness) or est.impl != "cuda" or \
+                op.G.dtype != BF16 or est.kernel != "engine_bf16":
+            fail(f"34: {label}: not the bf16 engine ({est.kernel})")
+        p16 = cen.to_plain(op)
+        n, cells = op.P + 1, op.dofmap.shape[0]
+        gb, cb, sb = profile_step.engine_bytes(op)
+        flops = cells * n ** 3 * (12 * n + 16 + (3 if est.is_pair else 0))
+        xs = [torch.as_tensor(rng16.standard_normal(ndofs), device=dev).to(
+            BF16) for _ in range(2 if est.is_pair else 1)]
+        out = {}
+
+        def entry(name, yk, yp, run, run_plain, cost, library=None,
+                  tol=BF16_TOL):
+            err = rel_l2(yk, yp)
+            if not err <= tol:
+                fail(f"34: {label} {form}: {name} vs plain {err:.3e} > {tol}")
+            out[name] = dict(
+                max_abs_err=float((yk.float() - yp.float()).abs().max()),
+                rel_l2=err, ms=time_ms(run, 20), plain_ms=time_ms(run_plain,
+                                                                  10),
+                cost=cost, library_ms=None if library is None
+                else time_ms(library, 20))
+
+        if est.is_pair:
+            u1, u2 = cen.gather2(op, *xs)
+            entry("engine_gather2_bf16",
+                  torch.cat([u1.reshape(-1), u2.reshape(-1)]),
+                  torch.cat(list(eng.gather2(*xs, p16.g))),
+                  lambda: cen.gather2(op, *xs),
+                  lambda: eng.gather2(*xs, p16.g), (gb, 0), tol=0.0)
+            yk = cen.contract(op, u1, u2)
+            plain_c = lambda: eng.dense_contract(
+                eng.fold(u1, p16.c1, u2, p16.c2), p16.G6, p16.D)
+            entry("engine_contract_bf16", yk, plain_c(),
+                  lambda: cen.contract(op, u1, u2), plain_c, (cb, flops))
+        else:
+            u1 = cen.gather(op, xs[0])
+            entry("engine_gather_bf16", u1.reshape(-1),
+                  eng.gather(xs[0], p16.g), lambda: cen.gather(op, xs[0]),
+                  lambda: eng.gather(xs[0], p16.g), (gb, 0),
+                  library=lambda: xs[0].index_select(0, p16.g), tol=0.0)
+            yk = cen.contract(op, u1)
+            plain_c = lambda: eng.dense_contract(u1, p16.G6, p16.D,
+                                                 p16.coeff)
+            entry("engine_contract_bf16", yk, plain_c(),
+                  lambda: cen.contract(op, u1), plain_c, (cb, flops))
+        plain_s = lambda: eng.scatter_add(yk, p16.g, ndofs, BF16)
+        entry("engine_scatter_bf16", cen.scatter(op, yk), plain_s(),
+              lambda: cen.scatter(op, yk), plain_s, (sb, 0))
+        # index_add_ on bf16 values accumulates in bf16: not the scatter's
+        # function (float32 sums rounded once), so its time stands apart
+        add_ms = time_ms(lambda: torch.zeros(ndofs, dtype=BF16, device=dev)
+                         .index_add_(0, p16.g, yk.reshape(-1).to(BF16)), 20)
+        run = (lambda m: m.pair(*xs)) if est.is_pair else (lambda m: m(xs[0]))
+        pst = EngineStiffness(op, "mm")
+        y = run(est)
+        if not torch.equal(run(est), y):
+            fail(f"34: {label} {form}: two bf16 engine applies differ")
+        entry("engine_bf16", y, run(pst), lambda: run(est), lambda: run(pst),
+              (gb + cb + sb, flops))
+        iop = cen.to_indexed(op, model.disc.chunk_plan)
+        on11 = (lambda: ci.indexed_pair(iop, *xs)) if est.is_pair else \
+            (lambda: ci.indexed(iop, xs[0]))
+        e11, ms11 = rel_l2(y, on11()), time_ms(on11, 20)
+        for name, k in out.items():
+            print(f"   {smi}: {label} ({form}) {name}: {k}", flush=True)
+        print(f"   {smi}: {label} ({form}) at {cells} cells: the composed "
+              f"bf16 engine {out['engine_bf16']['ms']:.4f} ms per apply vs "
+              f"bf16 #11 on the same buffers {ms11:.4f} ms (same run), "
+              f"rel-l2 {e11:.3e} (tol {BF16_G_TOL}); index_add_ on bf16 "
+              f"(bf16 sums, not the same function) {add_ms:.4f} ms",
+              flush=True)
+        if not e11 <= BF16_G_TOL:
+            fail(f"34: {label} {form}: bf16 engine vs bf16 #11 {e11:.3e}")
+        out["engine_bf16"]["indexed_ms"] = ms11
+        return out
+
+    def engine16_steps(model, dt_, steps, label):
+        """`steps` RK4 steps of a bf16 engine model from rest, the engine's
+        counters reset just before and read just after: each of its three
+        bf16 kernels 4 a step and nothing else, the state finite and
+        non-zero.  Returns (state, launches by kernel)."""
+        want = {k: 4 * steps for k in model.stiffness.kernels}
+        cen.reset_launches()
+        st, _ = model.solve(model.init_state(), dt_, steps)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in {**cen.launches, **cen.bf16_launches}.items()
+               if v}
+        print(f"   {label}: {steps} bf16 engine steps, launches {got}, max "
+              f"|u| {float(st.u.abs().max()):.4e}", flush=True)
+        if got != want:
+            fail(f"34: {label}: launches {got} != {want}")
+        if not bool(torch.isfinite(st.u).all()) or \
+                float(st.u.abs().max()) == 0.0:
+            fail(f"34: {label}: the bf16 field is not finite and non-zero")
+        return st, got
+
+    def engine16_bowl(label, argv, pb, f32_model, dt_f32):
+        """Phase 34k: the bowl of `argv` on the engine in bf16 on the
+        problem `pb`, beside the float32 engine model `f32_model` and a
+        bf16 #11 model of the same bowl: the kernels against their plain
+        versions and timed under each y2 storage; 10 steps kernel vs plain
+        and vs bf16 #11 <= BF16_TRAJ_TOL; 50 steps counted; ms a step in
+        turns (each y2 storage, the float32 engine, bf16 #11); the device
+        bytes of each model and of a 10-step solve.  Returns (model, dt,
+        kernel entries, launches)."""
+        args_ = nonlinear_bowl.parser().parse_args(
+            argv + ENGINE + ["--dtype", "bf16"])
+        t0 = time.perf_counter()
+        m16, dt_, _, _ = nonlinear_bowl.build(args_, pb)
+        print(f"   {label}: the bf16 engine model built in "
+              f"{time.perf_counter() - t0:.1f} s on the earlier import",
+              flush=True)
+        b16 = bf16_model(f"{label} (#11)", argv, pb)[0]
+        forms = engine16_forms(None, lambda form: engine16_kernels(
+            m16, label, form))
+        own = eng.Y2_BF16
+        entries = forms[next(f for f, d in Y2_FORMS.items() if d == own)]
+        s0 = m16.init_state()
+        sk = m16.solve(s0, dt_, 10)[0]
+        kst = m16.stiffness
+        m16.stiffness = EngineStiffness(kst.cell_op, "mm")
+        sp = m16.solve(s0, dt_, 10)[0]
+        m16.stiffness = kst
+        s11 = b16.solve(b16.init_state(), dt_, 10)[0]
+        e_plain, e11 = rel_l2(sk.u, sp.u), rel_l2(sk.u, s11.u)
+        print(f"   {label}: 10 bf16 steps, engine vs plain rel-l2(u) "
+              f"{e_plain:.3e}, vs bf16 #11 {e11:.3e} (tol {BF16_TRAJ_TOL}); "
+              f"max |u| {float(sk.u.abs().max()):.4e}", flush=True)
+        if not (e_plain <= BF16_TRAJ_TOL and e11 <= BF16_TRAJ_TOL):
+            fail(f"34k: {label}: 10 steps vs plain {e_plain:.3e}, vs bf16 "
+                 f"#11 {e11:.3e}")
+        _, counts = engine16_steps(m16, dt_, 50, label)
+        models = []
+        for form, dtype in Y2_FORMS.items():
+            models.append((form, m16, dt_, dtype))
+        models += [("float32 engine", f32_model, dt_f32, None),
+                   ("bf16 #11", b16, dt_, None)]
+
+        def one(m, d, y2):
+            if y2 is not None:
+                eng.Y2_BF16 = y2
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                m.solve(m.init_state(), d, 50)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t1) / 50 * 1e3
+            finally:
+                eng.Y2_BF16 = own
+
+        turns = {}
+        for name, m, d, y2 in (*models, *reversed(models)):
+            turns.setdefault(name, []).append(one(m, d, y2))
+        print(f"   {smi}: {label} ms a step (50 steps from rest, in turns, "
+              f"host clock): " + ", ".join(
+                  f"{k} {' / '.join(f'{v:.4f}' for v in t)}"
+                  for k, t in turns.items()), flush=True)
+        for form in Y2_FORMS:
+            print(f"   {smi}: {label} y2 storage {form}: apply "
+                  f"{forms[form]['engine_bf16']['ms']:.4f} ms, contract "
+                  f"{forms[form]['engine_contract_bf16']['ms']:.4f}, scatter "
+                  f"{forms[form]['engine_scatter_bf16']['ms']:.4f}, "
+                  f"{min(turns[form]):.4f} ms a step", flush=True)
+        mem = {"bf16 engine": (held_bytes(m16), solve_peak(m16, dt_, 10)),
+               "float32 engine": (held_bytes(f32_model),
+                                  solve_peak(f32_model, dt_f32, 10)),
+               "bf16 #11": (held_bytes(b16), solve_peak(b16, dt_, 10))}
+        print(f"   {smi}: {label} device bytes (the model holds, a 10-step "
+              f"solve adds): " + ", ".join(
+                  f"{k} {h / 1e9:.4f} GB + {a / 1e9:.4f} GB"
+                  for k, (h, a) in mem.items()), flush=True)
+        del b16
+        return m16, dt_, entries, counts
+
     ENGINE = ["--stiffness-impl", "indexed_engine"]
     with phase("21a bodyfit bowl on the engine: build, each kernel vs plain "
                "and timed, the composed apply vs the indexed kernel, 10 "
@@ -3592,7 +3903,17 @@ def main() -> None:
             fail("bodyfit engine field is not finite")
         if not agree <= FOCAL_AGREE:
             fail(f"bodyfit engine vs indexed focal pressure {agree:.3e}")
-        del state, ebowl
+        del state
+    with phase("34k bodyfit bowl on the engine in bf16: build, each kernel "
+               "vs plain and timed, 10 steps vs plain and vs bf16 #11, 50 "
+               "steps, ms a step in turns, device bytes"):
+        ebowl16, dt34k, k34k, n34k = engine16_bowl(
+            "bodyfit bowl", args5_argv, pb13, ebowl, dt5)
+        kernels.update(k34k)
+        keep_for_ranks("22e bodyfit bowl, 4 ranks, indexed_engine, bf16",
+                       ebowl16, dt34k, 20, BOWL_POINTS, impl="indexed_engine",
+                       ref_tol=BF16_TRAJ_TOL)
+        del ebowl, ebowl16
     # ---- phase 32f-h: the three engine demos on phase 13a's bodyfit bowl
     # ---- (no new import); counters reset just before, read just after ----
     cen.reset_launches()
@@ -3649,8 +3970,9 @@ def main() -> None:
                  "22c flagship in corner mode, grid (2, 2, 1)",
                  "22d imported bowl, 4 ranks",
                  "22e bodyfit bowl, 4 ranks, indexed",
-                 "22e bodyfit bowl, 4 ranks, indexed_engine"] + halo_names,
-                        4, "gloo")
+                 "22e bodyfit bowl, 4 ranks, indexed_engine",
+                 "22e bodyfit bowl, 4 ranks, indexed_engine, bf16"]
+                        + halo_names, 4, "gloo")
     with phase("22g time_halo: the 16^3 P=4 box on 4 gloo ranks sharing the "
                "card, with and without the exchange"):
         on, off = res22[0][-2], res22[0][-1]
@@ -3725,7 +4047,15 @@ def main() -> None:
             fail(f"launches {n_eng2} after the two-layer engine run")
         if not traj <= TRAJ_TOL:
             fail(f"two-layer engine vs indexed 50 steps {traj:.3e}")
-        del s6, s16, ebowl2, pb13
+        del s6, s16
+    with phase("34k two-layer bodyfit bowl on the engine in bf16 (pair): "
+               "build, kernels vs plain, 10 steps vs plain and vs bf16 #11 "
+               "pair, 50 steps, ms a step in turns"):
+        ebowl16b, _, k34kb, n34kb = engine16_bowl(
+            "two-layer bodyfit bowl", args5_argv + ["--two-layer"], pb13,
+            ebowl2, dt16)
+        kernels["engine_gather2_bf16"] = k34kb["engine_gather2_bf16"]
+        del ebowl16b, ebowl2, pb13
 
     with phase("15a bodyfit bowl at P=6 build + kernel vs plain"):
         P6 = ["--elements", "48", "--degree", "6", "--geometry", "bodyfit"]
@@ -3769,7 +4099,6 @@ def main() -> None:
         ebowl7, dt17, _, _ = nonlinear_bowl.build(
             nonlinear_bowl.parser().parse_args(P6 + ENGINE), pb15)
         k17 = engine_kernels(ebowl7, bbowl7.stiffness, "P=6 bodyfit bowl")
-        del pb15
     cen.reset_launches()
     with phase("21d P=6 bodyfit bowl on the engine, 50 steps"):
         start = torch.cuda.Event(enable_timing=True)
@@ -3790,7 +4119,26 @@ def main() -> None:
             fail(f"launches {n_eng7} after the P=6 engine run")
         if not traj <= TRAJ_TOL:
             fail(f"P=6 engine vs indexed 50 steps {traj:.3e}")
-        del s7, s17, ebowl7, k17
+        del s7, s17
+    with phase("34l P=6 bodyfit bowl on the engine in bf16: kernels vs "
+               "plain, 50 steps, ms a step in turns with 21d's float32 "
+               "engine"):
+        m34l, dt34l, _, _ = nonlinear_bowl.build(
+            nonlinear_bowl.parser().parse_args(P6 + ENGINE + ["--dtype",
+                                                              "bf16"]), pb15)
+        k34l = engine16_forms(None, lambda form: engine16_kernels(
+            m34l, "P=6 bodyfit bowl", form))
+        _, n34l = engine16_steps(m34l, dt34l, 50, "P=6 bodyfit bowl")
+        turns = ms_turns([("float32 engine", ebowl7, dt7),
+                          ("bf16 engine", m34l, dt34l)])
+        print(f"   {smi}: P=6 bodyfit bowl ms a step (50 steps from rest, "
+              f"in turns, host clock): float32 engine "
+              f"{turns['float32 engine']:.4f}, bf16 engine "
+              f"{turns['bf16 engine']:.4f}; the composed apply float32 "
+              f"(21d) {k17['engine']['ms']:.4f} ms, bf16 " + ", ".join(
+                  f"{form} {k['engine_bf16']['ms']:.4f} ms"
+                  for form, k in k34l.items()), flush=True)
+        del m34l, ebowl7, k17, pb15
     for k in STAGED:
         launches[k] = n_eng[k] + n_eng2[k] + n_eng7[k]
     launches["engine_gather2"] = n_eng2["engine_gather2"]
@@ -3799,6 +4147,12 @@ def main() -> None:
     # the composed apply: the launches of its kernels
     launches["engine"] = sum(launches[k] for k in
                              STAGED + ("engine_gather2",))
+    # the bf16 engine: its kernels' launches in 34k-l's counted runs
+    for counts in (n34k, n34kb, n34l):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    launches["engine_bf16"] = sum(launches[k] for k in STAGED16
+                                  + ("engine_gather2_bf16",))
     ci.reset_launches()
     with phase("15c bodyfit bowl at P=6, full solve (indexed kernel)"):
         args7 = nonlinear_bowl.parser().parse_args(
@@ -4176,6 +4530,17 @@ def main() -> None:
                            "fustpu/ops/pallas_gather.py:610"),
         "engine": ("fustpu_torch/csrc/engine.cu",
                    "fustpu/ops/operators.py:290"),
+        # the bf16 forms of the staged engine (phase 34j-l)
+        "engine_gather_bf16": ("fustpu_torch/csrc/engine.cu",
+                               "fustpu/ops/pallas_gather.py:534"),
+        "engine_gather2_bf16": ("fustpu_torch/csrc/engine.cu",
+                                "fustpu/ops/pallas_gather.py:566"),
+        "engine_contract_bf16": ("fustpu_torch/csrc/engine.cu",
+                                 "fustpu/ops/pallas_gather.py:1078"),
+        "engine_scatter_bf16": ("fustpu_torch/csrc/engine.cu",
+                                "fustpu/ops/pallas_gather.py:610"),
+        "engine_bf16": ("fustpu_torch/csrc/engine.cu",
+                        "fustpu/ops/operators.py:290"),
         **{name: ("fustpu_torch/csrc/slab2.cu",
                   "fustpu/ops/pallas_stiffness.py:314")
            for name in ("slab2", "slab2_classes")},

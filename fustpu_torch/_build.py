@@ -177,21 +177,25 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
     ll = ctypes.c_longlong
-    for suffix in ("f32", "f64"):
+    # the staged engine: float32, float64 and bfloat16 (#7-#10); the
+    # gather's first design in float32 and float64
+    for suffix in gstream:
         fn = getattr(lib, f"fustpu_engine_gather_{suffix}")
         fn.argtypes = [p, p, p, ll, i, p]
-        fn.restype = i
-        fn = getattr(lib, f"fustpu_engine_gather_flat_{suffix}")
-        fn.argtypes = [p, p, p, ll, p]
         fn.restype = i
         fn = getattr(lib, f"fustpu_engine_gather2_{suffix}")
         fn.argtypes = [p, p, p, p, p, ll, p]
         fn.restype = i
+    for suffix in ("f32", "f64", "bf16", "bf16f"):
         fn = getattr(lib, f"fustpu_engine_contract_{suffix}")
         fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
         fn.restype = i
         fn = getattr(lib, f"fustpu_engine_scatter_{suffix}")
         fn.argtypes = [p, p, p, p, ll, p]
+        fn.restype = i
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"fustpu_engine_gather_flat_{suffix}")
+        fn.argtypes = [p, p, p, ll, p]
         fn.restype = i
     # the walk's schedule: chunks, classes, nclass, blocks, cpb, stages,
     # stage_bytes, smem (the two-slab walk and the anatomy's pencil

@@ -10,6 +10,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fustpu {
@@ -48,7 +49,7 @@ __device__ __forceinline__ int4 ld_stream(const int4* p,
 }
 
 // Four consecutive values (16 B-aligned) stored with the L2 policy `pol`:
-// one 16 B store in float32, two in float64.
+// one 16 B store in float32, two in float64, one 8 B store in bfloat16.
 __device__ __forceinline__ void st_hint4(float* p, float a, float b, float c,
                                          float d, unsigned long long pol) {
   asm volatile("st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n"
@@ -64,6 +65,20 @@ __device__ __forceinline__ void st_hint4(double* p, double a, double b,
                : "memory");
   asm volatile("st.global.L2::cache_hint.v2.f64 [%0], {%1, %2}, %3;\n"
                ::"l"(p + 2), "d"(c), "d"(d), "l"(pol)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_hint4(__nv_bfloat16* p, __nv_bfloat16 a,
+                                         __nv_bfloat16 b, __nv_bfloat16 c,
+                                         __nv_bfloat16 d,
+                                         unsigned long long pol) {
+  // the lower address in the lower half of each 32-bit word
+  const unsigned lo = (unsigned)__bfloat16_as_ushort(a) |
+                      ((unsigned)__bfloat16_as_ushort(b) << 16);
+  const unsigned hi = (unsigned)__bfloat16_as_ushort(c) |
+                      ((unsigned)__bfloat16_as_ushort(d) << 16);
+  asm volatile("st.global.L2::cache_hint.v2.b32 [%0], {%1, %2}, %3;\n"
+               ::"l"(p), "r"(lo), "r"(hi), "l"(pol)
                : "memory");
 }
 

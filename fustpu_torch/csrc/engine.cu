@@ -61,13 +61,29 @@
 //     reproducible;
 //   - every position, cell and dof index is 64-bit where it is multiplied
 //     (N^3 x cells x 8 bytes passes 2^31 at the P = 6 bowl in float64).
+//
+// bfloat16 (the JAX package's --dtype bf16, whose engine kernels take any
+// dtype): x, x2, u2, G, D, the per-cell coeff and C stored in bfloat16 (S),
+// every product and sum in float (storage.cuh).  The gathers copy bfloat16
+// values, exactly (a thread's four positions make one 8 B store).  The
+// contraction widens the cell's row of u2 (or folds c1 u1 + c2 u2 of the
+// two rows in float) into its float shared u and runs the STAGED_STORE
+// body on the G stream widened from bfloat16: each node's sum goes
+// straight into its slot of y2, as Y2, with no zeroed y2 read back.  The
+// scatter widens y2, sums each dof's positions in ascending order in float
+// and rounds y to bfloat16 once.  At the bodyfit bowl an apply then moves
+// at least: gather 51.2 + 13.3 + 25.6 MB; contract 25.6 + 153.6 MB + y2;
+// scatter y2 + 51.2 + 26.6 + 13.3 MB (y2 12.8M values of Y2).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "cache_hints.cuh"
 #include "sum_factor.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kGatherThreads = 256;   // ops/launch.py GATHER_THREADS
@@ -120,9 +136,9 @@ struct RowLine {
 
 // The G stream scaled by the cell's coefficient: c (G w), as the plain
 // contraction orders it.
-template <typename T, int N>
+template <typename T, int N, typename S = T>
 struct ScaledGStream {
-  fustpu::GStream<T, N> g;
+  fustpu::GStream<T, N, S> g;
   T c;
   __device__ __forceinline__ void operator()(int i, int n, T wx, T wy, T wz,
                                              T& f0, T& f1, T& f2) const {
@@ -172,18 +188,94 @@ engine_contract(const T* __restrict__ u1, const T* __restrict__ u2,
   }
 }
 
-template <typename T>
+// A metric that stores each node's sum into the cell's row yc of y2 as Y
+// (the STAGED_STORE body's `put`): rounded once where Y is bfloat16.
+template <typename Metric, typename Y>
+struct RowStore {
+  Metric m;
+  Y* __restrict__ yc;
+  __device__ __forceinline__ void operator()(int i, int n, float wx,
+                                             float wy, float wz, float& f0,
+                                             float& f1, float& f2) const {
+    m(i, n, wx, wy, wz, f0, f1, f2);
+  }
+  __device__ __forceinline__ void put(int n, float v) const {
+    yc[n] = fustpu::narrow<Y>(v);
+  }
+};
+
+// The bfloat16 contraction: u1, u2, C, coeff, G and D in bfloat16, the
+// cell's u, gradients and sums in float, y2 stored as Y.
+template <int N, int MODE, typename Y>
+__global__ void __launch_bounds__(fustpu::Shape<float, N>::NN *
+                                  fustpu::Shape<float, N>::CPB)
+engine_contract_bf16(const bf16* __restrict__ u1, const bf16* __restrict__ u2,
+                     const bf16* __restrict__ C,
+                     const bf16* __restrict__ coeff,
+                     const bf16* __restrict__ G, const bf16* __restrict__ D,
+                     Y* __restrict__ y, long long cells) {
+  using S = fustpu::Shape<float, N>;
+  constexpr int NN = S::NN, NNN = S::NNN, CPB = S::CPB;
+  __shared__ float Ds[NN];         // D[q * N + i] = l_i'(x_q)
+  __shared__ float us[CPB][NNN];   // the cell's u, widened (or folded)
+  __shared__ float f1s[CPB][NNN];  // metric-transformed gradients
+  __shared__ float f2s[CPB][NNN];
+
+  const int t = threadIdx.x;       // this thread owns nodes (., j, k)
+  const int lc = threadIdx.y;      // cell within the block
+  for (int s = lc * NN + t; s < NN; s += NN * CPB)
+    Ds[s] = fustpu::widen<float>(D[s]);
+
+  const long long cell = (long long)blockIdx.x * CPB + lc;
+  const bool active = cell < cells;
+  const long long c0 = active ? cell : 0;
+  if (active) {
+    float c1 = 1.0f, c2 = 0.0f;
+    if (MODE == PAIR) {
+      c1 = fustpu::widen<float>(C[2 * cell]);
+      c2 = fustpu::widen<float>(C[2 * cell + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const long long p = c0 * NNN + i * NN + t;
+      float v = fustpu::widen<float>(u1[p]);
+      if (MODE == PAIR) v = c1 * v + c2 * fustpu::widen<float>(u2[p]);
+      us[lc][i * NN + t] = v;
+    }
+  }
+  const fustpu::GStream<float, N, bf16> gs{G + c0 * 6 * NNN};
+  const RowLine<N> line{c0 * NNN, t};
+  Y* yc = y + c0 * NNN;
+  const float* none = nullptr;
+  if constexpr (MODE == COEFF) {
+    using Scaled = ScaledGStream<float, N, bf16>;
+    const RowStore<Scaled, Y> metric{
+        Scaled{gs, active ? fustpu::widen<float>(coeff[cell]) : 1.0f}, yc};
+    fustpu::cell_apply<float, N, false, fustpu::STAGED_STORE>(
+        none, none, 1.0f, 0.0f, metric, Ds, us[lc], f1s[lc], f2s[lc],
+        nullptr, active, line);
+  } else {
+    const RowStore<fustpu::GStream<float, N, bf16>, Y> metric{gs, yc};
+    fustpu::cell_apply<float, N, false, fustpu::STAGED_STORE>(
+        none, none, 1.0f, 0.0f, metric, Ds, us[lc], f1s[lc], f2s[lc],
+        nullptr, active, line);
+  }
+}
+
+// y[d] = the sum of v over d's positions pos[ptr[d]] .. pos[ptr[d + 1] - 1]
+// in ascending order, accumulated in A and stored as Y.
+template <typename A, typename V, typename Y>
 __global__ void __launch_bounds__(kThreads)
-engine_scatter(const T* __restrict__ v, const int* __restrict__ pos,
-               const int* __restrict__ ptr, T* __restrict__ y,
+engine_scatter(const V* __restrict__ v, const int* __restrict__ pos,
+               const int* __restrict__ ptr, Y* __restrict__ y,
                long long ndofs) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        d < ndofs; d += stride) {
-    T acc = T(0);
+    A acc = A(0);
     const int end = ptr[d + 1];
-    for (int k = ptr[d]; k < end; ++k) acc += v[pos[k]];
-    y[d] = acc;
+    for (int k = ptr[d]; k < end; ++k) acc += fustpu::widen<A>(v[pos[k]]);
+    y[d] = fustpu::narrow<Y>(acc);
   }
 }
 
@@ -232,13 +324,39 @@ int contract_n(const void* u1, const void* u2, const void* C,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MODE>
+// The float32 / float64 forms (T) and the bfloat16 one (BF16 true: y2
+// stored as Y2) of the contraction at degree N - 1.
+template <typename T, bool BF16, typename Y2, int MODE, int N>
+struct ContractN {
+  static int run(const void* u1, const void* u2, const void* C,
+                 const void* coeff, const void* G, const void* D, void* y,
+                 long long cells, cudaStream_t stream) {
+    if constexpr (BF16) {
+      using S = fustpu::Shape<float, N>;
+      if (cells <= 0) return 0;
+      const dim3 block(S::NN, S::CPB);
+      const unsigned blocks = (unsigned)((cells + S::CPB - 1) / S::CPB);
+      engine_contract_bf16<N, MODE, Y2><<<blocks, block, 0, stream>>>(
+          static_cast<const bf16*>(u1), static_cast<const bf16*>(u2),
+          static_cast<const bf16*>(C), static_cast<const bf16*>(coeff),
+          static_cast<const bf16*>(G), static_cast<const bf16*>(D),
+          static_cast<Y2*>(y), cells);
+      return (int)cudaGetLastError();
+    } else {
+      return contract_n<T, MODE, N>(u1, u2, C, coeff, G, D, y, cells,
+                                    stream);
+    }
+  }
+};
+
+template <typename T, bool BF16, typename Y2, int MODE>
 int contract_mode(int P, const void* u1, const void* u2, const void* C,
                   const void* coeff, const void* G, const void* D, void* y,
                   long long cells, cudaStream_t s) {
 #define FUSTPU_CASE(P_)                                                   \
   case P_:                                                                \
-    return contract_n<T, MODE, P_ + 1>(u1, u2, C, coeff, G, D, y, cells, s);
+    return ContractN<T, BF16, Y2, MODE, P_ + 1>::run(u1, u2, C, coeff, G, \
+                                                     D, y, cells, s);
   switch (P) {
     FUSTPU_CASE(2)
     FUSTPU_CASE(3)
@@ -255,31 +373,34 @@ int contract_mode(int P, const void* u1, const void* u2, const void* C,
 #undef FUSTPU_CASE
 }
 
-template <typename T>
+template <typename T, bool BF16 = false, typename Y2 = T>
 int contract(int mode, int P, const void* u1, const void* u2, const void* C,
              const void* coeff, const void* G, const void* D, void* y,
              long long cells, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case PLAIN:
-      return contract_mode<T, PLAIN>(P, u1, u2, C, coeff, G, D, y, cells, s);
+      return contract_mode<T, BF16, Y2, PLAIN>(P, u1, u2, C, coeff, G, D, y,
+                                               cells, s);
     case COEFF:
-      return contract_mode<T, COEFF>(P, u1, u2, C, coeff, G, D, y, cells, s);
+      return contract_mode<T, BF16, Y2, COEFF>(P, u1, u2, C, coeff, G, D, y,
+                                               cells, s);
     case PAIR:
-      return contract_mode<T, PAIR>(P, u1, u2, C, coeff, G, D, y, cells, s);
+      return contract_mode<T, BF16, Y2, PAIR>(P, u1, u2, C, coeff, G, D, y,
+                                              cells, s);
     default:
       return -2;
   }
 }
 
-template <typename T>
+template <typename A, typename V, typename Y>
 int scatter(const void* v, const void* pos, const void* ptr, void* y,
             long long ndofs, void* stream) {
   if (ndofs <= 0) return 0;
-  engine_scatter<T><<<blocks_for(ndofs), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(v), static_cast<const int*>(pos),
-      static_cast<const int*>(ptr), static_cast<T*>(y), ndofs);
+  engine_scatter<A, V, Y><<<blocks_for(ndofs), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(v), static_cast<const int*>(pos),
+      static_cast<const int*>(ptr), static_cast<Y*>(y), ndofs);
   return (int)cudaGetLastError();
 }
 
@@ -289,9 +410,13 @@ int scatter(const void* v, const void* pos, const void* ptr, void* y,
 // -2 for an unknown contraction mode, or the cudaError_t of the launch.
 // g, pos: int32 positions and dofs; ptr: (ndofs + 1) int32 offsets into pos;
 // the single-field gather's g and out 16 B-aligned, on `blocks` blocks.
-// The contraction accumulates into y2, which the caller zeroes; mode 0 is
-// unit coefficients, 1 the per-cell coeff (cells,), 2 the pair fold with
-// C (cells, 2) and the second field u2.
+// The float32 / float64 contraction accumulates into y2, which the caller
+// zeroes, the bfloat16 one stores y2; mode 0 is unit coefficients, 1 the
+// per-cell coeff (cells,), 2 the pair fold with C (cells, 2) and the
+// second field u2.  The bfloat16 forms take bfloat16 x, x2, G, D, coeff
+// and C and give bfloat16 u2 and y; the contraction gives y2 as bfloat16
+// (`_bf16`) or float (`_bf16f`), which the scatter of the same suffix
+// reads.
 extern "C" {
 
 int fustpu_engine_gather_f32(const void* x, const void* g, void* out,
@@ -302,6 +427,11 @@ int fustpu_engine_gather_f32(const void* x, const void* g, void* out,
 int fustpu_engine_gather_f64(const void* x, const void* g, void* out,
                              long long n, int blocks, void* stream) {
   return gather_quads<double>(x, g, out, n, blocks, stream);
+}
+
+int fustpu_engine_gather_bf16(const void* x, const void* g, void* out,
+                              long long n, int blocks, void* stream) {
+  return gather_quads<bf16>(x, g, out, n, blocks, stream);
 }
 
 int fustpu_engine_gather_flat_f32(const void* x, const void* g, void* out,
@@ -326,6 +456,12 @@ int fustpu_engine_gather2_f64(const void* x1, const void* x2, const void* g,
   return gather<double, 2>(x1, x2, g, o1, o2, n, stream);
 }
 
+int fustpu_engine_gather2_bf16(const void* x1, const void* x2, const void* g,
+                               void* o1, void* o2, long long n,
+                               void* stream) {
+  return gather<bf16, 2>(x1, x2, g, o1, o2, n, stream);
+}
+
 int fustpu_engine_contract_f32(const void* u1, const void* u2, const void* C,
                                const void* coeff, const void* G,
                                const void* D, void* y, long long cells,
@@ -340,14 +476,44 @@ int fustpu_engine_contract_f64(const void* u1, const void* u2, const void* C,
   return contract<double>(mode, P, u1, u2, C, coeff, G, D, y, cells, stream);
 }
 
+int fustpu_engine_contract_bf16(const void* u1, const void* u2,
+                                const void* C, const void* coeff,
+                                const void* G, const void* D, void* y,
+                                long long cells, int P, int mode,
+                                void* stream) {
+  return contract<float, true, bf16>(mode, P, u1, u2, C, coeff, G, D, y,
+                                     cells, stream);
+}
+
+int fustpu_engine_contract_bf16f(const void* u1, const void* u2,
+                                 const void* C, const void* coeff,
+                                 const void* G, const void* D, void* y,
+                                 long long cells, int P, int mode,
+                                 void* stream) {
+  return contract<float, true, float>(mode, P, u1, u2, C, coeff, G, D, y,
+                                      cells, stream);
+}
+
 int fustpu_engine_scatter_f32(const void* v, const void* pos, const void* ptr,
                               void* y, long long ndofs, void* stream) {
-  return scatter<float>(v, pos, ptr, y, ndofs, stream);
+  return scatter<float, float, float>(v, pos, ptr, y, ndofs, stream);
 }
 
 int fustpu_engine_scatter_f64(const void* v, const void* pos, const void* ptr,
                               void* y, long long ndofs, void* stream) {
-  return scatter<double>(v, pos, ptr, y, ndofs, stream);
+  return scatter<double, double, double>(v, pos, ptr, y, ndofs, stream);
+}
+
+int fustpu_engine_scatter_bf16(const void* v, const void* pos,
+                               const void* ptr, void* y, long long ndofs,
+                               void* stream) {
+  return scatter<float, bf16, bf16>(v, pos, ptr, y, ndofs, stream);
+}
+
+int fustpu_engine_scatter_bf16f(const void* v, const void* pos,
+                                const void* ptr, void* y, long long ndofs,
+                                void* stream) {
+  return scatter<float, float, bf16>(v, pos, ptr, y, ndofs, stream);
 }
 
 }  // extern "C"

@@ -17,8 +17,9 @@
 // shared (3 N^3 values per cell).  Accumulators take the template type.
 //
 // Storage and arithmetic (storage.cuh): the walks (stiffness_pencil.cuh,
-// indexed_chunk.cu) may keep their fields, their geometry stream, D and C
-// in bfloat16 and compute in float.
+// indexed_chunk.cu) and the staged engine's contraction (engine.cu) may
+// keep their fields, their geometry stream, D and C in bfloat16 and compute
+// in float.
 
 #pragma once
 
@@ -43,18 +44,20 @@ struct Shape {
 };
 
 // The metric read from the G stream: Gc is the cell's 6 x N^3 block,
-// components (xx, xy, xz, yy, yz, zz), node n = i N^2 + j N + k.
+// components (xx, xy, xz, yy, yz, zz), node n = i N^2 + j N + k, stored in
+// S and widened to T (the staged engine's bfloat16 contraction, engine.cu).
 // metric(i, n, wx, wy, wz, f0, f1, f2) maps the reference gradient at node
 // n to (f0, f1, f2) = c G (wx, wy, wz).
-template <typename T, int N>
+template <typename T, int N, typename S = T>
 struct GStream {
-  const T* __restrict__ Gc;
+  const S* __restrict__ Gc;
   __device__ __forceinline__ void operator()(int, int n, T wx, T wy, T wz,
                                              T& f0, T& f1, T& f2) const {
     constexpr int NNN = N * N * N;
-    const T g0 = Gc[n], g1 = Gc[NNN + n], g2 = Gc[2 * NNN + n];
-    const T g3 = Gc[3 * NNN + n], g4 = Gc[4 * NNN + n];
-    const T g5 = Gc[5 * NNN + n];
+    const T g0 = widen<T>(Gc[n]), g1 = widen<T>(Gc[NNN + n]);
+    const T g2 = widen<T>(Gc[2 * NNN + n]), g3 = widen<T>(Gc[3 * NNN + n]);
+    const T g4 = widen<T>(Gc[4 * NNN + n]);
+    const T g5 = widen<T>(Gc[5 * NNN + n]);
     f0 = g0 * wx + g1 * wy + g2 * wz;
     f1 = g1 * wx + g3 * wy + g4 * wz;
     f2 = g2 * wx + g4 * wy + g5 * wz;

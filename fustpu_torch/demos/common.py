@@ -29,8 +29,8 @@ def add_device_args(p: argparse.ArgumentParser,
                     dtype: str = "f32") -> argparse.ArgumentParser:
     """--dtype and --device, shared by every demo.  bf16 stores the state,
     G (or the corner channels) and the diagonals in bfloat16 and runs the
-    bfloat16 forms of the G-stream kernels (#1 / #2, #6, #11) and of the
-    corner walk (#3, #6c; the staged engine refuses it)."""
+    bfloat16 forms of the G-stream kernels (#1 / #2, #6, #11), of the
+    corner walk (#3, #6c) and of the staged engine (#7-#10)."""
     p.add_argument("--dtype", choices=DTYPES, default=dtype)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda = the H100 path (CUDA kernels); cpu = the "

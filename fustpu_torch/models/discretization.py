@@ -307,17 +307,11 @@ def resolve_stiffness_impl(impl: str, device, mesh=None,
     here.  It fails for 'extruded' and 'extruded_pallas' on a box mesh,
     and so do these: they need the `mesh` to resolve.
 
-    bfloat16 (`dtype`) runs on the G-stream operators (#1 / #2, #6, #11)
-    and in the corner mode on a box, a mapped box or a prismatic import,
-    hex8 and hex27 (#3 and #6c), and on their plain versions: the staged
-    engine has no bfloat16 form yet, and its name fails for it, on either
-    device."""
-    if dtype == torch.bfloat16 and impl == ENGINE_IMPL:
-        raise ValueError(
-            f"stiffness_impl={impl!r} has no bfloat16 form yet (ROADMAP.md, "
-            "Queue 2: the staged engine's bf16, #7-#10, is the next "
-            "slice); bfloat16 runs on 'auto', 'indexed', the corner mode "
-            "and 'mm'")
+    Every name resolves a bfloat16 `dtype` as it resolves float32: the
+    G-stream operators (#1 / #2, #6, #11), the corner mode on a box, a
+    mapped box or a prismatic import, hex8 and hex27 (#3 and #6c), and the
+    staged engine (#7-#10) each have a bfloat16 form, and so do their
+    plain versions."""
     if impl == "mm":
         return "mm"
     if impl in (EXTRUDED_PLAIN_IMPL, "extruded_pallas"):
@@ -615,9 +609,17 @@ class EngineStiffness(nn.Module):
 
     @property
     def kernel(self) -> str | None:
-        """The launch counter that an apply moves (None for 'mm'): one per
-        composed apply; its three kernels count their own launches."""
-        return "engine" if self.impl == "cuda" else None
+        """The name of the composed apply (None for 'mm'): 'engine', or
+        'engine_bf16' on bfloat16 data; its three kernels count their own
+        launches (`kernels`)."""
+        return bf16_name("engine", self.G) if self.impl == "cuda" else None
+
+    @property
+    def kernels(self) -> tuple[str, ...]:
+        """The launch counters that one apply moves (none for 'mm')."""
+        if self.impl != "cuda":
+            return ()
+        return cen.kernels(self.G.dtype, self.is_pair)
 
     @property
     def cell_op(self) -> cen.EngineCellStiffness:
@@ -651,7 +653,8 @@ def launch_counts() -> dict:
             **ce.class_launches, **ce.bf16_launches, **ci.launches,
             **ci.class_launches, **ci.bf16_launches, **cc.launches,
             **cc.class_launches, **cc.bf16_launches,
-            **cen.launches, **cen.comparison_launches}
+            **cen.launches, **cen.bf16_launches,
+            **cen.comparison_launches}
 
 
 def stiffness_module(op, impl: str) -> nn.Module:

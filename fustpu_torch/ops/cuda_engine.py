@@ -25,6 +25,18 @@ counts its launches in `launches`, where it launches; the kernels launch
 through the lean path of ``fustpu_torch.ops.launch``.  `gather_flat` runs
 the single-field gather's first design (one thread a position), kept as
 the comparison and counted apart in `comparison_launches`.
+
+Each kernel comes in float32, float64 and bfloat16.  The bfloat16 forms
+(the JAX package's ``--dtype bf16``, counted in `bf16_launches`) take an
+operator whose G, D, coeff and C are bfloat16 (`build` / `from_host` of
+``torch.bfloat16``) and bfloat16 fields, and store:
+
+- `gather` / `gather2`: u2 in bfloat16, a copy of the field's values
+  (exact);
+- `contract`: y2 as ``engine.Y2_BF16``, from float32 arithmetic on the
+  widened u2, G, D, coeff and C (the pair fold c1 u1 + c2 u2 too);
+- `scatter`: y in bfloat16, each dof's float32 sum of its positions'
+  y2 in ascending order rounded once.
 """
 
 from __future__ import annotations
@@ -39,18 +51,30 @@ from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.ops import engine as eng
 from fustpu_torch.ops import launch
 
-# Launches of each kernel, not counting the plain version.
+# Launches of each kernel, not counting the plain version, and of its
+# bfloat16 form (``cuda_stiffness.count``).
 launches = {"engine_gather": 0, "engine_gather2": 0, "engine_contract": 0,
             "engine_scatter": 0}
+bf16_launches = {f"{k}_bf16": 0 for k in launches}
 comparison_launches = {"engine_gather_flat": 0}
 
 _MODES = {"plain": 0, "coeff": 1, "pair": 2}
 
 
 def reset_launches() -> None:
-    for counts in (launches, comparison_launches):
+    for counts in (launches, bf16_launches, comparison_launches):
         for k in counts:
             counts[k] = 0
+
+
+def kernels(dtype: torch.dtype, pair: bool) -> tuple[str, ...]:
+    """The launch counters that one composed apply in `dtype` moves: the
+    gather (gather2 for a pair), the contraction and the scatter."""
+    names = ("engine_gather2" if pair else "engine_gather",
+             "engine_contract", "engine_scatter")
+    if dtype == torch.bfloat16:
+        return tuple(f"{k}_bf16" for k in names)
+    return names
 
 
 class EngineCellStiffness(NamedTuple):
@@ -178,31 +202,41 @@ def engine_pair_plain(op: EngineCellStiffness, x1: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+def _suffix(name: str, dtype: torch.dtype) -> str:
+    """The entry point's suffix of kernel `name` for storage `dtype`."""
+    suffix = cs.SUFFIX[dtype]
+    if suffix == "bf16" and name in ("engine_contract", "engine_scatter") \
+            and eng.Y2_BF16 == torch.float32:
+        suffix += "f"
+    return suffix
 
 
 def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
-           shape: tuple) -> None:
-    """Device, dtype, shape and contiguity of the inputs `xs` (each of
-    `shape`) and of the operator tensors the kernel `name` reads."""
+           shape: tuple, dtype: torch.dtype | None = None) -> None:
+    """Device, dtype (`dtype`, or the first input's), shape and contiguity
+    of the inputs `xs` (each of `shape`) and of the operator tensors the
+    kernel `name` reads (in the operator's dtype, G's)."""
     x = xs[0]
+    dtype = x.dtype if dtype is None else dtype
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel: tensor on {x.device}, expected a "
                          "CUDA device")
-    if x.dtype not in _SUFFIX:
+    kinds = (cs.SUFFIX if name != "engine_gather_flat" else
+             (torch.float32, torch.float64))
+    if x.dtype not in kinds:
         raise ValueError(f"{name} kernel: dtype {x.dtype} unsupported "
-                         "(float32 or float64)")
+                         f"({', '.join(map(str, kinds))})")
     if not 2 <= op.P <= 10:
         raise ValueError(f"{name} kernel: degree {op.P} outside 2..10")
     cells, nnn = op.dofmap.shape
-    need = [(t, shape, x.dtype, "input") for t in xs]
+    need = [(t, shape, dtype, "input") for t in xs]
     if name == "engine_contract":
-        need += [(op.G, (cells, 6, nnn), x.dtype, "G"),
-                 (op.D, (op.P + 1, op.P + 1), x.dtype, "D")]
+        need += [(op.G, (cells, 6, nnn), dtype, "G"),
+                 (op.D, (op.P + 1, op.P + 1), dtype, "D")]
         if op.coeff is not None:
-            need.append((op.coeff, (cells,), x.dtype, "coeff"))
+            need.append((op.coeff, (cells,), dtype, "coeff"))
         if op.C is not None:
-            need.append((op.C, (cells, 2), x.dtype, "C"))
+            need.append((op.C, (cells, 2), dtype, "C"))
     elif name == "engine_scatter":
         need += [(op.pos, (cells * nnn,), torch.int32, "pos"),
                  (op.ptr, (op.ndofs + 1,), torch.int32, "ptr")]
@@ -219,12 +253,13 @@ def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
             raise ValueError(f"{name} kernel: {what} is not contiguous")
 
 
-def _launch(name: str, x: torch.Tensor, *args,
+def _launch(name: str, dtype: torch.dtype, x: torch.Tensor, *args,
             counts: dict = launches) -> None:
-    """Launch kernel `name` for x's dtype on x's card, counted in
-    `counts`."""
-    launch.launch(f"fustpu_{name}_{_SUFFIX[x.dtype]}", x.get_device(), *args)
-    counts[name] += 1
+    """Launch kernel `name`'s form for storage `dtype` on x's card,
+    counted in `counts` (its bfloat16 form in `bf16_launches`)."""
+    launch.launch(f"fustpu_{name}_{_suffix(name, dtype)}", x.get_device(),
+                  *args)
+    cs.count(counts, bf16_launches, name, dtype)
 
 
 def _positions(op: EngineCellStiffness) -> int:
@@ -245,7 +280,7 @@ def gather(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("engine_gather kernel: the dofmap and the output "
                          "16-byte aligned")
     n = _positions(op)
-    _launch("engine_gather", x, x.data_ptr(), pg, po, n,
+    _launch("engine_gather", x.dtype, x, x.data_ptr(), pg, po, n,
             launch.gather_blocks(n, launch.sm_count(x.get_device())))
     return out
 
@@ -257,7 +292,8 @@ def gather_flat(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
         return gather(op, x)
     _check(op, "engine_gather_flat", x, shape=(op.ndofs,))
     out = x.new_empty(op.dofmap.shape)
-    _launch("engine_gather_flat", x, x.data_ptr(), op.dofmap.data_ptr(),
+    _launch("engine_gather_flat", x.dtype, x, x.data_ptr(),
+            op.dofmap.data_ptr(),
             out.data_ptr(), _positions(op), counts=comparison_launches)
     return out
 
@@ -270,9 +306,9 @@ def gather2(op: EngineCellStiffness, x1: torch.Tensor, x2: torch.Tensor
         u1, u2 = eng.gather2(x1, x2, op.dofmap.reshape(-1).long())
         return u1.reshape(cells, -1), u2.reshape(cells, -1)
     _check(op, "engine_gather2", x1, x2, shape=(op.ndofs,))
-    o1 = torch.empty(op.dofmap.shape, dtype=x1.dtype, device=x1.device)
-    o2 = torch.empty_like(o1)
-    _launch("engine_gather2", x1, x1.data_ptr(),
+    o1 = x1.new_empty(op.dofmap.shape)
+    o2 = x1.new_empty(op.dofmap.shape)
+    _launch("engine_gather2", x1.dtype, x1, x1.data_ptr(),
             x2.data_ptr(), op.dofmap.data_ptr(), o1.data_ptr(),
             o2.data_ptr(), _positions(op))
     return o1, o2
@@ -290,13 +326,17 @@ def contract(op: EngineCellStiffness, u1: torch.Tensor,
     if u1.device.type == "cpu":
         p = to_plain(op)
         if mode == "pair":
-            u1 = p.c1[:, None] * u1 + p.c2[:, None] * u2
+            u1 = eng.fold(u1, p.c1, u2, p.c2)
         return eng.dense_contract(u1, p.G6, p.D, p.coeff)
     xs = (u1,) if u2 is None else (u1, u2)
-    _check(op, "engine_contract", *xs, shape=tuple(op.dofmap.shape))
-    y = torch.zeros(op.dofmap.shape, dtype=u1.dtype, device=u1.device)
+    dtype = op.G.dtype
+    _check(op, "engine_contract", *xs, shape=tuple(op.dofmap.shape),
+           dtype=dtype)
+    # the float32 / float64 kernels add into y2, the bfloat16 one stores
+    new = u1.new_empty if dtype == torch.bfloat16 else u1.new_zeros
+    y = new(op.dofmap.shape, dtype=eng.y2_dtype(dtype))
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    _launch("engine_contract", u1, u1.data_ptr(), ptr(u2),
+    _launch("engine_contract", dtype, u1, u1.data_ptr(), ptr(u2),
             ptr(op.C), ptr(op.coeff), op.G.data_ptr(), op.D.data_ptr(),
             y.data_ptr(), op.dofmap.shape[0], op.P, _MODES[mode])
     return y
@@ -305,12 +345,16 @@ def contract(op: EngineCellStiffness, u1: torch.Tensor,
 def scatter(op: EngineCellStiffness, v: torch.Tensor) -> torch.Tensor:
     """y[g[p]] += v[p] over zeros(ndofs) through `engine_scatter`: each
     dof sums its positions in ascending order (the plain version for a CPU
-    tensor)."""
+    tensor); v in y2's dtype (``engine.y2_dtype`` of the operator's), y in
+    the operator's."""
+    dtype = op.G.dtype
     if v.device.type == "cpu":
-        return eng.scatter_add(v, op.dofmap.reshape(-1).long(), op.ndofs)
-    _check(op, "engine_scatter", v, shape=tuple(op.dofmap.shape))
-    y = torch.empty(op.ndofs, dtype=v.dtype, device=v.device)
-    _launch("engine_scatter", v, v.data_ptr(),
+        return eng.scatter_add(v, op.dofmap.reshape(-1).long(), op.ndofs,
+                               dtype)
+    _check(op, "engine_scatter", v, shape=tuple(op.dofmap.shape),
+           dtype=eng.y2_dtype(dtype))
+    y = v.new_empty(op.ndofs, dtype=dtype)
+    _launch("engine_scatter", dtype, v, v.data_ptr(),
             op.pos.data_ptr(), op.ptr.data_ptr(), y.data_ptr(), op.ndofs)
     return y
 

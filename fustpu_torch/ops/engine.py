@@ -16,6 +16,14 @@ gather here is `index_select`, the contraction is the factorised einsum of
 ``fustpu_torch.ops.indexed`` and the scatter `index_add_`, all in full
 precision.  G is in the component-major (6, cells, n^3) layout of the JAX
 package.
+
+bfloat16 (the JAX package's ``--dtype bf16``): each function stores where
+its kernel stores.  The gathers give bfloat16 u2 (a copy, exact); the
+contraction widens its bfloat16 arguments to float32 (exactly), contracts
+in float32 with TF32 off and gives y2 as `Y2_BF16`; the pair fold
+c1 u1 + c2 u2 is float32 (`fold`); the scatter sums the float32 widening
+of y2 and rounds y to bfloat16 once.  A composed apply so rounds y2 and
+then y, where ``spectral_mm.rounds_once``'s applies round y alone.
 """
 
 from __future__ import annotations
@@ -24,6 +32,14 @@ import torch
 
 from fustpu_torch.ops import spectral_mm as mm
 from fustpu_torch.ops.indexed import _indexed_contract
+
+# y2's storage between the contraction and the scatter in a bfloat16 apply
+Y2_BF16 = torch.bfloat16
+
+
+def y2_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of y2 in an apply on fields of `dtype`."""
+    return Y2_BF16 if dtype == torch.bfloat16 else dtype
 
 
 def gather(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -37,22 +53,36 @@ def gather2(x1: torch.Tensor, x2: torch.Tensor, g: torch.Tensor
     return gather(x1, g), gather(x2, g)
 
 
+def fold(u1: torch.Tensor, c1: torch.Tensor, u2: torch.Tensor,
+         c2: torch.Tensor) -> torch.Tensor:
+    """The pair fold c1 u1 + c2 u2 of two gathered (cells, n^3) fields
+    with per-cell c1, c2 (cells,); on bfloat16 arguments in float32."""
+    u1, c1, u2, c2 = mm._widened((u1, c1, u2, c2))
+    return c1[:, None] * u1 + c2[:, None] * u2
+
+
 def dense_contract(u2: torch.Tensor, G6: torch.Tensor, D: torch.Tensor,
                    coeff: torch.Tensor | None = None) -> torch.Tensor:
     """y2[c] = sum_q D3q^T (coeff_c G_c . D3q u2[c]) on (cells, n^3) rows;
     G6 (6, cells, n^3); `coeff` (cells,) or None for unit
-    coefficients."""
+    coefficients.  A bfloat16 G6: the arguments widened to float32, y2
+    given as `Y2_BF16`."""
     mm._full_precision(u2)
+    out = y2_dtype(G6.dtype)
+    u2, G6, D, coeff = mm._widened((u2, G6, D, coeff))
     cells, n = u2.shape[0], D.shape[0]
     y = _indexed_contract(u2.reshape(cells, n, n, n), G6, coeff, D)
-    return y.reshape(cells, n ** 3)
+    return y.reshape(cells, n ** 3).to(out)
 
 
-def scatter_add(v: torch.Tensor, g: torch.Tensor, ndofs: int
-                ) -> torch.Tensor:
-    """y[g[p]] += v[p] over zeros(ndofs)."""
-    y = torch.zeros(ndofs, dtype=v.dtype, device=v.device)
-    return y.index_add_(0, g, v.reshape(-1))
+def scatter_add(v: torch.Tensor, g: torch.Tensor, ndofs: int,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+    """y[g[p]] += v[p] over zeros(ndofs), y in `dtype` (v's by default):
+    a bfloat16 y as the float32 sum rounded once."""
+    dtype = v.dtype if dtype is None else dtype
+    acc = torch.float32 if torch.bfloat16 in (dtype, v.dtype) else dtype
+    y = torch.zeros(ndofs, dtype=acc, device=v.device)
+    return y.index_add_(0, g, v.reshape(-1).to(acc)).to(dtype)
 
 
 def stiffness_apply_engine(x: torch.Tensor, G6: torch.Tensor,
@@ -61,7 +91,7 @@ def stiffness_apply_engine(x: torch.Tensor, G6: torch.Tensor,
     """y = A(x) as gather, contraction and scatter-add."""
     cells = G6.shape[1]
     u2 = gather(x, g).reshape(cells, -1)
-    return scatter_add(dense_contract(u2, G6, D, coeff), g, ndofs)
+    return scatter_add(dense_contract(u2, G6, D, coeff), g, ndofs, x.dtype)
 
 
 def stiffness_apply_engine_pair(x1: torch.Tensor, c1: torch.Tensor,
@@ -73,6 +103,5 @@ def stiffness_apply_engine_pair(x1: torch.Tensor, c1: torch.Tensor,
     contractions), one contraction and one scatter-add."""
     cells = G6.shape[1]
     u1, u2 = gather2(x1, x2, g)
-    u = (c1[:, None] * u1.reshape(cells, -1)
-         + c2[:, None] * u2.reshape(cells, -1))
-    return scatter_add(dense_contract(u, G6, D), g, ndofs)
+    u = fold(u1.reshape(cells, -1), c1, u2.reshape(cells, -1), c2)
+    return scatter_add(dense_contract(u, G6, D), g, ndofs, x1.dtype)

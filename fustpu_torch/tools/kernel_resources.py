@@ -7,7 +7,9 @@ them, for one degree.
 Compiles each source (default: every ``*.cu`` of --csrc, this package's
 ``csrc`` unless given) with the build's own flags plus ``-Xptxas -v``,
 one nvcc a source, all started together, and prints for every kernel
-instantiated at N = degree + 1 whose name holds one of the --match words:
+instantiated at N = degree + 1 (or with no degree among its template
+arguments, none of its integer arguments 3 or more, as the engine's
+gathers and scatter) whose name holds one of the --match words:
 its source, its demangled name, registers a thread, spill stores and
 loads, and stack frame bytes; then one JSON object of the same rows.
 --csrc may name the sources of another checkout (for instance the parent
@@ -109,7 +111,9 @@ def main(argv=None) -> list[dict]:
     words = [w for w in args.match.split(",") if w]
     n = args.degree + 1
     rows = [r for r in report(sources)
-            if f"Li{n}E" in r["mangled"]
+            if (f"Li{n}E" in r["mangled"]
+                or all(int(v) < 3 for v in re.findall(r"Li(\d+)E",
+                                                      r["mangled"])))
             and any(w in r["name"] for w in words)]
     for r in rows:
         print(f"{r['source']:22s} {r['registers']:4d} registers, "

@@ -11,7 +11,7 @@ conformal and imported bowls again in the corner-streamed capacity mode
 (--stiffness-impl pallas_corner, the corner kernels) and once more in
 bfloat16 (--dtype bf16, the corner kernels' bf16 forms), and for the
 bodyfit bowls on the staged engine (--stiffness-impl indexed_engine, three
-kernels an apply), it prints:
+kernels an apply), in float32 and in bfloat16, it prints:
   - ms per step without the profiler (CUDA events over STEPS steps);
   - ms per step under torch.profiler, and the device time per step split
     into the stiffness kernels, the other (elementwise) kernels and the
@@ -21,7 +21,9 @@ kernels an apply), it prints:
   - the stiffness kernel's bytes per apply (G or the corner channels,
     coefficients, index arrays and inputs read once, output written once,
     each in its stored type: 2 bytes a value in bfloat16) and the rate
-    that gives at the measured time.
+    that gives at the measured time; on the staged engine also each of
+    its three kernels' least bytes (u2 and y2 each written once and read
+    once, y2 in its stored type, ``engine.y2_dtype``).
 Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
 gives the card's achievable memory rate to hold those against.
 """
@@ -37,6 +39,8 @@ from pathlib import Path
 import torch
 
 from fustpu_torch.demos import nonlinear_bowl
+from fustpu_torch.models.discretization import EngineStiffness
+from fustpu_torch.ops import engine as eng
 
 FLAGSHIP = ["--elements", "64", "--degree", "4"]
 CORNER = ["--stiffness-impl", "pallas_corner"]
@@ -122,6 +126,23 @@ def _stiffness_bytes(stiff, ndofs: int) -> int:
     return nbytes(geo) + nbytes(op.C) + nbytes(index) + (n_in + 1) * field
 
 
+def engine_bytes(op) -> tuple[int, int, int]:
+    """The least bytes of the staged engine's gather (gather2 for a pair),
+    contraction and scatter on the operator `op`, each input read once and
+    each output written once in its stored type: the gather's dofmap,
+    field(s) and u2; the contraction's u2, G, coeff or C and y2 (in
+    ``engine.y2_dtype``); the scatter's y2, inverse map and y."""
+    b = op.G.element_size()
+    N, cells, ndofs = op.dofmap.numel(), op.dofmap.shape[0], op.ndofs
+    fields = 2 if op.C is not None else 1
+    y2 = N * torch.empty(0, dtype=eng.y2_dtype(op.G.dtype)).element_size()
+    per_cell = 0 if op.mode == "plain" else (2 if fields == 2 else 1)
+    gather = N * 4 + fields * (ndofs + N) * b
+    contract = fields * N * b + op.G.numel() * b + per_cell * cells * b + y2
+    scatter = y2 + N * 4 + (ndofs + 1) * 4 + ndofs * b
+    return gather, contract, scatter
+
+
 def streaming_copy(gib: float) -> tuple[float, float]:
     """(ms, TB/s read + write) of one float32 device-to-device copy."""
     n = int(gib * 2**30) // 4
@@ -194,6 +215,8 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
         "stiffness_ms_per_apply": stiff_ms_apply,
         "stiffness_TBps": nbytes / (stiff_ms_apply * 1e-3) / 1e12,
     }
+    if isinstance(model.stiffness, EngineStiffness):
+        out["engine_kernel_bytes"] = engine_bytes(model.stiffness.cell_op)
     del model, state
     torch.cuda.empty_cache()
     return out
@@ -221,7 +244,8 @@ def main() -> None:
                                 "--two-layer"],
                       CORNER + BF16, CORNER + BF16 + ["--two-layer"],
                       CORNER + BF16 + ["--geometry", "unstructured"],
-                      ENGINE, ENGINE + ["--two-layer"]):
+                      ENGINE, ENGINE + ["--two-layer"],
+                      ENGINE + BF16, ENGINE + BF16 + ["--two-layer"]):
             r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
             print(json.dumps(r), flush=True)
             print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "
@@ -236,6 +260,10 @@ def main() -> None:
             print(f"   stiffness: {r['stiffness_bytes_per_apply']} B per "
                   f"apply, {r['stiffness_ms_per_apply']:.4f} ms, "
                   f"{r['stiffness_TBps']:.4f} TB/s ({smi})", flush=True)
+            if "engine_kernel_bytes" in r:
+                print("   engine kernels' least bytes (gather, contract, "
+                      "scatter): " + ", ".join(
+                          map(str, r["engine_kernel_bytes"])), flush=True)
 
 
 if __name__ == "__main__":

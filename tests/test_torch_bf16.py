@@ -561,12 +561,13 @@ def test_fustpu_bf16_checkpoint_reads_back(ref, tmp_path):
     ("pallas_corner", "prismatic"), ("indexed_engine", "prismatic"),
     ("indexed_engine", "general")])
 def test_corner_and_engine_refuse_bf16(tmp_path, impl, where):
-    """The staged engine, which has no bf16 form yet, refuses a bf16 model,
-    naming ROADMAP and the next slice, on the CPU and on the card; in
-    float32 it resolves.  The corner mode on a box or a prismatic import,
-    which refused bf16 until its walk had bf16 forms, resolves bf16 as it
-    resolves float32, and a bf16 model there builds its corner operator
-    with bf16 channels and float32 GLL nodes and weights."""
+    """The corner mode on a box or a prismatic import and the staged
+    engine, which refused bf16 until their kernels had bf16 forms, now
+    resolve bf16 as they resolve float32, on the CPU and on the card.  A
+    bf16 model in the corner mode builds its corner operator with bf16
+    channels and float32 GLL nodes and weights; one on the engine (a
+    prismatic and a general import) builds its engine operator with bf16
+    G, D and pair coefficients C."""
     if where == "box":
         mesh = build_box_mesh((3, 3, 3), 2)
         sf, af = mesh.boundary_facets("x-"), mesh.boundary_facets("x+")
@@ -576,20 +577,23 @@ def test_corner_and_engine_refuse_bf16(tmp_path, impl, where):
                                detect_extrusion=where == "prismatic")
         sf, af = mesh.boundary_facets(1), mesh.boundary_facets(2)
     build = functools.partial(
-        WesterveltModel, mesh, Material(sound_speed=1500.0, density=1000.0),
-        Source(frequency=0.5e6, amplitude=1e5), sf, af, dtype=BF16,
-        device="cpu", stiffness_impl=impl)
+        WesterveltModel, mesh, material=Material(sound_speed=1500.0,
+                                                 density=1000.0),
+        source=Source(frequency=0.5e6, amplitude=1e5), source_facets=sf,
+        absorbing_facets=af, dtype=BF16, device="cpu", stiffness_impl=impl)
     for device in ("cpu", "cuda"):
         f32 = dz.resolve_stiffness_impl(impl, device, mesh, torch.float32)
         assert f32 in ("cuda", "mm")
-        if impl == "indexed_engine":
-            with pytest.raises(ValueError, match="ROADMAP.*next slice"):
-                dz.resolve_stiffness_impl(impl, device, mesh, BF16)
-        else:
-            assert dz.resolve_stiffness_impl(impl, device, mesh, BF16) == f32
+        assert dz.resolve_stiffness_impl(impl, device, mesh, BF16) == f32
     if impl == "indexed_engine":
-        with pytest.raises(ValueError, match="ROADMAP"):
-            build()
+        zc = mesh.cell_corners_flat.mean(axis=1)[:, 2]
+        model = build(material=Material(
+            sound_speed=np.where(zc < 0.01, 1500.0, 1650.0),
+            density=np.where(zc < 0.01, 1000.0, 1050.0)))
+        st = model.stiffness
+        assert isinstance(st, dz.EngineStiffness) and st.is_pair
+        for buf in (st.plain_G6, st.plain_D, st.plain_c1, st.plain_c2):
+            assert buf.dtype == BF16
         return
     model = build()
     assert isinstance(model.stiffness, dz.CornerStiffness)

@@ -7,11 +7,12 @@ hex27 prism, linear and Westervelt, uniform and two-layer (the pair form),
 probes and the norm probe; a general (non-prismatic) mesh over 2 ranks and
 a ragged 5, on the indexed kernel and on the staged engine; the RCB
 partition equal to the JAX package's, and shared rows and DOFs bitwise
-consistent across ranks.  Two bfloat16 cases (the JAX package's
+consistent across ranks.  Three bfloat16 cases (the JAX package's
 ``--dtype bf16``: the cylinder on the extruded kernels, the general mesh
-on the indexed kernel) ride in the 2-rank group, held to the port's
-one-rank bf16 solve and to the JAX package's bf16 sharded models.  One
-spawn per rank count.
+on the indexed kernel and, two-layer Westervelt, on the staged engine)
+ride in the 2-rank group, held to the port's one-rank bf16 solve and to
+the JAX package's bf16 sharded models (its one-rank bf16 model where its
+sharded model runs no bf16).  One spawn per rank count.
 """
 
 from pathlib import Path
@@ -93,14 +94,16 @@ BF16_CASES = {
                            "auto"),
     "bf16_general_indexed": (2, "general", "linear", "random", "auto",
                              "indexed"),
+    "bf16_general_engine": (2, "general", "westervelt", "random",
+                            "indexed_engine", "auto"),
 }
 BF16_STEPS = 10
 BF16_TOL = 2e-2
 TRAJ_TOL = 0.2
 # The JAX package's IndexedShardedModel does not run bf16 (its scan's
-# carry comes out float64, as on the CPU here); that case is held to the
+# carry comes out float64, as on the CPU here); those cases are held to the
 # JAX package's one-rank bf16 model instead.
-JAX_ONE_RANK = {"bf16_general_indexed"}
+JAX_ONE_RANK = {"bf16_general_indexed", "bf16_general_engine"}
 
 
 def rel(a, b):
@@ -249,10 +252,11 @@ def test_sharded_matches_one_rank(runs, name):
 @pytest.mark.parametrize("name", list(BF16_CASES))
 def test_bf16_sharded_matches_one_rank(runs, name):
     """A bf16 model on 2 ranks of an imported mesh (the extruded and the
-    indexed sharding, both through `host_vectors` and `collect`) against
-    the port's one-rank bf16 solve: finite, within BF16_TOL (see
-    BF16_CASES), the shared entries consistent, the probe traces within
-    BF16_TOL, the stiffness module the float64 cases' on that mesh."""
+    indexed sharding, the latter on the indexed kernel and on the staged
+    engine, all through `host_vectors` and `collect`) against the port's
+    one-rank bf16 solve: finite, within BF16_TOL (see BF16_CASES), the
+    shared entries consistent, the probe traces within BF16_TOL, the
+    stiffness module the float64 cases' on that mesh and route."""
     r = runs[name]
     s = r.sharded
     assert r.one.u.dtype == torch.bfloat16 and np.isfinite(s["u"]).all()
@@ -262,6 +266,7 @@ def test_bf16_sharded_matches_one_rank(runs, name):
     assert rel(s["ys"][:, :npts], r.ys) <= BF16_TOL
     assert s["u_consistent"] and s["v_consistent"] and s["kv_consistent"]
     want = ("ExtrudedStiffness" if BF16_CASES[name][1] == "cylinder"
+            else "EngineStiffness" if "indexed_engine" in BF16_CASES[name]
             else "IndexedStiffness")
     assert all(rk["stiffness"] == want for rk in r.ranks)
 
