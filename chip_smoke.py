@@ -225,8 +225,7 @@ Phases (each prints its time; any failure exits non-zero):
      flagship in bf16, #2 vs plain and 50 steps (34c); the imported bowl
      (after 10b) and the bodyfit bowl (after 13c) in bf16, single and
      two-layer: #6 / #11 and their pair forms vs plain, 50 steps each, ms
-     a step in turns with the float32 model, and the engine route refused
-     (34d, 34e); bf16 in the corner (capacity) mode, the bf16 forms of #3
+     a step in turns with the float32 model (34d, 34e); bf16 in the corner (capacity) mode, the bf16 forms of #3
      and #6c (hex8, hex27): each against its plain version (bf16 in, the
      metric and the apply in float32, y rounded once) <= 2^-7 and against
      the bf16 G-stream kernel <= 1e-2 at P = 2..10, single and pair, on
@@ -1365,21 +1364,6 @@ def main() -> None:
               f"block, {sch.blocks_per_sm} blocks an SM, {sch.blocks} "
               "blocks", flush=True)
         return model, dt_, nsteps_, focus_, pst, entry
-
-    def bf16_refusal(impl, pb) -> None:
-        """A bf16 model of `impl` (the engine, which has no bf16 form yet)
-        on the problem `pb` raises before anything is built on the
-        card."""
-        try:
-            WesterveltModel(pb.mesh, pb.material, pb.source, pb.aperture,
-                            pb.absorbing, dtype=BF16, device=dev,
-                            source_delays=pb.delays, stiffness_impl=impl)
-        except ValueError as e:
-            print(f"   bf16 with stiffness_impl={impl!r} raises: {e}")
-            if "ROADMAP" not in str(e):
-                fail(f"34: the bf16 refusal of {impl} names no ROADMAP")
-            return
-        fail(f"34: a bf16 model with stiffness_impl={impl!r} was built")
 
     with phase("16 corner kernels vs plain, P=2..10, float64, float32 and "
                "bf16 (34f)"), tempfile.TemporaryDirectory() as tmp:
@@ -3645,7 +3629,6 @@ def main() -> None:
               f"two-layer {turns['bf16 pair']:.4f}; #11 ms an apply: "
               f"float32 (13a) {kernels['indexed']['ms']:.4f}, bf16 "
               f"{kernels['indexed_bf16']['ms']:.4f}", flush=True)
-        bf16_refusal("indexed_engine", pb13)
         del bfit16, bfit16b
 
     ci.reset_launches()
