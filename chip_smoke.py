@@ -637,7 +637,7 @@ def main() -> None:
         ranks_cases[name] = dict(
             model=path, steps=steps, dt=dt_, grid=grid, impl=impl,
             probe=points, exchange_reps=20,
-            ref_u=st.u.reshape(-1).cpu().numpy(), ref_ys=ys.cpu().numpy(),
+            ref_u=fio.to_host(st.u).reshape(-1), ref_ys=fio.to_host(ys),
             **keys)
 
     def ranks_group(names, nprocs, backend):
