@@ -253,8 +253,9 @@ Phases (each prints its time; any failure exits non-zero):
      beside the float32 engine's, and its two-layer form (pair, after 21c)
      in the same way (34k); the P=6 bodyfit bowl on the engine in bf16
      (after 21d): kernels vs plain, 50 steps, ms a step in turns with 21d's
-     float32 engine (34l); the bf16 engine bodyfit bowl on phase 22's 4
-     gloo ranks against its one-rank run <= 2e-2 (22e).
+     float32 engine (34l); a two-layer bf16 engine model (a 12^3 P=4
+     general box) on phase 22's 4 gloo ranks against its one-rank run
+     <= 2e-2 (22e).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, 34b-e,
 34g-i, 34k-l, in every rank of 22 its solve, and the demos of 24, 25, 26,
@@ -546,6 +547,7 @@ def main() -> None:
     # over ranks
     from fustpu_torch.demos import anchors
     from fustpu_torch.mesh.box import dofmap_rows
+    from fustpu_torch.config import Material, Source
     from fustpu_torch.models.westervelt import WesterveltModel
     from fustpu_torch.ops import cuda_setup as setup
 
@@ -663,8 +665,13 @@ def main() -> None:
                 ok = r0["u_consistent"] and r0["v_consistent"] and \
                     r0["kv_consistent"]
                 launches = [r[i]["launches"] for r in res]
-                kernel = {"engine": STAGED, "engine_bf16": STAGED16}.get(
-                    r0["kernel"], (r0["kernel"],))
+                kernel = (r0["kernel"],)
+                if r0["kernel"] in ("engine", "engine_bf16"):
+                    # the staged engine's three kernels, gather2 for a pair
+                    kernel = cen.kernels(
+                        BF16 if r0["kernel"] == "engine_bf16" else
+                        torch.float32, any(k.startswith("engine_gather2")
+                                           for k in launches[0]))
                 tol = c.get("ref_tol", TRAJ_TOL)
                 print(f"   {name}: {nprocs} rank(s) sharing one H100 "
                       f"({backend}; not a multi-GPU speed) {smi}: "
@@ -1588,22 +1595,6 @@ def main() -> None:
                 not all(cen.comparison_launches.values()):
             fail("an engine kernel's launch counter did not move")
 
-    # ---- the y2 storage of the bf16 engine: both forms are checked and
-    # ---- timed in turns while both exist (34j, 34k)
-    Y2_FORMS = {"y2 bf16": BF16, "y2 f32": torch.float32}
-
-    def engine16_forms(kind, fn):
-        """`fn(form)` under each y2 storage of the bf16 engine, then the
-        module's own again; {form: result}."""
-        own, out = eng.Y2_BF16, {}
-        try:
-            for form in (kind,) if kind else Y2_FORMS:
-                eng.Y2_BF16 = Y2_FORMS[form]
-                out[form] = fn(form)
-        finally:
-            eng.Y2_BF16 = own
-        return out
-
     with phase("34j bf16 engine kernels vs plain, P=2..10: #7-#10 alone, "
                "the composed apply and pair, against bf16 #11 on the same "
                "buffers, on phase 20's meshes"), \
@@ -1632,60 +1623,48 @@ def main() -> None:
                     pair = "pair" in kw
                     op = disc.stiffness_op(BF16, dev, engine=True, **kw)
                     p16 = cen.to_plain(op)
-                    iop = (None if "coeff" in kw
-                           else cen.to_indexed(op, disc.chunk_plan))
-
-                    def check(form):
-                        if pair:
-                            u1, u2 = cen.gather2(op, x1, x2)
-                            ok = (torch.equal(u1.reshape(-1),
-                                              x1.index_select(0, p16.g))
-                                  and torch.equal(u2.reshape(-1),
-                                                  x2.index_select(0, p16.g)))
-                            yk = cen.contract(op, u1, u2)
-                            yp = eng.dense_contract(
-                                eng.fold(u1, p16.c1, u2, p16.c2), p16.G6,
-                                p16.D)
-                        else:
-                            u1 = cen.gather(op, x1)
-                            ok = torch.equal(u1.reshape(-1),
-                                             x1.index_select(0, p16.g))
-                            yk = cen.contract(op, u1)
-                            yp = eng.dense_contract(u1, p16.G6, p16.D,
-                                                    p16.coeff)
-                        ys = cen.scatter(op, yk)
-                        errs = {
-                            "contract": rel_l2(yk, yp),
+                    if pair:
+                        u1, u2 = cen.gather2(op, x1, x2)
+                        ok = (torch.equal(u1.reshape(-1),
+                                          x1.index_select(0, p16.g))
+                              and torch.equal(u2.reshape(-1),
+                                              x2.index_select(0, p16.g)))
+                        yk = cen.contract(op, u1, u2)
+                        yp = eng.dense_contract(eng.fold(u1, p16.c1, u2,
+                                                         p16.c2), p16.G6,
+                                                p16.D)
+                    else:
+                        u1 = cen.gather(op, x1)
+                        ok = torch.equal(u1.reshape(-1),
+                                         x1.index_select(0, p16.g))
+                        yk = cen.contract(op, u1)
+                        yp = eng.dense_contract(u1, p16.G6, p16.D, p16.coeff)
+                    ys = cen.scatter(op, yk)
+                    errs = {"contract": rel_l2(yk, yp),
                             "scatter": rel_l2(ys, eng.scatter_add(
-                                yk, p16.g, mesh.ndofs, BF16))}
-                        run = (lambda: cen.engine_pair(op, x1, x2)) if pair \
-                            else (lambda: cen.engine(op, x1))
-                        y = run()
-                        errs["apply"] = rel_l2(y, cen.engine_pair_plain(
-                            op, x1, x2) if pair else cen.engine_plain(op, x1))
-                        same = torch.equal(run(), y)
-                        if iop is not None:
-                            errs["vs #11"] = rel_l2(y, ci.indexed_pair(
-                                iop, x1, x2) if pair else ci.indexed(iop, x1))
-                        torch.cuda.synchronize()
-                        if not (ok and same):
-                            fail(f"34j: P={P} {mname} {label} {form}: gather "
-                                 f"bitwise index_select {ok}, two applies "
-                                 f"bitwise {same}")
-                        for k, e in errs.items():
-                            tol = BF16_G_TOL if k == "vs #11" else BF16_TOL
-                            if not e <= tol:
-                                fail(f"34j: P={P} {mname} {label} {form}: "
-                                     f"{k} {e:.3e} > {tol}")
-                            key = f"{form} {k}"
-                            worst16[key] = max(worst16.get(key, 0.0), e)
-                        return errs
-
-                    res = engine16_forms(None, check)
-                    print(f"   P={P:2d} {mname:8s} {label:13s} " + "; ".join(
-                        f"{form}: " + ", ".join(f"{k} {e:.3e}"
-                                                for k, e in errs.items())
-                        for form, errs in res.items()), flush=True)
+                                yk, p16.g, mesh.ndofs))}
+                    run = (lambda: cen.engine_pair(op, x1, x2)) if pair \
+                        else (lambda: cen.engine(op, x1))
+                    y = run()
+                    errs["apply"] = rel_l2(y, cen.engine_pair_plain(
+                        op, x1, x2) if pair else cen.engine_plain(op, x1))
+                    same = torch.equal(run(), y)
+                    if "coeff" not in kw:
+                        iop = cen.to_indexed(op, disc.chunk_plan)
+                        errs["vs #11"] = rel_l2(y, ci.indexed_pair(
+                            iop, x1, x2) if pair else ci.indexed(iop, x1))
+                    torch.cuda.synchronize()
+                    print(f"   P={P:2d} {mname:8s} {label:13s} " + ", ".join(
+                        f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
+                    if not (ok and same):
+                        fail(f"34j: P={P} {mname} {label}: gather bitwise "
+                             f"index_select {ok}, two applies bitwise {same}")
+                    for k, e in errs.items():
+                        tol = BF16_G_TOL if k == "vs #11" else BF16_TOL
+                        if not e <= tol:
+                            fail(f"34j: P={P} {mname} {label}: {k} {e:.3e} > "
+                                 f"{tol}")
+                        worst16[k] = max(worst16.get(k, 0.0), e)
         print(f"   worst rel-l2 (tol {BF16_TOL}, against bf16 #11 "
               f"{BF16_G_TOL}): " + ", ".join(
                   f"{k} {v:.3e}" for k, v in worst16.items())
@@ -3651,14 +3630,15 @@ def main() -> None:
         bbowl.mesh.__dict__.pop("_vtk_cells")
         del s20
 
-    def engine16_kernels(model, label, form):
-        """The bf16 engine model's kernels at this size, y2 stored as in
-        `form`: each against its plain version on the same bf16 inputs (the
-        gathers bitwise, the rest <= BF16_TOL) and timed, with its least
-        bytes in stored types (``profile_step.engine_bytes``) and float32
-        operations; the composed apply against its plain version, repeated
-        bitwise, and against bf16 #11 on the same buffers (<= BF16_G_TOL),
-        timed in the same run.  Returns the entries for the JSON line."""
+    def engine16_kernels(model, label):
+        """The bf16 engine model's kernels at this size: each against its
+        plain version on the same bf16 inputs (the gathers bitwise, the
+        rest <= BF16_TOL) and timed, with its least bytes in stored types
+        (``profile_step.engine_bytes``) and float32 operations; the
+        composed apply (bound: the apply's minimum, as #11's) against its
+        plain version, repeated bitwise, and against bf16 #11 on the same
+        buffers (<= BF16_G_TOL), timed in the same run.  Returns the
+        entries for the JSON line."""
         est = model.stiffness
         op, ndofs = est.cell_op, model.mesh.ndofs
         if not isinstance(est, EngineStiffness) or est.impl != "cuda" or \
@@ -3676,7 +3656,7 @@ def main() -> None:
                   tol=BF16_TOL):
             err = rel_l2(yk, yp)
             if not err <= tol:
-                fail(f"34: {label} {form}: {name} vs plain {err:.3e} > {tol}")
+                fail(f"34: {label}: {name} vs plain {err:.3e} > {tol}")
             out[name] = dict(
                 max_abs_err=float((yk.float() - yp.float()).abs().max()),
                 rel_l2=err, ms=time_ms(run, 20), plain_ms=time_ms(run_plain,
@@ -3707,34 +3687,35 @@ def main() -> None:
                                                  p16.coeff)
             entry("engine_contract_bf16", yk, plain_c(),
                   lambda: cen.contract(op, u1), plain_c, (cb, flops))
-        plain_s = lambda: eng.scatter_add(yk, p16.g, ndofs, BF16)
+        plain_s = lambda: eng.scatter_add(yk, p16.g, ndofs)
         entry("engine_scatter_bf16", cen.scatter(op, yk), plain_s(),
               lambda: cen.scatter(op, yk), plain_s, (sb, 0))
         # index_add_ on bf16 values accumulates in bf16: not the scatter's
         # function (float32 sums rounded once), so its time stands apart
         add_ms = time_ms(lambda: torch.zeros(ndofs, dtype=BF16, device=dev)
-                         .index_add_(0, p16.g, yk.reshape(-1).to(BF16)), 20)
+                         .index_add_(0, p16.g, yk.reshape(-1)), 20)
         run = (lambda m: m.pair(*xs)) if est.is_pair else (lambda m: m(xs[0]))
         pst = EngineStiffness(op, "mm")
         y = run(est)
         if not torch.equal(run(est), y):
-            fail(f"34: {label} {form}: two bf16 engine applies differ")
+            fail(f"34: {label}: two bf16 engine applies differ")
         entry("engine_bf16", y, run(pst), lambda: run(est), lambda: run(pst),
-              (gb + cb + sb, flops))
+              (apply_cost(op.G, ndofs, len(xs), extra=op.dofmap.numel() * 4)[
+                  0], flops))
         iop = cen.to_indexed(op, model.disc.chunk_plan)
         on11 = (lambda: ci.indexed_pair(iop, *xs)) if est.is_pair else \
             (lambda: ci.indexed(iop, xs[0]))
         e11, ms11 = rel_l2(y, on11()), time_ms(on11, 20)
         for name, k in out.items():
-            print(f"   {smi}: {label} ({form}) {name}: {k}", flush=True)
-        print(f"   {smi}: {label} ({form}) at {cells} cells: the composed "
+            print(f"   {smi}: {label} {name}: {k}", flush=True)
+        print(f"   {smi}: {label} at {cells} cells: the composed "
               f"bf16 engine {out['engine_bf16']['ms']:.4f} ms per apply vs "
               f"bf16 #11 on the same buffers {ms11:.4f} ms (same run), "
               f"rel-l2 {e11:.3e} (tol {BF16_G_TOL}); index_add_ on bf16 "
               f"(bf16 sums, not the same function) {add_ms:.4f} ms",
               flush=True)
         if not e11 <= BF16_G_TOL:
-            fail(f"34: {label} {form}: bf16 engine vs bf16 #11 {e11:.3e}")
+            fail(f"34: {label}: bf16 engine vs bf16 #11 {e11:.3e}")
         out["engine_bf16"]["indexed_ms"] = ms11
         return out
 
@@ -3762,11 +3743,11 @@ def main() -> None:
         """Phase 34k: the bowl of `argv` on the engine in bf16 on the
         problem `pb`, beside the float32 engine model `f32_model` and a
         bf16 #11 model of the same bowl: the kernels against their plain
-        versions and timed under each y2 storage; 10 steps kernel vs plain
-        and vs bf16 #11 <= BF16_TRAJ_TOL; 50 steps counted; ms a step in
-        turns (each y2 storage, the float32 engine, bf16 #11); the device
-        bytes of each model and of a 10-step solve.  Returns (model, dt,
-        kernel entries, launches)."""
+        versions and timed; 10 steps kernel vs plain and vs bf16 #11 <=
+        BF16_TRAJ_TOL; 50 steps counted; ms a step in turns (the bf16
+        engine, the float32 engine, bf16 #11); the device bytes of each
+        model and of a 10-step solve.  Returns (kernel entries,
+        launches)."""
         args_ = nonlinear_bowl.parser().parse_args(
             argv + ENGINE + ["--dtype", "bf16"])
         t0 = time.perf_counter()
@@ -3775,10 +3756,7 @@ def main() -> None:
               f"{time.perf_counter() - t0:.1f} s on the earlier import",
               flush=True)
         b16 = bf16_model(f"{label} (#11)", argv, pb)[0]
-        forms = engine16_forms(None, lambda form: engine16_kernels(
-            m16, label, form))
-        own = eng.Y2_BF16
-        entries = forms[next(f for f, d in Y2_FORMS.items() if d == own)]
+        entries = engine16_kernels(m16, label)
         s0 = m16.init_state()
         sk = m16.solve(s0, dt_, 10)[0]
         kst = m16.stiffness
@@ -3794,37 +3772,12 @@ def main() -> None:
             fail(f"34k: {label}: 10 steps vs plain {e_plain:.3e}, vs bf16 "
                  f"#11 {e11:.3e}")
         _, counts = engine16_steps(m16, dt_, 50, label)
-        models = []
-        for form, dtype in Y2_FORMS.items():
-            models.append((form, m16, dt_, dtype))
-        models += [("float32 engine", f32_model, dt_f32, None),
-                   ("bf16 #11", b16, dt_, None)]
-
-        def one(m, d, y2):
-            if y2 is not None:
-                eng.Y2_BF16 = y2
-            try:
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                m.solve(m.init_state(), d, 50)
-                torch.cuda.synchronize()
-                return (time.perf_counter() - t1) / 50 * 1e3
-            finally:
-                eng.Y2_BF16 = own
-
-        turns = {}
-        for name, m, d, y2 in (*models, *reversed(models)):
-            turns.setdefault(name, []).append(one(m, d, y2))
+        turns = ms_turns([("bf16 engine", m16, dt_),
+                          ("float32 engine", f32_model, dt_f32),
+                          ("bf16 #11", b16, dt_)])
         print(f"   {smi}: {label} ms a step (50 steps from rest, in turns, "
               f"host clock): " + ", ".join(
-                  f"{k} {' / '.join(f'{v:.4f}' for v in t)}"
-                  for k, t in turns.items()), flush=True)
-        for form in Y2_FORMS:
-            print(f"   {smi}: {label} y2 storage {form}: apply "
-                  f"{forms[form]['engine_bf16']['ms']:.4f} ms, contract "
-                  f"{forms[form]['engine_contract_bf16']['ms']:.4f}, scatter "
-                  f"{forms[form]['engine_scatter_bf16']['ms']:.4f}, "
-                  f"{min(turns[form]):.4f} ms a step", flush=True)
+                  f"{k} {v:.4f}" for k, v in turns.items()), flush=True)
         mem = {"bf16 engine": (held_bytes(m16), solve_peak(m16, dt_, 10)),
                "float32 engine": (held_bytes(f32_model),
                                   solve_peak(f32_model, dt_f32, 10)),
@@ -3833,8 +3786,8 @@ def main() -> None:
               f"solve adds): " + ", ".join(
                   f"{k} {h / 1e9:.4f} GB + {a / 1e9:.4f} GB"
                   for k, (h, a) in mem.items()), flush=True)
-        del b16
-        return m16, dt_, entries, counts
+        del b16, m16
+        return entries, counts
 
     ENGINE = ["--stiffness-impl", "indexed_engine"]
     with phase("21a bodyfit bowl on the engine: build, each kernel vs plain "
@@ -3890,13 +3843,33 @@ def main() -> None:
     with phase("34k bodyfit bowl on the engine in bf16: build, each kernel "
                "vs plain and timed, 10 steps vs plain and vs bf16 #11, 50 "
                "steps, ms a step in turns, device bytes"):
-        ebowl16, dt34k, k34k, n34k = engine16_bowl(
-            "bodyfit bowl", args5_argv, pb13, ebowl, dt5)
+        k34k, n34k = engine16_bowl("bodyfit bowl", args5_argv, pb13, ebowl,
+                                   dt5)
         kernels.update(k34k)
-        keep_for_ranks("22e bodyfit bowl, 4 ranks, indexed_engine, bf16",
-                       ebowl16, dt34k, 20, BOWL_POINTS, impl="indexed_engine",
-                       ref_tol=BF16_TRAJ_TOL)
-        del ebowl, ebowl16
+        del ebowl
+        # the bf16 engine's rank case: two-layer Westervelt on a 1 cm 12^3
+        # P=4 perturbed box read as a shuffled general mesh (the pair form)
+        gmesh = from_box(build_box_mesh((12, 12, 12), 4, hi=(0.01,) * 3,
+                                        perturb=0.1, seed=5), shuffle_seed=7)
+        ext = gmesh.boundary_facets()
+        xc = gmesh.facet_centroids(ext)[:, 0]
+        deep = gmesh.cell_corners_flat.mean(axis=1)[:, 0] >= 0.005
+        g16 = WesterveltModel(
+            gmesh, Material(sound_speed=np.where(deep, 1560.0, 1500.0),
+                            density=np.where(deep, 1045.0, 1000.0),
+                            nonlinearity=3.5, attenuation_dB=0.3),
+            Source(frequency=0.5e6, amplitude=1e5), ext[xc < 1e-9],
+            ext[xc >= 1e-9], dtype=BF16, device=dev,
+            stiffness_impl="indexed_engine")
+        if g16.stiffness.kernels != ("engine_gather2_bf16",
+                                     "engine_contract_bf16",
+                                     "engine_scatter_bf16"):
+            fail(f"34k: the rank case's model runs {g16.stiffness.kernels}")
+        keep_for_ranks("22e two-layer general box, 4 ranks, indexed_engine, "
+                       "bf16", g16, g16.cfl_dt(0.4)[0], 20,
+                       np.array([[0.0003, 0.0052, 0.0047]]),
+                       impl="indexed_engine", ref_tol=BF16_TRAJ_TOL)
+        del g16, gmesh
     # ---- phase 32f-h: the three engine demos on phase 13a's bodyfit bowl
     # ---- (no new import); counters reset just before, read just after ----
     cen.reset_launches()
@@ -3954,7 +3927,7 @@ def main() -> None:
                  "22d imported bowl, 4 ranks",
                  "22e bodyfit bowl, 4 ranks, indexed",
                  "22e bodyfit bowl, 4 ranks, indexed_engine",
-                 "22e bodyfit bowl, 4 ranks, indexed_engine, bf16"]
+                 "22e two-layer general box, 4 ranks, indexed_engine, bf16"]
                         + halo_names, 4, "gloo")
     with phase("22g time_halo: the 16^3 P=4 box on 4 gloo ranks sharing the "
                "card, with and without the exchange"):
@@ -4034,11 +4007,11 @@ def main() -> None:
     with phase("34k two-layer bodyfit bowl on the engine in bf16 (pair): "
                "build, kernels vs plain, 10 steps vs plain and vs bf16 #11 "
                "pair, 50 steps, ms a step in turns"):
-        ebowl16b, _, k34kb, n34kb = engine16_bowl(
+        k34kb, n34kb = engine16_bowl(
             "two-layer bodyfit bowl", args5_argv + ["--two-layer"], pb13,
             ebowl2, dt16)
         kernels["engine_gather2_bf16"] = k34kb["engine_gather2_bf16"]
-        del ebowl16b, ebowl2, pb13
+        del ebowl2, pb13
 
     with phase("15a bodyfit bowl at P=6 build + kernel vs plain"):
         P6 = ["--elements", "48", "--degree", "6", "--geometry", "bodyfit"]
@@ -4109,8 +4082,7 @@ def main() -> None:
         m34l, dt34l, _, _ = nonlinear_bowl.build(
             nonlinear_bowl.parser().parse_args(P6 + ENGINE + ["--dtype",
                                                               "bf16"]), pb15)
-        k34l = engine16_forms(None, lambda form: engine16_kernels(
-            m34l, "P=6 bodyfit bowl", form))
+        k34l = engine16_kernels(m34l, "P=6 bodyfit bowl")
         _, n34l = engine16_steps(m34l, dt34l, 50, "P=6 bodyfit bowl")
         turns = ms_turns([("float32 engine", ebowl7, dt7),
                           ("bf16 engine", m34l, dt34l)])
@@ -4118,9 +4090,8 @@ def main() -> None:
               f"in turns, host clock): float32 engine "
               f"{turns['float32 engine']:.4f}, bf16 engine "
               f"{turns['bf16 engine']:.4f}; the composed apply float32 "
-              f"(21d) {k17['engine']['ms']:.4f} ms, bf16 " + ", ".join(
-                  f"{form} {k['engine_bf16']['ms']:.4f} ms"
-                  for form, k in k34l.items()), flush=True)
+              f"(21d) {k17['engine']['ms']:.4f} ms, bf16 "
+              f"{k34l['engine_bf16']['ms']:.4f} ms", flush=True)
         del m34l, ebowl7, k17, pb15
     for k in STAGED:
         launches[k] = n_eng[k] + n_eng2[k] + n_eng7[k]

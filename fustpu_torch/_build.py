@@ -186,7 +186,6 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fustpu_engine_gather2_{suffix}")
         fn.argtypes = [p, p, p, p, p, ll, p]
         fn.restype = i
-    for suffix in ("f32", "f64", "bf16", "bf16f"):
         fn = getattr(lib, f"fustpu_engine_contract_{suffix}")
         fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
         fn.restype = i

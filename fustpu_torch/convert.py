@@ -41,7 +41,9 @@ bit for bit without this package importing ``ml_dtypes``.
 - `model_from_fustpu` builds a port model whose buffers are a JAX model's
   ``params`` (no host assembly) and moves an ``RKState`` across; an indexed
   model's params can build the port's staged engine
-  (``stiffness_impl="indexed_engine"``) as well as its indexed kernel.
+  (``stiffness_impl="indexed_engine"``, in bfloat16 too: a bf16 engine
+  model's G, D and per-cell coefficients bit for bit) as well as its
+  indexed kernel.
 - `sharded_state_from_fustpu` collects a JAX sharded model's distributed
   state into global host arrays, or into a port sharded model's per-rank
   state.

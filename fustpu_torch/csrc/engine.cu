@@ -63,17 +63,19 @@
 //     (N^3 x cells x 8 bytes passes 2^31 at the P = 6 bowl in float64).
 //
 // bfloat16 (the JAX package's --dtype bf16, whose engine kernels take any
-// dtype): x, x2, u2, G, D, the per-cell coeff and C stored in bfloat16 (S),
+// dtype): x, x2, u2, y2, G, D, the per-cell coeff and C stored in bfloat16,
 // every product and sum in float (storage.cuh).  The gathers copy bfloat16
 // values, exactly (a thread's four positions make one 8 B store).  The
 // contraction widens the cell's row of u2 (or folds c1 u1 + c2 u2 of the
 // two rows in float) into its float shared u and runs the STAGED_STORE
-// body on the G stream widened from bfloat16: each node's sum goes
-// straight into its slot of y2, as Y2, with no zeroed y2 read back.  The
-// scatter widens y2, sums each dof's positions in ascending order in float
-// and rounds y to bfloat16 once.  At the bodyfit bowl an apply then moves
-// at least: gather 51.2 + 13.3 + 25.6 MB; contract 25.6 + 153.6 MB + y2;
-// scatter y2 + 51.2 + 26.6 + 13.3 MB (y2 12.8M values of Y2).
+// body on the G stream widened from bfloat16: each node's sum is rounded
+// once into its slot of y2, with no zeroed y2 read back.  The scatter
+// widens y2, sums each dof's positions in ascending order in float and
+// rounds y to bfloat16 once.  At the bodyfit bowl an apply then moves at
+// least: gather 51.2 + 13.3 + 25.6 MB; contract 25.6 + 153.6 + 25.6 MB;
+// scatter 25.6 + 51.2 + 26.6 + 13.3 MB.  A float32 y2 (y rounded once, not
+// y2 too) moves 51.2 MB more an apply: on an H100 80GB HBM3 at 700 W it
+// made the apply 4-8% slower (PERF.md, the staged engine's bf16 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,32 +190,32 @@ engine_contract(const T* __restrict__ u1, const T* __restrict__ u2,
   }
 }
 
-// A metric that stores each node's sum into the cell's row yc of y2 as Y
-// (the STAGED_STORE body's `put`): rounded once where Y is bfloat16.
-template <typename Metric, typename Y>
+// A metric that stores each node's sum, rounded to bfloat16, into the
+// cell's row yc of y2 (the STAGED_STORE body's `put`).
+template <typename Metric>
 struct RowStore {
   Metric m;
-  Y* __restrict__ yc;
+  bf16* __restrict__ yc;
   __device__ __forceinline__ void operator()(int i, int n, float wx,
                                              float wy, float wz, float& f0,
                                              float& f1, float& f2) const {
     m(i, n, wx, wy, wz, f0, f1, f2);
   }
   __device__ __forceinline__ void put(int n, float v) const {
-    yc[n] = fustpu::narrow<Y>(v);
+    yc[n] = fustpu::narrow<bf16>(v);
   }
 };
 
-// The bfloat16 contraction: u1, u2, C, coeff, G and D in bfloat16, the
-// cell's u, gradients and sums in float, y2 stored as Y.
-template <int N, int MODE, typename Y>
+// The bfloat16 contraction: u1, u2, C, coeff, G, D and y2 in bfloat16, the
+// cell's u, gradients and sums in float.
+template <int N, int MODE>
 __global__ void __launch_bounds__(fustpu::Shape<float, N>::NN *
                                   fustpu::Shape<float, N>::CPB)
 engine_contract_bf16(const bf16* __restrict__ u1, const bf16* __restrict__ u2,
                      const bf16* __restrict__ C,
                      const bf16* __restrict__ coeff,
                      const bf16* __restrict__ G, const bf16* __restrict__ D,
-                     Y* __restrict__ y, long long cells) {
+                     bf16* __restrict__ y, long long cells) {
   using S = fustpu::Shape<float, N>;
   constexpr int NN = S::NN, NNN = S::NNN, CPB = S::CPB;
   __shared__ float Ds[NN];         // D[q * N + i] = l_i'(x_q)
@@ -245,17 +247,17 @@ engine_contract_bf16(const bf16* __restrict__ u1, const bf16* __restrict__ u2,
   }
   const fustpu::GStream<float, N, bf16> gs{G + c0 * 6 * NNN};
   const RowLine<N> line{c0 * NNN, t};
-  Y* yc = y + c0 * NNN;
+  bf16* yc = y + c0 * NNN;
   const float* none = nullptr;
   if constexpr (MODE == COEFF) {
     using Scaled = ScaledGStream<float, N, bf16>;
-    const RowStore<Scaled, Y> metric{
+    const RowStore<Scaled> metric{
         Scaled{gs, active ? fustpu::widen<float>(coeff[cell]) : 1.0f}, yc};
     fustpu::cell_apply<float, N, false, fustpu::STAGED_STORE>(
         none, none, 1.0f, 0.0f, metric, Ds, us[lc], f1s[lc], f2s[lc],
         nullptr, active, line);
   } else {
-    const RowStore<fustpu::GStream<float, N, bf16>, Y> metric{gs, yc};
+    const RowStore<fustpu::GStream<float, N, bf16>> metric{gs, yc};
     fustpu::cell_apply<float, N, false, fustpu::STAGED_STORE>(
         none, none, 1.0f, 0.0f, metric, Ds, us[lc], f1s[lc], f2s[lc],
         nullptr, active, line);
@@ -263,11 +265,11 @@ engine_contract_bf16(const bf16* __restrict__ u1, const bf16* __restrict__ u2,
 }
 
 // y[d] = the sum of v over d's positions pos[ptr[d]] .. pos[ptr[d + 1] - 1]
-// in ascending order, accumulated in A and stored as Y.
-template <typename A, typename V, typename Y>
+// in ascending order, accumulated in A, v and y stored in S.
+template <typename A, typename S>
 __global__ void __launch_bounds__(kThreads)
-engine_scatter(const V* __restrict__ v, const int* __restrict__ pos,
-               const int* __restrict__ ptr, Y* __restrict__ y,
+engine_scatter(const S* __restrict__ v, const int* __restrict__ pos,
+               const int* __restrict__ ptr, S* __restrict__ y,
                long long ndofs) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -275,7 +277,7 @@ engine_scatter(const V* __restrict__ v, const int* __restrict__ pos,
     A acc = A(0);
     const int end = ptr[d + 1];
     for (int k = ptr[d]; k < end; ++k) acc += fustpu::widen<A>(v[pos[k]]);
-    y[d] = fustpu::narrow<Y>(acc);
+    y[d] = fustpu::narrow<S>(acc);
   }
 }
 
@@ -324,9 +326,9 @@ int contract_n(const void* u1, const void* u2, const void* C,
   return (int)cudaGetLastError();
 }
 
-// The float32 / float64 forms (T) and the bfloat16 one (BF16 true: y2
-// stored as Y2) of the contraction at degree N - 1.
-template <typename T, bool BF16, typename Y2, int MODE, int N>
+// The float32 / float64 forms (T) and the bfloat16 one (BF16 true) of the
+// contraction at degree N - 1.
+template <typename T, bool BF16, int MODE, int N>
 struct ContractN {
   static int run(const void* u1, const void* u2, const void* C,
                  const void* coeff, const void* G, const void* D, void* y,
@@ -336,11 +338,11 @@ struct ContractN {
       if (cells <= 0) return 0;
       const dim3 block(S::NN, S::CPB);
       const unsigned blocks = (unsigned)((cells + S::CPB - 1) / S::CPB);
-      engine_contract_bf16<N, MODE, Y2><<<blocks, block, 0, stream>>>(
+      engine_contract_bf16<N, MODE><<<blocks, block, 0, stream>>>(
           static_cast<const bf16*>(u1), static_cast<const bf16*>(u2),
           static_cast<const bf16*>(C), static_cast<const bf16*>(coeff),
           static_cast<const bf16*>(G), static_cast<const bf16*>(D),
-          static_cast<Y2*>(y), cells);
+          static_cast<bf16*>(y), cells);
       return (int)cudaGetLastError();
     } else {
       return contract_n<T, MODE, N>(u1, u2, C, coeff, G, D, y, cells,
@@ -349,14 +351,14 @@ struct ContractN {
   }
 };
 
-template <typename T, bool BF16, typename Y2, int MODE>
+template <typename T, bool BF16, int MODE>
 int contract_mode(int P, const void* u1, const void* u2, const void* C,
                   const void* coeff, const void* G, const void* D, void* y,
                   long long cells, cudaStream_t s) {
 #define FUSTPU_CASE(P_)                                                   \
   case P_:                                                                \
-    return ContractN<T, BF16, Y2, MODE, P_ + 1>::run(u1, u2, C, coeff, G, \
-                                                     D, y, cells, s);
+    return ContractN<T, BF16, MODE, P_ + 1>::run(u1, u2, C, coeff, G, D, \
+                                                 y, cells, s);
   switch (P) {
     FUSTPU_CASE(2)
     FUSTPU_CASE(3)
@@ -373,34 +375,34 @@ int contract_mode(int P, const void* u1, const void* u2, const void* C,
 #undef FUSTPU_CASE
 }
 
-template <typename T, bool BF16 = false, typename Y2 = T>
+template <typename T, bool BF16 = false>
 int contract(int mode, int P, const void* u1, const void* u2, const void* C,
              const void* coeff, const void* G, const void* D, void* y,
              long long cells, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case PLAIN:
-      return contract_mode<T, BF16, Y2, PLAIN>(P, u1, u2, C, coeff, G, D, y,
-                                               cells, s);
+      return contract_mode<T, BF16, PLAIN>(P, u1, u2, C, coeff, G, D, y,
+                                           cells, s);
     case COEFF:
-      return contract_mode<T, BF16, Y2, COEFF>(P, u1, u2, C, coeff, G, D, y,
-                                               cells, s);
+      return contract_mode<T, BF16, COEFF>(P, u1, u2, C, coeff, G, D, y,
+                                           cells, s);
     case PAIR:
-      return contract_mode<T, BF16, Y2, PAIR>(P, u1, u2, C, coeff, G, D, y,
-                                              cells, s);
+      return contract_mode<T, BF16, PAIR>(P, u1, u2, C, coeff, G, D, y,
+                                          cells, s);
     default:
       return -2;
   }
 }
 
-template <typename A, typename V, typename Y>
+template <typename A, typename S>
 int scatter(const void* v, const void* pos, const void* ptr, void* y,
             long long ndofs, void* stream) {
   if (ndofs <= 0) return 0;
-  engine_scatter<A, V, Y><<<blocks_for(ndofs), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const V*>(v), static_cast<const int*>(pos),
-      static_cast<const int*>(ptr), static_cast<Y*>(y), ndofs);
+  engine_scatter<A, S><<<blocks_for(ndofs), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(v), static_cast<const int*>(pos),
+      static_cast<const int*>(ptr), static_cast<S*>(y), ndofs);
   return (int)cudaGetLastError();
 }
 
@@ -413,10 +415,8 @@ int scatter(const void* v, const void* pos, const void* ptr, void* y,
 // The float32 / float64 contraction accumulates into y2, which the caller
 // zeroes, the bfloat16 one stores y2; mode 0 is unit coefficients, 1 the
 // per-cell coeff (cells,), 2 the pair fold with C (cells, 2) and the
-// second field u2.  The bfloat16 forms take bfloat16 x, x2, G, D, coeff
-// and C and give bfloat16 u2 and y; the contraction gives y2 as bfloat16
-// (`_bf16`) or float (`_bf16f`), which the scatter of the same suffix
-// reads.
+// second field u2.  The bfloat16 forms take and give bfloat16 arrays
+// throughout (x, x2, u2, y2, y, G, D, coeff, C).
 extern "C" {
 
 int fustpu_engine_gather_f32(const void* x, const void* g, void* out,
@@ -481,39 +481,24 @@ int fustpu_engine_contract_bf16(const void* u1, const void* u2,
                                 const void* G, const void* D, void* y,
                                 long long cells, int P, int mode,
                                 void* stream) {
-  return contract<float, true, bf16>(mode, P, u1, u2, C, coeff, G, D, y,
-                                     cells, stream);
-}
-
-int fustpu_engine_contract_bf16f(const void* u1, const void* u2,
-                                 const void* C, const void* coeff,
-                                 const void* G, const void* D, void* y,
-                                 long long cells, int P, int mode,
-                                 void* stream) {
-  return contract<float, true, float>(mode, P, u1, u2, C, coeff, G, D, y,
-                                      cells, stream);
+  return contract<float, true>(mode, P, u1, u2, C, coeff, G, D, y, cells,
+                               stream);
 }
 
 int fustpu_engine_scatter_f32(const void* v, const void* pos, const void* ptr,
                               void* y, long long ndofs, void* stream) {
-  return scatter<float, float, float>(v, pos, ptr, y, ndofs, stream);
+  return scatter<float, float>(v, pos, ptr, y, ndofs, stream);
 }
 
 int fustpu_engine_scatter_f64(const void* v, const void* pos, const void* ptr,
                               void* y, long long ndofs, void* stream) {
-  return scatter<double, double, double>(v, pos, ptr, y, ndofs, stream);
+  return scatter<double, double>(v, pos, ptr, y, ndofs, stream);
 }
 
 int fustpu_engine_scatter_bf16(const void* v, const void* pos,
                                const void* ptr, void* y, long long ndofs,
                                void* stream) {
-  return scatter<float, bf16, bf16>(v, pos, ptr, y, ndofs, stream);
-}
-
-int fustpu_engine_scatter_bf16f(const void* v, const void* pos,
-                                const void* ptr, void* y, long long ndofs,
-                                void* stream) {
-  return scatter<float, float, bf16>(v, pos, ptr, y, ndofs, stream);
+  return scatter<float, bf16>(v, pos, ptr, y, ndofs, stream);
 }
 
 }  // extern "C"

@@ -33,8 +33,9 @@ operator whose G, D, coeff and C are bfloat16 (`build` / `from_host` of
 
 - `gather` / `gather2`: u2 in bfloat16, a copy of the field's values
   (exact);
-- `contract`: y2 as ``engine.Y2_BF16``, from float32 arithmetic on the
-  widened u2, G, D, coeff and C (the pair fold c1 u1 + c2 u2 too);
+- `contract`: y2 in bfloat16, each value rounded once from float32
+  arithmetic on the widened u2, G, D, coeff and C (the pair fold
+  c1 u1 + c2 u2 too);
 - `scatter`: y in bfloat16, each dof's float32 sum of its positions'
   y2 in ascending order rounded once.
 """
@@ -202,15 +203,6 @@ def engine_pair_plain(op: EngineCellStiffness, x1: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _suffix(name: str, dtype: torch.dtype) -> str:
-    """The entry point's suffix of kernel `name` for storage `dtype`."""
-    suffix = cs.SUFFIX[dtype]
-    if suffix == "bf16" and name in ("engine_contract", "engine_scatter") \
-            and eng.Y2_BF16 == torch.float32:
-        suffix += "f"
-    return suffix
-
-
 def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
            shape: tuple, dtype: torch.dtype | None = None) -> None:
     """Device, dtype (`dtype`, or the first input's), shape and contiguity
@@ -257,8 +249,7 @@ def _launch(name: str, dtype: torch.dtype, x: torch.Tensor, *args,
             counts: dict = launches) -> None:
     """Launch kernel `name`'s form for storage `dtype` on x's card,
     counted in `counts` (its bfloat16 form in `bf16_launches`)."""
-    launch.launch(f"fustpu_{name}_{_suffix(name, dtype)}", x.get_device(),
-                  *args)
+    launch.launch(f"fustpu_{name}_{cs.SUFFIX[dtype]}", x.get_device(), *args)
     cs.count(counts, bf16_launches, name, dtype)
 
 
@@ -334,7 +325,7 @@ def contract(op: EngineCellStiffness, u1: torch.Tensor,
            dtype=dtype)
     # the float32 / float64 kernels add into y2, the bfloat16 one stores
     new = u1.new_empty if dtype == torch.bfloat16 else u1.new_zeros
-    y = new(op.dofmap.shape, dtype=eng.y2_dtype(dtype))
+    y = new(op.dofmap.shape, dtype=dtype)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     _launch("engine_contract", dtype, u1, u1.data_ptr(), ptr(u2),
             ptr(op.C), ptr(op.coeff), op.G.data_ptr(), op.D.data_ptr(),
@@ -345,14 +336,12 @@ def contract(op: EngineCellStiffness, u1: torch.Tensor,
 def scatter(op: EngineCellStiffness, v: torch.Tensor) -> torch.Tensor:
     """y[g[p]] += v[p] over zeros(ndofs) through `engine_scatter`: each
     dof sums its positions in ascending order (the plain version for a CPU
-    tensor); v in y2's dtype (``engine.y2_dtype`` of the operator's), y in
-    the operator's."""
+    tensor); v and y in the operator's dtype."""
     dtype = op.G.dtype
     if v.device.type == "cpu":
-        return eng.scatter_add(v, op.dofmap.reshape(-1).long(), op.ndofs,
-                               dtype)
+        return eng.scatter_add(v, op.dofmap.reshape(-1).long(), op.ndofs)
     _check(op, "engine_scatter", v, shape=tuple(op.dofmap.shape),
-           dtype=eng.y2_dtype(dtype))
+           dtype=dtype)
     y = v.new_empty(op.ndofs, dtype=dtype)
     _launch("engine_scatter", dtype, v, v.data_ptr(),
             op.pos.data_ptr(), op.ptr.data_ptr(), y.data_ptr(), op.ndofs)

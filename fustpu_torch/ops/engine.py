@@ -20,7 +20,7 @@ package.
 bfloat16 (the JAX package's ``--dtype bf16``): each function stores where
 its kernel stores.  The gathers give bfloat16 u2 (a copy, exact); the
 contraction widens its bfloat16 arguments to float32 (exactly), contracts
-in float32 with TF32 off and gives y2 as `Y2_BF16`; the pair fold
+in float32 with TF32 off and rounds y2 to bfloat16 once; the pair fold
 c1 u1 + c2 u2 is float32 (`fold`); the scatter sums the float32 widening
 of y2 and rounds y to bfloat16 once.  A composed apply so rounds y2 and
 then y, where ``spectral_mm.rounds_once``'s applies round y alone.
@@ -32,14 +32,6 @@ import torch
 
 from fustpu_torch.ops import spectral_mm as mm
 from fustpu_torch.ops.indexed import _indexed_contract
-
-# y2's storage between the contraction and the scatter in a bfloat16 apply
-Y2_BF16 = torch.bfloat16
-
-
-def y2_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The dtype of y2 in an apply on fields of `dtype`."""
-    return Y2_BF16 if dtype == torch.bfloat16 else dtype
 
 
 def gather(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -66,23 +58,22 @@ def dense_contract(u2: torch.Tensor, G6: torch.Tensor, D: torch.Tensor,
     """y2[c] = sum_q D3q^T (coeff_c G_c . D3q u2[c]) on (cells, n^3) rows;
     G6 (6, cells, n^3); `coeff` (cells,) or None for unit
     coefficients.  A bfloat16 G6: the arguments widened to float32, y2
-    given as `Y2_BF16`."""
+    rounded to bfloat16 once."""
     mm._full_precision(u2)
-    out = y2_dtype(G6.dtype)
+    out = G6.dtype
     u2, G6, D, coeff = mm._widened((u2, G6, D, coeff))
     cells, n = u2.shape[0], D.shape[0]
     y = _indexed_contract(u2.reshape(cells, n, n, n), G6, coeff, D)
     return y.reshape(cells, n ** 3).to(out)
 
 
-def scatter_add(v: torch.Tensor, g: torch.Tensor, ndofs: int,
-                dtype: torch.dtype | None = None) -> torch.Tensor:
-    """y[g[p]] += v[p] over zeros(ndofs), y in `dtype` (v's by default):
-    a bfloat16 y as the float32 sum rounded once."""
-    dtype = v.dtype if dtype is None else dtype
-    acc = torch.float32 if torch.bfloat16 in (dtype, v.dtype) else dtype
+def scatter_add(v: torch.Tensor, g: torch.Tensor, ndofs: int
+                ) -> torch.Tensor:
+    """y[g[p]] += v[p] over zeros(ndofs); bfloat16 v: y the float32 sum of
+    its widening, rounded once."""
+    acc = torch.float32 if v.dtype == torch.bfloat16 else v.dtype
     y = torch.zeros(ndofs, dtype=acc, device=v.device)
-    return y.index_add_(0, g, v.reshape(-1).to(acc)).to(dtype)
+    return y.index_add_(0, g, v.reshape(-1).to(acc)).to(v.dtype)
 
 
 def stiffness_apply_engine(x: torch.Tensor, G6: torch.Tensor,
@@ -91,7 +82,7 @@ def stiffness_apply_engine(x: torch.Tensor, G6: torch.Tensor,
     """y = A(x) as gather, contraction and scatter-add."""
     cells = G6.shape[1]
     u2 = gather(x, g).reshape(cells, -1)
-    return scatter_add(dense_contract(u2, G6, D, coeff), g, ndofs, x.dtype)
+    return scatter_add(dense_contract(u2, G6, D, coeff), g, ndofs)
 
 
 def stiffness_apply_engine_pair(x1: torch.Tensor, c1: torch.Tensor,
@@ -104,4 +95,4 @@ def stiffness_apply_engine_pair(x1: torch.Tensor, c1: torch.Tensor,
     cells = G6.shape[1]
     u1, u2 = gather2(x1, x2, g)
     u = fold(u1.reshape(cells, -1), c1, u2.reshape(cells, -1), c2)
-    return scatter_add(dense_contract(u, G6, D), g, ndofs, x1.dtype)
+    return scatter_add(dense_contract(u, G6, D), g, ndofs)

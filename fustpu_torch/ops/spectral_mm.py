@@ -36,7 +36,10 @@ they store in bfloat16 and compute in float32 too, in another order of
 sums, and round y where they store it.  It is not the JAX package's own
 order of roundings: its TPU kernel keeps bfloat16 accumulators, and its
 XLA path rounds at each op.  ``fustpu_torch.ops.extruded`` and
-``fustpu_torch.ops.indexed`` take the same form.
+``fustpu_torch.ops.indexed`` take the same form.  The staged engine's plain
+versions (``fustpu_torch.ops.engine``) do not: each of its functions
+stores where its kernel stores, so a composed bfloat16 engine apply rounds
+the element stream y2 and then y.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ kernels an apply), in float32 and in bfloat16, it prints:
     each in its stored type: 2 bytes a value in bfloat16) and the rate
     that gives at the measured time; on the staged engine also each of
     its three kernels' least bytes (u2 and y2 each written once and read
-    once, y2 in its stored type, ``engine.y2_dtype``).
+    once, in the fields' stored type).
 Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
 gives the card's achievable memory rate to hold those against.
 """
@@ -40,7 +40,6 @@ import torch
 
 from fustpu_torch.demos import nonlinear_bowl
 from fustpu_torch.models.discretization import EngineStiffness
-from fustpu_torch.ops import engine as eng
 
 FLAGSHIP = ["--elements", "64", "--degree", "4"]
 CORNER = ["--stiffness-impl", "pallas_corner"]
@@ -130,12 +129,12 @@ def engine_bytes(op) -> tuple[int, int, int]:
     """The least bytes of the staged engine's gather (gather2 for a pair),
     contraction and scatter on the operator `op`, each input read once and
     each output written once in its stored type: the gather's dofmap,
-    field(s) and u2; the contraction's u2, G, coeff or C and y2 (in
-    ``engine.y2_dtype``); the scatter's y2, inverse map and y."""
+    field(s) and u2; the contraction's u2, G, coeff or C and y2; the
+    scatter's y2, inverse map and y."""
     b = op.G.element_size()
     N, cells, ndofs = op.dofmap.numel(), op.dofmap.shape[0], op.ndofs
     fields = 2 if op.C is not None else 1
-    y2 = N * torch.empty(0, dtype=eng.y2_dtype(op.G.dtype)).element_size()
+    y2 = N * b
     per_cell = 0 if op.mode == "plain" else (2 if fields == 2 else 1)
     gather = N * 4 + fields * (ndofs + N) * b
     contract = fields * N * b + op.G.numel() * b + per_cell * cells * b + y2

@@ -7,8 +7,8 @@ from its `build_plan`), the composed apply and pair against
 ``operators.stiffness_apply_indexed`` with ``engine=``, and the port's bf16
 engine models at P = 5 against the JAX package's bf16 engine models (its
 fused engine declines above P = 4, so they run the staged one); the
-conversion of its parameters, a checkpoint restart, the wrappers' checks
-and the bf16 gather's grid; and, on a card, the four bf16 engine kernels
+conversion of its parameters, a checkpoint restart and the wrappers'
+launch arguments and checks; and, on a card, the four bf16 engine kernels
 against their plain versions.
 
 The JAX package is imported inside the `ref` fixture, so that the card
@@ -162,7 +162,7 @@ def test_plain_bf16_functions_match_pallas_interpret(ref, P):
         exact = eng.dense_contract(u.double(), p.G6.double(), p.D.double(),
                                    None if p.coeff is None
                                    else p.coeff.double())
-        assert mine.dtype == eng.Y2_BF16
+        assert mine.dtype == BF16
         assert torch.equal(cen.contract(op, u), mine)
         assert rel(mine, np.asarray(y)) <= APPLY_TOL
         assert rel(mine, exact) <= APPLY_TOL
@@ -172,8 +172,7 @@ def test_plain_bf16_functions_match_pallas_interpret(ref, P):
     mine = eng.scatter_add(v, k.g, k.mesh.ndofs)
     exact = eng.scatter_add(v.double(), k.g, k.mesh.ndofs)
     assert mine.dtype == BF16
-    assert torch.equal(cen.scatter(k.op, v.to(eng.Y2_BF16).reshape(
-        cells, -1)), mine)
+    assert torch.equal(cen.scatter(k.op, v.reshape(cells, -1)), mine)
     assert rel(mine, np.asarray(want)) <= APPLY_TOL
     assert rel(mine, exact) <= APPLY_TOL
     assert rel(np.asarray(want), exact) <= APPLY_TOL
@@ -224,7 +223,7 @@ def test_composed_bf16_apply_matches_operators(ref, P):
 def test_plain_bf16_stores_where_its_kernel_stores(ref):
     """Each plain bf16 function stores where its kernel does: the gathers
     copy bf16 values; the contraction is the float32 contraction of the
-    widened inputs rounded once to y2's dtype; the pair fold is float32;
+    widened inputs rounded once to bf16; the pair fold is float32;
     the scatter is the float32 sum of the widened y2 rounded once to bf16;
     the composed applies are these in turn, and differ from one rounding
     of the float32 apply (``spectral_mm.rounds_once``) by the rounding of
@@ -241,8 +240,8 @@ def test_plain_bf16_stores_where_its_kernel_stores(ref):
                                  else p.coeff.float())
         y2 = eng.dense_contract(u, p.G6, p.D, p.coeff)
         assert f32.dtype == torch.float32
-        assert torch.equal(y2, f32.to(eng.Y2_BF16))
-        y = eng.scatter_add(y2, k.g, k.mesh.ndofs, BF16)
+        assert torch.equal(y2, f32.to(BF16))
+        y = eng.scatter_add(y2, k.g, k.mesh.ndofs)
         sum32 = torch.zeros(k.mesh.ndofs).index_add_(0, k.g,
                                                      y2.float().reshape(-1))
         assert y.dtype == BF16 and torch.equal(y, sum32.to(BF16))
@@ -256,7 +255,7 @@ def test_plain_bf16_stores_where_its_kernel_stores(ref):
     assert torch.equal(uf, p.c1.float()[:, None] * u1.float().reshape(
         cells, -1) + p.c2.float()[:, None] * u2.float().reshape(cells, -1))
     y = eng.scatter_add(eng.dense_contract(uf, p.G6, p.D), k.g,
-                        k.mesh.ndofs, BF16)
+                        k.mesh.ndofs)
     assert torch.equal(cen.engine_pair(k.pop, k.x1, k.x2), y)
 
 
@@ -450,9 +449,10 @@ def test_bf16_engine_checkpoint_restart_is_bitwise(ref, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# The bf16 wrappers' host side: launch arguments, checks and the gather's
-# grid (no card: a CPU tensor subclass stands in for a card tensor and
-# `launch.launch` records its calls)
+# The bf16 wrappers' host side: launch arguments and checks (no card: a CPU
+# tensor subclass stands in for a card tensor and `launch.launch` records
+# its calls; the gather's grid, the same in every dtype, is
+# tests/test_torch_engine.py's test_gather_grid_covers_every_position_once)
 # ---------------------------------------------------------------------------
 
 class _OnCard(torch.Tensor):
@@ -502,7 +502,7 @@ def _small(dtype=BF16, pair=False, cells=5, n=3, ndofs=400):
 def test_bf16_launch_arguments(no_card_launch):
     """On a card each bf16 wrapper launches its bf16 entry point with the
     float32 kernels' arguments (the gather on its one-wave grid), counted
-    in `bf16_launches` only: y2 in `engine.Y2_BF16`, u2 and y in bf16."""
+    in `bf16_launches` only: u2, y2 and y in bf16."""
     cen.reset_launches()
     op, x = _small(pair=True)
     op, x = _on_card(op), x.as_subclass(_OnCard)
@@ -510,8 +510,7 @@ def test_bf16_launch_arguments(no_card_launch):
     u1, u2 = cen.gather2(op, x, x)
     y2 = cen.contract(op, u1.as_subclass(_OnCard), u2.as_subclass(_OnCard))
     y = cen.scatter(op, y2.as_subclass(_OnCard))
-    assert (u.dtype, u1.dtype, y2.dtype, y.dtype) == (
-        BF16, BF16, eng.Y2_BF16, BF16)
+    assert (u.dtype, u1.dtype, y2.dtype, y.dtype) == (BF16,) * 4
     names = [c[0] for c in no_card_launch]
     assert names == ["fustpu_engine_gather_bf16",
                      "fustpu_engine_gather2_bf16",
@@ -535,12 +534,11 @@ def test_bf16_wrappers_refuse_before_any_launch(no_card_launch):
     card = _on_card(op)
     xc = x.as_subclass(_OnCard)
     u = torch.zeros(op.dofmap.shape, dtype=BF16).as_subclass(_OnCard)
-    other = torch.float32 if eng.Y2_BF16 == BF16 else BF16
     cases = [
         (lambda: cen.contract(card, u.float().as_subclass(_OnCard)),
          "input is torch.float32"),
-        (lambda: cen.scatter(card, u.to(other).as_subclass(_OnCard)),
-         "input is"),
+        (lambda: cen.scatter(card, u.float().as_subclass(_OnCard)),
+         "input is torch.float32"),
         (lambda: cen.gather_flat(card, xc), "unsupported"),
         (lambda: cen.gather(card, xc[1:]), "shape"),
         (lambda: cen.contract(card, u[1:]), "shape"),
@@ -552,37 +550,6 @@ def test_bf16_wrappers_refuse_before_any_launch(no_card_launch):
         with pytest.raises(ValueError, match=match):
             fn()
     assert no_card_launch == []
-
-
-def _gather_walk(n, blocks):
-    """How often the bf16 `engine_gather_quads` (csrc/engine.cu) writes
-    each position: thread t of T takes quads q = t + k T below n // 4
-    (positions 4q .. 4q + 3, one 8 B store), then position 4 (n // 4) + t
-    below n."""
-    T = blocks * launch.GATHER_THREADS
-    nq = n // launch.GATHER_QUAD
-    touched = []
-    q = np.arange(T)
-    while (live := q < nq).any():
-        touched += [launch.GATHER_QUAD * q[live] + i
-                    for i in range(launch.GATHER_QUAD)]
-        q[live] += T
-    tail = launch.GATHER_QUAD * nq + np.arange(T)
-    touched.append(tail[tail < n])
-    return np.bincount(np.concatenate(touched), minlength=n)
-
-
-@pytest.mark.parametrize("sms", [1, 132])
-@pytest.mark.parametrize("n", [1, 3, 27, 125, 12_800_000])
-def test_bf16_gather_grid_covers_every_position_once(n, sms):
-    """The bf16 gather's grid (`launch.gather_blocks`, four positions a
-    thread, as in float32 and float64) writes every position once, and a
-    thread's quad is one 8 B-aligned store of four bf16 values."""
-    blocks = launch.gather_blocks(n, sms)
-    assert 1 <= blocks <= sms * launch.BLOCKS_PER_SM
-    assert np.array_equal(_gather_walk(n, blocks), np.ones(n, np.int64))
-    assert launch.GATHER_QUAD * torch.empty(0, dtype=BF16).element_size() \
-        == 8
 
 
 # ---------------------------------------------------------------------------
@@ -627,10 +594,10 @@ def test_bf16_engine_kernels_match_plain_on_card(tmp_path, P):
             yk = cen.contract(op, u1)
             yp = eng.dense_contract(u1, p.G6, p.D, p.coeff)
             assert torch.equal(cen.contract(op, u1), yk)
-        assert yk.dtype == eng.Y2_BF16 and rel(yk.cpu(), yp.cpu()) <= CARD_TOL
+        assert yk.dtype == BF16 and rel(yk.cpu(), yp.cpu()) <= CARD_TOL
         ys = cen.scatter(op, yk)
-        assert rel(ys.cpu(), eng.scatter_add(yk, p.g, mesh.ndofs,
-                                             BF16).cpu()) <= CARD_TOL
+        assert rel(ys.cpu(), eng.scatter_add(yk, p.g,
+                                             mesh.ndofs).cpu()) <= CARD_TOL
         assert torch.equal(cen.scatter(op, yk), ys)
         run = (lambda: cen.engine_pair(op, x1, x2)) if pair else \
             (lambda: cen.engine(op, x1))

@@ -454,6 +454,10 @@ def _gather_walk(n, blocks):
 @pytest.mark.parametrize("sms", [1, 132])
 @pytest.mark.parametrize("n", [1, 3, 27, 125, 12_800_000])
 def test_gather_grid_covers_every_position_once(n, sms):
+    """The single-field gather's grid writes every position once.  A
+    thread takes four positions in every dtype (one 16 B store in float32,
+    two in float64, one 8 B store in bfloat16), so the grid is the same
+    for each."""
     from fustpu_torch.ops import launch
 
     blocks = launch.gather_blocks(n, sms)
