@@ -244,16 +244,21 @@ Phases (each prints its time; any failure exits non-zero):
      arithmetic, y2 and y rounded where they are stored) <= 2^-7 at P =
      2..10 on phase 20's meshes, the gathers bitwise `index_select`, the
      composed apply and pair <= 2^-7 and within 1e-2 of bf16 #11 on the
-     same buffers, two applies bitwise, every bf16 engine counter moved
-     (after phase 20; 34j); the bodyfit bowl on the engine in bf16 on
-     phase 13a's import (after 21b): each kernel against its plain version
-     at that size and timed, 10 steps kernel vs plain and vs the bf16 #11
-     model <= 2e-2, 50 steps counted, ms a step in turns with the float32
-     engine and bf16 #11, the device bytes of the model and of a solve
-     beside the float32 engine's, and its two-layer form (pair, after 21c)
-     in the same way (34k); the P=6 bodyfit bowl on the engine in bf16
-     (after 21d): kernels vs plain, 50 steps, ms a step in turns with 21d's
-     float32 engine (34l); a two-layer bf16 engine model (a 12^3 P=4
+     same buffers, two applies bitwise, the redesigned #9 and #10
+     (engine_bf16.cu) against their first designs on the same inputs (#10
+     bitwise, #9 within 1e-3 with at most 1% of its values differing, the
+     count printed), every bf16 engine counter and both first designs'
+     moved (after phase 20; 34j); the bodyfit bowl on the engine in bf16
+     on phase 13a's import (after 21b): each kernel against its plain
+     version at that size and timed, #9 (also in COEFF mode) and #10
+     against their first designs in turns, 10 steps kernel vs plain and
+     vs the bf16 #11 model <= 2e-2, 50 steps counted, ms a step in turns
+     with the float32 engine and bf16 #11, the device bytes of the model
+     and of a solve beside the float32 engine's, and its two-layer form
+     (pair, after 21c) in the same way (34k); the P=6 bodyfit bowl on the
+     engine in bf16 (after 21d): kernels vs plain and the turns against
+     the first designs, 50 steps, ms a step in turns with 21d's float32
+     engine (34l); a two-layer bf16 engine model (a 12^3 P=4
      general box) on phase 22's 4 gloo ranks against its one-rank run
      <= 2e-2 (22e).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
@@ -354,6 +359,12 @@ BF16_TOL = 2.0 ** -7
 # rounded to bf16; y2 and y rounded, or y alone), each within ~5e-3 of
 # float64
 BF16_G_TOL = 1e-2
+# the redesigned bf16 contraction (#9) against its first design on the
+# same bf16 inputs: the same float32 expressions in the same order, so
+# bitwise where the compiler fuses them alike; a value whose rounding to
+# bf16 a different fusion flips differs by one bf16 step (2^-8 of it), so
+# 1e-3 over the field, with at most 1% of the values differing
+FIRST_DESIGN_TOL = 1e-3
 # the depth of the plain versions' runs of the bowls beside their kernels'
 # whole solves (13c, 34b): the first PLAIN_DEPTH steps, about a sixth of
 # the 1,889-1,957 (a whole solve on the plain version was among the run's
@@ -528,6 +539,7 @@ def main() -> None:
     from fustpu_torch.ops import cuda_indexed as ci
     from fustpu_torch.ops import anatomy
     from fustpu_torch.ops import cuda_slab2
+    from fustpu_torch.ops import launch
     from fustpu_torch.ops import cuda_stiffness as cs
     from fustpu_torch.ops import engine as eng
     from fustpu_torch.ops import precompute as pre
@@ -1589,17 +1601,18 @@ def main() -> None:
               f"{worst['f32']:.3e} (tol {F32_TOL}); f64 against the indexed "
               f"kernel {worst['indexed']:.3e}; the gathers bitwise equal to "
               f"plain, the single-field gather also to its first design; "
-              f"launches {dict(cen.launches)}, "
-              f"{dict(cen.comparison_launches)}")
+              f"launches {dict(cen.launches)}, engine_gather_flat "
+              f"{cen.comparison_launches['engine_gather_flat']}")
         if not all(cen.launches.values()) or \
-                not all(cen.comparison_launches.values()):
+                not cen.comparison_launches["engine_gather_flat"]:
             fail("an engine kernel's launch counter did not move")
 
     with phase("34j bf16 engine kernels vs plain, P=2..10: #7-#10 alone, "
                "the composed apply and pair, against bf16 #11 on the same "
-               "buffers, on phase 20's meshes"), \
+               "buffers, #9 and #10 against their first designs, on phase "
+               "20's meshes"), \
             tempfile.TemporaryDirectory() as tmp:
-        worst16 = {}
+        worst16, differ16, values16 = {}, 0, 0
         cen.reset_launches()
         for P in range(2, 11):
             v, c, t = shapes.cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1,
@@ -1643,6 +1656,19 @@ def main() -> None:
                     errs = {"contract": rel_l2(yk, yp),
                             "scatter": rel_l2(ys, eng.scatter_add(
                                 yk, p16.g, mesh.ndofs))}
+                    # the redesigned #9 and #10 against the first designs
+                    yo = cen.contract_cells(op, *((u1, u2) if pair
+                                                  else (u1,)))
+                    differ = int((yk != yo).sum())
+                    errs["vs first #9"] = rel_l2(yk, yo)
+                    if differ > yk.numel() // 100 or not torch.equal(
+                            ys, cen.scatter_dofs(op, yk)):
+                        fail(f"34j: P={P} {mname} {label}: #9 differs from "
+                             f"its first design in {differ} of "
+                             f"{yk.numel()} values, or #10 not bitwise its "
+                             f"first design's")
+                    differ16 += differ
+                    values16 += yk.numel()
                     run = (lambda: cen.engine_pair(op, x1, x2)) if pair \
                         else (lambda: cen.engine(op, x1))
                     y = run()
@@ -1660,7 +1686,9 @@ def main() -> None:
                         fail(f"34j: P={P} {mname} {label}: gather bitwise "
                              f"index_select {ok}, two applies bitwise {same}")
                     for k, e in errs.items():
-                        tol = BF16_G_TOL if k == "vs #11" else BF16_TOL
+                        tol = {"vs #11": BF16_G_TOL,
+                               "vs first #9": FIRST_DESIGN_TOL}.get(
+                                   k, BF16_TOL)
                         if not e <= tol:
                             fail(f"34j: P={P} {mname} {label}: {k} {e:.3e} > "
                                  f"{tol}")
@@ -1669,10 +1697,17 @@ def main() -> None:
               f"{BF16_G_TOL}): " + ", ".join(
                   f"{k} {v:.3e}" for k, v in worst16.items())
               + f"; the gathers bitwise index_select, two applies bitwise; "
-              f"launches {dict(cen.launches)}, {dict(cen.bf16_launches)}")
-        if not all(cen.bf16_launches.values()) or any(cen.launches.values()):
+              f"#10 bitwise its first design; #9 differs from its first "
+              f"design in {differ16} of {values16} values (tol "
+              f"{FIRST_DESIGN_TOL}); launches {dict(cen.launches)}, "
+              f"{dict(cen.bf16_launches)}, {dict(cen.comparison_launches)}")
+        if not all(cen.bf16_launches.values()) or \
+                any(cen.launches.values()) or \
+                not cen.comparison_launches["engine_contract_cells_bf16"] or \
+                not cen.comparison_launches["engine_scatter_dofs_bf16"]:
             fail(f"34j: the bf16 engine counters {dict(cen.bf16_launches)}, "
-                 f"the float32 ones {dict(cen.launches)}")
+                 f"the float32 ones {dict(cen.launches)}, the first "
+                 f"designs' {dict(cen.comparison_launches)}")
 
     with phase("23 slab2 and slab2w kernels vs plain, P=2..10: the walk "
                "and the class-launch design"):
@@ -3694,6 +3729,67 @@ def main() -> None:
         # function (float32 sums rounded once), so its time stands apart
         add_ms = time_ms(lambda: torch.zeros(ndofs, dtype=BF16, device=dev)
                          .index_add_(0, p16.g, yk.reshape(-1)), 20)
+        # #9 and #10 against their first designs (kept as the comparison)
+        # on the same buffers, in turns (old, new, new, old); #9 in COEFF
+        # mode too (a seeded per-cell coefficient) where the model is single
+        us = (u1, u2) if est.is_pair else (u1,)
+        yo, yso = cen.contract_cells(op, *us), cen.scatter_dofs(op, yk)
+        differ = int((yk != yo).sum())
+        if differ > yk.numel() // 100 or not rel_l2(yk, yo) <= \
+                FIRST_DESIGN_TOL or not torch.equal(yso,
+                                                    cen.scatter(op, yk)):
+            fail(f"34: {label}: #9 differs from its first design in "
+                 f"{differ} values (rel-l2 {rel_l2(yk, yo):.3e}), or #10 "
+                 f"not bitwise its first design's")
+        designs = {
+            "contract": (lambda: cen.contract(op, *us),
+                         lambda: cen.contract_cells(op, *us)),
+            "scatter": (lambda: cen.scatter(op, yk),
+                        lambda: cen.scatter_dofs(op, yk))}
+        if not est.is_pair:
+            cop = op._replace(coeff=torch.as_tensor(
+                rng16.uniform(0.5, 2.0, cells), device=dev).to(BF16))
+            designs["contract COEFF"] = (lambda: cen.contract(cop, u1),
+                                         lambda: cen.contract_cells(cop, u1))
+        for k in cen.comparison_launches:
+            cen.comparison_launches[k] = 0
+        turns = {k: {"new": [], "old": []} for k in designs}
+        for k, (new, old) in designs.items():
+            for which in ("old", "new", "new", "old"):
+                turns[k][which].append(time_ms(new if which == "new"
+                                               else old, 20))
+        for (name, k), (oname, err) in zip(
+                (("engine_contract_bf16", "contract"),
+                 ("engine_scatter_bf16", "scatter")),
+                (("engine_contract_cells_bf16", plain_c() - yo.float()),
+                 ("engine_scatter_dofs_bf16", plain_s().float() -
+                  yso.float()))):
+            out[name].update(ms=min(turns[k]["new"]), turns=turns[k])
+            out[oname] = dict(out[name], ms=min(turns[k]["old"]),
+                              max_abs_err=float(err.abs().max()),
+                              launches=cen.comparison_launches[oname])
+        b9, b10 = bound(*out["engine_contract_bf16"]["cost"])[0], \
+            bound(*out["engine_scatter_bf16"]["cost"])[0]
+        mode, card = cen._MODES[op.mode], u1.get_device()
+        bps = launch.contract_occupancy(card, op.P, mode)
+        smem = launch.entry("fustpu_engine_contract_bf16_smem")(op.P, mode)
+        grid = launch.contract_blocks(cells, op.P, bps, launch.sm_count(card))
+        print(f"   {label}: #9 in bf16 (mode {op.mode}): "
+              f"{launch.CONTRACT_CELLS[op.P]} cells a chunk, {smem} B of "
+              f"shared memory a block, {bps} blocks an SM, grid {grid}; "
+              f"#10: {launch.scatter_blocks(ndofs)} blocks of "
+              f"{launch.SCATTER_DOFS} dofs", flush=True)
+        print(f"   {smi}: {label}: #9 and #10 in bf16, redesigned (new) "
+              f"against the first designs (old), ms in turns (old, new, "
+              f"new, old): " + "; ".join(
+                  f"{k} old {t['old'][0]:.4f} / {t['old'][1]:.4f}, new "
+                  f"{t['new'][0]:.4f} / {t['new'][1]:.4f} (new "
+                  f"{(b10 if k == 'scatter' else b9) / min(t['new']):.1%}"
+                  f" of the bound, old "
+                  f"{(b10 if k == 'scatter' else b9) / min(t['old']):.1%})"
+                  for k, t in turns.items())
+              + f"; #9 differs from its first design in {differ} of "
+              f"{yk.numel()} values; #10 bitwise", flush=True)
         run = (lambda m: m.pair(*xs)) if est.is_pair else (lambda m: m(xs[0]))
         pst = EngineStiffness(op, "mm")
         y = run(est)
@@ -3718,6 +3814,26 @@ def main() -> None:
             fail(f"34: {label}: bf16 engine vs bf16 #11 {e11:.3e}")
         out["engine_bf16"]["indexed_ms"] = ms11
         return out
+
+    class FirstDesigns:
+        """`model` (a bf16 engine model) with the first designs of #9 and
+        #10, the comparison kernels, in place of the redesigned ones while
+        it solves: the same buffers and the same gather, for steps in
+        turns."""
+
+        def __init__(self, model):
+            self.model = model
+
+        def init_state(self):
+            return self.model.init_state()
+
+        def solve(self, *args):
+            keep = cen.contract, cen.scatter
+            cen.contract, cen.scatter = cen.contract_cells, cen.scatter_dofs
+            try:
+                return self.model.solve(*args)
+            finally:
+                cen.contract, cen.scatter = keep
 
     def engine16_steps(model, dt_, steps, label):
         """`steps` RK4 steps of a bf16 engine model from rest, the engine's
@@ -3764,15 +3880,22 @@ def main() -> None:
         sp = m16.solve(s0, dt_, 10)[0]
         m16.stiffness = kst
         s11 = b16.solve(b16.init_state(), dt_, 10)[0]
+        first = FirstDesigns(m16)
+        s_first = first.solve(s0, dt_, 10)[0]
         e_plain, e11 = rel_l2(sk.u, sp.u), rel_l2(sk.u, s11.u)
+        e_first = rel_l2(sk.u, s_first.u)
         print(f"   {label}: 10 bf16 steps, engine vs plain rel-l2(u) "
               f"{e_plain:.3e}, vs bf16 #11 {e11:.3e} (tol {BF16_TRAJ_TOL}); "
+              f"vs the first designs of #9 / #10 "
+              f"{'bitwise' if torch.equal(sk.u, s_first.u) else e_first}; "
               f"max |u| {float(sk.u.abs().max()):.4e}", flush=True)
-        if not (e_plain <= BF16_TRAJ_TOL and e11 <= BF16_TRAJ_TOL):
+        if not (e_plain <= BF16_TRAJ_TOL and e11 <= BF16_TRAJ_TOL
+                and e_first <= BF16_TRAJ_TOL):
             fail(f"34k: {label}: 10 steps vs plain {e_plain:.3e}, vs bf16 "
-                 f"#11 {e11:.3e}")
+                 f"#11 {e11:.3e}, vs the first designs {e_first:.3e}")
         _, counts = engine16_steps(m16, dt_, 50, label)
         turns = ms_turns([("bf16 engine", m16, dt_),
+                          ("bf16 engine, first #9 / #10", first, dt_),
                           ("float32 engine", f32_model, dt_f32),
                           ("bf16 #11", b16, dt_)])
         print(f"   {smi}: {label} ms a step (50 steps from rest, in turns, "
@@ -4085,11 +4208,16 @@ def main() -> None:
         k34l = engine16_kernels(m34l, "P=6 bodyfit bowl")
         _, n34l = engine16_steps(m34l, dt34l, 50, "P=6 bodyfit bowl")
         turns = ms_turns([("float32 engine", ebowl7, dt7),
-                          ("bf16 engine", m34l, dt34l)])
+                          ("bf16 engine", m34l, dt34l),
+                          ("bf16 engine, first #9 / #10",
+                           FirstDesigns(m34l), dt34l)])
         print(f"   {smi}: P=6 bodyfit bowl ms a step (50 steps from rest, "
               f"in turns, host clock): float32 engine "
               f"{turns['float32 engine']:.4f}, bf16 engine "
-              f"{turns['bf16 engine']:.4f}; the composed apply float32 "
+              f"{turns['bf16 engine']:.4f}, bf16 engine on the first "
+              f"designs of #9 / #10 "
+              f"{turns['bf16 engine, first #9 / #10']:.4f}; the composed "
+              f"apply float32 "
               f"(21d) {k17['engine']['ms']:.4f} ms, bf16 "
               f"{k34l['engine_bf16']['ms']:.4f} ms", flush=True)
         del m34l, ebowl7, k17, pb15
@@ -4107,6 +4235,10 @@ def main() -> None:
             launches[k] = launches.get(k, 0) + v
     launches["engine_bf16"] = sum(launches[k] for k in STAGED16
                                   + ("engine_gather2_bf16",))
+    # the first designs of #9 and #10 in bf16: their launches in 34k-l's
+    # runs in turns
+    for k in ("engine_contract_cells_bf16", "engine_scatter_dofs_bf16"):
+        launches[k] = sum(e[k]["launches"] for e in (k34k, k34kb, k34l))
     ci.reset_launches()
     with phase("15c bodyfit bowl at P=6, full solve (indexed kernel)"):
         args7 = nonlinear_bowl.parser().parse_args(
@@ -4489,11 +4621,15 @@ def main() -> None:
                                "fustpu/ops/pallas_gather.py:534"),
         "engine_gather2_bf16": ("fustpu_torch/csrc/engine.cu",
                                 "fustpu/ops/pallas_gather.py:566"),
-        "engine_contract_bf16": ("fustpu_torch/csrc/engine.cu",
+        "engine_contract_bf16": ("fustpu_torch/csrc/engine_bf16.cu",
                                  "fustpu/ops/pallas_gather.py:1078"),
-        "engine_scatter_bf16": ("fustpu_torch/csrc/engine.cu",
+        "engine_scatter_bf16": ("fustpu_torch/csrc/engine_bf16.cu",
                                 "fustpu/ops/pallas_gather.py:610"),
-        "engine_bf16": ("fustpu_torch/csrc/engine.cu",
+        "engine_contract_cells_bf16": ("fustpu_torch/csrc/engine.cu",
+                                       "fustpu/ops/pallas_gather.py:1078"),
+        "engine_scatter_dofs_bf16": ("fustpu_torch/csrc/engine.cu",
+                                     "fustpu/ops/pallas_gather.py:610"),
+        "engine_bf16": ("fustpu_torch/csrc/engine_bf16.cu",
                         "fustpu/ops/operators.py:290"),
         **{name: ("fustpu_torch/csrc/slab2.cu",
                   "fustpu/ops/pallas_stiffness.py:314")

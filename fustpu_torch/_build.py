@@ -186,12 +186,25 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"fustpu_engine_gather2_{suffix}")
         fn.argtypes = [p, p, p, p, p, ll, p]
         fn.restype = i
+    # the bfloat16 contraction and scatter of engine_bf16.cu (D a host
+    # array of floats, the chunk, the grid), and their first designs
+    for suffix in ("f32", "f64", "cells_bf16"):
         fn = getattr(lib, f"fustpu_engine_contract_{suffix}")
         fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
         fn.restype = i
+    for suffix in ("f32", "f64", "dofs_bf16"):
         fn = getattr(lib, f"fustpu_engine_scatter_{suffix}")
         fn.argtypes = [p, p, p, p, ll, p]
         fn.restype = i
+    lib.fustpu_engine_contract_bf16.argtypes = [p, p, p, p, p, p, p, ll, i, i,
+                                                i, i, p]
+    lib.fustpu_engine_contract_bf16.restype = i
+    for name in ("fustpu_engine_contract_bf16_occupancy",
+                 "fustpu_engine_contract_bf16_smem"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = i
+    lib.fustpu_engine_scatter_bf16.argtypes = [p, p, p, p, ll, ll, i, p]
+    lib.fustpu_engine_scatter_bf16.restype = i
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"fustpu_engine_gather_flat_{suffix}")
         fn.argtypes = [p, p, p, ll, p]

@@ -76,6 +76,11 @@
 // scatter 25.6 + 51.2 + 26.6 + 13.3 MB.  A float32 y2 (y rounded once, not
 // y2 too) moves 51.2 MB more an apply: on an H100 80GB HBM3 at 700 W it
 // made the apply 4-8% slower (PERF.md, the staged engine's bf16 rows).
+// These bfloat16 forms of the contraction and the scatter are the first
+// designs, kept as the comparison (entry points *_contract_cells_bf16 and
+// *_scatter_dofs_bf16): the main path runs engine_bf16.cu's, redesigned
+// for Hopper (bulk-copied chunks on a persistent grid; runs of dofs with
+// their inverse-map segment in tiles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -476,11 +481,13 @@ int fustpu_engine_contract_f64(const void* u1, const void* u2, const void* C,
   return contract<double>(mode, P, u1, u2, C, coeff, G, D, y, cells, stream);
 }
 
-int fustpu_engine_contract_bf16(const void* u1, const void* u2,
-                                const void* C, const void* coeff,
-                                const void* G, const void* D, void* y,
-                                long long cells, int P, int mode,
-                                void* stream) {
+// the first bfloat16 designs of the contraction and the scatter, kept as
+// the comparison of engine_bf16.cu's (cen.contract_cells, cen.scatter_dofs)
+int fustpu_engine_contract_cells_bf16(const void* u1, const void* u2,
+                                      const void* C, const void* coeff,
+                                      const void* G, const void* D, void* y,
+                                      long long cells, int P, int mode,
+                                      void* stream) {
   return contract<float, true>(mode, P, u1, u2, C, coeff, G, D, y, cells,
                                stream);
 }
@@ -495,9 +502,9 @@ int fustpu_engine_scatter_f64(const void* v, const void* pos, const void* ptr,
   return scatter<double, double>(v, pos, ptr, y, ndofs, stream);
 }
 
-int fustpu_engine_scatter_bf16(const void* v, const void* pos,
-                               const void* ptr, void* y, long long ndofs,
-                               void* stream) {
+int fustpu_engine_scatter_dofs_bf16(const void* v, const void* pos,
+                                    const void* ptr, void* y,
+                                    long long ndofs, void* stream) {
   return scatter<float, bf16>(v, pos, ptr, y, ndofs, stream);
 }
 

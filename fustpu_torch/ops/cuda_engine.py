@@ -1,5 +1,6 @@
 """The staged gather / contract / scatter engine on the card: the four
-hand-written CUDA kernels of ``fustpu_torch/csrc/engine.cu``, their
+hand-written CUDA kernels of ``fustpu_torch/csrc/engine.cu`` (the bfloat16
+contraction and scatter: ``fustpu_torch/csrc/engine_bf16.cu``), their
 wrappers, their launch counters and the host build of the operator.
 
 Counterpart of the 3-kernel engine of ``fustpu/ops/pallas_gather.py``
@@ -24,7 +25,10 @@ launches the kernel or raises: there is no fallback.  Each kernel wrapper
 counts its launches in `launches`, where it launches; the kernels launch
 through the lean path of ``fustpu_torch.ops.launch``.  `gather_flat` runs
 the single-field gather's first design (one thread a position), kept as
-the comparison and counted apart in `comparison_launches`.
+the comparison and counted apart in `comparison_launches`, as are
+`contract_cells` and `scatter_dofs`, the first bfloat16 designs of the
+contraction (one block a few cells, the cell body's own global loads) and
+the scatter (one thread a dof).
 
 Each kernel comes in float32, float64 and bfloat16.  The bfloat16 forms
 (the JAX package's ``--dtype bf16``, counted in `bf16_launches`) take an
@@ -35,17 +39,22 @@ operator whose G, D, coeff and C are bfloat16 (`build` / `from_host` of
   (exact);
 - `contract`: y2 in bfloat16, each value rounded once from float32
   arithmetic on the widened u2, G, D, coeff and C (the pair fold
-  c1 u1 + c2 u2 too);
+  c1 u1 + c2 u2 too): chunks of cells bulk-copied into a ring of shared
+  stages on a persistent grid, D by value from a host copy (`host_D`);
+  u1, u2, G and y2 16 B-aligned;
 - `scatter`: y in bfloat16, each dof's float32 sum of its positions'
-  y2 in ascending order rounded once.
+  y2 in ascending order rounded once: runs of dofs with their segment of
+  the inverse map in tiles; pos 16 B-aligned, y 4 B-aligned.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
@@ -57,7 +66,9 @@ from fustpu_torch.ops import launch
 launches = {"engine_gather": 0, "engine_gather2": 0, "engine_contract": 0,
             "engine_scatter": 0}
 bf16_launches = {f"{k}_bf16": 0 for k in launches}
-comparison_launches = {"engine_gather_flat": 0}
+comparison_launches = {"engine_gather_flat": 0,
+                       "engine_contract_cells_bf16": 0,
+                       "engine_scatter_dofs_bf16": 0}
 
 _MODES = {"plain": 0, "coeff": 1, "pair": 2}
 
@@ -213,8 +224,9 @@ def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel: tensor on {x.device}, expected a "
                          "CUDA device")
-    kinds = (cs.SUFFIX if name != "engine_gather_flat" else
-             (torch.float32, torch.float64))
+    kinds = {"engine_gather_flat": (torch.float32, torch.float64),
+             "engine_contract_cells": (torch.bfloat16,),
+             "engine_scatter_dofs": (torch.bfloat16,)}.get(name, cs.SUFFIX)
     if x.dtype not in kinds:
         raise ValueError(f"{name} kernel: dtype {x.dtype} unsupported "
                          f"({', '.join(map(str, kinds))})")
@@ -222,14 +234,14 @@ def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
         raise ValueError(f"{name} kernel: degree {op.P} outside 2..10")
     cells, nnn = op.dofmap.shape
     need = [(t, shape, dtype, "input") for t in xs]
-    if name == "engine_contract":
+    if name.startswith("engine_contract"):
         need += [(op.G, (cells, 6, nnn), dtype, "G"),
                  (op.D, (op.P + 1, op.P + 1), dtype, "D")]
         if op.coeff is not None:
             need.append((op.coeff, (cells,), dtype, "coeff"))
         if op.C is not None:
             need.append((op.C, (cells, 2), dtype, "C"))
-    elif name == "engine_scatter":
+    elif name.startswith("engine_scatter"):
         need += [(op.pos, (cells * nnn,), torch.int32, "pos"),
                  (op.ptr, (op.ndofs + 1,), torch.int32, "ptr")]
     else:
@@ -246,11 +258,39 @@ def _check(op: EngineCellStiffness, name: str, *xs: torch.Tensor,
 
 
 def _launch(name: str, dtype: torch.dtype, x: torch.Tensor, *args,
-            counts: dict = launches) -> None:
+            comparison: bool = False) -> None:
     """Launch kernel `name`'s form for storage `dtype` on x's card,
-    counted in `counts` (its bfloat16 form in `bf16_launches`)."""
-    launch.launch(f"fustpu_{name}_{cs.SUFFIX[dtype]}", x.get_device(), *args)
-    cs.count(counts, bf16_launches, name, dtype)
+    counted in `launches` (its bfloat16 form in `bf16_launches`), or, for
+    a first design kept as the comparison, in `comparison_launches`."""
+    suffix = cs.SUFFIX[dtype]
+    launch.launch(f"fustpu_{name}_{suffix}", x.get_device(), *args)
+    if comparison:
+        comparison_launches[name if dtype != torch.bfloat16
+                            else f"{name}_{suffix}"] += 1
+    else:
+        cs.count(launches, bf16_launches, name, dtype)
+
+
+def _aligned(name: str, **tensors) -> None:
+    """Raise unless each tensor's data is aligned to its bytes (16 or 4):
+    tensors = {what: (tensor, bytes)}."""
+    for what, (t, b) in tensors.items():
+        if t is not None and t.data_ptr() % b:
+            raise ValueError(f"{name} kernel: {what} not {b}-byte aligned")
+
+
+_D_HOST = WeakIdKeyDictionary()
+
+
+def host_D(D: torch.Tensor) -> int:
+    """The address of a host copy of D as float32 (what the bfloat16
+    contraction takes by value), made once a tensor (and again after an
+    in-place change of it) and kept while the tensor lives."""
+    kept = _D_HOST.get(D)
+    if kept is None or kept[0] != D._version:
+        vals = D.detach().float().cpu().reshape(-1).tolist()
+        kept = _D_HOST[D] = (D._version, (ctypes.c_float * len(vals))(*vals))
+    return ctypes.addressof(kept[1])
 
 
 def _positions(op: EngineCellStiffness) -> int:
@@ -285,7 +325,7 @@ def gather_flat(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
     out = x.new_empty(op.dofmap.shape)
     _launch("engine_gather_flat", x.dtype, x, x.data_ptr(),
             op.dofmap.data_ptr(),
-            out.data_ptr(), _positions(op), counts=comparison_launches)
+            out.data_ptr(), _positions(op), comparison=True)
     return out
 
 
@@ -305,31 +345,70 @@ def gather2(op: EngineCellStiffness, x1: torch.Tensor, x2: torch.Tensor
     return o1, o2
 
 
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _fields(op: EngineCellStiffness, u1: torch.Tensor,
+            u2: torch.Tensor | None) -> tuple[torch.Tensor, ...]:
+    """The contraction's inputs: two fields for a pair operator, else one."""
+    pair = op.mode == "pair"
+    if (u2 is not None) != pair:
+        raise ValueError(f"contract of a {op.mode} operator takes "
+                         f"{'two fields' if pair else 'one field'}")
+    return (u1,) if u2 is None else (u1, u2)
+
+
 def contract(op: EngineCellStiffness, u1: torch.Tensor,
              u2: torch.Tensor | None = None) -> torch.Tensor:
     """y2 = D3^T (c G . D3 u) on (cells, n^3) rows through
     `engine_contract`: u = u1 with unit coefficients or op.coeff, or
     u = c1 u1 + c2 u2 with op.C (the pair form)."""
     mode = op.mode
-    if (u2 is not None) != (mode == "pair"):
-        raise ValueError(f"contract of a {mode} operator takes "
-                         f"{'two fields' if mode == 'pair' else 'one field'}")
+    xs = _fields(op, u1, u2)
     if u1.device.type == "cpu":
         p = to_plain(op)
         if mode == "pair":
             u1 = eng.fold(u1, p.c1, u2, p.c2)
         return eng.dense_contract(u1, p.G6, p.D, p.coeff)
-    xs = (u1,) if u2 is None else (u1, u2)
     dtype = op.G.dtype
     _check(op, "engine_contract", *xs, shape=tuple(op.dofmap.shape),
            dtype=dtype)
-    # the float32 / float64 kernels add into y2, the bfloat16 one stores
-    new = u1.new_empty if dtype == torch.bfloat16 else u1.new_zeros
-    y = new(op.dofmap.shape, dtype=dtype)
-    ptr = lambda t: 0 if t is None else t.data_ptr()
-    _launch("engine_contract", dtype, u1, u1.data_ptr(), ptr(u2),
-            ptr(op.C), ptr(op.coeff), op.G.data_ptr(), op.D.data_ptr(),
-            y.data_ptr(), op.dofmap.shape[0], op.P, _MODES[mode])
+    cells = op.dofmap.shape[0]
+    if dtype != torch.bfloat16:     # the float32 / float64 kernels add
+        y = u1.new_zeros(op.dofmap.shape, dtype=dtype)
+        _launch("engine_contract", dtype, u1, u1.data_ptr(), _ptr(u2),
+                _ptr(op.C), _ptr(op.coeff), op.G.data_ptr(),
+                op.D.data_ptr(), y.data_ptr(), cells, op.P, _MODES[mode])
+        return y
+    y = u1.new_empty(op.dofmap.shape, dtype=dtype)
+    _aligned("engine_contract", u1=(u1, 16), u2=(u2, 16), G=(op.G, 16),
+             y2=(y, 16))
+    dev = u1.get_device()
+    blocks = launch.contract_blocks(
+        cells, op.P, launch.contract_occupancy(dev, op.P, _MODES[mode]),
+        launch.sm_count(dev))
+    _launch("engine_contract", dtype, u1, u1.data_ptr(), _ptr(u2),
+            _ptr(op.C), _ptr(op.coeff), op.G.data_ptr(), host_D(op.D),
+            y.data_ptr(), cells, op.P, _MODES[mode],
+            launch.CONTRACT_CELLS[op.P], blocks)
+    return y
+
+
+def contract_cells(op: EngineCellStiffness, u1: torch.Tensor,
+                   u2: torch.Tensor | None = None) -> torch.Tensor:
+    """`contract` on a bfloat16 operator through the first design's kernel,
+    the comparison (`engine_contract_cells`: a block of a few cells, each
+    thread's loads of u2 and G and stores of y2 its own)."""
+    if u1.device.type == "cpu":
+        return contract(op, u1, u2)
+    xs = _fields(op, u1, u2)
+    _check(op, "engine_contract_cells", *xs, shape=tuple(op.dofmap.shape))
+    y = u1.new_empty(op.dofmap.shape)
+    _launch("engine_contract_cells", u1.dtype, u1, u1.data_ptr(), _ptr(u2),
+            _ptr(op.C), _ptr(op.coeff), op.G.data_ptr(), op.D.data_ptr(),
+            y.data_ptr(), op.dofmap.shape[0], op.P, _MODES[op.mode],
+            comparison=True)
     return y
 
 
@@ -343,8 +422,25 @@ def scatter(op: EngineCellStiffness, v: torch.Tensor) -> torch.Tensor:
     _check(op, "engine_scatter", v, shape=tuple(op.dofmap.shape),
            dtype=dtype)
     y = v.new_empty(op.ndofs, dtype=dtype)
-    _launch("engine_scatter", dtype, v, v.data_ptr(),
-            op.pos.data_ptr(), op.ptr.data_ptr(), y.data_ptr(), op.ndofs)
+    args = (v.data_ptr(), op.pos.data_ptr(), op.ptr.data_ptr(),
+            y.data_ptr(), op.ndofs)
+    if dtype == torch.bfloat16:
+        _aligned("engine_scatter", pos=(op.pos, 16), y=(y, 4))
+        args += (_positions(op), launch.scatter_blocks(op.ndofs))
+    _launch("engine_scatter", dtype, v, *args)
+    return y
+
+
+def scatter_dofs(op: EngineCellStiffness, v: torch.Tensor) -> torch.Tensor:
+    """`scatter` on bfloat16 values through the first design's kernel, the
+    comparison (`engine_scatter_dofs`: one thread a dof)."""
+    if v.device.type == "cpu":
+        return scatter(op, v)
+    _check(op, "engine_scatter_dofs", v, shape=tuple(op.dofmap.shape))
+    y = v.new_empty(op.ndofs)
+    _launch("engine_scatter_dofs", v.dtype, v, v.data_ptr(),
+            op.pos.data_ptr(), op.ptr.data_ptr(), y.data_ptr(), op.ndofs,
+            comparison=True)
     return y
 
 

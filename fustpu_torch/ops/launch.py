@@ -22,8 +22,14 @@ The grids: `copy_blocks` covers the relayout copy's vectors, a span of
 COPY_UNROLL x COPY_THREADS a block (``csrc/probes.cu`` `relayout_copy`);
 `gather_blocks` sizes the engine gather's grid to at most one wave of the
 card, from its SM count, and the kernel strides over the rest
-(``csrc/engine.cu`` `engine_gather_quads`).  The thread counts and the
-work of a thread here are the kernels' own constants.
+(``csrc/engine.cu`` `engine_gather_quads`); `contract_blocks` sizes the
+bfloat16 contraction's persistent grid to one wave (the card's occupancy
+answer, `contract_occupancy`, times its SMs), at most one block a chunk of
+CONTRACT_CELLS[P] cells, block b walking chunks b, b + grid, ...; and
+`scatter_blocks` gives the bfloat16 scatter one block a run of
+SCATTER_DOFS dofs (``csrc/engine_bf16.cu`` `contract_ring`,
+`scatter_runs`).  The thread counts and the work of a thread or a block
+here are the kernels' own constants.
 """
 
 from __future__ import annotations
@@ -37,6 +43,12 @@ COPY_UNROLL = 2          # probes.cu kCopyUnroll: 16 B vectors a thread
 GATHER_THREADS = 256     # engine.cu kGatherThreads
 GATHER_QUAD = 4          # positions a thread takes at a time
 BLOCKS_PER_SM = 8        # 2,048 threads, an SM's most, at 256 a block
+# engine_bf16.cu scatter_runs: a block's run of dofs (two a thread; the
+# tiles of the run's inverse-map segment hold twice as many entries)
+SCATTER_DOFS = 128
+# engine_bf16.cu Ring<N, PAIR>::CH: cells a chunk of the bf16 contraction at
+# degree P (the kernel refuses another count)
+CONTRACT_CELLS = {2: 24, 3: 16, 4: 8, 5: 8, 6: 8, 7: 4, 8: 4, 9: 2, 10: 2}
 
 _entries: dict = {}
 
@@ -96,3 +108,31 @@ def gather_blocks(n: int, sms: int) -> int:
     (BLOCKS_PER_SM blocks on each of `sms` SMs)."""
     quads = n // GATHER_QUAD
     return max(1, min(sms * BLOCKS_PER_SM, -(-quads // GATHER_THREADS)))
+
+
+@functools.cache
+def contract_occupancy(device: int, P: int, mode: int) -> int:
+    """Blocks of the bfloat16 contraction at degree P and `mode` (0 plain,
+    1 coefficient, 2 pair) that one SM of card `device` holds: the card's
+    own occupancy answer, asked once."""
+    fn = entry("fustpu_engine_contract_bf16_occupancy")
+    with torch.cuda.device(device):
+        blocks = fn(P, mode)
+    if blocks < 1:
+        raise RuntimeError(f"bf16 contraction at degree {P}, mode {mode}: "
+                           f"no block fits an SM ({blocks})")
+    return blocks
+
+
+def contract_blocks(cells: int, P: int, per_sm: int, sms: int) -> int:
+    """The bfloat16 contraction's grid for `cells` cells at degree P: one
+    wave (`per_sm` blocks on each of `sms` SMs), at most one block a chunk
+    of CONTRACT_CELLS[P] cells, at least 1."""
+    chunks = -(-cells // CONTRACT_CELLS[P])
+    return max(1, min(sms * per_sm, chunks))
+
+
+def scatter_blocks(ndofs: int) -> int:
+    """The bfloat16 scatter's grid: one block a run of SCATTER_DOFS dofs
+    (at least 1)."""
+    return max(1, -(-ndofs // SCATTER_DOFS))

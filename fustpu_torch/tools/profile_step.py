@@ -1,6 +1,6 @@
 """Where the time of one RK4 step goes on the card, for the flagship bowl.
 
-    python -m fustpu_torch.tools.profile_step
+    python -m fustpu_torch.tools.profile_step [--only WORD ...]
 
 For the uniform and the two-layer Westervelt bowl runs at the flagship
 size (the `nonlinear_bowl` demo's models, --elements 64 --degree 4,
@@ -25,11 +25,14 @@ kernels an apply), in float32 and in bfloat16, it prints:
     its three kernels' least bytes (u2 and y2 each written once and read
     once, in the fields' stored type).
 Before that, a streaming copy of COPY_GIB GiB (float32, read + write)
-gives the card's achievable memory rate to hold those against.
+gives the card's achievable memory rate to hold those against.  --only
+keeps the runs whose demo arguments hold every word given (for instance
+`--only indexed_engine bf16`: the two bf16 engine bowls).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import tempfile
@@ -58,7 +61,8 @@ def summarize_trace(events: list[dict]) -> dict:
     corner walk, and the parity-class and the corner stiffness_kernel, the
     class-launch extruded_kernel), indexed
     (the chunk kernel, the class-launch indexed_kernel) kernels and the
-    staged engine's three.  Returns {group: (microseconds,
+    staged engine's three (in bfloat16 its contraction and scatter are
+    contract_ring and scatter_runs).  Returns {group: (microseconds,
     launches)} plus 'busy_us' (the union of all device intervals) and
     'span_us' (first start to last end)."""
     groups = {"stiffness": [0.0, 0], "elementwise": [0.0, 0],
@@ -80,7 +84,9 @@ def summarize_trace(events: list[dict]) -> dict:
                                                   "chunk_kernel",
                                                   "engine_gather",
                                                   "engine_contract",
-                                                  "engine_scatter")):
+                                                  "engine_scatter",
+                                                  "contract_ring",
+                                                  "scatter_runs")):
             g = "stiffness"
         else:
             g = "elementwise"
@@ -221,7 +227,31 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
     return out
 
 
-def main() -> None:
+CONFIGS = ([], ["--two-layer"],
+           ["--geometry", "unstructured"],
+           ["--geometry", "unstructured", "--two-layer"],
+           ["--geometry", "bodyfit"],
+           ["--geometry", "bodyfit", "--two-layer"],
+           CORNER, CORNER + ["--two-layer"],
+           CORNER + ["--geometry", "unstructured"],
+           CORNER + ["--geometry", "unstructured", "--two-layer"],
+           CORNER + BF16, CORNER + BF16 + ["--two-layer"],
+           CORNER + BF16 + ["--geometry", "unstructured"],
+           ENGINE, ENGINE + ["--two-layer"],
+           ENGINE + BF16, ENGINE + BF16 + ["--two-layer"])
+
+
+def selected(only: list[str]) -> list[list[str]]:
+    """The runs' extra demo arguments whose words include every one of
+    `only` (all runs for none)."""
+    return [c for c in CONFIGS if all(w in c for w in only)]
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--only", nargs="*", default=[],
+                   help="keep the runs whose demo arguments hold each word")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -232,19 +262,7 @@ def main() -> None:
     print(f"streaming copy of {COPY_GIB} GiB float32: {ms:.4f} ms, "
           f"{tbps:.4f} TB/s read + write", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        for extra in ([], ["--two-layer"],
-                      ["--geometry", "unstructured"],
-                      ["--geometry", "unstructured", "--two-layer"],
-                      ["--geometry", "bodyfit"],
-                      ["--geometry", "bodyfit", "--two-layer"],
-                      CORNER, CORNER + ["--two-layer"],
-                      CORNER + ["--geometry", "unstructured"],
-                      CORNER + ["--geometry", "unstructured",
-                                "--two-layer"],
-                      CORNER + BF16, CORNER + BF16 + ["--two-layer"],
-                      CORNER + BF16 + ["--geometry", "unstructured"],
-                      ENGINE, ENGINE + ["--two-layer"],
-                      ENGINE + BF16, ENGINE + BF16 + ["--two-layer"]):
+        for extra in selected(args.only):
             r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
             print(json.dumps(r), flush=True)
             print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "

@@ -619,7 +619,8 @@ def test_corner_name_on_a_general_mesh_takes_bf16(tmp_path):
 # every demo that takes --dtype (add_device_args or demo_argparser), and
 # exp_kernel_speed's positional dtype
 DEMOS = ["anchors", "capacity", "capacity_imported", "exp_degree_sweep",
-         "exp_engine_mesh", "exp_indexed_pair", "exp_isoparametric_bowl",
+         "exp_engine_bf16", "exp_engine_mesh", "exp_indexed_pair",
+         "exp_isoparametric_bowl",
          "exp_sharded_engine", "linear_box", "linear_piston",
          "nonlinear_bowl", "nonlinear_box", "sharded_box", "time_halo",
          "time_operators", "exp_kernel_speed"]

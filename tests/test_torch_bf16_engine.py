@@ -8,8 +8,13 @@ from its `build_plan`), the composed apply and pair against
 engine models at P = 5 against the JAX package's bf16 engine models (its
 fused engine declines above P = 4, so they run the staged one); the
 conversion of its parameters, a checkpoint restart and the wrappers'
-launch arguments and checks; and, on a card, the four bf16 engine kernels
-against their plain versions.
+launch arguments and checks; the host side of the redesigned bf16
+contraction and scatter (their grids, the cells and dofs each block walks,
+the bulk-copy spans, the scatter's tiles emulated in float32 against the
+first design's order of adds) and of the first designs kept as the
+comparison; and, on a card, the four bf16 engine kernels against their
+plain versions and the redesigned contraction and scatter against the
+first designs.
 
 The JAX package is imported inside the `ref` fixture, so that the card
 tests also run on a machine without JAX:
@@ -26,6 +31,7 @@ bfloat16, which quantises the source once a step runs: the step is taken
 with the source off, and the trajectory is held at TRAJ_TOL.
 """
 
+import ctypes
 from types import SimpleNamespace
 
 import numpy as np
@@ -41,6 +47,7 @@ from fustpu_torch.models import discretization as dz
 from fustpu_torch.models.linear import LinearWaveModel
 from fustpu_torch.models.westervelt import WesterveltModel
 from fustpu_torch.ops import cuda_engine as cen
+from fustpu_torch.ops import cuda_stiffness as cs
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import engine as eng
 from fustpu_torch.ops import launch
@@ -472,14 +479,20 @@ def _on_card(op):
                           if isinstance(v, torch.Tensor)})
 
 
+OCCUPANCY = 5     # the contraction's blocks an SM where the card is replaced
+
+
 @pytest.fixture
 def no_card_launch(monkeypatch):
-    """`launch.launch` recording its calls, and 132 SMs."""
+    """`launch.launch` recording its calls, 132 SMs, and OCCUPANCY blocks of
+    the bf16 contraction an SM."""
     calls = []
     monkeypatch.setattr(launch, "launch",
                         lambda name, dev, *args: calls.append(
                             (name, dev, args)))
     monkeypatch.setattr(launch, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(launch, "contract_occupancy",
+                        lambda dev, P, mode: OCCUPANCY)
     return calls
 
 
@@ -500,9 +513,12 @@ def _small(dtype=BF16, pair=False, cells=5, n=3, ndofs=400):
 
 
 def test_bf16_launch_arguments(no_card_launch):
-    """On a card each bf16 wrapper launches its bf16 entry point with the
-    float32 kernels' arguments (the gather on its one-wave grid), counted
-    in `bf16_launches` only: u2, y2 and y in bf16."""
+    """On a card each bf16 wrapper launches its bf16 entry point, counted
+    in `bf16_launches` only: the gathers with the float32 kernels'
+    arguments (the single-field one on its one-wave grid), the redesigned
+    contraction with D's host copy, the cells a chunk and its one-wave
+    grid, the redesigned scatter with the positions and one block a run of
+    dofs; u2, y2 and y in bf16."""
     cen.reset_launches()
     op, x = _small(pair=True)
     op, x = _on_card(op), x.as_subclass(_OnCard)
@@ -520,20 +536,46 @@ def test_bf16_launch_arguments(no_card_launch):
     assert no_card_launch[0][2] == (x.data_ptr(), op.dofmap.data_ptr(),
                                     u.data_ptr(), n,
                                     launch.gather_blocks(n, 132))
-    assert no_card_launch[2][2][-3:] == (op.dofmap.shape[0], 2, 2)
+    cells = op.dofmap.shape[0]
+    assert no_card_launch[2][2] == (
+        u1.data_ptr(), u2.data_ptr(), op.C.data_ptr(), 0, op.G.data_ptr(),
+        cen.host_D(op.D), y2.data_ptr(), cells, 2, 2,
+        launch.CONTRACT_CELLS[2], launch.contract_blocks(cells, 2,
+                                                         OCCUPANCY, 132))
+    assert launch.contract_blocks(cells, 2, OCCUPANCY, 132) == 1
+    assert no_card_launch[3][2] == (y2.data_ptr(), op.pos.data_ptr(),
+                                    op.ptr.data_ptr(), y.data_ptr(),
+                                    op.ndofs, n,
+                                    launch.scatter_blocks(op.ndofs))
+    assert launch.scatter_blocks(op.ndofs) == 4
     assert not any(cen.launches.values())
+    assert not any(cen.comparison_launches.values())
     assert all(v == 1 for v in cen.bf16_launches.values())
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a tensor whose data starts one element (2 or 4 B)
+    past a 16 B boundary."""
+    base = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    out = base[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def test_bf16_wrappers_refuse_before_any_launch(no_card_launch):
     """Wrong dtypes (a float32 field into a bf16 operator's contraction, y2
     of the wrong dtype into its scatter, bf16 into the first design's
-    gather), wrong shapes and a tensor off the card raise before any
-    launch."""
+    gather, float32 into the first bf16 designs kept as the comparison),
+    wrong shapes, a tensor off the card, and buffers the redesigned
+    contraction and scatter cannot take (u, u2 or G off a 16 B boundary,
+    pos off one) raise before any launch."""
     op, x = _small()
     card = _on_card(op)
     xc = x.as_subclass(_OnCard)
     u = torch.zeros(op.dofmap.shape, dtype=BF16).as_subclass(_OnCard)
+    pop = _on_card(_small(pair=True)[0])
+    f32 = _on_card(_small(dtype=torch.float32)[0])
+    uf = u.float().as_subclass(_OnCard)
     cases = [
         (lambda: cen.contract(card, u.float().as_subclass(_OnCard)),
          "input is torch.float32"),
@@ -545,11 +587,188 @@ def test_bf16_wrappers_refuse_before_any_launch(no_card_launch):
         (lambda: cen.contract(card._replace(G=op.G), u), "G is"),
         (lambda: cen.contract(_on_card(op._replace(D=op.D.float())), u),
          "D is"),
-        (lambda: cen.gather(op, xc), "dofmap is torch.int32 on cpu")]
+        (lambda: cen.gather(op, xc), "dofmap is torch.int32 on cpu"),
+        (lambda: cen.contract(card, _shifted(u).as_subclass(_OnCard)),
+         "u1 not 16-byte aligned"),
+        (lambda: cen.contract(pop, u, _shifted(u).as_subclass(_OnCard)),
+         "u2 not 16-byte aligned"),
+        (lambda: cen.contract(_on_card(op._replace(G=_shifted(op.G))), u),
+         "G not 16-byte aligned"),
+        (lambda: cen.scatter(_on_card(op._replace(pos=_shifted(op.pos))), u),
+         "pos not 16-byte aligned"),
+        (lambda: cen.contract_cells(f32, uf), "unsupported"),
+        (lambda: cen.scatter_dofs(f32, uf), "unsupported"),
+        (lambda: cen.contract_cells(card, u[1:]), "shape"),
+        (lambda: cen.contract_cells(pop, u), "takes two fields"),
+        (lambda: cen.scatter_dofs(card, xc), "shape")]
     for fn, match in cases:
         with pytest.raises(ValueError, match=match):
             fn()
     assert no_card_launch == []
+
+
+def test_bf16_first_designs_launch_as_the_comparison(no_card_launch):
+    """`contract_cells` and `scatter_dofs` launch the first bf16 designs
+    (their own arguments: no chunk, no grid, D on the card), counted in
+    `comparison_launches` only; on CPU tensors they are the plain
+    versions, as `contract` and `scatter` are there."""
+    cen.reset_launches()
+    for pair in (False, True):
+        op, x = _small(pair=pair)
+        u = cen.gather2(op, x, x) if pair else (cen.gather(op, x),)
+        want = cen.contract(op, *u)
+        assert torch.equal(cen.contract_cells(op, *u), want)
+        assert torch.equal(cen.scatter_dofs(op, want), cen.scatter(op, want))
+        card = _on_card(op)
+        uc = [t.as_subclass(_OnCard) for t in u]
+        y2 = cen.contract_cells(card, *uc)
+        y = cen.scatter_dofs(card, y2.as_subclass(_OnCard))
+        (cname, _, cargs), (sname, _, sargs) = no_card_launch[-2:]
+        assert (cname, sname) == ("fustpu_engine_contract_cells_bf16",
+                                  "fustpu_engine_scatter_dofs_bf16")
+        assert cargs == (uc[0].data_ptr(),
+                         uc[1].data_ptr() if pair else 0,
+                         card.C.data_ptr() if pair else 0, 0,
+                         card.G.data_ptr(), card.D.data_ptr(),
+                         y2.data_ptr(), card.dofmap.shape[0], 2,
+                         2 if pair else 0)
+        assert sargs == (y2.data_ptr(), card.pos.data_ptr(),
+                         card.ptr.data_ptr(), y.data_ptr(), card.ndofs)
+        assert (y2.dtype, y.dtype) == (BF16, BF16)
+    assert cen.comparison_launches == {"engine_gather_flat": 0,
+                                       "engine_contract_cells_bf16": 2,
+                                       "engine_scatter_dofs_bf16": 2}
+    assert not any(cen.launches.values())
+    assert not any(cen.bf16_launches.values())
+
+
+def test_host_D_is_kept_and_follows_changes():
+    """The bf16 contraction's D by value: a float32 host copy of the
+    operator's D, made once a tensor, remade after an in-place change."""
+    D = torch.tensor([[0.5, -1.25], [3.0, 7.5]], dtype=BF16)
+    at = cen.host_D(D)
+    assert cen.host_D(D) == at
+    got = (ctypes.c_float * 4).from_address(at)
+    assert list(got) == [0.5, -1.25, 3.0, 7.5]
+    D[1, 1] = 2.0
+    got = (ctypes.c_float * 4).from_address(cen.host_D(D))
+    assert list(got) == [0.5, -1.25, 3.0, 2.0]
+
+
+def _region(L: int) -> int:
+    """A stage's room for a span of a run of L bytes (engine_bf16.cu
+    Ring::region)."""
+    return L if L % 16 == 0 else -(-(L + 30) // 16) * 16
+
+
+@pytest.mark.parametrize("P", range(2, 11))
+def test_contract_walk_covers_every_cell_once(P):
+    """The redesigned bf16 contraction's host plan at every degree: for
+    meshes of 1 to 102,400 cells (counts that are and are not multiples of
+    8 and of the cells a chunk) on cards holding 1 or 5 blocks an SM, the
+    blocks' chunks (block b: chunks b, b + grid, ...) hold every cell
+    once; each chunk's bulk-copy spans of u (2 n^3 B a cell) and G (12 n^3
+    B) start at or before the chunk on a 16 B boundary, are 16 B multiples
+    inside the array, leave at most the array's last 15 B to the block's
+    own reads, and with that tail fit the stage; where a chunk's run is a
+    16 B multiple (the P = 4 and P = 6 bowls), every span is the run."""
+    n3, ch = (P + 1) ** 3, launch.CONTRACT_CELLS[P]
+    for cells in (1, 7, 8, 13, ch + 1, 1001, 102_400):
+        for per_sm in (1, OCCUPANCY):
+            grid = launch.contract_blocks(cells, P, per_sm, 132)
+            chunks = -(-cells // ch)
+            assert grid == max(1, min(132 * per_sm, chunks))
+            seen = np.zeros(cells, np.int64)
+            first = []
+            for b in range(grid):
+                for q in range(b, chunks, grid):
+                    c0 = q * ch
+                    seen[c0:min(c0 + ch, cells)] += 1
+                    first.append(c0)
+            assert (seen == 1).all()
+            c0 = np.array(sorted(first))
+            ncell = np.minimum(ch, cells - c0)
+            for cb in (2 * n3, 12 * n3):
+                off, nbytes = cs.bulk_spans(c0, ncell, cb, cells * cb)
+                start, end = c0 * cb, (c0 + ncell) * cb
+                assert (off % 16 == 0).all() and (nbytes % 16 == 0).all()
+                assert (off <= start).all() and (nbytes >= 0).all()
+                assert (off + nbytes <= cells * cb).all()
+                assert (end - (off + nbytes) < 16).all()
+                assert (end - off <= _region(ch * cb)).all()
+                if (ch * cb) % 16 == 0:
+                    last = end == cells * cb
+                    assert (off == start).all()
+                    assert (nbytes[~last] == (end - start)[~last]).all()
+    if P in (4, 6):
+        assert (2 * n3 * launch.CONTRACT_CELLS[P]) % 16 == 0
+
+
+def _scatter_emulated(v32: np.ndarray, pos: np.ndarray, ptr: np.ndarray,
+                      ndofs: int) -> tuple[np.ndarray, np.ndarray]:
+    """The redesigned scatter's walk in float32 (engine_bf16.cu
+    `scatter_runs`): y and how often each entry was added.  Block b takes
+    dofs [R b, R b + R), R = SCATTER_DOFS, thread t its dofs 2t and 2t + 1,
+    the run's segment of pos in tiles of 2 R entries from the 16 B
+    boundary at or below its start, four entries a thread a tile (one
+    16 B load where all four lie in pos, else one at a time)."""
+    R = launch.SCATTER_DOFS
+    tile = 2 * R
+    y = np.zeros(ndofs, np.float32)
+    used = np.zeros(pos.size, np.int64)
+    for b in range(launch.scatter_blocks(ndofs)):
+        d0 = b * R
+        nd = min(R, ndofs - d0)
+        e0, e1 = int(ptr[d0]), int(ptr[d0 + nd])
+        for t in range(R // 2):
+            da = 2 * t
+            if da >= nd:
+                continue
+            a, mid = int(ptr[d0 + da]), int(ptr[d0 + da + 1])
+            c = int(ptr[d0 + da + 2]) if da + 1 < nd else mid
+            acc = [np.float32(0.0), np.float32(0.0)]
+            for t0 in range(e0 & ~3, e1, tile):
+                assert t0 % 4 == 0
+                for x in range(max(a, t0), min(c, t0 + tile)):
+                    assert e0 <= x < e1
+                    acc[x >= mid] = np.float32(acc[x >= mid]
+                                               + v32[pos[x]])
+                    used[x] += 1
+            y[d0 + da] = acc[0]
+            if da + 1 < nd:
+                y[d0 + da + 1] = acc[1]
+    return y, used
+
+
+def test_scatter_runs_cover_every_dof_once():
+    """The redesigned bf16 scatter's host plan on an inverse map of 1,500
+    dofs (not a multiple of the run) whose positions are 0 to 8 a dof, one
+    dof 9 and one 2,500 (more than a run's tiles hold, many times over):
+    every entry added once, by its dof's thread, in
+    ascending order across tiles, so that the float32 sums, rounded once,
+    are bitwise the first design's order of adds and the plain version."""
+    rng = np.random.default_rng(4)
+    ndofs = 1500
+    counts = rng.integers(0, 9, ndofs)
+    counts[[3, 700]] = [9, 2500]
+    g = rng.permutation(np.repeat(np.arange(ndofs), counts))
+    g = g[: g.size // 27 * 27]                  # whole cells of n = 3
+    pos, ptr = cen.inverse_map(g.reshape(-1, 27), ndofs)
+    assert np.array_equal(np.diff(ptr), np.bincount(g, minlength=ndofs))
+    v = _bf16(rng.standard_normal(g.size))
+    v32 = v.float().numpy()
+    y, used = _scatter_emulated(v32, pos, ptr, ndofs)
+    assert (used == 1).all()
+    want = np.zeros(ndofs, np.float32)         # the first design: a dof's
+    for d in range(ndofs):                     # positions in ascending
+        for k in range(ptr[d], ptr[d + 1]):    # order, from 0.0
+            want[d] = np.float32(want[d] + v32[pos[k]])
+    assert np.array_equal(y, want)
+    got = torch.from_numpy(y).to(BF16)
+    plain = eng.scatter_add(v, torch.as_tensor(g.astype(np.int64)), ndofs)
+    assert torch.equal(got, plain)
+    assert launch.scatter_blocks(ndofs) == -(-ndofs // launch.SCATTER_DOFS)
+    assert launch.scatter_blocks(1) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -614,3 +833,95 @@ def test_bf16_engine_kernels_match_plain_on_card(tmp_path, P):
             assert rel(y.cpu(), yi.cpu()) <= APPLY_TOL
     assert not any(cen.launches.values())
     assert all(cen.bf16_launches.values())
+
+
+def test_exp_engine_bf16_demo_on_cpu(capsys):
+    """`exp_engine_bf16` on a small box on the CPU, where both designs are
+    the plain versions: every case compared and timed in turns (old, new,
+    new, old), the designs equal; it refuses another dtype."""
+    from fustpu_torch.demos import exp_engine_bf16
+
+    out = exp_engine_bf16.main(["--nc", "3", "2", "2", "--degree", "2",
+                                "--turns", "1", "--device", "cpu"])
+    assert set(out) == {"contract plain", "contract coeff", "contract pair",
+                        "scatter", "apply", "apply pair"}
+    for r in out.values():
+        assert len(r["old"]) == len(r["new"]) == 2
+        assert r["differ"] == 0 and r["rel"] == 0.0 and r["bound_ms"] > 0
+    assert "host clock on the CPU" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        exp_engine_bf16.main(["--device", "cpu", "--dtype", "f32"])
+
+
+def _shared_dof_mesh(P: int, cells: int, seed: int):
+    """`cells` random cells of degree P (a count that is no multiple of 8)
+    whose node 0 is one dof, held by every cell (an irregular vertex of
+    `cells` positions); the other nodes random distinct dofs; random G, D
+    and per-cell coefficients."""
+    rng = np.random.default_rng(seed)
+    n3 = (P + 1) ** 3
+    ndofs = cells * n3 // 2 + n3
+    dm = np.stack([np.concatenate([[0], 1 + rng.choice(ndofs - 1, n3 - 1,
+                                                      replace=False)])
+                   for _ in range(cells)])
+    return (SimpleNamespace(dofmap=dm, ndofs=ndofs, num_cells=cells),
+            rng.standard_normal((cells, n3, 6)),
+            rng.standard_normal((P + 1, P + 1)),
+            rng.uniform(0.5, 2.0, cells), rng.uniform(-1.5, -0.5, cells),
+            rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", range(2, 11))
+def test_bf16_redesigned_kernels_match_first_designs_on_card(tmp_path, P):
+    """The redesigned bf16 contraction (unit, per-cell coefficient, pair)
+    and scatter against the first designs kept as the comparison, on the
+    same buffers: the scatter bitwise, the contraction bitwise or within
+    1e-3 rel-l2 with at most 1% of its values differing; each within
+    CARD_TOL of its plain version and repeated bitwise; on the imported
+    cylinder read as a general mesh and on 13 random cells sharing one
+    dof."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    v, c, t = shapes.cylinder_mesh(nz=3 if P <= 6 else 2, **CYL)
+    cyl = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "c"), v, c, t),
+                          P, detect_extrusion=False)
+    disc = dz.Discretization(cyl)
+    rng = np.random.default_rng(P)
+    cases = [(cyl, disc._G_host, disc._D_host,
+              rng.uniform(0.5, 2.0, cyl.num_cells),
+              rng.uniform(-1.5, -0.5, cyl.num_cells))]
+    cases.append(_shared_dof_mesh(P, 13, seed=P)[:5])
+    cen.reset_launches()
+    for mesh, G, D, c1, c2 in cases:
+        x1, x2 = (torch.as_tensor(rng.standard_normal(mesh.ndofs),
+                                  device="cuda").to(BF16) for _ in range(2))
+        for kw in (dict(), dict(coeff=c1), dict(pair=(c1, c2))):
+            op = cen.build(mesh, G, D, BF16, "cuda", **kw)
+            p = cen.to_plain(op)
+            if "pair" in kw:
+                us = cen.gather2(op, x1, x2)
+                plain = eng.dense_contract(eng.fold(us[0], p.c1, us[1],
+                                                    p.c2), p.G6, p.D)
+            else:
+                us = (cen.gather(op, x1),)
+                plain = eng.dense_contract(us[0], p.G6, p.D, p.coeff)
+            new = cen.contract(op, *us)
+            old = cen.contract_cells(op, *us)
+            torch.cuda.synchronize()
+            differ = int((new != old).sum())
+            assert torch.equal(cen.contract(op, *us), new)
+            assert rel(new.cpu(), old.cpu()) <= 1e-3
+            assert differ <= new.numel() // 100, (differ, new.numel())
+            assert rel(new.cpu(), plain.cpu()) <= CARD_TOL
+            y = cen.scatter(op, new)
+            torch.cuda.synchronize()
+            assert torch.equal(y, cen.scatter_dofs(op, new))
+            assert torch.equal(cen.scatter(op, new), y)
+            assert rel(y.cpu(), eng.scatter_add(new, p.g,
+                                                mesh.ndofs).cpu()) <= CARD_TOL
+    assert not any(cen.launches.values())
+    assert cen.bf16_launches["engine_contract_bf16"] == 12
+    assert cen.bf16_launches["engine_scatter_bf16"] == 12
+    assert cen.comparison_launches["engine_contract_cells_bf16"] == 6
+    assert cen.comparison_launches["engine_scatter_dofs_bf16"] == 6

@@ -145,6 +145,16 @@ def test_stiffness_bytes_counts_bf16_corner_channels():
         mesh.num_cells * 37 * 2 + 2 * mesh.ndofs * 2
 
 
+def test_profile_step_selects_runs_by_their_words():
+    """`--only` keeps the runs whose demo arguments hold every word: the two
+    bf16 engine bowls for `indexed_engine bf16`; every run for none."""
+    from fustpu_torch.tools import profile_step as ps
+
+    got = ps.selected(["indexed_engine", "bf16"])
+    assert got == [ps.ENGINE + ps.BF16, ps.ENGINE + ps.BF16 + ["--two-layer"]]
+    assert ps.selected([]) == list(ps.CONFIGS) and len(ps.CONFIGS) == 17
+
+
 def test_summarize_trace_counts_the_engine_kernels():
     """The staged engine's three kernels count as the stiffness group, and
     an apply's minimum bytes are the indexed kernel's (G, dofmap, fields):
@@ -161,9 +171,13 @@ def test_summarize_trace_counts_the_engine_kernels():
         _ev("kernel", "void engine_contract<float, 5, 0>", 2.0, 6.0),
         _ev("kernel", "void engine_scatter<float>", 8.0, 2.0),
         _ev("kernel", "vectorized_elementwise_kernel", 10.0, 1.0),
+        _ev("kernel", "void <unnamed>::contract_ring<5, 0, <unnamed>::"
+            "Ring<5, false>>(...)", 11.0, 3.0),
+        _ev("kernel", "void <unnamed>::scatter_runs<64, 4>(...)", 14.0,
+            1.0),
     ]
     s = summarize_trace(events)
-    assert s["stiffness"] == (10.0, 3)
+    assert s["stiffness"] == (14.0, 5)
     assert s["elementwise"] == (1.0, 1)
     mesh = from_box(build_box_mesh((3, 2, 2), 2), shuffle_seed=1)
     op = Discretization(mesh).stiffness_op(torch.float32, "cpu", engine=True)
@@ -231,8 +245,38 @@ def test_kernel_resources_parses_ptxas_report():
     assert [r["mangled"][-20:] for r in rows] == [
         "kernelIfLi5ELb0EEEvv", "kernelIdLi5ELb1EEEvv"]
     assert [(r["registers"], r["spill_stores"], r["spill_loads"],
-             r["stack"]) for r in rows] == [(128, 0, 0, 0), (96, 16, 8, 24)]
+             r["stack"], r["smem"]) for r in rows] == [(128, 0, 0, 0, 128),
+                                                       (96, 16, 8, 24, 0)]
     assert kernel_resources.parse("nothing compiled") == []
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_113contract_ringILi5ELi0EEEvv
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/              @!P0 LDS.U16 R2, [R3+0x10] ;
+        /*0020*/                   LDS R4, [R5] ;
+        /*0030*/               @P1 STS [R6], R7 ;
+        /*0040*/                   UBLKCP.S.G [UR4], [UR6], UR8 ;
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0060*/                   STG.E.128 desc[UR4][R8.64], R12 ;
+        /*0070*/                   FFMA R9, R10, c[0x0][0x210], R9 ;
+\t\tFunction : _ZN12_GLOBAL__N_112scatter_runsEv
+        /*0000*/                   LDG.E.U16 R2, desc[UR4][R2.64] ;
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R6.64] ;
+        /*0020*/                   EXIT ;
+"""
+
+
+def test_kernel_resources_counts_sass_memory_instructions():
+    got = kernel_resources.parse_sass(SASS)
+    assert set(got) == {"_ZN12_GLOBAL__N_113contract_ringILi5ELi0EEEvv",
+                        "_ZN12_GLOBAL__N_112scatter_runsEv"}
+    ring = got["_ZN12_GLOBAL__N_113contract_ringILi5ELi0EEEvv"]
+    assert ring == dict(LDS=2, STS=1, LDG=0, STG=1, LDC=1, UBLKCP=1, BAR=1)
+    assert got["_ZN12_GLOBAL__N_112scatter_runsEv"]["LDG"] == 2
+    assert kernel_resources.parse_sass("no functions") == {}
 
 
 def test_turns_runs_each_checkout_in_turns(tmp_path, capsys):
