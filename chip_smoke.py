@@ -261,6 +261,22 @@ Phases (each prints its time; any failure exits non-zero):
      engine (34l); a two-layer bf16 engine model (a 12^3 P=4
      general box) on phase 22's 4 gloo ranks against its one-rank run
      <= 2e-2 (22e).
+  - the two-field gather (#8) on the quads design: bitwise its first
+    design (`cen.gather2_flat`, one thread a position) at P = 2..10 in
+    float32 and float64 (20) and bfloat16 (34j); in turns against it and
+    two `index_select` calls, with the pair apply on each, at the
+    two-layer bodyfit bowl in float32 (21c) and bfloat16 (34k).
+  - the RK4 solve as captured CUDA graphs (every `Model.solve` on the
+    card replays them): on the flagship in float32 (35a, after 7b) and on
+    the bodyfit bowl on the bf16 engine (35b, inside 34k), 10 replayed
+    steps bitwise equal to 10 eager steps of the same step function and
+    within 1e-5 (f32; bf16 2e-2) of the eager loop of Python-float
+    coefficients, the replays counted; ms a step over 50 steps in turns
+    (python-float, eager, captured) with the device busy and idle share
+    of each from the profiler; the RK4 update kernel (`csrc/vector.cu`)
+    bitwise its plain version and PyTorch's add, timed (35a, 34b), its
+    launches in 6b's and 34b's whole solves; the capacity boxes' peak
+    device memory of a 10-step solve, eager against captured (19a, 34i).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, 34b-e,
 34g-i, 34k-l, in every rank of 22 its solve, and the demos of 24, 25, 26,
@@ -478,6 +494,29 @@ def solve_peak(model, dt: float, steps: int) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
+def solve_peaks(model, dt: float, steps: int) -> dict:
+    """Peak device bytes that a solve of `steps` steps adds to what is
+    allocated and to what is reserved, eager (`solve_eager`) and captured
+    (the model's solvers dropped first, so its warm-up and capture
+    included; a graph's private pool shows in what is reserved):
+    {form: (allocated, reserved)}."""
+    out = {}
+    for form, run in (("eager", model.solve_eager),
+                      ("captured", model.solve)):
+        model.__dict__.pop("_solvers", None)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        a0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        run(model.init_state(), dt, steps)
+        torch.cuda.synchronize()
+        out[form] = (torch.cuda.max_memory_allocated() - a0,
+                     torch.cuda.max_memory_reserved() - r0)
+    model.__dict__.pop("_solvers", None)
+    return out
+
+
 def scatter_summary(mesh) -> str:
     """The extruded kernels' scatter design on `mesh`: stack colours, and
     the class-launch kernel's (colour, layer parity) classes."""
@@ -558,6 +597,10 @@ def main() -> None:
     # phase 33: the set-up kernels, the anchors, the piston and the check
     # over ranks
     from fustpu_torch.demos import anchors
+    # phase 35: the captured RK4 solve and the RK4 update kernel
+    from fustpu_torch.demos import exp_solver
+    from fustpu_torch.models import timestepping
+    from fustpu_torch.ops import cuda_vector as cv
     from fustpu_torch.mesh.box import dofmap_rows
     from fustpu_torch.config import Material, Source
     from fustpu_torch.models.westervelt import WesterveltModel
@@ -1326,8 +1369,12 @@ def main() -> None:
 
     def ms_turns(models, steps: int = 50) -> dict:
         """ms a step of each (name, model, dt) from rest, in turns: each
-        model, then each again in reverse order; the smaller of its two."""
+        model, then each again in reverse order; the smaller of its two.
+        A solve of `steps` steps of each comes first, untimed: it captures
+        the graphs that the timed solves replay."""
         out = {}
+        for _, model, dt_ in models:
+            model.solve(model.init_state(), dt_, steps)
         for name, model, dt_ in (*models, *reversed(models)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1336,6 +1383,73 @@ def main() -> None:
             ms = (time.perf_counter() - t0) / steps * 1e3
             out[name] = min(out.get(name, ms), ms)
         return out
+
+    def captured_solve(model, dt_, label, tol):
+        """Phase 35: 10 replayed steps of `model`'s solver against the same
+        10 steps launched eagerly (bitwise) and against the eager loop of
+        Python-float coefficients (`timestepping.solve`, <= `tol`); then
+        ``demos/exp_solver``'s turns over 50 steps (python-float, eager,
+        captured), the captured form again bitwise the eager one, and the
+        device busy and idle share of each from the profiler's trace."""
+        flat = model._flat_state(model.init_state())
+        solver = model.solver(10)
+        before = [dict(d) for d in launch.counter_dicts()]
+        cap = solver(flat, dt_)[0]
+        held = {k: n - b[k] for d, b in zip(launch.counter_dicts(), before)
+                for k, n in d.items() if n != b[k]}
+        eag = solver.eager(flat, dt_)[0]
+        old = timestepping.solve(model._rhs, flat, dt_, 10)
+        same = all(torch.equal(a, b) for a, b in zip(cap[:4], eag[:4]))
+        traj = rel_l2(cap.u, old.u)
+        print(f"   {label}: 10 replayed steps (graphs of "
+              f"{solver.chunk} steps) vs 10 eager steps of the same step "
+              f"function: {'bitwise equal' if same else 'NOT bitwise'}; vs "
+              f"the Python-float loop rel-l2(u) {traj:.3e} (tol {tol}); "
+              f"the replays counted {held}", flush=True)
+        if not same:
+            fail(f"35: {label}: 10 replayed steps differ from 10 eager ones")
+        if not traj <= tol:
+            fail(f"35: {label}: captured vs the Python-float loop "
+                 f"{traj:.3e} > {tol}")
+        if not held or any(n % 10 for n in held.values()):
+            fail(f"35: {label}: the replays counted {held}")
+        r = exp_solver.run(model, dt_, steps=50, turns=1)
+        if not r["bitwise_captured_eager"]:
+            fail(f"35: {label}: 50 captured steps differ from eager ones")
+        best = {k: min(v) for k, v in r["ms_per_step"].items()}
+        prof = {f: r.get(f"profile_{f}", {}) for f in ("eager", "captured")}
+        print(f"   {smi}: {label} ms a step over 50 steps in turns: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in best.items())
+              + "; under the profiler: " + ", ".join(
+                  f"{f} busy {p.get('busy_ms') or 0:.4f} of a span of "
+                  f"{p.get('span_ms') or 0:.4f} ms (idle "
+                  f"{(p.get('idle') or 0):.4%})" for f, p in prof.items()),
+              flush=True)
+        return r
+
+    def axpy_entry(dtype, n):
+        """The RK4 update kernel on `n` values in `dtype` (a coefficient
+        in its update type): bitwise its plain version and PyTorch's add
+        with the coefficient as a Python float (the library call), each
+        timed; its least bytes (x, y read, out written) and operations."""
+        x, y = (torch.as_tensor(rng.standard_normal(n), device=dev).to(
+            dtype) for _ in range(2))
+        a = torch.tensor(0.37, device=dev, dtype=cv.coefficient_dtype(dtype))
+        alpha = float(a)
+        yk, yp = cv.axpy(a, x, y), cv.axpy_plain(a, x, y)
+        lib = torch.add(y, x, alpha=alpha)
+        if not (torch.equal(yk, yp) and torch.equal(yk, lib)):
+            fail(f"axpy ({dtype}): the kernel is not bitwise its plain "
+                 "version and torch.add")
+        e = dict(max_abs_err=0.0, rel_l2=0.0,
+                 ms=time_ms(lambda: cv.axpy(a, x, y), 20),
+                 plain_ms=time_ms(lambda: cv.axpy_plain(a, x, y), 20),
+                 library_ms=time_ms(lambda: torch.add(y, x, alpha=alpha),
+                                    20),
+                 cost=(3 * n * x.element_size(), 2 * n))
+        print(f"   {smi}: the RK4 update kernel on {n:,} {dtype} values: "
+              f"{e}", flush=True)
+        return e
 
     def bf16_corner(label, argv, pb, kernel):
         """The bowl of `argv` in corner mode in bf16 on the problem `pb`: a
@@ -1552,6 +1666,10 @@ def main() -> None:
                             ok = (torch.equal(u1.reshape(-1), eng.gather(a, g))
                                   and torch.equal(u2.reshape(-1),
                                                   eng.gather(b, g)))
+                            # the first design, kept as the comparison
+                            f1, f2 = cen.gather2_flat(op, a, b)
+                            ok = ok and torch.equal(f1, u1) and \
+                                torch.equal(f2, u2)
                             uc = (p64.c1[:, None] * u1.double()
                                   + p64.c2[:, None] * u2.double())
                             yk = cen.contract(op, u1, u2)
@@ -1565,8 +1683,8 @@ def main() -> None:
                             yk = cen.contract(op, u1)
                         if not ok:
                             fail(f"P={P} {mname} {label} {key}: gather not "
-                                 "bitwise equal to plain and to the "
-                                 "one-thread-a-position gather")
+                                 "bitwise equal to plain and to its "
+                                 "one-thread-a-position first design")
                         ec = rel_l2(yk, eng.dense_contract(uc, p64.G6, p64.D,
                                                            p64.coeff))
                         es = rel_l2(cen.scatter(op, yk), eng.scatter_add(
@@ -1600,11 +1718,12 @@ def main() -> None:
               f"f64 {worst['f64']:.3e} (tol {F64_TOL}), f32 "
               f"{worst['f32']:.3e} (tol {F32_TOL}); f64 against the indexed "
               f"kernel {worst['indexed']:.3e}; the gathers bitwise equal to "
-              f"plain, the single-field gather also to its first design; "
-              f"launches {dict(cen.launches)}, engine_gather_flat "
-              f"{cen.comparison_launches['engine_gather_flat']}")
+              f"plain and to their first designs; launches "
+              f"{dict(cen.launches)}, the first designs "
+              f"{dict(cen.comparison_launches)}")
         if not all(cen.launches.values()) or \
-                not cen.comparison_launches["engine_gather_flat"]:
+                not cen.comparison_launches["engine_gather_flat"] or \
+                not cen.comparison_launches["engine_gather2_flat"]:
             fail("an engine kernel's launch counter did not move")
 
     with phase("34j bf16 engine kernels vs plain, P=2..10: #7-#10 alone, "
@@ -1642,6 +1761,10 @@ def main() -> None:
                                           x1.index_select(0, p16.g))
                               and torch.equal(u2.reshape(-1),
                                               x2.index_select(0, p16.g)))
+                        # gather2 against its first design
+                        f1, f2 = cen.gather2_flat(op, x1, x2)
+                        ok = ok and torch.equal(f1, u1) and \
+                            torch.equal(f2, u2)
                         yk = cen.contract(op, u1, u2)
                         yp = eng.dense_contract(eng.fold(u1, p16.c1, u2,
                                                          p16.c2), p16.G6,
@@ -1684,7 +1807,8 @@ def main() -> None:
                         f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
                     if not (ok and same):
                         fail(f"34j: P={P} {mname} {label}: gather bitwise "
-                             f"index_select {ok}, two applies bitwise {same}")
+                             f"index_select (gather2: and its first design) "
+                             f"{ok}, two applies bitwise {same}")
                     for k, e in errs.items():
                         tol = {"vs #11": BF16_G_TOL,
                                "vs first #9": FIRST_DESIGN_TOL}.get(
@@ -1696,7 +1820,8 @@ def main() -> None:
         print(f"   worst rel-l2 (tol {BF16_TOL}, against bf16 #11 "
               f"{BF16_G_TOL}): " + ", ".join(
                   f"{k} {v:.3e}" for k, v in worst16.items())
-              + f"; the gathers bitwise index_select, two applies bitwise; "
+              + f"; the gathers bitwise index_select, gather2 bitwise its "
+              f"first design, two applies bitwise; "
               f"#10 bitwise its first design; #9 differs from its first "
               f"design in {differ16} of {values16} values (tol "
               f"{FIRST_DESIGN_TOL}); launches {dict(cen.launches)}, "
@@ -1704,7 +1829,8 @@ def main() -> None:
         if not all(cen.bf16_launches.values()) or \
                 any(cen.launches.values()) or \
                 not cen.comparison_launches["engine_contract_cells_bf16"] or \
-                not cen.comparison_launches["engine_scatter_dofs_bf16"]:
+                not cen.comparison_launches["engine_scatter_dofs_bf16"] or \
+                not cen.comparison_launches["engine_gather2_flat_bf16"]:
             fail(f"34j: the bf16 engine counters {dict(cen.bf16_launches)}, "
                  f"the float32 ones {dict(cen.launches)}, the first "
                  f"designs' {dict(cen.comparison_launches)}")
@@ -2253,9 +2379,15 @@ def main() -> None:
 
     # ---- the main path: counters reset just before, read just after ----
     cs.reset_launches()
+    cv.reset_launches()
     with phase("6b flagship full solve (kernel)"):
         state = run_demo(bowl, dt, nsteps, args, "nonlinear_bowl")
         n_single = cs.launches["stiffness"]
+        n_axpy = cv.launches["axpy"]
+        print(f"   RK4 update kernel launches {n_axpy} for {nsteps} steps")
+        if not n_axpy or n_axpy % nsteps:
+            fail(f"axpy launches {n_axpy}: not a positive multiple of "
+                 f"{nsteps} steps")
         p_focus = nonlinear_bowl.focal_pressure(bowl, state, focus)
         print(f"pressure at focus: {p_focus:.1f} Pa")
         print(f"   the set-up on the card: focal {p_focus:.1f} Pa against "
@@ -2282,7 +2414,14 @@ def main() -> None:
                 float(s2.u.abs().max()) == 0.0:
             fail("two-layer field is not finite and non-zero")
     launches = dict(cs.launches)
+    launches["axpy"] = n_axpy
     del bowl2, s2, kst2
+
+    with phase("35a flagship: the RK4 solve as captured CUDA graphs "
+               "against the same steps launched eagerly and the eager loop "
+               "of Python-float coefficients; the RK4 update kernel"):
+        captured_solve(bowl, dt, "flagship", TRAJ_TOL)
+        kernels["axpy"] = axpy_entry(torch.float32, bowl.mesh.ndofs)
 
     with phase("34b flagship in bf16: build, #1 vs plain, 10 steps kernel "
                "vs plain, the whole solve, ms a step beside float32's"):
@@ -2302,9 +2441,15 @@ def main() -> None:
             fail(f"34b: 10 bf16 steps kernel vs plain {traj:.3e}")
         del sk, sp, pst34
         bf16_reset()
+        cv.reset_launches()
         state = run_demo(hbowl, dt34, nsteps34, nonlinear_bowl.parser(
             ).parse_args(argv34 + ["--dtype", "bf16"]), "nonlinear_bowl")
         counts = bf16_counters()
+        launches["axpy_bf16"] = cv.bf16_launches["axpy_bf16"]
+        if not launches["axpy_bf16"] or launches["axpy_bf16"] % nsteps34:
+            fail(f"34b: axpy_bf16 launches {launches['axpy_bf16']}: not a "
+                 f"positive multiple of {nsteps34} steps")
+        kernels["axpy_bf16"] = axpy_entry(BF16, hbowl.mesh.ndofs)
         bf16_counts["stiffness_bf16"] = counts["stiffness_bf16"]
         p16 = nonlinear_bowl.focal_pressure(hbowl, state, focus)
         print(f"   bf16 pressure at focus: {p16:.1f} Pa, float32 (6b) "
@@ -3318,6 +3463,69 @@ def main() -> None:
     launches.update(extruded=n_piston + n_ext, extruded_pair=n_ext_pair)
     del ibowl2, kst4, s4
 
+    def gather2_turns(op, xs, label):
+        """The two-field gather (new, four positions a thread) against its
+        first design (old, `cen.gather2_flat`, one thread a position) and
+        two `index_select` calls (library) on the fields `xs` of the pair
+        operator `op`, each bitwise the others': ms per call in turns
+        (old, new, new, old, library); then the composed pair apply on
+        each gather, in turns.  Returns the updates of the JSON line's
+        entries (the gather's ms and library_ms, its first design's ms,
+        library_ms and launches in the turns), in that order."""
+        g = op.dofmap.reshape(-1).long()
+        sfx = "_bf16" if op.G.dtype == BF16 else ""
+        run = {"old": lambda: cen.gather2_flat(op, *xs),
+               "new": lambda: cen.gather2(op, *xs),
+               "library": lambda: tuple(x.index_select(0, g) for x in xs)}
+        got = {k: torch.cat([u.reshape(-1) for u in f()])
+               for k, f in run.items()}
+        if not (torch.equal(got["old"], got["new"])
+                and torch.equal(got["library"], got["new"])):
+            fail(f"{label}: gather2, its first design and index_select are "
+                 "not bitwise equal")
+        cen.comparison_launches[f"engine_gather2_flat{sfx}"] = 0
+        t = {k: [] for k in run}
+        for name in ("old", "new", "new", "old", "library"):
+            t[name].append(time_ms(run[name], 20))
+        n_old = cen.comparison_launches[f"engine_gather2_flat{sfx}"]
+        b_ms = bound(profile_step.engine_bytes(op)[0], 0)[0]
+        best = {k: min(v) for k, v in t.items()}
+        print(f"   {smi}: {label} gather2{sfx} ({g.numel():,} positions) "
+              f"in turns (old, new, new, old, two index_select): "
+              + ", ".join(f"{v:.4f}" for v in (
+                  t["old"][0], t["new"][0], t["new"][1], t["old"][1],
+                  t["library"][0]))
+              + f" ms; of the bound {b_ms:.4f} ms: new "
+              f"{b_ms / best['new']:.1%}, old {b_ms / best['old']:.1%}; "
+              f"old / new {best['old'] / best['new']:.4f}", flush=True)
+        pair = {"old": lambda: cen.scatter(op, cen.contract(
+                    op, *cen.gather2_flat(op, *xs))),
+                "new": lambda: cen.engine_pair(op, *xs)}
+        if not torch.equal(pair["old"](), pair["new"]()):
+            fail(f"{label}: the pair apply on gather2's first design is not "
+                 "bitwise the kernel's")
+        a = {"old": [], "new": []}
+        for name in ("old", "new", "new", "old"):
+            a[name].append(time_ms(pair[name], 20))
+        print(f"   {smi}: {label} pair apply{sfx} on the old / new gather2 "
+              f"in turns: {a['old'][0]:.4f} / {a['new'][0]:.4f} / "
+              f"{a['new'][1]:.4f} / {a['old'][1]:.4f} ms", flush=True)
+        return ({"ms": best["new"], "library_ms": t["library"][0],
+                 "turns": {k: t[k] for k in ("old", "new")},
+                 "apply_turns": a},
+                {"ms": best["old"], "library_ms": t["library"][0],
+                 "launches": n_old})
+
+    def merge_gather2_turns(out, op, xs, label):
+        """`gather2_turns` into the JSON line's entries `out`: the
+        gather's ms and library_ms from the turns, and its first design's
+        entry (the gather's checks, bitwise)."""
+        sfx = "_bf16" if op.G.dtype == BF16 else ""
+        new, old = gather2_turns(op, xs, label)
+        out[f"engine_gather2{sfx}"].update(new)
+        out[f"engine_gather2_flat{sfx}"] = dict(
+            out[f"engine_gather2{sfx}"], **old)
+
     def engine_kernels(model, ist, label):
         """The engine model's kernels at this size, float32: each against
         its plain version on the same inputs (the gathers bitwise) and
@@ -3351,6 +3559,7 @@ def main() -> None:
                 torch.cat([r1, r2]), lambda: cen.gather2(op, *xs),
                 lambda: eng.gather2(*xs, p.g),
                 (N * 4 + 2 * ndofs * b + 2 * N * b, 0))
+            merge_gather2_turns(out, op, xs, label)
             uc = p.c1[:, None] * u1 + p.c2[:, None] * u2
             yk = cen.contract(op, u1, u2)
             out["engine_contract"] = entry(
@@ -3485,9 +3694,17 @@ def main() -> None:
                         ("old", flat)):
             apply_ms[name].append(time_ms(lambda m=m: m(x), 20))
         step_ms, finals = {"old": [], "new": []}, {}
+        # each stiffness module with solvers of its own (a new stiffness
+        # module drops the model's), captured before the turns
+        solvers = {m: timestepping.SolverCache() for m in (flat, est)}
+        for m in (flat, est):
+            model.stiffness = m
+            model._solvers = solvers[m]
+            model.solve(state, dt_, 50)
         for name, m in (("old", flat), ("new", est), ("new", est),
                         ("old", flat)):
             model.stiffness = m
+            model._solvers = solvers[m]
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -3706,6 +3923,7 @@ def main() -> None:
                   torch.cat(list(eng.gather2(*xs, p16.g))),
                   lambda: cen.gather2(op, *xs),
                   lambda: eng.gather2(*xs, p16.g), (gb, 0), tol=0.0)
+            merge_gather2_turns(out, op, xs, label)
             yk = cen.contract(op, u1, u2)
             plain_c = lambda: eng.dense_contract(
                 eng.fold(u1, p16.c1, u2, p16.c2), p16.G6, p16.D)
@@ -3823,17 +4041,26 @@ def main() -> None:
 
         def __init__(self, model):
             self.model = model
+            # its own captured solvers: the graphs hold the kernels that
+            # ran at their capture (the model's hold the redesigned ones)
+            self.solvers = timestepping.SolverCache()
 
         def init_state(self):
             return self.model.init_state()
 
         def solve(self, *args):
             keep = cen.contract, cen.scatter
+            theirs = self.model.__dict__.get("_solvers")
+            self.model._solvers = self.solvers
             cen.contract, cen.scatter = cen.contract_cells, cen.scatter_dofs
             try:
                 return self.model.solve(*args)
             finally:
                 cen.contract, cen.scatter = keep
+                if theirs is None:
+                    self.model.__dict__.pop("_solvers")
+                else:
+                    self.model._solvers = theirs
 
     def engine16_steps(model, dt_, steps, label):
         """`steps` RK4 steps of a bf16 engine model from rest, the engine's
@@ -3894,6 +4121,12 @@ def main() -> None:
             fail(f"34k: {label}: 10 steps vs plain {e_plain:.3e}, vs bf16 "
                  f"#11 {e11:.3e}, vs the first designs {e_first:.3e}")
         _, counts = engine16_steps(m16, dt_, 50, label)
+        if not m16.stiffness.is_pair:
+            # phase 35b: the captured solve on the bf16 engine
+            print(f"== 35b {label} on the bf16 engine: the RK4 solve as "
+                  f"captured CUDA graphs against eager launches", flush=True)
+            captured_solve(m16, dt_, f"{label} (bf16 engine)",
+                           BF16_TRAJ_TOL)
         turns = ms_turns([("bf16 engine", m16, dt_),
                           ("bf16 engine, first #9 / #10", first, dt_),
                           ("float32 engine", f32_model, dt_f32),
@@ -4107,9 +4340,10 @@ def main() -> None:
         if not ebowl2.stiffness.is_pair or dt16 != dt6:
             fail("two-layer bodyfit engine model did not build the pair "
                  "operator")
-        kernels["engine_gather2"] = engine_kernels(
-            ebowl2, bbowl2.stiffness, "two-layer bodyfit bowl")[
-            "engine_gather2"]
+        k21c = engine_kernels(ebowl2, bbowl2.stiffness,
+                              "two-layer bodyfit bowl")
+        for k in ("engine_gather2", "engine_gather2_flat"):
+            kernels[k] = k21c[k]
         del bbowl2
     cen.reset_launches()
     with phase("21c two-layer bodyfit bowl on the engine, 50 steps "
@@ -4133,7 +4367,8 @@ def main() -> None:
         k34kb, n34kb = engine16_bowl(
             "two-layer bodyfit bowl", args5_argv + ["--two-layer"], pb13,
             ebowl2, dt16)
-        kernels["engine_gather2_bf16"] = k34kb["engine_gather2_bf16"]
+        for k in ("engine_gather2_bf16", "engine_gather2_flat_bf16"):
+            kernels[k] = k34kb[k]
         del ebowl2, pb13
 
     with phase("15a bodyfit bowl at P=6 build + kernel vs plain"):
@@ -4224,8 +4459,13 @@ def main() -> None:
     for k in STAGED:
         launches[k] = n_eng[k] + n_eng2[k] + n_eng7[k]
     launches["engine_gather2"] = n_eng2["engine_gather2"]
-    # the first design of the gather: its launches in 21a's run in turns
+    # the first design of the gather: its launches in 21a's run in turns;
+    # gather2's: in 21c's and 34k's
     launches["engine_gather_flat"] = n_flat
+    launches["engine_gather2_flat"] = kernels["engine_gather2_flat"][
+        "launches"]
+    launches["engine_gather2_flat_bf16"] = kernels[
+        "engine_gather2_flat_bf16"]["launches"]
     # the composed apply: the launches of its kernels
     launches["engine"] = sum(launches[k] for k in
                              STAGED + ("engine_gather2",))
@@ -4400,6 +4640,14 @@ def main() -> None:
                   + f", a 10-step solve adds at most {add / 1e9:.4f} GB: "
                   f"{own / 1e9:.4f} GB, {own / model.mesh.ndofs:.2f} B a DOF"
                   f" ({smi})", flush=True)
+        peaks = solve_peaks(model, dt_, 10)
+        print(f"   {smi}: {label}: a 10-step solve adds at its peak "
+              + ", ".join(f"{form} {a / 1e9:.4f} GB allocated, "
+                          f"{r / 1e9:.4f} GB reserved"
+                          for form, (a, r) in peaks.items())
+              + f" (captured - eager reserved "
+              f"{(peaks['captured'][1] - peaks['eager'][1]) / 1e9:.4f} GB; "
+              f"the model holds {held / 1e9:.4f} GB)", flush=True)
         tol = F32_TOL if f32 else BF16_TOL
         pst = CornerStiffness(kst.cell_op, "mm")
         x = torch.randn(model.mesh.grid_shape, dtype=torch.float32,
@@ -4621,6 +4869,17 @@ def main() -> None:
                                "fustpu/ops/pallas_gather.py:534"),
         "engine_gather2_bf16": ("fustpu_torch/csrc/engine.cu",
                                 "fustpu/ops/pallas_gather.py:566"),
+        # the RK4 update with its coefficient on the card (the captured
+        # solve): no TPU kernel, XLA fuses the JAX package's update
+        "axpy": ("fustpu_torch/csrc/vector.cu",
+                 "fustpu/models/timestepping.py:61"),
+        "axpy_bf16": ("fustpu_torch/csrc/vector.cu",
+                      "fustpu/models/timestepping.py:61"),
+        # gather2's first design, kept as the comparison (21c, 34k)
+        "engine_gather2_flat": ("fustpu_torch/csrc/engine.cu",
+                                "fustpu/ops/pallas_gather.py:566"),
+        "engine_gather2_flat_bf16": ("fustpu_torch/csrc/engine.cu",
+                                     "fustpu/ops/pallas_gather.py:566"),
         "engine_contract_bf16": ("fustpu_torch/csrc/engine_bf16.cu",
                                  "fustpu/ops/pallas_gather.py:1078"),
         "engine_scatter_bf16": ("fustpu_torch/csrc/engine_bf16.cu",

@@ -178,13 +178,20 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     ll = ctypes.c_longlong
     # the staged engine: float32, float64 and bfloat16 (#7-#10); the
-    # gather's first design in float32 and float64
+    # gathers' first designs (the single-field one in float32 and float64)
     for suffix in gstream:
         fn = getattr(lib, f"fustpu_engine_gather_{suffix}")
         fn.argtypes = [p, p, p, ll, i, p]
         fn.restype = i
         fn = getattr(lib, f"fustpu_engine_gather2_{suffix}")
+        fn.argtypes = [p, p, p, p, p, ll, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_engine_gather2_flat_{suffix}")
         fn.argtypes = [p, p, p, p, p, ll, p]
+        fn.restype = i
+        # the RK4 update with its coefficient on the card (vector.cu)
+        fn = getattr(lib, f"fustpu_axpy_{suffix}")
+        fn.argtypes = [p, p, p, p, ll, i, i, p]
         fn.restype = i
     # the bfloat16 contraction and scatter of engine_bf16.cu (D a host
     # array of floats, the chunk, the grid), and their first designs

@@ -3,7 +3,8 @@
 // separate passes over the (cells, N^3) element stream:
 //
 //   u2[p] = x[g[p]]                       engine_gather_quads<T> (one
-//                                         field), engine_gather<T, 2> (two)
+//                                         field), engine_gather2_quads<T>
+//                                         (two)
 //   y2[c] = D^T (c G) D u2[c]             engine_contract<T, N, MODE>
 //   y[d]  = sum over g[p] == d of y2[p]   engine_scatter<T>
 //
@@ -13,7 +14,9 @@
 //   - gather (:961) -> _mk_gather_kernel (:534), _packed (:736),
 //     _packed_staged (:766): engine_gather_quads<T> (the first design,
 //     engine_gather<T, 1>, stays as the comparison: `gather_flat`);
-//   - gather2 (:1014) -> :566 / :787 / :818: engine_gather<T, 2>;
+//   - gather2 (:1014) -> :566 / :787 / :818: engine_gather2_quads<T> (the
+//     first design, engine_gather<T, 2>, stays as the comparison:
+//     `gather2_flat`);
 //   - dense_contract (:1117) -> _mk_contract_kernel (:1078):
 //     engine_contract<T, N, PLAIN | COEFF>, and the pair form whose fold
 //     c1 u1 + c2 u2 fustpu computes between its kernels
@@ -47,8 +50,15 @@
 //     field's own loads keep the normal policy (with an evict-last hint on
 //     them the kernel ran slower at the bowl).  The first design, one
 //     thread a position on a grid that covers them all, stays as
-//     engine_gather<T, 1>; the pair form (engine_gather<T, 2>) reads each
-//     index once for both fields;
+//     engine_gather<T, 1>;
+//   - the two-field gather (engine_gather2_quads) runs the same plan and
+//     reads each index once for both fields: per quad one 16 B index load,
+//     eight independent field loads (four from each field) and two stores
+//     of four values, each with the evict-first policy.  At the bodyfit
+//     bowl the two fields are 26.6 MB in bfloat16 (53.3 MB in float32),
+//     read again by neighbouring cells, so their loads keep the normal
+//     policy.  Its first design, one thread a position (engine_gather<T,
+//     2>), stays as the comparison;
 //   - the contraction is the per-cell sum-factorised body of the other
 //     stiffness kernels (sum_factor.cuh, GStream metric) with an identity
 //     index map: a cell reads its contiguous N^3 row of u2 and its 6 N^3
@@ -131,6 +141,37 @@ engine_gather_quads(const T* __restrict__ x, const int* __restrict__ g,
   }
   const long long p = 4 * nq + t;
   if (p < n) out[p] = __ldg(x + g[p]);
+}
+
+// o1[p] = x1[g[p]], o2[p] = x2[g[p]] on engine_gather_quads's plan: thread
+// t of T takes the quads q = t + k T below n / 4, one index load for both
+// fields, then position 4 (n / 4) + t if that is below n.  g, o1 and o2
+// 16 B-aligned.
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads)
+engine_gather2_quads(const T* __restrict__ x1, const T* __restrict__ x2,
+                     const int* __restrict__ g, T* __restrict__ o1,
+                     T* __restrict__ o2, long long n) {
+  const unsigned long long first = fustpu::l2_evict_first();
+  const long long nq = n / 4;
+  const long long stride = (long long)gridDim.x * kGatherThreads;
+  const long long t = (long long)blockIdx.x * kGatherThreads + threadIdx.x;
+  const int4* g4 = reinterpret_cast<const int4*>(g);
+  for (long long q = t; q < nq; q += stride) {
+    const int4 d = fustpu::ld_stream(g4 + q, first);
+    const T a1 = __ldg(x1 + d.x), b1 = __ldg(x1 + d.y);
+    const T c1 = __ldg(x1 + d.z), e1 = __ldg(x1 + d.w);
+    const T a2 = __ldg(x2 + d.x), b2 = __ldg(x2 + d.y);
+    const T c2 = __ldg(x2 + d.z), e2 = __ldg(x2 + d.w);
+    fustpu::st_hint4(o1 + 4 * q, a1, b1, c1, e1, first);
+    fustpu::st_hint4(o2 + 4 * q, a2, b2, c2, e2, first);
+  }
+  const long long p = 4 * nq + t;
+  if (p < n) {
+    const int d = g[p];
+    o1[p] = __ldg(x1 + d);
+    o2[p] = __ldg(x2 + d);
+  }
 }
 
 // Node (i, j, k) of cell c sits at position c N^3 + i N^2 + t, t = j N + k.
@@ -315,6 +356,19 @@ int gather_quads(const void* x, const void* g, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int gather2_quads(const void* x1, const void* x2, const void* g, void* o1,
+                  void* o2, long long n, int blocks, void* stream) {
+  if (blocks < 1) return -1;
+  if (n <= 0) return 0;
+  engine_gather2_quads<T><<<blocks, kGatherThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x1), static_cast<const T*>(x2),
+      static_cast<const int*>(g), static_cast<T*>(o1), static_cast<T*>(o2),
+      n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int MODE, int N>
 int contract_n(const void* u1, const void* u2, const void* C,
                const void* coeff, const void* G, const void* D, void* y,
@@ -416,7 +470,9 @@ int scatter(const void* v, const void* pos, const void* ptr, void* y,
 // C entry points.  Each returns 0, -1 for an unsupported degree or grid,
 // -2 for an unknown contraction mode, or the cudaError_t of the launch.
 // g, pos: int32 positions and dofs; ptr: (ndofs + 1) int32 offsets into pos;
-// the single-field gather's g and out 16 B-aligned, on `blocks` blocks.
+// the single-field gather's g and out and the two-field gather's g, o1
+// and o2 16 B-aligned, on `blocks` blocks (their first designs, *_flat,
+// cover the positions with one thread each).
 // The float32 / float64 contraction accumulates into y2, which the caller
 // zeroes, the bfloat16 one stores y2; mode 0 is unit coefficients, 1 the
 // per-cell coeff (cells,), 2 the pair fold with C (cells, 2) and the
@@ -450,20 +506,40 @@ int fustpu_engine_gather_flat_f64(const void* x, const void* g, void* out,
 }
 
 int fustpu_engine_gather2_f32(const void* x1, const void* x2, const void* g,
-                              void* o1, void* o2, long long n,
+                              void* o1, void* o2, long long n, int blocks,
                               void* stream) {
-  return gather<float, 2>(x1, x2, g, o1, o2, n, stream);
+  return gather2_quads<float>(x1, x2, g, o1, o2, n, blocks, stream);
 }
 
 int fustpu_engine_gather2_f64(const void* x1, const void* x2, const void* g,
-                              void* o1, void* o2, long long n,
+                              void* o1, void* o2, long long n, int blocks,
                               void* stream) {
-  return gather<double, 2>(x1, x2, g, o1, o2, n, stream);
+  return gather2_quads<double>(x1, x2, g, o1, o2, n, blocks, stream);
 }
 
 int fustpu_engine_gather2_bf16(const void* x1, const void* x2, const void* g,
-                               void* o1, void* o2, long long n,
+                               void* o1, void* o2, long long n, int blocks,
                                void* stream) {
+  return gather2_quads<bf16>(x1, x2, g, o1, o2, n, blocks, stream);
+}
+
+// the two-field gather's first design, kept as the comparison
+// (cen.gather2_flat)
+int fustpu_engine_gather2_flat_f32(const void* x1, const void* x2,
+                                   const void* g, void* o1, void* o2,
+                                   long long n, void* stream) {
+  return gather<float, 2>(x1, x2, g, o1, o2, n, stream);
+}
+
+int fustpu_engine_gather2_flat_f64(const void* x1, const void* x2,
+                                   const void* g, void* o1, void* o2,
+                                   long long n, void* stream) {
+  return gather<double, 2>(x1, x2, g, o1, o2, n, stream);
+}
+
+int fustpu_engine_gather2_flat_bf16(const void* x1, const void* x2,
+                                    const void* g, void* o1, void* o2,
+                                    long long n, void* stream) {
   return gather<bf16, 2>(x1, x2, g, o1, o2, n, stream);
 }
 

@@ -1,14 +1,28 @@
 """Shared model machinery: buffers, state handling, the RK4 step/solve
 loop and CFL step selection used by both physics models.
 
-The physics subclasses provide `_rhs(t, u, v) -> kv` on flat vectors; the
-grid-shaped public API (`rhs`, `solve`) reshapes views around it.
-A model is an `nn.Module` whose buffers are the operator data: the
-diagonal vectors (flat, in the model dtype) and the `stiffness` submodule.
-Counterpart of ``fustpu/models/base.py``.
+The physics subclasses provide `_source_coeffs(t)` (the source terms'
+coefficients at time t, host floats) and `_rhs_stage(c, u, v) -> kv` on
+flat vectors, the coefficients c given as floats or as a tensor on the
+card; `_rhs(t, u, v)` is the two together.  The grid-shaped public API
+(`rhs`, `solve`) reshapes views around them.  A model is an `nn.Module`
+whose buffers are the operator data: the diagonal vectors (flat, in the
+model dtype) and the `stiffness` submodule.  Counterpart of
+``fustpu/models/base.py``.
+
+`solve` goes through ``timestepping.make_solver``'s solvers, cached by the
+JAX package's key (num_steps, tf is not None, probe): on the card they
+replay captured CUDA graphs, on the CPU they run the same steps eagerly.
+A graph holds the model's buffers and modules as they were at its
+capture: assigning an attribute of the model (a new stiffness module, a
+buffer) or moving it drops its solvers.  The sharded models' rank parts
+(``parallel.models.local_model``) set `capture` False and solve with
+``timestepping.solve``'s eager loop.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -21,10 +35,29 @@ from fustpu_torch.models.discretization import resolve_stiffness_impl
 
 class WaveModelBase(nn.Module):
     """Subclasses set their coefficients in `_coefficients`, build the
-    `stiffness` submodule and vectors, and implement `_rhs(t, u, v)`."""
+    `stiffness` submodule and vectors, and implement `_source_coeffs(t)`
+    and `_rhs_stage(c, u, v)`."""
 
     DEFAULT_CFL = 0.65
     VECTORS: tuple = ()        # names of the flat diagonal-vector buffers
+    capture = True             # solve through make_solver's solvers
+
+    def __setattr__(self, name, value) -> None:
+        # the captured graphs hold the old attribute's buffers
+        if name != "_solvers":
+            self.__dict__.pop("_solvers", None)
+        super().__setattr__(name, value)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.__dict__.pop("_solvers", None)
+        return super()._apply(fn, *args, **kwargs)
+
+    def __getstate__(self):
+        # a pickled model (a spawned rank's) leaves its solvers behind:
+        # their graphs and closures belong to this process
+        state = super().__getstate__()
+        state.pop("_solvers", None)
+        return state
 
     def _setup(self, mesh, material, source, source_facets,
                dtype: torch.dtype, device, stiffness_impl: str,
@@ -113,6 +146,22 @@ class WaveModelBase(nn.Module):
         r = lambda a: a.reshape(g)
         return timestepping.RKState(r(s.u), r(s.v), r(s.ku), r(s.kv), s.t)
 
+    def _source_coeffs(self, t: float) -> tuple:
+        raise NotImplementedError
+
+    def _rhs_stage(self, c, u: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _rhs(self, t: float, u: torch.Tensor, v: torch.Tensor
+             ) -> torch.Tensor:
+        """kv = M^{-1} b(t, u, v) on flat vectors."""
+        return self._rhs_stage(self._source_coeffs(t), u, v)
+
+    @property
+    def stage_rhs(self) -> timestepping.StageRHS:
+        return timestepping.StageRHS(self._source_coeffs, self._rhs_stage)
+
     def rhs(self, t: float, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """Grid-shaped public entry point."""
         kv = self._rhs(float(t), u.reshape(-1), v.reshape(-1))
@@ -127,6 +176,28 @@ class WaveModelBase(nn.Module):
                                     None if tf is None else float(tf))
         return self._grid_state(out)
 
+    def solver(self, num_steps: int, clamp_tf: bool = False, probe=None
+               ) -> timestepping.Solver:
+        """The solver of `num_steps` steps (``timestepping.make_solver``),
+        made at its first use and cached by the JAX package's key
+        (num_steps, clamp_tf, probe)."""
+        cache = self.__dict__.get("_solvers")
+        if cache is None:
+            cache = self._solvers = timestepping.SolverCache()
+        key = (num_steps, clamp_tf, probe)
+        if key not in cache:
+            # the model holds its solvers: they reach it by a weak
+            # reference, so that a deleted model frees its memory at once
+            me = weakref.ref(self)
+            rhs = timestepping.StageRHS(
+                lambda t: me()._source_coeffs(t),
+                lambda c, u, v: me()._rhs_stage(c, u, v))
+            wrapped = (None if probe is None
+                       else (lambda s: probe(me()._grid_state(s))))
+            cache[key] = timestepping.make_solver(
+                rhs, num_steps, wrapped, clamp_tf=clamp_tf, cache=cache)
+        return cache[key]
+
     @torch.no_grad()
     def solve(self, state, dt: float, num_steps: int,
               tf: float | None = None, probe=None):
@@ -135,16 +206,31 @@ class WaveModelBase(nn.Module):
         views.  Returns (state, ys), as the JAX package does: ys is None
         without a `probe` (grid-shaped state -> (npts,) tensor), else
         (num_steps, npts) on the model's device, the probe read after
-        every step."""
-        wrapped = (None if probe is None
-                   else (lambda s: probe(self._grid_state(s))))
-        out = timestepping.solve(self._rhs, self._flat_state(state),
-                                 float(dt), num_steps,
-                                 None if tf is None else float(tf),
-                                 probe=wrapped)
-        if probe is None:
-            return self._grid_state(out), None
-        return self._grid_state(out[0]), out[1]
+        every step.  On the card the steps replay captured CUDA graphs
+        (`solver`)."""
+        tf = None if tf is None else float(tf)
+        if not self.capture:
+            wrapped = (None if probe is None
+                       else (lambda s: probe(self._grid_state(s))))
+            out = timestepping.solve(self._rhs, self._flat_state(state),
+                                     float(dt), num_steps, tf,
+                                     probe=wrapped)
+            out, ys = (out, None) if probe is None else out
+        else:
+            out, ys = self.solver(num_steps, tf is not None, probe)(
+                self._flat_state(state), float(dt), tf)
+        return self._grid_state(out), ys
+
+    @torch.no_grad()
+    def solve_eager(self, state, dt: float, num_steps: int,
+                    tf: float | None = None, probe=None):
+        """The steps of `solve` as eager launches, without a graph (what
+        `solve` runs on the CPU): on the card, the comparison of the
+        captured solve."""
+        tf = None if tf is None else float(tf)
+        out, ys = self.solver(num_steps, tf is not None, probe).eager(
+            self._flat_state(state), float(dt), tf)
+        return self._grid_state(out), ys
 
     def cfl_dt(self, cfl: float | None = None) -> tuple[float, int]:
         """dt = CFL h / (c P^2), snapped to an integer number of steps per

@@ -117,18 +117,23 @@ class LinearWaveModel(WaveModelBase):
         self.c2_scalar = -1.0 / float(rho.flat[0]) if self.uniform else None
 
     # ------------------------------------------------------------------
-    def _rhs(self, t: float, u: torch.Tensor, v: torch.Tensor
-             ) -> torch.Tensor:
-        """kv = M^{-1} b(t, u, v) on flat vectors.  `b` is a fresh tensor
-        (the apply's output), so the updates below are in place."""
+    def _source_coeffs(self, t: float) -> tuple:
+        """(a_c, a_s): the source term at time t is a_c s_cos + a_s s_sin."""
+        return sources.linear_source_coeffs(t, self.source, self.c_src)
+
+    def _rhs_stage(self, c, u: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+        """kv = M^{-1} b(t, u, v) on flat vectors, the source coefficients
+        c = `_source_coeffs(t)` (floats, or a tensor on the fields' device).
+        `b` is a fresh tensor (the apply's output), so the updates below are
+        in place."""
         g = self.mesh.grid_shape
         b = self.stiffness(u.reshape(g)).reshape(-1)
         if self.uniform:
             b.mul_(self.c2_scalar)
-        a_c, a_s = sources.linear_source_coeffs(t, self.source, self.c_src)
-        vec.axpy_(a_c, self.s_cos, b)
+        vec.axpy_(c[0], self.s_cos, b)
         if self.s_sin is not None:
-            vec.axpy_(a_s, self.s_sin, b)
+            vec.axpy_(c[1], self.s_sin, b)
         if self.fvec is not None:
             b.addcmul_(v, self.fvec)
         return vec.pointwise_divide(b, self.m)     # the diagonal solve

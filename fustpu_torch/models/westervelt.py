@@ -139,10 +139,19 @@ class WesterveltModel(WaveModelBase):
                               / float((rho * c * c).flat[0]))
 
     # ------------------------------------------------------------------
-    def _rhs(self, t: float, u: torch.Tensor, v: torch.Tensor
-             ) -> torch.Tensor:
-        """kv = M(u)^{-1} b(t, u, v) on flat vectors.  `b` is a fresh
-        tensor (the apply's output), so the updates below are in place."""
+    def _source_coeffs(self, t: float) -> tuple:
+        """(g_c, g_s, dg_c, dg_s): the g and dg terms' coefficients of the
+        cos / sin source vectors at time t."""
+        (g_c, g_s), (dg_c, dg_s) = sources.westervelt_source_coeffs(
+            t, self.source, self.c_src)
+        return g_c, g_s, dg_c, dg_s
+
+    def _rhs_stage(self, c, u: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+        """kv = M(u)^{-1} b(t, u, v) on flat vectors, the source
+        coefficients c = `_source_coeffs(t)` (floats, or a tensor on the
+        fields' device).  `b` is a fresh tensor (the apply's output), so the
+        updates below are in place."""
         g = self.mesh.grid_shape
         m = torch.addcmul(self.m0, u, self.mvec2)   # unsteady diagonal LHS
         if self.uniform:
@@ -151,13 +160,11 @@ class WesterveltModel(WaveModelBase):
         else:
             b = self.stiffness.pair(u.reshape(g), v.reshape(g)).reshape(-1)
         b.sub_(vec.square(v) * self.mvec2)          # + nl * v^2 mass term
-        (g_c, g_s), (dg_c, dg_s) = sources.westervelt_source_coeffs(
-            t, self.source, self.c_src)
-        vec.axpy_(g_c, self.s1_cos, b)
-        vec.axpy_(dg_c, self.s2_cos, b)
+        vec.axpy_(c[0], self.s1_cos, b)
+        vec.axpy_(c[2], self.s2_cos, b)
         if self.s1_sin is not None:
-            vec.axpy_(g_s, self.s1_sin, b)
-            vec.axpy_(dg_s, self.s2_sin, b)
+            vec.axpy_(c[1], self.s1_sin, b)
+            vec.axpy_(c[3], self.s2_sin, b)
         if self.fvec is not None:
             b.addcmul_(v, self.fvec)
         return vec.pointwise_divide(b, m)           # the diagonal solve

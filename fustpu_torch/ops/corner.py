@@ -215,19 +215,29 @@ def _evaluation(n: int, geom_deg: int, box: bool) -> np.ndarray:
     return E.reshape(nch, 9, n ** 3)
 
 
+@functools.lru_cache(maxsize=None)
+def _expansion(n: int, geom_deg: int, box: bool, dtype: torch.dtype,
+               device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(`_evaluation` on `device`, the (n^3,) products of the GLL weights),
+    uploaded once: the plain apply then uploads nothing, and a CUDA graph
+    can capture it."""
+    E = torch.as_tensor(_evaluation(n, geom_deg, box), dtype=dtype,
+                        device=device)
+    w = torch.as_tensor(gll.gll_points_weights_unit(n)[1], dtype=dtype,
+                        device=device)
+    return E, (w[:, None, None] * w[None, :, None]
+               * w[None, None, :]).reshape(-1)
+
+
 def expand_G(T: torch.Tensor, n: int, geom_deg: int,
              box: bool) -> torch.Tensor:
     """(cells, nch+1) channels -> (cells, 6, n^3) metric, coefficient
     folded in, components (xx, xy, xz, yy, yz, zz) in the order of
     `cuda_stiffness.pack_G`, on T's device and in T's dtype."""
     nch = T.shape[1] - 1
-    E = torch.as_tensor(_evaluation(n, geom_deg, box), dtype=T.dtype,
-                        device=T.device)
+    E, wq = _expansion(n, geom_deg, box, T.dtype, T.device)
     if E.shape[0] != nch:
         raise ValueError(f"{T.shape[1]} channels, expected {E.shape[0] + 1}")
-    w = torch.as_tensor(gll.gll_points_weights_unit(n)[1], dtype=T.dtype,
-                        device=T.device)
-    wq = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(-1)
     out = torch.empty((T.shape[0], 6, n ** 3), dtype=T.dtype, device=T.device)
     for s in range(0, T.shape[0], _CHUNK):
         Tc = T[s:s + _CHUNK]

@@ -26,9 +26,10 @@ counts its launches in `launches`, where it launches; the kernels launch
 through the lean path of ``fustpu_torch.ops.launch``.  `gather_flat` runs
 the single-field gather's first design (one thread a position), kept as
 the comparison and counted apart in `comparison_launches`, as are
-`contract_cells` and `scatter_dofs`, the first bfloat16 designs of the
-contraction (one block a few cells, the cell body's own global loads) and
-the scatter (one thread a dof).
+`gather2_flat`, the two-field gather's first design (one thread a
+position), and `contract_cells` and `scatter_dofs`, the first bfloat16
+designs of the contraction (one block a few cells, the cell body's own
+global loads) and the scatter (one thread a dof).
 
 Each kernel comes in float32, float64 and bfloat16.  The bfloat16 forms
 (the JAX package's ``--dtype bf16``, counted in `bf16_launches`) take an
@@ -36,7 +37,8 @@ operator whose G, D, coeff and C are bfloat16 (`build` / `from_host` of
 ``torch.bfloat16``) and bfloat16 fields, and store:
 
 - `gather` / `gather2`: u2 in bfloat16, a copy of the field's values
-  (exact);
+  (exact), four positions a thread; the dofmap and the outputs 16
+  B-aligned;
 - `contract`: y2 in bfloat16, each value rounded once from float32
   arithmetic on the widened u2, G, D, coeff and C (the pair fold
   c1 u1 + c2 u2 too): chunks of cells bulk-copied into a ring of shared
@@ -67,10 +69,18 @@ launches = {"engine_gather": 0, "engine_gather2": 0, "engine_contract": 0,
             "engine_scatter": 0}
 bf16_launches = {f"{k}_bf16": 0 for k in launches}
 comparison_launches = {"engine_gather_flat": 0,
+                       "engine_gather2_flat": 0,
+                       "engine_gather2_flat_bf16": 0,
                        "engine_contract_cells_bf16": 0,
                        "engine_scatter_dofs_bf16": 0}
 
 _MODES = {"plain": 0, "coeff": 1, "pair": 2}
+# The dtypes whose two-field gather keeps its first design on the main path
+# (one thread a position, `engine_gather<T, 2>`): in float64 the quads
+# design ran slower on an H100 (0.2264 against 0.1389 ms at the bodyfit
+# bowl's size, `demos/exp_gather2`; PERF.md's #8 row), in float32 and
+# bfloat16 faster.
+GATHER2_FIRST_DESIGN = (torch.float64,)
 
 
 def reset_launches() -> None:
@@ -331,7 +341,10 @@ def gather_flat(op: EngineCellStiffness, x: torch.Tensor) -> torch.Tensor:
 
 def gather2(op: EngineCellStiffness, x1: torch.Tensor, x2: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x1[g], x2[g]) in one pass through `engine_gather2`."""
+    """(x1[g], x2[g]) in one pass through `engine_gather2` (the plain
+    version for a CPU tensor): four positions a thread on a one-wave grid,
+    one index load for both fields; in the dtypes of GATHER2_FIRST_DESIGN
+    the first design's kernel, one thread a position."""
     cells = op.dofmap.shape[0]
     if x1.device.type == "cpu":
         u1, u2 = eng.gather2(x1, x2, op.dofmap.reshape(-1).long())
@@ -339,9 +352,33 @@ def gather2(op: EngineCellStiffness, x1: torch.Tensor, x2: torch.Tensor
     _check(op, "engine_gather2", x1, x2, shape=(op.ndofs,))
     o1 = x1.new_empty(op.dofmap.shape)
     o2 = x1.new_empty(op.dofmap.shape)
-    _launch("engine_gather2", x1.dtype, x1, x1.data_ptr(),
+    n = _positions(op)
+    args = (x1.data_ptr(), x2.data_ptr(), op.dofmap.data_ptr(),
+            o1.data_ptr(), o2.data_ptr(), n)
+    if x1.dtype in GATHER2_FIRST_DESIGN:
+        launch.launch(f"fustpu_engine_gather2_flat_{cs.SUFFIX[x1.dtype]}",
+                      x1.get_device(), *args)
+        cs.count(launches, bf16_launches, "engine_gather2", x1.dtype)
+        return o1, o2
+    _aligned("engine_gather2", dofmap=(op.dofmap, 16), o1=(o1, 16),
+             o2=(o2, 16))
+    _launch("engine_gather2", x1.dtype, x1, *args,
+            launch.gather_blocks(n, launch.sm_count(x1.get_device())))
+    return o1, o2
+
+
+def gather2_flat(op: EngineCellStiffness, x1: torch.Tensor,
+                 x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`gather2` through the first design's kernel, the comparison: one
+    thread a position (`engine_gather2_flat`)."""
+    if x1.device.type == "cpu":
+        return gather2(op, x1, x2)
+    _check(op, "engine_gather2_flat", x1, x2, shape=(op.ndofs,))
+    o1 = x1.new_empty(op.dofmap.shape)
+    o2 = x1.new_empty(op.dofmap.shape)
+    _launch("engine_gather2_flat", x1.dtype, x1, x1.data_ptr(),
             x2.data_ptr(), op.dofmap.data_ptr(), o1.data_ptr(),
-            o2.data_ptr(), _positions(op))
+            o2.data_ptr(), _positions(op), comparison=True)
     return o1, o2
 
 

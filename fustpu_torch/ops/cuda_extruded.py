@@ -452,8 +452,7 @@ def to_plain(op: ExtrudedCellStiffness):
     plain = ext.PlainExtruded(
         rows=op.rows.reshape(-1).long(),
         G6=G6.reshape(6, ns, n, n, nz * n).contiguous(),
-        Wz=torch.as_tensor(mm.window_matrix(nz, op.P), dtype=op.G.dtype,
-                           device=op.G.device),
+        Wz=mm.window_tensor(nz, op.P, op.G.dtype, op.G.device),
         Dz=torch.block_diag(*([op.D] * nz)), D=op.D)
     if op.C is None:
         return plain, None, None

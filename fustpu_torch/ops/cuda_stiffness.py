@@ -420,8 +420,8 @@ def to_mm(op: CellStiffness):
     ncx, ncy, ncz = op.nc
     G = op.G.reshape(ncx, ncy, ncz, 6, n, n, n).permute(3, 0, 4, 1, 5, 2, 6)
     mm_op = mm.MMStiffness(
-        W=tuple(torch.as_tensor(mm.window_matrix(c, P), dtype=op.G.dtype,
-                                device=op.G.device) for c in op.nc),
+        W=tuple(mm.window_tensor(c, P, op.G.dtype, op.G.device)
+                for c in op.nc),
         Dt=tuple(torch.block_diag(*([op.D] * c)) for c in op.nc),
         G=G.reshape(6, ncx * n, ncy * n, ncz * n).contiguous())
     if op.C is None:

@@ -66,6 +66,16 @@ def window_matrix(ncells: int, P: int) -> np.ndarray:
     return W
 
 
+@functools.lru_cache(maxsize=None)
+def window_tensor(ncells: int, P: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """`window_matrix` on `device`, uploaded once (a plain apply that
+    rebuilds its matmul layout then uploads nothing, and a CUDA graph can
+    capture it)."""
+    return torch.as_tensor(window_matrix(ncells, P), dtype=dtype,
+                           device=device)
+
+
 def deriv_block_matrix(ncells: int, D: np.ndarray) -> np.ndarray:
     """(e, e) block-diagonal with `ncells` copies of the (n, n) nodal
     derivative matrix D[q, i]."""

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from fustpu_torch.ops import cuda_vector
+
 
 def _cpu_bf16(y: torch.Tensor) -> bool:
     """Whether `y + alpha * x` must be formed in float32 by hand: PyTorch's
@@ -18,15 +20,22 @@ def _cpu_bf16(y: torch.Tensor) -> bool:
     return y.dtype == torch.bfloat16 and y.device.type == "cpu"
 
 
-def axpy(alpha: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """y + alpha * x (bfloat16: computed in float32, rounded once)."""
+def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y + alpha * x (bfloat16: computed in float32, rounded once).
+    `alpha`: a Python float, or a one-element tensor on y's device (the
+    captured solve's coefficient table), which ``ops/cuda_vector.axpy``
+    applies in the same arithmetic."""
+    if isinstance(alpha, torch.Tensor):
+        return cuda_vector.axpy(alpha, x, y)
     if _cpu_bf16(y):
         return torch.add(y.float(), x.float(), alpha=alpha).to(y.dtype)
     return torch.add(y, x, alpha=alpha)
 
 
-def axpy_(alpha: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def axpy_(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """y += alpha * x in place, as `axpy` computes it; returns y."""
+    if isinstance(alpha, torch.Tensor):
+        return cuda_vector.axpy(alpha, x, y, out=y)
     if _cpu_bf16(y):
         return y.copy_(axpy(alpha, x, y))
     return y.add_(x, alpha=alpha)

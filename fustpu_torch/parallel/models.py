@@ -82,6 +82,8 @@ def local_model(model, mesh, stiffness: nn.Module, vectors: dict, device):
         if hasattr(model, name):
             setattr(local, name, getattr(model, name))
     local.mesh = mesh
+    # the exchange (a gloo all_reduce) cannot be captured: eager solves
+    local.capture = False
     local.device = torch.device(device)
     local.impl = "cuda" if local.device.type == "cuda" else "mm"
     local.stiffness = stiffness

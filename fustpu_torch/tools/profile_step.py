@@ -1,6 +1,6 @@
 """Where the time of one RK4 step goes on the card, for the flagship bowl.
 
-    python -m fustpu_torch.tools.profile_step [--only WORD ...]
+    python -m fustpu_torch.tools.profile_step [--only WORD ...] [--eager]
 
 For the uniform and the two-layer Westervelt bowl runs at the flagship
 size (the `nonlinear_bowl` demo's models, --elements 64 --degree 4,
@@ -11,7 +11,9 @@ conformal and imported bowls again in the corner-streamed capacity mode
 (--stiffness-impl pallas_corner, the corner kernels) and once more in
 bfloat16 (--dtype bf16, the corner kernels' bf16 forms), and for the
 bodyfit bowls on the staged engine (--stiffness-impl indexed_engine, three
-kernels an apply), in float32 and in bfloat16, it prints:
+kernels an apply), in float32 and in bfloat16, it prints, for the model's
+solve (replays of captured CUDA graphs) or, with --eager, for the same
+steps launched one by one:
   - ms per step without the profiler (CUDA events over STEPS steps);
   - ms per step under torch.profiler, and the device time per step split
     into the stiffness kernels, the other (elementwise) kernels and the
@@ -107,11 +109,11 @@ def summarize_trace(events: list[dict]) -> dict:
     return out
 
 
-def _ms_per_step(model, state, dt, steps) -> float:
+def _ms_per_step(solve, state, dt, steps) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    model.solve(state, dt, steps)
+    solve(state, dt, steps)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / steps
@@ -169,18 +171,26 @@ def streaming_copy(gib: float) -> tuple[float, float]:
     return ms, 2 * n * 4 / (ms * 1e-3) / 1e12
 
 
-def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
+def profile(argv: list[str], steps: int, trace_dir: Path,
+            eager: bool = False) -> dict:
+    """The run of the demo arguments `argv`: the model's solve (replays of
+    captured graphs), or with `eager` the same steps launched eagerly
+    (`Model.solve_eager`)."""
     args = nonlinear_bowl.parser().parse_args(argv)
     model, dt, _, _ = nonlinear_bowl.build(args)
-    state, _ = model.solve(model.init_state(), dt, 10)   # warm-up
+    solve = model.solve_eager if eager else model.solve
+    state, _ = solve(model.init_state(), dt, 10)   # warm-up
+    solve(state, dt, 2)
+    solve(state, dt, steps)                        # the captures
     torch.cuda.synchronize()
-    plain_ms = _ms_per_step(model, state, dt, steps)
+    plain_ms = _ms_per_step(solve, state, dt, steps)
 
     mode = {"pallas_corner": " corner", "indexed_engine": " engine"}
     config = (f"{args.geometry} "
               f"{'two-layer' if args.two_layer else 'uniform'}"
               f"{mode.get(args.stiffness_impl, '')}"
-              f"{' bf16' if args.dtype == 'bf16' else ''}")
+              f"{' bf16' if args.dtype == 'bf16' else ''}"
+              f"{' eager' if eager else ''}")
     trace = trace_dir / f"trace_{config.replace(' ', '_')}.json"
     # one warm-up step of the profiler (two RK4 steps), then the active one
     with torch.profiler.profile(
@@ -190,11 +200,11 @@ def profile(argv: list[str], steps: int, trace_dir: Path) -> dict:
                                              repeat=1),
             on_trace_ready=lambda pr: pr.export_chrome_trace(str(trace))
             ) as prof:
-        model.solve(state, dt, 2)
+        solve(state, dt, 2)
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
-        model.solve(state, dt, steps)
+        solve(state, dt, steps)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
         prof.step()
@@ -251,6 +261,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--only", nargs="*", default=[],
                    help="keep the runs whose demo arguments hold each word")
+    p.add_argument("--eager", action="store_true",
+                   help="the same steps launched eagerly, not replayed")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -263,7 +275,7 @@ def main(argv=None) -> None:
           f"{tbps:.4f} TB/s read + write", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         for extra in selected(args.only):
-            r = profile(FLAGSHIP + extra, STEPS, Path(tmp))
+            r = profile(FLAGSHIP + extra, STEPS, Path(tmp), args.eager)
             print(json.dumps(r), flush=True)
             print(f"{r['config']}: {r['ms_per_step']:.4f} ms/step "
                   f"unprofiled, {r['profiled_ms_per_step']:.4f} profiled; "

@@ -145,6 +145,7 @@ def test_plain_bf16_functions_match_pallas_interpret(ref, P):
     and the scatter within APPLY_TOL, and each within APPLY_TOL of float64
     on the same bf16 inputs."""
     pg = ref.pg
+    cen.reset_launches()      # count this test's launches only
     k = _case(ref, P, seed=P)
     j = lambda t: _j(ref, t)
     want = np.asarray(pg.gather(j(k.x1), k.plan, interpret=True))
@@ -515,10 +516,10 @@ def _small(dtype=BF16, pair=False, cells=5, n=3, ndofs=400):
 def test_bf16_launch_arguments(no_card_launch):
     """On a card each bf16 wrapper launches its bf16 entry point, counted
     in `bf16_launches` only: the gathers with the float32 kernels'
-    arguments (the single-field one on its one-wave grid), the redesigned
-    contraction with D's host copy, the cells a chunk and its one-wave
-    grid, the redesigned scatter with the positions and one block a run of
-    dofs; u2, y2 and y in bf16."""
+    arguments (both on the one-wave grid of four positions a thread), the
+    redesigned contraction with D's host copy, the cells a chunk and its
+    one-wave grid, the redesigned scatter with the positions and one block
+    a run of dofs; u2, y2 and y in bf16."""
     cen.reset_launches()
     op, x = _small(pair=True)
     op, x = _on_card(op), x.as_subclass(_OnCard)
@@ -535,6 +536,10 @@ def test_bf16_launch_arguments(no_card_launch):
     n = op.dofmap.numel()
     assert no_card_launch[0][2] == (x.data_ptr(), op.dofmap.data_ptr(),
                                     u.data_ptr(), n,
+                                    launch.gather_blocks(n, 132))
+    assert no_card_launch[1][2] == (x.data_ptr(), x.data_ptr(),
+                                    op.dofmap.data_ptr(), u1.data_ptr(),
+                                    u2.data_ptr(), n,
                                     launch.gather_blocks(n, 132))
     cells = op.dofmap.shape[0]
     assert no_card_launch[2][2] == (
@@ -636,6 +641,8 @@ def test_bf16_first_designs_launch_as_the_comparison(no_card_launch):
                          card.ptr.data_ptr(), y.data_ptr(), card.ndofs)
         assert (y2.dtype, y.dtype) == (BF16, BF16)
     assert cen.comparison_launches == {"engine_gather_flat": 0,
+                                       "engine_gather2_flat": 0,
+                                       "engine_gather2_flat_bf16": 0,
                                        "engine_contract_cells_bf16": 2,
                                        "engine_scatter_dofs_bf16": 2}
     assert not any(cen.launches.values())
@@ -925,3 +932,36 @@ def test_bf16_redesigned_kernels_match_first_designs_on_card(tmp_path, P):
     assert cen.bf16_launches["engine_scatter_bf16"] == 12
     assert cen.comparison_launches["engine_contract_cells_bf16"] == 6
     assert cen.comparison_launches["engine_scatter_dofs_bf16"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", range(2, 11))
+def test_bf16_gather2_matches_first_design_on_card(tmp_path, P):
+    """The bf16 two-field gather (four positions a thread, one 8 B store a
+    field) bitwise equal to its first design (one thread a position) and
+    to `index_select` of each field, on the imported cylinder read as a
+    general mesh and on 13 random cells sharing one dof (at even P an odd
+    number of positions: the scalar tail runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    v, c, t = shapes.cylinder_mesh(nz=3 if P <= 6 else 2, **CYL)
+    cyl = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "c"), v, c, t),
+                          P, detect_extrusion=False)
+    disc = dz.Discretization(cyl)
+    rng = np.random.default_rng(P)
+    cases = [(cyl, disc._G_host, disc._D_host),
+             _shared_dof_mesh(P, 13, seed=P)[:3]]
+    cen.reset_launches()
+    for mesh, G, D in cases:
+        x1, x2 = (torch.as_tensor(rng.standard_normal(mesh.ndofs),
+                                  device="cuda").to(BF16) for _ in range(2))
+        op = cen.build(mesh, G, D, BF16, "cuda")
+        u1, u2 = cen.gather2(op, x1, x2)
+        f1, f2 = cen.gather2_flat(op, x1, x2)
+        torch.cuda.synchronize()
+        g = op.dofmap.reshape(-1).long()
+        assert torch.equal(u1, f1) and torch.equal(u2, f2)
+        assert torch.equal(u1.reshape(-1), x1.index_select(0, g))
+        assert torch.equal(u2.reshape(-1), x2.index_select(0, g))
+    assert cen.bf16_launches["engine_gather2_bf16"] == 2
+    assert cen.comparison_launches["engine_gather2_flat_bf16"] == 2

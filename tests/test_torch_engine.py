@@ -491,6 +491,76 @@ def test_gather_launch_arguments(no_card_launch):
     assert cen.comparison_launches["engine_gather_flat"] == 1
 
 
+def test_gather2_launch_arguments(no_card_launch):
+    """On a card `gather2` launches the two-field kernel of the quads
+    design with its pointers, the position count and the single-field
+    gather's one-wave grid, `gather2_flat` the first design (no grid);
+    each counted in its own table.  In float64 `gather2` launches the
+    first design's kernel, counted as the main path's gather2."""
+    from fustpu_torch.ops import launch
+
+    cen.reset_launches()
+    op, rng = _small_op(dtype=torch.float32)
+    op = _on_card(op)
+    x1, x2 = (torch.as_tensor(rng.standard_normal(op.ndofs),
+                              dtype=torch.float32).as_subclass(_OnCard)
+              for _ in range(2))
+    o1, o2 = cen.gather2(op, x1, x2)
+    f1, f2 = cen.gather2_flat(op, x1, x2)
+    assert tuple(o1.shape) == tuple(o2.shape) == tuple(op.dofmap.shape)
+    (name, dev, args), (fname, _, fargs) = no_card_launch
+    assert name == "fustpu_engine_gather2_f32" and dev == 0
+    assert args == (x1.data_ptr(), x2.data_ptr(), op.dofmap.data_ptr(),
+                    o1.data_ptr(), o2.data_ptr(), 135,
+                    launch.gather_blocks(135, 132))
+    assert fname == "fustpu_engine_gather2_flat_f32"
+    assert fargs == (x1.data_ptr(), x2.data_ptr(), op.dofmap.data_ptr(),
+                     f1.data_ptr(), f2.data_ptr(), 135)
+    assert cen.launches == {"engine_gather": 0, "engine_gather2": 1,
+                            "engine_contract": 0, "engine_scatter": 0}
+    assert cen.comparison_launches["engine_gather2_flat"] == 1
+    assert sum(cen.comparison_launches.values()) == 1
+    # float64 keeps the first design on the main path, counted there
+    op64 = _on_card(_small_op()[0])
+    z1, z2 = (x.double().as_subclass(_OnCard) for x in (x1, x2))
+    y1, y2 = cen.gather2(op64, z1, z2)
+    name64, _, args64 = no_card_launch[-1]
+    assert name64 == "fustpu_engine_gather2_flat_f64"
+    assert args64 == (z1.data_ptr(), z2.data_ptr(), op64.dofmap.data_ptr(),
+                      y1.data_ptr(), y2.data_ptr(), 135)
+    assert cen.launches["engine_gather2"] == 2
+    assert sum(cen.comparison_launches.values()) == 1
+    cen.reset_launches()
+
+
+def test_gather2_refuses_before_any_launch(no_card_launch):
+    """A misaligned dofmap (the quads design's 16 B index loads, float32)
+    or a non-contiguous one, or fields of the wrong size or dtype, raise
+    before `gather2` or `gather2_flat` launches anything."""
+    op, rng = _small_op(dtype=torch.float32)
+    x = torch.as_tensor(rng.standard_normal(op.ndofs),
+                        dtype=torch.float32).as_subclass(_OnCard)
+    base = torch.zeros(op.dofmap.numel() + 1, dtype=torch.int32)
+    shifted = base[1:].view(op.dofmap.shape)
+    shifted.copy_(op.dofmap)
+    wide = torch.zeros(op.dofmap.shape[0], 2 * op.dofmap.shape[1],
+                       dtype=torch.int32)
+    for dofmap, match, fns in (
+            (shifted, "dofmap not 16-byte aligned", (cen.gather2,)),
+            (wide[:, ::2], "not contiguous", (cen.gather2,
+                                              cen.gather2_flat))):
+        bad = _on_card(op._replace(dofmap=dofmap))
+        for fn in fns:
+            with pytest.raises(ValueError, match=match):
+                fn(bad, x, x)
+    for fn in (cen.gather2, cen.gather2_flat):
+        with pytest.raises(ValueError, match="shape"):
+            fn(_on_card(op), x, x[1:])
+        with pytest.raises(ValueError, match="input is torch.float64"):
+            fn(_on_card(op), x, x.double())
+    assert no_card_launch == []
+
+
 def test_gather_refuses_before_any_launch(no_card_launch):
     """A misaligned or non-contiguous dofmap, or a field of the wrong
     size, raises before the wrapper launches anything."""
@@ -546,3 +616,41 @@ def test_gather_matches_index_select_and_first_design_on_card(tmp_path, P):
             assert torch.equal(got, cen.gather_flat(op, a))
     assert cen.launches["engine_gather"] == 6
     assert cen.comparison_launches["engine_gather_flat"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", range(2, 11))
+def test_gather2_matches_first_design_on_card(tmp_path, P):
+    """The two-field gather (four positions a thread) bitwise equal to its
+    first design's kernel and to `index_select` of each field, float32
+    and float64, on the meshes of
+    `test_gather_matches_index_select_and_first_design_on_card` (121
+    random cells: at even P an odd number of positions, the scalar tail
+    runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    v, c, t = shapes.cylinder_mesh(nz=3 if P <= 6 else 2, **CYL)
+    cyl = msh_io.read_msh(msh_io.write_msh(str(tmp_path / "c"), v, c, t), P,
+                          detect_extrusion=False)
+    disc = Discretization(cyl)
+    meshes = [(cyl, disc._G_host, disc._D_host)]
+    for cells in (120, 121):
+        dm, ndofs, G, D, rng = _random_dofmap(P + 1, cells=cells, seed=P)
+        meshes.append((SimpleNamespace(dofmap=dm, ndofs=ndofs,
+                                       num_cells=cells), G, D))
+    cen.reset_launches()
+    for mesh, G, D in meshes:
+        x1 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
+        x2 = torch.as_tensor(rng.standard_normal(mesh.ndofs), device="cuda")
+        for dtype in (F64, torch.float32):
+            op = cen.build(mesh, G, D, dtype, "cuda")
+            a, b = x1.to(dtype), x2.to(dtype)
+            u1, u2 = cen.gather2(op, a, b)
+            f1, f2 = cen.gather2_flat(op, a, b)
+            torch.cuda.synchronize()
+            g = op.dofmap.reshape(-1).long()
+            assert torch.equal(u1, f1) and torch.equal(u2, f2)
+            assert torch.equal(u1.reshape(-1), a.index_select(0, g))
+            assert torch.equal(u2.reshape(-1), b.index_select(0, g))
+    assert cen.launches["engine_gather2"] == 6
+    assert cen.comparison_launches["engine_gather2_flat"] == 6
