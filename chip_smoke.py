@@ -135,8 +135,9 @@ Phases (each prints its time; any failure exits non-zero):
      full_pair) against the z-pencil kernels that replaced them: the
      exp_pencil demo at the flagship's 64 x 40 x 40 cells and at 32^3
      (P = 4, float32), in turns (old, new, new, old), single and pair, ms,
-     TB/s and share of the bound (27a); the flagship's whole solve on the
-     parity-class kernel, its focal pressure against phase 6b's (27b);
+     TB/s and share of the bound (27a); the flagship's first PLAIN_DEPTH
+     steps on the parity-class kernel, its field against the same steps
+     on #1 (27b);
  28. the class-launch designs of #6 and #11 (`extruded_classes`,
      `indexed_classes` and their pair forms) against the stack and chunk
      kernels that replaced them, and #11 against the composed engine: the
@@ -261,6 +262,21 @@ Phases (each prints its time; any failure exits non-zero):
      engine (34l); a two-layer bf16 engine model (a 12^3 P=4
      general box) on phase 22's 4 gloo ranks against its one-rank run
      <= 2e-2 (22e).
+  - the bf16 G-stream walk redesigned (the lean walk,
+    `csrc/pencil_lean.cuh`, the main path of #1 / #2 and #6 in bf16; the
+    first bf16 walk kept as `cs.stiffness_first` / `ce.extruded_first`):
+    on the bf16 flagship, its two-layer form and the imported bowl,
+    single and pair (34b-d), and on the conformal P=6 bowl (34m, after
+    15d), the two designs' outputs at the lean walk's schedule within the
+    redesign gate (1e-3, at most 1% of the values differing, the count
+    printed), at each one's own within 1e-3 (a stack cut into other
+    segments rounds a shared node at other points), the first design's
+    within 2^-7 of plain, ms an apply in turns (old, new, new,
+    old) beside the bound and each schedule; on the bf16 flagship also
+    ms a step of 50 captured steps in turns on each design (the first
+    design's model with its own solvers); their launches in the
+    comparison counters; the lean walk against its plain version at P =
+    2..10 runs in 34a.
   - the two-field gather (#8) on the quads design: bitwise its first
     design (`cen.gather2_flat`, one thread a position) at P = 2..10 in
     float32 and float64 (20) and bfloat16 (34j); in turns against it and
@@ -274,14 +290,18 @@ Phases (each prints its time; any failure exits non-zero):
     coefficients, the replays counted; ms a step over 50 steps in turns
     (python-float, eager, captured) with the device busy and idle share
     of each from the profiler; the RK4 update kernel (`csrc/vector.cu`)
-    bitwise its plain version and PyTorch's add, timed (35a, 34b), its
-    launches in 6b's and 34b's whole solves; the capacity boxes' peak
+    bitwise its plain version and PyTorch's add, timed on the device
+    alone against the add (`demos/exp_axpy`: graphs of 100 launches in
+    turns, out of place and in place) and in a chain of eager calls (35a
+    float32, 34b bfloat16), its launches in 6b's and 34b's whole solves;
+    the capacity
+    boxes' peak
     device memory of a 10-step solve, eager against captured (19a, 34i).
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, 34b-e,
 34g-i, 34k-l, in every rank of 22 its solve, and the demos of 24, 25, 26,
-27a, 28, 31 and 32b-i and the turns of 29) has the launch counters reset
-just before it and read just after.
+27a, 28, 31 and 32b-i and the turns of 29, 34b-d and 34m) has the launch
+counters reset just before it and read just after.
 The script's total time is printed after the last phase; then the
 kernels' JSON summary, the card's name and power limit, and as the last
 line the result.
@@ -382,9 +402,12 @@ BF16_G_TOL = 1e-2
 # 1e-3 over the field, with at most 1% of the values differing
 FIRST_DESIGN_TOL = 1e-3
 # the depth of the plain versions' runs of the bowls beside their kernels'
-# whole solves (13c, 34b): the first PLAIN_DEPTH steps, about a sixth of
-# the 1,889-1,957 (a whole solve on the plain version was among the run's
-# slowest phases; 10 steps of each are also held in 13a and 34b)
+# whole solves (13c, 34b), and of the flagship on the parity-class kernel
+# beside the same steps on #1 (27b): the first PLAIN_DEPTH steps, about a
+# sixth of the 1,889-1,957 (a whole solve on the plain version was among
+# the run's slowest phases; 10 steps of each are also held in 13a and 34b;
+# the two kernels' fields part by ~1e-6 in that depth, well inside
+# FOCAL_AGREE, which the whole solve's focal pressure met by ~2e-6)
 PLAIN_DEPTH = 300
 # 10 bf16 RK4 steps of the flagship, kernel vs plain: each of the 40
 # applies differs by the roundings above, and the bf16 state rounds every
@@ -598,7 +621,7 @@ def main() -> None:
     # over ranks
     from fustpu_torch.demos import anchors
     # phase 35: the captured RK4 solve and the RK4 update kernel
-    from fustpu_torch.demos import exp_solver
+    from fustpu_torch.demos import exp_axpy, exp_solver
     from fustpu_torch.models import timestepping
     from fustpu_torch.ops import cuda_vector as cv
     from fustpu_torch.mesh.box import dofmap_rows
@@ -1384,6 +1407,131 @@ def main() -> None:
             out[name] = min(out.get(name, ms), ms)
         return out
 
+    class FirstWalk:
+        """`model` (a bf16 model on the lean walk, box pencils or stacks)
+        with the first bf16 walk, the comparison kernel, in place of the
+        lean walk while it solves: the same operator and buffers, its own
+        captured solvers (the model's graphs hold the lean walk), for
+        steps in turns."""
+        SWAPS = (("stiffness", "stiffness_first"),
+                 ("stiffness_pair", "stiffness_pair_first"),
+                 ("extruded", "extruded_first"),
+                 ("extruded_pair", "extruded_pair_first"))
+
+        def __init__(self, model):
+            self.model = model
+            self.solvers = timestepping.SolverCache()
+
+        def init_state(self):
+            return self.model.init_state()
+
+        def solve(self, *args):
+            mods = [cs if n.startswith("stiffness") else ce
+                    for n, _ in self.SWAPS]
+            keep = [getattr(m, n) for m, (n, _) in zip(mods, self.SWAPS)]
+            theirs = self.model.__dict__.get("_solvers")
+            self.model._solvers = self.solvers
+            for m, (n, f) in zip(mods, self.SWAPS):
+                setattr(m, n, getattr(m, f))
+            try:
+                return self.model.solve(*args)
+            finally:
+                for m, (n, _), fn in zip(mods, self.SWAPS, keep):
+                    setattr(m, n, fn)
+                if theirs is None:
+                    self.model.__dict__.pop("_solvers")
+                else:
+                    self.model._solvers = theirs
+
+    def lean_turns(model, dt_, label, name, steps=True):
+        """Part of 34b-d and 34m: the bf16 model's stiffness kernel (its
+        entry `name` of the JSON line's measurements) on the lean walk
+        (new) against the first bf16 walk (old) on its
+        operator and unit normal bf16 fields: the two outputs at the lean
+        walk's schedule within the redesign gate (FIRST_DESIGN_TOL, at
+        most 1% of the values differing), and at each one's own schedule
+        within FIRST_DESIGN_TOL, ms an apply in turns (old, new, new,
+        old) beside the bound, each
+        design's schedule; with `steps`, ms a step of 50 captured steps
+        from rest in turns on each design (`ms_turns`, `FirstWalk`).
+        Returns (the old design's entry for the JSON line, its launches in
+        the turns, ms a step by design or None)."""
+        kst = model.stiffness
+        op, mesh = kst.cell_op, model.mesh
+        stacks = isinstance(kst, ExtrudedStiffness)
+        mod = ce if stacks else cs
+        base = ("extruded" if stacks else "stiffness") + (
+            "_pair" if kst.is_pair else "")
+        first, new = getattr(mod, f"{base}_first"), getattr(mod, base)
+        xs = [torch.as_tensor(rng16.standard_normal(mesh.grid_shape),
+                              dtype=BF16, device=dev)
+              for _ in range(2 if kst.is_pair else 1)]
+        run = {"old": lambda: first(op, *xs), "new": lambda: new(op, *xs)}
+        yo, yn = run["old"](), run["new"]()
+        # the gate holds at the lean walk's own schedule: each design's own
+        # schedule may cut the stacks in other segments, whose classes round
+        # a shared node at other points (a different schedule, not a
+        # different walk: that pair is held to FIRST_DESIGN_TOL alone)
+        sn = mod.card_schedule(op, xs[0], kst.is_pair)
+        mine = dict(cpb=sn.cpb, **({"segments": sn.segments} if stacks
+                                   else {}))
+        ys = first(op, *xs, **mine)
+        differ, differ_own = int((ys != yn).sum()), int((yo != yn).sum())
+        err, err_own = rel_l2(yn, ys), rel_l2(yn, yo)
+        yp = (type(kst)(op, "mm").pair(*xs) if kst.is_pair
+              else type(kst)(op, "mm")(xs[0]))
+        e_old = rel_l2(yo, yp)
+        mod.reset_launches()
+        times = {"old": [], "new": []}
+        for k in ("old", "new", "new", "old"):
+            times[k].append(time_ms(run[k], 20))
+        torch.cuda.synchronize()
+        n_old = mod.comparison_launches[f"{base}_first_bf16"]
+        b_ms = bound(*kernels[name]["cost"])[0]
+        sch = {k: (mod.card_schedule(op, xs[0], kst.is_pair) if k == "new"
+                   else (op.plan.card(op.P, BF16, kst.is_pair, dev)[0]
+                         if stacks else cs._card_schedule(
+                             tuple(op.nc), op.P, BF16, kst.is_pair,
+                             dev)[0]))
+               for k in times}
+        best = {k: min(v) for k, v in times.items()}
+        print(f"   {smi}: {label}, {name}: the lean walk (new) against the "
+              f"first bf16 walk (old) in turns (old, new, new, old): "
+              + ", ".join(f"{v:.4f}" for v in (
+                  times["old"][0], times["new"][0], times["new"][1],
+                  times["old"][1]))
+              + f" ms; of the bound {b_ms:.4f} ms: new "
+              f"{b_ms / best['new']:.1%}, old {b_ms / best['old']:.1%}; "
+              f"old / new {best['old'] / best['new']:.4f}; new vs old at "
+              f"the new schedule {differ} of {yn.numel()} values differ, "
+              f"rel-l2 {err:.3e} (tol {FIRST_DESIGN_TOL}), at each one's "
+              f"own {differ_own}, {err_own:.3e}; old vs plain {e_old:.3e}; "
+              + "; ".join(f"{k}: {s.cpb} cells a chunk, {s.blocks_per_sm} "
+                          f"blocks an SM, {s.blocks} blocks"
+                          for k, s in sch.items()), flush=True)
+        if not (err <= FIRST_DESIGN_TOL and differ <= 0.01 * yn.numel()
+                and err_own <= FIRST_DESIGN_TOL):
+            fail(f"34: {label}: the lean walk vs the first bf16 walk "
+                 f"{err:.3e} ({differ} values differ) at the lean schedule, "
+                 f"{err_own:.3e} at each one's own")
+        if not e_old <= BF16_TOL or not n_old:
+            fail(f"34: {label}: the first bf16 walk vs plain {e_old:.3e}, "
+                 f"{n_old} launches")
+        diff = (yo.float() - yp.float()).abs()
+        entry = dict(max_abs_err=float(diff.max()), rel_l2=e_old,
+                     ms=best["old"], plain_ms=kernels[name]["plain_ms"],
+                     cost=kernels[name]["cost"])
+        turns = None
+        if steps:
+            turns = ms_turns([("new", model, dt_),
+                              ("old", FirstWalk(model), dt_)])
+            print(f"   {smi}: {label} in bf16, ms a step (50 captured steps "
+                  f"from rest, in turns new, old, old, new): the lean walk "
+                  f"{turns['new']:.4f}, the first bf16 walk "
+                  f"{turns['old']:.4f} ({turns['old'] / turns['new']:.4f}x)",
+                  flush=True)
+        return entry, n_old, turns
+
     def captured_solve(model, dt_, label, tol):
         """Phase 35: 10 replayed steps of `model`'s solver against the same
         10 steps launched eagerly (bitwise) and against the eager loop of
@@ -1430,8 +1578,10 @@ def main() -> None:
     def axpy_entry(dtype, n):
         """The RK4 update kernel on `n` values in `dtype` (a coefficient
         in its update type): bitwise its plain version and PyTorch's add
-        with the coefficient as a Python float (the library call), each
-        timed; its least bytes (x, y read, out written) and operations."""
+        with the coefficient as a Python float (the library call); each
+        timed on the device alone (`exp_axpy`: its ms, the in-place
+        update's, as the captured solve calls it) and in a chain of eager
+        calls; its least bytes (x, y read, out written) and operations."""
         x, y = (torch.as_tensor(rng.standard_normal(n), device=dev).to(
             dtype) for _ in range(2))
         a = torch.tensor(0.37, device=dev, dtype=cv.coefficient_dtype(dtype))
@@ -1441,14 +1591,27 @@ def main() -> None:
         if not (torch.equal(yk, yp) and torch.equal(yk, lib)):
             fail(f"axpy ({dtype}): the kernel is not bitwise its plain "
                  "version and torch.add")
-        e = dict(max_abs_err=0.0, rel_l2=0.0,
-                 ms=time_ms(lambda: cv.axpy(a, x, y), 20),
+        chained = dict(
+            kernel=time_ms(lambda: cv.axpy(a, x, y), 20),
+            add=time_ms(lambda: torch.add(y, x, alpha=alpha), 20))
+        # on the device alone (``demos/exp_axpy``): graphs of 100 launches
+        # in turns (the demo alone also times cold launches)
+        name = "bf16" if dtype == BF16 else "f32"
+        r = exp_axpy.run(n, dev, (name,), launches=100, turns=1,
+                         cold=False)
+        if not all(v["bitwise"] for v in r.values()):
+            fail(f"axpy ({dtype}): exp_axpy's kernel is not bitwise "
+                 "torch.add")
+        inplace = r[name, "in place"]["graph"]
+        e = dict(max_abs_err=0.0, rel_l2=0.0, ms=min(inplace["kernel"]),
                  plain_ms=time_ms(lambda: cv.axpy_plain(a, x, y), 20),
-                 library_ms=time_ms(lambda: torch.add(y, x, alpha=alpha),
-                                    20),
+                 library_ms=min(inplace["add"]),
                  cost=(3 * n * x.element_size(), 2 * n))
-        print(f"   {smi}: the RK4 update kernel on {n:,} {dtype} values: "
-              f"{e}", flush=True)
+        print(f"   {smi}: the RK4 update kernel on {n:,} {dtype} values, in "
+              f"place on the device alone (graphs of 100): {e}; in a chain "
+              f"of eager calls (out of place, host-paced): kernel "
+              f"{chained['kernel']:.4f} ms, torch.add {chained['add']:.4f} "
+              f"ms", flush=True)
         return e
 
     def bf16_corner(label, argv, pb, kernel):
@@ -2424,7 +2587,9 @@ def main() -> None:
         kernels["axpy"] = axpy_entry(torch.float32, bowl.mesh.ndofs)
 
     with phase("34b flagship in bf16: build, #1 vs plain, 10 steps kernel "
-               "vs plain, the whole solve, ms a step beside float32's"):
+               "vs plain, the whole solve, ms a step beside float32's; the "
+               "lean walk against the first bf16 walk in turns, ms a step "
+               "on each"):
         argv34 = ["--elements", "64", "--degree", "4"]
         hbowl, dt34, nsteps34, _, pst34, kernels["stiffness_bf16"] = \
             bf16_model("flagship", argv34, pb6)
@@ -2499,15 +2664,23 @@ def main() -> None:
               f"{turns['bf16']:.4f}; stiffness ms an apply: float32 (6a) "
               f"{kernels['stiffness']['ms']:.4f}, bf16 "
               f"{kernels['stiffness_bf16']['ms']:.4f}", flush=True)
+        kernels["stiffness_first_bf16"], \
+            launches["stiffness_first_bf16"], _ = lean_turns(
+                hbowl, dt34, "flagship", "stiffness_bf16")
         del hbowl, kst34
 
-    with phase("34c two-layer flagship in bf16: #2 vs plain, 50 steps"):
+    with phase("34c two-layer flagship in bf16: #2 vs plain, 50 steps; the "
+               "lean walk against the first bf16 walk in turns"):
         bbowl16, dt34c, _, _, _, kernels["stiffness_pair_bf16"] = \
             bf16_model("two-layer flagship",
                        ["--elements", "64", "--degree", "4", "--two-layer"],
                        pb6)
         _, bf16_counts["stiffness_pair_bf16"] = bf16_steps(
             bbowl16, dt34c, 50, "two-layer flagship")
+        kernels["stiffness_pair_first_bf16"], \
+            launches["stiffness_pair_first_bf16"], _ = lean_turns(
+                bbowl16, dt34c, "two-layer flagship", "stiffness_pair_bf16",
+                steps=False)
         del bbowl16
 
     # ---- the parity-class design of #1 / #2 against the pencil kernels:
@@ -2580,29 +2753,27 @@ def main() -> None:
         def pair(self, x1, x2):
             return anatomy.full_pair_classes(self.op, x1, x2)
 
-    with phase("27b flagship full solve on the parity-class kernel"):
+    with phase(f"27b flagship, the first {PLAIN_DEPTH} steps on the "
+               "parity-class kernel against the same steps on #1"):
+        s1, _ = bowl.solve(bowl.init_state(), dt, PLAIN_DEPTH)
         anatomy.reset_launches()
         bowl.stiffness = ParityClassStiffness(kstiff.cell_op)
-        state = run_demo(bowl, dt, nsteps, args, "nonlinear_bowl")
+        state, _ = bowl.solve(bowl.init_state(), dt, PLAIN_DEPTH)
+        torch.cuda.synchronize()
         bowl.stiffness = kstiff
-        p_par = nonlinear_bowl.focal_pressure(bowl, state, focus)
-        agree = abs(p_focus - p_par) / abs(p_par)
+        agree = rel_l2(state.u, s1.u)
         n_par = anatomy.launches["anatomy_full"]
-        print(f"   the parity-class kernel: pressure at focus {p_par:.1f} "
-              f"Pa, the "
-              f"pencil kernel's (6b) {p_focus:.1f} Pa: relative difference "
-              f"{agree:.3e} (tol {FOCAL_AGREE}); {n_par} launches for "
-              f"{nsteps} steps")
-        if n_par != 4 * nsteps:
+        print(f"   the parity-class kernel against the pencil kernel over "
+              f"the first {PLAIN_DEPTH} of {nsteps} steps: rel-l2(u) "
+              f"{agree:.3e} (tol {FOCAL_AGREE}), max |u| "
+              f"{float(state.u.abs().max()):.4e}; {n_par} launches")
+        if n_par != 4 * PLAIN_DEPTH:
             fail(f"the parity-class kernel: launches {n_par} != 4 x "
-                 f"{nsteps} steps")
-        if not agree <= FOCAL_AGREE:
-            fail(f"focal pressure vs the parity-class kernel {agree:.3e}")
-        if not FOCAL_BAND_PA[0] <= p_par <= FOCAL_BAND_PA[1]:
-            fail(f"the parity-class kernel's focal pressure {p_par:.1f} Pa "
-                 f"outside "
-                 f"{FOCAL_BAND_PA}")
-        del state
+                 f"{PLAIN_DEPTH} steps")
+        if not agree <= FOCAL_AGREE or \
+                not bool(torch.isfinite(state.u).all()):
+            fail(f"the field vs the parity-class kernel's {agree:.3e}")
+        del state, s1
 
     # ---- phase 30 on the flagship (#1): counters reset just before, read
     # ---- just after ----
@@ -3150,7 +3321,8 @@ def main() -> None:
         del state
 
     with phase("34d imported bowl in bf16: #6 and its pair form vs plain, "
-               "50 steps each, ms a step beside float32's"):
+               "50 steps each, ms a step beside float32's; the lean walk "
+               "against the first bf16 walk in turns"):
         argv34 = ["--elements", "64", "--degree", "4", "--geometry",
                   "unstructured"]
         ibowl16, dt34d, _, _, _, kernels["extruded_bf16"] = bf16_model(
@@ -3169,6 +3341,14 @@ def main() -> None:
               f"two-layer {turns['bf16 pair']:.4f}; #6 ms an apply: float32 "
               f"(10a) {kernels['extruded']['ms']:.4f}, bf16 "
               f"{kernels['extruded_bf16']['ms']:.4f}", flush=True)
+        kernels["extruded_first_bf16"], \
+            launches["extruded_first_bf16"], _ = lean_turns(
+                ibowl16, dt34d, "imported bowl", "extruded_bf16",
+                steps=False)
+        kernels["extruded_pair_first_bf16"], \
+            launches["extruded_pair_first_bf16"], _ = lean_turns(
+                ibowl16b, dt34e, "two-layer imported bowl",
+                "extruded_pair_bf16", steps=False)
         del ibowl16, ibowl16b
 
     ce.reset_launches()
@@ -4494,9 +4674,10 @@ def main() -> None:
             fail("P=6 bodyfit field is not finite")
         del state, bbowl7
     with phase("15d conformal bowl at P=6, full solve (the comparison)"):
-        cbowl, dt8, nsteps8, focus8 = nonlinear_bowl.build(
-            nonlinear_bowl.parser().parse_args(
-                ["--elements", "48", "--degree", "6"]))
+        args8 = nonlinear_bowl.parser().parse_args(
+            ["--elements", "48", "--degree", "6"])
+        pb8 = nonlinear_bowl.problem(args8)   # 34m and 33f's too
+        cbowl, dt8, nsteps8, focus8 = nonlinear_bowl.build(args8, pb8)
         state = run_demo(cbowl, dt8, nsteps8, args7, "nonlinear_bowl")
         p_conf6 = nonlinear_bowl.focal_pressure(cbowl, state, focus8)
         agree6 = abs(p_body6 - p_conf6) / abs(p_conf6)
@@ -4506,15 +4687,21 @@ def main() -> None:
         if not agree6 <= BODYFIT_P6_AGREE:
             fail(f"P=6 bodyfit vs conformal focal pressure {agree6:.3e}")
         del state, cbowl
+    with phase("34m conformal P=6 bowl in bf16: #1 vs plain, the lean walk "
+               "against the first bf16 walk in turns"):
+        cbowl16, _, _, _, _, e34m = bf16_model(
+            "conformal P=6 bowl", ["--elements", "48", "--degree", "6"],
+            pb8)
+        kernels["stiffness_bf16_p6"] = e34m
+        lean_turns(cbowl16, None, "conformal P=6 bowl", "stiffness_bf16_p6",
+                   steps=False)
+        del cbowl16
     with phase("33f conformal P=6 bowl set-up before and after; the set-up "
                "kernels vs plain"):
-        args33 = nonlinear_bowl.parser().parse_args(
-            ["--elements", "48", "--degree", "6"])
-        pb33 = nonlinear_bowl.problem(args33)
         a33, b33, _ = setup_turn("conformal P=6 bowl",
-                                 lambda sd: bowl_model(pb33, args33, sd))
-        setup_check("conformal P=6 bowl", a33, b33, pb33.absorbing)
-        del a33, b33, pb33
+                                 lambda sd: bowl_model(pb8, args8, sd))
+        setup_check("conformal P=6 bowl", a33, b33, pb8.absorbing)
+        del a33, b33, pb8
     launches.update(indexed=n_idx + n_idx7 + n_idx7c,
                     indexed_pair=n_idx_pair)
 
@@ -4792,15 +4979,26 @@ def main() -> None:
                     "fustpu/ops/pallas_gather.py:1417"),
         "indexed_pair": ("fustpu_torch/csrc/indexed_chunk.cu",
                          "fustpu/ops/pallas_gather.py:1417"),
-        # the bf16 forms of the G-stream kernels (phase 34)
-        "stiffness_bf16": ("fustpu_torch/csrc/stiffness_pencil.cuh",
+        # the bf16 forms of the G-stream kernels (phase 34): #1 / #2 and #6
+        # on the lean walk, their first bf16 walks kept as the comparison
+        # (34b-d)
+        "stiffness_bf16": ("fustpu_torch/csrc/pencil_lean.cuh",
                            "fustpu/ops/pallas_stiffness.py:170"),
-        "stiffness_pair_bf16": ("fustpu_torch/csrc/stiffness_pencil.cuh",
+        "stiffness_pair_bf16": ("fustpu_torch/csrc/pencil_lean.cuh",
                                 "fustpu/ops/pallas_stiffness.py:726"),
-        "extruded_bf16": ("fustpu_torch/csrc/extruded_stack.cu",
+        "extruded_bf16": ("fustpu_torch/csrc/pencil_lean.cuh",
                           "fustpu/ops/pallas_extruded.py:604"),
-        "extruded_pair_bf16": ("fustpu_torch/csrc/extruded_stack.cu",
+        "extruded_pair_bf16": ("fustpu_torch/csrc/pencil_lean.cuh",
                                "fustpu/ops/pallas_extruded.py:604"),
+        "stiffness_first_bf16": ("fustpu_torch/csrc/stiffness_pencil.cuh",
+                                 "fustpu/ops/pallas_stiffness.py:170"),
+        "stiffness_pair_first_bf16": (
+            "fustpu_torch/csrc/stiffness_pencil.cuh",
+            "fustpu/ops/pallas_stiffness.py:726"),
+        "extruded_first_bf16": ("fustpu_torch/csrc/extruded_stack.cu",
+                                "fustpu/ops/pallas_extruded.py:604"),
+        "extruded_pair_first_bf16": ("fustpu_torch/csrc/extruded_stack.cu",
+                                     "fustpu/ops/pallas_extruded.py:604"),
         "indexed_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
                          "fustpu/ops/pallas_gather.py:1417"),
         "indexed_pair_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",

@@ -5,7 +5,7 @@ fields: parity-class, pencil, pencil, parity-class.  Runs on the card
 unless --device cpu is given (the plain versions, a correctness run only).
 
     python -m fustpu_torch.demos.exp_pencil [--nc 64 40 40] [--degree 4]
-        [--corner] [--sweep]
+        [--corner | --bf16 [--degrees 2 3 ...]] [--sweep]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its two turns, the rate over the apply's least bytes (G, each
@@ -25,8 +25,14 @@ chunk that its kernel takes, single and pair, float32 and float64, and
 prints the schedule's choice (``cuda_stiffness.pencil_schedule``) beside
 the fastest; `--sweep` without --corner does the same for the G stream's
 #1 and #2 in float32 and bfloat16 (whose stages hold half the bytes a
-cell, so that its cost model, fitted on float32 times, may choose
-otherwise than the times).
+cell): in bfloat16 both the first bfloat16 walk and the lean walk
+(``csrc/pencil_lean.cuh``), at P = 4 also the lean walk under each of its
+launch bounds (register caps).  With --bf16 it times the first bfloat16
+walk against the lean walk, in turns (first, lean, lean, first), single
+and pair, with each one's share of the bound, the values that differ
+between the two and each design's schedule (``compare_bf16``), in place
+of the float32 comparison; with --degrees, at each of those degrees on a
+box of the flagship's grid (``compare_degrees``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--sweep", action="store_true",
                    help="the walk under every cells a chunk (#3 with "
                         "--corner; #1 / #2 in float32 and bfloat16 else)")
+    p.add_argument("--bf16", action="store_true",
+                   help="the first bfloat16 walk against the lean walk, "
+                        "in turns, in place of the float32 comparison")
+    p.add_argument("--degrees", type=int, nargs="+",
+                   help="with --bf16: the comparison at each of these "
+                        "degrees on a box of the flagship's grid")
     return p
 
 
@@ -105,45 +117,149 @@ def sweep_corner(disc, dev, chain: int = 20, reps: int = 3) -> dict:
     return out
 
 
+def _sweep_rows(label: str, schedule, apply, P: int, chain: int,
+                reps: int, x) -> list:
+    """(cpb, blocks an SM, ms) of apply(cpb) under every cells a chunk that
+    `schedule(cpb)` takes (ValueError beyond the kernel's bounds), each
+    printed under `label`."""
+    rows = []
+    for cpb in range(1, cs.MAX_THREADS // (P + 1) ** 2 + 1):
+        try:
+            s = schedule(cpb)
+        except ValueError:               # beyond the kernel's bounds
+            continue
+        ms = time_apply(lambda _, __, c=cpb: apply(c), None, x, chain=chain,
+                        reps=reps)[0] * 1e3
+        rows.append((cpb, s.blocks_per_sm, ms))
+        print(f"sweep {label}: {cpb} cells a chunk, {s.blocks_per_sm} "
+              f"blocks an SM: {ms:.4f} ms", flush=True)
+    return rows
+
+
 def sweep_gstream(op: cs.CellStiffness, xs, dev, chain: int = 20,
                   reps: int = 3) -> dict:
     """#1 (single) and #2 (pair: `op` with C) of the float32 operator `op`
     and of its bfloat16 cast timed under every cells a chunk that the
-    kernel takes, on the fields `xs`; prints each time and the schedule's
-    choice beside the fastest.  Returns by (form, dtype) the chosen cpb and
-    the (cpb, blocks an SM, ms) rows."""
+    kernel takes, on the fields `xs`: float32 on its walk, bfloat16 on the
+    first bfloat16 walk ("first") and on the lean walk ("lean"; at P = 4
+    and 6 also under each of its sweep's launch bounds, "lean b<i>");
+    prints each time and the schedule's choice beside the fastest.
+    Returns by (form, dtype, design) the chosen cpb and the (cpb, blocks
+    an SM, ms) rows."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         o = op._replace(**{k: v.to(dtype) for k, v in op._asdict().items()
                            if isinstance(v, torch.Tensor)})
         a = [x.to(dtype) for x in xs]
-        for form, fn in (("single", cs.stiffness),
-                         ("pair", cs.stiffness_pair)):
+        for form in ("single", "pair"):
             pair = form == "pair"
             oo = o if pair else o._replace(C=None)
             args = a if pair else a[:1]
-            chosen = cs.card_schedule(oo, args[0], pair).cpb
-            rows = []
-            for cpb in range(1, cs.MAX_THREADS // (op.P + 1) ** 2 + 1):
-                try:
-                    s = cs._card_schedule(tuple(op.nc), op.P, dtype, pair,
-                                          args[0].device, cpb=cpb)[0]
-                except ValueError:       # beyond the kernel's bounds
-                    continue
-                ms = time_apply(lambda _, __, c=cpb: fn(oo, *args, cpb=c),
-                                None, args[0], chain=chain,
-                                reps=reps)[0] * 1e3
-                rows.append((cpb, s.blocks_per_sm, ms))
-                print(f"sweep #{2 if pair else 1} {form} {str(dtype)[6:]}: "
-                      f"{cpb} cells a chunk, {s.blocks_per_sm} blocks an SM:"
-                      f" {ms:.4f} ms", flush=True)
-            best = min(rows, key=lambda r: r[2])
-            mine = next(r for r in rows if r[0] == chosen)
-            print(f"sweep #{2 if pair else 1} {form} {str(dtype)[6:]} "
-                  f"P={op.P}: the schedule's {chosen} cells {mine[2]:.4f} "
-                  f"ms, the fastest {best[0]} cells {best[2]:.4f} ms "
-                  f"({mine[2] / best[2]:.4f}x)", flush=True)
-            out[form, dtype] = dict(chosen=chosen, rows=rows)
+            tag = f"#{2 if pair else 1} {form} {str(dtype)[6:]}"
+            designs = {"first": (cs.stiffness_pair_first if pair
+                                 else cs.stiffness_first, "first", None)}
+            if dtype == torch.float32:
+                designs = {"first": (cs.stiffness_pair if pair
+                                     else cs.stiffness, "first", None)}
+            else:
+                designs["lean"] = (
+                    lambda o_, *x_, cpb: cs.stiffness_lean(o_, x_, cpb),
+                    "lean", None)
+                if op.P in cs.LEAN_BOUNDS_DEGREES:
+                    for b in range(cs.LEAN_BOUNDS):
+                        designs[f"lean b{b}"] = (
+                            lambda o_, *x_, cpb, b=b:
+                            cs.stiffness_lean(o_, x_, cpb, b),
+                            "lean", b)
+            for name, (fn, design, bounds) in designs.items():
+                chosen = cs._card_schedule(
+                    tuple(op.nc), op.P, dtype, pair, args[0].device,
+                    design=design, bounds=bounds)[0].cpb
+                rows = _sweep_rows(
+                    f"{tag} {name}",
+                    lambda c: cs._card_schedule(
+                        tuple(op.nc), op.P, dtype, pair, args[0].device,
+                        cpb=c, design=design, bounds=bounds)[0],
+                    lambda c: fn(oo, *args, cpb=c), op.P, chain, reps,
+                    args[0])
+                best = min(rows, key=lambda r: r[2])
+                mine = next(r for r in rows if r[0] == chosen)
+                print(f"sweep {tag} {name} P={op.P}: the schedule's "
+                      f"{chosen} cells {mine[2]:.4f} ms, the fastest "
+                      f"{best[0]} cells {best[2]:.4f} ms "
+                      f"({mine[2] / best[2]:.4f}x)", flush=True)
+                out[form, dtype, name] = dict(chosen=chosen, rows=rows)
+    return out
+
+
+def compare_bf16(op: cs.CellStiffness, xs, chain: int = 20,
+                 reps: int = 5) -> dict:
+    """The first bfloat16 walk (`cs.stiffness_first` / `_pair_first`)
+    against the lean walk (`cs.stiffness_lean`, whatever the degrees that
+    keep the first design) on the bfloat16 operator `op` (single; pair
+    when it has C) and fields `xs`, in turns
+    (first, lean, lean, first): ms of each turn, the least bytes' share,
+    the two outputs compared (values that differ, rel-l2) and each
+    design's schedule.  Returns {"first": [ms], "lean": [ms], "differ",
+    "rel_l2", "nbytes", "y_lean", "y_first"}."""
+    pair = op.C is not None
+    args = xs[:2] if pair else xs[:1]
+    fns = {"first": cs.stiffness_pair_first if pair else cs.stiffness_first,
+           "lean": lambda o, *x: cs.stiffness_lean(o, x)}
+    ys = {k: f(op, *args) for k, f in fns.items()}
+    times = {k: [] for k in fns}
+    for k in ("first", "lean", "lean", "first"):
+        times[k].append(time_apply(lambda o, _, f=fns[k]: f(o, *args), op,
+                                   args[0], chain=chain, reps=reps)[0] * 1e3)
+    nbytes = least_bytes(op, args[0].numel(), len(args))
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    differ = int((ys["lean"] != ys["first"]).sum())
+    err = rel_l2(ys["lean"], ys["first"])
+    for k in fns:
+        design = "lean" if k == "lean" else "first"
+        sch = cs._card_schedule(tuple(op.nc), op.P, args[0].dtype, pair,
+                                args[0].device, design=design)[0]
+        print(f"#{2 if pair else 1} bf16 {k:5s}: "
+              + " / ".join(f"{t:.4f}" for t in times[k])
+              + f" ms, {bound / min(times[k]):.1%} of the bound "
+              f"{bound:.4f} ms ({nbytes:,} B); {sch.cpb} cells a chunk, "
+              f"{sch.blocks_per_sm} blocks an SM, {sch.blocks} blocks",
+              flush=True)
+    print(f"#{2 if pair else 1} bf16 lean vs first: {differ} of "
+          f"{ys['lean'].numel()} values differ, rel-l2 {err:.3e}; "
+          f"{min(times['first']) / min(times['lean']):.4f}x", flush=True)
+    return dict(**times, differ=differ, rel_l2=err, nbytes=nbytes,
+                y_lean=ys["lean"], y_first=ys["first"])
+
+
+def compare_degrees(degrees, dev, chain: int = 20, reps: int = 3) -> dict:
+    """`compare_bf16` at each degree P of `degrees` on a box of the
+    flagship's grid, (256 / P, 160 / P, 160 / P) cells rounded (64 x 40 x
+    40 at P = 4), its operator set up on the card: single (a per-cell
+    coefficient in G) and pair.  Returns {P: {"single": ..., "pair":
+    ...}} without the outputs."""
+    from fustpu_torch.models.discretization import Discretization
+
+    out = {}
+    rng = np.random.default_rng(0)
+    for P in degrees:
+        nc = (round(256 / P), round(160 / P), round(160 / P))
+        mesh = build_box_mesh(nc, P)
+        disc = Discretization(mesh, device=dev)
+        c1 = rng.uniform(0.5, 2.0, nc)
+        c2 = rng.uniform(-2.0, 2.0, nc)
+        xs = [torch.as_tensor(rng.standard_normal(mesh.grid_shape),
+                              device=dev).to(torch.bfloat16)
+              for _ in range(2)]
+        print(f"P={P}: {nc} cells, {mesh.ndofs} DOF, bf16", flush=True)
+        out[P] = {}
+        for form, kw in (("single", {"coeff": c1}),
+                         ("pair", {"pair": (c1, c2)})):
+            r = compare_bf16(disc.stiffness_op(torch.bfloat16, dev, **kw),
+                             xs, chain, reps)
+            out[P][form] = {k: v for k, v in r.items()
+                            if not k.startswith("y_")}
+        del disc, xs
     return out
 
 
@@ -177,6 +293,13 @@ def main(argv=None) -> dict:
             out["sweep"] = sweep_corner(disc, dev)
         print(f"   timed by {clock(dev)}")
         return {"mesh": mesh, **out}
+    if args.bf16 and args.degrees:
+        out = {"mesh": mesh}
+        if dev.type == "cuda":
+            out["degrees"] = compare_degrees(args.degrees, dev, args.chain,
+                                             args.reps)
+        print(f"   timed by {clock(dev)}")
+        return out
     _, G = pre.cell_geometry_factors(mesh)
     rng = np.random.default_rng(0)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
@@ -186,6 +309,22 @@ def main(argv=None) -> dict:
     x2 = t(rng.standard_normal(mesh.grid_shape))
     base = cs.CellStiffness(G=t(cs.pack_G(G)), D=t(mesh.element.deriv_1d),
                             nc=mesh.nc)
+    if args.bf16:
+        print(f"mesh {tuple(mesh.nc)} cells, P={args.degree}, {mesh.ndofs} "
+              f"DOF, bf16, {args.device}")
+        b16 = lambda a: a.to(torch.bfloat16)
+        op16 = base._replace(G=b16(base.G), D=b16(base.D))
+        xs16 = [b16(x1), b16(x2)]
+        out = {"mesh": mesh}
+        if dev.type == "cuda":
+            out["single"] = compare_bf16(op16, xs16, args.chain, args.reps)
+            out["pair"] = compare_bf16(op16._replace(C=b16(t(C))), xs16,
+                                       args.chain, args.reps)
+        if args.sweep and dev.type == "cuda":
+            out["sweep"] = sweep_gstream(base._replace(C=t(C)), (x1, x2),
+                                         dev)
+        print(f"   timed by {clock(dev)}")
+        return out
     forms = {
         "single": dict(op=base, xs=(x1,), kernels={
             "parity": lambda o, xs: anatomy.variant_classes(o, xs[0],

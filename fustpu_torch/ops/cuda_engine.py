@@ -56,7 +56,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
@@ -289,18 +288,9 @@ def _aligned(name: str, **tensors) -> None:
             raise ValueError(f"{name} kernel: {what} not {b}-byte aligned")
 
 
-_D_HOST = WeakIdKeyDictionary()
-
-
-def host_D(D: torch.Tensor) -> int:
-    """The address of a host copy of D as float32 (what the bfloat16
-    contraction takes by value), made once a tensor (and again after an
-    in-place change of it) and kept while the tensor lives."""
-    kept = _D_HOST.get(D)
-    if kept is None or kept[0] != D._version:
-        vals = D.detach().float().cpu().reshape(-1).tolist()
-        kept = _D_HOST[D] = (D._version, (ctypes.c_float * len(vals))(*vals))
-    return ctypes.addressof(kept[1])
+# a host copy of D as float32, what the bfloat16 contraction takes by value
+# (kept in ``cuda_stiffness``, whose bfloat16 walk takes it too)
+host_D = cs.host_D
 
 
 def _positions(op: EngineCellStiffness) -> int:

@@ -42,7 +42,14 @@ The stack kernel also comes in bfloat16 (the JAX package's ``--dtype
 bf16``: fields, G, D and C stored in bfloat16, computed in float32, y
 rounded where it is stored; ``stiffness_pencil.cuh``), counted in
 `bf16_launches`; its plain version computes in float32 and rounds once.
-The class-launch design has float32 and float64 only.
+A bfloat16 apply runs the lean walk (``csrc/pencil_lean.cuh``,
+``csrc/extruded_lean.cu``) on the stacks, except at the degrees of
+``cuda_stiffness.FIRST_DESIGN_BF16`` (the box pencils' measurement: the
+same walk; on stacks the two were timed at P = 4, the imported bowl);
+the first bfloat16 stack walk stays as
+`extruded_first` / `extruded_pair_first`, counted in
+`comparison_launches`.  The class-launch design has float32 and float64
+only.
 """
 
 from __future__ import annotations
@@ -62,12 +69,16 @@ from fustpu_torch.ops import spectral_mm as mm
 # the main path's, and the class-launch design's.
 launches = {"extruded": 0, "extruded_pair": 0}
 class_launches = {"extruded_classes": 0, "extruded_classes_pair": 0}
-# the stack kernel's bfloat16 form (``cuda_stiffness.count``)
+# the stack kernel's bfloat16 form (``cuda_stiffness.count``), and the first
+# bfloat16 stack walk, kept as the lean walk's comparison
 bf16_launches = {"extruded_bf16": 0, "extruded_pair_bf16": 0}
+comparison_launches = {"extruded_first_bf16": 0,
+                       "extruded_pair_first_bf16": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, class_launches, bf16_launches):
+    for counts in (launches, class_launches, bf16_launches,
+                   comparison_launches):
         for k in counts:
             counts[k] = 0
 
@@ -206,15 +217,19 @@ def _chunks_a_segment(lens: np.ndarray, cpb: int) -> list | None:
 
 
 def _stack_cost(per_colour: np.ndarray, lens: np.ndarray, cpb: int,
-                bps: int, sms: int, cell_bytes: int) -> int | None:
-    """The apply's cost (``cuda_stiffness.class_cost``), summed over the
-    classes (colour, segment parity); None when the segments `lens` cannot
-    be chunked (`_chunks_a_segment`)."""
+                bps: int, sms: int, cell_bytes: int,
+                lean: bool = False) -> int | None:
+    """The apply's cost (``cuda_stiffness.class_cost``; the lean walk's
+    ``cuda_stiffness.lean_cost``, in cells), summed over the classes
+    (colour, segment parity); None when the segments `lens` cannot be
+    chunked (`_chunks_a_segment`)."""
     per_seg = _chunks_a_segment(lens, cpb)
     if per_seg is None:
         return None
-    return sum(cs.class_cost(int(m) * lens[parity::2].size, per_seg[parity],
-                             cpb, bps, sms, cell_bytes)
+    cost = ((lambda units, per: cs.lean_cost(units, per, cpb, bps, sms))
+            if lean else (lambda units, per: cs.class_cost(
+                units, per, cpb, bps, sms, cell_bytes)))
+    return sum(cost(int(m) * lens[parity::2].size, per_seg[parity])
                for parity in (0, 1) if lens[parity::2].size
                for m in per_colour if m)
 
@@ -223,14 +238,17 @@ def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
                    itemsize: int, sms: int, pair: bool = False,
                    occupancy=cs.model_occupancy, segments: int | None = None,
                    cpb: int | None = None,
-                   channels: int = 0) -> StackSchedule:
+                   channels: int = 0, design: str = "first"
+                   ) -> StackSchedule:
     """The stack kernel's launch of one apply on a card of `sms` SMs, for
     stacks of `nz` layers coloured `colour` (`colour_stacks`) with row ids
     `rows2d`, degree P, a dtype of `itemsize` bytes; `occupancy(P,
     itemsize, pair, cpb, smem)` gives the blocks an SM holds (the card's
     answer is 0 for a block beyond the kernel's launch bounds);
     `channels`: the corner stream's channels a cell (its shared-memory
-    layout, ``cuda_stiffness.pencil_smem``), G's stream when 0.
+    layout, ``cuda_stiffness.pencil_smem``), G's stream when 0; `design`
+    "lean": the bfloat16 lean walk (``cuda_stiffness.lean_smem``, no static
+    shared memory, its cost in cells).
 
     - cells a chunk and z-segments a stack: the pair whose classes cost
       least (`_stack_cost`, ``cuda_stiffness.class_cost``: each round of
@@ -253,22 +271,27 @@ def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
                          f"more than {cs.MAX_THREADS} threads")
     colour = np.asarray(colour, np.int64)
     per_colour = np.bincount(colour)
+    lean = design == "lean"
+    static = 0 if lean else cs._static_smem(P, itemsize)
+    if lean and occupancy is cs.model_occupancy:
+        occupancy = functools.partial(cs.model_occupancy, static=0)
     best = None
     cpbs = [cpb] if cpb else range(1, max(1, cs.MAX_THREADS // (n * n)) + 1)
     segs = [segments] if segments else range(1, nz + 1)
     for c in cpbs:
         if c > nz:
             break
-        stage, smem = cs.pencil_smem(P, itemsize, c, pair, ids=True,
-                                     channels=channels)
-        if smem + cs._static_smem(P, itemsize) > cs.SMEM_BLOCK:
+        stage, smem = (cs.lean_smem(P, c, pair, ids=True) if lean else
+                       cs.pencil_smem(P, itemsize, c, pair, ids=True,
+                                      channels=channels))
+        if smem + static > cs.SMEM_BLOCK:
             break
         bps = int(occupancy(P, itemsize, pair, c, smem))
         if bps < 1:
             continue
         for nseg in segs:
             cost = _stack_cost(per_colour, segment_lengths(nz, nseg), c,
-                               bps, sms, cell_bytes)
+                               bps, sms, cell_bytes, lean)
             if cost is None:
                 continue
             key = (cost, -c, nseg)
@@ -352,21 +375,29 @@ class StackPlan:
 
     def card(self, P: int, dtype: torch.dtype, pair: bool, device,
              segments: int | None = None, cpb: int | None = None,
-             geo: int = 0) -> tuple:
+             geo: int = 0, design: str = "first") -> tuple:
         """(schedule, chunk table, row ids, classes as a C array) of the
         stack kernel on `device` (its SMs, its occupancy answers); `segments`
         and `cpb` as `stack_schedule` takes them; `geo`: the geometry
-        stream, G (0) or the corner channels of geometry degree 1 or 2."""
+        stream, G (0) or the corner channels of geometry degree 1 or 2;
+        `design`: the walk, "first" or the bfloat16 "lean" walk."""
         device = torch.device(device)
-        key = (P, dtype, pair, device, segments, cpb, geo)
+        key = (P, dtype, pair, device, segments, cpb, geo, design)
         if key not in self._card:
             from fustpu_torch import _build
 
-            query = getattr(_build.load(), OCCUPANCY[geo])
+            lib = _build.load()
+            if design == "lean":
+                ask = lambda P, itemsize, pair, cpb, smem: \
+                    lib.fustpu_extruded_stack_lean_occupancy(P, int(pair),
+                                                             cpb, smem)
+            else:
+                query = getattr(lib, OCCUPANCY[geo])
+                ask = lambda P, itemsize, pair, cpb, smem: \
+                    query(P, cs.TYPE_CODE[itemsize], int(pair), cpb, smem)
 
             def occupancy(P, itemsize, pair, cpb, smem):
-                got = query(P, cs.TYPE_CODE[itemsize], int(pair), cpb,
-                            smem)
+                got = ask(P, itemsize, pair, cpb, smem)
                 if got < 0:
                     raise RuntimeError(f"stack kernel occupancy query "
                                        f"failed: error {-got}")
@@ -379,7 +410,7 @@ class StackPlan:
                 sched = stack_schedule(
                     self.colour, self.rows2d, self.nz, P, itemsize, sms,
                     pair, occupancy, segments, cpb,
-                    cs.corner_channels(geo) if geo else 0)
+                    cs.corner_channels(geo) if geo else 0, design)
             classes = sched.classes.reshape(-1)
             self._card[key] = (
                 sched, torch.as_tensor(sched.chunks, device=device),
@@ -391,7 +422,8 @@ class StackPlan:
 def card_schedule(op: "ExtrudedCellStiffness", x: torch.Tensor,
                   pair: bool) -> StackSchedule:
     """The schedule that an apply of `op` on x's card runs."""
-    return op.plan.card(op.P, x.dtype, pair, x.device)[0]
+    design = "lean" if cs.lean_runs(op.P, pair, x.dtype) else "first"
+    return op.plan.card(op.P, x.dtype, pair, x.device, design=design)[0]
 
 
 def stack_order(mesh, a):
@@ -524,10 +556,12 @@ def _check(op: ExtrudedCellStiffness, *xs: torch.Tensor, pair: bool,
 
 
 def _launch_stack(name: str, op: ExtrudedCellStiffness, xs, extra,
-                  segments: int | None = None,
-                  cpb: int | None = None) -> torch.Tensor:
-    """One apply through the stack kernel (`segments`, `cpb`: a schedule
-    other than the model's, as `stack_schedule` takes them)."""
+                  segments: int | None = None, cpb: int | None = None,
+                  design: str = "first") -> torch.Tensor:
+    """One apply through the stack walk `design` ("first": float32,
+    float64 and the first bfloat16 walk; "lean": the bfloat16 lean walk),
+    uncounted (`segments`, `cpb`: a schedule other than the model's, as
+    `stack_schedule` takes them)."""
     from fustpu_torch import _build
 
     x = xs[0]
@@ -537,21 +571,27 @@ def _launch_stack(name: str, op: ExtrudedCellStiffness, xs, extra,
     if x.numel() >= 2 ** 31:
         raise ValueError(f"extruded kernel: {x.numel()} dofs, the stack "
                          "kernel indexes fewer than 2^31")
-    sched, chunks, ids, classes = op.plan.card(op.P, x.dtype, len(xs) == 2,
-                                               x.device, segments, cpb)
+    if design == "lean" and x.dtype != torch.bfloat16:
+        raise ValueError(f"extruded kernel: the lean walk takes bfloat16, "
+                         f"not {x.dtype}")
+    sched, chunks, ids, classes = op.plan.card(
+        op.P, x.dtype, len(xs) == 2, x.device, segments, cpb, design=design)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load(), f"fustpu_extruded_stack"
-                 f"{'_pair' if len(xs) == 2 else ''}_{cs.SUFFIX[x.dtype]}")
+    form = f"fustpu_extruded_stack{'_pair' if len(xs) == 2 else ''}"
+    if design == "lean":
+        fn = getattr(_build.load(), f"{form}_lean_bf16")
+        D = cs.host_D(op.D)
+    else:
+        fn = getattr(_build.load(), f"{form}_{cs.SUFFIX[x.dtype]}")
+        D = op.D.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(),
-                 op.D.data_ptr(), y.data_ptr(), op.P, chunks.data_ptr(),
-                 ids.data_ptr(), classes, len(sched.classes), sched.blocks,
-                 sched.cpb, sched.stages, sched.stage_bytes, sched.smem,
-                 op.nz, stream)
+        err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(), D,
+                 y.data_ptr(), op.P, chunks.data_ptr(), ids.data_ptr(),
+                 classes, len(sched.classes), sched.blocks, sched.cpb,
+                 sched.stages, sched.stage_bytes, sched.smem, op.nz, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    cs.count(launches, bf16_launches, name, x.dtype)
     return y
 
 
@@ -586,7 +626,11 @@ def extruded(op: ExtrudedCellStiffness, x: torch.Tensor, **schedule
     if x.device.type == "cpu":
         return extruded_plain(op, x)
     _check(op, x, pair=False)
-    return _launch_stack("extruded", op, (x,), (), **schedule)
+    lean = cs.lean_runs(op.P, False, x.dtype)
+    y = _launch_stack("extruded", op, (x,), (), **schedule,
+                      design="lean" if lean else "first")
+    cs.count(launches, bf16_launches, "extruded", x.dtype)
+    return y
 
 
 def extruded_pair(op: ExtrudedCellStiffness, x1: torch.Tensor,
@@ -596,8 +640,37 @@ def extruded_pair(op: ExtrudedCellStiffness, x1: torch.Tensor,
     if x1.device.type == "cpu":
         return extruded_pair_plain(op, x1, x2)
     _check(op, x1, x2, pair=True)
-    return _launch_stack("extruded_pair", op, (x1, x2), (op.C.data_ptr(),),
-                         **schedule)
+    lean = cs.lean_runs(op.P, True, x1.dtype)
+    y = _launch_stack("extruded_pair", op, (x1, x2), (op.C.data_ptr(),),
+                      **schedule, design="lean" if lean else "first")
+    cs.count(launches, bf16_launches, "extruded_pair", x1.dtype)
+    return y
+
+
+def extruded_first(op: ExtrudedCellStiffness, x: torch.Tensor, **schedule
+                   ) -> torch.Tensor:
+    """`extruded` of a bfloat16 operator through the first bfloat16 stack walk
+    (`fustpu_extruded_stack_bf16`), the lean walk's comparison; counted in
+    `comparison_launches` (the plain version for a CPU tensor)."""
+    if x.device.type == "cpu":
+        return extruded_plain(op, x)
+    _check(op, x, pair=False, types={torch.bfloat16: "bf16"})
+    y = _launch_stack("extruded", op, (x,), (), **schedule)
+    comparison_launches["extruded_first_bf16"] += 1
+    return y
+
+
+def extruded_pair_first(op: ExtrudedCellStiffness, x1: torch.Tensor,
+                        x2: torch.Tensor, **schedule) -> torch.Tensor:
+    """`extruded_pair` through the first bfloat16 stack walk, as
+    `extruded_first`."""
+    if x1.device.type == "cpu":
+        return extruded_pair_plain(op, x1, x2)
+    _check(op, x1, x2, pair=True, types={torch.bfloat16: "bf16"})
+    y = _launch_stack("extruded_pair", op, (x1, x2), (op.C.data_ptr(),),
+                      **schedule)
+    comparison_launches["extruded_pair_first_bf16"] += 1
+    return y
 
 
 def extruded_classes(op: ExtrudedCellStiffness,

@@ -37,7 +37,12 @@ Each kernel comes in float32, float64 and bfloat16.  In bfloat16 (the JAX
 package's ``--dtype bf16``) x, y, G, D and C are stored in bfloat16 and
 the kernel computes in float32, rounding y to bfloat16 where it stores it
 (``stiffness_pencil.cuh``); the plain version computes the same in float32
-and rounds once (``fustpu_torch.ops.spectral_mm``).
+and rounds once (``fustpu_torch.ops.spectral_mm``).  A bfloat16 apply runs
+the lean walk (``csrc/pencil_lean.cuh``, ``csrc/stiffness_lean.cu``: D by
+value, padded float rows read as float4s, three barriers a chunk, its own
+launch bounds and cost model), except at the degrees of
+`FIRST_DESIGN_BF16`; the first bfloat16 walk stays as `stiffness_first` /
+`stiffness_pair_first`, counted in `comparison_launches`.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (`stiffness_plain` / `stiffness_pair_plain`, the matmul formulation of
@@ -55,17 +60,21 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from fustpu_torch.ops import spectral_mm as mm
 
 # Applies that went through each kernel (not counting the plain version),
-# and through its bfloat16 form.
+# through its bfloat16 form, and through the first bfloat16 walk, kept as the
+# comparison of the lean walk.
 launches = {"stiffness": 0, "stiffness_pair": 0}
 bf16_launches = {"stiffness_bf16": 0, "stiffness_pair_bf16": 0}
+comparison_launches = {"stiffness_first_bf16": 0,
+                       "stiffness_pair_first_bf16": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, bf16_launches):
+    for counts in (launches, bf16_launches, comparison_launches):
         for k in counts:
             counts[k] = 0
 
@@ -107,6 +116,22 @@ def pack_G(G_cells, coeff: np.ndarray | None = None):
     if coeff is not None:
         G = G * np.asarray(coeff, np.float64).reshape(-1)[:, None, None]
     return np.ascontiguousarray(G)
+
+
+_D_HOST = WeakIdKeyDictionary()
+
+
+def host_D(D: torch.Tensor) -> int:
+    """The address of a host copy of D as float32 (what the bfloat16 lean
+    walk and the staged engine's bfloat16 contraction take by value), made
+    once a tensor (and again after an in-place change of it) and kept
+    while the tensor lives.  A captured solve's warm-up step makes it
+    before the capture, which may not copy from the card."""
+    kept = _D_HOST.get(D)
+    if kept is None or kept[0] != D._version:
+        vals = D.detach().float().cpu().reshape(-1).tolist()
+        kept = _D_HOST[D] = (D._version, (ctypes.c_float * len(vals))(*vals))
+    return ctypes.addressof(kept[1])
 
 
 def upload(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -215,6 +240,26 @@ def pencil_smem(P: int, itemsize: int, cpb: int, pair: bool = False,
     return stage, head + stages * stage + values * arith_size(itemsize)
 
 
+def lean_smem(P: int, cpb: int, pair: bool = False, stages: int = STAGES,
+              ids: bool = False) -> tuple[int, int]:
+    """(bytes a stage, dynamic shared bytes a block) of the bfloat16 lean
+    walk (``pencil_lean.cuh``): the head of `pencil_smem` (mbarriers, the
+    row ring, with `ids` the stacks' row ids), the stages (cpb cells of
+    bfloat16 G and 16 B of slack), then float32: two buffers of every
+    cell's u and every cell's f1 and f2, each n^2 rows padded to a multiple
+    of 4 values, two of the chunk's y (n^2 (cpb P + 1) values), and for the
+    pair two of x2 and of the cells' (c1, c2).  No static shared memory."""
+    n = P + 1
+    cellf = n * n * (-(-n // 4) * 4)
+    stage = _round16(cpb * cell_values(P) * 2 + 16)
+    rows = n * n * (cpb * P + 1)
+    values = 4 * cpb * cellf + 2 * rows + (2 * rows + 4 * cpb if pair else 0)
+    head = _round16(8 * stages) + _round16(8 * ROW_RING * TABLE_ROW)
+    if ids:
+        head += _round16(4 * ROW_RING * n * n)
+    return stage, head + stages * stage + 4 * values
+
+
 def bulk_spans(cell0: np.ndarray, ncell: np.ndarray, cell_bytes: int,
                total: int) -> tuple[np.ndarray, np.ndarray]:
     """(offset, bytes) of each chunk's bulk-copy span in G: its run of
@@ -236,12 +281,16 @@ def _static_smem(P: int, itemsize: int) -> int:
 
 
 def model_occupancy(P: int, itemsize: int, pair: bool, cpb: int,
-                    smem: int) -> int:
+                    smem: int, static: int | None = None) -> int:
     """Blocks an SM holds by its threads and shared memory alone (the card's
-    occupancy query also counts registers): what the CPU tests use."""
+    occupancy query also counts registers): what the CPU tests use;
+    `static`: the kernel's static shared bytes (`_static_smem` unless
+    given; the lean walk has none)."""
     threads = (P + 1) ** 2 * cpb
+    if static is None:
+        static = _static_smem(P, itemsize)
     return min(2048 // threads, 32,
-               SMEM_SM // (smem + _static_smem(P, itemsize) + SMEM_RESERVED))
+               SMEM_SM // (smem + static + SMEM_RESERVED))
 
 
 # The cost model of the stack and chunk kernels' schedules, in bytes of G
@@ -254,6 +303,16 @@ def model_occupancy(P: int, itemsize: int, pair: bool, cpb: int,
 # float32, H100; rank correlation 0.95 with the measured times).
 STEP_FLOOR_BYTES = 96_000
 CLASS_BYTES = 300_000
+
+# The lean walk's cost model (`lean_cost`), in cells an SM: a chunk step
+# costs LEAN_STEP_CELLS plus its cells.  Fitted to its times under every
+# cells a chunk at the flagship's cells (``demos/exp_pencil --sweep``,
+# bfloat16, P = 4, H100 80GB HBM3: 0.0100 ms a step of the apply at 4.85
+# cells an SM, 0.0202 at 24.2, a line of 7.44 us plus 0.527 us a cell);
+# a class launch costs LEAN_CLASS_CELLS, the float32 model's CLASS_BYTES /
+# STEP_FLOOR_BYTES (3.125) steps of LEAN_STEP_CELLS.
+LEAN_STEP_CELLS = 14
+LEAN_CLASS_CELLS = 44
 
 
 def class_cost(units: int, per: int, cpb: int, bps: int, sms: int,
@@ -281,10 +340,35 @@ def _steps(nc, cpb: int, blocks: int) -> int:
     return sum(-(-m // blocks) * -(-ncz // cpb) for m in pencils if m)
 
 
+def lean_cost(units: int, per: int, cpb: int, bps: int, sms: int) -> int:
+    """The lean walk's cost of one class launch of `units` pencils
+    (segments) of `per` chunk steps each, cpb cells a chunk, on a
+    persistent grid of bps blocks an SM on `sms` SMs, in cells: each round
+    of the grid's blocks takes `per` steps, each step LEAN_STEP_CELLS (a
+    block's per-chunk chain of waits and barriers) plus the cells that the
+    busiest SM's blocks of that round take in it; plus LEAN_CLASS_CELLS."""
+    blocks, cost = bps * sms, LEAN_CLASS_CELLS
+    while units > 0:
+        now = min(units, blocks)
+        units -= now
+        cost += per * (-(-now // sms) * cpb + LEAN_STEP_CELLS)
+    return cost
+
+
+def _lean_apply_cost(nc, cpb: int, bps: int, sms: int) -> int:
+    """`lean_cost` summed over the four colour classes of box pencils."""
+    ncx, ncy, ncz = nc
+    per = -(-ncz // cpb)
+    return sum(lean_cost(((ncx - pa + 1) // 2) * ((ncy - pb + 1) // 2), per,
+                         cpb, bps, sms)
+               for pa in (0, 1) for pb in (0, 1))
+
+
 def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
                     occupancy=model_occupancy, channels: int = 0,
                     cpb: int | None = None, layout=None,
-                    stages: int = STAGES) -> PencilSchedule:
+                    stages: int = STAGES,
+                    design: str = "first") -> PencilSchedule:
     """The launch of one apply on a card of `sms` SMs, for nc cells of
     degree P in a dtype of `itemsize` bytes; `occupancy(P, itemsize, pair,
     cpb, smem)` gives the blocks an SM holds (the card's answer is 0 for a
@@ -292,7 +376,9 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
     stream's channels a cell (its layout, ``pencil_smem``), G's stream
     when 0; `cpb` fixes the cells a chunk; `layout(cpb)` -> (bytes a
     stage, shared bytes) replaces ``pencil_smem``'s for another policy of
-    the walk (``ops/anatomy.py``), with `stages` stages of the ring.
+    the walk (``ops/anatomy.py``), with `stages` stages of the ring;
+    `design` "lean": the bfloat16 lean walk (``pencil_lean.cuh``: its
+    layout `lean_smem`, no static shared memory, its cost `lean_cost`).
 
     - cells a chunk: the cpb that makes the apply shortest, its length taken
       as the chunks that the busiest block of each class walks (`_steps`)
@@ -313,19 +399,26 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
     if cpb and n * n * cpb > MAX_THREADS:
         raise ValueError(f"pencil kernel: {cpb} cells of degree {P} need "
                          f"more than {MAX_THREADS} threads")
+    lean = design == "lean"
+    static = 0 if lean else _static_smem(P, itemsize)
+    if lean and occupancy is model_occupancy:
+        occupancy = functools.partial(model_occupancy, static=0)
     best = None
     for c in [cpb] if cpb else range(1, max(1, MAX_THREADS // (n * n)) + 1):
         if c > ncz:
             break
-        stage, smem = (layout(c) if layout else
-                       pencil_smem(P, itemsize, c, pair, channels=channels))
-        if smem + _static_smem(P, itemsize) > SMEM_BLOCK:
+        stage, smem = (layout(c) if layout else lean_smem(P, c, pair) if lean
+                       else pencil_smem(P, itemsize, c, pair,
+                                        channels=channels))
+        if smem + static > SMEM_BLOCK:
             break
         bps = int(occupancy(P, itemsize, pair, c, smem))
         if bps < 1:
             continue
-        steps = _steps((ncx, ncy, ncz), c, bps * sms)
-        key = (steps * (1 if channels else c * bps), -c)
+        cost = (_lean_apply_cost((ncx, ncy, ncz), c, bps, sms) if lean else
+                _steps((ncx, ncy, ncz), c, bps * sms)
+                * (1 if channels else c * bps))
+        key = (cost, -c)
         if best is None or key < best[0]:
             best = (key, c, stage, smem, bps)
     if best is None:
@@ -364,31 +457,73 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
 # or the corner channels of geometry degree 1.
 OCCUPANCY = ("fustpu_stiffness_occupancy", "fustpu_corner_pencil_occupancy")
 
+# The degrees at which the lean walk's sweep entry points run it under each
+# of the launch bounds FUSTPU_LEAN_BOUNDS (``pencil_lean.cuh``), and their
+# count.
+LEAN_BOUNDS_DEGREES = (4, 6)
+LEAN_BOUNDS = 5
 
-@functools.cache
-def _card_schedule(nc: tuple, P: int, dtype: torch.dtype, pair: bool,
-                   device: torch.device, geo: int = 0,
-                   cpb: int | None = None) -> tuple:
-    """The schedule on `device` (its SMs, its kernel's occupancy answers)
-    of the geometry stream `geo`, its chunk table there and its classes as
-    a C array, built once per shape (`cpb`: another cells a chunk than the
-    schedule's choice)."""
-    from fustpu_torch import _build
+# The degrees (P, pair?) at which a bfloat16 apply keeps the first bfloat16
+# walk, the lean walk having measured slower there in turns on a box of
+# the flagship's grid (``demos/exp_pencil --bf16 --degrees``, H100; PERF.md,
+# the bf16 rows of #1 / #2): its register cap spills from P = 7 on.
+FIRST_DESIGN_BF16 = frozenset({(6, True), (7, False), (7, True), (8, True),
+                               (9, False), (9, True), (10, False),
+                               (10, True)})
 
-    query = getattr(_build.load(), OCCUPANCY[geo])
+
+def lean_runs(P: int, pair: bool, dtype: torch.dtype) -> bool:
+    """Whether an apply of degree P (pair or not) in `dtype` runs the lean
+    walk: bfloat16, but for `FIRST_DESIGN_BF16`."""
+    return dtype == torch.bfloat16 and (P, pair) not in FIRST_DESIGN_BF16
+
+
+def _occupancy_query(lib, design: str, geo: int, bounds: int | None):
+    """occupancy(P, itemsize, pair, cpb, smem) from the card's answer for
+    the kernel of `design` (and, for the lean walk's sweep at P = 4, the
+    launch bounds `bounds`)."""
+    if design == "lean" and bounds is not None:
+        ask = lambda P, itemsize, pair, cpb, smem: \
+            lib.fustpu_stiffness_lean_bounds_occupancy(bounds, P, int(pair),
+                                                       cpb, smem)
+    elif design == "lean":
+        ask = lambda P, itemsize, pair, cpb, smem: \
+            lib.fustpu_stiffness_lean_occupancy(P, int(pair), cpb, smem)
+    else:
+        query = getattr(lib, OCCUPANCY[geo])
+        ask = lambda P, itemsize, pair, cpb, smem: \
+            query(P, TYPE_CODE[itemsize], int(pair), cpb, smem)
 
     def occupancy(P, itemsize, pair, cpb, smem):
-        got = query(P, TYPE_CODE[itemsize], int(pair), cpb, smem)
+        got = ask(P, itemsize, pair, cpb, smem)
         if got < 0:
             raise RuntimeError(f"pencil kernel occupancy query failed: "
                                f"error {-got}")
         return got
 
+    return occupancy
+
+
+@functools.cache
+def _card_schedule(nc: tuple, P: int, dtype: torch.dtype, pair: bool,
+                   device: torch.device, geo: int = 0,
+                   cpb: int | None = None, design: str = "first",
+                   bounds: int | None = None) -> tuple:
+    """The schedule on `device` (its SMs, its kernel's occupancy answers)
+    of the geometry stream `geo` and the walk `design` ("first", or the
+    bfloat16 "lean" walk, at P = 4 under the sweep's launch bounds
+    `bounds` if given), its chunk table there and its classes as a C
+    array, built once per shape (`cpb`: another cells a chunk than the
+    schedule's choice)."""
+    from fustpu_torch import _build
+
+    occupancy = _occupancy_query(_build.load(), design, geo, bounds)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     itemsize = torch.empty((), dtype=dtype).element_size()
     with torch.cuda.device(device):
         sched = pencil_schedule(nc, P, itemsize, sms, pair, occupancy,
-                                corner_channels(geo) if geo else 0, cpb)
+                                corner_channels(geo) if geo else 0, cpb,
+                                design=design)
     classes = sched.classes.reshape(-1)
     return (sched, torch.as_tensor(sched.chunks, device=device),
             (ctypes.c_longlong * classes.size)(*classes.tolist()))
@@ -397,7 +532,9 @@ def _card_schedule(nc: tuple, P: int, dtype: torch.dtype, pair: bool,
 def card_schedule(op: CellStiffness, x: torch.Tensor,
                   pair: bool) -> PencilSchedule:
     """The schedule that an apply of `op` on x's card runs."""
-    return _card_schedule(tuple(op.nc), op.P, x.dtype, pair, x.device)[0]
+    design = "lean" if lean_runs(op.P, pair, x.dtype) else "first"
+    return _card_schedule(tuple(op.nc), op.P, x.dtype, pair, x.device,
+                          design=design)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +619,11 @@ def _check(op: CellStiffness, *xs: torch.Tensor, pair: bool) -> None:
 
 
 def _launch(name: str, op: CellStiffness, xs, extra,
-            cpb: int | None = None) -> torch.Tensor:
+            cpb: int | None = None, design: str = "first",
+            bounds: int | None = None) -> torch.Tensor:
+    """One apply through the walk `design`: "first" (float32, float64, and
+    the first bfloat16 walk) or the bfloat16 "lean" walk (at P = 4 under the
+    sweep's launch bounds `bounds` if given); counted by the caller."""
     from fustpu_torch import _build
 
     x = xs[0]
@@ -492,39 +633,117 @@ def _launch(name: str, op: CellStiffness, xs, extra,
     if x.numel() >= 2 ** 31:
         raise ValueError(f"stiffness kernel: {x.numel()} grid nodes, the "
                          "kernel indexes fewer than 2^31")
+    pair = len(xs) == 2
+    if design == "lean" and x.dtype != torch.bfloat16:
+        raise ValueError(f"stiffness kernel: the lean walk takes bfloat16, "
+                         f"not {x.dtype}")
+    if bounds is not None and op.P not in LEAN_BOUNDS_DEGREES:
+        raise ValueError("stiffness kernel: the lean walk's launch bounds "
+                         f"are swept at P = 4 and 6, not {op.P}")
     sched, chunks, classes = _card_schedule(tuple(op.nc), op.P, x.dtype,
-                                            len(xs) == 2, x.device, cpb=cpb)
+                                            pair, x.device, cpb=cpb,
+                                            design=design, bounds=bounds)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load(), f"fustpu_{name}_{SUFFIX[x.dtype]}")
+    lib = _build.load()
+    D = op.D.data_ptr()
+    if design == "lean":
+        D = host_D(op.D)
+        fn = getattr(lib, f"fustpu_{name}_lean_bf16")
+    else:
+        fn = getattr(lib, f"fustpu_{name}_{SUFFIX[x.dtype]}")
+    rest = (op.G.data_ptr(), D, y.data_ptr())
+    table = (chunks.data_ptr(), classes, len(sched.classes), sched.blocks,
+             sched.cpb, sched.stages, sched.stage_bytes, sched.smem,
+             op.nc[1], op.nc[2])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(),
-                 op.D.data_ptr(), y.data_ptr(), op.P, chunks.data_ptr(),
-                 classes, len(sched.classes), sched.blocks, sched.cpb,
-                 sched.stages, sched.stage_bytes, sched.smem, op.nc[1],
-                 op.nc[2], stream)
+        if bounds is not None:
+            err = lib.fustpu_stiffness_lean_bounds_bf16(
+                bounds, op.P, int(pair), xs[0].data_ptr(),
+                xs[1].data_ptr() if pair else None,
+                op.C.data_ptr() if pair else None, *rest, *table, stream)
+        else:
+            err = fn(*(t.data_ptr() for t in xs), *extra, *rest, op.P,
+                     *table, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    count(launches, bf16_launches, name, x.dtype)
     return y
 
 
 def stiffness(op: CellStiffness, x: torch.Tensor,
               cpb: int | None = None) -> torch.Tensor:
     """y_grid = A_stiff(x_grid) through the single-field kernel (the plain
-    version for a CPU tensor); `cpb`: cells a chunk in place of the
-    schedule's choice (`pencil_schedule`)."""
+    version for a CPU tensor): in bfloat16 the lean walk (`lean_runs`);
+    `cpb`: cells a chunk in place of the schedule's choice
+    (`pencil_schedule`)."""
     if x.device.type == "cpu":
         return stiffness_plain(op, x)
     _check(op, x, pair=False)
-    return _launch("stiffness", op, (x,), (), cpb)
+    lean = lean_runs(op.P, False, x.dtype)
+    y = _launch("stiffness", op, (x,), (), cpb,
+                "lean" if lean else "first")
+    count(launches, bf16_launches, "stiffness", x.dtype)
+    return y
 
 
 def stiffness_pair(op: CellStiffness, x1: torch.Tensor, x2: torch.Tensor,
                    cpb: int | None = None) -> torch.Tensor:
     """y_grid = A_c1(x1) + A_c2(x2) through the pair kernel (the plain
-    version for CPU tensors); `cpb` as for `stiffness`."""
+    version for CPU tensors); bfloat16 and `cpb` as for `stiffness`."""
     if x1.device.type == "cpu":
         return stiffness_pair_plain(op, x1, x2)
     _check(op, x1, x2, pair=True)
-    return _launch("stiffness_pair", op, (x1, x2), (op.C.data_ptr(),), cpb)
+    lean = lean_runs(op.P, True, x1.dtype)
+    y = _launch("stiffness_pair", op, (x1, x2), (op.C.data_ptr(),), cpb,
+                "lean" if lean else "first")
+    count(launches, bf16_launches, "stiffness_pair", x1.dtype)
+    return y
+
+
+def _check_bf16(x: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the comparison walks take bfloat16, not "
+                         f"{x.dtype}")
+
+
+def stiffness_first(op: CellStiffness, x: torch.Tensor,
+                    cpb: int | None = None) -> torch.Tensor:
+    """`stiffness` of a bfloat16 operator through the first bfloat16 walk
+    (`fustpu_stiffness_bf16`), the lean walk's comparison; counted in
+    `comparison_launches` (the plain version for a CPU tensor)."""
+    if x.device.type == "cpu":
+        return stiffness_plain(op, x)
+    _check(op, x, pair=False)
+    _check_bf16(x, "stiffness_first")
+    y = _launch("stiffness", op, (x,), (), cpb)
+    comparison_launches["stiffness_first_bf16"] += 1
+    return y
+
+
+def stiffness_pair_first(op: CellStiffness, x1: torch.Tensor,
+                         x2: torch.Tensor,
+                         cpb: int | None = None) -> torch.Tensor:
+    """`stiffness_pair` through the first bfloat16 walk, as
+    `stiffness_first`."""
+    if x1.device.type == "cpu":
+        return stiffness_pair_plain(op, x1, x2)
+    _check(op, x1, x2, pair=True)
+    _check_bf16(x1, "stiffness_pair_first")
+    y = _launch("stiffness_pair", op, (x1, x2), (op.C.data_ptr(),), cpb)
+    comparison_launches["stiffness_pair_first_bf16"] += 1
+    return y
+
+
+def stiffness_lean(op: CellStiffness, xs, cpb: int | None = None,
+                   bounds: int | None = None) -> torch.Tensor:
+    """One bfloat16 apply (single for one field in `xs`, pair for two)
+    through the lean walk whatever `FIRST_DESIGN_BF16` routes, with its
+    own launch bounds or, at P = 4 and 6, the sweep's `bounds` of
+    ``pencil_lean.cuh`` FUSTPU_LEAN_BOUNDS: what ``demos/exp_pencil``'s
+    sweeps and per-degree comparison run.  Counted nowhere: not the main
+    path."""
+    pair = len(xs) == 2
+    _check(op, *xs, pair=pair)
+    _check_bf16(xs[0], "stiffness_lean")
+    return _launch("stiffness_pair" if pair else "stiffness", op, tuple(xs),
+                   (op.C.data_ptr(),) if pair else (), cpb, "lean", bounds)

@@ -141,15 +141,18 @@ def scatter_blocks(ndofs: int) -> int:
 def counter_dicts() -> list:
     """Every launch counter of the kernels that a model's step can launch,
     as the wrappers' own dicts (the stiffness kernels in every design, the
-    staged engine with its first designs, the RK4 update): what a replayed
+    first bfloat16 walks and the staged engine's first designs kept as
+    comparisons, the RK4 update): what a replayed
     CUDA graph adds to (``models/timestepping.py``)."""
     from fustpu_torch.ops import (anatomy, cuda_corner, cuda_engine,
                                   cuda_extruded, cuda_indexed, cuda_slab2,
                                   cuda_stiffness, cuda_vector)
 
     return [cuda_stiffness.launches, cuda_stiffness.bf16_launches,
+            cuda_stiffness.comparison_launches,
             cuda_extruded.launches, cuda_extruded.class_launches,
-            cuda_extruded.bf16_launches, cuda_indexed.launches,
+            cuda_extruded.bf16_launches, cuda_extruded.comparison_launches,
+            cuda_indexed.launches,
             cuda_indexed.class_launches, cuda_indexed.bf16_launches,
             cuda_corner.launches, cuda_corner.class_launches,
             cuda_corner.bf16_launches, cuda_engine.launches,

@@ -1,16 +1,16 @@
 """Registers and spills of the kernels in CUDA sources, as ptxas reports
-them, for one degree.
+them, for some degrees.
 
     python -m fustpu_torch.tools.kernel_resources [--csrc DIR]
-        [--degree 4] [--match pencil_kernel,corner_kernel] [--sass]
+        [--degree 4 [6 ...]] [--match pencil_kernel,corner_kernel] [--sass]
         [source.cu ...]
 
 Compiles each source (default: every ``*.cu`` of --csrc, this package's
 ``csrc`` unless given) with the build's own flags plus ``-Xptxas -v``,
 one nvcc a source, all started together, and prints for every kernel
-instantiated at N = degree + 1 (or with no degree among its template
-arguments, none of its integer arguments 3 or more, as the engine's
-gathers and scatter) whose name holds one of the --match words:
+instantiated at N = degree + 1 for a --degree (or with no degree among
+its template arguments, none of its integer arguments 3 or more, as the
+engine's gathers and scatter) whose name holds one of the --match words:
 its source, its demangled name, registers a thread, spill stores and
 loads, and stack frame bytes; with --sass also the count of each memory
 instruction in its machine code (`cuobjdump -sass`, beside nvcc: shared
@@ -144,7 +144,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("sources", nargs="*",
                    help="source file names in --csrc (default: all)")
     p.add_argument("--csrc", type=Path, default=_build.CSRC)
-    p.add_argument("--degree", type=int, default=4)
+    p.add_argument("--degree", type=int, nargs="+", default=[4],
+                   help="the degrees whose instances to report")
     p.add_argument("--match", default="pencil_kernel,corner_kernel",
                    help="comma list of words, one of which a kernel's "
                         "name must hold")
@@ -154,9 +155,8 @@ def main(argv=None) -> list[dict]:
     sources = ([args.csrc / s for s in args.sources] if args.sources
                else sorted(args.csrc.glob("*.cu")))
     words = [w for w in args.match.split(",") if w]
-    n = args.degree + 1
     rows = [r for r in report(sources, args.sass)
-            if (f"Li{n}E" in r["mangled"]
+            if (any(f"Li{d + 1}E" in r["mangled"] for d in args.degree)
                 or all(int(v) < 3 for v in re.findall(r"Li(\d+)E",
                                                       r["mangled"])))
             and any(w in r["name"] for w in words)]
