@@ -267,16 +267,19 @@ Phases (each prints its time; any failure exits non-zero):
     first bf16 walk kept as `cs.stiffness_first` / `ce.extruded_first`):
     on the bf16 flagship, its two-layer form and the imported bowl,
     single and pair (34b-d), and on the conformal P=6 bowl (34m, after
-    15d), the two designs' outputs at the lean walk's schedule within the
-    redesign gate (1e-3, at most 1% of the values differing, the count
-    printed), at each one's own within 1e-3 (a stack cut into other
-    segments rounds a shared node at other points), the first design's
-    within 2^-7 of plain, ms an apply in turns (old, new, new,
-    old) beside the bound and each schedule; on the bf16 flagship also
-    ms a step of 50 captured steps in turns on each design (the first
-    design's model with its own solvers); their launches in the
-    comparison counters; the lean walk against its plain version at P =
-    2..10 runs in 34a.
+    15d), the main path's output (the lean walk on its own schedule; on
+    stacks the first design's segments) against the first design's on
+    its own, and under the lean walk's schedule, within the redesign
+    gate (1e-3, at most 1% of the values differing, the counts printed),
+    the first design's within 2^-7 of plain, ms an apply in turns (old,
+    new, new, old) beside the bound and each schedule; on the bf16
+    flagship also ms a step of 50 captured steps in turns on each design
+    (the first design's model with its own solvers); their launches in
+    the comparison counters; in 34a each bf16 apply at P = 2..10 against
+    its plain version moves the counter of the walk that runs at its
+    degree (`cs.bf16_key`: the lean walk, or the first bf16 walk at
+    `cs.FIRST_DESIGN_BF16` and on stacks outside
+    `ce.LEAN_STACK_DEGREES`).
   - the two-field gather (#8) on the quads design: bitwise its first
     design (`cen.gather2_flat`, one thread a position) at P = 2..10 in
     float32 and float64 (20) and bfloat16 (34j); in turns against it and
@@ -1255,8 +1258,19 @@ def main() -> None:
         for mod in (cs, ce, ci, cc):
             mod.reset_launches()
 
+    def bf16_key(route, P, pair):
+        """The bf16 counter that an apply of `route` at degree P moves: #1
+        / #2 and #6 by the walk that runs there (the lean walk or the
+        first bf16 walk), #11 its own."""
+        name = {"#1 / #2": "stiffness", "#6": "extruded",
+                "#11": "indexed"}[route] + ("_pair" if pair else "")
+        lean = (cs.lean_runs(P, pair, BF16) if route == "#1 / #2" else
+                ce.lean_runs(P, BF16) if route == "#6" else True)
+        return cs.bf16_key(name, lean)
+
     with phase("34a bf16 kernels vs plain, P=2..10: #1 / #2, #6 and #11, "
-               "single and pair, on phases 3, 8 and 12's meshes"), \
+               "single and pair, on phases 3, 8 and 12's meshes, each "
+               "counted by its walk"), \
             tempfile.TemporaryDirectory() as tmp:
         worst16 = {"plain": 0.0, "f64": 0.0}
         bf16_reset()
@@ -1297,7 +1311,14 @@ def main() -> None:
                         a = [x.to(dtype) for x in xs[:1 + pair]]
                         return f(o, *a)
 
+                    before = bf16_counters()
                     y = apply(BF16, kernel)
+                    moved = {k for k, v in bf16_counters().items()
+                             if v != before[k]}
+                    if moved != {bf16_key(route, P, pair)}:
+                        fail(f"34a: P={P} {route} {mname} {label}: the "
+                             f"counters {moved} moved, not "
+                             f"{bf16_key(route, P, pair)}")
                     e = rel_l2(y, apply(BF16, plain))
                     e64 = rel_l2(y, apply(torch.float64, plain))
                     same = torch.equal(y, apply(BF16, kernel))
@@ -1446,12 +1467,12 @@ def main() -> None:
     def lean_turns(model, dt_, label, name, steps=True):
         """Part of 34b-d and 34m: the bf16 model's stiffness kernel (its
         entry `name` of the JSON line's measurements) on the lean walk
-        (new) against the first bf16 walk (old) on its
-        operator and unit normal bf16 fields: the two outputs at the lean
-        walk's schedule within the redesign gate (FIRST_DESIGN_TOL, at
-        most 1% of the values differing), and at each one's own schedule
-        within FIRST_DESIGN_TOL, ms an apply in turns (old, new, new,
-        old) beside the bound, each
+        (new) against the first bf16 walk (old) on its operator and unit
+        normal bf16 fields: the main path's output (the lean walk on its
+        own schedule) against the first walk's on its own schedule, and
+        under the lean walk's schedule, each within the redesign gate
+        (FIRST_DESIGN_TOL, at most 1% of the values differing), ms an
+        apply in turns (old, new, new, old) beside the bound, each
         design's schedule; with `steps`, ms a step of 50 captured steps
         from rest in turns on each design (`ms_turns`, `FirstWalk`).
         Returns (the old design's entry for the JSON line, its launches in
@@ -1468,10 +1489,6 @@ def main() -> None:
               for _ in range(2 if kst.is_pair else 1)]
         run = {"old": lambda: first(op, *xs), "new": lambda: new(op, *xs)}
         yo, yn = run["old"](), run["new"]()
-        # the gate holds at the lean walk's own schedule: each design's own
-        # schedule may cut the stacks in other segments, whose classes round
-        # a shared node at other points (a different schedule, not a
-        # different walk: that pair is held to FIRST_DESIGN_TOL alone)
         sn = mod.card_schedule(op, xs[0], kst.is_pair)
         mine = dict(cpb=sn.cpb, **({"segments": sn.segments} if stacks
                                    else {}))
@@ -1509,11 +1526,13 @@ def main() -> None:
               + "; ".join(f"{k}: {s.cpb} cells a chunk, {s.blocks_per_sm} "
                           f"blocks an SM, {s.blocks} blocks"
                           for k, s in sch.items()), flush=True)
-        if not (err <= FIRST_DESIGN_TOL and differ <= 0.01 * yn.numel()
-                and err_own <= FIRST_DESIGN_TOL):
+        if not (err_own <= FIRST_DESIGN_TOL
+                and differ_own <= 0.01 * yn.numel()
+                and err <= FIRST_DESIGN_TOL and differ <= 0.01 * yn.numel()):
             fail(f"34: {label}: the lean walk vs the first bf16 walk "
-                 f"{err:.3e} ({differ} values differ) at the lean schedule, "
-                 f"{err_own:.3e} at each one's own")
+                 f"{err_own:.3e} ({differ_own} values differ) at each one's "
+                 f"own schedule, {err:.3e} ({differ}) at the lean "
+                 "schedule")
         if not e_old <= BF16_TOL or not n_old:
             fail(f"34: {label}: the first bf16 walk vs plain {e_old:.3e}, "
                  f"{n_old} launches")

@@ -129,24 +129,18 @@ def load() -> ctypes.CDLL:
     lib.fustpu_stiffness_occupancy.restype = i
     # the bfloat16 lean walk (stiffness_lean.cu, extruded_lean.cu): the same
     # arguments, D a host array of floats; its occupancy queries take (P,
-    # pair, cpb, smem); at P = 4 and 6 its sweep's launch bounds (bounds,
-    # P, pair, x1, x2, C, G, D, y, then the schedule without P)
+    # pair, cpb, smem)
     lib.fustpu_stiffness_lean_bf16.argtypes = [p, p, p, p, i, *sched]
     lib.fustpu_stiffness_pair_lean_bf16.argtypes = [p, p, p, p, p, p, i,
                                                     *sched]
-    lib.fustpu_stiffness_lean_bounds_bf16.argtypes = [i, i, i, p, p, p, p,
-                                                      p, p, *sched]
     for name in ("fustpu_stiffness_lean_bf16",
                  "fustpu_stiffness_pair_lean_bf16",
-                 "fustpu_stiffness_lean_bounds_bf16",
                  "fustpu_stiffness_lean_occupancy",
-                 "fustpu_stiffness_lean_bounds_occupancy",
                  "fustpu_extruded_stack_lean_bf16",
                  "fustpu_extruded_stack_pair_lean_bf16",
                  "fustpu_extruded_stack_lean_occupancy"):
         getattr(lib, name).restype = i
     lib.fustpu_stiffness_lean_occupancy.argtypes = [i, i, i, i]
-    lib.fustpu_stiffness_lean_bounds_occupancy.argtypes = [i, i, i, i, i]
     lib.fustpu_extruded_stack_lean_occupancy.argtypes = [i, i, i, i]
     # the stack kernel: the pencil kernel's schedule with the segments' row
     # ids after the chunk table, nz in place of ncy, ncz

@@ -11,12 +11,18 @@
 // What bounds it and what the design does about it: pencil_lean.cuh; the
 // stacks' walk (classes of stack colours and segment parities, the row
 // ids): extruded_stack.cu.  The host (ops/cuda_extruded.py
-// `stack_schedule`, design "lean") decides the launch; D comes as N^2
-// host floats.
+// `stack_schedule`, design "lean", at the first design's segments) decides
+// the launch; D comes as N^2 host floats.  The walk is instantiated only at
+// the degree that runs it on stacks (ops/cuda_extruded.py
+// LEAN_STACK_DEGREES, P = 4, where the two designs were timed in turns on
+// the imported bowl); at the others the entry points return -1.
 
 #include <cuda_runtime.h>
 
 #include "pencil_lean.cuh"
+
+// The degrees at which a stack apply runs the lean walk, single and pair.
+#define FUSTPU_LEAN_STACKS(M) M(4)
 
 namespace {
 
@@ -37,7 +43,7 @@ int launch(int P, const void* x1, const void* x2, const void* C,
                                       nclass, blocks, cpb, stages,        \
                                       stage_bytes, smem, lines, s);
   switch (P) {
-    FUSTPU_DEGREES(FUSTPU_CASE)
+    FUSTPU_LEAN_STACKS(FUSTPU_CASE)
     default:
       return -1;
   }
@@ -50,7 +56,7 @@ int occupancy(int P, int cpb, int smem) {
   case P_:              \
     return lean::occupancy<P_ + 1, PAIR, StackRows>(cpb, smem);
   switch (P) {
-    FUSTPU_DEGREES(FUSTPU_CASE)
+    FUSTPU_LEAN_STACKS(FUSTPU_CASE)
     default:
       return -1;
   }
@@ -59,11 +65,11 @@ int occupancy(int P, int cpb, int smem) {
 
 }  // namespace
 
-// C entry points.  Each launcher returns 0, -1 for an unsupported degree,
-// or the cudaError_t of the first failed call; y must be zeroed by the
-// caller.  D: N^2 floats on the host; chunks: (rows, 5) int64 and ids:
-// (segments, N^2) int32 on the device; classes: nclass x 3 int64 on the
-// host.
+// C entry points.  Each launcher returns 0, -1 for a degree without the
+// lean walk, or the cudaError_t of the first failed call; y must be zeroed
+// by the caller.  D: N^2 floats on the host; chunks: (rows, 5) int64 and
+// ids: (segments, N^2) int32 on the device; classes: nclass x 3 int64 on
+// the host.
 extern "C" {
 
 int fustpu_extruded_stack_lean_bf16(const void* x, const void* G,
@@ -88,8 +94,8 @@ int fustpu_extruded_stack_pair_lean_bf16(
 }
 
 // Blocks of the lean walk on stacks for (P, pair?) with cpb cells and smem
-// dynamic shared bytes that one SM holds at once; -1 for an unsupported
-// degree, minus the cudaError_t of a failed query.
+// dynamic shared bytes that one SM holds at once; -1 for a degree without
+// the lean walk, minus the cudaError_t of a failed query.
 int fustpu_extruded_stack_lean_occupancy(int P, int pair, int cpb,
                                          int smem) {
   return pair ? occupancy<true>(P, cpb, smem) : occupancy<false>(P, cpb, smem);

@@ -41,8 +41,8 @@
 //      and odd cells.  u is complete at the arrival barrier (the pair's fold
 //      takes one more), and the carried face, written before the metric
 //      barrier, is ordered before any turn's adds.
-//   4. Launch bounds of its own (MAXT threads, MINB blocks an SM: a
-//      register cap), so that the host may run more cells an SM; the host
+//   4. Launch bounds of its own (Bounds<N>: a register cap), so that the
+//      host may run more cells an SM; the host
 //      (ops/cuda_stiffness.py `pencil_schedule` with `design="lean"`)
 //      chooses the cells a chunk by a cost model fitted to this walk's
 //      times, which prefers full warps (5 cells at P = 4: 125 of 128 lanes).
@@ -341,8 +341,24 @@ __device__ __forceinline__ void walk(
   store(total - 1);
 }
 
-template <int N, bool PAIR, typename Rows, int MAXT, int MINB>
-__global__ void __launch_bounds__(MAXT, MINB)
+// The launch bounds of the walk by N: (MAXT threads a block, MINB blocks an
+// SM), a cap of 65,536 / (MAXT MINB) registers a thread.  Chosen by a sweep
+// of five caps (none, 128, 102, 85 and 64 registers) at P = 4 and 6 on an
+// H100 (PERF.md, the bf16 rows of #1 / #2): at P = 4 the walk takes 138
+// registers unbounded (one block of 10 cells an SM), 96 at (128, 5), which
+// holds five blocks of 5 cells (125 of 128 lanes) an SM; at P = 6 the
+// single field is fastest at (256, 2), 128 registers.  From P = 7 on that
+// cap spills: the entry points instantiate the walk only at the degrees
+// where it measured faster than the first design (ops/cuda_stiffness.py
+// FIRST_DESIGN_BF16, ops/cuda_extruded.py LEAN_STACK_DEGREES).
+template <int N>
+struct Bounds {
+  static constexpr int MAXT = N <= 5 ? 128 : 256;
+  static constexpr int MINB = N <= 5 ? 5 : 2;
+};
+
+template <int N, bool PAIR, typename Rows>
+__global__ void __launch_bounds__(Bounds<N>::MAXT, Bounds<N>::MINB)
 lean_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
             const bf16* __restrict__ C, const bf16* __restrict__ G,
             const __grid_constant__ DMat<N> D, bf16* __restrict__ y,
@@ -353,30 +369,14 @@ lean_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
                       per_pencil, stages, stage_bytes, seg0, lines);
 }
 
-// The launch bounds of the main path's instances by N: (MAXT threads a
-// block, MINB blocks an SM), a cap of 65,536 / (MAXT MINB) registers a
-// thread.  Chosen among the sweep's bounds (FUSTPU_LEAN_BOUNDS below) at P
-// = 4 and 6 on an H100 (PERF.md, the bf16 rows of #1 / #2): at P = 4 the
-// walk takes 138 registers unbounded (one block of 10 cells an SM), 96 at
-// (128, 5), which holds five blocks of 5 cells (125 of 128 lanes) an SM;
-// at P = 6 the single field is fastest at (256, 2), 128 registers.  From
-// P = 7 on that cap spills, and the degrees where the walk measured slower
-// than the first design keep the first (ops/cuda_stiffness.py
-// FIRST_DESIGN_BF16).
-template <int N>
-struct Bounds {
-  static constexpr int MAXT = N <= 5 ? 128 : 256;
-  static constexpr int MINB = N <= 5 ? 5 : 2;
-};
-
 // ---- host side ----
 
-template <int N, bool PAIR, typename Rows, int MAXT, int MINB>
+template <int N, bool PAIR, typename Rows>
 cudaError_t allow_smem() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaError_t err =
-      cudaFuncSetAttribute(lean_kernel<N, PAIR, Rows, MAXT, MINB>,
+      cudaFuncSetAttribute(lean_kernel<N, PAIR, Rows>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            MAX_SMEM);
   done = err == cudaSuccess;
@@ -385,14 +385,13 @@ cudaError_t allow_smem() {
 
 // One launch per class, as launch_classes (stiffness_pencil.cuh); D: the
 // N^2 float values of D, by value.  Returns 0 or the first cudaError_t.
-template <int N, bool PAIR, typename Rows, int MAXT = Bounds<N>::MAXT,
-          int MINB = Bounds<N>::MINB>
+template <int N, bool PAIR, typename Rows>
 int launch(const void* x1, const void* x2, const void* C, const void* G,
            const float* D, void* y, const void* chunks,
            const long long* classes, int nclass, int blocks, int cpb,
            int stages, int stage_bytes, int smem, Rows lines,
            cudaStream_t stream) {
-  cudaError_t err = allow_smem<N, PAIR, Rows, MAXT, MINB>();
+  cudaError_t err = allow_smem<N, PAIR, Rows>();
   if (err != cudaSuccess) return (int)err;
   DMat<N> dm;
   for (int e = 0; e < N * N; ++e) dm.d[e] = D[e];
@@ -403,7 +402,7 @@ int launch(const void* x1, const void* x2, const void* C, const void* G,
     const int per_pencil = (int)classes[3 * c + 2];
     if (pencils <= 0) continue;
     const unsigned grid = (unsigned)(pencils < blocks ? pencils : blocks);
-    lean_kernel<N, PAIR, Rows, MAXT, MINB><<<grid, block, smem, stream>>>(
+    lean_kernel<N, PAIR, Rows><<<grid, block, smem, stream>>>(
         static_cast<const bf16*>(x1), static_cast<const bf16*>(x2),
         static_cast<const bf16*>(C), static_cast<const bf16*>(G), dm,
         static_cast<bf16*>(y), static_cast<const long long*>(chunks), first,
@@ -417,23 +416,16 @@ int launch(const void* x1, const void* x2, const void* C, const void* G,
 
 // Blocks of N^2 x cpb threads with smem dynamic shared bytes that one SM
 // holds, as occupancy (stiffness_pencil.cuh): 0 beyond the launch bounds.
-template <int N, bool PAIR, typename Rows, int MAXT = Bounds<N>::MAXT,
-          int MINB = Bounds<N>::MINB>
+template <int N, bool PAIR, typename Rows>
 int occupancy(int cpb, int smem) {
-  cudaError_t err = allow_smem<N, PAIR, Rows, MAXT, MINB>();
+  cudaError_t err = allow_smem<N, PAIR, Rows>();
   if (err != cudaSuccess) return -(int)err;
-  if (N * N * cpb > MAXT) return 0;
+  if (N * N * cpb > Bounds<N>::MAXT) return 0;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, lean_kernel<N, PAIR, Rows, MAXT, MINB>, N * N * cpb, smem);
+      &blocks, lean_kernel<N, PAIR, Rows>, N * N * cpb, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
-
-// The launch bounds that the sweep compares at P = 4 and 6 (entry points
-// `fustpu_stiffness_lean_bounds_bf16`): (MAXT, MINB), register caps of
-// none, 128, 102, 85 and 64 a thread.
-#define FUSTPU_LEAN_BOUNDS(M) \
-  M(0, 256, 1) M(1, 256, 2) M(2, 128, 5) M(3, 256, 3) M(4, 128, 8)
 
 }  // namespace lean
 }  // namespace pencil

@@ -13,23 +13,24 @@
 // decides the launch as for the first design: the chunk table, the
 // classes, the persistent grid, the cells a chunk, the ring and the
 // dynamic shared bytes; D comes as N^2 host floats and rides in the kernel
-// parameters.  At P = 4 and 6 the entry points `..._lean_bounds_bf16` run
-// the same walk under each of the launch bounds that the sweep compares
-// (FUSTPU_LEAN_BOUNDS).
+// parameters.  The walk is instantiated only at the degrees that run it
+// (FUSTPU_LEAN_SINGLE, FUSTPU_LEAN_PAIR: those outside
+// ops/cuda_stiffness.py FIRST_DESIGN_BF16); at the others the entry points
+// return -1.
 
 #include <cuda_runtime.h>
 
 #include "pencil_lean.cuh"
 
+// The degrees at which a box apply runs the lean walk, single field and
+// pair (ops/cuda_stiffness.py `lean_runs`).
+#define FUSTPU_LEAN_SINGLE(M) M(2) M(3) M(4) M(5) M(6) M(8)
+#define FUSTPU_LEAN_PAIR(M) M(2) M(3) M(4) M(5)
+
 namespace {
 
 namespace lean = fustpu::pencil::lean;
 using fustpu::pencil::BoxRows;
-
-BoxRows box_rows(int P, int ncy, int ncz) {
-  const int gz = ncz * P + 1;
-  return BoxRows{gz, (ncy * P + 1) * gz, nullptr};
-}
 
 template <bool PAIR>
 int launch(int P, const void* x1, const void* x2, const void* C,
@@ -38,16 +39,25 @@ int launch(int P, const void* x1, const void* x2, const void* C,
            int stages, int stage_bytes, int smem, int ncy, int ncz,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BoxRows lines = box_rows(P, ncy, ncz);
+  const int gz = ncz * P + 1;
+  const BoxRows lines{gz, (ncy * P + 1) * gz, nullptr};
 #define FUSTPU_CASE(P_)                                                   \
   case P_:                                                                \
     return lean::launch<P_ + 1, PAIR>(x1, x2, C, G, D, y, chunks, classes, \
                                       nclass, blocks, cpb, stages,        \
                                       stage_bytes, smem, lines, s);
-  switch (P) {
-    FUSTPU_DEGREES(FUSTPU_CASE)
-    default:
-      return -1;
+  if constexpr (PAIR) {
+    switch (P) {
+      FUSTPU_LEAN_PAIR(FUSTPU_CASE)
+      default:
+        return -1;
+    }
+  } else {
+    switch (P) {
+      FUSTPU_LEAN_SINGLE(FUSTPU_CASE)
+      default:
+        return -1;
+    }
   }
 #undef FUSTPU_CASE
 }
@@ -57,20 +67,28 @@ int occupancy(int P, int cpb, int smem) {
 #define FUSTPU_CASE(P_) \
   case P_:              \
     return lean::occupancy<P_ + 1, PAIR, BoxRows>(cpb, smem);
-  switch (P) {
-    FUSTPU_DEGREES(FUSTPU_CASE)
-    default:
-      return -1;
+  if constexpr (PAIR) {
+    switch (P) {
+      FUSTPU_LEAN_PAIR(FUSTPU_CASE)
+      default:
+        return -1;
+    }
+  } else {
+    switch (P) {
+      FUSTPU_LEAN_SINGLE(FUSTPU_CASE)
+      default:
+        return -1;
+    }
   }
 #undef FUSTPU_CASE
 }
 
 }  // namespace
 
-// C entry points.  Each launcher returns 0, -1 for an unsupported degree or
-// bounds, or the cudaError_t of the first failed call; y must be zeroed by
-// the caller.  D: N^2 floats on the host; chunks: (rows, 5) int64 on the
-// device; classes: nclass x 3 int64 on the host.
+// C entry points.  Each launcher returns 0, -1 for a degree without the
+// lean walk, or the cudaError_t of the first failed call; y must be zeroed
+// by the caller.  D: N^2 floats on the host; chunks: (rows, 5) int64 on
+// the device; classes: nclass x 3 int64 on the host.
 extern "C" {
 
 int fustpu_stiffness_lean_bf16(const void* x, const void* G, const float* D,
@@ -98,60 +116,10 @@ int fustpu_stiffness_pair_lean_bf16(const void* x1, const void* x2,
 }
 
 // Blocks of the lean walk on box pencils for (P, pair?) with cpb cells and
-// smem dynamic shared bytes that one SM holds at once; -1 for an
-// unsupported degree, minus the cudaError_t of a failed query.
+// smem dynamic shared bytes that one SM holds at once; -1 for a degree
+// without the lean walk, minus the cudaError_t of a failed query.
 int fustpu_stiffness_lean_occupancy(int P, int pair, int cpb, int smem) {
   return pair ? occupancy<true>(P, cpb, smem) : occupancy<false>(P, cpb, smem);
-}
-
-// The same walk at P = 4 or 6 under the launch bounds `bounds` of
-// FUSTPU_LEAN_BOUNDS (the sweep's), single field (x2, C unused) or pair.
-int fustpu_stiffness_lean_bounds_bf16(int bounds, int P, int pair,
-                                      const void* x1, const void* x2,
-                                      const void* C, const void* G,
-                                      const float* D, void* y,
-                                      const void* chunks,
-                                      const long long* classes, int nclass,
-                                      int blocks, int cpb, int stages,
-                                      int stage_bytes, int smem, int ncy,
-                                      int ncz, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BoxRows lines = box_rows(P, ncy, ncz);
-#define FUSTPU_CASE(N_, I, MAXT, MINB)                                     \
-  if (P + 1 == N_ && bounds == I)                                         \
-    return pair ? lean::launch<N_, true, BoxRows, MAXT, MINB>(            \
-                      x1, x2, C, G, D, y, chunks, classes, nclass, blocks, \
-                      cpb, stages, stage_bytes, smem, lines, s)           \
-                : lean::launch<N_, false, BoxRows, MAXT, MINB>(           \
-                      x1, nullptr, nullptr, G, D, y, chunks, classes,     \
-                      nclass, blocks, cpb, stages, stage_bytes, smem,     \
-                      lines, s);
-#define FUSTPU_CASE5(I, MAXT, MINB) FUSTPU_CASE(5, I, MAXT, MINB)
-#define FUSTPU_CASE7(I, MAXT, MINB) FUSTPU_CASE(7, I, MAXT, MINB)
-  FUSTPU_LEAN_BOUNDS(FUSTPU_CASE5)
-  FUSTPU_LEAN_BOUNDS(FUSTPU_CASE7)
-#undef FUSTPU_CASE5
-#undef FUSTPU_CASE7
-#undef FUSTPU_CASE
-  return -1;
-}
-
-int fustpu_stiffness_lean_bounds_occupancy(int bounds, int P, int pair,
-                                           int cpb, int smem) {
-#define FUSTPU_CASE(N_, I, MAXT, MINB)                                    \
-  if (P + 1 == N_ && bounds == I)                                        \
-    return pair ? lean::occupancy<N_, true, BoxRows, MAXT, MINB>(cpb,    \
-                                                                  smem)  \
-                : lean::occupancy<N_, false, BoxRows, MAXT, MINB>(cpb,   \
-                                                                   smem);
-#define FUSTPU_CASE5(I, MAXT, MINB) FUSTPU_CASE(5, I, MAXT, MINB)
-#define FUSTPU_CASE7(I, MAXT, MINB) FUSTPU_CASE(7, I, MAXT, MINB)
-  FUSTPU_LEAN_BOUNDS(FUSTPU_CASE5)
-  FUSTPU_LEAN_BOUNDS(FUSTPU_CASE7)
-#undef FUSTPU_CASE5
-#undef FUSTPU_CASE7
-#undef FUSTPU_CASE
-  return -1;
 }
 
 }  // extern "C"

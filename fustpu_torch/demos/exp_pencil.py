@@ -25,14 +25,14 @@ chunk that its kernel takes, single and pair, float32 and float64, and
 prints the schedule's choice (``cuda_stiffness.pencil_schedule``) beside
 the fastest; `--sweep` without --corner does the same for the G stream's
 #1 and #2 in float32 and bfloat16 (whose stages hold half the bytes a
-cell): in bfloat16 both the first bfloat16 walk and the lean walk
-(``csrc/pencil_lean.cuh``), at P = 4 also the lean walk under each of its
-launch bounds (register caps).  With --bf16 it times the first bfloat16
-walk against the lean walk, in turns (first, lean, lean, first), single
-and pair, with each one's share of the bound, the values that differ
-between the two and each design's schedule (``compare_bf16``), in place
-of the float32 comparison; with --degrees, at each of those degrees on a
-box of the flagship's grid (``compare_degrees``).
+cell): in bfloat16 both the first bfloat16 walk and, where the main path
+runs it (``cuda_stiffness.lean_runs``), the lean walk
+(``csrc/pencil_lean.cuh``).  With --bf16 it times the first bfloat16 walk
+against the lean walk, in turns (first, lean, lean, first), single and
+pair, with each one's share of the bound, the values that differ between
+the two and each design's schedule (``compare_bf16``), in place of the
+float32 comparison; with --degrees, at each of those degrees on a box of
+the flagship's grid (``compare_degrees``), where the lean walk runs.
 """
 
 from __future__ import annotations
@@ -141,11 +141,10 @@ def sweep_gstream(op: cs.CellStiffness, xs, dev, chain: int = 20,
     """#1 (single) and #2 (pair: `op` with C) of the float32 operator `op`
     and of its bfloat16 cast timed under every cells a chunk that the
     kernel takes, on the fields `xs`: float32 on its walk, bfloat16 on the
-    first bfloat16 walk ("first") and on the lean walk ("lean"; at P = 4
-    and 6 also under each of its sweep's launch bounds, "lean b<i>");
-    prints each time and the schedule's choice beside the fastest.
-    Returns by (form, dtype, design) the chosen cpb and the (cpb, blocks
-    an SM, ms) rows."""
+    first bfloat16 walk ("first") and, where the main path runs it, on the
+    lean walk ("lean"); prints each time and the schedule's choice beside
+    the fastest.  Returns by (form, dtype, design) the chosen cpb and the
+    (cpb, blocks an SM, ms) rows."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         o = op._replace(**{k: v.to(dtype) for k, v in op._asdict().items()
@@ -156,30 +155,24 @@ def sweep_gstream(op: cs.CellStiffness, xs, dev, chain: int = 20,
             oo = o if pair else o._replace(C=None)
             args = a if pair else a[:1]
             tag = f"#{2 if pair else 1} {form} {str(dtype)[6:]}"
-            designs = {"first": (cs.stiffness_pair_first if pair
-                                 else cs.stiffness_first, "first", None)}
+            main = cs.stiffness_pair if pair else cs.stiffness
             if dtype == torch.float32:
-                designs = {"first": (cs.stiffness_pair if pair
-                                     else cs.stiffness, "first", None)}
+                designs = {"first": main}
             else:
-                designs["lean"] = (
-                    lambda o_, *x_, cpb: cs.stiffness_lean(o_, x_, cpb),
-                    "lean", None)
-                if op.P in cs.LEAN_BOUNDS_DEGREES:
-                    for b in range(cs.LEAN_BOUNDS):
-                        designs[f"lean b{b}"] = (
-                            lambda o_, *x_, cpb, b=b:
-                            cs.stiffness_lean(o_, x_, cpb, b),
-                            "lean", b)
-            for name, (fn, design, bounds) in designs.items():
+                designs = {"first": cs.stiffness_pair_first if pair
+                           else cs.stiffness_first}
+                if cs.lean_runs(op.P, pair, dtype):
+                    designs["lean"] = main
+            for name, fn in designs.items():
+                design = name if dtype == torch.bfloat16 else "first"
                 chosen = cs._card_schedule(
                     tuple(op.nc), op.P, dtype, pair, args[0].device,
-                    design=design, bounds=bounds)[0].cpb
+                    design=design)[0].cpb
                 rows = _sweep_rows(
                     f"{tag} {name}",
                     lambda c: cs._card_schedule(
                         tuple(op.nc), op.P, dtype, pair, args[0].device,
-                        cpb=c, design=design, bounds=bounds)[0],
+                        cpb=c, design=design)[0],
                     lambda c: fn(oo, *args, cpb=c), op.P, chain, reps,
                     args[0])
                 best = min(rows, key=lambda r: r[2])
@@ -195,17 +188,20 @@ def sweep_gstream(op: cs.CellStiffness, xs, dev, chain: int = 20,
 def compare_bf16(op: cs.CellStiffness, xs, chain: int = 20,
                  reps: int = 5) -> dict:
     """The first bfloat16 walk (`cs.stiffness_first` / `_pair_first`)
-    against the lean walk (`cs.stiffness_lean`, whatever the degrees that
-    keep the first design) on the bfloat16 operator `op` (single; pair
-    when it has C) and fields `xs`, in turns
+    against the lean walk (the main path's `cs.stiffness` /
+    `cs.stiffness_pair` at a degree where `cs.lean_runs`) on the bfloat16
+    operator `op` (single; pair when it has C) and fields `xs`, in turns
     (first, lean, lean, first): ms of each turn, the least bytes' share,
     the two outputs compared (values that differ, rel-l2) and each
     design's schedule.  Returns {"first": [ms], "lean": [ms], "differ",
     "rel_l2", "nbytes", "y_lean", "y_first"}."""
     pair = op.C is not None
     args = xs[:2] if pair else xs[:1]
+    if not cs.lean_runs(op.P, pair, args[0].dtype):
+        raise ValueError(f"compare_bf16: P={op.P} {'pair' if pair else ''} "
+                         "keeps the first bfloat16 walk")
     fns = {"first": cs.stiffness_pair_first if pair else cs.stiffness_first,
-           "lean": lambda o, *x: cs.stiffness_lean(o, x)}
+           "lean": cs.stiffness_pair if pair else cs.stiffness}
     ys = {k: f(op, *args) for k, f in fns.items()}
     times = {k: [] for k in fns}
     for k in ("first", "lean", "lean", "first"):
@@ -216,9 +212,8 @@ def compare_bf16(op: cs.CellStiffness, xs, chain: int = 20,
     differ = int((ys["lean"] != ys["first"]).sum())
     err = rel_l2(ys["lean"], ys["first"])
     for k in fns:
-        design = "lean" if k == "lean" else "first"
         sch = cs._card_schedule(tuple(op.nc), op.P, args[0].dtype, pair,
-                                args[0].device, design=design)[0]
+                                args[0].device, design=k)[0]
         print(f"#{2 if pair else 1} bf16 {k:5s}: "
               + " / ".join(f"{t:.4f}" for t in times[k])
               + f" ms, {bound / min(times[k]):.1%} of the bound "
@@ -236,8 +231,9 @@ def compare_degrees(degrees, dev, chain: int = 20, reps: int = 3) -> dict:
     """`compare_bf16` at each degree P of `degrees` on a box of the
     flagship's grid, (256 / P, 160 / P, 160 / P) cells rounded (64 x 40 x
     40 at P = 4), its operator set up on the card: single (a per-cell
-    coefficient in G) and pair.  Returns {P: {"single": ..., "pair":
-    ...}} without the outputs."""
+    coefficient in G) and pair, each where the lean walk runs
+    (`cs.lean_runs`).  Returns {P: {"single": ..., "pair": ...}} without
+    the outputs."""
     from fustpu_torch.models.discretization import Discretization
 
     out = {}
@@ -255,6 +251,10 @@ def compare_degrees(degrees, dev, chain: int = 20, reps: int = 3) -> dict:
         out[P] = {}
         for form, kw in (("single", {"coeff": c1}),
                          ("pair", {"pair": (c1, c2)})):
+            if not cs.lean_runs(P, form == "pair", torch.bfloat16):
+                print(f"P={P} {form}: the first bfloat16 walk runs here "
+                      "(cuda_stiffness.FIRST_DESIGN_BF16)", flush=True)
+                continue
             r = compare_bf16(disc.stiffness_op(torch.bfloat16, dev, **kw),
                              xs, chain, reps)
             out[P][form] = {k: v for k, v in r.items()

@@ -330,11 +330,14 @@ def resolve_stiffness_impl(impl: str, device, mesh=None,
     return "cuda" if torch.device(device).type == "cuda" else "mm"
 
 
-def bf16_name(kernel: str, G: torch.Tensor) -> str:
+def bf16_name(kernel: str, G: torch.Tensor, lean: bool = True) -> str:
     """The launch counter of a kernel for operator data G (the G stream,
-    or the corner channels): its bfloat16 form's (`kernel`_bf16) on
-    bfloat16 data."""
-    return kernel + ("_bf16" if G.dtype == torch.bfloat16 else "")
+    or the corner channels): its bfloat16 form's on bfloat16 data
+    (``cuda_stiffness.bf16_key``: `kernel`_bf16, or where a G-stream walk
+    keeps the first bfloat16 walk, not `lean`, `kernel`_bf16_first_walk)."""
+    if G.dtype != torch.bfloat16:
+        return kernel
+    return cs.bf16_key(kernel, lean)
 
 
 class StructuredStiffness(nn.Module):
@@ -369,7 +372,8 @@ class StructuredStiffness(nn.Module):
         if self.impl != "cuda":
             return None
         return bf16_name("stiffness_pair" if self.is_pair else "stiffness",
-                         self.G)
+                         self.G, cs.lean_runs(self.D.shape[0] - 1,
+                                              self.is_pair, self.G.dtype))
 
     @property
     def cell_op(self) -> cs.CellStiffness:
@@ -424,7 +428,8 @@ class ExtrudedStiffness(nn.Module):
         if self.impl != "cuda":
             return None
         return bf16_name("extruded_pair" if self.is_pair else "extruded",
-                         self.G)
+                         self.G, ce.lean_runs(self.D.shape[0] - 1,
+                                              self.G.dtype))
 
     @property
     def cell_op(self) -> ce.ExtrudedCellStiffness:

@@ -42,8 +42,8 @@ operator whose G, D, coeff and C are bfloat16 (`build` / `from_host` of
 - `contract`: y2 in bfloat16, each value rounded once from float32
   arithmetic on the widened u2, G, D, coeff and C (the pair fold
   c1 u1 + c2 u2 too): chunks of cells bulk-copied into a ring of shared
-  stages on a persistent grid, D by value from a host copy (`host_D`);
-  u1, u2, G and y2 16 B-aligned;
+  stages on a persistent grid, D by value from a host copy
+  (``cuda_stiffness.host_D``); u1, u2, G and y2 16 B-aligned;
 - `scatter`: y in bfloat16, each dof's float32 sum of its positions'
   y2 in ascending order rounded once: runs of dofs with their segment of
   the inverse map in tiles; pos 16 B-aligned, y 4 B-aligned.
@@ -288,11 +288,6 @@ def _aligned(name: str, **tensors) -> None:
             raise ValueError(f"{name} kernel: {what} not {b}-byte aligned")
 
 
-# a host copy of D as float32, what the bfloat16 contraction takes by value
-# (kept in ``cuda_stiffness``, whose bfloat16 walk takes it too)
-host_D = cs.host_D
-
-
 def _positions(op: EngineCellStiffness) -> int:
     return op.dofmap.numel()
 
@@ -416,7 +411,7 @@ def contract(op: EngineCellStiffness, u1: torch.Tensor,
         cells, op.P, launch.contract_occupancy(dev, op.P, _MODES[mode]),
         launch.sm_count(dev))
     _launch("engine_contract", dtype, u1, u1.data_ptr(), _ptr(u2),
-            _ptr(op.C), _ptr(op.coeff), op.G.data_ptr(), host_D(op.D),
+            _ptr(op.C), _ptr(op.coeff), op.G.data_ptr(), cs.host_D(op.D),
             y.data_ptr(), cells, op.P, _MODES[mode],
             launch.CONTRACT_CELLS[op.P], blocks)
     return y

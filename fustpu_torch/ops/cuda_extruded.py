@@ -43,11 +43,11 @@ bf16``: fields, G, D and C stored in bfloat16, computed in float32, y
 rounded where it is stored; ``stiffness_pencil.cuh``), counted in
 `bf16_launches`; its plain version computes in float32 and rounds once.
 A bfloat16 apply runs the lean walk (``csrc/pencil_lean.cuh``,
-``csrc/extruded_lean.cu``) on the stacks, except at the degrees of
-``cuda_stiffness.FIRST_DESIGN_BF16`` (the box pencils' measurement: the
-same walk; on stacks the two were timed at P = 4, the imported bowl);
-the first bfloat16 stack walk stays as
-`extruded_first` / `extruded_pair_first`, counted in
+``csrc/extruded_lean.cu``) on the stacks at the degrees of
+`LEAN_STACK_DEGREES` (P = 4, where the two walks were timed in turns on
+the imported bowl), cut in the first design's segments, and the first
+bfloat16 walk at the others; the first walk is also reached as
+`extruded_first` / `extruded_pair_first`, the comparison, counted in
 `comparison_launches`.  The class-launch design has float32 and float64
 only.
 """
@@ -69,9 +69,12 @@ from fustpu_torch.ops import spectral_mm as mm
 # the main path's, and the class-launch design's.
 launches = {"extruded": 0, "extruded_pair": 0}
 class_launches = {"extruded_classes": 0, "extruded_classes_pair": 0}
-# the stack kernel's bfloat16 form (``cuda_stiffness.count``), and the first
-# bfloat16 stack walk, kept as the lean walk's comparison
-bf16_launches = {"extruded_bf16": 0, "extruded_pair_bf16": 0}
+# the stack kernel's bfloat16 form on the main path (``cuda_stiffness.count``:
+# the lean walk, and the first bfloat16 walk outside LEAN_STACK_DEGREES), and
+# the first bfloat16 stack walk called as the lean walk's comparison
+bf16_launches = {"extruded_bf16": 0, "extruded_pair_bf16": 0,
+                 "extruded_bf16_first_walk": 0,
+                 "extruded_pair_bf16_first_walk": 0}
 comparison_launches = {"extruded_first_bf16": 0,
                        "extruded_pair_first_bf16": 0}
 
@@ -272,18 +275,16 @@ def stack_schedule(colour: np.ndarray, rows2d: np.ndarray, nz: int, P: int,
     colour = np.asarray(colour, np.int64)
     per_colour = np.bincount(colour)
     lean = design == "lean"
-    static = 0 if lean else cs._static_smem(P, itemsize)
-    if lean and occupancy is cs.model_occupancy:
-        occupancy = functools.partial(cs.model_occupancy, static=0)
+    walk, static, occupancy = cs.walk_layout(design, P, itemsize, pair,
+                                             occupancy, ids=True,
+                                             channels=channels)
     best = None
     cpbs = [cpb] if cpb else range(1, max(1, cs.MAX_THREADS // (n * n)) + 1)
     segs = [segments] if segments else range(1, nz + 1)
     for c in cpbs:
         if c > nz:
             break
-        stage, smem = (cs.lean_smem(P, c, pair, ids=True) if lean else
-                       cs.pencil_smem(P, itemsize, c, pair, ids=True,
-                                      channels=channels))
+        stage, smem = walk(c)
         if smem + static > cs.SMEM_BLOCK:
             break
         bps = int(occupancy(P, itemsize, pair, c, smem))
@@ -380,29 +381,21 @@ class StackPlan:
         stack kernel on `device` (its SMs, its occupancy answers); `segments`
         and `cpb` as `stack_schedule` takes them; `geo`: the geometry
         stream, G (0) or the corner channels of geometry degree 1 or 2;
-        `design`: the walk, "first" or the bfloat16 "lean" walk."""
+        `design`: the walk, "first" or the bfloat16 "lean" walk, which
+        takes the first walk's segments unless `segments` is given (a stack
+        cut at other points rounds its shared faces at other points)."""
         device = torch.device(device)
         key = (P, dtype, pair, device, segments, cpb, geo, design)
         if key not in self._card:
             from fustpu_torch import _build
 
-            lib = _build.load()
-            if design == "lean":
-                ask = lambda P, itemsize, pair, cpb, smem: \
-                    lib.fustpu_extruded_stack_lean_occupancy(P, int(pair),
-                                                             cpb, smem)
-            else:
-                query = getattr(lib, OCCUPANCY[geo])
-                ask = lambda P, itemsize, pair, cpb, smem: \
-                    query(P, cs.TYPE_CODE[itemsize], int(pair), cpb, smem)
-
-            def occupancy(P, itemsize, pair, cpb, smem):
-                got = ask(P, itemsize, pair, cpb, smem)
-                if got < 0:
-                    raise RuntimeError(f"stack kernel occupancy query "
-                                       f"failed: error {-got}")
-                return got
-
+            if design == "lean" and segments is None:
+                segments = self.card(P, dtype, pair, device, None, cpb,
+                                     geo)[0].segments
+            occupancy = cs.occupancy_query(
+                _build.load(), OCCUPANCY[geo],
+                "fustpu_extruded_stack_lean_occupancy", design,
+                "stack kernel")
             sms = torch.cuda.get_device_properties(
                 device).multi_processor_count
             itemsize = torch.empty((), dtype=dtype).element_size()
@@ -422,8 +415,22 @@ class StackPlan:
 def card_schedule(op: "ExtrudedCellStiffness", x: torch.Tensor,
                   pair: bool) -> StackSchedule:
     """The schedule that an apply of `op` on x's card runs."""
-    design = "lean" if cs.lean_runs(op.P, pair, x.dtype) else "first"
+    design = "lean" if lean_runs(op.P, x.dtype) else "first"
     return op.plan.card(op.P, x.dtype, pair, x.device, design=design)[0]
+
+
+# The degrees at which a bfloat16 apply on stacks runs the lean walk, single
+# and pair: P = 4, where the two walks were timed in turns on the imported
+# bowl (``chip_smoke.py`` 34d); the others keep the first bfloat16 walk
+# until they are timed.  ``extruded_lean.cu`` instantiates the lean walk at
+# these degrees only (FUSTPU_LEAN_STACKS).
+LEAN_STACK_DEGREES = frozenset({4})
+
+
+def lean_runs(P: int, dtype: torch.dtype) -> bool:
+    """Whether a stack apply of degree P in `dtype` (single or pair) runs
+    the lean walk."""
+    return dtype == torch.bfloat16 and P in LEAN_STACK_DEGREES
 
 
 def stack_order(mesh, a):
@@ -571,9 +578,6 @@ def _launch_stack(name: str, op: ExtrudedCellStiffness, xs, extra,
     if x.numel() >= 2 ** 31:
         raise ValueError(f"extruded kernel: {x.numel()} dofs, the stack "
                          "kernel indexes fewer than 2^31")
-    if design == "lean" and x.dtype != torch.bfloat16:
-        raise ValueError(f"extruded kernel: the lean walk takes bfloat16, "
-                         f"not {x.dtype}")
     sched, chunks, ids, classes = op.plan.card(
         op.P, x.dtype, len(xs) == 2, x.device, segments, cpb, design=design)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
@@ -626,10 +630,10 @@ def extruded(op: ExtrudedCellStiffness, x: torch.Tensor, **schedule
     if x.device.type == "cpu":
         return extruded_plain(op, x)
     _check(op, x, pair=False)
-    lean = cs.lean_runs(op.P, False, x.dtype)
+    lean = lean_runs(op.P, x.dtype)
     y = _launch_stack("extruded", op, (x,), (), **schedule,
                       design="lean" if lean else "first")
-    cs.count(launches, bf16_launches, "extruded", x.dtype)
+    cs.count(launches, bf16_launches, "extruded", x.dtype, lean)
     return y
 
 
@@ -640,21 +644,23 @@ def extruded_pair(op: ExtrudedCellStiffness, x1: torch.Tensor,
     if x1.device.type == "cpu":
         return extruded_pair_plain(op, x1, x2)
     _check(op, x1, x2, pair=True)
-    lean = cs.lean_runs(op.P, True, x1.dtype)
+    lean = lean_runs(op.P, x1.dtype)
     y = _launch_stack("extruded_pair", op, (x1, x2), (op.C.data_ptr(),),
                       **schedule, design="lean" if lean else "first")
-    cs.count(launches, bf16_launches, "extruded_pair", x1.dtype)
+    cs.count(launches, bf16_launches, "extruded_pair", x1.dtype, lean)
     return y
 
 
 def extruded_first(op: ExtrudedCellStiffness, x: torch.Tensor, **schedule
                    ) -> torch.Tensor:
-    """`extruded` of a bfloat16 operator through the first bfloat16 stack walk
-    (`fustpu_extruded_stack_bf16`), the lean walk's comparison; counted in
-    `comparison_launches` (the plain version for a CPU tensor)."""
+    """`extruded` of a bfloat16 operator through the first bfloat16 stack
+    walk (`fustpu_extruded_stack_bf16`) at every degree, on its own
+    schedule unless `schedule` gives another, the lean walk's comparison;
+    counted in `comparison_launches` (the plain version for a CPU
+    tensor)."""
     if x.device.type == "cpu":
         return extruded_plain(op, x)
-    _check(op, x, pair=False, types={torch.bfloat16: "bf16"})
+    _check(op, x, pair=False, types=cs.BF16_ONLY)
     y = _launch_stack("extruded", op, (x,), (), **schedule)
     comparison_launches["extruded_first_bf16"] += 1
     return y
@@ -666,7 +672,7 @@ def extruded_pair_first(op: ExtrudedCellStiffness, x1: torch.Tensor,
     `extruded_first`."""
     if x1.device.type == "cpu":
         return extruded_pair_plain(op, x1, x2)
-    _check(op, x1, x2, pair=True, types={torch.bfloat16: "bf16"})
+    _check(op, x1, x2, pair=True, types=cs.BF16_ONLY)
     y = _launch_stack("extruded_pair", op, (x1, x2), (op.C.data_ptr(),),
                       **schedule)
     comparison_launches["extruded_pair_first_bf16"] += 1

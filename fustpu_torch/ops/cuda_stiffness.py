@@ -41,15 +41,17 @@ and rounds once (``fustpu_torch.ops.spectral_mm``).  A bfloat16 apply runs
 the lean walk (``csrc/pencil_lean.cuh``, ``csrc/stiffness_lean.cu``: D by
 value, padded float rows read as float4s, three barriers a chunk, its own
 launch bounds and cost model), except at the degrees of
-`FIRST_DESIGN_BF16`; the first bfloat16 walk stays as `stiffness_first` /
-`stiffness_pair_first`, counted in `comparison_launches`.
+`FIRST_DESIGN_BF16`, which keep the first bfloat16 walk; that walk is
+also reached as `stiffness_first` / `stiffness_pair_first`, the
+comparison, counted in `comparison_launches`.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (`stiffness_plain` / `stiffness_pair_plain`, the matmul formulation of
 ``fustpu_torch.ops.spectral_mm`` on the same data).  Given CUDA tensors it
 launches the kernel or raises: there is no fallback.  Each wrapper counts
 its launches in `launches` (one per apply), the bfloat16 forms' in
-`bf16_launches`.
+`bf16_launches`: `name`_bf16 on the lean walk, `name`_bf16_first_walk on
+the first (`bf16_key`).
 """
 
 from __future__ import annotations
@@ -65,10 +67,13 @@ from torch.utils.weak import WeakIdKeyDictionary
 from fustpu_torch.ops import spectral_mm as mm
 
 # Applies that went through each kernel (not counting the plain version),
-# through its bfloat16 form, and through the first bfloat16 walk, kept as the
-# comparison of the lean walk.
+# through its bfloat16 form on the main path (on the lean walk, and on the
+# first bfloat16 walk at the degrees of FIRST_DESIGN_BF16), and through the
+# first bfloat16 walk called as the lean walk's comparison.
 launches = {"stiffness": 0, "stiffness_pair": 0}
-bf16_launches = {"stiffness_bf16": 0, "stiffness_pair_bf16": 0}
+bf16_launches = {"stiffness_bf16": 0, "stiffness_pair_bf16": 0,
+                 "stiffness_bf16_first_walk": 0,
+                 "stiffness_pair_bf16_first_walk": 0}
 comparison_launches = {"stiffness_first_bf16": 0,
                        "stiffness_pair_first_bf16": 0}
 
@@ -79,12 +84,19 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
+def bf16_key(name: str, lean: bool = True) -> str:
+    """The `bf16_launches` key of a bfloat16 launch of kernel `name`:
+    `name`_bf16, or `name`_bf16_first_walk where a G-stream walk's
+    bfloat16 apply runs the first bfloat16 walk (not `lean`)."""
+    return f"{name}_bf16" + ("" if lean else "_first_walk")
+
+
 def count(launches: dict, bf16_launches: dict, name: str,
-          dtype: torch.dtype) -> None:
+          dtype: torch.dtype, lean: bool = True) -> None:
     """One launch of kernel `name` in `dtype`: its bfloat16 form counts
-    as `name`_bf16 in `bf16_launches`."""
+    under `bf16_key` in `bf16_launches`."""
     if dtype == torch.bfloat16:
-        bf16_launches[f"{name}_bf16"] += 1
+        bf16_launches[bf16_key(name, lean)] += 1
     else:
         launches[name] += 1
 
@@ -293,6 +305,23 @@ def model_occupancy(P: int, itemsize: int, pair: bool, cpb: int,
                SMEM_SM // (smem + static + SMEM_RESERVED))
 
 
+def walk_layout(design: str, P: int, itemsize: int, pair: bool,
+                occupancy, ids: bool = False, channels: int = 0) -> tuple:
+    """(layout(cpb) -> (bytes a stage, shared bytes a block), the static
+    shared bytes, occupancy) of the walk `design` on box pencils or, with
+    `ids`, on stacks: the first walk's (`pencil_smem`, `_static_smem`) or
+    the bfloat16 lean walk's (`lean_smem`, none static); `occupancy` as
+    given, `model_occupancy` without the static part for the lean
+    walk."""
+    if design == "lean":
+        if occupancy is model_occupancy:
+            occupancy = functools.partial(model_occupancy, static=0)
+        return (lambda c: lean_smem(P, c, pair, ids=ids)), 0, occupancy
+    return ((lambda c: pencil_smem(P, itemsize, c, pair, ids=ids,
+                                   channels=channels)),
+            _static_smem(P, itemsize), occupancy)
+
+
 # The cost model of the stack and chunk kernels' schedules, in bytes of G
 # streamed by the busiest SM.  A chunk step costs what the SM's resident
 # blocks stream in it, but no less than STEP_FLOOR_BYTES (a block's
@@ -400,16 +429,13 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
         raise ValueError(f"pencil kernel: {cpb} cells of degree {P} need "
                          f"more than {MAX_THREADS} threads")
     lean = design == "lean"
-    static = 0 if lean else _static_smem(P, itemsize)
-    if lean and occupancy is model_occupancy:
-        occupancy = functools.partial(model_occupancy, static=0)
+    walk, static, occupancy = walk_layout(design, P, itemsize, pair,
+                                          occupancy, channels=channels)
     best = None
     for c in [cpb] if cpb else range(1, max(1, MAX_THREADS // (n * n)) + 1):
         if c > ncz:
             break
-        stage, smem = (layout(c) if layout else lean_smem(P, c, pair) if lean
-                       else pencil_smem(P, itemsize, c, pair,
-                                        channels=channels))
+        stage, smem = layout(c) if layout else walk(c)
         if smem + static > SMEM_BLOCK:
             break
         bps = int(occupancy(P, itemsize, pair, c, smem))
@@ -457,48 +483,42 @@ def pencil_schedule(nc, P: int, itemsize: int, sms: int, pair: bool = False,
 # or the corner channels of geometry degree 1.
 OCCUPANCY = ("fustpu_stiffness_occupancy", "fustpu_corner_pencil_occupancy")
 
-# The degrees at which the lean walk's sweep entry points run it under each
-# of the launch bounds FUSTPU_LEAN_BOUNDS (``pencil_lean.cuh``), and their
-# count.
-LEAN_BOUNDS_DEGREES = (4, 6)
-LEAN_BOUNDS = 5
-
-# The degrees (P, pair?) at which a bfloat16 apply keeps the first bfloat16
-# walk, the lean walk having measured slower there in turns on a box of
-# the flagship's grid (``demos/exp_pencil --bf16 --degrees``, H100; PERF.md,
-# the bf16 rows of #1 / #2): its register cap spills from P = 7 on.
+# The degrees (P, pair?) at which a bfloat16 apply on box pencils keeps the
+# first bfloat16 walk, the lean walk having measured slower there in turns on
+# a box of the flagship's grid (``demos/exp_pencil --bf16 --degrees``, H100;
+# PERF.md, the bf16 rows of #1 / #2): its register cap spills from P = 7 on.
+# ``stiffness_lean.cu`` instantiates the lean walk at the other degrees only
+# (FUSTPU_LEAN_SINGLE, FUSTPU_LEAN_PAIR).
 FIRST_DESIGN_BF16 = frozenset({(6, True), (7, False), (7, True), (8, True),
                                (9, False), (9, True), (10, False),
                                (10, True)})
 
 
 def lean_runs(P: int, pair: bool, dtype: torch.dtype) -> bool:
-    """Whether an apply of degree P (pair or not) in `dtype` runs the lean
-    walk: bfloat16, but for `FIRST_DESIGN_BF16`."""
+    """Whether an apply on box pencils of degree P (pair or not) in
+    `dtype` runs the lean walk: bfloat16, but for `FIRST_DESIGN_BF16`."""
     return dtype == torch.bfloat16 and (P, pair) not in FIRST_DESIGN_BF16
 
 
-def _occupancy_query(lib, design: str, geo: int, bounds: int | None):
+def occupancy_query(lib, first: str, lean: str, design: str, what: str):
     """occupancy(P, itemsize, pair, cpb, smem) from the card's answer for
-    the kernel of `design` (and, for the lean walk's sweep at P = 4, the
-    launch bounds `bounds`)."""
-    if design == "lean" and bounds is not None:
-        ask = lambda P, itemsize, pair, cpb, smem: \
-            lib.fustpu_stiffness_lean_bounds_occupancy(bounds, P, int(pair),
-                                                       cpb, smem)
-    elif design == "lean":
-        ask = lambda P, itemsize, pair, cpb, smem: \
-            lib.fustpu_stiffness_lean_occupancy(P, int(pair), cpb, smem)
+    the walk `design`: the entry point `first` of the first walk (P, type
+    code, pair, cpb, smem) or `lean` of the bfloat16 lean walk (P, pair,
+    cpb, smem); `what` names the kernel in an error."""
+    if design == "lean":
+        query = getattr(lib, lean)
+        ask = lambda P, itemsize, pair, cpb, smem: query(P, int(pair), cpb,
+                                                         smem)
     else:
-        query = getattr(lib, OCCUPANCY[geo])
+        query = getattr(lib, first)
         ask = lambda P, itemsize, pair, cpb, smem: \
             query(P, TYPE_CODE[itemsize], int(pair), cpb, smem)
 
     def occupancy(P, itemsize, pair, cpb, smem):
         got = ask(P, itemsize, pair, cpb, smem)
         if got < 0:
-            raise RuntimeError(f"pencil kernel occupancy query failed: "
-                               f"error {-got}")
+            raise RuntimeError(f"{what} occupancy query failed: error "
+                               f"{-got}")
         return got
 
     return occupancy
@@ -507,17 +527,17 @@ def _occupancy_query(lib, design: str, geo: int, bounds: int | None):
 @functools.cache
 def _card_schedule(nc: tuple, P: int, dtype: torch.dtype, pair: bool,
                    device: torch.device, geo: int = 0,
-                   cpb: int | None = None, design: str = "first",
-                   bounds: int | None = None) -> tuple:
+                   cpb: int | None = None, design: str = "first") -> tuple:
     """The schedule on `device` (its SMs, its kernel's occupancy answers)
     of the geometry stream `geo` and the walk `design` ("first", or the
-    bfloat16 "lean" walk, at P = 4 under the sweep's launch bounds
-    `bounds` if given), its chunk table there and its classes as a C
+    bfloat16 "lean" walk), its chunk table there and its classes as a C
     array, built once per shape (`cpb`: another cells a chunk than the
     schedule's choice)."""
     from fustpu_torch import _build
 
-    occupancy = _occupancy_query(_build.load(), design, geo, bounds)
+    occupancy = occupancy_query(_build.load(), OCCUPANCY[geo],
+                                "fustpu_stiffness_lean_occupancy", design,
+                                "pencil kernel")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     itemsize = torch.empty((), dtype=dtype).element_size()
     with torch.cuda.device(device):
@@ -588,14 +608,19 @@ def stiffness_pair_plain(op: CellStiffness, x1: torch.Tensor,
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check(op: CellStiffness, *xs: torch.Tensor, pair: bool) -> None:
+# the types of the first bfloat16 walk's comparison entry points
+BF16_ONLY = {torch.bfloat16: "bf16"}
+
+
+def _check(op: CellStiffness, *xs: torch.Tensor, pair: bool,
+           types: dict = SUFFIX) -> None:
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"stiffness kernel: tensor on {x.device}, "
                          "expected a CUDA device")
-    if x.dtype not in SUFFIX:
+    if x.dtype not in types:
         raise ValueError(f"stiffness kernel: dtype {x.dtype} unsupported "
-                         "(float32, float64 or bfloat16)")
+                         f"({', '.join(map(str, types))})")
     if not 2 <= op.P <= 10:
         raise ValueError(f"stiffness kernel: degree {op.P} outside 2..10")
     n = op.P + 1
@@ -619,52 +644,35 @@ def _check(op: CellStiffness, *xs: torch.Tensor, pair: bool) -> None:
 
 
 def _launch(name: str, op: CellStiffness, xs, extra,
-            cpb: int | None = None, design: str = "first",
-            bounds: int | None = None) -> torch.Tensor:
+            cpb: int | None = None, design: str = "first") -> torch.Tensor:
     """One apply through the walk `design`: "first" (float32, float64, and
-    the first bfloat16 walk) or the bfloat16 "lean" walk (at P = 4 under the
-    sweep's launch bounds `bounds` if given); counted by the caller."""
+    the first bfloat16 walk) or the bfloat16 "lean" walk; counted by the
+    caller."""
     from fustpu_torch import _build
 
     x = xs[0]
-    if op.G.data_ptr() % 16:
-        raise ValueError("stiffness kernel: G's data is not 16 B-aligned "
-                         "(the bulk copies need it)")
+    if op.G.numel() >= 2 ** 31:
+        raise ValueError(f"stiffness kernel: G has {op.G.numel()} values, "
+                         "the kernel indexes fewer than 2^31")
     if x.numel() >= 2 ** 31:
         raise ValueError(f"stiffness kernel: {x.numel()} grid nodes, the "
                          "kernel indexes fewer than 2^31")
-    pair = len(xs) == 2
-    if design == "lean" and x.dtype != torch.bfloat16:
-        raise ValueError(f"stiffness kernel: the lean walk takes bfloat16, "
-                         f"not {x.dtype}")
-    if bounds is not None and op.P not in LEAN_BOUNDS_DEGREES:
-        raise ValueError("stiffness kernel: the lean walk's launch bounds "
-                         f"are swept at P = 4 and 6, not {op.P}")
     sched, chunks, classes = _card_schedule(tuple(op.nc), op.P, x.dtype,
-                                            pair, x.device, cpb=cpb,
-                                            design=design, bounds=bounds)
+                                            len(xs) == 2, x.device, cpb=cpb,
+                                            design=design)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     lib = _build.load()
-    D = op.D.data_ptr()
     if design == "lean":
-        D = host_D(op.D)
-        fn = getattr(lib, f"fustpu_{name}_lean_bf16")
+        fn, D = getattr(lib, f"fustpu_{name}_lean_bf16"), host_D(op.D)
     else:
         fn = getattr(lib, f"fustpu_{name}_{SUFFIX[x.dtype]}")
-    rest = (op.G.data_ptr(), D, y.data_ptr())
-    table = (chunks.data_ptr(), classes, len(sched.classes), sched.blocks,
-             sched.cpb, sched.stages, sched.stage_bytes, sched.smem,
-             op.nc[1], op.nc[2])
+        D = op.D.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if bounds is not None:
-            err = lib.fustpu_stiffness_lean_bounds_bf16(
-                bounds, op.P, int(pair), xs[0].data_ptr(),
-                xs[1].data_ptr() if pair else None,
-                op.C.data_ptr() if pair else None, *rest, *table, stream)
-        else:
-            err = fn(*(t.data_ptr() for t in xs), *extra, *rest, op.P,
-                     *table, stream)
+        err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(), D,
+                 y.data_ptr(), op.P, chunks.data_ptr(), classes,
+                 len(sched.classes), sched.blocks, sched.cpb, sched.stages,
+                 sched.stage_bytes, sched.smem, op.nc[1], op.nc[2], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
     return y
@@ -673,16 +681,15 @@ def _launch(name: str, op: CellStiffness, xs, extra,
 def stiffness(op: CellStiffness, x: torch.Tensor,
               cpb: int | None = None) -> torch.Tensor:
     """y_grid = A_stiff(x_grid) through the single-field kernel (the plain
-    version for a CPU tensor): in bfloat16 the lean walk (`lean_runs`);
-    `cpb`: cells a chunk in place of the schedule's choice
-    (`pencil_schedule`)."""
+    version for a CPU tensor): in bfloat16 the lean walk where `lean_runs`,
+    else the first bfloat16 walk; `cpb`: cells a chunk in place of the
+    schedule's choice (`pencil_schedule`)."""
     if x.device.type == "cpu":
         return stiffness_plain(op, x)
     _check(op, x, pair=False)
     lean = lean_runs(op.P, False, x.dtype)
-    y = _launch("stiffness", op, (x,), (), cpb,
-                "lean" if lean else "first")
-    count(launches, bf16_launches, "stiffness", x.dtype)
+    y = _launch("stiffness", op, (x,), (), cpb, "lean" if lean else "first")
+    count(launches, bf16_launches, "stiffness", x.dtype, lean)
     return y
 
 
@@ -696,25 +703,19 @@ def stiffness_pair(op: CellStiffness, x1: torch.Tensor, x2: torch.Tensor,
     lean = lean_runs(op.P, True, x1.dtype)
     y = _launch("stiffness_pair", op, (x1, x2), (op.C.data_ptr(),), cpb,
                 "lean" if lean else "first")
-    count(launches, bf16_launches, "stiffness_pair", x1.dtype)
+    count(launches, bf16_launches, "stiffness_pair", x1.dtype, lean)
     return y
-
-
-def _check_bf16(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the comparison walks take bfloat16, not "
-                         f"{x.dtype}")
 
 
 def stiffness_first(op: CellStiffness, x: torch.Tensor,
                     cpb: int | None = None) -> torch.Tensor:
     """`stiffness` of a bfloat16 operator through the first bfloat16 walk
-    (`fustpu_stiffness_bf16`), the lean walk's comparison; counted in
-    `comparison_launches` (the plain version for a CPU tensor)."""
+    (`fustpu_stiffness_bf16`) at every degree, the lean walk's comparison;
+    counted in `comparison_launches` (the plain version for a CPU
+    tensor)."""
     if x.device.type == "cpu":
         return stiffness_plain(op, x)
-    _check(op, x, pair=False)
-    _check_bf16(x, "stiffness_first")
+    _check(op, x, pair=False, types=BF16_ONLY)
     y = _launch("stiffness", op, (x,), (), cpb)
     comparison_launches["stiffness_first_bf16"] += 1
     return y
@@ -727,23 +728,7 @@ def stiffness_pair_first(op: CellStiffness, x1: torch.Tensor,
     `stiffness_first`."""
     if x1.device.type == "cpu":
         return stiffness_pair_plain(op, x1, x2)
-    _check(op, x1, x2, pair=True)
-    _check_bf16(x1, "stiffness_pair_first")
+    _check(op, x1, x2, pair=True, types=BF16_ONLY)
     y = _launch("stiffness_pair", op, (x1, x2), (op.C.data_ptr(),), cpb)
     comparison_launches["stiffness_pair_first_bf16"] += 1
     return y
-
-
-def stiffness_lean(op: CellStiffness, xs, cpb: int | None = None,
-                   bounds: int | None = None) -> torch.Tensor:
-    """One bfloat16 apply (single for one field in `xs`, pair for two)
-    through the lean walk whatever `FIRST_DESIGN_BF16` routes, with its
-    own launch bounds or, at P = 4 and 6, the sweep's `bounds` of
-    ``pencil_lean.cuh`` FUSTPU_LEAN_BOUNDS: what ``demos/exp_pencil``'s
-    sweeps and per-degree comparison run.  Counted nowhere: not the main
-    path."""
-    pair = len(xs) == 2
-    _check(op, *xs, pair=pair)
-    _check_bf16(xs[0], "stiffness_lean")
-    return _launch("stiffness_pair" if pair else "stiffness", op, tuple(xs),
-                   (op.C.data_ptr(),) if pair else (), cpb, "lean", bounds)

@@ -725,7 +725,8 @@ def test_bf16_kernels_match_plain_on_card(P, tmp_path):
     """The bf16 forms of #1 / #2, #6 and #11, single (with and without a
     coefficient in G) and pair, against their plain bf16 versions on the
     same inputs (CARD_TOL), two applies bitwise equal, each launch counted
-    in its bf16 counter and in no float32 one."""
+    in its bf16 counter (of the walk that runs at P) and in no float32
+    one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
     forms = {"#1 / #2": ((cs.stiffness_plain, cs.stiffness_pair_plain),
@@ -755,6 +756,13 @@ def test_bf16_kernels_match_plain_on_card(P, tmp_path):
             assert rel(y.cpu(), plain(op, *a).cpu()) <= CARD_TOL, (route,
                                                                    kw)
             assert torch.equal(kernel(op, *a), y)
+    # the walk that each G-stream form runs at P: the lean walk or the first
+    walked = ({cs.bf16_key(n, cs.lean_runs(P, n.endswith("pair"), BF16))
+               for n in ("stiffness", "stiffness_pair")}
+              | {cs.bf16_key(n, ce.lean_runs(P, BF16))
+                 for n in ("extruded", "extruded_pair")}
+              | set(ci.bf16_launches))
     for mod in (cs, ce, ci):
-        assert all(mod.bf16_launches.values()), mod.bf16_launches
+        assert all(bool(v) == (k in walked)
+                   for k, v in mod.bf16_launches.items()), mod.bf16_launches
         assert not any(mod.launches.values()), mod.launches

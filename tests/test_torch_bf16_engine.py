@@ -544,7 +544,7 @@ def test_bf16_launch_arguments(no_card_launch):
     cells = op.dofmap.shape[0]
     assert no_card_launch[2][2] == (
         u1.data_ptr(), u2.data_ptr(), op.C.data_ptr(), 0, op.G.data_ptr(),
-        cen.host_D(op.D), y2.data_ptr(), cells, 2, 2,
+        cs.host_D(op.D), y2.data_ptr(), cells, 2, 2,
         launch.CONTRACT_CELLS[2], launch.contract_blocks(cells, 2,
                                                          OCCUPANCY, 132))
     assert launch.contract_blocks(cells, 2, OCCUPANCY, 132) == 1
@@ -653,12 +653,12 @@ def test_host_D_is_kept_and_follows_changes():
     """The bf16 contraction's D by value: a float32 host copy of the
     operator's D, made once a tensor, remade after an in-place change."""
     D = torch.tensor([[0.5, -1.25], [3.0, 7.5]], dtype=BF16)
-    at = cen.host_D(D)
-    assert cen.host_D(D) == at
+    at = cs.host_D(D)
+    assert cs.host_D(D) == at
     got = (ctypes.c_float * 4).from_address(at)
     assert list(got) == [0.5, -1.25, 3.0, 7.5]
     D[1, 1] = 2.0
-    got = (ctypes.c_float * 4).from_address(cen.host_D(D))
+    got = (ctypes.c_float * 4).from_address(cs.host_D(D))
     assert list(got) == [0.5, -1.25, 3.0, 2.0]
 
 

@@ -1,7 +1,7 @@
 """The bfloat16 G-stream z-pencil walk redesigned for Hopper (the lean walk,
 ``fustpu_torch/csrc/pencil_lean.cuh``; #1 / #2 on box pencils through
-``ops/cuda_stiffness``, #6 on extruded stacks through ``ops/cuda_extruded``)
-and the RK4 update kernel's one-wave grid (``csrc/vector.cu``).
+``ops/cuda_stiffness``, #6 on extruded stacks through
+``ops/cuda_extruded``).
 
 On the CPU: the lean walk's schedules and shared-memory layout at P = 2..10,
 single and pair, box and stack (every cell once, no node shared inside a
@@ -10,16 +10,19 @@ part, the bulk spans 16 B-aligned inside G, the float rows 16 B-aligned); a
 float32 emulation of the bfloat16 walk in the lean schedule's order of adds
 against the JAX package's bfloat16 Pallas kernels in interpret mode and
 against the plain version; the routing of an apply to the lean walk or the
-first design, and the wrappers' refusals before any launch.  On the card
-(`-m cuda`, skipped here): the lean walk against the first bfloat16 walk at
-P = 2..10 (the redesign gate), against its plain version, two applies
-bitwise.  The JAX package is imported inside the tests that compare
-against it (the `ref` fixture).
+first design, the same degrees as the CUDA sources instantiate, and the
+comparison wrappers' refusals before any launch.  On the card (`-m cuda`,
+skipped here): at each degree that runs the lean walk, the main path's
+output against the first bfloat16 walk's, each on its own schedule (the
+redesign gate), against the plain version, two applies bitwise.  The JAX
+package is imported inside the tests that compare against it (the `ref`
+fixture).
 """
 
 from __future__ import annotations
 
 import functools
+import re
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -309,17 +312,39 @@ def test_lean_order_matches_fustpu_bf16(ref, P, small_card):
 # ---------------------------------------------------------------------------
 
 def test_bf16_applies_run_the_lean_walk():
-    """A bfloat16 apply runs the lean walk unless its degree keeps the
-    first design (`FIRST_DESIGN_BF16`, box pencils and stacks alike);
-    float32 and float64 never do."""
+    """A bfloat16 apply on box pencils runs the lean walk unless its degree
+    keeps the first design (`FIRST_DESIGN_BF16`), one on stacks at
+    `LEAN_STACK_DEGREES` only (P = 4); float32 and float64 never do."""
     for P in range(2, 11):
         for pair in (False, True):
             assert cs.lean_runs(P, pair, BF16) == (
                 (P, pair) not in cs.FIRST_DESIGN_BF16)
             assert not cs.lean_runs(P, pair, torch.float32)
             assert not cs.lean_runs(P, pair, torch.float64)
+        assert ce.lean_runs(P, BF16) == (P == 4)
+        assert not ce.lean_runs(P, torch.float32)
+        assert not ce.lean_runs(P, torch.float64)
     assert (4, False) not in cs.FIRST_DESIGN_BF16
     assert (4, True) not in cs.FIRST_DESIGN_BF16
+
+
+def _degrees(source: str, macro: str) -> set:
+    """The degrees that `macro` lists in the CUDA source `source`."""
+    text = (_build.CSRC / source).read_text()
+    line = re.search(rf"#define {macro}\(M\)(.*)", text).group(1)
+    return {int(d) for d in re.findall(r"M\((\d+)\)", line)}
+
+
+def test_lean_instances_match_the_routing():
+    """The CUDA sources instantiate the lean walk exactly at the degrees
+    that the wrappers route to it: box single and pair
+    (``stiffness_lean.cu``), stacks (``extruded_lean.cu``)."""
+    for pair, macro in ((False, "FUSTPU_LEAN_SINGLE"),
+                        (True, "FUSTPU_LEAN_PAIR")):
+        assert _degrees("stiffness_lean.cu", macro) == {
+            P for P in range(2, 11) if cs.lean_runs(P, pair, BF16)}
+    assert _degrees("extruded_lean.cu", "FUSTPU_LEAN_STACKS") == set(
+        ce.LEAN_STACK_DEGREES)
 
 
 class _OnCard(torch.Tensor):
@@ -332,26 +357,30 @@ class _OnCard(torch.Tensor):
 
 
 def test_wrappers_refuse_before_any_launch(monkeypatch):
-    """The comparison walks and the launch-bounds sweep take bfloat16
-    only, and the sweep P = 4 only: they raise before any launch."""
+    """The first bfloat16 walk's comparison entry points take bfloat16
+    only, box pencils and stacks, single and pair: given float32 they
+    raise before any launch."""
     def refuse():
         raise AssertionError("launched")
 
     monkeypatch.setattr(_build, "load", refuse)
-    k = _case(2, (3, 2, 5))
-    nc = k["mesh"].nc
-    for dtype, P in ((torch.float32, 4), (BF16, 2)):
-        mesh = build_box_mesh(nc, P)
-        op = Discretization(mesh).stiffness_op(dtype, "cpu")
-        op = op._replace(**{f: v.as_subclass(_OnCard) for f, v in
-                            op._asdict().items()
-                            if isinstance(v, torch.Tensor)})
-        x = torch.zeros(mesh.grid_shape, dtype=dtype).as_subclass(_OnCard)
-        if dtype == torch.float32:
-            with pytest.raises(ValueError, match="bfloat16"):
-                cs.stiffness_first(op, x)
-        with pytest.raises(ValueError, match="bfloat16|P = 4"):
-            cs.stiffness_lean(op, (x,), bounds=0)
+    on_card = lambda o: o._replace(**{
+        f: v.as_subclass(_OnCard) for f, v in o._asdict().items()
+        if isinstance(v, torch.Tensor)})
+    box = build_box_mesh((3, 2, 5), 4)
+    stacks = as_extruded(from_box(build_box_mesh((3, 2, 5), 4),
+                                  shuffle_seed=11))
+    for mesh, single, pair in (
+            (box, cs.stiffness_first, cs.stiffness_pair_first),
+            (stacks, ce.extruded_first, ce.extruded_pair_first)):
+        disc = Discretization(mesh)
+        x = torch.zeros(mesh.grid_shape).as_subclass(_OnCard)
+        with pytest.raises(ValueError, match="bfloat16"):
+            single(on_card(disc.stiffness_op(torch.float32, "cpu")), x)
+        c = np.ones(mesh.nc if hasattr(mesh, "nc") else mesh.num_cells)
+        op2 = on_card(disc.stiffness_op(torch.float32, "cpu", pair=(c, c)))
+        with pytest.raises(ValueError, match="bfloat16"):
+            pair(op2, x, x)
 
 
 # ---------------------------------------------------------------------------
@@ -371,16 +400,17 @@ def _card_meshes(P, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", range(2, 11))
+@pytest.mark.parametrize("P", [P for P in range(2, 11)
+                               if cs.lean_runs(P, False, BF16)])
 def test_lean_walk_matches_first_design_on_card(P, tmp_path):
-    """The lean walk against the first bfloat16 walk on the same bf16
-    inputs, box and stacks, single (with a coefficient) and pair: under the
-    lean walk's own schedule (its cells a chunk, and on stacks its
-    segments) within the redesign gate (GATE_TOL, at most GATE_SHARE of
-    the values differing); under each design's own schedule (where the
-    stacks' segments, and so the classes that round a shared node, may
-    differ) both within CARD_TOL of the plain version and GATE_TOL of each
-    other; two applies bitwise; each counted in its own counter."""
+    """At a degree that runs the lean walk, the main path's output (the
+    lean walk on its own schedule) against the first bfloat16 walk's on
+    its own schedule on the same bf16 inputs, box and stacks, single (with
+    a coefficient) and pair, each form where it runs the lean walk: within
+    the redesign gate (GATE_TOL, at most GATE_SHARE of the values
+    differing), as under the lean walk's schedule; both within CARD_TOL of
+    the plain version; two applies bitwise; each counted in its own
+    counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
     forms = {"box": ((cs.stiffness, cs.stiffness_pair),
@@ -389,9 +419,12 @@ def test_lean_walk_matches_first_design_on_card(P, tmp_path):
              "stacks": ((ce.extruded, ce.extruded_pair),
                         (ce.extruded_first, ce.extruded_pair_first),
                         (ce.extruded_plain, ce.extruded_pair_plain))}
+    runs = {"box": lambda pair: cs.lean_runs(P, pair, BF16),
+            "stacks": lambda pair: ce.lean_runs(P, BF16)}
     for mod in (cs, ce):
         mod.reset_launches()
     rng = np.random.default_rng(P)
+    lean_keys, compared = set(), {"box": 0, "stacks": 0}
     for route, mesh in _card_meshes(P, tmp_path):
         disc = Discretization(mesh)
         shape = mesh.nc if hasattr(mesh, "nc") else (mesh.num_cells,)
@@ -401,7 +434,10 @@ def test_lean_walk_matches_first_design_on_card(P, tmp_path):
                               device="cuda").to(BF16) for _ in range(2)]
         for kw in ({"coeff": c1}, {"pair": (c1, c2)}):
             pair = "pair" in kw
+            if not runs[route](pair):
+                continue
             lean, first, plain = (f[pair] for f in forms[route])
+            lean_keys.add(cs.bf16_key(lean.__name__))
             op = disc.stiffness_op(BF16, "cuda", **kw)
             a = xs[:1 + pair]
             if route == "box":
@@ -410,15 +446,18 @@ def test_lean_walk_matches_first_design_on_card(P, tmp_path):
                 s = ce.card_schedule(op, a[0], pair)
                 mine = dict(cpb=s.cpb, segments=s.segments)
             y, y0, y1 = lean(op, *a), first(op, *a), first(op, *a, **mine)
+            compared[route] += 2
             yp = plain(op, *a)
             torch.cuda.synchronize()
-            share = float((y != y1).double().mean())
-            assert rel(y.cpu(), y1.cpu()) <= GATE_TOL and \
-                share <= GATE_SHARE, (route, kw, mine, share)
-            assert rel(y.cpu(), y0.cpu()) <= GATE_TOL, (route, kw)
+            for yf, where in ((y0, "own"), (y1, "lean's")):
+                share = float((y != yf).double().mean())
+                assert rel(y.cpu(), yf.cpu()) <= GATE_TOL and \
+                    share <= GATE_SHARE, (route, kw, where, mine, share)
             assert rel(y.cpu(), yp.cpu()) <= CARD_TOL
             assert rel(y0.cpu(), yp.cpu()) <= CARD_TOL
             assert torch.equal(lean(op, *a), y)
-    assert all(cs.bf16_launches.values()) and all(ce.bf16_launches.values())
-    assert all(cs.comparison_launches.values())
-    assert all(ce.comparison_launches.values())
+    counted = {**cs.bf16_launches, **ce.bf16_launches}
+    assert all(bool(v) == (k in lean_keys) for k, v in counted.items()), \
+        counted
+    assert sum(cs.comparison_launches.values()) == compared["box"] > 0
+    assert sum(ce.comparison_launches.values()) == compared["stacks"]
