@@ -1259,13 +1259,15 @@ def main() -> None:
             mod.reset_launches()
 
     def bf16_key(route, P, pair):
-        """The bf16 counter that an apply of `route` at degree P moves: #1
-        / #2 and #6 by the walk that runs there (the lean walk or the
-        first bf16 walk), #11 its own."""
+        """The bf16 counter that an apply of `route` at degree P moves, by
+        the kernel that runs there: #1 / #2 and #6 the lean walk or the
+        first bf16 walk, #11 the lean chunk kernel or the first bf16 chunk
+        kernel."""
         name = {"#1 / #2": "stiffness", "#6": "extruded",
                 "#11": "indexed"}[route] + ("_pair" if pair else "")
         lean = (cs.lean_runs(P, pair, BF16) if route == "#1 / #2" else
-                ce.lean_runs(P, BF16) if route == "#6" else True)
+                ce.lean_runs(P, BF16) if route == "#6" else
+                ci.lean_runs(P, pair, BF16))
         return cs.bf16_key(name, lean)
 
     with phase("34a bf16 kernels vs plain, P=2..10: #1 / #2, #6 and #11, "
@@ -1340,9 +1342,11 @@ def main() -> None:
         print(f"   worst rel-l2: bf16 kernel vs plain bf16 "
               f"{worst16['plain']:.3e} (tol {BF16_TOL}), vs plain f64 "
               f"{worst16['f64']:.3e}; bf16 launches {counts}")
-        if not all(counts.values()):
-            fail(f"34a: a bf16 kernel's launch counter did not move: "
-                 f"{counts}")
+        routed = {bf16_key(route, P, pair) for route in forms16
+                  for P in range(2, 11) for pair in (False, True)}
+        if {k for k, v in counts.items() if v} != routed:
+            fail(f"34a: the bf16 counters that moved, {counts}, are not "
+                 f"those of the kernels routed at P = 2..10, {routed}")
 
     def bf16_model(label, argv, pb):
         """The bowl of `argv` in bf16 on the problem `pb`: a model on the
@@ -1429,15 +1433,17 @@ def main() -> None:
         return out
 
     class FirstWalk:
-        """`model` (a bf16 model on the lean walk, box pencils or stacks)
-        with the first bf16 walk, the comparison kernel, in place of the
-        lean walk while it solves: the same operator and buffers, its own
-        captured solvers (the model's graphs hold the lean walk), for
-        steps in turns."""
+        """`model` (a bf16 model on the lean walk, box pencils or stacks,
+        or on the lean chunk kernel) with the first bf16 walk or chunk
+        kernel, the comparison kernel, in place of the lean one while it
+        solves: the same operator and buffers, its own captured solvers
+        (the model's graphs hold the lean kernel), for steps in turns."""
         SWAPS = (("stiffness", "stiffness_first"),
                  ("stiffness_pair", "stiffness_pair_first"),
                  ("extruded", "extruded_first"),
-                 ("extruded_pair", "extruded_pair_first"))
+                 ("extruded_pair", "extruded_pair_first"),
+                 ("indexed", "indexed_first"),
+                 ("indexed_pair", "indexed_pair_first"))
 
         def __init__(self, model):
             self.model = model
@@ -1447,7 +1453,8 @@ def main() -> None:
             return self.model.init_state()
 
         def solve(self, *args):
-            mods = [cs if n.startswith("stiffness") else ce
+            mods = [cs if n.startswith("stiffness") else
+                    ce if n.startswith("extruded") else ci
                     for n, _ in self.SWAPS]
             keep = [getattr(m, n) for m, (n, _) in zip(mods, self.SWAPS)]
             theirs = self.model.__dict__.get("_solvers")
@@ -1465,25 +1472,31 @@ def main() -> None:
                     self.model._solvers = theirs
 
     def lean_turns(model, dt_, label, name, steps=True):
-        """Part of 34b-d and 34m: the bf16 model's stiffness kernel (its
-        entry `name` of the JSON line's measurements) on the lean walk
-        (new) against the first bf16 walk (old) on its operator and unit
-        normal bf16 fields: the main path's output (the lean walk on its
-        own schedule) against the first walk's on its own schedule, and
-        under the lean walk's schedule, each within the redesign gate
-        (FIRST_DESIGN_TOL, at most 1% of the values differing), ms an
-        apply in turns (old, new, new, old) beside the bound, each
-        design's schedule; with `steps`, ms a step of 50 captured steps
-        from rest in turns on each design (`ms_turns`, `FirstWalk`).
-        Returns (the old design's entry for the JSON line, its launches in
-        the turns, ms a step by design or None)."""
+        """Part of 34b-e and 34m: the bf16 model's stiffness kernel (its
+        entry `name` of the JSON line's measurements) on the lean walk or
+        the lean chunk kernel (new) against the first bf16 walk or chunk
+        kernel (old) on its operator and unit normal bf16 fields: the main
+        path's output (the lean kernel on its own schedule) against the
+        first kernel's on its own schedule, and under the lean kernel's
+        schedule, each within the redesign gate (FIRST_DESIGN_TOL, at most
+        1% of the values differing; the chunk kernels, which share their
+        schedule, bitwise), ms an apply in turns (old, new, new, old)
+        beside the bound, each design's schedule; with `steps`, ms a step
+        of 50 captured steps from rest in turns on each design
+        (`ms_turns`, `FirstWalk`).  Returns (the old design's entry for the
+        JSON line, its launches in the turns, ms a step by design or
+        None)."""
         kst = model.stiffness
         op, mesh = kst.cell_op, model.mesh
         stacks = isinstance(kst, ExtrudedStiffness)
-        mod = ce if stacks else cs
-        base = ("extruded" if stacks else "stiffness") + (
-            "_pair" if kst.is_pair else "")
+        chunks = isinstance(kst, IndexedStiffness)
+        mod = ce if stacks else ci if chunks else cs
+        base = ("extruded" if stacks else "indexed" if chunks else
+                "stiffness") + ("_pair" if kst.is_pair else "")
         first, new = getattr(mod, f"{base}_first"), getattr(mod, base)
+        said = {"new": "the lean chunk kernel" if chunks else "the lean walk",
+                "old": "the first bf16 chunk kernel" if chunks else
+                       "the first bf16 walk"}
         xs = [torch.as_tensor(rng16.standard_normal(mesh.grid_shape),
                               dtype=BF16, device=dev)
               for _ in range(2 if kst.is_pair else 1)]
@@ -1507,13 +1520,13 @@ def main() -> None:
         b_ms = bound(*kernels[name]["cost"])[0]
         sch = {k: (mod.card_schedule(op, xs[0], kst.is_pair) if k == "new"
                    else (op.plan.card(op.P, BF16, kst.is_pair, dev)[0]
-                         if stacks else cs._card_schedule(
+                         if stacks or chunks else cs._card_schedule(
                              tuple(op.nc), op.P, BF16, kst.is_pair,
                              dev)[0]))
                for k in times}
         best = {k: min(v) for k, v in times.items()}
-        print(f"   {smi}: {label}, {name}: the lean walk (new) against the "
-              f"first bf16 walk (old) in turns (old, new, new, old): "
+        print(f"   {smi}: {label}, {name}: {said['new']} (new) against "
+              f"{said['old']} (old) in turns (old, new, new, old): "
               + ", ".join(f"{v:.4f}" for v in (
                   times["old"][0], times["new"][0], times["new"][1],
                   times["old"][1]))
@@ -1529,12 +1542,17 @@ def main() -> None:
         if not (err_own <= FIRST_DESIGN_TOL
                 and differ_own <= 0.01 * yn.numel()
                 and err <= FIRST_DESIGN_TOL and differ <= 0.01 * yn.numel()):
-            fail(f"34: {label}: the lean walk vs the first bf16 walk "
+            fail(f"34: {label}: {said['new']} vs {said['old']} "
                  f"{err_own:.3e} ({differ_own} values differ) at each one's "
                  f"own schedule, {err:.3e} ({differ}) at the lean "
                  "schedule")
+        if chunks and not (differ == 0 and differ_own == 0):
+            fail(f"34: {label}: the lean chunk kernel is not bitwise the "
+                 f"first bf16 chunk kernel on the same schedule")
+        if not torch.equal(run["new"](), yn):
+            fail(f"34: {label}: two applies of the lean kernel differ")
         if not e_old <= BF16_TOL or not n_old:
-            fail(f"34: {label}: the first bf16 walk vs plain {e_old:.3e}, "
+            fail(f"34: {label}: {said['old']} vs plain {e_old:.3e}, "
                  f"{n_old} launches")
         diff = (yo.float() - yp.float()).abs()
         entry = dict(max_abs_err=float(diff.max()), rel_l2=e_old,
@@ -1545,8 +1563,8 @@ def main() -> None:
             turns = ms_turns([("new", model, dt_),
                               ("old", FirstWalk(model), dt_)])
             print(f"   {smi}: {label} in bf16, ms a step (50 captured steps "
-                  f"from rest, in turns new, old, old, new): the lean walk "
-                  f"{turns['new']:.4f}, the first bf16 walk "
+                  f"from rest, in turns new, old, old, new): {said['new']} "
+                  f"{turns['new']:.4f}, {said['old']} "
                   f"{turns['old']:.4f} ({turns['old'] / turns['new']:.4f}x)",
                   flush=True)
         return entry, n_old, turns
@@ -4043,7 +4061,9 @@ def main() -> None:
         del sk, sp, pst5
 
     with phase("34e bodyfit bowl in bf16: #11 and its pair form vs plain, "
-               "50 steps each, ms a step beside float32's"):
+               "50 steps each, ms a step beside float32's; the lean chunk "
+               "kernel against the first bf16 chunk kernel in turns, ms a "
+               "step on each"):
         bfit16, dt34f, _, _, _, kernels["indexed_bf16"] = bf16_model(
             "bodyfit bowl", args5_argv, pb13)
         _, bf16_counts["indexed_bf16"] = bf16_steps(bfit16, dt34f, 50,
@@ -4059,6 +4079,12 @@ def main() -> None:
               f"two-layer {turns['bf16 pair']:.4f}; #11 ms an apply: "
               f"float32 (13a) {kernels['indexed']['ms']:.4f}, bf16 "
               f"{kernels['indexed_bf16']['ms']:.4f}", flush=True)
+        kernels["indexed_first_bf16"], \
+            launches["indexed_first_bf16"], _ = lean_turns(
+                bfit16, dt34f, "bodyfit bowl", "indexed_bf16")
+        kernels["indexed_pair_first_bf16"], \
+            launches["indexed_pair_first_bf16"], _ = lean_turns(
+                bfit16b, dt34g, "two-layer bodyfit bowl", "indexed_pair_bf16")
         del bfit16, bfit16b
 
     ci.reset_launches()
@@ -4218,12 +4244,17 @@ def main() -> None:
         iop = cen.to_indexed(op, model.disc.chunk_plan)
         on11 = (lambda: ci.indexed_pair(iop, *xs)) if est.is_pair else \
             (lambda: ci.indexed(iop, xs[0]))
+        first11 = (lambda: ci.indexed_pair_first(iop, *xs)) if est.is_pair \
+            else (lambda: ci.indexed_first(iop, xs[0]))
         e11, ms11 = rel_l2(y, on11()), time_ms(on11, 20)
+        ms11_first = time_ms(first11, 20)
         for name, k in out.items():
             print(f"   {smi}: {label} {name}: {k}", flush=True)
         print(f"   {smi}: {label} at {cells} cells: the composed "
               f"bf16 engine {out['engine_bf16']['ms']:.4f} ms per apply vs "
-              f"bf16 #11 on the same buffers {ms11:.4f} ms (same run), "
+              f"bf16 #11 on the same buffers {ms11:.4f} ms (same run; "
+              f"{ci.design(op.P, est.is_pair, BF16)} chunk kernel; the "
+              f"first bf16 chunk kernel {ms11_first:.4f} ms), "
               f"rel-l2 {e11:.3e} (tol {BF16_G_TOL}); index_add_ on bf16 "
               f"(bf16 sums, not the same function) {add_ms:.4f} ms",
               flush=True)
@@ -5018,10 +5049,16 @@ def main() -> None:
                                 "fustpu/ops/pallas_extruded.py:604"),
         "extruded_pair_first_bf16": ("fustpu_torch/csrc/extruded_stack.cu",
                                      "fustpu/ops/pallas_extruded.py:604"),
-        "indexed_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
+        # #11 in bf16 on the lean chunk kernel, its first bf16 form kept as
+        # the comparison (34e)
+        "indexed_bf16": ("fustpu_torch/csrc/indexed_lean.cu",
                          "fustpu/ops/pallas_gather.py:1417"),
-        "indexed_pair_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
+        "indexed_pair_bf16": ("fustpu_torch/csrc/indexed_lean.cu",
                               "fustpu/ops/pallas_gather.py:1417"),
+        "indexed_first_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
+                               "fustpu/ops/pallas_gather.py:1417"),
+        "indexed_pair_first_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
+                                    "fustpu/ops/pallas_gather.py:1417"),
         # the bf16 forms of the corner walk (phase 34f-h)
         "corner_bf16": ("fustpu_torch/csrc/corner_pencil.cu",
                         "fustpu/ops/pallas_stiffness.py:963"),

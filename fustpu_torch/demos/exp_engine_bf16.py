@@ -1,10 +1,16 @@
 """The staged engine's bfloat16 contraction (#9) and scatter (#10): the
 redesigned kernels (``csrc/engine_bf16.cu``: `cen.contract`, `cen.scatter`)
 against their first designs kept as the comparison (``csrc/engine.cu``:
-`cen.contract_cells`, `cen.scatter_dofs`), on the same buffers, in turns.
+`cen.contract_cells`, `cen.scatter_dofs`), on the same buffers, in turns;
+with `--indexed`, #11 in bfloat16 instead: the lean chunk kernel
+(``csrc/indexed_lean.cu``, `ci.indexed`) against the first bfloat16 chunk
+kernel (``csrc/indexed_chunk.cu``, `ci.indexed_first`) at each of
+`--degrees`, single field (a per-cell coefficient in G) and pair.
 
     python -m fustpu_torch.demos.exp_engine_bf16 [--nc 64 40 40]
         [--degree 4] [--turns 2] [--device cpu]
+    python -m fustpu_torch.demos.exp_engine_bf16 --indexed
+        [--degrees 2 3 4 5 6 7 8] [--nc 64 40 40] [--turns 2]
 
 The mesh is a perturbed box of `--nc` cells read as a general mesh (64 x
 40 x 40 at P = 4: the bodyfit bowl's 102,400 cells and 6,661,697 dofs), in
@@ -14,8 +20,15 @@ coefficient, pair) and for the scatter: the two designs' outputs compared
 rel-l2), then ms per call in turns (old, new, new, old, `--turns` times),
 each beside the least bytes the call must move at 3.35 TB/s
 (``tools.profile_step.engine_bytes``); then the composed apply on each
-pair of designs, beside its three kernels' least bytes summed.  On the CPU both designs are the plain versions and the
-times are host-clock CPU times, not device times.
+pair of designs, beside its three kernels' least bytes summed.
+With `--indexed`, at each degree and form that the main path runs on the
+lean chunk kernel (``cuda_indexed.LEAN_BF16``): the two designs' outputs
+on the same schedule (bitwise, by design: the differing values counted),
+ms per apply in turns, each beside the apply's least bytes (G, x, y once,
+the dofmap) at 3.35 TB/s, and first / lean; at the others the first
+design's ms alone, the lean kernel being built only where it runs.  On
+the CPU both designs are the plain versions and the times are host-clock
+CPU times, not device times.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from fustpu_torch.mesh.box import build_box_mesh
 from fustpu_torch.mesh.unstructured import from_box
 from fustpu_torch.models.discretization import Discretization
 from fustpu_torch.ops import cuda_engine as cen
+from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.tools.profile_step import engine_bytes
 from fustpu_torch.utils.benchmarks import time_apply
 
@@ -42,6 +56,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--nc", type=int, nargs=3, default=[64, 40, 40])
     p.add_argument("--degree", type=int, default=4)
     p.add_argument("--turns", type=int, default=2)
+    p.add_argument("--indexed", action="store_true",
+                   help="time #11 in bf16: the lean chunk kernel against "
+                        "the first bf16 chunk kernel at each --degrees")
+    p.add_argument("--degrees", type=int, nargs="+",
+                   default=[2, 3, 4, 5, 6, 7, 8])
     return add_device_args(p, dtype="bf16")
 
 
@@ -108,12 +127,69 @@ def run(nc, degree: int, device, turns: int = 2) -> dict:
     return out
 
 
+def run_indexed(nc, degrees, device, turns: int = 2) -> dict:
+    """#11 in bf16 on the box at each degree, single (a per-cell
+    coefficient) and pair: the lean chunk kernel against the first bf16
+    chunk kernel in turns where the main path runs the lean one, the first
+    alone elsewhere; returns {(P, form): {"old": [ms], "new": [ms],
+    "bound_ms", "differ", "values"}}."""
+    out, card = {}, torch.device(device).type == "cuda"
+    for P in degrees:
+        mesh = from_box(build_box_mesh(tuple(nc), P, perturb=0.1, seed=0))
+        disc = Discretization(mesh)
+        rng = np.random.default_rng(P)
+        c1 = rng.uniform(0.5, 2.0, mesh.num_cells)
+        c2 = rng.uniform(-1.5, -0.5, mesh.num_cells)
+        xs = [torch.as_tensor(rng.standard_normal(mesh.ndofs),
+                              device=device).to(torch.bfloat16)
+              for _ in range(2)]
+        print(f"P={P}: {mesh.num_cells} cells, {mesh.ndofs} dofs, bf16; "
+              f"timed by {clock(device)}", flush=True)
+        for pair, kw in ((False, {"coeff": c1}), (True, {"pair": (c1, c2)})):
+            op = disc.stiffness_op(torch.bfloat16, device, **kw)
+            a = xs[:1 + pair]
+            new = lambda: (ci.indexed_pair if pair else ci.indexed)(op, *a)
+            old = lambda: (ci.indexed_pair_first if pair
+                           else ci.indexed_first)(op, *a)
+            nbytes = (op.G.numel() * 2 + mesh.ndofs * 2 * (len(a) + 1)
+                      + op.dofmap.numel() * 4 + (op.C.numel() * 2 if pair
+                                                 else 0))
+            lean = ci.lean_runs(P, pair, torch.bfloat16)
+            r = dict(old=[], new=[], bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+            form = "pair" if pair else "single"
+            if lean:
+                yn, yo = new(), old()
+                r.update(differ=int((yn != yo).sum()), values=yn.numel())
+            for which in ("old", "new", "new", "old") * turns:
+                if lean or which == "old":
+                    r[which].append(_ms(new if which == "new" else old, a[0]))
+            out[P, form] = r
+            b = r["bound_ms"]
+            share = (lambda t: f" ({b / min(t):.1%} of the bound)") if card \
+                else (lambda t: "")
+            line = (f"P={P} {form:6s} first " + " / ".join(
+                f"{t:.4f}" for t in r["old"]) + f" ms{share(r['old'])}")
+            if lean:
+                line += (" lean " + " / ".join(f"{t:.4f}" for t in r["new"])
+                         + f" ms{share(r['new'])}; first / lean "
+                         f"{min(r['old']) / min(r['new']):.4f}; lean vs "
+                         f"first: {r['differ']} of {r['values']} values "
+                         f"differ")
+            else:
+                line += " (the main path runs the first design here)"
+            print(line + f"; the card's bound {b:.4f} ms", flush=True)
+    return out
+
+
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     check_device(args)
     if args.dtype != "bf16":
         raise SystemExit("exp_engine_bf16 times the bf16 kernels: --dtype "
                          "bf16")
+    if args.indexed:
+        return run_indexed(args.nc, args.degrees, torch.device(args.device),
+                           args.turns)
     return run(args.nc, args.degree, torch.device(args.device), args.turns)
 
 

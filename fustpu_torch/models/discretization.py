@@ -473,7 +473,8 @@ class IndexedStiffness(nn.Module):
             for name in ("G", "D", "dofmap", "C"):
                 self.register_buffer(name, getattr(op, name))
             if op.G.is_cuda:         # the chunk tables, at set-up
-                op.plan.card(op.P, op.G.dtype, self.is_pair, op.G.device)
+                op.plan.card(op.P, op.G.dtype, self.is_pair, op.G.device,
+                             design=ci.design(op.P, self.is_pair, op.G.dtype))
         else:
             plain = ci.to_plain(op)
             for name in ci.PlainIndexed._fields:
@@ -485,7 +486,8 @@ class IndexedStiffness(nn.Module):
         if self.impl != "cuda":
             return None
         return bf16_name("indexed_pair" if self.is_pair else "indexed",
-                         self.G)
+                         self.G, ci.lean_runs(self.D.shape[0] - 1,
+                                              self.is_pair, self.G.dtype))
 
     @property
     def cell_op(self) -> ci.IndexedCellStiffness:
@@ -499,7 +501,8 @@ class IndexedStiffness(nn.Module):
         cells' colour classes of the class-launch design."""
         if self.impl == "cuda" and self.G.is_cuda:
             s = self.plan.card(self.P, self.G.dtype, self.is_pair,
-                               self.G.device)[0]
+                               self.G.device, design=ci.design(
+                                   self.P, self.is_pair, self.G.dtype))[0]
             return (f"{len(s.classes)} colour classes of "
                     f"{len(s.chunks)} chunks of {s.cpb} cells (at most "
                     f"{int(s.classes[:, 1].max())} a class), {s.blocks} "

@@ -13,7 +13,8 @@ and `fused_apply_pair`):
 - `indexed_pair` replaces its 'pair' mode: y = A_c1(x1) + A_c2(x2) with a
   unit G and per-cell (c1, c2), the heterogeneous Westervelt stage.
 
-`indexed` / `indexed_pair` run the chunk kernel.  The mesh's cells are in
+`indexed` / `indexed_pair` run the chunk kernel (in bfloat16 its lean
+form, below).  The mesh's cells are in
 `locality_order`, so consecutive cells are a compact blob whose G is one
 contiguous run: a block walks chunks of consecutive cells, one bulk copy
 of each chunk's G into a ring of shared stages, and reads x and writes y
@@ -41,9 +42,17 @@ The chunk kernel also comes in bfloat16 (the JAX package's ``--dtype
 bf16``: fields, G, D and C stored in bfloat16, computed in float32, each
 unique dof's sum over a chunk in float32, rounded where y is stored, and
 again by each later colour class that adds to the dof, once per class
-that touches it; ``indexed_chunk.cu``), counted in `bf16_launches`; its plain version
-computes in float32 and rounds once.  The class-launch design has float32
-and float64 only.
+that touches it), counted in `bf16_launches`; its plain version computes
+in float32 and rounds once.  A bfloat16 apply runs the lean chunk kernel
+(``csrc/indexed_lean.cu``: D by value, padded float4 rows, three barriers
+a chunk, u gathered through a position-to-slot table, its own launch
+bounds) at the degrees of `LEAN_BF16`, on the first design's chunks and
+classes, and the first bfloat16 form (``indexed_chunk.cu``) at the others;
+that form is also reached as `indexed_first` / `indexed_pair_first`, the
+comparison, counted in `comparison_launches`.  `bf16_launches` counts
+`name`_bf16 on the lean kernel, `name`_bf16_first_walk on the first
+(``cuda_stiffness.bf16_key``).  The class-launch design has float32 and
+float64 only.
 """
 
 from __future__ import annotations
@@ -62,12 +71,19 @@ from fustpu_torch.ops import indexed as idx
 # the main path's, and the class-launch design's.
 launches = {"indexed": 0, "indexed_pair": 0}
 class_launches = {"indexed_classes": 0, "indexed_classes_pair": 0}
-# the chunk kernel's bfloat16 form (``cuda_stiffness.count``)
-bf16_launches = {"indexed_bf16": 0, "indexed_pair_bf16": 0}
+# the chunk kernel's bfloat16 form on the main path (``cuda_stiffness.count``:
+# the lean chunk kernel, and the first bfloat16 form outside LEAN_BF16), and
+# the first bfloat16 form called as the lean kernel's comparison
+bf16_launches = {"indexed_bf16": 0, "indexed_pair_bf16": 0,
+                 "indexed_bf16_first_walk": 0,
+                 "indexed_pair_bf16_first_walk": 0}
+comparison_launches = {"indexed_first_bf16": 0,
+                       "indexed_pair_first_bf16": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, class_launches, bf16_launches):
+    for counts in (launches, class_launches, bf16_launches,
+                   comparison_launches):
         for k in counts:
             counts[k] = 0
 
@@ -148,6 +164,12 @@ class ChunkTables(NamedTuple):
                              # (cell - cell0) n^3 + node, grouped by unique
                              # dof, ascending within each
     colour: np.ndarray       # (chunks,) colour (`colour_sets`)
+    slot: np.ndarray         # (cells n^3,) int16 the unique dof of each
+                             # (cell, node), its index in its chunk's
+                             # `uniq` run (the lean kernel's gather)
+    lead_ends: np.ndarray    # (sum nu,) int16 `ends` with bit 15 set where
+                             # the chunk is the dof's first (lowest colour)
+                             # holder: the lean kernel reads no y there
 
     @property
     def maxu(self) -> int:
@@ -159,8 +181,13 @@ def chunk_tables(dofmap: np.ndarray, ndofs: int, cpb: int) -> ChunkTables:
     shorter) and build each chunk's table: its unique dofs, and its inverse
     map (for each unique dof, the chunk's (cell, node) positions that hold
     it, in ascending order: `pos` from the chunk's first cell's position,
-    `ends` the exclusive end of each dof's entries there); and colour the
-    chunks in order so that no two chunks of a colour share a dof."""
+    `ends` the exclusive end of each dof's entries there), and its
+    position-to-slot table (`slot`: for each (cell, node), in cell order,
+    its dof's index among the chunk's unique dofs); colour the chunks in
+    order so that no two chunks of a colour share a dof; and flag each
+    chunk's unique dofs that no chunk of a lower colour holds (`lead_ends`,
+    bit 15 of `ends`): the colour classes run in ascending order, so there
+    the y that earlier classes left is the zero y starts from."""
     dm = np.asarray(dofmap)
     cells, nnn = dm.shape
     if cpb * nnn >= 2 ** 15:
@@ -179,10 +206,17 @@ def chunk_tables(dofmap: np.ndarray, ndofs: int, cpb: int) -> ChunkTables:
     order = np.argsort(inv, kind="stable")
     uniq = (uk % ndofs).astype(np.int32)
     colour = colour_sets((uniq[a:a + m] for a, m in zip(u0, nu)), ndofs)
+    held = colour[uchunk]                     # each entry's chunk's colour
+    lowest = np.full(ndofs, np.iinfo(np.int64).max)
+    np.minimum.at(lowest, uniq, held)
+    ends = ends.astype(np.int16)
+    lead = np.where(held == lowest[uniq], np.int16(-2 ** 15), np.int16(0))
     return ChunkTables(cpb=cpb, cell0=cell0, ncell=ncell, u0=u0, nu=nu,
-                       uniq=uniq, ends=ends.astype(np.int16),
+                       uniq=uniq, ends=ends,
                        pos=(order - first[chunk[order]]).astype(np.int16),
-                       colour=colour)
+                       colour=colour,
+                       slot=(inv.reshape(-1) - u0[chunk]).astype(np.int16),
+                       lead_ends=ends | lead)
 
 
 CHUNK_ROW = 6            # int64 a chunk-table row
@@ -293,6 +327,70 @@ def chunk_schedule(plan: "ChunkPlan", P: int, itemsize: int, sms: int,
                          tab.nu[order]], axis=1).astype(np.int64))
 
 
+# The degrees (P, pair?) at which a bfloat16 apply runs the lean chunk
+# kernel (``csrc/indexed_lean.cu``), the first bfloat16 form having
+# measured slower at the others in turns on the 64 x 40 x 40 general box
+# (``demos/exp_engine_bf16 --indexed``, H100; PERF.md, the bf16 rows of
+# #11).  ``indexed_lean.cu`` instantiates the kernel at these degrees only
+# (FUSTPU_LEAN_CHUNK_SINGLE, FUSTPU_LEAN_CHUNK_PAIR).
+LEAN_BF16 = frozenset((P, pair) for P in range(2, 11)
+                      for pair in (False, True))
+
+
+def lean_runs(P: int, pair: bool, dtype: torch.dtype) -> bool:
+    """Whether an apply of degree P (pair or not) in `dtype` runs the lean
+    chunk kernel: bfloat16 at the degrees of `LEAN_BF16`."""
+    return dtype == torch.bfloat16 and (P, pair) in LEAN_BF16
+
+
+def design(P: int, pair: bool, dtype: torch.dtype) -> str:
+    """The chunk kernel that such an apply runs: "lean" where `lean_runs`,
+    else "first"."""
+    return "lean" if lean_runs(P, pair, dtype) else "first"
+
+
+def lean_chunk_smem(P: int, cpb: int, maxu: int, pair: bool = False
+                    ) -> tuple[int, int]:
+    """(bytes a stage, dynamic shared bytes a block) of the bfloat16 lean
+    chunk kernel (``indexed_lean.cu``, whose launcher checks the same): the
+    mbarriers and the ring of CHUNK_RING table rows of `chunk_smem`, the
+    stages (cpb cells of bfloat16 G and 16 B of slack), then float32: every
+    cell's u and f2 (n^2 rows padded to a multiple of 4 values each), f1
+    and the node sums (n^3 a cell each); 32-bit: a ring of ID_RING chunks'
+    unique ids and, for the pair, the chunk's unique (x1, x2) (maxu each);
+    16-bit: the single field's unique x (maxu), two buffers of the y that
+    earlier classes left and two of the inverse map's ends (maxu each), two
+    of its positions (cpb n^3) and the positions' slots (cpb n^3).  No
+    static shared memory."""
+    n = P + 1
+    nnn, cellf = n ** 3, n * n * (-(-n // 4) * 4)
+    stage = cs._round16(cpb * 6 * nnn * 2 + 16)
+    head = cs._round16(8 * cs.STAGES) + cs._round16(8 * CHUNK_RING * CHUNK_ROW)
+    return stage, (head + cs.STAGES * stage + 4 * cpb * (2 * cellf + 2 * nnn)
+                   + 4 * (ID_RING + pair) * maxu
+                   + 2 * ((not pair) * maxu + 4 * maxu + 3 * cpb * nnn))
+
+
+def lean_schedule(first: ChunkSchedule, P: int, sms: int, pair: bool,
+                  occupancy) -> ChunkSchedule:
+    """The lean chunk kernel's launch of the first design's schedule
+    `first`: the same cells a chunk, chunk table and classes (a dof shared
+    by chunks of k classes is rounded k times, so another schedule would
+    round other dofs), with the lean kernel's shared bytes
+    (`lean_chunk_smem`) and its blocks an SM, `occupancy(P, 2, pair, cpb,
+    smem)`, in the persistent grid."""
+    stage, smem = lean_chunk_smem(P, first.cpb, first.maxu, pair)
+    if smem > cs.SMEM_BLOCK:
+        raise ValueError(f"lean chunk kernel: {first.cpb} cells of degree "
+                         f"{P} need {smem} B of shared memory")
+    bps = int(occupancy(P, 2, pair, first.cpb, smem))
+    if bps < 1:
+        raise ValueError(f"lean chunk kernel: no block of {first.cpb} cells "
+                         f"of degree {P} fits an SM")
+    return first._replace(stage_bytes=stage, smem=smem, blocks_per_sm=bps,
+                          blocks=bps * sms)
+
+
 class ChunkPlan:
     """The host part of the indexed kernels' schedules on one dofmap: the
     chunk tables of each cells-a-chunk (`chunk_tables`), the class-launch
@@ -318,6 +416,13 @@ class ChunkPlan:
         return self._tables[cpb]
 
     @functools.cached_property
+    def covers(self) -> bool:
+        """Whether the cells hold every dof (then a kernel that writes each
+        dof its cells hold writes all of y)."""
+        return bool(np.bincount(self.dofmap.reshape(-1),
+                                minlength=self.ndofs).min() > 0)
+
+    @functools.cached_property
     def classes(self) -> tuple[np.ndarray, tuple]:
         """The class-launch design's (cells, bounds) (`scatter_classes`)."""
         return scatter_classes(self.dofmap, self.ndofs)
@@ -331,44 +436,56 @@ class ChunkPlan:
         return self._card[key]
 
     def card(self, P: int, dtype: torch.dtype, pair: bool, device,
-             cpb: int | None = None) -> tuple:
-        """(schedule, chunk table, uniq, ends, pos, classes as a C array)
-        of the chunk kernel on `device` (its SMs, its occupancy answers);
-        `cpb` as `chunk_schedule` takes it."""
+             cpb: int | None = None, design: str = "first") -> tuple:
+        """(schedule, chunk table, uniq, ends, pos, classes as a C array,
+        slot or None) of the chunk kernel `design` on `device` (its SMs,
+        its occupancy answers): "first" (float32, float64 and the first
+        bfloat16 form) or the bfloat16 "lean" kernel, which runs the first
+        design's schedule (`lean_schedule`), reads the tables' `lead_ends`
+        for `ends` and gathers u through their `slot`; `cpb` as
+        `chunk_schedule` takes it."""
         device = torch.device(device)
-        key = (P, dtype, pair, device, cpb)
+        key = (P, dtype, pair, device, cpb, design)
         if key not in self._card:
             from fustpu_torch import _build
 
             lib = _build.load()
-
-            def occupancy(P, itemsize, pair, cpb, smem):
-                got = lib.fustpu_indexed_chunk_occupancy(
-                    P, cs.TYPE_CODE[itemsize], int(pair), cpb, smem)
-                if got < 0:
-                    raise RuntimeError(f"chunk kernel occupancy query "
-                                       f"failed: error {-got}")
-                return got
-
             sms = torch.cuda.get_device_properties(
                 device).multi_processor_count
+            t = lambda a: torch.as_tensor(a, device=device)
+            if design == "lean":
+                first = self.card(P, dtype, pair, device, cpb)
+                occupancy = cs.occupancy_query(
+                    lib, "fustpu_indexed_chunk_occupancy",
+                    "fustpu_indexed_lean_occupancy", "lean",
+                    "lean chunk kernel")
+                with torch.cuda.device(device):
+                    sched = lean_schedule(first[0], P, sms, pair, occupancy)
+                tab = self.tables(sched.cpb)
+                chunks, uniq, _, pos, classes = first[1:6]
+                self._card[key] = (sched, chunks, uniq, t(tab.lead_ends), pos,
+                                   classes, t(tab.slot))
+                return self._card[key]
+            occupancy = cs.occupancy_query(
+                lib, "fustpu_indexed_chunk_occupancy", "", "first",
+                "chunk kernel")
             itemsize = torch.empty((), dtype=dtype).element_size()
             with torch.cuda.device(device):
                 sched = chunk_schedule(self, P, itemsize, sms, pair,
                                        occupancy, cpb)
             tab = self.tables(sched.cpb)
-            t = lambda a: torch.as_tensor(a, device=device)
             classes = sched.classes.reshape(-1)
             self._card[key] = (
                 sched, t(sched.chunks), t(tab.uniq), t(tab.ends), t(tab.pos),
-                (ctypes.c_longlong * classes.size)(*classes.tolist()))
+                (ctypes.c_longlong * classes.size)(*classes.tolist()), None)
         return self._card[key]
 
 
 def card_schedule(op: "IndexedCellStiffness", x: torch.Tensor,
                   pair: bool) -> ChunkSchedule:
     """The schedule that an apply of `op` on x's card runs."""
-    return op.plan.card(op.P, x.dtype, pair, x.device)[0]
+    return op.plan.card(op.P, x.dtype, pair, x.device,
+                        design=design(op.P, pair, x.dtype))[0]
 
 
 def build(mesh, G_cells, D_1d: np.ndarray, dtype: torch.dtype,
@@ -491,30 +608,42 @@ def _check(op: IndexedCellStiffness, *xs: torch.Tensor, pair: bool,
 
 
 def _launch_chunks(name: str, op: IndexedCellStiffness, xs, extra,
-                   cpb: int | None = None) -> torch.Tensor:
-    """One apply through the chunk kernel (`cpb`: cells a chunk other than
-    the model's choice)."""
+                   cpb: int | None = None,
+                   design: str = "first") -> torch.Tensor:
+    """One apply through the chunk kernel `design` ("first": float32,
+    float64 and the first bfloat16 form; "lean": the bfloat16 lean chunk
+    kernel), uncounted (`cpb`: cells a chunk other than the model's
+    choice)."""
     from fustpu_torch import _build
 
     x = xs[0]
     if op.G.data_ptr() % 16:
         raise ValueError("indexed kernel: G's data is not 16 B-aligned "
                          "(the bulk copies need it)")
-    sched, chunks, uniq, ends, pos, classes = op.plan.card(
-        op.P, x.dtype, len(xs) == 2, x.device, cpb)
-    y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load(), f"fustpu_indexed_chunk"
-                 f"{'_pair' if len(xs) == 2 else ''}_{cs.SUFFIX[x.dtype]}")
+    sched, chunks, uniq, ends, pos, classes, slot = op.plan.card(
+        op.P, x.dtype, len(xs) == 2, x.device, cpb, design)
+    # the lean kernel writes every dof the cells hold, and reads no y in a
+    # dof's first class
+    fresh = torch.empty if design == "lean" and op.plan.covers else \
+        torch.zeros
+    y = fresh(x.shape, dtype=x.dtype, device=x.device)
+    form = f"{'_pair' if len(xs) == 2 else ''}"
+    if design == "lean":
+        fn = getattr(_build.load(), f"fustpu_indexed_lean{form}_bf16")
+        D, tables = cs.host_D(op.D), (pos, slot)
+    else:
+        fn = getattr(_build.load(), f"fustpu_indexed_chunk{form}_"
+                     f"{cs.SUFFIX[x.dtype]}")
+        D, tables = op.D.data_ptr(), (pos,)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(),
-                 op.D.data_ptr(), y.data_ptr(), op.P, chunks.data_ptr(),
-                 uniq.data_ptr(), ends.data_ptr(), pos.data_ptr(), classes,
+        err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(), D,
+                 y.data_ptr(), op.P, chunks.data_ptr(), uniq.data_ptr(),
+                 ends.data_ptr(), *(t.data_ptr() for t in tables), classes,
                  len(sched.classes), sched.blocks, sched.cpb,
                  sched.stage_bytes, sched.smem, sched.maxu, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    cs.count(launches, bf16_launches, name, x.dtype)
     return y
 
 
@@ -549,18 +678,54 @@ def indexed(op: IndexedCellStiffness, x: torch.Tensor,
     if x.device.type == "cpu":
         return indexed_plain(op, x)
     _check(op, x, pair=False)
-    return _launch_chunks("indexed", op, (x,), (), cpb)
+    kind = design(op.P, False, x.dtype)
+    y = _launch_chunks("indexed", op, (x,), (), cpb, kind)
+    cs.count(launches, bf16_launches, "indexed", x.dtype, kind == "lean")
+    return y
 
 
 def indexed_pair(op: IndexedCellStiffness, x1: torch.Tensor,
                  x2: torch.Tensor, cpb: int | None = None) -> torch.Tensor:
     """y = A_c1(x1) + A_c2(x2) on flat fields through the pair chunk kernel
-    (the plain version for CPU tensors)."""
+    (the plain version for CPU tensors); bfloat16 and `cpb` as for
+    `indexed`."""
     if x1.device.type == "cpu":
         return indexed_pair_plain(op, x1, x2)
     _check(op, x1, x2, pair=True)
-    return _launch_chunks("indexed_pair", op, (x1, x2), (op.C.data_ptr(),),
-                          cpb)
+    kind = design(op.P, True, x1.dtype)
+    y = _launch_chunks("indexed_pair", op, (x1, x2), (op.C.data_ptr(),),
+                       cpb, kind)
+    cs.count(launches, bf16_launches, "indexed_pair", x1.dtype,
+             kind == "lean")
+    return y
+
+
+def indexed_first(op: IndexedCellStiffness, x: torch.Tensor,
+                  cpb: int | None = None) -> torch.Tensor:
+    """`indexed` of a bfloat16 operator through the first bfloat16 chunk
+    kernel (`fustpu_indexed_chunk_bf16`) at every degree, the lean
+    kernel's comparison; counted in `comparison_launches` (the plain
+    version for a CPU tensor)."""
+    if x.device.type == "cpu":
+        return indexed_plain(op, x)
+    _check(op, x, pair=False, types=cs.BF16_ONLY)
+    y = _launch_chunks("indexed", op, (x,), (), cpb)
+    comparison_launches["indexed_first_bf16"] += 1
+    return y
+
+
+def indexed_pair_first(op: IndexedCellStiffness, x1: torch.Tensor,
+                       x2: torch.Tensor,
+                       cpb: int | None = None) -> torch.Tensor:
+    """`indexed_pair` through the first bfloat16 chunk kernel, as
+    `indexed_first`."""
+    if x1.device.type == "cpu":
+        return indexed_pair_plain(op, x1, x2)
+    _check(op, x1, x2, pair=True, types=cs.BF16_ONLY)
+    y = _launch_chunks("indexed_pair", op, (x1, x2), (op.C.data_ptr(),),
+                       cpb)
+    comparison_launches["indexed_pair_first_bf16"] += 1
+    return y
 
 
 def indexed_classes(op: IndexedCellStiffness,

@@ -154,6 +154,7 @@ def counter_dicts() -> list:
             cuda_extruded.bf16_launches, cuda_extruded.comparison_launches,
             cuda_indexed.launches,
             cuda_indexed.class_launches, cuda_indexed.bf16_launches,
+            cuda_indexed.comparison_launches,
             cuda_corner.launches, cuda_corner.class_launches,
             cuda_corner.bf16_launches, cuda_engine.launches,
             cuda_engine.bf16_launches, cuda_engine.comparison_launches,

@@ -756,12 +756,14 @@ def test_bf16_kernels_match_plain_on_card(P, tmp_path):
             assert rel(y.cpu(), plain(op, *a).cpu()) <= CARD_TOL, (route,
                                                                    kw)
             assert torch.equal(kernel(op, *a), y)
-    # the walk that each G-stream form runs at P: the lean walk or the first
+    # the walk that each G-stream form runs at P: the lean walk (the lean
+    # chunk kernel) or the first
     walked = ({cs.bf16_key(n, cs.lean_runs(P, n.endswith("pair"), BF16))
                for n in ("stiffness", "stiffness_pair")}
               | {cs.bf16_key(n, ce.lean_runs(P, BF16))
                  for n in ("extruded", "extruded_pair")}
-              | set(ci.bf16_launches))
+              | {cs.bf16_key(n, ci.lean_runs(P, n.endswith("pair"), BF16))
+                 for n in ("indexed", "indexed_pair")})
     for mod in (cs, ce, ci):
         assert all(bool(v) == (k in walked)
                    for k, v in mod.bf16_launches.items()), mod.bf16_launches
