@@ -280,6 +280,17 @@ Phases (each prints its time; any failure exits non-zero):
     degree (`cs.bf16_key`: the lean walk, or the first bf16 walk at
     `cs.FIRST_DESIGN_BF16` and on stacks outside
     `ce.LEAN_STACK_DEGREES`).
+  - bf16 #11 redesigned (the lean chunk kernel, `csrc/indexed_lean.cu`,
+    the main path of #11 in bf16 at `ci.LEAN_BF16`; the first bf16 chunk
+    kernel kept as `ci.indexed_first`): on the bf16 bodyfit bowl and its
+    two-layer form (34e), the main path's output against the first
+    design's (the same schedule: bitwise, the counts printed, within the
+    gate), the first design's within 2^-7 of plain, two applies bitwise,
+    ms an apply in turns (old, new, new, old) beside the bound, and ms a
+    step of 50 captured steps in turns on each design; in 34k the bf16
+    engine beside #11 on both designs on the same buffers; in 34a each
+    bf16 #11 apply at P = 2..10 moves the counter of the kernel that runs
+    at its degree (`cs.bf16_key`).
   - the two-field gather (#8) on the quads design: bitwise its first
     design (`cen.gather2_flat`, one thread a position) at P = 2..10 in
     float32 and float64 (20) and bfloat16 (34j); in turns against it and
@@ -303,7 +314,7 @@ Phases (each prints its time; any failure exits non-zero):
 Each run of the main paths (6b, 7b, 9, 10b, 11b, 13b, 14b, 15b, 15c, 17b,
 17c, 18b, 18c, 18d, 18e, 19a, 19b, 21b, 21c, 21d, 27b, 30a-e, 30g, 34b-e,
 34g-i, 34k-l, in every rank of 22 its solve, and the demos of 24, 25, 26,
-27a, 28, 31 and 32b-i and the turns of 29, 34b-d and 34m) has the launch
+27a, 28, 31 and 32b-i and the turns of 29, 34b-e and 34m) has the launch
 counters reset just before it and read just after.
 The script's total time is printed after the last phase; then the
 kernels' JSON summary, the card's name and power limit, and as the last

@@ -13,74 +13,62 @@
 //
 // What bounds it on an H100.  At the bodyfit bowl (102,400 cells, 6,661,697
 // dofs, P = 4) an apply must move at least 231,446,788 B in bfloat16
-// (0.0691 ms at 3.35 TB/s); the first bfloat16 form took four times that.
-// Its per-cell body is the one that paced the first bfloat16 z-pencil walk
-// (pencil_lean.cuh): D in static shared memory, reloaded after every
-// barrier, the float f1, f2 in unpadded rows read 4 B at a time, five
-// barriers a chunk; and its chunk bookkeeping adds a divergent scatter of
-// each unique dof's x to its positions through the inverse map (`build_u`,
-// with a division a position for the pair's coefficients) and a division
-// and a remainder a position where each unique dof sums its node sums.  A
-// class holds about two chunks a block, so each chunk's latency shows.
+// (0.0691 ms at 3.35 TB/s); the first bfloat16 form takes four times that.
+// Timed with one part removed (tools/chunk_split.py), its body is a fifth
+// of an apply and its bookkeeping (the scatter of u, the sums, the x / y
+// loads) a quarter; the rest is latency: each of the 8 colour classes is a
+// launch of its own in which a block walks about two chunks, so a class's
+// start (the launch, the first G, the rows, ids and tables before any x or
+// y) and its drain show in every class.  The lean z-pencil walk's body (D
+// by value with rows in registers, rows padded for float4 reads) measured
+// slower here: its registers cost the blocks an SM that hide that latency.
 //
-// What this kernel does about it, keeping the first design's schedule (its
-// cells a chunk, chunk table, unique-dof tables and colour classes, so that
-// each dof is rounded as often: ops/cuda_indexed.py `ChunkPlan`):
-//   1. D by value, a kernel parameter, with each thread's rows and columns
-//      D[j][.], D[k][.], D[.][j], D[.][k] in registers for the whole walk,
-//      as the lean z-pencil walk (pencil_lean.cuh `DMat`).
-//   2. The float u, f1 and f2 in rows padded to KP floats (`Shape<N>::KP`),
-//      so that the row a thread sums along k comes in float4 loads.
-//   3. Three barriers a chunk: u in place (and the chunk's G arrived), f1
-//      and f2 written, the node sums written (and the next chunk's inputs
-//      in place).  The node sums go to a float buffer of their own, so a
-//      stage is free once the metric is read: its refill is issued after
-//      the second barrier, half a chunk earlier than the first design's.
-//   3a. A dof's first class (the lowest colour of the chunks that hold it,
-//      the host's flag in bit 15 of `lead_ends`) takes 0.0f for the y that
-//      earlier classes left, as the first design reads from the zeroed y,
-//      without reading y: most dofs lie in one chunk, so most y reads and
-//      the zeroing of y go (the wrapper allocates y uninitialised when the
-//      cells cover every dof).
-//   3b. The class launches overlap (programmatic dependent launch): each
-//      class's kernel lets the next one start at once, and the next one
-//      issues its first chunks' G, reads its rows, unique ids, x and tables,
-//      and waits (griddepcontrol.wait) for the earlier class to end only
-//      before it reads y (x, G and the tables no class writes).
-//   4. u as one gather a position: a host-built position-to-slot table
-//      (`ChunkTables.slot`) gives each of a thread's own nodes its unique
-//      dof's x, which the block stored in shared memory by slot; no
-//      divergent loop, no division.  The pair's (c1, c2) are the thread's
-//      own cell's, in registers.
-//   5. The node sums in cell-node order, so that a unique dof's positions
-//      from the inverse map address them directly.
-//   6. The next chunk's inputs through registers packed two 16-bit values a
-//      register (x1 and x2, y and its end in the inverse map, the position
-//      and its slot), and the first chunk's G copies issued before its
-//      tables are read; the unique x and the earlier y kept in shared
-//      memory as bfloat16 (widened where read, exactly), and f1, read along
-//      columns only, unpadded: a block of 5 cells at P = 4 fits five to an
-//      SM.
-//   7. A register cap of its own (FUSTPU_LEAN_CHUNK_MAXREG, __maxnreg__).
+// What this kernel does, keeping the first design's schedule (its cells a
+// chunk, chunk table, unique-dof tables and colour classes, so that each
+// dof is rounded as often: ops/cuda_indexed.py `ChunkPlan`) and its body:
+//   1. The class launches overlap (programmatic dependent launch): each
+//      class's kernel lets the next start at once, and the next issues its
+//      first chunks' G and reads its rows, unique ids, x and tables, and
+//      waits (griddepcontrol.wait) for the earlier class to end only before
+//      it reads y (no class writes x, G or the tables).
+//   2. A dof's first class (the lowest colour of the chunks that hold it,
+//      the host's flag in bit 15 of `lead_ends`) takes the 0 that the first
+//      design reads from the zeroed y without reading y: most dofs lie in
+//      one chunk, so most y reads and the zeroing of y go (the wrapper
+//      allocates y uninitialised when the cells hold every dof).
+//   3. The first chunks' G copies issued before anything else is read, D
+//      by value (a kernel parameter, into shared memory without a global
+//      read).
+//   4. Three barriers a chunk in place of five: u is built before the
+//      chunk's arrival barrier (the last body read it before its second
+//      barrier), and the body's barrier after its u loads goes (u is
+//      complete at the arrival barrier).
+//   5. A register cap of 96 (FUSTPU_LEAN_CHUNK_MAXREG): five blocks of 5
+//      cells an SM at P = 4, as the first design runs.
+//   6. u as one gather a position (FUSTPU_LEAN_CHUNK_GATHER): a host-built
+//      position-to-slot table (`ChunkTables.slot`) gives each of a thread's
+//      own nodes its unique dof's x, which the block keeps by slot; no
+//      divergent loop over the inverse map, no division for the pair's
+//      coefficients (the thread's own cell's, in registers).
 // Every node's sum is the first design's, term by term and in the same
-// order (wx, wy, wz over r; the metric; the three-term sum over r), from
-// the same float D (bfloat16 D widened on the host); each unique dof sums
+// order (the body is cell_apply's, the same float D), each unique dof sums
 // its positions in the inverse map's order from 0.0f and adds the y that
-// earlier classes left, rounding once where it stores.  So on the same
-// chunks and classes the output is bitwise the first design's, and two
-// applies are bitwise equal (no atomics).
+// earlier classes left (0 in its first class, as the first design reads
+// it), rounding once where it stores.  So on the same chunks and classes
+// the output is bitwise the first design's, and two applies are bitwise
+// equal (no atomics).
 //
 // Shared memory per block (the host computes the same, cuda_indexed.py
-// `lean_chunk_smem`, and the launcher checks it): STAGES mbarriers and a
-// ring of RING table rows (each padded to 16 B), STAGES stages of
-// stage_bytes (cpb cells of bfloat16 G and 16 B for the aligned span), then
-// floats: every cell's u and f2 (N^2 KP a cell each), f1 and the node sums
-// (N^3 a cell each); 32-bit: a ring of ID_RING chunks' unique ids (maxu)
-// and, for the pair, the chunk's unique (x1, x2) (maxu); 16-bit: the
-// single field's unique x (maxu), two buffers of the y that earlier
-// classes left and of the inverse map's ends (maxu each), two of its
-// positions (cpb N^3) and the positions' slots (cpb N^3).  Nothing
-// static.
+// `lean_chunk_smem`, and the launcher checks it): D (N^2 floats, static),
+// and dynamic: STAGES mbarriers and a ring of RING table rows (each padded
+// to 16 B), STAGES stages of stage_bytes (cpb cells of bfloat16 G and 16 B
+// for the aligned span; the node sums go over G there), then floats: the
+// cells' u, f1 and f2 (N^3 a cell each), two buffers of the y that earlier
+// classes left (maxu), and with the gather the chunk's unique x (maxu; the
+// pair x1 and x2), else for the pair two buffers of the cells' (c1, c2);
+// then a ring of ID_RING chunks' unique ids (maxu int32), two buffers of the
+// inverse map's ends (maxu int16) and positions (cpb N^3 int16), and with
+// the gather the positions' slots (cpb N^3 int16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,13 +84,14 @@
 #define FUSTPU_LEAN_CHUNK_PAIR(M) \
   M(2) M(3) M(4) M(5) M(6) M(7) M(8) M(9) M(10)
 
+// u built by a gather through the position-to-slot table (1) or by the
+// first design's scatter through the inverse map (0)
+#define FUSTPU_LEAN_CHUNK_GATHER 1
+
 namespace {
 
 using namespace fustpu;
 using fustpu::pencil::lean::DMat;
-// the padded rows of the lean z-pencil walk (KP floats a row)
-template <int N>
-using Rows = fustpu::pencil::lean::Shape<N>;
 using bf16 = __nv_bfloat16;
 
 // The chunk table's rows (ROW int64 a chunk, indexed_chunk.cu's), the ring
@@ -112,7 +101,11 @@ constexpr int RING = 4;
 constexpr int ID_RING = 3;
 constexpr int STAGES = 2;
 constexpr int MAX_SMEM = 232448;   // one block's shared memory on Hopper
-constexpr unsigned LEAD = 0x8000u; // `lead_ends`: the dof's first class
+constexpr int MAXT = 256;          // the most threads a schedule's block has
+// The register cap: 96 registers a thread, so that at P = 4 five blocks of
+// 4 warps share an SM's 65,536 (uncapped, the compiler takes 128).
+#define FUSTPU_LEAN_CHUNK_MAXREG 96
+constexpr short LEAD = -32768;     // `lead_ends`: the dof's first class
 
 __host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
 __host__ __device__ constexpr int head_bytes() {
@@ -123,26 +116,13 @@ __host__ __device__ constexpr int head_bytes() {
 template <int N, bool PAIR>
 __host__ __device__ constexpr long long smem_bytes(int cpb, int maxu,
                                                    int stage_bytes) {
-  constexpr int NNN = N * N * N, CELLF = Rows<N>::CELLF;
+  constexpr long long NNN = N * N * N;
   return head_bytes() + (long long)STAGES * stage_bytes +
-         4LL * cpb * (2LL * CELLF + 2LL * NNN) +
-         4LL * (ID_RING + (PAIR ? 1 : 0)) * maxu +
-         2LL * ((PAIR ? 0 : 1) * (long long)maxu + 4LL * maxu +
-                3LL * cpb * NNN);
-}
-
-// The most threads a schedule's block has (N^2 a cell), and the register
-// cap: 96 registers a thread, so that at P = 4 five blocks of 4 warps share
-// an SM's 65,536.
-constexpr int MAXT = 256;
-#define FUSTPU_LEAN_CHUNK_MAXREG 96
-
-// bfloat16 bits to float, exactly (widen<float>)
-__device__ __forceinline__ float bits_f(unsigned b) {
-  return __uint_as_float(b << 16);
-}
-__device__ __forceinline__ unsigned bf_bits(bf16 v) {
-  return (unsigned)__bfloat16_as_ushort(v);
+         4LL * (3 * cpb * NNN + 2LL * maxu +
+                (FUSTPU_LEAN_CHUNK_GATHER ? (PAIR ? 2 : 1) * (long long)maxu
+                                          : (PAIR ? 4LL * cpb : 0))) +
+         4LL * ID_RING * maxu + 2LL * 2 * maxu + 2LL * 2 * cpb * NNN +
+         (FUSTPU_LEAN_CHUNK_GATHER ? 2LL * cpb * NNN : 0);
 }
 
 template <int N, bool PAIR>
@@ -157,56 +137,31 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
                   const short* __restrict__ slots, long long first,
                   int count, int stage_bytes, int maxu) {
   constexpr int NN = N * N, NNN = N * N * N;
-  constexpr int KP = Rows<N>::KP, CELLF = Rows<N>::CELLF;
+  constexpr bool GATHER = FUSTPU_LEAN_CHUNK_GATHER;
   constexpr long long CB = 6LL * NNN * (long long)sizeof(bf16);
+  using Metric = GShared<float, N, bf16>;
   // the next class's kernel may start now: it waits for this one to end
-  // before it reads x or y
+  // before it reads y
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  __shared__ float Ds[NN];                       // D[q * N + i] = l_i'(x_q)
   extern __shared__ __align__(128) unsigned char smem[];
   const int cpb = blockDim.y;
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
   long long* rs = reinterpret_cast<long long*>(smem + round16(8 * STAGES));
   unsigned char* ring = smem + head_bytes();
   float* ub = reinterpret_cast<float*>(ring + (long long)STAGES * stage_bytes);
-  float* f2b = ub + cpb * CELLF;
-  float* f1b = f2b + cpb * CELLF;                // cpb N^3, unpadded
-  float* sb = f1b + cpb * NNN;                   // node sums, cpb N^3
-  unsigned* uidb = reinterpret_cast<unsigned*>(sb + cpb * NNN);
-  unsigned* xs2 = uidb + ID_RING * maxu;         // the pair: x1 | x2 << 16
-  unsigned short* xs1 =
-      reinterpret_cast<unsigned short*>(xs2 + (PAIR ? maxu : 0));
-  unsigned short* ysb = xs1 + (PAIR ? 0 : maxu); // 2 x maxu: earlier y
-  unsigned short* endb = ysb + 2 * maxu;         // 2 x maxu
-  unsigned short* posb = endb + 2 * maxu;        // 2 x cpb N^3
-  unsigned short* slotb = posb + 2 * cpb * NNN;  // cpb N^3
+  float* fb = ub + cpb * NNN;                    // f1, f2: 2 N^3 a cell
+  float* ysb = fb + 2 * cpb * NNN;               // 2 x maxu: earlier y
+  float* xb = ysb + 2 * maxu;                    // the unique x, x2 (gather)
+                                                 // or 2 x (c1, c2) a cell
+  int* uidb = reinterpret_cast<int*>(
+      xb + (GATHER ? (PAIR ? 2 : 1) * maxu : (PAIR ? 4 * cpb : 0)));
+  short* endb = reinterpret_cast<short*>(uidb + ID_RING * maxu);
+  short* posb = endb + 2 * maxu;                 // 2 x cpb N^3
+  short* slotb = posb + 2 * cpb * NNN;           // cpb N^3 (gather)
   const int t = threadIdx.x, lc = threadIdx.y;   // node line (j, k), cell
   const int tid = lc * NN + t, nthreads = NN * cpb;
   const int j = t / N, k = t % N;
-  float* u = ub + lc * CELLF;
-  float* f2 = f2b + lc * CELLF;
-  float* f1 = f1b + lc * NNN;
-  auto at = [](int i, int jj, int kk) { return (i * N + jj) * KP + kk; };
-  // the row (i, jj, .) of a padded buffer, as float4s
-  auto row4 = [](const float* b, int i, int jj, float* out) {
-#pragma unroll
-    for (int h = 0; h < KP / 4; ++h) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(b + (i * N + jj) * KP + 4 * h);
-      out[4 * h] = v.x;
-      out[4 * h + 1] = v.y;
-      out[4 * h + 2] = v.z;
-      out[4 * h + 3] = v.w;
-    }
-  };
-
-  float dj[N], dk[N], dtj[N], dtk[N];            // D[j][.], D[k][.], ...
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    dj[r] = D.d[j * N + r];
-    dk[r] = D.d[k * N + r];
-    dtj[r] = D.d[r * N + j];
-    dtk[r] = D.d[r * N + k];
-  }
 
   // chunks this block walks, in order: the q-th is row first + b + q grid
   const int mine = (count - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
@@ -225,50 +180,51 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
 
   // A thread's share of a chunk: unique slots and positions tid + e
   // nthreads, e < N (a chunk has at most cpb N^3 of each).  The next
-  // chunk's inputs go through these registers, two 16-bit values each:
-  // fetched before the body, written to shared memory after it.
-  unsigned xr[N], yer[N], psr[N];    // x1 | x2, y | end, position | slot
-  unsigned idr[N];
-  unsigned cr = 0;                   // the pair: the own cell's c1 | c2
+  // chunk's inputs go through these registers: fetched before the body,
+  // written to shared memory after it (x, x2 stay here until the scatter).
+  bf16 xr[N], x2r[N], yr[N], cr{}, c2r{};
+  short er[N], pr[N], sr[N];
+  int idr[N];
   long long rowr = 0;
   // chunk q's inputs (its row r, its unique ids ids), the unique ids of
   // chunk q + 1 and the row of chunk q + 2; a dof's first class reads no
   // y.  `gate`: wait for the earlier class to end before reading y.
-  auto fetch = [&](int q, const long long* r, const unsigned* ids,
-                   bool gate) {
+  auto fetch = [&](int q, const long long* r, const int* ids, bool gate) {
     const int n = (int)r[1], nu = (int)r[5];
     const long long c0 = r[0], u0 = r[4];
-    unsigned idq[N];
+    int idq[N];
 #pragma unroll
     for (int e = 0; e < N; ++e) {
       const int s = tid + e * nthreads;
       if (s < nu) {
         idq[e] = ids[s];
-        const unsigned le = (unsigned short)lead_ends[u0 + s];
-        xr[e] = bf_bits(x1[idq[e]]);
-        if (PAIR) xr[e] |= bf_bits(x2[idq[e]]) << 16;
-        yer[e] = (le & ~LEAD) << 16 | (le & LEAD ? 1u : 0u);
+        xr[e] = x1[idq[e]];
+        if (PAIR) x2r[e] = x2[idq[e]];
+        er[e] = lead_ends[u0 + s];
       }
-      if (s < n * NNN)
-        psr[e] = (unsigned)(unsigned short)pos[c0 * NNN + s] |
-                 ((unsigned)(unsigned short)slots[c0 * NNN + s] << 16);
+      if (s < n * NNN) {
+        pr[e] = pos[c0 * NNN + s];
+        if (GATHER) sr[e] = slots[c0 * NNN + s];
+      }
     }
+    if (PAIR && GATHER && lc < n) {                  // the own cell's
+      cr = C[2 * (c0 + lc)];
+      c2r = C[2 * (c0 + lc) + 1];
+    }
+    if (PAIR && !GATHER && tid < 2 * n) cr = C[2 * c0 + tid];
     if (gate) asm volatile("griddepcontrol.wait;" ::: "memory");
 #pragma unroll
     for (int e = 0; e < N; ++e) {
       const int s = tid + e * nthreads;
       if (s < nu)
-        yer[e] = (yer[e] & 0xffff0000u) |
-                 (yer[e] & 1u ? 0u : bf_bits(y[idq[e]]));
+        yr[e] = er[e] & LEAD ? __ushort_as_bfloat16(0) : y[idq[e]];
     }
-    if (PAIR && lc < n)
-      cr = bf_bits(C[2 * (c0 + lc)]) | (bf_bits(C[2 * (c0 + lc) + 1]) << 16);
     if (q + 1 < mine) {
       const long long* r1 = q == 0 ? table(1) : row(q + 1);
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         const int s = tid + e * nthreads;
-        if (s < (int)r1[5]) idr[e] = (unsigned)uniq[r1[4] + s];
+        if (s < (int)r1[5]) idr[e] = uniq[r1[4] + s];
       }
     }
     if (q + 2 < mine && tid < ROW) rowr = table(q + 2)[tid];
@@ -279,21 +235,23 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
     for (int e = 0; e < N; ++e) {
       const int s = tid + e * nthreads;
       if (s < nu) {
-        if (PAIR)
-          xs2[s] = xr[e];
-        else
-          xs1[s] = (unsigned short)xr[e];
-        ysb[b * maxu + s] = (unsigned short)yer[e];
-        endb[b * maxu + s] = (unsigned short)(yer[e] >> 16);
+        ysb[b * maxu + s] = widen<float>(yr[e]);
+        endb[b * maxu + s] = er[e] & ~LEAD;
+        if (GATHER) {
+          xb[s] = widen<float>(xr[e]);
+          if (PAIR) xb[maxu + s] = widen<float>(x2r[e]);
+        }
       }
       if (s < n * NNN) {
-        posb[b * cpb * NNN + s] = (unsigned short)psr[e];
-        slotb[s] = (unsigned short)(psr[e] >> 16);
+        posb[b * cpb * NNN + s] = pr[e];
+        if (GATHER) slotb[s] = sr[e];
       }
     }
+    if (PAIR && !GATHER && tid < 2 * n)
+      xb[b * 2 * cpb + tid] = widen<float>(cr);
     if (q + 1 < mine) {
       const int nu1 = (int)(q == 0 ? table(1) : row(q + 1))[5];
-      unsigned* uq = uid(q + 1);
+      int* uq = uid(q + 1);
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         const int s = tid + e * nthreads;
@@ -302,37 +260,81 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
     }
     if (q + 2 < mine && tid < ROW) row(q + 2)[tid] = rowr;
   };
-  // chunk q's y out: each unique dof's node sums in the inverse map's
-  // order, added once to what earlier classes left
-  auto sum = [&](int q) {
+  // chunk q's u: each unique x into every position that holds it (the
+  // first design's scatter through the inverse map), or each of the
+  // thread's own nodes' x through the position-to-slot table
+  auto build_u = [&](int q, int n) {
+    if (GATHER) {
+      if (lc < n) {
+        const float c1 = widen<float>(cr), c2 = widen<float>(c2r);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int sl = slotb[lc * NNN + i * NN + t];
+          ub[lc * NNN + i * NN + t] =
+              PAIR ? c1 * xb[sl] + c2 * xb[maxu + sl] : xb[sl];
+        }
+      }
+      return;
+    }
     const int nu = (int)row(q)[5], b = q & 1;
-    const unsigned short* en = endb + b * maxu;
-    const unsigned short* ps = posb + b * cpb * NNN;
-    const unsigned* uq = uid(q);
+    const short* en = endb + b * maxu;
+    const short* ps = posb + b * cpb * NNN;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int s = tid + e * nthreads;
+      if (s < nu) {
+        for (int p = s ? en[s - 1] : 0; p < en[s]; ++p) {
+          const int at = ps[p];
+          if (PAIR) {
+            const int c = at / NNN;
+            ub[at] = xb[b * 2 * cpb + 2 * c] * widen<float>(xr[e]) +
+                     xb[b * 2 * cpb + 2 * c + 1] * widen<float>(x2r[e]);
+          } else {
+            ub[at] = widen<float>(xr[e]);
+          }
+        }
+      }
+    }
+  };
+  // chunk q's y out: each unique dof's positions summed in the inverse
+  // map's order (the node sums the body put over the cells' G in the
+  // chunk's stage), added once to what earlier classes left
+  auto sum = [&](int q) {
+    const long long* r = row(q);
+    const int nu = (int)r[5], b = q & 1;
+    const short* en = endb + b * maxu;
+    const short* ps = posb + b * cpb * NNN;
+    const int* uq = uid(q);
+    const float* y2 = reinterpret_cast<const float*>(
+        ring + (long long)(q % STAGES) * stage_bytes + (r[0] * CB - r[2])) +
+        Metric::SUM_AT;
     for (int s = tid; s < nu; s += nthreads) {
       float acc = 0.0f;
-      for (int p = s ? en[s - 1] : 0; p < en[s]; ++p) acc += sb[ps[p]];
-      y[uq[s]] = narrow<bf16>(bits_f(ysb[b * maxu + s]) + acc);
+      for (int p = s ? en[s - 1] : 0; p < en[s]; ++p) {
+        const int at = ps[p];
+        acc += y2[(at / NNN) * Metric::CELL_T + at % NNN];
+      }
+      y[uq[s]] = narrow<bf16>(ysb[b * maxu + s] + acc);
     }
   };
 
-  // the first chunks' G in flight before anything else is read; then the
-  // rows, the unique ids, x and the tables of chunk 0, and, once the
+  // the first chunks' G in flight before anything else is read; then D,
+  // the rows, the unique ids, x and the tables of chunk 0, and, once the
   // earlier class has ended, its y
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(&bars[s], 1);
     mbar_init_fence();
     for (int q = 0; q < min(STAGES, mine); ++q) issue(q, table(q));
   }
+  for (int s = tid; s < NN; s += nthreads) Ds[s] = D.d[s];
   for (int e = tid; e < min(2, mine) * ROW; e += nthreads)
     row(e / ROW)[e % ROW] = table(e / ROW)[e % ROW];
-  const unsigned* ids0 =
-      reinterpret_cast<const unsigned*>(uniq) + table(0)[4];
+  const int* ids0 = uniq + table(0)[4];
   for (int s = tid; s < (int)table(0)[5]; s += nthreads) uid(0)[s] = ids0[s];
   fetch(0, table(0), ids0, true);
   put(0, table(0));
-  __syncthreads();                   // the mbarriers, rows 0-2, chunk 0's
-                                     // inputs and ids, chunk 1's ids
+  __syncthreads();                   // the mbarriers, D, rows 0-2, chunk
+                                     // 0's inputs and ids, chunk 1's ids
 
   for (int q = 0; q < mine; ++q) {
     const long long* r = row(q);
@@ -341,80 +343,63 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
     const bool active = lc < n;
     const int s = q % STAGES;
     unsigned char* stage = ring + (long long)s * stage_bytes;
-    float ul[N];                     // u along this thread's line
-    if (active) {
-      float c1 = 0.0f, c2 = 0.0f;
-      if (PAIR) {
-        c1 = bits_f(cr & 0xffffu);
-        c2 = bits_f(cr >> 16);
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const int sl = slotb[lc * NNN + i * NN + t];
-        if (PAIR) {
-          const unsigned x12 = xs2[sl];
-          ul[i] = c1 * bits_f(x12 & 0xffffu) + c2 * bits_f(x12 >> 16);
-        } else {
-          ul[i] = bits_f(xs1[sl]);
-        }
-        u[at(i, j, k)] = ul[i];
-      }
-    }
+    build_u(q, n);                   // u is free: the last body read it
+                                     // before its second barrier
     read_span_tail(stage, G, (cell0 + n) * CB, off, r[3], tid, nthreads);
     mbar_wait(&bars[s], (unsigned)((q / STAGES) & 1));
     __syncthreads();                 // u in place, the chunk's G arrived,
                                      // the last chunk's sums are read
+    // no one reads or writes the last chunk's stage again (every thread
+    // fenced its node-sum writes there): refill it, STAGES chunks ahead
+    if (tid == 0 && q > 0 && q - 1 + STAGES < mine)
+      issue(q - 1 + STAGES, row(q - 1 + STAGES));
     if (q + 1 < mine) fetch(q + 1, row(q + 1), uid(q + 1), false);
 
-    // the metric-transformed gradients: f0 of the own line, f1, f2 shared
-    const bf16* gc =
-        reinterpret_cast<const bf16*>(stage + (cell0 * CB - off)) +
-        lc * 6 * NNN;
-    float f0[N];
+    // the body (sum_factor.cuh cell_apply, STAGED_STORE, without its
+    // barrier after the u loads: u is complete at the one above)
+    const float* u = ub + lc * NNN;
+    const Metric metric{reinterpret_cast<bf16*>(stage + (cell0 * CB - off)) +
+                        lc * 6 * NNN};
+    float* f1 = fb + 2 * NNN * lc;
+    float* f2 = f1 + NNN;
+    float ul[N], f0[N];
     if (active) {
 #pragma unroll
+      for (int i = 0; i < N; ++i) ul[i] = u[i * NN + t];
+#pragma unroll
       for (int i = 0; i < N; ++i) {
-        float uz[KP];                // the row u[i][j][.]
-        row4(u, i, j, uz);
         float wx = 0.0f, wy = 0.0f, wz = 0.0f;
 #pragma unroll
         for (int rr = 0; rr < N; ++rr) {
-          wx += D.d[i * N + rr] * ul[rr];
-          wy += dj[rr] * u[at(i, rr, k)];
-          wz += dk[rr] * uz[rr];
+          wx += Ds[i * N + rr] * ul[rr];
+          wy += Ds[j * N + rr] * u[i * NN + rr * N + k];
+          wz += Ds[k * N + rr] * u[i * NN + j * N + rr];
         }
         const int nd = i * NN + t;
-        const float g0 = widen<float>(gc[nd]);
-        const float g1 = widen<float>(gc[NNN + nd]);
-        const float g2 = widen<float>(gc[2 * NNN + nd]);
-        const float g3 = widen<float>(gc[3 * NNN + nd]);
-        const float g4 = widen<float>(gc[4 * NNN + nd]);
-        const float g5 = widen<float>(gc[5 * NNN + nd]);
-        f0[i] = g0 * wx + g1 * wy + g2 * wz;
-        f1[nd] = g1 * wx + g3 * wy + g4 * wz;
-        f2[at(i, j, k)] = g2 * wx + g4 * wy + g5 * wz;
+        float a, b, c;
+        metric(i, nd, wx, wy, wz, a, b, c);
+        f0[i] = a;
+        f1[nd] = b;
+        f2[nd] = c;
       }
     }
-    fence_proxy_async();             // the stage's reads before its refill
-    __syncthreads();                 // f1, f2 complete; the stage is free
-    if (tid == 0 && q + STAGES < mine) issue(q + STAGES, row(q + STAGES));
+    __syncthreads();                 // f1, f2 complete, the metric read
     if (active) {
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        float fz[KP];                // the row f2[i][j][.]
-        row4(f2, i, j, fz);
         float acc = 0.0f;
 #pragma unroll
         for (int rr = 0; rr < N; ++rr) {
-          acc += D.d[rr * N + i] * f0[rr];
-          acc += dtj[rr] * f1[i * NN + rr * N + k];
-          acc += dtk[rr] * fz[rr];
+          acc += Ds[rr * N + i] * f0[rr];
+          acc += Ds[rr * N + j] * f1[i * NN + rr * N + k];
+          acc += Ds[rr * N + k] * f2[i * NN + j * N + rr];
         }
-        sb[lc * NNN + i * NN + t] = acc;
+        metric.put(i * NN + t, acc);
       }
     }
     if (q + 1 < mine) put(q + 1, row(q + 1));
-    __syncthreads();                 // the node sums, the next inputs
+    fence_proxy_async();             // the node sums before the refill
+    __syncthreads();                 // the chunk's sums are complete
     sum(q);
   }
 }
@@ -425,9 +410,12 @@ template <int N, bool PAIR>
 cudaError_t allow_smem() {
   static bool done = false;
   if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      lean_chunk_kernel<N, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_SMEM);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, lean_chunk_kernel<N, PAIR>);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(lean_chunk_kernel<N, PAIR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_SMEM - (int)attr.sharedSizeBytes);
   done = err == cudaSuccess;
   return err;
 }

@@ -44,10 +44,11 @@ unique dof's sum over a chunk in float32, rounded where y is stored, and
 again by each later colour class that adds to the dof, once per class
 that touches it), counted in `bf16_launches`; its plain version computes
 in float32 and rounds once.  A bfloat16 apply runs the lean chunk kernel
-(``csrc/indexed_lean.cu``: D by value, padded float4 rows, three barriers
-a chunk, u gathered through a position-to-slot table, its own launch
-bounds) at the degrees of `LEAN_BF16`, on the first design's chunks and
-classes, and the first bfloat16 form (``indexed_chunk.cu``) at the others;
+(``csrc/indexed_lean.cu``: overlapped class launches, no y read or
+zeroed in a dof's first class, three barriers a chunk, u gathered through
+a position-to-slot table) at the degrees of `LEAN_BF16`, on the first
+design's chunks and classes, and the first bfloat16 form
+(``indexed_chunk.cu``) at the others;
 that form is also reached as `indexed_first` / `indexed_pair_first`, the
 comparison, counted in `comparison_launches`.  `bf16_launches` counts
 `name`_bf16 on the lean kernel, `name`_bf16_first_walk on the first
@@ -349,26 +350,34 @@ def design(P: int, pair: bool, dtype: torch.dtype) -> str:
     return "lean" if lean_runs(P, pair, dtype) else "first"
 
 
-def lean_chunk_smem(P: int, cpb: int, maxu: int, pair: bool = False
-                    ) -> tuple[int, int]:
+# Whether the lean chunk kernel builds u by a gather through the tables'
+# `slot` (``indexed_lean.cu`` FUSTPU_LEAN_CHUNK_GATHER), not the first
+# design's scatter through the inverse map.
+LEAN_GATHER = True
+
+
+def lean_chunk_smem(P: int, cpb: int, maxu: int, pair: bool = False,
+                    gather: bool = LEAN_GATHER) -> tuple[int, int]:
     """(bytes a stage, dynamic shared bytes a block) of the bfloat16 lean
     chunk kernel (``indexed_lean.cu``, whose launcher checks the same): the
     mbarriers and the ring of CHUNK_RING table rows of `chunk_smem`, the
-    stages (cpb cells of bfloat16 G and 16 B of slack), then float32: every
-    cell's u and f2 (n^2 rows padded to a multiple of 4 values each), f1
-    and the node sums (n^3 a cell each); 32-bit: a ring of ID_RING chunks'
-    unique ids and, for the pair, the chunk's unique (x1, x2) (maxu each);
-    16-bit: the single field's unique x (maxu), two buffers of the y that
-    earlier classes left and two of the inverse map's ends (maxu each), two
-    of its positions (cpb n^3) and the positions' slots (cpb n^3).  No
-    static shared memory."""
-    n = P + 1
-    nnn, cellf = n ** 3, n * n * (-(-n // 4) * 4)
+    stages (cpb cells of bfloat16 G and 16 B of slack; the node sums go
+    over G there), then float32: the cells' u, f1 and f2 (n^3 a cell each),
+    two buffers of the y that earlier classes left (maxu), and with the
+    `gather` the chunk's unique x (maxu; the pair x1 and x2), else for the
+    pair two buffers of the cells' (c1, c2); then a ring of ID_RING chunks'
+    unique ids (maxu int32), two buffers of the inverse map's ends (maxu
+    int16) and positions (cpb n^3 int16), and with the gather the
+    positions' slots (cpb n^3 int16).  Its D (n^2 floats) is static shared
+    memory besides (``cuda_stiffness._static_smem``)."""
+    nnn = (P + 1) ** 3
     stage = cs._round16(cpb * 6 * nnn * 2 + 16)
     head = cs._round16(8 * cs.STAGES) + cs._round16(8 * CHUNK_RING * CHUNK_ROW)
-    return stage, (head + cs.STAGES * stage + 4 * cpb * (2 * cellf + 2 * nnn)
-                   + 4 * (ID_RING + pair) * maxu
-                   + 2 * ((not pair) * maxu + 4 * maxu + 3 * cpb * nnn))
+    x = ((2 if pair else 1) * maxu if gather else (4 * cpb if pair else 0))
+    return stage, (head + cs.STAGES * stage
+                   + 4 * (3 * cpb * nnn + 2 * maxu + x) + 4 * ID_RING * maxu
+                   + 2 * 2 * maxu + 2 * 2 * cpb * nnn
+                   + (2 * cpb * nnn if gather else 0))
 
 
 def lean_schedule(first: ChunkSchedule, P: int, sms: int, pair: bool,
@@ -380,7 +389,7 @@ def lean_schedule(first: ChunkSchedule, P: int, sms: int, pair: bool,
     (`lean_chunk_smem`) and its blocks an SM, `occupancy(P, 2, pair, cpb,
     smem)`, in the persistent grid."""
     stage, smem = lean_chunk_smem(P, first.cpb, first.maxu, pair)
-    if smem > cs.SMEM_BLOCK:
+    if smem + cs._static_smem(P, 2) > cs.SMEM_BLOCK:
         raise ValueError(f"lean chunk kernel: {first.cpb} cells of degree "
                          f"{P} need {smem} B of shared memory")
     bps = int(occupancy(P, 2, pair, first.cpb, smem))
@@ -464,7 +473,8 @@ class ChunkPlan:
                 tab = self.tables(sched.cpb)
                 chunks, uniq, _, pos, classes = first[1:6]
                 self._card[key] = (sched, chunks, uniq, t(tab.lead_ends), pos,
-                                   classes, t(tab.slot))
+                                   classes,
+                                   t(tab.slot) if LEAN_GATHER else None)
                 return self._card[key]
             occupancy = cs.occupancy_query(
                 lib, "fustpu_indexed_chunk_occupancy", "", "first",
@@ -630,16 +640,17 @@ def _launch_chunks(name: str, op: IndexedCellStiffness, xs, extra,
     form = f"{'_pair' if len(xs) == 2 else ''}"
     if design == "lean":
         fn = getattr(_build.load(), f"fustpu_indexed_lean{form}_bf16")
-        D, tables = cs.host_D(op.D), (pos, slot)
+        D, tables = cs.host_D(op.D), (pos.data_ptr(),
+                                      slot.data_ptr() if LEAN_GATHER else 0)
     else:
         fn = getattr(_build.load(), f"fustpu_indexed_chunk{form}_"
                      f"{cs.SUFFIX[x.dtype]}")
-        D, tables = op.D.data_ptr(), (pos,)
+        D, tables = op.D.data_ptr(), (pos.data_ptr(),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(), D,
                  y.data_ptr(), op.P, chunks.data_ptr(), uniq.data_ptr(),
-                 ends.data_ptr(), *(t.data_ptr() for t in tables), classes,
+                 ends.data_ptr(), *tables, classes,
                  len(sched.classes), sched.blocks, sched.cpb,
                  sched.stage_bytes, sched.smem, sched.maxu, stream)
     if err != 0:

@@ -1,12 +1,11 @@
 """Where the bfloat16 chunk kernel's time goes (#11 in bf16): copies of the
 CUDA sources with one part of the first bfloat16 chunk kernel removed, and
-of the lean chunk kernel under other register caps or without its
-overlapped class launches, each built at one degree in a temporary
-directory (never the package's own build) and timed on the card in turns
-on the same buffers.
+of the lean chunk kernel without one of its changes, each built at one
+degree in a temporary directory (never the package's own build) and timed
+on the card in turns on the same buffers.
 
     python -m fustpu_torch.tools.chunk_split [--degree 4]
-        [--nc 64 40 40] [--maxreg 80 128] [--turns 2]
+        [--nc 64 40 40] [--turns 2]
 
 The mesh is a perturbed box of `--nc` cells read as a general mesh (64 x 40
 x 40 at P = 4: the bodyfit bowl's 102,400 cells and 6,661,697 dofs), single
@@ -30,7 +29,10 @@ The lean kernel's copies (``csrc/indexed_lean.cu``):
     lean all-y   unchanged, given the plain inverse-map ends in place of
                  `lead_ends` (every dof reads the y that earlier classes
                  left, from a zeroed y);
-    lean R       a register cap of R for each --maxreg.
+    lean scatter u built by the first design's scatter through the inverse
+                 map, not the gather through the position-to-slot table;
+    lean 128     a register cap of 128 in place of 96 (4 blocks of 4 warps
+                 an SM).
 Each copy prints its ptxas registers and spills, ms per apply (the least
 of `--turns` rounds of turns), its blocks an SM, and whether its output is
 bitwise the package's first design's.  Needs nvcc and a card.
@@ -85,7 +87,7 @@ def _at_degree(text: str, P: int, macros) -> str:
     return text
 
 
-def variants(P: int, maxreg) -> dict:
+def variants(P: int) -> dict:
     """{name: (source file, edited text)} of every copy at degree P."""
     first = _at_degree((_build.CSRC / "indexed_chunk.cu").read_text(), P,
                        ["FUSTPU_DEGREES"])
@@ -103,11 +105,16 @@ def variants(P: int, maxreg) -> dict:
                       lean)
     assert k == 1
     out["lean flat"] = ("indexed_lean.cu", text)
-    for r in maxreg:
-        text, k = re.subn(r"#define FUSTPU_LEAN_CHUNK_MAXREG \d+",
-                          f"#define FUSTPU_LEAN_CHUNK_MAXREG {r}", lean)
-        assert k == 1
-        out[f"lean {r}"] = ("indexed_lean.cu", text)
+    text, k = re.subn(r"#define FUSTPU_LEAN_CHUNK_GATHER \d", "#define "
+                      f"FUSTPU_LEAN_CHUNK_GATHER {int(not ci.LEAN_GATHER)}",
+                      lean)
+    assert k == 1
+    out["lean scatter" if ci.LEAN_GATHER else "lean gather"] = (
+        "indexed_lean.cu", text)
+    text, k = re.subn(r"#define FUSTPU_LEAN_CHUNK_MAXREG \d+",
+                      "#define FUSTPU_LEAN_CHUNK_MAXREG 128", lean)
+    assert k == 1
+    out["lean 128"] = ("indexed_lean.cu", text)
     return out
 
 
@@ -162,7 +169,7 @@ def ms_per_call(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def run(P: int, nc, maxreg, turns: int = 2) -> dict:
+def run(P: int, nc, turns: int = 2) -> dict:
     """Builds and times every copy, single and pair; returns {(form,
     name): {"ms": [...], "registers", "spills", "blocks_per_sm"}}."""
     dev = torch.device("cuda")
@@ -174,7 +181,7 @@ def run(P: int, nc, maxreg, turns: int = 2) -> dict:
     xs = [torch.as_tensor(rng.standard_normal(mesh.ndofs), device=dev).to(
         BF16) for _ in range(2)]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(variants(P, maxreg), Path(tmp))
+        libs = build(variants(P), Path(tmp))
         libs["lean all-y"] = libs["lean"]
         out = {}
         for pair in (False, True):
@@ -186,7 +193,8 @@ def run(P: int, nc, maxreg, turns: int = 2) -> dict:
             tab = op.plan.tables(sched.cpb)
             slot = torch.as_tensor(tab.slot, device=dev)
             lead_ends = torch.as_tensor(tab.lead_ends, device=dev)
-            stage, smem = ci.lean_chunk_smem(P, sched.cpb, sched.maxu, pair)
+            layout = {g: ci.lean_chunk_smem(P, sched.cpb, sched.maxu, pair,
+                                            gather=g) for g in (False, True)}
             a = xs[:1 + pair]
             extra = (op.C.data_ptr(),) if pair else ()
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -200,6 +208,9 @@ def run(P: int, nc, maxreg, turns: int = 2) -> dict:
                      (lean or "bfloat16" in x["mangled"] or
                       "13__nv_bfloat16" in x["mangled"])]
                 bps = sched.blocks_per_sm
+                gather = ci.LEAN_GATHER != (name in ("lean scatter",
+                                                     "lean gather"))
+                stage, smem = layout[gather]
                 if lean:
                     bps = lib.fustpu_indexed_lean_occupancy(P, int(pair),
                                                             sched.cpb, smem)
@@ -212,7 +223,7 @@ def run(P: int, nc, maxreg, turns: int = 2) -> dict:
                                   spills=(r[0]["spill_stores"],
                                           r[0]["spill_loads"]) if r else None)
 
-                def call(lib=lib, lean=lean, bps=bps,
+                def call(lib=lib, lean=lean, bps=bps, stage=stage, smem=smem,
                          ends_=ends if name == "lean all-y" or not lean
                          else lead_ends):
                     y = torch.zeros_like(a[0])
@@ -253,9 +264,9 @@ def run(P: int, nc, maxreg, turns: int = 2) -> dict:
             print(f"P={P} {form}: the first design's schedule {sched.cpb} "
                   f"cells a chunk, {len(sched.classes)} classes of "
                   f"{len(sched.chunks)} chunks, maxu {sched.maxu}, "
-                  f"{sched.smem} B ({smem} B lean), {sched.blocks_per_sm} "
-                  f"blocks an SM; bitwise the package's first design: "
-                  f"{same}", flush=True)
+                  f"{sched.smem} B ({layout[ci.LEAN_GATHER][1]} B lean), "
+                  f"{sched.blocks_per_sm} blocks an SM; bitwise the "
+                  f"package's first design: {same}", flush=True)
             for n in names:
                 rw = rows[n]
                 print(f"   {form:6s} {n:24s} " + " ".join(
@@ -271,7 +282,6 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--degree", type=int, default=4)
     p.add_argument("--nc", type=int, nargs=3, default=[64, 40, 40])
-    p.add_argument("--maxreg", type=int, nargs="+", default=[80, 128])
     p.add_argument("--turns", type=int, default=2)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -280,7 +290,7 @@ def main(argv=None) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"{smi}; CUDA events", flush=True)
-    return run(args.degree, args.nc, args.maxreg, args.turns)
+    return run(args.degree, args.nc, args.turns)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,6 @@ inside the tests that compare against it (the `ref` fixture):
 
 from __future__ import annotations
 
-import functools
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -101,26 +100,29 @@ def _mesh(kind, P, directory):
 
 def _check_lean(plan, P, pair, cpb=None, sms=132):
     """The lean launch of the first design's bf16 schedule: the same cells
-    a chunk, table and classes; the shared bytes its layout's, within a
-    block's limit; the float rows after the head and the stages on 16 B;
+    a chunk, table and classes; the shared bytes its layout's, with its
+    static D within a block's limit, the blocks an SM those bytes allow;
     the position-to-slot table the inverse map's; `lead_ends` the ends,
     flagged exactly where no chunk of an earlier class holds the dof."""
-    nnn, n = (P + 1) ** 3, P + 1
+    nnn = (P + 1) ** 3
     first = ci.chunk_schedule(plan, P, 2, sms, pair, cpb=cpb)
-    lean = ci.lean_schedule(first, P, sms, pair, functools.partial(
-        cs.model_occupancy, static=0))
+    lean = ci.lean_schedule(first, P, sms, pair, cs.model_occupancy)
     for f in ("cpb", "maxu", "stages"):
         assert getattr(lean, f) == getattr(first, f)
     assert np.array_equal(lean.classes, first.classes)
     assert np.array_equal(lean.chunks, first.chunks)
     stage, smem = ci.lean_chunk_smem(P, lean.cpb, lean.maxu, pair)
     assert (lean.stage_bytes, lean.smem) == (stage, smem) and stage % 16 == 0
-    assert smem <= SMEM_BLOCK and lean.blocks == lean.blocks_per_sm * sms
-    kp = -(-n // 4) * 4
-    head = cs._round16(8 * cs.STAGES) + cs._round16(8 * 4 * 6)
-    assert head % 16 == 0 and (n * n * kp * 4) % 16 == 0
+    assert smem + cs._static_smem(P, 2) <= SMEM_BLOCK
+    assert lean.blocks == lean.blocks_per_sm * sms
     assert lean.blocks_per_sm == cs.model_occupancy(P, 2, pair, lean.cpb,
-                                                    smem, static=0)
+                                                    smem)
+    # the layout: the first design's, with the unique x and the slots for
+    # the gather in place of the scatter's (c1, c2)
+    nu = lean.maxu
+    extra = (2 if pair else 1) * nu * 4 + 2 * lean.cpb * nnn
+    assert smem == ci.chunk_smem(P, 2, lean.cpb, nu, pair)[1] + extra - (
+        4 * 4 * lean.cpb if pair else 0)
     tab = plan.tables(lean.cpb)
     assert tab.slot.dtype == np.int16 and tab.slot.shape == tab.pos.shape
     assert tab.lead_ends.dtype == np.int16
@@ -162,8 +164,8 @@ def test_lean_chunk_launch(tmp_path, P):
             assert _check_lean(plan, P, pair, cpb=1).cpb == 1
     cpb = 256 // (P + 1) ** 2
     for pair in (False, True):
-        assert ci.lean_chunk_smem(P, cpb, cpb * (P + 1) ** 3,
-                                  pair)[1] <= SMEM_BLOCK
+        assert ci.lean_chunk_smem(P, cpb, cpb * (P + 1) ** 3, pair)[1] + \
+            cs._static_smem(P, 2) <= SMEM_BLOCK
 
 
 # ---------------------------------------------------------------------------
