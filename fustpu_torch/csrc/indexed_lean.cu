@@ -86,7 +86,7 @@
 
 // u built by a gather through the position-to-slot table (1) or by the
 // first design's scatter through the inverse map (0)
-#define FUSTPU_LEAN_CHUNK_GATHER 1
+#define FUSTPU_LEAN_CHUNK_GATHER 0
 
 namespace {
 

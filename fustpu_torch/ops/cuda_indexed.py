@@ -353,7 +353,7 @@ def design(P: int, pair: bool, dtype: torch.dtype) -> str:
 # Whether the lean chunk kernel builds u by a gather through the tables'
 # `slot` (``indexed_lean.cu`` FUSTPU_LEAN_CHUNK_GATHER), not the first
 # design's scatter through the inverse map.
-LEAN_GATHER = True
+LEAN_GATHER = False
 
 
 def lean_chunk_smem(P: int, cpb: int, maxu: int, pair: bool = False,

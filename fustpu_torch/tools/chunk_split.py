@@ -31,8 +31,15 @@ The lean kernel's copies (``csrc/indexed_lean.cu``):
                  left, from a zeroed y);
     lean scatter u built by the first design's scatter through the inverse
                  map, not the gather through the position-to-slot table;
+    lean gather  u built by the gather through the position-to-slot table,
+                 not the first design's scatter (or the other way round,
+                 "lean scatter", where the source gathers);
     lean 128     a register cap of 128 in place of 96 (4 blocks of 4 warps
-                 an SM).
+                 an SM);
+    lean G late  the first chunks' G copies issued after the prologue's
+                 barrier, as the first design does, not first of all;
+    lean G wait  the same copies issued right after the wait for the
+                 earlier class.
 Each copy prints its ptxas registers and spills, ms per apply (the least
 of `--turns` rounds of turns), its blocks an SM, and whether its output is
 bitwise the package's first design's.  Needs nvcc and a card.
@@ -115,6 +122,21 @@ def variants(P: int) -> dict:
                       "#define FUSTPU_LEAN_CHUNK_MAXREG 128", lean)
     assert k == 1
     out["lean 128"] = ("indexed_lean.cu", text)
+    first_g = ("    for (int q = 0; q < min(STAGES, mine); ++q) "
+               "issue(q, table(q));\n")
+    issue_g = ("if (tid == 0) for (int g = 0; g < min(STAGES, mine); ++g) "
+               "issue(g, table(g));")
+    for name, at, put in (
+            ("lean G late", "  put(0, table(0));\n  __syncthreads();",
+             "  put(0, table(0));\n  __syncthreads();\n  " + issue_g),
+            ("lean G wait",
+             '    if (gate) asm volatile("griddepcontrol.wait;" ::: '
+             '"memory");',
+             '    if (gate) {\n      asm volatile("griddepcontrol.wait;" '
+             '::: "memory");\n      ' + issue_g + "\n    }")):
+        assert lean.count(first_g) == 1 and lean.count(at) == 1, name
+        out[name] = ("indexed_lean.cu",
+                     lean.replace(first_g, "").replace(at, put))
     return out
 
 

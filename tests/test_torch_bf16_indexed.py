@@ -117,12 +117,15 @@ def _check_lean(plan, P, pair, cpb=None, sms=132):
     assert lean.blocks == lean.blocks_per_sm * sms
     assert lean.blocks_per_sm == cs.model_occupancy(P, 2, pair, lean.cpb,
                                                     smem)
-    # the layout: the first design's, with the unique x and the slots for
-    # the gather in place of the scatter's (c1, c2)
-    nu = lean.maxu
-    extra = (2 if pair else 1) * nu * 4 + 2 * lean.cpb * nnn
-    assert smem == ci.chunk_smem(P, 2, lean.cpb, nu, pair)[1] + extra - (
-        4 * 4 * lean.cpb if pair else 0)
+    # the layout: the first design's, with the gather's unique x and
+    # slots in place of the scatter's (c1, c2)
+    nu, first_smem = lean.maxu, ci.chunk_smem(P, 2, lean.cpb, lean.maxu,
+                                              pair)[1]
+    gather = ((2 if pair else 1) * nu * 4 + 2 * lean.cpb * nnn
+              - (4 * 4 * lean.cpb if pair else 0))
+    assert smem == first_smem + (gather if ci.LEAN_GATHER else 0)
+    assert ci.lean_chunk_smem(P, lean.cpb, nu, pair, gather=True)[1] == \
+        first_smem + gather
     tab = plan.tables(lean.cpb)
     assert tab.slot.dtype == np.int16 and tab.slot.shape == tab.pos.shape
     assert tab.lead_ends.dtype == np.int16
