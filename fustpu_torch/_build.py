@@ -170,13 +170,12 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     lib.fustpu_indexed_chunk_occupancy.argtypes = [i, i, i, i, i]
     lib.fustpu_indexed_chunk_occupancy.restype = i
-    # the bfloat16 lean chunk kernel (indexed_lean.cu): D a host array of
-    # floats, the positions' slots after the inverse map's positions; its
-    # occupancy query takes (P, pair, cpb, smem)
-    lean_chunk = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.fustpu_indexed_lean_bf16.argtypes = [p, p, p, p, i, *lean_chunk]
+    # the bfloat16 lean chunk kernel (indexed_lean.cu): the same arguments,
+    # D a host array of floats and the ends flagged in each dof's first
+    # class; its occupancy query takes (P, pair, cpb, smem)
+    lib.fustpu_indexed_lean_bf16.argtypes = [p, p, p, p, i, *chunk]
     lib.fustpu_indexed_lean_pair_bf16.argtypes = [p, p, p, p, p, p, i,
-                                                  *lean_chunk]
+                                                  *chunk]
     lib.fustpu_indexed_lean_occupancy.argtypes = [i, i, i, i]
     for name in ("fustpu_indexed_lean_bf16", "fustpu_indexed_lean_pair_bf16",
                  "fustpu_indexed_lean_occupancy"):

@@ -45,11 +45,9 @@
 //      complete at the arrival barrier).
 //   5. A register cap of 96 (FUSTPU_LEAN_CHUNK_MAXREG): five blocks of 5
 //      cells an SM at P = 4, as the first design runs.
-//   6. u as one gather a position (FUSTPU_LEAN_CHUNK_GATHER): a host-built
-//      position-to-slot table (`ChunkTables.slot`) gives each of a thread's
-//      own nodes its unique dof's x, which the block keeps by slot; no
-//      divergent loop over the inverse map, no division for the pair's
-//      coefficients (the thread's own cell's, in registers).
+//   u is built by the first design's scatter through the inverse map: a
+//   gather through a host-built position-to-slot table measured slower
+//   (its pair spills under the cap; PERF.md §6).
 // Every node's sum is the first design's, term by term and in the same
 // order (the body is cell_apply's, the same float D), each unique dof sums
 // its positions in the inverse map's order from 0.0f and adds the y that
@@ -58,17 +56,17 @@
 // the output is bitwise the first design's, and two applies are bitwise
 // equal (no atomics).
 //
-// Shared memory per block (the host computes the same, cuda_indexed.py
-// `lean_chunk_smem`, and the launcher checks it): D (N^2 floats, static),
+// Shared memory per block (the first design's: the host computes the same,
+// cuda_indexed.py `chunk_smem`, and the launcher checks it): D (N^2 floats,
+// static),
 // and dynamic: STAGES mbarriers and a ring of RING table rows (each padded
 // to 16 B), STAGES stages of stage_bytes (cpb cells of bfloat16 G and 16 B
 // for the aligned span; the node sums go over G there), then floats: the
 // cells' u, f1 and f2 (N^3 a cell each), two buffers of the y that earlier
-// classes left (maxu), and with the gather the chunk's unique x (maxu; the
-// pair x1 and x2), else for the pair two buffers of the cells' (c1, c2);
-// then a ring of ID_RING chunks' unique ids (maxu int32), two buffers of the
-// inverse map's ends (maxu int16) and positions (cpb N^3 int16), and with
-// the gather the positions' slots (cpb N^3 int16).
+// classes left (maxu), for the pair two of the cells' (c1, c2); then a ring
+// of ID_RING chunks' unique ids (maxu int32), two buffers of the inverse
+// map's ends (maxu int16) and positions (cpb N^3 int16): the first
+// design's layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,16 +75,11 @@
 #include "pencil_lean.cuh"
 
 // The degrees at which a bfloat16 apply on a general mesh runs the lean
-// chunk kernel, single field and pair (ops/cuda_indexed.py `LEAN_BF16`);
-// at the others the entry points return -1.
-#define FUSTPU_LEAN_CHUNK_SINGLE(M) \
-  M(2) M(3) M(4) M(5) M(6) M(7) M(8) M(9) M(10)
-#define FUSTPU_LEAN_CHUNK_PAIR(M) \
-  M(2) M(3) M(4) M(5) M(6) M(7) M(8) M(9) M(10)
-
-// u built by a gather through the position-to-slot table (1) or by the
-// first design's scatter through the inverse map (0)
-#define FUSTPU_LEAN_CHUNK_GATHER 0
+// chunk kernel, single field and pair (ops/cuda_indexed.py `LEAN_BF16`:
+// where it measured faster than the first design); at the others the entry
+// points return -1.
+#define FUSTPU_LEAN_CHUNK_SINGLE(M) M(3) M(4)
+#define FUSTPU_LEAN_CHUNK_PAIR(M) M(2) M(3) M(4)
 
 namespace {
 
@@ -118,11 +111,8 @@ __host__ __device__ constexpr long long smem_bytes(int cpb, int maxu,
                                                    int stage_bytes) {
   constexpr long long NNN = N * N * N;
   return head_bytes() + (long long)STAGES * stage_bytes +
-         4LL * (3 * cpb * NNN + 2LL * maxu +
-                (FUSTPU_LEAN_CHUNK_GATHER ? (PAIR ? 2 : 1) * (long long)maxu
-                                          : (PAIR ? 4LL * cpb : 0))) +
-         4LL * ID_RING * maxu + 2LL * 2 * maxu + 2LL * 2 * cpb * NNN +
-         (FUSTPU_LEAN_CHUNK_GATHER ? 2LL * cpb * NNN : 0);
+         4LL * (3 * cpb * NNN + 2LL * maxu + (PAIR ? 4LL * cpb : 0)) +
+         4LL * ID_RING * maxu + 2LL * 2 * maxu + 2LL * 2 * cpb * NNN;
 }
 
 template <int N, bool PAIR>
@@ -133,11 +123,9 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
                   const long long* __restrict__ chunks,
                   const int* __restrict__ uniq,
                   const short* __restrict__ lead_ends,
-                  const short* __restrict__ pos,
-                  const short* __restrict__ slots, long long first,
+                  const short* __restrict__ pos, long long first,
                   int count, int stage_bytes, int maxu) {
   constexpr int NN = N * N, NNN = N * N * N;
-  constexpr bool GATHER = FUSTPU_LEAN_CHUNK_GATHER;
   constexpr long long CB = 6LL * NNN * (long long)sizeof(bf16);
   using Metric = GShared<float, N, bf16>;
   // the next class's kernel may start now: it waits for this one to end
@@ -152,13 +140,10 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
   float* ub = reinterpret_cast<float*>(ring + (long long)STAGES * stage_bytes);
   float* fb = ub + cpb * NNN;                    // f1, f2: 2 N^3 a cell
   float* ysb = fb + 2 * cpb * NNN;               // 2 x maxu: earlier y
-  float* xb = ysb + 2 * maxu;                    // the unique x, x2 (gather)
-                                                 // or 2 x (c1, c2) a cell
-  int* uidb = reinterpret_cast<int*>(
-      xb + (GATHER ? (PAIR ? 2 : 1) * maxu : (PAIR ? 4 * cpb : 0)));
+  float* cb = ysb + 2 * maxu;                    // 2 x 2 cpb: (c1, c2)
+  int* uidb = reinterpret_cast<int*>(cb + (PAIR ? 4 * cpb : 0));
   short* endb = reinterpret_cast<short*>(uidb + ID_RING * maxu);
   short* posb = endb + 2 * maxu;                 // 2 x cpb N^3
-  short* slotb = posb + 2 * cpb * NNN;           // cpb N^3 (gather)
   const int t = threadIdx.x, lc = threadIdx.y;   // node line (j, k), cell
   const int tid = lc * NN + t, nthreads = NN * cpb;
   const int j = t / N, k = t % N;
@@ -182,8 +167,8 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
   // nthreads, e < N (a chunk has at most cpb N^3 of each).  The next
   // chunk's inputs go through these registers: fetched before the body,
   // written to shared memory after it (x, x2 stay here until the scatter).
-  bf16 xr[N], x2r[N], yr[N], cr{}, c2r{};
-  short er[N], pr[N], sr[N];
+  bf16 xr[N], x2r[N], yr[N], cr{};
+  short er[N], pr[N];
   int idr[N];
   long long rowr = 0;
   // chunk q's inputs (its row r, its unique ids ids), the unique ids of
@@ -202,16 +187,9 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
         if (PAIR) x2r[e] = x2[idq[e]];
         er[e] = lead_ends[u0 + s];
       }
-      if (s < n * NNN) {
-        pr[e] = pos[c0 * NNN + s];
-        if (GATHER) sr[e] = slots[c0 * NNN + s];
-      }
+      if (s < n * NNN) pr[e] = pos[c0 * NNN + s];
     }
-    if (PAIR && GATHER && lc < n) {                  // the own cell's
-      cr = C[2 * (c0 + lc)];
-      c2r = C[2 * (c0 + lc) + 1];
-    }
-    if (PAIR && !GATHER && tid < 2 * n) cr = C[2 * c0 + tid];
+    if (PAIR && tid < 2 * n) cr = C[2 * c0 + tid];
     if (gate) asm volatile("griddepcontrol.wait;" ::: "memory");
 #pragma unroll
     for (int e = 0; e < N; ++e) {
@@ -237,18 +215,10 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
       if (s < nu) {
         ysb[b * maxu + s] = widen<float>(yr[e]);
         endb[b * maxu + s] = er[e] & ~LEAD;
-        if (GATHER) {
-          xb[s] = widen<float>(xr[e]);
-          if (PAIR) xb[maxu + s] = widen<float>(x2r[e]);
-        }
       }
-      if (s < n * NNN) {
-        posb[b * cpb * NNN + s] = pr[e];
-        if (GATHER) slotb[s] = sr[e];
-      }
+      if (s < n * NNN) posb[b * cpb * NNN + s] = pr[e];
     }
-    if (PAIR && !GATHER && tid < 2 * n)
-      xb[b * 2 * cpb + tid] = widen<float>(cr);
+    if (PAIR && tid < 2 * n) cb[b * 2 * cpb + tid] = widen<float>(cr);
     if (q + 1 < mine) {
       const int nu1 = (int)(q == 0 ? table(1) : row(q + 1))[5];
       int* uq = uid(q + 1);
@@ -261,21 +231,8 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
     if (q + 2 < mine && tid < ROW) row(q + 2)[tid] = rowr;
   };
   // chunk q's u: each unique x into every position that holds it (the
-  // first design's scatter through the inverse map), or each of the
-  // thread's own nodes' x through the position-to-slot table
-  auto build_u = [&](int q, int n) {
-    if (GATHER) {
-      if (lc < n) {
-        const float c1 = widen<float>(cr), c2 = widen<float>(c2r);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const int sl = slotb[lc * NNN + i * NN + t];
-          ub[lc * NNN + i * NN + t] =
-              PAIR ? c1 * xb[sl] + c2 * xb[maxu + sl] : xb[sl];
-        }
-      }
-      return;
-    }
+  // first design's scatter through the inverse map)
+  auto build_u = [&](int q) {
     const int nu = (int)row(q)[5], b = q & 1;
     const short* en = endb + b * maxu;
     const short* ps = posb + b * cpb * NNN;
@@ -287,8 +244,8 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
           const int at = ps[p];
           if (PAIR) {
             const int c = at / NNN;
-            ub[at] = xb[b * 2 * cpb + 2 * c] * widen<float>(xr[e]) +
-                     xb[b * 2 * cpb + 2 * c + 1] * widen<float>(x2r[e]);
+            ub[at] = cb[b * 2 * cpb + 2 * c] * widen<float>(xr[e]) +
+                     cb[b * 2 * cpb + 2 * c + 1] * widen<float>(x2r[e]);
           } else {
             ub[at] = widen<float>(xr[e]);
           }
@@ -343,7 +300,7 @@ lean_chunk_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
     const bool active = lc < n;
     const int s = q % STAGES;
     unsigned char* stage = ring + (long long)s * stage_bytes;
-    build_u(q, n);                   // u is free: the last body read it
+    build_u(q);                      // u is free: the last body read it
                                      // before its second barrier
     read_span_tail(stage, G, (cell0 + n) * CB, off, r[3], tid, nthreads);
     mbar_wait(&bars[s], (unsigned)((q / STAGES) & 1));
@@ -428,7 +385,7 @@ cudaError_t allow_smem() {
 template <int N, bool PAIR>
 int launch_n(const void* x1, const void* x2, const void* C, const void* G,
              const float* D, void* y, const void* chunks, const void* uniq,
-             const void* lead_ends, const void* pos, const void* slots,
+             const void* lead_ends, const void* pos,
              const long long* classes, int nclass, int blocks, int cpb,
              int stage_bytes, int smem, int maxu, cudaStream_t stream) {
   if (smem < smem_bytes<N, PAIR>(cpb, maxu, stage_bytes) ||
@@ -458,8 +415,7 @@ int launch_n(const void* x1, const void* x2, const void* C, const void* G,
         static_cast<const bf16*>(G), dm, static_cast<bf16*>(y),
         static_cast<const long long*>(chunks), static_cast<const int*>(uniq),
         static_cast<const short*>(lead_ends), static_cast<const short*>(pos),
-        static_cast<const short*>(slots), first, (int)count, stage_bytes,
-        maxu);
+        first, (int)count, stage_bytes, maxu);
     if (err != cudaSuccess) return (int)err;
     after = true;
   }
@@ -483,15 +439,15 @@ template <bool PAIR>
 int launch(int P, const void* x1, const void* x2, const void* C,
            const void* G, const float* D, void* y, const void* chunks,
            const void* uniq, const void* lead_ends, const void* pos,
-           const void* slots, const long long* classes, int nclass,
+           const long long* classes, int nclass,
            int blocks, int cpb, int stage_bytes, int smem, int maxu,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FUSTPU_CASE(P_)                                                      \
   case P_:                                                                   \
     return launch_n<P_ + 1, PAIR>(x1, x2, C, G, D, y, chunks, uniq,          \
-                                  lead_ends, pos, slots, classes, nclass,    \
-                                  blocks, cpb, stage_bytes, smem, maxu, s);
+                                  lead_ends, pos, classes, nclass, blocks,   \
+                                  cpb, stage_bytes, smem, maxu, s);
   if constexpr (PAIR) {
     switch (P) {
       FUSTPU_LEAN_CHUNK_PAIR(FUSTPU_CASE)
@@ -537,20 +493,20 @@ int occupancy(int P, int cpb, int smem) {
 // needs no zeroing where the cells cover every dof (a dof's first class
 // reads none).  D: N^2 floats on the host; chunks: (rows, 6) int64, uniq:
 // int32, lead_ends: int16 (one per unique dof of each chunk: its end in
-// the inverse map, bit 15 set in the dof's first class), pos and slots:
-// (cells N^3,) int16, all on the device; classes: nclass x 2 int64 (first
-// row, chunks) on the host.
+// the inverse map, bit 15 set in the dof's first class), pos: (cells
+// N^3,) int16, all on the device; classes: nclass x 2 int64 (first row,
+// chunks) on the host.
 extern "C" {
 
 int fustpu_indexed_lean_bf16(const void* x, const void* G, const float* D,
                              void* y, int P, const void* chunks,
                              const void* uniq, const void* lead_ends,
-                             const void* pos, const void* slots,
+                             const void* pos,
                              const long long* classes, int nclass,
                              int blocks, int cpb, int stage_bytes, int smem,
                              int maxu, void* stream) {
   return launch<false>(P, x, nullptr, nullptr, G, D, y, chunks, uniq,
-                       lead_ends, pos, slots, classes, nclass, blocks, cpb,
+                       lead_ends, pos, classes, nclass, blocks, cpb,
                        stage_bytes, smem, maxu, stream);
 }
 
@@ -559,13 +515,12 @@ int fustpu_indexed_lean_pair_bf16(const void* x1, const void* x2,
                                   const float* D, void* y, int P,
                                   const void* chunks, const void* uniq,
                                   const void* lead_ends, const void* pos,
-                                  const void* slots,
                                   const long long* classes, int nclass,
                                   int blocks, int cpb, int stage_bytes,
                                   int smem, int maxu, void* stream) {
   return launch<true>(P, x1, x2, C, G, D, y, chunks, uniq, lead_ends, pos,
-                      slots, classes, nclass, blocks, cpb, stage_bytes, smem,
-                      maxu, stream);
+                      classes, nclass, blocks, cpb, stage_bytes, smem, maxu,
+                      stream);
 }
 
 // Blocks of the lean chunk kernel for (P, pair?) with cpb cells and smem

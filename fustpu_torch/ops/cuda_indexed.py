@@ -45,10 +45,9 @@ again by each later colour class that adds to the dof, once per class
 that touches it), counted in `bf16_launches`; its plain version computes
 in float32 and rounds once.  A bfloat16 apply runs the lean chunk kernel
 (``csrc/indexed_lean.cu``: overlapped class launches, no y read or
-zeroed in a dof's first class, three barriers a chunk, u gathered through
-a position-to-slot table) at the degrees of `LEAN_BF16`, on the first
-design's chunks and classes, and the first bfloat16 form
-(``indexed_chunk.cu``) at the others;
+zeroed in a dof's first class, three barriers a chunk) at the degrees of
+`LEAN_BF16`, on the first design's chunks and classes, and the first
+bfloat16 form (``indexed_chunk.cu``) at the others;
 that form is also reached as `indexed_first` / `indexed_pair_first`, the
 comparison, counted in `comparison_launches`.  `bf16_launches` counts
 `name`_bf16 on the lean kernel, `name`_bf16_first_walk on the first
@@ -165,9 +164,6 @@ class ChunkTables(NamedTuple):
                              # (cell - cell0) n^3 + node, grouped by unique
                              # dof, ascending within each
     colour: np.ndarray       # (chunks,) colour (`colour_sets`)
-    slot: np.ndarray         # (cells n^3,) int16 the unique dof of each
-                             # (cell, node), its index in its chunk's
-                             # `uniq` run (the lean kernel's gather)
     lead_ends: np.ndarray    # (sum nu,) int16 `ends` with bit 15 set where
                              # the chunk is the dof's first (lowest colour)
                              # holder: the lean kernel reads no y there
@@ -182,10 +178,9 @@ def chunk_tables(dofmap: np.ndarray, ndofs: int, cpb: int) -> ChunkTables:
     shorter) and build each chunk's table: its unique dofs, and its inverse
     map (for each unique dof, the chunk's (cell, node) positions that hold
     it, in ascending order: `pos` from the chunk's first cell's position,
-    `ends` the exclusive end of each dof's entries there), and its
-    position-to-slot table (`slot`: for each (cell, node), in cell order,
-    its dof's index among the chunk's unique dofs); colour the chunks in
-    order so that no two chunks of a colour share a dof; and flag each
+    `ends` the exclusive end of each dof's entries there); colour the
+    chunks in order so that no two chunks of a colour share a dof; and flag
+    each
     chunk's unique dofs that no chunk of a lower colour holds (`lead_ends`,
     bit 15 of `ends`): the colour classes run in ascending order, so there
     the y that earlier classes left is the zero y starts from."""
@@ -215,9 +210,7 @@ def chunk_tables(dofmap: np.ndarray, ndofs: int, cpb: int) -> ChunkTables:
     return ChunkTables(cpb=cpb, cell0=cell0, ncell=ncell, u0=u0, nu=nu,
                        uniq=uniq, ends=ends,
                        pos=(order - first[chunk[order]]).astype(np.int16),
-                       colour=colour,
-                       slot=(inv.reshape(-1) - u0[chunk]).astype(np.int16),
-                       lead_ends=ends | lead)
+                       colour=colour, lead_ends=ends | lead)
 
 
 CHUNK_ROW = 6            # int64 a chunk-table row
@@ -329,13 +322,14 @@ def chunk_schedule(plan: "ChunkPlan", P: int, itemsize: int, sms: int,
 
 
 # The degrees (P, pair?) at which a bfloat16 apply runs the lean chunk
-# kernel (``csrc/indexed_lean.cu``), the first bfloat16 form having
-# measured slower at the others in turns on the 64 x 40 x 40 general box
-# (``demos/exp_engine_bf16 --indexed``, H100; PERF.md, the bf16 rows of
-# #11).  ``indexed_lean.cu`` instantiates the kernel at these degrees only
+# kernel (``csrc/indexed_lean.cu``): where it measured faster than the first
+# bfloat16 form in turns on the 64 x 40 x 40 general box (``demos/
+# exp_engine_bf16 --indexed``, H100; PERF.md, the bf16 rows of #11).  From
+# P = 5 on its register cap spills; P = 9, 10 were not timed.
+# ``indexed_lean.cu`` instantiates the kernel at these degrees only
 # (FUSTPU_LEAN_CHUNK_SINGLE, FUSTPU_LEAN_CHUNK_PAIR).
-LEAN_BF16 = frozenset((P, pair) for P in range(2, 11)
-                      for pair in (False, True))
+LEAN_BF16 = frozenset({(2, True), (3, False), (3, True), (4, False),
+                       (4, True)})
 
 
 def lean_runs(P: int, pair: bool, dtype: torch.dtype) -> bool:
@@ -350,54 +344,19 @@ def design(P: int, pair: bool, dtype: torch.dtype) -> str:
     return "lean" if lean_runs(P, pair, dtype) else "first"
 
 
-# Whether the lean chunk kernel builds u by a gather through the tables'
-# `slot` (``indexed_lean.cu`` FUSTPU_LEAN_CHUNK_GATHER), not the first
-# design's scatter through the inverse map.
-LEAN_GATHER = False
-
-
-def lean_chunk_smem(P: int, cpb: int, maxu: int, pair: bool = False,
-                    gather: bool = LEAN_GATHER) -> tuple[int, int]:
-    """(bytes a stage, dynamic shared bytes a block) of the bfloat16 lean
-    chunk kernel (``indexed_lean.cu``, whose launcher checks the same): the
-    mbarriers and the ring of CHUNK_RING table rows of `chunk_smem`, the
-    stages (cpb cells of bfloat16 G and 16 B of slack; the node sums go
-    over G there), then float32: the cells' u, f1 and f2 (n^3 a cell each),
-    two buffers of the y that earlier classes left (maxu), and with the
-    `gather` the chunk's unique x (maxu; the pair x1 and x2), else for the
-    pair two buffers of the cells' (c1, c2); then a ring of ID_RING chunks'
-    unique ids (maxu int32), two buffers of the inverse map's ends (maxu
-    int16) and positions (cpb n^3 int16), and with the gather the
-    positions' slots (cpb n^3 int16).  Its D (n^2 floats) is static shared
-    memory besides (``cuda_stiffness._static_smem``)."""
-    nnn = (P + 1) ** 3
-    stage = cs._round16(cpb * 6 * nnn * 2 + 16)
-    head = cs._round16(8 * cs.STAGES) + cs._round16(8 * CHUNK_RING * CHUNK_ROW)
-    x = ((2 if pair else 1) * maxu if gather else (4 * cpb if pair else 0))
-    return stage, (head + cs.STAGES * stage
-                   + 4 * (3 * cpb * nnn + 2 * maxu + x) + 4 * ID_RING * maxu
-                   + 2 * 2 * maxu + 2 * 2 * cpb * nnn
-                   + (2 * cpb * nnn if gather else 0))
-
-
 def lean_schedule(first: ChunkSchedule, P: int, sms: int, pair: bool,
                   occupancy) -> ChunkSchedule:
     """The lean chunk kernel's launch of the first design's schedule
     `first`: the same cells a chunk, chunk table and classes (a dof shared
     by chunks of k classes is rounded k times, so another schedule would
-    round other dofs), with the lean kernel's shared bytes
-    (`lean_chunk_smem`) and its blocks an SM, `occupancy(P, 2, pair, cpb,
-    smem)`, in the persistent grid."""
-    stage, smem = lean_chunk_smem(P, first.cpb, first.maxu, pair)
-    if smem + cs._static_smem(P, 2) > cs.SMEM_BLOCK:
-        raise ValueError(f"lean chunk kernel: {first.cpb} cells of degree "
-                         f"{P} need {smem} B of shared memory")
-    bps = int(occupancy(P, 2, pair, first.cpb, smem))
+    round other dofs) and its shared layout (`chunk_smem`, which the lean
+    kernel's launcher checks), with the lean kernel's blocks an SM,
+    `occupancy(P, 2, pair, cpb, smem)`, in the persistent grid."""
+    bps = int(occupancy(P, 2, pair, first.cpb, first.smem))
     if bps < 1:
         raise ValueError(f"lean chunk kernel: no block of {first.cpb} cells "
                          f"of degree {P} fits an SM")
-    return first._replace(stage_bytes=stage, smem=smem, blocks_per_sm=bps,
-                          blocks=bps * sms)
+    return first._replace(blocks_per_sm=bps, blocks=bps * sms)
 
 
 class ChunkPlan:
@@ -446,13 +405,12 @@ class ChunkPlan:
 
     def card(self, P: int, dtype: torch.dtype, pair: bool, device,
              cpb: int | None = None, design: str = "first") -> tuple:
-        """(schedule, chunk table, uniq, ends, pos, classes as a C array,
-        slot or None) of the chunk kernel `design` on `device` (its SMs,
-        its occupancy answers): "first" (float32, float64 and the first
-        bfloat16 form) or the bfloat16 "lean" kernel, which runs the first
-        design's schedule (`lean_schedule`), reads the tables' `lead_ends`
-        for `ends` and gathers u through their `slot`; `cpb` as
-        `chunk_schedule` takes it."""
+        """(schedule, chunk table, uniq, ends, pos, classes as a C array)
+        of the chunk kernel `design` on `device` (its SMs, its occupancy
+        answers): "first" (float32, float64 and the first bfloat16 form) or
+        the bfloat16 "lean" kernel, which runs the first design's schedule
+        (`lean_schedule`) and reads the tables' `lead_ends` for `ends`;
+        `cpb` as `chunk_schedule` takes it."""
         device = torch.device(device)
         key = (P, dtype, pair, device, cpb, design)
         if key not in self._card:
@@ -471,10 +429,9 @@ class ChunkPlan:
                 with torch.cuda.device(device):
                     sched = lean_schedule(first[0], P, sms, pair, occupancy)
                 tab = self.tables(sched.cpb)
-                chunks, uniq, _, pos, classes = first[1:6]
+                chunks, uniq, _, pos, classes = first[1:]
                 self._card[key] = (sched, chunks, uniq, t(tab.lead_ends), pos,
-                                   classes,
-                                   t(tab.slot) if LEAN_GATHER else None)
+                                   classes)
                 return self._card[key]
             occupancy = cs.occupancy_query(
                 lib, "fustpu_indexed_chunk_occupancy", "", "first",
@@ -487,7 +444,7 @@ class ChunkPlan:
             classes = sched.classes.reshape(-1)
             self._card[key] = (
                 sched, t(sched.chunks), t(tab.uniq), t(tab.ends), t(tab.pos),
-                (ctypes.c_longlong * classes.size)(*classes.tolist()), None)
+                (ctypes.c_longlong * classes.size)(*classes.tolist()))
         return self._card[key]
 
 
@@ -630,7 +587,7 @@ def _launch_chunks(name: str, op: IndexedCellStiffness, xs, extra,
     if op.G.data_ptr() % 16:
         raise ValueError("indexed kernel: G's data is not 16 B-aligned "
                          "(the bulk copies need it)")
-    sched, chunks, uniq, ends, pos, classes, slot = op.plan.card(
+    sched, chunks, uniq, ends, pos, classes = op.plan.card(
         op.P, x.dtype, len(xs) == 2, x.device, cpb, design)
     # the lean kernel writes every dof the cells hold, and reads no y in a
     # dof's first class
@@ -640,17 +597,16 @@ def _launch_chunks(name: str, op: IndexedCellStiffness, xs, extra,
     form = f"{'_pair' if len(xs) == 2 else ''}"
     if design == "lean":
         fn = getattr(_build.load(), f"fustpu_indexed_lean{form}_bf16")
-        D, tables = cs.host_D(op.D), (pos.data_ptr(),
-                                      slot.data_ptr() if LEAN_GATHER else 0)
+        D = cs.host_D(op.D)
     else:
         fn = getattr(_build.load(), f"fustpu_indexed_chunk{form}_"
                      f"{cs.SUFFIX[x.dtype]}")
-        D, tables = op.D.data_ptr(), (pos.data_ptr(),)
+        D = op.D.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in xs), *extra, op.G.data_ptr(), D,
                  y.data_ptr(), op.P, chunks.data_ptr(), uniq.data_ptr(),
-                 ends.data_ptr(), *tables, classes,
+                 ends.data_ptr(), pos.data_ptr(), classes,
                  len(sched.classes), sched.blocks, sched.cpb,
                  sched.stage_bytes, sched.smem, sched.maxu, stream)
     if err != 0:

@@ -29,11 +29,6 @@ The lean kernel's copies (``csrc/indexed_lean.cu``):
     lean all-y   unchanged, given the plain inverse-map ends in place of
                  `lead_ends` (every dof reads the y that earlier classes
                  left, from a zeroed y);
-    lean scatter u built by the first design's scatter through the inverse
-                 map, not the gather through the position-to-slot table;
-    lean gather  u built by the gather through the position-to-slot table,
-                 not the first design's scatter (or the other way round,
-                 "lean scatter", where the source gathers);
     lean 128     a register cap of 128 in place of 96 (4 blocks of 4 warps
                  an SM);
     lean G late  the first chunks' G copies issued after the prologue's
@@ -112,12 +107,6 @@ def variants(P: int) -> dict:
                       lean)
     assert k == 1
     out["lean flat"] = ("indexed_lean.cu", text)
-    text, k = re.subn(r"#define FUSTPU_LEAN_CHUNK_GATHER \d", "#define "
-                      f"FUSTPU_LEAN_CHUNK_GATHER {int(not ci.LEAN_GATHER)}",
-                      lean)
-    assert k == 1
-    out["lean scatter" if ci.LEAN_GATHER else "lean gather"] = (
-        "indexed_lean.cu", text)
     text, k = re.subn(r"#define FUSTPU_LEAN_CHUNK_MAXREG \d+",
                       "#define FUSTPU_LEAN_CHUNK_MAXREG 128", lean)
     assert k == 1
@@ -166,13 +155,12 @@ def build(copies: dict, tmp: Path) -> dict:
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     chunk = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lean = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     for name, args in (("fustpu_indexed_chunk_bf16", [p, p, p, p, i, *chunk]),
                        ("fustpu_indexed_chunk_pair_bf16",
                         [p, p, p, p, p, p, i, *chunk]),
-                       ("fustpu_indexed_lean_bf16", [p, p, p, p, i, *lean]),
+                       ("fustpu_indexed_lean_bf16", [p, p, p, p, i, *chunk]),
                        ("fustpu_indexed_lean_pair_bf16",
-                        [p, p, p, p, p, p, i, *lean]),
+                        [p, p, p, p, p, p, i, *chunk]),
                        ("fustpu_indexed_lean_occupancy", [i, i, i, i])):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = args
@@ -210,13 +198,11 @@ def run(P: int, nc, turns: int = 2) -> dict:
             form = "pair" if pair else "single"
             op = disc.stiffness_op(BF16, dev, **(
                 {"pair": (c1, c2)} if pair else {"coeff": c1}))
-            sched, chunks, uniq, ends, pos, classes, _ = op.plan.card(
+            sched, chunks, uniq, ends, pos, classes = op.plan.card(
                 P, BF16, pair, dev)
-            tab = op.plan.tables(sched.cpb)
-            slot = torch.as_tensor(tab.slot, device=dev)
-            lead_ends = torch.as_tensor(tab.lead_ends, device=dev)
-            layout = {g: ci.lean_chunk_smem(P, sched.cpb, sched.maxu, pair,
-                                            gather=g) for g in (False, True)}
+            lead_ends = torch.as_tensor(op.plan.tables(sched.cpb).lead_ends,
+                                        device=dev)
+            stage, smem = sched.stage_bytes, sched.smem
             a = xs[:1 + pair]
             extra = (op.C.data_ptr(),) if pair else ()
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -230,9 +216,6 @@ def run(P: int, nc, turns: int = 2) -> dict:
                      (lean or "bfloat16" in x["mangled"] or
                       "13__nv_bfloat16" in x["mangled"])]
                 bps = sched.blocks_per_sm
-                gather = ci.LEAN_GATHER != (name in ("lean scatter",
-                                                     "lean gather"))
-                stage, smem = layout[gather]
                 if lean:
                     bps = lib.fustpu_indexed_lean_occupancy(P, int(pair),
                                                             sched.cpb, smem)
@@ -245,7 +228,7 @@ def run(P: int, nc, turns: int = 2) -> dict:
                                   spills=(r[0]["spill_stores"],
                                           r[0]["spill_loads"]) if r else None)
 
-                def call(lib=lib, lean=lean, bps=bps, stage=stage, smem=smem,
+                def call(lib=lib, lean=lean, bps=bps,
                          ends_=ends if name == "lean all-y" or not lean
                          else lead_ends):
                     y = torch.zeros_like(a[0])
@@ -257,7 +240,7 @@ def run(P: int, nc, turns: int = 2) -> dict:
                                  op.G.data_ptr(), cs.host_D(op.D),
                                  y.data_ptr(), P, chunks.data_ptr(),
                                  uniq.data_ptr(), ends_.data_ptr(),
-                                 pos.data_ptr(), slot.data_ptr(), classes,
+                                 pos.data_ptr(), classes,
                                  len(sched.classes), bps * sms, sched.cpb,
                                  stage, smem, sched.maxu, stream)
                     else:
@@ -286,7 +269,7 @@ def run(P: int, nc, turns: int = 2) -> dict:
             print(f"P={P} {form}: the first design's schedule {sched.cpb} "
                   f"cells a chunk, {len(sched.classes)} classes of "
                   f"{len(sched.chunks)} chunks, maxu {sched.maxu}, "
-                  f"{sched.smem} B ({layout[ci.LEAN_GATHER][1]} B lean), "
+                  f"{sched.smem} B ({smem} B lean), "
                   f"{sched.blocks_per_sm} blocks an SM; bitwise the "
                   f"package's first design: {same}", flush=True)
             for n in names:

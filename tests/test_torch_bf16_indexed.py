@@ -3,11 +3,11 @@ kernel, ``fustpu_torch/csrc/indexed_lean.cu``; #11 on general meshes
 through ``ops/cuda_indexed``).
 
 On the CPU: the lean kernel's launch at P = 2..10, single and pair, on the
-first design's schedule (the same cells a chunk, chunks and classes; the
-block's shared bytes within the card's 232,448 with no static part, the
-float rows 16 B-aligned, the largest chunk a degree allows fitting too),
-and its position-to-slot table consistent with the inverse map; a float32
-emulation of the lean kernel's order of adds and roundings against the JAX
+first design's schedule (the same cells a chunk, chunks and classes, the
+first design's shared layout within the card's 232,448 with its static D,
+the largest chunk a degree allows fitting too), and its first-class flags
+(`lead_ends`) consistent with the classes; a float32 emulation of the
+lean kernel's order of adds and roundings against the JAX
 package's bfloat16 fused Pallas engine in interpret mode and against the
 plain version; the routing of an apply to the lean kernel or the first
 design, the same degrees as the CUDA source instantiates, the counters
@@ -15,7 +15,8 @@ and kernel names by degree, and the wrappers' refusals before any launch.
 On the card (`-m cuda`, skipped here): at each degree that runs the lean
 kernel, its output bitwise the first design's on the same schedule (the
 redesign gate), both within 2^-7 of the plain version, two applies
-bitwise, each counted in its own counter.  The JAX package is imported
+bitwise, each counted in its own counter; a captured bf16 solve on it
+bitwise its eager steps.  The JAX package is imported
 inside the tests that compare against it (the `ref` fixture):
 
     python -m pytest --noconftest tests/test_torch_bf16_indexed.py -m cuda
@@ -102,32 +103,21 @@ def _check_lean(plan, P, pair, cpb=None, sms=132):
     """The lean launch of the first design's bf16 schedule: the same cells
     a chunk, table and classes; the shared bytes its layout's, with its
     static D within a block's limit, the blocks an SM those bytes allow;
-    the position-to-slot table the inverse map's; `lead_ends` the ends,
-    flagged exactly where no chunk of an earlier class holds the dof."""
-    nnn = (P + 1) ** 3
+    `lead_ends` the ends, flagged exactly where no chunk of an earlier
+    class holds the dof."""
     first = ci.chunk_schedule(plan, P, 2, sms, pair, cpb=cpb)
     lean = ci.lean_schedule(first, P, sms, pair, cs.model_occupancy)
-    for f in ("cpb", "maxu", "stages"):
+    for f in ("cpb", "maxu", "stages", "stage_bytes", "smem"):
         assert getattr(lean, f) == getattr(first, f)
     assert np.array_equal(lean.classes, first.classes)
     assert np.array_equal(lean.chunks, first.chunks)
-    stage, smem = ci.lean_chunk_smem(P, lean.cpb, lean.maxu, pair)
+    stage, smem = ci.chunk_smem(P, 2, lean.cpb, lean.maxu, pair)
     assert (lean.stage_bytes, lean.smem) == (stage, smem) and stage % 16 == 0
     assert smem + cs._static_smem(P, 2) <= SMEM_BLOCK
     assert lean.blocks == lean.blocks_per_sm * sms
     assert lean.blocks_per_sm == cs.model_occupancy(P, 2, pair, lean.cpb,
                                                     smem)
-    # the layout: the first design's, with the gather's unique x and
-    # slots in place of the scatter's (c1, c2)
-    nu, first_smem = lean.maxu, ci.chunk_smem(P, 2, lean.cpb, lean.maxu,
-                                              pair)[1]
-    gather = ((2 if pair else 1) * nu * 4 + 2 * lean.cpb * nnn
-              - (4 * 4 * lean.cpb if pair else 0))
-    assert smem == first_smem + (gather if ci.LEAN_GATHER else 0)
-    assert ci.lean_chunk_smem(P, lean.cpb, nu, pair, gather=True)[1] == \
-        first_smem + gather
     tab = plan.tables(lean.cpb)
-    assert tab.slot.dtype == np.int16 and tab.slot.shape == tab.pos.shape
     assert tab.lead_ends.dtype == np.int16
     assert np.array_equal(tab.lead_ends & 0x7fff, tab.ends)
     seen = np.zeros(plan.ndofs, bool)
@@ -140,15 +130,6 @@ def _check_lean(plan, P, pair, cpb=None, sms=132):
         for ids in here:
             seen[ids] = True
     assert seen.all() and plan.covers
-    for c0, m, _, _, u0, nu in lean.chunks:
-        ends = tab.ends[u0:u0 + nu].astype(np.int64)
-        start = np.concatenate([[0], ends[:-1]])
-        pos = tab.pos[c0 * nnn:(c0 + m) * nnn].astype(np.int64)
-        slot = tab.slot[c0 * nnn:(c0 + m) * nnn].astype(np.int64)
-        want = np.repeat(np.arange(nu), ends - start)
-        assert np.array_equal(slot[pos], want)
-        assert np.array_equal(tab.uniq[u0:u0 + nu][slot],
-                              plan.dofmap[c0:c0 + m].reshape(-1))
     return lean
 
 
@@ -167,7 +148,7 @@ def test_lean_chunk_launch(tmp_path, P):
             assert _check_lean(plan, P, pair, cpb=1).cpb == 1
     cpb = 256 // (P + 1) ** 2
     for pair in (False, True):
-        assert ci.lean_chunk_smem(P, cpb, cpb * (P + 1) ** 3, pair)[1] + \
+        assert ci.chunk_smem(P, 2, cpb, cpb * (P + 1) ** 3, pair)[1] + \
             cs._static_smem(P, 2) <= SMEM_BLOCK
 
 
@@ -190,9 +171,9 @@ def _cell_contrib(u, g, D):
 
 def emulate_lean(op, sched, x1, x2=None):
     """The lean chunk kernel on the bf16 operator `op` under `sched`,
-    emulated in float32: class by class, each chunk's u gathered through
-    the position-to-slot table from its unique dofs' x (widened; for the
-    pair c1 x1 + c2 x2 with the position's cell's c), each cell's node sums,
+    emulated in float32: class by class, each chunk's u from its unique
+    dofs' x through the inverse map (widened; for the pair c1 x1 + c2 x2
+    with the position's cell's c), each cell's node sums,
     then each unique dof's positions summed in the inverse map's order from
     0, added to the bfloat16 y that earlier classes left (0 in the dof's
     first class, by `lead_ends`: y starts as NaN, uninitialised), rounded
@@ -205,19 +186,19 @@ def emulate_lean(op, sched, x1, x2=None):
     for first, count in sched.classes:
         for c0, m, _, _, u0, nu in sched.chunks[first:first + count]:
             ids = torch.as_tensor(tab.uniq[u0:u0 + nu].astype(np.int64))
-            slot = torch.as_tensor(tab.slot[c0 * nnn:(c0 + m) * nnn]
-                                   .astype(np.int64))
-            u = x1.float()[ids][slot]
-            if x2 is not None:
-                cc = op.C.float()[c0:c0 + m].repeat_interleave(nnn, 0)
-                u = cc[:, 0] * u + cc[:, 1] * x2.float()[ids][slot]
-            sums = _cell_contrib(u.reshape(m, n, n, n),
-                                 G[c0:c0 + m].reshape(m, 6, n, n, n),
-                                 D).reshape(-1)
             ends = tab.ends[u0:u0 + nu].astype(np.int64)
             start = np.concatenate([[0], ends[:-1]])
             pos = torch.as_tensor(tab.pos[c0 * nnn:(c0 + m) * nnn]
                                   .astype(np.int64))
+            slot = torch.as_tensor(np.repeat(np.arange(nu), ends - start))
+            u = torch.empty(m * nnn)
+            u[pos] = x1.float()[ids][slot]
+            if x2 is not None:
+                cc = op.C.float()[c0 + pos // nnn]
+                u[pos] = cc[:, 0] * u[pos] + cc[:, 1] * x2.float()[ids][slot]
+            sums = _cell_contrib(u.reshape(m, n, n, n),
+                                 G[c0:c0 + m].reshape(m, 6, n, n, n),
+                                 D).reshape(-1)
             acc = torch.zeros(nu)
             for r in range(int((ends - start).max())):
                 has = torch.as_tensor(start + r < ends)
