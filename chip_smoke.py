@@ -95,8 +95,9 @@ Phases (each prints its time; any failure exits non-zero):
      steps against phase 15b's indexed run (21d);
  22. ranks on the one card (parallel.multihost.spawn, gloo on cuda:0, 4
      ranks, after 21b): in one process group, the flagship on a (2, 2, 1)
-     grid for 50 steps, the two-layer flagship and the flagship in corner
-     mode for 20 (22a-c), the imported bowl and the bodyfit bowl (indexed
+     grid for 50 steps, the flagship in corner mode for 20 (22a, 22c; the
+     two-layer flagship's case 22b was cut to pay for 34g-h's lean corner
+     turns), the imported bowl and the bodyfit bowl (indexed
      and indexed_engine) for 20 (22d-e), time_halo's 16^3 P=4 Westervelt
      box on a (4, 1, 1) grid for 20 with and without the exchange (22g:
      without it the owners of the shared entries must disagree and u
@@ -291,6 +292,21 @@ Phases (each prints its time; any failure exits non-zero):
     engine beside #11 on both designs on the same buffers; in 34a each
     bf16 #11 apply at P = 2..10 moves the counter of the kernel that runs
     at its degree (`cs.bf16_key`).
+  - the bf16 corner walk redesigned (the lean corner walk,
+    `csrc/corner_lean.cuh`, the main path of #3 and #6c in bf16 at
+    `cc.LEAN_CORNER_BF16`; the first bf16 corner walk kept as
+    `cc.corner_first`, `cc.extruded_corner_first` and their pair forms):
+    on the bf16 flagship in corner mode and its two-layer form (34g), and
+    on the imported bowl in corner mode as hex8 and hex27, single and
+    two-layer (34h), the main path's output against the first design's,
+    each on its own schedule (the same one), within the redesign gate
+    (the counts of values that differ printed), the first design's within
+    2^-7 of plain, two applies bitwise, ms an apply in turns (old, new,
+    new, old) beside the bound, and ms a step of 50 captured steps in
+    turns on each design; 34i prints the bf16 capacity box's ms/step and
+    peak memory on the routed #3 beside the first design's (PR 16); in
+    34f each bf16 corner apply at P = 2..10 moves the counter of the walk
+    that runs at its degree (`cs.bf16_key`).
   - the two-field gather (#8) on the quads design: bitwise its first
     design (`cen.gather2_flat`, one thread a position) at P = 2..10 in
     float32 and float64 (20) and bfloat16 (34j); in turns against it and
@@ -430,6 +446,19 @@ PLAIN_DEPTH = 300
 BF16_TRAJ_TOL = 2e-2
 # phase 22's halo box (time_halo): one probe point inside the 1 cm box
 HALO_POINTS = np.array([[0.0052, 0.0047, 0.0051]])
+
+
+# The six bf16 corner forms: (kernel, geometry, the first design's source,
+# the TPU kernel it replaces)
+CORNER_FORMS = [
+    (k, g, src, tpu) for g, base, src, tpu in (
+        ("box", "corner", "corner_pencil.cu",
+         "fustpu/ops/pallas_stiffness.py:963"),
+        ("hex8", "extruded_corner", "corner_stack.cu",
+         "fustpu/ops/pallas_extruded.py:604"),
+        ("hex27", "extruded_corner_hex27", "corner_stack27.cu",
+         "fustpu/ops/pallas_extruded.py:604"))
+    for k in (base, f"{base}_pair")]
 
 
 def fail(msg: str) -> None:
@@ -1445,16 +1474,21 @@ def main() -> None:
 
     class FirstWalk:
         """`model` (a bf16 model on the lean walk, box pencils or stacks,
-        or on the lean chunk kernel) with the first bf16 walk or chunk
-        kernel, the comparison kernel, in place of the lean one while it
-        solves: the same operator and buffers, its own captured solvers
-        (the model's graphs hold the lean kernel), for steps in turns."""
-        SWAPS = (("stiffness", "stiffness_first"),
-                 ("stiffness_pair", "stiffness_pair_first"),
-                 ("extruded", "extruded_first"),
-                 ("extruded_pair", "extruded_pair_first"),
-                 ("indexed", "indexed_first"),
-                 ("indexed_pair", "indexed_pair_first"))
+        on the lean chunk kernel, or on the lean corner walk) with the
+        first bf16 walk, chunk kernel or corner walk, the comparison
+        kernel, in place of the lean one while it solves: the same operator
+        and buffers, its own captured solvers (the model's graphs hold the
+        lean kernel), for steps in turns."""
+        SWAPS = ((cs, "stiffness", "stiffness_first"),
+                 (cs, "stiffness_pair", "stiffness_pair_first"),
+                 (ce, "extruded", "extruded_first"),
+                 (ce, "extruded_pair", "extruded_pair_first"),
+                 (ci, "indexed", "indexed_first"),
+                 (ci, "indexed_pair", "indexed_pair_first"),
+                 (cc, "corner", "corner_first"),
+                 (cc, "corner_pair", "corner_pair_first"),
+                 (cc, "extruded_corner", "extruded_corner_first"),
+                 (cc, "extruded_corner_pair", "extruded_corner_pair_first"))
 
         def __init__(self, model):
             self.model = model
@@ -1464,18 +1498,15 @@ def main() -> None:
             return self.model.init_state()
 
         def solve(self, *args):
-            mods = [cs if n.startswith("stiffness") else
-                    ce if n.startswith("extruded") else ci
-                    for n, _ in self.SWAPS]
-            keep = [getattr(m, n) for m, (n, _) in zip(mods, self.SWAPS)]
+            keep = [getattr(m, n) for m, n, _ in self.SWAPS]
             theirs = self.model.__dict__.get("_solvers")
             self.model._solvers = self.solvers
-            for m, (n, f) in zip(mods, self.SWAPS):
+            for m, n, f in self.SWAPS:
                 setattr(m, n, getattr(m, f))
             try:
                 return self.model.solve(*args)
             finally:
-                for m, (n, _), fn in zip(mods, self.SWAPS, keep):
+                for (m, n, _), fn in zip(self.SWAPS, keep):
                     setattr(m, n, fn)
                 if theirs is None:
                     self.model.__dict__.pop("_solvers")
@@ -1483,31 +1514,46 @@ def main() -> None:
                     self.model._solvers = theirs
 
     def lean_turns(model, dt_, label, name, steps=True):
-        """Part of 34b-e and 34m: the bf16 model's stiffness kernel (its
-        entry `name` of the JSON line's measurements) on the lean walk or
-        the lean chunk kernel (new) against the first bf16 walk or chunk
-        kernel (old) on its operator and unit normal bf16 fields: the main
-        path's output (the lean kernel on its own schedule) against the
-        first kernel's on its own schedule, and under the lean kernel's
-        schedule, each within the redesign gate (FIRST_DESIGN_TOL, at most
-        1% of the values differing; the chunk kernels, which share their
-        schedule, bitwise), ms an apply in turns (old, new, new, old)
-        beside the bound, each design's schedule; with `steps`, ms a step
-        of 50 captured steps from rest in turns on each design
+        """Part of 34b-e, 34g-h and 34m: the bf16 model's stiffness kernel
+        (its entry `name` of the JSON line's measurements) on the lean
+        walk, the lean chunk kernel or the lean corner walk (new) against
+        the first bf16 walk, chunk kernel or corner walk (old) on its
+        operator and unit normal bf16 fields: the main path's output (the
+        lean kernel on its own schedule) against the first kernel's on its
+        own schedule, and under the lean kernel's schedule, each within
+        the redesign gate (FIRST_DESIGN_TOL, at most 1% of the values
+        differing; the chunk kernels, which share their schedule,
+        bitwise; the corner walks share theirs, and the counts of values
+        that differ are printed), ms an apply in turns (old, new, new,
+        old) beside the bound, each design's schedule; with `steps`, ms a
+        step of 50 captured steps from rest in turns on each design
         (`ms_turns`, `FirstWalk`).  Returns (the old design's entry for the
         JSON line, its launches in the turns, ms a step by design or
         None)."""
         kst = model.stiffness
         op, mesh = kst.cell_op, model.mesh
-        stacks = isinstance(kst, ExtrudedStiffness)
+        corner = isinstance(kst, CornerStiffness)
+        stacks = isinstance(kst, ExtrudedStiffness) or (corner and
+                                                        not op.box)
         chunks = isinstance(kst, IndexedStiffness)
-        mod = ce if stacks else ci if chunks else cs
-        base = ("extruded" if stacks else "indexed" if chunks else
-                "stiffness") + ("_pair" if kst.is_pair else "")
+        mod = cc if corner else ce if stacks else ci if chunks else cs
+        if corner:
+            base = ("extruded_corner" if stacks else "corner") + (
+                "_pair" if kst.is_pair else "")
+            key = f"{op.kernel}{'_pair' if kst.is_pair else ''}_first_bf16"
+        else:
+            base = ("extruded" if stacks else "indexed" if chunks else
+                    "stiffness") + ("_pair" if kst.is_pair else "")
+            key = f"{base}_first_bf16"
         first, new = getattr(mod, f"{base}_first"), getattr(mod, base)
-        said = {"new": "the lean chunk kernel" if chunks else "the lean walk",
+        said = {"new": "the lean chunk kernel" if chunks else
+                       "the lean corner walk" if corner else "the lean walk",
                 "old": "the first bf16 chunk kernel" if chunks else
+                       "the first bf16 corner walk" if corner else
                        "the first bf16 walk"}
+        if corner and not cc.lean_runs(op, kst.is_pair, BF16):
+            fail(f"34: {label}: the form keeps the first bf16 corner walk "
+                 "(cuda_corner.LEAN_CORNER_BF16): nothing to compare")
         xs = [torch.as_tensor(rng16.standard_normal(mesh.grid_shape),
                               dtype=BF16, device=dev)
               for _ in range(2 if kst.is_pair else 1)]
@@ -1527,9 +1573,11 @@ def main() -> None:
         for k in ("old", "new", "new", "old"):
             times[k].append(time_ms(run[k], 20))
         torch.cuda.synchronize()
-        n_old = mod.comparison_launches[f"{base}_first_bf16"]
+        n_old = mod.comparison_launches[key]
         b_ms = bound(*kernels[name]["cost"])[0]
         sch = {k: (mod.card_schedule(op, xs[0], kst.is_pair) if k == "new"
+                   else cc.card_schedule(op, xs[0], kst.is_pair,
+                                         design="first") if corner
                    else (op.plan.card(op.P, BF16, kst.is_pair, dev)[0]
                          if stacks or chunks else cs._card_schedule(
                              tuple(op.nc), op.P, BF16, kst.is_pair,
@@ -1675,10 +1723,12 @@ def main() -> None:
         model, dt_, nsteps_, focus_ = nonlinear_bowl.build(args_, pb)
         t_build = time.perf_counter() - t0
         kst, mesh = model.stiffness, model.mesh
+        want = cs.bf16_key(kernel, isinstance(kst, CornerStiffness)
+                           and cc.lean_runs(kst.cell_op, kst.is_pair, BF16))
         if not isinstance(kst, CornerStiffness) or kst.T.dtype != BF16 or \
-                model.stiffness_kernel != f"{kernel}_bf16":
+                model.stiffness_kernel != want:
             fail(f"34: {label}: {type(kst).__name__} on "
-                 f"{model.stiffness_kernel}, expected {kernel}_bf16")
+                 f"{model.stiffness_kernel}, expected {want}")
         if "_G_host" in model.disc.__dict__:
             fail(f"34: {label}: the bf16 corner model built the host metric")
         pst = CornerStiffness(kst.cell_op, "mm")
@@ -1832,7 +1882,9 @@ def main() -> None:
               f"{dict(cc.class_launches)}, {dict(cc.bf16_launches)}")
         if not all(cc.launches.values()) or \
                 not all(cc.class_launches.values()) or \
-                not all(cc.bf16_launches.values()):
+                not all(cc.bf16_launches[cs.bf16_key(k)]
+                        + cc.bf16_launches[cs.bf16_key(k, False)]
+                        for k in cc.launches):
             fail("a corner kernel's launch counter did not move")
 
     with phase("20 engine kernels vs plain, P=2..10"), \
@@ -2585,8 +2637,6 @@ def main() -> None:
         if not traj <= TRAJ_TOL:
             fail(f"10-step two-layer trajectory kernel vs plain {traj:.3e}")
         del sk, sp, pst2, x, x2
-        keep_for_ranks("22b two-layer flagship, grid (2, 2, 1)", bowl2, dt2,
-                       20, BOWL_POINTS, grid=(2, 2, 1))
 
     # ---- the main path: counters reset just before, read just after ----
     cs.reset_launches()
@@ -3159,9 +3209,9 @@ def main() -> None:
         sk, _ = cbowl16.solve(cbowl16.init_state(), dt34g, 10)
         torch.cuda.synchronize()
         counts = bf16_counters()
-        bf16_counts["corner_bf16"] = counts["corner_bf16"]
-        if counts["corner_bf16"] != 4 * 10 or sum(counts.values()) != 40:
-            fail(f"34g: bf16 launches {counts} != 4 x 10 of corner_bf16")
+        bf16_counts["corner_bf16"] = counts[k34g.kernel]
+        if counts[k34g.kernel] != 4 * 10 or sum(counts.values()) != 40:
+            fail(f"34g: bf16 launches {counts} != 4 x 10 of {k34g.kernel}")
         cbowl16.stiffness = pst34g
         sp, _ = cbowl16.solve(cbowl16.init_state(), dt34g, 10)
         cbowl16.stiffness = k34g
@@ -3189,6 +3239,9 @@ def main() -> None:
                   f"{add / 1e9:.4f} GB (peak device memory over what is "
                   f"allocated before it): {(held + add) / 1e9:.4f} GB",
                   flush=True)
+        kernels["corner_first_bf16"], \
+            launches["corner_first_bf16"], _ = lean_turns(
+                cbowl16, dt34g, "flagship corner", "corner_bf16")
         del cbowl16, k34g, pair34
     cc.reset_launches()
     with phase("17b flagship in corner mode, full solve (corner kernel)"):
@@ -3241,6 +3294,10 @@ def main() -> None:
             "corner_pair")
         _, bf16_counts["corner_pair_bf16"] = bf16_steps(
             cbowl16b, dt34gb, 50, "two-layer flagship corner")
+        kernels["corner_pair_first_bf16"], \
+            launches["corner_pair_first_bf16"], _ = lean_turns(
+                cbowl16b, dt34gb, "two-layer flagship corner",
+                "corner_pair_bf16")
         del cbowl16b
     del cbowl2, s10, pb6
 
@@ -3559,6 +3616,12 @@ def main() -> None:
               f"{turns['bf16 pair']:.4f}; #6c ms an apply: float32 (18a) "
               f"{kernels['extruded_corner']['ms']:.4f}, bf16 "
               f"{kernels['extruded_corner_bf16']['ms']:.4f}", flush=True)
+        for m, d, lbl, nm in (
+                (ic16, dt34h, "imported bowl corner", "extruded_corner"),
+                (ic16b, dt34hb, "two-layer imported bowl corner",
+                 "extruded_corner_pair")):
+            kernels[f"{nm}_first_bf16"], launches[f"{nm}_first_bf16"], _ = \
+                lean_turns(m, d, lbl, f"{nm}_bf16")
         del ic16, ic16b
     with phase("18d imported bowl as hex27: build, 163-channel kernel vs "
                "plain and vs the hex8 corner kernel"):
@@ -3614,6 +3677,13 @@ def main() -> None:
               f"{kernels['extruded_corner_hex27']['ms']:.4f}, bf16 "
               f"{kernels['extruded_corner_hex27_bf16']['ms']:.4f}",
               flush=True)
+        for m, d, lbl, nm in (
+                (h16, dt34j, "imported bowl hex27 corner",
+                 "extruded_corner_hex27"),
+                (h16b, dt34jb, "two-layer imported bowl hex27 corner",
+                 "extruded_corner_hex27_pair")):
+            kernels[f"{nm}_first_bf16"], launches[f"{nm}_first_bf16"], _ = \
+                lean_turns(m, d, lbl, f"{nm}_bf16")
         del h16, h16b
     with phase("18e two-layer imported bowl as hex27: build + hex27 pair "
                "kernel vs plain and vs the hex8 corner pair kernel"):
@@ -4519,7 +4589,6 @@ def main() -> None:
     halo_names = ["22g halo box, grid (4, 1, 1), exchange on",
                   "22g halo box, grid (4, 1, 1), exchange off"]
     res22 = ranks_group(["22a flagship, grid (2, 2, 1)",
-                 "22b two-layer flagship, grid (2, 2, 1)",
                  "22c flagship in corner mode, grid (2, 2, 1)",
                  "22d imported bowl, 4 ranks",
                  "22e bodyfit bowl, 4 ranks, indexed",
@@ -4826,14 +4895,16 @@ def main() -> None:
             print(f"   {smi}: {name}: {kernels[name]}", flush=True)
         del cmp, f, module, xs, yk, yp, idisc3, bdisc5, bdisc7
 
-    def capacity_run(demo, argv, label, kernel):
+    def capacity_run(demo, argv, label, kernel, before=""):
         """Run a capacity demo through its `main` on the card (counters
         reset just before, read just after); check its launches and its
         field; what the model holds and what a 10-step solve adds, on the
         walk and (float32) on the class-launch design; then the model's
         kernel at this size against its plain version on one seeded
-        unit-normal field in the model's dtype (F32_TOL, bf16 BF16_TOL).  Returns (the launches of the demo's
-        run, its host set-up seconds and their split)."""
+        unit-normal field in the model's dtype (F32_TOL, bf16 BF16_TOL);
+        `before`: earlier numbers to print beside its ms/step and peak.
+        Returns (the launches of the demo's run, its host set-up seconds
+        and their split)."""
         torch.cuda.empty_cache()
         cc.reset_launches()
         model, state, ms, peak, timed, t_setup = demo.main(argv)
@@ -4854,6 +4925,10 @@ def main() -> None:
               f"would add {g_bytes / 1e9:.4f} GB (computed, not "
               f"allocated); {kernel} launches {timed} in the timed solve, "
               f"{total} in all; max |u| {umax:.4e}", flush=True)
+        if before:
+            print(f"   {smi}: {label}: {ms:.4f} ms/step and "
+                  f"{peak / 1e9:.4f} GB peak on {kernel}, against {before}",
+                  flush=True)
         if timed != 4 * 10 or total != 4 * 20 or others != 0:
             fail(f"{label}: launches {counts}, {timed} in the timed solve")
         if not bool(torch.isfinite(state.u).all()) or umax == 0.0:
@@ -4932,7 +5007,10 @@ def main() -> None:
                "beside 19a's float32, #3 bf16 vs plain at this size"):
         bf16_counts["corner_bf16"] += capacity_run(
             capacity, ["--steps", "10", "--dtype", "bf16"],
-            "capacity box in bf16", "corner_bf16")[0]
+            "capacity box in bf16", cs.bf16_key(
+                "corner", (4, False, "box") in cc.LEAN_CORNER_BF16),
+            before="the first bf16 corner walk's 28.52 ms/step and 6.36 GB "
+                   "(PR 16)")[0]
     with phase("33h capacity demo in its own process (664 x 56 x 56 cells, "
                "P=4, --steps 10), set-up on the host (before; after: 19a's "
                "run on the card): set-up seconds, peak device memory, host "
@@ -5070,21 +5148,16 @@ def main() -> None:
                                "fustpu/ops/pallas_gather.py:1417"),
         "indexed_pair_first_bf16": ("fustpu_torch/csrc/indexed_chunk.cu",
                                     "fustpu/ops/pallas_gather.py:1417"),
-        # the bf16 forms of the corner walk (phase 34f-h)
-        "corner_bf16": ("fustpu_torch/csrc/corner_pencil.cu",
-                        "fustpu/ops/pallas_stiffness.py:963"),
-        "corner_pair_bf16": ("fustpu_torch/csrc/corner_pencil.cu",
-                             "fustpu/ops/pallas_stiffness.py:963"),
-        "extruded_corner_bf16": ("fustpu_torch/csrc/corner_stack.cu",
-                                 "fustpu/ops/pallas_extruded.py:604"),
-        "extruded_corner_pair_bf16": ("fustpu_torch/csrc/corner_stack.cu",
-                                      "fustpu/ops/pallas_extruded.py:604"),
-        "extruded_corner_hex27_bf16": (
-            "fustpu_torch/csrc/corner_stack27.cu",
-            "fustpu/ops/pallas_extruded.py:604"),
-        "extruded_corner_hex27_pair_bf16": (
-            "fustpu_torch/csrc/corner_stack27.cu",
-            "fustpu/ops/pallas_extruded.py:604"),
+        # the bf16 forms of the corner walk (phase 34f-h) on the main path:
+        # the lean corner walk where LEAN_CORNER_BF16 routes the form at
+        # P = 4, the first bf16 corner walk otherwise; that walk kept as
+        # the comparison (34g-h)
+        **{f"{k}_bf16": (
+            "fustpu_torch/csrc/corner_lean.cuh" if (4, k.endswith("_pair"), g)
+            in cc.LEAN_CORNER_BF16 else f"fustpu_torch/csrc/{src}", tpu)
+           for k, g, src, tpu in CORNER_FORMS},
+        **{f"{k}_first_bf16": (f"fustpu_torch/csrc/{src}", tpu)
+           for k, _, src, tpu in CORNER_FORMS},
         "indexed_classes": ("fustpu_torch/csrc/indexed.cu",
                             "fustpu/ops/pallas_gather.py:1417"),
         "indexed_classes_pair": ("fustpu_torch/csrc/indexed.cu",

@@ -306,6 +306,22 @@ def load() -> ctypes.CDLL:
                  "fustpu_extruded_corner_hex27_stack_occupancy"):
         getattr(lib, name).argtypes = [i, i, i, i, i]
         getattr(lib, name).restype = i
+    # the bfloat16 lean corner walk (corner_lean.cu, corner_lean_stack.cu,
+    # corner_lean_stack27.cu): the same arguments, D and the GLL nodes and
+    # weights host arrays of floats; its occupancy queries take (P, pair,
+    # cpb, smem)
+    for kind, walk in (("corner_pencil", sched),
+                       ("extruded_corner_stack", stack),
+                       ("extruded_corner_hex27_stack", stack)):
+        fn = getattr(lib, f"fustpu_{kind}_lean_bf16")
+        fn.argtypes = [p, p, p, p, p, i, *walk]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_{kind}_pair_lean_bf16")
+        fn.argtypes = [p, p, p, p, p, p, p, i, *walk]
+        fn.restype = i
+        fn = getattr(lib, f"fustpu_{kind}_lean_occupancy")
+        fn.argtypes = [i, i, i, i]
+        fn.restype = i
     for kind in ("extruded_corner", "extruded_corner_hex27"):
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"fustpu_{kind}_{suffix}")

@@ -21,7 +21,8 @@ Runs on the card unless --device cpu is given (the plain versions, a
 correctness run only).
 
     python -m fustpu_torch.demos.exp_imported [--elements 64] [--degree 4]
-        [--p6-elements 48] [--sweep] [--corner [--hex27]]
+        [--p6-elements 48] [--sweep] [--corner [--hex27]
+        [--bf16 [--degrees 2 3 ...]]]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its turns, the rate over the apply's least bytes (G, each input
@@ -38,7 +39,14 @@ chunk kernel at each cells a chunk, with its classes; with --corner the
 corner stack walk over the same grid.  For the corner forms the bound is
 the larger of the least bytes at 3.35 TB/s and the operations at the
 H100's published 67 TFLOP/s float32 (``cuda_corner.apply_cost``).
-Float32; the meshes are the bowl demo's (`nonlinear_bowl`).
+Float32; the meshes are the bowl demo's (`nonlinear_bowl`).  With --corner
+--bf16 it times the first bfloat16 corner walk against the lean corner walk
+(``csrc/corner_lean.cuh``) in turns (first, lean, lean, first), single and
+pair, on the imported bowl as hex8 (and with --hex27 as hex27), with each
+one's share of the bound, the values that differ between the two and each
+design's blocks an SM (`compare_corner_bf16`); with --degrees, at each of
+those degrees on stacks of the flagship's grid (`corner_degrees_bf16`),
+where the lean walk runs (``cuda_corner.LEAN_CORNER_BF16``).
 """
 
 from __future__ import annotations
@@ -79,6 +87,12 @@ def parser() -> argparse.ArgumentParser:
                    help="the corner forms (#6c) in place of #6 and #11")
     p.add_argument("--hex27", action="store_true",
                    help="with --corner, also the bowl as hex27")
+    p.add_argument("--bf16", action="store_true",
+                   help="with --corner, the first bfloat16 corner walk "
+                        "against the lean corner walk")
+    p.add_argument("--degrees", type=int, nargs="+",
+                   help="with --corner --bf16: the comparison at each of "
+                        "these degrees on stacks of the flagship's grid")
     return p
 
 
@@ -337,6 +351,120 @@ def corner_forms(disc: Discretization, dev, label: str, chain: int = 20,
                                  ("pair", {"pair": (c1, c2)}, (x1, x2)))}
 
 
+def _corner_fns(op: cc.CornerCellStiffness, pair: bool) -> dict:
+    """The first bfloat16 corner walk (the comparison) and the main path's
+    wrapper of `op`'s form."""
+    if op.box:
+        return {"first": cc.corner_pair_first if pair else cc.corner_first,
+                "lean": cc.corner_pair if pair else cc.corner}
+    return {"first": cc.extruded_corner_pair_first if pair
+            else cc.extruded_corner_first,
+            "lean": cc.extruded_corner_pair if pair else cc.extruded_corner}
+
+
+def compare_corner_bf16(op: cc.CornerCellStiffness, xs: tuple, ndofs: int,
+                        label: str, chain: int = 20, reps: int = 5):
+    """The first bfloat16 corner walk against the lean corner walk (the
+    main path where ``cuda_corner.lean_runs``) on the bfloat16 corner
+    operator `op` and field(s) `xs` (two: the pair form), in turns (first,
+    lean, lean, first): ms of each turn and its share of the bound (the
+    larger of the least bytes at 3.35 TB/s and the operations at 67
+    TFLOP/s, ``cuda_corner.apply_cost``), the values that differ between
+    the two (each on its own schedule, which is the first design's), both
+    against the plain version, each design's blocks an SM.  None where the
+    form keeps the first design (nothing to compare).  Returns {"first":
+    [ms], "lean": [ms], "differ", "rel_l2", "bound_ms"}."""
+    pair, x = len(xs) == 2, xs[0]
+    form = "pair" if pair else "single"
+    if not cc.lean_runs(op, pair, x.dtype):
+        print(f"{label} {form:6s} P={op.P}: the first bfloat16 corner walk "
+              "runs here (cuda_corner.LEAN_CORNER_BF16)", flush=True)
+        return None
+    fns = _corner_fns(op, pair)
+    plain = (cc.corner_pair_plain if pair else cc.corner_plain)(op, *xs)
+    ys = {k: f(op, *xs) for k, f in fns.items()}
+    times = _turns({k: lambda f=f: f(op, *xs) for k, f in fns.items()},
+                   ("first", "lean", "lean", "first"), x, chain, reps)
+    index = op.rows.numel() * 4 if op.rows is not None else 0
+    nbytes, flops = cc.apply_cost(op, ndofs, len(xs), index)
+    bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S) * 1e3
+    cuda = x.device.type == "cuda"
+    ms = {k: [t[0] * 1e3 for t in times[k]] for k in fns}
+    for k in fns:
+        sched = ""
+        if cuda:
+            s = cc.card_schedule(op, x, pair, design=k)
+            segs = (f", {s.segments} segments a stack"
+                    if hasattr(s, "segments") else "")
+            sched = (f"; {s.cpb} cells a chunk{segs}, {s.smem:,} B shared, "
+                     f"{s.blocks_per_sm} blocks an SM, {s.blocks} blocks")
+        share = f", {bound / min(ms[k]):.1%} of the bound {bound:.4f} ms" \
+            if cuda else ""
+        print(f"{label} {form:6s} P={op.P} bf16 {k:5s}: "
+              + " / ".join(f"{m:.4f}" for m in ms[k])
+              + f" ms per apply{share}; vs plain rel-l2 "
+              f"{rel_l2(ys[k], plain):.3e}{sched}", flush=True)
+    differ = int((ys["lean"] != ys["first"]).sum())
+    err = rel_l2(ys["lean"], ys["first"])
+    print(f"{label} {form:6s} P={op.P} bf16 lean vs first: {differ} of "
+          f"{x.numel() if op.box else ndofs} values differ, rel-l2 "
+          f"{err:.3e}" + (f"; first / lean "
+                          f"{min(ms['first']) / min(ms['lean']):.4f}"
+                          if cuda else ""), flush=True)
+    return dict(**ms, differ=differ, rel_l2=err, bound_ms=bound)
+
+
+def corner_forms_bf16(disc: Discretization, dev, label: str,
+                      chain: int = 20, reps: int = 5) -> dict:
+    """`compare_corner_bf16` on the bfloat16 corner operator of `disc`'s
+    mesh, single (a per-cell coefficient) and pair, with seeded fields."""
+    mesh = disc.mesh
+    rng = np.random.default_rng(0)
+    shape = mesh.nc if hasattr(mesh, "nc") else (mesh.num_cells,)
+    c1 = rng.uniform(0.5, 2.0, shape)
+    c2 = rng.uniform(-2.0, 2.0, shape)
+    xs = [torch.as_tensor(rng.standard_normal(mesh.grid_shape),
+                          device=dev).to(torch.bfloat16) for _ in range(2)]
+    return {form: compare_corner_bf16(
+        disc.stiffness_op(torch.bfloat16, dev, corner=True, **kw),
+        tuple(xs[:n]), mesh.ndofs, label, chain, reps)
+        for form, kw, n in (("single", {"coeff": c1}, 1),
+                            ("pair", {"pair": (c1, c2)}, 2))}
+
+
+def corner_degrees_bf16(degrees, dev, geometries=("box", "hex8", "hex27"),
+                        chain: int = 20, reps: int = 3) -> dict:
+    """`corner_forms_bf16` at each degree P of `degrees` on the flagship's
+    grid, (256 / P, 160 / P, 160 / P) cells rounded (64 x 40 x 40 at
+    P = 4): a perturbed box on box pencils, and the box read as a general
+    mesh and extruded back into stacks (hex8), and its curved hex27
+    lattice (hex27).  Returns {(geometry, P): {"single": ..., "pair":
+    ...}}."""
+    from fustpu_torch.mesh.box import build_box_mesh
+    from fustpu_torch.mesh.extruded import as_extruded
+    from fustpu_torch.mesh.unstructured import from_box
+
+    out = {}
+    for P in degrees:
+        nc = (round(256 / P), round(160 / P), round(160 / P))
+        for geo in geometries:
+            if geo == "box":
+                mesh = build_box_mesh(nc, P, perturb=0.1, seed=P)
+            elif geo == "hex8":
+                mesh = as_extruded(from_box(build_box_mesh(nc, P),
+                                            shuffle_seed=11))
+            else:
+                mesh = as_extruded(shapes.hex27_lattice(
+                    from_box(build_box_mesh(nc, P), shuffle_seed=11),
+                    shapes.curved_prism_map))
+            print(f"P={P} {geo}: {nc} cells, {mesh.ndofs} DOF, bf16",
+                  flush=True)
+            out[geo, P] = corner_forms_bf16(Discretization(mesh), dev,
+                                            f"#{'3' if geo == 'box' else '6c'}"
+                                            f" {geo}", chain, reps)
+    return out
+
+
 SWEEP_CPB = (1, 2, 3, 4, 5, 6, 7, 8, 10)
 SWEEP_SEGMENTS = (1, 2, 3, 4, 6, 8, 16, 43)
 
@@ -406,7 +534,24 @@ def main(argv=None) -> dict:
              "--geometry", geometry, "--device", args.device])
         return Discretization(nonlinear_bowl.problem(a).mesh)
 
+    if args.corner and args.bf16 and args.degrees:
+        out = {}
+        if dev.type == "cuda":
+            out = corner_degrees_bf16(
+                args.degrees, dev, ("hex8", "hex27") if args.hex27
+                else ("hex8",), args.chain, args.reps)
+        print(f"   timed by {clock(dev)}")
+        return out
     imported = disc("unstructured", args.elements, args.degree)
+    if args.corner and args.bf16:
+        discs = {"#6c hex8": imported}
+        if args.hex27:
+            discs["#6c hex27"] = Discretization(
+                shapes.hex27_lattice(imported.mesh))
+        out = {label: corner_forms_bf16(d, dev, label, args.chain, args.reps)
+               for label, d in discs.items()}
+        print(f"   timed by {clock(dev)}")
+        return out
     if args.corner:
         discs = {"#6c hex8": imported}
         if args.hex27:

@@ -5,7 +5,7 @@ fields: parity-class, pencil, pencil, parity-class.  Runs on the card
 unless --device cpu is given (the plain versions, a correctness run only).
 
     python -m fustpu_torch.demos.exp_pencil [--nc 64 40 40] [--degree 4]
-        [--corner | --bf16 [--degrees 2 3 ...]] [--sweep]
+        [--corner] [--bf16 [--degrees 2 3 ...]] [--sweep]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its two turns, the rate over the apply's least bytes (G, each
@@ -33,6 +33,11 @@ pair, with each one's share of the bound, the values that differ between
 the two and each design's schedule (``compare_bf16``), in place of the
 float32 comparison; with --degrees, at each of those degrees on a box of
 the flagship's grid (``compare_degrees``), where the lean walk runs.
+With --corner --bf16 it times the first bfloat16 corner walk against the
+lean corner walk (``csrc/corner_lean.cuh``) on the box in corner mode, in
+turns, single and pair (``exp_imported.compare_corner_bf16``); with
+--degrees at each of those degrees on a box of the flagship's grid, where
+the lean corner walk runs (``cuda_corner.LEAN_CORNER_BF16``).
 """
 
 from __future__ import annotations
@@ -280,6 +285,25 @@ def main(argv=None) -> dict:
     check_device(args)
     dev = torch.device(args.device)
     mesh = build_box_mesh(tuple(args.nc), args.degree)
+    if args.corner and args.bf16:
+        from fustpu_torch.demos import exp_imported
+        from fustpu_torch.models.discretization import Discretization
+
+        if args.degrees:
+            out = {"mesh": mesh}
+            if dev.type == "cuda":
+                out["degrees"] = exp_imported.corner_degrees_bf16(
+                    args.degrees, dev, ("box",), args.chain, args.reps)
+            print(f"   timed by {clock(dev)}")
+            return out
+        print(f"mesh {tuple(mesh.nc)} cells, P={args.degree}, {mesh.ndofs} "
+              f"DOF, bf16, {args.device}, corner mode")
+        mesh = build_box_mesh(tuple(args.nc), args.degree, perturb=0.1,
+                              seed=0)
+        out = exp_imported.corner_forms_bf16(Discretization(mesh), dev, "#3",
+                                             args.chain, args.reps)
+        print(f"   timed by {clock(dev)}")
+        return {"mesh": mesh, **out}
     if args.corner:
         from fustpu_torch.demos import exp_imported
         from fustpu_torch.models.discretization import Discretization

@@ -573,8 +573,9 @@ class CornerStiffness(nn.Module):
         """The launch counter that an apply moves (None for 'mm')."""
         if self.impl != "cuda":
             return None
-        return bf16_name(self.cell_op.kernel
-                         + ("_pair" if self.is_pair else ""), self.T)
+        op = self.cell_op
+        return bf16_name(op.kernel + ("_pair" if self.is_pair else ""),
+                         self.T, cc.lean_runs(op, self.is_pair, self.T.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         op = self.cell_op

@@ -39,9 +39,19 @@ The walk also comes in bfloat16 (the JAX package's ``--dtype bf16``: the
 capacity mode at half the bytes).  Its bf16 forms store x, x2, y, the
 channels T, D and C in bfloat16 and compute in float32 (the GLL nodes and
 weights Q are float32 tensors), rounding y where they store it
-(``corner_walk.cuh``); they count in `bf16_launches`
-(``cuda_stiffness.count``).  The class-launch designs have float32 and
-float64 only.
+(``corner_walk.cuh``).  A bfloat16 apply runs the lean corner walk
+(``csrc/corner_lean.cuh``: D, the GLL nodes and weights by value, the
+channels widened once a chunk and folded from float4s, padded float rows,
+three barriers a chunk, launch bounds of its own) at the (degree, form,
+geometry) of `LEAN_CORNER_BF16`, on the first design's cells a chunk and
+segments (`lean_smem`, its blocks an SM from its own occupancy query), and
+the first bfloat16 corner walk elsewhere; that walk is also reached as
+`corner_first`, `corner_pair_first`, `extruded_corner_first` and
+`extruded_corner_pair_first`, the comparison, counted in
+`comparison_launches`.  The main path's bf16 applies count in
+`bf16_launches` (``cuda_stiffness.count``): `name`_bf16 on the lean walk,
+`name`_bf16_first_walk on the first.  The class-launch designs have
+float32 and float64 only.
 
 A wrapper given CPU tensors runs the plain version (`corner_plain` /
 `corner_pair_plain`: the channels expanded into the metric by
@@ -66,6 +76,8 @@ from fustpu_torch.ops import corner as cn
 from fustpu_torch.ops import cuda_extruded as ce
 from fustpu_torch.ops import cuda_stiffness as cs
 
+BF16 = torch.bfloat16
+
 # Applies that went through each kernel (not counting the plain version):
 # the walk's, and the class-launch design's.
 launches = {"corner": 0, "corner_pair": 0, "extruded_corner": 0,
@@ -75,12 +87,18 @@ class_launches = {name: 0 for name in (
     "corner_classes", "corner_classes_pair", "extruded_corner_classes",
     "extruded_corner_classes_pair", "extruded_corner_hex27_classes",
     "extruded_corner_hex27_classes_pair")}
-# the walk's bfloat16 forms (``cuda_stiffness.count``)
-bf16_launches = {f"{name}_bf16": 0 for name in launches}
+# the walk's bfloat16 forms on the main path (``cuda_stiffness.count``:
+# on the lean corner walk, and on the first bfloat16 corner walk outside
+# LEAN_CORNER_BF16), and the first bfloat16 corner walk called as the lean
+# walk's comparison
+bf16_launches = {cs.bf16_key(name, lean): 0 for name in launches
+                 for lean in (True, False)}
+comparison_launches = {f"{name}_first_bf16": 0 for name in launches}
 
 
 def reset_launches() -> None:
-    for counts in (launches, class_launches, bf16_launches):
+    for counts in (launches, class_launches, bf16_launches,
+                   comparison_launches):
         for k in counts:
             counts[k] = 0
 
@@ -278,11 +296,81 @@ def apply_cost(op: CornerCellStiffness, ndofs: int, fields: int,
 # The walk's schedules
 # ---------------------------------------------------------------------------
 
-def _card(op: CornerCellStiffness, dtype: torch.dtype, pair: bool, device,
-          segments: int | None = None, cpb: int | None = None) -> tuple:
+GEOMETRIES = ("box", "hex8", "hex27")
+
+# The (degree P, pair?, geometry) at which a bfloat16 apply runs the lean
+# corner walk, each where it measured faster than the first bfloat16 corner
+# walk in turns on an H100 (PERF.md, PR 22): at P = 4 on the flagship box
+# and the imported bowl (``tools/corner_split``, each form's plan), at the
+# other degrees on the flagship's grid (``demos/exp_pencil --corner --bf16
+# --degrees``, ``demos/exp_imported --corner --bf16 --hex27 --degrees``);
+# the others, P = 9 and 10 untimed, keep the first design.
+# ``csrc/corner_lean.cu``, ``corner_lean_stack.cu`` and
+# ``corner_lean_stack27.cu`` instantiate the lean walk at these only.
+LEAN_CORNER_BF16 = frozenset(
+    [(P, False, "box") for P in (3, 4, 7, 8)]
+    + [(P, True, "box") for P in (3, 4, 6, 7, 8)]
+    + [(P, False, "hex8") for P in (3, 4, 5, 6, 7, 8)]
+    + [(P, True, "hex8") for P in (4, 5, 7)]
+    + [(P, False, "hex27") for P in (4, 5, 6, 7, 8)]
+    + [(P, True, "hex27") for P in (4, 5, 7, 8)])
+
+
+def geometry(op: CornerCellStiffness) -> str:
+    """"box" (box pencils), "hex8" or "hex27" (extruded stacks)."""
+    if op.box:
+        return "box"
+    return "hex27" if op.geom_deg == 2 else "hex8"
+
+
+def lean_runs(op: CornerCellStiffness, pair: bool,
+              dtype: torch.dtype) -> bool:
+    """Whether an apply of `op` (pair or not) in `dtype` runs the lean
+    corner walk: bfloat16, at the (P, pair, geometry) of
+    `LEAN_CORNER_BF16`."""
+    return dtype == BF16 and (op.P, pair, geometry(op)) in LEAN_CORNER_BF16
+
+
+def slot_floats(geom_deg: int) -> int:
+    """Floats of a cell's widened channels in the lean corner walk
+    (``corner_lean.cuh`` Slots): nine blocks of the channels of one J[p][q]
+    (4 trilinear, 18 triquadratic), each padded to a multiple of 4, then
+    the coefficient, the whole padded to a multiple of 4."""
+    block = (cs.corner_channels(geom_deg) - 1) // 9
+    return -(-(9 * (-(-block // 4) * 4) + 1) // 4) * 4
+
+
+def lean_smem(P: int, cpb: int, pair: bool = False, ids: bool = False,
+              geom_deg: int = 1,
+              stages: int = cs.STAGES) -> tuple[int, int]:
+    """(bytes a stage, dynamic shared bytes a block) of the lean corner
+    walk (``corner_lean.cuh``): the head of ``cuda_stiffness.pencil_smem``
+    (mbarriers, the row ring, with `ids` the stacks' row ids), the stages
+    (cpb cells of bfloat16 channels and 16 B, the first design's stages),
+    then float32: two buffers of every cell's u and every cell's f1 and
+    f2, each n^2 rows padded to a multiple of 4 values, every cell's
+    widened channels (`slot_floats`), two of the chunk's y (n^2 (cpb P + 1)
+    values), for the pair two of x2 and of the cells' (c1, c2), and D (n^2
+    values, padded to 4).  No static shared memory."""
+    n = P + 1
+    cellf = n * n * (-(-n // 4) * 4)
+    stage = cs._round16(cpb * cs.corner_channels(geom_deg) * 2 + 16)
+    rows = n * n * (cpb * P + 1)
+    values = (4 * cpb * cellf + cpb * slot_floats(geom_deg) + 2 * rows
+              + (2 * rows + 4 * cpb if pair else 0) + -(-n * n // 4) * 4)
+    head = cs._round16(8 * stages) + cs._round16(8 * cs.ROW_RING
+                                                 * cs.TABLE_ROW)
+    if ids:
+        head += cs._round16(4 * cs.ROW_RING * n * n)
+    return stage, head + stages * stage + 4 * values
+
+
+def _first_card(op: CornerCellStiffness, dtype: torch.dtype, pair: bool,
+                device, segments: int | None = None,
+                cpb: int | None = None) -> tuple:
     """(schedule, chunk table, row ids or None, classes as a C array) of
-    the walk of `op` on `device` (`cpb`, and on stacks `segments`: another
-    schedule than the model's)."""
+    the first design's walk of `op` on `device` (`cpb`, and on stacks
+    `segments`: another schedule than the model's)."""
     if op.box:
         if segments is not None:
             raise ValueError("corner kernel: a box pencil has no segments")
@@ -294,27 +382,86 @@ def _card(op: CornerCellStiffness, dtype: torch.dtype, pair: bool, device,
                         geo=op.geom_deg)
 
 
+def lean_schedule(sched, P: int, pair: bool, ids: bool, geom_deg: int,
+                  occupancy, sms: int):
+    """The lean corner walk's schedule on the first design's `sched` (a
+    `cs.PencilSchedule`, or with `ids` a `ce.StackSchedule`): its cells a
+    chunk, segments, classes and chunk table (a node shared by several
+    chunks or segments rounds once per writer, so another schedule would
+    round others), with the lean walk's shared layout (`lean_smem`), blocks
+    an SM (`occupancy(P, pair, cpb, smem)`, the card's answer for the lean
+    walk's block) and grid on a card of `sms` SMs; raises where the first
+    design's block does not fit the lean walk."""
+    stage, smem = lean_smem(P, sched.cpb, pair, ids, geom_deg, sched.stages)
+    if stage != sched.stage_bytes:
+        raise ValueError(f"lean corner walk: a stage of {stage} B against "
+                         f"the first design's {sched.stage_bytes}")
+    bps = int(occupancy(P, pair, sched.cpb, smem)) \
+        if smem <= cs.SMEM_BLOCK else 0
+    if bps < 0:
+        raise RuntimeError(f"lean corner walk occupancy query failed: "
+                           f"error {-bps}")
+    if bps == 0:
+        raise ValueError(f"lean corner walk: a block of {sched.cpb} cells "
+                         f"and {smem:,} B at P={P} does not fit an SM")
+    return sched._replace(smem=smem, blocks_per_sm=bps, blocks=bps * sms)
+
+
+def _card(op: CornerCellStiffness, dtype: torch.dtype, pair: bool, device,
+          segments: int | None = None, cpb: int | None = None,
+          design: str = "first") -> tuple:
+    """(schedule, chunk table, row ids or None, classes as a C array) of
+    the walk `design` of `op` on `device`: "first", or the bfloat16 "lean"
+    corner walk on the first design's schedule (`lean_schedule`, the
+    card's occupancy answers)."""
+    first = _first_card(op, dtype, pair, device, segments, cpb)
+    if design != "lean":
+        return first
+    from fustpu_torch import _build
+
+    device = torch.device(device)
+    kind = "corner_pencil" if op.box else f"{op.kernel}_stack"
+    query = getattr(_build.load(), f"fustpu_{kind}_lean_occupancy")
+
+    def occupancy(P, pair_, cpb_, smem):
+        with torch.cuda.device(device):
+            return query(P, int(pair_), cpb_, smem)
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sched, *rest = first
+    return (lean_schedule(sched, op.P, pair, not op.box, op.geom_deg,
+                          occupancy, sms), *rest)
+
+
 def card_schedule(op: CornerCellStiffness, x: torch.Tensor, pair: bool,
-                  **schedule):
+                  design: str | None = None, **schedule):
     """The schedule (`cs.PencilSchedule` on a box, `ce.StackSchedule` on
-    stacks) that an apply of `op` on x's card runs (`schedule`: `cpb`, and
-    on stacks `segments`, in place of the model's choice)."""
-    return _card(op, x.dtype, pair, x.device, **schedule)[0]
+    stacks) that an apply of `op` on x's card runs (`design`: "first" or
+    "lean" in place of the main path's; `schedule`: `cpb`, and on stacks
+    `segments`, in place of the model's choice)."""
+    design = design or ("lean" if lean_runs(op, pair, x.dtype) else "first")
+    return _card(op, x.dtype, pair, x.device, design=design, **schedule)[0]
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the types of the first bfloat16 corner walk's comparison entry points
+BF16_ONLY = (BF16,)
+
+
 def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool,
-           classes: bool = False) -> None:
+           classes: bool = False, types: tuple | None = None) -> None:
     """Checks an apply's tensors: float32, float64 or (the walk only, not
-    the class-launch design) bfloat16."""
+    the class-launch design) bfloat16; `types` in place of those."""
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"corner kernel: tensor on {x.device}, expected a "
                          "CUDA device")
-    types = (torch.float32, torch.float64) if classes else tuple(cs.SUFFIX)
+    if types is None:
+        types = (torch.float32, torch.float64) if classes else tuple(
+            cs.SUFFIX)
     if x.dtype not in types:
         raise ValueError(f"corner kernel: dtype {x.dtype} unsupported "
                          f"({', '.join(map(str, types))})")
@@ -355,35 +502,44 @@ def _check(op: CornerCellStiffness, *xs: torch.Tensor, pair: bool,
                              f"{tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"corner kernel: {name} is not contiguous")
-
-
-def _walk_entry(op: CornerCellStiffness, pair: bool, dtype) -> str:
-    kind = "corner_pencil" if op.box else f"{op.kernel}_stack"
-    return f"fustpu_{kind}{'_pair' if pair else ''}_{cs.SUFFIX[dtype]}"
-
-
-def _launch(name: str, op: CornerCellStiffness, xs, extra,
-            segments: int | None = None,
-            cpb: int | None = None) -> torch.Tensor:
-    """One apply through the walk (`cpb`, and on stacks `segments`: another
-    schedule than the model's)."""
-    from fustpu_torch import _build
-
-    x = xs[0]
     if op.T.data_ptr() % 16:
         raise ValueError("corner kernel: T's data is not 16 B-aligned (the "
                          "bulk copies need it)")
     if x.numel() >= 2 ** 31:
         raise ValueError(f"corner kernel: {x.numel()} grid nodes, the walk "
                          "indexes fewer than 2^31")
+
+
+def _walk_entry(op: CornerCellStiffness, pair: bool, dtype,
+                design: str = "first") -> str:
+    kind = "corner_pencil" if op.box else f"{op.kernel}_stack"
+    suffix = "lean_bf16" if design == "lean" else cs.SUFFIX[dtype]
+    return f"fustpu_{kind}{'_pair' if pair else ''}_{suffix}"
+
+
+def _launch(op: CornerCellStiffness, xs, extra,
+            segments: int | None = None, cpb: int | None = None,
+            design: str = "first", types: tuple | None = None
+            ) -> torch.Tensor:
+    """One apply through the walk `design` ("first": float32, float64 and
+    the first bfloat16 corner walk, or only `types`; "lean": the bfloat16
+    lean corner walk, D and the GLL nodes and weights by value), its
+    tensors checked before anything is built or launched; `cpb`, and on
+    stacks `segments`: another schedule than the model's.  Counted by the
+    caller."""
+    from fustpu_torch import _build
+
+    x = xs[0]
     pair = len(xs) == 2
+    _check(op, *xs, pair=pair, types=BF16_ONLY if design == "lean" else types)
     sched, chunks, ids, classes = _card(op, x.dtype, pair, x.device,
-                                        segments, cpb)
+                                        segments, cpb, design)
     y = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load(), _walk_entry(op, pair, x.dtype))
-    args = (*(t.data_ptr() for t in xs), *extra, op.T.data_ptr(),
-            op.D.data_ptr(), op.Q.data_ptr(), y.data_ptr(), op.P,
-            chunks.data_ptr())
+    fn = getattr(_build.load(), _walk_entry(op, pair, x.dtype, design))
+    consts = ((cs.host_D(op.D), cs.host_D(op.Q)) if design == "lean" else
+              (op.D.data_ptr(), op.Q.data_ptr()))
+    args = (*(t.data_ptr() for t in xs), *extra, op.T.data_ptr(), *consts,
+            y.data_ptr(), op.P, chunks.data_ptr())
     sched_args = (classes, len(sched.classes), sched.blocks, sched.cpb,
                   sched.stages, sched.stage_bytes, sched.smem)
     with torch.cuda.device(x.device):
@@ -393,8 +549,8 @@ def _launch(name: str, op: CornerCellStiffness, xs, extra,
         else:
             err = fn(*args, ids.data_ptr(), *sched_args, op.nz, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: error {err}")
-    cs.count(launches, bf16_launches, name, x.dtype)
+        raise RuntimeError(f"{op.kernel}{'_pair' if pair else ''} "
+                           f"{design} kernel launch failed: error {err}")
     return y
 
 
@@ -424,27 +580,31 @@ def _launch_classes(name: str, op: CornerCellStiffness, xs,
     return y
 
 
-def _apply(op: CornerCellStiffness, x: torch.Tensor, classes: bool = False,
-           **schedule) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return corner_plain(op, x)
-    _check(op, x, pair=False, classes=classes)
+def _apply(op: CornerCellStiffness, xs, classes: bool = False,
+           first: bool = False, **schedule) -> torch.Tensor:
+    """One apply of `op` on the field(s) `xs` (two: the pair form): the
+    plain version on CPU tensors; on the card the class-launch design
+    (`classes`), the first bfloat16 corner walk as the comparison (`first`,
+    bfloat16 only), or the main path's walk (`lean_runs`)."""
+    pair = len(xs) == 2
+    if xs[0].device.type == "cpu":
+        return (corner_pair_plain if pair else corner_plain)(op, *xs)
+    name = op.kernel + ("_pair" if pair else "")
     if classes:
-        return _launch_classes(op.kernel + "_classes", op, (x,), ())
-    return _launch(op.kernel, op, (x,), (), **schedule)
-
-
-def _apply_pair(op: CornerCellStiffness, x1: torch.Tensor,
-                x2: torch.Tensor, classes: bool = False,
-                **schedule) -> torch.Tensor:
-    if x1.device.type == "cpu":
-        return corner_pair_plain(op, x1, x2)
-    _check(op, x1, x2, pair=True, classes=classes)
-    if classes:
-        return _launch_classes(op.kernel + "_classes_pair", op, (x1, x2),
-                               (op.C.data_ptr(),))
-    return _launch(op.kernel + "_pair", op, (x1, x2), (op.C.data_ptr(),),
-                   **schedule)
+        _check(op, *xs, pair=pair, classes=True)
+        return _launch_classes(op.kernel + "_classes"
+                               + ("_pair" if pair else ""), op, xs,
+                               (op.C.data_ptr(),) if pair else ())
+    extra = (op.C.data_ptr(),) if pair and op.C is not None else ()
+    if first:
+        y = _launch(op, xs, extra, types=BF16_ONLY, **schedule)
+        comparison_launches[f"{name}_first_bf16"] += 1
+        return y
+    lean = lean_runs(op, pair, xs[0].dtype)
+    y = _launch(op, xs, extra, design="lean" if lean else "first",
+                **schedule)
+    cs.count(launches, bf16_launches, name, xs[0].dtype, lean)
+    return y
 
 
 def _box(op: CornerCellStiffness, name: str) -> None:
@@ -465,7 +625,7 @@ def corner(op: CornerCellStiffness, x: torch.Tensor,
     (the plain version for a CPU tensor); `cpb`: cells a chunk in place of
     the schedule's choice."""
     _box(op, "corner")
-    return _apply(op, x, cpb=cpb)
+    return _apply(op, (x,), cpb=cpb)
 
 
 def corner_pair(op: CornerCellStiffness, x1: torch.Tensor,
@@ -473,7 +633,7 @@ def corner_pair(op: CornerCellStiffness, x1: torch.Tensor,
     """y_grid = A_c1(x1) + A_c2(x2) on a box through the pair walk of box
     pencils (the plain version for CPU tensors); `cpb` as for `corner`."""
     _box(op, "corner_pair")
-    return _apply_pair(op, x1, x2, cpb=cpb)
+    return _apply(op, (x1, x2), cpb=cpb)
 
 
 def extruded_corner(op: CornerCellStiffness, x: torch.Tensor,
@@ -483,7 +643,7 @@ def extruded_corner(op: CornerCellStiffness, x: torch.Tensor,
     `schedule`: `segments` and / or `cpb` in place of the model's
     choice."""
     _stacks(op, "extruded_corner")
-    return _apply(op, x, **schedule)
+    return _apply(op, (x,), **schedule)
 
 
 def extruded_corner_pair(op: CornerCellStiffness, x1: torch.Tensor,
@@ -491,14 +651,14 @@ def extruded_corner_pair(op: CornerCellStiffness, x1: torch.Tensor,
     """y = A_c1(x1) + A_c2(x2) on flat fields through the pair stack walk
     (the plain version for CPU tensors)."""
     _stacks(op, "extruded_corner_pair")
-    return _apply_pair(op, x1, x2, **schedule)
+    return _apply(op, (x1, x2), **schedule)
 
 
 def corner_classes(op: CornerCellStiffness, x: torch.Tensor) -> torch.Tensor:
     """`corner` through the class-launch design (the plain version for a
     CPU tensor)."""
     _box(op, "corner_classes")
-    return _apply(op, x, classes=True)
+    return _apply(op, (x,), classes=True)
 
 
 def corner_classes_pair(op: CornerCellStiffness, x1: torch.Tensor,
@@ -506,7 +666,7 @@ def corner_classes_pair(op: CornerCellStiffness, x1: torch.Tensor,
     """`corner_pair` through the class-launch design (the plain version for
     CPU tensors)."""
     _box(op, "corner_classes_pair")
-    return _apply_pair(op, x1, x2, classes=True)
+    return _apply(op, (x1, x2), classes=True)
 
 
 def extruded_corner_classes(op: CornerCellStiffness,
@@ -514,7 +674,7 @@ def extruded_corner_classes(op: CornerCellStiffness,
     """`extruded_corner` through the class-launch design of the operator's
     geometry degree (the plain version for a CPU tensor)."""
     _stacks(op, "extruded_corner_classes")
-    return _apply(op, x, classes=True)
+    return _apply(op, (x,), classes=True)
 
 
 def extruded_corner_classes_pair(op: CornerCellStiffness, x1: torch.Tensor,
@@ -522,4 +682,40 @@ def extruded_corner_classes_pair(op: CornerCellStiffness, x1: torch.Tensor,
     """`extruded_corner_pair` through the class-launch design (the plain
     version for CPU tensors)."""
     _stacks(op, "extruded_corner_classes_pair")
-    return _apply_pair(op, x1, x2, classes=True)
+    return _apply(op, (x1, x2), classes=True)
+
+
+def corner_first(op: CornerCellStiffness, x: torch.Tensor,
+                 cpb: int | None = None) -> torch.Tensor:
+    """`corner` of a bfloat16 operator through the first bfloat16 corner
+    walk at every degree, on its own schedule unless `cpb` gives another,
+    the lean corner walk's comparison; counted in `comparison_launches`
+    (the plain version for a CPU tensor)."""
+    _box(op, "corner_first")
+    return _apply(op, (x,), first=True, cpb=cpb)
+
+
+def corner_pair_first(op: CornerCellStiffness, x1: torch.Tensor,
+                      x2: torch.Tensor,
+                      cpb: int | None = None) -> torch.Tensor:
+    """`corner_pair` through the first bfloat16 corner walk, as
+    `corner_first`."""
+    _box(op, "corner_pair_first")
+    return _apply(op, (x1, x2), first=True, cpb=cpb)
+
+
+def extruded_corner_first(op: CornerCellStiffness, x: torch.Tensor,
+                          **schedule) -> torch.Tensor:
+    """`extruded_corner` (hex8 or hex27) through the first bfloat16 corner
+    walk, as `corner_first`; `schedule`: `segments` and / or `cpb`."""
+    _stacks(op, "extruded_corner_first")
+    return _apply(op, (x,), first=True, **schedule)
+
+
+def extruded_corner_pair_first(op: CornerCellStiffness, x1: torch.Tensor,
+                               x2: torch.Tensor,
+                               **schedule) -> torch.Tensor:
+    """`extruded_corner_pair` through the first bfloat16 corner walk, as
+    `extruded_corner_first`."""
+    _stacks(op, "extruded_corner_pair_first")
+    return _apply(op, (x1, x2), first=True, **schedule)

@@ -476,7 +476,9 @@ def test_bf16_corner_kernels_match_plain_on_card(P, tmp_path):
     against their plain bf16 versions on the same inputs (CARD_TOL), two
     applies bitwise equal, within APPLY_TOL of the bf16 G-stream kernel on
     the same mesh (two bf16 operators, each within ~5e-3 of float64), each
-    launch counted in its bf16 counter and in no float32 one; each bf16
+    launch counted in the bf16 counter of the walk that its form runs at P
+    (the lean corner walk or the first, ``cuda_corner.LEAN_CORNER_BF16``)
+    and in no float32 one; each bf16
     occupancy query (type code 2) answers 0 exactly beyond the kernel's
     launch bounds (128 threads for the single-field trilinear walk at
     P <= 4, float's budget, else 256)."""
@@ -486,6 +488,7 @@ def test_bf16_corner_kernels_match_plain_on_card(P, tmp_path):
 
     cc.reset_launches()
     rng = np.random.default_rng(P)
+    keys = set()
     for mesh in _card_cases(P, tmp_path):
         disc = dz.Discretization(mesh)
         box = hasattr(mesh, "nc")
@@ -509,7 +512,10 @@ def test_bf16_corner_kernels_match_plain_on_card(P, tmp_path):
             assert torch.equal(_corner_apply(op, a, pair), y)
             g = gstream[pair](disc.stiffness_op(BF16, "cuda", **kw), *a)
             assert rel(y.cpu(), g.cpu()) <= APPLY_TOL
-    assert all(cc.bf16_launches.values()), cc.bf16_launches
+            keys.add(cs.bf16_key(op.kernel + ("_pair" if pair else ""),
+                                 cc.lean_runs(op, pair, BF16)))
+    assert {k for k, v in cc.bf16_launches.items() if v} == keys, \
+        cc.bf16_launches
     assert not any(cc.launches.values()), cc.launches
     lib = _build.load()
     n = P + 1
