@@ -40,9 +40,10 @@ capacity mode at half the bytes).  Its bf16 forms store x, x2, y, the
 channels T, D and C in bfloat16 and compute in float32 (the GLL nodes and
 weights Q are float32 tensors), rounding y where they store it
 (``corner_walk.cuh``).  A bfloat16 apply runs the lean corner walk
-(``csrc/corner_lean.cuh``: D, the GLL nodes and weights by value, the
-channels widened once a chunk and folded from float4s, padded float rows,
-three barriers a chunk, launch bounds of its own) at the (degree, form,
+(``csrc/corner_lean.cuh``: D, the GLL nodes and weights by value, padded
+float rows, three barriers a chunk, and per form the channels widened
+into float4 slots or not, D's rows in registers or not, launch bounds of
+its own) at the (degree, form,
 geometry) of `LEAN_CORNER_BF16`, on the first design's cells a chunk and
 segments (`lean_smem`, its blocks an SM from its own occupancy query), and
 the first bfloat16 corner walk elsewhere; that walk is also reached as
@@ -417,20 +418,27 @@ def _card(op: CornerCellStiffness, dtype: torch.dtype, pair: bool, device,
     first = _first_card(op, dtype, pair, device, segments, cpb)
     if design != "lean":
         return first
-    from fustpu_torch import _build
-
-    device = torch.device(device)
-    kind = "corner_pencil" if op.box else f"{op.kernel}_stack"
-    query = getattr(_build.load(), f"fustpu_{kind}_lean_occupancy")
-
-    def occupancy(P, pair_, cpb_, smem):
-        with torch.cuda.device(device):
-            return query(P, int(pair_), cpb_, smem)
-
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     sched, *rest = first
-    return (lean_schedule(sched, op.P, pair, not op.box, op.geom_deg,
-                          occupancy, sms), *rest)
+    kept = _LEAN.get(id(sched))
+    if kept is None or kept[0] is not sched:    # once a first schedule
+        from fustpu_torch import _build
+
+        device = torch.device(device)
+        kind = "corner_pencil" if op.box else f"{op.kernel}_stack"
+        query = getattr(_build.load(), f"fustpu_{kind}_lean_occupancy")
+
+        def occupancy(P, pair_, cpb_, smem):
+            with torch.cuda.device(device):
+                return query(P, int(pair_), cpb_, smem)
+
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        kept = _LEAN[id(sched)] = (sched, lean_schedule(
+            sched, op.P, pair, not op.box, op.geom_deg, occupancy, sms))
+    return (kept[1], *rest)
+
+
+# the lean schedules, by the first design's schedule they were built on
+_LEAN: dict = {}
 
 
 def card_schedule(op: CornerCellStiffness, x: torch.Tensor, pair: bool,
