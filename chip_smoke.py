@@ -95,9 +95,8 @@ Phases (each prints its time; any failure exits non-zero):
      steps against phase 15b's indexed run (21d);
  22. ranks on the one card (parallel.multihost.spawn, gloo on cuda:0, 4
      ranks, after 21b): in one process group, the flagship on a (2, 2, 1)
-     grid for 50 steps, the flagship in corner mode for 20 (22a, 22c; the
-     two-layer flagship's case 22b was cut to pay for 34g-h's lean corner
-     turns), the imported bowl and the bodyfit bowl (indexed
+     grid for 50 steps, the two-layer flagship and the flagship in corner
+     mode for 20 (22a-c), the imported bowl and the bodyfit bowl (indexed
      and indexed_engine) for 20 (22d-e), time_halo's 16^3 P=4 Westervelt
      box on a (4, 1, 1) grid for 20 with and without the exchange (22g:
      without it the owners of the shared entries must disagree and u
@@ -1529,7 +1528,8 @@ def main() -> None:
         step of 50 captured steps from rest in turns on each design
         (`ms_turns`, `FirstWalk`).  Returns (the old design's entry for the
         JSON line, its launches in the turns, ms a step by design or
-        None)."""
+        None), or None for a bf16 corner form that `cc.LEAN_CORNER_BF16`
+        leaves on the first bf16 corner walk."""
         kst = model.stiffness
         op, mesh = kst.cell_op, model.mesh
         corner = isinstance(kst, CornerStiffness)
@@ -1552,8 +1552,10 @@ def main() -> None:
                        "the first bf16 corner walk" if corner else
                        "the first bf16 walk"}
         if corner and not cc.lean_runs(op, kst.is_pair, BF16):
-            fail(f"34: {label}: the form keeps the first bf16 corner walk "
-                 "(cuda_corner.LEAN_CORNER_BF16): nothing to compare")
+            print(f"   {label}: the first bf16 corner walk runs this form "
+                  "(cuda_corner.LEAN_CORNER_BF16): nothing to compare",
+                  flush=True)
+            return None
         xs = [torch.as_tensor(rng16.standard_normal(mesh.grid_shape),
                               dtype=BF16, device=dev)
               for _ in range(2 if kst.is_pair else 1)]
@@ -1627,6 +1629,15 @@ def main() -> None:
                   f"{turns['old']:.4f} ({turns['old'] / turns['new']:.4f}x)",
                   flush=True)
         return entry, n_old, turns
+
+    def lean_corner_turns(model, dt_, label, nm):
+        """34g-h: `lean_turns` of a bf16 corner model whose kernel is
+        `nm` (bf16); the first design's entry and launches kept for the
+        JSON line where the form runs the lean corner walk."""
+        got = lean_turns(model, dt_, label, f"{nm}_bf16")
+        if got is not None:
+            kernels[f"{nm}_first_bf16"], launches[f"{nm}_first_bf16"], _ = \
+                got
 
     def captured_solve(model, dt_, label, tol):
         """Phase 35: 10 replayed steps of `model`'s solver against the same
@@ -2637,6 +2648,8 @@ def main() -> None:
         if not traj <= TRAJ_TOL:
             fail(f"10-step two-layer trajectory kernel vs plain {traj:.3e}")
         del sk, sp, pst2, x, x2
+        keep_for_ranks("22b two-layer flagship, grid (2, 2, 1)", bowl2, dt2,
+                       20, BOWL_POINTS, grid=(2, 2, 1))
 
     # ---- the main path: counters reset just before, read just after ----
     cs.reset_launches()
@@ -3239,9 +3252,7 @@ def main() -> None:
                   f"{add / 1e9:.4f} GB (peak device memory over what is "
                   f"allocated before it): {(held + add) / 1e9:.4f} GB",
                   flush=True)
-        kernels["corner_first_bf16"], \
-            launches["corner_first_bf16"], _ = lean_turns(
-                cbowl16, dt34g, "flagship corner", "corner_bf16")
+        lean_corner_turns(cbowl16, dt34g, "flagship corner", "corner")
         del cbowl16, k34g, pair34
     cc.reset_launches()
     with phase("17b flagship in corner mode, full solve (corner kernel)"):
@@ -3294,10 +3305,8 @@ def main() -> None:
             "corner_pair")
         _, bf16_counts["corner_pair_bf16"] = bf16_steps(
             cbowl16b, dt34gb, 50, "two-layer flagship corner")
-        kernels["corner_pair_first_bf16"], \
-            launches["corner_pair_first_bf16"], _ = lean_turns(
-                cbowl16b, dt34gb, "two-layer flagship corner",
-                "corner_pair_bf16")
+        lean_corner_turns(cbowl16b, dt34gb, "two-layer flagship corner",
+                          "corner_pair")
         del cbowl16b
     del cbowl2, s10, pb6
 
@@ -3620,8 +3629,7 @@ def main() -> None:
                 (ic16, dt34h, "imported bowl corner", "extruded_corner"),
                 (ic16b, dt34hb, "two-layer imported bowl corner",
                  "extruded_corner_pair")):
-            kernels[f"{nm}_first_bf16"], launches[f"{nm}_first_bf16"], _ = \
-                lean_turns(m, d, lbl, f"{nm}_bf16")
+            lean_corner_turns(m, d, lbl, nm)
         del ic16, ic16b
     with phase("18d imported bowl as hex27: build, 163-channel kernel vs "
                "plain and vs the hex8 corner kernel"):
@@ -3682,8 +3690,7 @@ def main() -> None:
                  "extruded_corner_hex27"),
                 (h16b, dt34jb, "two-layer imported bowl hex27 corner",
                  "extruded_corner_hex27_pair")):
-            kernels[f"{nm}_first_bf16"], launches[f"{nm}_first_bf16"], _ = \
-                lean_turns(m, d, lbl, f"{nm}_bf16")
+            lean_corner_turns(m, d, lbl, nm)
         del h16, h16b
     with phase("18e two-layer imported bowl as hex27: build + hex27 pair "
                "kernel vs plain and vs the hex8 corner pair kernel"):
@@ -4589,6 +4596,7 @@ def main() -> None:
     halo_names = ["22g halo box, grid (4, 1, 1), exchange on",
                   "22g halo box, grid (4, 1, 1), exchange off"]
     res22 = ranks_group(["22a flagship, grid (2, 2, 1)",
+                 "22b two-layer flagship, grid (2, 2, 1)",
                  "22c flagship in corner mode, grid (2, 2, 1)",
                  "22d imported bowl, 4 ranks",
                  "22e bodyfit bowl, 4 ranks, indexed",
@@ -4903,7 +4911,10 @@ def main() -> None:
         kernel at this size against its plain version on one seeded
         unit-normal field in the model's dtype (F32_TOL, bf16 BF16_TOL);
         `before`: earlier numbers to print beside its ms/step and peak.
-        Returns (the launches of the demo's run, its host set-up seconds
+        Where a bf16 model runs the lean corner walk, that walk against the
+        first bf16 corner walk at this size: ms an apply in turns (first,
+        lean, lean, first) and ms a step of 20 captured steps from rest in
+        turns (`ms_turns`, `FirstWalk`).  Returns (the launches of the demo's run, its host set-up seconds
         and their split)."""
         torch.cuda.empty_cache()
         cc.reset_launches()
@@ -4971,6 +4982,34 @@ def main() -> None:
               + f" (captured - eager reserved "
               f"{(peaks['captured'][1] - peaks['eager'][1]) / 1e9:.4f} GB; "
               f"the model holds {held / 1e9:.4f} GB)", flush=True)
+        if not f32 and cc.lean_runs(op_, kst.is_pair, BF16):
+            xs_ = [torch.randn(model.mesh.grid_shape, dtype=torch.float32,
+                               device=dev, generator=torch.Generator(
+                                   device=dev).manual_seed(23 + i)).to(BF16)
+                   for i in range(2 if kst.is_pair else 1)]
+            fns = ({"first": cc.corner_pair_first, "lean": cc.corner_pair}
+                   if kst.is_pair else
+                   {"first": cc.corner_first, "lean": cc.corner})
+            per = {"first": [], "lean": []}
+            for k in ("first", "lean", "lean", "first"):
+                per[k].append(time_ms(lambda f=fns[k]: f(op_, *xs_), 10))
+            st = ms_turns([("lean", model, dt_),
+                           ("first", FirstWalk(model), dt_)], 20)
+            print(f"   {smi}: {label}: the lean corner walk against the "
+                  f"first bf16 corner walk at this size, ms an apply in "
+                  f"turns (first, lean, lean, first) "
+                  + ", ".join(f"{v:.4f}" for v in (
+                      per["first"][0], per["lean"][0], per["lean"][1],
+                      per["first"][1]))
+                  + f" (first / lean {min(per['first']) / min(per['lean']):.4f}"
+                  f"); ms a step of 20 captured steps in turns: lean "
+                  f"{st['lean']:.4f}, first {st['first']:.4f} "
+                  f"({st['first'] / st['lean']:.4f}x)", flush=True)
+            del xs_
+            torch.cuda.empty_cache()
+        elif not f32:
+            print(f"   {label}: the first bf16 corner walk runs this form "
+                  "(cuda_corner.LEAN_CORNER_BF16)", flush=True)
         tol = F32_TOL if f32 else BF16_TOL
         pst = CornerStiffness(kst.cell_op, "mm")
         x = torch.randn(model.mesh.grid_shape, dtype=torch.float32,
@@ -5157,7 +5196,8 @@ def main() -> None:
             in cc.LEAN_CORNER_BF16 else f"fustpu_torch/csrc/{src}", tpu)
            for k, g, src, tpu in CORNER_FORMS},
         **{f"{k}_first_bf16": (f"fustpu_torch/csrc/{src}", tpu)
-           for k, _, src, tpu in CORNER_FORMS},
+           for k, g, src, tpu in CORNER_FORMS
+           if (4, k.endswith("_pair"), g) in cc.LEAN_CORNER_BF16},
         "indexed_classes": ("fustpu_torch/csrc/indexed.cu",
                             "fustpu/ops/pallas_gather.py:1417"),
         "indexed_classes_pair": ("fustpu_torch/csrc/indexed.cu",

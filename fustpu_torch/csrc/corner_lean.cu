@@ -27,7 +27,7 @@ using fustpu::pencil::BoxRows;
 
 // The degrees at which a box apply runs the lean corner walk, single field
 // and pair.
-using BoxSingle = lc::Degrees<3, 4, 7, 8>;
+using BoxSingle = lc::Degrees<7>;
 using BoxPair = lc::Degrees<3, 4, 6, 7, 8>;
 
 template <bool PR>

@@ -77,32 +77,6 @@
 
 #include "pencil_lean.cuh"
 
-// The plan of each form at P = 4 (what the walk takes there of the
-// candidates above), by form f = 2 g + pair, g the geometry (0 box pencils,
-// 1 hex8 stacks, 2 hex27 stacks): bit f of FUSTPU_LEAN_CORNER_DREG (D's
-// rows in registers), of FUSTPU_LEAN_CORNER_WIDE (the widened channels),
-// of FUSTPU_LEAN_CORNER_RCP (the approximate reciprocal where the first
-// design divides); hex digit f of FUSTPU_LEAN_CORNER_MINB is the blocks an
-// SM of the launch bounds at N <= 5.  Chosen by measurement in turns at P
-// = 4 (tools/corner_split; PERF.md, PR 22): D's rows in registers cost the
-// 96-register single forms spills, and the widened channels cost the hex8
-// pair and hex27 forms theirs; the reciprocal paid on the hex27 pair only
-// (147 of 6,661,697 values differ from the first design there).  At the
-// other degrees every form takes D's rows in registers, the widened
-// channels and the first design's division, the plan that was timed there.
-#ifndef FUSTPU_LEAN_CORNER_DREG
-#define FUSTPU_LEAN_CORNER_DREG 0x3a
-#endif
-#ifndef FUSTPU_LEAN_CORNER_WIDE
-#define FUSTPU_LEAN_CORNER_WIDE 0x27
-#endif
-#ifndef FUSTPU_LEAN_CORNER_RCP
-#define FUSTPU_LEAN_CORNER_RCP 0x20
-#endif
-#ifndef FUSTPU_LEAN_CORNER_MINB
-#define FUSTPU_LEAN_CORNER_MINB 0x222525
-#endif
-
 namespace fustpu {
 namespace pencil {
 namespace lean_corner {
@@ -119,26 +93,42 @@ struct Consts {
   float w[N];
 };
 
-// A form's choices (the FUSTPU_LEAN_CORNER_* masks at P = 4) and launch
-// bounds.
+// The plan of each form at P = 4 (what the walk takes there of the
+// candidates above), by form f = 2 g + pair, g the geometry (0 box pencils,
+// 1 hex8 stacks, 2 hex27 stacks): D's rows in registers, the widened
+// channels, the approximate reciprocal where the first design divides, and
+// the blocks an SM of the launch bounds.  Chosen by measurement in turns
+// at P = 4 (tools/corner_split; PERF.md, PR 22): D's rows in registers
+// cost the 96-register single forms spills, and the widened channels cost
+// the hex8 pair and hex27 forms theirs; the reciprocal paid on the hex27
+// pair only (147 of 6,661,697 values differ from the first design there).
+// At the other degrees every form takes D's rows in registers, the widened
+// channels and the first design's division, the plan that was timed there.
+struct PlanP4 {
+  // form f:                        box    pair   hex8   pair   hex27  pair
+  static constexpr bool DREG[6] = {false, true,  false, true,  true,  true};
+  static constexpr bool WIDE[6] = {true,  true,  true,  false, false, true};
+  static constexpr bool RCP[6] = {false, false, false, false, false, true};
+  static constexpr int MINB[6] = {5, 2, 5, 2, 2, 2};
+};
+
+// A form's choices (PlanP4 at P = 4) and launch bounds.
 // MAXT is the first design's (corner_walk.cuh CAP: 128 threads for the
 // single-field trilinear walk at N <= 5, else 256), so that the walk runs
-// the first design's cells a chunk; MINB the form's digit at N <= 5, 1
-// (no cap below the hardware's 255 registers) above.  RCP: the first design's division
-// (approximate on box pencils and on capped stacks), or the approximate
-// reciprocal where the form's RCP bit is set (at P = 4).
+// the first design's cells a chunk; MINB the form's PlanP4 entry at N <= 5,
+// 1 (no cap below the hardware's 255 registers) above.  RCP: the first
+// design's division (approximate on box pencils and on capped stacks), or
+// the approximate reciprocal where PlanP4 takes it (at P = 4).
 template <int N, int GD, bool BOX, bool PAIR>
 struct Plan {
   static constexpr int F = 2 * (BOX ? 0 : GD) + (PAIR ? 1 : 0);
   static constexpr bool P4 = N == 5;
-  static constexpr bool DREG = !P4 || ((FUSTPU_LEAN_CORNER_DREG >> F) & 1);
-  static constexpr bool WIDE = !P4 || ((FUSTPU_LEAN_CORNER_WIDE >> F) & 1);
+  static constexpr bool DREG = !P4 || PlanP4::DREG[F];
+  static constexpr bool WIDE = !P4 || PlanP4::WIDE[F];
   static constexpr bool FIRST_CAP = GD == 1 && !PAIR && N <= 5;
-  static constexpr bool RCP =
-      BOX || FIRST_CAP || (P4 && ((FUSTPU_LEAN_CORNER_RCP >> F) & 1));
+  static constexpr bool RCP = BOX || FIRST_CAP || (P4 && PlanP4::RCP[F]);
   static constexpr int MAXT = FIRST_CAP ? 128 : 256;
-  static constexpr int DIGIT = (FUSTPU_LEAN_CORNER_MINB >> (4 * F)) & 0xf;
-  static constexpr int MINB = N <= 5 && DIGIT > 0 ? DIGIT : 1;
+  static constexpr int MINB = N <= 5 ? PlanP4::MINB[F] : 1;
 };
 
 // A cell's widened channels: block 3 q + p (the channels of J[p][q], BLOCK

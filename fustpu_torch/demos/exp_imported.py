@@ -22,7 +22,7 @@ correctness run only).
 
     python -m fustpu_torch.demos.exp_imported [--elements 64] [--degree 4]
         [--p6-elements 48] [--sweep] [--corner [--hex27]
-        [--bf16 [--degrees 2 3 ...]]]
+        [--bf16 [--degrees 2 3 ...] [--rounds 1]]]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its turns, the rate over the apply's least bytes (G, each input
@@ -93,6 +93,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--degrees", type=int, nargs="+",
                    help="with --corner --bf16: the comparison at each of "
                         "these degrees on stacks of the flagship's grid")
+    p.add_argument("--rounds", type=int, default=1,
+                   help="with --corner --bf16: rounds of turns")
     return p
 
 
@@ -363,17 +365,21 @@ def _corner_fns(op: cc.CornerCellStiffness, pair: bool) -> dict:
 
 
 def compare_corner_bf16(op: cc.CornerCellStiffness, xs: tuple, ndofs: int,
-                        label: str, chain: int = 20, reps: int = 5):
+                        label: str, chain: int = 20, reps: int = 5,
+                        rounds: int = 1):
     """The first bfloat16 corner walk against the lean corner walk (the
     main path where ``cuda_corner.lean_runs``) on the bfloat16 corner
-    operator `op` and field(s) `xs` (two: the pair form), in turns (first,
-    lean, lean, first): ms of each turn and its share of the bound (the
+    operator `op` and field(s) `xs` (two: the pair form), in `rounds`
+    rounds of turns (first, lean, lean, first): ms of each turn and its
+    share of the bound (the
     larger of the least bytes at 3.35 TB/s and the operations at 67
     TFLOP/s, ``cuda_corner.apply_cost``), the values that differ between
     the two (each on its own schedule, which is the first design's), both
-    against the plain version, each design's blocks an SM.  None where the
-    form keeps the first design (nothing to compare).  Returns {"first":
-    [ms], "lean": [ms], "differ", "rel_l2", "bound_ms"}."""
+    against the plain version, each design's blocks an SM, and whether the
+    lean walk's slowest turn beats the first design's fastest (a gain
+    larger than the turns' spread).  None where the form keeps the first
+    design (nothing to compare).  Returns {"first": [ms], "lean": [ms],
+    "differ", "rel_l2", "bound_ms"}."""
     pair, x = len(xs) == 2, xs[0]
     form = "pair" if pair else "single"
     if not cc.lean_runs(op, pair, x.dtype):
@@ -384,7 +390,8 @@ def compare_corner_bf16(op: cc.CornerCellStiffness, xs: tuple, ndofs: int,
     plain = (cc.corner_pair_plain if pair else cc.corner_plain)(op, *xs)
     ys = {k: f(op, *xs) for k, f in fns.items()}
     times = _turns({k: lambda f=f: f(op, *xs) for k, f in fns.items()},
-                   ("first", "lean", "lean", "first"), x, chain, reps)
+                   ("first", "lean", "lean", "first") * rounds, x, chain,
+                   reps)
     index = op.rows.numel() * 4 if op.rows is not None else 0
     nbytes, flops = cc.apply_cost(op, ndofs, len(xs), index)
     bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S) * 1e3
@@ -408,14 +415,19 @@ def compare_corner_bf16(op: cc.CornerCellStiffness, xs: tuple, ndofs: int,
     err = rel_l2(ys["lean"], ys["first"])
     print(f"{label} {form:6s} P={op.P} bf16 lean vs first: {differ} of "
           f"{x.numel() if op.box else ndofs} values differ, rel-l2 "
-          f"{err:.3e}" + (f"; first / lean "
-                          f"{min(ms['first']) / min(ms['lean']):.4f}"
-                          if cuda else ""), flush=True)
+          f"{err:.3e}" + (
+              f"; first / lean {min(ms['first']) / min(ms['lean']):.4f}; "
+              f"turns first {min(ms['first']):.4f}-{max(ms['first']):.4f}, "
+              f"lean {min(ms['lean']):.4f}-{max(ms['lean']):.4f}: lean "
+              + ("faster in every turn" if max(ms["lean"]) < min(ms["first"])
+                 else "not faster in every turn")
+              if cuda else ""), flush=True)
     return dict(**ms, differ=differ, rel_l2=err, bound_ms=bound)
 
 
 def corner_forms_bf16(disc: Discretization, dev, label: str,
-                      chain: int = 20, reps: int = 5) -> dict:
+                      chain: int = 20, reps: int = 5,
+                      rounds: int = 1) -> dict:
     """`compare_corner_bf16` on the bfloat16 corner operator of `disc`'s
     mesh, single (a per-cell coefficient) and pair, with seeded fields."""
     mesh = disc.mesh
@@ -427,13 +439,14 @@ def corner_forms_bf16(disc: Discretization, dev, label: str,
                           device=dev).to(torch.bfloat16) for _ in range(2)]
     return {form: compare_corner_bf16(
         disc.stiffness_op(torch.bfloat16, dev, corner=True, **kw),
-        tuple(xs[:n]), mesh.ndofs, label, chain, reps)
+        tuple(xs[:n]), mesh.ndofs, label, chain, reps, rounds)
         for form, kw, n in (("single", {"coeff": c1}, 1),
                             ("pair", {"pair": (c1, c2)}, 2))}
 
 
 def corner_degrees_bf16(degrees, dev, geometries=("box", "hex8", "hex27"),
-                        chain: int = 20, reps: int = 3) -> dict:
+                        chain: int = 20, reps: int = 3,
+                        rounds: int = 1) -> dict:
     """`corner_forms_bf16` at each degree P of `degrees` on the flagship's
     grid, (256 / P, 160 / P, 160 / P) cells rounded (64 x 40 x 40 at
     P = 4): a perturbed box on box pencils, and the box read as a general
@@ -461,7 +474,7 @@ def corner_degrees_bf16(degrees, dev, geometries=("box", "hex8", "hex27"),
                   flush=True)
             out[geo, P] = corner_forms_bf16(Discretization(mesh), dev,
                                             f"#{'3' if geo == 'box' else '6c'}"
-                                            f" {geo}", chain, reps)
+                                            f" {geo}", chain, reps, rounds)
     return out
 
 
@@ -539,7 +552,7 @@ def main(argv=None) -> dict:
         if dev.type == "cuda":
             out = corner_degrees_bf16(
                 args.degrees, dev, ("hex8", "hex27") if args.hex27
-                else ("hex8",), args.chain, args.reps)
+                else ("hex8",), args.chain, args.reps, args.rounds)
         print(f"   timed by {clock(dev)}")
         return out
     imported = disc("unstructured", args.elements, args.degree)
@@ -548,7 +561,8 @@ def main(argv=None) -> dict:
         if args.hex27:
             discs["#6c hex27"] = Discretization(
                 shapes.hex27_lattice(imported.mesh))
-        out = {label: corner_forms_bf16(d, dev, label, args.chain, args.reps)
+        out = {label: corner_forms_bf16(d, dev, label, args.chain, args.reps,
+                                        args.rounds)
                for label, d in discs.items()}
         print(f"   timed by {clock(dev)}")
         return out

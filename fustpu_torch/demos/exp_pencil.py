@@ -5,7 +5,7 @@ fields: parity-class, pencil, pencil, parity-class.  Runs on the card
 unless --device cpu is given (the plain versions, a correctness run only).
 
     python -m fustpu_torch.demos.exp_pencil [--nc 64 40 40] [--degree 4]
-        [--corner] [--bf16 [--degrees 2 3 ...]] [--sweep]
+        [--corner] [--bf16 [--degrees 2 3 ...] [--rounds 1]] [--sweep]
 
 For the single-field and the pair form it prints each kernel's ms per
 apply in its two turns, the rate over the apply's least bytes (G, each
@@ -75,6 +75,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--degrees", type=int, nargs="+",
                    help="with --bf16: the comparison at each of these "
                         "degrees on a box of the flagship's grid")
+    p.add_argument("--rounds", type=int, default=1,
+                   help="with --corner --bf16: rounds of turns")
     return p
 
 
@@ -293,7 +295,8 @@ def main(argv=None) -> dict:
             out = {"mesh": mesh}
             if dev.type == "cuda":
                 out["degrees"] = exp_imported.corner_degrees_bf16(
-                    args.degrees, dev, ("box",), args.chain, args.reps)
+                    args.degrees, dev, ("box",), args.chain, args.reps,
+                    args.rounds)
             print(f"   timed by {clock(dev)}")
             return out
         print(f"mesh {tuple(mesh.nc)} cells, P={args.degree}, {mesh.ndofs} "
@@ -301,7 +304,8 @@ def main(argv=None) -> dict:
         mesh = build_box_mesh(tuple(args.nc), args.degree, perturb=0.1,
                               seed=0)
         out = exp_imported.corner_forms_bf16(Discretization(mesh), dev, "#3",
-                                             args.chain, args.reps)
+                                             args.chain, args.reps,
+                                             args.rounds)
         print(f"   timed by {clock(dev)}")
         return {"mesh": mesh, **out}
     if args.corner:

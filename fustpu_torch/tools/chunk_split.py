@@ -45,7 +45,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -59,7 +58,7 @@ from fustpu_torch.mesh.unstructured import from_box
 from fustpu_torch.models.discretization import Discretization
 from fustpu_torch.ops import cuda_indexed as ci
 from fustpu_torch.ops import cuda_stiffness as cs
-from fustpu_torch.tools import kernel_resources
+from fustpu_torch.tools import copies
 
 BF16 = torch.bfloat16
 
@@ -80,21 +79,14 @@ FIRST = {
 }
 
 
-def _at_degree(text: str, P: int, macros) -> str:
-    """`text` with each degree macro of `macros` listing P alone."""
-    for m in macros:
-        text, k = re.subn(rf"#define {m}\(M\)(?:[^\n\\]|\\\n)*\n",
-                          f"#define {m}(M) M({P})\n", text)
-        assert k == 1, m
-    return text
-
-
 def variants(P: int) -> dict:
     """{name: (source file, edited text)} of every copy at degree P."""
-    first = _at_degree((_build.CSRC / "indexed_chunk.cu").read_text(), P,
-                       ["FUSTPU_DEGREES"])
-    lean = _at_degree((_build.CSRC / "indexed_lean.cu").read_text(), P,
-                      ["FUSTPU_LEAN_CHUNK_SINGLE", "FUSTPU_LEAN_CHUNK_PAIR"])
+    first = copies.at_degree(
+        (_build.CSRC / "indexed_chunk.cu").read_text(), P,
+        ["FUSTPU_DEGREES"])
+    lean = copies.at_degree(
+        (_build.CSRC / "indexed_lean.cu").read_text(), P,
+        ["FUSTPU_LEAN_CHUNK_SINGLE", "FUSTPU_LEAN_CHUNK_PAIR"])
     out = {}
     for name, edits in FIRST.items():
         text = first
@@ -129,29 +121,6 @@ def variants(P: int) -> dict:
     return out
 
 
-def build(copies: dict, tmp: Path) -> dict:
-    """Each copy built into a library of its own, all nvcc started
-    together: {name: (library, ptxas rows)}."""
-    jobs = {}
-    for i, (name, (src, text)) in enumerate(copies.items()):
-        d = tmp / f"v{i}"
-        shutil.copytree(_build.CSRC, d)
-        (d / src).write_text(text)
-        lib = d / "v.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-               "-shared", "-o", str(lib), str(d / src)]
-        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    out = {}
-    for name, (lib, job) in jobs.items():
-        text, _ = job.communicate()
-        if job.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{text}")
-        out[name] = (ctypes.CDLL(str(lib)), kernel_resources.parse(text))
-    return out
-
-
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     chunk = [p, p, p, p, p, i, i, i, i, i, i, p]
@@ -167,18 +136,6 @@ def _declare(lib) -> None:
             getattr(lib, name).restype = i
 
 
-def ms_per_call(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(True), torch.cuda.Event(True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def run(P: int, nc, turns: int = 2) -> dict:
     """Builds and times every copy, single and pair; returns {(form,
     name): {"ms": [...], "registers", "spills", "blocks_per_sm"}}."""
@@ -191,7 +148,8 @@ def run(P: int, nc, turns: int = 2) -> dict:
     xs = [torch.as_tensor(rng.standard_normal(mesh.ndofs), device=dev).to(
         BF16) for _ in range(2)]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(variants(P), Path(tmp))
+        libs = copies.build({n: (s, {s: text}, []) for n, (s, text)
+                             in variants(P).items()}, Path(tmp))
         libs["lean all-y"] = libs["lean"]
         out = {}
         for pair in (False, True):
@@ -265,7 +223,7 @@ def run(P: int, nc, turns: int = 2) -> dict:
             names = list(calls)
             for _ in range(turns):
                 for n in names + names[::-1]:
-                    rows[n]["ms"].append(ms_per_call(calls[n]))
+                    rows[n]["ms"].append(copies.ms_per_call(calls[n]))
             print(f"P={P} {form}: the first design's schedule {sched.cpb} "
                   f"cells a chunk, {len(sched.classes)} classes of "
                   f"{len(sched.chunks)} chunks, maxu {sched.maxu}, "

@@ -27,8 +27,8 @@ per-cell coefficient) and pair, each on the first design's schedule
     first no_xy      the next chunk's x and y loads from one address (L1
                      hits) in place of its nodes'.
 The lean walk's copies (``csrc/corner_lean*.cu``), "lean" and any of
-these changes joined by "+" (``corner_lean.cuh``'s FUSTPU_LEAN_CORNER_*
-plan of every form at P = 4):
+these changes joined by "+", each a row of ``corner_lean.cuh``'s PlanP4
+(the plan of every form at P = 4) set for every form:
     lean             unchanged (the main path's, where LEAN_CORNER_BF16
                      routes a form);
     no_dreg          D's rows and columns from a shared copy, not registers;
@@ -36,8 +36,9 @@ plan of every form at P = 4):
     no_wide          the channels folded from the bf16 stage, not widened;
     wide             the channels widened;
     rcp              the approximate reciprocal on every form;
-    minb=M           the launch bounds' blocks an SM set to the hex digits M
-                     (e.g. "lean no_dreg+minb=111414").
+    minb=M           the launch bounds' blocks an SM set to the digits M, one
+                     a form in PlanP4's order: box, pair, hex8, pair, hex27,
+                     pair (e.g. "lean no_dreg+minb=414111").
 Each copy prints its ptxas registers and spills, ms per apply (the least
 of `--turns` rounds of turns), its blocks an SM, and how many values
 differ from the package's first design's output on the same schedule.
@@ -49,7 +50,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -60,8 +60,7 @@ import torch
 from fustpu_torch import _build
 from fustpu_torch.ops import cuda_corner as cc
 from fustpu_torch.ops import cuda_stiffness as cs
-from fustpu_torch.tools import kernel_resources
-from fustpu_torch.tools.chunk_split import ms_per_call
+from fustpu_torch.tools import copies
 
 BF16 = torch.bfloat16
 
@@ -95,31 +94,28 @@ _XY = [("stiffness_pencil.cuh", r"xr\[e\] = x1\[g\];", "xr[e] = x1[0];"),
        ("stiffness_pencil.cuh", r"yr\[e\] = y\[g\];", "yr[e] = y[0];")]
 FIRST = {"first": [], "first no_fold": _FOLD, "first unit": _UNIT,
          "first no_D": _D, "first no_xy": _XY}
-LEAN = {"no_dreg": "-DFUSTPU_LEAN_CORNER_DREG=0",
-        "dreg": "-DFUSTPU_LEAN_CORNER_DREG=0x3f",
-        "no_wide": "-DFUSTPU_LEAN_CORNER_WIDE=0",
-        "wide": "-DFUSTPU_LEAN_CORNER_WIDE=0x3f",
-        "rcp": "-DFUSTPU_LEAN_CORNER_RCP=0x3f",
-        "minb": "-DFUSTPU_LEAN_CORNER_MINB=0x{}"}
+# the changes of a lean copy: the PlanP4 row each sets
+ROWS = {"dreg": "DREG", "wide": "WIDE", "rcp": "RCP", "minb": "MINB"}
 
 
-def lean_flags(name: str) -> list[str]:
-    """The nvcc flags of the lean copy `name` ("lean", or "lean " and
-    changes joined by "+")."""
+def lean_plan(name: str) -> str:
+    """``corner_lean.cuh`` of the lean copy `name` ("lean", or "lean " and
+    changes joined by "+"), with PlanP4's rows set as they say."""
+    text = (_build.CSRC / "corner_lean.cuh").read_text()
     changes = name.removeprefix("lean").strip()
-    out = []
     for c in filter(None, changes.split("+")):
         key, _, value = c.partition("=")
-        out.append(LEAN[key].format(value))
-    return out
-
-
-def _at_degree(text: str, P: int) -> str:
-    """A source with its degree lists (FUSTPU_DEGREES, the lean walk's
-    Degrees<...>) holding P alone."""
-    text = re.sub(r"#define FUSTPU_DEGREES\(M\)(?:[^\n\\]|\\\n)*\n",
-                  f"#define FUSTPU_DEGREES(M) M({P})\n", text)
-    return re.sub(r"Degrees<[\d, ]+>", f"Degrees<{P}>", text)
+        row = ROWS[key.removeprefix("no_")]
+        values = ([int(d) for d in value] if row == "MINB"
+                  else [str(not key.startswith("no_")).lower()] * 6)
+        if len(values) != 6:
+            raise ValueError(f"corner_split: {c!r} sets {len(values)} forms")
+        kind = "int" if row == "MINB" else "bool"
+        text, k = re.subn(
+            rf"(static constexpr {kind} {row}\[6\] = )\{{[^}}]*\}};",
+            rf"\g<1>{{{', '.join(map(str, values))}}};", text)
+        assert k == 1, row
+    return text
 
 
 def variants(P: int, forms, names) -> dict:
@@ -137,44 +133,18 @@ def variants(P: int, forms, names) -> dict:
                 for f, a, b in FIRST[name]:
                     texts[f], k = re.subn(a, b, texts[f], flags=re.S)
                     assert k >= 1, (name, a)
-                texts[first] = _at_degree((csrc / first).read_text(), P)
+                texts[first] = copies.at_degree((csrc / first).read_text(),
+                                                P)
                 # the degree list of the walk's launchers
-                texts["stiffness_pencil.cuh"] = _at_degree(
-                    texts["stiffness_pencil.cuh"], P)
+                texts["stiffness_pencil.cuh"] = copies.at_degree(
+                    texts["stiffness_pencil.cuh"], P, ["FUSTPU_DEGREES"])
                 out[form, name] = (first, texts, [])
             elif name.startswith("lean"):
-                texts = {lean: _at_degree((csrc / lean).read_text(), P)}
-                out[form, name] = (lean, texts, lean_flags(name))
+                texts = {lean: copies.at_degree((csrc / lean).read_text(), P),
+                         "corner_lean.cuh": lean_plan(name)}
+                out[form, name] = (lean, texts, [])
             else:
                 raise ValueError(f"corner_split: no copy {name!r}")
-    return out
-
-
-def build(copies: dict, tmp: Path) -> dict:
-    """Each copy built into a library of its own, all nvcc started
-    together: {key: (library, ptxas rows)}."""
-    jobs = {}
-    for i, (key, (src, texts, flags)) in enumerate(copies.items()):
-        d = tmp / f"v{i}"
-        shutil.copytree(_build.CSRC, d)
-        for f, text in texts.items():
-            (d / f).write_text(text)
-        lib = d / "v.so"
-        # -fno-gnu-unique: each copy keeps its own template statics (the
-        # kernels' `allow_smem` flags), which the loader would otherwise
-        # unify across the copies loaded into this process
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-Xcompiler",
-               "-fno-gnu-unique", "-Xptxas", "-v", "-shared", "-o", str(lib),
-               str(d / src)]
-        jobs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True))
-    out = {}
-    for key, (lib, job) in jobs.items():
-        text, _ = job.communicate()
-        if job.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {key}:\n{text}")
-        out[key] = (ctypes.CDLL(str(lib)), kernel_resources.parse(text))
     return out
 
 
@@ -243,7 +213,7 @@ def run(P: int, nc, elements: int, forms, names, turns: int = 2) -> dict:
     rng = np.random.default_rng(0)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(variants(P, forms, names), Path(tmp))
+        libs = copies.build(variants(P, forms, names), Path(tmp))
         for form, disc in discs.items():
             mesh = disc.mesh
             shape = mesh.nc if form == "box" else (mesh.num_cells,)
@@ -320,7 +290,7 @@ def run(P: int, nc, elements: int, forms, names, turns: int = 2) -> dict:
                 order = list(calls)
                 for _ in range(turns):
                     for n in order + order[::-1]:
-                        rows[n]["ms"].append(ms_per_call(calls[n]))
+                        rows[n]["ms"].append(copies.ms_per_call(calls[n]))
                 label = f"{form} {'pair' if pair else 'single'}"
                 segs = (f", {sched.segments} segments a stack"
                         if hasattr(sched, "segments") else "")

@@ -186,8 +186,8 @@ def test_lean_corner_schedule_refuses_what_does_not_fit():
 def _degrees(source: str, name: str) -> set:
     """The degrees of the Degrees<...> type `name` in a CUDA source."""
     text = (_build.CSRC / source).read_text()
-    got = re.search(rf"using {name} =\s*[\w:]*Degrees<([\d, ]+)>", text)
-    return {int(d) for d in got.group(1).split(",")}
+    got = re.search(rf"using {name} =\s*[\w:]*Degrees<([\d, ]*)>", text)
+    return {int(d) for d in got.group(1).split(",") if d.strip()}
 
 
 @pytest.mark.parametrize("geo,source,names", [
@@ -202,6 +202,44 @@ def test_lean_corner_instances_match_the_routing(geo, source, names):
             P for P in range(2, 11) if (P, pair, geo) in cc.LEAN_CORNER_BF16}
     assert all(2 <= P <= 10 and g in cc.GEOMETRIES
                for P, _, g in cc.LEAN_CORNER_BF16)
+
+
+@pytest.mark.parametrize("P", [3, 4])
+def test_split_tools_copy_the_sources_at_one_degree(P):
+    """``tools/corner_split`` and ``tools/chunk_split`` copy the sources
+    with every degree list holding P alone, and a lean corner copy with
+    PlanP4's rows set as its name says (the table the package builds
+    unchanged in the plain "lean")."""
+    from fustpu_torch.tools import chunk_split, copies, corner_split
+
+    names = [*corner_split.FIRST, "lean", "lean no_dreg+wide+rcp+minb=414111"]
+    got = corner_split.variants(P, list(corner_split.SOURCES), names)
+    assert len(got) == len(corner_split.SOURCES) * len(names)
+    plan = (_build.CSRC / "corner_lean.cuh").read_text()
+    for (form, name), (src, texts, flags) in got.items():
+        assert src in corner_split.SOURCES[form] and flags == []
+        for text in texts.values():
+            assert set(re.findall(r"Degrees<([\d, ]*)>", text)) <= {str(P)}
+            assert set(re.findall(r"#define FUSTPU_DEGREES\(M\) (.*)",
+                                  text)) <= {f"M({P})"}
+        if name == "lean":
+            assert texts["corner_lean.cuh"] == plan
+        elif name.startswith("lean"):
+            rows = dict(re.findall(
+                r"static constexpr \w+ (\w+)\[6\] = \{([^}]*)\};",
+                texts["corner_lean.cuh"]))
+            assert rows == {"DREG": ", ".join(["false"] * 6),
+                            "WIDE": ", ".join(["true"] * 6),
+                            "RCP": ", ".join(["true"] * 6),
+                            "MINB": "4, 1, 4, 1, 1, 1"}
+    with pytest.raises(ValueError, match="sets 2 forms"):
+        corner_split.lean_plan("lean minb=41")
+    for name, (src, text) in chunk_split.variants(P).items():
+        assert re.findall(r"#define FUSTPU_\w+\(M\) (.*)", text) and set(
+            re.findall(r"#define FUSTPU_\w+\(M\) (.*)", text)) == {
+                f"M({P})"}, name
+    with pytest.raises(AssertionError):
+        copies.at_degree("no list here", P, ["FUSTPU_DEGREES"])
 
 
 def _ops(geo: str, P: int, dtype):
