@@ -53,10 +53,9 @@
 // cell_apply), term by term and in order, on the same float values, so a
 // cell's contribution is bitwise the first design's; on the same schedule
 // (the host gives it the first design's cells a chunk and segments) the
-// adds into y come in the same order, so y is bitwise the first design's,
-// except where RCP takes the approximate reciprocal on a form whose first
-// design divides.  Two applies are bitwise equal: the order is fixed by the
-// schedule, without atomics.
+// adds into y come in the same order, so y is bitwise the first design's.
+// Two applies are bitwise equal: the order is fixed by the schedule,
+// without atomics.
 //
 // Shared memory per block (the host computes the same, cuda_corner.py
 // `lean_smem`): the head of stiffness_pencil.cuh (the STAGES mbarriers,
@@ -96,19 +95,17 @@ struct Consts {
 // The plan of each form at P = 4 (what the walk takes there of the
 // candidates above), by form f = 2 g + pair, g the geometry (0 box pencils,
 // 1 hex8 stacks, 2 hex27 stacks): D's rows in registers, the widened
-// channels, the approximate reciprocal where the first design divides, and
-// the blocks an SM of the launch bounds.  Chosen by measurement in turns
-// at P = 4 (tools/corner_split; PERF.md, PR 22): D's rows in registers
-// cost the 96-register single forms spills, and the widened channels cost
-// the hex8 pair and hex27 forms theirs; the reciprocal paid on the hex27
-// pair only (147 of 6,661,697 values differ from the first design there).
-// At the other degrees every form takes D's rows in registers, the widened
-// channels and the first design's division, the plan that was timed there.
+// channels, and the blocks an SM of the launch bounds.  Chosen by
+// measurement in turns at P = 4 (tools/corner_split; PERF.md, PR 22): D's
+// rows in registers cost the 96-register single forms and the hex27 pair
+// spills, and the widened channels cost the hex8 pair and the hex27 single
+// theirs.  At the other degrees every form takes D's rows in registers and
+// the widened channels, the plan that was timed there.  Which forms run
+// the walk at all: ops/cuda_corner.py LEAN_CORNER_BF16.
 struct PlanP4 {
   // form f:                        box    pair   hex8   pair   hex27  pair
-  static constexpr bool DREG[6] = {false, true,  false, true,  true,  true};
+  static constexpr bool DREG[6] = {false, true,  false, true,  true,  false};
   static constexpr bool WIDE[6] = {true,  true,  true,  false, false, true};
-  static constexpr bool RCP[6] = {false, false, false, false, false, true};
   static constexpr int MINB[6] = {5, 2, 5, 2, 2, 2};
 };
 
@@ -117,8 +114,7 @@ struct PlanP4 {
 // single-field trilinear walk at N <= 5, else 256), so that the walk runs
 // the first design's cells a chunk; MINB the form's PlanP4 entry at N <= 5,
 // 1 (no cap below the hardware's 255 registers) above.  RCP: the first
-// design's division (approximate on box pencils and on capped stacks), or
-// the approximate reciprocal where PlanP4 takes it (at P = 4).
+// design's division (approximate on box pencils and on capped stacks).
 template <int N, int GD, bool BOX, bool PAIR>
 struct Plan {
   static constexpr int F = 2 * (BOX ? 0 : GD) + (PAIR ? 1 : 0);
@@ -126,7 +122,7 @@ struct Plan {
   static constexpr bool DREG = !P4 || PlanP4::DREG[F];
   static constexpr bool WIDE = !P4 || PlanP4::WIDE[F];
   static constexpr bool FIRST_CAP = GD == 1 && !PAIR && N <= 5;
-  static constexpr bool RCP = BOX || FIRST_CAP || (P4 && PlanP4::RCP[F]);
+  static constexpr bool RCP = BOX || FIRST_CAP;
   static constexpr int MAXT = FIRST_CAP ? 128 : 256;
   static constexpr int MINB = N <= 5 ? PlanP4::MINB[F] : 1;
 };

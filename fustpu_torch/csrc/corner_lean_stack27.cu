@@ -14,7 +14,7 @@
 #include "corner_lean.cuh"
 
 using Hex27Single = fustpu::pencil::lean_corner::Degrees<4, 6, 7>;
-using Hex27Pair = fustpu::pencil::lean_corner::Degrees<4, 5, 7, 8>;
+using Hex27Pair = fustpu::pencil::lean_corner::Degrees<5, 7, 8>;
 
 FUSTPU_LEAN_CORNER_STACK(extruded_corner_hex27_stack, 2, Hex27Single,
                          Hex27Pair)

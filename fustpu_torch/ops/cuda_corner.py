@@ -301,22 +301,23 @@ GEOMETRIES = ("box", "hex8", "hex27")
 
 # The (degree P, pair?, geometry) at which a bfloat16 apply runs the lean
 # corner walk: where it measured at least 3% faster than the first
-# bfloat16 corner walk in turns on an H100 (PERF.md, PR 22), more than the
-# largest spread between two turns of one design there (2.9%): at P = 4 on
-# the flagship box and the imported bowl (``tools/corner_split``, each
-# form's plan), at the other degrees on the flagship's grid
-# (``demos/exp_pencil --corner --bf16 --degrees``, ``demos/exp_imported
-# --corner --bf16 --hex27 --degrees``).  The others keep the first design:
+# bfloat16 corner walk in turns on an H100, more than the largest spread
+# between two turns of one design there (2.9%), and then won every turn of
+# three rounds on the flagship's grid (PERF.md, PR 22; at P = 4 also on the
+# imported bowl): ``tools/corner_split`` at P = 4, ``demos/exp_pencil
+# --corner --bf16 --degrees`` and ``demos/exp_imported --corner --bf16
+# --hex27 --degrees`` at each degree.  The others keep the first design:
 # the hex8 single form everywhere (its best gain 2.7%), #3 single but at
-# P = 7 (at P = 4 1.2%), P = 9 and 10 (untimed).  ``csrc/corner_lean.cu``,
-# ``corner_lean_stack.cu`` and ``corner_lean_stack27.cu`` instantiate the
-# lean walk at these only.
+# P = 7 (at P = 4 1.2%), the hex27 pair at P = 4 (2.6% faster on the
+# imported bowl, 6.3% slower on the flagship's grid), P = 9 and 10
+# (untimed).  ``csrc/corner_lean.cu``, ``corner_lean_stack.cu`` and
+# ``corner_lean_stack27.cu`` instantiate the lean walk at these only.
 LEAN_CORNER_BF16 = frozenset(
     [(7, False, "box")]
     + [(P, True, "box") for P in (3, 4, 6, 7, 8)]
     + [(P, True, "hex8") for P in (4, 7)]
     + [(P, False, "hex27") for P in (4, 6, 7)]
-    + [(P, True, "hex27") for P in (4, 5, 7, 8)])
+    + [(P, True, "hex27") for P in (5, 7, 8)])
 
 
 def geometry(op: CornerCellStiffness) -> str:

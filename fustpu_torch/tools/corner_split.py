@@ -35,7 +35,6 @@ these changes joined by "+", each a row of ``corner_lean.cuh``'s PlanP4
     dreg             D's rows and columns in registers;
     no_wide          the channels folded from the bf16 stage, not widened;
     wide             the channels widened;
-    rcp              the approximate reciprocal on every form;
     minb=M           the launch bounds' blocks an SM set to the digits M, one
                      a form in PlanP4's order: box, pair, hex8, pair, hex27,
                      pair (e.g. "lean no_dreg+minb=414111").
@@ -95,7 +94,7 @@ _XY = [("stiffness_pencil.cuh", r"xr\[e\] = x1\[g\];", "xr[e] = x1[0];"),
 FIRST = {"first": [], "first no_fold": _FOLD, "first unit": _UNIT,
          "first no_D": _D, "first no_xy": _XY}
 # the changes of a lean copy: the PlanP4 row each sets
-ROWS = {"dreg": "DREG", "wide": "WIDE", "rcp": "RCP", "minb": "MINB"}
+ROWS = {"dreg": "DREG", "wide": "WIDE", "minb": "MINB"}
 
 
 def lean_plan(name: str) -> str:
@@ -321,8 +320,7 @@ def main(argv=None) -> dict:
     p.add_argument("--forms", nargs="+", default=list(SOURCES),
                    choices=list(SOURCES))
     p.add_argument("--variants", nargs="+",
-                   default=[*FIRST, "lean", "lean no_dreg", "lean no_wide",
-                            "lean rcp"],
+                   default=[*FIRST, "lean", "lean no_dreg", "lean no_wide"],
                    help="names of the copies (see above)")
     p.add_argument("--turns", type=int, default=2)
     args = p.parse_args(argv)

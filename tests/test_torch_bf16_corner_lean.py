@@ -212,7 +212,7 @@ def test_split_tools_copy_the_sources_at_one_degree(P):
     unchanged in the plain "lean")."""
     from fustpu_torch.tools import chunk_split, copies, corner_split
 
-    names = [*corner_split.FIRST, "lean", "lean no_dreg+wide+rcp+minb=414111"]
+    names = [*corner_split.FIRST, "lean", "lean no_dreg+wide+minb=414111"]
     got = corner_split.variants(P, list(corner_split.SOURCES), names)
     assert len(got) == len(corner_split.SOURCES) * len(names)
     plan = (_build.CSRC / "corner_lean.cuh").read_text()
@@ -230,7 +230,6 @@ def test_split_tools_copy_the_sources_at_one_degree(P):
                 texts["corner_lean.cuh"]))
             assert rows == {"DREG": ", ".join(["false"] * 6),
                             "WIDE": ", ".join(["true"] * 6),
-                            "RCP": ", ".join(["true"] * 6),
                             "MINB": "4, 1, 4, 1, 1, 1"}
     with pytest.raises(ValueError, match="sets 2 forms"):
         corner_split.lean_plan("lean minb=41")
@@ -410,8 +409,8 @@ def test_lean_corner_walk_matches_first_design_on_card(P):
     runs there, on the lean corner walk against the first
     bfloat16 corner walk on the same inputs, each on its own schedule
     (which is the same): within the redesign gate (GATE_TOL, at most
-    GATE_SHARE of the values differing; bitwise unless the form takes the
-    approximate reciprocal where its first design divides), both within
+    GATE_SHARE of the values differing; every routed form measured
+    bitwise on the card's large meshes), both within
     CARD_TOL of the plain version, two applies bitwise; the main path
     counts under the routed key, the comparison in its own counter."""
     if not torch.cuda.is_available():
